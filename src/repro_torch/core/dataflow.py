@@ -1,0 +1,358 @@
+"""Unified dataflow dispatch for the GANAX (transposed-)convolution ops.
+
+The port of ``repro.core.dataflow``, inference only.  It owns:
+
+1. **The fused epilogue spec** — :class:`Epilogue` (bias add +
+   activation), executed inside the kernel's accumulator flush.
+2. **μop compilation** — :func:`compile_uops` / :func:`compile_conv_uops`
+   turn a layer geometry into frozen numpy tap tables, cached by
+   geometry (the paper's static "μop compilation" stage).
+3. **Dispatch** — :func:`tconv` / :func:`conv` run one op through a
+   registered backend.  The default, ``"ganax"``, is the kernel: on a
+   CUDA tensor it launches the hand-written CUDA kernel, on a CPU tensor
+   it runs the kernel's plain PyTorch version, and on a rank the kernel
+   does not implement it raises.  ``"ganax-plain"`` (the same dataflow
+   through the plain version on any device), ``"polyphase"`` and
+   ``"zero-insert"`` are oracles that run only when pinned by name.
+
+Geometry semantics are PyTorch ``ConvTranspose`` / correlation-conv
+throughout (channels-last ``x``, ``(K..., Cin, Cout)`` weights).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.scheduler import PhaseSchedule, make_schedule
+from repro_torch.core.tconv import tconv_ganax, tconv_zero_insert
+
+__all__ = [
+    "ACTIVATIONS",
+    "Epilogue",
+    "CompiledUops",
+    "ConvUops",
+    "compile_uops",
+    "compile_conv_uops",
+    "KERNEL_RANKS",
+    "require_kernel_rank",
+    "BACKENDS",
+    "tconv",
+    "conv",
+]
+
+
+# ---------------------------------------------------------------------------
+# Fused epilogue spec.
+# ---------------------------------------------------------------------------
+
+ACTIVATIONS = ("none", "relu", "leaky_relu", "tanh")
+
+
+@dataclasses.dataclass(frozen=True)
+class Epilogue:
+    """Per-layer epilogue fused into the unified (t)conv op.
+
+    ``bias`` adds a per-output-channel bias vector (the ``bias=``
+    argument of :func:`tconv` / :func:`conv`); ``activation`` is applied
+    after it.  The kernel backends run both inside the accumulator
+    flush; the oracle backends apply :meth:`apply` after the op, so
+    every backend computes the same function.  ``leaky_slope`` is
+    canonicalized to the default for non-leaky activations so two specs
+    that compute the same function compare (and hash) equal.
+    """
+
+    bias: bool = False
+    activation: str = "none"
+    leaky_slope: float = 0.2
+
+    def __post_init__(self):
+        if self.activation not in ACTIVATIONS:
+            raise ValueError(f"unknown epilogue activation "
+                             f"{self.activation!r}; one of {ACTIVATIONS}")
+        slope = 0.2 if self.activation != "leaky_relu" \
+            else float(self.leaky_slope)
+        if not slope >= 0:
+            # the reference's backward recovers the leaky derivative from
+            # the output's sign, which requires a sign-preserving slope
+            raise ValueError(f"leaky_slope must be >= 0, got {slope}")
+        object.__setattr__(self, "leaky_slope", slope)
+
+    @property
+    def is_identity(self) -> bool:
+        return not self.bias and self.activation == "none"
+
+    def apply(self, y: torch.Tensor, bias: torch.Tensor | None = None
+              ) -> torch.Tensor:
+        """Reference application — the function the kernel fuses into
+        its flush, computed in f32 and cast back to ``y.dtype``."""
+        dt = y.dtype
+        y = y.float()
+        if self.bias:
+            y = y + bias.float()
+        if self.activation == "relu":
+            y = torch.relu(y)
+        elif self.activation == "leaky_relu":
+            y = torch.where(y > 0, y, self.leaky_slope * y)
+        elif self.activation == "tanh":
+            y = torch.tanh(y)
+        return y.to(dt)
+
+
+_IDENTITY_EPILOGUE = Epilogue()
+
+
+def canonical_epilogue(epilogue: Epilogue | None,
+                       bias: torch.Tensor | None, cout: int) -> Epilogue:
+    """Validate the (epilogue, bias) pair of one dispatch; a bare
+    ``bias=`` tensor with no epilogue means a plain fused bias add."""
+    if epilogue is None:
+        epilogue = Epilogue(bias=True) if bias is not None \
+            else _IDENTITY_EPILOGUE
+    if epilogue.bias and bias is None:
+        raise ValueError("epilogue.bias=True but no bias= tensor passed")
+    if not epilogue.bias and bias is not None:
+        raise ValueError("bias= passed but epilogue.bias=False")
+    if bias is not None and tuple(bias.shape) != (cout,):
+        raise ValueError(f"bias must have shape (cout,)=({cout},), "
+                         f"got {tuple(bias.shape)}")
+    return epilogue
+
+
+# ---------------------------------------------------------------------------
+# μop compilation (frozen static artifacts, cached by geometry).
+# ---------------------------------------------------------------------------
+
+# Spatial ranks the tap tables describe (the planar and the volumetric
+# kernel of the reference).
+TABLE_RANKS = (2, 3)
+
+
+def _frozen(a: np.ndarray) -> np.ndarray:
+    a = np.ascontiguousarray(a)
+    a.setflags(write=False)
+    return a
+
+
+@dataclasses.dataclass(frozen=True)
+class CompiledUops:
+    """Frozen static schedule artifacts for one tconv geometry.
+
+    ``schedule`` serves every backend; the remaining fields are the
+    kernel-ready "local μop buffer" contents for 2-D and 3-D geometries
+    (``None`` for other ranks): flattened tap tables, per-phase
+    weight-gather indices, and the uniform input padding plan.
+    ``tap_dz`` is ``None`` for 2-D geometries.
+    """
+
+    schedule: PhaseSchedule
+    n_taps: np.ndarray | None       # (P,)
+    tap_dy: np.ndarray | None       # (P, T)
+    tap_dx: np.ndarray | None       # (P, T)
+    k_idx: np.ndarray | None        # (P, T) flattened kernel tap index
+    valid: np.ndarray | None        # (P, T) tap-validity mask
+    pad: tuple[tuple[int, int], ...] | None   # per-spatial-dim input padding
+    q_sizes: tuple[int, ...] | None           # phase-plane grid (ceil(out/s))
+    tap_dz: np.ndarray | None = None          # (P, T), 3-D only
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvUops:
+    """Frozen single-phase (SIMD-mode) tables for a plain strided conv.
+    ``tap_dz`` is ``None`` for 2-D geometries."""
+
+    out_sizes: tuple[int, ...]
+    n_taps: np.ndarray              # (1,)
+    tap_dy: np.ndarray              # (1, prod(kernel))
+    tap_dx: np.ndarray              # (1, prod(kernel))
+    pad: tuple[tuple[int, int], ...]
+    tap_dz: np.ndarray | None = None    # (1, prod(kernel)), 3-D only
+
+
+@functools.lru_cache(maxsize=512)
+def compile_uops(in_spatial: tuple[int, ...], kernel: tuple[int, ...],
+                 strides: tuple[int, ...], paddings: tuple[int, ...]
+                 ) -> CompiledUops:
+    """Run the static μop compilation once per layer geometry."""
+    sched = make_schedule(in_spatial, kernel, strides, paddings)
+    nd = sched.n_dims
+    if nd not in TABLE_RANKS:
+        return CompiledUops(schedule=sched, n_taps=None, tap_dy=None,
+                            tap_dx=None, k_idx=None, valid=None, pad=None,
+                            q_sizes=None)
+    tables = sched.tap_tables()
+    tap_off = tables["tap_dx"]          # (P, T, nd)
+    tap_k = tables["tap_k"]             # (P, T, nd)
+    n_taps = tables["n_taps"]           # (P,)
+    t_max = tap_off.shape[1]
+
+    # Row-major flattened kernel tap index over all spatial dims.
+    k_idx = tap_k[..., 0]
+    for d in range(1, nd):
+        k_idx = k_idx * kernel[d] + tap_k[..., d]             # (P, T)
+    valid = np.arange(t_max)[None, :] < n_taps[:, None]
+    k_idx = np.where(valid, k_idx, 0)
+
+    # Uniform padding, extended so every (offset + q) window slice stays
+    # in bounds (the kernel walks phase planes with unit window stride).
+    q_sizes = tuple(-(-o // s) for o, s in zip(sched.out_sizes, strides))
+    upad = sched.uniform_padding()
+    pad = []
+    for d in range(nd):
+        lo, hi = upad[d]
+        need = int(tap_off[..., d].max()) + (q_sizes[d] - 1) + 1
+        extent = in_spatial[d] + lo + hi
+        pad.append((lo, hi + max(0, need - extent)))
+    offs = {f"tap_d{ax}": _frozen(tap_off[..., d])
+            for d, ax in enumerate("zyx"[-nd:])}
+    return CompiledUops(
+        schedule=sched,
+        n_taps=_frozen(n_taps),
+        k_idx=_frozen(k_idx.astype(np.int32)),
+        valid=_frozen(valid),
+        pad=tuple(pad),
+        q_sizes=q_sizes,
+        **offs,
+    )
+
+
+@functools.lru_cache(maxsize=512)
+def compile_conv_uops(in_spatial: tuple[int, ...],
+                      kernel: tuple[int, ...], strides: tuple[int, ...],
+                      paddings: tuple[int, ...]) -> ConvUops:
+    """Single-phase tap tables for a 2-D/3-D plain conv (the paper's SIMD
+    mode: one microprogram whose taps are the full kernel)."""
+    nd = len(in_spatial)
+    if nd not in TABLE_RANKS:
+        raise ValueError(f"conv μop tables exist only for 2-D/3-D "
+                         f"geometries, got {nd}-D")
+    out_sizes = tuple((i + 2 * p - k) // s + 1
+                      for i, k, s, p in zip(in_spatial, kernel, strides,
+                                            paddings))
+    t_max = int(np.prod(kernel))
+    taps = np.stack([np.asarray(u, np.int32)
+                     for u in np.ndindex(*kernel)])       # (T, nd)
+    pad = tuple(
+        (p, max(0, (k - 1) + (q - 1) * s + 1 - (i + p)))
+        for i, k, s, p, q in zip(in_spatial, kernel, strides, paddings,
+                                 out_sizes))
+    offs = {f"tap_d{ax}": _frozen(taps[None, :, d])
+            for d, ax in enumerate("zyx"[-nd:])}
+    return ConvUops(out_sizes=out_sizes,
+                    n_taps=_frozen(np.asarray([t_max], np.int32)),
+                    pad=pad, **offs)
+
+
+# ---------------------------------------------------------------------------
+# Backend registry and dispatch.
+# ---------------------------------------------------------------------------
+
+# Spatial ranks the CUDA kernel implements.  The volumetric kernel
+# (the reference's ganax_conv3d_pallas) is not ported yet.
+KERNEL_RANKS = (2,)
+
+
+
+def require_kernel_rank(nd: int, what: str) -> None:
+    """Raise unless the kernel implements ``nd`` spatial dims."""
+    if nd not in KERNEL_RANKS:
+        raise NotImplementedError(
+            f"{what} is {nd}-D; the GANAX kernel of the PyTorch port "
+            f"implements 2-D layers only, and the 3-D kernel "
+            f"(ganax_conv3d) is still to be ported (ROADMAP.md, 'TPU "
+            f"kernels to port', item 2)")
+
+
+@dataclasses.dataclass(frozen=True)
+class Backend:
+    """One executable dataflow: a tconv and a conv implementation, each
+    ``fn(x, w, strides, paddings, epilogue, bias)``.  ``kernel`` marks
+    the GANAX kernel's dataflow, which runs the kernel's ranks only; the
+    oracles run any rank."""
+
+    name: str
+    tconv: Callable[..., torch.Tensor]
+    conv: Callable[..., torch.Tensor]
+    kernel: bool = False
+
+
+def _kernel(transposed: bool, plain: bool):
+    def fn(x, w, strides, paddings, epilogue, bias):
+        from repro_torch.kernels.ops import ganax_conv, ganax_conv_transpose
+        op = ganax_conv_transpose if transposed else ganax_conv
+        return op(x, w, strides, paddings, epilogue=epilogue, bias=bias,
+                  plain=plain)
+    return fn
+
+
+def _oracle(op):
+    def fn(x, w, strides, paddings, epilogue, bias):
+        y = op(x, w, strides, paddings)
+        return y if epilogue.is_identity else epilogue.apply(y, bias)
+    return fn
+
+
+def _tconv_polyphase(x, w, strides, paddings):
+    nd = x.ndim - 2
+    u = compile_uops(tuple(x.shape[1:1 + nd]), tuple(w.shape[:nd]),
+                     tuple(strides), tuple(paddings))
+    return tconv_ganax(x, w, strides, paddings, schedule=u.schedule)
+
+
+def _conv_dense(x, w, strides, paddings):
+    from repro_torch.kernels.ref import conv_ref
+    return conv_ref(x, w, strides, paddings)
+
+
+BACKENDS: dict[str, Backend] = {b.name: b for b in (
+    Backend("ganax", _kernel(True, False), _kernel(False, False), True),
+    Backend("ganax-plain", _kernel(True, True), _kernel(False, True), True),
+    Backend("polyphase", _oracle(_tconv_polyphase), _oracle(_conv_dense)),
+    Backend("zero-insert", _oracle(tconv_zero_insert),
+            _oracle(_conv_dense)),
+)}
+
+
+def _dispatch(transposed: bool, x, w, strides, paddings, backend, bias,
+              epilogue) -> torch.Tensor:
+    name = backend or "ganax"
+    if name not in BACKENDS:
+        raise ValueError(f"unknown dataflow backend {name!r}; "
+                         f"available: {tuple(sorted(BACKENDS))}")
+    b = BACKENDS[name]
+    if b.kernel:
+        require_kernel_rank(x.ndim - 2, "the input")
+    epilogue = canonical_epilogue(epilogue, bias, int(w.shape[-1]))
+    fn = b.tconv if transposed else b.conv
+    return fn(x, w, tuple(strides), tuple(paddings), epilogue, bias)
+
+
+def tconv(x: torch.Tensor, w: torch.Tensor, strides: Sequence[int],
+          paddings: Sequence[int], *, backend: str | None = None,
+          bias: torch.Tensor | None = None,
+          epilogue: Epilogue | None = None) -> torch.Tensor:
+    """Transposed convolution through the unified GANAX dispatch.
+
+    x: (N, *spatial, Cin) channels-last; w: (K..., Cin, Cout).
+    ``backend`` pins a registered backend (default ``"ganax"``, the
+    kernel).  ``epilogue`` fuses a bias add (``bias``: a (Cout,) vector,
+    required iff ``epilogue.bias``) and an activation into the op; a bare
+    ``bias=`` with no epilogue means a plain fused bias add.  Inference
+    only: the kernel path has no gradient."""
+    return _dispatch(True, x, w, strides, paddings, backend, bias,
+                     epilogue)
+
+
+def conv(x: torch.Tensor, w: torch.Tensor, strides: Sequence[int],
+         paddings: Sequence[int], *, backend: str | None = None,
+         bias: torch.Tensor | None = None,
+         epilogue: Epilogue | None = None) -> torch.Tensor:
+    """Plain (strided) convolution through the same dispatch — the
+    paper's SIMD mode, the single-phase case of the same kernel.
+    Arguments as in :func:`tconv`."""
+    return _dispatch(False, x, w, strides, paddings, backend, bias,
+                     epilogue)

@@ -1,0 +1,37 @@
+"""Device selection for the port's entry points."""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device", "require_ieee_f32"]
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """The device an entry point runs on.
+
+    The default is the card.  Without one, only an explicit CPU device
+    runs: a CUDA request raises rather than carrying on on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run "
+                "the plain PyTorch versions on the CPU")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    return dev
+
+
+def require_ieee_f32(t: torch.Tensor, *, conv: bool = False) -> None:
+    """Refuse TF32 for an f32 matmul (``conv=True``: a cuDNN
+    convolution) on the card: TF32 keeps about three decimal digits,
+    and the port computes in full f32 everywhere."""
+    if not t.is_cuda:
+        return
+    flag = "cudnn" if conv else "cuda.matmul"
+    if (torch.backends.cudnn.allow_tf32 if conv
+            else torch.backends.cuda.matmul.allow_tf32):
+        raise RuntimeError(
+            f"torch.backends.{flag}.allow_tf32 is True; the port "
+            f"computes in full float32 (set it to False)")

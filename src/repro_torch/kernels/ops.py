@@ -1,0 +1,174 @@
+"""One (transposed) convolution through the unified GANAX kernel.
+
+The kernel backend of ``core.dataflow`` (the port of
+``repro.kernels.ops``): pad the input once for every phase, gather each
+phase's weight taps, launch the kernel, then crop the phase planes and
+interleave them into the image.  The kernel is :func:`ganax_conv_cuda`
+for a CUDA tensor and its plain version :func:`ganax_conv_plain` for a
+CPU tensor; ``plain=True`` (the ``"ganax-plain"`` oracle, pinned by
+name only) runs the plain version on any device.
+
+The tap tables and gather indices of a layer geometry are built once
+per device and cached, as ``compile_uops`` caches the schedule; only
+the weight gather depends on the values.  Inference only: these ops
+record no gradient and raise when one is asked for.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.dataflow import (Epilogue, canonical_epilogue,
+                                       compile_conv_uops, compile_uops,
+                                       require_kernel_rank)
+from repro_torch.core.tconv import interleave_phases
+from repro_torch.kernels.ganax_conv import (TapTables, ganax_conv_cuda,
+                                            ganax_conv_plain)
+
+__all__ = ["ganax_conv_transpose", "ganax_conv", "kernel_operands"]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class _Prep:
+    """The value-independent prep of one geometry on one device."""
+
+    tables: TapTables
+    pad: tuple[int, ...]            # F.pad argument for (N, H, W, C)
+    q_sizes: tuple[int, int]
+    k_idx: torch.Tensor | None      # (P*T,) gather index (tconv only)
+    valid: torch.Tensor | None      # (P, T, 1, 1) tap mask (tconv only)
+
+
+def _f_pad(pad: tuple[tuple[int, int], ...]) -> tuple[int, ...]:
+    flat = [0, 0]                   # channels
+    for lo, hi in reversed(pad):
+        flat += [lo, hi]
+    return tuple(flat)
+
+
+@functools.lru_cache(maxsize=512)
+def _tconv_prep(in_spatial, kernel, strides, paddings, device) -> _Prep:
+    u = compile_uops(in_spatial, kernel, strides, paddings)
+    p, t = u.k_idx.shape
+    return _Prep(
+        tables=TapTables.from_numpy(u.n_taps, u.tap_dy, u.tap_dx, device),
+        pad=_f_pad(u.pad), q_sizes=u.q_sizes,
+        k_idx=torch.tensor(u.k_idx.reshape(-1), dtype=torch.long,
+                           device=device),
+        valid=torch.tensor(u.valid, device=device).reshape(p, t, 1, 1))
+
+
+@functools.lru_cache(maxsize=512)
+def _conv_prep(in_spatial, kernel, strides, paddings, device) -> _Prep:
+    u = compile_conv_uops(in_spatial, kernel, strides, paddings)
+    return _Prep(
+        tables=TapTables.from_numpy(u.n_taps, u.tap_dy, u.tap_dx, device),
+        pad=_f_pad(u.pad), q_sizes=u.out_sizes, k_idx=None, valid=None)
+
+
+def _check_inputs(x: torch.Tensor, w: torch.Tensor, route: str) -> None:
+    require_kernel_rank(x.ndim - 2, f"the ganax {route} input")
+    if w.ndim != x.ndim:
+        raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} "
+                         f"differ in rank")
+    if x.dtype != torch.float32 or w.dtype != torch.float32:
+        raise NotImplementedError(
+            f"ganax {route} serves float32 only, got {x.dtype} and "
+            f"{w.dtype}; bf16/f16 storage is the quantization item of "
+            f"ROADMAP.md")
+    if x.device != w.device:
+        raise ValueError(f"x on {x.device} but w on {w.device}")
+    if x.shape[-1] != w.shape[-2]:
+        raise ValueError(f"x has {x.shape[-1]} channels but w takes "
+                         f"{w.shape[-2]}")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise NotImplementedError(
+            f"ganax {route} is inference only: the kernel path has no "
+            f"gradient yet (ROADMAP.md, training item); run it under "
+            f"torch.no_grad() or torch.inference_mode()")
+
+
+def kernel_operands(x: torch.Tensor, w: torch.Tensor,
+                    strides: Sequence[int], paddings: Sequence[int], *,
+                    transposed: bool) -> dict:
+    """The kernel's operands for one (transposed) conv: the padded input
+    ``x_pad``, the gathered weight taps ``w_taps``, the tap ``tables``,
+    ``out_strides`` and the phase-plane extents ``qy``/``qx`` — keyword
+    arguments of :func:`ganax_conv_cuda` / :func:`ganax_conv_plain`."""
+    _check_inputs(x, w, "tconv" if transposed else "conv")
+    nd = x.ndim - 2
+    geometry = (tuple(x.shape[1:1 + nd]), tuple(w.shape[:nd]),
+                tuple(strides), tuple(paddings), x.device)
+    cin, cout = w.shape[-2:]
+    if transposed:
+        prep = _tconv_prep(*geometry)
+        p, t = prep.valid.shape[:2]
+        w_taps = w.reshape(-1, cin, cout).index_select(0, prep.k_idx)
+        w_taps = torch.where(prep.valid, w_taps.reshape(p, t, cin, cout),
+                             0.0)
+        out_strides = (1,) * nd
+    else:
+        prep = _conv_prep(*geometry)
+        w_taps = w.reshape(1, -1, cin, cout).contiguous()
+        out_strides = tuple(strides)
+    qy, qx = prep.q_sizes
+    return dict(x_pad=F.pad(x, prep.pad).contiguous(), w_taps=w_taps,
+                tables=prep.tables, out_strides=out_strides, qy=qy, qx=qx)
+
+
+def _launch(operands: dict, epilogue, bias, plain: bool) -> torch.Tensor:
+    ep = canonical_epilogue(epilogue, bias,
+                            int(operands["w_taps"].shape[-1]))
+    if bias is not None:
+        bias = bias.to(torch.float32).contiguous()
+    kernel = ganax_conv_plain if plain or not operands["x_pad"].is_cuda \
+        else ganax_conv_cuda
+    return kernel(**operands, bias=bias, activation=ep.activation,
+                  leaky_slope=ep.leaky_slope)
+
+
+def ganax_conv_transpose(x: torch.Tensor, w: torch.Tensor,
+                         strides: Sequence[int], paddings: Sequence[int],
+                         *, epilogue: Epilogue | None = None,
+                         bias: torch.Tensor | None = None,
+                         plain: bool = False) -> torch.Tensor:
+    """Transposed convolution through the unified GANAX kernel.
+
+    x: (N, H, W, Cin) channels-last; w: (Kh, Kw, Cin, Cout).
+    ``epilogue``/``bias`` fuse a bias add and activation into the
+    kernel's flush; phases with no taps (kernel < stride) still get it,
+    their outputs are ``act(0 + b)``.  The epilogue is elementwise, so it
+    commutes with the phase interleave that follows."""
+    out_pm = _launch(kernel_operands(x, w, strides, paddings,
+                                     transposed=True),
+                     epilogue, bias, plain)
+    # out_pm: (B, P, Qy, Qx, Cout) in schedule.phase_order; interleave
+    nd = x.ndim - 2
+    sched = compile_uops(tuple(x.shape[1:1 + nd]), tuple(w.shape[:nd]),
+                         tuple(strides), tuple(paddings)).schedule
+    phase_planes = {}
+    for row, flat in enumerate(sched.phase_order):
+        crop = tuple(slice(0, pd.out_size) for pd in sched.phase_dims(flat))
+        phase_planes[sched.phase_tuple(flat)] = \
+            out_pm[(slice(None), row) + crop]
+    if sched.n_phases == 1:
+        return phase_planes[(0,) * nd]
+    return interleave_phases(phase_planes, sched)
+
+
+def ganax_conv(x: torch.Tensor, w: torch.Tensor, strides: Sequence[int],
+               paddings: Sequence[int], *,
+               epilogue: Epilogue | None = None,
+               bias: torch.Tensor | None = None,
+               plain: bool = False) -> torch.Tensor:
+    """Plain (strided) convolution through the same kernel — the paper's
+    SIMD mode: one phase whose taps are the full kernel.  Arguments as
+    in :func:`ganax_conv_transpose`."""
+    return _launch(kernel_operands(x, w, strides, paddings,
+                                   transposed=False),
+                   epilogue, bias, plain)[:, 0]

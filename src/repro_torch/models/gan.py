@@ -1,0 +1,190 @@
+"""Executable GAN models (the paper's Table I workloads) on GANAX ops.
+
+The port of ``repro.models.gan`` for inference of the generators: the
+config, the parameter specs of both networks, their fused epilogues, the
+initializer, and :class:`Generator`, which replays the generator branch
+of the reference's ``Program._replay``: the z-projection (an f32 matmul,
++ bias, ReLU), then one ``tconv`` / ``conv`` per layer with its bias and
+activation fused into the kernel's flush.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from repro_torch.configs.gans import GAN_MODELS
+from repro_torch.core.analytical import ConvLayer
+from repro_torch.core.dataflow import (BACKENDS, Epilogue, conv,
+                                       require_kernel_rank, tconv)
+from repro_torch.device import require_ieee_f32, resolve_device
+from repro_torch.models.common import PSpec, init_params
+
+__all__ = ["GanConfig", "generator_specs", "discriminator_specs",
+           "generator_epilogues", "discriminator_epilogues", "init_gan",
+           "check_params", "Generator", "LEAKY_SLOPE"]
+
+# The discriminator's LeakyReLU slope (DCGAN convention, used by every
+# Table-I discriminator).
+LEAKY_SLOPE = 0.2
+
+_F32_NAMES = ("float32", "f32", "fp32")
+
+
+@dataclasses.dataclass(frozen=True)
+class GanConfig:
+    """One Table-I model.  ``channel_scale`` shrinks the channels for
+    CPU-sized runs; ``backend`` pins a dataflow backend (``None``: the
+    kernel); ``dtype`` is the storage precision, float32 only here."""
+
+    name: str
+    z_dim: int = 100
+    channel_scale: float = 1.0
+    backend: str | None = None
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.name not in GAN_MODELS:
+            raise ValueError(f"unknown GAN {self.name!r}; one of "
+                             f"{tuple(sorted(GAN_MODELS))}")
+        if self.backend is not None and self.backend not in BACKENDS:
+            raise ValueError(f"unknown dataflow backend {self.backend!r}; "
+                             f"available: {tuple(sorted(BACKENDS))}")
+        if str(self.dtype) not in _F32_NAMES:
+            raise NotImplementedError(
+                f"the PyTorch port serves dtype='float32' only, got "
+                f"{self.dtype!r}; bf16/f16 storage is the quantization "
+                f"item of ROADMAP.md")
+        object.__setattr__(self, "dtype", "float32")
+
+    @property
+    def layers(self) -> tuple[list[ConvLayer], list[ConvLayer]]:
+        g, d = GAN_MODELS[self.name]
+        if self.channel_scale != 1.0:
+            def shrink(l: ConvLayer) -> ConvLayer:
+                c_in = max(1, int(l.cin * self.channel_scale)) \
+                    if l.cin > 3 else l.cin
+                c_out = max(1, int(l.cout * self.channel_scale)) \
+                    if l.cout > 3 else l.cout
+                return dataclasses.replace(l, cin=c_in, cout=c_out)
+            g = [shrink(l) for l in g]
+            d = [shrink(l) for l in d]
+        return g, d
+
+
+def _conv_specs(layers: Sequence[ConvLayer], prefix: str) -> dict:
+    specs = {}
+    for i, l in enumerate(layers):
+        fan_in = math.prod(l.kernel) * l.cin
+        specs[f"{prefix}{i}_w"] = PSpec(
+            tuple(l.kernel) + (l.cin, l.cout),
+            (None,) * len(l.kernel) + ("conv_in", "conv_out"),
+            scale=fan_in ** -0.5)   # no batch-norm → fan-in init
+        specs[f"{prefix}{i}_b"] = PSpec((l.cout,), ("conv_out",),
+                                        init="zeros")
+    return specs
+
+
+def generator_specs(cfg: GanConfig) -> dict[str, PSpec]:
+    g_layers, _ = cfg.layers
+    first = g_layers[0]
+    proj_dim = math.prod(first.in_spatial) * first.cin
+    specs = {"proj_w": PSpec((cfg.z_dim, proj_dim), (None, "mlp"),
+                             scale=0.02),
+             "proj_b": PSpec((proj_dim,), ("mlp",), init="zeros")}
+    specs.update(_conv_specs(g_layers, "t"))
+    return specs
+
+
+def discriminator_specs(cfg: GanConfig) -> dict[str, PSpec]:
+    _, d_layers = cfg.layers
+    return _conv_specs(d_layers, "c")
+
+
+def generator_epilogues(g_layers: Sequence[ConvLayer]) -> list[Epilogue]:
+    """Per-layer fused epilogues of a Table-I generator: bias + ReLU on
+    every hidden layer, bias + tanh on the image-producing last one."""
+    last = len(g_layers) - 1
+    return [Epilogue(bias=True,
+                     activation="tanh" if i == last else "relu")
+            for i in range(len(g_layers))]
+
+
+def discriminator_epilogues(d_layers: Sequence[ConvLayer]
+                            ) -> list[Epilogue]:
+    """Per-layer fused epilogues of a Table-I discriminator: bias +
+    LeakyReLU on every hidden layer, bias only on the logits layer."""
+    last = len(d_layers) - 1
+    return [Epilogue(bias=True,
+                     activation="none" if i == last else "leaky_relu",
+                     leaky_slope=LEAKY_SLOPE)
+            for i in range(len(d_layers))]
+
+
+def init_gan(cfg: GanConfig, gen: torch.Generator,
+             device: str | torch.device = "cuda"
+             ) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
+    """(generator, discriminator) parameters drawn from the CPU
+    generator ``gen`` and placed on ``device``."""
+    dev = resolve_device(device)
+    return (init_params(gen, generator_specs(cfg), dev),
+            init_params(gen, discriminator_specs(cfg), dev))
+
+
+def check_params(params: dict, specs: dict[str, PSpec]) -> None:
+    """Raise unless ``params`` has exactly the names of ``specs``, each
+    with its shape."""
+    missing = sorted(set(specs) - set(params))
+    extra = sorted(set(params) - set(specs))
+    if missing or extra:
+        raise ValueError(f"parameter names do not match the specs: "
+                         f"missing {missing}, unexpected {extra}")
+    for name, spec in specs.items():
+        shape = tuple(params[name].shape)
+        if shape != spec.shape:
+            raise ValueError(f"parameter {name!r} has shape {shape}, the "
+                             f"spec says {spec.shape}")
+
+
+class Generator(nn.Module):
+    """A Table-I generator: ``z (B, z_dim)`` → image ``(B, H, W, C)``.
+
+    ``params`` are named as :func:`generator_specs` says and are moved
+    to ``device`` (default: the card).  Inference only: the parameters
+    record no gradient."""
+
+    def __init__(self, cfg: GanConfig, params: dict[str, torch.Tensor],
+                 device: str | torch.device = "cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        g_layers, _ = cfg.layers
+        if BACKENDS[cfg.backend or "ganax"].kernel:
+            for l in g_layers:
+                require_kernel_rank(len(l.kernel),
+                                    f"{cfg.name} layer {l.name}")
+        check_params(params, generator_specs(cfg))
+        self.cfg = cfg
+        self.layers = tuple(g_layers)
+        self.epilogues = tuple(generator_epilogues(g_layers))
+        self.weights = nn.ParameterDict({
+            name: nn.Parameter(
+                torch.as_tensor(t, dtype=torch.float32).to(dev),
+                requires_grad=False)
+            for name, t in sorted(params.items())})
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        p = self.weights
+        first = self.layers[0]
+        require_ieee_f32(z)
+        x = torch.matmul(z.to(torch.float32), p["proj_w"]) + p["proj_b"]
+        x = torch.relu(x.reshape((x.shape[0],) + tuple(first.in_spatial)
+                                 + (first.cin,)))
+        for i, (l, ep) in enumerate(zip(self.layers, self.epilogues)):
+            op = tconv if l.transposed else conv
+            x = op(x, p[f"t{i}_w"], l.strides, l.paddings,
+                   backend=self.cfg.backend, bias=p[f"t{i}_b"], epilogue=ep)
+        return x

@@ -1,0 +1,114 @@
+"""The PyTorch port's CUDA kernel on the card, against its plain version.
+
+Every test here needs a CUDA card and skips without one.  The file
+imports nothing of JAX, so it also runs where JAX is not installed:
+
+    PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
+
+Tolerance: atol = rtol = 1e-4 — f32 against f32, summed in another
+order.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import dataflow as tdf
+from repro_torch.kernels import ops
+from repro_torch.kernels.ganax_conv import ganax_conv_cuda, ganax_conv_plain
+from repro_torch.models.gan import GanConfig, init_gan
+from repro_torch.serve.gan import GanServer
+
+TOL = dict(atol=1e-4, rtol=1e-4)
+
+pytestmark = pytest.mark.gpu
+
+# (x shape, w shape, strides, paddings, transposed, activation, bias)
+CASES = [
+    ((2, 4, 4, 64), (4, 4, 64, 128), (2, 2), (1, 1), True, "relu", True),
+    ((3, 6, 6, 8), (5, 5, 8, 72), (1, 1), (2, 2), True, "tanh", True),
+    ((2, 4, 4, 4), (1, 1, 4, 8), (2, 2), (0, 0), True, "leaky_relu", True),
+    ((2, 8, 8, 20), (4, 4, 20, 8), (2, 2), (1, 1), False, "leaky_relu", True),
+    ((2, 8, 8, 33), (4, 4, 33, 3), (2, 2), (1, 1), True, "tanh", True),
+    ((1, 5, 3, 4), (3, 5, 4, 4), (3, 2), (1, 2), True, "none", False),
+    ((1, 9, 9, 3), (4, 4, 3, 65), (2, 2), (1, 1), False, "relu", False),
+    ((5, 7, 7, 17), (3, 3, 17, 1), (3, 3), (0, 0), False, "none", True),
+]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel runs only there")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(xs, ws, dev, seed=5):
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.normal(size=xs), dtype=torch.float32, device=dev)
+    w = torch.tensor(0.3 * rng.normal(size=ws), dtype=torch.float32,
+                     device=dev)
+    b = torch.tensor(rng.normal(size=ws[-1]), dtype=torch.float32,
+                     device=dev)
+    return x, w, b
+
+
+@pytest.mark.parametrize("xs,ws,s,p,transposed,act,has_bias", CASES)
+def test_cuda_kernel_matches_plain(dev, xs, ws, s, p, transposed, act,
+                                   has_bias):
+    x, w, b = _inputs(xs, ws, dev)
+    operands = ops.kernel_operands(x, w, s, p, transposed=transposed)
+    b = b if has_bias else None
+    before = ganax_conv_cuda.launches
+    got = ganax_conv_cuda(**operands, bias=b, activation=act)
+    assert ganax_conv_cuda.launches == before + 1
+    ref = ganax_conv_plain(**operands, bias=b, activation=act)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, **TOL)
+
+
+@pytest.mark.parametrize("xs,ws,s,p,transposed,act,has_bias", CASES)
+def test_cuda_op_matches_plain_op(dev, xs, ws, s, p, transposed, act,
+                                  has_bias):
+    x, w, b = _inputs(xs, ws, dev, seed=6)
+    ep = tdf.Epilogue(bias=has_bias, activation=act)
+    op = tdf.tconv if transposed else tdf.conv
+    b = b if has_bias else None
+    got = op(x, w, s, p, bias=b, epilogue=ep)
+    ref = op(x, w, s, p, bias=b, epilogue=ep, backend="ganax-plain")
+    assert got.is_cuda
+    torch.testing.assert_close(got, ref, **TOL)
+
+
+def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    x, w, _ = _inputs((1, 4, 4, 8), (4, 4, 8, 16), dev)
+    operands = ops.kernel_operands(x, w, (2, 2), (1, 1), transposed=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        ganax_conv_cuda(**dict(operands, x_pad=operands["x_pad"]
+                               .transpose(1, 2)))
+    with pytest.raises(ValueError, match="CUDA device"):
+        ganax_conv_cuda(**dict(operands, w_taps=operands["w_taps"].cpu()))
+    with pytest.raises(TypeError, match="float32"):
+        ganax_conv_cuda(**dict(operands, x_pad=operands["x_pad"].double()))
+    x3 = torch.zeros((1, 3, 3, 3, 4), device=dev)
+    w3 = torch.zeros((4, 4, 4, 4, 8), device=dev)
+    with pytest.raises(NotImplementedError, match="3-D kernel"):
+        tdf.tconv(x3, w3, (2, 2, 2), (1, 1, 1))
+
+
+def test_server_on_the_card_launches_the_kernel(dev):
+    cfg = GanConfig("dcgan", channel_scale=1 / 32)
+    g, _ = init_gan(cfg, torch.Generator().manual_seed(0), dev)
+    server = GanServer(cfg, g, batch_size=4, seed=0, device=dev)
+    before = ganax_conv_cuda.launches
+    img = server.generate(6)
+    torch.cuda.synchronize()
+    assert img.is_cuda and tuple(img.shape) == (6, 64, 64, 3)
+    assert ganax_conv_cuda.launches - before == 4 * server.batches_served
+    ref = GanServer(dataclasses.replace(cfg, backend="ganax-plain"), g,
+                    batch_size=4, seed=0, device=dev).generate(6)
+    torch.testing.assert_close(img, ref, **TOL)
