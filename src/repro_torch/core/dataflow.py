@@ -9,11 +9,12 @@ The port of ``repro.core.dataflow``, inference only.  It owns:
    geometry (the paper's static "μop compilation" stage).
 3. **Dispatch** — :func:`tconv` / :func:`conv` run one op through a
    registered backend.  The default, ``"ganax"``, is the kernel: on a
-   CUDA tensor it launches the hand-written CUDA kernel, on a CPU tensor
-   it runs the kernel's plain PyTorch version, and on a rank the kernel
-   does not implement it raises.  ``"ganax-plain"`` (the same dataflow
-   through the plain version on any device), ``"polyphase"`` and
-   ``"zero-insert"`` are oracles that run only when pinned by name.
+   CUDA tensor it launches the hand-written CUDA kernel of the input's
+   rank (2-D or 3-D), on a CPU tensor it runs that kernel's plain
+   PyTorch version, and on any other rank it raises.  ``"ganax-plain"``
+   (the same dataflow through the plain version on any device),
+   ``"polyphase"`` and ``"zero-insert"`` are oracles that run only when
+   pinned by name.
 
 Geometry semantics are PyTorch ``ConvTranspose`` / correlation-conv
 throughout (channels-last ``x``, ``(K..., Cin, Cout)`` weights).
@@ -251,20 +252,19 @@ def compile_conv_uops(in_spatial: tuple[int, ...],
 # Backend registry and dispatch.
 # ---------------------------------------------------------------------------
 
-# Spatial ranks the CUDA kernel implements.  The volumetric kernel
-# (the reference's ganax_conv3d_pallas) is not ported yet.
-KERNEL_RANKS = (2,)
-
+# Spatial ranks the CUDA kernels implement: the planar and the
+# volumetric kernel, as in the reference.
+KERNEL_RANKS = (2, 3)
 
 
 def require_kernel_rank(nd: int, what: str) -> None:
-    """Raise unless the kernel implements ``nd`` spatial dims."""
+    """Raise unless the kernels implement ``nd`` spatial dims."""
     if nd not in KERNEL_RANKS:
         raise NotImplementedError(
-            f"{what} is {nd}-D; the GANAX kernel of the PyTorch port "
-            f"implements 2-D layers only, and the 3-D kernel "
-            f"(ganax_conv3d) is still to be ported (ROADMAP.md, 'TPU "
-            f"kernels to port', item 2)")
+            f"{what} is {nd}-D; the GANAX kernels of the PyTorch port "
+            f"implement 2-D and 3-D layers only, as the reference's "
+            f"Pallas kernels do; pin the 'polyphase' or 'zero-insert' "
+            f"oracle for other ranks")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,12 +1,14 @@
 """One (transposed) convolution through the unified GANAX kernel.
 
 The kernel backend of ``core.dataflow`` (the port of
-``repro.kernels.ops``): pad the input once for every phase, gather each
-phase's weight taps, launch the kernel, then crop the phase planes and
-interleave them into the image.  The kernel is :func:`ganax_conv_cuda`
-for a CUDA tensor and its plain version :func:`ganax_conv_plain` for a
-CPU tensor; ``plain=True`` (the ``"ganax-plain"`` oracle, pinned by
-name only) runs the plain version on any device.
+``repro.kernels.ops``), for 2-D and 3-D layers: pad the input once for
+every phase, gather each phase's weight taps, launch the kernel of the
+input's rank, then crop the phase planes and interleave them into the
+image or volume.  The kernel is :func:`ganax_conv_cuda` (2-D) or
+:func:`ganax_conv3d_cuda` (3-D) for a CUDA tensor, and its plain version
+(:func:`ganax_conv_plain` / :func:`ganax_conv3d_plain`) for a CPU
+tensor; ``plain=True`` (the ``"ganax-plain"`` oracle, pinned by name
+only) runs the plain version on any device.
 
 The tap tables and gather indices of a layer geometry are built once
 per device and cached, as ``compile_uops`` caches the schedule; only
@@ -27,8 +29,9 @@ from repro_torch.core.dataflow import (Epilogue, canonical_epilogue,
                                        compile_conv_uops, compile_uops,
                                        require_kernel_rank)
 from repro_torch.core.tconv import interleave_phases
-from repro_torch.kernels.ganax_conv import (TapTables, ganax_conv_cuda,
-                                            ganax_conv_plain)
+from repro_torch.kernels.ganax_conv import (TapTables, ganax_conv3d_cuda,
+                                            ganax_conv3d_plain,
+                                            ganax_conv_cuda, ganax_conv_plain)
 
 __all__ = ["ganax_conv_transpose", "ganax_conv", "kernel_operands"]
 
@@ -38,8 +41,8 @@ class _Prep:
     """The value-independent prep of one geometry on one device."""
 
     tables: TapTables
-    pad: tuple[int, ...]            # F.pad argument for (N, H, W, C)
-    q_sizes: tuple[int, int]
+    pad: tuple[int, ...]            # F.pad argument for (N, *S, C)
+    q_sizes: tuple[int, ...]
     k_idx: torch.Tensor | None      # (P*T,) gather index (tconv only)
     valid: torch.Tensor | None      # (P, T, 1, 1) tap mask (tconv only)
 
@@ -56,7 +59,8 @@ def _tconv_prep(in_spatial, kernel, strides, paddings, device) -> _Prep:
     u = compile_uops(in_spatial, kernel, strides, paddings)
     p, t = u.k_idx.shape
     return _Prep(
-        tables=TapTables.from_numpy(u.n_taps, u.tap_dy, u.tap_dx, device),
+        tables=TapTables.from_numpy(u.n_taps, u.tap_dy, u.tap_dx, device,
+                                    tap_dz=u.tap_dz),
         pad=_f_pad(u.pad), q_sizes=u.q_sizes,
         k_idx=torch.tensor(u.k_idx.reshape(-1), dtype=torch.long,
                            device=device),
@@ -67,7 +71,8 @@ def _tconv_prep(in_spatial, kernel, strides, paddings, device) -> _Prep:
 def _conv_prep(in_spatial, kernel, strides, paddings, device) -> _Prep:
     u = compile_conv_uops(in_spatial, kernel, strides, paddings)
     return _Prep(
-        tables=TapTables.from_numpy(u.n_taps, u.tap_dy, u.tap_dx, device),
+        tables=TapTables.from_numpy(u.n_taps, u.tap_dy, u.tap_dx, device,
+                                    tap_dz=u.tap_dz),
         pad=_f_pad(u.pad), q_sizes=u.out_sizes, k_idx=None, valid=None)
 
 
@@ -98,8 +103,9 @@ def kernel_operands(x: torch.Tensor, w: torch.Tensor,
                     transposed: bool) -> dict:
     """The kernel's operands for one (transposed) conv: the padded input
     ``x_pad``, the gathered weight taps ``w_taps``, the tap ``tables``,
-    ``out_strides`` and the phase-plane extents ``qy``/``qx`` — keyword
-    arguments of :func:`ganax_conv_cuda` / :func:`ganax_conv_plain`."""
+    ``out_strides`` and the phase-grid extents (``qy``/``qx``, or
+    ``qz``/``qy``/``qx`` for a 3-D input) — keyword arguments of the
+    kernel of the input's rank and of its plain version."""
     _check_inputs(x, w, "tconv" if transposed else "conv")
     nd = x.ndim - 2
     geometry = (tuple(x.shape[1:1 + nd]), tuple(w.shape[:nd]),
@@ -116,9 +122,14 @@ def kernel_operands(x: torch.Tensor, w: torch.Tensor,
         prep = _conv_prep(*geometry)
         w_taps = w.reshape(1, -1, cin, cout).contiguous()
         out_strides = tuple(strides)
-    qy, qx = prep.q_sizes
     return dict(x_pad=F.pad(x, prep.pad).contiguous(), w_taps=w_taps,
-                tables=prep.tables, out_strides=out_strides, qy=qy, qx=qx)
+                tables=prep.tables, out_strides=out_strides,
+                **dict(zip(("qz", "qy", "qx")[-nd:], prep.q_sizes)))
+
+
+# (CUDA kernel, plain version) of each spatial rank
+_KERNELS = {2: (ganax_conv_cuda, ganax_conv_plain),
+            3: (ganax_conv3d_cuda, ganax_conv3d_plain)}
 
 
 def _launch(operands: dict, epilogue, bias, plain: bool) -> torch.Tensor:
@@ -126,8 +137,9 @@ def _launch(operands: dict, epilogue, bias, plain: bool) -> torch.Tensor:
                             int(operands["w_taps"].shape[-1]))
     if bias is not None:
         bias = bias.to(torch.float32).contiguous()
-    kernel = ganax_conv_plain if plain or not operands["x_pad"].is_cuda \
-        else ganax_conv_cuda
+    x_pad = operands["x_pad"]
+    cuda_kernel, plain_kernel = _KERNELS[x_pad.ndim - 2]
+    kernel = plain_kernel if plain or not x_pad.is_cuda else cuda_kernel
     return kernel(**operands, bias=bias, activation=ep.activation,
                   leaky_slope=ep.leaky_slope)
 
@@ -139,7 +151,8 @@ def ganax_conv_transpose(x: torch.Tensor, w: torch.Tensor,
                          plain: bool = False) -> torch.Tensor:
     """Transposed convolution through the unified GANAX kernel.
 
-    x: (N, H, W, Cin) channels-last; w: (Kh, Kw, Cin, Cout).
+    x: (N, *spatial, Cin) channels-last with 2 or 3 spatial dims;
+    w: (K..., Cin, Cout).
     ``epilogue``/``bias`` fuse a bias add and activation into the
     kernel's flush; phases with no taps (kernel < stride) still get it,
     their outputs are ``act(0 + b)``.  The epilogue is elementwise, so it
@@ -147,7 +160,7 @@ def ganax_conv_transpose(x: torch.Tensor, w: torch.Tensor,
     out_pm = _launch(kernel_operands(x, w, strides, paddings,
                                      transposed=True),
                      epilogue, bias, plain)
-    # out_pm: (B, P, Qy, Qx, Cout) in schedule.phase_order; interleave
+    # out_pm: (B, P, *Q, Cout) in schedule.phase_order; interleave
     nd = x.ndim - 2
     sched = compile_uops(tuple(x.shape[1:1 + nd]), tuple(w.shape[:nd]),
                          tuple(strides), tuple(paddings)).schedule

@@ -151,7 +151,9 @@ def check_params(params: dict, specs: dict[str, PSpec]) -> None:
 
 
 class Generator(nn.Module):
-    """A Table-I generator: ``z (B, z_dim)`` → image ``(B, H, W, C)``.
+    """A Table-I generator: ``z (B, z_dim)`` → image ``(B, H, W, C)``,
+    or volume ``(B, D, H, W, C)`` for 3D-GAN, whose layers run through
+    the 3-D kernel.
 
     ``params`` are named as :func:`generator_specs` says and are moved
     to ``device`` (default: the card).  Inference only: the parameters

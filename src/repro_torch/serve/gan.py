@@ -52,9 +52,9 @@ class GanServer:
                            generator=self._rng, device=self.device)
 
     def generate(self, n: int) -> torch.Tensor:
-        """``n`` images ``(n, H, W, C)`` on the server's device.  Remainder
-        samples of the last batch are buffered for the next call, never
-        discarded."""
+        """``n`` images ``(n, *spatial, C)`` on the server's device (3D-GAN:
+        volumes ``(n, 64, 64, 64, 1)``).  Remainder samples of the last
+        batch are buffered for the next call, never discarded."""
         if int(n) <= 0:
             raise ValueError(f"n must be positive, got {n}")
         remaining = int(n)

@@ -1,4 +1,4 @@
-"""The PyTorch port's CUDA kernel on the card, against its plain version.
+"""The PyTorch port's CUDA kernels on the card, against their plain versions.
 
 Every test here needs a CUDA card and skips without one.  The file
 imports nothing of JAX, so it also runs where JAX is not installed:
@@ -17,7 +17,9 @@ import torch
 
 from repro_torch.core import dataflow as tdf
 from repro_torch.kernels import ops
-from repro_torch.kernels.ganax_conv import ganax_conv_cuda, ganax_conv_plain
+from repro_torch.kernels.ganax_conv import (ganax_conv3d_cuda,
+                                            ganax_conv3d_plain,
+                                            ganax_conv_cuda, ganax_conv_plain)
 from repro_torch.models.gan import GanConfig, init_gan
 from repro_torch.serve.gan import GanServer
 
@@ -35,7 +37,24 @@ CASES = [
     ((1, 5, 3, 4), (3, 5, 4, 4), (3, 2), (1, 2), True, "none", False),
     ((1, 9, 9, 3), (4, 4, 3, 65), (2, 2), (1, 1), False, "relu", False),
     ((5, 7, 7, 17), (3, 3, 17, 1), (3, 3), (0, 0), False, "none", True),
+    # 3-D: the volumetric kernel (3D-GAN g-layers, strided conv3d, Cout = 1,
+    # zero-tap phases, ragged Cin / Cout not a multiple of 16 or 64)
+    ((2, 4, 4, 4, 64), (4, 4, 4, 64, 128), (2, 2, 2), (1, 1, 1), True,
+     "relu", True),
+    ((2, 8, 8, 8, 16), (4, 4, 4, 16, 1), (2, 2, 2), (1, 1, 1), True,
+     "tanh", True),
+    ((2, 8, 8, 8, 20), (4, 4, 4, 20, 72), (2, 2, 2), (1, 1, 1), False,
+     "leaky_relu", True),
+    ((3, 7, 5, 6, 17), (3, 2, 3, 17, 1), (2, 1, 3), (1, 0, 1), False,
+     "none", True),
+    ((2, 4, 3, 5, 4), (1, 1, 1, 4, 8), (2, 2, 2), (0, 0, 0), True,
+     "leaky_relu", True),
+    ((1, 5, 3, 4, 33), (3, 5, 2, 33, 65), (3, 2, 1), (1, 2, 0), True,
+     "none", False),
 ]
+
+_KERNELS = {2: (ganax_conv_cuda, ganax_conv_plain),
+            3: (ganax_conv3d_cuda, ganax_conv3d_plain)}
 
 
 @pytest.fixture
@@ -63,10 +82,11 @@ def test_cuda_kernel_matches_plain(dev, xs, ws, s, p, transposed, act,
     x, w, b = _inputs(xs, ws, dev)
     operands = ops.kernel_operands(x, w, s, p, transposed=transposed)
     b = b if has_bias else None
-    before = ganax_conv_cuda.launches
-    got = ganax_conv_cuda(**operands, bias=b, activation=act)
-    assert ganax_conv_cuda.launches == before + 1
-    ref = ganax_conv_plain(**operands, bias=b, activation=act)
+    kernel, plain = _KERNELS[len(s)]
+    before = kernel.launches
+    got = kernel(**operands, bias=b, activation=act)
+    assert kernel.launches == before + 1
+    ref = plain(**operands, bias=b, activation=act)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ref, **TOL)
 
@@ -94,10 +114,16 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(dev):
         ganax_conv_cuda(**dict(operands, w_taps=operands["w_taps"].cpu()))
     with pytest.raises(TypeError, match="float32"):
         ganax_conv_cuda(**dict(operands, x_pad=operands["x_pad"].double()))
-    x3 = torch.zeros((1, 3, 3, 3, 4), device=dev)
-    w3 = torch.zeros((4, 4, 4, 4, 8), device=dev)
-    with pytest.raises(NotImplementedError, match="3-D kernel"):
-        tdf.tconv(x3, w3, (2, 2, 2), (1, 1, 1))
+    x3, w3, _ = _inputs((1, 3, 3, 3, 4), (4, 4, 4, 4, 8), dev)
+    ops3 = ops.kernel_operands(x3, w3, (2, 2, 2), (1, 1, 1), transposed=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        ganax_conv3d_cuda(**dict(ops3, x_pad=ops3["x_pad"].transpose(1, 3)))
+    with pytest.raises(ValueError, match="CUDA device"):
+        ganax_conv3d_cuda(**dict(ops3, x_pad=ops3["x_pad"].cpu()))
+    x1 = torch.zeros((1, 3, 4), device=dev)
+    w1 = torch.zeros((4, 4, 8), device=dev)
+    with pytest.raises(NotImplementedError, match="2-D and 3-D"):
+        tdf.tconv(x1, w1, (2,), (1,))
 
 
 def test_server_on_the_card_launches_the_kernel(dev):
@@ -112,3 +138,17 @@ def test_server_on_the_card_launches_the_kernel(dev):
     ref = GanServer(dataclasses.replace(cfg, backend="ganax-plain"), g,
                     batch_size=4, seed=0, device=dev).generate(6)
     torch.testing.assert_close(img, ref, **TOL)
+
+
+def test_3dgan_server_on_the_card_launches_the_3d_kernel(dev):
+    cfg = GanConfig("3dgan", channel_scale=1 / 32)
+    g, _ = init_gan(cfg, torch.Generator().manual_seed(0), dev)
+    server = GanServer(cfg, g, batch_size=2, seed=0, device=dev)
+    before = ganax_conv3d_cuda.launches
+    vol = server.generate(3)
+    torch.cuda.synchronize()
+    assert vol.is_cuda and tuple(vol.shape) == (3, 64, 64, 64, 1)
+    assert ganax_conv3d_cuda.launches - before == 4 * server.batches_served
+    ref = GanServer(dataclasses.replace(cfg, backend="ganax-plain"), g,
+                    batch_size=2, seed=0, device=dev).generate(3)
+    torch.testing.assert_close(vol, ref, **TOL)

@@ -1,9 +1,10 @@
 """The PyTorch port's GAN models against the JAX package's.
 
-Every 2-D Table-I generator, given the JAX package's parameters and the
-same numpy latents, computes the reference's image on the CPU
-(atol = rtol = 1e-4 through a whole generator: f32 on both sides, summed
-in another order).  Configs, specs and the init follow the reference.
+Every Table-I generator (the five 2-D ones and 3D-GAN), given the JAX
+package's parameters and the same numpy latents, computes the
+reference's image or volume on the CPU (atol = rtol = 1e-4 through a
+whole generator: f32 on both sides, summed in another order).  Configs,
+specs and the init follow the reference.
 """
 
 import dataclasses
@@ -21,7 +22,7 @@ from repro_torch.core import dataflow as tdf
 from repro_torch.models import gan as tgan
 
 SCALE = 1 / 32
-TWO_D = ["artgan", "dcgan", "discogan", "gpgan", "magan"]
+GENERATORS = ["3dgan", "artgan", "dcgan", "discogan", "gpgan", "magan"]
 CPU = torch.device("cpu")
 
 
@@ -46,7 +47,7 @@ def _generator_params(name, rng):
     return g
 
 
-@pytest.mark.parametrize("name", TWO_D)
+@pytest.mark.parametrize("name", GENERATORS)
 def test_generator_matches_reference(name):
     jcfg = jgan.GanConfig(name, channel_scale=SCALE)
     tcfg = tgan.GanConfig(name, channel_scale=SCALE)
@@ -98,19 +99,33 @@ def test_non_f32_dtype_raises(dtype):
 
 
 def test_3dgan_on_the_card_raises(monkeypatch):
+    """3D-GAN was refused on the kernel route until the 3-D kernel was
+    ported; now it runs that route (on the CPU: the plain version of the
+    3-D kernel) and equals the polyphase oracle.  Without a card, asking
+    for one still raises."""
     cfg = tgan.GanConfig("3dgan", channel_scale=SCALE)
     g, _ = tgan.init_gan(cfg, torch.Generator().manual_seed(0), CPU)
-    # the rank check comes before anything touches the card
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(NotImplementedError, match="3-D kernel"):
+    for name, t in g.items():      # non-zero biases exercise the epilogue
+        if name.endswith("_b"):
+            g[name] = 0.05 * torch.randn(t.shape,
+                                         generator=torch.Generator()
+                                         .manual_seed(len(name)))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         tgan.Generator(cfg, g, device="cuda")
-    with pytest.raises(NotImplementedError, match="3-D kernel"):
-        tgan.Generator(cfg, g, device="cpu")
-    # pinned to an oracle, the 3-D generator runs (on the CPU)
-    oracle = dataclasses.replace(cfg, backend="polyphase")
+    z = torch.from_numpy(np.random.default_rng(2).normal(size=(2, 100))
+                         .astype(np.float32))
     with torch.inference_mode():
-        img = tgan.Generator(oracle, g, device="cpu")(torch.zeros(1, 100))
-    assert tuple(img.shape) == (1, 64, 64, 64, 1)
+        outs = {backend: tgan.Generator(
+                    dataclasses.replace(cfg, backend=backend), g,
+                    device="cpu")(z)
+                for backend in (None, "ganax-plain", "polyphase")}
+    assert tuple(outs[None].shape) == (2, 64, 64, 64, 1)
+    assert outs[None].abs().max() > 1e-3
+    torch.testing.assert_close(outs[None], outs["ganax-plain"], rtol=0,
+                               atol=0)
+    torch.testing.assert_close(outs[None], outs["polyphase"], atol=1e-4,
+                               rtol=1e-4)
 
 
 def test_init_gan_follows_the_specs():
