@@ -1,6 +1,6 @@
 """Unified dataflow dispatch for the GANAX (transposed-)convolution ops.
 
-The port of ``repro.core.dataflow``, inference only.  It owns:
+The port of ``repro.core.dataflow``.  It owns:
 
 1. **The fused epilogue spec** — :class:`Epilogue` (bias add +
    activation), executed inside the kernel's accumulator flush.
@@ -15,6 +15,14 @@ The port of ``repro.core.dataflow``, inference only.  It owns:
    (the same dataflow through the plain version on any device),
    ``"polyphase"`` and ``"zero-insert"`` are oracles that run only when
    pinned by name.
+4. **The gradient** — on the kernel backends, a
+   ``torch.autograd.Function`` (the port of the reference's custom
+   VJPs): ``dx`` re-enters the same kernel by adjoint duality (a
+   tconv's ``dx`` is a conv with swapped weights, a conv's ``dx`` an
+   uncropped pad-0 tconv), ``dw`` is a per-tap f32 contraction and
+   ``db`` an f32 reduction.  First order only: differentiating the
+   backward raises :class:`SecondOrderNotImplemented`.  The oracles keep
+   PyTorch's native autograd.
 
 Geometry semantics are PyTorch ``ConvTranspose`` / correlation-conv
 throughout (channels-last ``x``, ``(K..., Cin, Cout)`` weights).
@@ -28,9 +36,12 @@ from typing import Callable, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.profiler import record_function
 
 from repro_torch.core.scheduler import PhaseSchedule, make_schedule
 from repro_torch.core.tconv import tconv_ganax, tconv_zero_insert
+from repro_torch.device import require_ieee_f32
 
 __all__ = [
     "ACTIVATIONS",
@@ -42,6 +53,7 @@ __all__ = [
     "KERNEL_RANKS",
     "require_kernel_rank",
     "BACKENDS",
+    "SecondOrderNotImplemented",
     "tconv",
     "conv",
 ]
@@ -102,6 +114,20 @@ class Epilogue:
         elif self.activation == "tanh":
             y = torch.tanh(y)
         return y.to(dt)
+
+    def grad_from_output(self, y: torch.Tensor) -> torch.Tensor:
+        """The activation derivative recovered from the saved *output*
+        ``y = act(z)``: relu and leaky by the sign of ``y`` (0 and the
+        slope at ``y == 0``), tanh as ``1 - y²``; so the backward never
+        needs the pre-activation tensor."""
+        if self.activation == "relu":
+            return (y > 0).to(y.dtype)
+        if self.activation == "leaky_relu":
+            return torch.where(y > 0, torch.ones_like(y),
+                               torch.full_like(y, self.leaky_slope))
+        if self.activation == "tanh":
+            return 1.0 - torch.square(y)
+        return torch.ones_like(y)
 
 
 _IDENTITY_EPILOGUE = Epilogue()
@@ -317,6 +343,187 @@ BACKENDS: dict[str, Backend] = {b.name: b for b in (
 )}
 
 
+# ---------------------------------------------------------------------------
+# The gradient of the kernel backends (the reference's custom VJPs).
+# ---------------------------------------------------------------------------
+
+class SecondOrderNotImplemented(NotImplementedError):
+    """Raised when the backward of a kernel-backend op is differentiated."""
+
+
+_SECOND_ORDER_MSG = (
+    "second-order autodiff through the unified GANAX (t)conv op is not "
+    "implemented on the kernel backends: their torch.autograd.Function "
+    "defines a single backward pass, so grad-of-grad (hessian, etc.) "
+    "would need derivatives of the CUDA kernel itself. Differentiate "
+    "through a pure-PyTorch backend instead: backend='polyphase' or "
+    "'zero-insert' keep PyTorch's native autograd, which supports "
+    "arbitrary-order derivatives.")
+
+
+class _FirstOrderOnly(torch.autograd.Function):
+    """Identity on ``t`` whose own backward raises: it marks what a
+    kernel backward returns under ``create_graph=True``.  The
+    ``anchors`` (tensors that require grad) only make the result part
+    of the graph."""
+
+    @staticmethod
+    def forward(ctx, t, *anchors):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise SecondOrderNotImplemented(_SECOND_ORDER_MSG)
+
+
+def _once_differentiable(backward):
+    """``torch.autograd.function.once_differentiable`` with the
+    reference's error: the backward records no graph, and where one was
+    asked for (``create_graph=True``) each of its results raises
+    :class:`SecondOrderNotImplemented` when it is differentiated."""
+    @functools.wraps(backward)
+    def wrapper(ctx, *grads):
+        with torch.no_grad():
+            out = backward(ctx, *grads)
+        if not torch.is_grad_enabled():
+            return out
+        anchors = [t for t in (*grads, *ctx.saved_tensors)
+                   if t is not None and t.requires_grad]
+        if not anchors:
+            return out
+        return tuple(t if t is None else _FirstOrderOnly.apply(t, *anchors)
+                     for t in out)
+    return wrapper
+
+
+def _f_pad(pad) -> tuple[int, ...]:
+    """The ``F.pad`` argument padding the spatial dims of a
+    channels-last tensor by ``pad`` ((lo, hi) per dim)."""
+    flat = [0, 0]                   # channels
+    for lo, hi in reversed(tuple(pad)):
+        flat += [lo, hi]
+    return tuple(flat)
+
+
+def _swap_io(w: torch.Tensor) -> torch.Tensor:
+    """(K..., Cin, Cout) → (K..., Cout, Cin): the adjoint's kernel."""
+    return w.transpose(-1, -2)
+
+
+def _tap_products(fixed: torch.Tensor, padded: torch.Tensor, kernel,
+                  strides, extent, fixed_left: bool) -> torch.Tensor:
+    """``(K..., A, B)``: per kernel tap ``u``, one f32 product of the
+    (N·S, C) rows of ``padded``'s strided window at ``u`` with
+    ``fixed``, ``fixed @ window`` or ``window.T @ fixed``."""
+    nd = len(kernel)
+    rows = []
+    for u in np.ndindex(*kernel):
+        window = padded[(slice(None),) + tuple(
+            slice(u[d], u[d] + strides[d] * (extent[d] - 1) + 1, strides[d])
+            for d in range(nd))]
+        window = window.reshape(-1, window.shape[-1])
+        rows.append(fixed @ window if fixed_left else window.T @ fixed)
+    return torch.stack(rows).reshape(tuple(kernel) + rows[0].shape)
+
+
+def _tconv_wgrad(x, g, kernel, strides, paddings):
+    """dL/dw for ``y = tconv(x, w)``:  dw[u,ci,co] = Σ_{n,i} x[n,i,ci] ·
+    g[n, s·i + u - p, co], one dense product per tap (no inserted
+    zeros: every product is a consequential MAC)."""
+    require_ieee_f32(x)
+    gp = F.pad(g, _f_pad((p, p) for p in paddings))
+    xf = x.reshape(-1, x.shape[-1])
+    return _tap_products(xf.T, gp, kernel, strides, x.shape[1:-1], True)
+
+
+def _conv_wgrad(x, g, kernel, strides, paddings):
+    """dL/dw for ``y = conv(x, w)``:  dw[t,ci,co] = Σ_{n,q}
+    x[n, s·q + t - p, ci] · g[n,q,co]."""
+    require_ieee_f32(x)
+    q_sp, in_sp = g.shape[1:-1], x.shape[1:-1]
+    pad = [(p, max(0, s * (q - 1) + k - 1 - p - (i - 1)))
+           for i, k, s, p, q in zip(in_sp, kernel, strides, paddings, q_sp)]
+    xp = F.pad(x, _f_pad(pad))
+    gf = g.reshape(-1, g.shape[-1])
+    return _tap_products(gf, xp, kernel, strides, q_sp, False)
+
+
+def _conv_dx(backend: Backend, strides, paddings, x, w, g):
+    """Input cotangent of ``y = conv(x, w)``: a transposed conv through
+    the same backend (the multi-phase MIMD path), but the *uncropped*
+    one: conv with padding p reads input positions [-p, s·(Q-1)+K-1-p],
+    so the adjoint is tconv with padding 0 shifted by p, cropped to
+    [0, I) with zero cotangent past the stride tail."""
+    nd = x.ndim - 2
+    dx_full = backend.tconv(g, _swap_io(w), strides, (0,) * nd,
+                            _IDENTITY_EPILOGUE, None)
+    crop, pad = [slice(None)], []
+    for d in range(nd):
+        i_d = x.shape[1 + d]
+        crop.append(slice(paddings[d], paddings[d] + i_d))
+        pad.append((0, max(0, i_d - (dx_full.shape[1 + d] - paddings[d]))))
+    return F.pad(dx_full[tuple(crop)], _f_pad(pad))
+
+
+def _epilogue_cotangent(epilogue: Epilogue, y, g):
+    return g if epilogue.activation == "none" \
+        else g * epilogue.grad_from_output(y)
+
+
+def _bias_grad(g_pre, bias):
+    # f32 accumulation over every non-channel axis
+    return g_pre.sum(dim=tuple(range(g_pre.ndim - 1)),
+                     dtype=torch.float32).to(bias.dtype)
+
+
+class _KernelOp(torch.autograd.Function):
+    """``y = act(op(x, w) + b)`` on a kernel backend, differentiable to
+    first order: the port of ``_tconv_ep_diff`` / ``_conv_ep_diff`` (and,
+    with the identity epilogue, ``_tconv_diff`` / ``_conv_diff``).
+
+    The forward runs the kernel with its fused epilogue and saves
+    ``(x, w, b, y)``.  The backward folds the activation derivative,
+    recovered from ``y``, into the cotangent once; then ``dx`` re-enters
+    the same backend by adjoint duality, ``dw`` is the per-tap
+    contraction and ``db`` the reduction, each only where
+    ``needs_input_grad`` asks for it."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, backend, transposed, strides, paddings,
+                epilogue):
+        fn = backend.tconv if transposed else backend.conv
+        with record_function("ganax.forward"):
+            y = fn(x, w, strides, paddings, epilogue, bias)
+        ctx.save_for_backward(x, w, bias, y)
+        ctx.op = (backend, transposed, strides, paddings, epilogue)
+        return y
+
+    @staticmethod
+    @_once_differentiable
+    def backward(ctx, g):
+        x, w, bias, y = ctx.saved_tensors
+        backend, transposed, strides, paddings, epilogue = ctx.op
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        g_pre = _epilogue_cotangent(epilogue, y, g)
+        dx = dw = db = None
+        if need_x:
+            with record_function("ganax.dx"):
+                # tconv(·, w) is the adjoint of conv(·, swap(w))
+                dx = (backend.conv(g_pre, _swap_io(w), strides, paddings,
+                                   _IDENTITY_EPILOGUE, None)
+                      if transposed else
+                      _conv_dx(backend, strides, paddings, x, w, g_pre))
+            dx = dx.to(x.dtype)
+        if need_w:
+            with record_function("ganax.dw"):
+                wgrad = _tconv_wgrad if transposed else _conv_wgrad
+                dw = wgrad(x, g_pre, tuple(w.shape[:-2]), strides,
+                           paddings).to(w.dtype)
+        if need_b and bias is not None:
+            db = _bias_grad(g_pre, bias)
+        return dx, dw, db, None, None, None, None, None
+
+
 def _dispatch(transposed: bool, x, w, strides, paddings, backend, bias,
               epilogue) -> torch.Tensor:
     name = backend or "ganax"
@@ -327,8 +534,13 @@ def _dispatch(transposed: bool, x, w, strides, paddings, backend, bias,
     if b.kernel:
         require_kernel_rank(x.ndim - 2, "the input")
     epilogue = canonical_epilogue(epilogue, bias, int(w.shape[-1]))
+    strides, paddings = tuple(strides), tuple(paddings)
+    if b.kernel and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, bias)):
+        return _KernelOp.apply(x, w, bias, b, transposed, strides,
+                               paddings, epilogue)
     fn = b.tconv if transposed else b.conv
-    return fn(x, w, tuple(strides), tuple(paddings), epilogue, bias)
+    return fn(x, w, strides, paddings, epilogue, bias)
 
 
 def tconv(x: torch.Tensor, w: torch.Tensor, strides: Sequence[int],
@@ -341,8 +553,13 @@ def tconv(x: torch.Tensor, w: torch.Tensor, strides: Sequence[int],
     ``backend`` pins a registered backend (default ``"ganax"``, the
     kernel).  ``epilogue`` fuses a bias add (``bias``: a (Cout,) vector,
     required iff ``epilogue.bias``) and an activation into the op; a bare
-    ``bias=`` with no epilogue means a plain fused bias add.  Inference
-    only: the kernel path has no gradient."""
+    ``bias=`` with no epilogue means a plain fused bias add.
+
+    Differentiable to first order on every backend.  On a kernel
+    backend, with grad mode on and an input that requires grad, the op
+    runs through a ``torch.autograd.Function`` whose backward launches
+    the same kernel for ``dx``; otherwise (serving) it calls the kernel
+    directly and records nothing."""
     return _dispatch(True, x, w, strides, paddings, backend, bias,
                      epilogue)
 

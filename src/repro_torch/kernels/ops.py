@@ -12,8 +12,10 @@ only) runs the plain version on any device.
 
 The tap tables and gather indices of a layer geometry are built once
 per device and cached, as ``compile_uops`` caches the schedule; only
-the weight gather depends on the values.  Inference only: these ops
-record no gradient and raise when one is asked for.
+the weight gather depends on the values.  These ops record no
+gradient and raise when one is asked for: the gradient comes from
+``core.dataflow.tconv`` / ``conv``, whose ``torch.autograd.Function``
+calls them with grad mode off, forward and backward.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.dataflow import (Epilogue, canonical_epilogue,
+from repro_torch.core.dataflow import (Epilogue, _f_pad,
+                                       canonical_epilogue,
                                        compile_conv_uops, compile_uops,
                                        require_kernel_rank)
 from repro_torch.core.tconv import interleave_phases
@@ -45,13 +48,6 @@ class _Prep:
     q_sizes: tuple[int, ...]
     k_idx: torch.Tensor | None      # (P*T,) gather index (tconv only)
     valid: torch.Tensor | None      # (P, T, 1, 1) tap mask (tconv only)
-
-
-def _f_pad(pad: tuple[tuple[int, int], ...]) -> tuple[int, ...]:
-    flat = [0, 0]                   # channels
-    for lo, hi in reversed(pad):
-        flat += [lo, hi]
-    return tuple(flat)
 
 
 @functools.lru_cache(maxsize=512)
@@ -93,9 +89,9 @@ def _check_inputs(x: torch.Tensor, w: torch.Tensor, route: str) -> None:
                          f"{w.shape[-2]}")
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         raise NotImplementedError(
-            f"ganax {route} is inference only: the kernel path has no "
-            f"gradient yet (ROADMAP.md, training item); run it under "
-            f"torch.no_grad() or torch.inference_mode()")
+            f"ganax {route} records no gradient when called directly; "
+            f"differentiate through repro_torch.core.dataflow.tconv/conv "
+            f"(its autograd Function), or run it under torch.no_grad()")
 
 
 def kernel_operands(x: torch.Tensor, w: torch.Tensor,

@@ -1,11 +1,15 @@
 """Executable GAN models (the paper's Table I workloads) on GANAX ops.
 
-The port of ``repro.models.gan`` for inference of the generators: the
-config, the parameter specs of both networks, their fused epilogues, the
-initializer, and :class:`Generator`, which replays the generator branch
-of the reference's ``Program._replay``: the z-projection (an f32 matmul,
-+ bias, ReLU), then one ``tconv`` / ``conv`` per layer with its bias and
-activation fused into the kernel's flush.
+The port of ``repro.models.gan``: the config, the parameter specs of
+both networks, their fused epilogues, the initializer, the two networks
+and the losses.  :class:`Generator` replays the generator branch of the
+reference's ``Program._replay``: the z-projection (an f32 matmul, +
+bias, ReLU), then one ``tconv`` / ``conv`` per layer with its bias and
+activation fused into the kernel's flush.  :class:`Discriminator`
+replays the discriminator branch: one ``conv`` (or ``tconv``) per layer
+with bias + LeakyReLU fused, then the mean of the logits in f32.  Both
+hold trainable parameters; the kernel backends differentiate through
+``core.dataflow``'s autograd Function.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ from repro_torch.models.common import PSpec, init_params
 
 __all__ = ["GanConfig", "generator_specs", "discriminator_specs",
            "generator_epilogues", "discriminator_epilogues", "init_gan",
-           "check_params", "Generator", "LEAKY_SLOPE"]
+           "check_params", "Generator", "Discriminator", "bce_with_logits",
+           "gan_losses", "LEAKY_SLOPE"]
 
 # The discriminator's LeakyReLU slope (DCGAN convention, used by every
 # Table-I discriminator).
@@ -150,33 +155,61 @@ def check_params(params: dict, specs: dict[str, PSpec]) -> None:
                              f"spec says {spec.shape}")
 
 
-class Generator(nn.Module):
+class _Network(nn.Module):
+    """The layer walk both networks share: parameters named as ``specs``
+    says, held as trainable ``nn.Parameter``s on ``device`` (a float32
+    tensor already there shares its storage), and one dataflow op per
+    layer with its fused epilogue."""
+
+    def __init__(self, cfg: GanConfig, params: dict[str, torch.Tensor],
+                 device, specs: dict[str, PSpec], layers, epilogues,
+                 prefix: str):
+        super().__init__()
+        dev = resolve_device(device)
+        if BACKENDS[cfg.backend or "ganax"].kernel:
+            for l in layers:
+                require_kernel_rank(len(l.kernel),
+                                    f"{cfg.name} layer {l.name}")
+        check_params(params, specs)
+        self.cfg = cfg
+        self.layers = tuple(layers)
+        self.epilogues = tuple(epilogues)
+        self.prefix = prefix
+        self.weights = nn.ParameterDict({
+            name: nn.Parameter(
+                torch.as_tensor(t, dtype=torch.float32).to(dev))
+            for name, t in sorted(params.items())})
+
+    @property
+    def params(self) -> dict[str, nn.Parameter]:
+        """The parameters by their reference names (``proj_w``,
+        ``t0_w``, ``c0_b``, ...): the tensors themselves, not copies."""
+        return dict(self.weights.items())
+
+    def _layers(self, x: torch.Tensor) -> torch.Tensor:
+        p = self.weights
+        for i, (l, ep) in enumerate(zip(self.layers, self.epilogues)):
+            op = tconv if l.transposed else conv
+            x = op(x, p[f"{self.prefix}{i}_w"], l.strides, l.paddings,
+                   backend=self.cfg.backend, bias=p[f"{self.prefix}{i}_b"],
+                   epilogue=ep)
+        return x
+
+
+class Generator(_Network):
     """A Table-I generator: ``z (B, z_dim)`` → image ``(B, H, W, C)``,
     or volume ``(B, D, H, W, C)`` for 3D-GAN, whose layers run through
     the 3-D kernel.
 
     ``params`` are named as :func:`generator_specs` says and are moved
-    to ``device`` (default: the card).  Inference only: the parameters
-    record no gradient."""
+    to ``device`` (default: the card) as trainable parameters; a server
+    freezes them (``requires_grad_(False)``)."""
 
     def __init__(self, cfg: GanConfig, params: dict[str, torch.Tensor],
                  device: str | torch.device = "cuda"):
-        super().__init__()
-        dev = resolve_device(device)
         g_layers, _ = cfg.layers
-        if BACKENDS[cfg.backend or "ganax"].kernel:
-            for l in g_layers:
-                require_kernel_rank(len(l.kernel),
-                                    f"{cfg.name} layer {l.name}")
-        check_params(params, generator_specs(cfg))
-        self.cfg = cfg
-        self.layers = tuple(g_layers)
-        self.epilogues = tuple(generator_epilogues(g_layers))
-        self.weights = nn.ParameterDict({
-            name: nn.Parameter(
-                torch.as_tensor(t, dtype=torch.float32).to(dev),
-                requires_grad=False)
-            for name, t in sorted(params.items())})
+        super().__init__(cfg, params, device, generator_specs(cfg),
+                         g_layers, generator_epilogues(g_layers), "t")
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         p = self.weights
@@ -185,8 +218,42 @@ class Generator(nn.Module):
         x = torch.matmul(z.to(torch.float32), p["proj_w"]) + p["proj_b"]
         x = torch.relu(x.reshape((x.shape[0],) + tuple(first.in_spatial)
                                  + (first.cin,)))
-        for i, (l, ep) in enumerate(zip(self.layers, self.epilogues)):
-            op = tconv if l.transposed else conv
-            x = op(x, p[f"t{i}_w"], l.strides, l.paddings,
-                   backend=self.cfg.backend, bias=p[f"t{i}_b"], epilogue=ep)
-        return x
+        return self._layers(x)
+
+
+class Discriminator(_Network):
+    """A Table-I discriminator: image ``(B, H, W, C)`` (3D-GAN: volume
+    ``(B, D, H, W, C)``) → logits ``(B,)``, the mean over each sample's
+    last-layer map, reduced in f32.
+
+    ``params`` are named as :func:`discriminator_specs` says and are
+    moved to ``device`` (default: the card) as trainable parameters."""
+
+    def __init__(self, cfg: GanConfig, params: dict[str, torch.Tensor],
+                 device: str | torch.device = "cuda"):
+        _, d_layers = cfg.layers
+        super().__init__(cfg, params, device, discriminator_specs(cfg),
+                         d_layers, discriminator_epilogues(d_layers), "c")
+
+    def forward(self, img: torch.Tensor) -> torch.Tensor:
+        x = self._layers(img.to(torch.float32))
+        return x.reshape(x.shape[0], -1).mean(dim=-1, dtype=torch.float32)
+
+
+def bce_with_logits(logits: torch.Tensor, target: float) -> torch.Tensor:
+    """Numerically stable binary cross-entropy on logits (mean)."""
+    return torch.mean(
+        torch.maximum(logits, torch.zeros_like(logits)) - logits * target
+        + torch.log1p(torch.exp(-logits.abs())))
+
+
+def gan_losses(generator: Generator, discriminator: Discriminator,
+               z: torch.Tensor, real: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Non-saturating GAN losses ``(g_loss, d_loss, fake)``."""
+    fake = generator(z)
+    d_fake = discriminator(fake)
+    d_real = discriminator(real)
+    d_loss = bce_with_logits(d_real, 1.0) + bce_with_logits(d_fake, 0.0)
+    g_loss = bce_with_logits(d_fake, 1.0)
+    return g_loss, d_loss, fake

@@ -34,7 +34,8 @@ class GanServer:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.batch_size = int(batch_size)
-        self.generator = Generator(cfg, g_params, self.device)
+        self.generator = Generator(cfg, g_params,
+                                   self.device).requires_grad_(False)
         self._rng = torch.Generator(device=self.device)
         self._rng.manual_seed(int(seed))
         self._spare: torch.Tensor | None = None    # carried tail samples

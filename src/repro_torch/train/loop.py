@@ -1,0 +1,278 @@
+"""The adversarial train step and the fault-tolerant training loop.
+
+The port of ``repro.train.loop``, without its mesh, planner and
+observability hooks:
+
+* :func:`make_gan_train_step`: the non-saturating adversarial SGD step,
+  a D step and then a G step against the *updated* D, with every conv
+  and tconv, and every ``dx`` of the backward, through the GANAX kernel.
+* :class:`TrainLoop`:
+  - **Checkpoint and restart**: periodic async checkpoints; on a step
+    failure the loop restores the latest checkpoint and replays from
+    there (``batch_fn`` is a pure function of the step, so the replay is
+    exact).
+  - **Preemption**: SIGTERM checkpoints synchronously, then returns.
+  - **Straggler watchdog**: a step slower than ``straggler_factor`` × the
+    EWMA of the step times is counted and logged.
+  - **Failure injection**: ``failure_injector(step) -> bool`` kills
+    chosen steps deterministically (tests).
+
+The state is a ``(g_params, d_params)`` pair of dicts of tensors, which
+the step updates in place (no second copy of the parameters per step);
+the loop restores a checkpoint by copying into it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import signal
+import tempfile
+import time
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.models.gan import (Discriminator, GanConfig, Generator,
+                                    bce_with_logits)
+from repro_torch.train import checkpoint as ckpt
+
+__all__ = ["LoopConfig", "TrainLoop", "InjectedFailure",
+           "make_gan_train_step", "discriminator_grads", "generator_grads",
+           "sgd_update"]
+
+
+def discriminator_grads(generator: Generator, discriminator: Discriminator,
+                        z: torch.Tensor, real: torch.Tensor
+                        ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """The D step's loss and its gradient by parameter name.  G runs
+    under ``torch.no_grad()``: only D's parameters are differentiated,
+    and no ``dx`` reaches the fakes' first layer."""
+    with torch.no_grad():
+        fake = generator(z)
+    params = discriminator.params
+    d_loss = bce_with_logits(discriminator(real), 1.0) + \
+        bce_with_logits(discriminator(fake), 0.0)
+    grads = torch.autograd.grad(d_loss, list(params.values()))
+    return d_loss.detach(), dict(zip(params, grads))
+
+
+def generator_grads(generator: Generator, discriminator: Discriminator,
+                    z: torch.Tensor
+                    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """The G step's loss and its gradient by parameter name.  D's
+    parameters are frozen for the step, so the backward computes no D
+    weight gradient, and ``D(real)``, which the loss does not read, is
+    not run."""
+    frozen = [p for p in discriminator.parameters() if p.requires_grad]
+    for p in frozen:
+        p.requires_grad_(False)
+    try:
+        params = generator.params
+        g_loss = bce_with_logits(discriminator(generator(z)), 1.0)
+        grads = torch.autograd.grad(g_loss, list(params.values()))
+    finally:
+        for p in frozen:
+            p.requires_grad_(True)
+    return g_loss.detach(), dict(zip(params, grads))
+
+
+def sgd_update(params: dict[str, torch.Tensor],
+               grads: dict[str, torch.Tensor], lr: float) -> None:
+    """``p -= lr * grad`` for each named parameter, in place."""
+    with torch.no_grad():
+        for name, p in params.items():
+            p.sub_(lr * grads[name])
+
+
+def make_gan_train_step(cfg: GanConfig, batch: int,
+                        g_params: dict[str, torch.Tensor],
+                        d_params: dict[str, torch.Tensor], *,
+                        g_lr: float = 2e-4, d_lr: float | None = None,
+                        device: str | torch.device = "cuda"):
+    """The adversarial SGD step of ``cfg``'s networks.
+
+    Builds the :class:`Generator` and :class:`Discriminator` once from
+    ``g_params`` / ``d_params`` on ``device`` (default: the card) and
+    returns ``(train_step, (generator, discriminator))``, where
+    ``train_step(state, batch) -> (state, metrics)`` takes
+    ``state = (generator.params, discriminator.params)`` and a batch
+    ``{"z": (batch, z_dim), "real": (batch, *spatial, C)}``, and updates
+    the parameters in place: ``p -= lr * grad``, D first, then G against
+    the updated D.  ``metrics`` holds the ``g_loss``, ``d_loss`` and
+    ``loss`` tensors (on the device; reading them waits for it)."""
+    d_lr = g_lr if d_lr is None else d_lr
+    generator = Generator(cfg, g_params, device)
+    discriminator = Discriminator(cfg, d_params, device)
+
+    def train_step(state, batch_arrays):
+        g_state, d_state = state
+        for net, part in ((generator, g_state), (discriminator, d_state)):
+            if part.keys() != net.weights.keys() or any(
+                    part[k] is not p for k, p in net.weights.items()):
+                raise ValueError("train_step updates its networks' own "
+                                 "parameters: pass state = "
+                                 "(generator.params, discriminator.params)")
+        z, real = batch_arrays["z"], batch_arrays["real"]
+        if z.shape[0] != batch or real.shape[0] != batch:
+            raise ValueError(f"the step was built for batch {batch}, got "
+                             f"z {tuple(z.shape)} and real "
+                             f"{tuple(real.shape)}")
+        dl, d_grads = discriminator_grads(generator, discriminator, z, real)
+        sgd_update(d_state, d_grads, d_lr)
+        gl, g_grads = generator_grads(generator, discriminator, z)
+        sgd_update(g_state, g_grads, g_lr)
+        return state, {"g_loss": gl, "d_loss": dl, "loss": gl + dl}
+
+    return train_step, (generator, discriminator)
+
+
+class InjectedFailure(RuntimeError):
+    pass
+
+
+def _default_ckpt_dir() -> str:
+    return os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
+
+
+@dataclasses.dataclass
+class LoopConfig:
+    total_steps: int = 100
+    ckpt_dir: str = dataclasses.field(default_factory=_default_ckpt_dir)
+    ckpt_every: int = 50
+    async_ckpt: bool = True
+    max_restarts: int = 10
+    straggler_factor: float = 3.0
+    ewma_alpha: float = 0.2
+    log_every: int = 10
+
+
+class TrainLoop:
+    """Runs ``train_step`` from ``start_step`` to ``cfg.total_steps`` on
+    ``state``, a tree of tensors the step updates in place or replaces.
+    Plain integer counters (``steps``, ``checkpoints``, ``restarts``)
+    and ``straggler_events`` / ``metrics_history`` record the run."""
+
+    def __init__(self, cfg: LoopConfig, train_step: Callable,
+                 batch_fn: Callable[[int], dict], state: Any,
+                 failure_injector: Callable[[int], bool] | None = None,
+                 log_fn: Callable[[str], None] = print):
+        self.cfg = cfg
+        self.train_step = train_step
+        self.batch_fn = batch_fn
+        self.state = state
+        self.failure_injector = failure_injector
+        self.log = log_fn
+        self.steps = 0
+        self.checkpoints = 0
+        self.restarts = 0
+        self._last_saved_step: int | None = None
+        self.straggler_events: list[int] = []
+        self._ewma: float | None = None
+        self._preempted = False
+        self.metrics_history: list[dict] = []
+
+    # -- signals ------------------------------------------------------------
+    def _install_sigterm(self):
+        def handler(signum, frame):
+            self._preempted = True
+        try:
+            signal.signal(signal.SIGTERM, handler)
+        except ValueError:
+            pass  # not on the main thread (tests)
+
+    # -- state ---------------------------------------------------------------
+    def _assign(self, values) -> None:
+        """Copy the tree ``values`` into the state's tensors."""
+        with torch.no_grad():
+            for dst, src in zip(ckpt.tree_leaves(self.state),
+                                ckpt.tree_leaves(values)):
+                dst.copy_(src)
+
+    def _sync(self) -> None:
+        """Wait for the device the state lives on."""
+        leaves = ckpt.tree_leaves(self.state)
+        if leaves and leaves[0].is_cuda:
+            torch.cuda.synchronize(leaves[0].device)
+
+    # -- checkpointing -------------------------------------------------------
+    def _save(self, step: int, sync: bool = False):
+        if sync or not self.cfg.async_ckpt:
+            # an async save of the same step may still be writing
+            ckpt.wait_pending()
+            ckpt.save(self.state, self.cfg.ckpt_dir, step)
+        else:
+            ckpt.save_async(self.state, self.cfg.ckpt_dir, step)
+        self._last_saved_step = step
+        self.checkpoints += 1
+
+    def _restore_latest(self) -> int:
+        ckpt.wait_pending()
+        step = ckpt.latest_step(self.cfg.ckpt_dir)
+        if step is None:
+            # replay is only exact from the step-0 parameters, not from
+            # whatever partially-trained state the failure left behind
+            self._assign(self._initial_state)
+            self.log("[loop] no checkpoint found; restarting from step 0")
+            return 0
+        self._assign(ckpt.restore(self.state, self.cfg.ckpt_dir, step))
+        self.log(f"[loop] restored checkpoint at step {step}")
+        return step
+
+    # -- watchdog -----------------------------------------------------------
+    def _watch(self, step: int, dt: float):
+        if self._ewma is None:
+            self._ewma = dt
+            return
+        if dt > self.cfg.straggler_factor * self._ewma:
+            self.straggler_events.append(step)
+            self.log(f"[loop] STRAGGLER step {step}: {dt:.3f}s vs "
+                     f"EWMA {self._ewma:.3f}s")
+        self._ewma = (1 - self.cfg.ewma_alpha) * self._ewma + \
+            self.cfg.ewma_alpha * dt
+
+    # -- main ---------------------------------------------------------------
+    def run(self, start_step: int = 0) -> Any:
+        self._install_sigterm()
+        # the step updates the state in place: keep a copy to replay from
+        self._initial_state = ckpt.tree_map(
+            lambda t: t.detach().clone(), self.state)
+        step = start_step
+        while step < self.cfg.total_steps:
+            if self._preempted:
+                self.log(f"[loop] SIGTERM: checkpointing at {step}, exiting")
+                self._save(step, sync=True)
+                return self.state
+            try:
+                if self.failure_injector and self.failure_injector(step):
+                    raise InjectedFailure(f"injected failure at step {step}")
+                t0 = time.perf_counter()
+                batch = self.batch_fn(step)
+                self.state, metrics = self.train_step(self.state, batch)
+                self._sync()
+                dt = time.perf_counter() - t0
+                self.steps += 1
+                self._watch(step, dt)
+                if step % self.cfg.log_every == 0:
+                    m = {k: float(v) for k, v in metrics.items()
+                         if getattr(v, "ndim", 0) == 0}
+                    self.metrics_history.append({"step": step, **m})
+                    self.log(f"[loop] step {step} "
+                             f"loss={m.get('loss', -1):.4f} dt={dt:.3f}s")
+                step += 1
+                if step % self.cfg.ckpt_every == 0:
+                    self._save(step)
+            except InjectedFailure as e:
+                self.restarts += 1
+                self.log(f"[loop] FAILURE: {e}; restart "
+                         f"{self.restarts}/{self.cfg.max_restarts}")
+                if self.restarts > self.cfg.max_restarts:
+                    raise
+                step = self._restore_latest()
+        # drain in-flight async saves; *this run* already checkpointed the
+        # final step when total_steps is a multiple of ckpt_every (a stale
+        # file from an earlier run in the same dir doesn't count)
+        ckpt.wait_pending()
+        if self._last_saved_step != self.cfg.total_steps:
+            self._save(self.cfg.total_steps, sync=True)
+        return self.state

@@ -21,7 +21,9 @@ from repro_torch.kernels.ganax_conv import (ganax_conv3d_cuda,
                                             ganax_conv3d_plain,
                                             ganax_conv_cuda, ganax_conv_plain)
 from repro_torch.models.gan import GanConfig, init_gan
+from repro_torch.quickstart import make_batch_fn
 from repro_torch.serve.gan import GanServer
+from repro_torch.train.loop import make_gan_train_step
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -53,6 +55,32 @@ CASES = [
      "none", False),
 ]
 
+# The geometries training adds, at batch 2 and their real widths: the
+# discriminators' d1 (Cin = 3, or 1 in 3-D) and d5 (4×4, stride 1, pad
+# 0, 4×4 → 1×1, Cout = 1), d5's adjoint (a stride-1 pad-0 tconv from a
+# 1×1 input with Cin = 1), the pad-0 adjoints of d1 and d2 (stride-2
+# tconvs whose output is 2 wider than the crop), and g4's adjoint (a conv
+# reading Cin = 3, or 1 in 3-D; the d1 geometry).
+TRAIN_CASES = [
+    ((2, 64, 64, 3), (4, 4, 3, 128), (2, 2), (1, 1), False, "leaky_relu",
+     True),
+    ((2, 4, 4, 1024), (4, 4, 1024, 1), (1, 1), (0, 0), False, "none", True),
+    ((2, 1, 1, 1), (4, 4, 1, 1024), (1, 1), (0, 0), True, "none", False),
+    ((2, 32, 32, 128), (4, 4, 128, 3), (2, 2), (0, 0), True, "none", False),
+    ((2, 16, 16, 256), (4, 4, 256, 128), (2, 2), (0, 0), True, "none",
+     False),
+    ((2, 64, 64, 64, 1), (4, 4, 4, 1, 64), (2, 2, 2), (1, 1, 1), False,
+     "leaky_relu", True),
+    ((2, 4, 4, 4, 512), (4, 4, 4, 512, 1), (1, 1, 1), (0, 0, 0), False,
+     "none", True),
+    ((2, 1, 1, 1, 1), (4, 4, 4, 1, 512), (1, 1, 1), (0, 0, 0), True, "none",
+     False),
+    ((2, 32, 32, 32, 64), (4, 4, 4, 64, 1), (2, 2, 2), (0, 0, 0), True,
+     "none", False),
+    ((2, 16, 16, 16, 128), (4, 4, 4, 128, 64), (2, 2, 2), (0, 0, 0), True,
+     "none", False),
+]
+
 _KERNELS = {2: (ganax_conv_cuda, ganax_conv_plain),
             3: (ganax_conv3d_cuda, ganax_conv3d_plain)}
 
@@ -76,7 +104,8 @@ def _inputs(xs, ws, dev, seed=5):
     return x, w, b
 
 
-@pytest.mark.parametrize("xs,ws,s,p,transposed,act,has_bias", CASES)
+@pytest.mark.parametrize("xs,ws,s,p,transposed,act,has_bias",
+                         CASES + TRAIN_CASES)
 def test_cuda_kernel_matches_plain(dev, xs, ws, s, p, transposed, act,
                                    has_bias):
     x, w, b = _inputs(xs, ws, dev)
@@ -91,7 +120,8 @@ def test_cuda_kernel_matches_plain(dev, xs, ws, s, p, transposed, act,
     torch.testing.assert_close(got, ref, **TOL)
 
 
-@pytest.mark.parametrize("xs,ws,s,p,transposed,act,has_bias", CASES)
+@pytest.mark.parametrize("xs,ws,s,p,transposed,act,has_bias",
+                         CASES + TRAIN_CASES)
 def test_cuda_op_matches_plain_op(dev, xs, ws, s, p, transposed, act,
                                   has_bias):
     x, w, b = _inputs(xs, ws, dev, seed=6)
@@ -152,3 +182,82 @@ def test_3dgan_server_on_the_card_launches_the_3d_kernel(dev):
     ref = GanServer(dataclasses.replace(cfg, backend="ganax-plain"), g,
                     batch_size=2, seed=0, device=dev).generate(3)
     torch.testing.assert_close(vol, ref, **TOL)
+
+
+@pytest.mark.parametrize("xs,ws,s,p,transposed,act,has_bias",
+                         CASES[:5] + CASES[8:11] + TRAIN_CASES)
+def test_cuda_backward_matches_plain_on_a_side_stream(
+        dev, xs, ws, s, p, transposed, act, has_bias):
+    """``backward()`` through the kernel, on a side stream with no
+    explicit synchronize (autograd runs the backward on its own thread,
+    where the launch must find the forward's stream), against the plain
+    version's backward of the same forward output.  ``dx`` launches the
+    kernel of the input's rank once.  The plain forward is held to the
+    kernel's on its own: ReLU and LeakyReLU change slope at 0, so an
+    output within a few ulps of 0 may take the other slope in an
+    independent plain forward and move its cotangent by O(1)."""
+    x, w, b = _inputs(xs, ws, dev, seed=7)
+    nd = len(s)
+    ep = tdf.Epilogue(bias=has_bias, activation=act)
+    op = tdf.tconv if transposed else tdf.conv
+    kernel, _ = _KERNELS[nd]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        xg, wg, bg = (t.clone().requires_grad_() for t in (x, w, b))
+        before = kernel.launches
+        y = op(xg, wg, s, p, bias=bg if has_bias else None, epilogue=ep)
+        g = torch.randn(y.shape, device=dev,
+                        generator=torch.Generator(dev).manual_seed(3))
+        (y * g).sum().backward()
+        assert kernel.launches - before == 2        # forward and dx
+        y_plain = op(x, w, s, p, bias=b if has_bias else None,
+                     epilogue=ep, backend="ganax-plain")
+        torch.testing.assert_close(y.detach(), y_plain, **TOL)
+        plain = tdf.BACKENDS["ganax-plain"]
+        g_pre = g * ep.grad_from_output(y.detach())
+        if transposed:
+            dx = plain.conv(g_pre, w.transpose(-1, -2), s, p, tdf.Epilogue(),
+                            None)
+            dw = tdf._tconv_wgrad(x, g_pre, ws[:nd], s, p)
+        else:
+            dx = tdf._conv_dx(plain, s, p, x, w, g_pre)
+            dw = tdf._conv_wgrad(x, g_pre, ws[:nd], s, p)
+        assert kernel.launches - before == 2
+        torch.testing.assert_close(xg.grad, dx, **TOL, msg="dx")
+        torch.testing.assert_close(wg.grad, dw, **TOL, msg="dw")
+        if has_bias:
+            torch.testing.assert_close(
+                bg.grad, g_pre.sum(dim=tuple(range(nd + 1))), **TOL,
+                msg="db")
+
+
+@pytest.mark.parametrize("model", ["dcgan", "3dgan"])
+def test_cuda_train_step_matches_plain(dev, model):
+    """One adversarial step at 1/32 width on the card: 40 launches of the
+    model's kernel (D step: 4 + 5 + 5 forward, 4 + 4 dx; G step: 4 + 5
+    forward, 5 + 4 dx), and the losses and parameters of the same step
+    through ``ganax-plain``."""
+    cfg = GanConfig(model, channel_scale=1 / 32)
+    g, d = init_gan(cfg, torch.Generator().manual_seed(0), dev)
+    batch = make_batch_fn(cfg, 2, dev)(0)
+    kernel = ganax_conv_cuda if model == "dcgan" else ganax_conv3d_cuda
+    states = {}
+    for backend in (None, "ganax-plain"):
+        step, (gen, disc) = make_gan_train_step(
+            dataclasses.replace(cfg, backend=backend), 2,
+            {k: v.clone() for k, v in g.items()},
+            {k: v.clone() for k, v in d.items()}, g_lr=0.05, device=dev)
+        before = ganax_conv_cuda.launches + ganax_conv3d_cuda.launches
+        state, metrics = step((gen.params, disc.params), batch)
+        launched = (ganax_conv_cuda.launches + ganax_conv3d_cuda.launches
+                    - before)
+        assert launched == (40 if backend is None else 0)
+        states[backend] = (state, metrics)
+    assert kernel.launches > 0
+    (state, metrics), (ref_state, ref_metrics) = states.values()
+    for k in metrics:
+        torch.testing.assert_close(metrics[k], ref_metrics[k], **TOL)
+    for ours, theirs in zip(state, ref_state):
+        for k in theirs:
+            torch.testing.assert_close(ours[k], theirs[k], **TOL, msg=k)

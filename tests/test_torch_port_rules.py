@@ -14,10 +14,12 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch import quickstart
 from repro_torch.convert import params_from_jax
-from repro_torch.models.gan import (GanConfig, Generator, generator_specs,
-                                    init_gan)
+from repro_torch.models.gan import (Discriminator, GanConfig, Generator,
+                                    generator_specs, init_gan)
 from repro_torch.serve.gan import GanServer
+from repro_torch.train.loop import make_gan_train_step
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -78,6 +80,16 @@ def test_entry_points_default_to_the_card(monkeypatch):
             call()
     with pytest.raises(ValueError, match="unsupported device"):
         GanServer(CFG, g, device="meta")
+
+
+def test_training_entry_points_default_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g, d = init_gan(CFG, torch.Generator().manual_seed(0), "cpu")
+    for call in (lambda: Discriminator(CFG, d),
+                 lambda: make_gan_train_step(CFG, 2, g, d),
+                 lambda: quickstart.main(["--steps", "1"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_params_from_jax_validates_names_and_shapes():
