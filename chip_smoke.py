@@ -16,8 +16,16 @@ its ``dw`` contraction; drive full-width DCGAN training through the
 quickstart entry point (``TrainLoop``, a checkpoint, 40 kernel launches
 a step) and 3D-GAN training through the same code; hold one step's
 losses and gradients against the same step through ``ganax-plain``; and
-time and profile the D and G steps.  It imports nothing of JAX and
-nothing of the JAX package.
+time and profile the D and G steps.  The LLM phases hold the
+flash-attention kernel against its plain version on Gemma-7B's and
+Qwen's geometries, serve full-width Gemma-7B (random bf16 weights from a
+seed) through ``DecodeEngine.run`` with every prefill's attention
+launched through the kernel (28 launches a prefill), hold the kernel
+path's prefill and first decode logits against the naive attention
+path, and time and profile the prefill, the decode steps and the
+kernel beside its bound, its plain version and one
+``F.scaled_dot_product_attention`` call.  It imports nothing of JAX and
+nothing of the JAX package; it prints the seconds of each phase.
 
 The line before the last is a JSON object listing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failed phase exits
@@ -29,6 +37,7 @@ JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -44,11 +53,14 @@ import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 
-# Published peaks of one H100 SXM (data sheet): FP32 outside the tensor
-# cores, and HBM3 bandwidth.  The bound of a launch is the larger of its
+# Published peaks of one H100 SXM (data sheet, dense): FP32 outside the
+# tensor cores, and HBM3 bandwidth.  The bound of a launch is the larger of its
 # operations over the first and its bytes over the second.
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+# dense bf16 on the tensor cores (f32 sums): the flash-attention bound
+# counts a bf16 call's q.k at this rate
+PEAK_BF16_TC_FLOPS = 989e12
 
 BATCH = 64
 # f32 against f32: the sums run in another order over K <= 16·1024
@@ -61,6 +73,8 @@ KERNELS = {
                    "src/repro/kernels/ganax_conv.py:99"),
     "ganax_conv3d": ("src/repro_torch/kernels/csrc/ganax_conv3d.cu",
                      "src/repro/kernels/ganax_conv.py:215"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:31"),
 }
 # the requests each serving path answers
 REQUESTS = (64, 100, 37)
@@ -90,6 +104,35 @@ GRAD_TOL = 1e-2
 LOSS_TOL = 1e-4
 # the autograd Function's profiler labels (core/dataflow.py)
 RANGES = ("ganax.forward", "ganax.dx", "ganax.dw")
+
+# The LLM serving path: full-width Gemma-7B in bf16, random weights from
+# seed 0, LLM_REQUESTS prompts of lengths drawn from the seed in
+# LLM_PROMPT_LENS, greedy, through an engine of LLM_SLOTS slots.
+LLM_ARCH = "gemma-7b"
+LLM_REQUESTS = 16
+LLM_PROMPT_LENS = (128, 2048)
+LLM_SLOTS, LLM_MAX_LEN, LLM_MAX_NEW = 8, 2112, 32
+# the flash-attention kernel against its plain version, per element
+# |a - b| <= atol + rtol |b|: f32 against f32 summed in another order; in
+# bf16 both compute in f32 from the same inputs and round once, so at
+# most one bf16 ulp apart (an ulp is <= 2^-7 |b|; rtol 2^-6 is two), and
+# atol covers outputs within f32 noise of 0
+FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-3, 2 ** -6)}
+# prefill and first-decode logits of the kernel path against the naive
+# path: ||a - b|| <= LLM_TOL * ||b||, in f32 (the same weights widened).
+LLM_TOL = 1e-2
+# the same in bf16, the served model, against the kernel's plain version
+# through the same model: ||a - b|| <= LLM_TOL_BF16 * ||b||.  Looser,
+# because the random weights (fan-in scaled by the layer count, as the
+# reference draws them) make the 28 layers amplify the kernel's one-ulp
+# differences in the attention output to a few percent of the logits'
+# norm (3.4e-2 on the card).  The limit lies between that and what the
+# planted faults of PLANTED_FAULTS read; the script checks that both
+# faults exceed it.
+LLM_TOL_BF16 = 0.1
+# negative controls of that gate: the kernel's function with one fault
+# planted, in place of the kernel through the same model
+PLANTED_FAULTS = ("diagonal tile dropped", "strict causal mask")
 
 
 class SmokeFailure(RuntimeError):
@@ -516,6 +559,427 @@ def train_parity_and_times(card, dev) -> dict:
     return out
 
 
+def flash_cases() -> list[tuple]:
+    """The kernel's geometries held against its plain version: (label, B,
+    S, T, H, hd, causal, dtype).  Gemma-7B's heads at three prompt
+    lengths, causal, bf16 and f32; one full (non-causal) case; Qwen's
+    40 heads of 128 at a small S; and the five geometries of
+    tests/test_kernels_flash.py."""
+    cases = []
+    for s in (17, 1000, 2048):
+        for dtype in (torch.bfloat16, torch.float32):
+            cases.append((f"gemma S={s}", 1, s, s, 16, 256, True, dtype))
+    cases.append(("gemma S=1000 full", 1, 1000, 1000, 16, 256, False,
+                  torch.bfloat16))
+    cases.append(("qwen S=300", 1, 300, 300, 40, 128, True, torch.bfloat16))
+    for b, s, h, hd, causal in ((2, 128, 3, 32, True), (2, 128, 3, 32, False),
+                                (1, 256, 2, 64, True), (1, 64, 4, 16, True),
+                                (2, 96, 1, 8, True)):
+        cases.append((f"pallas case {b}x{s}x{h}x{hd}", b, s, s, h, hd, causal,
+                      torch.float32))
+    return cases
+
+
+def flash_operands(b, s, t, h, hd, dtype, dev, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=gen).to(dev, dtype)
+            for shape in ((b, s, h, hd), (b, t, h, hd), (b, t, h, hd))]
+
+
+def flash_geometries(dev) -> list[float]:
+    """Each geometry of ``flash_cases``: the kernel against its plain
+    version on the card.  Returns the max abs errors."""
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    errs = []
+    for i, (label, b, s, t, h, hd, causal, dtype) in enumerate(flash_cases()):
+        q, k, v = flash_operands(b, s, t, h, hd, dtype, dev, seed=100 + i)
+        got = flash_attention_cuda(q, k, v, causal=causal)
+        ref = flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        atol, rtol = FLASH_TOL[dtype]
+        err = (got.float() - ref.float()).abs().max().item()
+        ok = bool(torch.allclose(got.float(), ref.float(), atol=atol,
+                                 rtol=rtol)) \
+            and bool(torch.isfinite(got).all())
+        errs.append(err)
+        print(f"flash_attention vs plain  {label:24s} B={b} S={s} T={t} "
+              f"H={h} hd={hd} {'causal' if causal else 'full'} "
+              f"{str(dtype).removeprefix('torch.')} max_abs_err {err:.3e} "
+              f"(atol {atol:g}, rtol {rtol:g}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"{label}: flash_attention disagrees with its plain version")
+    return errs
+
+
+def flash_bound(b, s, t, h, hd, dtype, causal) -> tuple[float, float, float,
+                                                      int]:
+    """(operations ms, HBM ms, flops, bytes) of one attention call, whose
+    bound is the larger of the two times: q, k, v read once and the
+    output written once; 2 hd FLOPs of q.k and 2 hd of p.v for each
+    (query, key) pair the mask lets through.  With
+    bf16 operands q.k can run on the bf16 tensor cores with f32 sums at
+    the function's own precision (the hd**-0.5 scale is a power of two
+    at hd 256, and goes on the f32 scores otherwise), so it counts at
+    the bf16 tensor-core rate; p is f32, so p.v counts at the FP32 FFMA
+    rate, as does all of an f32 call."""
+    pairs = sum(min(i + 1, t) for i in range(s)) if causal else s * t
+    half = 2.0 * b * h * hd * pairs
+    qk_rate = PEAK_BF16_TC_FLOPS if dtype == torch.bfloat16 \
+        else PEAK_FP32_FLOPS
+    nbytes = torch.finfo(dtype).bits // 8 * b * h * hd * (2 * s + 2 * t)
+    return ((half / qk_rate + half / PEAK_FP32_FLOPS) * 1e3,
+            nbytes / PEAK_HBM_BYTES * 1e3, 2 * half, nbytes)
+
+
+def planted_fault(fault: str):
+    """The kernel's function in plain PyTorch with one fault planted (see
+    PLANTED_FAULTS): each query row drops the kernel's kv tile that holds
+    its diagonal, or the causal mask keeps q > k in place of q >= k."""
+    from repro_torch.kernels.flash_attention import (NEG_INF,
+                                                     kernel_block_k)
+
+    def attend(q, k, v, causal=True):
+        hd = q.shape[3]
+        qpos = torch.arange(q.shape[1], device=q.device)[:, None]
+        kpos = torch.arange(k.shape[1], device=q.device)[None]
+        if fault == "strict causal mask":
+            keep = qpos > kpos
+        else:
+            bk = kernel_block_k(hd)
+            keep = (qpos >= kpos) & (kpos // bk != qpos // bk)
+        sc = torch.einsum("bqhd,bkhd->bhqk", q.float() * hd ** -0.5,
+                          k.float())
+        p = torch.softmax(torch.where(keep, sc, NEG_INF), dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+    check(fault in PLANTED_FAULTS, f"no planted fault '{fault}'")
+    return attend
+
+
+@contextlib.contextmanager
+def flash_attention_as(fn):
+    """Inside: the model's flash attention calls ``fn(q, k, v, causal=)``
+    in place of the kernel's wrapper on the card."""
+    from repro_torch.models import attention
+    saved = attention.flash_attention_cuda
+    attention.flash_attention_cuda = fn
+    try:
+        yield
+    finally:
+        attention.flash_attention_cuda = saved
+
+
+def rel_norm(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b||, in f32."""
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def llm_serving(card, dev, wrappers) -> dict:
+    """Full-width Gemma-7B through ``DecodeEngine.run`` (every counter at 0
+    just before, read just after): TTFT, prefill and decode rates, the
+    flash launches; then the kernel path against the naive path on a
+    2048-token prompt, the tokens of a naive-attention engine, profiles
+    of a prefill and of decode steps, and the kernel timed at each
+    prompt length beside its bound, its plain version and SDPA."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    from repro_torch.models import transformer as tr
+    from repro_torch.serve.engine import (DecodeEngine, EngineConfig,
+                                          Request, _merge_slot_cache)
+    from repro_torch.train.checkpoint import tree_leaves
+    cfg = get_config(LLM_ARCH)
+    out: dict = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = tr.init(cfg, torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    check(n_params == tr.count_params(cfg), "the parameters miss a spec")
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params))
+    print(f"{LLM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}x{cfg.resolved_head_dim} heads, vocab {cfg.vocab}: "
+          f"{n_params:,} parameters, {weight_bytes / 1e9:.2f} GB in "
+          f"{cfg.dtype}, drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    gen = torch.Generator().manual_seed(0)
+    lens = torch.randint(LLM_PROMPT_LENS[0], LLM_PROMPT_LENS[1] + 1,
+                         (LLM_REQUESTS,), generator=gen).tolist()
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen).tolist()
+               for n in lens]
+    ecfg = EngineConfig(n_slots=LLM_SLOTS, max_len=LLM_MAX_LEN,
+                        max_new=LLM_MAX_NEW, temperature=0.0)
+
+    def serve(impl):
+        engine = DecodeEngine(cfg, params, ecfg, tr.RunFlags(attn_impl=impl),
+                              seed=0, device=dev)
+        reqs = [Request(rid=i, prompt=p) for i, p in enumerate(prompts)]
+        admits, steps, start = {}, [], [0.0]
+        admit, step = engine.try_admit, engine.step
+
+        def timed_admit(req):
+            # try_admit reads the first token back: it ends synchronised
+            t = time.perf_counter()
+            ok = admit(req)
+            if ok:
+                admits[req.rid] = (t - start[0], time.perf_counter() - t)
+            return ok
+
+        def timed_step():
+            n = int(engine.active.sum())
+            t = time.perf_counter()
+            step()                      # reads the tokens back
+            steps.append((time.perf_counter() - t, n))
+
+        engine.try_admit, engine.step = timed_admit, timed_step
+        for kernel, _ in wrappers.values():
+            kernel.launches = 0
+        start[0] = time.perf_counter()
+        engine.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start[0]
+        counts = {k: wrappers[k][0].launches for k in wrappers}
+        del engine
+        return reqs, admits, steps, wall, counts
+
+    # warm up (cuBLAS handles and workspaces, the kernel's library): one
+    # short prefill and one decode step, before the counted run
+    warm = DecodeEngine(cfg, params, dataclasses.replace(ecfg, n_slots=1),
+                        seed=0, device=dev)
+    warm.try_admit(Request(rid=-1, prompt=prompts[0][:LLM_PROMPT_LENS[0]]))
+    warm.step()
+    del warm
+    reqs, admits, steps, wall, counts = serve("flash")
+    check(counts["flash_attention"] == cfg.n_layers * LLM_REQUESTS,
+          f"{counts['flash_attention']} flash_attention launches for "
+          f"{LLM_REQUESTS} prefills of {cfg.n_layers} layers")
+    check(all(c == 0 for k, c in counts.items() if k != "flash_attention"),
+          f"the LLM path launched another kernel: {counts}")
+    for r in reqs:
+        check(r.done and len(r.generated) == LLM_MAX_NEW
+              and all(0 <= t < cfg.vocab for t in r.generated),
+              f"request {r.rid}: done {r.done}, {len(r.generated)} tokens, "
+              f"{r.generated[:8]}")
+    prefill_s = sum(d for _, d in admits.values())
+    decode_s = sum(d for d, _ in steps)
+    decode_tokens = sum(n for _, n in steps)
+    step_ms = statistics.median(d * 1e3 for d, _ in steps)
+    print(f"{LLM_ARCH} served {LLM_REQUESTS} requests ({sum(lens)} prompt "
+          f"tokens, {LLM_MAX_NEW} new each) in {wall:.3f} s through "
+          f"{LLM_SLOTS} slots: {counts['flash_attention']} flash_attention "
+          f"launches = {cfg.n_layers} x {LLM_REQUESTS} prefills [{card}]")
+    for r in sorted(reqs, key=lambda r: len(r.prompt)):
+        queued, pre = admits[r.rid]
+        print(f"  request {r.rid:2d}: prompt {len(r.prompt):4d} tokens, "
+              f"prefill {pre * 1e3:9.3f} ms, time to first token "
+              f"{(queued + pre) * 1e3:9.3f} ms")
+    print(f"prefill: {sum(lens)} tokens in {prefill_s:.3f} s = "
+          f"{sum(lens) / prefill_s:.1f} tokens/s; decode: {len(steps)} "
+          f"engine steps, median {step_ms:.3f} ms a step, {decode_tokens} "
+          f"tokens in {decode_s:.3f} s = {decode_tokens / decode_s:.1f} "
+          f"tokens/s (HBM bound of a step's weights "
+          f"{weight_bytes / PEAK_HBM_BYTES * 1e3:.3f} ms) [{card}]")
+    out.update(
+        arch=LLM_ARCH, params=n_params, weight_gb=weight_bytes / 1e9,
+        prompt_lens=lens, wall_s=wall, launches=counts["flash_attention"],
+        requests=[dict(rid=r.rid, prompt=len(r.prompt),
+                       prefill_ms=admits[r.rid][1] * 1e3,
+                       ttft_ms=sum(admits[r.rid]) * 1e3) for r in reqs],
+        prefill_tokens_per_s=sum(lens) / prefill_s, decode_steps=len(steps),
+        decode_step_ms_median=step_ms,
+        decode_tokens_per_s=decode_tokens / decode_s)
+    flash_tokens = [r.generated for r in reqs]
+
+    # the kernel path against the naive path and against the kernel's
+    # plain version, on one 2048-token prompt: prefill and first decode
+    tokens = torch.randint(0, cfg.vocab, (1, LLM_PROMPT_LENS[1]),
+                           generator=gen).to(dev)
+
+    def prefill_and_decode(c, p, impl):
+        flags = tr.RunFlags(attn_impl=impl)
+        lg, pcache = tr.forward(p, {"tokens": tokens}, c, mode="prefill",
+                                flags=flags)
+        cache = tr.init_cache(c, 1, LLM_MAX_LEN, device=dev)
+        _merge_slot_cache(cache, pcache, 0, tokens.shape[1])
+        del pcache
+        # the same next token on every path: the greedy one of run 1
+        nxt[0] = torch.argmax(lg[:, -1].float(), dim=-1)[:, None] \
+            if nxt[0] is None else nxt[0]
+        first, _ = tr.decode_step(p, cache, nxt[0], torch.tensor(
+            [tokens.shape[1]], device=dev), c, flags)
+        return lg, first
+
+    nxt = [None]
+    calls = []
+
+    def recorded(q, k, v, causal=True):
+        o = flash_attention_cuda(q, k, v, causal=causal)
+        calls.append((q, k, v, causal, o))
+        return o
+
+    with flash_attention_as(recorded):
+        runs = {"flash": prefill_and_decode(cfg, params, "flash")}
+    # every launch of that prefill against the plain version, on the
+    # model's own q, k, v
+    check(len(calls) == cfg.n_layers, f"{len(calls)} flash calls in a "
+          f"prefill of {cfg.n_layers} layers")
+    worst = 0.0
+    for li, (q, k, v, causal, o) in enumerate(calls):
+        ref = flash_attention_plain(q, k, v, causal=causal)
+        atol, rtol = FLASH_TOL[o.dtype]
+        worst = max(worst, (o.float() - ref.float()).abs().max().item())
+        check(bool(torch.allclose(o.float(), ref.float(), atol=atol,
+                                  rtol=rtol)),
+              f"layer {li}: the kernel disagrees with its plain version on "
+              f"the model's own inputs")
+    print(f"{LLM_ARCH} 2048-token prefill: each of its {len(calls)} "
+          f"flash_attention launches vs plain on the model's q, k, v: "
+          f"max_abs_err {worst:.3e} (atol {FLASH_TOL[torch.bfloat16][0]:g}, "
+          f"rtol {FLASH_TOL[torch.bfloat16][1]:g}) ok")
+    del calls, q, k, v, o, ref
+    runs["naive"] = prefill_and_decode(cfg, params, "naive")
+    with flash_attention_as(flash_attention_plain):
+        runs["plain"] = prefill_and_decode(cfg, params, "flash")
+    errs = {f"flash vs {b}": [rel_norm(x, y) for x, y in
+                              zip(runs["flash"], runs[b])]
+            for b in ("plain", "naive")}
+    del runs["naive"]
+    for fault in PLANTED_FAULTS:
+        with flash_attention_as(planted_fault(fault)):
+            lg = prefill_and_decode(cfg, params, "flash")
+        errs[f"{fault} vs plain"] = [rel_norm(x, y) for x, y in
+                                     zip(lg, runs["plain"])]
+        del lg
+    del runs
+    torch.cuda.empty_cache()
+    out["logits_rel_err"] = errs
+    out["flash_vs_plain_on_model_inputs_max_abs_err"] = worst
+
+    def report(what, tol=None, fault=False):
+        pre, dec = errs[what]
+        print(f"{LLM_ARCH} 2048-token prompt, {what}: prefill logits "
+              f"||a-b||/||b|| {pre:.3e}, first decode logits {dec:.3e} "
+              + ("(not gated: the naive path rounds p to bf16 for p.v)"
+                 if tol is None else f"(must exceed {tol:g}: planted fault)"
+                 if fault else f"(tolerance {tol:g})"))
+        if fault:
+            check(max(pre, dec) > tol, f"the logits gate of {tol:g} cannot "
+                  f"tell the planted fault '{what}'")
+        elif tol is not None:
+            check(max(pre, dec) <= tol, f"{what}: the logits disagree")
+    report("flash vs plain", LLM_TOL_BF16)
+    for fault in PLANTED_FAULTS:
+        report(f"{fault} vs plain", LLM_TOL_BF16, fault=True)
+    report("flash vs naive")
+
+    naive_reqs, _, _, naive_wall, _ = serve("naive")
+    agree = sum(a == b for r, n in zip(flash_tokens, naive_reqs)
+                for a, b in zip(r, n.generated))
+    print(f"tokens on which the flash and naive engines agree: {agree} of "
+          f"{LLM_REQUESTS * LLM_MAX_NEW} (not gated: bf16 argmax ties may "
+          f"flip); naive engine {naive_wall:.3f} s")
+    out.update(tokens_agree=agree, naive_wall_s=naive_wall)
+    torch.cuda.empty_cache()
+
+    # profiles: one 2048-token prefill, then decode steps of a full pool
+    prof = profile(lambda: tr.forward(params, {"tokens": tokens}, cfg,
+                                      mode="prefill"), 2,
+                   f"{LLM_ARCH} prefills of {tokens.shape[1]} tokens")
+    if "device_ms_per_run" in prof:
+        attn_ms = sum(ms for name, ms in prof["kernels_ms_per_run"].items()
+                      if "fa_kernel" in name)
+        prof["attention_share_of_device"] = attn_ms / prof["device_ms_per_run"]
+        print(f"  flash_attention {attn_ms:.3f} ms a prefill, "
+              f"{100 * prof['attention_share_of_device']:.1f}% of its device "
+              f"time")
+    out["prefill_profile"] = prof
+    engine = DecodeEngine(cfg, params, ecfg, seed=0, device=dev)
+    for i in sorted(range(LLM_REQUESTS), key=lambda i: lens[i])[:LLM_SLOTS]:
+        check(engine.try_admit(Request(rid=i, prompt=prompts[i])),
+              "the pool refused a request")
+    out["decode_profile"] = profile(engine.step, 3,
+                                    f"{LLM_ARCH} decode steps of "
+                                    f"{LLM_SLOTS} slots")
+    del engine
+    torch.cuda.empty_cache()
+
+    # the kernel at each prompt length of the path, against its bound,
+    # its plain version and one SDPA call (a yardstick never on the path)
+    rows = []
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    for s in sorted(set(lens)):
+        q, k, v = flash_operands(1, s, s, h, hd, cfg.activation_dtype, dev,
+                                 seed=s)
+        ms = time_ms(lambda: flash_attention_cuda(q, k, v))
+        plain_ms = time_ms(lambda: flash_attention_plain(q, k, v), warmup=1,
+                           runs=3)
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
+        ops_ms, hbm_ms, flops, nbytes = flash_bound(1, s, s, h, hd, q.dtype,
+                                                    True)
+        rows.append(dict(s=s, requests=lens.count(s), ms=ms,
+                         plain_ms=plain_ms, library_ms=sdpa_ms,
+                         bound_ms=max(ops_ms, hbm_ms),
+                         bound_by="operations" if ops_ms >= hbm_ms
+                         else "bytes", ops_ms=ops_ms, hbm_ms=hbm_ms,
+                         gflop=flops / 1e9))
+        del q, k, v, qt, kt, vt
+    edges = (128, 512, 1024, 1536, 2049)
+    for lo, hi in zip(edges, edges[1:]):
+        b = [r for r in rows if lo <= r["s"] < hi]
+        if not b:
+            continue
+        n = sum(r["requests"] for r in b)
+
+        def mean(key):
+            return sum(r[key] * r["requests"] for r in b) / n
+        print(f"flash_attention, prompts {lo}-{hi - 1} ({n} requests): "
+              f"{mean('ms'):.4f} ms a launch, bound of the operations "
+              f"{mean('ops_ms'):.4f} ms, HBM bound {mean('hbm_ms'):.4f} ms, "
+              f"plain {mean('plain_ms'):.4f} ms, SDPA {mean('library_ms'):.4f}"
+              f" ms (means over the requests; B=1 H={h} hd={hd} causal "
+              f"{cfg.dtype}) [{card}]")
+    out["flash_rows"] = rows
+    per_path = {key: cfg.n_layers * sum(r[key] * r["requests"] for r in rows)
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    out["flash_per_path"] = per_path
+    print(f"flash_attention over the path's {cfg.n_layers * LLM_REQUESTS} "
+          f"launches: kernel {per_path['ms']:.3f} ms, bound "
+          f"{per_path['bound_ms']:.3f} ms, plain {per_path['plain_ms']:.3f} "
+          f"ms, SDPA {per_path['library_ms']:.3f} ms; "
+          f"{100 * per_path['ms'] / 1e3 / prefill_s:.1f}% of the measured "
+          f"prefill time [{card}]")
+
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"{LLM_ARCH} in {cfg.dtype}: peak device memory "
+          f"{out['peak_memory_gb']:.2f} GB (max_memory_allocated) [{card}]")
+    # last, the same weights widened to f32 in place (the bf16 ones go),
+    # through the kernel's f32 build against the naive path
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    _widen(params)
+    runs = {impl: prefill_and_decode(cfg32, params, impl)
+            for impl in ("flash", "naive")}
+    errs["flash vs naive, f32"] = [rel_norm(x, y) for x, y in
+                                   zip(runs["flash"], runs["naive"])]
+    del runs, params
+    torch.cuda.empty_cache()
+    report("flash vs naive, f32", LLM_TOL)
+    return out
+
+
+def _widen(tree: dict) -> None:
+    """Every leaf to f32, in place, one leaf at a time."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _widen(v)
+        else:
+            tree[k] = v.float()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -529,6 +993,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.gans import GAN_MODELS
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
     from repro_torch.kernels.ganax_conv import (ganax_conv3d_cuda,
                                                 ganax_conv3d_plain,
                                                 ganax_conv_cuda,
@@ -540,10 +1006,21 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda", 0)
-    record: dict = {}
+    record: dict = {"phase_s": {}}
     wrappers = {"ganax_conv": (ganax_conv_cuda, ganax_conv_plain),
-                "ganax_conv3d": (ganax_conv3d_cuda, ganax_conv3d_plain)}
+                "ganax_conv3d": (ganax_conv3d_cuda, ganax_conv3d_plain),
+                "flash_attention": (flash_attention_cuda,
+                                    flash_attention_plain)}
+    gan_wrappers = {k: wrappers[k] for k in ("ganax_conv", "ganax_conv3d")}
+    phase_t0 = [time.perf_counter()]
+
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        record["phase_s"][name] = now - phase_t0[0]
+        print(f"phase {name}: {now - phase_t0[0]:.1f} s")
+        phase_t0[0] = now
 
     # -- 1. environment and build -----------------------------------------
     card = card_line()
@@ -551,7 +1028,9 @@ def main(argv=None) -> int:
           f"{torch.cuda.get_device_name(0)}")
     print(f"card: {card}")
     print("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
-          "torch.backends.cudnn.allow_tf32 = False")
+          "torch.backends.cudnn.allow_tf32 = False; bf16 products summed in "
+          "f32: torch.backends.cuda.matmul."
+          "allow_bf16_reduced_precision_reduction = False")
     t0 = time.perf_counter()
     built = build.build()
     build_s = time.perf_counter() - t0
@@ -563,8 +1042,8 @@ def main(argv=None) -> int:
         for line in res.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas: {line.strip()}")
-    print(f"build phase: {build_s:.1f} s")
     record["build_s"] = build_s
+    phase_done("build")
 
     # -- 2. each kernel against its plain version on the card --------------
     gen = torch.Generator().manual_seed(1234)
@@ -572,7 +1051,7 @@ def main(argv=None) -> int:
     def rand(*shape, scale=1.0):
         return (scale * torch.randn(shape, generator=gen)).to(dev)
 
-    cases = {name: [] for name in KERNELS}
+    cases = {name: [] for name in gan_wrappers}
     timed = set()       # the generator layers, timed in phase 4
     for name, model in (("ganax_conv", "dcgan"), ("ganax_conv3d", "3dgan")):
         g_layers, d_layers = GAN_MODELS[model]
@@ -597,9 +1076,9 @@ def main(argv=None) -> int:
         ("ragged Cin 33 Cout 65 3d", True, (5, 6, 7), (3, 3, 3), (2, 2, 2),
          (1, 1, 1), 33, 65, Epilogue(bias=True, activation="leaky_relu"))]
     kernel_errs = {name: [] for name in KERNELS}
-    layer_rows = {name: [] for name in KERNELS}
+    layer_rows = {name: [] for name in gan_wrappers}
     with torch.inference_mode():
-        for name, (kernel, plain) in wrappers.items():
+        for name, (kernel, plain) in gan_wrappers.items():
             for label, transposed, sp, k, s, p, cin, cout, ep in cases[name]:
                 x = rand(BATCH, *sp, cin)
                 w = rand(*k, cin, cout, scale=(math.prod(k) * cin) ** -0.5)
@@ -622,6 +1101,7 @@ def main(argv=None) -> int:
                     layer_rows[name].append((label, operands, b, ep, x, w, s,
                                              p))
                 del got, ref
+    phase_done("GAN kernels vs plain")
 
     # -- 3. the main paths: serve each full-width generator ----------------
     servers = {}
@@ -674,11 +1154,12 @@ def main(argv=None) -> int:
         record[f"{model}_generator_max_abs_err"] = err
         servers[name] = server
         del served, ref_img, ref_server
+    phase_done("GAN serving paths")
 
     # -- 4. times ----------------------------------------------------------
-    rows = {name: [] for name in KERNELS}
+    rows = {name: [] for name in gan_wrappers}
     with torch.inference_mode():
-        for name, (kernel, plain) in wrappers.items():
+        for name, (kernel, plain) in gan_wrappers.items():
             for label, operands, b, ep, x, w, s, p in layer_rows[name]:
                 act = ep.activation
                 ms = time_ms(lambda: kernel(**operands, bias=b,
@@ -717,19 +1198,31 @@ def main(argv=None) -> int:
                                  per_s=per_s, unit=unit, profile=prof)
     servers.clear()
     torch.cuda.empty_cache()
+    phase_done("GAN times")
 
     # -- 5. training: every launch geometry of the step, kernel vs plain --
-    record["train_geometries"] = train_geometries(card, dev, wrappers,
+    record["train_geometries"] = train_geometries(card, dev, gan_wrappers,
                                                   kernel_errs)
+    phase_done("training geometries")
     # -- 6. the training paths (DCGAN quickstart, 3D-GAN) ------------------
     train_launches = train_paths(dev, wrappers)
+    phase_done("training paths")
     # -- 7. one step against ganax-plain, step times, profiles -------------
     record["train"] = train_parity_and_times(card, dev)
+    phase_done("training parity and times")
+    # -- 8. the flash-attention kernel against its plain version -----------
+    kernel_errs["flash_attention"] = flash_geometries(dev)
+    phase_done("flash_attention vs plain")
+    # -- 9. the LLM serving path: full-width Gemma-7B ----------------------
+    llm = record["llm"] = llm_serving(card, dev, wrappers)
+    phase_done("Gemma-7B serving")
     record.update(card=card, torch=torch.__version__, cuda=torch.version.cuda,
-                  launches={"serve": launches, "train": train_launches})
+                  launches={"serve": launches, "train": train_launches,
+                            "llm": llm["launches"]})
 
     kernels = []
-    for name, (source, replaces) in KERNELS.items():
+    for name in gan_wrappers:
+        source, replaces = KERNELS[name]
         r = rows[name]
         total_bound = sum(row["bound_ms"] for row in r)
         kernels.append({
@@ -750,7 +1243,27 @@ def main(argv=None) -> int:
                 else "bytes"),
             "library_ms": sum(row["library_ms"] for row in r),
         })
+    # over the LLM path's launches: each prompt length timed once, times
+    # its requests, times the layers
+    flash = llm["flash_per_path"]
+    fa_ops = sum(r["ops_ms"] * r["requests"] for r in llm["flash_rows"])
+    fa_hbm = sum(r["hbm_ms"] * r["requests"] for r in llm["flash_rows"])
+    kernels.append({
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": KERNELS["flash_attention"][0],
+        "replaces": KERNELS["flash_attention"][1],
+        "launches": llm["launches"],
+        "max_abs_err": max(kernel_errs["flash_attention"]),
+        "ms": flash["ms"],
+        "plain_ms": flash["plain_ms"],
+        "bound_ms": flash["bound_ms"],
+        "bound_by": "operations" if fa_ops >= fa_hbm else "bytes",
+        "library_ms": flash["library_ms"],
+    })
     record["kernels"] = kernels
+    print("seconds per phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in record["phase_s"].items()))
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(record, indent=1))

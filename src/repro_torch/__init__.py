@@ -1,9 +1,13 @@
 """GANAX on PyTorch and CUDA: the port of the JAX package ``repro``.
 
-The port serves the Table-I GAN generators on an NVIDIA Hopper card
-through a hand-written CUDA C++ port of the unified MIMD-SIMD conv
-kernel (``kernels/csrc/ganax_conv.cu``).  It imports ``torch`` and
-numpy only: nothing of JAX and nothing of ``repro``.  Its entry points
-run on the card unless the caller passes ``device="cpu"``, where every
-kernel runs its plain PyTorch version.
+The port serves and trains the Table-I GAN generators on an NVIDIA
+Hopper card through hand-written CUDA C++ ports of the unified MIMD-SIMD
+conv kernels (``kernels/csrc/ganax_conv.cu``, ``ganax_conv3d.cu``), and
+serves the LLM stack's dense, causal, un-windowed configs (Gemma-7B,
+Qwen1.5-32B) with every prefill's attention launched through a
+hand-written port of the flash-attention kernel
+(``kernels/csrc/flash_attention.cu``).  It imports ``torch`` and numpy
+only: nothing of JAX and nothing of ``repro``.  Its entry points run on
+the card unless the caller passes ``device="cpu"``, where every kernel
+runs its plain PyTorch version.
 """

@@ -1,1 +1,2 @@
-"""The Table-I GAN topologies (data)."""
+"""The Table-I GAN topologies and the LLM stack's architecture configs
+(data)."""

@@ -1,11 +1,13 @@
 """Parameters of the JAX package as tensors of the port.
 
-:func:`params_from_jax` takes one network's parameters as numpy arrays
-(``{name: np.asarray(leaf)}`` of what ``repro.models.gan.init_gan``
-returns) and hands back the port's tensors, so both packages compute
-the same function from the same weights.  The layouts are the same
-(channels-last, weights ``(K..., Cin, Cout)``): the conversion checks
-names and shapes and copies.
+:func:`params_from_jax` takes one GAN network's parameters as numpy
+arrays (``{name: np.asarray(leaf)}`` of what ``repro.models.gan.init_gan``
+returns) and :func:`lm_params_from_jax` the LLM stack's nested
+parameters; each hands back the port's tensors, so both packages
+compute the same function from the same weights.  The layouts are the
+same (channels-last GAN weights ``(K..., Cin, Cout)``; the LLM's stacked
+``segments/seg<i>/pos<j>/...`` tree): the conversion checks names and
+shapes and copies.
 """
 
 from __future__ import annotations
@@ -13,11 +15,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.gan import (GanConfig, check_params,
                                     discriminator_specs, generator_specs)
+from repro_torch.models.transformer import model_specs
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "lm_params_from_jax"]
 
 
 def params_from_jax(np_params: dict[str, np.ndarray], cfg: GanConfig,
@@ -35,3 +39,42 @@ def params_from_jax(np_params: dict[str, np.ndarray], cfg: GanConfig,
     return {name: torch.tensor(np.asarray(np_params[name], np.float32),
                                device=dev)
             for name in sorted(np_params)}
+
+
+def _check_tree(np_params: dict, specs: dict, path: str = "") -> None:
+    if set(np_params) != set(specs):
+        missing = sorted(set(specs) - set(np_params))
+        extra = sorted(set(np_params) - set(specs))
+        raise ValueError(f"parameters at '{path or '/'}': missing {missing}, "
+                         f"unexpected {extra}")
+    for key, spec in specs.items():
+        where = f"{path}/{key}" if path else key
+        leaf = np_params[key]
+        if isinstance(spec, dict):
+            if not isinstance(leaf, dict):
+                raise ValueError(f"{where}: expected a subtree")
+            _check_tree(leaf, spec, where)
+        elif tuple(np.shape(leaf)) != spec.shape:
+            raise ValueError(f"{where}: shape {tuple(np.shape(leaf))}, "
+                             f"expected {spec.shape}")
+
+
+def _to_tensors(tree: dict, device: torch.device, dtype: torch.dtype):
+    return {k: (_to_tensors(v, device, dtype) if isinstance(v, dict) else
+                torch.tensor(np.asarray(v, np.float32)).to(device, dtype))
+            for k, v in tree.items()}
+
+
+def lm_params_from_jax(np_params: dict, cfg: ArchConfig,
+                       device: str | torch.device = "cuda",
+                       dtype: torch.dtype | None = None) -> dict:
+    """Validate the LLM parameters ``np_params`` (the nested dict of what
+    ``repro.models.transformer.init`` returns, leaves as numpy arrays)
+    against the port's ``model_specs(cfg)`` (every path, every shape)
+    and return them as tensors on ``device``, every leaf stored in
+    ``dtype`` (default ``cfg.activation_dtype``: the reference casts
+    every leaf to it on every forward, so storing it so computes the
+    same function)."""
+    dev = resolve_device(device)
+    _check_tree(np_params, model_specs(cfg))
+    return _to_tensors(np_params, dev, dtype or cfg.activation_dtype)

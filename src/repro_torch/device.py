@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "require_ieee_f32"]
+__all__ = ["resolve_device", "require_ieee_f32", "require_f32_accumulation"]
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -35,3 +35,20 @@ def require_ieee_f32(t: torch.Tensor, *, conv: bool = False) -> None:
         raise RuntimeError(
             f"torch.backends.{flag}.allow_tf32 is True; the port "
             f"computes in full float32 (set it to False)")
+
+
+def require_f32_accumulation(t: torch.Tensor) -> None:
+    """Refuse reduced-precision sums for the matmuls on ``t``'s dtype on
+    the card: full f32 for a float32 tensor (no TF32), and f32
+    reductions for a bfloat16 one (cuBLAS may otherwise reduce bf16
+    products in bf16), as the reference accumulates in f32."""
+    if not t.is_cuda:
+        return
+    if t.dtype == torch.float32:
+        require_ieee_f32(t)
+    elif (t.dtype == torch.bfloat16 and torch.backends.cuda.matmul
+          .allow_bf16_reduced_precision_reduction):
+        raise RuntimeError(
+            "torch.backends.cuda.matmul."
+            "allow_bf16_reduced_precision_reduction is True; the port "
+            "accumulates bf16 products in f32 (set it to False)")

@@ -1,1 +1,2 @@
-"""The GANAX conv kernel: CUDA source, build, wrappers and ops."""
+"""The GANAX conv kernels and the flash-attention kernel: CUDA sources,
+build, wrappers and ops."""

@@ -1,0 +1,299 @@
+// Forward flash attention for Hopper (sm_90a): f32 or bf16 storage, f32
+// compute.
+//
+// Replaces: _fa_kernel / flash_attention_pallas in
+// src/repro/kernels/flash_attention.py, the Pallas TPU kernel.  It
+// computes the same function:
+//
+//   out[b, i, h, :] = sum_j p[i, j] v[b, j, h, :] / max(sum_j p[i, j], 1e-30)
+//   s[i, j] = (q[b, i, h, :] * hd^-0.5) . k[b, j, h, :], or -1e30 where the
+//             causal mask (i >= j, indices aligned top-left) hides j
+//   p[i, j] = exp(s[i, j] - max_j s[i, j]), kept by an online softmax
+//
+// q is scaled in f32 before the product; the scores, the running max and
+// denominator, p and the accumulator are all f32 (p is not rounded to the
+// storage type before p.v); the output is cast to the storage type once.
+// Heads are MHA: the caller expands GQA first.
+//
+// What bounds it on the card: a causal prefill of S tokens does about
+// 2 S^2 hd FLOPs per head against 4 S hd elements of q, k, v and out,
+// so at the LLM widths (hd 128-256, S in the thousands) it is bound by
+// arithmetic: FP32 FFMA, 67 TFLOP/s on an H100 SXM.
+//
+// Design: one block computes BQ = 64 query rows of one (batch, head); the
+// grid is (B*H, ceil(S/BQ)), all independent.  The TPU kernel's kv loop
+// runs inside the block too, up to the same causal live-block bound
+// n_live = min(ceil((qi+1) BQ / BK), ceil(T / BK)), so a causal prefill
+// does about half the work of a full one.  The block reads q, k, v and
+// writes out in their (B, S, H, hd) layout by strides (the Pallas wrapper
+// transposes to (B*H, S, hd) first).  Per kv block it stages BK rows of k
+// and v in shared memory as f32 (the q tile stays there, pre-scaled, for
+// the whole loop), computes the BQ x BK scores with each thread owning a
+// 4 x BK/16 micro-tile, runs the online softmax with four threads per
+// row (shuffles for the row max and sum), and adds p.v into register
+// accumulators, each thread owning a micro-tile of the BQ x hd output.
+// Ragged S and T are masked (Pallas asserts divisibility instead): keys
+// past T are never read and score -1e30, query rows past S are computed
+// on zeros and never written.  BK is 64 for hd <= 64 and 32 above, to
+// keep the staged tiles of hd = 256 within 140 KB of shared memory.  No
+// wgmma, no TMA, no double buffering: those are for a later change.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kBQ = 64;
+constexpr float kNegInf = -1e30f;  // the Pallas kernel's NEG_INF
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// The tile shapes of one head dim D.
+template <int D>
+struct Tiles {
+  static constexpr int BK = D <= 64 ? 64 : 32;
+  // scores: a 4 x TN_S micro-tile per thread over BQ x BK
+  static constexpr int TN_S = BK / 16;
+  // output: TM_O x TN_O per thread over BQ x D; columns are interleaved
+  // over RD thread columns, rows over RQ thread rows
+  static constexpr int TN_O = D >= 64 ? 8 : (D >= 16 ? 4 : 2);
+  static constexpr int RD = D / TN_O;
+  static constexpr int RQ = kThreads / RD;
+  static constexpr int TM_O = kBQ / RQ;
+  static_assert(RD * TN_O == D && RQ * RD == kThreads && TM_O * RQ == kBQ,
+                "the output tile must split evenly over the threads");
+  // shared memory, in floats: q, k (rows padded to an odd stride), v,
+  // p, and the per-row rescale factor and denominator
+  static constexpr int QS = kBQ * (D + 1);
+  static constexpr int KS = BK * (D + 1);
+  static constexpr int VS = BK * D;
+  static constexpr int PS = kBQ * (BK + 1);
+  static constexpr int kSmemBytes =
+      (QS + KS + VS + PS + 2 * kBQ) * static_cast<int>(sizeof(float));
+};
+
+// All offsets are 32-bit: the wrapper refuses operands whose largest
+// element offset reaches 2^31.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
+          const T* __restrict__ v, T* __restrict__ out, int H, int S,
+          int Tk, int qsb, int qss, int qsh, int ksb, int kss, int ksh,
+          int vsb, int vss, int vsh, int osb, int oss, int osh, int causal,
+          float sm_scale) {
+  using Tl = Tiles<D>;
+  constexpr int BK = Tl::BK;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                 // [kBQ][D + 1], pre-scaled
+  float* Ks = Qs + Tl::QS;          // [BK][D + 1]
+  float* Vs = Ks + Tl::KS;          // [BK][D]
+  float* Ps = Vs + Tl::VS;          // [kBQ][BK + 1], scores then p
+  float* row_alpha = Ps + Tl::PS;   // [kBQ]
+  float* row_l = row_alpha + kBQ;   // [kBQ]
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x - b * H;
+  const int q0 = blockIdx.y * kBQ;
+  const T* qb = q + b * qsb + h * qsh;
+  const T* kb = k + b * ksb + h * ksh;
+  const T* vb = v + b * vsb + h * vsh;
+
+  for (int idx = tid; idx < kBQ * D; idx += kThreads) {
+    const int r = idx / D;
+    const int d = idx - r * D;
+    const int i = q0 + r;
+    Qs[r * (D + 1) + d] = i < S ? to_f32(qb[i * qss + d]) * sm_scale : 0.f;
+  }
+
+  const int n_kv = (Tk + BK - 1) / BK;
+  const int n_live = causal ? min((q0 + kBQ + BK - 1) / BK, n_kv) : n_kv;
+
+  // softmax phase: four threads per row
+  const int sm_row = tid >> 2;
+  const int sm_part = tid & 3;
+  float m = kNegInf;
+  float l = 0.f;
+
+  // score phase: rows sy + 16 i, columns sx + 16 j
+  const int sy = tid / 16;
+  const int sx = tid % 16;
+
+  // p.v phase: rows oy + RQ i, columns ox + RD j
+  const int oy = tid / Tl::RD;
+  const int ox = tid % Tl::RD;
+  float acc[Tl::TM_O][Tl::TN_O];
+#pragma unroll
+  for (int i = 0; i < Tl::TM_O; ++i)
+#pragma unroll
+    for (int j = 0; j < Tl::TN_O; ++j) acc[i][j] = 0.f;
+
+  for (int blk = 0; blk < n_live; ++blk) {
+    const int k0 = blk * BK;
+    __syncthreads();  // the previous block's tiles are consumed
+    for (int idx = tid; idx < BK * D; idx += kThreads) {
+      const int r = idx / D;
+      const int d = idx - r * D;
+      const int j = k0 + r;
+      const bool live = j < Tk;
+      Ks[r * (D + 1) + d] = live ? to_f32(kb[j * kss + d]) : 0.f;
+      Vs[r * D + d] = live ? to_f32(vb[j * vss + d]) : 0.f;
+    }
+    __syncthreads();
+
+    // s = (q * scale) . k, masked
+    {
+      float s[4][Tl::TN_S];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < Tl::TN_S; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float a[4];
+        float c[Tl::TN_S];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = Qs[(sy + 16 * i) * (D + 1) + d];
+#pragma unroll
+        for (int j = 0; j < Tl::TN_S; ++j)
+          c[j] = Ks[(sx + 16 * j) * (D + 1) + d];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < Tl::TN_S; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = sy + 16 * i;
+#pragma unroll
+        for (int j = 0; j < Tl::TN_S; ++j) {
+          const int c = sx + 16 * j;
+          const int kpos = k0 + c;
+          const bool ok = kpos < Tk && (!causal || q0 + r >= kpos);
+          Ps[r * (BK + 1) + c] = ok ? s[i][j] : kNegInf;
+        }
+      }
+    }
+    __syncthreads();
+
+    // online softmax of one row, four threads each
+    {
+      float* prow = Ps + sm_row * (BK + 1);
+      float mx = kNegInf;
+      for (int c = sm_part; c < BK; c += 4) mx = fmaxf(mx, prow[c]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m, mx);
+      const float alpha = expf(m - m_new);
+      float sum = 0.f;
+      for (int c = sm_part; c < BK; c += 4) {
+        const float p = expf(prow[c] - m_new);
+        prow[c] = p;
+        sum += p;
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l = l * alpha + sum;
+      m = m_new;
+      if (sm_part == 0) row_alpha[sm_row] = alpha;
+    }
+    __syncthreads();
+
+    // acc = acc * alpha + p.v
+#pragma unroll
+    for (int i = 0; i < Tl::TM_O; ++i) {
+      const float alpha = row_alpha[oy + Tl::RQ * i];
+#pragma unroll
+      for (int j = 0; j < Tl::TN_O; ++j) acc[i][j] *= alpha;
+    }
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      float p[Tl::TM_O];
+      float w[Tl::TN_O];
+#pragma unroll
+      for (int i = 0; i < Tl::TM_O; ++i)
+        p[i] = Ps[(oy + Tl::RQ * i) * (BK + 1) + c];
+#pragma unroll
+      for (int j = 0; j < Tl::TN_O; ++j) w[j] = Vs[c * D + ox + Tl::RD * j];
+#pragma unroll
+      for (int i = 0; i < Tl::TM_O; ++i)
+#pragma unroll
+        for (int j = 0; j < Tl::TN_O; ++j) acc[i][j] = fmaf(p[i], w[j], acc[i][j]);
+    }
+  }
+
+  if (sm_part == 0) row_l[sm_row] = fmaxf(l, 1e-30f);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < Tl::TM_O; ++i) {
+    const int r = oy + Tl::RQ * i;
+    const int row = q0 + r;
+    if (row >= S) continue;
+    const float den = row_l[r];
+    T* orow = out + b * osb + row * oss + h * osh;
+#pragma unroll
+    for (int j = 0; j < Tl::TN_O; ++j)
+      store(orow + ox + Tl::RD * j, acc[i][j] / den);
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int H, int S, int Tk, const int* st, int causal, float sm_scale,
+           cudaStream_t stream) {
+  constexpr int smem = Tiles<D>::kSmemBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
+  fa_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), H, S, Tk, st[0], st[1],
+      st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
+      causal, sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(int D, const void* q, const void* k, const void* v, void* out,
+             int B, int H, int S, int Tk, const int* st, int causal,
+             float sm_scale, cudaStream_t s) {
+  switch (D) {
+    case 8: return launch<T, 8>(q, k, v, out, B, H, S, Tk, st, causal, sm_scale, s);
+    case 16: return launch<T, 16>(q, k, v, out, B, H, S, Tk, st, causal, sm_scale, s);
+    case 32: return launch<T, 32>(q, k, v, out, B, H, S, Tk, st, causal, sm_scale, s);
+    case 64: return launch<T, 64>(q, k, v, out, B, H, S, Tk, st, causal, sm_scale, s);
+    case 128: return launch<T, 128>(q, k, v, out, B, H, S, Tk, st, causal, sm_scale, s);
+    case 256: return launch<T, 256>(q, k, v, out, B, H, S, Tk, st, causal, sm_scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// Launches on `stream` without synchronising and returns the CUDA error
+// (0 when the launch was accepted).  dtype: 0 float32, 1 bfloat16.
+// strides: 12 element strides, (batch, position, head) of q, k, v and
+// out in that order; the head dim is contiguous.
+extern "C" int flash_attention_fwd(const void* q, const void* k,
+                                   const void* v, void* out, int dtype,
+                                   int B, int H, int S, int Tk, int D,
+                                   const int* strides, int causal,
+                                   float sm_scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch<float>(D, q, k, v, out, B, H, S, Tk, strides, causal,
+                           sm_scale, s);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16>(D, q, k, v, out, B, H, S, Tk, strides,
+                                   causal, sm_scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -1,1 +1,1 @@
-"""Executable GAN models."""
+"""Executable GAN models and the LLM stack's transformer."""

@@ -1,0 +1,48 @@
+"""Gated MLP variants (SwiGLU / GeGLU / plain GELU): the port of
+``repro.models.mlp``.  The GELUs are the tanh approximation, which is
+what JAX's ``gelu(approximate=True)`` computes."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.common import PSpec
+
+__all__ = ["mlp_specs", "mlp_apply"]
+
+
+def mlp_specs(cfg: ArchConfig, kind: str, d_ff: int | None = None
+              ) -> dict[str, PSpec]:
+    d = cfg.d_model
+    f = d_ff or cfg.d_ff
+    if kind in ("swiglu", "geglu"):
+        return {
+            "wi": PSpec((d, f), ("embed", "mlp")),
+            "wg": PSpec((d, f), ("embed", "mlp")),
+            "wo": PSpec((f, d), ("mlp", "embed")),
+        }
+    if kind == "gelu":
+        return {
+            "wi": PSpec((d, f), ("embed", "mlp")),
+            "bi": PSpec((f,), ("mlp",), init="zeros"),
+            "wo": PSpec((f, d), ("mlp", "embed")),
+            "bo": PSpec((d,), (None,), init="zeros"),
+        }
+    raise ValueError(kind)
+
+
+def mlp_apply(params: dict[str, torch.Tensor], x: torch.Tensor,
+              kind: str) -> torch.Tensor:
+    if kind == "swiglu":
+        h = F.silu(x @ params["wg"]) * (x @ params["wi"])
+        return h @ params["wo"]
+    if kind == "geglu":
+        h = F.gelu(x @ params["wg"], approximate="tanh") * (x @ params["wi"])
+        return h @ params["wo"]
+    if kind == "gelu":
+        h = F.gelu(x @ params["wi"] + params["bi"].to(x.dtype),
+                   approximate="tanh")
+        return h @ params["wo"] + params["bo"].to(x.dtype)
+    raise ValueError(kind)

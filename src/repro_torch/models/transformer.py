@@ -1,0 +1,290 @@
+"""Decoder LM assembly (the port of ``repro.models.transformer`` for the
+dense, causal, un-windowed configs: ``gemma-7b``, ``qwen1.5-32b``).
+
+Parameters keep the reference's stacked layout — ``segments/seg<i>/
+pos<j>/{ln_mix, attn/{wq,wk,wv,wo[,bq,bk,bv]}, ln_mlp, mlp/{...}}`` with
+a leading layers axis, ``embed`` and ``final_norm`` — as nested dicts of
+tensors, so converting the JAX package's parameters is a check and a
+copy.  Where the reference scans over the layers, :func:`forward` loops
+over the layer slices in Python.
+
+Entry points:
+  * ``model_specs(cfg)``  → nested dict of PSpecs
+  * ``init(cfg, gen)``    → params on ``gen``'s device, in the activation
+    dtype
+  * ``forward(params, batch, cfg, mode=...)`` → logits (+ cache)
+  * ``decode_step`` / ``init_cache`` / ``count_params``
+
+A config outside this slice raises ``NotImplementedError`` naming the
+ROADMAP item that brings it, when its model is built.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, BlockDesc
+from repro_torch.device import require_f32_accumulation, resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.common import (PSpec, init_tree, rms_norm,
+                                       stack_specs)
+from repro_torch.models.mlp import mlp_apply, mlp_specs
+from repro_torch.train.checkpoint import tree_leaves
+
+__all__ = ["RunFlags", "check_supported", "model_specs", "init", "forward",
+           "decode_step", "init_cache", "count_params"]
+
+# ROADMAP queue 1 items that bring what this slice leaves out
+_ITEM_TRAIN = "ROADMAP queue 1 item 16 (LLM training)"
+_ITEM_SWA = ("ROADMAP queue 1 item 17 (sliding-window attention, logit "
+             "soft-capping and positions given in the batch)")
+_ITEM_MLA = "ROADMAP queue 1 item 18 (MLA)"
+_ITEM_MOE = "ROADMAP queue 1 item 19 (MoE)"
+_ITEM_SSM = "ROADMAP queue 1 item 20 (SSM and hybrid blocks)"
+_ITEM_ENC = "ROADMAP queue 1 item 21 (the encoder and the VLM)"
+_ITEM_INT8 = "ROADMAP queue 1 item 22 (the int8 KV cache)"
+_ITEM_MESH = "ROADMAP queue 1 item 23 (flash_decode and the mesh)"
+
+
+@dataclasses.dataclass(frozen=True)
+class RunFlags:
+    """Runtime knobs threaded through the forward pass.  ``attn_impl``
+    selects the train/prefill attention (``"flash"``: the kernel;
+    ``"naive"``: the full-matrix reference); the other fields exist for
+    the reference's signature and must keep their defaults."""
+    attn_impl: str = "flash"          # "flash" | "naive"
+    remat: bool = True
+    remat_policy: str = "nothing"
+    seq_shard_decode: bool = False
+    mesh: Any = None
+    scan_layers: bool = True
+
+    def __post_init__(self):
+        if self.attn_impl not in ("flash", "naive"):
+            raise NotImplementedError(
+                f"attn_impl {self.attn_impl!r}: the port has 'flash' and "
+                f"'naive'")
+        if (self.remat, self.remat_policy, self.scan_layers) != (
+                True, "nothing", True):
+            raise NotImplementedError(f"remat and scan flags: {_ITEM_TRAIN}")
+        if self.seq_shard_decode or self.mesh is not None:
+            raise NotImplementedError(f"a mesh: {_ITEM_MESH}")
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for a config outside this slice."""
+    if cfg.family in ("encoder", "vlm"):
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r}: "
+                                  f"{_ITEM_ENC}")
+    if cfg.logit_softcap > 0:
+        raise NotImplementedError(f"{cfg.name}: logit_softcap: {_ITEM_SWA}")
+    if not cfg.causal:
+        raise NotImplementedError(f"{cfg.name}: non-causal attention: "
+                                  f"{_ITEM_ENC}")
+    for descs, _ in cfg.layer_segments():
+        for desc in descs:
+            if desc.mixer == "mla":
+                raise NotImplementedError(f"{cfg.name}: MLA: {_ITEM_MLA}")
+            if desc.mixer in ("ssm", "hybrid"):
+                raise NotImplementedError(f"{cfg.name}: mixer "
+                                          f"{desc.mixer!r}: {_ITEM_SSM}")
+            if desc.mlp == "moe":
+                raise NotImplementedError(f"{cfg.name}: MoE: {_ITEM_MOE}")
+            if desc.window > 0:
+                raise NotImplementedError(f"{cfg.name}: window "
+                                          f"{desc.window}: {_ITEM_SWA}")
+
+
+# ---------------------------------------------------------------------------
+# Specs.
+# ---------------------------------------------------------------------------
+
+def _block_specs(cfg: ArchConfig, desc: BlockDesc) -> dict[str, Any]:
+    d = cfg.d_model
+    specs: dict[str, Any] = {
+        "ln_mix": PSpec((d,), (None,), init="zeros"),
+        "attn": attn_mod.attention_specs(cfg, desc),
+    }
+    if desc.mlp != "none":
+        specs["ln_mlp"] = PSpec((d,), (None,), init="zeros")
+        specs["mlp"] = mlp_specs(cfg, desc.mlp)
+    return specs
+
+
+def model_specs(cfg: ArchConfig) -> dict[str, Any]:
+    check_supported(cfg)
+    d = cfg.d_model
+    specs: dict[str, Any] = {
+        "embed": PSpec((cfg.padded_vocab, d), ("vocab", "embed"),
+                       init="embed", scale=1.0),
+        "final_norm": PSpec((d,), (None,), init="zeros"),
+    }
+    if not cfg.tie_embeddings:
+        specs["head"] = PSpec((d, cfg.padded_vocab), ("embed", "vocab"))
+    specs["segments"] = {
+        f"seg{si}": stack_specs({f"pos{di}": _block_specs(cfg, desc)
+                                 for di, desc in enumerate(descs)}, rep)
+        for si, (descs, rep) in enumerate(cfg.layer_segments())}
+    return specs
+
+
+def init(cfg: ArchConfig, gen: torch.Generator) -> dict[str, Any]:
+    """Random parameters drawn on ``gen``'s device and stored in
+    ``cfg.activation_dtype`` (the reference casts every leaf to it on
+    every forward): a full-width model is drawn on the card, never in
+    host memory."""
+    return init_tree(gen, model_specs(cfg), cfg.activation_dtype)
+
+
+def count_params(cfg: ArchConfig) -> int:
+    total = 0
+    for s in tree_leaves(model_specs(cfg)):
+        n = 1
+        for d in s.shape:
+            n *= int(d)
+        total += n
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Forward.
+# ---------------------------------------------------------------------------
+
+def _block_apply(params, x, cfg, desc, *, positions, mode, cache, lengths,
+                 flags: RunFlags):
+    h = rms_norm(x, params["ln_mix"], cfg.norm_eps)
+    out, c = attn_mod.attention_apply(
+        params["attn"], h, cfg, desc, positions=positions, mode=mode,
+        cache=None if cache is None else cache.get("attn"), lengths=lengths,
+        attn_impl=flags.attn_impl)
+    x = x + out
+    if desc.mlp != "none":
+        h = rms_norm(x, params["ln_mlp"], cfg.norm_eps)
+        x = x + mlp_apply(params["mlp"], h, desc.mlp)
+    return x, ({} if c is None else {"attn": c})
+
+
+def _embed_in(params, batch, cfg: ArchConfig) -> torch.Tensor:
+    dt = cfg.activation_dtype
+    x = params["embed"][batch["tokens"]].to(dt)
+    return x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
+
+
+def _logits(params, x, cfg: ArchConfig) -> torch.Tensor:
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    logits = x @ head.to(x.dtype)
+    if cfg.padded_vocab != cfg.vocab:  # mask padding columns
+        valid = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab
+        logits = torch.where(valid, logits,
+                             torch.tensor(-1e30, dtype=logits.dtype,
+                                          device=x.device))
+    return logits
+
+
+def _cast_params(params, dt: torch.dtype):
+    """Every floating leaf in the activation dtype (no copy for a leaf
+    already stored in it)."""
+    return {k: (_cast_params(v, dt) if isinstance(v, dict)
+                else v.to(dt) if v.is_floating_point() else v)
+            for k, v in params.items()}
+
+
+def _layer(tree, li: int):
+    return {k: (_layer(v, li) if isinstance(v, dict) else v[li])
+            for k, v in tree.items()}
+
+
+def forward(params, batch, cfg: ArchConfig, *, mode: str = "train",
+            cache=None, lengths=None, flags: RunFlags = RunFlags(),
+            last_logit_only: bool = False):
+    """Returns (logits, new_cache); new_cache is None in train mode.
+
+    ``train`` is the forward pass only.  ``prefill`` returns the cache of
+    the prompt, stacked over each segment's layers: ``{seg: {pos:
+    {"attn": {"k", "v"}}}}`` of ``(layers, B, S, Hk, hd)``.  ``decode``
+    writes into ``cache`` in place at ``lengths`` and returns it.
+    ``last_logit_only``: the logits of the last position only."""
+    check_supported(cfg)
+    if "positions" in batch:
+        raise NotImplementedError(f"positions given in the batch: "
+                                  f"{_ITEM_SWA}")
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(mode)
+    params = _cast_params(params, cfg.activation_dtype)
+    x = _embed_in(params, batch, cfg)
+    require_f32_accumulation(x)
+    b, s, _ = x.shape
+    if mode == "decode":
+        positions = lengths[:, None]
+    else:
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+
+    new_cache = {}
+    for si, (descs, rep) in enumerate(cfg.layer_segments()):
+        seg_params = params["segments"][f"seg{si}"]
+        seg_cache = None if cache is None else cache[f"seg{si}"]
+        layer_caches = []
+        for li in range(rep):
+            lp = _layer(seg_params, li)
+            lc = None if seg_cache is None else _layer(seg_cache, li)
+            outs = {}
+            for di, desc in enumerate(descs):
+                x, outs[f"pos{di}"] = _block_apply(
+                    lp[f"pos{di}"], x, cfg, desc, positions=positions,
+                    mode=mode, cache=None if lc is None else lc[f"pos{di}"],
+                    lengths=lengths, flags=flags)
+            layer_caches.append(outs)
+        if mode == "prefill":
+            new_cache[f"seg{si}"] = _stack(layer_caches)
+        elif mode == "decode":
+            new_cache[f"seg{si}"] = seg_cache
+    if last_logit_only:
+        x = x[:, -1:]
+    logits = _logits(params, x, cfg)
+    return logits, (new_cache if mode in ("prefill", "decode") else None)
+
+
+def _stack(trees: list[dict]) -> dict:
+    first = trees[0]
+    return {k: (_stack([t[k] for t in trees]) if isinstance(first[k], dict)
+                else torch.stack([t[k] for t in trees]))
+            for k in first}
+
+
+def decode_step(params, cache, tokens, lengths, cfg: ArchConfig,
+                flags: RunFlags = RunFlags()):
+    """One decoding step, the cache updated in place.  tokens (B,1) →
+    (logits (B, vocab), cache)."""
+    logits, cache = forward(params, {"tokens": tokens}, cfg, mode="decode",
+                            cache=cache, lengths=lengths, flags=flags)
+    return logits[:, -1], cache
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype: torch.dtype | None = None, kv_dtype: str = "bf16",
+               device: str | torch.device = "cuda") -> dict:
+    """Zero cache matching the segment structure: per attention block
+    ``{"k", "v"}`` of ``(layers, batch, max_len, Hk, hd)`` in ``dtype``
+    (default: the activation dtype), on ``device`` (default: the
+    card)."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    if kv_dtype == "int8":
+        raise NotImplementedError(f"kv_dtype='int8': {_ITEM_INT8}")
+    if kv_dtype != "bf16":
+        raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
+    dt = dtype or cfg.activation_dtype
+    hd = cfg.resolved_head_dim
+    cache: dict[str, Any] = {}
+    for si, (descs, rep) in enumerate(cfg.layer_segments()):
+        shape = (rep, batch, max_len, cfg.n_kv_heads, hd)
+        cache[f"seg{si}"] = {
+            f"pos{di}": {"attn": {
+                "k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}}
+            for di in range(len(descs))}
+    return cache

@@ -1,1 +1,1 @@
-"""Batched image generation."""
+"""Batched image generation and LLM decode serving."""

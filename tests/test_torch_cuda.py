@@ -6,7 +6,9 @@ imports nothing of JAX, so it also runs where JAX is not installed:
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 
 Tolerance: atol = rtol = 1e-4 — f32 against f32, summed in another
-order.
+order; for the flash-attention kernel in bf16, atol 1e-3 and rtol 2^-6
+(both sides compute in f32 from the same bf16 inputs and round the
+output once: at most one bf16 ulp, <= 2^-7 of the value, apart).
 """
 
 import dataclasses
@@ -17,11 +19,16 @@ import torch
 
 from repro_torch.core import dataflow as tdf
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_plain)
 from repro_torch.kernels.ganax_conv import (ganax_conv3d_cuda,
                                             ganax_conv3d_plain,
                                             ganax_conv_cuda, ganax_conv_plain)
+from repro_torch.launch.serve import reduced_config
+from repro_torch.models import transformer as tr
 from repro_torch.models.gan import GanConfig, init_gan
 from repro_torch.quickstart import make_batch_fn
+from repro_torch.serve.engine import DecodeEngine, EngineConfig, Request
 from repro_torch.serve.gan import GanServer
 from repro_torch.train.loop import make_gan_train_step
 
@@ -91,6 +98,7 @@ def dev():
         pytest.skip("needs a CUDA card: the CUDA kernel runs only there")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.device("cuda")
 
 
@@ -261,3 +269,93 @@ def test_cuda_train_step_matches_plain(dev, model):
     for ours, theirs in zip(state, ref_state):
         for k in theirs:
             torch.testing.assert_close(ours[k], theirs[k], **TOL, msg=k)
+
+
+FLASH_TOL = {torch.float32: TOL,
+             torch.bfloat16: dict(atol=1e-3, rtol=2 ** -6)}
+
+
+def _flash_inputs(b, s, t, h, hd, dtype, dev, seed=9):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=gen).to(dev, dtype)
+            for shape in ((b, s, h, hd), (b, t, h, hd), (b, t, h, hd))]
+
+
+# (B, S, T, H, hd, causal): ragged S and T (not multiples of the 64-row
+# q tile or the kv tile), causal and full, at hd 64 and Gemma's 256
+FLASH_CASES = [
+    (1, 77, 77, 3, 64, True),
+    (2, 45, 130, 2, 64, False),
+    (1, 200, 150, 2, 64, True),
+    (1, 100, 100, 2, 256, True),
+    (2, 33, 70, 2, 256, False),
+    (1, 130, 130, 1, 256, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,t,h,hd,causal", FLASH_CASES)
+def test_flash_kernel_matches_plain(dev, b, s, t, h, hd, causal, dtype):
+    q, k, v = _flash_inputs(b, s, t, h, hd, dtype, dev)
+    before = flash_attention_cuda.launches
+    got = flash_attention_cuda(q, k, v, causal=causal)
+    assert flash_attention_cuda.launches == before + 1
+    ref = flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), ref.float(), **FLASH_TOL[dtype])
+
+
+def test_flash_kernel_on_a_side_stream_reads_strided_views(dev):
+    """q, k and v as head-major tensors viewed as (B, S, H, hd), the
+    launch on a side stream with no synchronize before it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gen = torch.Generator(dev).manual_seed(2)
+        q, k, v = (torch.randn((2, 4, 150, 64), device=dev, generator=gen,
+                               dtype=torch.bfloat16).transpose(1, 2)
+                   for _ in range(3))
+        assert not q.is_contiguous()
+        got = flash_attention_cuda(q, k, v, causal=True)
+        ref = flash_attention_plain(q, k, v, causal=True)
+    side.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(),
+                               **FLASH_TOL[torch.bfloat16])
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    q = torch.zeros((1, 8, 2, 48), device=dev)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention_cuda(q, q, q)
+    q = torch.zeros((1, 8, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="contiguous head dim"):
+        flash_attention_cuda(q, q, q.transpose(1, 3).contiguous()
+                             .transpose(1, 3))
+    with pytest.raises(ValueError, match="CUDA device"):
+        flash_attention_cuda(q, q.cpu(), q)
+
+
+def test_engine_on_the_card_launches_the_flash_kernel(dev):
+    """Tiny Gemma in f32: one kernel launch per layer per prefill, and
+    the same greedy tokens as the engine with naive attention."""
+    cfg = dataclasses.replace(reduced_config("gemma-7b", "tiny"),
+                              dtype="float32")
+    params = tr.init(cfg, torch.Generator(dev).manual_seed(0))
+    prompts = [[int(t) for t in torch.randint(0, cfg.vocab, (n,),
+                generator=torch.Generator().manual_seed(n))]
+               for n in (70, 5, 131)]
+    tokens = {}
+    for impl in ("flash", "naive"):
+        engine = DecodeEngine(cfg, params, EngineConfig(
+            n_slots=2, max_len=160, max_new=5), tr.RunFlags(attn_impl=impl),
+            device=dev)
+        reqs = [Request(rid=i, prompt=p) for i, p in enumerate(prompts)]
+        before = flash_attention_cuda.launches
+        engine.run(reqs)
+        launched = flash_attention_cuda.launches - before
+        assert launched == (cfg.n_layers * len(prompts)
+                            if impl == "flash" else 0)
+        tokens[impl] = [r.generated for r in reqs]
+    assert tokens["flash"] == tokens["naive"]

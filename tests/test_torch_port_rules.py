@@ -1,8 +1,10 @@
 """The PyTorch port's rules: it imports nothing of JAX and nothing of the
 JAX package, its entry points run on the card unless asked for the CPU,
-and it validates the parameters it takes from the JAX package."""
+it validates the parameters it takes from the JAX package, and it
+refuses the LLM configs outside its slice when their model is built."""
 
 import ast
+import dataclasses
 import os
 import pkgutil
 import subprocess
@@ -15,9 +17,13 @@ import torch
 
 import repro_torch
 from repro_torch import quickstart
-from repro_torch.convert import params_from_jax
+from repro_torch.configs.base import get_config
+from repro_torch.convert import lm_params_from_jax, params_from_jax
+from repro_torch.launch import serve as llm_serve
+from repro_torch.models import transformer as tr
 from repro_torch.models.gan import (Discriminator, GanConfig, Generator,
                                     generator_specs, init_gan)
+from repro_torch.serve.engine import DecodeEngine, EngineConfig
 from repro_torch.serve.gan import GanServer
 from repro_torch.train.loop import make_gan_train_step
 
@@ -106,3 +112,83 @@ def test_params_from_jax_validates_names_and_shapes():
     bad = dict(good, t1_w=np.zeros((3, 3, 1, 1), np.float32))
     with pytest.raises(ValueError, match="t1_w"):
         params_from_jax(bad, CFG, "cpu")
+
+
+def _tiny_lm():
+    cfg = llm_serve.reduced_config("gemma-7b", "tiny")
+    return cfg, tr.init(cfg, torch.Generator().manual_seed(0))
+
+
+def test_llm_entry_points_default_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg, params = _tiny_lm()
+    for call in (lambda: DecodeEngine(cfg, params, EngineConfig()),
+                 lambda: llm_serve.main(["--arch", "gemma-7b"]),
+                 lambda: tr.init_cache(cfg, 1, 8),
+                 lambda: lm_params_from_jax({}, cfg)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    engine = DecodeEngine(cfg, params, EngineConfig(n_slots=1, max_len=8),
+                          device="cpu")
+    assert engine.device.type == "cpu"
+    with pytest.raises(ValueError, match="unsupported device"):
+        DecodeEngine(cfg, params, EngineConfig(), device="meta")
+
+
+OUTSIDE_THE_SLICE = {
+    "gemma3-4b": "item 17", "hubert-xlarge": "item 21",
+    "hymba-1.5b": "item 20", "internvl2-26b": "item 21",
+    "llama4-scout-17b-a16e": "item 19", "mamba2-2.7b": "item 20",
+    "minicpm3-4b": "item 18", "olmoe-1b-7b": "item 19"}
+
+
+@pytest.mark.parametrize("name", sorted(OUTSIDE_THE_SLICE))
+def test_llm_configs_outside_the_slice_raise_at_build(name):
+    cfg = llm_serve.reduced_config(name, "tiny")
+    item = OUTSIDE_THE_SLICE[name]
+    for build in (lambda: tr.model_specs(cfg),
+                  lambda: tr.init(cfg, torch.Generator()),
+                  lambda: tr.init_cache(cfg, 1, 8, device="cpu")):
+        with pytest.raises(NotImplementedError, match=item):
+            build()
+
+
+def test_llm_options_outside_the_slice_raise():
+    cfg, params = _tiny_lm()
+    soft = dataclasses.replace(cfg, logit_softcap=30.0)
+    with pytest.raises(NotImplementedError, match="item 17"):
+        tr.model_specs(soft)
+    tokens = torch.zeros((1, 4), dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="item 17"):
+        tr.forward(params, {"tokens": tokens,
+                            "positions": torch.zeros_like(tokens)}, cfg)
+    with pytest.raises(NotImplementedError, match="item 22"):
+        tr.init_cache(cfg, 1, 8, kv_dtype="int8", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 23"):
+        tr.RunFlags(mesh=object())
+    with pytest.raises(NotImplementedError, match="item 23"):
+        tr.RunFlags(seq_shard_decode=True)
+    with pytest.raises(NotImplementedError, match="item 16"):
+        tr.RunFlags(remat=False)
+    with pytest.raises(NotImplementedError, match="'flash' and 'naive'"):
+        tr.RunFlags(attn_impl="chunked_q")
+    for name in ("gemma-7b", "qwen1.5-32b"):
+        tr.model_specs(get_config(name))       # the slice's full configs
+
+
+def test_lm_params_from_jax_validates_paths_and_shapes():
+    cfg, params = _tiny_lm()
+
+    def to_np(tree):
+        return {k: to_np(v) if isinstance(v, dict) else v.float().numpy()
+                for k, v in tree.items()}
+    np_good = to_np(params)
+    out = lm_params_from_jax(np_good, cfg, "cpu")
+    assert out["embed"].dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="missing"):
+        lm_params_from_jax({k: v for k, v in np_good.items()
+                            if k != "final_norm"}, cfg, "cpu")
+    bad = to_np(params)
+    bad["segments"]["seg0"]["pos0"]["attn"]["wq"] = np.zeros((2, 3, 4))
+    with pytest.raises(ValueError, match="seg0/pos0/attn/wq"):
+        lm_params_from_jax(bad, cfg, "cpu")
