@@ -16,14 +16,16 @@ its ``dw`` contraction; drive full-width DCGAN training through the
 quickstart entry point (``TrainLoop``, a checkpoint, 40 kernel launches
 a step) and 3D-GAN training through the same code; hold one step's
 losses and gradients against the same step through ``ganax-plain``; and
-time and profile the D and G steps.  The LLM phases hold the
-flash-attention kernel against its plain version on Gemma-7B's and
-Qwen's geometries, serve full-width Gemma-7B (random bf16 weights from a
-seed) through ``DecodeEngine.run`` with every prefill's attention
-launched through the kernel (28 launches a prefill), hold the kernel
-path's prefill and first decode logits against the naive attention
-path, and time and profile the prefill, the decode steps and the
-kernel beside its bound, its plain version and one
+time and profile the D and G steps.  The LLM phases hold the two
+flash-attention kernels (the wgmma/TMA one for bf16 at hd 128 and 256,
+the FFMA one for f32 and the small head dims) against their plain
+version on Gemma-7B's and Qwen's geometries, serve full-width Gemma-7B
+(random bf16 weights from a seed) through ``DecodeEngine.run`` with
+every prefill's attention launched through the wgmma kernel (28
+launches a prefill), hold the kernel path's prefill and first decode
+logits against the plain and naive attention paths (in f32 through the
+FFMA kernel), and time and profile the prefill, the decode steps and
+the kernels beside their bound, their plain version and one
 ``F.scaled_dot_product_attention`` call.  It imports nothing of JAX and
 nothing of the JAX package; it prints the seconds of each phase.
 
@@ -67,15 +69,23 @@ BATCH = 64
 # terms, so a few ulps of the largest partial sums.
 ATOL = RTOL = 1e-4
 
-# name -> (source, the TPU kernel it replaces)
+# name -> (source, the TPU kernel it replaces).  flash_attention has two
+# kernels, picked by dtype and head dim: the wgmma/TMA one (bf16 at hd
+# 128 and 256, the served model) and the FFMA one (f32, small head dims).
 KERNELS = {
     "ganax_conv": ("src/repro_torch/kernels/csrc/ganax_conv.cu",
                    "src/repro/kernels/ganax_conv.py:99"),
     "ganax_conv3d": ("src/repro_torch/kernels/csrc/ganax_conv3d.cu",
                      "src/repro/kernels/ganax_conv.py:215"),
-    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
-                        "src/repro/kernels/flash_attention.py:31"),
+    "flash_attention_wgmma": (
+        "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+        "src/repro/kernels/flash_attention.py:31"),
+    "flash_attention_ffma": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:31"),
 }
+FLASH_VARIANTS = {"wgmma": "flash_attention_wgmma",
+                  "ffma": "flash_attention_ffma"}
 # the requests each serving path answers
 REQUESTS = (64, 100, 37)
 # the training paths: DCGAN steps through the quickstart entry point,
@@ -126,7 +136,8 @@ LLM_TOL = 1e-2
 # because the random weights (fan-in scaled by the layer count, as the
 # reference draws them) make the 28 layers amplify the kernel's one-ulp
 # differences in the attention output to a few percent of the logits'
-# norm (3.4e-2 on the card).  The limit lies between that and what the
+# norm (3.4e-2 through the FFMA kernel, 5.6e-2 through the wgmma one,
+# on an H100).  The limit lies between that and what the
 # planted faults of PLANTED_FAULTS read; the script checks that both
 # faults exceed it.
 LLM_TOL_BF16 = 0.1
@@ -167,6 +178,32 @@ def time_ms(fn, warmup: int = 3, runs: int = 15) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, warmup: int = 3, runs: int = 20) -> float:
+    """CUDA-event time of ``fn()`` in ms, as the device runs it: the mean
+    over ``runs`` back-to-back calls, enqueued while the device sleeps
+    (``torch.cuda._sleep``) so that the host's time to issue them is not
+    in the window.  Refuses a window the device reached before the host
+    had issued every call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(runs):
+            fn()
+        end.record()
+        reached = start.query()
+        end.synchronize()
+        if not reached:
+            return start.elapsed_time(end) / runs
+        cycles *= 4
+    raise SmokeFailure("the host issued too slowly to time on the device")
 
 
 def q_sizes(operands: dict) -> tuple[int, ...]:
@@ -560,18 +597,24 @@ def train_parity_and_times(card, dev) -> dict:
 
 
 def flash_cases() -> list[tuple]:
-    """The kernel's geometries held against its plain version: (label, B,
-    S, T, H, hd, causal, dtype).  Gemma-7B's heads at three prompt
-    lengths, causal, bf16 and f32; one full (non-causal) case; Qwen's
-    40 heads of 128 at a small S; and the five geometries of
-    tests/test_kernels_flash.py."""
+    """The kernels' geometries held against their plain version: (label,
+    B, S, T, H, hd, causal, dtype).  Gemma-7B's heads at three prompt
+    lengths, causal, bf16 (the wgmma kernel) and f32 (the FFMA kernel);
+    one full (non-causal) case; a ragged B = 2 case (S and T not
+    multiples of the tiles, a kv tail shorter than one TMA box); Qwen's
+    40 heads of 128 at a small S, causal and full; and the five
+    geometries of tests/test_kernels_flash.py."""
     cases = []
     for s in (17, 1000, 2048):
         for dtype in (torch.bfloat16, torch.float32):
             cases.append((f"gemma S={s}", 1, s, s, 16, 256, True, dtype))
     cases.append(("gemma S=1000 full", 1, 1000, 1000, 16, 256, False,
                   torch.bfloat16))
+    cases.append(("gemma ragged B=2", 2, 333, 197, 16, 256, True,
+                  torch.bfloat16))
     cases.append(("qwen S=300", 1, 300, 300, 40, 128, True, torch.bfloat16))
+    cases.append(("qwen S=300 full", 1, 300, 300, 40, 128, False,
+                  torch.bfloat16))
     for b, s, h, hd, causal in ((2, 128, 3, 32, True), (2, 128, 3, 32, False),
                                 (1, 256, 2, 64, True), (1, 64, 4, 16, True),
                                 (2, 96, 1, 8, True)):
@@ -586,14 +629,17 @@ def flash_operands(b, s, t, h, hd, dtype, dev, seed):
             for shape in ((b, s, h, hd), (b, t, h, hd), (b, t, h, hd))]
 
 
-def flash_geometries(dev) -> list[float]:
-    """Each geometry of ``flash_cases``: the kernel against its plain
-    version on the card.  Returns the max abs errors."""
+def flash_geometries(dev) -> dict[str, list[float]]:
+    """Each geometry of ``flash_cases``: the kernel that the wrapper picks
+    against its plain version on the card.  Returns the max abs errors
+    by variant."""
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                     flash_attention_plain)
-    errs = []
+                                                     flash_attention_plain,
+                                                     kernel_variant)
+    errs = {variant: [] for variant in FLASH_VARIANTS}
     for i, (label, b, s, t, h, hd, causal, dtype) in enumerate(flash_cases()):
         q, k, v = flash_operands(b, s, t, h, hd, dtype, dev, seed=100 + i)
+        variant = kernel_variant(dtype, hd)
         got = flash_attention_cuda(q, k, v, causal=causal)
         ref = flash_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
@@ -602,39 +648,71 @@ def flash_geometries(dev) -> list[float]:
         ok = bool(torch.allclose(got.float(), ref.float(), atol=atol,
                                  rtol=rtol)) \
             and bool(torch.isfinite(got).all())
-        errs.append(err)
-        print(f"flash_attention vs plain  {label:24s} B={b} S={s} T={t} "
-              f"H={h} hd={hd} {'causal' if causal else 'full'} "
+        errs[variant].append(err)
+        print(f"flash_attention ({variant}) vs plain  {label:18s} B={b} S={s} "
+              f"T={t} H={h} hd={hd} {'causal' if causal else 'full'} "
               f"{str(dtype).removeprefix('torch.')} max_abs_err {err:.3e} "
               f"(atol {atol:g}, rtol {rtol:g}) {'ok' if ok else 'FAIL'}")
         check(ok, f"{label}: flash_attention disagrees with its plain version")
     return errs
 
 
-def flash_bound(b, s, t, h, hd, dtype, causal) -> tuple[float, float, float,
-                                                      int]:
-    """(operations ms, HBM ms, flops, bytes) of one attention call, whose
-    bound is the larger of the two times: q, k, v read once and the
-    output written once; 2 hd FLOPs of q.k and 2 hd of p.v for each
-    (query, key) pair the mask lets through.  With
-    bf16 operands q.k can run on the bf16 tensor cores with f32 sums at
-    the function's own precision (the hd**-0.5 scale is a power of two
-    at hd 256, and goes on the f32 scores otherwise), so it counts at
-    the bf16 tensor-core rate; p is f32, so p.v counts at the FP32 FFMA
-    rate, as does all of an f32 call."""
+def flash_bound(b, s, t, h, hd, dtype, causal) -> dict:
+    """The least time the card could take for one attention call: the
+    larger of its operations' time and its bytes' time (q, k, v read
+    once and the output written once).  Operations: 2 hd FLOPs of q.k
+    and 2 hd of p.v for each (query, key) pair the mask lets through.
+    With bf16 operands both products run on the bf16 tensor cores with
+    f32 sums at the function's own precision: q.k once (the hd**-0.5
+    scale goes on the f32 scores), and p.v twice, because p is f32 and
+    enters as two bf16 terms (p_hi + p_lo, see
+    csrc/flash_attention_sm90.cu); all three at the bf16 tensor-core
+    rate.  An f32 call counts both products at the FP32 FFMA rate.
+    ``ops_ms_fp32_pv`` is the bound that counted a bf16 call's p.v at the
+    FP32 rate (before the wgmma kernel), kept for comparison."""
     pairs = sum(min(i + 1, t) for i in range(s)) if causal else s * t
     half = 2.0 * b * h * hd * pairs
-    qk_rate = PEAK_BF16_TC_FLOPS if dtype == torch.bfloat16 \
-        else PEAK_FP32_FLOPS
     nbytes = torch.finfo(dtype).bits // 8 * b * h * hd * (2 * s + 2 * t)
-    return ((half / qk_rate + half / PEAK_FP32_FLOPS) * 1e3,
-            nbytes / PEAK_HBM_BYTES * 1e3, 2 * half, nbytes)
+    if dtype == torch.bfloat16:
+        tc_flops = 3 * half
+        ops_ms = tc_flops / PEAK_BF16_TC_FLOPS * 1e3
+        old_ms = (half / PEAK_BF16_TC_FLOPS + half / PEAK_FP32_FLOPS) * 1e3
+    else:
+        tc_flops = 0.0
+        ops_ms = old_ms = 2 * half / PEAK_FP32_FLOPS * 1e3
+    return dict(ops_ms=ops_ms, hbm_ms=nbytes / PEAK_HBM_BYTES * 1e3,
+                flops=2 * half, tc_flops=tc_flops, ops_ms_fp32_pv=old_ms)
+
+
+def sm_fill(b, s, h, sms) -> tuple[int, int, float]:
+    """(blocks, waves, fill) of one launch of the wgmma kernel on a card
+    of ``sms`` SMs: its grid is B*H times its q tiles of 128 rows, one
+    block an SM (its shared memory), so it runs in ceil(blocks / sms)
+    waves and fills blocks / (waves * sms) of the SMs' slots."""
+    from repro_torch.kernels.flash_attention import WGMMA_BLOCK_Q
+    blocks = b * h * -(-s // WGMMA_BLOCK_Q)
+    waves = -(-blocks // sms)
+    return blocks, waves, blocks / (waves * sms)
+
+
+def attention_f64(q, k, v, causal: bool) -> torch.Tensor:
+    """Attention of the same q, k, v (B, S, H, hd) in float64, not
+    rounded: the exact value the kernels and their plain version round."""
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double())
+    sc = sc * q.shape[3] ** -0.5
+    if causal:
+        keep = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool,
+                          device=q.device).tril()
+        sc = sc.masked_fill(~keep, float("-inf"))
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, dim=-1),
+                        v.double())
 
 
 def planted_fault(fault: str):
     """The kernel's function in plain PyTorch with one fault planted (see
-    PLANTED_FAULTS): each query row drops the kernel's kv tile that holds
-    its diagonal, or the causal mask keeps q > k in place of q >= k."""
+    PLANTED_FAULTS): each query row drops the kv tile that holds its
+    diagonal, a tile of the kernel that runs q's dtype at its head dim,
+    or the causal mask keeps q > k in place of q >= k."""
     from repro_torch.kernels.flash_attention import (NEG_INF,
                                                      kernel_block_k)
 
@@ -645,7 +723,7 @@ def planted_fault(fault: str):
         if fault == "strict causal mask":
             keep = qpos > kpos
         else:
-            bk = kernel_block_k(hd)
+            bk = kernel_block_k(hd, q.dtype)
             keep = (qpos >= kpos) & (kpos // bk != qpos // bk)
         sc = torch.einsum("bqhd,bkhd->bhqk", q.float() * hd ** -0.5,
                           k.float())
@@ -680,9 +758,12 @@ def llm_serving(card, dev, wrappers) -> dict:
     flash launches; then the kernel path against the naive path on a
     2048-token prompt, the tokens of a naive-attention engine, profiles
     of a prefill and of decode steps, and the kernel timed at each
-    prompt length beside its bound, its plain version and SDPA."""
+    prompt length beside its bound, its plain version and SDPA; last,
+    the f32 check through the FFMA kernel (its counters at 0 just
+    before, read just after)."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_ffma,
                                                      flash_attention_plain)
     from repro_torch.models import transformer as tr
     from repro_torch.serve.engine import (DecodeEngine, EngineConfig,
@@ -753,10 +834,13 @@ def llm_serving(card, dev, wrappers) -> dict:
     warm.step()
     del warm
     reqs, admits, steps, wall, counts = serve("flash")
-    check(counts["flash_attention"] == cfg.n_layers * LLM_REQUESTS,
-          f"{counts['flash_attention']} flash_attention launches for "
-          f"{LLM_REQUESTS} prefills of {cfg.n_layers} layers")
-    check(all(c == 0 for k, c in counts.items() if k != "flash_attention"),
+    n_launches = cfg.n_layers * LLM_REQUESTS
+    check(counts["flash_attention"] == n_launches
+          and counts["flash_attention_wgmma"] == n_launches,
+          f"{counts} flash_attention launches for {LLM_REQUESTS} prefills "
+          f"of {cfg.n_layers} layers, all through the wgmma kernel")
+    check(all(c == 0 for k, c in counts.items()
+              if k not in ("flash_attention", "flash_attention_wgmma")),
           f"the LLM path launched another kernel: {counts}")
     for r in reqs:
         check(r.done and len(r.generated) == LLM_MAX_NEW
@@ -770,7 +854,9 @@ def llm_serving(card, dev, wrappers) -> dict:
     print(f"{LLM_ARCH} served {LLM_REQUESTS} requests ({sum(lens)} prompt "
           f"tokens, {LLM_MAX_NEW} new each) in {wall:.3f} s through "
           f"{LLM_SLOTS} slots: {counts['flash_attention']} flash_attention "
-          f"launches = {cfg.n_layers} x {LLM_REQUESTS} prefills [{card}]")
+          f"launches = {cfg.n_layers} x {LLM_REQUESTS} prefills, "
+          f"{counts['flash_attention_wgmma']} of them through the wgmma "
+          f"kernel [{card}]")
     for r in sorted(reqs, key=lambda r: len(r.prompt)):
         queued, pre = admits[r.rid]
         print(f"  request {r.rid:2d}: prompt {len(r.prompt):4d} tokens, "
@@ -826,20 +912,42 @@ def llm_serving(card, dev, wrappers) -> dict:
     # model's own q, k, v
     check(len(calls) == cfg.n_layers, f"{len(calls)} flash calls in a "
           f"prefill of {cfg.n_layers} layers")
-    worst = 0.0
+    # beside the gate, not gated: how much of the tolerance the worst
+    # output uses, and the kernel's and the plain version's mean error
+    # against the same attention in float64 (both round the same exact
+    # value; where the scores are large, either can be the one that is off)
+    worst, used, err64 = 0.0, 0.0, [0.0, 0.0]
     for li, (q, k, v, causal, o) in enumerate(calls):
         ref = flash_attention_plain(q, k, v, causal=causal)
         atol, rtol = FLASH_TOL[o.dtype]
-        worst = max(worst, (o.float() - ref.float()).abs().max().item())
+        diff = (o.float() - ref.float()).abs()
+        worst = max(worst, diff.max().item())
+        ratio = diff / (atol + rtol * ref.float().abs())
+        used = max(used, ratio.max().item())
+        at = int(ratio.argmax())
         check(bool(torch.allclose(o.float(), ref.float(), atol=atol,
                                   rtol=rtol)),
               f"layer {li}: the kernel disagrees with its plain version on "
-              f"the model's own inputs")
+              f"the model's own inputs: {o.flatten()[at].item()} against "
+              f"{ref.flatten()[at].item()} at flat index {at}, max abs "
+              f"err {diff.max().item():.3e}, |q| up to "
+              f"{q.float().abs().max().item():.3e}, |k| up to "
+              f"{k.float().abs().max().item():.3e}")
+        exact = attention_f64(q, k, v, causal)
+        err64[0] += (o.double() - exact).abs().mean().item() / len(calls)
+        err64[1] += (ref.double() - exact).abs().mean().item() / len(calls)
+        del exact
     print(f"{LLM_ARCH} 2048-token prefill: each of its {len(calls)} "
           f"flash_attention launches vs plain on the model's q, k, v: "
           f"max_abs_err {worst:.3e} (atol {FLASH_TOL[torch.bfloat16][0]:g}, "
-          f"rtol {FLASH_TOL[torch.bfloat16][1]:g}) ok")
-    del calls, q, k, v, o, ref
+          f"rtol {FLASH_TOL[torch.bfloat16][1]:g}) ok, the worst output at "
+          f"{used:.3f} of its tolerance; mean |error| against float64 "
+          f"attention: kernel {err64[0]:.4e}, plain {err64[1]:.4e} (not "
+          f"gated)")
+    out["flash_on_model_inputs"] = dict(max_abs_err=worst, tol_used=used,
+                                        kernel_err_f64=err64[0],
+                                        plain_err_f64=err64[1])
+    del calls, q, k, v, o, ref, diff, ratio
     runs["naive"] = prefill_and_decode(cfg, params, "naive")
     with flash_attention_as(flash_attention_plain):
         runs["plain"] = prefill_and_decode(cfg, params, "flash")
@@ -856,7 +964,6 @@ def llm_serving(card, dev, wrappers) -> dict:
     del runs
     torch.cuda.empty_cache()
     out["logits_rel_err"] = errs
-    out["flash_vs_plain_on_model_inputs_max_abs_err"] = worst
 
     def report(what, tol=None, fault=False):
         pre, dec = errs[what]
@@ -890,7 +997,7 @@ def llm_serving(card, dev, wrappers) -> dict:
                    f"{LLM_ARCH} prefills of {tokens.shape[1]} tokens")
     if "device_ms_per_run" in prof:
         attn_ms = sum(ms for name, ms in prof["kernels_ms_per_run"].items()
-                      if "fa_kernel" in name)
+                      if "fa_kernel" in name or "fa_sm90_kernel" in name)
         prof["attention_share_of_device"] = attn_ms / prof["device_ms_per_run"]
         print(f"  flash_attention {attn_ms:.3f} ms a prefill, "
               f"{100 * prof['attention_share_of_device']:.1f}% of its device "
@@ -908,25 +1015,32 @@ def llm_serving(card, dev, wrappers) -> dict:
 
     # the kernel at each prompt length of the path, against its bound,
     # its plain version and one SDPA call (a yardstick never on the path)
+    # on the same inputs; the kernel and SDPA as the device runs them
+    # (device_ms), the plain version with the host's time in (time_ms)
     rows = []
     h, hd = cfg.n_heads, cfg.resolved_head_dim
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for s in sorted(set(lens)):
         q, k, v = flash_operands(1, s, s, h, hd, cfg.activation_dtype, dev,
                                  seed=s)
-        ms = time_ms(lambda: flash_attention_cuda(q, k, v))
+        ms = device_ms(lambda: flash_attention_cuda(q, k, v))
         plain_ms = time_ms(lambda: flash_attention_plain(q, k, v), warmup=1,
                            runs=3)
         qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        sdpa_ms = device_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True))
-        ops_ms, hbm_ms, flops, nbytes = flash_bound(1, s, s, h, hd, q.dtype,
-                                                    True)
+        bnd = flash_bound(1, s, s, h, hd, q.dtype, True)
+        blocks, waves, fill = sm_fill(1, s, h, sms)
         rows.append(dict(s=s, requests=lens.count(s), ms=ms,
                          plain_ms=plain_ms, library_ms=sdpa_ms,
-                         bound_ms=max(ops_ms, hbm_ms),
-                         bound_by="operations" if ops_ms >= hbm_ms
-                         else "bytes", ops_ms=ops_ms, hbm_ms=hbm_ms,
-                         gflop=flops / 1e9))
+                         bound_ms=max(bnd["ops_ms"], bnd["hbm_ms"]),
+                         bound_by="operations"
+                         if bnd["ops_ms"] >= bnd["hbm_ms"] else "bytes",
+                         ops_ms=bnd["ops_ms"], hbm_ms=bnd["hbm_ms"],
+                         ops_ms_fp32_pv=bnd["ops_ms_fp32_pv"],
+                         gflop=bnd["flops"] / 1e9,
+                         tc_tflops=bnd["tc_flops"] / ms / 1e9,
+                         blocks=blocks, waves=waves, sm_fill=fill))
         del q, k, v, qt, kt, vt
     edges = (128, 512, 1024, 1536, 2049)
     for lo, hi in zip(edges, edges[1:]):
@@ -938,36 +1052,80 @@ def llm_serving(card, dev, wrappers) -> dict:
         def mean(key):
             return sum(r[key] * r["requests"] for r in b) / n
         print(f"flash_attention, prompts {lo}-{hi - 1} ({n} requests): "
-              f"{mean('ms'):.4f} ms a launch, bound of the operations "
-              f"{mean('ops_ms'):.4f} ms, HBM bound {mean('hbm_ms'):.4f} ms, "
-              f"plain {mean('plain_ms'):.4f} ms, SDPA {mean('library_ms'):.4f}"
-              f" ms (means over the requests; B=1 H={h} hd={hd} causal "
-              f"{cfg.dtype}) [{card}]")
+              f"{mean('ms'):.4f} ms a launch (wgmma), SDPA "
+              f"{mean('library_ms'):.4f} ms, plain {mean('plain_ms'):.4f} "
+              f"ms; bound of the operations "
+              f"{mean('ops_ms'):.4f} ms (with p.v at the FP32 rate, as "
+              f"before: {mean('ops_ms_fp32_pv'):.4f} ms), HBM bound "
+              f"{mean('hbm_ms'):.4f} ms; tensor-core work at "
+              f"{mean('tc_tflops'):.1f} TFLOP/s; SM fill "
+              f"{mean('sm_fill'):.3f} ({mean('blocks'):.0f} blocks, "
+              f"{mean('waves'):.2f} waves of {sms} SMs) (means over the "
+              f"requests; B=1 H={h} hd={hd} causal {cfg.dtype}) [{card}]")
+    for r in rows:
+        print(f"  S={r['s']:4d}: {r['ms']:.4f} ms, {r['tc_tflops']:.1f} "
+              f"TFLOP/s, {r['blocks']} blocks, fill {r['sm_fill']:.3f}, "
+              f"SDPA {r['library_ms']:.4f} ms")
     out["flash_rows"] = rows
     per_path = {key: cfg.n_layers * sum(r[key] * r["requests"] for r in rows)
-                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                            "ops_ms_fp32_pv")}
     out["flash_per_path"] = per_path
-    print(f"flash_attention over the path's {cfg.n_layers * LLM_REQUESTS} "
-          f"launches: kernel {per_path['ms']:.3f} ms, bound "
-          f"{per_path['bound_ms']:.3f} ms, plain {per_path['plain_ms']:.3f} "
-          f"ms, SDPA {per_path['library_ms']:.3f} ms; "
-          f"{100 * per_path['ms'] / 1e3 / prefill_s:.1f}% of the measured "
-          f"prefill time [{card}]")
+    ratio = per_path["ms"] / per_path["library_ms"]
+    share = per_path["bound_ms"] / per_path["ms"]
+    print(f"flash_attention over the path's {n_launches} launches: wgmma "
+          f"kernel {per_path['ms']:.3f} ms, {ratio:.2f}x SDPA's "
+          f"{per_path['library_ms']:.3f} ms; bound "
+          f"{per_path['bound_ms']:.3f} ms (share {share:.3f}; "
+          f"with p.v at the FP32 rate, as before: "
+          f"{per_path['ops_ms_fp32_pv']:.3f} ms); plain "
+          f"{per_path['plain_ms']:.3f} ms; {100 * per_path['ms'] / 1e3 / prefill_s:.1f}% of the "
+          f"measured prefill time [{card}]")
 
     out["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     print(f"{LLM_ARCH} in {cfg.dtype}: peak device memory "
           f"{out['peak_memory_gb']:.2f} GB (max_memory_allocated) [{card}]")
     # last, the same weights widened to f32 in place (the bf16 ones go),
-    # through the kernel's f32 build against the naive path
+    # through the FFMA kernel's f32 build against the naive path; the
+    # FFMA kernel timed at the f32 prefill's geometry
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     _widen(params)
-    runs = {impl: prefill_and_decode(cfg32, params, impl)
-            for impl in ("flash", "naive")}
+    for kernel, _ in wrappers.values():
+        kernel.launches = 0
+    runs = {"flash": prefill_and_decode(cfg32, params, "flash")}
+    torch.cuda.synchronize()
+    counts = {k: wrappers[k][0].launches for k in wrappers}
+    check(counts["flash_attention_ffma"] == cfg.n_layers
+          and counts["flash_attention"] == cfg.n_layers
+          and all(c == 0 for k, c in counts.items() if k not in
+                  ("flash_attention", "flash_attention_ffma")),
+          f"the f32 prefill of {cfg.n_layers} layers launched {counts}")
+    runs["naive"] = prefill_and_decode(cfg32, params, "naive")
     errs["flash vs naive, f32"] = [rel_norm(x, y) for x, y in
                                    zip(runs["flash"], runs["naive"])]
     del runs, params
     torch.cuda.empty_cache()
     report("flash vs naive, f32", LLM_TOL)
+    s = LLM_PROMPT_LENS[1]
+    q, k, v = flash_operands(1, s, s, h, hd, torch.float32, dev, seed=s)
+    bnd = flash_bound(1, s, s, h, hd, torch.float32, True)
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    f32 = dict(s=s, launches=counts["flash_attention_ffma"],
+               ms=device_ms(lambda: flash_attention_ffma(q, k, v), runs=5),
+               plain_ms=time_ms(lambda: flash_attention_plain(q, k, v),
+                                warmup=1, runs=3),
+               library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True), runs=5),
+               bound_ms=max(bnd["ops_ms"], bnd["hbm_ms"]),
+               bound_by="operations" if bnd["ops_ms"] >= bnd["hbm_ms"]
+               else "bytes")
+    del q, k, v, qt, kt, vt
+    out["f32_flash"] = f32
+    print(f"flash_attention (ffma), the f32 prefill's {f32['launches']} "
+          f"launches at S={s}: {f32['ms']:.4f} ms a launch, bound "
+          f"{f32['bound_ms']:.4f} ms ({f32['bound_by']}), SDPA in f32 "
+          f"{f32['library_ms']:.4f} ms, plain {f32['plain_ms']:.4f} ms "
+          f"[{card}]")
     return out
 
 
@@ -994,7 +1152,9 @@ def main(argv=None) -> int:
     from repro_torch.configs.gans import GAN_MODELS
     from repro_torch.kernels import build, ops
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                     flash_attention_plain)
+                                                     flash_attention_ffma,
+                                                     flash_attention_plain,
+                                                     flash_attention_wgmma)
     from repro_torch.kernels.ganax_conv import (ganax_conv3d_cuda,
                                                 ganax_conv3d_plain,
                                                 ganax_conv_cuda,
@@ -1012,7 +1172,13 @@ def main(argv=None) -> int:
     wrappers = {"ganax_conv": (ganax_conv_cuda, ganax_conv_plain),
                 "ganax_conv3d": (ganax_conv3d_cuda, ganax_conv3d_plain),
                 "flash_attention": (flash_attention_cuda,
-                                    flash_attention_plain)}
+                                    flash_attention_plain),
+                # the two kernels behind flash_attention_cuda, each with
+                # its own count
+                "flash_attention_wgmma": (flash_attention_wgmma,
+                                          flash_attention_plain),
+                "flash_attention_ffma": (flash_attention_ffma,
+                                         flash_attention_plain)}
     gan_wrappers = {k: wrappers[k] for k in ("ganax_conv", "ganax_conv3d")}
     phase_t0 = [time.perf_counter()]
 
@@ -1034,13 +1200,14 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     built = build.build()
     build_s = time.perf_counter() - t0
-    for name in KERNELS:
-        check(name in built, f"{name} did not build")
+    for name, (source, _) in KERNELS.items():
+        check(Path(source).stem in built, f"{name} ({source}) did not build")
     for name, res in built.items():
         print(f"built {name} ({'compiled' if res.compiled else 'cached'}, "
               f"{res.seconds:.1f} s) -> {res.path.name}")
         for line in res.log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
+            if ("registers" in line or "spill" in line or "Compiling" in line
+                    or "Performance Loss" in line):
                 print(f"  ptxas: {line.strip()}")
     record["build_s"] = build_s
     phase_done("build")
@@ -1211,7 +1378,8 @@ def main(argv=None) -> int:
     record["train"] = train_parity_and_times(card, dev)
     phase_done("training parity and times")
     # -- 8. the flash-attention kernel against its plain version -----------
-    kernel_errs["flash_attention"] = flash_geometries(dev)
+    for variant, errs in flash_geometries(dev).items():
+        kernel_errs[FLASH_VARIANTS[variant]] = errs
     phase_done("flash_attention vs plain")
     # -- 9. the LLM serving path: full-width Gemma-7B ----------------------
     llm = record["llm"] = llm_serving(card, dev, wrappers)
@@ -1244,22 +1412,37 @@ def main(argv=None) -> int:
             "library_ms": sum(row["library_ms"] for row in r),
         })
     # over the LLM path's launches: each prompt length timed once, times
-    # its requests, times the layers
+    # its requests, times the layers; the wgmma kernel runs them all
     flash = llm["flash_per_path"]
     fa_ops = sum(r["ops_ms"] * r["requests"] for r in llm["flash_rows"])
     fa_hbm = sum(r["hbm_ms"] * r["requests"] for r in llm["flash_rows"])
     kernels.append({
-        "name": "flash_attention",
+        "name": "flash_attention_wgmma",
         "route": "cuda",
-        "source": KERNELS["flash_attention"][0],
-        "replaces": KERNELS["flash_attention"][1],
+        "source": KERNELS["flash_attention_wgmma"][0],
+        "replaces": KERNELS["flash_attention_wgmma"][1],
         "launches": llm["launches"],
-        "max_abs_err": max(kernel_errs["flash_attention"]),
+        "max_abs_err": max(kernel_errs["flash_attention_wgmma"]),
         "ms": flash["ms"],
         "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"],
         "bound_by": "operations" if fa_ops >= fa_hbm else "bytes",
         "library_ms": flash["library_ms"],
+    })
+    # the FFMA kernel over the f32 check's prefill (one launch a layer)
+    f32 = llm["f32_flash"]
+    kernels.append({
+        "name": "flash_attention_ffma",
+        "route": "cuda",
+        "source": KERNELS["flash_attention_ffma"][0],
+        "replaces": KERNELS["flash_attention_ffma"][1],
+        "launches": f32["launches"],
+        "max_abs_err": max(kernel_errs["flash_attention_ffma"]),
+        "ms": f32["ms"] * f32["launches"],
+        "plain_ms": f32["plain_ms"] * f32["launches"],
+        "bound_ms": f32["bound_ms"] * f32["launches"],
+        "bound_by": f32["bound_by"],
+        "library_ms": f32["library_ms"] * f32["launches"],
     })
     record["kernels"] = kernels
     print("seconds per phase: " + ", ".join(

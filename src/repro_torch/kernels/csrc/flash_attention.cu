@@ -1,5 +1,6 @@
-// Forward flash attention for Hopper (sm_90a): f32 or bf16 storage, f32
-// compute.
+// Forward flash attention for Hopper (sm_90a): f32 storage at every head
+// dim, bf16 at hd <= 64 (bf16 at hd 128 and 256 runs on the wgmma kernel,
+// flash_attention_sm90.cu, and is not built here); f32 compute.
 //
 // Replaces: _fa_kernel / flash_attention_pallas in
 // src/repro/kernels/flash_attention.py, the Pallas TPU kernel.  It
@@ -40,6 +41,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -271,10 +274,13 @@ int dispatch(int D, const void* q, const void* k, const void* v, void* out,
     case 16: return launch<T, 16>(q, k, v, out, B, H, S, Tk, st, causal, sm_scale, s);
     case 32: return launch<T, 32>(q, k, v, out, B, H, S, Tk, st, causal, sm_scale, s);
     case 64: return launch<T, 64>(q, k, v, out, B, H, S, Tk, st, causal, sm_scale, s);
-    case 128: return launch<T, 128>(q, k, v, out, B, H, S, Tk, st, causal, sm_scale, s);
-    case 256: return launch<T, 256>(q, k, v, out, B, H, S, Tk, st, causal, sm_scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default: break;
   }
+  if constexpr (std::is_same_v<T, float>) {
+    if (D == 128) return launch<T, 128>(q, k, v, out, B, H, S, Tk, st, causal, sm_scale, s);
+    if (D == 256) return launch<T, 256>(q, k, v, out, B, H, S, Tk, st, causal, sm_scale, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace

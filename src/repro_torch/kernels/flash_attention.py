@@ -1,17 +1,26 @@
 """Forward flash attention (the port of ``repro.kernels.flash_attention``).
 
-:func:`flash_attention_cuda` launches the hand-written CUDA C++ kernel of
-``csrc/flash_attention.cu``, the port of ``_fa_kernel`` /
-``flash_attention_pallas``; :func:`flash_attention_plain` computes the
-same function in plain PyTorch on any device, over the same q and kv
-tiles, with the same causal live-block bound and the same tail masks,
-so the CPU tests exercise the kernel's indexing.
+:func:`flash_attention_cuda` launches one of two hand-written CUDA C++
+kernels, both ports of ``_fa_kernel`` / ``flash_attention_pallas``,
+chosen by :func:`kernel_variant` from the dtype and the head dim alone:
+
+* ``"wgmma"`` (``csrc/flash_attention_sm90.cu``): bf16 at hd 128 and
+  256, both products on the tensor cores (``p`` split into two bf16
+  terms for ``p·v``), k/v fed by TMA;
+* ``"ffma"`` (``csrc/flash_attention.cu``): f32 storage, and bf16 at
+  the small head dims, on the FP32 units.
+
+:func:`flash_attention_plain` computes the same function in plain
+PyTorch on any device, over the same q and kv tiles, with the same
+causal live-block bound and the same tail masks, so the CPU tests
+exercise the kernels' indexing.
 
 Layout contract: ``q (B, S, H, hd)``, ``k`` and ``v`` ``(B, T, H, hd)``
 (MHA: expand GQA first), float32 or bfloat16, the head dim contiguous;
 the output ``(B, S, H, hd)`` is of q's dtype.  Scores, the online
 softmax, ``p`` and the accumulator are f32; q is scaled by ``hd**-0.5``
-in f32 before ``q·kᵀ``; masked scores are ``-1e30`` and the output is
+in f32 before ``q·kᵀ`` (the wgmma kernel scales the f32 scores, the
+same up to f32 rounding); masked scores are ``-1e30`` and the output is
 ``acc / max(l, 1e-30)``.  The causal mask is ``i >= j`` on indices,
 aligned top-left.  Unlike the Pallas kernel, S and T need not be
 multiples of the tiles: the tails are masked.
@@ -24,20 +33,53 @@ import functools
 
 import torch
 
-__all__ = ["HEAD_DIMS", "BLOCK_Q", "kernel_block_k", "flash_attention_plain",
-           "flash_attention_cuda"]
+__all__ = ["HEAD_DIMS", "BLOCK_Q", "kernel_variant",
+           "kernel_tiles", "kernel_block_k", "check_tma_operand",
+           "flash_attention_plain", "flash_attention_cuda",
+           "flash_attention_ffma", "flash_attention_wgmma"]
 
 NEG_INF = -1e30
-# the head dims the kernel is built for (csrc/flash_attention.cu)
+# the head dims flash_attention_cuda takes: the FFMA kernel
+# (csrc/flash_attention.cu) is built for all of them in f32 and for those
+# up to 64 in bf16, the wgmma kernel for bf16 at 128 and 256
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 BLOCK_Q = 64
+# (dtype, hd) -> variant: the wgmma kernel takes these, the FFMA kernel
+# every other (dtype, hd in HEAD_DIMS)
+WGMMA_GEOMETRIES = {(torch.bfloat16, 128), (torch.bfloat16, 256)}
+# the wgmma kernel's tiles (csrc/flash_attention_sm90.cu: kBQ, BK) and
+# the bytes its TMA boxes need strides and addresses to be multiples of
+WGMMA_BLOCK_Q, WGMMA_BLOCK_K = 128, 64
+_TMA_ALIGN = 16
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT32_MAX = 2 ** 31 - 1
 
 
-def kernel_block_k(hd: int) -> int:
-    """The kernel's kv tile for head dim ``hd`` (``Tiles<D>::BK``)."""
-    return 64 if hd <= 64 else 32
+def kernel_variant(dtype: torch.dtype, hd: int) -> str:
+    """The kernel that :func:`flash_attention_cuda` launches for ``dtype``
+    and head dim ``hd``: ``"wgmma"`` or ``"ffma"``.  Raises on what
+    neither kernel takes."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"flash attention takes float32 or bfloat16, got "
+                        f"{dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_cuda is built for head dims "
+                         f"{HEAD_DIMS}, got {hd}")
+    return "wgmma" if (dtype, hd) in WGMMA_GEOMETRIES else "ffma"
+
+
+def kernel_tiles(dtype: torch.dtype, hd: int) -> tuple[int, int]:
+    """(q rows, kv rows) of the tiles of the kernel that runs ``dtype``
+    at head dim ``hd`` (the FFMA kernel's ``kBQ``, ``Tiles<D>::BK`` for
+    any geometry the wgmma kernel does not take)."""
+    if (dtype, hd) in WGMMA_GEOMETRIES:
+        return WGMMA_BLOCK_Q, WGMMA_BLOCK_K
+    return BLOCK_Q, 64 if hd <= 64 else 32
+
+
+def kernel_block_k(hd: int, dtype: torch.dtype) -> int:
+    """The kv tile of the kernel that runs ``dtype`` at head dim ``hd``."""
+    return kernel_tiles(dtype, hd)[1]
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -63,16 +105,19 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, causal: bool = True,
-                          block_q: int = BLOCK_Q,
+                          block_q: int | None = None,
                           block_k: int | None = None) -> torch.Tensor:
-    """The kernel's function in plain PyTorch, tile by tile: per q tile
+    """The kernels' function in plain PyTorch, tile by tile: per q tile
     of ``block_q`` rows, an online softmax over the kv tiles of
-    ``block_k`` rows (default: the kernel's) up to the causal live-block
-    bound.  Runs on any device."""
+    ``block_k`` rows (default: those of the kernel that runs q's dtype
+    at its head dim) up to the causal live-block bound.  ``p`` stays
+    f32.  Runs on any device."""
     _check(q, k, v)
     b, s, h, d = q.shape
     t = k.shape[1]
-    block_k = block_k or kernel_block_k(d)
+    tile_q, tile_k = kernel_tiles(q.dtype, d)
+    block_q = block_q or tile_q
+    block_k = block_k or tile_k
     qf = q.float() * d ** -0.5
     kf, vf = k.float(), v.float()
     out = torch.empty_like(q)
@@ -103,26 +148,54 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
+def check_tma_operand(name: str, a: torch.Tensor) -> tuple[int, ...]:
+    """The element strides (batch, position, head) under which the wgmma
+    kernel's TMA reads or writes operand ``a`` (B, rows, H, hd) of bf16:
+    the head dim contiguous, the other strides and the address multiples
+    of 16 bytes.  A dim of extent 1 is never stepped over, so its stride
+    is taken as a contiguous tensor's.  Raises ValueError naming the
+    operand; needs no card."""
+    shape, stride = a.shape, a.stride()
+    if stride[3] != 1:
+        raise ValueError(f"flash_attention_cuda takes a contiguous head dim "
+                         f"({name} has stride {stride[3]})")
+    size = a.element_size()
+    dense = (shape[1] * shape[2] * shape[3], shape[2] * shape[3], shape[3])
+    strides = tuple(st if n > 1 else d
+                    for n, st, d in zip(shape[:3], stride[:3], dense))
+    for dim, st in zip(("batch", "position", "head"), strides):
+        if (st * size) % _TMA_ALIGN:
+            raise ValueError(f"the wgmma kernel reads {name} by TMA, whose "
+                             f"strides are multiples of {_TMA_ALIGN} bytes: "
+                             f"{name}'s {dim} stride is {st * size} bytes")
+    if a.data_ptr() % _TMA_ALIGN:
+        raise ValueError(f"the wgmma kernel reads {name} by TMA, which needs "
+                         f"a {_TMA_ALIGN}-byte aligned address: {name} "
+                         f"starts at {a.data_ptr():#x}")
+    return strides
+
+
 @functools.cache
-def _library():
+def _library(variant: str):
     from repro_torch.kernels.build import load
-    fn = load("flash_attention").flash_attention_fwd
-    # q, k, v, out, dtype, B, H, S, T, hd, strides, causal, sm_scale, stream
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_float,
-        ctypes.c_void_p]
+    if variant == "ffma":
+        fn = load("flash_attention").flash_attention_fwd
+        # q, k, v, out, dtype, B, H, S, T, hd, strides, causal, scale,
+        # stream
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+            ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_float,
+            ctypes.c_void_p]
+    else:
+        fn = load("flash_attention_sm90").flash_attention_sm90_fwd
+        # q, k, v, out, B, H, S, T, hd, strides, causal, scale, stream
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_float,
+            ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream (no synchronise).
-
-    Takes q, k, v on one CUDA device, float32 or bfloat16, any strides
-    with a contiguous head dim, ``hd`` in :data:`HEAD_DIMS`, and raises
-    on anything else; the output is allocated here, contiguous.  Each
-    launch adds one to ``flash_attention_cuda.launches``."""
+def _check_cuda(q, k, v) -> None:
     _check(q, k, v)
     dev = q.device
     for a in (q, k, v):
@@ -132,13 +205,37 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if a.stride(-1) != 1:
             raise ValueError("flash_attention_cuda takes a contiguous "
                              "head dim")
+
+
+def _launch_error(err: int, variant: str) -> RuntimeError:
+    if variant == "wgmma" and err == -1:
+        why = "the driver has no cuTensorMapEncodeTiled"
+    elif variant == "wgmma" and err < 0:
+        operand = ("q", "k", "v", "out")[-err // 1000 - 1]
+        why = f"encoding the TMA map of {operand} failed: CUresult " \
+              f"{-err % 1000}"
+    else:
+        why = f"CUDA error {err}"
+    return RuntimeError(f"flash_attention_cuda ({variant} kernel) launch "
+                        f"failed: {why}")
+
+
+def flash_attention_ffma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True) -> torch.Tensor:
+    """Launch the FFMA kernel (``csrc/flash_attention.cu``) on the current
+    stream, without synchronising: float32 at every head dim of
+    :data:`HEAD_DIMS`, bfloat16 at those up to 64 (the wgmma kernel takes
+    bfloat16 at 128 and 256).  Each launch adds one to
+    ``flash_attention_ffma.launches``."""
+    if kernel_variant(q.dtype, q.shape[-1]) != "ffma":
+        raise ValueError(f"the FFMA kernel is not built for {q.dtype} at "
+                         f"head dim {q.shape[-1]}: the wgmma kernel takes it")
+    _check_cuda(q, k, v)
     b, s, h, d = q.shape
     t = k.shape[1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda is built for head dims "
-                         f"{HEAD_DIMS}, got {d}")
     if -(-s // BLOCK_Q) > 65535:
         raise ValueError(f"S = {s} needs more than 65535 q tiles")
+    dev = q.device
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=dev)
     for a in (q, k, v, out):
         last = sum((n - 1) * st for n, st in zip(a.shape, a.stride()))
@@ -147,17 +244,74 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              "offsets; split the batch")
     strides = (ctypes.c_int * 12)(*(st for a in (q, k, v, out)
                                     for st in a.stride()[:3]))
-    fn = _library()
+    fn = _library("ffma")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  _DTYPE_CODES[q.dtype], b, h, s, t, d, strides, int(causal),
                  float(d ** -0.5), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_cuda kernel launch failed: "
-                           f"CUDA error {err}")
+        raise _launch_error(err, "ffma")
+    flash_attention_ffma.launches += 1
+    return out
+
+
+def flash_attention_wgmma(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, *,
+                          causal: bool = True) -> torch.Tensor:
+    """Launch the wgmma/TMA kernel (``csrc/flash_attention_sm90.cu``) on
+    the current stream, without synchronising: bfloat16 at head dims 128
+    and 256, operands whose strides and addresses TMA takes
+    (:func:`check_tma_operand`).  Each launch adds one to
+    ``flash_attention_wgmma.launches``."""
+    if (q.dtype, q.shape[-1]) not in WGMMA_GEOMETRIES:
+        raise ValueError(f"the wgmma kernel takes bfloat16 at head dims "
+                         f"128 and 256, got {q.dtype} at {q.shape[-1]}")
+    _check_cuda(q, k, v)
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    if -(-s // WGMMA_BLOCK_Q) > 65535 or b * h > _INT32_MAX:
+        raise ValueError(f"B*H = {b * h}, S = {s}: too large a grid")
+    strides = [check_tma_operand(n, a) for n, a in (("q", q), ("k", k),
+                                                    ("v", v))]
+    dev = q.device
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=dev)
+    strides.append(check_tma_operand("out", out))
+    c_strides = (ctypes.c_longlong * 12)(*(st for sts in strides
+                                           for st in sts))
+    fn = _library("wgmma")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b, h, s, t, d, c_strides, int(causal), float(d ** -0.5),
+                 stream)
+    if err != 0:
+        raise _launch_error(err, "wgmma")
+    flash_attention_wgmma.launches += 1
+    return out
+
+
+_LAUNCHERS = {"ffma": flash_attention_ffma, "wgmma": flash_attention_wgmma}
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True) -> torch.Tensor:
+    """Launch the kernel that :func:`kernel_variant` picks for q's dtype
+    and head dim, on the current stream (no synchronise).
+
+    Takes q, k, v on one CUDA device, float32 or bfloat16, any strides
+    with a contiguous head dim (the wgmma kernel: multiples of 16 bytes),
+    ``hd`` in :data:`HEAD_DIMS`, and raises on anything else, and on a
+    failed build or launch: there is no fallback.  The output is
+    allocated here, contiguous.  Each launch adds one to
+    ``flash_attention_cuda.launches`` and to the variant's own count;
+    the variant's launcher checks the operands."""
+    out = _LAUNCHERS[kernel_variant(q.dtype, q.shape[-1])](q, k, v,
+                                                           causal=causal)
     flash_attention_cuda.launches += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_ffma.launches = 0
+flash_attention_wgmma.launches = 0

@@ -20,7 +20,10 @@ import torch
 from repro_torch.core import dataflow as tdf
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                 flash_attention_plain)
+                                                 flash_attention_ffma,
+                                                 flash_attention_plain,
+                                                 flash_attention_wgmma,
+                                                 kernel_variant)
 from repro_torch.kernels.ganax_conv import (ganax_conv3d_cuda,
                                             ganax_conv3d_plain,
                                             ganax_conv_cuda, ganax_conv_plain)
@@ -282,7 +285,11 @@ def _flash_inputs(b, s, t, h, hd, dtype, dev, seed=9):
 
 
 # (B, S, T, H, hd, causal): ragged S and T (not multiples of the 64-row
-# q tile or the kv tile), causal and full, at hd 64 and Gemma's 256
+# q tile or the kv tile), causal and full, at hd 64 and Gemma's 256; then,
+# for the wgmma kernel in bf16, Qwen's hd 128 and more of hd 256 with S
+# and T not multiples of its 128-row q tile or its 64-row kv tile, kv
+# tails shorter than one TMA box (T = 133, 197, 69), a kv length shorter
+# than one box (T = 5), and S > T
 FLASH_CASES = [
     (1, 77, 77, 3, 64, True),
     (2, 45, 130, 2, 64, False),
@@ -290,7 +297,17 @@ FLASH_CASES = [
     (1, 100, 100, 2, 256, True),
     (2, 33, 70, 2, 256, False),
     (1, 130, 130, 1, 256, True),
+    (1, 77, 77, 2, 128, True),
+    (2, 150, 133, 2, 128, False),
+    (1, 300, 300, 3, 128, True),
+    (1, 133, 133, 2, 256, True),
+    (2, 70, 197, 2, 256, False),
+    (1, 300, 69, 2, 256, True),
+    (2, 5, 5, 3, 256, True),
 ]
+
+_VARIANT_WRAPPERS = {"wgmma": flash_attention_wgmma,
+                     "ffma": flash_attention_ffma}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -299,8 +316,14 @@ FLASH_CASES = [
 def test_flash_kernel_matches_plain(dev, b, s, t, h, hd, causal, dtype):
     q, k, v = _flash_inputs(b, s, t, h, hd, dtype, dev)
     before = flash_attention_cuda.launches
+    by_variant = {n: w.launches for n, w in _VARIANT_WRAPPERS.items()}
     got = flash_attention_cuda(q, k, v, causal=causal)
     assert flash_attention_cuda.launches == before + 1
+    variant = kernel_variant(dtype, hd)
+    assert variant == ("wgmma" if dtype == torch.bfloat16 and hd >= 128
+                       else "ffma")
+    for n, w in _VARIANT_WRAPPERS.items():
+        assert w.launches == by_variant[n] + (n == variant)
     ref = flash_attention_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
@@ -323,6 +346,80 @@ def test_flash_kernel_on_a_side_stream_reads_strided_views(dev):
     side.synchronize()
     torch.testing.assert_close(got.float(), ref.float(),
                                **FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("hd", [128, 256])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_wgmma_reads_head_major_views(dev, hd, causal):
+    """The TMA path: q, k, v as head-major (B, H, S, hd) tensors viewed as
+    (B, S, H, hd), ragged S and T, read by their strides with no copy."""
+    gen = torch.Generator(dev).manual_seed(hd)
+    q = torch.randn((2, 4, 333, hd), device=dev, generator=gen,
+                    dtype=torch.bfloat16).transpose(1, 2)
+    k, v = (torch.randn((2, 4, 197, hd), device=dev, generator=gen,
+                        dtype=torch.bfloat16).transpose(1, 2)
+            for _ in range(2))
+    assert not q.is_contiguous() and q.stride(2) == 333 * hd
+    before = flash_attention_wgmma.launches
+    got = flash_attention_cuda(q, k, v, causal=causal)
+    assert flash_attention_wgmma.launches == before + 1
+    ref = flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(),
+                               **FLASH_TOL[torch.bfloat16])
+
+
+def _attention_f64(q, k, v):
+    """Causal attention of the same (bf16) inputs in float64, not rounded:
+    the exact value that both the kernel and its plain version round."""
+    qd, kd, vd = q.double(), k.double(), v.double()
+    sc = torch.einsum("bqhd,bkhd->bhqk", qd, kd) * q.shape[3] ** -0.5
+    keep = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool,
+                      device=q.device).tril()
+    sc = sc.masked_fill(~keep, float("-inf"))
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, -1), vd)
+
+
+@pytest.mark.parametrize("hd", [128, 256])
+def test_flash_wgmma_is_as_exact_as_plain_at_large_scores(dev, hd):
+    """q and k 16x, v 8x a unit normal: scores in the hundreds and outputs
+    up to ~30, as a Gemma-7B layer's own q, k, v.  There a few outputs are
+    ill-conditioned (near-tied p's of large, cancelling v's), and the
+    plain version's f32 scores put them up to 2e-3 off the exact value,
+    so the kernel cannot be held to two ulps of the plain version (on
+    the card 2 of 358,400 outputs at hd 128 are not, and the exact value
+    rounded to bf16 is not either at one).  It is held to the exact
+    value instead: each output within FLASH_TOL of being as close to it
+    as the plain version's, and no larger a mean error."""
+    gen = torch.Generator().manual_seed(hd + 1)
+    q, k, v = (torch.randn((1, 700, 4, hd), generator=gen) * scale
+               for scale in (16, 16, 8))
+    q, k, v = (a.to(dev, torch.bfloat16) for a in (q, k, v))
+    got = flash_attention_cuda(q, k, v, causal=True).double()
+    ref = flash_attention_plain(q, k, v, causal=True).double()
+    exact = _attention_f64(q, k, v)
+    err, ref_err = (got - exact).abs(), (ref - exact).abs()
+    tol = FLASH_TOL[torch.bfloat16]
+    assert bool((err <= ref_err + tol["atol"]
+                 + tol["rtol"] * exact.abs()).all())
+    assert err.mean().item() <= ref_err.mean().item() * (1 + 1e-2)
+
+
+def test_flash_wgmma_refuses_strides_tma_cannot_read(dev):
+    """A head stride of 260 bf16 (520 bytes, not a multiple of 16) and a
+    start 8 bytes off a 16-byte boundary raise before any launch."""
+    base = torch.zeros((1, 8, 2, 260), device=dev, dtype=torch.bfloat16)
+    q = base[..., :256]
+    k = torch.zeros((1, 8, 2, 256), device=dev, dtype=torch.bfloat16)
+    flat = torch.zeros(8 * 2 * 256 + 4, device=dev, dtype=torch.bfloat16)
+    shifted = flat[4:].view(1, 8, 2, 256)
+    before = (flash_attention_cuda.launches, flash_attention_wgmma.launches)
+    with pytest.raises(ValueError, match="q's head stride is 520 bytes"):
+        flash_attention_cuda(q, k, k)
+    with pytest.raises(ValueError, match="16-byte aligned address: v"):
+        flash_attention_cuda(k, k, shifted)
+    assert (flash_attention_cuda.launches,
+            flash_attention_wgmma.launches) == before
 
 
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take(dev):
