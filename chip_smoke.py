@@ -3,20 +3,25 @@
     python3 chip_smoke.py [--out FILE]
 
 Builds every CUDA kernel of the port from the sources in this checkout,
-holds each kernel against its plain PyTorch version on the card, drives
+times the DCGAN and 3D-GAN train steps first (the DCGAN step is bound by
+the host, which later phases leave slower), holds each kernel against
+its plain PyTorch version on the card, drives
 the port's serving paths through ``GanServer.generate`` (random weights
 from a seed): the full-width DCGAN generator through the planar kernel
 and the full-width 3D-GAN generator through the volumetric one, and
-checks the outputs and the launch counts of each path; then times each
-layer's kernel beside its bound, its plain version, the whole op and one
-library call, and each generator forward.  The training phases hold
-every launch geometry of an adversarial step (the discriminators' convs
-and every layer's ``dx``) against the plain version and time it beside
+checks the outputs, the launch counts and the launches of each GANAX
+route (``tc``, ``narrow``, either with split-K) of each path; then
+times each layer's kernel (per call and as the device runs it) beside
+its bound, its plain version, the whole op and one library call, and
+each generator forward.  The training phases hold every launch geometry
+of an adversarial step (the discriminators' convs and every layer's
+``dx``) against the plain version, run the TF32 control (the plain
+version with TF32 matmuls must fail that gate), and time each beside
 its ``dw`` contraction; drive full-width DCGAN training through the
 quickstart entry point (``TrainLoop``, a checkpoint, 40 kernel launches
-a step) and 3D-GAN training through the same code; hold one step's
-losses and gradients against the same step through ``ganax-plain``; and
-time and profile the D and G steps.  The LLM phases hold the two
+a step, every route) and 3D-GAN training through the same code; hold
+one step's losses and gradients against the same step through
+``ganax-plain``; and profile the steps.  The LLM phases hold the two
 flash-attention kernels (the wgmma/TMA one for bf16 at hd 128 and 256,
 the FFMA one for f32 and the small head dims) against their plain
 version on Gemma-7B's and Qwen's geometries, serve full-width Gemma-7B
@@ -56,9 +61,13 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 
 # Published peaks of one H100 SXM (data sheet, dense): FP32 outside the
-# tensor cores, and HBM3 bandwidth.  The bound of a launch is the larger of its
-# operations over the first and its bytes over the second.
+# tensor cores, TF32 on them, and HBM3 bandwidth.  The bound of a GANAX
+# launch is the larger of its bytes over HBM's rate and its useful
+# products taken f32-exact the fastest way the card has: three TF32
+# products each (3xTF32, csrc/ganax_conv_sm90.cuh) at the TF32 rate.
+# The FP32 bound (the products at the FFMA rate) is printed beside it.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_TC_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 # dense bf16 on the tensor cores (f32 sums): the flash-attention bound
 # counts a bf16 call's q.k at this rate
@@ -68,6 +77,14 @@ BATCH = 64
 # f32 against f32: the sums run in another order over K <= 16·1024
 # terms, so a few ulps of the largest partial sums.
 ATOL = RTOL = 1e-4
+# the GANAX kernels' routes (KernelRoute.name); each kernel's training
+# path runs all four
+ROUTES = ("tc", "tc+split_k", "narrow", "narrow+split_k")
+# the TF32 control: the plain version with TF32 matmuls on these wide
+# launches must fail the gate above (at least one a kernel), which shows
+# the gate tells 3xTF32 from 1xTF32
+TF32_CONTROL = {"ganax_conv": ("dcgan g1", "dcgan d4"),
+                "ganax_conv3d": ("3dgan g1", "3dgan d4")}
 
 # name -> (source, the TPU kernel it replaces).  flash_attention has two
 # kernels, picked by dtype and head dim: the wgmma/TMA one (bf16 at hd
@@ -211,11 +228,13 @@ def q_sizes(operands: dict) -> tuple[int, ...]:
     return tuple(operands[k] for k in ("qz", "qy", "qx") if k in operands)
 
 
-def bound(operands: dict, bias) -> tuple[float, str, float, int]:
-    """(bound ms, what bounds it, flops, bytes) of one kernel launch, 2-D
-    or 3-D: each input read once and the output written once; the
-    operations the tap tables of this geometry need (2 per consequential
-    MAC)."""
+def bound(operands: dict, bias) -> tuple[float, str, float, int, float]:
+    """(bound ms, what bounds it, flops, bytes, FP32 bound ms) of one
+    kernel launch, 2-D or 3-D: each input read once and the output
+    written once; the useful operations the tap tables of this geometry
+    need (2 per consequential MAC, no padding of Cout or K), three TF32
+    products each at the tensor cores' rate; the FP32 bound takes them
+    at the FFMA rate."""
     x_pad, w_taps = operands["x_pad"], operands["w_taps"]
     b, cin = x_pad.shape[0], x_pad.shape[-1]
     p, _, _, cout = w_taps.shape
@@ -228,10 +247,52 @@ def bound(operands: dict, bias) -> tuple[float, str, float, int]:
                   + (bias.numel() if bias is not None else 0)) \
         + 4 * (tables.n_taps.numel()
                + sum(o.numel() for o in tables.offsets))
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = 3 * flops / PEAK_TF32_TC_FLOPS * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
-            else "bytes", flops, nbytes)
+            else "bytes", flops, nbytes,
+            max(flops / PEAK_FP32_FLOPS * 1e3, t_bytes))
+
+
+def route_of(operands: dict) -> str:
+    """The route the wrapper takes for these operands."""
+    from repro_torch.kernels.ganax_conv import kernel_route
+    p, t, cin, cout = operands["w_taps"].shape
+    rows = operands["x_pad"].shape[0] * math.prod(q_sizes(operands))
+    return kernel_route(cin, cout, rows, t * cin, p).name
+
+
+def tol_share(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """The worst output's share of its tolerance: max |a - b| / (ATOL +
+    RTOL |b|); the gate passes at <= 1."""
+    return ((got - ref).abs() / (ATOL + RTOL * ref.abs())).max().item()
+
+
+def routes_launched(wrappers) -> dict:
+    """Each GANAX kernel's launches by route since its counts were
+    zeroed."""
+    return {k: dict(w[0].launches_by_route) for k, w in wrappers.items()
+            if hasattr(w[0], "launches_by_route")}
+
+
+def tf32_control(operands: dict, bias, ep, ref) -> tuple[float, float, bool]:
+    """The plain version's arithmetic with TF32 matmuls on, against the
+    IEEE plain output ``ref``: (max abs err, worst share of the
+    tolerance, whether it passes the gate).  TF32 is off again after."""
+    from repro_torch.kernels.ganax_conv import (apply_epilogue_to_acc,
+                                                plain_sums)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = apply_epilogue_to_acc(
+            plain_sums(operands["x_pad"], operands["w_taps"],
+                       operands["tables"], operands["out_strides"],
+                       q_sizes(operands)), bias, ep.activation,
+            ep.leaky_slope)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    err, ok = max_err(got, ref)
+    return err, tol_share(got, ref), ok
 
 
 def profile(fn, runs: int, what: str) -> dict:
@@ -350,11 +411,12 @@ def train_cases(model: str, g_layers, d_layers) -> list[tuple]:
     return cases
 
 
-def train_geometries(card, dev, wrappers, kernel_errs) -> dict:
+def train_geometries(card, dev, wrappers, kernel_errs, tol_used) -> dict:
     """Each launch geometry of the train step, kernel against plain on
-    the card, then timed beside its bound, its plain version, the whole
-    op and one cuDNN call of the same geometry, with the layer's dw
-    contraction; returns the rows by kernel name."""
+    the card (the TF32 control on the geometries of ``TF32_CONTROL``),
+    then timed beside its bound, its plain version, the whole op and one
+    cuDNN call of the same geometry, with the layer's dw contraction;
+    returns the rows by kernel name."""
     from repro_torch.configs.gans import GAN_MODELS
     from repro_torch.core import dataflow as tdf
     from repro_torch.kernels import ops
@@ -369,6 +431,7 @@ def train_geometries(card, dev, wrappers, kernel_errs) -> dict:
         timing = dict(warmup=3, runs=15) if name == "ganax_conv" \
             else dict(warmup=1, runs=5)
         rows[name] = []
+        controls = []
         for (label, part, tr, xs, ws, s, p, ep, launches,
              dw_launches) in train_cases(model, *GAN_MODELS[model]):
             nd = len(s)
@@ -384,12 +447,25 @@ def train_geometries(card, dev, wrappers, kernel_errs) -> dict:
                             leaky_slope=ep.leaky_slope)
                 torch.cuda.synchronize()
                 err, ok = max_err(got, ref)
+                share = tol_share(got, ref)
+                route = route_of(operands)
                 kernel_errs[name].append(err)
+                tol_used[name] = max(tol_used[name], share)
                 print(f"{name} vs plain  {label:18s} x {tuple(xs)} "
-                      f"max_abs_err {err:.3e} (atol=rtol={ATOL:g}) "
+                      f"[{route}] max_abs_err {err:.3e} (atol=rtol={ATOL:g}"
+                      f"; worst output at {share:.4f} of its tolerance) "
                       f"{'ok' if ok else 'FAIL'}")
                 check(ok and bool(torch.isfinite(got).all()),
                       f"{label}: {name} disagrees with its plain version")
+                if label in TF32_CONTROL[name]:
+                    c_err, c_share, c_ok = tf32_control(operands, b, ep, ref)
+                    controls.append(not c_ok)
+                    verdict = ("PASSES the gate" if c_ok
+                               else "fails the gate (as it must)")
+                    print(f"TF32 control {label}: the plain version with "
+                          f"TF32 matmuls vs plain, max_abs_err {c_err:.3e}, "
+                          f"worst output at {c_share:.2f} of its tolerance: "
+                          f"{verdict}")
                 del got, ref
                 op = ops.ganax_conv_transpose if tr else ops.ganax_conv
                 ms = time_ms(lambda: kernel(**operands, bias=b,
@@ -400,11 +476,21 @@ def train_geometries(card, dev, wrappers, kernel_errs) -> dict:
                                 **timing)
                 library = library_conv_transpose if tr else library_conv
                 library_ms = time_ms(library(x, w, b, s, p), **timing)
-                bound_ms, bound_by, flops, nbytes = bound(operands, b)
+                # the same two as the device runs them, the host's time
+                # to issue each call out
+                dev_runs = dict(runs=timing["runs"])
+                dev_ms = device_ms(lambda: kernel(**operands, bias=b,
+                                                  activation=act), **dev_runs)
+                library_dev_ms = device_ms(library(x, w, b, s, p), **dev_runs)
+                bound_ms, bound_by, flops, nbytes, fp32_ms = bound(operands,
+                                                                   b)
                 row = dict(layer=label, part=part, launches_per_step=launches,
-                           ms=ms, plain_ms=plain_ms, op_ms=op_ms,
+                           route=route, ms=ms, device_ms=dev_ms,
+                           library_device_ms=library_dev_ms,
+                           plain_ms=plain_ms, op_ms=op_ms,
                            library_ms=library_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, gflop=flops / 1e9,
+                           bound_by=bound_by, bound_fp32_ms=fp32_ms,
+                           tol_share=share, gflop=flops / 1e9,
                            mbytes=nbytes / 1e6, dw_per_step=dw_launches)
                 if part == "forward":
                     y_sp = op(x, w, s, p).shape[1:-1]
@@ -421,24 +507,60 @@ def train_geometries(card, dev, wrappers, kernel_errs) -> dict:
             lib = ("conv_transpose" if tr else "conv") + f"{nd}d"
             dw = (f"; dw {row['dw_ms']:.4f} ms (bound "
                   f"{row['dw_bound_ms']:.4f})" if part == "forward" else "")
-            print(f"train time {label}: {launches}/step, kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, whole op {op_ms:.4f} ms, {lib} "
-                  f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-                  f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB){dw} "
-                  f"[{card}]")
+            print(f"train time {label} [{route}]: {launches}/step, kernel "
+                  f"{ms:.4f} ms (device {row['device_ms']:.4f}), plain "
+                  f"{plain_ms:.4f} ms, whole op {op_ms:.4f} ms, {lib} "
+                  f"{library_ms:.4f} ms (device "
+                  f"{row['library_device_ms']:.4f}), bound "
+                  f"{bound_ms:.4f} ms ({bound_by}; FP32 bound "
+                  f"{fp32_ms:.4f} ms; {flops / 1e9:.2f} GFLOP, "
+                  f"{nbytes / 1e6:.1f} MB){dw} [{card}]")
             del x, w, b, operands
+        check(any(controls), f"{name}: the TF32 control passed the gate on "
+              f"every geometry of {TF32_CONTROL[name]}: the gate cannot tell "
+              f"3xTF32 from 1xTF32")
         r = rows[name]
         per_step = {key: sum(row[key] * row["launches_per_step"] for row in r)
-                    for key in ("ms", "bound_ms", "library_ms")}
+                    for key in ("ms", "bound_ms", "library_ms",
+                                "bound_fp32_ms", "device_ms",
+                                "library_device_ms")}
+        by_route = {}
+        for row in r:
+            by_route.setdefault(row["route"], [0, 0.0])
+            by_route[row["route"]][0] += row["launches_per_step"]
+            by_route[row["route"]][1] += row["ms"] * row["launches_per_step"]
+        per_step["by_route"] = {k: dict(launches=n, ms=t)
+                                for k, (n, t) in by_route.items()}
         per_step["dw_ms"] = sum(row.get("dw_ms", 0.0) * row["dw_per_step"]
                                 for row in r)
         per_step["dw_bound_ms"] = sum(row.get("dw_bound_ms", 0.0)
                                       * row["dw_per_step"] for row in r)
         print(f"{model} train step, per step: {sum(row['launches_per_step'] for row in r)} "
               f"{name} launches, kernels {per_step['ms']:.3f} ms (bound "
-              f"{per_step['bound_ms']:.3f} ms, cuDNN {per_step['library_ms']:.3f}"
-              f" ms), dw contractions {per_step['dw_ms']:.3f} ms (bound "
+              f"{per_step['bound_ms']:.3f} ms, share "
+              f"{per_step['bound_ms'] / per_step['ms']:.3f}; FP32 bound "
+              f"{per_step['bound_fp32_ms']:.3f} ms; cuDNN "
+              f"{per_step['library_ms']:.3f} ms, kernels/cuDNN "
+              f"{per_step['ms'] / per_step['library_ms']:.3f}); as the "
+              f"device runs them: kernels {per_step['device_ms']:.3f} ms, "
+              f"cuDNN {per_step['library_device_ms']:.3f} ms (share of the "
+              f"bound {per_step['bound_ms'] / per_step['device_ms']:.3f}); "
+              f"dw contractions {per_step['dw_ms']:.3f} ms (bound "
               f"{per_step['dw_bound_ms']:.3f} ms) [{card}]")
+        for k, v in sorted(per_step["by_route"].items()):
+            print(f"  route {k}: {v['launches']} launches a step, "
+                  f"{v['ms']:.3f} ms")
+        edge = [row for row in r if row["layer"].split(" ", 1)[1]
+                in ("g4", "g4 dx", "d1", "d1 dx")]
+        for key in ("ms", "device_ms", "library_ms", "library_device_ms"):
+            per_step[f"edge_{key}"] = sum(row[key] * row["launches_per_step"]
+                                          for row in edge)
+        print(f"  the image/volume-facing launches (g4, g4 dx, d1, d1 dx: "
+              f"{sum(row['launches_per_step'] for row in edge)} a step): "
+              f"{per_step['edge_ms']:.3f} ms (device "
+              f"{per_step['edge_device_ms']:.3f}), cuDNN "
+              f"{per_step['edge_library_ms']:.3f} ms (device "
+              f"{per_step['edge_library_device_ms']:.3f})")
         rows[name] = dict(rows=r, per_step=per_step)
     return rows
 
@@ -448,13 +570,16 @@ def train_paths(dev, wrappers) -> dict:
     point (TrainLoop, checkpoints, then a served batch), and full-width
     3D-GAN through the same training code; each driven with every launch
     counter at 0 just before and read just after.  Returns the launches
-    by kernel and path."""
+    by kernel, and by kernel and route; each kernel's path must run all
+    of ``ROUTES``."""
     from repro_torch import quickstart
     from repro_torch.models.gan import GanConfig
 
     def zero():
         for kernel, _ in wrappers.values():
             kernel.launches = 0
+            if hasattr(kernel, "launches_by_route"):
+                kernel.launches_by_route.clear()
 
     def counts():
         torch.cuda.synchronize()
@@ -484,6 +609,7 @@ def train_paths(dev, wrappers) -> dict:
           f"expected {LAUNCHES_PER_STEP} per step")
     check(c["ganax_conv3d"] == 0, f"dcgan launched the 3-D kernel: {c}")
     out = {"ganax_conv": c["ganax_conv"]}
+    routes = {"ganax_conv": routes_launched(wrappers)["ganax_conv"]}
 
     zero()
     with tempfile.TemporaryDirectory() as ckpt_dir:
@@ -501,39 +627,97 @@ def train_paths(dev, wrappers) -> dict:
           f"expected {LAUNCHES_PER_STEP} per step")
     check(c["ganax_conv"] == 0, f"3dgan launched the 2-D kernel: {c}")
     out["ganax_conv3d"] = c["ganax_conv3d"]
-    return out
+    routes["ganax_conv3d"] = routes_launched(wrappers)["ganax_conv3d"]
+    for name, by_route in routes.items():
+        print(f"{name} training path, launches by route: {by_route}")
+        check(sum(by_route.values()) == out[name]
+              and all(by_route.get(k, 0) > 0 for k in ROUTES),
+              f"{name}'s training path did not run every route {ROUTES}: "
+              f"{by_route}")
+    return out, routes
 
 
-def train_parity_and_times(card, dev) -> dict:
-    """Per model: one step's losses and every gradient through the kernel
-    against the same step through ganax-plain on the card (and, as the
-    control, through the polyphase oracle); then the D
-    step, the G step and the whole step timed with CUDA events, and a
-    profile of whole steps."""
+# (model, warm-up steps, timed steps, profiled steps)
+STEP_TIMING = (("dcgan", 3, 10, 2), ("3dgan", 1, 3, 1))
+
+
+def _train_nets(model: str, dev, backend=None):
+    """Model ``model``'s generator and discriminator from seed 0 (through
+    ``backend``), and one batch's latents and reals."""
     from repro_torch.models.gan import (Discriminator, GanConfig, Generator,
                                         init_gan)
     from repro_torch.quickstart import make_batch_fn
+    cfg = dataclasses.replace(GanConfig(model), backend=backend)
+    g, d = init_gan(cfg, torch.Generator().manual_seed(0), dev)
+    batch = make_batch_fn(cfg, BATCH, dev)(0)
+    return Generator(cfg, g, dev), Discriminator(cfg, d, dev), batch
+
+
+def _step_fn(gen, disc, batch, lr=0.02):
+    """One adversarial step (D, then G, SGD), recording ``events[1]``
+    between the two where given."""
     from repro_torch.train.loop import (discriminator_grads,
                                         generator_grads, sgd_update)
+    z, real = batch["z"], batch["real"]
+
+    def step(events=None):
+        dl, dg = discriminator_grads(gen, disc, z, real)
+        sgd_update(disc.params, dg, lr)
+        if events:
+            events[1].record()
+        gl, gg = generator_grads(gen, disc, z)
+        sgd_update(gen.params, gg, lr)
+    return step
+
+
+def train_step_times(card, dev) -> dict:
+    """Per model: the D step, the G step and the whole step at batch
+    ``BATCH`` through the kernels, timed with CUDA events (medians).  Run
+    first in the process: the DCGAN step is bound by the host, which a
+    profiler session or the other phases before it leave slower (on the
+    card: 33 ms alone, 44-57 ms after them)."""
     out = {}
-    for model, warmup, runs, prof_runs in (("dcgan", 3, 10, 2),
-                                           ("3dgan", 1, 3, 1)):
-        cfg = GanConfig(model)
-        g, d = init_gan(cfg, torch.Generator().manual_seed(0), dev)
-        batch = make_batch_fn(cfg, BATCH, dev)(0)
-        z, real = batch["z"], batch["real"]
+    for model, warmup, runs, _ in STEP_TIMING:
+        step = _step_fn(*_train_nets(model, dev))
+        times = []
+        for i in range(warmup + runs):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            step(ev)
+            ev[2].record()
+            ev[2].synchronize()
+            if i >= warmup:
+                times.append((ev[0].elapsed_time(ev[1]),
+                              ev[1].elapsed_time(ev[2]),
+                              ev[0].elapsed_time(ev[2])))
+        d_ms, g_ms, step_ms = (statistics.median(t) for t in zip(*times))
+        print(f"{model} train step at batch {BATCH}: D step {d_ms:.3f} ms, "
+              f"G step {g_ms:.3f} ms, whole step {step_ms:.3f} ms (median of "
+              f"{runs}) [{card}]")
+        out[model] = dict(d_step_ms=d_ms, g_step_ms=g_ms, step_ms=step_ms,
+                          steps_timed=runs)
+        del step
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_parity_and_profiles(card, dev, times: dict) -> dict:
+    """Per model: one step's losses and every gradient through the kernel
+    against the same step through ganax-plain on the card (and, as the
+    control, through the polyphase oracle); then a profile of whole
+    steps.  Returns them with ``times`` (``train_step_times``) merged."""
+    from repro_torch.train.loop import discriminator_grads, generator_grads
+    out = {}
+    for model, _, _, prof_runs in STEP_TIMING:
         res, nets = {}, None
         for backend in (None, "ganax-plain", "polyphase"):
-            c = dataclasses.replace(cfg, backend=backend)
-            gen = Generator(c, {k: v.clone() for k, v in g.items()}, dev)
-            disc = Discriminator(c, {k: v.clone() for k, v in d.items()},
-                                 dev)
-            dl, dg = discriminator_grads(gen, disc, z, real)
-            gl, gg = generator_grads(gen, disc, z)
+            gen, disc, batch = _train_nets(model, dev, backend)
+            dl, dg = discriminator_grads(gen, disc, batch["z"], batch["real"])
+            gl, gg = generator_grads(gen, disc, batch["z"])
             res[backend] = (dl, gl, {**{f"d.{k}": v for k, v in dg.items()},
                                      **{f"g.{k}": v for k, v in gg.items()}})
             if backend is None:
-                nets = (gen, disc)
+                nets = (gen, disc, batch)
         ((dl, gl, grads), (ref_dl, ref_gl, ref_grads),
          (_, _, ctl_grads)) = res.values()
         loss_err = max(abs(float(dl - ref_dl)), abs(float(gl - ref_gl)))
@@ -560,38 +744,11 @@ def train_parity_and_times(card, dev) -> dict:
               f"{GRAD_TOL:g}); polyphase control vs ganax-plain worst "
               f"{worst_ctl:.3e} ok")
         del res, grads, ref_grads, ctl_grads
-
-        gen, disc = nets
-        lr = 0.02
-
-        def step(events=None):
-            dl, dg = discriminator_grads(gen, disc, z, real)
-            sgd_update(disc.params, dg, lr)
-            if events:
-                events[1].record()
-            gl, gg = generator_grads(gen, disc, z)
-            sgd_update(gen.params, gg, lr)
-
-        times = []
-        for i in range(warmup + runs):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-            ev[0].record()
-            step(ev)
-            ev[2].record()
-            ev[2].synchronize()
-            if i >= warmup:
-                times.append((ev[0].elapsed_time(ev[1]),
-                              ev[1].elapsed_time(ev[2]),
-                              ev[0].elapsed_time(ev[2])))
-        d_ms, g_ms, step_ms = (statistics.median(t) for t in zip(*times))
-        print(f"{model} train step at batch {BATCH}: D step {d_ms:.3f} ms, "
-              f"G step {g_ms:.3f} ms, whole step {step_ms:.3f} ms (median of "
-              f"{runs}) [{card}]")
-        prof = profile(step, prof_runs, f"{model} train steps")
-        out[model] = dict(d_step_ms=d_ms, g_step_ms=g_ms, step_ms=step_ms,
-                          steps_timed=runs, worst_grad_rel_err=worst,
+        prof = profile(_step_fn(*nets), prof_runs, f"{model} train steps")
+        out[model] = dict(times[model], worst_grad_rel_err=worst,
                           worst_grad_rel_err_control=worst_ctl,
                           loss_err=loss_err, profile=prof)
+        del nets
         torch.cuda.empty_cache()
     return out
 
@@ -1211,6 +1368,9 @@ def main(argv=None) -> int:
                 print(f"  ptxas: {line.strip()}")
     record["build_s"] = build_s
     phase_done("build")
+    # -- 1b. the train steps' times, before anything else runs -------------
+    step_times = train_step_times(card, dev)
+    phase_done("train step times")
 
     # -- 2. each kernel against its plain version on the card --------------
     gen = torch.Generator().manual_seed(1234)
@@ -1243,6 +1403,7 @@ def main(argv=None) -> int:
         ("ragged Cin 33 Cout 65 3d", True, (5, 6, 7), (3, 3, 3), (2, 2, 2),
          (1, 1, 1), 33, 65, Epilogue(bias=True, activation="leaky_relu"))]
     kernel_errs = {name: [] for name in KERNELS}
+    tol_used = {name: 0.0 for name in gan_wrappers}
     layer_rows = {name: [] for name in gan_wrappers}
     with torch.inference_mode():
         for name, (kernel, plain) in gan_wrappers.items():
@@ -1258,10 +1419,14 @@ def main(argv=None) -> int:
                             leaky_slope=ep.leaky_slope)
                 torch.cuda.synchronize()
                 err, ok = max_err(got, ref)
+                share = tol_share(got, ref)
                 kernel_errs[name].append(err)
+                tol_used[name] = max(tol_used[name], share)
                 print(f"{name} vs plain  {label:26s} out "
-                      f"{tuple(got.shape)} max_abs_err {err:.3e} "
-                      f"(atol=rtol={ATOL:g}) {'ok' if ok else 'FAIL'}")
+                      f"{tuple(got.shape)} [{route_of(operands)}] "
+                      f"max_abs_err {err:.3e} (atol=rtol={ATOL:g}; worst "
+                      f"output at {share:.4f} of its tolerance) "
+                      f"{'ok' if ok else 'FAIL'}")
                 check(ok and bool(torch.isfinite(got).all()),
                       f"{label}: {name} disagrees with its plain version")
                 if label in timed:
@@ -1273,6 +1438,7 @@ def main(argv=None) -> int:
     # -- 3. the main paths: serve each full-width generator ----------------
     servers = {}
     launches = {}
+    serve_routes = {}
     for name, model, shape in (("ganax_conv", "dcgan", (64, 64, 3)),
                                ("ganax_conv3d", "3dgan", (64, 64, 64, 1))):
         cfg = GanConfig(model)
@@ -1282,9 +1448,12 @@ def main(argv=None) -> int:
                            device=dev)
         for kernel, _ in wrappers.values():
             kernel.launches = 0
+            if hasattr(kernel, "launches_by_route"):
+                kernel.launches_by_route.clear()
         served = [server.generate(n) for n in REQUESTS]
         torch.cuda.synchronize()
         counts = {k: wrappers[k][0].launches for k in wrappers}
+        serve_routes[name] = routes_launched(gan_wrappers)[name]
         for n, img in zip(REQUESTS, served):
             check(tuple(img.shape) == (n, *shape),
                   f"{model} generate({n}) gave shape {tuple(img.shape)}")
@@ -1306,7 +1475,8 @@ def main(argv=None) -> int:
         launches[name] = counts[name]
         print(f"{model}: served {', '.join(map(str, REQUESTS))}: {server}; "
               f"{counts[name]} {name} launches for "
-              f"{server.batches_served} batches")
+              f"{server.batches_served} batches; by route "
+              f"{serve_routes[name]}")
         # the same stream through the plain version of the kernel on the
         # card
         ref_server = GanServer(GanConfig(model, backend="ganax-plain"),
@@ -1334,21 +1504,44 @@ def main(argv=None) -> int:
                 plain_ms = time_ms(lambda: plain(**operands, bias=b,
                                                  activation=act))
                 library_ms = time_ms(library_conv_transpose(x, w, b, s, p))
+                dev_ms = device_ms(lambda: kernel(**operands, bias=b,
+                                                  activation=act))
+                library_dev_ms = device_ms(library_conv_transpose(x, w, b, s,
+                                                                  p))
                 op_ms = time_ms(lambda: ops.ganax_conv_transpose(
                     x, w, s, p, bias=b, epilogue=ep))
-                bound_ms, bound_by, flops, nbytes = bound(operands, b)
+                bound_ms, bound_by, flops, nbytes, fp32_ms = bound(operands,
+                                                                   b)
+                route = route_of(operands)
                 rows[name].append(dict(
-                    layer=label, ms=ms, plain_ms=plain_ms,
+                    layer=label, route=route, ms=ms, device_ms=dev_ms,
+                    library_device_ms=library_dev_ms, plain_ms=plain_ms,
                     library_ms=library_ms, op_ms=op_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, gflop=flops / 1e9,
-                    mbytes=nbytes / 1e6, launches_per_batch=1))
+                    bound_by=bound_by, bound_fp32_ms=fp32_ms,
+                    gflop=flops / 1e9, mbytes=nbytes / 1e6,
+                    launches_per_batch=1))
                 lib = "conv_transpose2d" if x.ndim == 4 \
                     else "conv_transpose3d"
-                print(f"time {label}: kernel {ms:.4f} ms, plain "
-                      f"{plain_ms:.4f} ms, {lib} {library_ms:.4f} ms, whole "
+                print(f"time {label} [{route}]: kernel {ms:.4f} ms (device "
+                      f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, {lib} "
+                      f"{library_ms:.4f} ms (device {library_dev_ms:.4f}), "
+                      f"whole "
                       f"op {op_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                      f"({bound_by}; {flops / 1e9:.2f} GFLOP, "
-                      f"{nbytes / 1e6:.1f} MB) [{card}]")
+                      f"({bound_by}; FP32 bound {fp32_ms:.4f} ms; "
+                      f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) "
+                      f"[{card}]")
+            r = rows[name]
+            tot = {k: sum(row[k] for row in r) for k in
+                   ("ms", "library_ms", "bound_ms", "bound_fp32_ms",
+                    "device_ms", "library_device_ms")}
+            print(f"{name} serving, a batch ({len(r)} launches): kernels "
+                  f"{tot['ms']:.4f} ms, cuDNN {tot['library_ms']:.4f} ms "
+                  f"(kernels/cuDNN {tot['ms'] / tot['library_ms']:.3f}); as "
+                  f"the device runs them: kernels {tot['device_ms']:.4f} ms, "
+                  f"cuDNN {tot['library_device_ms']:.4f} ms; "
+                  f"bound {tot['bound_ms']:.4f} ms (share "
+                  f"{tot['bound_ms'] / tot['ms']:.3f}), FP32 bound "
+                  f"{tot['bound_fp32_ms']:.4f} ms [{card}]")
             server = servers[name]
             z = torch.randn((BATCH, server.cfg.z_dim), device=dev,
                             generator=torch.Generator(device=dev)
@@ -1362,21 +1555,26 @@ def main(argv=None) -> int:
             print(f"{model} generator forward at batch {BATCH}: "
                   f"{gen_ms:.4f} ms, {per_s:.1f} {unit}/s [{card}]")
             record[model] = dict(layers=rows[name], generator_ms=gen_ms,
-                                 per_s=per_s, unit=unit, profile=prof)
+                                 per_s=per_s, unit=unit, profile=prof,
+                                 routes=serve_routes[name])
     servers.clear()
     torch.cuda.empty_cache()
     phase_done("GAN times")
 
     # -- 5. training: every launch geometry of the step, kernel vs plain --
     record["train_geometries"] = train_geometries(card, dev, gan_wrappers,
-                                                  kernel_errs)
+                                                  kernel_errs, tol_used)
+    for name, used in tol_used.items():
+        print(f"{name}: the worst output of every serving and training "
+              f"geometry at {used:.4f} of its tolerance (atol=rtol={ATOL:g})")
+    record["tol_used"] = tol_used
     phase_done("training geometries")
     # -- 6. the training paths (DCGAN quickstart, 3D-GAN) ------------------
-    train_launches = train_paths(dev, wrappers)
+    train_launches, train_routes = train_paths(dev, wrappers)
     phase_done("training paths")
-    # -- 7. one step against ganax-plain, step times, profiles -------------
-    record["train"] = train_parity_and_times(card, dev)
-    phase_done("training parity and times")
+    # -- 7. one step against ganax-plain, profiles --------------------------
+    record["train"] = train_parity_and_profiles(card, dev, step_times)
+    phase_done("training parity and profiles")
     # -- 8. the flash-attention kernel against its plain version -----------
     for variant, errs in flash_geometries(dev).items():
         kernel_errs[FLASH_VARIANTS[variant]] = errs
@@ -1386,7 +1584,9 @@ def main(argv=None) -> int:
     phase_done("Gemma-7B serving")
     record.update(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                   launches={"serve": launches, "train": train_launches,
-                            "llm": llm["launches"]})
+                            "llm": llm["launches"]},
+                  launches_by_route={"serve": serve_routes,
+                                     "train": train_routes})
 
     kernels = []
     for name in gan_wrappers:

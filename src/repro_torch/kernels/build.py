@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles, from the sources in the checkout only,
 into a shared library with a plain C interface under
 ``build/repro_torch/`` at the repository root, named by a hash of its
-source and flags: a changed source builds anew, an unchanged one loads
-what is there.  :func:`build` starts one ``nvcc`` per source, all
+source, of every ``csrc/*.cuh`` header and of the flags: a changed
+source or header builds anew, an unchanged one loads what is there.
+:func:`build` starts one ``nvcc`` per source, all
 together, and waits for them; :func:`load` returns the loaded library.
 Nothing builds when the module is imported, so the CPU tests import it
 without ``nvcc``.
@@ -70,6 +71,11 @@ def _library_path(name: str) -> Path:
     if not src.exists():
         raise ValueError(f"no kernel source {src.name}; have {sources()}")
     h = hashlib.sha256(src.read_bytes())
+    # every header too, so that an edited one rebuilds the sources that
+    # may include it
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -9,6 +9,16 @@ volumetric kernel; so does this module.  :func:`ganax_conv_cuda` and
 :func:`ganax_conv3d_plain` compute the same functions in plain PyTorch,
 on any device.
 
+Each CUDA call takes one of three routes, which :func:`kernel_route`
+picks from the geometry alone: ``"tc"`` (Cout > 8: f32-exact products
+as 3xTF32 on the tensor cores, the weights split by :func:`tf32_split`
+into the (P, Cout, K) layout of :func:`tc_weights`), ``"narrow"``
+(Cout <= 8: a row-dot FFMA kernel), either of them with split-K (K
+summed by ranges into a scratch, then reduced in a fixed order before
+the epilogue) when its output tiles cannot fill the card.
+:func:`tc_route_emulation` repeats the tc route's order of sums in
+plain PyTorch.
+
 Layout contract (prepared by ``ops.py`` from the schedule), with
 ``S`` the spatial dims ``(Hp, Wp)`` or ``(Dp, Hp, Wp)`` and ``Q`` the
 phase grid ``(Qy, Qx)`` or ``(Qz, Qy, Qx)``:
@@ -30,23 +40,148 @@ f32 accumulation.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.device import require_ieee_f32
 
 __all__ = ["TapTables", "apply_epilogue_to_acc", "ganax_conv_plain",
            "ganax_conv_cuda", "ganax_conv3d_plain", "ganax_conv3d_cuda",
-           "ACTIVATION_CODES"]
+           "ACTIVATION_CODES", "KernelRoute", "kernel_route", "tf32_split",
+           "tc_weights", "tc_route_emulation", "plain_sums",
+           "check_tma_weights"]
 
-# The kernels' activation argument (see ganax_conv.cu).
+# The kernels' activation argument (see ganax_conv_sm90.cuh).
 ACTIVATION_CODES = {"none": 0, "relu": 1, "leaky_relu": 2, "tanh": 3}
+# The kernels' route argument: tc with (tap, Cin) stages, tc with the
+# flattened (tap, c) index (Cin % 4 != 0), narrow.
+ROUTE_CODES = {("tc", False): 0, ("tc", True): 1, ("narrow", False): 2}
 
 _INT32_MAX = 2 ** 31 - 1
+# what 16-byte copies and TMA need of an address
+_ALIGN = 16
+# the card's SMs (an H100 SXM), which split-K aims to fill
+SMS = 132
+# tc: rows a block, K a stage (one 128-byte row of f32, the TMA box and
+# swizzle atom); Cout above NARROW_MAX_COUT
+TC_BLOCK_M, TC_BLOCK_K = 128, 32
+# tc: the stages (of TC_BLOCK_K) whose products share a fresh
+# accumulator, by tile width (TcTiles::kSlab)
+TC_SLAB_STAGES = {64: 2, 128: 1}
+NARROW_MAX_COUT = 8
+# narrow: rows a block at the least, a K range's weights and offset
+# table in shared memory (floats, 48 KB), the least K a split takes
+NARROW_BLOCK_ROWS = 32
+NARROW_SMEM_FLOATS = 12288
+NARROW_MIN_SPLIT_K = 512
+# tc: the fewest stages a split takes; the longest flattened (tap, c)
+# index (the kernel's offset table of kFlatMax entries)
+TC_MIN_SPLIT_STAGES = 8
+TC_FLAT_MAX_K = 2048
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelRoute:
+    """The route of one call: ``kind`` ``"tc"`` or ``"narrow"``;
+    ``splits`` K ranges summed by the reduce kernel (1: none);
+    ``flat_k``: tc stages the flattened (tap, c) index (Cin % 4 != 0);
+    ``block_n``: tc's tile width; ``k_split``: the K a narrow split
+    takes."""
+
+    kind: str
+    splits: int = 1
+    flat_k: bool = False
+    block_n: int = 0
+    k_split: int = 0
+
+    @property
+    def name(self) -> str:
+        """The key of ``launches_by_route``: ``tc``, ``tc+split_k``,
+        ``narrow`` or ``narrow+split_k``."""
+        return self.kind + ("+split_k" if self.splits > 1 else "")
+
+
+def kernel_route(cin: int, cout: int, rows: int, k: int,
+                 phases: int = 1) -> KernelRoute:
+    """The route of a call with ``phases`` phases of ``rows`` output rows
+    (B·∏Q) and at most ``k`` = T·Cin products a row, from the geometry
+    alone.  Cout <= 8 is narrow, the rest tc; either splits K in powers
+    of two while its blocks would not fill twice (narrow) or once (tc)
+    the card's SMs and each split keeps enough K; a narrow split also
+    keeps its weights and offsets within shared memory."""
+    if cout <= NARROW_MAX_COUT:
+        units = phases * _cdiv(rows, NARROW_BLOCK_ROWS)
+        splits = 1
+
+        def k_split(s):     # a multiple of 4: 16-byte chunks
+            return _cdiv(_cdiv(k, s), 4) * 4
+
+        while ((units * splits < 2 * SMS
+                and k // (2 * splits) >= NARROW_MIN_SPLIT_K)
+               or k_split(splits) * (cout + 1) > NARROW_SMEM_FLOATS):
+            splits *= 2
+        return KernelRoute("narrow", splits, k_split=k_split(splits))
+    flat = cin % 4 != 0
+    block_n = 64 if cout <= 64 else 128
+    stages = (_cdiv(k, TC_BLOCK_K) if flat
+              else (k // cin) * _cdiv(cin, TC_BLOCK_K))
+    tiles = phases * _cdiv(rows, TC_BLOCK_M) * _cdiv(cout, block_n)
+    splits = 1
+    while tiles * splits < SMS and stages // (2 * splits) >= \
+            TC_MIN_SPLIT_STAGES:
+        splits *= 2
+    return KernelRoute("tc", splits, flat, block_n)
+
+
+def _tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: round an f32 tensor to 10 mantissa bits,
+    to nearest with ties away from zero, on the int32 view (half a tf32
+    ulp added to the magnitude, then the 13 low bits cleared)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 ``x`` as ``hi + lo``, two tf32 values (13 zero low bits):
+    ``hi`` rounds ``x``, ``lo`` rounds ``x - hi`` (exact in f32), so
+    ``|x - hi - lo| <= 2**-22 |x|``.  The tc route's split of both
+    operands; the kernel splits A the same way, in shared memory."""
+    hi = _tf32_round(x)
+    return hi, _tf32_round(x - hi)
+
+
+def tc_weights(w_taps: torch.Tensor, flat_k: bool
+               ) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """The tc route's B operand from ``w_taps`` (P, T, Cin, Cout): the
+    weights K-major as (P, Cout, K), split by :func:`tf32_split`, and
+    K.  K is (tap, Cin) with Cin zero-padded to a multiple of
+    ``TC_BLOCK_K``, or (``flat_k``) the flattened (tap, c) index
+    zero-padded to one."""
+    p, t, cin, cout = w_taps.shape
+    if flat_k:
+        k = _cdiv(t * cin, TC_BLOCK_K) * TC_BLOCK_K
+        b = w_taps.reshape(p, t * cin, cout).transpose(1, 2)
+        pad = k - t * cin
+    else:
+        cin_pad = _cdiv(cin, TC_BLOCK_K) * TC_BLOCK_K
+        k = t * cin_pad
+        b = w_taps.permute(0, 3, 1, 2)
+        pad = cin_pad - cin
+    # one copy into the layout (the pad's, where there is one)
+    b = F.pad(b, (0, pad)) if pad else b.contiguous()
+    hi, lo = tf32_split(b.reshape(p, cout, k))
+    return hi, lo, k
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -172,10 +307,13 @@ def _check(x_pad, w_taps, tables: TapTables, out_strides, q_sizes, bias,
                          f"{bias.dtype} {tuple(bias.shape)}")
 
 
-def _plain(x_pad, w_taps, tables, out_strides, q_sizes, bias, activation,
-           leaky_slope) -> torch.Tensor:
-    _check(x_pad, w_taps, tables, out_strides, q_sizes, bias, activation)
-    require_ieee_f32(x_pad)
+def plain_sums(x_pad, w_taps, tables: TapTables, out_strides, q_sizes
+               ) -> torch.Tensor:
+    """The plain version's arithmetic, unchecked: per phase, a loop over
+    its taps of matmuls into an accumulator, (B, P, *Q, Cout) before
+    the epilogue.  It does not refuse TF32, so that a control on the
+    card can run it with TF32 on; everything else calls the checked
+    plain versions."""
     b, cin = x_pad.shape[0], x_pad.shape[-1]
     p, _, _, cout = w_taps.shape
     out = x_pad.new_empty((b, p, *q_sizes, cout))
@@ -186,9 +324,17 @@ def _plain(x_pad, w_taps, tables, out_strides, q_sizes, bias, activation,
                            in zip(tap, q_sizes, out_strides))
             xt = x_pad[(slice(None),) + window]
             acc += xt.reshape(-1, cin) @ w_taps[ph, t]
-        out[:, ph] = apply_epilogue_to_acc(
-            acc, bias, activation, leaky_slope).reshape(b, *q_sizes, cout)
+        out[:, ph] = acc.reshape(b, *q_sizes, cout)
     return out
+
+
+def _plain(x_pad, w_taps, tables, out_strides, q_sizes, bias, activation,
+           leaky_slope) -> torch.Tensor:
+    _check(x_pad, w_taps, tables, out_strides, q_sizes, bias, activation)
+    require_ieee_f32(x_pad)
+    return apply_epilogue_to_acc(
+        plain_sums(x_pad, w_taps, tables, out_strides, q_sizes), bias,
+        activation, leaky_slope)
 
 
 def ganax_conv_plain(x_pad: torch.Tensor, w_taps: torch.Tensor,
@@ -216,22 +362,136 @@ def ganax_conv3d_plain(x_pad: torch.Tensor, w_taps: torch.Tensor,
                   activation, leaky_slope)
 
 
+def _route_of(x_pad, w_taps, q_sizes) -> KernelRoute:
+    p, t, cin, cout = w_taps.shape
+    return kernel_route(cin, cout, x_pad.shape[0] * math.prod(q_sizes),
+                        t * cin, p)
+
+
+def tc_route_emulation(x_pad: torch.Tensor, w_taps: torch.Tensor,
+                       tables: TapTables, out_strides, q_sizes,
+                       bias: torch.Tensor | None = None,
+                       activation: str = "none", leaky_slope: float = 0.2,
+                       splits: int | None = None) -> torch.Tensor:
+    """The tc route's order of sums in plain PyTorch, 2-D or 3-D (the
+    CPU's counterpart of the kernel, for the tests): per phase, the rows'
+    gathered K (``tc_weights``' layout, zeros where the kernel
+    zero-fills) in stages of ``TC_BLOCK_K``; for each slab of a split
+    (``TC_SLAB_STAGES`` of the tile width), the products ``a_lo·b_hi +
+    a_hi·b_lo`` stage by stage, then ``+ a_hi·b_hi``, into a fresh sum
+    (the kernel's fresh accumulator), added to the split's f32 sum; the
+    splits (``kernel_route``'s unless given) summed in order, and only
+    then the epilogue.  The CPU adds each stage's products in f32, where
+    the tensor cores drop low bits; the order is the kernel's."""
+    _check(x_pad, w_taps, tables, out_strides, q_sizes, None, activation)
+    route = _route_of(x_pad, w_taps, q_sizes)
+    if route.kind != "tc":
+        raise ValueError(f"Cout {w_taps.shape[-1]} takes the {route.kind} "
+                         f"route, not tc")
+    splits = route.splits if splits is None else splits
+    b_hi, b_lo, kb = tc_weights(w_taps, route.flat_k)
+    b, cin = x_pad.shape[0], x_pad.shape[-1]
+    p, t_max, _, cout = w_taps.shape
+    cin_pad = kb // t_max if not route.flat_k else cin
+    n_stages = kb // TC_BLOCK_K
+    per = _cdiv(n_stages, splits)
+    rows = b * math.prod(q_sizes)
+    out = x_pad.new_empty((b, p, *q_sizes, cout))
+    for ph, taps in enumerate(tables.taps):
+        # the phase's A operand, (rows, kb), as the producer gathers it
+        cols = []
+        for tap in taps:
+            window = tuple(slice(d, d + (q - 1) * s + 1, s) for d, q, s
+                           in zip(tap, q_sizes, out_strides))
+            xt = x_pad[(slice(None),) + window].reshape(rows, cin)
+            cols.append(xt if route.flat_k
+                        else F.pad(xt, (0, cin_pad - cin)))
+        a = torch.cat(cols, dim=1) if cols else x_pad.new_zeros((rows, 0))
+        a = F.pad(a, (0, kb - a.shape[1]))
+        a_hi, a_lo = tf32_split(a)
+        bh, bl = b_hi[ph].T, b_lo[ph].T                 # (kb, Cout)
+        acc = x_pad.new_zeros((splits, rows, cout))
+        for s in range(splits):
+            stages = range(s * per, min((s + 1) * per, n_stages))
+            slab = TC_SLAB_STAGES[route.block_n]
+            for i in range(0, len(stages), slab):
+                ks = [slice(st * TC_BLOCK_K, (st + 1) * TC_BLOCK_K)
+                      for st in stages[i:i + slab]]
+                fresh = x_pad.new_zeros((rows, cout))
+                for k in ks:
+                    fresh = fresh + a_lo[:, k] @ bh[k]
+                    fresh = fresh + a_hi[:, k] @ bl[k]
+                for k in ks:
+                    fresh = fresh + a_hi[:, k] @ bh[k]
+                acc[s] += fresh
+        total = acc[0]
+        for s in range(1, splits):
+            total = total + acc[s]
+        out[:, ph] = apply_epilogue_to_acc(
+            total, bias, activation, leaky_slope).reshape(b, *q_sizes, cout)
+    return out
+
+
 @functools.cache
 def _library(name: str, nd: int):
     from repro_torch.kernels.build import load
     fn = getattr(load(name), f"{name}_f32")
-    # x, w, n_taps, one offset table per dim, bias, out; then B, the
-    # spatial dims, Cin, P, T, Cout, the phase grid, the strides, act
-    fn.argtypes = [ctypes.c_void_p] * (nd + 5) + [ctypes.c_int] * (
-        3 * nd + 6) + [ctypes.c_float, ctypes.c_void_p]
+    # x, w, b_hi, b_lo, n_taps, one offset table per dim, bias, out,
+    # scratch; then B, the spatial dims, Cin, P, T, Cout, the phase
+    # grid, the strides, route, block_n, splits, kb, act; slope; the
+    # stream
+    fn.argtypes = [ctypes.c_void_p] * (nd + 8) + [ctypes.c_int] * (
+        3 * nd + 10) + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+def _ptr(a: torch.Tensor | None):
+    return a.data_ptr() if a is not None else None
+
+
+def _launch_error(err: int, name: str) -> RuntimeError:
+    if err == -1:
+        why = "the driver has no cuTensorMapEncodeTiled"
+    elif err == -2:
+        why = "no kernel takes this route, tile width and Cout"
+    elif err < -1000:
+        operand = ("b_hi", "b_lo")[-err // 1000 - 1]
+        why = f"encoding the TMA map of {operand} failed: CUresult " \
+              f"{-err % 1000}"
+    else:
+        why = f"CUDA error {err}"
+    return RuntimeError(f"{name} kernel launch failed: {why}")
+
+
+def _check_aligned(name: str, a: torch.Tensor, what: str) -> None:
+    """The 16-byte alignment that ``what`` needs of ``a``'s address (its
+    strides are contiguous multiples of 16 bytes where it is read so)."""
+    if a.data_ptr() % _ALIGN:
+        raise ValueError(f"{name} reads {what}, which needs a {_ALIGN}-byte "
+                         f"aligned address: {a.data_ptr():#x}")
+
+
+def check_tma_weights(b: torch.Tensor) -> None:
+    """Raise unless TMA can read the tc route's (P, Cout, K) f32 weights
+    ``b`` as the kernel's tensor map does: contiguous, the row stride
+    (K floats) and the address multiples of 16 bytes."""
+    if b.dtype != torch.float32 or b.ndim != 3 or not b.is_contiguous():
+        raise ValueError(f"the tc route reads contiguous (P, Cout, K) "
+                         f"float32 weights by TMA, got {b.dtype} "
+                         f"{tuple(b.shape)} with strides {b.stride()}")
+    if (b.shape[2] * 4) % _ALIGN:
+        raise ValueError(f"the tc route reads its weights by TMA, whose "
+                         f"strides are multiples of {_ALIGN} bytes: a row "
+                         f"of K = {b.shape[2]} floats is {b.shape[2] * 4}")
+    _check_aligned("the tc route", b, "its weights by TMA")
+
+
 def _cuda(wrapper, x_pad, w_taps, tables, out_strides, q_sizes, bias,
           activation, leaky_slope) -> torch.Tensor:
-    """Check, allocate and launch one call of the kernel of ``wrapper``
-    (``<name>_cuda`` launches ``csrc/<name>.cu``); count it there."""
+    """Check, route, allocate and launch one call of the kernel of
+    ``wrapper`` (``<name>_cuda`` launches ``csrc/<name>.cu``); count it
+    there, once, and under its route."""
     name = wrapper.__name__
     _check(x_pad, w_taps, tables, out_strides, q_sizes, bias, activation)
     dev = x_pad.device
@@ -246,25 +506,44 @@ def _cuda(wrapper, x_pad, w_taps, tables, out_strides, q_sizes, bias,
             raise ValueError(f"{name} takes contiguous tensors")
     b, *spatial, cin = x_pad.shape
     p, t, _, cout = w_taps.shape
+    route = _route_of(x_pad, w_taps, q_sizes)
+    if cin % 4 == 0:
+        # 16-byte copies (tc) or loads (narrow) of each row's channels
+        _check_aligned(name, x_pad, "x_pad by 16-byte copies")
+    b_hi = b_lo = scratch = None
+    kb = route.k_split
+    if route.flat_k and t * cin > TC_FLAT_MAX_K:
+        raise ValueError(f"{name} flattens (tap, c) for Cin % 4 != 0 into "
+                         f"at most {TC_FLAT_MAX_K} entries, got {t} taps x "
+                         f"Cin {cin}")
+    if route.kind == "tc":
+        b_hi, b_lo, kb = tc_weights(w_taps, route.flat_k)
+        check_tma_weights(b_hi)
+        check_tma_weights(b_lo)
     out = torch.empty((b, p, *q_sizes, cout), dtype=torch.float32,
                       device=dev)
-    if max(x_pad.numel(), w_taps.numel(), out.numel()) > _INT32_MAX:
+    if route.splits > 1:
+        scratch = torch.empty((route.splits, *out.shape), dtype=torch.float32,
+                              device=dev)
+    if max(a.numel() for a in (x_pad, w_taps, out, b_hi, scratch)
+           if a is not None) > _INT32_MAX:
         raise ValueError(f"{name} indexes with 32-bit offsets; split the "
                          f"batch")
     fn = _library(name.removesuffix("_cuda"), len(q_sizes))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x_pad.data_ptr(), w_taps.data_ptr(),
-                 tables.n_taps.data_ptr(),
-                 *(o.data_ptr() for o in tables.offsets),
-                 bias.data_ptr() if bias is not None else None,
-                 out.data_ptr(), b, *spatial, cin, p, t, cout, *q_sizes,
-                 *(int(s) for s in out_strides), ACTIVATION_CODES[activation],
-                 float(leaky_slope), stream)
+        err = fn(x_pad.data_ptr(), w_taps.data_ptr(), _ptr(b_hi),
+                 _ptr(b_lo), tables.n_taps.data_ptr(),
+                 *(o.data_ptr() for o in tables.offsets), _ptr(bias),
+                 out.data_ptr(), _ptr(scratch), b, *spatial, cin, p, t,
+                 cout, *q_sizes, *(int(s) for s in out_strides),
+                 ROUTE_CODES[route.kind, route.flat_k], route.block_n,
+                 route.splits, kb,
+                 ACTIVATION_CODES[activation], float(leaky_slope), stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error "
-                           f"{err}")
+        raise _launch_error(err, name)
     wrapper.launches += 1
+    wrapper.launches_by_route[route.name] += 1
     return out
 
 
@@ -276,9 +555,13 @@ def ganax_conv_cuda(x_pad: torch.Tensor, w_taps: torch.Tensor,
     """Launch the planar CUDA kernel on the current stream (no
     synchronise).
 
-    Takes contiguous float32 CUDA tensors on one device and raises on
-    anything else; the output is allocated here.  Each launch adds one
-    to ``ganax_conv_cuda.launches``."""
+    Takes contiguous float32 CUDA tensors on one device, ``x_pad`` at a
+    16-byte aligned address where Cin % 4 = 0, and raises on anything
+    else; the output, the tc route's split weights and split-K's
+    scratch are allocated here.  The route is :func:`kernel_route`'s.
+    Each call adds one to ``ganax_conv_cuda.launches`` (a split-K call
+    runs two device kernels) and one to
+    ``ganax_conv_cuda.launches_by_route[route.name]``."""
     return _cuda(ganax_conv_cuda, x_pad, w_taps, tables, out_strides,
                  (qy, qx), bias, activation, leaky_slope)
 
@@ -291,10 +574,14 @@ def ganax_conv3d_cuda(x_pad: torch.Tensor, w_taps: torch.Tensor,
                       ) -> torch.Tensor:
     """Launch the volumetric CUDA kernel on the current stream (no
     synchronise).  Takes what :func:`ganax_conv_cuda` takes, with a depth
-    axis; each launch adds one to ``ganax_conv3d_cuda.launches``."""
+    axis; each call adds one to ``ganax_conv3d_cuda.launches`` and to
+    ``ganax_conv3d_cuda.launches_by_route[route.name]``."""
     return _cuda(ganax_conv3d_cuda, x_pad, w_taps, tables, out_strides,
                  (qz, qy, qx), bias, activation, leaky_slope)
 
 
 ganax_conv_cuda.launches = 0
 ganax_conv3d_cuda.launches = 0
+# launches by KernelRoute.name
+ganax_conv_cuda.launches_by_route = collections.Counter()
+ganax_conv3d_cuda.launches_by_route = collections.Counter()

@@ -24,9 +24,12 @@ from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain,
                                                  flash_attention_wgmma,
                                                  kernel_variant)
-from repro_torch.kernels.ganax_conv import (ganax_conv3d_cuda,
+from repro_torch.kernels.ganax_conv import (apply_epilogue_to_acc,
+                                            check_tma_weights,
+                                            ganax_conv3d_cuda,
                                             ganax_conv3d_plain,
-                                            ganax_conv_cuda, ganax_conv_plain)
+                                            ganax_conv_cuda, ganax_conv_plain,
+                                            plain_sums)
 from repro_torch.launch.serve import reduced_config
 from repro_torch.models import transformer as tr
 from repro_torch.models.gan import GanConfig, init_gan
@@ -143,6 +146,114 @@ def test_cuda_op_matches_plain_op(dev, xs, ws, s, p, transposed, act,
     ref = op(x, w, s, p, bias=b, epilogue=ep, backend="ganax-plain")
     assert got.is_cuda
     torch.testing.assert_close(got, ref, **TOL)
+
+
+# Each route of the Hopper kernels at real widths and batch 2: (x
+# shape, w shape, strides, paddings, transposed, activation, bias, the
+# route's name).  narrow: g4 and d1's dx; narrow+split_k: d5; tc with the
+# flattened K: d1 (Cin 3 or 1) and d5's dx (Cin 1); tc+split_k: g1 and
+# d4, which fill few tiles at batch 2; tc: a g3-like tconv (3-D: the
+# 64-wide tile).
+ROUTE_CASES = [
+    ((2, 32, 32, 128), (4, 4, 128, 3), (2, 2), (1, 1), True, "tanh", True,
+     "narrow"),
+    ((2, 32, 32, 128), (4, 4, 128, 3), (2, 2), (0, 0), True, "none", False,
+     "narrow"),
+    ((2, 4, 4, 1024), (4, 4, 1024, 1), (1, 1), (0, 0), False, "none", True,
+     "narrow+split_k"),
+    ((2, 64, 64, 3), (4, 4, 3, 128), (2, 2), (1, 1), False, "leaky_relu",
+     True, "tc"),
+    ((2, 1, 1, 1), (4, 4, 1, 1024), (1, 1), (0, 0), True, "none", False,
+     "tc"),
+    ((2, 4, 4, 1024), (4, 4, 1024, 512), (2, 2), (1, 1), True, "relu", True,
+     "tc+split_k"),
+    ((2, 8, 8, 512), (4, 4, 512, 1024), (2, 2), (1, 1), False, "leaky_relu",
+     True, "tc+split_k"),
+    ((2, 64, 64, 128), (4, 4, 128, 256), (2, 2), (1, 1), True, "none",
+     False, "tc"),
+    ((2, 32, 32, 32, 64), (4, 4, 4, 64, 1), (2, 2, 2), (1, 1, 1), True,
+     "tanh", True, "narrow"),
+    ((2, 32, 32, 32, 64), (4, 4, 4, 64, 1), (2, 2, 2), (0, 0, 0), True,
+     "none", False, "narrow"),
+    ((2, 4, 4, 4, 512), (4, 4, 4, 512, 1), (1, 1, 1), (0, 0, 0), False,
+     "none", True, "narrow+split_k"),
+    ((2, 64, 64, 64, 1), (4, 4, 4, 1, 64), (2, 2, 2), (1, 1, 1), False,
+     "leaky_relu", True, "tc"),
+    ((2, 1, 1, 1, 1), (4, 4, 4, 1, 512), (1, 1, 1), (0, 0, 0), True, "none",
+     False, "tc"),
+    ((2, 4, 4, 4, 512), (4, 4, 4, 512, 256), (2, 2, 2), (1, 1, 1), True,
+     "relu", True, "tc+split_k"),
+    ((2, 16, 16, 16, 128), (4, 4, 4, 128, 64), (2, 2, 2), (1, 1, 1), True,
+     "none", False, "tc"),
+]
+
+
+@pytest.mark.parametrize("xs,ws,s,p,transposed,act,has_bias,route",
+                         ROUTE_CASES)
+def test_each_route_matches_plain(dev, xs, ws, s, p, transposed, act,
+                                  has_bias, route):
+    x, w, b = _inputs(xs, ws, dev, seed=8)
+    w = w * (0.3 * np.prod(ws[:-1])) ** -0.5     # unit-scale outputs
+    operands = ops.kernel_operands(x, w, s, p, transposed=transposed)
+    b = b if has_bias else None
+    kernel, plain = _KERNELS[len(s)]
+    before = dict(kernel.launches_by_route), kernel.launches
+    got = kernel(**operands, bias=b, activation=act)
+    torch.cuda.synchronize()
+    assert kernel.launches == before[1] + 1
+    assert kernel.launches_by_route[route] == before[0].get(route, 0) + 1
+    ref = plain(**operands, bias=b, activation=act)
+    torch.testing.assert_close(got, ref, **TOL)
+
+
+@pytest.mark.parametrize("xs,ws,s,p", [
+    ((2, 4, 4, 1024), (4, 4, 1024, 512), (2, 2), (1, 1)),
+    ((2, 4, 4, 4, 512), (4, 4, 4, 512, 256), (2, 2, 2), (1, 1, 1)),
+], ids=["dcgan-g1", "3dgan-g1"])
+def test_tc_route_is_as_exact_as_plain_against_float64(dev, xs, ws, s, p):
+    """A wide tc launch and the plain version against the same sums in
+    float64: the kernel's mean error is within twice the plain
+    version's, and its worst output uses at most half of the 1e-4
+    tolerance against the exact value.  Prints both."""
+    x, w, b = _inputs(xs, ws, dev, seed=9)
+    w = w * (0.3 * np.prod(ws[:-1])) ** -0.5
+    operands = ops.kernel_operands(x, w, s, p, transposed=True)
+    kernel, plain = _KERNELS[len(s)]
+    got = kernel(**operands, bias=b, activation="none")
+    ref = plain(**operands, bias=b, activation="none")
+    q = tuple(operands[k] for k in ("qz", "qy", "qx") if k in operands)
+    exact = apply_epilogue_to_acc(
+        plain_sums(operands["x_pad"].double(), operands["w_taps"].double(),
+                   operands["tables"], operands["out_strides"], q),
+        b.double(), "none", 0.2)
+    err, ref_err = (got.double() - exact).abs(), (ref.double() - exact).abs()
+    share = (err / (TOL["atol"] + TOL["rtol"] * exact.abs())).max().item()
+    print(f"mean |error| against float64: kernel {err.mean().item():.3e}, "
+          f"plain {ref_err.mean().item():.3e}; the kernel's worst output at "
+          f"{share:.4f} of the tolerance")
+    assert err.mean().item() <= 2 * ref_err.mean().item()
+    assert share <= 0.5
+
+
+def test_cuda_wrapper_refuses_addresses_and_strides_tma_cannot_read(dev):
+    """x_pad 4 bytes off a 16-byte boundary (its rows are read by 16-byte
+    copies) raises before any launch; so do tc weights whose row of K =
+    35 floats (140 bytes) or whose address TMA cannot take."""
+    x, w, _ = _inputs((1, 4, 4, 64), (4, 4, 64, 128), dev)
+    operands = ops.kernel_operands(x, w, (2, 2), (1, 1), transposed=True)
+    xp = operands["x_pad"]
+    flat = torch.zeros(xp.numel() + 1, device=dev)
+    shifted = flat[1:].view(xp.shape)
+    shifted.copy_(xp)
+    before = ganax_conv_cuda.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ganax_conv_cuda(**dict(operands, x_pad=shifted))
+    assert ganax_conv_cuda.launches == before
+    with pytest.raises(ValueError, match="140"):
+        check_tma_weights(torch.zeros((1, 8, 35), device=dev))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        check_tma_weights(torch.zeros(8 * 32 + 1, device=dev)[1:]
+                          .view(1, 8, 32))
 
 
 def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(dev):

@@ -321,7 +321,10 @@ def test_tap_tables_3d_refuse_a_tap_past_x_pad_in_depth():
                              torch.device("cpu"), tap_dz=-1 - u.tap_dz)
 
 
-def test_build_names_libraries_by_source_hash():
+def test_build_names_libraries_by_source_hash(tmp_path, monkeypatch):
+    """Each library is named by its source's hash and every header's: an
+    edited ``csrc/*.cuh`` renames (so rebuilds) the libraries, an
+    unchanged tree keeps their names."""
     assert {"ganax_conv", "ganax_conv3d"} <= set(build.sources())
     for name in ("ganax_conv", "ganax_conv3d"):
         path = build._library_path(name)
@@ -329,3 +332,14 @@ def test_build_names_libraries_by_source_hash():
         assert path.name.startswith(f"{name}-") and path.suffix == ".so"
     with pytest.raises(ValueError, match="no kernel source"):
         build._library_path("missing_kernel")
+    for f in build.CSRC.glob("ganax_conv*"):
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = {n: build._library_path(n) for n in ("ganax_conv",
+                                                  "ganax_conv3d")}
+    assert before == {n: build._library_path(n) for n in before}
+    header = tmp_path / "ganax_conv_sm90.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: build._library_path(n) for n in before}
+    assert all(after[n] != before[n] for n in before)
+    assert all(after[n].name.startswith(f"{n}-") for n in before)
