@@ -13,7 +13,23 @@ checks the outputs, the launch counts and the launches of each GANAX
 route (``tc``, ``narrow``, either with split-K) of each path; then
 times each layer's kernel (per call and as the device runs it) beside
 its bound, its plain version, the whole op and one library call, and
-each generator forward.  The training phases hold every launch geometry
+each generator forward.  The serving-stack phases drive full-width
+DCGAN through ``GanEngine`` (48 requests of 1-100 images from 4
+producer threads, buckets 8-64, at ``pipeline_depth`` 1 and 2, then a
+sweep of one request at a time that runs every bucket): every future
+answered, the accounting invariant, every batch's launches and routes
+by bucket, every bucket's images against the plain version on the same
+latents, a single-bucket engine bit for bit against
+``GanServer.generate``, and ``submit`` mixed with ``generate`` against
+``generate`` alone, printing images/s and request latency; serve both
+generators from a program built, saved and loaded back (the same images
+as the direct path, ``ganax`` on every layer); and, with ``repro_torch.obs``
+on, check that the ``engine.request``, ``serve.generate``,
+``program.apply`` and ``program.layer`` spans nest and the registry
+agrees with the servers, and that ``obs.profile`` writes a device trace
+holding the GANAX kernels (and reads whether each engine batch's
+device-to-host copy ran under the next batch's kernels).  The training
+phases hold every launch geometry
 of an adversarial step (the discriminators' convs and every layer's
 ``dx``) against the plain version, run the TF32 control (the plain
 version with TF32 matmuls must fail that gate), and time each beside
@@ -1286,6 +1302,449 @@ def llm_serving(card, dev, wrappers) -> dict:
     return out
 
 
+# -- the serving stack: GanEngine, programs, obs -----------------------------
+
+# the engine phase: DCGAN at full width behind buckets ENGINE_BUCKETS, fed by
+# ENGINE_PRODUCERS threads with ENGINE_REQUESTS requests whose sizes are
+# drawn from seed 0, uniform on 1..100; then one producer sends ENGINE_SWEEP
+# one request at a time: with the remainder carried from batch to batch,
+# that runs batches of 8, 8, 16, 32 and 64, so every bucket serves
+ENGINE_BUCKETS = (8, 16, 32, 64)
+ENGINE_PRODUCERS = 4
+ENGINE_REQUESTS = 48
+ENGINE_SWEEP = (1, 9, 17, 33, 64)
+# every future must resolve within this many seconds
+ENGINE_WAIT_S = 120.0
+
+
+def engine_sizes() -> list[int]:
+    gen = torch.Generator().manual_seed(0)
+    return torch.randint(1, 101, (ENGINE_REQUESTS,), generator=gen).tolist()
+
+
+def count_buckets(engine, kernel) -> tuple[dict, list]:
+    """Wrap the engine's program's ``apply`` so that the wrapper's counts
+    around each batch (launches, launches by route) are booked to the
+    batch's bucket, its size ``z.shape[0]``; also returns the sizes of
+    the batches in the order they ran.  The scheduler thread is the only
+    one launching while it serves."""
+    from collections import Counter
+    per = {b: {"batches": 0, "launches": 0, "routes": Counter()}
+           for b in engine.buckets}
+    order = []
+    real = engine.program.apply
+
+    def counted(params, z):
+        n0, r0 = kernel.launches, Counter(kernel.launches_by_route)
+        out = real(params, z)
+        row = per[z.shape[0]]
+        row["batches"] += 1
+        row["launches"] += kernel.launches - n0
+        row["routes"].update(Counter(kernel.launches_by_route) - r0)
+        order.append(z.shape[0])
+        return out
+    engine.program.apply = counted
+    return per, order
+
+
+def stream_vs_plain(futures, order, plain, params, z_dim, dev) -> dict:
+    """The engine's answers in stream order against the plain program on
+    the same latents: the engine's draws (one a batch, seed 0) replayed
+    in the order its batches ran.  Returns the max abs error by bucket;
+    fails on any batch outside ATOL/RTOL."""
+    offsets = [f.offset for f in futures]
+    check(offsets == [sum(f.n for f in futures[:i])
+                      for i in range(len(futures))],
+          f"engine: the answers' offsets leave gaps: {offsets}")
+    got = torch.cat([f.result(0) for f in futures])
+    key = torch.Generator(device=dev).manual_seed(0)
+    errs, pos = {}, 0
+    with torch.inference_mode():
+        for b in order:
+            z = torch.randn((b, z_dim), generator=key, device=dev)
+            take = min(b, len(got) - pos)
+            check(take > 0, f"engine: a batch of {b} served no request")
+            ref = plain.apply(params, z)[:take].cpu()
+            err, ok = max_err(got[pos:pos + take], ref)
+            check(ok, f"engine bucket {b}: the kernel's images and the "
+                      f"plain version's on the same latents differ by "
+                      f"{err:.3e} (atol=rtol={ATOL:g})")
+            errs[b] = max(errs.get(b, 0.0), err)
+            pos += take
+    check(pos == len(got), f"engine: {len(got)} images served, "
+                           f"{pos} drawn")
+    return errs
+
+
+def time_scheduler(engine) -> dict:
+    """Book the host time of the scheduler's launches (``_dispatch``) and
+    answers (``_resolve``, waiting for the copy included) per batch."""
+    spent = {"_dispatch": [], "_resolve": []}
+    for name, times in spent.items():
+        def timed(batch, real=getattr(engine, name), times=times):
+            t0 = time.perf_counter()
+            real(batch)
+            times.append((time.perf_counter() - t0) * 1e3)
+        setattr(engine, name, timed)
+    return spent
+
+
+def drive_engine(engine, sizes) -> tuple[list, float]:
+    """``sizes`` submitted by ENGINE_PRODUCERS threads in turn; every
+    future resolved (bounded wait).  Returns the futures in stream order
+    and the seconds from the first submit to the last answer."""
+    import threading
+    futures, lock, errors = [], threading.Lock(), []
+
+    def produce(part):
+        try:
+            for n in part:
+                f = engine.submit(n)
+                with lock:
+                    futures.append(f)
+        except Exception as e:      # surfaced below
+            errors.append(e)
+    parts = [sizes[i::ENGINE_PRODUCERS] for i in range(ENGINE_PRODUCERS)]
+    threads = [threading.Thread(target=produce, args=(p,)) for p in parts]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(ENGINE_WAIT_S)
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"engine producers failed or hung: {errors}")
+    deadline = t0 + ENGINE_WAIT_S
+    for f in futures:
+        try:
+            f.result(max(0.0, deadline - time.perf_counter()))
+        except TimeoutError:
+            raise SmokeFailure(f"a request for {f.n} samples was not "
+                               f"answered within {ENGINE_WAIT_S} s")
+    wall = time.perf_counter() - t0
+    check(len(futures) == len(sizes), "a submit was lost")
+    return sorted(futures, key=lambda f: f.offset), wall
+
+
+def gan_engine_phase(card, dev, wrappers) -> dict:
+    """DCGAN through ``GanEngine``: the accounting invariant, every batch
+    through the kernel (launches and routes by bucket, from the
+    wrappers), every bucket served (the sweep), the engine's stream
+    against the plain version on the same latents in every bucket, a
+    single-bucket engine bit for bit against ``GanServer.generate``,
+    ``GanServer.submit`` mixed with ``generate`` against ``generate``
+    alone; images/s and request latency of the burst at
+    ``pipeline_depth`` 1 and 2 are printed."""
+    from repro_torch import obs
+    from repro_torch.models.gan import GanConfig, init_gan
+    from repro_torch.program import Program
+    from repro_torch.serve.gan import GanServer
+    from repro_torch.serve.gan_engine import GanEngine
+    kernel = wrappers["ganax_conv"][0]
+    cfg = GanConfig("dcgan")
+    g, _ = init_gan(cfg, torch.Generator().manual_seed(0), device=dev)
+    plain = Program.build(GanConfig("dcgan", backend="ganax-plain"), BATCH,
+                          device=dev, differentiable=False)
+    sizes = engine_sizes()
+    out = {"sizes": sizes, "depth": {}}
+    launches = 0
+    for depth, traffic in ((1, "burst"), (2, "burst"), (1, "sweep")):
+        engine = GanEngine(cfg, g, buckets=ENGINE_BUCKETS, seed=0,
+                           pipeline_depth=depth, device=dev)
+        per, order = count_buckets(engine, kernel)
+        spent = time_scheduler(engine)
+        for k, _ in wrappers.values():
+            k.launches = 0
+            if hasattr(k, "launches_by_route"):
+                k.launches_by_route.clear()
+        if traffic == "burst":
+            asked = sizes
+            futures, wall = drive_engine(engine, sizes)
+        else:
+            asked = list(ENGINE_SWEEP)
+            futures, t0 = [], time.perf_counter()
+            for n in ENGINE_SWEEP:
+                futures.append(engine.submit(n))
+                futures[-1].result(ENGINE_WAIT_S)
+            wall = time.perf_counter() - t0
+        engine.close(timeout=ENGINE_WAIT_S)
+        counts = {k: wrappers[k][0].launches for k in wrappers}
+        check(not engine._thread.is_alive(), "the engine did not close")
+        for f in futures:
+            img = f.result(0)
+            check(tuple(img.shape) == (f.n, 64, 64, 3)
+                  and img.device.type == "cpu"
+                  and bool(torch.isfinite(img).all()),
+                  f"engine answer for {f.n}: {tuple(img.shape)} on "
+                  f"{img.device}")
+        check(engine.samples_served + engine.samples_buffered
+              + engine.samples_discarded
+              == engine.samples_generated + engine.initial_spare,
+              "engine: served + buffered + discarded != generated + spare")
+        check(engine.samples_served == sum(asked)
+              and engine.samples_discarded == 0,
+              f"engine served {engine.samples_served} of {sum(asked)}")
+        if traffic == "sweep":
+            check(all(row["batches"] > 0 for row in per.values()),
+                  f"engine sweep {ENGINE_SWEEP}: a bucket served no batch "
+                  f"({order})")
+        for b, row in per.items():
+            check(row["launches"] == 4 * row["batches"]
+                  and sum(row["routes"].values()) == row["launches"],
+                  f"engine bucket {b}: {row['launches']} launches for "
+                  f"{row['batches']} batches, routes {dict(row['routes'])}")
+        check(len(order) == engine.batches_served
+              and counts["ganax_conv"] == 4 * engine.batches_served
+              and all(c == 0 for k, c in counts.items()
+                      if k != "ganax_conv"),
+              f"engine: launches {counts} for {engine.batches_served} "
+              f"batches")
+        launches += counts["ganax_conv"]
+        # the comparison runs the plain version only: no kernel launch
+        errs = stream_vs_plain(futures, order, plain, g, cfg.z_dim, dev)
+        by_bucket = {b: {"batches": r["batches"], "launches": r["launches"],
+                         "routes": dict(r["routes"]),
+                         "max_abs_err_vs_plain": errs.get(b)}
+                     for b, r in per.items()}
+        print(f"gan_engine {traffic} (depth {depth}) vs the plain version "
+              f"on the same latents, by bucket (atol=rtol={ATOL:g}): "
+              f"{ {b: r['max_abs_err_vs_plain'] for b, r in by_bucket.items()} }"
+              f" ok")
+        if traffic == "sweep":
+            out["sweep"] = {"sizes": asked, "batches": order,
+                            "by_bucket": by_bucket}
+            print(f"gan_engine sweep {asked}, one request at a time: "
+                  f"batches {order}; by bucket {by_bucket} [{card}]")
+            continue
+        h = obs.histogram("engine.request_us", engine=engine.engine_id)
+        rate = engine.samples_generated / wall
+        row = {"images_per_s": rate, "wall_s": wall,
+               "batches": engine.batches_served,
+               "request_p50_us": h.percentile(50),
+               "request_p99_us": h.percentile(99),
+               "host_ms_per_batch": {k: statistics.median(v)
+                                     for k, v in spent.items()},
+               "by_bucket": by_bucket}
+        out["depth"][depth] = row
+        print(f"gan_engine depth {depth}: {len(sizes)} requests "
+              f"({sum(sizes)} images) from {ENGINE_PRODUCERS} threads in "
+              f"{wall:.4f} s: {engine.batches_served} batches, "
+              f"{engine.samples_generated} generated, "
+              f"{rate:.1f} images/s; engine.request_us p50 "
+              f"{row['request_p50_us']:.1f} p99 {row['request_p99_us']:.1f}; "
+              f"scheduler host ms a batch (median) "
+              f"{row['host_ms_per_batch']}; by bucket {row['by_bucket']} "
+              f"[{card}]")
+    # a single bucket of 64 against the synchronous server, bit for bit
+    engine = GanEngine(cfg, g, buckets=(BATCH,), seed=0, device=dev)
+    futures, _ = drive_engine(engine, sizes)
+    engine.close(timeout=ENGINE_WAIT_S)
+    server = GanServer(cfg, g, batch_size=BATCH, seed=0, device=dev)
+    same = all(torch.equal(f.result(0), server.generate(f.n).cpu())
+               for f in futures)
+    print(f"single-bucket engine (64) vs GanServer(batch_size=64).generate, "
+          f"seed 0, {len(futures)} requests in stream order: "
+          f"{'bit-identical' if same else 'DIFFERENT'}")
+    check(same, "the single-bucket engine and GanServer.generate differ")
+    # submit mixed with generate, against generate alone
+    mixed_sizes = sizes[:8]
+    alone = GanServer(cfg, g, batch_size=BATCH, seed=0, device=dev)
+    ref = torch.cat([alone.generate(n) for n in mixed_sizes])
+    mixed = GanServer(cfg, g, batch_size=BATCH, seed=0, device=dev)
+    parts = [mixed.generate(n) if i % 2 == 0
+             else mixed.submit(n).result(ENGINE_WAIT_S).to(dev)
+             for i, n in enumerate(mixed_sizes)]
+    mixed.close(timeout=ENGINE_WAIT_S)
+    same = torch.equal(torch.cat(parts), ref)
+    print(f"GanServer submit mixed with generate vs generate alone "
+          f"({mixed_sizes}): {'bit-identical' if same else 'DIFFERENT'}")
+    check(same, "GanServer.submit mixed with generate forked the stream")
+    out["launches"] = launches
+    return out
+
+
+def program_phase(dev, wrappers) -> dict:
+    """Program.build -> save -> ProgramSpec.load -> serve, for the DCGAN
+    and 3D-GAN generators: the same images as the direct path, and
+    ``ganax`` on every layer."""
+    from repro_torch.models.gan import GanConfig, init_gan
+    from repro_torch.program import Program, ProgramSpec
+    from repro_torch.serve.gan import GanServer
+    out = {}
+    for name, model in (("ganax_conv", "dcgan"), ("ganax_conv3d", "3dgan")):
+        cfg = GanConfig(model)
+        g, _ = init_gan(cfg, torch.Generator().manual_seed(0), device=dev)
+        with tempfile.TemporaryDirectory() as d:
+            path = Path(d) / f"{model}-generator.json"
+            Program.build(cfg, BATCH, device=dev,
+                          differentiable=False).save(path)
+            spec = ProgramSpec.load(path)
+        served = GanServer(cfg, g, batch_size=BATCH, seed=0, device=dev,
+                           program=Program(spec, device=dev,
+                                           differentiable=False))
+        direct = GanServer(cfg, g, batch_size=BATCH, seed=0, device=dev)
+        for k, _ in wrappers.values():
+            k.launches = 0
+        img = served.generate(BATCH)
+        torch.cuda.synchronize()
+        n = wrappers[name][0].launches
+        ref = direct.generate(BATCH)
+        text = served.describe()
+        every = [le.backend for le in spec.layers] == \
+            ["ganax"] * len(spec.layers) and text.count("-> ganax ") == \
+            len(spec.layers)
+        same = torch.equal(img, ref)
+        print(f"program {model}: build -> save -> load -> serve: "
+              f"{'identical' if same else 'DIFFERENT'} to the direct path, "
+              f"{n} {name} launches; layers on "
+              f"{[le.backend for le in spec.layers]}")
+        print(text)
+        check(same, f"{model}: the loaded program serves other images")
+        check(every, f"{model}: describe() does not name ganax on every "
+                     f"layer")
+        check(n == len(spec.layers), f"{model}: {n} launches for "
+                                     f"{len(spec.layers)} layers")
+        out[name] = n
+        del img, ref, served, direct
+    return out
+
+
+def trace_overlap(path: Path) -> dict:
+    """From a torch.profiler Chrome trace: the GANAX kernels' device
+    events, and how many device-to-host copies run while a GANAX kernel
+    runs on another stream."""
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "ganax" in e.get("name", "")]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "DtoH" in e.get("name", "")]
+
+    def under(c):
+        """µs of copy ``c`` during GANAX kernels of other streams."""
+        return sum(max(0.0, min(c["ts"] + c["dur"], k["ts"] + k["dur"])
+                       - max(c["ts"], k["ts"]))
+                   for k in kernels if k["tid"] != c["tid"])
+    shared = [under(c) for c in copies]
+    return {"ganax_kernel_events": len(kernels),
+            # one a launch; split-K adds its reduce kernel
+            "ganax_launch_events": sum(
+                "tc_kernel" in k["name"] or "narrow_kernel" in k["name"]
+                for k in kernels),
+            "dtoh_copies": len(copies),
+            "dtoh_copies_under_ganax_kernels": sum(u > 0 for u in shared),
+            "dtoh_us": sum(c["dur"] for c in copies),
+            "dtoh_us_under_ganax_kernels": sum(shared)}
+
+
+def obs_phase(dev, wrappers) -> dict:
+    """With ``obs.enable()``: one engine request and one served 3D-GAN
+    batch; their spans must be present and nest, and the registry's
+    counters agree with the server's and the engine's properties.  Then
+    ``obs.profile`` around one DCGAN batch must write a device trace
+    holding the GANAX kernels and an ``obs.profile`` span; a second
+    profile over four engine batches reads whether each batch's
+    device-to-host copy ran under the next batch's kernels."""
+    from repro_torch import obs
+    from repro_torch.models.gan import GanConfig, init_gan
+    from repro_torch.serve.gan import GanServer
+    from repro_torch.serve.gan_engine import GanEngine
+    cfg2, cfg3 = GanConfig("dcgan"), GanConfig("3dgan")
+    g2, _ = init_gan(cfg2, torch.Generator().manual_seed(0), device=dev)
+    g3, _ = init_gan(cfg3, torch.Generator().manual_seed(0), device=dev)
+    engine = GanEngine(cfg2, g2, buckets=(BATCH,), seed=0, device=dev)
+    server = GanServer(cfg3, g3, batch_size=BATCH, seed=0, device=dev)
+    sink = obs.enable()
+    try:
+        engine.generate(BATCH, ENGINE_WAIT_S)
+        # the scheduler emits engine.request after it answers: join it
+        engine.close(timeout=ENGINE_WAIT_S)
+        server.generate(BATCH)
+        torch.cuda.synchronize()
+    finally:
+        obs.disable()
+    spans = {n: sink.spans(n) for n in ("engine.request", "serve.generate",
+                                        "program.apply", "program.layer")}
+    print("obs spans: " + ", ".join(f"{n} x{len(v)}"
+                                    for n, v in spans.items()))
+    check(len(spans["engine.request"]) == 1
+          and len(spans["serve.generate"]) == 1
+          and len(spans["program.apply"]) == 2
+          and len(spans["program.layer"]) == 8,
+          f"obs: missing spans {[(n, len(v)) for n, v in spans.items()]}")
+
+    def inside(inner, outer, same_thread=True):
+        return (outer["ts_us"] <= inner["ts_us"] and inner["ts_us"]
+                + inner["dur_us"] <= outer["ts_us"] + outer["dur_us"]
+                and (not same_thread or (inner["tid"] == outer["tid"]
+                                         and inner["depth"]
+                                         == outer["depth"] + 1)))
+    (req,), (gen,) = spans["engine.request"], spans["serve.generate"]
+    applies = spans["program.apply"]
+    check(all(sum(inside(lay, a) for a in applies) == 1
+              for lay in spans["program.layer"]),
+          "obs: a program.layer span is not inside one program.apply")
+    check(sum(inside(a, gen) for a in applies) == 1
+          and sum(inside(a, req, same_thread=False) for a in applies) == 1,
+          "obs: program.apply does not nest in serve.generate and "
+          "engine.request")
+    snap = obs.snapshot()["counters"]
+    sid, eid = server.server_id, engine.engine_id
+    agree = (snap[f"serve.batches{{server={sid}}}"] == server.batches_served
+             and snap[f"serve.samples_served{{server={sid}}}"]
+             == server.samples_served
+             and obs.gauge("serve.samples_buffered", server=sid).value
+             == server.samples_buffered
+             and snap[f"engine.samples_served{{engine={eid}}}"]
+             == engine.samples_served
+             and snap[f"engine.batches{{engine={eid}}}"]
+             == engine.batches_served)
+    print(f"obs registry vs properties: server {server}, engine "
+          f"{engine}: {'agree' if agree else 'DISAGREE'}")
+    check(agree, "obs: the registry's counters disagree with the "
+                 "properties")
+    out = {"spans": {n: len(v) for n, v in spans.items()}}
+    # obs.profile around one DCGAN batch: a device trace with the kernels
+    sync_server = GanServer(cfg2, g2, batch_size=BATCH, seed=0, device=dev)
+    sync_server.generate(BATCH)
+    with tempfile.TemporaryDirectory() as d:
+        sink = obs.enable()
+        try:
+            with obs.profile(d):
+                sync_server.generate(BATCH)
+        finally:
+            obs.disable()
+        (prof,) = sink.spans("obs.profile")
+        trace = prof["attrs"]["device_trace"]
+        check(bool(trace) and Path(trace).exists(),
+              f"obs.profile wrote no device trace: {prof['attrs']}")
+        one = trace_overlap(Path(trace))
+        print(f"obs.profile of one DCGAN batch: {one}")
+        check(one["ganax_launch_events"] == 4,
+              f"obs.profile's trace holds {one['ganax_launch_events']} "
+              f"GANAX kernel launches for one batch, not 4")
+        out["profile_one_batch"] = one
+        # four engine batches of 64 after four others: copy k under the
+        # kernels of k + 1?  (DCGAN is host-bound, 3D-GAN device-bound)
+        for cfg, g in ((cfg2, g2), (cfg3, g3)):
+            engine = GanEngine(cfg, g, buckets=(BATCH,), seed=0, device=dev)
+            for f in [engine.submit(BATCH) for _ in range(4)]:
+                f.result(ENGINE_WAIT_S)     # the steady state, not the start
+            sink = obs.enable()
+            try:
+                with obs.profile(d):
+                    futures = [engine.submit(BATCH) for _ in range(4)]
+                    for f in futures:
+                        f.result(ENGINE_WAIT_S)
+            finally:
+                obs.disable()
+            engine.close(timeout=ENGINE_WAIT_S)
+            (prof,) = sink.spans("obs.profile")
+            four = trace_overlap(Path(prof["attrs"]["device_trace"]))
+            print(f"obs.profile of 4 {cfg.name} engine batches "
+                  f"(pipeline_depth 1): {four}")
+            out[f"profile_engine_{cfg.name}"] = four
+    return out
+
+
 def _widen(tree: dict) -> None:
     """Every leaf to f32, in place, one leaf at a time."""
     for k, v in tree.items():
@@ -1560,6 +2019,16 @@ def main(argv=None) -> int:
     servers.clear()
     torch.cuda.empty_cache()
     phase_done("GAN times")
+    # -- 4b. the serving stack: GanEngine, programs, obs --------------------
+    engine = record["gan_engine"] = gan_engine_phase(card, dev, wrappers)
+    launches["ganax_conv"] += engine["launches"]
+    phase_done("gan_engine")
+    for name, n in program_phase(dev, wrappers).items():
+        launches[name] += n
+    phase_done("program")
+    record["obs"] = obs_phase(dev, wrappers)
+    torch.cuda.empty_cache()
+    phase_done("obs")
 
     # -- 5. training: every launch geometry of the step, kernel vs plain --
     record["train_geometries"] = train_geometries(card, dev, gan_wrappers,

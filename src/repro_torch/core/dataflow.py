@@ -15,7 +15,12 @@ The port of ``repro.core.dataflow``.  It owns:
    (the same dataflow through the plain version on any device),
    ``"polyphase"`` and ``"zero-insert"`` are oracles that run only when
    pinned by name.
-4. **The gradient** — on the kernel backends, a
+4. **Resolution as data** — :class:`DataflowPolicy` and
+   :func:`resolve_execution` turn a policy and a layer geometry into a
+   :class:`Resolution` (backend, the reference's tile shapes,
+   provenance, mesh layout): what :class:`repro_torch.program.ProgramSpec`
+   freezes ahead of time.
+5. **The gradient** — on the kernel backends, a
    ``torch.autograd.Function`` (the port of the reference's custom
    VJPs): ``dx`` re-enters the same kernel by adjoint duality (a
    tconv's ``dx`` is a conv with swapped weights, a conv's ``dx`` an
@@ -26,6 +31,30 @@ The port of ``repro.core.dataflow``.  It owns:
 
 Geometry semantics are PyTorch ``ConvTranspose`` / correlation-conv
 throughout (channels-last ``x``, ``(K..., Cin, Cout)`` weights).
+
+**Backend names.**  The reference's policies and program files name
+JAX backends; the port maps them once, here (:func:`port_backend`,
+:meth:`DataflowPolicy.resolve`):
+
+==========================================  ===============================
+reference                                   port
+==========================================  ===============================
+``None`` (heuristic: ``pallas-tpu`` on a    ``ganax`` for 2-D/3-D, else
+TPU for 2-D/3-D, else ``polyphase``)        ``polyphase``; source heuristic
+``"pallas"``                                ``ganax`` (rank fallback
+                                            ``polyphase``)
+``"pallas-tpu"`` / ``interpret=False``      ``ganax``
+``"pallas-interpret"`` / ``interpret=True`` ``ganax-plain``
+``"polyphase"``, ``"zero-insert"``          the same name
+``"auto"``                                  raises ``NotImplementedError``
+                                            (the tuner, ROADMAP item 11)
+==========================================  ===============================
+
+The heuristic follows the reference *on its accelerator*: the kernel
+for the ranks it implements.  The reference's Pallas ``blocks`` ride
+through resolutions and program files and are checked by its
+divisibility rule (:func:`blocks_valid`), but the CUDA routes pick their
+own tiles and read none of them until the tuner is ported.
 """
 
 from __future__ import annotations
@@ -37,8 +66,8 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
+from repro_torch import obs as _obs
 from repro_torch.core.scheduler import PhaseSchedule, make_schedule
 from repro_torch.core.tconv import tconv_ganax, tconv_zero_insert
 from repro_torch.device import require_ieee_f32
@@ -56,6 +85,18 @@ __all__ = [
     "SecondOrderNotImplemented",
     "tconv",
     "conv",
+    "uop_cache_info",
+    "uop_cache_clear",
+    "available_backends",
+    "port_backend",
+    "DataflowPolicy",
+    "Resolution",
+    "SHARDINGS",
+    "COUT_SHARD_MIN_BYTES",
+    "choose_layer_sharding",
+    "resolve_blocks",
+    "blocks_valid",
+    "resolve_execution",
 ]
 
 
@@ -98,6 +139,16 @@ class Epilogue:
     @property
     def is_identity(self) -> bool:
         return not self.bias and self.activation == "none"
+
+    def describe(self) -> str:
+        parts = []
+        if self.activation != "none":
+            parts.append(self.activation
+                         if self.activation != "leaky_relu"
+                         else f"leaky_relu({self.leaky_slope:g})")
+        if self.bias:
+            parts.append("bias")
+        return "+".join(parts) or "none"
 
     def apply(self, y: torch.Tensor, bias: torch.Tensor | None = None
               ) -> torch.Tensor:
@@ -274,6 +325,23 @@ def compile_conv_uops(in_spatial: tuple[int, ...],
                     pad=pad, **offs)
 
 
+def uop_cache_info() -> dict[str, int]:
+    """Aggregate hit/miss counters over both μop caches."""
+    a, b = compile_uops.cache_info(), compile_conv_uops.cache_info()
+    return {"hits": a.hits + b.hits, "misses": a.misses + b.misses,
+            "currsize": a.currsize + b.currsize}
+
+
+def uop_cache_clear() -> None:
+    compile_uops.cache_clear()
+    compile_conv_uops.cache_clear()
+
+
+# Observers (the train loop's end-of-run stats, ``obs.collect``) read
+# the μop-cache efficiency through the obs registry.
+_obs.register_collector("dataflow.uop_cache", uop_cache_info)
+
+
 # ---------------------------------------------------------------------------
 # Backend registry and dispatch.
 # ---------------------------------------------------------------------------
@@ -341,6 +409,213 @@ BACKENDS: dict[str, Backend] = {b.name: b for b in (
     Backend("zero-insert", _oracle(tconv_zero_insert),
             _oracle(_conv_dense)),
 )}
+
+
+def available_backends() -> tuple[str, ...]:
+    return tuple(sorted(BACKENDS))
+
+
+# ---------------------------------------------------------------------------
+# Resolution: policy + geometry -> frozen execution record.
+# ---------------------------------------------------------------------------
+
+# The reference's kernel backends under the port's names (module
+# docstring); every other registered name is the same in both.
+REFERENCE_BACKENDS = {"pallas-tpu": "ganax", "pallas-interpret": "ganax-plain"}
+
+AUTO_NOT_PORTED = (
+    "backend='auto' consults the reference's autotuning planner, which "
+    "the PyTorch port does not have yet (ROADMAP item 11, the tuner); "
+    "pin a backend ('ganax', 'ganax-plain', 'polyphase', 'zero-insert') "
+    "or leave it None for the heuristic")
+
+
+def port_backend(name: str) -> str:
+    """A concrete backend name of the reference (or the port) as the
+    port's registered name; raises ``ValueError`` for unknown names."""
+    mapped = REFERENCE_BACKENDS.get(name, name)
+    if mapped not in BACKENDS:
+        raise ValueError(f"unknown dataflow backend {name!r}; available: "
+                         f"{available_backends()} (or the reference's "
+                         f"{tuple(sorted(REFERENCE_BACKENDS))})")
+    return mapped
+
+
+@dataclasses.dataclass(frozen=True)
+class DataflowPolicy:
+    """How to pick an execution path for one layer: the reference's
+    policy, with its backend names mapped to the port's (module
+    docstring).
+
+    ``backend``: ``None`` (the heuristic: the GANAX kernel for 2-D/3-D
+    layers, ``polyphase`` otherwise), ``"pallas"`` (the kernel with a
+    ``polyphase`` fallback for other ranks), a concrete name of either
+    package (strict: a kernel backend on another rank raises), or
+    ``"auto"`` (raises: ROADMAP item 11).  ``interpret`` asks for the
+    kernel's plain version (``True``, the ``ganax-plain`` oracle) or the
+    CUDA kernel (``False``); with ``None`` / ``"pallas"`` it picks the
+    variant, with a pinned name it must agree.  The reference's
+    ``differentiable`` field has no counterpart: every port backend is
+    differentiable, and :class:`repro_torch.program.Program` takes the
+    flag."""
+
+    backend: str | None = None
+    interpret: bool | None = None
+
+    def __post_init__(self):
+        if self.backend not in (None, "pallas", "auto"):
+            port_backend(self.backend)
+
+    def resolve(self, nd: int) -> str:
+        """The concrete port backend for an ``nd``-spatial op."""
+        if self.backend == "auto":
+            raise NotImplementedError(AUTO_NOT_PORTED)
+        name = self.backend
+        if name is None or name == "pallas":
+            # the heuristic and the kernel preference agree in the port:
+            # the kernel for its ranks (the variant interpret asks for)
+            name = "polyphase" if nd not in KERNEL_RANKS \
+                else "ganax-plain" if self.interpret else "ganax"
+        else:
+            name = port_backend(name)
+            if self.interpret is not None:
+                expected = "ganax-plain" if self.interpret else "ganax"
+                if name != expected:
+                    raise ValueError(f"interpret={self.interpret} "
+                                     f"contradicts backend={self.backend!r}")
+        if BACKENDS[name].kernel:
+            require_kernel_rank(nd, f"a layer pinned to {name!r}")
+        return name
+
+
+@dataclasses.dataclass(frozen=True)
+class Resolution:
+    """One layer's fully resolved execution: the concrete port backend,
+    the reference's Pallas tile shapes (``None`` here: they come only
+    from the tuner), the provenance (``"pinned"`` / ``"tuned"`` /
+    ``"heuristic"``) and the layer's layout on a device mesh (one of
+    :data:`SHARDINGS`).  The data form of dispatch — what
+    :class:`repro_torch.program.ProgramSpec` freezes ahead of time."""
+
+    backend: str
+    blocks: tuple[int, ...] | None = None
+    source: str = "heuristic"
+    measured_us: float | None = None
+    sharding: str = "data"
+
+
+# Per-layer mesh layouts a resolution can freeze (see Resolution):
+# "data" = batch split, weights replicated; "cout" = weights and bias
+# also sharded on Cout over the "model" axis.
+SHARDINGS = ("data", "cout")
+
+# The footprint heuristic's default threshold: a layer whose weight
+# tensor is at least this many bytes goes Cout-model-parallel on a
+# mesh with model > 1.
+COUT_SHARD_MIN_BYTES = 16 * 1024 * 1024
+
+
+def choose_layer_sharding(kernel: Sequence[int], cin: int, cout: int,
+                          mesh_model: int, *,
+                          min_bytes: int | None = None,
+                          itemsize: int = 4) -> str:
+    """The footprint heuristic picking one of :data:`SHARDINGS`:
+    ``"cout"`` only when the model axis is real (> 1), Cout divides it
+    and the weights' ``prod(kernel)·cin·cout·itemsize`` bytes reach
+    ``min_bytes`` (default :data:`COUT_SHARD_MIN_BYTES`); else
+    ``"data"``.  The port executes every program on one device until
+    ROADMAP item 12; the layout is frozen as data all the same."""
+    if mesh_model <= 1 or cout % mesh_model != 0:
+        return "data"
+    threshold = COUT_SHARD_MIN_BYTES if min_bytes is None \
+        else int(min_bytes)
+    weight_bytes = int(np.prod(tuple(kernel))) * int(cin) * int(cout) \
+        * int(itemsize)
+    return "cout" if weight_bytes >= threshold else "data"
+
+
+def resolve_blocks(blocks, q_lead, cin: int, cout: int
+                   ) -> tuple[int, ...]:
+    """Validate the reference's Pallas tile shapes — the
+    (block_qy, block_cin, block_cout) triple for 2-D layers or the
+    (block_qz, block_qy, block_cin, block_cout) quadruple for 3-D — by
+    its rule: each must divide its extent.  ``q_lead`` is ``qy`` (2-D)
+    or ``(qz, qy)`` (3-D).  Program files carry such blocks; the CUDA
+    routes pick their own tiles (``kernel_route``) and read none of
+    them until the tuner (ROADMAP item 11) is ported."""
+    lead = (int(q_lead),) if isinstance(q_lead, int) \
+        else tuple(int(v) for v in q_lead)
+    names = ("block_qz", "block_qy")[-len(lead):] + \
+        ("block_cin", "block_cout")
+    arity = "triple" if len(names) == 3 else "quadruple"
+    try:
+        vals = tuple(int(v) for v in blocks)
+        if len(vals) != len(names):
+            raise ValueError
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"blocks must be a ({', '.join(names)}) {arity}, "
+            f"got {blocks!r}") from None
+    planes = {"block_qz": "depth qz", "block_qy": "height qy"}
+    for name, v, extent in zip(names, vals, lead + (cin, cout)):
+        if v <= 0 or extent % v != 0:
+            what = (f"the phase-plane {planes[name]}={extent}"
+                    if name in planes
+                    else f"{name.split('_')[1]}={extent}")
+            raise ValueError(f"{name}={v} must divide {what}")
+    return vals
+
+
+def blocks_valid(kind: str, in_spatial: Sequence[int],
+                 kernel: Sequence[int], strides: Sequence[int],
+                 paddings: Sequence[int], cin: int, cout: int,
+                 blocks: Sequence[int]) -> bool:
+    """True when the reference's tile shapes ``blocks`` divide this
+    geometry's extents, by the reference's rule — a stale program entry
+    must degrade, never raise.  ``kind`` is ``"tconv"`` or ``"conv"``."""
+    in_spatial, kernel = tuple(in_spatial), tuple(kernel)
+    strides, paddings = tuple(strides), tuple(paddings)
+    if len(in_spatial) not in KERNEL_RANKS:
+        return False
+    if kind == "conv":
+        q_lead = compile_conv_uops(in_spatial, kernel, strides,
+                                   paddings).out_sizes[:-1]
+    else:
+        q_lead = compile_uops(in_spatial, kernel, strides,
+                              paddings).q_sizes[:-1]
+    try:
+        resolve_blocks(tuple(blocks), q_lead, int(cin), int(cout))
+    except ValueError:
+        return False
+    return True
+
+
+def resolve_execution(policy: DataflowPolicy, kind: str,
+                      in_spatial: Sequence[int], kernel: Sequence[int],
+                      strides: Sequence[int], paddings: Sequence[int],
+                      cin: int, cout: int, *, dtype="float32",
+                      mesh_model: int = 1) -> Resolution:
+    """Resolve one layer's execution path **as data**: the concrete
+    backend (``policy.resolve``) with its provenance (``"heuristic"``
+    for the default policy, ``"pinned"`` otherwise) and, for
+    ``mesh_model > 1``, the layer's mesh layout
+    (:func:`choose_layer_sharding`).  Counts ``dataflow.resolve`` and
+    ``dataflow.resolve.<source>``.  The reference's planner arguments
+    (``planner``, ``measure``, ``batch``, ``epilogue``) have no
+    counterpart until the tuner is ported (ROADMAP item 11), nor its
+    ``cout_shard_min_bytes`` until the mesh is (item 12)."""
+    with _obs.trace("dataflow.resolve", kind=kind) as sp:
+        source = "heuristic" if policy.backend is None \
+            and policy.interpret is None else "pinned"
+        sharding = choose_layer_sharding(
+            kernel, cin, cout, mesh_model,
+            itemsize=np.dtype(str(dtype)).itemsize)
+        res = Resolution(policy.resolve(len(in_spatial)), None, source,
+                         sharding=sharding)
+        sp.set(backend=res.backend, source=res.source)
+    _obs.counter("dataflow.resolve").inc()
+    _obs.counter(f"dataflow.resolve.{res.source}").inc()
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -492,7 +767,7 @@ class _KernelOp(torch.autograd.Function):
     def forward(ctx, x, w, bias, backend, transposed, strides, paddings,
                 epilogue):
         fn = backend.tconv if transposed else backend.conv
-        with record_function("ganax.forward"):
+        with _obs.annotate("ganax.forward"):
             y = fn(x, w, strides, paddings, epilogue, bias)
         ctx.save_for_backward(x, w, bias, y)
         ctx.op = (backend, transposed, strides, paddings, epilogue)
@@ -507,7 +782,7 @@ class _KernelOp(torch.autograd.Function):
         g_pre = _epilogue_cotangent(epilogue, y, g)
         dx = dw = db = None
         if need_x:
-            with record_function("ganax.dx"):
+            with _obs.annotate("ganax.dx"):
                 # tconv(·, w) is the adjoint of conv(·, swap(w))
                 dx = (backend.conv(g_pre, _swap_io(w), strides, paddings,
                                    _IDENTITY_EPILOGUE, None)
@@ -515,7 +790,7 @@ class _KernelOp(torch.autograd.Function):
                       _conv_dx(backend, strides, paddings, x, w, g_pre))
             dx = dx.to(x.dtype)
         if need_w:
-            with record_function("ganax.dw"):
+            with _obs.annotate("ganax.dw"):
                 wgrad = _tconv_wgrad if transposed else _conv_wgrad
                 dw = wgrad(x, g_pre, tuple(w.shape[:-2]), strides,
                            paddings).to(w.dtype)

@@ -2,18 +2,26 @@
 
 The port of ``repro.models.gan``: the config, the parameter specs of
 both networks, their fused epilogues, the initializer, the two networks
-and the losses.  :class:`Generator` replays the generator branch of the
-reference's ``Program._replay``: the z-projection (an f32 matmul, +
-bias, ReLU), then one ``tconv`` / ``conv`` per layer with its bias and
-activation fused into the kernel's flush.  :class:`Discriminator`
-replays the discriminator branch: one ``conv`` (or ``tconv``) per layer
-with bias + LeakyReLU fused, then the mean of the logits in f32.  Both
-hold trainable parameters; the kernel backends differentiate through
-``core.dataflow``'s autograd Function.
+and the losses.  Both networks replay the frozen
+:class:`~repro_torch.program.LayerExec` records of a
+:class:`~repro_torch.program.ProgramSpec` (built from the config's
+policy when none is given): this is the port's one layer replay, the
+counterpart of the reference's ``Program._replay``, and
+:class:`repro_torch.program.Program` runs through it.
+:class:`Generator` replays the generator branch: the z-projection (an
+f32 matmul, + bias, ReLU), then one ``tconv`` / ``conv`` per record on
+the record's backend, with its bias and activation fused into the
+kernel's flush.  :class:`Discriminator` replays the discriminator
+branch: one ``conv`` (or ``tconv``) per record with bias + LeakyReLU
+fused, then the mean of the logits in f32.  Both hold trainable
+parameters; the kernel backends differentiate through
+``core.dataflow``'s autograd Function.  With obs tracing on, each
+layer gets a ``program.layer`` span.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Sequence
@@ -21,17 +29,17 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from repro_torch import obs as _obs
 from repro_torch.configs.gans import GAN_MODELS
 from repro_torch.core.analytical import ConvLayer
-from repro_torch.core.dataflow import (BACKENDS, Epilogue, conv,
-                                       require_kernel_rank, tconv)
+from repro_torch.core.dataflow import DataflowPolicy, Epilogue, conv, tconv
 from repro_torch.device import require_ieee_f32, resolve_device
 from repro_torch.models.common import PSpec, init_params
 
 __all__ = ["GanConfig", "generator_specs", "discriminator_specs",
            "generator_epilogues", "discriminator_epilogues", "init_gan",
            "check_params", "Generator", "Discriminator", "bce_with_logits",
-           "gan_losses", "LEAKY_SLOPE"]
+           "gan_losses", "LEAKY_SLOPE", "canonical_dtype"]
 
 # The discriminator's LeakyReLU slope (DCGAN convention, used by every
 # Table-I discriminator).
@@ -39,32 +47,48 @@ LEAKY_SLOPE = 0.2
 
 _F32_NAMES = ("float32", "f32", "fp32")
 
+# the replay's span when tracing is off (reusable)
+_NO_SPAN = contextlib.nullcontext()
+
+
+def canonical_dtype(dtype) -> str:
+    """The storage precision's canonical name: ``"float32"`` (aliases
+    ``f32``/``fp32``); any other raises, since bf16/f16 storage is
+    ROADMAP item 9."""
+    if str(dtype) not in _F32_NAMES:
+        raise NotImplementedError(
+            f"the PyTorch port serves dtype='float32' only, got "
+            f"{dtype!r}; bf16/f16 storage is the quantization item of "
+            f"ROADMAP.md (item 9)")
+    return "float32"
+
 
 @dataclasses.dataclass(frozen=True)
 class GanConfig:
     """One Table-I model.  ``channel_scale`` shrinks the channels for
-    CPU-sized runs; ``backend`` pins a dataflow backend (``None``: the
-    kernel); ``dtype`` is the storage precision, float32 only here."""
+    CPU-sized runs; ``backend`` is the dataflow policy's backend (a port
+    or reference name, ``"pallas"``, or ``None``: the heuristic, the
+    kernel); ``mesh`` the ``(data, model)`` layout programs built from
+    the config freeze (run on one device until ROADMAP item 12);
+    ``dtype`` is the storage precision, float32 only here."""
 
     name: str
     z_dim: int = 100
     channel_scale: float = 1.0
     backend: str | None = None
+    mesh: tuple[int, int] | None = None
     dtype: str = "float32"
 
     def __post_init__(self):
         if self.name not in GAN_MODELS:
             raise ValueError(f"unknown GAN {self.name!r}; one of "
                              f"{tuple(sorted(GAN_MODELS))}")
-        if self.backend is not None and self.backend not in BACKENDS:
-            raise ValueError(f"unknown dataflow backend {self.backend!r}; "
-                             f"available: {tuple(sorted(BACKENDS))}")
-        if str(self.dtype) not in _F32_NAMES:
-            raise NotImplementedError(
-                f"the PyTorch port serves dtype='float32' only, got "
-                f"{self.dtype!r}; bf16/f16 storage is the quantization "
-                f"item of ROADMAP.md")
-        object.__setattr__(self, "dtype", "float32")
+        DataflowPolicy(backend=self.backend)   # validates the name
+        object.__setattr__(self, "dtype", canonical_dtype(self.dtype))
+
+    @property
+    def policy(self) -> DataflowPolicy:
+        return DataflowPolicy(backend=self.backend)
 
     @property
     def layers(self) -> tuple[list[ConvLayer], list[ConvLayer]]:
@@ -156,25 +180,26 @@ def check_params(params: dict, specs: dict[str, PSpec]) -> None:
 
 
 class _Network(nn.Module):
-    """The layer walk both networks share: parameters named as ``specs``
-    says, held as trainable ``nn.Parameter``s on ``device`` (a float32
-    tensor already there shares its storage), and one dataflow op per
-    layer with its fused epilogue."""
+    """The layer replay both networks share: parameters named as
+    ``specs`` says, held as trainable ``nn.Parameter``s on ``device`` (a
+    float32 tensor already there shares its storage), and one dataflow
+    op per frozen :class:`~repro_torch.program.LayerExec` record of
+    ``spec`` (built from ``cfg.policy`` when None)."""
 
     def __init__(self, cfg: GanConfig, params: dict[str, torch.Tensor],
-                 device, specs: dict[str, PSpec], layers, epilogues,
-                 prefix: str):
+                 device, specs: dict[str, PSpec], role: str, spec=None):
+        from repro_torch.program.spec import ProgramSpec
         super().__init__()
         dev = resolve_device(device)
-        if BACKENDS[cfg.backend or "ganax"].kernel:
-            for l in layers:
-                require_kernel_rank(len(l.kernel),
-                                    f"{cfg.name} layer {l.name}")
+        if spec is None:
+            spec = ProgramSpec.build(cfg, 1, role)
+        elif spec.role != role:
+            raise ValueError(f"a {role} replays a {role} program, got "
+                             f"role={spec.role!r}")
         check_params(params, specs)
         self.cfg = cfg
-        self.layers = tuple(layers)
-        self.epilogues = tuple(epilogues)
-        self.prefix = prefix
+        self.spec = spec
+        self.records = spec.layers
         self.weights = nn.ParameterDict({
             name: nn.Parameter(
                 torch.as_tensor(t, dtype=torch.float32).to(dev))
@@ -188,11 +213,19 @@ class _Network(nn.Module):
 
     def _layers(self, x: torch.Tensor) -> torch.Tensor:
         p = self.weights
-        for i, (l, ep) in enumerate(zip(self.layers, self.epilogues)):
-            op = tconv if l.transposed else conv
-            x = op(x, p[f"{self.prefix}{i}_w"], l.strides, l.paddings,
-                   backend=self.cfg.backend, bias=p[f"{self.prefix}{i}_b"],
-                   epilogue=ep)
+        tracing = _obs.is_enabled()
+        for le in self.records:
+            op = tconv if le.kind == "tconv" else conv
+            span = _obs.trace("program.layer", layer=le.name,
+                              kind=le.kind, backend=le.backend,
+                              source=le.source,
+                              measured_us=le.measured_us) \
+                if tracing else _NO_SPAN
+            with span:
+                x = op(x, p[le.w_param], le.strides, le.paddings,
+                       backend=le.backend,
+                       bias=p[le.b_param] if le.bias else None,
+                       epilogue=le.epilogue)
         return x
 
 
@@ -203,17 +236,17 @@ class Generator(_Network):
 
     ``params`` are named as :func:`generator_specs` says and are moved
     to ``device`` (default: the card) as trainable parameters; a server
-    freezes them (``requires_grad_(False)``)."""
+    freezes them (``requires_grad_(False)``).  ``spec``: the generator
+    program to replay (default: built from ``cfg.policy``)."""
 
     def __init__(self, cfg: GanConfig, params: dict[str, torch.Tensor],
-                 device: str | torch.device = "cuda"):
-        g_layers, _ = cfg.layers
+                 device: str | torch.device = "cuda", spec=None):
         super().__init__(cfg, params, device, generator_specs(cfg),
-                         g_layers, generator_epilogues(g_layers), "t")
+                         "generator", spec)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         p = self.weights
-        first = self.layers[0]
+        first = self.records[0]
         require_ieee_f32(z)
         x = torch.matmul(z.to(torch.float32), p["proj_w"]) + p["proj_b"]
         x = torch.relu(x.reshape((x.shape[0],) + tuple(first.in_spatial)
@@ -227,13 +260,14 @@ class Discriminator(_Network):
     last-layer map, reduced in f32.
 
     ``params`` are named as :func:`discriminator_specs` says and are
-    moved to ``device`` (default: the card) as trainable parameters."""
+    moved to ``device`` (default: the card) as trainable parameters.
+    ``spec``: the discriminator program to replay (default: built from
+    ``cfg.policy``)."""
 
     def __init__(self, cfg: GanConfig, params: dict[str, torch.Tensor],
-                 device: str | torch.device = "cuda"):
-        _, d_layers = cfg.layers
+                 device: str | torch.device = "cuda", spec=None):
         super().__init__(cfg, params, device, discriminator_specs(cfg),
-                         d_layers, discriminator_epilogues(d_layers), "c")
+                         "discriminator", spec)
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         x = self._layers(img.to(torch.float32))

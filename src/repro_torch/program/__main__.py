@@ -1,0 +1,152 @@
+"""``python -m repro_torch.program`` — build, describe, export and load
+ahead-of-time resolved GAN programs.
+
+Typical use::
+
+    PYTHONPATH=src python -m repro_torch.program dcgan
+    PYTHONPATH=src python -m repro_torch.program dcgan --role generator \
+        --export dcgan-program.json
+    PYTHONPATH=src python -m repro_torch.program dcgan \
+        --load dcgan-program.json --stats
+
+The first form is the smoke: resolving the whole spec touches no
+tensors and launches nothing.  ``--load`` reads a file written by this
+CLI or by the reference's ``python -m repro.program`` (its backends
+mapped to the port's), falling back to fresh resolution when the file
+is corrupt or stale.  ``--stats`` prints the resolution-counter deltas
+of the invocation from the ``repro_torch.obs`` registry.  ``--backend
+auto``, ``--measure``, ``--plans`` and ``--quantize`` belong to the
+reference's tuner and quantization (ROADMAP items 11 and 9) and raise
+``NotImplementedError`` here.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from repro_torch.configs.gans import GAN_MODELS
+from repro_torch.core.dataflow import (AUTO_NOT_PORTED, DataflowPolicy,
+                                       available_backends)
+
+QUANTIZE_NOT_PORTED = (
+    "--quantize embeds int8 weights: the quantization item of "
+    "ROADMAP.md (item 9), not ported yet")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.program",
+        description="Build, describe, export/load, and (--stats) "
+                    "account the resolution of an ahead-of-time "
+                    "resolved GAN program of the PyTorch port.")
+    ap.add_argument("model", choices=sorted(GAN_MODELS))
+    ap.add_argument("--role", default="both",
+                    choices=("generator", "discriminator", "both"))
+    ap.add_argument("--batch", type=int, default=8,
+                    help="planning batch (provenance; apply() accepts "
+                         "any batch)")
+    ap.add_argument("--channel-scale", type=float, default=1.0)
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help="freeze a (data, model) device mesh into the "
+                         "spec, e.g. 4x2 (kept as data; programs run on "
+                         "one device until ROADMAP item 12)")
+    ap.add_argument("--dtype", default=None,
+                    help="storage precision: float32 only (bf16/f16 "
+                         "are ROADMAP item 9)")
+    ap.add_argument("--backend", default=None,
+                    help="policy backend (a port or reference name, or "
+                         f"'pallas'; registered: "
+                         f"{', '.join(available_backends())}; default: "
+                         "heuristic)")
+    ap.add_argument("--plans", default=None, metavar="PATH",
+                    help="the reference's tuner plan file (ROADMAP "
+                         "item 11: raises)")
+    ap.add_argument("--measure", action="store_true",
+                    help="tune plan misses while building (ROADMAP "
+                         "item 11: raises)")
+    ap.add_argument("--quantize", default=None, choices=("int8",),
+                    help="embed int8 weights (ROADMAP item 9: raises)")
+    ap.add_argument("--export", default=None, metavar="PATH",
+                    help="write the (first-role) spec JSON here")
+    ap.add_argument("--load", default=None, metavar="PATH",
+                    help="load a program file instead of resolving "
+                         "(falls back to fresh resolution when "
+                         "corrupt/stale)")
+    ap.add_argument("--stats", action="store_true",
+                    help="after describing, print the resolution "
+                         "metrics this invocation produced")
+    args = ap.parse_args(argv)
+
+    if args.measure or args.plans or args.backend == "auto":
+        raise NotImplementedError(AUTO_NOT_PORTED)
+    if args.quantize:
+        raise NotImplementedError(QUANTIZE_NOT_PORTED)
+
+    from repro_torch import obs
+    from repro_torch.models.gan import GanConfig
+    from repro_torch.program import ProgramSpec, load_or_build
+
+    counters0 = dict(obs.snapshot()["counters"]) if args.stats else {}
+    mesh = None
+    if args.mesh:
+        try:
+            data, model = args.mesh.lower().split("x")
+            mesh = (int(data), int(model))
+        except ValueError:
+            ap.error(f"--mesh wants DATAxMODEL (e.g. 4x2), "
+                     f"got {args.mesh!r}")
+    try:
+        cfg = GanConfig(name=args.model, channel_scale=args.channel_scale,
+                        backend=args.backend, mesh=mesh,
+                        dtype=args.dtype or "float32")
+    except ValueError as e:
+        ap.error(str(e))
+    policy = DataflowPolicy(backend=args.backend) if args.backend \
+        else None
+    roles = (args.role,) if args.role != "both" \
+        else ("generator", "discriminator")
+    if args.load and args.role == "both":
+        # a program file freezes one network; describe that one (a
+        # corrupt file keeps the generator default and falls back)
+        try:
+            roles = (ProgramSpec.load(args.load).role,)
+        except Exception:
+            roles = ("generator",)
+
+    exported = False
+    for role in roles:
+        if args.load:
+            # the smoke touches no tensors: bind the program to the CPU
+            prog, loaded = load_or_build(args.load, cfg, args.batch, role,
+                                         policy=policy, device="cpu")
+            if not loaded:
+                print(f"note: {args.load} unusable for "
+                      f"{args.model}/{role}; rebuilt from config")
+            spec = prog.spec
+        else:
+            spec = ProgramSpec.build(cfg, args.batch, role, policy=policy)
+        print(spec.describe())
+        if args.export and not exported:
+            spec.save(args.export)
+            print(f"wrote {args.export}")
+            exported = True
+        if role != roles[-1]:
+            print()
+    if args.stats:
+        counters = obs.snapshot()["counters"]
+        deltas = {k: v - counters0.get(k, 0)
+                  for k, v in sorted(counters.items())
+                  if v - counters0.get(k, 0)
+                  and (k.startswith("dataflow.resolve")
+                       or k.startswith("program."))}
+        print("\nresolution stats:")
+        for name, v in deltas.items():
+            print(f"  {name:36s} {v}")
+        if not deltas:
+            print("  (none)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,225 @@
+"""The executable form of a :class:`~repro_torch.program.ProgramSpec`.
+
+The port of ``repro.program.runtime``.  A :class:`Program` binds a
+frozen spec to a device: ``program.apply(params, x)`` runs the network
+of :mod:`repro_torch.models.gan` that replays the spec's records
+(:class:`~repro_torch.models.gan.Generator` or
+:class:`~repro_torch.models.gan.Discriminator`, built once per bound
+parameter set) — no per-call config → policy → backend threading on
+the hot path, and no second loop over the layers.
+
+The reference's ``traces`` count, its ``program.traces`` /
+``program.retraces`` counters and the ``traced`` attribute of its
+``program.apply`` span have no counterpart: PyTorch runs eagerly, so
+nothing is compiled per input shape.
+"""
+
+from __future__ import annotations
+
+import logging
+import warnings
+
+import torch
+from torch import nn
+
+from repro_torch import obs as _obs
+from repro_torch.core.dataflow import DataflowPolicy
+from repro_torch.device import resolve_device
+from repro_torch.models.gan import Discriminator, GanConfig, Generator
+from repro_torch.program.spec import _UNSET as _SPEC_UNSET
+from repro_torch.program.spec import ProgramSpec
+
+__all__ = ["Program", "build_bucket_programs", "load_or_build"]
+
+log = logging.getLogger(__name__)
+
+QUANTIZED_NOT_PORTED = (
+    "this program file embeds int8 weights (quantized_params); serving "
+    "them is the quantization item of ROADMAP.md (item 9), which the "
+    "PyTorch port does not have yet: pass float32 parameters instead")
+
+
+class Program:
+    """One GAN network as an ahead-of-time resolved executable on
+    ``device`` (default: the card).
+
+    ``apply(params, x)`` is serving's entry point: with
+    ``differentiable=False`` it runs under ``torch.inference_mode()``,
+    and with obs tracing on it records a ``program.apply`` span (the
+    layers' ``program.layer`` spans nest inside).  ``forward(params,
+    x)`` is the same computation without the span, to embed in a
+    caller's autograd graph (a train step).  ``params`` is the
+    reference's dict of tensors by name; the network bound to it shares
+    the storage of tensors already on ``device`` (others are copied once
+    per binding) and is rebuilt only when a different dict of tensors
+    is passed.
+
+    A spec whose ``mesh`` needs more than one device degrades to one
+    device with a warning and the ``program.mesh_degraded`` counter, as
+    the reference does on a host with too few devices: the port has no
+    mesh until ROADMAP item 12.
+    """
+
+    def __init__(self, spec: ProgramSpec, *,
+                 device: str | torch.device = "cuda",
+                 differentiable: bool = True):
+        self.spec = spec
+        self.device = resolve_device(device)
+        self.differentiable = bool(differentiable)
+        if spec.mesh is not None and spec.mesh[0] * spec.mesh[1] > 1:
+            warnings.warn(
+                f"program {spec.model}/{spec.role} wants a "
+                f"{spec.mesh[0]}x{spec.mesh[1]} mesh "
+                f"({spec.mesh[0] * spec.mesh[1]} devices) but the PyTorch "
+                f"port runs programs on one device until ROADMAP item 12; "
+                f"degrading to single-device execution", RuntimeWarning,
+                stacklevel=2)
+            _obs.counter("program.mesh_degraded").inc()
+        self._bound: tuple[dict, nn.Module] | None = None
+
+    @classmethod
+    def build(cls, cfg: GanConfig, batch: int, role: str = "generator", *,
+              policy: DataflowPolicy | None = None,
+              dtype: str | None = None,
+              device: str | torch.device = "cuda",
+              differentiable: bool = True, mesh=_SPEC_UNSET) -> "Program":
+        """:meth:`ProgramSpec.build` + wrap — the one-call form."""
+        device = resolve_device(device)
+        spec = ProgramSpec.build(cfg, batch, role, policy=policy,
+                                 dtype=dtype, mesh=mesh)
+        return cls(spec, device=device, differentiable=differentiable)
+
+    # -- embedded (quantized) parameters ------------------------------------
+    @property
+    def quantized(self) -> bool:
+        """True when the spec carries an embedded int8 weight payload."""
+        return self.spec.quantized_params is not None
+
+    @property
+    def params(self):
+        """``None`` for ordinary programs, whose params live with the
+        caller; a quantized payload raises (ROADMAP item 9)."""
+        if self.spec.quantized_params is None:
+            return None
+        raise NotImplementedError(QUANTIZED_NOT_PORTED)
+
+    # -- device layout ------------------------------------------------------
+    @property
+    def device_count(self) -> int:
+        """Devices this program executes on: one (item 12)."""
+        return 1
+
+    @property
+    def mesh_str(self) -> str:
+        """The span-attr form of the active mesh: ``"1"``."""
+        return "1"
+
+    # -- execution ----------------------------------------------------------
+    def network(self, params: dict[str, torch.Tensor]) -> nn.Module:
+        """The network replaying this spec with ``params`` bound (built
+        once per dict of tensors)."""
+        bound = self._bound
+        if bound is not None and bound[0].keys() == params.keys() and all(
+                params[k] is v for k, v in bound[0].items()):
+            return bound[1]
+        spec = self.spec
+        cfg = GanConfig(spec.model, channel_scale=spec.channel_scale,
+                        **({} if spec.z_dim is None
+                           else {"z_dim": spec.z_dim}))
+        cls = Generator if spec.role == "generator" else Discriminator
+        net = cls(cfg, params, self.device, spec=spec)
+        if not self.differentiable:
+            net.requires_grad_(False)
+        self._bound = (dict(params), net)
+        return net
+
+    def forward(self, params, x: torch.Tensor) -> torch.Tensor:
+        """The computation, recorded by autograd as the caller's grad
+        mode says."""
+        return self.network(params)(x)
+
+    def apply(self, params, x: torch.Tensor) -> torch.Tensor:
+        """Serving's entry point: :meth:`forward`, under
+        ``torch.inference_mode()`` for a non-differentiable program.
+        The disabled-tracing path is one flag check away from the
+        network call; with tracing on, each call gets a
+        ``program.apply`` span."""
+        net = self.network(params)
+        if not _obs.is_enabled():
+            return self._run(net, x)
+        with _obs.trace("program.apply", model=self.spec.model,
+                        role=self.spec.role, batch=int(x.shape[0]),
+                        devices=self.device_count, mesh=self.mesh_str):
+            return self._run(net, x)
+
+    def _run(self, net: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        if self.differentiable:
+            return net(x)
+        with torch.inference_mode():
+            return net(x)
+
+    # -- passthroughs -------------------------------------------------------
+    def describe(self) -> str:
+        return self.spec.describe()
+
+    def save(self, path) -> None:
+        self.spec.save(path)
+
+    def __repr__(self) -> str:
+        quant = ", quant=int8" if self.quantized else ""
+        return (f"Program({self.spec.model}/{self.spec.role}, "
+                f"{len(self.spec.layers)} layers, "
+                f"{self.spec.summary()}, dtype={self.spec.dtype}"
+                f"{quant}, device={self.device})")
+
+
+def build_bucket_programs(spec: ProgramSpec, buckets, *,
+                          device: str | torch.device = "cuda",
+                          differentiable: bool = False
+                          ) -> dict[int, Program]:
+    """The continuous-batching engine's bucket set from **one** frozen
+    spec: each bucket maps to the same :class:`Program`, since nothing
+    is compiled per batch size (the reference jits one executable per
+    bucket).
+
+    ``buckets`` is deduplicated and sorted ascending; every bucket must
+    be a positive int."""
+    sizes = sorted({int(b) for b in buckets})
+    if not sizes or sizes[0] <= 0:
+        raise ValueError(f"buckets must be positive ints, got "
+                         f"{tuple(buckets)}")
+    program = Program(spec, device=resolve_device(device),
+                      differentiable=differentiable)
+    return dict.fromkeys(sizes, program)
+
+
+def load_or_build(path, cfg: GanConfig, batch: int, role: str = "generator",
+                  *, policy: DataflowPolicy | None = None,
+                  dtype: str | None = None,
+                  device: str | torch.device = "cuda",
+                  differentiable: bool = True,
+                  mesh=_SPEC_UNSET) -> tuple[Program, bool]:
+    """Load an exported program file, falling back to fresh resolution.
+
+    Returns ``(program, loaded)``.  ``loaded=False`` means the file was
+    missing, corrupt, version-skewed, named unknown backends or stale
+    blocks, or froze a different workload than ``cfg`` builds now
+    (topology / channel-scale / epilogue / storage-precision drift) —
+    in every such case the program is rebuilt from ``cfg`` exactly as
+    :meth:`Program.build` would, so a bad file degrades the
+    optimization, never the service.  The mesh is not part of the
+    workload identity; ``mesh`` only shapes the fallback rebuild."""
+    device = resolve_device(device)
+    fresh = ProgramSpec.build(cfg, batch, role, policy=policy, dtype=dtype,
+                              mesh=mesh)
+    try:
+        spec = ProgramSpec.load(path)
+        if spec.geometry_signature() != fresh.geometry_signature():
+            raise ValueError("program file froze a different workload "
+                             "than this config builds")
+    except Exception as e:   # corrupt/stale file → fresh resolution
+        log.warning("ignoring program file %s (%s: %s); rebuilding from "
+                    "config", path, type(e).__name__, e)
+        return Program(fresh, device=device,
+                       differentiable=differentiable), False
+    return Program(spec, device=device, differentiable=differentiable), True

@@ -4,11 +4,15 @@
 
 runs on the card: every conv and tconv of the forward pass, and every
 ``dx`` of the backward pass, launches the hand-written GANAX kernel.
-``make_gan_train_step`` builds the generator and the discriminator once;
-the fault-tolerant ``TrainLoop`` runs the steps with checkpoints in a
-temporary directory, and ``GanServer`` then serves a few samples from
-the trained generator.  ``--device cpu`` runs the kernels' plain
-versions instead (keep ``--batch`` and ``--channel-scale`` small there);
+``make_gan_train_step`` builds the generator and the discriminator once,
+each replaying a program resolved ahead of time (printed after the
+run); the fault-tolerant ``TrainLoop`` runs the steps with checkpoints
+in a temporary directory.  Then the reference's build → export → load
+→ serve flow: the generator's program is saved as JSON, loaded back as
+a fresh serving process would, and ``GanServer`` serves a few samples
+of the trained generator through it.  ``--device cpu`` runs the
+kernels' plain versions instead (keep ``--batch`` and
+``--channel-scale`` small there);
 ``--backend`` pins another dataflow (``ganax-plain``, ``polyphase``,
 ``zero-insert``).
 """
@@ -16,6 +20,7 @@ versions instead (keep ``--batch`` and ``--channel-scale`` small there);
 from __future__ import annotations
 
 import argparse
+import pathlib
 import tempfile
 import time
 
@@ -24,6 +29,7 @@ import torch
 from repro_torch.core.dataflow import BACKENDS
 from repro_torch.device import resolve_device
 from repro_torch.models.gan import GanConfig, init_gan
+from repro_torch.program import Program, ProgramSpec
 from repro_torch.serve.gan import GanServer
 from repro_torch.train.loop import LoopConfig, TrainLoop, make_gan_train_step
 
@@ -101,26 +107,31 @@ def main(argv=None) -> tuple[TrainLoop, GanServer]:
     cfg = GanConfig(name="dcgan", channel_scale=args.channel_scale,
                     backend=args.backend)
     dev = resolve_device(args.device)
-    g_layers, d_layers = cfg.layers
-    for role, layers in (("generator", g_layers),
-                         ("discriminator", d_layers)):
-        print(f"{cfg.name} {role}: {len(layers)} layers "
-              f"{[l.name for l in layers]} through "
-              f"{cfg.backend or 'ganax'} on {dev}")
     t0 = time.time()
     with tempfile.TemporaryDirectory() as ckpt_dir:
-        loop, (generator, _) = train(cfg, steps=args.steps,
-                                     batch=args.batch, lr=args.lr,
-                                     ckpt_dir=ckpt_dir, device=dev)
+        loop, (generator, discriminator) = train(
+            cfg, steps=args.steps, batch=args.batch, lr=args.lr,
+            ckpt_dir=ckpt_dir, device=dev)
+    # the programs both networks replayed, resolved once before step 0
+    print(generator.spec.describe())
+    print(discriminator.spec.describe())
     print(f"done: {args.steps} adversarial steps through the "
-          f"{cfg.backend or 'ganax'} dataflow in {time.time() - t0:.1f}s "
-          f"({loop.checkpoints} checkpoints, {loop.restarts} restarts)")
+          f"{generator.spec.summary()} dataflow on {dev} in "
+          f"{time.time() - t0:.1f}s ({loop.checkpoints} checkpoints, "
+          f"{loop.restarts} restarts)")
 
-    server = GanServer(cfg, generator.params, batch_size=args.batch,
-                       device=dev)
-    imgs = server.generate(3)
+    # Build → export → load → serve: ship the program as data.
+    with tempfile.TemporaryDirectory() as d:
+        path = pathlib.Path(d) / "generator-program.json"
+        generator.spec.save(path)
+        spec = ProgramSpec.load(path)          # a fresh serving process
+        server = GanServer(cfg, generator.params, batch_size=args.batch,
+                           program=Program(spec, device=dev,
+                                           differentiable=False),
+                           device=dev)
+        imgs = server.generate(3)
     print(f"served {imgs.shape[0]} samples {tuple(imgs.shape[1:])} from the "
-          f"trained generator in {server.batches_served} batch(es) "
+          f"exported program in {server.batches_served} batch(es) "
           f"({server.samples_buffered} buffered for the next call)")
     return loop, server
 

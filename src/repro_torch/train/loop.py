@@ -1,7 +1,6 @@
 """The adversarial train step and the fault-tolerant training loop.
 
-The port of ``repro.train.loop``, without its mesh, planner and
-observability hooks:
+The port of ``repro.train.loop``, without its mesh and planner hooks:
 
 * :func:`make_gan_train_step`: the non-saturating adversarial SGD step,
   a D step and then a G step against the *updated* D, with every conv
@@ -16,6 +15,12 @@ observability hooks:
     EWMA of the step times is counted and logged.
   - **Failure injection**: ``failure_injector(step) -> bool`` kills
     chosen steps deterministically (tests).
+  - **Observability**, under the reference's names: the
+    ``train.steps`` / ``.checkpoints`` / ``.stragglers`` / ``.failures``
+    counters, the ``train.step_us`` histogram, a ``train.<metric>``
+    gauge per logged scalar, ``train.checkpoint`` / ``.restore`` /
+    ``.straggler`` / ``.failure`` / ``.preempt`` events, a
+    ``train.step`` span per step, and the end-of-run μop-cache line.
 
 The state is a ``(g_params, d_params)`` pair of dicts of tensors, which
 the step updates in place (no second copy of the parameters per step);
@@ -33,8 +38,10 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch.models.gan import (Discriminator, GanConfig, Generator,
                                     bce_with_logits)
+from repro_torch.program import ProgramSpec
 from repro_torch.train import checkpoint as ckpt
 
 __all__ = ["LoopConfig", "TrainLoop", "InjectedFailure",
@@ -102,8 +109,13 @@ def make_gan_train_step(cfg: GanConfig, batch: int,
     the updated D.  ``metrics`` holds the ``g_loss``, ``d_loss`` and
     ``loss`` tensors (on the device; reading them waits for it)."""
     d_lr = g_lr if d_lr is None else d_lr
-    generator = Generator(cfg, g_params, device)
-    discriminator = Discriminator(cfg, d_params, device)
+    # one ahead-of-time resolution for the whole run: both networks
+    # replay programs frozen here, at the step's batch
+    generator = Generator(cfg, g_params, device,
+                          spec=ProgramSpec.build(cfg, batch, "generator"))
+    discriminator = Discriminator(
+        cfg, d_params, device,
+        spec=ProgramSpec.build(cfg, batch, "discriminator"))
 
     def train_step(state, batch_arrays):
         g_state, d_state = state
@@ -150,8 +162,10 @@ class LoopConfig:
 class TrainLoop:
     """Runs ``train_step`` from ``start_step`` to ``cfg.total_steps`` on
     ``state``, a tree of tensors the step updates in place or replaces.
-    Plain integer counters (``steps``, ``checkpoints``, ``restarts``)
-    and ``straggler_events`` / ``metrics_history`` record the run."""
+    Plain integer counters of this loop (``steps``, ``checkpoints``,
+    ``restarts``) and ``straggler_events`` / ``metrics_history`` record
+    the run; the process-wide ``train.*`` metrics of ``repro_torch.obs``
+    count it too."""
 
     def __init__(self, cfg: LoopConfig, train_step: Callable,
                  batch_fn: Callable[[int], dict], state: Any,
@@ -205,6 +219,9 @@ class TrainLoop:
             ckpt.save_async(self.state, self.cfg.ckpt_dir, step)
         self._last_saved_step = step
         self.checkpoints += 1
+        _obs.counter("train.checkpoints").inc()
+        _obs.event("train.checkpoint", step=step,
+                   sync=bool(sync or not self.cfg.async_ckpt))
 
     def _restore_latest(self) -> int:
         ckpt.wait_pending()
@@ -217,6 +234,7 @@ class TrainLoop:
             return 0
         self._assign(ckpt.restore(self.state, self.cfg.ckpt_dir, step))
         self.log(f"[loop] restored checkpoint at step {step}")
+        _obs.event("train.restore", step=step)
         return step
 
     # -- watchdog -----------------------------------------------------------
@@ -226,6 +244,9 @@ class TrainLoop:
             return
         if dt > self.cfg.straggler_factor * self._ewma:
             self.straggler_events.append(step)
+            _obs.counter("train.stragglers").inc()
+            _obs.event("train.straggler", step=step, dt_s=dt,
+                       ewma_s=self._ewma)
             self.log(f"[loop] STRAGGLER step {step}: {dt:.3f}s vs "
                      f"EWMA {self._ewma:.3f}s")
         self._ewma = (1 - self.cfg.ewma_alpha) * self._ewma + \
@@ -234,28 +255,37 @@ class TrainLoop:
     # -- main ---------------------------------------------------------------
     def run(self, start_step: int = 0) -> Any:
         self._install_sigterm()
+        self._stats0 = _obs.collect()
         # the step updates the state in place: keep a copy to replay from
         self._initial_state = ckpt.tree_map(
             lambda t: t.detach().clone(), self.state)
+        step_us = _obs.histogram("train.step_us")
         step = start_step
         while step < self.cfg.total_steps:
             if self._preempted:
                 self.log(f"[loop] SIGTERM: checkpointing at {step}, exiting")
+                _obs.event("train.preempt", step=step)
                 self._save(step, sync=True)
+                self._log_uop_cache()
                 return self.state
             try:
                 if self.failure_injector and self.failure_injector(step):
                     raise InjectedFailure(f"injected failure at step {step}")
                 t0 = time.perf_counter()
-                batch = self.batch_fn(step)
-                self.state, metrics = self.train_step(self.state, batch)
-                self._sync()
+                with _obs.trace("train.step", step=step):
+                    batch = self.batch_fn(step)
+                    self.state, metrics = self.train_step(self.state, batch)
+                    self._sync()
                 dt = time.perf_counter() - t0
+                step_us.observe(dt * 1e6)
+                _obs.counter("train.steps").inc()
                 self.steps += 1
                 self._watch(step, dt)
                 if step % self.cfg.log_every == 0:
                     m = {k: float(v) for k, v in metrics.items()
                          if getattr(v, "ndim", 0) == 0}
+                    for k, v in m.items():
+                        _obs.gauge(f"train.{k}").set(v)
                     self.metrics_history.append({"step": step, **m})
                     self.log(f"[loop] step {step} "
                              f"loss={m.get('loss', -1):.4f} dt={dt:.3f}s")
@@ -264,6 +294,9 @@ class TrainLoop:
                     self._save(step)
             except InjectedFailure as e:
                 self.restarts += 1
+                _obs.counter("train.failures").inc()
+                _obs.event("train.failure", step=step,
+                           restart=self.restarts)
                 self.log(f"[loop] FAILURE: {e}; restart "
                          f"{self.restarts}/{self.cfg.max_restarts}")
                 if self.restarts > self.cfg.max_restarts:
@@ -275,4 +308,21 @@ class TrainLoop:
         ckpt.wait_pending()
         if self._last_saved_step != self.cfg.total_steps:
             self._save(self.cfg.total_steps, sync=True)
+        self._log_uop_cache()
         return self.state
+
+    def _log_uop_cache(self):
+        """Surface the dataflow μop-cache efficiency over this run:
+        replayed steps should hit the cache, not re-run the scheduler
+        (read through ``obs.collect()``, consistent copies)."""
+        info = _obs.collect().get("dataflow.uop_cache")
+        if info is None:
+            return
+        base = self._stats0.get("dataflow.uop_cache",
+                                {"hits": 0, "misses": 0})
+        hits = info["hits"] - base["hits"]
+        misses = info["misses"] - base["misses"]
+        if hits or misses:
+            self.log(f"[loop] dataflow μop cache: {hits} hits / "
+                     f"{misses} misses this run "
+                     f"({info['currsize']} geometries cached)")

@@ -306,6 +306,31 @@ def test_3dgan_server_on_the_card_launches_the_3d_kernel(dev):
     torch.testing.assert_close(vol, ref, **TOL)
 
 
+@pytest.mark.parametrize("depth", [1, 2])
+def test_engine_on_the_card_matches_the_server(dev, depth):
+    """GanEngine on the card: its copy stream delivers CPU samples equal,
+    bit for bit, to GanServer.generate's, every batch through the
+    kernel; the façade's generate stays on the card."""
+    from repro_torch.serve.gan_engine import GanEngine
+    cfg = GanConfig("dcgan", channel_scale=1 / 32)
+    g, _ = init_gan(cfg, torch.Generator().manual_seed(0), dev)
+    ref = GanServer(cfg, g, batch_size=4, seed=0, device=dev).generate(14)
+    engine = GanEngine(cfg, g, buckets=(4,), seed=0, device=dev,
+                       pipeline_depth=depth)
+    before = ganax_conv_cuda.launches
+    futures = [engine.submit(n) for n in (3, 6, 5)]
+    got = torch.cat([f.result(30) for f in futures])
+    engine.close(timeout=30)
+    assert got.device.type == "cpu" and torch.equal(got, ref.cpu())
+    assert ganax_conv_cuda.launches - before == 4 * engine.batches_served
+    server = GanServer(cfg, g, batch_size=4, seed=0, device=dev)
+    parts = [server.generate(3), server.submit(6).result(30),
+             server.generate(5)]
+    server.close(timeout=30)
+    assert parts[0].is_cuda and parts[2].is_cuda
+    assert torch.equal(torch.cat([t.cpu() for t in parts]), ref.cpu())
+
+
 @pytest.mark.parametrize("xs,ws,s,p,transposed,act,has_bias",
                          CASES[:5] + CASES[8:11] + TRAIN_CASES)
 def test_cuda_backward_matches_plain_on_a_side_stream(

@@ -23,8 +23,10 @@ from repro_torch.launch import serve as llm_serve
 from repro_torch.models import transformer as tr
 from repro_torch.models.gan import (Discriminator, GanConfig, Generator,
                                     generator_specs, init_gan)
+from repro_torch.program import Program, ProgramSpec, load_or_build
 from repro_torch.serve.engine import DecodeEngine, EngineConfig
 from repro_torch.serve.gan import GanServer
+from repro_torch.serve.gan_engine import GanEngine
 from repro_torch.train.loop import make_gan_train_step
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -74,11 +76,18 @@ def test_no_jax_or_repro_import(path):
         assert not bad, f"{path.name}:{node.lineno} imports {bad}"
 
 
-def test_entry_points_default_to_the_card(monkeypatch):
+def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     g, _ = init_gan(CFG, torch.Generator().manual_seed(0), "cpu")
     np_g = {k: v.numpy() for k, v in g.items()}
+    cpu_program = Program(ProgramSpec.build(CFG, 2, "generator"),
+                          device="cpu", differentiable=False)
     for call in (lambda: GanServer(CFG, g),
+                 lambda: GanServer(CFG, g, program=cpu_program),
+                 lambda: GanEngine(CFG, g),
+                 lambda: Program.build(CFG, 2),
+                 lambda: Program(cpu_program.spec),
+                 lambda: load_or_build(tmp_path / "none.json", CFG, 2),
                  lambda: Generator(CFG, g),
                  lambda: init_gan(CFG, torch.Generator()),
                  lambda: params_from_jax(np_g, CFG)):
@@ -86,12 +95,18 @@ def test_entry_points_default_to_the_card(monkeypatch):
             call()
     with pytest.raises(ValueError, match="unsupported device"):
         GanServer(CFG, g, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        GanEngine(CFG, g, device="meta")
+    engine = GanEngine(CFG, g, buckets=(2,), device="cpu", warmup=False)
+    assert engine.device.type == "cpu"
+    engine.close(timeout=30)
 
 
 def test_training_entry_points_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     g, d = init_gan(CFG, torch.Generator().manual_seed(0), "cpu")
     for call in (lambda: Discriminator(CFG, d),
+                 lambda: Program.build(CFG, 2, "discriminator"),
                  lambda: make_gan_train_step(CFG, 2, g, d),
                  lambda: quickstart.main(["--steps", "1"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -264,3 +264,64 @@ def test_train_step_refuses_a_foreign_state():
     with pytest.raises(ValueError, match="built for batch 2"):
         train_step((gen.params, disc.params),
                    {k: v[:1] for k, v in batch.items()})
+
+
+def _train_records(obs, run):
+    """``run()`` with obs tracing on: the ``train.*`` counter deltas, the
+    ``train.*`` gauge names and the events (step attributes only)."""
+    before = obs.snapshot()["counters"]
+    sink = obs.enable()
+    try:
+        run()
+    finally:
+        obs.disable()
+    snap = obs.snapshot()
+    counters = {k: v - before.get(k, 0) for k, v in snap["counters"].items()
+                if k.startswith("train.") and v - before.get(k, 0)}
+    gauges = sorted(k for k in snap["gauges"] if k.startswith("train."))
+    events = [(e["name"], e["attrs"].get("step")) for e in sink.events()]
+    steps = len(sink.spans("train.step"))
+    return counters, gauges, events, steps, \
+        obs.histogram("train.step_us").count
+
+
+def test_loop_records_the_reference_train_metrics(tmp_path):
+    """The same step count, checkpoint cadence and injected failure give
+    the reference's ``train.*`` counters, gauges and events."""
+    import repro.obs as jobs
+    import repro_torch.obs as tobs
+    from repro.train.loop import LoopConfig as JLoopConfig
+    from repro.train.loop import TrainLoop as JTrainLoop
+
+    def injector_at(step_no):
+        fired = []
+
+        def injector(step):
+            if step == step_no and not fired:
+                fired.append(step)
+                return True
+            return False
+        return injector
+
+    def jax_step(state, batch):
+        state = jax.tree.map(lambda a: a - 0.1 * batch["z"].mean(), state)
+        loss = jnp.sum(state["w"])
+        return state, {"g_loss": loss, "d_loss": loss, "loss": 2 * loss}
+
+    ref_loop = JTrainLoop(
+        JLoopConfig(total_steps=6, ckpt_dir=str(tmp_path / "ref"),
+                    ckpt_every=2, log_every=1, straggler_factor=1e9),
+        jax_step, lambda step: {"z": jnp.full((2,), float(step))},
+        {"w": jnp.zeros((3,))}, failure_injector=injector_at(3),
+        log_fn=lambda line: None)
+    loop, logs = _loop(tmp_path, "port", injector=injector_at(3))
+    loop.cfg.straggler_factor = 1e9
+    hist0 = (jobs.histogram("train.step_us").count,
+             tobs.histogram("train.step_us").count)
+    ref = _train_records(jobs, ref_loop.run)
+    got = _train_records(tobs, loop.run)
+    assert got[:4] == ref[:4]
+    assert got[0] == {"train.steps": 7, "train.checkpoints": 3,
+                      "train.failures": 1}
+    assert (got[4] - hist0[1], ref[4] - hist0[0]) == (7, 7)
+    assert any("dataflow μop cache" in line for line in logs)
