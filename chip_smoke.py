@@ -28,7 +28,16 @@ on, check that the ``engine.request``, ``serve.generate``,
 ``program.apply`` and ``program.layer`` spans nest and the registry
 agrees with the servers, and that ``obs.profile`` writes a device trace
 holding the GANAX kernels (and reads whether each engine batch's
-device-to-host copy ran under the next batch's kernels).  The training
+device-to-host copy ran under the next batch's kernels).  The quant
+phase holds the GANAX kernels' bf16 and f16 instances against their
+plain version on every serving geometry of both networks of DCGAN and
+3D-GAN (with a control that sums in the storage dtype and must fail
+that gate), serves both generators at bf16 and f16 through
+``GanServer.generate`` and holds them against a ``ganax-plain`` path
+(with a planted fault that must fail that gate) and the reference's
+calibration gates, serves an int8 DCGAN program through ``GanServer``
+and ``GanEngine`` bit for bit, and times both generators at f32, bf16
+and f16 beside cuDNN at the same dtype.  The training
 phases hold every launch geometry
 of an adversarial step (the discriminators' convs and every layer's
 ``dx``) against the plain version, run the TF32 control (the plain
@@ -178,6 +187,39 @@ LLM_TOL_BF16 = 0.1
 # planted, in place of the kernel through the same model
 PLANTED_FAULTS = ("diagonal tile dropped", "strict causal mask")
 
+# The quant phase: the GANAX kernels' bf16 and f16 instances.  Per launch,
+# kernel against plain at the same dtype: both sum the same exact
+# products in f32 and round once, so they are at most one ulp apart;
+# the gate is two ulps of the bottom of a binade (rtol 2^-6 for bf16's 8
+# significant bits, 2^-9 for f16's 11), and atol covers outputs within
+# f32 noise of 0 (FLASH_TOL's bf16 row).
+STORAGE_TOL = {torch.bfloat16: (1e-3, 2 ** -6),
+               torch.float16: (1e-3, 2 ** -9)}
+STORAGE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
+                 torch.float16: "float16"}
+# The accumulation control: the plain arithmetic with each tap's matmul
+# and the sum kept in the storage dtype must fail the gate above on at
+# least one of these wide launches of each kernel, at each dtype.
+STORAGE_CONTROL = TF32_CONTROL
+# The path gate.  The per-launch gate holds a launch to the plain
+# version's function up to its one rounding; on the path the question is
+# the same, asked of the whole generator: is the kernel path as accurate
+# as the plain path?  Both are measured against the f32 plain path on
+# the same latents (the random weights leave DCGAN's images at ~1e-3,
+# where an elementwise gate would be all atol):
+#   ||img - img32|| <= PATH_ACCURACY * ||plain - img32||.
+# Flips of a last bit between two f32 summation orders leave the error
+# where it was (1.000 on the CPU's emulation of the tc order); one layer
+# summed in the storage dtype adds its taps' roundings (1.10-1.12 on the
+# CPU, DCGAN and 3D-GAN), and must exceed the gate on every run.
+PATH_ACCURACY = 1.05
+# the planted fault of the path gate: this launch of each generator
+# batch (g1, the widest) sums in the storage dtype
+PATH_FAULT_LAYER = 0
+# the reference's calibration configuration of its output gates
+# (repro.quant.tolerance): channel scale, batch
+CALIBRATION = (0.0625, 2)
+
 
 class SmokeFailure(RuntimeError):
     pass
@@ -247,10 +289,12 @@ def q_sizes(operands: dict) -> tuple[int, ...]:
 def bound(operands: dict, bias) -> tuple[float, str, float, int, float]:
     """(bound ms, what bounds it, flops, bytes, FP32 bound ms) of one
     kernel launch, 2-D or 3-D: each input read once and the output
-    written once; the useful operations the tap tables of this geometry
-    need (2 per consequential MAC, no padding of Cout or K), three TF32
-    products each at the tensor cores' rate; the FP32 bound takes them
-    at the FFMA rate."""
+    written once (x_pad, w_taps and the output in their storage dtype,
+    bias and tap tables at 4 bytes); the useful operations the tap
+    tables of this geometry need (2 per consequential MAC, no padding of
+    Cout or K), at f32 three TF32 products each at the tensor cores'
+    rate, at bf16/f16 one dense product each at theirs; the FP32 bound
+    takes them at the FFMA rate."""
     x_pad, w_taps = operands["x_pad"], operands["w_taps"]
     b, cin = x_pad.shape[0], x_pad.shape[-1]
     p, _, _, cout = w_taps.shape
@@ -259,11 +303,13 @@ def bound(operands: dict, bias) -> tuple[float, str, float, int, float]:
     flops = 2.0 * b * q * taps * cin * cout
     out_elems = b * p * q * cout
     tables = operands["tables"]
-    nbytes = 4 * (x_pad.numel() + w_taps.numel() + out_elems
-                  + (bias.numel() if bias is not None else 0)) \
-        + 4 * (tables.n_taps.numel()
+    nbytes = x_pad.element_size() * (x_pad.numel() + w_taps.numel()
+                                     + out_elems) \
+        + 4 * ((bias.numel() if bias is not None else 0)
+               + tables.n_taps.numel()
                + sum(o.numel() for o in tables.offsets))
-    t_ops = 3 * flops / PEAK_TF32_TC_FLOPS * 1e3
+    t_ops = (3 * flops / PEAK_TF32_TC_FLOPS if x_pad.element_size() == 4
+             else flops / PEAK_BF16_TC_FLOPS) * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
             else "bytes", flops, nbytes,
@@ -1745,6 +1791,377 @@ def obs_phase(dev, wrappers) -> dict:
     return out
 
 
+def storage_share(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """The worst output's share of the two-ulp tolerance of ``ref``'s
+    storage dtype (STORAGE_TOL); the gate passes at <= 1."""
+    atol, rtol = STORAGE_TOL[ref.dtype]
+    got, ref = got.float(), ref.float()
+    return ((got - ref).abs() / (atol + rtol * ref.abs())).max().item()
+
+
+@contextlib.contextmanager
+def storage_sums_fault(nd: int, layer: int):
+    """Plant the path gate's fault: while active, launch ``layer`` of
+    each generator batch (counted per call of the rank-``nd`` kernel
+    through ``kernels/ops.py``, ``layer`` modulo 4) runs the plain
+    arithmetic with its sums in the storage dtype; the other launches
+    run the kernel."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ganax_conv import (apply_epilogue_to_acc,
+                                                plain_sums)
+    kernel, plain = ops._KERNELS[nd]
+    calls = [0]
+
+    def faulty(x_pad, w_taps, tables, out_strides, bias=None,
+               activation="none", leaky_slope=0.2, **q):
+        i = calls[0]
+        calls[0] += 1
+        if i % 4 != layer:
+            return kernel(x_pad=x_pad, w_taps=w_taps, tables=tables,
+                          out_strides=out_strides, bias=bias,
+                          activation=activation, leaky_slope=leaky_slope,
+                          **q)
+        sizes = tuple(q[k] for k in ("qz", "qy", "qx") if k in q)
+        acc = plain_sums(x_pad, w_taps, tables, out_strides, sizes,
+                         acc_dtype=x_pad.dtype)
+        return apply_epilogue_to_acc(acc.float(), bias, activation,
+                                     leaky_slope).to(x_pad.dtype)
+    ops._KERNELS[nd] = (faulty, plain)
+    try:
+        yield
+    finally:
+        ops._KERNELS[nd] = (kernel, plain)
+
+
+def quant_phase(card, dev, wrappers) -> dict:
+    """The GANAX kernels' bf16 and f16 instances (ROADMAP item 9).
+
+    1. Every serving geometry of both networks of DCGAN and 3D-GAN (g1-g4,
+       d1-d5) at bf16 and f16, kernel against plain at the same dtype
+       (STORAGE_TOL), and the accumulation control (STORAGE_CONTROL).
+    2. The path: ``GanServer.generate`` at bf16 and f16 for both models
+       through the kernels, against a ``ganax-plain`` program on the same
+       latents (PATH_ACCURACY, with the planted fault of
+       ``storage_sums_fault``); the launches of each instance counted
+       from 0 here to the int8 engine's last batch; at the reference's
+       calibration configuration each model's bf16 and f16 output within
+       ``model_tolerance(...)["output_atol"]`` of its f32 output.
+    3. int8: a DCGAN int8 export at bf16, saved and loaded; its weights
+       dequantized on the card are the CPU's bits, and ``GanEngine(cfg,
+       None, program=...)`` streams ``GanServer(..., program=...)``'s
+       images bit for bit.
+    4. Times, per model and dtype: a 64-batch's generator forward (median
+       of 15) and samples/s; its four kernel launches (per call and as
+       the device runs them) beside their bound, their plain version and
+       one cuDNN transposed conv at the same dtype; the peak device
+       memory of a 3D-GAN batch at f32 and bf16; a profile of the bf16
+       forwards."""
+    from repro_torch.configs.gans import GAN_MODELS
+    from repro_torch.core.dataflow import Epilogue
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ganax_conv import (apply_epilogue_to_acc,
+                                                plain_sums)
+    from repro_torch.models.gan import (GanConfig, discriminator_epilogues,
+                                        generator_epilogues, init_gan)
+    from repro_torch.program import Program, ProgramSpec
+    from repro_torch.quant import (dequantize_params, model_tolerance,
+                                   quantize_program)
+    from repro_torch.serve.gan import GanServer
+    from repro_torch.serve.gan_engine import GanEngine
+    gan = {k: wrappers[k] for k in ("ganax_conv", "ganax_conv3d")}
+    models = (("ganax_conv", "dcgan"), ("ganax_conv3d", "3dgan"))
+    dtypes = (torch.bfloat16, torch.float16)
+    out = {"launches": {}, "errs": {}, "control": {}, "path": {},
+           "calibration": {}, "times": {}}
+    gen = torch.Generator().manual_seed(2718)
+
+    def rand(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen)).to(dev)
+
+    # -- 1. every serving geometry, kernel vs plain; the control -----------
+    rows = {}       # (name, dtype) -> the generator layers' operands
+    with torch.inference_mode():
+        for name, model in models:
+            kernel, plain = gan[name]
+            g_layers, d_layers = GAN_MODELS[model]
+            cases = [(l, True, ep) for l, ep in
+                     zip(g_layers, generator_epilogues(g_layers))] + \
+                [(l, False, ep) for l, ep in
+                 zip(d_layers, discriminator_epilogues(d_layers))]
+            for l, transposed, ep in cases:
+                label = f"{model} {l.name}"
+                x = rand(BATCH, *l.in_spatial, l.cin)
+                w = rand(*l.kernel, l.cin, l.cout,
+                         scale=(math.prod(l.kernel) * l.cin) ** -0.5)
+                b = rand(l.cout, scale=0.1) if ep.bias else None
+                for dt in dtypes:
+                    dname = STORAGE_NAMES[dt]
+                    o = ops.kernel_operands(x.to(dt), w.to(dt), l.strides,
+                                            l.paddings, transposed=transposed)
+                    got = kernel(**o, bias=b, activation=ep.activation,
+                                 leaky_slope=ep.leaky_slope)
+                    ref = plain(**o, bias=b, activation=ep.activation,
+                                leaky_slope=ep.leaky_slope)
+                    torch.cuda.synchronize()
+                    share = storage_share(got, ref)
+                    err = (got.float() - ref.float()).abs().max().item()
+                    out["errs"].setdefault(f"{name}_{dname}", []).append(err)
+                    ok = share <= 1 and got.dtype == dt and \
+                        bool(torch.isfinite(got).all())
+                    print(f"{name} {dname} vs plain  {label:10s} "
+                          f"[{route_of(o)}] max_abs_err {err:.3e}, worst "
+                          f"output at {share:.4f} of the two-ulp tolerance "
+                          f"{'ok' if ok else 'FAIL'}")
+                    check(ok, f"{label}: the {dname} instance of {name} "
+                              f"disagrees with its plain version")
+                    if label in STORAGE_CONTROL[name]:
+                        acc = plain_sums(o["x_pad"], o["w_taps"],
+                                         o["tables"], o["out_strides"],
+                                         q_sizes(o), acc_dtype=dt)
+                        low = apply_epilogue_to_acc(
+                            acc.float(), b, ep.activation,
+                            ep.leaky_slope).to(dt)
+                        c_share = storage_share(low, ref)
+                        out["control"].setdefault(f"{name}_{dname}",
+                                                  {})[label] = c_share
+                        print(f"  control: {label} with its sums in "
+                              f"{dname}: worst output at {c_share:.2f} of "
+                              f"the tolerance "
+                              f"({'fails the gate' if c_share > 1 else 'passes'})")
+                        del acc, low
+                    if transposed:
+                        rows.setdefault((name, dt), []).append(
+                            (label, o, b, ep, x.to(dt), w.to(dt), l))
+                    del got, ref
+            for dt in dtypes:
+                key = f"{name}_{STORAGE_NAMES[dt]}"
+                check(max(out["control"][key].values()) > 1,
+                      f"{key}: no wide launch with storage-dtype sums fails "
+                      f"the two-ulp gate, so it cannot tell f32 sums from "
+                      f"{STORAGE_NAMES[dt]} ones")
+
+    # -- 2. the path --------------------------------------------------------
+    launched = {name: {STORAGE_NAMES[dt]: 0 for dt in dtypes}
+                for name, _ in models}
+
+    def main_path(name, fn):
+        """``fn()``, a call of the main path, with every count set to 0
+        just before it and the kernel's launches by dtype booked just
+        after."""
+        for kernel, _ in wrappers.values():
+            kernel.launches = 0
+            if hasattr(kernel, "launches_by_route"):
+                kernel.launches_by_route.clear()
+                kernel.launches_by_dtype.clear()
+        result = fn()
+        torch.cuda.synchronize()
+        for k, _ in wrappers.values():
+            check(k is gan[name][0] or k.launches == 0,
+                  f"the {name} path launched another kernel")
+        for dname, n in gan[name][0].launches_by_dtype.items():
+            check(dname in launched[name], f"the {name} path launched "
+                                           f"its {dname} instance")
+            launched[name][dname] += n
+        return result
+
+    servers = {}
+    for name, model in models:
+        cfg = GanConfig(model)
+        g, _ = init_gan(cfg, torch.Generator().manual_seed(0), device=dev)
+        plain_cfg = GanConfig(model, backend="ganax-plain")
+        img32 = GanServer(plain_cfg, g, batch_size=BATCH, seed=0,
+                          device=dev).generate(BATCH).double()
+        for dt in dtypes:
+            dname = STORAGE_NAMES[dt]
+            n0 = launched[name][dname]
+            server = GanServer(cfg, g, batch_size=BATCH, seed=0, dtype=dname,
+                               device=dev)
+            img = main_path(name, lambda: server.generate(BATCH))
+            n = launched[name][dname] - n0
+            check(img.dtype == dt and tuple(img.shape[1:]) ==
+                  ((64, 64, 3) if model == "dcgan" else (64, 64, 64, 1)),
+                  f"{model} {dname}: images {img.dtype} {tuple(img.shape)}")
+            check(bool(torch.isfinite(img).all())
+                  and img.abs().max().item() <= 1.0,
+                  f"{model} {dname}: images not finite or outside [-1, 1]")
+            check(n == 4, f"{model} {dname}: {n} launches of the {dname} "
+                          f"instance for one batch of 4 layers")
+            plain_img = GanServer(plain_cfg, g, batch_size=BATCH, seed=0,
+                                  dtype=dname, device=dev).generate(BATCH)
+            with storage_sums_fault(img.ndim - 2, PATH_FAULT_LAYER):
+                fault_img = GanServer(cfg, g, batch_size=BATCH, seed=0,
+                                      dtype=dname,
+                                      device=dev).generate(BATCH)
+            base = (plain_img.double() - img32).norm().item()
+            ratio = (img.double() - img32).norm().item() / base
+            fault = (fault_img.double() - img32).norm().item() / base
+            rel = ((img.double() - plain_img.double()).norm()
+                   / plain_img.double().norm()).item()
+            out["path"][f"{model}_{dname}"] = dict(
+                accuracy_ratio=ratio, fault_ratio=fault,
+                rel_l2_vs_plain=rel, launches=n)
+            print(f"{model} {dname} path (GanServer.generate, {BATCH}): "
+                  f"||img - f32|| / ||plain - f32|| = {ratio:.4f} (gate "
+                  f"{PATH_ACCURACY}; {'ok' if ratio <= PATH_ACCURACY else 'FAIL'}), "
+                  f"planted fault ({dname} sums at layer "
+                  f"{PATH_FAULT_LAYER + 1}) {fault:.4f} "
+                  f"({'exceeds' if fault > PATH_ACCURACY else 'DOES NOT exceed'}); "
+                  f"||img - plain|| / ||plain|| = {rel:.3e}")
+            check(ratio <= PATH_ACCURACY,
+                  f"{model} {dname}: the kernel path is less accurate than "
+                  f"the plain path ({ratio:.4f} > {PATH_ACCURACY})")
+            check(fault > PATH_ACCURACY,
+                  f"{model} {dname}: the planted fault passes the path gate "
+                  f"({fault:.4f}), so the gate cannot see it")
+            servers[name, dt] = server
+            del img, plain_img, fault_img
+        servers[name, torch.float32] = GanServer(cfg, g, batch_size=BATCH,
+                                                 seed=0, device=dev)
+        del img32
+        # the reference's calibration configuration
+        scale, batch = CALIBRATION
+        small = GanConfig(model, channel_scale=scale)
+        gs, _ = init_gan(small, torch.Generator().manual_seed(0), device=dev)
+        z = torch.randn((batch, small.z_dim),
+                        generator=torch.Generator().manual_seed(1)).to(dev)
+        y32 = Program.build(small, batch, device=dev,
+                            differentiable=False).apply(gs, z)
+        for dt in dtypes:
+            dname = STORAGE_NAMES[dt]
+            y = Program.build(small, batch, dtype=dname, device=dev,
+                              differentiable=False).apply(gs, z)
+            drift = (y.float() - y32).abs().max().item()
+            gate = model_tolerance(model, dname)["output_atol"]
+            out["calibration"][f"{model}_{dname}"] = dict(drift=drift,
+                                                          gate=gate)
+            print(f"{model} {dname} at the calibration configuration "
+                  f"(channel_scale {scale}, batch {batch}): max |y - y32| "
+                  f"{drift:.3e} (the reference's output_atol {gate:g}) "
+                  f"{'ok' if drift < gate else 'FAIL'}")
+            check(drift < gate, f"{model} {dname}: drift {drift:.3e} >= "
+                                f"the reference's gate {gate:g}")
+
+    # -- 3. int8 ------------------------------------------------------------
+    cfg = GanConfig("dcgan", dtype="bf16")
+    g, _ = init_gan(cfg, torch.Generator().manual_seed(0), device=dev)
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "dcgan-int8.json"
+        quantize_program(ProgramSpec.build(cfg, BATCH, "generator"),
+                         g).save(path)
+        spec = ProgramSpec.load(path)
+    prog = Program(spec, device=dev, differentiable=False)
+    cpu = dequantize_params(spec.quantized_params, spec.dtype)
+    same_bits = all(torch.equal(v.cpu(), cpu[k])
+                    and v.dtype == cpu[k].dtype
+                    for k, v in prog.params.items())
+    check(same_bits, "int8: the weights dequantized on the card differ "
+                     "from the CPU's")
+    base = GanConfig("dcgan")
+    server = GanServer(base, None, batch_size=BATCH, seed=0, program=prog,
+                       device=dev)
+    ref = main_path("ganax_conv", lambda: server.generate(sum(REQUESTS)))
+    with GanEngine(base, None, buckets=(BATCH,), seed=0, program=prog,
+                   device=dev) as engine:
+        stream = main_path("ganax_conv", lambda: torch.cat([
+            f.result(ENGINE_WAIT_S)
+            for f in [engine.submit(n) for n in REQUESTS]]))
+        check(engine.cfg.dtype == "bfloat16",
+              f"int8: the engine serves {engine.cfg.dtype}, not the "
+              f"program's bfloat16")
+    same = torch.equal(stream, ref.cpu())
+    print(f"int8 DCGAN program at bf16 ({len(spec.quantized_params['params'])} "
+          f"tensors): dequantized weights {'bit-identical' if same_bits else 'DIFFERENT'} "
+          f"to the CPU's; GanEngine stream of {', '.join(map(str, REQUESTS))} "
+          f"{'bit-identical' if same else 'DIFFERENT'} to GanServer.generate")
+    check(same, "int8: the engine's stream differs from GanServer.generate")
+    out["int8"] = dict(weights_bit_identical=same_bits,
+                       stream_bit_identical=same)
+    out["launches"] = launched
+    print(f"quant main path (GanServer.generate at bf16 and f16, the int8 "
+          f"program's server and engine): launches by dtype {launched}")
+    for name, _ in models:
+        for dname, n in launched[name].items():
+            check(n > 0, f"the main path never launched the {dname} "
+                         f"instance of {name}")
+    del ref, stream, engine, prog, server
+
+    # -- 4. times -----------------------------------------------------------
+    z = torch.randn((BATCH, 100), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    with torch.inference_mode():
+        for name, model in models:
+            kernel, plain = gan[name]
+            for dt in (torch.float32,) + dtypes:
+                dname = STORAGE_NAMES[dt]
+                server = servers.pop((name, dt))
+                gen_ms = time_ms(lambda: server.generator(z))
+                if dt == torch.float32:
+                    layer_rows = [
+                        (label, o32, b, ep, x.float(), w.float(), l)
+                        for (label, _, b, ep, x, w, l), o32 in zip(
+                            rows[name, torch.bfloat16],
+                            [ops.kernel_operands(
+                                x.float(), w.float(), l.strides, l.paddings,
+                                transposed=True)
+                             for (_, _, _, _, x, w, l)
+                             in rows[name, torch.bfloat16]])]
+                else:
+                    layer_rows = rows[name, dt]
+                tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0,
+                           library_ms=0.0, library_device_ms=0.0,
+                           bound_ms=0.0, ops_bound_ms=0.0)
+                routes = {}
+                for label, o, b, ep, x, w, l in layer_rows:
+                    act = ep.activation
+                    lib = library_conv_transpose(
+                        x, w, b.to(dt) if b is not None else None,
+                        l.strides, l.paddings)
+                    bnd, by = bound(o, b)[:2]
+                    tot["ms"] += time_ms(lambda: kernel(**o, bias=b,
+                                                        activation=act))
+                    tot["device_ms"] += device_ms(
+                        lambda: kernel(**o, bias=b, activation=act))
+                    tot["plain_ms"] += time_ms(
+                        lambda: plain(**o, bias=b, activation=act),
+                        warmup=1, runs=5)
+                    tot["library_ms"] += time_ms(lib)
+                    tot["library_device_ms"] += device_ms(lib)
+                    tot["bound_ms"] += bnd
+                    if by == "operations":
+                        tot["ops_bound_ms"] += bnd
+                    r = route_of(o)
+                    routes[r] = routes.get(r, 0) + 1
+                mem = None
+                if model == "3dgan" and dt != torch.float16:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    before = torch.cuda.memory_allocated(dev)
+                    server.generator(z)
+                    torch.cuda.synchronize()
+                    mem = (torch.cuda.max_memory_allocated(dev) - before) / 1e9
+                prof = profile(lambda: server.generator(z), 5,
+                               f"{model} {dname} generator forwards") \
+                    if dt == torch.bfloat16 else None
+                row = dict(tot, generator_ms=gen_ms,
+                           samples_per_s=BATCH / (gen_ms / 1e3),
+                           routes=routes, peak_gb=mem, profile=prof,
+                           bound_by="operations" if tot["ops_bound_ms"]
+                           >= tot["bound_ms"] / 2 else "bytes")
+                out["times"][f"{model}_{dname}"] = row
+                print(f"{model} {dname}: generator forward at batch {BATCH} "
+                      f"{gen_ms:.4f} ms ({row['samples_per_s']:.1f} samples/s); "
+                      f"its 4 launches {tot['ms']:.4f} ms "
+                      f"[{tot['device_ms']:.4f}] by route {routes}, plain "
+                      f"{tot['plain_ms']:.4f} ms, cuDNN {tot['library_ms']:.4f} "
+                      f"ms [{tot['library_device_ms']:.4f}], bound "
+                      f"{tot['bound_ms']:.4f} ms ({row['bound_by']})"
+                      + (f"; peak device memory of a batch {mem:.3f} GB"
+                         if mem is not None else "") + f" [{card}]")
+                del server
+    torch.cuda.empty_cache()
+    return out
+
+
 def _widen(tree: dict) -> None:
     """Every leaf to f32, in place, one leaf at a time."""
     for k, v in tree.items():
@@ -1783,6 +2200,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     dev = torch.device("cuda", 0)
     record: dict = {"phase_s": {}}
     wrappers = {"ganax_conv": (ganax_conv_cuda, ganax_conv_plain),
@@ -1810,9 +2228,10 @@ def main(argv=None) -> int:
           f"{torch.cuda.get_device_name(0)}")
     print(f"card: {card}")
     print("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
-          "torch.backends.cudnn.allow_tf32 = False; bf16 products summed in "
-          "f32: torch.backends.cuda.matmul."
-          "allow_bf16_reduced_precision_reduction = False")
+          "torch.backends.cudnn.allow_tf32 = False; bf16 and f16 products "
+          "summed in f32: torch.backends.cuda.matmul."
+          "allow_bf16_reduced_precision_reduction = False, "
+          "allow_fp16_reduced_precision_reduction = False")
     t0 = time.perf_counter()
     built = build.build()
     build_s = time.perf_counter() - t0
@@ -2029,6 +2448,9 @@ def main(argv=None) -> int:
     record["obs"] = obs_phase(dev, wrappers)
     torch.cuda.empty_cache()
     phase_done("obs")
+    # -- 4c. bf16 / f16 storage and int8 programs ----------------------------
+    quant = record["quant"] = quant_phase(card, dev, wrappers)
+    phase_done("quant")
 
     # -- 5. training: every launch geometry of the step, kernel vs plain --
     record["train_geometries"] = train_geometries(card, dev, gan_wrappers,
@@ -2113,6 +2535,25 @@ def main(argv=None) -> int:
         "bound_by": f32["bound_by"],
         "library_ms": f32["library_ms"] * f32["launches"],
     })
+    # the storage-dtype instances of both GANAX kernels, on the quant
+    # phase's main path; times per 64-batch of the generator's 4 launches
+    for name, model in (("ganax_conv", "dcgan"), ("ganax_conv3d", "3dgan")):
+        source, replaces = KERNELS[name]
+        for dname, suffix in (("bfloat16", "bf16"), ("float16", "f16")):
+            t = quant["times"][f"{model}_{dname}"]
+            kernels.append({
+                "name": f"{name}_{suffix}",
+                "route": "cuda",
+                "source": source,
+                "replaces": replaces,
+                "launches": quant["launches"][name][dname],
+                "max_abs_err": max(quant["errs"][f"{name}_{dname}"]),
+                "ms": t["ms"],
+                "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"],
+            })
     record["kernels"] = kernels
     print("seconds per phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in record["phase_s"].items()))

@@ -26,7 +26,9 @@ The port of ``repro.core.dataflow``.  It owns:
    tconv's ``dx`` is a conv with swapped weights, a conv's ``dx`` an
    uncropped pad-0 tconv), ``dw`` is a per-tap f32 contraction and
    ``db`` an f32 reduction.  First order only: differentiating the
-   backward raises :class:`SecondOrderNotImplemented`.  The oracles keep
+   backward raises :class:`SecondOrderNotImplemented`; and at float32
+   storage only: a bf16/f16 forward serves, but its backward raises
+   (mixed-precision training is ROADMAP item 9b).  The oracles keep
    PyTorch's native autograd.
 
 Geometry semantics are PyTorch ``ConvTranspose`` / correlation-conv
@@ -71,6 +73,7 @@ from repro_torch import obs as _obs
 from repro_torch.core.scheduler import PhaseSchedule, make_schedule
 from repro_torch.core.tconv import tconv_ganax, tconv_zero_insert
 from repro_torch.device import require_ieee_f32
+from repro_torch.quant.precision import storage_itemsize
 
 __all__ = [
     "ACTIVATIONS",
@@ -429,6 +432,11 @@ AUTO_NOT_PORTED = (
     "pin a backend ('ganax', 'ganax-plain', 'polyphase', 'zero-insert') "
     "or leave it None for the heuristic")
 
+LOW_PRECISION_GRAD_NOT_PORTED = (
+    "gradients at a bfloat16 or float16 storage dtype are mixed-precision "
+    "training, ROADMAP item 9b, which the PyTorch port does not have yet; "
+    "train at float32 (the port serves bf16/f16 programs)")
+
 
 def port_backend(name: str) -> str:
     """A concrete backend name of the reference (or the port) as the
@@ -609,7 +617,7 @@ def resolve_execution(policy: DataflowPolicy, kind: str,
             and policy.interpret is None else "pinned"
         sharding = choose_layer_sharding(
             kernel, cin, cout, mesh_model,
-            itemsize=np.dtype(str(dtype)).itemsize)
+            itemsize=storage_itemsize(dtype))
         res = Resolution(policy.resolve(len(in_spatial)), None, source,
                          sharding=sharding)
         sp.set(backend=res.backend, source=res.source)
@@ -777,6 +785,8 @@ class _KernelOp(torch.autograd.Function):
     @_once_differentiable
     def backward(ctx, g):
         x, w, bias, y = ctx.saved_tensors
+        if x.dtype != torch.float32:
+            raise NotImplementedError(LOW_PRECISION_GRAD_NOT_PORTED)
         backend, transposed, strides, paddings, epilogue = ctx.op
         need_x, need_w, need_b = ctx.needs_input_grad[:3]
         g_pre = _epilogue_cotangent(epilogue, y, g)

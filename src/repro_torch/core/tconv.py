@@ -42,17 +42,21 @@ def correlate(x: torch.Tensor, w: torch.Tensor, strides: Sequence[int],
 
     x: (N, *spatial, Cin); w: (*K, Cin, Cout); ``pads`` is one (lo, hi)
     pair per spatial dim — negative values crop, as in
-    ``lax.conv_general_dilated``.  Accumulates in f32 (the only storage
-    dtype of this slice)."""
+    ``lax.conv_general_dilated``.  Accumulates in f32 at least: bf16 and
+    f16 operands are widened to f32 (where their products are exact),
+    contracted, and the result cast back to x's dtype, as the
+    reference's ``preferred_element_type=float32`` does."""
     nd = x.ndim - 2
     require_ieee_f32(x, conv=True)
-    xn = x.movedim(-1, 1)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xn = x.movedim(-1, 1).to(acc)
     flat = []
     for lo, hi in reversed(tuple(pads)):
         flat += [int(lo), int(hi)]
     xn = F.pad(xn, flat)
-    wn = w.permute(nd + 1, nd, *range(nd))        # (Cout, Cin, *K)
-    return _CONVS[nd](xn, wn, stride=tuple(strides)).movedim(1, -1)
+    wn = w.permute(nd + 1, nd, *range(nd)).to(acc)   # (Cout, Cin, *K)
+    return _CONVS[nd](xn, wn, stride=tuple(strides)).movedim(1, -1) \
+        .to(x.dtype)
 
 
 def zero_insert(x: torch.Tensor, strides: Sequence[int]) -> torch.Tensor:

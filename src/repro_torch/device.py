@@ -40,15 +40,19 @@ def require_ieee_f32(t: torch.Tensor, *, conv: bool = False) -> None:
 def require_f32_accumulation(t: torch.Tensor) -> None:
     """Refuse reduced-precision sums for the matmuls on ``t``'s dtype on
     the card: full f32 for a float32 tensor (no TF32), and f32
-    reductions for a bfloat16 one (cuBLAS may otherwise reduce bf16
-    products in bf16), as the reference accumulates in f32."""
+    reductions for a bfloat16 or float16 one (cuBLAS may otherwise
+    reduce bf16 or f16 products in that dtype; PyTorch allows it by
+    default for both), as the reference accumulates in f32."""
     if not t.is_cuda:
         return
     if t.dtype == torch.float32:
         require_ieee_f32(t)
-    elif (t.dtype == torch.bfloat16 and torch.backends.cuda.matmul
-          .allow_bf16_reduced_precision_reduction):
+        return
+    flag = {torch.bfloat16: "allow_bf16_reduced_precision_reduction",
+            torch.float16: "allow_fp16_reduced_precision_reduction"
+            }.get(t.dtype)
+    if flag is not None and getattr(torch.backends.cuda.matmul, flag):
         raise RuntimeError(
-            "torch.backends.cuda.matmul."
-            "allow_bf16_reduced_precision_reduction is True; the port "
-            "accumulates bf16 products in f32 (set it to False)")
+            f"torch.backends.cuda.matmul.{flag} is True; the port "
+            f"accumulates {str(t.dtype).removeprefix('torch.')} products "
+            f"in f32 (set it to False)")

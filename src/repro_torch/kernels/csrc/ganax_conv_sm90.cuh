@@ -1,6 +1,6 @@
-// The GANAX conv/tconv kernels for Hopper (sm_90a), f32, of either
-// spatial rank: the shared body of ganax_conv.cu (rank 2) and
-// ganax_conv3d.cu (rank 3).
+// The GANAX conv/tconv kernels for Hopper (sm_90a), of either spatial
+// rank and each storage dtype (f32, bf16, f16): the shared body of
+// ganax_conv.cu (rank 2) and ganax_conv3d.cu (rank 3).
 //
 // Replaces: ganax_conv_kernel / ganax_conv_pallas and
 // ganax_conv3d_kernel / ganax_conv3d_pallas (with apply_epilogue_to_acc)
@@ -12,6 +12,14 @@
 //
 // written phase-major, (B, P, *Q, Cout).  Transposed convs arrive as P
 // phases at unit stride (MIMD), strided convs as one phase (SIMD).
+//
+// Every kernel is templated on the storage type T of x, w and out
+// (float, __nv_bfloat16 or __half), as the Pallas kernels take blocks in
+// whatever dtype they come in: the products are summed in f32 (the
+// Pallas kernels' f32 VMEM scratch), bias and activation run on the f32
+// sum, and the result is cast to T once, at the store (round to nearest
+// even).  The notes below describe the f32 instances; where the 2-byte
+// instances differ, they say so.
 //
 // It is an implicit GEMM per phase: the rows are the B*prod(Q) output
 // pixels, the columns Cout, and K is (tap, Cin).  Every call takes one
@@ -81,6 +89,23 @@
 //      each other's adds with their wgmmas.
 //    * Epilogue: bias and activation on the f32 sum, stored from the
 //      accumulator layout.
+//    * At bf16 and f16 a product of two storage values is exact in f32,
+//      so one wgmma (m64n{64,128}k16, .f32.bf16.bf16 or .f32.f16.f16)
+//      a useful product replaces the three TF32 ones, and nothing is
+//      split: a stage holds A and B once.  A 128-byte row is 64 values,
+//      so a stage's K is 64 (kBK of the type) and its four k16 slices
+//      are each 32 bytes apart, as the four k8 slices of f32; the stage
+//      is 32 KB at BN 128 (six stages) and 24 KB at BN 64 (eight).  Each
+//      stage's products go into a fresh accumulator (64 K), added to
+//      the f32 sum by FADD.  A 16-byte copy is eight channels, so the
+//      flattened K serves Cin % 8 != 0 (DCGAN d1's 3, 3D-GAN d1's 1);
+//      cp.async has no 2-byte copy, so there the producer loads each
+//      value with ld.global, stores the stage's row in 16-byte chunks,
+//      and arrives on the full barrier after a proxy fence.  The
+//      consumers fence the generic proxy's writes (the producer's
+//      cp.async or stores) before their wgmmas read the stage.  The
+//      weights come by TMA as one bf16 (f16) map, K padded to the
+//      stage.
 // 2. narrow, Cout <= 8 (g4, d1's dx, d5): a row-dot FFMA kernel.  On the
 //    tensor cores these would do >= 8/Cout times the work; they are
 //    bound by bytes or latency.  A warp computes 4 output rows at a
@@ -91,13 +116,18 @@
 //    computed.  Each input element feeds up to 64 outputs of a k4 s2
 //    tconv (4^3 taps over the 8 phases of 3D-GAN g4): a block takes all
 //    phases of its rows, a warp runs them in turn, and the re-reads hit
-//    L1 rather than L2.
+//    L1 rather than L2.  At bf16 and f16 it reads x and w in the storage
+//    type (four values, 8 bytes, a load where Cin % 4 = 0) and widens
+//    them to f32: the weights once, as the block copies them into its
+//    shared-memory table, which holds f32 (kNarrowSmemFloats counts f32
+//    values at every type), and x as it loads it.
 // 3. split-K, for either route when its output tiles cannot fill the
 //    132 SMs (DCGAN d5: 64 x 1 outputs over K = 16,384; 3D-GAN d5: K =
 //    32,768): block split s sums its K range into an f32 scratch
 //    (splits, rows, Cout) without bias or activation, and splitk_reduce
-//    sums the splits in a fixed order, then applies the epilogue.  No
-//    atomics; no epilogue ever runs on a partial sum.
+//    sums the splits in a fixed order, then applies the epilogue and
+//    casts to T.  The scratch is f32 at every type.  No atomics; no
+//    epilogue ever runs on a partial sum.
 //
 // All offsets are 32-bit: the wrapper refuses operands of 2^31 elements
 // or more.  The mbarrier and TMA helpers repeat those of
@@ -106,6 +136,8 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -123,7 +155,6 @@ constexpr int kRouteTcFlat = 1;
 constexpr int kRouteNarrow = 2;
 
 constexpr int kBM = 128;        // tc: rows a block
-constexpr int kBK = 32;         // tc: K a stage, one 128-byte row of f32
 constexpr int kTcThreads = 384;
 constexpr int kConsumerWarps = 8;
 constexpr int kFlatMax = 2048;  // tc: the longest flattened (tap, c) index
@@ -136,6 +167,77 @@ __device__ __forceinline__ float activate(float v, int act, float slope) {
   if (act == kLeakyRelu) return v > 0.f ? v : slope * v;
   if (act == kTanh) return tanhf(v);
   return v;
+}
+
+// -- the storage types -------------------------------------------------------
+// The TMA element type of each, and whether the tc route splits it into
+// tf32 hi and lo (f32 only: a 2-byte product is exact in f32).
+template <typename T>
+struct Storage;
+template <>
+struct Storage<float> {
+  static constexpr bool kSplit = true;
+  static constexpr CUtensorMapDataType kTma = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+};
+template <>
+struct Storage<__nv_bfloat16> {
+  static constexpr bool kSplit = false;
+  static constexpr CUtensorMapDataType kTma = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <>
+struct Storage<__half> {
+  static constexpr bool kSplit = false;
+  static constexpr CUtensorMapDataType kTma = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+};
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+
+// f32 -> T, rounded to nearest even
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);
+}
+
+// Four consecutive values at p (16-byte aligned at f32, 8 at 2 bytes),
+// widened to f32.
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&q.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&q.y));
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
+}
+__device__ __forceinline__ void load4(const __half* p, float (&v)[4]) {
+  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&q.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&q.y));
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
 }
 
 // One launch's geometry: the padded input's spatial dims S, the phase
@@ -312,6 +414,67 @@ __device__ __forceinline__ void wgmma_tf32<128>(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// The same for 2-byte operands: d (64 x N, f32) = a (64 x 16) . b (N x
+// 16) + (scale_d ? d : 0), T bf16 or f16, both K-major (no transpose).
+#define GX_R32                                                              \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"  \
+  " %30, %31"
+#define GX_R64                                                              \
+  GX_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43,"   \
+  " %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57," \
+  " %58, %59, %60, %61, %62, %63"
+template <int N, typename T>
+__device__ __forceinline__ void wgmma_16(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_16<64, __nv_bfloat16>(
+    float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" GX_R32 "},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : GX_D16(0), GX_D16(16)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_16<128, __nv_bfloat16>(
+    float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" GX_R64 "},"
+      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : GX_D16(0), GX_D16(16), GX_D16(32), GX_D16(48)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_16<64, __half>(
+    float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {" GX_R32 "},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : GX_D16(0), GX_D16(16)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_16<128, __half>(
+    float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {" GX_R64 "},"
+      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : GX_D16(0), GX_D16(16), GX_D16(32), GX_D16(48)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+#undef GX_R64
+#undef GX_R32
 #undef GX_D16
 #undef GX_D4
 
@@ -330,15 +493,22 @@ __device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
 // at BN 128 (192 KB), four at 64.  A slab, the stages whose products go
 // into one fresh accumulator: two at BN 64; one at 128, where holding
 // two of the three stages starved the producer (3D-GAN's step 10%
-// slower on the card; at BN 64, 5% faster).
-template <int BN>
+// slower on the card; at BN 64, 5% faster).  At 2 bytes (no split) a
+// stage is A then B, six stages at BN 128 (192 KB) and eight at 64, and
+// a slab is one stage.
+template <int BN, typename T>
 struct TcTiles {
   static_assert(BN == 64 || BN == 128, "tc tiles are 64 or 128 wide");
-  static constexpr int kStages = BN == 128 ? 3 : 4;
-  static constexpr int kSlab = BN == 128 ? 1 : 2;
-  static constexpr int kABytes = kBM * kBK * 4;         // 16 KB
-  static constexpr int kBBytes = BN * kBK * 4;          // one of hi, lo
-  static constexpr int kStageBytes = 2 * kABytes + 2 * kBBytes;
+  static constexpr bool kSplit = Storage<T>::kSplit;
+  static constexpr int kBK = 128 / static_cast<int>(sizeof(T));  // K a stage
+  static constexpr int kStages = kSplit ? (BN == 128 ? 3 : 4)
+                                        : (BN == 128 ? 6 : 8);
+  static constexpr int kSlab = kSplit && BN == 64 ? 2 : 1;
+  static constexpr int kParts = kSplit ? 2 : 1;         // hi and lo, or one
+  static constexpr int kABytes = kBM * 128;             // 16 KB
+  static constexpr int kBBytes = BN * 128;              // one of hi, lo
+  static constexpr int kBOffset = kParts * kABytes;     // B in a stage
+  static constexpr int kStageBytes = kParts * (kABytes + kBBytes);
   // 1024 bytes of slack to align the tiles to the swizzle atom, then
   // the barriers: full[kStages], empty[kStages], then the flattened
   // K's offset table
@@ -360,7 +530,8 @@ struct TcItem {
   }
 };
 
-// The tc route (see the note at the top).  K is staged in stages of kBK:
+// The tc route (see the note at the top).  K is staged in stages of kBK
+// (TcTiles' K a stage, 32 at f32 and 64 at 2 bytes):
 // stage k of phase p is tap k / cin_stages, channels from
 // (k % cin_stages) * kBK, or (flat) entries k*kBK.. of the flattened
 // (tap, c) index.  Split s of `splits` takes stages [s*per, (s+1)*per).
@@ -368,7 +539,7 @@ struct TcItem {
 // ..., and the producer runs on into the next item's stages while the
 // consumers store the last one's outputs.  The ring's stage counter runs
 // on across items.
-template <int ND>
+template <int ND, int kBK>
 struct TcSpan {
   int st0, cnt;
   __device__ TcSpan(const Geom<ND>& g, int p, int s, int flat, int k_stages,
@@ -382,15 +553,17 @@ struct TcSpan {
   }
 };
 
-template <int ND, int BN>
+template <int ND, int BN, typename T>
 __global__ void __launch_bounds__(kTcThreads, 1)
 tc_kernel(const __grid_constant__ CUtensorMap tb_hi,
           const __grid_constant__ CUtensorMap tb_lo,
-          const float* __restrict__ x, const Geom<ND> g, int flat,
+          const T* __restrict__ x, const Geom<ND> g, int flat,
           int k_stages, int splits, int n_mt, int n_nt,
-          const float* __restrict__ bias, float* __restrict__ out,
+          const float* __restrict__ bias, T* __restrict__ out,
           float* __restrict__ scratch, int act, float slope) {
-  using Tl = TcTiles<BN>;
+  using Tl = TcTiles<BN, T>;
+  constexpr int kBK = Tl::kBK;
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // a 16-byte copy
   extern __shared__ uint8_t smem_raw[];
   uint8_t* tiles = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full =
@@ -422,7 +595,7 @@ tc_kernel(const __grid_constant__ CUtensorMap tb_hi,
     int it = 0, table_p = -1;
     for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
       const TcItem w(item, n_mt, n_nt, splits);
-      const TcSpan<ND> span(g, w.p, w.s, flat, k_stages, splits);
+      const TcSpan<ND, kBK> span(g, w.p, w.s, flat, k_stages, splits);
       if (span.cnt == 0) continue;
       const int m0 = w.mt * kBM;
       const int kmax = g.n_taps[w.p] * g.Cin;
@@ -448,15 +621,16 @@ tc_kernel(const __grid_constant__ CUtensorMap tb_hi,
         mbar_wait(&empty[stg], ((it / Tl::kStages) & 1) ^ 1);
         uint8_t* a = tiles + stg * Tl::kStageBytes;
         if (i == 0) {
-          uint8_t* b = a + 2 * Tl::kABytes;
-          mbar_expect_tx(&full[stg], 2 * Tl::kBBytes);
+          uint8_t* b = a + Tl::kBOffset;
+          mbar_expect_tx(&full[stg], Tl::kParts * Tl::kBBytes);
           tma_load3(b, &tb_hi, &full[stg], k * kBK, w.nt * BN, w.p);
-          tma_load3(b + Tl::kBBytes, &tb_lo, &full[stg], k * kBK, w.nt * BN,
-                    w.p);
+          if constexpr (Tl::kSplit)
+            tma_load3(b + Tl::kBBytes, &tb_lo, &full[stg], k * kBK,
+                      w.nt * BN, w.p);
         }
         if (!flat) {
           const int t = k / cin_stages;
-          const int c = (k - t * cin_stages) * kBK + 4 * chunk;
+          const int c = (k - t * cin_stages) * kBK + kVec * chunk;
           const int off = g.tap_off(w.p, t) + c;
           const bool c_ok = c < g.Cin;
 #pragma unroll
@@ -466,7 +640,7 @@ tc_kernel(const __grid_constant__ CUtensorMap tb_hi,
             cp_async16(a + r * 128 + ((chunk ^ (r & 7)) << 4),
                        ok ? x + base[j] + off : x, ok ? 16 : 0);
           }
-        } else {
+        } else if constexpr (sizeof(T) == 4) {
 #pragma unroll 8
           for (int e = 0; e < kBK; ++e) {
             const int kk = k * kBK + e;
@@ -474,8 +648,36 @@ tc_kernel(const __grid_constant__ CUtensorMap tb_hi,
             cp_async4(a + i * 128 + (((e >> 2) ^ (i & 7)) << 4) + 4 * (e & 3),
                       ok ? x + base[0] + flat_off[kk] : x, ok ? 4 : 0);
           }
+        } else {
+          // no 2-byte cp.async: load each value, store 16-byte chunks
+          const uint16_t* xs = reinterpret_cast<const uint16_t*>(x);
+#pragma unroll 1
+          for (int q = 0; q < 8; ++q) {
+            uint32_t v[4];
+#pragma unroll
+            for (int h = 0; h < 4; ++h) {
+              uint32_t pair = 0;
+#pragma unroll
+              for (int u = 0; u < 2; ++u) {
+                const int kk = k * kBK + 8 * q + 2 * h + u;
+                const uint32_t bits =
+                    base[0] >= 0 && kk < kmax
+                        ? __ldg(xs + base[0] + flat_off[kk]) : 0u;
+                pair |= bits << (16 * u);
+              }
+              v[h] = pair;
+            }
+            *reinterpret_cast<uint4*>(a + i * 128 + ((q ^ (i & 7)) << 4)) =
+                make_uint4(v[0], v[1], v[2], v[3]);
+          }
         }
-        cp_async_arrive(&full[stg]);
+        if (flat && sizeof(T) == 2) {
+          // the stores reach the wgmmas' (async) proxy, then the release
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          mbar_arrive(&full[stg]);
+        } else {
+          cp_async_arrive(&full[stg]);
+        }
       }
     }
     asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -494,30 +696,33 @@ tc_kernel(const __grid_constant__ CUtensorMap tb_hi,
 #pragma unroll
     for (int e = 0; e < BN / 2; ++e) acc[e] = 0.f;
     const int Mtot = g.B * g.P * g.plane();
-    // Splits this warpgroup's 64 rows of the stage's A into tf32 hi (in
-    // place) and lo (A's lo tile): four 16-byte chunks a thread, the
-    // layout kept; then makes the writes visible to the wgmmas.
+    // At f32, splits this warpgroup's 64 rows of the stage's A into tf32
+    // hi (in place) and lo (A's lo tile): four 16-byte chunks a thread,
+    // the layout kept.  Then, at every type, makes the stage's generic
+    // writes (the split's, the producer's) visible to the wgmmas.
     auto split_stage = [&](int stg) {
-      uint8_t* a = tiles + stg * Tl::kStageBytes + cw * 64 * 128;
+      if constexpr (Tl::kSplit) {
+        uint8_t* a = tiles + stg * Tl::kStageBytes + cw * 64 * 128;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float4* hi = reinterpret_cast<float4*>(a + 16 * (lt + 128 * q));
-        float4* lo = reinterpret_cast<float4*>(
-            a + Tl::kABytes + 16 * (lt + 128 * q));
-        float4 v = *hi, l;
-        split_tf32(v.x, v.x, l.x);
-        split_tf32(v.y, v.y, l.y);
-        split_tf32(v.z, v.z, l.z);
-        split_tf32(v.w, v.w, l.w);
-        *hi = v;
-        *lo = l;
+        for (int q = 0; q < 4; ++q) {
+          float4* hi = reinterpret_cast<float4*>(a + 16 * (lt + 128 * q));
+          float4* lo = reinterpret_cast<float4*>(
+              a + Tl::kABytes + 16 * (lt + 128 * q));
+          float4 v = *hi, l;
+          split_tf32(v.x, v.x, l.x);
+          split_tf32(v.y, v.y, l.y);
+          split_tf32(v.z, v.z, l.z);
+          split_tf32(v.w, v.w, l.w);
+          *hi = v;
+          *lo = l;
+        }
       }
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     };
     int it = 0;
     for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
       const TcItem w(item, n_mt, n_nt, splits);
-      const TcSpan<ND> span(g, w.p, w.s, flat, k_stages, splits);
+      const TcSpan<ND, kBK> span(g, w.p, w.s, flat, k_stages, splits);
       const int m0 = w.mt * kBM;
       const int n0 = w.nt * BN;
 #pragma unroll
@@ -528,8 +733,9 @@ tc_kernel(const __grid_constant__ CUtensorMap tb_hi,
         asm volatile("bar.sync %0, 128;\n" :: "r"(bar_id) : "memory");
       }
       // each slab (kSlab stages, at most 64 K) into a fresh accumulator:
-      // its stages' small terms first, then their a_hi.b_hi (each k8
-      // slice is 32 bytes: +2 in a descriptor)
+      // at f32 its stages' small terms first, then their a_hi.b_hi (each
+      // k8 slice is 32 bytes: +2 in a descriptor); at 2 bytes one stage's
+      // four k16 slices (32 bytes each too)
       for (int k = 0; k < span.cnt;) {
         const int n = min(Tl::kSlab, span.cnt - k);
         int stg[2];
@@ -538,36 +744,42 @@ tc_kernel(const __grid_constant__ CUtensorMap tb_hi,
         for (int h = 0; h < 2; ++h) {
           stg[h] = (it + h) % Tl::kStages;
           const uint8_t* a = tiles + stg[h] * Tl::kStageBytes + cw * 64 * 128;
-          const uint8_t* b = tiles + stg[h] * Tl::kStageBytes + 2 * Tl::kABytes;
+          const uint8_t* b = tiles + stg[h] * Tl::kStageBytes + Tl::kBOffset;
           da_hi[h] = smem_desc(a);
           da_lo[h] = smem_desc(a + Tl::kABytes);
           db_hi[h] = smem_desc(b);
           db_lo[h] = smem_desc(b + Tl::kBBytes);
         }
         wgmma_fence();
+        if constexpr (!Tl::kSplit) {
 #pragma unroll
-        for (int ks = 0; ks < 4; ++ks) {
-          wgmma_tf32<BN>(acc, da_lo[0] + 2 * ks, db_hi[0] + 2 * ks, ks > 0);
-          wgmma_tf32<BN>(acc, da_hi[0] + 2 * ks, db_lo[0] + 2 * ks, 1);
-        }
-        if (n == 2) {
-          // the slab's second stage is split while those run
-          mbar_wait(&full[stg[1]], ((it + 1) / Tl::kStages) & 1);
-          split_stage(stg[1]);
-          asm volatile("bar.sync %0, 128;\n" :: "r"(bar_id) : "memory");
-          wgmma_fence();
+          for (int ks = 0; ks < 4; ++ks)
+            wgmma_16<BN, T>(acc, da_hi[0] + 2 * ks, db_hi[0] + 2 * ks, ks > 0);
+        } else {
 #pragma unroll
           for (int ks = 0; ks < 4; ++ks) {
-            wgmma_tf32<BN>(acc, da_lo[1] + 2 * ks, db_hi[1] + 2 * ks, 1);
-            wgmma_tf32<BN>(acc, da_hi[1] + 2 * ks, db_lo[1] + 2 * ks, 1);
+            wgmma_tf32<BN>(acc, da_lo[0] + 2 * ks, db_hi[0] + 2 * ks, ks > 0);
+            wgmma_tf32<BN>(acc, da_hi[0] + 2 * ks, db_lo[0] + 2 * ks, 1);
           }
-        }
+          if (n == 2) {
+            // the slab's second stage is split while those run
+            mbar_wait(&full[stg[1]], ((it + 1) / Tl::kStages) & 1);
+            split_stage(stg[1]);
+            asm volatile("bar.sync %0, 128;\n" :: "r"(bar_id) : "memory");
+            wgmma_fence();
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          if (h < n) {
+            for (int ks = 0; ks < 4; ++ks) {
+              wgmma_tf32<BN>(acc, da_lo[1] + 2 * ks, db_hi[1] + 2 * ks, 1);
+              wgmma_tf32<BN>(acc, da_hi[1] + 2 * ks, db_lo[1] + 2 * ks, 1);
+            }
+          }
 #pragma unroll
-            for (int ks = 0; ks < 4; ++ks)
-              wgmma_tf32<BN>(acc, da_hi[h] + 2 * ks, db_hi[h] + 2 * ks, 1);
+          for (int h = 0; h < 2; ++h) {
+            if (h < n) {
+#pragma unroll
+              for (int ks = 0; ks < 4; ++ks)
+                wgmma_tf32<BN>(acc, da_hi[h] + 2 * ks, db_hi[h] + 2 * ks, 1);
+            }
           }
         }
         wgmma_commit();
@@ -608,8 +820,8 @@ tc_kernel(const __grid_constant__ CUtensorMap tb_hi,
             if (n >= g.Cout) continue;
             const float v = sum[4 * j + 2 * h + e];
             if (splits == 1) {
-              out[orow * g.Cout + n] =
-                  activate(v + (bias != nullptr ? bias[n] : 0.f), act, slope);
+              out[orow * g.Cout + n] = from_f32<T>(
+                  activate(v + (bias != nullptr ? bias[n] : 0.f), act, slope));
             } else {
               scratch[(w.s * Mtot + orow) * g.Cout + n] = v;
             }
@@ -626,14 +838,16 @@ tc_kernel(const __grid_constant__ CUtensorMap tb_hi,
 // PG phases (all P where their tables fit in shared memory, else one),
 // each warp every phase of its rows in turn: the phases of a tconv read
 // overlapping windows of the same input rows, which then come from L1.
-template <int ND, int NC, int VEC>
+// VEC = 4 loads four values (16 bytes at f32, 8 at 2 bytes).
+template <int ND, int NC, int VEC, typename T>
 __global__ void __launch_bounds__(kNarrowThreads)
-narrow_kernel(const float* __restrict__ x, const float* __restrict__ w,
+narrow_kernel(const T* __restrict__ x, const T* __restrict__ w,
               const Geom<ND> g, int splits, int kps, int pg,
               int rows_per_block, const float* __restrict__ bias,
-              float* __restrict__ out, float* __restrict__ scratch, int act,
+              T* __restrict__ out, float* __restrict__ scratch, int act,
               float slope) {
-  // per phase of the group: [kps][NC] weights; then [kps/VEC] offsets
+  // per phase of the group: [kps][NC] weights (f32); then [kps/VEC]
+  // offsets
   extern __shared__ float ws[];
   int* offs = reinterpret_cast<int*>(ws + pg * kps * NC);
   const int kc = kps / VEC;  // offset-table entries a phase
@@ -643,9 +857,9 @@ narrow_kernel(const float* __restrict__ x, const float* __restrict__ w,
   for (int ph = 0; ph < pg; ++ph) {
     const int p = p0 + ph;
     const int nk = max(min(k_lo + kps, g.n_taps[p] * g.Cin) - k_lo, 0);
-    const float* wp = w + (p * g.T * g.Cin + k_lo) * NC;
+    const T* wp = w + (p * g.T * g.Cin + k_lo) * NC;
     for (int e = threadIdx.x; e < nk * NC; e += kNarrowThreads)
-      ws[ph * kps * NC + e] = wp[e];
+      ws[ph * kps * NC + e] = to_f32(wp[e]);
     for (int j = threadIdx.x; j < nk / VEC; j += kNarrowThreads) {
       const int kk = k_lo + j * VEC;
       const int t = kk / g.Cin;
@@ -689,14 +903,9 @@ narrow_kernel(const float* __restrict__ x, const float* __restrict__ w,
           if (base[i] < 0) continue;
           float xv[VEC];
           if constexpr (VEC == 4) {
-            const float4 q = __ldg(reinterpret_cast<const float4*>(
-                x + base[i] + off));
-            xv[0] = q.x;
-            xv[1] = q.y;
-            xv[2] = q.z;
-            xv[3] = q.w;
+            load4(x + base[i] + off, xv);
           } else {
-            xv[0] = __ldg(x + base[i] + off);
+            xv[0] = to_f32(x[base[i] + off]);
           }
 #pragma unroll
           for (int v = 0; v < VEC; ++v)
@@ -720,8 +929,8 @@ narrow_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
           for (int n = 0; n < NC; ++n) {
             if (splits == 1)
-              out[orow * NC + n] = activate(
-                  acc[i][n] + (bias != nullptr ? bias[n] : 0.f), act, slope);
+              out[orow * NC + n] = from_f32<T>(activate(
+                  acc[i][n] + (bias != nullptr ? bias[n] : 0.f), act, slope));
             else
               scratch[(s * Mtot + orow) * NC + n] = acc[i][n];
           }
@@ -731,17 +940,19 @@ narrow_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// out[e] = act(bias + sum_s scratch[s][e]), the splits summed in order.
+// out[e] = T(act(bias + sum_s scratch[s][e])), the splits summed in
+// order in f32, cast once.
+template <typename T>
 __global__ void splitk_reduce(const float* __restrict__ scratch, int splits,
                               int n, int Cout,
                               const float* __restrict__ bias,
-                              float* __restrict__ out, int act, float slope) {
+                              T* __restrict__ out, int act, float slope) {
   for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n;
        e += gridDim.x * blockDim.x) {
     float v = 0.f;
     for (int s = 0; s < splits; ++s) v += scratch[s * n + e];
     if (bias != nullptr) v += bias[e % Cout];
-    out[e] = activate(v, act, slope);
+    out[e] = from_f32<T>(activate(v, act, slope));
   }
 }
 
@@ -775,21 +986,24 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The map of the prepared (P, Cout, K) f32 weights as (K, Cout, P), in
-// boxes of kBK x BN with the 128-byte swizzle; rows past Cout read as
-// zeros.
-inline CUresult make_b_map(EncodeTiledFn fn, CUtensorMap* map, const float* b,
+// The map of the prepared (P, Cout, K) weights of type T as (K, Cout,
+// P), in boxes of one 128-byte row of K (kBK values) x BN with the
+// 128-byte swizzle; rows past Cout read as zeros.
+template <typename T>
+inline CUresult make_b_map(EncodeTiledFn fn, CUtensorMap* map, const T* b,
                            int P, int Cout, int K, int BN) {
+  constexpr cuuint64_t kSize = sizeof(T);
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(K),
                               static_cast<cuuint64_t>(Cout),
                               static_cast<cuuint64_t>(P)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(K) * 4,
-                                 static_cast<cuuint64_t>(K) * Cout * 4};
-  const cuuint32_t box[3] = {kBK, static_cast<cuuint32_t>(BN), 1};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(K) * kSize,
+                                 static_cast<cuuint64_t>(K) * Cout * kSize};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(128 / kSize),
+                             static_cast<cuuint32_t>(BN), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(b),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return fn(map, Storage<T>::kTma, 3, const_cast<T*>(b), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
@@ -805,37 +1019,39 @@ inline int sm_count() {
   return n;
 }
 
-template <int ND, int BN>
-int launch_tc(const Geom<ND>& g, const float* x, const float* b_hi,
-              const float* b_lo, int kb, int flat, int splits,
-              const float* bias, float* out, float* scratch, int act,
-              float slope, cudaStream_t stream) {
-  using Tl = TcTiles<BN>;
+// b_lo is read at f32 only (the split); at 2 bytes b_hi holds the
+// weights and the kernel's second map is a copy of the first.
+template <int ND, int BN, typename T>
+int launch_tc(const Geom<ND>& g, const T* x, const T* b_hi, const T* b_lo,
+              int kb, int flat, int splits, const float* bias, T* out,
+              float* scratch, int act, float slope, cudaStream_t stream) {
+  using Tl = TcTiles<BN, T>;
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return -1;
   CUtensorMap maps[2];
-  const float* ptrs[2] = {b_hi, b_lo};
-  for (int i = 0; i < 2; ++i) {
+  const T* ptrs[2] = {b_hi, b_lo};
+  for (int i = 0; i < Tl::kParts; ++i) {
     const CUresult r = make_b_map(fn, &maps[i], ptrs[i], g.P, g.Cout, kb, BN);
     if (r != CUDA_SUCCESS) return -(1000 * (i + 1) + static_cast<int>(r));
   }
+  if (!Tl::kSplit) maps[1] = maps[0];
   const cudaError_t err = cudaFuncSetAttribute(
-      tc_kernel<ND, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      tc_kernel<ND, BN, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Tl::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_mt = (g.B * g.plane() + kBM - 1) / kBM;
   const int n_nt = (g.Cout + BN - 1) / BN;
   const int n_items = n_mt * n_nt * g.P * splits;
-  tc_kernel<ND, BN><<<min(n_items, sm_count()), kTcThreads, Tl::kSmemBytes,
-                      stream>>>(maps[0], maps[1], x, g, flat, kb / kBK,
-                                splits, n_mt, n_nt, bias, out, scratch, act,
-                                slope);
+  tc_kernel<ND, BN, T><<<min(n_items, sm_count()), kTcThreads,
+                         Tl::kSmemBytes, stream>>>(
+      maps[0], maps[1], x, g, flat, kb / Tl::kBK, splits, n_mt, n_nt, bias,
+      out, scratch, act, slope);
   return 0;
 }
 
-template <int ND, int NC>
-int launch_narrow(const Geom<ND>& g, const float* x, const float* w, int kps,
-                  int splits, const float* bias, float* out, float* scratch,
+template <int ND, int NC, typename T>
+int launch_narrow(const Geom<ND>& g, const T* x, const T* w, int kps,
+                  int splits, const float* bias, T* out, float* scratch,
                   int act, float slope, cudaStream_t stream) {
   const int M = g.B * g.plane();
   const int vec = g.Cin % 4 == 0 ? 4 : 1;
@@ -855,43 +1071,43 @@ int launch_narrow(const Geom<ND>& g, const float* x, const float* w, int kps,
   rpb = min(128, max(32, (rpb + 31) / 32 * 32));
   const dim3 grid((M + rpb - 1) / rpb, 1, z);
   if (vec == 4)
-    narrow_kernel<ND, NC, 4><<<grid, kNarrowThreads, smem, stream>>>(
+    narrow_kernel<ND, NC, 4, T><<<grid, kNarrowThreads, smem, stream>>>(
         x, w, g, splits, kps, pg, rpb, bias, out, scratch, act, slope);
   else
-    narrow_kernel<ND, NC, 1><<<grid, kNarrowThreads, smem, stream>>>(
+    narrow_kernel<ND, NC, 1, T><<<grid, kNarrowThreads, smem, stream>>>(
         x, w, g, splits, kps, pg, rpb, bias, out, scratch, act, slope);
   return 0;
 }
 
-// One call: the route's kernel, then (splits > 1) the reduce.  `kb` is
-// the prepared weights' K (tc) or the K range of a split (narrow);
-// `block_n` the tc tile's width (kernel_route's).
+// One call: the route's kernel of storage type T, then (splits > 1) the
+// reduce.  `kb` is the prepared weights' K (tc) or the K range of a split
+// (narrow); `block_n` the tc tile's width (kernel_route's).
 // Returns 0 when every launch was accepted, a CUDA runtime error (> 0),
 // -1 when the driver has no cuTensorMapEncodeTiled, -(1000 (i + 1) + r)
 // when encoding the map of b_hi (i = 0) or b_lo (i = 1) failed with
 // CUresult r, or -2 for a route, tile width or Cout the kernels do not
 // take.
-template <int ND>
-int run(const Geom<ND>& g, const float* x, const float* w, const float* b_hi,
-        const float* b_lo, const float* bias, float* out, float* scratch,
-        int route, int block_n, int splits, int kb, int act, float slope,
+template <int ND, typename T>
+int run(const Geom<ND>& g, const T* x, const T* w, const T* b_hi,
+        const T* b_lo, const float* bias, T* out, float* scratch, int route,
+        int block_n, int splits, int kb, int act, float slope,
         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc = -2;
   if (route == kRouteTc || route == kRouteTcFlat) {
     const int flat = route == kRouteTcFlat;
     if (block_n == 64)
-      rc = launch_tc<ND, 64>(g, x, b_hi, b_lo, kb, flat, splits, bias, out,
-                             scratch, act, slope, st);
+      rc = launch_tc<ND, 64, T>(g, x, b_hi, b_lo, kb, flat, splits, bias,
+                                out, scratch, act, slope, st);
     else if (block_n == 128)
-      rc = launch_tc<ND, 128>(g, x, b_hi, b_lo, kb, flat, splits, bias, out,
-                              scratch, act, slope, st);
+      rc = launch_tc<ND, 128, T>(g, x, b_hi, b_lo, kb, flat, splits, bias,
+                                 out, scratch, act, slope, st);
   } else if (route == kRouteNarrow) {
     switch (g.Cout) {
 #define GX_NARROW(nc)                                                        \
   case nc:                                                                   \
-    rc = launch_narrow<ND, nc>(g, x, w, kb, splits, bias, out, scratch, act, \
-                               slope, st);                                   \
+    rc = launch_narrow<ND, nc, T>(g, x, w, kb, splits, bias, out, scratch,  \
+                                  act, slope, st);                           \
     break;
       GX_NARROW(1) GX_NARROW(2) GX_NARROW(3) GX_NARROW(4)
       GX_NARROW(5) GX_NARROW(6) GX_NARROW(7) GX_NARROW(8)
@@ -906,8 +1122,8 @@ int run(const Geom<ND>& g, const float* x, const float* w, const float* b_hi,
   if (splits > 1) {
     const int n = g.B * g.P * g.plane() * g.Cout;
     const int blocks = min((n + 255) / 256, 132 * 8);
-    splitk_reduce<<<blocks, 256, 0, st>>>(scratch, splits, n, g.Cout, bias,
-                                          out, act, slope);
+    splitk_reduce<T><<<blocks, 256, 0, st>>>(scratch, splits, n, g.Cout,
+                                             bias, out, act, slope);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,15 +9,18 @@ volumetric kernel; so does this module.  :func:`ganax_conv_cuda` and
 :func:`ganax_conv3d_plain` compute the same functions in plain PyTorch,
 on any device.
 
-Each CUDA call takes one of three routes, which :func:`kernel_route`
-picks from the geometry alone: ``"tc"`` (Cout > 8: f32-exact products
-as 3xTF32 on the tensor cores, the weights split by :func:`tf32_split`
-into the (P, Cout, K) layout of :func:`tc_weights`), ``"narrow"``
-(Cout <= 8: a row-dot FFMA kernel), either of them with split-K (K
-summed by ranges into a scratch, then reduced in a fixed order before
-the epilogue) when its output tiles cannot fill the card.
-:func:`tc_route_emulation` repeats the tc route's order of sums in
-plain PyTorch.
+Each kernel has an instance per storage dtype (float32, bfloat16,
+float16: the C entry points ``<name>_f32``, ``_bf16``, ``_f16``), picked
+by the operands' dtype.  Each CUDA call takes one of three routes, which
+:func:`kernel_route` picks from the geometry and the dtype's size:
+``"tc"`` (Cout > 8: products on the tensor cores into f32 accumulators,
+the weights in the (P, Cout, K) layout of :func:`tc_weights` — at f32
+exact as 3xTF32, split by :func:`tf32_split`; at bf16/f16 one product
+each, which is exact in f32), ``"narrow"`` (Cout <= 8: a row-dot FFMA
+kernel in f32), either of them with split-K (K summed by ranges into an
+f32 scratch, then reduced in a fixed order before the epilogue) when its
+output tiles cannot fill the card.  :func:`tc_route_emulation` repeats
+the tc route's order of sums in plain PyTorch.
 
 Layout contract (prepared by ``ops.py`` from the schedule), with
 ``S`` the spatial dims ``(Hp, Wp)`` or ``(Dp, Hp, Wp)`` and ``Q`` the
@@ -29,13 +32,16 @@ phase grid ``(Qy, Qx)`` or ``(Qz, Qy, Qx)``:
                                input offset along each spatial dim
                                (≥ 0, into x_pad)
   bias    (Cout,)              optional fused-epilogue bias (f32)
-  out     (B, P, *Q, Cout)     phase-major output planes
+  out     (B, P, *Q, Cout)     phase-major output planes, x_pad's dtype
 
 Phase ``p``'s output ``q`` is
 ``act(bias + Σ_{t < n_taps[p]} x_pad[b, d + q·s, :] @ w_taps[p, t])``
 with ``d`` its tap's offsets and ``s`` the output strides, per spatial
-dim.  A phase with no taps still writes ``act(bias)``.  f32 storage and
-f32 accumulation.
+dim.  A phase with no taps still writes ``act(bias)``.  ``x_pad`` and
+``w_taps`` share one storage dtype (float32, bfloat16 or float16); the
+products are summed in f32, the epilogue runs on the f32 sum, and the
+output is cast to the storage dtype once, as the Pallas kernels' f32
+VMEM scratch and single cast at the flush do.
 """
 
 from __future__ import annotations
@@ -56,28 +62,34 @@ __all__ = ["TapTables", "apply_epilogue_to_acc", "ganax_conv_plain",
            "ganax_conv_cuda", "ganax_conv3d_plain", "ganax_conv3d_cuda",
            "ACTIVATION_CODES", "KernelRoute", "kernel_route", "tf32_split",
            "tc_weights", "tc_route_emulation", "plain_sums",
-           "check_tma_weights"]
+           "check_tma_weights", "tc_block_k", "flat_k_needed",
+           "STORAGE_SUFFIX"]
 
 # The kernels' activation argument (see ganax_conv_sm90.cuh).
 ACTIVATION_CODES = {"none": 0, "relu": 1, "leaky_relu": 2, "tanh": 3}
 # The kernels' route argument: tc with (tap, Cin) stages, tc with the
-# flattened (tap, c) index (Cin % 4 != 0), narrow.
+# flattened (tap, c) index (Cin not a multiple of a 16-byte copy), narrow.
 ROUTE_CODES = {("tc", False): 0, ("tc", True): 1, ("narrow", False): 2}
+# The storage dtypes of x_pad, w_taps and the output, by the suffix of
+# their kernel instance's C entry point (<name>_f32, _bf16, _f16).
+STORAGE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
+                  torch.float16: "f16"}
 
 _INT32_MAX = 2 ** 31 - 1
 # what 16-byte copies and TMA need of an address
 _ALIGN = 16
 # the card's SMs (an H100 SXM), which split-K aims to fill
 SMS = 132
-# tc: rows a block, K a stage (one 128-byte row of f32, the TMA box and
-# swizzle atom); Cout above NARROW_MAX_COUT
-TC_BLOCK_M, TC_BLOCK_K = 128, 32
-# tc: the stages (of TC_BLOCK_K) whose products share a fresh
-# accumulator, by tile width (TcTiles::kSlab)
-TC_SLAB_STAGES = {64: 2, 128: 1}
+# tc: rows a block (K a stage: tc_block_k); Cout above NARROW_MAX_COUT
+TC_BLOCK_M = 128
+# tc: the stages whose products share a fresh accumulator, by (tile
+# width, itemsize) (TcTiles::kSlab): 32 or 64 K at f32, 64 at 2 bytes
+TC_SLAB_STAGES = {(64, 4): 2, (128, 4): 1, (64, 2): 1, (128, 2): 1}
 NARROW_MAX_COUT = 8
 # narrow: rows a block at the least, a K range's weights and offset
-# table in shared memory (floats, 48 KB), the least K a split takes
+# table in shared memory (48 KB: the weights held as f32 whatever the
+# storage dtype, widened once as the block loads them), the least K a
+# split takes
 NARROW_BLOCK_ROWS = 32
 NARROW_SMEM_FLOATS = 12288
 NARROW_MIN_SPLIT_K = 512
@@ -91,11 +103,25 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def tc_block_k(itemsize: int = 4) -> int:
+    """The tc route's K a stage for elements of ``itemsize`` bytes: one
+    128-byte row, the TMA box and swizzle atom (32 f32, 64 bf16/f16)."""
+    return 128 // itemsize
+
+
+def flat_k_needed(cin: int, itemsize: int = 4) -> bool:
+    """Whether the tc route stages the flattened (tap, c) index: where a
+    row's Cin channels are not a whole number of 16-byte copies (Cin %
+    4 != 0 at f32, Cin % 8 != 0 at bf16/f16)."""
+    return cin % (16 // itemsize) != 0
+
+
 @dataclasses.dataclass(frozen=True)
 class KernelRoute:
     """The route of one call: ``kind`` ``"tc"`` or ``"narrow"``;
     ``splits`` K ranges summed by the reduce kernel (1: none);
-    ``flat_k``: tc stages the flattened (tap, c) index (Cin % 4 != 0);
+    ``flat_k``: tc stages the flattened (tap, c) index
+    (:func:`flat_k_needed`);
     ``block_n``: tc's tile width; ``k_split``: the K a narrow split
     takes."""
 
@@ -113,13 +139,14 @@ class KernelRoute:
 
 
 def kernel_route(cin: int, cout: int, rows: int, k: int,
-                 phases: int = 1) -> KernelRoute:
+                 phases: int = 1, itemsize: int = 4) -> KernelRoute:
     """The route of a call with ``phases`` phases of ``rows`` output rows
     (B·∏Q) and at most ``k`` = T·Cin products a row, from the geometry
-    alone.  Cout <= 8 is narrow, the rest tc; either splits K in powers
-    of two while its blocks would not fill twice (narrow) or once (tc)
-    the card's SMs and each split keeps enough K; a narrow split also
-    keeps its weights and offsets within shared memory."""
+    and the storage dtype's ``itemsize`` alone.  Cout <= 8 is narrow,
+    the rest tc; either splits K in powers of two while its blocks would
+    not fill twice (narrow) or once (tc) the card's SMs and each split
+    keeps enough K; a narrow split also keeps its weights and offsets
+    within shared memory."""
     if cout <= NARROW_MAX_COUT:
         units = phases * _cdiv(rows, NARROW_BLOCK_ROWS)
         splits = 1
@@ -132,10 +159,10 @@ def kernel_route(cin: int, cout: int, rows: int, k: int,
                or k_split(splits) * (cout + 1) > NARROW_SMEM_FLOATS):
             splits *= 2
         return KernelRoute("narrow", splits, k_split=k_split(splits))
-    flat = cin % 4 != 0
+    flat = flat_k_needed(cin, itemsize)
     block_n = 64 if cout <= 64 else 128
-    stages = (_cdiv(k, TC_BLOCK_K) if flat
-              else (k // cin) * _cdiv(cin, TC_BLOCK_K))
+    bk = tc_block_k(itemsize)
+    stages = _cdiv(k, bk) if flat else (k // cin) * _cdiv(cin, bk)
     tiles = phases * _cdiv(rows, TC_BLOCK_M) * _cdiv(cout, block_n)
     splits = 1
     while tiles * splits < SMS and stages // (2 * splits) >= \
@@ -162,25 +189,30 @@ def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def tc_weights(w_taps: torch.Tensor, flat_k: bool
-               ) -> tuple[torch.Tensor, torch.Tensor, int]:
+               ) -> tuple[torch.Tensor, torch.Tensor | None, int]:
     """The tc route's B operand from ``w_taps`` (P, T, Cin, Cout): the
-    weights K-major as (P, Cout, K), split by :func:`tf32_split`, and
-    K.  K is (tap, Cin) with Cin zero-padded to a multiple of
-    ``TC_BLOCK_K``, or (``flat_k``) the flattened (tap, c) index
-    zero-padded to one."""
+    weights K-major as (P, Cout, K) in ``w_taps``' dtype, and K.  K is
+    (tap, Cin) with Cin zero-padded to a multiple of the dtype's
+    :func:`tc_block_k`, or (``flat_k``) the flattened (tap, c) index
+    zero-padded to one (so a row is a multiple of 16 bytes, as TMA
+    needs).  At f32 the weights come split by :func:`tf32_split` as
+    ``(hi, lo, K)``; at bf16/f16 as ``(b, None, K)``, one operand."""
     p, t, cin, cout = w_taps.shape
+    bk = tc_block_k(w_taps.element_size())
+    # one copy into a contiguous layout, zeros in the pad
     if flat_k:
-        k = _cdiv(t * cin, TC_BLOCK_K) * TC_BLOCK_K
-        b = w_taps.reshape(p, t * cin, cout).transpose(1, 2)
-        pad = k - t * cin
+        k = _cdiv(t * cin, bk) * bk
+        b = w_taps.new_zeros((p, cout, k))
+        b[..., :t * cin] = w_taps.reshape(p, t * cin, cout).transpose(1, 2)
     else:
-        cin_pad = _cdiv(cin, TC_BLOCK_K) * TC_BLOCK_K
+        cin_pad = _cdiv(cin, bk) * bk
         k = t * cin_pad
-        b = w_taps.permute(0, 3, 1, 2)
-        pad = cin_pad - cin
-    # one copy into the layout (the pad's, where there is one)
-    b = F.pad(b, (0, pad)) if pad else b.contiguous()
-    hi, lo = tf32_split(b.reshape(p, cout, k))
+        b = w_taps.new_zeros((p, cout, t, cin_pad))
+        b[..., :cin] = w_taps.permute(0, 3, 1, 2)
+        b = b.reshape(p, cout, k)
+    if w_taps.dtype != torch.float32:
+        return b, None, k
+    hi, lo = tf32_split(b)
     return hi, lo, k
 
 
@@ -270,8 +302,9 @@ def _check(x_pad, w_taps, tables: TapTables, out_strides, q_sizes, bias,
     """Validate one call against the layout contract, at the rank of
     ``q_sizes``."""
     nd = len(q_sizes)
-    if x_pad.dtype != torch.float32 or w_taps.dtype != torch.float32:
-        raise TypeError(f"ganax_conv takes float32 x_pad and w_taps, got "
+    if x_pad.dtype not in STORAGE_SUFFIX or w_taps.dtype != x_pad.dtype:
+        raise TypeError(f"ganax_conv takes x_pad and w_taps of one storage "
+                        f"dtype (float32, bfloat16 or float16), got "
                         f"{x_pad.dtype} and {w_taps.dtype}")
     if x_pad.ndim != nd + 2 or w_taps.ndim != 4:
         raise ValueError(f"x_pad must be (B, {nd} spatial dims, Cin) and "
@@ -307,23 +340,32 @@ def _check(x_pad, w_taps, tables: TapTables, out_strides, q_sizes, bias,
                          f"{bias.dtype} {tuple(bias.shape)}")
 
 
-def plain_sums(x_pad, w_taps, tables: TapTables, out_strides, q_sizes
-               ) -> torch.Tensor:
+def plain_sums(x_pad, w_taps, tables: TapTables, out_strides, q_sizes,
+               acc_dtype: torch.dtype | None = None) -> torch.Tensor:
     """The plain version's arithmetic, unchecked: per phase, a loop over
-    its taps of matmuls into an accumulator, (B, P, *Q, Cout) before
-    the epilogue.  It does not refuse TF32, so that a control on the
-    card can run it with TF32 on; everything else calls the checked
+    its taps of matmuls into an accumulator of ``acc_dtype``, (B, P, *Q,
+    Cout) before the epilogue.  By default the accumulator is f32 for
+    the storage dtypes (the operands widened first: a bf16 or f16
+    product is exact in f32) and the operands' own dtype for wider ones
+    (float64, for exactness checks).  It does not refuse TF32, and
+    ``acc_dtype`` may be a storage dtype (each tap's matmul and the sum
+    rounded to it), so that the controls on the card can run it with
+    TF32 on or storage-dtype sums; everything else calls the checked
     plain versions."""
+    if acc_dtype is None:
+        acc_dtype = torch.promote_types(x_pad.dtype, torch.float32)
     b, cin = x_pad.shape[0], x_pad.shape[-1]
     p, _, _, cout = w_taps.shape
-    out = x_pad.new_empty((b, p, *q_sizes, cout))
+    out = x_pad.new_empty((b, p, *q_sizes, cout), dtype=acc_dtype)
     for ph, taps in enumerate(tables.taps):
-        acc = x_pad.new_zeros((b * int(np.prod(q_sizes)), cout))
+        acc = x_pad.new_zeros((b * int(np.prod(q_sizes)), cout),
+                              dtype=acc_dtype)
         for t, tap in enumerate(taps):
             window = tuple(slice(d, d + (q - 1) * s + 1, s) for d, q, s
                            in zip(tap, q_sizes, out_strides))
             xt = x_pad[(slice(None),) + window]
-            acc += xt.reshape(-1, cin) @ w_taps[ph, t]
+            acc += xt.reshape(-1, cin).to(acc_dtype) @ \
+                w_taps[ph, t].to(acc_dtype)
         out[:, ph] = acc.reshape(b, *q_sizes, cout)
     return out
 
@@ -334,7 +376,7 @@ def _plain(x_pad, w_taps, tables, out_strides, q_sizes, bias, activation,
     require_ieee_f32(x_pad)
     return apply_epilogue_to_acc(
         plain_sums(x_pad, w_taps, tables, out_strides, q_sizes), bias,
-        activation, leaky_slope)
+        activation, leaky_slope).to(x_pad.dtype)
 
 
 def ganax_conv_plain(x_pad: torch.Tensor, w_taps: torch.Tensor,
@@ -343,8 +385,9 @@ def ganax_conv_plain(x_pad: torch.Tensor, w_taps: torch.Tensor,
                      activation: str = "none", leaky_slope: float = 0.2
                      ) -> torch.Tensor:
     """The planar kernel's function in plain PyTorch: per phase, a loop
-    over its taps of f32 matmuls into an accumulator, then the epilogue.
-    Runs on any device (TF32 off on the card)."""
+    over its taps of f32 matmuls (on the storage-dtype operands widened
+    to f32) into an f32 accumulator, then the epilogue and one cast to
+    the storage dtype.  Runs on any device (TF32 off on the card)."""
     return _plain(x_pad, w_taps, tables, out_strides, (qy, qx), bias,
                   activation, leaky_slope)
 
@@ -356,8 +399,9 @@ def ganax_conv3d_plain(x_pad: torch.Tensor, w_taps: torch.Tensor,
                        activation: str = "none", leaky_slope: float = 0.2
                        ) -> torch.Tensor:
     """The volumetric kernel's function in plain PyTorch: per phase, f32
-    matmuls on the strided 3-D windows of its taps, then the epilogue.
-    Runs on any device (TF32 off on the card)."""
+    matmuls on the strided 3-D windows of its taps, then the epilogue
+    and one cast to the storage dtype.  Runs on any device (TF32 off on
+    the card)."""
     return _plain(x_pad, w_taps, tables, out_strides, (qz, qy, qx), bias,
                   activation, leaky_slope)
 
@@ -365,7 +409,7 @@ def ganax_conv3d_plain(x_pad: torch.Tensor, w_taps: torch.Tensor,
 def _route_of(x_pad, w_taps, q_sizes) -> KernelRoute:
     p, t, cin, cout = w_taps.shape
     return kernel_route(cin, cout, x_pad.shape[0] * math.prod(q_sizes),
-                        t * cin, p)
+                        t * cin, p, x_pad.element_size())
 
 
 def tc_route_emulation(x_pad: torch.Tensor, w_taps: torch.Tensor,
@@ -373,29 +417,35 @@ def tc_route_emulation(x_pad: torch.Tensor, w_taps: torch.Tensor,
                        bias: torch.Tensor | None = None,
                        activation: str = "none", leaky_slope: float = 0.2,
                        splits: int | None = None) -> torch.Tensor:
-    """The tc route's order of sums in plain PyTorch, 2-D or 3-D (the
-    CPU's counterpart of the kernel, for the tests): per phase, the rows'
-    gathered K (``tc_weights``' layout, zeros where the kernel
-    zero-fills) in stages of ``TC_BLOCK_K``; for each slab of a split
-    (``TC_SLAB_STAGES`` of the tile width), the products ``a_lo·b_hi +
-    a_hi·b_lo`` stage by stage, then ``+ a_hi·b_hi``, into a fresh sum
-    (the kernel's fresh accumulator), added to the split's f32 sum; the
-    splits (``kernel_route``'s unless given) summed in order, and only
-    then the epilogue.  The CPU adds each stage's products in f32, where
-    the tensor cores drop low bits; the order is the kernel's."""
+    """The tc route's order of sums in plain PyTorch, 2-D or 3-D, at any
+    storage dtype (the CPU's counterpart of the kernel, for the tests):
+    per phase, the rows' gathered K (``tc_weights``' layout, zeros where
+    the kernel zero-fills) in stages of the dtype's :func:`tc_block_k`;
+    for each slab of a split (``TC_SLAB_STAGES`` of the tile width and
+    itemsize), into a fresh f32 sum, added to the split's f32 sum: at
+    f32 the products ``a_lo·b_hi + a_hi·b_lo`` stage by stage, then ``+
+    a_hi·b_hi``; at bf16/f16 one product ``a·b`` a stage, the operands
+    widened to f32 (where the product is exact).  The splits
+    (``kernel_route``'s unless given) are summed in order, and only then
+    come the epilogue and the one cast to the storage dtype.  The CPU
+    adds each stage's products in f32, where the tensor cores drop low
+    bits; the order is the kernel's."""
     _check(x_pad, w_taps, tables, out_strides, q_sizes, None, activation)
     route = _route_of(x_pad, w_taps, q_sizes)
     if route.kind != "tc":
         raise ValueError(f"Cout {w_taps.shape[-1]} takes the {route.kind} "
                          f"route, not tc")
     splits = route.splits if splits is None else splits
+    itemsize = x_pad.element_size()
+    bk = tc_block_k(itemsize)
     b_hi, b_lo, kb = tc_weights(w_taps, route.flat_k)
     b, cin = x_pad.shape[0], x_pad.shape[-1]
     p, t_max, _, cout = w_taps.shape
     cin_pad = kb // t_max if not route.flat_k else cin
-    n_stages = kb // TC_BLOCK_K
+    n_stages = kb // bk
     per = _cdiv(n_stages, splits)
     rows = b * math.prod(q_sizes)
+    slab = TC_SLAB_STAGES[route.block_n, itemsize]
     out = x_pad.new_empty((b, p, *q_sizes, cout))
     for ph, taps in enumerate(tables.taps):
         # the phase's A operand, (rows, kb), as the producer gathers it
@@ -407,35 +457,42 @@ def tc_route_emulation(x_pad: torch.Tensor, w_taps: torch.Tensor,
             cols.append(xt if route.flat_k
                         else F.pad(xt, (0, cin_pad - cin)))
         a = torch.cat(cols, dim=1) if cols else x_pad.new_zeros((rows, 0))
-        a = F.pad(a, (0, kb - a.shape[1]))
-        a_hi, a_lo = tf32_split(a)
-        bh, bl = b_hi[ph].T, b_lo[ph].T                 # (kb, Cout)
-        acc = x_pad.new_zeros((splits, rows, cout))
+        a = F.pad(a, (0, kb - a.shape[1])).float()
+        if b_lo is None:
+            terms = [(a, b_hi[ph].T.float())]          # (kb, Cout)
+            last = []
+        else:
+            a_hi, a_lo = tf32_split(a)
+            bh, bl = b_hi[ph].T, b_lo[ph].T
+            terms = [(a_lo, bh), (a_hi, bl)]
+            last = [(a_hi, bh)]
+        acc = a.new_zeros((splits, rows, cout))
         for s in range(splits):
             stages = range(s * per, min((s + 1) * per, n_stages))
-            slab = TC_SLAB_STAGES[route.block_n]
             for i in range(0, len(stages), slab):
-                ks = [slice(st * TC_BLOCK_K, (st + 1) * TC_BLOCK_K)
+                ks = [slice(st * bk, (st + 1) * bk)
                       for st in stages[i:i + slab]]
-                fresh = x_pad.new_zeros((rows, cout))
+                fresh = a.new_zeros((rows, cout))
                 for k in ks:
-                    fresh = fresh + a_lo[:, k] @ bh[k]
-                    fresh = fresh + a_hi[:, k] @ bl[k]
+                    for u, v in terms:
+                        fresh = fresh + u[:, k] @ v[k]
                 for k in ks:
-                    fresh = fresh + a_hi[:, k] @ bh[k]
+                    for u, v in last:
+                        fresh = fresh + u[:, k] @ v[k]
                 acc[s] += fresh
         total = acc[0]
         for s in range(1, splits):
             total = total + acc[s]
         out[:, ph] = apply_epilogue_to_acc(
-            total, bias, activation, leaky_slope).reshape(b, *q_sizes, cout)
+            total, bias, activation, leaky_slope).reshape(
+                b, *q_sizes, cout).to(x_pad.dtype)
     return out
 
 
 @functools.cache
-def _library(name: str, nd: int):
+def _library(name: str, nd: int, suffix: str):
     from repro_torch.kernels.build import load
-    fn = getattr(load(name), f"{name}_f32")
+    fn = getattr(load(name), f"{name}_{suffix}")
     # x, w, b_hi, b_lo, n_taps, one offset table per dim, bias, out,
     # scratch; then B, the spatial dims, Cin, P, T, Cout, the phase
     # grid, the strides, route, block_n, splits, kb, act; slope; the
@@ -473,25 +530,30 @@ def _check_aligned(name: str, a: torch.Tensor, what: str) -> None:
 
 
 def check_tma_weights(b: torch.Tensor) -> None:
-    """Raise unless TMA can read the tc route's (P, Cout, K) f32 weights
-    ``b`` as the kernel's tensor map does: contiguous, the row stride
-    (K floats) and the address multiples of 16 bytes."""
-    if b.dtype != torch.float32 or b.ndim != 3 or not b.is_contiguous():
+    """Raise unless TMA can read the tc route's (P, Cout, K) weights
+    ``b`` (of a storage dtype) as the kernel's tensor map does:
+    contiguous, the row stride (K values) and the address multiples of
+    16 bytes."""
+    if b.dtype not in STORAGE_SUFFIX or b.ndim != 3 or \
+            not b.is_contiguous():
         raise ValueError(f"the tc route reads contiguous (P, Cout, K) "
-                         f"float32 weights by TMA, got {b.dtype} "
-                         f"{tuple(b.shape)} with strides {b.stride()}")
-    if (b.shape[2] * 4) % _ALIGN:
+                         f"weights of a storage dtype by TMA, got "
+                         f"{b.dtype} {tuple(b.shape)} with strides "
+                         f"{b.stride()}")
+    row = b.shape[2] * b.element_size()
+    if row % _ALIGN:
         raise ValueError(f"the tc route reads its weights by TMA, whose "
                          f"strides are multiples of {_ALIGN} bytes: a row "
-                         f"of K = {b.shape[2]} floats is {b.shape[2] * 4}")
+                         f"of K = {b.shape[2]} {b.dtype} values is {row}")
     _check_aligned("the tc route", b, "its weights by TMA")
 
 
 def _cuda(wrapper, x_pad, w_taps, tables, out_strides, q_sizes, bias,
           activation, leaky_slope) -> torch.Tensor:
     """Check, route, allocate and launch one call of the kernel of
-    ``wrapper`` (``<name>_cuda`` launches ``csrc/<name>.cu``); count it
-    there, once, and under its route."""
+    ``wrapper`` (``<name>_cuda`` launches ``csrc/<name>.cu``'s instance
+    of x_pad's dtype); count it there, once, under its route and under
+    its dtype."""
     name = wrapper.__name__
     _check(x_pad, w_taps, tables, out_strides, q_sizes, bias, activation)
     dev = x_pad.device
@@ -508,7 +570,8 @@ def _cuda(wrapper, x_pad, w_taps, tables, out_strides, q_sizes, bias,
     p, t, _, cout = w_taps.shape
     route = _route_of(x_pad, w_taps, q_sizes)
     if cin % 4 == 0:
-        # 16-byte copies (tc) or loads (narrow) of each row's channels
+        # 16-byte copies (tc) or 16- or 8-byte loads (narrow) of each
+        # row's channels
         _check_aligned(name, x_pad, "x_pad by 16-byte copies")
     b_hi = b_lo = scratch = None
     kb = route.k_split
@@ -518,9 +581,10 @@ def _cuda(wrapper, x_pad, w_taps, tables, out_strides, q_sizes, bias,
                          f"Cin {cin}")
     if route.kind == "tc":
         b_hi, b_lo, kb = tc_weights(w_taps, route.flat_k)
-        check_tma_weights(b_hi)
-        check_tma_weights(b_lo)
-    out = torch.empty((b, p, *q_sizes, cout), dtype=torch.float32,
+        for weights in (b_hi, b_lo):
+            if weights is not None:
+                check_tma_weights(weights)
+    out = torch.empty((b, p, *q_sizes, cout), dtype=x_pad.dtype,
                       device=dev)
     if route.splits > 1:
         scratch = torch.empty((route.splits, *out.shape), dtype=torch.float32,
@@ -529,7 +593,8 @@ def _cuda(wrapper, x_pad, w_taps, tables, out_strides, q_sizes, bias,
            if a is not None) > _INT32_MAX:
         raise ValueError(f"{name} indexes with 32-bit offsets; split the "
                          f"batch")
-    fn = _library(name.removesuffix("_cuda"), len(q_sizes))
+    fn = _library(name.removesuffix("_cuda"), len(q_sizes),
+                  STORAGE_SUFFIX[x_pad.dtype])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x_pad.data_ptr(), w_taps.data_ptr(), _ptr(b_hi),
@@ -544,6 +609,7 @@ def _cuda(wrapper, x_pad, w_taps, tables, out_strides, q_sizes, bias,
         raise _launch_error(err, name)
     wrapper.launches += 1
     wrapper.launches_by_route[route.name] += 1
+    wrapper.launches_by_dtype[str(x_pad.dtype).removeprefix("torch.")] += 1
     return out
 
 
@@ -552,16 +618,18 @@ def ganax_conv_cuda(x_pad: torch.Tensor, w_taps: torch.Tensor,
                     qy: int, qx: int, bias: torch.Tensor | None = None,
                     activation: str = "none", leaky_slope: float = 0.2
                     ) -> torch.Tensor:
-    """Launch the planar CUDA kernel on the current stream (no
-    synchronise).
+    """Launch the planar CUDA kernel's instance of ``x_pad``'s dtype on
+    the current stream (no synchronise).
 
-    Takes contiguous float32 CUDA tensors on one device, ``x_pad`` at a
-    16-byte aligned address where Cin % 4 = 0, and raises on anything
-    else; the output, the tc route's split weights and split-K's
-    scratch are allocated here.  The route is :func:`kernel_route`'s.
-    Each call adds one to ``ganax_conv_cuda.launches`` (a split-K call
-    runs two device kernels) and one to
-    ``ganax_conv_cuda.launches_by_route[route.name]``."""
+    Takes contiguous CUDA tensors on one device, ``x_pad`` and
+    ``w_taps`` of one storage dtype (float32, bfloat16 or float16) and
+    a float32 ``bias``, ``x_pad`` at a 16-byte aligned address where
+    Cin % 4 = 0, and raises on anything else; the output (in the
+    storage dtype), the tc route's weights and split-K's f32 scratch
+    are allocated here.  The route is :func:`kernel_route`'s.  Each call
+    adds one to ``ganax_conv_cuda.launches`` (a split-K call runs two
+    device kernels), to ``ganax_conv_cuda.launches_by_route[route.name]``
+    and to ``ganax_conv_cuda.launches_by_dtype[dtype name]``."""
     return _cuda(ganax_conv_cuda, x_pad, w_taps, tables, out_strides,
                  (qy, qx), bias, activation, leaky_slope)
 
@@ -574,14 +642,18 @@ def ganax_conv3d_cuda(x_pad: torch.Tensor, w_taps: torch.Tensor,
                       ) -> torch.Tensor:
     """Launch the volumetric CUDA kernel on the current stream (no
     synchronise).  Takes what :func:`ganax_conv_cuda` takes, with a depth
-    axis; each call adds one to ``ganax_conv3d_cuda.launches`` and to
-    ``ganax_conv3d_cuda.launches_by_route[route.name]``."""
+    axis; each call adds one to ``ganax_conv3d_cuda.launches``,
+    ``ganax_conv3d_cuda.launches_by_route[route.name]`` and
+    ``ganax_conv3d_cuda.launches_by_dtype[dtype name]``."""
     return _cuda(ganax_conv3d_cuda, x_pad, w_taps, tables, out_strides,
                  (qz, qy, qx), bias, activation, leaky_slope)
 
 
 ganax_conv_cuda.launches = 0
 ganax_conv3d_cuda.launches = 0
-# launches by KernelRoute.name
+# launches by KernelRoute.name, and by the storage dtype's name
+# ("float32", "bfloat16", "float16": one kernel instance each)
 ganax_conv_cuda.launches_by_route = collections.Counter()
 ganax_conv3d_cuda.launches_by_route = collections.Counter()
+ganax_conv_cuda.launches_by_dtype = collections.Counter()
+ganax_conv3d_cuda.launches_by_dtype = collections.Counter()

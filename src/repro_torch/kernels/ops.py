@@ -8,7 +8,9 @@ image or volume.  The kernel is :func:`ganax_conv_cuda` (2-D) or
 :func:`ganax_conv3d_cuda` (3-D) for a CUDA tensor, and its plain version
 (:func:`ganax_conv_plain` / :func:`ganax_conv3d_plain`) for a CPU
 tensor; ``plain=True`` (the ``"ganax-plain"`` oracle, pinned by name
-only) runs the plain version on any device.
+only) runs the plain version on any device.  x and w share one storage
+dtype (float32, bfloat16 or float16): the taps are gathered in it, the
+bias goes in as f32, and the output comes out in x's dtype.
 
 The tap tables and gather indices of a layer geometry are built once
 per device and cached, as ``compile_uops`` caches the schedule; only
@@ -32,7 +34,8 @@ from repro_torch.core.dataflow import (Epilogue, _f_pad,
                                        compile_conv_uops, compile_uops,
                                        require_kernel_rank)
 from repro_torch.core.tconv import interleave_phases
-from repro_torch.kernels.ganax_conv import (TapTables, ganax_conv3d_cuda,
+from repro_torch.kernels.ganax_conv import (STORAGE_SUFFIX, TapTables,
+                                            ganax_conv3d_cuda,
                                             ganax_conv3d_plain,
                                             ganax_conv_cuda, ganax_conv_plain)
 
@@ -77,11 +80,10 @@ def _check_inputs(x: torch.Tensor, w: torch.Tensor, route: str) -> None:
     if w.ndim != x.ndim:
         raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} "
                          f"differ in rank")
-    if x.dtype != torch.float32 or w.dtype != torch.float32:
-        raise NotImplementedError(
-            f"ganax {route} serves float32 only, got {x.dtype} and "
-            f"{w.dtype}; bf16/f16 storage is the quantization item of "
-            f"ROADMAP.md")
+    if x.dtype not in STORAGE_SUFFIX or w.dtype != x.dtype:
+        raise TypeError(
+            f"ganax {route} takes x and w of one storage dtype (float32, "
+            f"bfloat16 or float16), got {x.dtype} and {w.dtype}")
     if x.device != w.device:
         raise ValueError(f"x on {x.device} but w on {w.device}")
     if x.shape[-1] != w.shape[-2]:
@@ -101,7 +103,8 @@ def kernel_operands(x: torch.Tensor, w: torch.Tensor,
     ``x_pad``, the gathered weight taps ``w_taps``, the tap ``tables``,
     ``out_strides`` and the phase-grid extents (``qy``/``qx``, or
     ``qz``/``qy``/``qx`` for a 3-D input) — keyword arguments of the
-    kernel of the input's rank and of its plain version."""
+    kernel of the input's rank and of its plain version, in x's storage
+    dtype."""
     _check_inputs(x, w, "tconv" if transposed else "conv")
     nd = x.ndim - 2
     geometry = (tuple(x.shape[1:1 + nd]), tuple(w.shape[:nd]),

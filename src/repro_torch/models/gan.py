@@ -17,6 +17,14 @@ fused, then the mean of the logits in f32.  Both hold trainable
 parameters; the kernel backends differentiate through
 ``core.dataflow``'s autograd Function.  With obs tracing on, each
 layer gets a ``program.layer`` span.
+
+The storage precision (``GanConfig.dtype`` → ``ProgramSpec.dtype``:
+float32, bfloat16 or float16) is applied in the replay, as the
+reference's ``Program._replay`` applies it: the latents and each weight
+are cast to it at use, the projection's products are summed in f32,
+biases stay f32 into the fused epilogues, and every layer's output is
+stored in it; the discriminator's logits are reduced in f32 and stay
+f32.  Parameters stay f32 in the caller's dict.
 """
 
 from __future__ import annotations
@@ -35,32 +43,19 @@ from repro_torch.core.analytical import ConvLayer
 from repro_torch.core.dataflow import DataflowPolicy, Epilogue, conv, tconv
 from repro_torch.device import require_ieee_f32, resolve_device
 from repro_torch.models.common import PSpec, init_params
+from repro_torch.quant.precision import canonical_dtype, storage_dtype
 
 __all__ = ["GanConfig", "generator_specs", "discriminator_specs",
            "generator_epilogues", "discriminator_epilogues", "init_gan",
            "check_params", "Generator", "Discriminator", "bce_with_logits",
-           "gan_losses", "LEAKY_SLOPE", "canonical_dtype"]
+           "gan_losses", "LEAKY_SLOPE"]
 
 # The discriminator's LeakyReLU slope (DCGAN convention, used by every
 # Table-I discriminator).
 LEAKY_SLOPE = 0.2
 
-_F32_NAMES = ("float32", "f32", "fp32")
-
 # the replay's span when tracing is off (reusable)
 _NO_SPAN = contextlib.nullcontext()
-
-
-def canonical_dtype(dtype) -> str:
-    """The storage precision's canonical name: ``"float32"`` (aliases
-    ``f32``/``fp32``); any other raises, since bf16/f16 storage is
-    ROADMAP item 9."""
-    if str(dtype) not in _F32_NAMES:
-        raise NotImplementedError(
-            f"the PyTorch port serves dtype='float32' only, got "
-            f"{dtype!r}; bf16/f16 storage is the quantization item of "
-            f"ROADMAP.md (item 9)")
-    return "float32"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,7 +65,8 @@ class GanConfig:
     or reference name, ``"pallas"``, or ``None``: the heuristic, the
     kernel); ``mesh`` the ``(data, model)`` layout programs built from
     the config freeze (run on one device until ROADMAP item 12);
-    ``dtype`` is the storage precision, float32 only here."""
+    ``dtype`` is the storage precision (float32, bfloat16 or float16,
+    aliases accepted; accumulation is always f32)."""
 
     name: str
     z_dim: int = 100
@@ -200,6 +196,7 @@ class _Network(nn.Module):
         self.cfg = cfg
         self.spec = spec
         self.records = spec.layers
+        self.storage = storage_dtype(spec.dtype)
         self.weights = nn.ParameterDict({
             name: nn.Parameter(
                 torch.as_tensor(t, dtype=torch.float32).to(dev))
@@ -213,6 +210,7 @@ class _Network(nn.Module):
 
     def _layers(self, x: torch.Tensor) -> torch.Tensor:
         p = self.weights
+        sd = self.storage
         tracing = _obs.is_enabled()
         for le in self.records:
             op = tconv if le.kind == "tconv" else conv
@@ -222,7 +220,7 @@ class _Network(nn.Module):
                               measured_us=le.measured_us) \
                 if tracing else _NO_SPAN
             with span:
-                x = op(x, p[le.w_param], le.strides, le.paddings,
+                x = op(x, p[le.w_param].to(sd), le.strides, le.paddings,
                        backend=le.backend,
                        bias=p[le.b_param] if le.bias else None,
                        epilogue=le.epilogue)
@@ -246,11 +244,16 @@ class Generator(_Network):
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         p = self.weights
+        sd = self.storage
         first = self.records[0]
         require_ieee_f32(z)
-        x = torch.matmul(z.to(torch.float32), p["proj_w"]) + p["proj_b"]
+        # z and proj_w rounded to storage, their products summed in f32
+        # (an f32 matmul: a bf16/f16 product is exact in f32), the bias
+        # added in f32, then ReLU and one cast to storage
+        x = torch.matmul(z.to(sd).float(), p["proj_w"].to(sd).float()) \
+            + p["proj_b"].float()
         x = torch.relu(x.reshape((x.shape[0],) + tuple(first.in_spatial)
-                                 + (first.cin,)))
+                                 + (first.cin,))).to(sd)
         return self._layers(x)
 
 
@@ -270,7 +273,7 @@ class Discriminator(_Network):
                          "discriminator", spec)
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
-        x = self._layers(img.to(torch.float32))
+        x = self._layers(img.to(self.storage))
         return x.reshape(x.shape[0], -1).mean(dim=-1, dtype=torch.float32)
 
 

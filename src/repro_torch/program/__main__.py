@@ -8,16 +8,22 @@ Typical use::
         --export dcgan-program.json
     PYTHONPATH=src python -m repro_torch.program dcgan \
         --load dcgan-program.json --stats
+    PYTHONPATH=src python -m repro_torch.program dcgan --dtype bf16 \
+        --quantize int8 --export dcgan-int8.json
 
 The first form is the smoke: resolving the whole spec touches no
 tensors and launches nothing.  ``--load`` reads a file written by this
 CLI or by the reference's ``python -m repro.program`` (its backends
 mapped to the port's), falling back to fresh resolution when the file
 is corrupt or stale.  ``--stats`` prints the resolution-counter deltas
-of the invocation from the ``repro_torch.obs`` registry.  ``--backend
-auto``, ``--measure``, ``--plans`` and ``--quantize`` belong to the
-reference's tuner and quantization (ROADMAP items 11 and 9) and raise
-``NotImplementedError`` here.
+of the invocation from the ``repro_torch.obs`` registry.  ``--dtype``
+freezes the storage precision, and ``--quantize int8`` with
+``--export`` embeds int8 weights from a seed-0 init of the model (the
+reference's export flow; a deployment calls
+:func:`repro_torch.quant.quantize_program` on trained parameters).
+``--backend auto``, ``--measure`` and ``--plans`` belong to the
+reference's tuner (ROADMAP item 11) and raise ``NotImplementedError``
+here.
 """
 
 from __future__ import annotations
@@ -28,11 +34,6 @@ import sys
 from repro_torch.configs.gans import GAN_MODELS
 from repro_torch.core.dataflow import (AUTO_NOT_PORTED, DataflowPolicy,
                                        available_backends)
-
-QUANTIZE_NOT_PORTED = (
-    "--quantize embeds int8 weights: the quantization item of "
-    "ROADMAP.md (item 9), not ported yet")
-
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
@@ -52,8 +53,10 @@ def main(argv=None) -> int:
                          "spec, e.g. 4x2 (kept as data; programs run on "
                          "one device until ROADMAP item 12)")
     ap.add_argument("--dtype", default=None,
-                    help="storage precision: float32 only (bf16/f16 "
-                         "are ROADMAP item 9)")
+                    help="storage precision frozen into the spec: "
+                         "float32 (default), bfloat16, or float16 "
+                         "(aliases f32/bf16/f16 accepted); "
+                         "accumulation is always f32")
     ap.add_argument("--backend", default=None,
                     help="policy backend (a port or reference name, or "
                          f"'pallas'; registered: "
@@ -66,7 +69,9 @@ def main(argv=None) -> int:
                     help="tune plan misses while building (ROADMAP "
                          "item 11: raises)")
     ap.add_argument("--quantize", default=None, choices=("int8",),
-                    help="embed int8 weights (ROADMAP item 9: raises)")
+                    help="with --export: embed per-channel symmetric "
+                         "int8 weights (+ f32 scales) in the program "
+                         "file, from a seed-0 init of the model")
     ap.add_argument("--export", default=None, metavar="PATH",
                     help="write the (first-role) spec JSON here")
     ap.add_argument("--load", default=None, metavar="PATH",
@@ -80,8 +85,6 @@ def main(argv=None) -> int:
 
     if args.measure or args.plans or args.backend == "auto":
         raise NotImplementedError(AUTO_NOT_PORTED)
-    if args.quantize:
-        raise NotImplementedError(QUANTIZE_NOT_PORTED)
 
     from repro_torch import obs
     from repro_torch.models.gan import GanConfig
@@ -102,6 +105,8 @@ def main(argv=None) -> int:
                         dtype=args.dtype or "float32")
     except ValueError as e:
         ap.error(str(e))
+    if args.quantize and not args.export:
+        ap.error("--quantize only makes sense with --export")
     policy = DataflowPolicy(backend=args.backend) if args.backend \
         else None
     roles = (args.role,) if args.role != "both" \
@@ -128,8 +133,19 @@ def main(argv=None) -> int:
             spec = ProgramSpec.build(cfg, args.batch, role, policy=policy)
         print(spec.describe())
         if args.export and not exported:
+            if args.quantize:
+                import torch
+
+                from repro_torch.models.gan import init_gan
+                from repro_torch.quant import quantize_program
+                g_params, d_params = init_gan(
+                    cfg, torch.Generator().manual_seed(0), device="cpu")
+                spec = quantize_program(
+                    spec, g_params if spec.role == "generator"
+                    else d_params)
             spec.save(args.export)
-            print(f"wrote {args.export}")
+            print(f"wrote {args.export}"
+                  + (" (int8 weights embedded)" if args.quantize else ""))
             exported = True
         if role != roles[-1]:
             print()

@@ -33,12 +33,6 @@ __all__ = ["Program", "build_bucket_programs", "load_or_build"]
 
 log = logging.getLogger(__name__)
 
-QUANTIZED_NOT_PORTED = (
-    "this program file embeds int8 weights (quantized_params); serving "
-    "them is the quantization item of ROADMAP.md (item 9), which the "
-    "PyTorch port does not have yet: pass float32 parameters instead")
-
-
 class Program:
     """One GAN network as an ahead-of-time resolved executable on
     ``device`` (default: the card).
@@ -76,6 +70,7 @@ class Program:
                 stacklevel=2)
             _obs.counter("program.mesh_degraded").inc()
         self._bound: tuple[dict, nn.Module] | None = None
+        self._dequantized: dict[str, torch.Tensor] | None = None
 
     @classmethod
     def build(cls, cfg: GanConfig, batch: int, role: str = "generator", *,
@@ -96,12 +91,20 @@ class Program:
         return self.spec.quantized_params is not None
 
     @property
-    def params(self):
-        """``None`` for ordinary programs, whose params live with the
-        caller; a quantized payload raises (ROADMAP item 9)."""
+    def params(self) -> dict[str, torch.Tensor] | None:
+        """The spec's embedded int8 payload dequantized into the storage
+        dtype on the program's device (weights → ``spec.dtype``, biases
+        → f32), once per Program and bit-identical across loads — the
+        dict callers hand straight to :meth:`apply` / ``GanServer``.
+        ``None`` for ordinary programs, whose params live with the
+        caller."""
         if self.spec.quantized_params is None:
             return None
-        raise NotImplementedError(QUANTIZED_NOT_PORTED)
+        if self._dequantized is None:
+            from repro_torch.quant.weights import dequantize_params
+            self._dequantized = dequantize_params(
+                self.spec.quantized_params, self.spec.dtype, self.device)
+        return self._dequantized
 
     # -- device layout ------------------------------------------------------
     @property
@@ -207,8 +210,10 @@ def load_or_build(path, cfg: GanConfig, batch: int, role: str = "generator",
     (topology / channel-scale / epilogue / storage-precision drift) —
     in every such case the program is rebuilt from ``cfg`` exactly as
     :meth:`Program.build` would, so a bad file degrades the
-    optimization, never the service.  The mesh is not part of the
-    workload identity; ``mesh`` only shapes the fallback rebuild."""
+    optimization, never the service.  The requested ``dtype`` defaults
+    to ``cfg.dtype``, so a file at another storage precision rebuilds.
+    The mesh is not part of the workload identity; ``mesh`` only shapes
+    the fallback rebuild."""
     device = resolve_device(device)
     fresh = ProgramSpec.build(cfg, batch, role, policy=policy, dtype=dtype,
                               mesh=mesh)

@@ -17,11 +17,13 @@ and 3 files, mapping their backends to the port's
 file raises so loaders can fall back to fresh resolution (see
 :func:`repro_torch.program.load_or_build`).
 
-What the port does not run yet raises, naming the ROADMAP item that
-lifts it: a storage ``dtype`` other than float32 (item 9, quantization),
-``backend="auto"`` and :meth:`LayerExec.plan_key` (item 11, the tuner).
-A frozen ``mesh`` and each layer's ``sharding`` are kept as data; the
-runtime executes on one device until item 12.
+A spec freezes its storage ``dtype`` (float32, bfloat16 or float16)
+and, in a version-3 file, may embed int8 weights
+(``quantized_params``, :mod:`repro_torch.quant.weights`), validated at
+load.  What the port does not run yet raises, naming the ROADMAP item
+that lifts it: ``backend="auto"`` and :meth:`LayerExec.plan_key` (item
+11, the tuner).  A frozen ``mesh`` and each layer's ``sharding`` are
+kept as data; the runtime executes on one device until item 12.
 """
 
 from __future__ import annotations
@@ -38,8 +40,10 @@ from repro_torch.core.dataflow import (AUTO_NOT_PORTED, BACKENDS, SHARDINGS,
                                        DataflowPolicy, Epilogue,
                                        KERNEL_RANKS, blocks_valid,
                                        port_backend, resolve_execution)
-from repro_torch.models.gan import (canonical_dtype, discriminator_epilogues,
+from repro_torch.models.gan import (discriminator_epilogues,
                                     generator_epilogues)
+from repro_torch.quant.precision import canonical_dtype
+from repro_torch.quant.weights import validate_quantized
 
 __all__ = ["LayerExec", "ProgramSpec", "PROGRAM_FORMAT_VERSION",
            "SUPPORTED_PROGRAM_VERSIONS", "ROLES"]
@@ -206,9 +210,10 @@ class ProgramSpec:
     policy form the spec was built from (``None`` = heuristic), for
     display.  ``mesh`` is the frozen ``(data, model)`` device layout or
     ``None``; it is not part of :meth:`geometry_signature`.  ``dtype``
-    is the storage precision (float32 only until ROADMAP item 9) and
-    *is* part of it.  ``quantized_params`` is a v3 file's embedded int8
-    payload, kept as data: serving it is item 9.
+    is the storage precision and *is* part of it.  ``quantized_params``
+    is an exported program's embedded int8 payload
+    (:func:`repro_torch.quant.quantize_program`), which
+    :attr:`repro_torch.program.Program.params` dequantizes.
     """
 
     model: str
@@ -258,8 +263,8 @@ class ProgramSpec:
               dtype: str | None = None, mesh=_UNSET) -> "ProgramSpec":
         """Walk ``cfg``'s layers once and freeze every resolution.
 
-        ``policy`` defaults to ``cfg.policy``; ``dtype`` to ``cfg.dtype``
-        (float32 only); ``mesh`` to ``cfg.mesh`` (pass ``None`` to force
+        ``policy`` defaults to ``cfg.policy``; ``dtype`` to ``cfg.dtype``;
+        ``mesh`` to ``cfg.mesh`` (pass ``None`` to force
         single-device), each layer's sharding chosen by
         :func:`~repro_torch.core.dataflow.choose_layer_sharding`.  The
         reference's ``planner`` and ``measure`` arguments belong to the
@@ -384,6 +389,9 @@ class ProgramSpec:
         dtype = str(doc.get("dtype", "float32")) if version >= 3 \
             else "float32"
         quantized = doc.get("quantized_params") if version >= 3 else None
+        if quantized is not None:
+            # a corrupt payload raises here, where loaders degrade
+            validate_quantized(quantized)
         z_dim = doc.get("z_dim")
         return cls(model=str(doc["model"]), role=str(doc["role"]),
                    batch=int(doc["batch"]),

@@ -69,7 +69,14 @@ class GanServer:
     by ``seed``, on ``device`` (default: the card).  ``warm_plans`` is
     accepted for the reference's signature; it only matters for
     ``backend="auto"``, which the port does not have (ROADMAP item
-    11)."""
+    11).
+
+    ``dtype`` overrides ``cfg.dtype``, the storage precision (float32,
+    bfloat16 or float16; accumulation stays f32): the images come out in
+    it.  Serving an exported ``program=`` without an override adopts
+    the program's precision, and with ``g_params=None`` a quantized
+    (int8-exported) program serves its embedded weights, dequantized on
+    the server's device."""
 
     def __init__(self, cfg: GanConfig, g_params, batch_size: int = 8,
                  policy: DataflowPolicy | None = None, seed: int = 0,
@@ -83,13 +90,10 @@ class GanServer:
         self.device = resolve_device(device)
         if dtype is not None:
             cfg = dataclasses.replace(cfg, dtype=dtype)
-        if g_params is None:
-            if program is None or not program.quantized:
-                raise ValueError("g_params=None needs a quantized "
-                                 "program= (int8 export) to serve")
-            g_params = program.params       # raises: ROADMAP item 9
+        if g_params is None and (program is None or not program.quantized):
+            raise ValueError("g_params=None needs a quantized "
+                             "program= (int8 export) to serve")
         self.cfg = cfg
-        self.params = g_params
         self.batch_size = int(batch_size)
         self.policy = policy or cfg.policy
         self._rng = torch.Generator(device=self.device)
@@ -110,6 +114,11 @@ class GanServer:
             if program.spec.role != "generator":
                 raise ValueError(f"GanServer needs a generator program, "
                                  f"got role={program.spec.role!r}")
+            if dtype is None and program.spec.dtype != cfg.dtype:
+                # adopt the exported program's storage precision unless
+                # the caller pinned one explicitly
+                cfg = dataclasses.replace(cfg, dtype=program.spec.dtype)
+                self.cfg = cfg
             # a mismatched program file must fail here with a clear
             # error, not as a shape mismatch at the first call
             expected = ProgramSpec.build(cfg, self.batch_size,
@@ -130,6 +139,10 @@ class GanServer:
             self.program = Program.build(
                 cfg, self.batch_size, "generator", policy=self.policy,
                 device=self.device, differentiable=False, mesh=mesh)
+        # int8-deploy flow: a quantized program carries its own
+        # parameters, dequantized at load on the server's device
+        self.params = self.program.params if g_params is None \
+            else g_params
         # the network replaying the program with the server's
         # parameters (frozen: the program is not differentiable)
         self.generator = self.program.network(self.params)

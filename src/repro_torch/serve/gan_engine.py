@@ -217,6 +217,14 @@ class GanEngine:
         stream of an existing ``torch.Generator`` on ``device`` instead
         of seeding one with ``seed``, and seed the remainder buffer with
         already-generated samples.
+    ``dtype``
+        Storage-precision override ("float32"/"bfloat16"/"float16",
+        aliases accepted): replaces ``cfg.dtype`` before the program
+        build, and the buckets' outputs and pinned staging buffers come
+        in it.  When serving an exported ``program=`` without an
+        explicit override, the engine adopts the program's precision.
+        Pass ``g_params=None`` with a quantized (int8-exported) program
+        to serve its embedded weights.
     """
 
     def __init__(self, cfg: GanConfig, g_params,
@@ -231,13 +239,10 @@ class GanEngine:
         self.device = resolve_device(device)
         if dtype is not None:
             cfg = dataclasses.replace(cfg, dtype=dtype)
-        if g_params is None:
-            if program is None or not program.quantized:
-                raise ValueError("g_params=None needs a quantized "
-                                 "program= (int8 export) to serve")
-            g_params = program.params       # raises: ROADMAP item 9
+        if g_params is None and (program is None or not program.quantized):
+            raise ValueError("g_params=None needs a quantized "
+                             "program= (int8 export) to serve")
         self.cfg = cfg
-        self.params = g_params
         self.buckets = tuple(sorted({int(b) for b in buckets}))
         if not self.buckets or self.buckets[0] <= 0:
             raise ValueError(f"buckets must be positive ints, got "
@@ -261,6 +266,11 @@ class GanEngine:
             if program.spec.role != "generator":
                 raise ValueError(f"GanEngine needs a generator program, "
                                  f"got role={program.spec.role!r}")
+            if dtype is None and program.spec.dtype != cfg.dtype:
+                # adopt the exported program's storage precision unless
+                # the caller pinned one explicitly
+                cfg = dataclasses.replace(cfg, dtype=program.spec.dtype)
+                self.cfg = cfg
             expected = ProgramSpec.build(cfg, self.buckets[-1],
                                          "generator",
                                          policy=DataflowPolicy())
@@ -278,6 +288,11 @@ class GanEngine:
         self.spec = spec
         self.program = Program(spec, device=self.device,
                                differentiable=False)
+        # int8-deploy flow: a quantized program carries its own
+        # parameters, dequantized at load on the engine's device
+        if g_params is None:
+            g_params = self.program.params
+        self.params = g_params
         self._devices = self.program.device_count
         self._mesh_str = self.program.mesh_str
 

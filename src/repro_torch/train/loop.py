@@ -39,6 +39,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch import obs as _obs
+from repro_torch.core.dataflow import LOW_PRECISION_GRAD_NOT_PORTED
 from repro_torch.models.gan import (Discriminator, GanConfig, Generator,
                                     bce_with_logits)
 from repro_torch.program import ProgramSpec
@@ -107,7 +108,13 @@ def make_gan_train_step(cfg: GanConfig, batch: int,
     ``{"z": (batch, z_dim), "real": (batch, *spatial, C)}``, and updates
     the parameters in place: ``p -= lr * grad``, D first, then G against
     the updated D.  ``metrics`` holds the ``g_loss``, ``d_loss`` and
-    ``loss`` tensors (on the device; reading them waits for it)."""
+    ``loss`` tensors (on the device; reading them waits for it).
+
+    Float32 storage only: a bfloat16 or float16 ``cfg.dtype`` raises
+    ``NotImplementedError`` (mixed-precision training is ROADMAP item
+    9b)."""
+    if cfg.dtype != "float32":
+        raise NotImplementedError(LOW_PRECISION_GRAD_NOT_PORTED)
     d_lr = g_lr if d_lr is None else d_lr
     # one ahead-of-time resolution for the whole run: both networks
     # replay programs frozen here, at the step's batch

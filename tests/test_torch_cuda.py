@@ -6,9 +6,10 @@ imports nothing of JAX, so it also runs where JAX is not installed:
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 
 Tolerance: atol = rtol = 1e-4 — f32 against f32, summed in another
-order; for the flash-attention kernel in bf16, atol 1e-3 and rtol 2^-6
-(both sides compute in f32 from the same bf16 inputs and round the
-output once: at most one bf16 ulp, <= 2^-7 of the value, apart).
+order; for the flash-attention kernel in bf16, and the GANAX kernels'
+bf16 and f16 instances, atol 1e-3 and rtol 2^-6 (bf16) or 2^-9 (f16):
+both sides compute in f32 from the same 2-byte inputs and round the
+output once, so at most one ulp (<= 2^-7 or 2^-10 of the value) apart.
 """
 
 import dataclasses
@@ -105,6 +106,7 @@ def dev():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     return torch.device("cuda")
 
 
@@ -233,6 +235,147 @@ def test_tc_route_is_as_exact_as_plain_against_float64(dev, xs, ws, s, p):
           f"{share:.4f} of the tolerance")
     assert err.mean().item() <= 2 * ref_err.mean().item()
     assert share <= 0.5
+
+
+# The bf16 and f16 instances on each route, at real widths and batch 2
+# (x shape, w shape, strides, paddings, transposed, activation, bias, the
+# route at 2 bytes): tc (a g3-like tconv); tc with the flattened K at Cin
+# 3 (DCGAN d1), 1 (3D-GAN d1) and 4 (flat at 2 bytes only); tc+split_k
+# (g1, d4, 3D-GAN g1); odd tails in rows (105) and Cout (72) with Cin 40
+# (a stage of 64 channels partly zero-filled); narrow (g4, 3D-GAN g4, Cin
+# 17 with 2-byte loads); narrow+split_k (d5, 3D-GAN d5).
+LOW_ROUTE_CASES = [
+    ((2, 64, 64, 128), (4, 4, 128, 256), (2, 2), (1, 1), True, "relu", True,
+     "tc"),
+    ((2, 64, 64, 3), (4, 4, 3, 128), (2, 2), (1, 1), False, "leaky_relu",
+     True, "tc"),
+    ((2, 64, 64, 64, 1), (4, 4, 4, 1, 64), (2, 2, 2), (1, 1, 1), False,
+     "leaky_relu", True, "tc"),
+    ((2, 16, 16, 4), (3, 3, 4, 32), (1, 1), (1, 1), False, "none", False,
+     "tc"),
+    ((2, 4, 4, 1024), (4, 4, 1024, 512), (2, 2), (1, 1), True, "relu", True,
+     "tc+split_k"),
+    ((2, 8, 8, 512), (4, 4, 512, 1024), (2, 2), (1, 1), False, "leaky_relu",
+     True, "tc+split_k"),
+    ((2, 4, 4, 4, 512), (4, 4, 4, 512, 256), (2, 2, 2), (1, 1, 1), True,
+     "relu", True, "tc+split_k"),
+    ((3, 7, 5, 40), (3, 3, 40, 72), (1, 1), (1, 1), False, "tanh", True,
+     "tc"),
+    ((2, 32, 32, 128), (4, 4, 128, 3), (2, 2), (1, 1), True, "tanh", True,
+     "narrow"),
+    ((2, 32, 32, 32, 64), (4, 4, 4, 64, 1), (2, 2, 2), (1, 1, 1), True,
+     "tanh", True, "narrow"),
+    ((5, 7, 7, 17), (3, 3, 17, 1), (3, 3), (0, 0), False, "none", True,
+     "narrow"),
+    ((2, 4, 4, 1024), (4, 4, 1024, 1), (1, 1), (0, 0), False, "none", True,
+     "narrow+split_k"),
+    ((2, 4, 4, 4, 512), (4, 4, 4, 512, 1), (1, 1, 1), (0, 0, 0), False,
+     "none", True, "narrow+split_k"),
+]
+# two storage ulps (chip_smoke.py's STORAGE_TOL)
+TWO_ULPS = {torch.bfloat16: dict(atol=1e-3, rtol=2 ** -6),
+            torch.float16: dict(atol=1e-3, rtol=2 ** -9)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+@pytest.mark.parametrize("xs,ws,s,p,transposed,act,has_bias,route",
+                         LOW_ROUTE_CASES)
+def test_storage_dtype_instance_matches_plain(dev, xs, ws, s, p, transposed,
+                                              act, has_bias, route, dtype):
+    """The bf16 / f16 instance of each route against the plain version at
+    the same dtype (f32 sums of exact products, one cast): within two
+    storage ulps; the output comes in the storage dtype, and the launch
+    is counted under its route and dtype."""
+    x, w, b = _inputs(xs, ws, dev, seed=10)
+    w = w * (0.3 * np.prod(ws[:-1])) ** -0.5     # unit-scale outputs
+    operands = ops.kernel_operands(x.to(dtype), w.to(dtype), s, p,
+                                   transposed=transposed)
+    b = b if has_bias else None
+    kernel, plain = _KERNELS[len(s)]
+    name = str(dtype).removeprefix("torch.")
+    before = (kernel.launches, kernel.launches_by_route[route],
+              kernel.launches_by_dtype[name])
+    got = kernel(**operands, bias=b, activation=act)
+    torch.cuda.synchronize()
+    assert (kernel.launches, kernel.launches_by_route[route],
+            kernel.launches_by_dtype[name]) == tuple(n + 1 for n in before)
+    ref = plain(**operands, bias=b, activation=act)
+    assert got.dtype == ref.dtype == dtype
+    torch.testing.assert_close(got.float(), ref.float(), **TWO_ULPS[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+def test_storage_dtype_instance_refuses_misaligned_operands(dev, dtype):
+    """At 2 bytes as at f32: x_pad 2 bytes off a 16-byte boundary, tc
+    weights whose row of K = 36 values is 72 bytes, and mixed dtypes
+    raise before any launch, and nothing falls back."""
+    x, w, _ = _inputs((1, 4, 4, 64), (4, 4, 64, 128), dev)
+    operands = ops.kernel_operands(x.to(dtype), w.to(dtype), (2, 2), (1, 1),
+                                   transposed=True)
+    xp = operands["x_pad"]
+    flat = torch.zeros(xp.numel() + 1, device=dev, dtype=dtype)
+    shifted = flat[1:].view(xp.shape)
+    shifted.copy_(xp)
+    before = ganax_conv_cuda.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ganax_conv_cuda(**dict(operands, x_pad=shifted))
+    with pytest.raises(TypeError, match="storage dtype"):
+        ganax_conv_cuda(**dict(operands, w_taps=operands["w_taps"].float()))
+    assert ganax_conv_cuda.launches == before
+    with pytest.raises(ValueError, match="72"):
+        check_tma_weights(torch.zeros((1, 8, 36), device=dev, dtype=dtype))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        check_tma_weights(torch.zeros(8 * 64 + 1, device=dev, dtype=dtype)
+                          [1:].view(1, 8, 64))
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f16"])
+def test_quantized_program_on_the_card(dev, dtype):
+    """An int8 export served with g_params=None on the card: its weights
+    dequantize to the CPU's bits, GanServer serves through the kernel's
+    instance of the program's dtype, and GanEngine's stream equals the
+    server's bit for bit."""
+    from repro_torch.program import Program, ProgramSpec
+    from repro_torch.quant import dequantize_params, quantize_program
+    from repro_torch.serve.gan_engine import GanEngine
+    cfg = GanConfig("dcgan", channel_scale=1 / 32, dtype=dtype)
+    g, _ = init_gan(cfg, torch.Generator().manual_seed(0), "cpu")
+    spec = quantize_program(ProgramSpec.build(cfg, 4, "generator"), g)
+    prog = Program(spec, device=dev, differentiable=False)
+    cpu = dequantize_params(spec.quantized_params, spec.dtype)
+    for k, v in prog.params.items():
+        assert v.is_cuda and v.dtype == cpu[k].dtype
+        assert torch.equal(v.cpu(), cpu[k])
+    base = GanConfig("dcgan", channel_scale=1 / 32)
+    before = ganax_conv_cuda.launches_by_dtype[spec.dtype]
+    ref = GanServer(base, None, batch_size=4, program=prog,
+                    device=dev).generate(14)
+    assert ref.is_cuda and str(ref.dtype) == f"torch.{spec.dtype}"
+    assert ganax_conv_cuda.launches_by_dtype[spec.dtype] - before == 16
+    with GanEngine(base, None, buckets=(4,), program=prog,
+                   device=dev) as engine:
+        got = torch.cat([f.result(30) for f in
+                         [engine.submit(n) for n in (3, 6, 5)]])
+    assert torch.equal(got, ref.cpu())
+
+
+@pytest.mark.parametrize("dtype,flag", [
+    (torch.bfloat16, "allow_bf16_reduced_precision_reduction"),
+    (torch.float16, "allow_fp16_reduced_precision_reduction")],
+    ids=["bf16", "f16"])
+def test_reduced_precision_sums_are_refused_on_the_card(dev, dtype, flag):
+    from repro_torch.device import require_f32_accumulation
+    t = torch.zeros(4, dtype=dtype, device=dev)
+    matmul = torch.backends.cuda.matmul
+    setattr(matmul, flag, True)
+    try:
+        with pytest.raises(RuntimeError, match=flag):
+            require_f32_accumulation(t)
+    finally:
+        setattr(matmul, flag, False)
+    require_f32_accumulation(t)
 
 
 def test_cuda_wrapper_refuses_addresses_and_strides_tma_cannot_read(dev):

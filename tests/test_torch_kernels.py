@@ -240,9 +240,16 @@ def test_kernel_ops_refuse_gradients_and_other_dtypes():
     with torch.no_grad():
         assert ops.ganax_conv_transpose(x, w, (2, 2), (1, 1)).shape == \
             (1, 8, 8, 16)
-    with pytest.raises(NotImplementedError, match="quantization"):
-        ops.ganax_conv_transpose(x.detach().bfloat16(), w.bfloat16(),
+    # a storage dtype serves and comes out in it; x and w must share
+    # one, and float64 is none
+    y = ops.ganax_conv_transpose(x.detach().bfloat16(), w.bfloat16(),
                                  (2, 2), (1, 1))
+    assert y.dtype == torch.bfloat16 and y.shape == (1, 8, 8, 16)
+    for xd, wd in ((torch.bfloat16, torch.float32),
+                   (torch.float64, torch.float64)):
+        with pytest.raises(TypeError, match="storage dtype"):
+            ops.ganax_conv_transpose(x.detach().to(xd), w.to(wd), (2, 2),
+                                     (1, 1))
 
 
 @pytest.mark.parametrize("act", ["none", "relu", "leaky_relu", "tanh"])

@@ -93,8 +93,17 @@ def test_config_layers_and_specs_match_reference(name, scale):
 @pytest.mark.parametrize("dtype", ["bfloat16", "bf16", "float16",
                                    "float64"])
 def test_non_f32_dtype_raises(dtype):
-    with pytest.raises(NotImplementedError, match="quantization"):
-        tgan.GanConfig("dcgan", dtype=dtype)
+    """bf16/f16 storage and their aliases canonicalize as the reference's
+    GanConfig does; a dtype that is no storage dtype raises ValueError
+    in both packages."""
+    if dtype == "float64":
+        with pytest.raises(ValueError, match="storage dtype"):
+            tgan.GanConfig("dcgan", dtype=dtype)
+        with pytest.raises(ValueError, match="storage dtype"):
+            jgan.GanConfig("dcgan", dtype=dtype)
+    else:
+        assert tgan.GanConfig("dcgan", dtype=dtype).dtype == \
+            jgan.GanConfig("dcgan", dtype=dtype).dtype != "float32"
     assert tgan.GanConfig("dcgan", dtype="f32").dtype == "float32"
 
 

@@ -266,6 +266,19 @@ def test_bad_program_files_build_fresh(case, tmp_path):
     assert prog.apply(g, torch.zeros((2, 100))).shape == (2, 64, 64, 3)
 
 
+def test_storage_dtype_file_loads_at_its_dtype(tmp_path):
+    """A file frozen at bf16 (the "quantized dtype" case above, which a
+    float32 config rebuilds) loads for a config at bf16."""
+    path = _fallback_case("quantized dtype", tmp_path)
+    for dtype in ("bf16", "bfloat16"):
+        cfg = tgan.GanConfig(**CFG, dtype=dtype)
+        prog, loaded = load_or_build(path, cfg, 2, "generator",
+                                     device="cpu")
+        assert loaded and prog.spec.dtype == "bfloat16"
+        g, _ = tgan.init_gan(cfg, torch.Generator().manual_seed(0), "cpu")
+        assert prog.apply(g, torch.zeros((2, 100))).dtype == torch.bfloat16
+
+
 def test_good_program_file_loads(tmp_path):
     cfg = tgan.GanConfig(**CFG)
     path = tmp_path / "prog.json"
@@ -357,18 +370,26 @@ def test_what_is_not_ported_raises_naming_its_item(tmp_path):
     for argv in (["--backend", "auto"], ["--measure"]):
         with pytest.raises(NotImplementedError, match="item 11"):
             cli_main(["dcgan"] + argv)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cli_main(["dcgan", "--quantize", "int8", "--export",
-                  str(tmp_path / "q.json")])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ProgramSpec.build(tgan.GanConfig(**CFG), 2, "generator",
-                          dtype="bfloat16")
+    # quantization (item 9) is ported: the CLI exports an int8 program at
+    # bf16, which loads and serves with its embedded weights; a payload
+    # of an unknown scheme raises at load, as the reference's does
+    path = tmp_path / "q.json"
+    assert cli_main(["dcgan", "--channel-scale", str(SCALE), "--role",
+                     "generator", "--dtype", "bf16", "--quantize", "int8",
+                     "--export", str(path)]) == 0
+    loaded = ProgramSpec.load(path)
+    assert loaded.dtype == "bfloat16" and loaded.quantized_params
+    assert ProgramSpec.build(tgan.GanConfig(**CFG), 2, "generator",
+                             dtype="bfloat16").dtype == "bfloat16"
     doc = dict(spec.to_json(), quantized_params={"scheme": "int8"})
-    prog = Program(ProgramSpec.from_json(doc), device="cpu")
+    with pytest.raises(ValueError, match="scheme"):
+        ProgramSpec.from_json(doc)
+    prog = Program(loaded, device="cpu")
     assert prog.quantized
-    with pytest.raises(NotImplementedError, match="item 9"):
-        prog.params
+    assert prog.params["t0_w"].dtype == torch.bfloat16
+    assert prog.params["t0_b"].dtype == torch.float32
     from repro_torch.serve.gan import GanServer
-    with pytest.raises(NotImplementedError, match="item 9"):
-        GanServer(tgan.GanConfig(**CFG), None, batch_size=2, program=prog,
-                  device="cpu")
+    srv = GanServer(tgan.GanConfig(**CFG), None, batch_size=2, program=prog,
+                    device="cpu")
+    assert srv.cfg.dtype == "bfloat16"
+    assert srv.generate(3).dtype == torch.bfloat16
