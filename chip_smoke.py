@@ -46,7 +46,19 @@ its ``dw`` contraction; drive full-width DCGAN training through the
 quickstart entry point (``TrainLoop``, a checkpoint, 40 kernel launches
 a step, every route) and 3D-GAN training through the same code; hold
 one step's losses and gradients against the same step through
-``ganax-plain``; and profile the steps.  The LLM phases hold the two
+``ganax-plain``; and profile the steps.  The mixed_train phase holds
+every launch geometry of both train steps at bf16 and f16 against the
+plain version (the dx launches among them), trains full-width DCGAN and
+3D-GAN through ``TrainLoop`` at bf16 and f16 (40 launches a step of the
+dtype's instance, f32 parameters and checkpoints), gates one DCGAN
+step's gradients against the plain path's (``PATH_ACCURACY``, with a
+planted fault that must exceed it) and the reference's ``grad_rel`` at
+its calibration configuration, and times the steps at f32, bf16 and
+f16.  The tune phase holds every kernel route the autotuning planner
+enumerates for the generators' layers against the plain version,
+measures them into a plan file (no candidate may fail), rebuilds
+``backend="auto"`` programs from it with zero measurements and serves a
+batch through ``GanServer`` on them.  The LLM phases hold the two
 flash-attention kernels (the wgmma/TMA one for bf16 at hd 128 and 256,
 the FFMA one for f32 and the small head dims) against their plain
 version on Gemma-7B's and Qwen's geometries, serve full-width Gemma-7B
@@ -197,6 +209,7 @@ STORAGE_TOL = {torch.bfloat16: (1e-3, 2 ** -6),
                torch.float16: (1e-3, 2 ** -9)}
 STORAGE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
                  torch.float16: "float16"}
+STORAGE_DTYPES = {v: k for k, v in STORAGE_NAMES.items()}
 # The accumulation control: the plain arithmetic with each tap's matmul
 # and the sum kept in the storage dtype must fail the gate above on at
 # least one of these wide launches of each kernel, at each dtype.
@@ -321,7 +334,8 @@ def route_of(operands: dict) -> str:
     from repro_torch.kernels.ganax_conv import kernel_route
     p, t, cin, cout = operands["w_taps"].shape
     rows = operands["x_pad"].shape[0] * math.prod(q_sizes(operands))
-    return kernel_route(cin, cout, rows, t * cin, p).name
+    return kernel_route(cin, cout, rows, t * cin, p,
+                        operands["x_pad"].element_size()).name
 
 
 def tol_share(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -703,13 +717,14 @@ def train_paths(dev, wrappers) -> dict:
 STEP_TIMING = (("dcgan", 3, 10, 2), ("3dgan", 1, 3, 1))
 
 
-def _train_nets(model: str, dev, backend=None):
+def _train_nets(model: str, dev, backend=None, dtype="float32"):
     """Model ``model``'s generator and discriminator from seed 0 (through
-    ``backend``), and one batch's latents and reals."""
+    ``backend``, at storage ``dtype``), and one batch's latents and
+    reals."""
     from repro_torch.models.gan import (Discriminator, GanConfig, Generator,
                                         init_gan)
     from repro_torch.quickstart import make_batch_fn
-    cfg = dataclasses.replace(GanConfig(model), backend=backend)
+    cfg = GanConfig(model, backend=backend, dtype=dtype)
     g, d = init_gan(cfg, torch.Generator().manual_seed(0), dev)
     batch = make_batch_fn(cfg, BATCH, dev)(0)
     return Generator(cfg, g, dev), Discriminator(cfg, d, dev), batch
@@ -2162,6 +2177,744 @@ def quant_phase(card, dev, wrappers) -> dict:
     return out
 
 
+# The mixed_train phase (ROADMAP item 9b): steps through TrainLoop per
+# model, at each storage dtype
+MIXED_STEPS = {"dcgan": 3, "3dgan": 1}
+# (model, warm-up steps, timed steps) of the step times at f32, bf16, f16
+MIXED_TIMING = (("dcgan", 2, 5), ("3dgan", 1, 2))
+# The gradient gate: the per-launch gate's question asked of one step's
+# gradients (DCGAN at full width), as PATH_ACCURACY asks it of the
+# images: is the kernel path at a storage dtype as accurate as the plain
+# path at that dtype?  Both measured against the f32 plain step on the
+# same parameters and batch:
+#   ||g - g32|| <= PATH_ACCURACY * ||g_plain - g32||
+# over every gradient ("tree") and over D's alone ("d"; the tree's norm
+# sits in D's last layers, which no dx feeds).  G's gradients ("g") are
+# read, not gated: their error sits in G's last layer, whose kernel/plain
+# ratio swings from 0.49 to 2.44 between seeds at either dtype (a few
+# terms carry it; tools/grad_gate.py --seed), where every other layer's
+# holds within 0.98-1.06.
+# The planted faults: each of these layers' dx summed in the storage
+# dtype, every product added to a storage-dtype running sum.  A
+# discriminator layer's dx feeds D's earlier gradients and all of G's, a
+# generator layer's dx G's earlier ones only.  Each fault of
+# GRAD_FAULT_SEEN must exceed a gated reading; the others are read.
+GRAD_FAULT_LAYERS = ("d4", "g2")
+GRAD_FAULT_SEEN = ("d4",)
+GRAD_PARTS = ("tree", "d", "g")
+GRAD_GATED = ("tree", "d")
+
+
+def step_grads(cfg, dev, params, data) -> dict:
+    """One adversarial step's gradients through ``cfg`` (its backend and
+    storage dtype), from copies of ``params``: D's (``d.*``), then G's
+    against the same D (``g.*``), one flat dict of f32 tensors."""
+    from repro_torch.models.gan import Discriminator, Generator
+    from repro_torch.train.loop import discriminator_grads, generator_grads
+    g, d = ({k: v.clone() for k, v in p.items()} for p in params)
+    gen, disc = Generator(cfg, g, dev), Discriminator(cfg, d, dev)
+    _, dg = discriminator_grads(gen, disc, data["z"], data["real"])
+    _, gg = generator_grads(gen, disc, data["z"])
+    return {**{f"d.{k}": v for k, v in dg.items()},
+            **{f"g.{k}": v for k, v in gg.items()}}
+
+
+def dx_shapes(cfg, layer: str, batch: int) -> tuple[tuple, tuple]:
+    """(x_pad, w_taps) shapes of the kernel call of ``layer``'s dx at
+    ``batch``: the adjoint op on its output's cotangent with swapped
+    weights (a conv for a generator layer, an uncropped pad-0 tconv for a
+    discriminator layer)."""
+    from repro_torch.kernels import ops
+    l = next(l for l in cfg.layers[0] + cfg.layers[1] if l.name == layer)
+    if l.transposed:
+        out = tuple((n - 1) * s + k - 2 * p for n, k, s, p in
+                    zip(l.in_spatial, l.kernel, l.strides, l.paddings))
+        o = ops.kernel_operands(torch.zeros((batch, *out, l.cout)),
+                                torch.zeros((*l.kernel, l.cout, l.cin)),
+                                l.strides, l.paddings, transposed=False)
+    else:
+        q = tuple((n + 2 * p - k) // s + 1 for n, k, s, p in
+                  zip(l.in_spatial, l.kernel, l.strides, l.paddings))
+        o = ops.kernel_operands(torch.zeros((batch, *q, l.cout)),
+                                torch.zeros((*l.kernel, l.cout, l.cin)),
+                                l.strides, (0,) * len(q), transposed=True)
+    return tuple(o["x_pad"].shape), tuple(o["w_taps"].shape)
+
+
+def storage_accumulated(x_pad, w_taps, tables, out_strides,
+                        sizes) -> torch.Tensor:
+    """The sums of one call with an accumulator in the storage dtype, as a
+    kernel that kept its running sum in it: per phase, each product added
+    to the storage-dtype sum with one rounding; (B, P, *Q, Cout) in the
+    storage dtype, before the epilogue."""
+    dt = x_pad.dtype
+    b, cin = x_pad.shape[0], x_pad.shape[-1]
+    p, _, _, cout = w_taps.shape
+    out = x_pad.new_empty((b, p, *sizes, cout))
+    for ph, taps in enumerate(tables.taps):
+        acc = x_pad.new_zeros((b * math.prod(sizes), cout))
+        for t, tap in enumerate(taps):
+            window = tuple(slice(d, d + (n - 1) * s + 1, s) for d, n, s
+                           in zip(tap, sizes, out_strides))
+            xt = x_pad[(slice(None),) + window].reshape(-1, cin).float()
+            wt = w_taps[ph, t].float()
+            for c in range(cin):
+                acc = (acc.float() + xt[:, c, None] * wt[c]).to(dt)
+        out[:, ph] = acc.reshape(b, *sizes, cout)
+    return out
+
+
+@contextlib.contextmanager
+def storage_sums_at(nd: int, shapes: tuple[tuple, tuple]):
+    """Plant a gradient gate fault: while active, every call of the
+    rank-``nd`` kernel (on the card) or of its plain version (on the CPU)
+    from the kernels' backward (a ``dx``) whose (x_pad, w_taps) shapes are
+    ``shapes`` runs the plain arithmetic with its sums in the storage
+    dtype (``storage_accumulated``); the other calls run as before
+    (DCGAN's discriminator mirrors its generator, so a dx and a forward
+    call can share their shapes).
+    Yields a list whose length counts the faulty calls."""
+    from repro_torch.core import dataflow as tdf
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ganax_conv import apply_epilogue_to_acc
+    kernel, plain = ops._KERNELS[nd]
+    backward = tdf._KernelOp.backward
+    in_backward, hits = [], []
+
+    def marked(ctx, *grads):
+        in_backward.append(1)
+        try:
+            return backward(ctx, *grads)
+        finally:
+            in_backward.pop()
+
+    def faulty(x_pad, w_taps, tables, out_strides, bias=None,
+               activation="none", leaky_slope=0.2, route=None, **q):
+        args = dict(x_pad=x_pad, w_taps=w_taps, tables=tables,
+                    out_strides=out_strides, bias=bias,
+                    activation=activation, leaky_slope=leaky_slope, **q)
+        if not in_backward or \
+                (tuple(x_pad.shape), tuple(w_taps.shape)) != shapes:
+            return kernel(**args, route=route) if x_pad.is_cuda \
+                else plain(**args)
+        hits.append(1)
+        sizes = tuple(q[k] for k in ("qz", "qy", "qx") if k in q)
+        acc = storage_accumulated(x_pad, w_taps, tables, out_strides, sizes)
+        return apply_epilogue_to_acc(acc.float(), bias, activation,
+                                     leaky_slope).to(x_pad.dtype)
+    ops._KERNELS[nd] = (faulty, faulty)
+    tdf._KernelOp.backward = staticmethod(marked)
+    try:
+        yield hits
+    finally:
+        ops._KERNELS[nd] = (kernel, plain)
+        tdf._KernelOp.backward = staticmethod(backward)
+
+
+def grad_gate(model: str, dname: str, dev, batch: int,
+              scale: float = 1.0,
+              fault_layers: tuple[str, ...] = GRAD_FAULT_LAYERS,
+              seed: int = 0) -> dict:
+    """The gradient gate for ``model`` at storage ``dname`` on ``dev``:
+    one step's gradients from parameters of ``seed`` and the quickstart's
+    batch of that step, through the kernels, the plain version and the kernels
+    with each planted fault, each against the f32 plain step, read over
+    every gradient, D's and G's (``GRAD_PARTS``), and per layer.  On the
+    CPU the kernel
+    path is the plain version itself (ratio 1): what the CPU can say is
+    how far each fault moves the ratios."""
+    from repro_torch.models.gan import GanConfig, init_gan
+    from repro_torch.quickstart import make_batch_fn
+    base = GanConfig(model, channel_scale=scale)
+    params = init_gan(base, torch.Generator().manual_seed(seed), dev)
+    data = make_batch_fn(base, batch, dev)(seed)
+    g32 = step_grads(dataclasses.replace(base, backend="ganax-plain"), dev,
+                     params, data)
+    low = dataclasses.replace(base, dtype=dname)
+    plain = step_grads(dataclasses.replace(low, backend="ganax-plain"), dev,
+                       params, data)
+    kern = step_grads(low, dev, params, data)
+
+    def sq(tree, base=g32):
+        """Squared distance from ``base``, per tensor."""
+        return {k: float((tree[k].double() - base[k].double()).square()
+                         .sum()) for k in g32}
+    ref = sq(plain)
+
+    def ratios(e):
+        """sqrt(sum e / sum ref) over each of ``GRAD_PARTS``."""
+        def part(d, n):
+            return sum(v for k, v in d.items()
+                       if n == "tree" or k.startswith(n + "."))
+        return {n: math.sqrt(part(e, n) / part(ref, n)) for n in GRAD_PARTS}
+
+    def worst(e):
+        k = max(g32, key=lambda k: e[k] / max(ref[k], 1e-300))
+        return k, math.sqrt(e[k] / max(ref[k], 1e-300))
+
+    def layers(e):
+        """The same ratio over each layer's weight and bias."""
+        names = dict.fromkeys(k.rsplit("_", 1)[0] for k in g32)
+        return {n: math.sqrt(sum(v for k, v in e.items()
+                                 if k.rsplit("_", 1)[0] == n) /
+                             sum(v for k, v in ref.items()
+                                 if k.rsplit("_", 1)[0] == n))
+                for n in names}
+    faults = {}
+    for layer in fault_layers:
+        with storage_sums_at(len(base.layers[0][0].kernel),
+                             dx_shapes(base, layer, batch)) as hits:
+            tree = step_grads(low, dev, params, data)
+        check(len(hits) > 0, f"{model} {dname}: the planted fault at "
+                             f"{layer} never ran")
+        faults[layer] = dict(ratio=ratios(sq(tree)), calls=len(hits),
+                             layers=layers(sq(tree)))
+        del tree
+    zero = {k: torch.zeros_like(v) for k, v in g32.items()}
+    err = sq(kern)
+    return dict(ratio=ratios(err), faults=faults, layers=layers(err),
+                # ||g_plain - g32|| / ||g32|| per layer
+                plain_layer_rel={n: 1 / r
+                                 for n, r in layers(sq(zero)).items()},
+                kernel_vs_plain=ratios(sq(kern, plain)),
+                tensor_worst=worst(err)[0], tensor_ratio=worst(err)[1],
+                # ||g_plain - g32|| / ||g32|| per net
+                plain_rel={n: 1 / r for n, r in ratios(sq(zero)).items()},
+                tensors=len(g32))
+
+
+def calibration_grad_rel(model: str, dname: str, dev) -> float:
+    """The reference's grad_rel protocol (``tests/test_quant.py``) at its
+    calibration configuration through the kernels: the generator's
+    parameter gradients of sum(y²) at ``dname`` against f32, relative L2
+    over the tree."""
+    from repro_torch.models.gan import GanConfig, Generator, init_gan
+    scale, batch = CALIBRATION
+    grads = {}
+    for dt in ("float32", dname):
+        cfg = GanConfig(model, channel_scale=scale, dtype=dt)
+        g, _ = init_gan(cfg, torch.Generator().manual_seed(0), dev)
+        gen = Generator(cfg, g, dev)
+        z = torch.randn((batch, cfg.z_dim),
+                        generator=torch.Generator().manual_seed(1)).to(dev)
+        params = gen.params
+        grads[dt] = dict(zip(params, torch.autograd.grad(
+            gen(z).float().square().sum(), list(params.values()))))
+    g32, g = grads["float32"], grads[dname]
+    num = sum(float((g[k].double() - g32[k].double()).square().sum())
+              for k in g32)
+    den = sum(float(v.double().square().sum()) for v in g32.values())
+    return math.sqrt(num / den)
+
+
+def mixed_train_phase(card, dev, wrappers) -> dict:
+    """Mixed-precision training (ROADMAP item 9b) on the card.
+
+    1. Every launch geometry of DCGAN's and 3D-GAN's train step at batch
+       ``BATCH`` at bf16 and f16, kernel against plain at the same dtype
+       (STORAGE_TOL): the dx launches among them (d1's narrow dx, d5's
+       flattened Cin 1, the 3-D ones) run here at 2 bytes for the first
+       time; each timed beside its bound, its plain version and one cuDNN
+       call at that dtype, summed per step.
+    2. The main path: full-width DCGAN through ``quickstart.train``
+       (``TrainLoop``, a checkpoint) for ``MIXED_STEPS`` steps at bf16
+       and at f16, 3D-GAN likewise, each with every count at 0 just
+       before and read just after: 40 launches a step, all of the
+       dtype's instance; the losses finite; the parameters and the
+       checkpoint f32.
+    3. The gradient gate (``grad_gate``: over every gradient and over
+       D's, G's read) at bf16 and f16, with its planted faults; the
+       reference's ``grad_rel`` at its calibration
+       configuration for both models.
+    4. ms per step at f32, bf16 and f16 (CUDA events, medians), and the
+       peak device memory of a step."""
+    from repro_torch import quickstart
+    from repro_torch.configs.gans import GAN_MODELS
+    from repro_torch.kernels import ops
+    from repro_torch.models.gan import GanConfig
+    from repro_torch.quant import model_tolerance
+    from repro_torch.train import checkpoint as ckpt
+    gan = {k: wrappers[k] for k in ("ganax_conv", "ganax_conv3d")}
+    models = (("ganax_conv", "dcgan"), ("ganax_conv3d", "3dgan"))
+    dtypes = (torch.bfloat16, torch.float16)
+    out = {"geometries": {}, "launches": {}, "errs": {}, "gate": {},
+           "calibration": {}, "steps": {}}
+    gen = torch.Generator().manual_seed(8642)
+
+    def rand(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen)).to(dev)
+
+    # -- 1. every launch geometry of the step, kernel vs plain, timed ----
+    for name, model in models:
+        kernel, plain = gan[name]
+        timing = dict(warmup=2, runs=10) if name == "ganax_conv" \
+            else dict(warmup=1, runs=3)
+        for dt in dtypes:
+            dname = STORAGE_NAMES[dt]
+            tot = {part: dict(launches=0, ms=0.0, device_ms=0.0,
+                              plain_ms=0.0, library_ms=0.0,
+                              library_device_ms=0.0, bound_ms=0.0,
+                              ops_bound_ms=0.0)
+                   for part in ("forward", "dx")}
+            worst = 0.0
+            for (label, part, tr, xs, ws, s, p, ep, launches,
+                 _) in train_cases(model, *GAN_MODELS[model]):
+                nd = len(s)
+                x = rand(*xs).to(dt)
+                w = rand(*ws, scale=(math.prod(ws[:nd]) * ws[-2]) ** -0.5
+                         ).to(dt)
+                b = rand(ws[-1], scale=0.1) if ep.bias else None
+                act, slope = ep.activation, ep.leaky_slope
+                with torch.no_grad():
+                    o = ops.kernel_operands(x, w, s, p, transposed=tr)
+                    got = kernel(**o, bias=b, activation=act,
+                                 leaky_slope=slope)
+                    ref = plain(**o, bias=b, activation=act,
+                                leaky_slope=slope)
+                    torch.cuda.synchronize()
+                    share = storage_share(got, ref)
+                    err = (got.float() - ref.float()).abs().max().item()
+                    out["errs"].setdefault(f"{name}_{dname}", []).append(err)
+                    worst = max(worst, share)
+                    ok = share <= 1 and got.dtype == dt and \
+                        bool(torch.isfinite(got).all())
+                    print(f"{name} {dname} train launch vs plain  "
+                          f"{label:14s} [{route_of(o)}] max_abs_err "
+                          f"{err:.3e}, worst output at {share:.4f} of the "
+                          f"two-ulp tolerance {'ok' if ok else 'FAIL'}")
+                    check(ok, f"{label} at {dname}: {name} disagrees with "
+                              f"its plain version")
+                    del got, ref
+                    lib = (library_conv_transpose if tr else library_conv)(
+                        x, w, b.to(dt) if b is not None else None, s, p)
+                    bnd, by = bound(o, b)[:2]
+                    t = tot[part]
+                    t["launches"] += launches
+                    t["ms"] += launches * time_ms(
+                        lambda: kernel(**o, bias=b, activation=act),
+                        **timing)
+                    t["device_ms"] += launches * device_ms(
+                        lambda: kernel(**o, bias=b, activation=act),
+                        runs=timing["runs"])
+                    t["plain_ms"] += launches * time_ms(
+                        lambda: plain(**o, bias=b, activation=act),
+                        warmup=1, runs=3)
+                    t["library_ms"] += launches * time_ms(lib, **timing)
+                    t["library_device_ms"] += launches * device_ms(
+                        lib, runs=timing["runs"])
+                    t["bound_ms"] += launches * bnd
+                    if by == "operations":
+                        t["ops_bound_ms"] += launches * bnd
+                del x, w, b, o
+            for part, t in tot.items():
+                t["bound_by"] = "operations" if t["ops_bound_ms"] >= \
+                    t["bound_ms"] / 2 else "bytes"
+                print(f"{model} {dname} train step, its {t['launches']} "
+                      f"{part} launches: kernels {t['ms']:.4f} ms (device "
+                      f"{t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, "
+                      f"cuDNN at {dname} {t['library_ms']:.4f} ms (device "
+                      f"{t['library_device_ms']:.4f}), bound "
+                      f"{t['bound_ms']:.4f} ms ({t['bound_by']}) [{card}]")
+            out["geometries"][f"{model}_{dname}"] = dict(tot, worst_share=worst)
+    torch.cuda.empty_cache()
+
+    # -- 2. the main path: TrainLoop at bf16 and f16 --------------------------
+    for name, model in models:
+        kernel = gan[name][0]
+        steps = MIXED_STEPS[model]
+        out["launches"][name] = {}
+        for dt in dtypes:
+            dname = STORAGE_NAMES[dt]
+            for k, _ in wrappers.values():
+                k.launches = 0
+                if hasattr(k, "launches_by_route"):
+                    k.launches_by_route.clear()
+                    k.launches_by_dtype.clear()
+            with tempfile.TemporaryDirectory() as ckpt_dir:
+                loop, nets = quickstart.train(
+                    GanConfig(model, dtype=dname), steps=steps, batch=BATCH,
+                    lr=4e-3, ckpt_dir=ckpt_dir, device=dev,
+                    ckpt_every=steps, log_every=1)
+                torch.cuda.synchronize()
+                counts = {k: w[0].launches for k, w in wrappers.items()}
+                by_dtype = dict(kernel.launches_by_dtype)
+                by_route = dict(kernel.launches_by_route)
+                restored = ckpt.restore(loop.state, ckpt_dir, steps)
+            check(loop.steps == steps and loop.restarts == 0,
+                  f"{model} {dname}: {loop.steps} steps, {loop.restarts} "
+                  f"restarts")
+            check(all(math.isfinite(v) for m in loop.metrics_history
+                      for v in m.values()) and loop.metrics_history,
+                  f"{model} {dname}: a loss is not finite")
+            check(by_dtype == {dname: LAUNCHES_PER_STEP * steps}
+                  and counts[name] == LAUNCHES_PER_STEP * steps
+                  and all(c == 0 for k, c in counts.items() if k != name),
+                  f"{model} {dname} training launched {counts}, by dtype "
+                  f"{by_dtype}; expected {LAUNCHES_PER_STEP} of the "
+                  f"{dname} instance a step")
+            leaves = ckpt.tree_leaves(loop.state) + \
+                ckpt.tree_leaves(restored)
+            check(all(v.dtype == torch.float32 for v in leaves),
+                  f"{model} {dname}: a parameter or checkpoint is not f32")
+            out["launches"][name][dname] = counts[name]
+            print(f"{model} {dname} training (TrainLoop, {steps} steps at "
+                  f"batch {BATCH}, checkpoint f32): {counts[name]} {name} "
+                  f"launches of the {dname} instance, by route {by_route}; "
+                  f"losses {[round(m['loss'], 4) for m in loop.metrics_history]}")
+            del loop, nets
+    torch.cuda.empty_cache()
+
+    # -- 3. the gradient gate; the reference's grad_rel ----------------------
+    for dt in dtypes:
+        dname = STORAGE_NAMES[dt]
+        gate = out["gate"][f"dcgan_{dname}"] = grad_gate("dcgan", dname, dev,
+                                                         BATCH)
+        ok = all(gate["ratio"][n] <= PATH_ACCURACY for n in GRAD_GATED)
+
+        def parts(r):
+            return ", ".join(f"{n} {r[n]:.6f}" for n in GRAD_PARTS)
+        print(f"dcgan {dname} gradient gate (one step, {gate['tensors']} "
+              f"gradients, batch {BATCH}): ||g - g32|| / ||g_plain - g32|| "
+              f"= {parts(gate['ratio'])} (gate {PATH_ACCURACY} on "
+              f"{' and '.join(GRAD_GATED)}; {'ok' if ok else 'FAIL'}; not "
+              f"gated: the worst tensor {gate['tensor_ratio']:.4f} at "
+              f"{gate['tensor_worst']}, ||g - g_plain|| / ||g_plain - g32|| "
+              f"{parts(gate['kernel_vs_plain'])}); ||g_plain - g32|| / "
+              f"||g32|| = {parts(gate['plain_rel'])}; per layer "
+              + ", ".join(f"{n} {r:.4f}" for n, r in gate["layers"].items()))
+        check(ok, f"dcgan {dname}: the kernel step's gradients are less "
+                  f"accurate than the plain step's ({gate['ratio']})")
+        for layer, f in gate["faults"].items():
+            seen = max(f["ratio"][n] for n in GRAD_GATED) > PATH_ACCURACY
+            print(f"dcgan {dname} planted fault ({layer}'s dx summed in "
+                  f"{dname}, {f['calls']} calls): {parts(f['ratio'])} "
+                  f"({'exceeds' if seen else 'DOES NOT exceed'} the gate; "
+                  f"{'required' if layer in GRAD_FAULT_SEEN else 'read'}); "
+                  f"per layer " + ", ".join(
+                      f"{n} {r:.4f}" for n, r in f["layers"].items()))
+            check(seen or layer not in GRAD_FAULT_SEEN,
+                  f"dcgan {dname}: the planted fault at {layer} passes the "
+                  f"gradient gate ({f['ratio']})")
+        for _, model in models:
+            rel = calibration_grad_rel(model, dname, dev)
+            ref_gate = model_tolerance(model, dname)["grad_rel"]
+            out["calibration"][f"{model}_{dname}"] = dict(grad_rel=rel,
+                                                          gate=ref_gate)
+            print(f"{model} {dname} at the calibration configuration "
+                  f"{CALIBRATION}: grad_rel {rel:.3e} (the reference's "
+                  f"gate {ref_gate:g}) {'ok' if rel < ref_gate else 'FAIL'}")
+            check(rel < ref_gate, f"{model} {dname}: grad_rel {rel:.3e} >= "
+                                  f"{ref_gate:g}")
+    torch.cuda.empty_cache()
+
+    # -- 4. ms per step and peak memory --------------------------------------
+    for model, warmup, runs in MIXED_TIMING:
+        for dname in ("float32", "bfloat16", "float16"):
+            step = _step_fn(*_train_nets(model, dev, dtype=dname))
+            for _ in range(warmup):
+                step()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = torch.cuda.memory_allocated(dev)
+            times = []
+            for _ in range(runs):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                step()
+                ev[1].record()
+                ev[1].synchronize()
+                times.append(ev[0].elapsed_time(ev[1]))
+            peak = (torch.cuda.max_memory_allocated(dev) - before) / 1e9
+            ms = statistics.median(times)
+            out["steps"][f"{model}_{dname}"] = dict(step_ms=ms, peak_gb=peak,
+                                                    steps_timed=runs)
+            print(f"{model} train step at {dname}, batch {BATCH}: {ms:.3f} ms "
+                  f"(median of {runs}); peak device memory of a step "
+                  f"{peak:.3f} GB above the {before / 1e9:.3f} GB held "
+                  f"[{card}]")
+            del step
+            torch.cuda.empty_cache()
+    return out
+
+
+# The tune phase (ROADMAP item 11): (model, storage dtype) of the
+# generator plans warmed at batch BATCH, timed runs per candidate, and
+# the phase's time limit
+TUNE_WORK = (("dcgan", "float32"), ("dcgan", "bfloat16"),
+             ("3dgan", "float32"))
+TUNE_REPEATS = 3
+TUNE_LIMIT_S = 120.0
+
+
+def tune_phase(card, dev, wrappers) -> dict:
+    """The autotuning planner on the card (ROADMAP item 11).
+
+    1. For every generator layer of ``TUNE_WORK`` at batch ``BATCH``, each
+       ``ganax`` candidate the tuner enumerates (kernel routes: tc tile
+       widths and splits, narrow splits) against the plain version (1e-4
+       at f32, STORAGE_TOL at bf16), on the layer's op with random
+       inputs at the scale of the other phases (weights by fan-in^-1/2,
+       so the outputs are of unit scale, as those gates assume; the
+       tuner times on unit-normal weights, where outputs reach ~64).
+    2. ``warm_gan_plans`` measures every candidate into a plan file in
+       a temporary directory (its launches booked apart, as measurement
+       launches); no candidate may fail (on the card a failed kernel
+       candidate raises).  Prints each layer's winner and the heuristic
+       route, each by the device time of its kernel launch (what the
+       planner ranks) and by the whole op per call (a report).
+    3. The programs rebuilt from the warm file with ``backend="auto"``
+       and ``measure=True``: zero measurements, every layer tuned onto
+       the kernel (``ganax``).
+    4. The main path: one batch served through ``GanServer`` on each
+       auto program, every count at 0 just before and read just after:
+       the generator's 4 launches, all of the dtype's instance, each on
+       the route its layer froze; against the heuristic path at 1e-4
+       (f32) or against the f32 plain path by ``PATH_ACCURACY`` (bf16).
+    The phase must end within ``TUNE_LIMIT_S``."""
+    from repro_torch.core.dataflow import DataflowPolicy
+    from repro_torch.device import platform_of
+    from repro_torch.models.gan import GanConfig, init_gan
+    from repro_torch.program import Program, ProgramSpec
+    from repro_torch.serve.gan import GanServer
+    from repro_torch.core import dataflow as tdf
+    from repro_torch.tune import Planner, enumerate_candidates, warm_gan_plans
+    t0 = time.perf_counter()
+    platform = platform_of(dev)
+    gan = {k: wrappers[k] for k in ("ganax_conv", "ganax_conv3d")}
+    kernel_of = {"dcgan": "ganax_conv", "3dgan": "ganax_conv3d"}
+    from repro_torch.kernels import ops
+    out = {"candidates": {}, "layers": {}, "launches": {}, "serve": {}}
+    # the served batches' launches (the main path), and the planner's
+    # measurement launches apart
+    launched = {name: {} for name in gan}
+    measured = {name: {} for name in gan}
+
+    def zero_counts():
+        for k, _ in wrappers.values():
+            k.launches = 0
+            if hasattr(k, "launches_by_route"):
+                k.launches_by_route.clear()
+                k.launches_by_dtype.clear()
+
+    def book(into):
+        """The GANAX launches by kernel and dtype since ``zero_counts``,
+        added to ``into``; every wrapper's count."""
+        torch.cuda.synchronize()
+        for name, (k, _) in gan.items():
+            for dname, n in k.launches_by_dtype.items():
+                into[name][dname] = into[name].get(dname, 0) + n
+        return {name: k.launches for name, (k, _) in wrappers.items()}
+
+    keys = {}
+    for model, dname in TUNE_WORK:
+        spec = ProgramSpec.build(GanConfig(model, dtype=dname), BATCH,
+                                 "generator", policy=DataflowPolicy(),
+                                 platform=platform)
+        keys[model, dname] = spec.plan_keys()
+
+    # -- 1. every kernel candidate against plain -----------------------------
+    worst = 0.0
+    gen = torch.Generator().manual_seed(97531)
+    with torch.inference_mode():
+        for (model, dname), layer_keys in keys.items():
+            for lname, key in layer_keys:
+                dt = STORAGE_DTYPES[dname]
+                op = tdf.tconv if key.kind == "tconv" else tdf.conv
+                x = torch.randn((key.batch, *key.in_spatial, key.cin),
+                                generator=gen).to(dev, dt)
+                w = (torch.randn((*key.kernel, key.cin, key.cout),
+                                 generator=gen)
+                     * (math.prod(key.kernel) * key.cin) ** -0.5
+                     ).to(dev, dt)
+                b = (0.1 * torch.randn((key.cout,), generator=gen)).to(dev)
+
+                def run(backend, route=None):
+                    return op(x, w, key.strides, key.paddings,
+                              backend=backend, route=route,
+                              bias=b if key.bias else None,
+                              epilogue=key.epilogue)
+                ref = run("ganax-plain")
+                routes = []
+                for cand in enumerate_candidates(key):
+                    check(cand.backend == "ganax", f"tune: the card's pool "
+                          f"holds {cand.describe()}")
+                    got = run("ganax", cand.route)
+                    torch.cuda.synchronize()
+                    share = tol_share(got, ref) if dname == "float32" \
+                        else storage_share(got, ref)
+                    worst = max(worst, share)
+                    routes.append((cand.route.describe(), share))
+                    check(share <= 1 and bool(torch.isfinite(got).all()),
+                          f"{model} {lname} {dname}: candidate "
+                          f"{cand.describe()} disagrees with plain "
+                          f"(worst output at {share:.3f} of its tolerance)")
+                    del got
+                out["candidates"][f"{model}_{dname}_{lname}"] = routes
+                print(f"tune candidates {model} {lname} {dname}: "
+                      f"{len(routes)} kernel routes vs plain, worst output "
+                      f"at {max(r[1] for r in routes):.4f} of its tolerance "
+                      f"({', '.join(r[0] for r in routes)})")
+                del x, w, b, ref
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "plans.json"
+        planner = Planner(path, warmup=1, repeats=TUNE_REPEATS)
+        timings, op_times = {}, {}
+        measure = planner.measure_candidates
+
+        def spy(key, backends=None):
+            op_times[key] = {}
+            timings[key] = measure(key, backends, op_times=op_times[key])
+            return timings[key]
+        planner.measure_candidates = spy
+
+        # -- 2. measure every candidate into the plan file -------------------
+        zero_counts()
+        for model, dname in TUNE_WORK:
+            warm_gan_plans(GanConfig(model), BATCH, planner,
+                           generator_only=True, dtype=dname,
+                           platform=platform)
+        book(measured)
+        check(planner.failures == 0,
+              f"tune: {planner.failures} candidates failed to run")
+        for (model, dname), layer_keys in keys.items():
+            for lname, key in layer_keys:
+                plan = planner.lookup(key)
+                t, op_t = timings[key], op_times[key]
+                heur = next(iter(t))            # kernel_route's route
+                win = next(c for c in t if c.backend == plan.backend
+                           and c.route == plan.route)
+                row = dict(winner=plan.describe(),
+                           winner_us=plan.measured_us,
+                           winner_op_us=op_t[win] * 1e6,
+                           heuristic=heur.describe(),
+                           heuristic_us=t[heur] * 1e6,
+                           heuristic_op_us=op_t[heur] * 1e6,
+                           candidates={c.describe(): v * 1e6
+                                       for c, v in t.items()})
+                out["layers"][f"{model}_{dname}_{lname}"] = row
+                print(f"tune {model} {lname} {dname} at batch {BATCH}: "
+                      f"winner {row['winner']} {row['winner_us']:.1f} us "
+                      f"of device time a launch (whole op "
+                      f"{row['winner_op_us']:.1f} us), heuristic "
+                      f"{row['heuristic']} {row['heuristic_us']:.1f} us "
+                      f"(whole op {row['heuristic_op_us']:.1f} us) "
+                      f"({len(t)} candidates, median of {TUNE_REPEATS}) "
+                      f"[{card}]")
+
+        # -- 3. rebuilt from the warm file: zero measurements ---------------
+        warm = Planner(path)
+        progs = {}
+        for model, dname in TUNE_WORK:
+            progs[model, dname] = Program.build(
+                GanConfig(model, dtype=dname), BATCH,
+                policy=DataflowPolicy(backend="auto"), planner=warm,
+                measure=True, device=dev, differentiable=False)
+        check(warm.measurements == 0 and len(warm) == len(planner),
+              f"tune: the warm plan file loaded {len(warm)} of "
+              f"{len(planner)} plans and took {warm.measurements} "
+              f"measurements")
+        check(all(le.source == "tuned" and le.backend == "ganax"
+                  for p in progs.values() for le in p.spec.layers),
+              "tune: a layer was not tuned onto the kernel: " + "; ".join(
+                  p.spec.summary() for p in progs.values()))
+        print(f"tune: programs rebuilt from the warm plan file ({len(warm)} "
+              f"plans) with {warm.measurements} measurements: "
+              + "; ".join(f"{m} {dn} {p.spec.summary()}"
+                          for (m, dn), p in progs.items()))
+
+    # -- 4. one batch through GanServer on the auto programs ----------------
+    for (model, dname), prog in progs.items():
+        g, _ = init_gan(GanConfig(model), torch.Generator().manual_seed(0),
+                        device=dev)
+        cfg = GanConfig(model, dtype=dname)
+        tuned = GanServer(cfg, g, batch_size=BATCH, seed=0, program=prog,
+                          device=dev)
+        heuristic = GanServer(cfg, g, batch_size=BATCH, seed=0, device=dev)
+        # -- the main path: one served batch, its launches and routes -------
+        nd = len(prog.spec.layers[0].kernel)
+        kernel, plain = ops._KERNELS[nd]
+        routes = []
+
+        def spy_kernel(*a, route=None, **k):
+            routes.append(route)
+            return kernel(*a, route=route, **k)
+        ops._KERNELS[nd] = (spy_kernel, plain)
+        try:
+            zero_counts()
+            img = tuned.generate(BATCH)
+            counts = book(launched)
+        finally:
+            ops._KERNELS[nd] = (kernel, plain)
+        frozen = [le.route for le in prog.spec.layers]
+        by_dtype = dict(gan[kernel_of[model]][0].launches_by_dtype)
+        check(by_dtype == {dname: len(frozen)}
+              and counts[kernel_of[model]] == len(frozen)
+              and all(c == 0 for k, c in counts.items()
+                      if k != kernel_of[model])
+              and [r and r.describe() for r in routes]
+              == [r.describe() for r in frozen],
+              f"tune {model} {dname}: the served batch launched {counts}, "
+              f"by dtype {by_dtype}, on routes "
+              f"{[r and r.describe() for r in routes]}; expected "
+              f"{len(frozen)} launches of the {dname} instance on "
+              f"{[r.describe() for r in frozen]}")
+        print(f"tune {model} {dname}: the served batch launched "
+              f"{len(routes)} {kernel_of[model]} kernels of the {dname} "
+              f"instance on the frozen routes "
+              f"{[r.describe() for r in routes]}")
+        if dname == "float32":
+            ref = heuristic.generate(BATCH)
+            err, ok = max_err(img, ref)
+            row = dict(max_abs_err=err)
+            print(f"tune {model} {dname}: GanServer on the auto program vs "
+                  f"the heuristic path, max_abs_err {err:.3e} "
+                  f"(atol=rtol={ATOL:g}) {'ok' if ok else 'FAIL'}")
+        else:
+            plain_cfg = GanConfig(model, backend="ganax-plain")
+            img32 = GanServer(plain_cfg, g, batch_size=BATCH, seed=0,
+                              device=dev).generate(BATCH).double()
+            plain = GanServer(plain_cfg, g, batch_size=BATCH, seed=0,
+                              dtype=dname, device=dev).generate(BATCH)
+            ratio = (img.double() - img32).norm().item() / \
+                (plain.double() - img32).norm().item()
+            ok = ratio <= PATH_ACCURACY
+            row = dict(accuracy_ratio=ratio)
+            print(f"tune {model} {dname}: GanServer on the auto program, "
+                  f"||img - f32|| / ||plain - f32|| = {ratio:.4f} (gate "
+                  f"{PATH_ACCURACY}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"tune {model} {dname}: the auto program's images "
+                  f"disagree with the heuristic path")
+        # the generator forward on the tuned and the heuristic plans, in
+        # turns (heuristic, tuned, tuned, heuristic)
+        z = torch.randn((BATCH, cfg.z_dim), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+        ms = {"heuristic": [], "tuned": []}
+        for which in ("heuristic", "tuned", "tuned", "heuristic"):
+            srv = tuned if which == "tuned" else heuristic
+            ms[which].append(time_ms(lambda: srv.generator(z), warmup=2,
+                                     runs=10))
+        row.update(generator_ms={k: v for k, v in ms.items()})
+        print(f"tune {model} {dname}: generator forward at batch {BATCH}, "
+              f"heuristic plans {ms['heuristic']} ms, tuned plans "
+              f"{ms['tuned']} ms (medians of 10, in turns) [{card}]")
+        out["serve"][f"{model}_{dname}"] = row
+        del tuned, heuristic
+    seconds = time.perf_counter() - t0
+    out.update(launches=launched, measure_launches=measured,
+               seconds=seconds, worst_share=worst,
+               failures=planner.failures,
+               measurements=planner.measurements)
+    print(f"tune main path (the served batches): launches by kernel and "
+          f"dtype {launched}; measurement launches apart {measured}; "
+          f"{planner.measurements} measurements, {planner.failures} failed "
+          f"candidates; phase {seconds:.1f} s (limit {TUNE_LIMIT_S:g})")
+    check(seconds < TUNE_LIMIT_S, f"tune: {seconds:.1f} s >= "
+                                  f"{TUNE_LIMIT_S:g} s")
+    return out
+
+
 def _widen(tree: dict) -> None:
     """Every leaf to f32, in place, one leaf at a time."""
     for k, v in tree.items():
@@ -2169,6 +2922,17 @@ def _widen(tree: dict) -> None:
             _widen(v)
         else:
             tree[k] = v.float()
+
+
+def exact_sums() -> None:
+    """f32 sums on the card, as the port's kernels keep them: no TF32 in
+    PyTorch's matmuls and convolutions (the plain versions, the oracles),
+    no reduced-precision reductions in its bf16/f16 GEMMs (the port's
+    ``dw`` refuses them)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
 
 
 def main(argv=None) -> int:
@@ -2197,10 +2961,7 @@ def main(argv=None) -> int:
                                         init_gan)
     from repro_torch.serve.gan import GanServer
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
+    exact_sums()
     dev = torch.device("cuda", 0)
     record: dict = {"phase_s": {}}
     wrappers = {"ganax_conv": (ganax_conv_cuda, ganax_conv_plain),
@@ -2466,6 +3227,11 @@ def main(argv=None) -> int:
     # -- 7. one step against ganax-plain, profiles --------------------------
     record["train"] = train_parity_and_profiles(card, dev, step_times)
     phase_done("training parity and profiles")
+    # -- 7b. mixed-precision training; 7c. the autotuning planner -----------
+    mixed = record["mixed_train"] = mixed_train_phase(card, dev, wrappers)
+    phase_done("mixed_train")
+    tune = record["tune"] = tune_phase(card, dev, wrappers)
+    phase_done("tune")
     # -- 8. the flash-attention kernel against its plain version -----------
     for variant, errs in flash_geometries(dev).items():
         kernel_errs[FLASH_VARIANTS[variant]] = errs
@@ -2489,8 +3255,10 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            # the serving path's launches and the training path's
-            "launches": launches[name] + train_launches[name],
+            # the serving path's launches, the training path's and the
+            # tuner's (the auto programs' served batch) at f32
+            "launches": launches[name] + train_launches[name]
+            + tune["launches"][name].get("float32", 0),
             "max_abs_err": max(kernel_errs[name]),
             # per batch of the path: the sum over its four launches
             "ms": sum(row["ms"] for row in r),
@@ -2536,7 +3304,8 @@ def main(argv=None) -> int:
         "library_ms": f32["library_ms"] * f32["launches"],
     })
     # the storage-dtype instances of both GANAX kernels, on the quant
-    # phase's main path; times per 64-batch of the generator's 4 launches
+    # phase's main path, the mixed-precision training path and the
+    # tuner's; times per 64-batch of the generator's 4 launches
     for name, model in (("ganax_conv", "dcgan"), ("ganax_conv3d", "3dgan")):
         source, replaces = KERNELS[name]
         for dname, suffix in (("bfloat16", "bf16"), ("float16", "f16")):
@@ -2546,7 +3315,9 @@ def main(argv=None) -> int:
                 "route": "cuda",
                 "source": source,
                 "replaces": replaces,
-                "launches": quant["launches"][name][dname],
+                "launches": quant["launches"][name][dname]
+                + mixed["launches"][name][dname]
+                + tune["launches"][name].get(dname, 0),
                 "max_abs_err": max(quant["errs"][f"{name}_{dname}"]),
                 "ms": t["ms"],
                 "plain_ms": t["plain_ms"],

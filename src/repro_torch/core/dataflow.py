@@ -14,22 +14,28 @@ The port of ``repro.core.dataflow``.  It owns:
    PyTorch version, and on any other rank it raises.  ``"ganax-plain"``
    (the same dataflow through the plain version on any device),
    ``"polyphase"`` and ``"zero-insert"`` are oracles that run only when
-   pinned by name.
+   pinned by name.  ``route=`` names the CUDA kernel's route (a tuned
+   one: :class:`repro_torch.kernels.ganax_conv.KernelRoute`), and
+   ``backend="auto"`` takes backend and route from the tuner's plan.
 4. **Resolution as data** — :class:`DataflowPolicy` and
    :func:`resolve_execution` turn a policy and a layer geometry into a
-   :class:`Resolution` (backend, the reference's tile shapes,
-   provenance, mesh layout): what :class:`repro_torch.program.ProgramSpec`
-   freezes ahead of time.
+   :class:`Resolution` (backend, the kernel route, the reference's tile
+   shapes, provenance, mesh layout): what
+   :class:`repro_torch.program.ProgramSpec` freezes ahead of time.
+   ``backend="auto"`` consults the autotuning planner
+   (:mod:`repro_torch.tune`) with the layer's full geometry.
 5. **The gradient** — on the kernel backends, a
    ``torch.autograd.Function`` (the port of the reference's custom
    VJPs): ``dx`` re-enters the same kernel by adjoint duality (a
    tconv's ``dx`` is a conv with swapped weights, a conv's ``dx`` an
    uncropped pad-0 tconv), ``dw`` is a per-tap f32 contraction and
-   ``db`` an f32 reduction.  First order only: differentiating the
-   backward raises :class:`SecondOrderNotImplemented`; and at float32
-   storage only: a bf16/f16 forward serves, but its backward raises
-   (mixed-precision training is ROADMAP item 9b).  The oracles keep
-   PyTorch's native autograd.
+   ``db`` an f32 reduction.  At bf16/f16 storage (mixed-precision
+   training) the cotangent stays in the storage dtype: ``dx`` runs
+   through the kernel's instance of that dtype (f32 sums, one cast),
+   ``dw`` sums the storage-dtype products in f32 and casts once, ``db``
+   sums in f32, as the reference's custom VJPs do.  First order only:
+   differentiating the backward raises :class:`SecondOrderNotImplemented`.
+   The oracles keep PyTorch's native autograd.
 
 Geometry semantics are PyTorch ``ConvTranspose`` / correlation-conv
 throughout (channels-last ``x``, ``(K..., Cin, Cout)`` weights).
@@ -48,15 +54,18 @@ TPU for 2-D/3-D, else ``polyphase``)        ``polyphase``; source heuristic
 ``"pallas-tpu"`` / ``interpret=False``      ``ganax``
 ``"pallas-interpret"`` / ``interpret=True`` ``ganax-plain``
 ``"polyphase"``, ``"zero-insert"``          the same name
-``"auto"``                                  raises ``NotImplementedError``
-                                            (the tuner, ROADMAP item 11)
+``"auto"``                                  ``"auto"``: the planner's plan
+                                            (backend and kernel route),
+                                            else the heuristic
 ==========================================  ===============================
 
 The heuristic follows the reference *on its accelerator*: the kernel
 for the ranks it implements.  The reference's Pallas ``blocks`` ride
-through resolutions and program files and are checked by its
-divisibility rule (:func:`blocks_valid`), but the CUDA routes pick their
-own tiles and read none of them until the tuner is ported.
+through resolutions and program files as data, checked by its
+divisibility rule (:func:`blocks_valid`); the CUDA kernels never read
+them.  What the tuner chooses on the card is the kernel's route
+(``KernelRoute``: ``tc`` tile width and splits, or ``narrow`` splits),
+which resolutions, plans and program files carry beside them.
 """
 
 from __future__ import annotations
@@ -72,8 +81,10 @@ import torch.nn.functional as F
 from repro_torch import obs as _obs
 from repro_torch.core.scheduler import PhaseSchedule, make_schedule
 from repro_torch.core.tconv import tconv_ganax, tconv_zero_insert
-from repro_torch.device import require_ieee_f32
-from repro_torch.quant.precision import storage_itemsize
+from repro_torch.device import default_platform, platform_of
+from repro_torch.device import require_f32_accumulation
+from repro_torch.kernels.ganax_conv import KernelRoute, check_route
+from repro_torch.quant.precision import canonical_dtype, storage_itemsize
 
 __all__ = [
     "ACTIVATIONS",
@@ -99,6 +110,8 @@ __all__ = [
     "choose_layer_sharding",
     "resolve_blocks",
     "blocks_valid",
+    "kernel_call_geometry",
+    "valid_layer_route",
     "resolve_execution",
 ]
 
@@ -152,6 +165,11 @@ class Epilogue:
         if self.bias:
             parts.append("bias")
         return "+".join(parts) or "none"
+
+    def key_fields(self) -> dict:
+        """The epilogue's contribution to an autotuner plan key."""
+        return {"bias": self.bias, "activation": self.activation,
+                "leaky_slope": self.leaky_slope}
 
     def apply(self, y: torch.Tensor, bias: torch.Tensor | None = None
               ) -> torch.Tensor:
@@ -367,9 +385,10 @@ def require_kernel_rank(nd: int, what: str) -> None:
 @dataclasses.dataclass(frozen=True)
 class Backend:
     """One executable dataflow: a tconv and a conv implementation, each
-    ``fn(x, w, strides, paddings, epilogue, bias)``.  ``kernel`` marks
-    the GANAX kernel's dataflow, which runs the kernel's ranks only; the
-    oracles run any rank."""
+    ``fn(x, w, strides, paddings, epilogue, bias, route=None)``.
+    ``kernel`` marks the GANAX kernel's dataflow, which runs the kernel's
+    ranks only and takes a kernel ``route``; the oracles run any rank
+    and take none."""
 
     name: str
     tconv: Callable[..., torch.Tensor]
@@ -378,16 +397,16 @@ class Backend:
 
 
 def _kernel(transposed: bool, plain: bool):
-    def fn(x, w, strides, paddings, epilogue, bias):
+    def fn(x, w, strides, paddings, epilogue, bias, route=None):
         from repro_torch.kernels.ops import ganax_conv, ganax_conv_transpose
         op = ganax_conv_transpose if transposed else ganax_conv
         return op(x, w, strides, paddings, epilogue=epilogue, bias=bias,
-                  plain=plain)
+                  plain=plain, route=route)
     return fn
 
 
 def _oracle(op):
-    def fn(x, w, strides, paddings, epilogue, bias):
+    def fn(x, w, strides, paddings, epilogue, bias, route=None):
         y = op(x, w, strides, paddings)
         return y if epilogue.is_identity else epilogue.apply(y, bias)
     return fn
@@ -426,18 +445,6 @@ def available_backends() -> tuple[str, ...]:
 # docstring); every other registered name is the same in both.
 REFERENCE_BACKENDS = {"pallas-tpu": "ganax", "pallas-interpret": "ganax-plain"}
 
-AUTO_NOT_PORTED = (
-    "backend='auto' consults the reference's autotuning planner, which "
-    "the PyTorch port does not have yet (ROADMAP item 11, the tuner); "
-    "pin a backend ('ganax', 'ganax-plain', 'polyphase', 'zero-insert') "
-    "or leave it None for the heuristic")
-
-LOW_PRECISION_GRAD_NOT_PORTED = (
-    "gradients at a bfloat16 or float16 storage dtype are mixed-precision "
-    "training, ROADMAP item 9b, which the PyTorch port does not have yet; "
-    "train at float32 (the port serves bf16/f16 programs)")
-
-
 def port_backend(name: str) -> str:
     """A concrete backend name of the reference (or the port) as the
     port's registered name; raises ``ValueError`` for unknown names."""
@@ -459,10 +466,14 @@ class DataflowPolicy:
     layers, ``polyphase`` otherwise), ``"pallas"`` (the kernel with a
     ``polyphase`` fallback for other ranks), a concrete name of either
     package (strict: a kernel backend on another rank raises), or
-    ``"auto"`` (raises: ROADMAP item 11).  ``interpret`` asks for the
-    kernel's plain version (``True``, the ``ganax-plain`` oracle) or the
-    CUDA kernel (``False``); with ``None`` / ``"pallas"`` it picks the
-    variant, with a pinned name it must agree.  The reference's
+    ``"auto"`` (the autotuning planner's plan for the layer's full
+    geometry, a miss falling back to the heuristic: see
+    :func:`resolve_execution`; never measured at dispatch).
+    ``interpret`` asks for the kernel's plain version (``True``, the
+    ``ganax-plain`` oracle) or the CUDA kernel (``False``); with
+    ``None`` / ``"pallas"`` it picks the variant, with a pinned name it
+    must agree, and with ``"auto"`` it raises (the planner owns that
+    choice).  The reference's
     ``differentiable`` field has no counterpart: every port backend is
     differentiable, and :class:`repro_torch.program.Program` takes the
     flag."""
@@ -475,10 +486,17 @@ class DataflowPolicy:
             port_backend(self.backend)
 
     def resolve(self, nd: int) -> str:
-        """The concrete port backend for an ``nd``-spatial op."""
-        if self.backend == "auto":
-            raise NotImplementedError(AUTO_NOT_PORTED)
+        """The concrete port backend for an ``nd``-spatial op.
+        Geometry-free: ``"auto"`` reports the heuristic's choice here
+        (the planner needs the full geometry, which
+        :func:`resolve_execution` has)."""
         name = self.backend
+        if name == "auto":
+            if self.interpret is not None:
+                raise ValueError(
+                    "interpret cannot be combined with backend='auto': "
+                    "the planner owns the kernel-variant choice")
+            name = None
         if name is None or name == "pallas":
             # the heuristic and the kernel preference agree in the port:
             # the kernel for its ranks (the variant interpret asks for)
@@ -499,10 +517,12 @@ class DataflowPolicy:
 @dataclasses.dataclass(frozen=True)
 class Resolution:
     """One layer's fully resolved execution: the concrete port backend,
-    the reference's Pallas tile shapes (``None`` here: they come only
-    from the tuner), the provenance (``"pinned"`` / ``"tuned"`` /
-    ``"heuristic"``) and the layer's layout on a device mesh (one of
-    :data:`SHARDINGS`).  The data form of dispatch — what
+    the reference's Pallas tile shapes (data only; a plan file of the
+    reference carries them), the provenance (``"pinned"`` / ``"tuned"``
+    / ``"heuristic"``), the tuned plan's time, the layer's layout on a
+    device mesh (one of :data:`SHARDINGS`) and the CUDA kernel's
+    ``route`` (a tuned :class:`KernelRoute` on ``ganax``; ``None``:
+    ``kernel_route``'s pick per call).  The data form of dispatch — what
     :class:`repro_torch.program.ProgramSpec` freezes ahead of time."""
 
     backend: str
@@ -510,6 +530,7 @@ class Resolution:
     source: str = "heuristic"
     measured_us: float | None = None
     sharding: str = "data"
+    route: KernelRoute | None = None
 
 
 # Per-layer mesh layouts a resolution can freeze (see Resolution):
@@ -548,9 +569,9 @@ def resolve_blocks(blocks, q_lead, cin: int, cout: int
     (block_qy, block_cin, block_cout) triple for 2-D layers or the
     (block_qz, block_qy, block_cin, block_cout) quadruple for 3-D — by
     its rule: each must divide its extent.  ``q_lead`` is ``qy`` (2-D)
-    or ``(qz, qy)`` (3-D).  Program files carry such blocks; the CUDA
-    routes pick their own tiles (``kernel_route``) and read none of
-    them until the tuner (ROADMAP item 11) is ported."""
+    or ``(qz, qy)`` (3-D).  The reference's program and plan files
+    carry such blocks; the CUDA kernels read none of them (their tiles
+    are a :class:`KernelRoute`'s)."""
     lead = (int(q_lead),) if isinstance(q_lead, int) \
         else tuple(int(v) for v in q_lead)
     names = ("block_qz", "block_qy")[-len(lead):] + \
@@ -598,32 +619,145 @@ def blocks_valid(kind: str, in_spatial: Sequence[int],
     return True
 
 
+def kernel_call_geometry(kind: str, in_spatial: Sequence[int],
+                         kernel: Sequence[int], strides: Sequence[int],
+                         paddings: Sequence[int]
+                         ) -> tuple[int, int, tuple[int, ...]]:
+    """``(P, T, Q)`` of the kernel call of one 2-D/3-D layer: its phases,
+    taps a phase (the gathered weights' T) and phase grid; a call of B
+    samples has B·∏Q rows a phase and T·Cin products a row."""
+    in_spatial, kernel = tuple(in_spatial), tuple(kernel)
+    strides, paddings = tuple(strides), tuple(paddings)
+    if kind == "tconv":
+        u = compile_uops(in_spatial, kernel, strides, paddings)
+        p, t = u.k_idx.shape
+        return int(p), int(t), u.q_sizes
+    u = compile_conv_uops(in_spatial, kernel, strides, paddings)
+    return 1, int(np.prod(kernel)), u.out_sizes
+
+
+def valid_layer_route(route: KernelRoute, kind, in_spatial, kernel,
+                      strides, paddings, cin, cout,
+                      dtype) -> KernelRoute | None:
+    """``route`` completed for this layer, or None where the kernels do
+    not take it (a stale plan or program entry degrades, never
+    raises)."""
+    if len(tuple(in_spatial)) not in KERNEL_RANKS:
+        return None
+    _, t, _ = kernel_call_geometry(kind, in_spatial, kernel, strides,
+                                   paddings)
+    try:
+        return check_route(route, int(cin), int(cout), t * int(cin),
+                           storage_itemsize(dtype))
+    except ValueError:
+        return None
+
+
 def resolve_execution(policy: DataflowPolicy, kind: str,
                       in_spatial: Sequence[int], kernel: Sequence[int],
                       strides: Sequence[int], paddings: Sequence[int],
-                      cin: int, cout: int, *, dtype="float32",
-                      mesh_model: int = 1) -> Resolution:
-    """Resolve one layer's execution path **as data**: the concrete
-    backend (``policy.resolve``) with its provenance (``"heuristic"``
-    for the default policy, ``"pinned"`` otherwise) and, for
-    ``mesh_model > 1``, the layer's mesh layout
-    (:func:`choose_layer_sharding`).  Counts ``dataflow.resolve`` and
-    ``dataflow.resolve.<source>``.  The reference's planner arguments
-    (``planner``, ``measure``, ``batch``, ``epilogue``) have no
-    counterpart until the tuner is ported (ROADMAP item 11), nor its
-    ``cout_shard_min_bytes`` until the mesh is (item 12)."""
+                      cin: int, cout: int, *, batch: int = 1,
+                      dtype="float32", epilogue: Epilogue | None = None,
+                      planner=None, measure: bool = False,
+                      mesh_model: int = 1,
+                      platform: str | None = None) -> Resolution:
+    """Resolve one layer's execution path **as data** — the one
+    resolution routine behind the per-call ``backend="auto"`` dispatch
+    and the ahead-of-time :class:`repro_torch.program.ProgramSpec`.
+
+    For a policy other than ``auto`` this is ``policy.resolve`` with its
+    provenance (``"heuristic"`` for the default policy, ``"pinned"``
+    otherwise).  ``backend="auto"`` consults the autotuning planner
+    (``planner`` or :func:`repro_torch.tune.get_planner`'s) with the
+    layer's full geometry, ``batch``, storage ``dtype``, fused
+    ``epilogue`` and ``platform`` (default: the card's when there is
+    one): a hit gives the plan's backend, its kernel route and time,
+    ``source="tuned"``; a plan that no longer fits (an unknown backend
+    or rank, a route the kernels do not take, blocks that do not divide)
+    degrades to the heuristic or drops the stale part, never raises.
+    ``measure=True`` tunes a miss first (ahead-of-time builders only:
+    dispatch never measures).  For ``mesh_model > 1`` the layer's mesh
+    layout is :func:`choose_layer_sharding`'s.  Counts
+    ``dataflow.resolve``, ``dataflow.resolve.<source>`` and, for
+    ``auto``, ``dataflow.resolve.<reason>`` (``plan_hit``,
+    ``plan_miss``, ``plan_measured``, ``stale_plan``, ``stale_blocks``,
+    ``stale_route``).  The reference's ``cout_shard_min_bytes`` has no
+    counterpart until the mesh is ported (ROADMAP item 12)."""
     with _obs.trace("dataflow.resolve", kind=kind) as sp:
-        source = "heuristic" if policy.backend is None \
-            and policy.interpret is None else "pinned"
+        res, reasons = _resolve_execution(
+            policy, kind, in_spatial, kernel, strides, paddings, cin,
+            cout, batch=batch, dtype=dtype, epilogue=epilogue,
+            planner=planner, measure=measure, platform=platform)
         sharding = choose_layer_sharding(
             kernel, cin, cout, mesh_model,
             itemsize=storage_itemsize(dtype))
-        res = Resolution(policy.resolve(len(in_spatial)), None, source,
-                         sharding=sharding)
+        res = dataclasses.replace(res, sharding=sharding)
         sp.set(backend=res.backend, source=res.source)
     _obs.counter("dataflow.resolve").inc()
     _obs.counter(f"dataflow.resolve.{res.source}").inc()
+    for reason in reasons:
+        _obs.counter(f"dataflow.resolve.{reason}").inc()
     return res
+
+
+def _resolve_execution(policy, kind, in_spatial, kernel, strides,
+                       paddings, cin, cout, *, batch, dtype, epilogue,
+                       planner, measure, platform
+                       ) -> tuple[Resolution, list[str]]:
+    """Uninstrumented :func:`resolve_execution`; the second value lists
+    the plan-cache outcome and degradations behind the provenance."""
+    nd = len(in_spatial)
+    if policy.backend != "auto":
+        source = "heuristic" if policy.backend is None \
+            and policy.interpret is None else "pinned"
+        return Resolution(policy.resolve(nd), None, source), []
+    policy.resolve(nd)      # validates the interpret combination
+    from repro_torch.tune import get_planner
+    from repro_torch.tune.planner import PlanKey
+    if planner is None:
+        planner = get_planner()
+    ep = epilogue or _IDENTITY_EPILOGUE
+    key = PlanKey(kind=kind, batch=int(batch),
+                  in_spatial=tuple(int(d) for d in in_spatial),
+                  kernel=tuple(int(d) for d in kernel),
+                  strides=tuple(int(v) for v in strides),
+                  paddings=tuple(int(v) for v in paddings),
+                  cin=int(cin), cout=int(cout),
+                  dtype=canonical_dtype(dtype),
+                  platform=platform or default_platform(),
+                  **ep.key_fields())
+    # the outcome is read from the counters, not from extra planner calls
+    if measure:
+        measured_before = planner.measurements
+        plan = planner.plan(key, measure=True)
+        reasons = ["plan_measured" if planner.measurements
+                   > measured_before else "plan_hit"]
+    else:
+        plan = planner.lookup(key)
+        reasons = ["plan_hit" if plan is not None else "plan_miss"]
+    if plan is not None and plan.backend in BACKENDS and (
+            not BACKENDS[plan.backend].kernel or nd in KERNEL_RANKS):
+        kernel_backend = BACKENDS[plan.backend].kernel
+        blocks = plan.blocks if kernel_backend else None
+        if blocks is not None and not blocks_valid(
+                kind, key.in_spatial, key.kernel, key.strides,
+                key.paddings, cin, cout, blocks):
+            blocks = None
+            reasons.append("stale_blocks")
+        route = plan.route if plan.backend == "ganax" else None
+        if route is not None:
+            route = valid_layer_route(route, kind, key.in_spatial,
+                                      key.kernel, key.strides, key.paddings,
+                                      cin, cout, key.dtype)
+            if route is None:
+                reasons.append("stale_route")
+        source = "tuned" if plan.source == "measured" else "heuristic"
+        return Resolution(plan.backend, blocks, source, plan.measured_us,
+                          route=route), reasons
+    if plan is not None:
+        reasons.append("stale_plan")    # unknown backend / bad rank
+    heuristic = dataclasses.replace(policy, backend=None).resolve(nd)
+    return Resolution(heuristic, None, "heuristic"), reasons
 
 
 # ---------------------------------------------------------------------------
@@ -695,9 +829,18 @@ def _swap_io(w: torch.Tensor) -> torch.Tensor:
 
 def _tap_products(fixed: torch.Tensor, padded: torch.Tensor, kernel,
                   strides, extent, fixed_left: bool) -> torch.Tensor:
-    """``(K..., A, B)``: per kernel tap ``u``, one f32 product of the
-    (N·S, C) rows of ``padded``'s strided window at ``u`` with
-    ``fixed``, ``fixed @ window`` or ``window.T @ fixed``."""
+    """``(K..., A, B)``: per kernel tap ``u``, one product of the (N·S,
+    C) rows of ``padded``'s strided window at ``u`` with ``fixed``,
+    ``fixed @ window`` or ``window.T @ fixed``, its sums in f32.  A
+    bf16/f16 product is exact in f32: on the card cuBLAS sums the
+    storage-dtype operands in f32 and rounds each tap's result once
+    (:func:`~repro_torch.device.require_f32_accumulation` refuses the
+    reduced-precision reductions), on the CPU the operands are widened
+    to f32 first and the result stays f32 until the caller's one
+    cast."""
+    require_f32_accumulation(fixed)
+    if not fixed.is_cuda:
+        fixed, padded = fixed.float(), padded.float()
     nd = len(kernel)
     rows = []
     for u in np.ndindex(*kernel):
@@ -713,7 +856,6 @@ def _tconv_wgrad(x, g, kernel, strides, paddings):
     """dL/dw for ``y = tconv(x, w)``:  dw[u,ci,co] = Σ_{n,i} x[n,i,ci] ·
     g[n, s·i + u - p, co], one dense product per tap (no inserted
     zeros: every product is a consequential MAC)."""
-    require_ieee_f32(x)
     gp = F.pad(g, _f_pad((p, p) for p in paddings))
     xf = x.reshape(-1, x.shape[-1])
     return _tap_products(xf.T, gp, kernel, strides, x.shape[1:-1], True)
@@ -722,7 +864,6 @@ def _tconv_wgrad(x, g, kernel, strides, paddings):
 def _conv_wgrad(x, g, kernel, strides, paddings):
     """dL/dw for ``y = conv(x, w)``:  dw[t,ci,co] = Σ_{n,q}
     x[n, s·q + t - p, ci] · g[n,q,co]."""
-    require_ieee_f32(x)
     q_sp, in_sp = g.shape[1:-1], x.shape[1:-1]
     pad = [(p, max(0, s * (q - 1) + k - 1 - p - (i - 1)))
            for i, k, s, p, q in zip(in_sp, kernel, strides, paddings, q_sp)]
@@ -764,19 +905,23 @@ class _KernelOp(torch.autograd.Function):
     first order: the port of ``_tconv_ep_diff`` / ``_conv_ep_diff`` (and,
     with the identity epilogue, ``_tconv_diff`` / ``_conv_diff``).
 
-    The forward runs the kernel with its fused epilogue and saves
-    ``(x, w, b, y)``.  The backward folds the activation derivative,
-    recovered from ``y``, into the cotangent once; then ``dx`` re-enters
-    the same backend by adjoint duality, ``dw`` is the per-tap
-    contraction and ``db`` the reduction, each only where
+    The forward runs the kernel (on ``route``, a tuned one, or
+    ``kernel_route``'s) with its fused epilogue and saves ``(x, w, b,
+    y)``.  The backward folds the activation derivative, recovered from
+    ``y``, into the cotangent once, in its dtype (the storage dtype of
+    ``y``); then ``dx`` re-enters the same backend by adjoint duality at
+    that dtype on ``kernel_route``'s route (a tuned route describes the
+    forward's geometry, not the adjoint's, as the reference's tuned
+    blocks do), ``dw`` is the per-tap contraction with f32 sums cast
+    once to ``w``'s dtype and ``db`` the f32 reduction, each only where
     ``needs_input_grad`` asks for it."""
 
     @staticmethod
     def forward(ctx, x, w, bias, backend, transposed, strides, paddings,
-                epilogue):
+                epilogue, route):
         fn = backend.tconv if transposed else backend.conv
         with _obs.annotate("ganax.forward"):
-            y = fn(x, w, strides, paddings, epilogue, bias)
+            y = fn(x, w, strides, paddings, epilogue, bias, route)
         ctx.save_for_backward(x, w, bias, y)
         ctx.op = (backend, transposed, strides, paddings, epilogue)
         return y
@@ -785,8 +930,6 @@ class _KernelOp(torch.autograd.Function):
     @_once_differentiable
     def backward(ctx, g):
         x, w, bias, y = ctx.saved_tensors
-        if x.dtype != torch.float32:
-            raise NotImplementedError(LOW_PRECISION_GRAD_NOT_PORTED)
         backend, transposed, strides, paddings, epilogue = ctx.op
         need_x, need_w, need_b = ctx.needs_input_grad[:3]
         g_pre = _epilogue_cotangent(epilogue, y, g)
@@ -806,37 +949,57 @@ class _KernelOp(torch.autograd.Function):
                            paddings).to(w.dtype)
         if need_b and bias is not None:
             db = _bias_grad(g_pre, bias)
-        return dx, dw, db, None, None, None, None, None
+        return dx, dw, db, None, None, None, None, None, None
 
 
 def _dispatch(transposed: bool, x, w, strides, paddings, backend, bias,
-              epilogue) -> torch.Tensor:
+              epilogue, route) -> torch.Tensor:
     name = backend or "ganax"
+    epilogue = canonical_epilogue(epilogue, bias, int(w.shape[-1]))
+    strides, paddings = tuple(strides), tuple(paddings)
+    if name == "auto":
+        if route is not None:
+            raise ValueError("route= pins the kernel's route: pin "
+                             "backend='ganax' with it, not 'auto'")
+        nd = x.ndim - 2
+        res = resolve_execution(
+            DataflowPolicy(backend="auto"),
+            "tconv" if transposed else "conv", tuple(x.shape[1:1 + nd]),
+            tuple(w.shape[:nd]), strides, paddings, int(w.shape[-2]),
+            int(w.shape[-1]), batch=int(x.shape[0]), dtype=x.dtype,
+            epilogue=epilogue, platform=platform_of(x.device))
+        name, route = res.backend, res.route
     if name not in BACKENDS:
         raise ValueError(f"unknown dataflow backend {name!r}; "
-                         f"available: {tuple(sorted(BACKENDS))}")
+                         f"available: {tuple(sorted(BACKENDS))} or 'auto'")
     b = BACKENDS[name]
     if b.kernel:
         require_kernel_rank(x.ndim - 2, "the input")
-    epilogue = canonical_epilogue(epilogue, bias, int(w.shape[-1]))
-    strides, paddings = tuple(strides), tuple(paddings)
+    elif route is not None:
+        raise ValueError(f"route= names a GANAX kernel route; backend "
+                         f"{name!r} has none")
     if b.kernel and torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, w, bias)):
         return _KernelOp.apply(x, w, bias, b, transposed, strides,
-                               paddings, epilogue)
+                               paddings, epilogue, route)
     fn = b.tconv if transposed else b.conv
-    return fn(x, w, strides, paddings, epilogue, bias)
+    return fn(x, w, strides, paddings, epilogue, bias, route)
 
 
 def tconv(x: torch.Tensor, w: torch.Tensor, strides: Sequence[int],
           paddings: Sequence[int], *, backend: str | None = None,
           bias: torch.Tensor | None = None,
-          epilogue: Epilogue | None = None) -> torch.Tensor:
+          epilogue: Epilogue | None = None,
+          route: KernelRoute | None = None) -> torch.Tensor:
     """Transposed convolution through the unified GANAX dispatch.
 
     x: (N, *spatial, Cin) channels-last; w: (K..., Cin, Cout).
     ``backend`` pins a registered backend (default ``"ganax"``, the
-    kernel).  ``epilogue`` fuses a bias add (``bias``: a (Cout,) vector,
+    kernel) or is ``"auto"``: the planner's plan for this call's
+    geometry, batch, dtype, epilogue and device (lookup only; a miss
+    takes the heuristic).  ``route`` pins the CUDA kernel's route on a
+    kernel backend (``ValueError`` where the kernels do not take it).
+    ``epilogue`` fuses a bias add (``bias``: a (Cout,) vector,
     required iff ``epilogue.bias``) and an activation into the op; a bare
     ``bias=`` with no epilogue means a plain fused bias add.
 
@@ -846,15 +1009,16 @@ def tconv(x: torch.Tensor, w: torch.Tensor, strides: Sequence[int],
     the same kernel for ``dx``; otherwise (serving) it calls the kernel
     directly and records nothing."""
     return _dispatch(True, x, w, strides, paddings, backend, bias,
-                     epilogue)
+                     epilogue, route)
 
 
 def conv(x: torch.Tensor, w: torch.Tensor, strides: Sequence[int],
          paddings: Sequence[int], *, backend: str | None = None,
          bias: torch.Tensor | None = None,
-         epilogue: Epilogue | None = None) -> torch.Tensor:
+         epilogue: Epilogue | None = None,
+         route: KernelRoute | None = None) -> torch.Tensor:
     """Plain (strided) convolution through the same dispatch — the
     paper's SIMD mode, the single-phase case of the same kernel.
     Arguments as in :func:`tconv`."""
     return _dispatch(False, x, w, strides, paddings, backend, bias,
-                     epilogue)
+                     epilogue, route)

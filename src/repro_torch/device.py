@@ -4,7 +4,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "require_ieee_f32", "require_f32_accumulation"]
+__all__ = ["resolve_device", "platform_of", "default_platform",
+           "require_ieee_f32", "require_f32_accumulation"]
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -21,6 +22,23 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def platform_of(device: str | torch.device) -> str:
+    """The tuner's platform of ``device``: ``"cpu"``, or a card's compute
+    capability as ``"sm_<major><minor>"`` (``"sm_90"`` for an H100).
+    Plans measured on one platform never serve another."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return "cpu"
+    major, minor = torch.cuda.get_device_capability(dev)
+    return f"sm_{major}{minor}"
+
+
+def default_platform() -> str:
+    """The platform the entry points run on by default: the card's when
+    there is one, else the CPU's."""
+    return platform_of("cuda") if torch.cuda.is_available() else "cpu"
 
 
 def require_ieee_f32(t: torch.Tensor, *, conv: bool = False) -> None:

@@ -12,7 +12,9 @@ on any device.
 Each kernel has an instance per storage dtype (float32, bfloat16,
 float16: the C entry points ``<name>_f32``, ``_bf16``, ``_f16``), picked
 by the operands' dtype.  Each CUDA call takes one of three routes, which
-:func:`kernel_route` picks from the geometry and the dtype's size:
+:func:`kernel_route` picks from the geometry and the dtype's size (or
+the caller names, as the tuner does: :func:`route_options` lists the
+routes a geometry takes, :func:`check_route` holds a choice to them):
 ``"tc"`` (Cout > 8: products on the tensor cores into f32 accumulators,
 the weights in the (P, Cout, K) layout of :func:`tc_weights` — at f32
 exact as 3xTF32, split by :func:`tf32_split`; at bf16/f16 one product
@@ -60,7 +62,8 @@ from repro_torch.device import require_ieee_f32
 
 __all__ = ["TapTables", "apply_epilogue_to_acc", "ganax_conv_plain",
            "ganax_conv_cuda", "ganax_conv3d_plain", "ganax_conv3d_cuda",
-           "ACTIVATION_CODES", "KernelRoute", "kernel_route", "tf32_split",
+           "ACTIVATION_CODES", "KernelRoute", "kernel_route",
+           "route_options", "check_route", "tf32_split",
            "tc_weights", "tc_route_emulation", "plain_sums",
            "check_tma_weights", "tc_block_k", "flat_k_needed",
            "STORAGE_SUFFIX"]
@@ -123,19 +126,39 @@ class KernelRoute:
     ``flat_k``: tc stages the flattened (tap, c) index
     (:func:`flat_k_needed`);
     ``block_n``: tc's tile width; ``k_split``: the K a narrow split
-    takes."""
+    takes.  ``kind``, ``splits`` and ``block_n`` choose the route, and
+    only they compare and hash; ``flat_k`` and ``k_split`` follow from
+    them and the geometry (:func:`check_route` fills them in)."""
 
     kind: str
     splits: int = 1
-    flat_k: bool = False
+    flat_k: bool = dataclasses.field(default=False, compare=False)
     block_n: int = 0
-    k_split: int = 0
+    k_split: int = dataclasses.field(default=0, compare=False)
 
     @property
     def name(self) -> str:
         """The key of ``launches_by_route``: ``tc``, ``tc+split_k``,
         ``narrow`` or ``narrow+split_k``."""
         return self.kind + ("+split_k" if self.splits > 1 else "")
+
+    def describe(self) -> str:
+        """``tc/64/s2`` (kind, tile width, splits) or ``narrow/s4``."""
+        width = f"/{self.block_n}" if self.kind == "tc" else ""
+        return f"{self.kind}{width}/s{self.splits}"
+
+    def to_json(self) -> dict:
+        """The choice alone, as plan and program files store it."""
+        return {"kind": self.kind, "splits": self.splits,
+                "block_n": self.block_n}
+
+    @classmethod
+    def from_json(cls, d) -> "KernelRoute":
+        if not isinstance(d, dict) or set(d) != {"kind", "splits",
+                                                  "block_n"}:
+            raise ValueError(f"bad kernel route {d!r}")
+        return cls(str(d["kind"]), int(d["splits"]),
+                   block_n=int(d["block_n"]))
 
 
 def kernel_route(cin: int, cout: int, rows: int, k: int,
@@ -150,15 +173,13 @@ def kernel_route(cin: int, cout: int, rows: int, k: int,
     if cout <= NARROW_MAX_COUT:
         units = phases * _cdiv(rows, NARROW_BLOCK_ROWS)
         splits = 1
-
-        def k_split(s):     # a multiple of 4: 16-byte chunks
-            return _cdiv(_cdiv(k, s), 4) * 4
-
         while ((units * splits < 2 * SMS
                 and k // (2 * splits) >= NARROW_MIN_SPLIT_K)
-               or k_split(splits) * (cout + 1) > NARROW_SMEM_FLOATS):
+               or _narrow_k_split(k, splits) * (cout + 1)
+               > NARROW_SMEM_FLOATS):
             splits *= 2
-        return KernelRoute("narrow", splits, k_split=k_split(splits))
+        return KernelRoute("narrow", splits,
+                           k_split=_narrow_k_split(k, splits))
     flat = flat_k_needed(cin, itemsize)
     block_n = 64 if cout <= 64 else 128
     bk = tc_block_k(itemsize)
@@ -169,6 +190,63 @@ def kernel_route(cin: int, cout: int, rows: int, k: int,
             TC_MIN_SPLIT_STAGES:
         splits *= 2
     return KernelRoute("tc", splits, flat, block_n)
+
+
+def _narrow_k_split(k: int, splits: int) -> int:
+    """The K a narrow split takes: a multiple of 4 (16-byte chunks)."""
+    return _cdiv(_cdiv(k, splits), 4) * 4
+
+
+def route_options(cin: int, cout: int, k: int, itemsize: int = 4
+                  ) -> list[KernelRoute]:
+    """Every route the kernels take for a call of ``k`` = T·Cin products
+    a row at Cin ``cin``, Cout ``cout`` and the storage dtype's
+    ``itemsize``, whatever its rows: the routes :func:`kernel_route`
+    picks among, with ``flat_k`` and ``k_split`` filled in.  Cout <= 8
+    is ``narrow``: splits in powers of two from the fewest whose K range
+    fits shared memory, then while each split keeps
+    ``NARROW_MIN_SPLIT_K``.  The rest is ``tc``: tile width 64, and 128
+    where Cout > 64; splits in powers of two while each split keeps
+    ``TC_MIN_SPLIT_STAGES`` stages; none where a flattened K exceeds
+    ``TC_FLAT_MAX_K``.  The csrc ``run`` returns -2 for any other
+    route."""
+    if cout <= NARROW_MAX_COUT:
+        s = 1
+        while _narrow_k_split(k, s) * (cout + 1) > NARROW_SMEM_FLOATS:
+            s *= 2
+        out = [KernelRoute("narrow", s, k_split=_narrow_k_split(k, s))]
+        s *= 2
+        while k // s >= NARROW_MIN_SPLIT_K:
+            out.append(KernelRoute("narrow", s,
+                                   k_split=_narrow_k_split(k, s)))
+            s *= 2
+        return out
+    flat = flat_k_needed(cin, itemsize)
+    if flat and k > TC_FLAT_MAX_K:
+        return []
+    bk = tc_block_k(itemsize)
+    stages = _cdiv(k, bk) if flat else (k // cin) * _cdiv(cin, bk)
+    splits = [1]
+    while stages // (2 * splits[-1]) >= TC_MIN_SPLIT_STAGES:
+        splits.append(2 * splits[-1])
+    widths = (64, 128) if cout > 64 else (64,)
+    return [KernelRoute("tc", s, flat, n) for n in widths for s in splits]
+
+
+def check_route(route: KernelRoute, cin: int, cout: int, k: int,
+                itemsize: int = 4) -> KernelRoute:
+    """``route`` (its ``kind``, ``splits`` and ``block_n``) completed for
+    this geometry; raises ``ValueError`` unless it is one of
+    :func:`route_options`, the routes the kernels take.  The one
+    validator of a chosen route: the tuner's candidates, plan and
+    program files, and the wrappers' ``route=`` all pass through it."""
+    for r in route_options(cin, cout, k, itemsize):
+        if r == route:
+            return r
+    raise ValueError(
+        f"no GANAX kernel takes route {route.describe()} for Cin {cin}, "
+        f"Cout {cout}, K {k} at {itemsize}-byte storage; the routes it "
+        f"takes: {[r.describe() for r in route_options(cin, cout, k, itemsize)]}")
 
 
 def _tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -406,8 +484,13 @@ def ganax_conv3d_plain(x_pad: torch.Tensor, w_taps: torch.Tensor,
                   activation, leaky_slope)
 
 
-def _route_of(x_pad, w_taps, q_sizes) -> KernelRoute:
+def _route_of(x_pad, w_taps, q_sizes,
+              route: KernelRoute | None = None) -> KernelRoute:
+    """``kernel_route``'s pick for this call, or ``route`` checked and
+    completed by :func:`check_route`."""
     p, t, cin, cout = w_taps.shape
+    if route is not None:
+        return check_route(route, cin, cout, t * cin, x_pad.element_size())
     return kernel_route(cin, cout, x_pad.shape[0] * math.prod(q_sizes),
                         t * cin, p, x_pad.element_size())
 
@@ -416,13 +499,15 @@ def tc_route_emulation(x_pad: torch.Tensor, w_taps: torch.Tensor,
                        tables: TapTables, out_strides, q_sizes,
                        bias: torch.Tensor | None = None,
                        activation: str = "none", leaky_slope: float = 0.2,
-                       splits: int | None = None) -> torch.Tensor:
+                       splits: int | None = None,
+                       block_n: int | None = None) -> torch.Tensor:
     """The tc route's order of sums in plain PyTorch, 2-D or 3-D, at any
     storage dtype (the CPU's counterpart of the kernel, for the tests):
     per phase, the rows' gathered K (``tc_weights``' layout, zeros where
     the kernel zero-fills) in stages of the dtype's :func:`tc_block_k`;
     for each slab of a split (``TC_SLAB_STAGES`` of the tile width and
-    itemsize), into a fresh f32 sum, added to the split's f32 sum: at
+    itemsize; ``block_n``, or ``kernel_route``'s), into a fresh f32
+    sum, added to the split's f32 sum: at
     f32 the products ``a_lo·b_hi + a_hi·b_lo`` stage by stage, then ``+
     a_hi·b_hi``; at bf16/f16 one product ``a·b`` a stage, the operands
     widened to f32 (where the product is exact).  The splits
@@ -445,7 +530,7 @@ def tc_route_emulation(x_pad: torch.Tensor, w_taps: torch.Tensor,
     n_stages = kb // bk
     per = _cdiv(n_stages, splits)
     rows = b * math.prod(q_sizes)
-    slab = TC_SLAB_STAGES[route.block_n, itemsize]
+    slab = TC_SLAB_STAGES[block_n or route.block_n, itemsize]
     out = x_pad.new_empty((b, p, *q_sizes, cout))
     for ph, taps in enumerate(tables.taps):
         # the phase's A operand, (rows, kb), as the producer gathers it
@@ -549,11 +634,11 @@ def check_tma_weights(b: torch.Tensor) -> None:
 
 
 def _cuda(wrapper, x_pad, w_taps, tables, out_strides, q_sizes, bias,
-          activation, leaky_slope) -> torch.Tensor:
+          activation, leaky_slope, route) -> torch.Tensor:
     """Check, route, allocate and launch one call of the kernel of
     ``wrapper`` (``<name>_cuda`` launches ``csrc/<name>.cu``'s instance
-    of x_pad's dtype); count it there, once, under its route and under
-    its dtype."""
+    of x_pad's dtype) on ``route`` (None: ``kernel_route``'s); count it
+    there, once, under its route and under its dtype."""
     name = wrapper.__name__
     _check(x_pad, w_taps, tables, out_strides, q_sizes, bias, activation)
     dev = x_pad.device
@@ -568,7 +653,7 @@ def _cuda(wrapper, x_pad, w_taps, tables, out_strides, q_sizes, bias,
             raise ValueError(f"{name} takes contiguous tensors")
     b, *spatial, cin = x_pad.shape
     p, t, _, cout = w_taps.shape
-    route = _route_of(x_pad, w_taps, q_sizes)
+    route = _route_of(x_pad, w_taps, q_sizes, route)
     if cin % 4 == 0:
         # 16-byte copies (tc) or 16- or 8-byte loads (narrow) of each
         # row's channels
@@ -616,8 +701,8 @@ def _cuda(wrapper, x_pad, w_taps, tables, out_strides, q_sizes, bias,
 def ganax_conv_cuda(x_pad: torch.Tensor, w_taps: torch.Tensor,
                     tables: TapTables, out_strides: tuple[int, int],
                     qy: int, qx: int, bias: torch.Tensor | None = None,
-                    activation: str = "none", leaky_slope: float = 0.2
-                    ) -> torch.Tensor:
+                    activation: str = "none", leaky_slope: float = 0.2,
+                    route: KernelRoute | None = None) -> torch.Tensor:
     """Launch the planar CUDA kernel's instance of ``x_pad``'s dtype on
     the current stream (no synchronise).
 
@@ -626,27 +711,29 @@ def ganax_conv_cuda(x_pad: torch.Tensor, w_taps: torch.Tensor,
     a float32 ``bias``, ``x_pad`` at a 16-byte aligned address where
     Cin % 4 = 0, and raises on anything else; the output (in the
     storage dtype), the tc route's weights and split-K's f32 scratch
-    are allocated here.  The route is :func:`kernel_route`'s.  Each call
+    are allocated here.  The route is :func:`kernel_route`'s, or
+    ``route`` (a tuned one: :func:`check_route` raises ``ValueError`` on
+    a route the kernels do not take for this geometry).  Each call
     adds one to ``ganax_conv_cuda.launches`` (a split-K call runs two
     device kernels), to ``ganax_conv_cuda.launches_by_route[route.name]``
     and to ``ganax_conv_cuda.launches_by_dtype[dtype name]``."""
     return _cuda(ganax_conv_cuda, x_pad, w_taps, tables, out_strides,
-                 (qy, qx), bias, activation, leaky_slope)
+                 (qy, qx), bias, activation, leaky_slope, route)
 
 
 def ganax_conv3d_cuda(x_pad: torch.Tensor, w_taps: torch.Tensor,
                       tables: TapTables, out_strides: tuple[int, int, int],
                       qz: int, qy: int, qx: int,
                       bias: torch.Tensor | None = None,
-                      activation: str = "none", leaky_slope: float = 0.2
-                      ) -> torch.Tensor:
+                      activation: str = "none", leaky_slope: float = 0.2,
+                      route: KernelRoute | None = None) -> torch.Tensor:
     """Launch the volumetric CUDA kernel on the current stream (no
     synchronise).  Takes what :func:`ganax_conv_cuda` takes, with a depth
     axis; each call adds one to ``ganax_conv3d_cuda.launches``,
     ``ganax_conv3d_cuda.launches_by_route[route.name]`` and
     ``ganax_conv3d_cuda.launches_by_dtype[dtype name]``."""
     return _cuda(ganax_conv3d_cuda, x_pad, w_taps, tables, out_strides,
-                 (qz, qy, qx), bias, activation, leaky_slope)
+                 (qz, qy, qx), bias, activation, leaky_slope, route)
 
 
 ganax_conv_cuda.launches = 0

@@ -34,7 +34,8 @@ from repro_torch.core.dataflow import (Epilogue, _f_pad,
                                        compile_conv_uops, compile_uops,
                                        require_kernel_rank)
 from repro_torch.core.tconv import interleave_phases
-from repro_torch.kernels.ganax_conv import (STORAGE_SUFFIX, TapTables,
+from repro_torch.kernels.ganax_conv import (STORAGE_SUFFIX, KernelRoute,
+                                            TapTables, check_route,
                                             ganax_conv3d_cuda,
                                             ganax_conv3d_plain,
                                             ganax_conv_cuda, ganax_conv_plain)
@@ -131,23 +132,35 @@ _KERNELS = {2: (ganax_conv_cuda, ganax_conv_plain),
             3: (ganax_conv3d_cuda, ganax_conv3d_plain)}
 
 
-def _launch(operands: dict, epilogue, bias, plain: bool) -> torch.Tensor:
+def launch_kernel(operands: dict, epilogue, bias, plain: bool,
+                  route: KernelRoute | None) -> torch.Tensor:
+    """One call of the kernel of the operands' rank (its plain version
+    where ``plain`` or on the CPU) on :func:`kernel_operands`' output,
+    with the epilogue fused; (B, P, *Q, Cout) before the interleave."""
     ep = canonical_epilogue(epilogue, bias,
                             int(operands["w_taps"].shape[-1]))
     if bias is not None:
         bias = bias.to(torch.float32).contiguous()
     x_pad = operands["x_pad"]
     cuda_kernel, plain_kernel = _KERNELS[x_pad.ndim - 2]
-    kernel = plain_kernel if plain or not x_pad.is_cuda else cuda_kernel
-    return kernel(**operands, bias=bias, activation=ep.activation,
-                  leaky_slope=ep.leaky_slope)
+    args = dict(operands, bias=bias, activation=ep.activation,
+                leaky_slope=ep.leaky_slope)
+    if not plain and x_pad.is_cuda:
+        return cuda_kernel(**args, route=route)
+    if route is not None:
+        # the plain version's sums are every route's function; the
+        # choice is held to the kernels' routes all the same
+        _, t, cin, cout = operands["w_taps"].shape
+        check_route(route, cin, cout, t * cin, x_pad.element_size())
+    return plain_kernel(**args)
 
 
 def ganax_conv_transpose(x: torch.Tensor, w: torch.Tensor,
                          strides: Sequence[int], paddings: Sequence[int],
                          *, epilogue: Epilogue | None = None,
                          bias: torch.Tensor | None = None,
-                         plain: bool = False) -> torch.Tensor:
+                         plain: bool = False,
+                         route: KernelRoute | None = None) -> torch.Tensor:
     """Transposed convolution through the unified GANAX kernel.
 
     x: (N, *spatial, Cin) channels-last with 2 or 3 spatial dims;
@@ -155,10 +168,13 @@ def ganax_conv_transpose(x: torch.Tensor, w: torch.Tensor,
     ``epilogue``/``bias`` fuse a bias add and activation into the
     kernel's flush; phases with no taps (kernel < stride) still get it,
     their outputs are ``act(0 + b)``.  The epilogue is elementwise, so it
-    commutes with the phase interleave that follows."""
-    out_pm = _launch(kernel_operands(x, w, strides, paddings,
-                                     transposed=True),
-                     epilogue, bias, plain)
+    commutes with the phase interleave that follows.  ``route`` names
+    the CUDA kernel's route (a tuned one; default ``kernel_route``'s):
+    ``ValueError`` unless the kernels take it for this geometry, on any
+    device."""
+    out_pm = launch_kernel(kernel_operands(x, w, strides, paddings,
+                                           transposed=True),
+                           epilogue, bias, plain, route)
     # out_pm: (B, P, *Q, Cout) in schedule.phase_order; interleave
     nd = x.ndim - 2
     sched = compile_uops(tuple(x.shape[1:1 + nd]), tuple(w.shape[:nd]),
@@ -177,10 +193,11 @@ def ganax_conv(x: torch.Tensor, w: torch.Tensor, strides: Sequence[int],
                paddings: Sequence[int], *,
                epilogue: Epilogue | None = None,
                bias: torch.Tensor | None = None,
-               plain: bool = False) -> torch.Tensor:
+               plain: bool = False,
+               route: KernelRoute | None = None) -> torch.Tensor:
     """Plain (strided) convolution through the same kernel — the paper's
     SIMD mode: one phase whose taps are the full kernel.  Arguments as
     in :func:`ganax_conv_transpose`."""
-    return _launch(kernel_operands(x, w, strides, paddings,
-                                   transposed=False),
-                   epilogue, bias, plain)[:, 0]
+    return launch_kernel(kernel_operands(x, w, strides, paddings,
+                                         transposed=False),
+                         epilogue, bias, plain, route)[:, 0]

@@ -11,7 +11,8 @@ counterpart of the reference's ``Program._replay``, and
 :class:`Generator` replays the generator branch: the z-projection (an
 f32 matmul, + bias, ReLU), then one ``tconv`` / ``conv`` per record on
 the record's backend, with its bias and activation fused into the
-kernel's flush.  :class:`Discriminator` replays the discriminator
+kernel's flush (on the record's tuned kernel route, if it froze one).
+:class:`Discriminator` replays the discriminator
 branch: one ``conv`` (or ``tconv``) per record with bias + LeakyReLU
 fused, then the mean of the logits in f32.  Both hold trainable
 parameters; the kernel backends differentiate through
@@ -24,7 +25,9 @@ reference's ``Program._replay`` applies it: the latents and each weight
 are cast to it at use, the projection's products are summed in f32,
 biases stay f32 into the fused epilogues, and every layer's output is
 stored in it; the discriminator's logits are reduced in f32 and stay
-f32.  Parameters stay f32 in the caller's dict.
+f32.  Parameters stay f32 in the caller's dict, and training
+differentiates through the casts: each weight's gradient comes back
+from the storage dtype as f32 (mixed-precision training).
 """
 
 from __future__ import annotations
@@ -62,8 +65,8 @@ _NO_SPAN = contextlib.nullcontext()
 class GanConfig:
     """One Table-I model.  ``channel_scale`` shrinks the channels for
     CPU-sized runs; ``backend`` is the dataflow policy's backend (a port
-    or reference name, ``"pallas"``, or ``None``: the heuristic, the
-    kernel); ``mesh`` the ``(data, model)`` layout programs built from
+    or reference name, ``"pallas"``, ``"auto"``: the tuner's plans, or
+    ``None``: the heuristic, the kernel); ``mesh`` the ``(data, model)`` layout programs built from
     the config freeze (run on one device until ROADMAP item 12);
     ``dtype`` is the storage precision (float32, bfloat16 or float16,
     aliases accepted; accumulation is always f32)."""
@@ -221,7 +224,7 @@ class _Network(nn.Module):
                 if tracing else _NO_SPAN
             with span:
                 x = op(x, p[le.w_param].to(sd), le.strides, le.paddings,
-                       backend=le.backend,
+                       backend=le.backend, route=le.route,
                        bias=p[le.b_param] if le.bias else None,
                        epilogue=le.epilogue)
         return x

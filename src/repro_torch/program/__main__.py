@@ -21,9 +21,14 @@ freezes the storage precision, and ``--quantize int8`` with
 ``--export`` embeds int8 weights from a seed-0 init of the model (the
 reference's export flow; a deployment calls
 :func:`repro_torch.quant.quantize_program` on trained parameters).
-``--backend auto``, ``--measure`` and ``--plans`` belong to the
-reference's tuner (ROADMAP item 11) and raise ``NotImplementedError``
-here.
+``--backend auto`` resolves each layer through the autotuning planner
+(``--plans`` names its plan file, default ``$REPRO_TUNE_PLANS`` or in
+memory); ``--measure`` tunes the plan misses while building, on the
+card when there is one (else on the CPU), so the export carries the
+tuned backends and kernel routes::
+
+    PYTHONPATH=src python -m repro_torch.program dcgan --role generator \
+        --backend auto --measure --plans plans.json --export tuned.json
 """
 
 from __future__ import annotations
@@ -32,8 +37,9 @@ import argparse
 import sys
 
 from repro_torch.configs.gans import GAN_MODELS
-from repro_torch.core.dataflow import (AUTO_NOT_PORTED, DataflowPolicy,
-                                       available_backends)
+from repro_torch.core.dataflow import DataflowPolicy, available_backends
+from repro_torch.device import default_platform
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
@@ -58,16 +64,17 @@ def main(argv=None) -> int:
                          "(aliases f32/bf16/f16 accepted); "
                          "accumulation is always f32")
     ap.add_argument("--backend", default=None,
-                    help="policy backend (a port or reference name, or "
-                         f"'pallas'; registered: "
+                    help="policy backend (a port or reference name, "
+                         f"'pallas', or 'auto'; registered: "
                          f"{', '.join(available_backends())}; default: "
                          "heuristic)")
     ap.add_argument("--plans", default=None, metavar="PATH",
-                    help="the reference's tuner plan file (ROADMAP "
-                         "item 11: raises)")
+                    help="autotuner plan file consulted by --backend auto "
+                         "(a file of either package)")
     ap.add_argument("--measure", action="store_true",
-                    help="tune plan misses while building (ROADMAP "
-                         "item 11: raises)")
+                    help="with --backend auto: tune plan misses while "
+                         "building (without it, resolution is lookup-only "
+                         "and a cold planner exports heuristic layers)")
     ap.add_argument("--quantize", default=None, choices=("int8",),
                     help="with --export: embed per-channel symmetric "
                          "int8 weights (+ f32 scales) in the program "
@@ -83,14 +90,17 @@ def main(argv=None) -> int:
                          "metrics this invocation produced")
     args = ap.parse_args(argv)
 
-    if args.measure or args.plans or args.backend == "auto":
-        raise NotImplementedError(AUTO_NOT_PORTED)
-
     from repro_torch import obs
     from repro_torch.models.gan import GanConfig
     from repro_torch.program import ProgramSpec, load_or_build
 
     counters0 = dict(obs.snapshot()["counters"]) if args.stats else {}
+    planner = None
+    if args.plans:
+        from repro_torch.tune import Planner
+        planner = Planner(args.plans)
+        if planner.load_error:
+            print(f"warning: plan file ignored ({planner.load_error})")
     mesh = None
     if args.mesh:
         try:
@@ -122,15 +132,19 @@ def main(argv=None) -> int:
     exported = False
     for role in roles:
         if args.load:
-            # the smoke touches no tensors: bind the program to the CPU
-            prog, loaded = load_or_build(args.load, cfg, args.batch, role,
-                                         policy=policy, device="cpu")
+            # binding a program touches no tensors; the card's when
+            # there is one, so that a rebuild measures where it will run
+            prog, loaded = load_or_build(
+                args.load, cfg, args.batch, role, policy=policy,
+                planner=planner, measure=args.measure,
+                device="cpu" if default_platform() == "cpu" else "cuda")
             if not loaded:
                 print(f"note: {args.load} unusable for "
                       f"{args.model}/{role}; rebuilt from config")
             spec = prog.spec
         else:
-            spec = ProgramSpec.build(cfg, args.batch, role, policy=policy)
+            spec = ProgramSpec.build(cfg, args.batch, role, policy=policy,
+                                     planner=planner, measure=args.measure)
         print(spec.describe())
         if args.export and not exported:
             if args.quantize:

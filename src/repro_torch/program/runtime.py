@@ -24,7 +24,7 @@ from torch import nn
 
 from repro_torch import obs as _obs
 from repro_torch.core.dataflow import DataflowPolicy
-from repro_torch.device import resolve_device
+from repro_torch.device import platform_of, resolve_device
 from repro_torch.models.gan import Discriminator, GanConfig, Generator
 from repro_torch.program.spec import _UNSET as _SPEC_UNSET
 from repro_torch.program.spec import ProgramSpec
@@ -74,14 +74,18 @@ class Program:
 
     @classmethod
     def build(cls, cfg: GanConfig, batch: int, role: str = "generator", *,
-              policy: DataflowPolicy | None = None,
-              dtype: str | None = None,
+              policy: DataflowPolicy | None = None, planner=None,
+              measure: bool = False, dtype: str | None = None,
               device: str | torch.device = "cuda",
               differentiable: bool = True, mesh=_SPEC_UNSET) -> "Program":
-        """:meth:`ProgramSpec.build` + wrap — the one-call form."""
+        """:meth:`ProgramSpec.build` + wrap — the one-call form; an
+        ``auto`` policy's plans are those of ``device``'s platform
+        (``measure=True`` tunes the misses there)."""
         device = resolve_device(device)
         spec = ProgramSpec.build(cfg, batch, role, policy=policy,
-                                 dtype=dtype, mesh=mesh)
+                                 planner=planner, measure=measure,
+                                 dtype=dtype, mesh=mesh,
+                                 platform=platform_of(device))
         return cls(spec, device=device, differentiable=differentiable)
 
     # -- embedded (quantized) parameters ------------------------------------
@@ -197,8 +201,8 @@ def build_bucket_programs(spec: ProgramSpec, buckets, *,
 
 
 def load_or_build(path, cfg: GanConfig, batch: int, role: str = "generator",
-                  *, policy: DataflowPolicy | None = None,
-                  dtype: str | None = None,
+                  *, policy: DataflowPolicy | None = None, planner=None,
+                  measure: bool = False, dtype: str | None = None,
                   device: str | torch.device = "cuda",
                   differentiable: bool = True,
                   mesh=_SPEC_UNSET) -> tuple[Program, bool]:
@@ -213,10 +217,12 @@ def load_or_build(path, cfg: GanConfig, batch: int, role: str = "generator",
     optimization, never the service.  The requested ``dtype`` defaults
     to ``cfg.dtype``, so a file at another storage precision rebuilds.
     The mesh is not part of the workload identity; ``mesh`` only shapes
-    the fallback rebuild."""
+    the fallback rebuild, and ``measure=True`` (tune an ``auto``
+    policy's plan misses) only the fallback's."""
     device = resolve_device(device)
-    fresh = ProgramSpec.build(cfg, batch, role, policy=policy, dtype=dtype,
-                              mesh=mesh)
+    build = dict(policy=policy, planner=planner, dtype=dtype, mesh=mesh,
+                 platform=platform_of(device))
+    fresh = ProgramSpec.build(cfg, batch, role, measure=False, **build)
     try:
         spec = ProgramSpec.load(path)
         if spec.geometry_signature() != fresh.geometry_signature():
@@ -225,6 +231,9 @@ def load_or_build(path, cfg: GanConfig, batch: int, role: str = "generator",
     except Exception as e:   # corrupt/stale file → fresh resolution
         log.warning("ignoring program file %s (%s: %s); rebuilding from "
                     "config", path, type(e).__name__, e)
+        if measure:
+            fresh = ProgramSpec.build(cfg, batch, role, measure=True,
+                                      **build)
         return Program(fresh, device=device,
                        differentiable=differentiable), False
     return Program(spec, device=device, differentiable=differentiable), True

@@ -13,17 +13,19 @@ and :meth:`ProgramSpec.from_json` reads the reference's version 1, 2
 and 3 files, mapping their backends to the port's
 (``pallas-tpu`` → ``ganax``, ``pallas-interpret`` → ``ganax-plain``;
 :mod:`repro_torch.core.dataflow`).  ``from_json`` validates hard
-(version, backends, ranks, block shapes, epilogues): a stale or corrupt
-file raises so loaders can fall back to fresh resolution (see
-:func:`repro_torch.program.load_or_build`).
+(version, backends, ranks, block shapes, kernel routes, epilogues): a
+stale or corrupt file raises so loaders can fall back to fresh
+resolution (see :func:`repro_torch.program.load_or_build`).
 
-A spec freezes its storage ``dtype`` (float32, bfloat16 or float16)
-and, in a version-3 file, may embed int8 weights
-(``quantized_params``, :mod:`repro_torch.quant.weights`), validated at
-load.  What the port does not run yet raises, naming the ROADMAP item
-that lifts it: ``backend="auto"`` and :meth:`LayerExec.plan_key` (item
-11, the tuner).  A frozen ``mesh`` and each layer's ``sharding`` are
-kept as data; the runtime executes on one device until item 12.
+With ``backend="auto"`` the build consults the autotuning planner
+(:mod:`repro_torch.tune`) per layer, and a tuned layer freezes its GANAX
+kernel route (``LayerExec.route``), which the replay passes to the
+kernel; a file with no tuned route is in the reference's format.  A
+spec freezes its storage ``dtype`` (float32, bfloat16 or float16) and,
+in a version-3 file, may embed int8 weights (``quantized_params``,
+:mod:`repro_torch.quant.weights`), validated at load.  A frozen
+``mesh`` and each layer's ``sharding`` are kept as data; the runtime
+executes on one device until ROADMAP item 12.
 """
 
 from __future__ import annotations
@@ -33,13 +35,13 @@ import functools
 import json
 import os
 
-import torch
-
 from repro_torch import obs as _obs
-from repro_torch.core.dataflow import (AUTO_NOT_PORTED, BACKENDS, SHARDINGS,
-                                       DataflowPolicy, Epilogue,
-                                       KERNEL_RANKS, blocks_valid,
-                                       port_backend, resolve_execution)
+from repro_torch.core.dataflow import (BACKENDS, SHARDINGS, DataflowPolicy,
+                                       Epilogue, KERNEL_RANKS, blocks_valid,
+                                       port_backend, resolve_execution,
+                                       valid_layer_route)
+from repro_torch.device import default_platform
+from repro_torch.kernels.ganax_conv import KernelRoute
 from repro_torch.models.gan import (discriminator_epilogues,
                                     generator_epilogues)
 from repro_torch.quant.precision import canonical_dtype
@@ -62,11 +64,6 @@ ROLES = ("generator", "discriminator")
 _UNSET = object()
 
 
-def _platform() -> str:
-    """Where a spec was resolved (provenance only)."""
-    return "cuda" if torch.cuda.is_available() else "cpu"
-
-
 @dataclasses.dataclass(frozen=True)
 class LayerExec:
     """One frozen layer execution record of a GAN program.
@@ -75,13 +72,15 @@ class LayerExec:
     .ConvLayer`; ``w_param`` / ``b_param`` name the entries of the
     params dict the network reads; ``backend`` is the concrete port
     backend the layer runs; ``blocks`` the reference's Pallas tile
-    shapes, when a tuned file carried them (valid for this geometry,
-    but not read by the CUDA routes until ROADMAP item 11); ``source``
+    shapes, when a file of the reference carried them (valid for this
+    geometry, kept as data: no CUDA kernel reads them); ``source``
     the resolution's provenance (``pinned`` / ``tuned`` /
     ``heuristic``) and ``measured_us`` the tuned plan's time.
     ``sharding`` is the layer's frozen mesh layout (one of
     :data:`~repro_torch.core.dataflow.SHARDINGS`); ``"data"`` unless the
-    owning spec carries a mesh with a model axis.
+    owning spec carries a mesh with a model axis.  ``route`` is the
+    tuned GANAX kernel route of a ``ganax`` layer, passed to the kernel
+    at every call (``None``: ``kernel_route``'s per call).
     """
 
     name: str
@@ -102,6 +101,7 @@ class LayerExec:
     source: str                     # "pinned" | "tuned" | "heuristic"
     measured_us: float | None = None
     sharding: str = "data"          # "data" | "cout"
+    route: KernelRoute | None = None
 
     def __post_init__(self):
         if self.kind not in ("tconv", "conv"):
@@ -118,6 +118,9 @@ class LayerExec:
         if self.bias and self.b_param is None:
             raise ValueError(f"layer {self.name!r} has bias=True but "
                              f"no b_param")
+        if self.route is not None and self.backend != "ganax":
+            raise ValueError(f"layer {self.name!r} carries a kernel route "
+                             f"on backend {self.backend!r}")
 
     @property
     def nd(self) -> int:
@@ -130,9 +133,15 @@ class LayerExec:
                         leaky_slope=self.leaky_slope)
 
     def plan_key(self, batch: int, dtype: str, platform: str):
-        """The reference's autotuner key of this layer: the tuner is not
-        ported yet."""
-        raise NotImplementedError(AUTO_NOT_PORTED)
+        """The autotuner :class:`~repro_torch.tune.PlanKey` of this
+        layer: the one source the tuner's zoo entry points key plans
+        on."""
+        from repro_torch.tune.planner import PlanKey
+        return PlanKey(kind=self.kind, batch=int(batch),
+                       in_spatial=self.in_spatial, kernel=self.kernel,
+                       strides=self.strides, paddings=self.paddings,
+                       cin=self.cin, cout=self.cout, dtype=dtype,
+                       platform=platform, **self.epilogue.key_fields())
 
     def geometry_signature(self) -> tuple:
         """The layer's workload identity (everything but the resolved
@@ -146,6 +155,8 @@ class LayerExec:
         k = "x".join(map(str, self.kernel))
         s = "x".join(map(str, self.strides))
         exec_ = self.backend
+        if self.route is not None:
+            exec_ += f"[{self.route.describe()}]"
         if self.blocks:
             exec_ += f"[{'x'.join(map(str, self.blocks))}]"
         us = "" if self.measured_us is None \
@@ -161,14 +172,20 @@ class LayerExec:
         d["blocks"] = list(self.blocks) if self.blocks else None
         for f in ("in_spatial", "kernel", "strides", "paddings"):
             d[f] = list(d[f])
+        if self.route is None:
+            del d["route"]          # the reference's format
+        else:
+            d["route"] = self.route.to_json()
         return d
 
     @classmethod
     def from_json(cls, d: dict) -> "LayerExec":
         names = {f.name for f in dataclasses.fields(cls)}
         # measured_us and sharding are optional on input: version-1
-        # documents predate sharding and default to "data"
-        if not (names - {"measured_us", "sharding"} <= set(d) <= names):
+        # documents predate sharding and default to "data"; only the
+        # port writes a route
+        if not (names - {"measured_us", "sharding", "route"} <= set(d)
+                <= names):
             raise ValueError(f"bad layer fields: {sorted(d)}")
         d = dict(d)
         for f in ("in_spatial", "kernel", "strides", "paddings"):
@@ -177,6 +194,8 @@ class LayerExec:
             d[f] = int(d[f])
         if d.get("blocks") is not None:
             d["blocks"] = tuple(int(v) for v in d["blocks"])
+        if d.get("route") is not None:
+            d["route"] = KernelRoute.from_json(d["route"])
         # the reference's backend names map to the port's; an unknown
         # name raises ValueError here
         d["backend"] = port_backend(str(d["backend"]))
@@ -246,6 +265,15 @@ class ProgramSpec:
             raise ValueError("quantized_params must be a JSON object")
         model_dim = self.mesh[1] if self.mesh else 1
         for le in self.layers:
+            if le.route is not None:
+                # a route is the kernel's at the spec's storage dtype
+                route = valid_layer_route(
+                    le.route, le.kind, le.in_spatial, le.kernel,
+                    le.strides, le.paddings, le.cin, le.cout, self.dtype)
+                if route is None:
+                    raise ValueError(
+                        f"layer {le.name!r}: no GANAX kernel takes route "
+                        f"{le.route.describe()} at {self.dtype}")
             if le.sharding == "cout":
                 if model_dim <= 1:
                     raise ValueError(
@@ -259,17 +287,22 @@ class ProgramSpec:
     # -- construction -------------------------------------------------------
     @classmethod
     def build(cls, cfg, batch: int, role: str = "generator", *,
-              policy: DataflowPolicy | None = None,
-              dtype: str | None = None, mesh=_UNSET) -> "ProgramSpec":
+              policy: DataflowPolicy | None = None, planner=None,
+              measure: bool = False, dtype: str | None = None,
+              mesh=_UNSET, platform: str | None = None) -> "ProgramSpec":
         """Walk ``cfg``'s layers once and freeze every resolution.
 
         ``policy`` defaults to ``cfg.policy``; ``dtype`` to ``cfg.dtype``;
         ``mesh`` to ``cfg.mesh`` (pass ``None`` to force
         single-device), each layer's sharding chosen by
-        :func:`~repro_torch.core.dataflow.choose_layer_sharding`.  The
-        reference's ``planner`` and ``measure`` arguments belong to the
-        tuner (ROADMAP item 11), its ``cout_shard_min_bytes`` to the
-        mesh (item 12)."""
+        :func:`~repro_torch.core.dataflow.choose_layer_sharding`.  With
+        ``backend="auto"`` each layer consults the autotuning planner
+        (``planner`` or the process-wide one) under its plan key on
+        ``platform`` (default: the card's when there is one), and a
+        tuned layer freezes the plan's backend, kernel route and time;
+        ``measure=True`` tunes plan misses first, the one place
+        measurement belongs.  The reference's ``cout_shard_min_bytes``
+        belongs to the mesh (ROADMAP item 12)."""
         if role not in ROLES:
             raise ValueError(f"unknown program role {role!r}; "
                              f"one of {ROLES}")
@@ -279,6 +312,7 @@ class ProgramSpec:
             mesh = cfg.mesh
         if mesh is not None:
             mesh = (int(mesh[0]), int(mesh[1]))
+        platform = platform or default_platform()
         g_layers, d_layers = cfg.layers
         if role == "generator":
             layers, prefix = g_layers, "t"
@@ -288,13 +322,15 @@ class ProgramSpec:
             epilogues = discriminator_epilogues(d_layers)
         records = []
         with _obs.trace("program.build", model=cfg.name, role=role,
-                        batch=int(batch), layers=len(layers)):
+                        batch=int(batch), measure=bool(measure),
+                        layers=len(layers)):
             for i, (l, ep) in enumerate(zip(layers, epilogues)):
                 kind = "tconv" if l.transposed else "conv"
                 res = resolve_execution(
                     policy, kind, l.in_spatial, l.kernel, l.strides,
-                    l.paddings, l.cin, l.cout, dtype=dtype,
-                    mesh_model=mesh[1] if mesh else 1)
+                    l.paddings, l.cin, l.cout, batch=batch, dtype=dtype,
+                    epilogue=ep, planner=planner, measure=measure,
+                    mesh_model=mesh[1] if mesh else 1, platform=platform)
                 records.append(LayerExec(
                     name=l.name, kind=kind,
                     in_spatial=tuple(l.in_spatial),
@@ -307,16 +343,24 @@ class ProgramSpec:
                     leaky_slope=ep.leaky_slope,
                     backend=res.backend, blocks=res.blocks,
                     source=res.source, measured_us=res.measured_us,
-                    sharding=res.sharding))
+                    sharding=res.sharding, route=res.route))
         _obs.counter("program.builds").inc()
         return cls(model=cfg.name, role=role, batch=int(batch),
                    z_dim=int(cfg.z_dim) if role == "generator" else None,
                    channel_scale=float(cfg.channel_scale), dtype=dtype,
-                   platform=_platform(),
+                   platform=platform,
                    requested_backend=policy.backend,
                    layers=tuple(records), mesh=mesh)
 
     # -- queries ------------------------------------------------------------
+    def plan_keys(self) -> list[tuple[str, object]]:
+        """(layer name, :class:`~repro_torch.tune.PlanKey`) per layer, at
+        the spec's planning batch, dtype and platform: what the tuner's
+        zoo entry points iterate."""
+        return [(le.name, le.plan_key(self.batch, self.dtype,
+                                      self.platform))
+                for le in self.layers]
+
     def geometry_signature(self) -> tuple:
         """The whole network's workload identity: a loaded spec whose
         signature differs from a freshly built one is stale (topology,
@@ -327,6 +371,11 @@ class ProgramSpec:
 
     def summary(self) -> str:
         """One-line resolution summary (the repr-sized :meth:`describe`)."""
+        if self.requested_backend == "auto":
+            return "auto(" + ", ".join(
+                f"{le.name}->{le.backend}"
+                + (f"[{le.route.describe()}]" if le.route else "")
+                for le in self.layers) + ")"
         backends = sorted({le.backend for le in self.layers})
         return backends[0] if len(backends) == 1 \
             else f"mixed({', '.join(backends)})"
@@ -345,8 +394,9 @@ class ProgramSpec:
         lines = [head] + [f"  {le.describe()}" for le in self.layers]
         if any(le.blocks for le in self.layers):
             lines.append("  [AxBxC]: the reference's Pallas tile shapes, "
-                         "kept as data; the CUDA routes pick their own "
-                         "tiles until ROADMAP item 11 (the tuner)")
+                         "kept as data; the CUDA kernels run a kernel "
+                         "route ([tc/width/splits], [narrow/splits]) "
+                         "instead")
         return "\n".join(lines)
 
     # -- persistence --------------------------------------------------------

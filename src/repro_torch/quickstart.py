@@ -14,7 +14,11 @@ of the trained generator through it.  ``--device cpu`` runs the
 kernels' plain versions instead (keep ``--batch`` and
 ``--channel-scale`` small there);
 ``--backend`` pins another dataflow (``ganax-plain``, ``polyphase``,
-``zero-insert``).
+``zero-insert``).  ``--dtype bf16`` (or
+``f16``) trains at that storage precision: activations and weights are
+cast to it at use, the kernels' instances of that dtype run forward and
+``dx``, every sum is f32, and parameters, gradients and checkpoints stay
+f32.
 """
 
 from __future__ import annotations
@@ -100,12 +104,15 @@ def main(argv=None) -> tuple[TrainLoop, GanServer]:
     ap.add_argument("--channel-scale", type=float, default=0.0625)
     ap.add_argument("--backend", default=None, choices=sorted(BACKENDS),
                     help="dataflow backend (default: ganax, the kernel)")
+    ap.add_argument("--dtype", default="float32",
+                    help="storage precision: float32 (default), bf16 or "
+                         "f16; sums, parameters and checkpoints stay f32")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
     cfg = GanConfig(name="dcgan", channel_scale=args.channel_scale,
-                    backend=args.backend)
+                    backend=args.backend, dtype=args.dtype)
     dev = resolve_device(args.device)
     t0 = time.time()
     with tempfile.TemporaryDirectory() as ckpt_dir:
@@ -116,7 +123,7 @@ def main(argv=None) -> tuple[TrainLoop, GanServer]:
     print(generator.spec.describe())
     print(discriminator.spec.describe())
     print(f"done: {args.steps} adversarial steps through the "
-          f"{generator.spec.summary()} dataflow on {dev} in "
+          f"{generator.spec.summary()} dataflow at {cfg.dtype} on {dev} in "
           f"{time.time() - t0:.1f}s ({loop.checkpoints} checkpoints, "
           f"{loop.restarts} restarts)")
 

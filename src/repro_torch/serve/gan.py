@@ -66,10 +66,11 @@ _OCCUPANCY_BOUNDS = tuple(i / 10 for i in range(1, 11))
 
 class GanServer:
     """Serves images of ``cfg``'s generator from a latent stream seeded
-    by ``seed``, on ``device`` (default: the card).  ``warm_plans`` is
-    accepted for the reference's signature; it only matters for
-    ``backend="auto"``, which the port does not have (ROADMAP item
-    11).
+    by ``seed``, on ``device`` (default: the card).  With an ``auto``
+    policy, ``warm_plans`` tunes every layer's plan here, at
+    construction (none per request; zero measurements when the plan
+    file is warm), and the program freezes the tuned backends and
+    kernel routes; other policies ignore it.
 
     ``dtype`` overrides ``cfg.dtype``, the storage precision (float32,
     bfloat16 or float16; accumulation stays f32): the images come out in
@@ -136,9 +137,12 @@ class GanServer:
                                   differentiable=False)
             self.program = program
         else:
+            # measure=warm_plans: an auto policy tunes every layer plan
+            # ahead of the first request (a no-op for other policies)
             self.program = Program.build(
                 cfg, self.batch_size, "generator", policy=self.policy,
-                device=self.device, differentiable=False, mesh=mesh)
+                measure=warm_plans, device=self.device,
+                differentiable=False, mesh=mesh)
         # int8-deploy flow: a quantized program carries its own
         # parameters, dequantized at load on the server's device
         self.params = self.program.params if g_params is None \

@@ -78,7 +78,7 @@ import torch
 
 from repro_torch import obs as _obs
 from repro_torch.core.dataflow import DataflowPolicy
-from repro_torch.device import resolve_device
+from repro_torch.device import platform_of, resolve_device
 from repro_torch.models.gan import GanConfig
 from repro_torch.program import Program, ProgramSpec
 from repro_torch.program.spec import _UNSET as _MESH_UNSET
@@ -198,9 +198,9 @@ class GanEngine:
     ``program``
         An exported generator :class:`~repro_torch.program.Program` to
         serve; its frozen spec is served at every bucket.  Built from
-        ``cfg`` when omitted.  ``warm_plans`` is accepted for the
-        reference's signature: it tunes ``auto`` policies there, which
-        the port does not have (ROADMAP item 11).
+        ``cfg`` when omitted; with an ``auto`` policy, ``warm_plans``
+        tunes every layer's plan at construction (at the largest
+        bucket), never per request.
     ``pipeline_depth``
         How many dispatched batches may be unresolved at once (≥1).
         Depth 1 already overlaps batch *k*'s device-to-host copy with
@@ -284,7 +284,9 @@ class GanEngine:
             spec = program.spec
         else:
             spec = ProgramSpec.build(cfg, self.buckets[-1], "generator",
-                                     policy=self.policy, mesh=mesh)
+                                     policy=self.policy,
+                                     measure=warm_plans, mesh=mesh,
+                                     platform=platform_of(self.device))
         self.spec = spec
         self.program = Program(spec, device=self.device,
                                differentiable=False)

@@ -1,10 +1,13 @@
 """The adversarial train step and the fault-tolerant training loop.
 
-The port of ``repro.train.loop``, without its mesh and planner hooks:
+The port of ``repro.train.loop``, without its mesh hooks (ROADMAP item
+12):
 
 * :func:`make_gan_train_step`: the non-saturating adversarial SGD step,
   a D step and then a G step against the *updated* D, with every conv
-  and tconv, and every ``dx`` of the backward, through the GANAX kernel.
+  and tconv, and every ``dx`` of the backward, through the GANAX kernel;
+  at f32, bf16 or f16 storage (mixed precision: parameters, gradients
+  and checkpoints stay f32), on the heuristic's or the tuner's plans.
 * :class:`TrainLoop`:
   - **Checkpoint and restart**: periodic async checkpoints; on a step
     failure the loop restores the latest checkpoint and replays from
@@ -20,7 +23,8 @@ The port of ``repro.train.loop``, without its mesh and planner hooks:
     counters, the ``train.step_us`` histogram, a ``train.<metric>``
     gauge per logged scalar, ``train.checkpoint`` / ``.restore`` /
     ``.straggler`` / ``.failure`` / ``.preempt`` events, a
-    ``train.step`` span per step, and the end-of-run μop-cache line.
+    ``train.step`` span per step, and the end-of-run μop-cache and
+    tune-planner lines.
 
 The state is a ``(g_params, d_params)`` pair of dicts of tensors, which
 the step updates in place (no second copy of the parameters per step);
@@ -39,9 +43,10 @@ from typing import Any, Callable
 import torch
 
 from repro_torch import obs as _obs
-from repro_torch.core.dataflow import LOW_PRECISION_GRAD_NOT_PORTED
+from repro_torch.core.dataflow import DataflowPolicy
 from repro_torch.models.gan import (Discriminator, GanConfig, Generator,
                                     bce_with_logits)
+from repro_torch.device import platform_of, resolve_device
 from repro_torch.program import ProgramSpec
 from repro_torch.train import checkpoint as ckpt
 
@@ -97,6 +102,8 @@ def make_gan_train_step(cfg: GanConfig, batch: int,
                         g_params: dict[str, torch.Tensor],
                         d_params: dict[str, torch.Tensor], *,
                         g_lr: float = 2e-4, d_lr: float | None = None,
+                        policy: DataflowPolicy | None = None,
+                        planner=None, measure: bool = False,
                         device: str | torch.device = "cuda"):
     """The adversarial SGD step of ``cfg``'s networks.
 
@@ -110,19 +117,28 @@ def make_gan_train_step(cfg: GanConfig, batch: int,
     the updated D.  ``metrics`` holds the ``g_loss``, ``d_loss`` and
     ``loss`` tensors (on the device; reading them waits for it).
 
-    Float32 storage only: a bfloat16 or float16 ``cfg.dtype`` raises
-    ``NotImplementedError`` (mixed-precision training is ROADMAP item
-    9b)."""
-    if cfg.dtype != "float32":
-        raise NotImplementedError(LOW_PRECISION_GRAD_NOT_PORTED)
+    ``policy`` defaults to ``cfg.policy``; with ``backend="auto"`` the
+    programs take the planner's plans (``planner`` or the process-wide
+    one), and ``measure=True`` tunes the misses here, at build, never
+    in the loop.
+
+    **Mixed precision** (``cfg.dtype`` ``"bfloat16"`` / ``"float16"``):
+    the networks cast activations and weights to the storage dtype at
+    use and sum in f32; the kernels' ``dx`` runs at that dtype, ``dw``
+    and ``db`` sum in f32, and the casts hand each gradient back as
+    f32, so parameters, the SGD update and checkpoints stay f32."""
     d_lr = g_lr if d_lr is None else d_lr
     # one ahead-of-time resolution for the whole run: both networks
     # replay programs frozen here, at the step's batch
-    generator = Generator(cfg, g_params, device,
-                          spec=ProgramSpec.build(cfg, batch, "generator"))
+    device = resolve_device(device)
+    build = dict(policy=policy, planner=planner, measure=measure,
+                 platform=platform_of(device))
+    generator = Generator(
+        cfg, g_params, device,
+        spec=ProgramSpec.build(cfg, batch, "generator", **build))
     discriminator = Discriminator(
         cfg, d_params, device,
-        spec=ProgramSpec.build(cfg, batch, "discriminator"))
+        spec=ProgramSpec.build(cfg, batch, "discriminator", **build))
 
     def train_step(state, batch_arrays):
         g_state, d_state = state
@@ -319,17 +335,29 @@ class TrainLoop:
         return self.state
 
     def _log_uop_cache(self):
-        """Surface the dataflow μop-cache efficiency over this run:
-        replayed steps should hit the cache, not re-run the scheduler
+        """Surface the dataflow μop-cache efficiency and the tune
+        planner's lookups over this run: replayed steps should hit the
+        cache, not re-run the scheduler, and a loop never measures
         (read through ``obs.collect()``, consistent copies)."""
-        info = _obs.collect().get("dataflow.uop_cache")
-        if info is None:
-            return
-        base = self._stats0.get("dataflow.uop_cache",
-                                {"hits": 0, "misses": 0})
-        hits = info["hits"] - base["hits"]
-        misses = info["misses"] - base["misses"]
-        if hits or misses:
-            self.log(f"[loop] dataflow μop cache: {hits} hits / "
-                     f"{misses} misses this run "
-                     f"({info['currsize']} geometries cached)")
+        stats = _obs.collect()
+        info = stats.get("dataflow.uop_cache")
+        if info is not None:
+            base = self._stats0.get("dataflow.uop_cache",
+                                    {"hits": 0, "misses": 0})
+            hits = info["hits"] - base["hits"]
+            misses = info["misses"] - base["misses"]
+            if hits or misses:
+                self.log(f"[loop] dataflow μop cache: {hits} hits / "
+                         f"{misses} misses this run "
+                         f"({info['currsize']} geometries cached)")
+        tune = stats.get("tune.planner")
+        if tune is not None:
+            base = self._stats0.get("tune.planner") or \
+                {"lookups": 0, "hits": 0, "measurements": 0}
+            lookups = tune["lookups"] - base["lookups"]
+            if lookups:
+                self.log(f"[loop] tune planner: {lookups} lookups / "
+                         f"{tune['hits'] - base['hits']} plan hits / "
+                         f"{tune['measurements'] - base['measurements']} "
+                         f"measurements this run "
+                         f"({tune['plans']} plans cached)")

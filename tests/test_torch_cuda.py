@@ -735,3 +735,114 @@ def test_engine_on_the_card_launches_the_flash_kernel(dev):
                             if impl == "flash" else 0)
         tokens[impl] = [r.generated for r in reqs]
     assert tokens["flash"] == tokens["naive"]
+
+
+# The tuner's candidate routes (repro_torch.tune.candidates) on the card:
+# (x shape, w shape, strides, paddings, transposed) with several tc tile
+# widths and splits, a flattened K, narrow splits, 2-D and 3-D
+TUNE_CASES = [
+    ((8, 8, 8, 256), (4, 4, 256, 128), (2, 2), (1, 1), True),
+    ((4, 32, 32, 3), (4, 4, 3, 72), (2, 2), (1, 1), False),
+    ((8, 4, 4, 512), (4, 4, 512, 1), (1, 1), (0, 0), False),
+    ((8, 16, 16, 128), (4, 4, 128, 3), (2, 2), (1, 1), True),
+    ((2, 4, 4, 4, 256), (4, 4, 4, 256, 128), (2, 2, 2), (1, 1, 1), True),
+    ((2, 8, 8, 8, 64), (4, 4, 4, 64, 1), (2, 2, 2), (1, 1, 1), True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("xs,ws,s,p,transposed", TUNE_CASES)
+def test_every_candidate_route_matches_plain(dev, xs, ws, s, p, transposed,
+                                             dtype):
+    """Each ganax candidate the tuner enumerates for the geometry runs on
+    its route (counted under it) and agrees with the plain version: at
+    1e-4 in f32, two storage ulps in bf16."""
+    from repro_torch.tune import PlanKey, enumerate_candidates
+    key = PlanKey("tconv" if transposed else "conv", xs[0], xs[1:-1],
+                  ws[:-2], s, p, ws[-2], ws[-1],
+                  dtype=str(dtype).removeprefix("torch."),
+                  platform="sm_90")
+    routes = [c.route for c in enumerate_candidates(key)
+              if c.backend == "ganax"]
+    assert routes
+    x, w, b = _inputs(xs, ws, dev, seed=12)
+    w = w * (0.3 * np.prod(ws[:-1])) ** -0.5
+    operands = ops.kernel_operands(x.to(dtype), w.to(dtype), s, p,
+                                   transposed=transposed)
+    kernel, plain = _KERNELS[len(s)]
+    ref = plain(**operands, bias=b, activation="relu")
+    tol = TOL if dtype == torch.float32 else TWO_ULPS[dtype]
+    for route in routes:
+        before = kernel.launches_by_route[route.name]
+        got = kernel(**operands, bias=b, activation="relu", route=route)
+        torch.cuda.synchronize()
+        assert kernel.launches_by_route[route.name] == before + 1
+        torch.testing.assert_close(got.float(), ref.float(), **tol,
+                                   msg=route.describe())
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("model", ["dcgan", "3dgan"])
+def test_low_precision_train_step_on_the_card(dev, model, dtype):
+    """One mixed-precision step at 1/32 width: 40 launches, all of the
+    storage dtype's instance; parameters stay f32; and the step's
+    updates, against the f32 step through ganax-plain, are as accurate
+    as the same step's through ganax-plain at that dtype (over the whole
+    tree, within 5%: ``chip_smoke.py``'s gradient gate).  The kernel and
+    the plain version round the same f32 sums once, but not elementwise:
+    at f16 the generator's cotangents reach f16's subnormals (the
+    reference scales no loss either), where one flipped last bit moves a
+    small tensor's update by percents."""
+    cfg = GanConfig(model, channel_scale=1 / 32)
+    g, d = init_gan(cfg, torch.Generator().manual_seed(0), dev)
+    batch = make_batch_fn(cfg, 2, dev)(0)
+    kernel = ganax_conv_cuda if model == "dcgan" else ganax_conv3d_cuda
+    updates = {}
+    for backend, dt in ((None, dtype), ("ganax-plain", dtype),
+                        ("ganax-plain", "float32")):
+        step, (gen, disc) = make_gan_train_step(
+            dataclasses.replace(cfg, backend=backend, dtype=dt), 2,
+            {k: v.clone() for k, v in g.items()},
+            {k: v.clone() for k, v in d.items()}, g_lr=0.05, device=dev)
+        before = kernel.launches_by_dtype[dtype]
+        state, metrics = step((gen.params, disc.params), batch)
+        torch.cuda.synchronize()
+        assert kernel.launches_by_dtype[dtype] - before == \
+            (40 if backend is None else 0)
+        assert all(bool(torch.isfinite(metrics[k])) for k in metrics)
+        assert all(v.dtype == torch.float32 for part in state
+                   for v in part.values())
+        updates[backend, dt] = {k: v.detach() - ref[k] for part, ref in
+                                zip(state, (g, d)) for k, v in part.items()}
+    ours, plain, f32 = updates.values()
+
+    def dist(u):
+        return sum(float((u[k] - f32[k]).square().sum()) for k in f32) ** 0.5
+    assert dist(ours) <= 1.05 * dist(plain), (dist(ours), dist(plain))
+
+
+def test_tuned_program_on_the_card(dev, tmp_path):
+    """Tune a 1/16-width DCGAN generator's plans on the card: no failed
+    candidate, every layer on the kernel, a second planner on the plan file measures nothing, and
+    the auto program serves the heuristic program's images at 1e-4."""
+    from repro_torch.program import Program
+    from repro_torch.tune import Planner
+    cfg = GanConfig("dcgan", channel_scale=1 / 16)
+    planner = Planner(tmp_path / "plans.json", repeats=2)
+    auto = Program.build(cfg, 8, policy=tdf.DataflowPolicy("auto"),
+                         planner=planner, measure=True, device=dev,
+                         differentiable=False)
+    assert planner.failures == 0 and planner.measurements > 0
+    assert all(le.source == "tuned" and le.backend == "ganax"
+               for le in auto.spec.layers)
+    warm = Planner(tmp_path / "plans.json")
+    again = Program.build(cfg, 8, policy=tdf.DataflowPolicy("auto"),
+                          planner=warm, measure=True, device=dev,
+                          differentiable=False)
+    assert warm.measurements == 0 and again.spec == auto.spec
+    heuristic = Program.build(cfg, 8, device=dev, differentiable=False)
+    g, _ = init_gan(cfg, torch.Generator().manual_seed(0), dev)
+    z = torch.randn((8, cfg.z_dim), device=dev)
+    torch.testing.assert_close(auto.apply(g, z), heuristic.apply(g, z),
+                               **TOL)

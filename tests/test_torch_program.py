@@ -211,7 +211,8 @@ def test_reference_files_load_with_mapped_backends(tmp_path):
             got.to_json()))) == got, label
     tuned = ProgramSpec.load(tmp_path / "tuned.json")
     assert tuned.layers[0].blocks is not None
-    assert "ROADMAP item 11" in tuned.describe()
+    assert "the reference's Pallas tile shapes, kept as data" in \
+        tuned.describe()
     mesh = ProgramSpec.load(tmp_path / "mesh.json")
     assert "cout" in {le.sharding for le in mesh.layers}
     with pytest.warns(RuntimeWarning, match="item 12"):
@@ -360,16 +361,38 @@ def test_cli_describe_export_load(tmp_path, capsys):
     assert "program dcgan/discriminator" in out and "-> ganax-plain" in out
 
 
-def test_what_is_not_ported_raises_naming_its_item(tmp_path):
+def test_what_is_not_ported_raises_naming_its_item(tmp_path, capsys):
+    # the tuner (item 11) is ported: an auto build with a cold planner
+    # looks every layer up, measures nothing and takes the heuristic
+    from repro_torch.tune import Planner as TPlanner
     cfg = tgan.GanConfig("dcgan", channel_scale=SCALE, backend="auto")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ProgramSpec.build(cfg, 2, "generator")
-    spec = ProgramSpec.build(tgan.GanConfig(**CFG), 2, "generator")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        spec.layers[0].plan_key(2, "float32", "cuda")
-    for argv in (["--backend", "auto"], ["--measure"]):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            cli_main(["dcgan"] + argv)
+    planner = TPlanner()
+    spec = ProgramSpec.build(cfg, 2, "generator", planner=planner)
+    assert [(le.backend, le.source) for le in spec.layers] == \
+        [("ganax", "heuristic")] * 4
+    assert (planner.lookups, planner.hits, planner.measurements) == \
+        (4, 0, 0)
+    # plan keys: the reference's, field for field
+    ref = JSpec.build(jgan.GanConfig(**CFG), 2, "generator")
+    assert [(n, k.to_json()) for n, k in spec.plan_keys()] == \
+        [(n, k.to_json()) for n, k in ref.plan_keys()]
+    assert spec.layers[0].plan_key(2, "bfloat16", "sm_90").platform == \
+        "sm_90"
+    # the CLI: --backend auto looks up, --measure tunes, a warm file
+    # serves a second build with zero measurements
+    plans = tmp_path / "plans.json"
+    base = ["dcgan", "--channel-scale", str(SCALE), "--role", "generator",
+            "--batch", "2", "--backend", "auto", "--plans", str(plans)]
+    assert cli_main(base) == 0
+    assert "(heuristic)" in capsys.readouterr().out and not plans.exists()
+    assert cli_main(base + ["--measure", "--export",
+                            str(tmp_path / "tuned.json")]) == 0
+    out = capsys.readouterr().out
+    assert out.count("(tuned") == 4, out
+    warm = TPlanner(plans)
+    tuned = ProgramSpec.build(cfg, 2, "generator", planner=warm)
+    assert warm.measurements == 0 and warm.hits == 4
+    assert tuned == ProgramSpec.load(tmp_path / "tuned.json")
     # quantization (item 9) is ported: the CLI exports an int8 program at
     # bf16, which loads and serves with its embedded weights; a payload
     # of an unknown scheme raises at load, as the reference's does

@@ -25,8 +25,9 @@ packages.
   plain version, and the routes and tc weights of the 2-byte instances.
 * (f) ``GanServer`` / ``GanEngine`` with ``g_params=None`` adopt a
   quantized program's dtype and raise ``ValueError`` without one; the
-  discriminator's logits stay f32; training at bf16 raises, naming
-  ROADMAP item 9b.
+  discriminator's logits stay f32; the backward of a bf16 forward
+  reaches the f32 parameters (ROADMAP item 9b, mixed-precision training;
+  its parity tests are in ``tests/test_torch_mixed_train.py``).
 
 Two storage ulps: |a - b| <= atol + rtol |b| with rtol 2^-6 (bf16) or
 2^-9 (f16), twice the ulp of the bottom of a binade, and atol 1e-3 for
@@ -588,15 +589,21 @@ def test_discriminator_logits_stay_f32(dtype):
 
 
 def test_training_at_low_precision_raises_naming_item_9b():
+    """Item 9b is ported: a bf16 train step builds, and the backward of a
+    bf16 forward through the kernel's autograd Function reaches the f32
+    parameters (``dx`` at bf16, ``dw`` cast back through the casts at
+    use) — no longer a raise."""
     from repro_torch.train.loop import make_gan_train_step
     cfg = tgan.GanConfig("dcgan", channel_scale=SCALE, dtype="bf16")
     g, d = tgan.init_gan(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        make_gan_train_step(cfg, 2, g, d, device="cpu")
-    # a bf16 forward through the kernel's autograd Function serves; its
-    # backward raises
-    gen = tgan.Generator(cfg, g, "cpu")
-    y = gen(torch.zeros((2, cfg.z_dim)))
+    _, (gen, _) = make_gan_train_step(cfg, 2, g, d, device="cpu")
+    z = torch.tensor(np.random.default_rng(1).normal(
+        size=(2, cfg.z_dim)), dtype=torch.float32)
+    y = gen(z)
     assert y.dtype == torch.bfloat16 and y.requires_grad
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        y.float().sum().backward()
+    y.float().square().sum().backward()
+    grads = {k: p.grad for k, p in gen.params.items()}
+    assert all(v is not None and v.dtype == torch.float32
+               and bool(torch.isfinite(v).all()) for v in grads.values())
+    assert all(float(v.abs().max()) > 0 for k, v in grads.items()
+               if k.endswith("_w"))
