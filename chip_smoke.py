@@ -68,8 +68,15 @@ launches a prefill), hold the kernel path's prefill and first decode
 logits against the plain and naive attention paths (in f32 through the
 FFMA kernel), and time and profile the prefill, the decode steps and
 the kernels beside their bound, their plain version and one
-``F.scaled_dot_product_attention`` call.  It imports nothing of JAX and
-nothing of the JAX package; it prints the seconds of each phase.
+``F.scaled_dot_product_attention`` call.  The mesh phase runs programs
+sharded over two ``gloo`` ranks that share the card (started by the
+port's launcher once the kernels are built): the full-width DCGAN and
+3D-GAN generators at meshes (2, 1) and (1, 2), f32 and bf16, with each
+Cout-sharded layer's kernel on the rank's slice, a DCGAN train step at
+(2, 1) and (1, 2), ``GanEngine`` at (2, 1) and both ring matmuls, each
+against the one-device path, then a (1, 1) program over NCCL in a world
+of one, bit for bit.  It imports nothing of JAX and nothing of the JAX
+package; it prints the seconds of each phase.
 
 The line before the last is a JSON object listing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failed phase exits
@@ -2915,6 +2922,291 @@ def tune_phase(card, dev, wrappers) -> dict:
     return out
 
 
+# The mesh phase (ROADMAP item 12): programs sharded over MESH_WORLD gloo
+# ranks that share cuda:0 (NCCL refuses two ranks on one card), started by
+# the port's launcher, each case held against the one-device path from the
+# same parameters and inputs; then the NCCL path in a world of one.
+MESH_WORLD = 2
+# (model, mesh, storage dtype) of the sharded generator forwards
+MESH_FORWARDS = (("dcgan", (2, 1), "float32"), ("dcgan", (1, 2), "float32"),
+                 ("3dgan", (1, 2), "float32"), ("dcgan", (1, 2), "bfloat16"))
+# each sharded forward timed over this many more calls (two ranks on one
+# card: a wall time, never a speed-up)
+MESH_TIMED = 5
+# the train step's meshes, its lr, and the tolerances of the reference's
+# data-parallel step test (tests/test_sharded_gan.py:315-345)
+MESH_TRAIN = ((2, 1), (1, 2))
+MESH_LR = 0.05
+MESH_TRAIN_TOL = dict(rtol=1e-4, atol=1e-5)
+# GanEngine at (2, 1): its buckets, and requests (one at a time) that run
+# both
+MESH_ENGINE_BUCKETS = (32, 64)
+MESH_ENGINE_REQUESTS = (20, 64, 40, 100, 9)
+# the ring matmuls: (m, k, n) a rank
+MESH_RING = (256, 256, 256)
+KERNEL_OF = {"dcgan": "ganax_conv", "3dgan": "ganax_conv3d"}
+
+
+def mesh_phase(card: str, dev, batch: int = BATCH, scale: float = 1.0,
+               min_bytes: int | None = None) -> dict:
+    """Sharded GAN programs on ``MESH_WORLD`` gloo ranks sharing the card
+    (ROADMAP item 12).  The kernels are built before the ranks start, so
+    each rank only loads the built libraries.
+
+    1. The full-width generators (batch ``BATCH``) sharded as
+       ``MESH_FORWARDS`` says, with the default threshold (DCGAN g1 and
+       3D-GAN g1 are ``"cout"``), each against the one-device program on
+       the same parameters and latents at ATOL/RTOL (f32) or
+       STORAGE_TOL (bf16); every rank's launches by route and by Cout
+       printed, every rank launching the model's kernel on each of its
+       layers, the ``"cout"`` layers on the rank's slice only.
+    2. One DCGAN train step through ``TrainLoop`` at each of
+       ``MESH_TRAIN`` against the one-device step from equal state and
+       batch: losses and updated parameters at ``MESH_TRAIN_TOL``.
+    3. ``GanEngine`` at (2, 1) on ``MESH_ENGINE_BUCKETS``: its stream
+       against a one-device engine with the same seed and buckets.
+    4. Both ring matmuls on two ranks against the dense product.
+    5. NCCL in a world of one: a (1, 1) mesh's ``GanServer`` equal to the
+       unsharded one bit for bit.
+    Every count is set to 0 on each rank just before each case and read
+    just after.  A rank that fails fails the phase.  ``batch``,
+    ``scale`` and ``min_bytes`` (the sharding threshold) cut it down to
+    rehearse on the CPU, where the ranks run the kernels' plain versions
+    (no launches to count) and the world of one is gloo's."""
+    import torch.distributed as dist
+
+    from repro_torch import obs
+    from repro_torch.kernels.ganax_conv import (ganax_conv3d_cuda,
+                                                ganax_conv_cuda)
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models.gan import GanConfig, init_gan
+    from repro_torch.program import Program
+    from repro_torch.serve.gan import GanServer
+    from repro_torch.serve.gan_engine import GanEngine
+    from repro_torch.sharding import parity
+    from repro_torch.train.loop import make_gan_train_step
+    t0 = time.perf_counter()
+    on_card = dev.type == "cuda"
+
+    def config(model, dtype="float32"):
+        return GanConfig(model, channel_scale=scale, dtype=dtype)
+    params = {m: init_gan(config(m), torch.Generator().manual_seed(0),
+                          device="cpu") for m in ("dcgan", "3dgan")}
+    gen = torch.Generator().manual_seed(1)
+    z = torch.randn((batch, 100), generator=gen)
+    real = torch.rand((batch, 64, 64, 3), generator=gen) * 2 - 1
+    ring = {k: torch.randn(shape, generator=gen) for k, shape in (
+        ("x", (MESH_RING[0] * MESH_WORLD, MESH_RING[1])),
+        ("w", (MESH_RING[1], MESH_RING[2] * MESH_WORLD)),
+        ("x2", (MESH_RING[0] * MESH_WORLD, MESH_RING[1] * MESH_WORLD)),
+        ("w2", (MESH_RING[1] * MESH_WORLD, MESH_RING[2])))}
+    shared = dict(scale=scale, min_bytes=min_bytes)
+    cases = [dict(name=f"fwd {m} {d[0]}x{d[1]} {dt}", kind="forward",
+                  model=m, mesh=d, dtype=dt, batch=batch, timed=MESH_TIMED,
+                  params=params[m][0], x=z, **shared)
+             for m, d, dt in MESH_FORWARDS]
+    cases += [dict(name=f"train {d[0]}x{d[1]}", kind="train", model="dcgan",
+                   mesh=d, g_params=params["dcgan"][0],
+                   d_params=params["dcgan"][1], z=z, real=real, lr=MESH_LR,
+                   steps=1, **shared) for d in MESH_TRAIN]
+    cases.append(dict(name="engine 2x1", kind="engine", model="dcgan",
+                      mesh=(2, 1), params=params["dcgan"][0],
+                      buckets=list(MESH_ENGINE_BUCKETS), seed=3,
+                      requests=list(MESH_ENGINE_REQUESTS), **shared))
+    cases.append(dict(name="ring", kind="ring", mesh=(1, MESH_WORLD),
+                      **ring))
+    if on_card:
+        torch.cuda.empty_cache()
+    out = {"forwards": {}, "train": {}, "launches": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        case_file = str(Path(tmp) / "cases.pt")
+        torch.save(cases, case_file)
+        t_spawn = time.perf_counter()
+        spawn(parity.run, MESH_WORLD, case_file, tmp, dev.type,
+              backend="gloo", device=dev.type)
+        spawn_s = time.perf_counter() - t_spawn
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=True)
+                 for r in range(MESH_WORLD)]
+    print(f"mesh: {MESH_WORLD} gloo ranks on {dev} ran {len(cases)} cases "
+          f"in {spawn_s:.1f} s (spawn to exit)")
+    # every rank's launches, by kernel and dtype (the kernels line)
+    launched = {name: {} for name in KERNEL_OF.values()}
+    for res in ranks:
+        for case in res.values():
+            for name, counts in case["launches"].items():
+                for dname, n in counts["dtype"].items():
+                    launched[name][dname] = launched[name].get(dname, 0) + n
+    # -- 1. the sharded forwards ----------------------------------------
+    for m, mesh, dt in MESH_FORWARDS:
+        name = f"fwd {m} {mesh[0]}x{mesh[1]} {dt}"
+        ref_prog = Program.build(config(m, dt), batch, "generator",
+                                 device=dev, differentiable=False,
+                                 mesh=None)
+        ref = ref_prog.apply({k: v.to(dev) for k, v in
+                              params[m][0].items()}, z.to(dev))
+        cout_layers = [le for le, sh in zip(ref_prog.spec.layers,
+                                            ranks[0][name]["shardings"])
+                       if sh == "cout"]
+        check(cout_layers or mesh[1] == 1,
+              f"{name}: no layer is Cout-sharded")
+        kernel = KERNEL_OF[m]
+        n_layers = len(ref_prog.spec.layers)
+        row = {"ranks": []}
+        for r, res in enumerate(ranks):
+            got = res[name]["out"].to(dev)
+            if dt == "float32":
+                err, ok = max_err(got, ref)
+                gate = f"atol=rtol={ATOL:g}"
+            else:
+                share = storage_share(got, ref)
+                err, ok = (got.float() - ref.float()).abs().max().item(), \
+                    share <= 1
+                gate = f"STORAGE_TOL: worst output at {share:.4f} of it"
+            counts = res[name]["launches"][kernel]
+            by_cout = {int(k): v for k, v in counts["cout"].items()}
+            calls = 1 + MESH_TIMED
+            print(f"mesh {name} rank {r}: vs one device max_abs_err "
+                  f"{err:.3e} ({gate}) {'ok' if ok else 'FAIL'}; "
+                  f"{kernel} launches by route {counts['route']}, by Cout "
+                  f"{dict(sorted(by_cout.items()))} over {calls} calls; "
+                  f"{res[name]['ms']:.3f} ms a forward (wall, {MESH_WORLD} "
+                  f"ranks sharing one card: not a speed-up) [{card}]")
+            check(ok and bool(torch.isfinite(got).all()),
+                  f"{name} rank {r} disagrees with the one-device path")
+            check(not on_card or (
+                sum(counts["route"].values()) == n_layers * calls
+                and counts["dtype"] == {dt: n_layers * calls}),
+                  f"{name} rank {r}: {counts} launches of {kernel} for "
+                  f"{calls} calls of {n_layers} layers")
+            for le in cout_layers if on_card else ():
+                local = le.cout // mesh[1]
+                check(le.cout not in by_cout and by_cout.get(local, 0)
+                      >= calls,
+                      f"{name} rank {r}: {le.name} (Cout {le.cout}) not "
+                      f"launched on its {local}-channel slice: {by_cout}")
+            row["ranks"].append(dict(err=err, ms=res[name]["ms"],
+                                     routes=counts["route"],
+                                     couts=by_cout))
+        row["cout_layers"] = [le.name for le in cout_layers]
+        out["forwards"][name] = row
+        del ref, ref_prog
+    # -- 2. the train step -------------------------------------------------
+    cfg = config("dcgan")
+    for mesh in MESH_TRAIN:
+        name = f"train {mesh[0]}x{mesh[1]}"
+        g, d = ({k: v.to(dev).clone() for k, v in p.items()}
+                for p in params["dcgan"])
+        step, (gnet, dnet) = make_gan_train_step(cfg, batch, g, d,
+                                                 g_lr=MESH_LR, device=dev,
+                                                 mesh=None)
+        _, metrics = step((gnet.params, dnet.params),
+                          {"z": z.to(dev), "real": real.to(dev)})
+        want = {k: float(v) for k, v in metrics.items()}
+        worst = 0.0
+        for r, res in enumerate(ranks):
+            got = res[name]["metrics"][0]
+            for k, v in want.items():
+                check(math.isclose(got[k], v, rel_tol=MESH_TRAIN_TOL["rtol"]),
+                      f"{name} rank {r}: {k} {got[k]} vs one device {v}")
+            for part, net in (("g", gnet), ("d", dnet)):
+                for k, p in net.params.items():
+                    q = res[name][part][k].to(dev)
+                    diff = (q - p).abs()
+                    lim = MESH_TRAIN_TOL["atol"] + MESH_TRAIN_TOL["rtol"] \
+                        * p.abs()
+                    worst = max(worst, (diff / lim).max().item())
+                    check(bool((diff <= lim).all()),
+                          f"{name} rank {r}: {part}.{k} differs from the "
+                          f"one-device step by {diff.max().item():.3e} "
+                          f"(at {(diff / lim).max().item():.3f} of "
+                          f"{MESH_TRAIN_TOL})")
+            counts = res[name]["launches"]["ganax_conv"]["route"]
+            check(not on_card or sum(counts.values()) == LAUNCHES_PER_STEP,
+                  f"{name} rank {r}: {counts} launches for one step")
+            print(f"mesh {name} rank {r}: losses {got} (one device "
+                  f"{want}); ganax_conv launches by route {counts}; "
+                  f"{res[name]['s']:.3f} s for the step and its checkpoint "
+                  f"(wall) [{card}]")
+        print(f"mesh {name}: every loss within rtol "
+              f"{MESH_TRAIN_TOL['rtol']:g} and every updated parameter "
+              f"within {MESH_TRAIN_TOL}; worst at {worst:.4f} of it")
+        out["train"][name] = dict(losses=want, worst_share=worst)
+        del step, gnet, dnet, g, d
+    # -- 3. the engine -----------------------------------------------------
+    res = ranks[0]["engine 2x1"]
+    with GanEngine(cfg, {k: v.to(dev) for k, v in
+                         params["dcgan"][0].items()},
+                   buckets=MESH_ENGINE_BUCKETS, seed=3, device=dev) as eng:
+        want = [eng.submit(n).result(120) for n in MESH_ENGINE_REQUESTS]
+    worst = 0.0
+    for got, ref in zip(res["images"], want):
+        err, ok = max_err(got, ref)
+        worst = max(worst, err)
+        check(ok, f"mesh engine: a request's images differ from the "
+                  f"one-device engine by {err:.3e}")
+    for r, rank in enumerate(ranks):
+        counts = rank["engine 2x1"]["launches"]["ganax_conv"]["route"]
+        check(not on_card or sum(counts.values()) > 0,
+              f"mesh engine rank {r} launched nothing")
+        print(f"mesh engine 2x1 rank {r}: ganax_conv launches by route "
+              f"{counts}; {rank['engine 2x1']['s']:.3f} s (wall) [{card}]")
+    print(f"mesh engine 2x1: {len(MESH_ENGINE_REQUESTS)} requests "
+          f"{MESH_ENGINE_REQUESTS} on buckets {MESH_ENGINE_BUCKETS}, "
+          f"max_abs_err {worst:.3e} against the one-device engine "
+          f"(atol=rtol={ATOL:g})")
+    # -- 4. the ring matmuls -----------------------------------------------
+    y = (ring["x"].to(dev) @ ring["w"].to(dev))
+    y2 = (ring["x2"].to(dev) @ ring["w2"].to(dev))
+    for r, rank in enumerate(ranks):
+        got = rank["ring"]
+        (lo, hi), (rlo, rhi) = got["y_cols"], got["y2_rows"]
+        e1, ok1 = max_err(got["y"].to(dev), y[:, lo:hi])
+        e2, ok2 = max_err(got["y2"].to(dev), y2[rlo:rhi])
+        print(f"mesh ring rank {r}: all-gather matmul max_abs_err {e1:.3e}, "
+              f"reduce-scatter matmul {e2:.3e} (atol=rtol={ATOL:g}); "
+              f"{got['staged']} transfers staged through host (gloo sends "
+              f"no CUDA tensor)")
+        check(ok1 and ok2, f"mesh ring rank {r} disagrees with the dense "
+                           f"product")
+    # -- 5. NCCL in a world of one -----------------------------------------
+    g = {k: v.to(dev) for k, v in params["dcgan"][0].items()}
+    backend = "nccl" if on_card else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, init_method=f"file://{tmp}/pg",
+                                rank=0, world_size=1)
+        try:
+            sharded_before = obs.counter("program.sharded").value
+            for k in (ganax_conv_cuda, ganax_conv3d_cuda):
+                k.launches = 0
+            srv = GanServer(cfg, g, batch_size=batch, seed=0, device=dev,
+                            mesh=(1, 1))
+            img = srv.generate(batch)
+            if on_card:
+                torch.cuda.synchronize()
+            nccl_launches = ganax_conv_cuda.launches
+            check(srv.program.mesh_str == "1x1" and obs.counter(
+                "program.sharded").value == sharded_before + 1,
+                  "nccl: the (1, 1) program did not run sharded")
+        finally:
+            dist.destroy_process_group()
+    ref = GanServer(cfg, g, batch_size=batch, seed=0,
+                    device=dev).generate(batch)
+    same = torch.equal(img, ref)
+    print(f"mesh {backend} world 1: (1, 1) program's images equal the "
+          f"unsharded ones bit for bit: {same}; {nccl_launches} ganax_conv "
+          f"launches")
+    check(same and (not on_card or nccl_launches == 4),
+          f"{backend} world 1: the sharded program differs from the "
+          f"unsharded one")
+    launched["ganax_conv"]["float32"] = \
+        launched["ganax_conv"].get("float32", 0) + nccl_launches
+    seconds = time.perf_counter() - t0
+    out.update(launches=launched, seconds=seconds, spawn_s=spawn_s)
+    print(f"mesh main path: launches by kernel and dtype over both ranks "
+          f"and the world of one {launched}; phase {seconds:.1f} s")
+    return out
+
+
 def _widen(tree: dict) -> None:
     """Every leaf to f32, in place, one leaf at a time."""
     for k, v in tree.items():
@@ -3239,6 +3531,9 @@ def main(argv=None) -> int:
     # -- 9. the LLM serving path: full-width Gemma-7B ----------------------
     llm = record["llm"] = llm_serving(card, dev, wrappers)
     phase_done("Gemma-7B serving")
+    # -- 10. programs sharded over two gloo ranks sharing the card ---------
+    mesh = record["mesh"] = mesh_phase(card, dev)
+    phase_done("mesh")
     record.update(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                   launches={"serve": launches, "train": train_launches,
                             "llm": llm["launches"]},
@@ -3255,10 +3550,12 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            # the serving path's launches, the training path's and the
-            # tuner's (the auto programs' served batch) at f32
+            # the serving path's launches, the training path's, the
+            # tuner's (the auto programs' served batch) and the mesh's
+            # (both ranks and the world of one) at f32
             "launches": launches[name] + train_launches[name]
-            + tune["launches"][name].get("float32", 0),
+            + tune["launches"][name].get("float32", 0)
+            + mesh["launches"][name].get("float32", 0),
             "max_abs_err": max(kernel_errs[name]),
             # per batch of the path: the sum over its four launches
             "ms": sum(row["ms"] for row in r),
@@ -3317,7 +3614,8 @@ def main(argv=None) -> int:
                 "replaces": replaces,
                 "launches": quant["launches"][name][dname]
                 + mixed["launches"][name][dname]
-                + tune["launches"][name].get(dname, 0),
+                + tune["launches"][name].get(dname, 0)
+                + mesh["launches"][name].get(dname, 0),
                 "max_abs_err": max(quant["errs"][f"{name}_{dname}"]),
                 "ms": t["ms"],
                 "plain_ms": t["plain_ms"],

@@ -552,8 +552,8 @@ def choose_layer_sharding(kernel: Sequence[int], cin: int, cout: int,
     ``"cout"`` only when the model axis is real (> 1), Cout divides it
     and the weights' ``prod(kernel)·cin·cout·itemsize`` bytes reach
     ``min_bytes`` (default :data:`COUT_SHARD_MIN_BYTES`); else
-    ``"data"``.  The port executes every program on one device until
-    ROADMAP item 12; the layout is frozen as data all the same."""
+    ``"data"``.  ``itemsize`` is the storage dtype's (a bf16 program's
+    weights are half the f32 footprint)."""
     if mesh_model <= 1 or cout % mesh_model != 0:
         return "data"
     threshold = COUT_SHARD_MIN_BYTES if min_bytes is None \
@@ -660,6 +660,7 @@ def resolve_execution(policy: DataflowPolicy, kind: str,
                       dtype="float32", epilogue: Epilogue | None = None,
                       planner=None, measure: bool = False,
                       mesh_model: int = 1,
+                      cout_shard_min_bytes: int | None = None,
                       platform: str | None = None) -> Resolution:
     """Resolve one layer's execution path **as data** — the one
     resolution routine behind the per-call ``backend="auto"`` dispatch
@@ -677,21 +678,38 @@ def resolve_execution(policy: DataflowPolicy, kind: str,
     degrades to the heuristic or drops the stale part, never raises.
     ``measure=True`` tunes a miss first (ahead-of-time builders only:
     dispatch never measures).  For ``mesh_model > 1`` the layer's mesh
-    layout is :func:`choose_layer_sharding`'s.  Counts
-    ``dataflow.resolve``, ``dataflow.resolve.<source>`` and, for
-    ``auto``, ``dataflow.resolve.<reason>`` (``plan_hit``,
-    ``plan_miss``, ``plan_measured``, ``stale_plan``, ``stale_blocks``,
-    ``stale_route``).  The reference's ``cout_shard_min_bytes`` has no
-    counterpart until the mesh is ported (ROADMAP item 12)."""
+    layout is :func:`choose_layer_sharding`'s (``cout_shard_min_bytes``
+    overrides its threshold), and a ``"cout"`` layer, whose kernel runs
+    on ``cout / mesh_model`` channels a rank, drops tuned blocks or a
+    tuned route that do not fit that local shard (reason
+    ``shard_blocks``).  Counts ``dataflow.resolve``,
+    ``dataflow.resolve.<source>`` and ``dataflow.resolve.<reason>``
+    (for ``auto``: ``plan_hit``, ``plan_miss``, ``plan_measured``,
+    ``stale_plan``, ``stale_blocks``, ``stale_route``; on a mesh:
+    ``shard_blocks``)."""
     with _obs.trace("dataflow.resolve", kind=kind) as sp:
         res, reasons = _resolve_execution(
             policy, kind, in_spatial, kernel, strides, paddings, cin,
             cout, batch=batch, dtype=dtype, epilogue=epilogue,
             planner=planner, measure=measure, platform=platform)
         sharding = choose_layer_sharding(
-            kernel, cin, cout, mesh_model,
+            kernel, cin, cout, mesh_model, min_bytes=cout_shard_min_bytes,
             itemsize=storage_itemsize(dtype))
         res = dataclasses.replace(res, sharding=sharding)
+        if sharding == "cout":
+            local = cout // mesh_model
+            blocks, route = res.blocks, res.route
+            if blocks is not None and not blocks_valid(
+                    kind, in_spatial, kernel, strides, paddings, cin,
+                    local, blocks):
+                blocks = None
+            if route is not None:
+                route = valid_layer_route(route, kind, in_spatial, kernel,
+                                          strides, paddings, cin, local,
+                                          dtype)
+            if (blocks, route) != (res.blocks, res.route):
+                res = dataclasses.replace(res, blocks=blocks, route=route)
+                reasons.append("shard_blocks")
         sp.set(backend=res.backend, source=res.source)
     _obs.counter("dataflow.resolve").inc()
     _obs.counter(f"dataflow.resolve.{res.source}").inc()

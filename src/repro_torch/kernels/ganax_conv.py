@@ -695,6 +695,7 @@ def _cuda(wrapper, x_pad, w_taps, tables, out_strides, q_sizes, bias,
     wrapper.launches += 1
     wrapper.launches_by_route[route.name] += 1
     wrapper.launches_by_dtype[str(x_pad.dtype).removeprefix("torch.")] += 1
+    wrapper.launches_by_cout[cout] += 1
     return out
 
 
@@ -715,8 +716,10 @@ def ganax_conv_cuda(x_pad: torch.Tensor, w_taps: torch.Tensor,
     ``route`` (a tuned one: :func:`check_route` raises ``ValueError`` on
     a route the kernels do not take for this geometry).  Each call
     adds one to ``ganax_conv_cuda.launches`` (a split-K call runs two
-    device kernels), to ``ganax_conv_cuda.launches_by_route[route.name]``
-    and to ``ganax_conv_cuda.launches_by_dtype[dtype name]``."""
+    device kernels), to ``ganax_conv_cuda.launches_by_route[route.name]``,
+    ``ganax_conv_cuda.launches_by_dtype[dtype name]`` and
+    ``ganax_conv_cuda.launches_by_cout[Cout]`` (a Cout-sharded layer
+    launches on its rank's slice)."""
     return _cuda(ganax_conv_cuda, x_pad, w_taps, tables, out_strides,
                  (qy, qx), bias, activation, leaky_slope, route)
 
@@ -730,8 +733,9 @@ def ganax_conv3d_cuda(x_pad: torch.Tensor, w_taps: torch.Tensor,
     """Launch the volumetric CUDA kernel on the current stream (no
     synchronise).  Takes what :func:`ganax_conv_cuda` takes, with a depth
     axis; each call adds one to ``ganax_conv3d_cuda.launches``,
-    ``ganax_conv3d_cuda.launches_by_route[route.name]`` and
-    ``ganax_conv3d_cuda.launches_by_dtype[dtype name]``."""
+    ``ganax_conv3d_cuda.launches_by_route[route.name]``,
+    ``ganax_conv3d_cuda.launches_by_dtype[dtype name]`` and
+    ``ganax_conv3d_cuda.launches_by_cout[Cout]``."""
     return _cuda(ganax_conv3d_cuda, x_pad, w_taps, tables, out_strides,
                  (qz, qy, qx), bias, activation, leaky_slope, route)
 
@@ -744,3 +748,6 @@ ganax_conv_cuda.launches_by_route = collections.Counter()
 ganax_conv3d_cuda.launches_by_route = collections.Counter()
 ganax_conv_cuda.launches_by_dtype = collections.Counter()
 ganax_conv3d_cuda.launches_by_dtype = collections.Counter()
+# launches by the Cout of the call
+ganax_conv_cuda.launches_by_cout = collections.Counter()
+ganax_conv3d_cuda.launches_by_cout = collections.Counter()

@@ -1,1 +1,2 @@
-"""Command-line launchers of the LLM stack."""
+"""Launchers: the LLM stack's command line (:mod:`.serve`) and the
+device mesh with its launcher of ranks (:mod:`.mesh`)."""

@@ -28,6 +28,16 @@ stored in it; the discriminator's logits are reduced in f32 and stay
 f32.  Parameters stay f32 in the caller's dict, and training
 differentiates through the casts: each weight's gradient comes back
 from the storage dtype as f32 (mixed-precision training).
+
+Given a rank's :class:`~repro_torch.sharding.collectives.MeshAxes`
+(``mesh=``), the replay is the reference's ``shard_map`` body: the
+network takes the global batch and computes on the rank's ``data``
+rows; a ``"cout"`` record runs on the rank's Cout slice of its weight
+and bias (sliced at use from the full tensors, so the epilogue is fused
+on the shard) and gathers the full Cout after the layer; the output is
+gathered on the batch axis, the discriminator's after its f32 mean.  The
+gradient sums that keep a backward equal to the unsharded one are
+:mod:`repro_torch.sharding.collectives`'s.
 """
 
 from __future__ import annotations
@@ -47,6 +57,8 @@ from repro_torch.core.dataflow import DataflowPolicy, Epilogue, conv, tconv
 from repro_torch.device import require_ieee_f32, resolve_device
 from repro_torch.models.common import PSpec, init_params
 from repro_torch.quant.precision import canonical_dtype, storage_dtype
+from repro_torch.sharding.collectives import (gather_batch, gather_channels,
+                                              rows, shard_batch, sum_grad)
 
 __all__ = ["GanConfig", "generator_specs", "discriminator_specs",
            "generator_epilogues", "discriminator_epilogues", "init_gan",
@@ -66,8 +78,9 @@ class GanConfig:
     """One Table-I model.  ``channel_scale`` shrinks the channels for
     CPU-sized runs; ``backend`` is the dataflow policy's backend (a port
     or reference name, ``"pallas"``, ``"auto"``: the tuner's plans, or
-    ``None``: the heuristic, the kernel); ``mesh`` the ``(data, model)`` layout programs built from
-    the config freeze (run on one device until ROADMAP item 12);
+    ``None``: the heuristic, the kernel); ``mesh`` the ``(data, model)``
+    layout programs built from the config freeze (sharded over a process
+    group of ``data·model`` ranks, else on one device);
     ``dtype`` is the storage precision (float32, bfloat16 or float16,
     aliases accepted; accumulation is always f32)."""
 
@@ -183,10 +196,13 @@ class _Network(nn.Module):
     ``specs`` says, held as trainable ``nn.Parameter``s on ``device`` (a
     float32 tensor already there shares its storage), and one dataflow
     op per frozen :class:`~repro_torch.program.LayerExec` record of
-    ``spec`` (built from ``cfg.policy`` when None)."""
+    ``spec`` (built from ``cfg.policy`` when None).  ``mesh``: the
+    rank's :class:`~repro_torch.sharding.collectives.MeshAxes` on the
+    spec's mesh, for a sharded replay (None: one device)."""
 
     def __init__(self, cfg: GanConfig, params: dict[str, torch.Tensor],
-                 device, specs: dict[str, PSpec], role: str, spec=None):
+                 device, specs: dict[str, PSpec], role: str, spec=None,
+                 mesh=None):
         from repro_torch.program.spec import ProgramSpec
         super().__init__()
         dev = resolve_device(device)
@@ -204,6 +220,12 @@ class _Network(nn.Module):
             name: nn.Parameter(
                 torch.as_tensor(t, dtype=torch.float32).to(dev))
             for name, t in sorted(params.items())})
+        self.mesh = mesh
+        # each "cout" record's [lo, hi) of its weight's last axis, bound
+        # once; the replay slices the full tensors at use
+        self._cout = {} if mesh is None else {
+            le.name: rows(le.cout, mesh.shape[1], mesh.model)
+            for le in spec.layers if le.sharding == "cout"}
 
     @property
     def params(self) -> dict[str, nn.Parameter]:
@@ -211,8 +233,31 @@ class _Network(nn.Module):
         ``t0_w``, ``c0_b``, ...): the tensors themselves, not copies."""
         return dict(self.weights.items())
 
-    def _layers(self, x: torch.Tensor) -> torch.Tensor:
+    def _replicated(self, t: torch.Tensor | None) -> torch.Tensor | None:
+        """A replicated parameter at use: its gradient summed over
+        ``data`` on a mesh."""
+        if t is None or self.mesh is None:
+            return t
+        return sum_grad(t, self.mesh.data_group, "data")
+
+    def _layer_operands(self, le, x):
+        """``(x, w, b)`` of one record on this rank: on a ``"cout"``
+        record the rank's Cout slice of the weight and bias, whose
+        gradients are summed over every rank, and an input whose
+        gradient is summed over ``model``."""
         p = self.weights
+        w = p[le.w_param]
+        b = p[le.b_param] if le.bias else None
+        if le.name not in self._cout:
+            return x, self._replicated(w), self._replicated(b)
+        lo, hi = self._cout[le.name]
+        world = self.mesh.world_group
+        w = sum_grad(w, world, "world")[..., lo:hi]
+        if b is not None:
+            b = sum_grad(b, world, "world")[lo:hi]
+        return sum_grad(x, self.mesh.model_group, "model"), w, b
+
+    def _layers(self, x: torch.Tensor) -> torch.Tensor:
         sd = self.storage
         tracing = _obs.is_enabled()
         for le in self.records:
@@ -223,11 +268,32 @@ class _Network(nn.Module):
                               measured_us=le.measured_us) \
                 if tracing else _NO_SPAN
             with span:
-                x = op(x, p[le.w_param].to(sd), le.strides, le.paddings,
-                       backend=le.backend, route=le.route,
-                       bias=p[le.b_param] if le.bias else None,
+                x, w, b = self._layer_operands(le, x)
+                x = op(x, w.to(sd), le.strides, le.paddings,
+                       backend=le.backend, route=le.route, bias=b,
                        epilogue=le.epilogue)
+                if le.name in self._cout:
+                    # the full Cout back on the channels axis (the storage
+                    # dtype travels); no halo, Cout is an output dimension
+                    x = gather_channels(x, self.mesh.model_group)
         return x
+
+    def _shard(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's ``data`` rows of the global batch ``x``."""
+        if self.mesh is None:
+            return x
+        d = self.mesh.shape[0]
+        if x.shape[0] % d:
+            raise ValueError(
+                f"batch {x.shape[0]} does not divide over the data axis "
+                f"of {d} (program {self.spec.model}/{self.spec.role} mesh "
+                f"{d}x{self.mesh.shape[1]})")
+        return shard_batch(x, self.mesh.data_group)
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The global output from the ranks' ``data`` rows."""
+        return x if self.mesh is None else \
+            gather_batch(x, self.mesh.data_group)
 
 
 class Generator(_Network):
@@ -241,23 +307,26 @@ class Generator(_Network):
     program to replay (default: built from ``cfg.policy``)."""
 
     def __init__(self, cfg: GanConfig, params: dict[str, torch.Tensor],
-                 device: str | torch.device = "cuda", spec=None):
+                 device: str | torch.device = "cuda", spec=None,
+                 mesh=None):
         super().__init__(cfg, params, device, generator_specs(cfg),
-                         "generator", spec)
+                         "generator", spec, mesh)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         p = self.weights
         sd = self.storage
         first = self.records[0]
         require_ieee_f32(z)
+        z = self._shard(z)
         # z and proj_w rounded to storage, their products summed in f32
         # (an f32 matmul: a bf16/f16 product is exact in f32), the bias
         # added in f32, then ReLU and one cast to storage
-        x = torch.matmul(z.to(sd).float(), p["proj_w"].to(sd).float()) \
-            + p["proj_b"].float()
+        x = torch.matmul(z.to(sd).float(),
+                         self._replicated(p["proj_w"]).to(sd).float()) \
+            + self._replicated(p["proj_b"]).float()
         x = torch.relu(x.reshape((x.shape[0],) + tuple(first.in_spatial)
                                  + (first.cin,))).to(sd)
-        return self._layers(x)
+        return self._gather(self._layers(x))
 
 
 class Discriminator(_Network):
@@ -271,13 +340,16 @@ class Discriminator(_Network):
     ``cfg.policy``)."""
 
     def __init__(self, cfg: GanConfig, params: dict[str, torch.Tensor],
-                 device: str | torch.device = "cuda", spec=None):
+                 device: str | torch.device = "cuda", spec=None,
+                 mesh=None):
         super().__init__(cfg, params, device, discriminator_specs(cfg),
-                         "discriminator", spec)
+                         "discriminator", spec, mesh)
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
-        x = self._layers(img.to(self.storage))
-        return x.reshape(x.shape[0], -1).mean(dim=-1, dtype=torch.float32)
+        x = self._layers(self._shard(img).to(self.storage))
+        # the mean on the rank's rows, then the batch gathered
+        return self._gather(
+            x.reshape(x.shape[0], -1).mean(dim=-1, dtype=torch.float32))
 
 
 def bce_with_logits(logits: torch.Tensor, target: float) -> torch.Tensor:

@@ -29,11 +29,21 @@ tuned backends and kernel routes::
 
     PYTHONPATH=src python -m repro_torch.program dcgan --role generator \
         --backend auto --measure --plans plans.json --export tuned.json
+
+``--mesh DATAxMODEL`` freezes a mesh into the spec.  Run as one process
+it describes the frozen layout (each layer's ``@cout`` or data
+sharding); run under a process group of ``data·model`` ranks (a caller
+that initialised one, or ``torchrun``, whose ``RANK`` / ``WORLD_SIZE``
+environment it reads) it also builds each role's sharded program on
+every rank and prints the rank's place on the mesh::
+
+    torchrun --nproc-per-node 2 -m repro_torch.program dcgan --mesh 1x2
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from repro_torch.configs.gans import GAN_MODELS
@@ -56,8 +66,8 @@ def main(argv=None) -> int:
     ap.add_argument("--channel-scale", type=float, default=1.0)
     ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
                     help="freeze a (data, model) device mesh into the "
-                         "spec, e.g. 4x2 (kept as data; programs run on "
-                         "one device until ROADMAP item 12)")
+                         "spec, e.g. 4x2; under a process group of that "
+                         "many ranks, build the sharded programs too")
     ap.add_argument("--dtype", default=None,
                     help="storage precision frozen into the spec: "
                          "float32 (default), bfloat16, or float16 "
@@ -129,6 +139,8 @@ def main(argv=None) -> int:
         except Exception:
             roles = ("generator",)
 
+    ranked, owned = _process_group() if mesh is not None else (False,
+                                                                False)
     exported = False
     for role in roles:
         if args.load:
@@ -146,6 +158,16 @@ def main(argv=None) -> int:
             spec = ProgramSpec.build(cfg, args.batch, role, policy=policy,
                                      planner=planner, measure=args.measure)
         print(spec.describe())
+        if ranked:
+            from repro_torch.program import Program
+            prog = Program(spec, differentiable=False,
+                           device="cpu" if default_platform() == "cpu"
+                           else "cuda")
+            axes = prog.axes
+            where = "" if axes is None else \
+                f" (this rank: data {axes.data}, model {axes.model})"
+            print(f"sharded: mesh {prog.mesh_str} over "
+                  f"{prog.device_count} ranks{where}")
         if args.export and not exported:
             if args.quantize:
                 import torch
@@ -175,7 +197,29 @@ def main(argv=None) -> int:
             print(f"  {name:36s} {v}")
         if not deltas:
             print("  (none)")
+    if owned:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return 0
+
+
+def _process_group() -> tuple[bool, bool]:
+    """Whether this process is a rank of a process group (one a caller
+    initialised, or one this call initialises from ``torchrun``'s
+    environment, ``RANK`` and ``WORLD_SIZE``: gloo on the CPU, NCCL on
+    the card), and whether this call initialised it."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return True, False
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        return False, False
+    if default_platform() == "cpu":
+        dist.init_process_group("gloo")
+    else:
+        import torch
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl")
+    return True, True
 
 
 if __name__ == "__main__":

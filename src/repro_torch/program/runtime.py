@@ -12,6 +12,19 @@ The reference's ``traces`` count, its ``program.traces`` /
 ``program.retraces`` counters and the ``traced`` attribute of its
 ``program.apply`` span have no counterpart: PyTorch runs eagerly, so
 nothing is compiled per input shape.
+
+A spec with a frozen ``mesh`` runs **sharded** when this process is a
+rank of a ``torch.distributed`` process group of exactly ``data·model``
+ranks: torch runs one process per rank where JAX drives every device
+from one controller, so every rank builds the same programs and calls
+them in the same order with the same **global** batch.  Each rank
+computes on its ``data`` rows (rows ``[d·B/D, (d+1)·B/D)``), with the
+parameters replicated and each ``"cout"`` layer on its Cout slice
+``[m·C/M, (m+1)·C/M)`` followed by a tiled gather, and every rank
+returns the global output (:mod:`repro_torch.sharding.collectives` has
+the gradient rules, so ``forward`` differentiates like the unsharded
+program).  Otherwise the program degrades to one device with the
+reference's warning and the ``program.mesh_degraded`` counter.
 """
 
 from __future__ import annotations
@@ -20,14 +33,17 @@ import logging
 import warnings
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch import obs as _obs
 from repro_torch.core.dataflow import DataflowPolicy
 from repro_torch.device import platform_of, resolve_device
+from repro_torch.launch.mesh import make_local_mesh, world_size
 from repro_torch.models.gan import Discriminator, GanConfig, Generator
 from repro_torch.program.spec import _UNSET as _SPEC_UNSET
 from repro_torch.program.spec import ProgramSpec
+from repro_torch.sharding.collectives import MeshAxes
 
 __all__ = ["Program", "build_bucket_programs", "load_or_build"]
 
@@ -48,10 +64,15 @@ class Program:
     per binding) and is rebuilt only when a different dict of tensors
     is passed.
 
-    A spec whose ``mesh`` needs more than one device degrades to one
-    device with a warning and the ``program.mesh_degraded`` counter, as
-    the reference does on a host with too few devices: the port has no
-    mesh until ROADMAP item 12.
+    A spec with a ``mesh`` runs sharded under a process group of
+    ``data·model`` ranks (``self.mesh``: the
+    :class:`~torch.distributed.device_mesh.DeviceMesh`, on ``device``'s
+    type; every rank must build the program, since the mesh's groups
+    are made collectively) and counts ``program.sharded``; it degrades
+    to one device with a warning and ``program.mesh_degraded``
+    otherwise (a ``1x1`` mesh without a process group simply runs on
+    the one device).  A sharded ``forward`` / ``apply`` refuses a batch
+    that does not divide over ``data``.
     """
 
     def __init__(self, spec: ProgramSpec, *,
@@ -60,15 +81,25 @@ class Program:
         self.spec = spec
         self.device = resolve_device(device)
         self.differentiable = bool(differentiable)
-        if spec.mesh is not None and spec.mesh[0] * spec.mesh[1] > 1:
-            warnings.warn(
-                f"program {spec.model}/{spec.role} wants a "
-                f"{spec.mesh[0]}x{spec.mesh[1]} mesh "
-                f"({spec.mesh[0] * spec.mesh[1]} devices) but the PyTorch "
-                f"port runs programs on one device until ROADMAP item 12; "
-                f"degrading to single-device execution", RuntimeWarning,
-                stacklevel=2)
-            _obs.counter("program.mesh_degraded").inc()
+        self.mesh = None
+        self._axes: MeshAxes | None = None
+        if spec.mesh is not None:
+            need = spec.mesh[0] * spec.mesh[1]
+            have = world_size()
+            if dist.is_available() and dist.is_initialized() \
+                    and need == have:
+                self.mesh = make_local_mesh(*spec.mesh,
+                                            device_type=self.device.type)
+                self._axes = MeshAxes.of(self.mesh)
+                _obs.counter("program.sharded").inc()
+            elif need > 1:
+                warnings.warn(
+                    f"program {spec.model}/{spec.role} wants a "
+                    f"{spec.mesh[0]}x{spec.mesh[1]} mesh ({need} ranks) "
+                    f"but the process group has {have}; degrading to "
+                    f"single-device execution", RuntimeWarning,
+                    stacklevel=2)
+                _obs.counter("program.mesh_degraded").inc()
         self._bound: tuple[dict, nn.Module] | None = None
         self._dequantized: dict[str, torch.Tensor] | None = None
 
@@ -77,7 +108,8 @@ class Program:
               policy: DataflowPolicy | None = None, planner=None,
               measure: bool = False, dtype: str | None = None,
               device: str | torch.device = "cuda",
-              differentiable: bool = True, mesh=_SPEC_UNSET) -> "Program":
+              differentiable: bool = True, mesh=_SPEC_UNSET,
+              cout_shard_min_bytes: int | None = None) -> "Program":
         """:meth:`ProgramSpec.build` + wrap — the one-call form; an
         ``auto`` policy's plans are those of ``device``'s platform
         (``measure=True`` tunes the misses there)."""
@@ -85,6 +117,7 @@ class Program:
         spec = ProgramSpec.build(cfg, batch, role, policy=policy,
                                  planner=planner, measure=measure,
                                  dtype=dtype, mesh=mesh,
+                                 cout_shard_min_bytes=cout_shard_min_bytes,
                                  platform=platform_of(device))
         return cls(spec, device=device, differentiable=differentiable)
 
@@ -113,13 +146,24 @@ class Program:
     # -- device layout ------------------------------------------------------
     @property
     def device_count(self) -> int:
-        """Devices this program executes on: one (item 12)."""
-        return 1
+        """The ranks this program executes on (1 when unsharded or
+        degraded)."""
+        return 1 if self.mesh is None else self.spec.mesh[0] * \
+            self.spec.mesh[1]
+
+    @property
+    def axes(self) -> MeshAxes | None:
+        """This rank's place on the active mesh and its axes' groups
+        (None when unsharded or degraded)."""
+        return self._axes
 
     @property
     def mesh_str(self) -> str:
-        """The span-attr form of the active mesh: ``"1"``."""
-        return "1"
+        """``"2x1"``-style label of the *active* mesh (``"1"`` when
+        unsharded or degraded) — the span-attr form."""
+        if self.mesh is None:
+            return "1"
+        return f"{self.spec.mesh[0]}x{self.spec.mesh[1]}"
 
     # -- execution ----------------------------------------------------------
     def network(self, params: dict[str, torch.Tensor]) -> nn.Module:
@@ -134,7 +178,7 @@ class Program:
                         **({} if spec.z_dim is None
                            else {"z_dim": spec.z_dim}))
         cls = Generator if spec.role == "generator" else Discriminator
-        net = cls(cfg, params, self.device, spec=spec)
+        net = cls(cfg, params, self.device, spec=spec, mesh=self._axes)
         if not self.differentiable:
             net.requires_grad_(False)
         self._bound = (dict(params), net)

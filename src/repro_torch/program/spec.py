@@ -25,7 +25,8 @@ spec freezes its storage ``dtype`` (float32, bfloat16 or float16) and,
 in a version-3 file, may embed int8 weights (``quantized_params``,
 :mod:`repro_torch.quant.weights`), validated at load.  A frozen
 ``mesh`` and each layer's ``sharding`` are kept as data; the runtime
-executes on one device until ROADMAP item 12.
+executes them over a process group of ``data·model`` ranks
+(:class:`repro_torch.program.Program`).
 """
 
 from __future__ import annotations
@@ -265,15 +266,7 @@ class ProgramSpec:
             raise ValueError("quantized_params must be a JSON object")
         model_dim = self.mesh[1] if self.mesh else 1
         for le in self.layers:
-            if le.route is not None:
-                # a route is the kernel's at the spec's storage dtype
-                route = valid_layer_route(
-                    le.route, le.kind, le.in_spatial, le.kernel,
-                    le.strides, le.paddings, le.cin, le.cout, self.dtype)
-                if route is None:
-                    raise ValueError(
-                        f"layer {le.name!r}: no GANAX kernel takes route "
-                        f"{le.route.describe()} at {self.dtype}")
+            local = le.cout
             if le.sharding == "cout":
                 if model_dim <= 1:
                     raise ValueError(
@@ -283,13 +276,26 @@ class ProgramSpec:
                     raise ValueError(
                         f"layer {le.name!r} cout={le.cout} does not "
                         f"divide over model axis of {model_dim}")
+                local = le.cout // model_dim
+            if le.route is not None:
+                # a route is the kernel's at the spec's storage dtype, on
+                # the Cout a rank computes (a "cout" layer's local shard)
+                route = valid_layer_route(
+                    le.route, le.kind, le.in_spatial, le.kernel,
+                    le.strides, le.paddings, le.cin, local, self.dtype)
+                if route is None:
+                    raise ValueError(
+                        f"layer {le.name!r}: no GANAX kernel takes route "
+                        f"{le.route.describe()} at {self.dtype} on Cout "
+                        f"{local}")
 
     # -- construction -------------------------------------------------------
     @classmethod
     def build(cls, cfg, batch: int, role: str = "generator", *,
               policy: DataflowPolicy | None = None, planner=None,
               measure: bool = False, dtype: str | None = None,
-              mesh=_UNSET, platform: str | None = None) -> "ProgramSpec":
+              mesh=_UNSET, cout_shard_min_bytes: int | None = None,
+              platform: str | None = None) -> "ProgramSpec":
         """Walk ``cfg``'s layers once and freeze every resolution.
 
         ``policy`` defaults to ``cfg.policy``; ``dtype`` to ``cfg.dtype``;
@@ -301,8 +307,9 @@ class ProgramSpec:
         ``platform`` (default: the card's when there is one), and a
         tuned layer freezes the plan's backend, kernel route and time;
         ``measure=True`` tunes plan misses first, the one place
-        measurement belongs.  The reference's ``cout_shard_min_bytes``
-        belongs to the mesh (ROADMAP item 12)."""
+        measurement belongs.  ``cout_shard_min_bytes`` overrides the
+        sharding heuristic's threshold (tests pass ``0`` to shard small
+        configurations on Cout)."""
         if role not in ROLES:
             raise ValueError(f"unknown program role {role!r}; "
                              f"one of {ROLES}")
@@ -330,7 +337,9 @@ class ProgramSpec:
                     policy, kind, l.in_spatial, l.kernel, l.strides,
                     l.paddings, l.cin, l.cout, batch=batch, dtype=dtype,
                     epilogue=ep, planner=planner, measure=measure,
-                    mesh_model=mesh[1] if mesh else 1, platform=platform)
+                    mesh_model=mesh[1] if mesh else 1,
+                    cout_shard_min_bytes=cout_shard_min_bytes,
+                    platform=platform)
                 records.append(LayerExec(
                     name=l.name, kind=kind,
                     in_spatial=tuple(l.in_spatial),

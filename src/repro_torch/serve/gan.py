@@ -35,6 +35,17 @@ Two ways to drive it:
   and the stream stays single-sourced and bit-identical to the
   synchronous one.  Call ``close()`` (or use the server as a context
   manager) to shut the engine down.
+
+On a program sharded over a ``(data, model)`` mesh of ranks
+(``mesh=``, or a sharded ``program=``), every rank builds the server
+with the same arguments and calls ``generate`` in the same order: each
+rank draws the same global latents from its own generator, seeded
+alike (the server checks that once, by gathering a checksum of the
+first batch's latents from every rank), and every rank returns the
+same images.  ``batch_size`` must divide over the ``data`` axis.  The
+asynchronous façade is one rank's: serve a mesh asynchronously through
+:class:`~repro_torch.serve.gan_engine.GanEngine`, whose rank 0 takes the
+requests and leads the others.
 """
 
 from __future__ import annotations
@@ -51,6 +62,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.gan import GanConfig
 from repro_torch.program import Program, ProgramSpec
 from repro_torch.program.spec import _UNSET as _MESH_UNSET
+from repro_torch.sharding import collectives
 
 __all__ = ["GanServer"]
 
@@ -143,6 +155,15 @@ class GanServer:
                 cfg, self.batch_size, "generator", policy=self.policy,
                 measure=warm_plans, device=self.device,
                 differentiable=False, mesh=mesh)
+        if self.program.mesh is not None and \
+                self.batch_size % self.program.spec.mesh[0]:
+            raise ValueError(
+                f"batch_size {self.batch_size} does not divide over "
+                f"the program's data axis of "
+                f"{self.program.spec.mesh[0]} (mesh "
+                f"{self.program.mesh_str})")
+        # on a mesh: whether the ranks' latent draws were checked equal
+        self._draws_checked = self.program.mesh is None
         # int8-deploy flow: a quantized program carries its own
         # parameters, dequantized at load on the server's device
         self.params = self.program.params if g_params is None \
@@ -184,8 +205,25 @@ class GanServer:
 
     def _next_latents(self) -> torch.Tensor:
         """The next batch's latents (advances the stream)."""
-        return torch.randn((self.batch_size, self.cfg.z_dim),
-                           generator=self._rng, device=self.device)
+        z = torch.randn((self.batch_size, self.cfg.z_dim),
+                        generator=self._rng, device=self.device)
+        if not self._draws_checked:
+            self._check_draws(z)
+        return z
+
+    def _check_draws(self, z: torch.Tensor) -> None:
+        """Raise unless every rank of the mesh drew the same ``z`` (a
+        debug check, once per server): the sum and the sum of squares of
+        the draw, in float64, gathered from every rank."""
+        sums = torch.stack([z.double().sum(), z.double().square().sum()])
+        got = collectives.all_gather(sums[None], 0,
+                                     self.program.axes.world_group)
+        if not bool((got == got[0]).all()):
+            raise RuntimeError(
+                f"the ranks drew different latents (checksums "
+                f"{got.tolist()}): build every rank's server with the "
+                f"same seed and call generate in the same order")
+        self._draws_checked = True
 
     # -- async façade -------------------------------------------------------
     def submit(self, n: int):
@@ -196,7 +234,14 @@ class GanServer:
         The first call hands the server's program, latent generator and
         remainder buffer to an internal single-bucket
         :class:`~repro_torch.serve.gan_engine.GanEngine`; the stream
-        picks up exactly where the synchronous calls left off."""
+        picks up exactly where the synchronous calls left off.  Not on
+        a sharded program (``ValueError``): there the ranks serve
+        asynchronously through a ``GanEngine`` of their own."""
+        if self.program.mesh is not None:
+            raise ValueError(
+                "a sharded GanServer serves generate() on every rank; "
+                "serve a mesh asynchronously through GanEngine (rank 0 "
+                "submits, the other ranks follow)")
         return self._ensure_engine().submit(n)
 
     def close(self, drain: bool = True,

@@ -46,6 +46,18 @@ a small number of well-packed device batches.
 
 Futures deliver CPU tensors (the reference delivers numpy arrays).
 
+**On a mesh of ranks** (a program sharded over ``(data, model)``; every
+bucket must divide over ``data``), every rank builds the engine with
+the same arguments.  Rank 0 owns the queue and the scheduler thread:
+for each batch it broadcasts ``(bucket, z)`` to the other ranks before
+it runs the program, and a final stop message when it ends.  The other
+ranks run a follower thread that calls ``Program.apply`` on what it
+receives, in the same order, so the program's collectives pair up; the
+answers come from rank 0's gathered output.  Only rank 0 takes
+requests; every rank's ``close`` returns once rank 0's engine has
+stopped.  If rank 0's scheduler raises, it broadcasts the stop first,
+then fails its futures, so no rank is left waiting.
+
 **Determinism.**  The sample stream is defined by ``(seed, the sequence
 of batch sizes drawn)``: one latent draw per batch from one generator,
 exactly like the synchronous :class:`~repro_torch.serve.gan.GanServer`.
@@ -75,6 +87,7 @@ import time
 from collections import deque
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs as _obs
 from repro_torch.core.dataflow import DataflowPolicy
@@ -82,6 +95,7 @@ from repro_torch.device import platform_of, resolve_device
 from repro_torch.models.gan import GanConfig
 from repro_torch.program import Program, ProgramSpec
 from repro_torch.program.spec import _UNSET as _MESH_UNSET
+from repro_torch.sharding import collectives
 
 __all__ = ["GanEngine", "GanFuture", "ServerClosed", "DEFAULT_BUCKETS"]
 
@@ -92,6 +106,10 @@ DEFAULT_BUCKETS = (1, 2, 4, 8)
 _OCCUPANCY_BOUNDS = tuple(i / 10 for i in range(1, 11))
 
 _ENGINE_SEQ = itertools.count()
+
+# The leader's message to its followers: a header (_RUN, bucket) followed
+# by the bucket's latents, or (_STOP, 0).
+_RUN, _STOP = 1, 0
 
 
 class ServerClosed(RuntimeError):
@@ -297,6 +315,18 @@ class GanEngine:
         self.params = g_params
         self._devices = self.program.device_count
         self._mesh_str = self.program.mesh_str
+        axes = self.program.axes
+        if axes is not None:
+            bad = [b for b in self.buckets if b % spec.mesh[0]]
+            if bad:
+                raise ValueError(
+                    f"buckets {bad} do not divide over the program's "
+                    f"data axis of {spec.mesh[0]} (mesh "
+                    f"{self._mesh_str})")
+        # on a mesh, the group rank 0 leads (None: one device)
+        self._world = None if axes is None else axes.world_group
+        self.leader = axes is None or dist.get_rank(self._world) == 0
+        self._follow_error: BaseException | None = None
 
         self.engine_id = f"{cfg.name}#{next(_ENGINE_SEQ)}"
         labels = {"engine": self.engine_id}
@@ -358,8 +388,8 @@ class GanEngine:
             del staging
 
         self._thread = threading.Thread(
-            target=self._run, name=f"gan-engine-{self.engine_id}",
-            daemon=True)
+            target=self._run if self.leader else self._follow,
+            name=f"gan-engine-{self.engine_id}", daemon=True)
         self._thread.start()
 
     # -- producer API -------------------------------------------------------
@@ -370,6 +400,10 @@ class GanEngine:
         the engine is closed."""
         if int(n) <= 0:
             raise ValueError(f"n must be positive, got {n}")
+        if not self.leader:
+            raise ValueError(
+                f"engine {self.engine_id} follows rank 0's engine on its "
+                f"mesh: submit on rank 0")
         fut = GanFuture(n)
         with self._cv:
             while (not self._closed and self.max_pending is not None
@@ -396,7 +430,9 @@ class GanEngine:
         """Stop the engine.  ``drain=True`` (default) answers every
         queued request first; ``drain=False`` answers only requests
         whose samples are already dispatched and fails the rest with
-        :class:`ServerClosed`.  Idempotent; safe from any thread."""
+        :class:`ServerClosed`.  Idempotent; safe from any thread.  A
+        follower rank's ``close`` waits for rank 0's stop message and
+        raises what its follower thread raised."""
         with self._cv:
             if not self._closed:
                 self._closed = True
@@ -404,6 +440,8 @@ class GanEngine:
             self._cv.notify_all()
         if self._thread is not threading.current_thread():
             self._thread.join(timeout)
+        if self._follow_error is not None:
+            raise self._follow_error
 
     def __enter__(self) -> "GanEngine":
         return self
@@ -455,11 +493,51 @@ class GanEngine:
         try:
             self._loop()
         except BaseException as e:   # noqa: BLE001 — must answer futures
-            self._fail_outstanding(e)
+            try:
+                # the followers first: none may be left waiting on rank 0
+                self._stop_followers()
+            finally:
+                self._fail_outstanding(e)
+        else:
+            self._stop_followers()
         finally:
             with self._cv:
                 self._closed = True
                 self._cv.notify_all()
+
+    # -- the mesh's leader and followers -------------------------------------
+    def _header(self, op: int = _RUN, size: int = 0) -> torch.Tensor:
+        return torch.tensor([op, size], dtype=torch.int64,
+                            device=self.device)
+
+    def _announce(self, z: torch.Tensor) -> None:
+        """Rank 0: send the next batch's bucket and latents."""
+        if self._world is not None:
+            collectives.broadcast(self._header(_RUN, len(z)), 0,
+                                  self._world)
+            collectives.broadcast(z, 0, self._world)
+
+    def _stop_followers(self) -> None:
+        if self._world is not None:
+            collectives.broadcast(self._header(_STOP), 0, self._world)
+
+    def _follow(self) -> None:
+        """A follower rank: run each batch rank 0 announces until its
+        stop message (an error is kept for ``close`` to raise)."""
+        try:
+            with self._on_compute(), torch.inference_mode():
+                while True:
+                    head = collectives.broadcast(self._header(), 0,
+                                                 self._world)
+                    op, size = (int(v) for v in head.tolist())
+                    if op == _STOP:
+                        return
+                    z = collectives.broadcast(
+                        torch.empty((size, self.cfg.z_dim),
+                                    device=self.device), 0, self._world)
+                    self.program.apply(self.params, z)
+        except BaseException as e:   # noqa: BLE001 — close() raises it
+            self._follow_error = e
 
     def _loop(self) -> None:
         while True:
@@ -605,6 +683,7 @@ class GanEngine:
         with self._on_compute(), torch.inference_mode():
             z = torch.randn((batch.size, self.cfg.z_dim),
                             generator=self.key, device=self.device)
+            self._announce(z)
             out = self.program.apply(self.params, z)
             if self._compute is None:
                 batch.host = out

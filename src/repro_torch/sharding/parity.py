@@ -1,0 +1,319 @@
+"""Rank-side runners of sharded GAN programs, for parity checks.
+
+A parent process writes a list of cases with ``torch.save`` (parameters
+and inputs included), starts the ranks with
+:func:`repro_torch.launch.mesh.spawn` running :func:`run`, and holds
+what each rank wrote against an unsharded reference it computed itself
+(``tests/test_torch_mesh.py`` against the JAX package on the CPU,
+``chip_smoke.py``'s mesh phase against the port's one-device path on
+the card).  Each case is a dict with a ``name`` and a ``kind``:
+
+* ``forward``: a sharded :class:`~repro_torch.program.Program`'s
+  ``apply`` on the global batch;
+* ``grad``: the gradients of ``sum(forward(params, x)**2)`` by
+  parameter and by ``x``;
+* ``train``: ``TrainLoop`` steps of a sharded
+  ``make_gan_train_step`` (optionally from a checkpoint, with a
+  checkpoint every step and an injected failure that makes every rank
+  restore and replay);
+* ``server``: a sharded ``GanServer``'s ``generate`` stream, and the
+  error of a ``batch_size`` that does not divide over ``data``;
+* ``engine``: a sharded ``GanEngine``'s answers on rank 0, and the
+  error of buckets that do not divide; ``engine_fault``: a fault
+  planted in rank 0's scheduler, after which every rank's engine
+  stops;
+* ``ring``: both ring matmuls on the rank's shards;
+* ``forms``: :func:`~repro_torch.launch.mesh.make_local_mesh`'s forms
+  and errors at this world size;
+* ``cli``: ``python -m repro_torch.program --mesh``'s output.
+
+Every case records the GANAX kernels' launches (on the card) by route,
+dtype and Cout during the case, and how many collectives it staged
+through host memory.  Rank ``r`` writes ``rank<r>.pt`` in the output
+directory: ``{name: result}``.  Importing this module touches no process
+group; everything runs inside :func:`run`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import os
+import time
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["run"]
+
+
+def _cfg(case: dict):
+    from repro_torch.models.gan import GanConfig
+    return GanConfig(case["model"], channel_scale=case.get("scale", 1.0),
+                     dtype=case.get("dtype", "float32"),
+                     backend=case.get("backend"))
+
+
+def _on(tree, dev):
+    """A copy of ``tree`` on ``dev``: cases that share a loaded tensor
+    (``torch.save`` keeps the sharing) must not see each other's
+    in-place updates."""
+    if isinstance(tree, dict):
+        return {k: _on(v, dev) for k, v in tree.items()}
+    return tree.to(dev, copy=True) if isinstance(tree, torch.Tensor) \
+        else tree
+
+
+def _cpu(tree):
+    """A host copy of ``tree`` that later in-place updates do not
+    reach."""
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_cpu(v) for v in tree]
+    return tree.detach().to("cpu", copy=True) \
+        if isinstance(tree, torch.Tensor) else tree
+
+
+def _kernels():
+    from repro_torch.kernels.ganax_conv import (ganax_conv3d_cuda,
+                                                ganax_conv_cuda)
+    return {"ganax_conv": ganax_conv_cuda, "ganax_conv3d": ganax_conv3d_cuda}
+
+
+def _staged() -> int:
+    """Collectives staged through host memory so far in this process."""
+    from repro_torch import obs
+    return sum(v for k, v in obs.snapshot()["counters"].items()
+               if k.startswith("mesh.staged"))
+
+
+def _error(fn) -> str | None:
+    """The message of the ``ValueError`` ``fn`` raises (None: none)."""
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def _program(case, dev, differentiable):
+    from repro_torch.program import Program
+    return Program.build(_cfg(case), case.get("batch", 8),
+                         case.get("role", "generator"), device=dev,
+                         differentiable=differentiable, mesh=case["mesh"],
+                         cout_shard_min_bytes=case.get("min_bytes"))
+
+
+def _forward(case, dev):
+    prog = _program(case, dev, differentiable=False)
+    params, x = _on(case["params"], dev), _on(case["x"], dev)
+    out = prog.apply(params, x)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(case.get("timed", 0)):
+        prog.apply(params, x)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / max(1, case.get("timed", 0))
+    return {"out": out, "ms": ms, "mesh": prog.mesh_str,
+            "devices": prog.device_count,
+            "shardings": [le.sharding for le in prog.spec.layers],
+            "batch_error": _error(lambda: prog.apply(params, x[:1]))
+            if prog.spec.mesh[0] > 1 else None}
+
+
+def _grad(case, dev):
+    prog = _program(case, dev, differentiable=True)
+    params = {k: v.to(dev).requires_grad_(True)
+              for k, v in case["params"].items()}
+    net = prog.network(params)
+    x = case["x"].to(dev).requires_grad_(True)
+    out = prog.forward(params, x)
+    names = list(net.params)
+    grads = torch.autograd.grad((out.float() ** 2).sum(),
+                                [net.params[k] for k in names] + [x])
+    return {"out": out, "grads": dict(zip(names, grads[:-1])),
+            "dx": grads[-1]}
+
+
+def _train(case, dev, out_dir):
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.loop import (LoopConfig, TrainLoop,
+                                        make_gan_train_step)
+    cfg = _cfg(case)
+    batch = case["z"].shape[0]
+    state = (_on(case["g_params"], dev), _on(case["d_params"], dev))
+    if case.get("init_from"):
+        state = ckpt.restore(state, case["init_from"])
+        state = (_on(state[0], dev), _on(state[1], dev))
+    step, (gen, disc) = make_gan_train_step(
+        cfg, batch, *state, g_lr=case.get("lr", 2e-4), device=dev,
+        mesh=case["mesh"])
+    data = {"z": case["z"].to(dev), "real": case["real"].to(dev)}
+    steps = case.get("steps", 1)
+    ckpt_dir = os.path.join(out_dir, case["name"] + "_ckpt")
+    failed = []
+
+    def fail_once(i: int) -> bool:
+        if case.get("fail_at") == i and not failed:
+            failed.append(i)
+            return True
+        return False
+
+    loop = TrainLoop(
+        LoopConfig(total_steps=steps, ckpt_dir=ckpt_dir, ckpt_every=1,
+                   log_every=1),
+        step, lambda i: data, (gen.params, disc.params),
+        failure_injector=fail_once, log_fn=lambda s: None)
+    t0 = time.perf_counter()
+    loop.run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return {"g": dict(gen.params), "d": dict(disc.params),
+            "metrics": loop.metrics_history,
+            "restarts": loop.restarts, "ckpt_dir": ckpt_dir,
+            "mesh": None if step.mesh is None
+            else tuple(int(v) for v in step.mesh.shape),
+            "replicated": step.state_shardings is not None,
+            "s": time.perf_counter() - t0}
+
+
+def _server(case, dev):
+    from repro_torch.serve.gan import GanServer
+    cfg = _cfg(case)
+    srv = GanServer(cfg, _on(case["params"], dev),
+                    batch_size=case["batch_size"], seed=case["seed"],
+                    device=dev, mesh=case["mesh"])
+    images = [srv.generate(n) for n in case["requests"]]
+    return {"images": images, "mesh": srv.program.mesh_str,
+            "batch_error": _error(lambda: GanServer(
+                cfg, _on(case["params"], dev), batch_size=1,
+                device=dev, mesh=case["mesh"]))}
+
+
+def _engine(case, dev):
+    from repro_torch.serve.gan_engine import GanEngine
+    cfg = _cfg(case)
+    params = _on(case["params"], dev)
+    t0 = time.perf_counter()
+    with GanEngine(cfg, params, buckets=case["buckets"], seed=case["seed"],
+                   device=dev, mesh=case["mesh"]) as eng:
+        images = None
+        if eng.leader:
+            # one request at a time: the buckets drawn, and so the
+            # stream, do not depend on how a burst coalesces
+            images = [eng.submit(n).result(120) for n in case["requests"]]
+    s = time.perf_counter() - t0
+    return {"images": images, "s": s,
+            "bucket_error": _error(lambda: GanEngine(
+                cfg, params, buckets=(1,) + tuple(case["buckets"]),
+                warmup=False, device=dev, mesh=case["mesh"]))}
+
+
+def _engine_fault(case, dev):
+    """A fault planted in rank 0's scheduler (its first batch's answer
+    raises): rank 0's request fails with it, and every rank's engine
+    stops and closes."""
+    from repro_torch.serve.gan_engine import GanEngine
+    eng = GanEngine(_cfg(case), _on(case["params"], dev),
+                    buckets=case["buckets"], seed=case["seed"], device=dev,
+                    mesh=case["mesh"], warmup=False)
+    error = None
+    if eng.leader:
+        def planted(batch):
+            raise RuntimeError("planted fault in rank 0's scheduler")
+        eng._resolve = planted
+        try:
+            eng.submit(case["requests"][0]).result(120)
+        except RuntimeError as e:
+            error = str(e)
+    eng.close(timeout=120)
+    return {"error": error, "stopped": not eng._thread.is_alive()}
+
+
+def _ring(case, dev):
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sharding.collective_matmul import (
+        ring_allgather_matmul, ring_matmul_reducescatter)
+    from repro_torch.sharding.collectives import rows
+    mesh = make_local_mesh(*case["mesh"], device_type=dev.type)
+    g = mesh.get_group("model")
+    p, i = dist.get_world_size(g), dist.get_rank(g)
+    x, w, x2, w2 = (case[k].to(dev) for k in ("x", "w", "x2", "w2"))
+    lo, hi = rows(x.shape[0], p, i)
+    nlo, nhi = rows(w.shape[1], p, i)
+    y = ring_allgather_matmul(x[lo:hi], w[:, nlo:nhi], mesh, "model")
+    klo, khi = rows(x2.shape[1], p, i)
+    y2 = ring_matmul_reducescatter(x2[:, klo:khi], w2[klo:khi], mesh,
+                                   "model")
+    return {"y": y, "y_cols": (nlo, nhi), "y2": y2,
+            "y2_rows": rows(x2.shape[0], p, i)}
+
+
+def _forms(case, dev):
+    from repro_torch.launch.mesh import make_local_mesh
+    got = {}
+    for key, kw in case["forms"].items():
+        try:
+            got[key] = tuple(int(v) for v in
+                             make_local_mesh(**kw, device_type=dev.type)
+                             .shape)
+        except ValueError as e:
+            got[key] = str(e)
+    return got
+
+
+def _cli(case, dev):
+    from repro_torch.program.__main__ import main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(case["argv"])
+    return {"stdout": buf.getvalue()}
+
+
+_KINDS = {"forward": _forward, "grad": _grad, "server": _server,
+          "engine": _engine, "engine_fault": _engine_fault, "ring": _ring,
+          "forms": _forms, "cli": _cli}
+
+
+def run(case_file: str, out_dir: str, device: str = "cuda",
+        threads: int | None = None) -> None:
+    """Run every case of ``case_file`` on this rank (on ``device``:
+    ``"cpu"``, or ``"cuda"`` for the rank's card) and write
+    ``<out_dir>/rank<r>.pt``.  ``threads`` caps the rank's intra-op
+    threads (ranks that share a host's cores)."""
+    if threads is not None:
+        torch.set_num_threads(int(threads))
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if device == "cuda" else torch.device("cpu")
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = False
+        torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction \
+            = False
+    kernels = _kernels()
+    results = {}
+    for case in torch.load(case_file, weights_only=True):
+        # every count at 0 just before the case, read just after it
+        for k in kernels.values():
+            k.launches = 0
+            for counts in (k.launches_by_route, k.launches_by_dtype,
+                           k.launches_by_cout):
+                counts.clear()
+        staged = _staged()
+        t0 = time.perf_counter()
+        kind = case["kind"]
+        res = _train(case, dev, out_dir) if kind == "train" \
+            else _KINDS[kind](case, dev)
+        res["wall_s"] = time.perf_counter() - t0
+        res["launches"] = {name: {"route": dict(k.launches_by_route),
+                                  "dtype": dict(k.launches_by_dtype),
+                                  "cout": dict(k.launches_by_cout)}
+                           for name, k in kernels.items()}
+        res["staged"] = _staged() - staged
+        results[case["name"]] = _cpu(res)
+    torch.save(results, os.path.join(out_dir, f"rank{dist.get_rank()}.pt"))

@@ -4,7 +4,7 @@ The port of ``repro.train.checkpoint``, with its on-disk layout (one
 directory per step)::
 
     <dir>/step_00000123/
-        meta.json            # step, and per key: file, shape, dtype
+        meta.json            # step, mesh, and per key: file, shape, dtype
         arrays/<key>.npy
 
 A tree is nested tuples, lists and dicts of tensors; a leaf's key joins
@@ -79,15 +79,21 @@ def _to_host(leaf) -> np.ndarray:
     return np.array(leaf, copy=True)
 
 
-def save(state, ckpt_dir: str, step: int) -> str:
-    """Write ``state`` as ``<ckpt_dir>/step_<step>``; returns its path."""
+def save(state, ckpt_dir: str, step: int,
+         mesh: tuple[int, int] | None = None) -> str:
+    """Write ``state`` as ``<ckpt_dir>/step_<step>``; returns its path.
+    ``mesh`` is the ``(data, model)`` shape of the ranks that trained it
+    (None: one device), kept in ``meta.json`` as data: the arrays are
+    the whole replicated tensors either way, so any mesh restores
+    them."""
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(os.path.join(tmp, "arrays"))
-    meta = {"step": int(step), "keys": {}}
+    meta = {"step": int(step), "keys": {},
+            "mesh": None if mesh is None else [int(v) for v in mesh]}
     for key, leaf in _flatten(state).items():
         arr = _to_host(leaf)
         fn = re.sub(r"[^A-Za-z0-9_.:-]", "_", key)
@@ -106,12 +112,13 @@ def save(state, ckpt_dir: str, step: int) -> str:
 _pending: list[threading.Thread] = []
 
 
-def save_async(state, ckpt_dir: str, step: int) -> threading.Thread:
+def save_async(state, ckpt_dir: str, step: int,
+               mesh: tuple[int, int] | None = None) -> threading.Thread:
     """Copy ``state`` to the host now (waiting for the device), write it
     on a thread."""
     host_state = tree_map(_to_host, state)
-    t = threading.Thread(target=save, args=(host_state, ckpt_dir, step),
-                         daemon=True)
+    t = threading.Thread(target=save, args=(host_state, ckpt_dir, step,
+                                            mesh), daemon=True)
     t.start()
     _pending.append(t)
     return t

@@ -1,13 +1,14 @@
 """The adversarial train step and the fault-tolerant training loop.
 
-The port of ``repro.train.loop``, without its mesh hooks (ROADMAP item
-12):
+The port of ``repro.train.loop``:
 
 * :func:`make_gan_train_step`: the non-saturating adversarial SGD step,
   a D step and then a G step against the *updated* D, with every conv
   and tconv, and every ``dx`` of the backward, through the GANAX kernel;
   at f32, bf16 or f16 storage (mixed precision: parameters, gradients
-  and checkpoints stay f32), on the heuristic's or the tuner's plans.
+  and checkpoints stay f32), on the heuristic's or the tuner's plans;
+  on a ``(data, model)`` mesh of ranks, data- and Cout-parallel, equal
+  to the single-device step.
 * :class:`TrainLoop`:
   - **Checkpoint and restart**: periodic async checkpoints; on a step
     failure the loop restores the latest checkpoint and replays from
@@ -18,6 +19,10 @@ The port of ``repro.train.loop``, without its mesh hooks (ROADMAP item
     EWMA of the step times is counted and logged.
   - **Failure injection**: ``failure_injector(step) -> bool`` kills
     chosen steps deterministically (tests).
+  - **Ranks**: under a process group of more than one rank, rank 0
+    writes every checkpoint (synchronously) and a barrier follows;
+    every rank restores, in the reference's layout, so a checkpoint
+    saved sharded restores unsharded and the other way round.
   - **Observability**, under the reference's names: the
     ``train.steps`` / ``.checkpoints`` / ``.stragglers`` / ``.failures``
     counters, the ``train.step_us`` histogram, a ``train.<metric>``
@@ -41,13 +46,16 @@ import time
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs as _obs
 from repro_torch.core.dataflow import DataflowPolicy
 from repro_torch.models.gan import (Discriminator, GanConfig, Generator,
                                     bce_with_logits)
-from repro_torch.device import platform_of, resolve_device
-from repro_torch.program import ProgramSpec
+from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import world_size
+from repro_torch.program import Program
+from repro_torch.program.spec import _UNSET as _MESH_UNSET
 from repro_torch.train import checkpoint as ckpt
 
 __all__ = ["LoopConfig", "TrainLoop", "InjectedFailure",
@@ -104,7 +112,8 @@ def make_gan_train_step(cfg: GanConfig, batch: int,
                         g_lr: float = 2e-4, d_lr: float | None = None,
                         policy: DataflowPolicy | None = None,
                         planner=None, measure: bool = False,
-                        device: str | torch.device = "cuda"):
+                        device: str | torch.device = "cuda",
+                        mesh=_MESH_UNSET):
     """The adversarial SGD step of ``cfg``'s networks.
 
     Builds the :class:`Generator` and :class:`Discriminator` once from
@@ -126,19 +135,30 @@ def make_gan_train_step(cfg: GanConfig, batch: int,
     the networks cast activations and weights to the storage dtype at
     use and sum in f32; the kernels' ``dx`` runs at that dtype, ``dw``
     and ``db`` sum in f32, and the casts hand each gradient back as
-    f32, so parameters, the SGD update and checkpoints stay f32."""
+    f32, so parameters, the SGD update and checkpoints stay f32.
+
+    ``mesh`` (default: ``cfg.mesh``) builds **sharded** programs: every
+    rank of a process group of ``data·model`` ranks calls the step with
+    the same global batch and state; the networks compute on the rank's
+    rows (and Cout slices of the ``"cout"`` layers), the losses come
+    from the gathered global logits, identically on every rank, and the
+    gradient sums of :mod:`repro_torch.sharding.collectives` make each
+    rank's update the single-device one.  ``train_step.mesh`` is the
+    programs' ``DeviceMesh`` (None unsharded or degraded) and
+    ``train_step.state_shardings`` the layout of the state, a ``(g, d)``
+    pair of ``{name: placements}`` dicts (every parameter replicated on
+    both mesh axes; None unsharded), as the reference exposes its
+    replicated shardings."""
     d_lr = g_lr if d_lr is None else d_lr
     # one ahead-of-time resolution for the whole run: both networks
     # replay programs frozen here, at the step's batch
     device = resolve_device(device)
     build = dict(policy=policy, planner=planner, measure=measure,
-                 platform=platform_of(device))
-    generator = Generator(
-        cfg, g_params, device,
-        spec=ProgramSpec.build(cfg, batch, "generator", **build))
-    discriminator = Discriminator(
-        cfg, d_params, device,
-        spec=ProgramSpec.build(cfg, batch, "discriminator", **build))
+                 device=device, mesh=mesh)
+    g_prog = Program.build(cfg, batch, "generator", **build)
+    d_prog = Program.build(cfg, batch, "discriminator", **build)
+    generator = g_prog.network(g_params)
+    discriminator = d_prog.network(d_params)
 
     def train_step(state, batch_arrays):
         g_state, d_state = state
@@ -159,6 +179,14 @@ def make_gan_train_step(cfg: GanConfig, batch: int,
         sgd_update(g_state, g_grads, g_lr)
         return state, {"g_loss": gl, "d_loss": dl, "loss": gl + dl}
 
+    train_step.mesh = g_prog.mesh
+    train_step.state_shardings = None
+    if g_prog.mesh is not None:
+        from torch.distributed.tensor import Replicate
+        placements = (Replicate(), Replicate())
+        train_step.state_shardings = tuple(
+            dict.fromkeys(net.weights, placements)
+            for net in (generator, discriminator))
     return train_step, (generator, discriminator)
 
 
@@ -234,12 +262,22 @@ class TrainLoop:
 
     # -- checkpointing -------------------------------------------------------
     def _save(self, step: int, sync: bool = False):
-        if sync or not self.cfg.async_ckpt:
+        mesh = getattr(getattr(self.train_step, "mesh", None), "shape",
+                       None)
+        mesh = None if mesh is None else tuple(int(v) for v in mesh)
+        if world_size() > 1:
+            # the state is replicated: rank 0 writes it, synchronously,
+            # and the others wait until the files are whole
+            sync = True
+            if dist.get_rank() == 0:
+                ckpt.save(self.state, self.cfg.ckpt_dir, step, mesh=mesh)
+            dist.barrier()
+        elif sync or not self.cfg.async_ckpt:
             # an async save of the same step may still be writing
             ckpt.wait_pending()
-            ckpt.save(self.state, self.cfg.ckpt_dir, step)
+            ckpt.save(self.state, self.cfg.ckpt_dir, step, mesh=mesh)
         else:
-            ckpt.save_async(self.state, self.cfg.ckpt_dir, step)
+            ckpt.save_async(self.state, self.cfg.ckpt_dir, step, mesh=mesh)
         self._last_saved_step = step
         self.checkpoints += 1
         _obs.counter("train.checkpoints").inc()

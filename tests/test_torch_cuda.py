@@ -846,3 +846,34 @@ def test_tuned_program_on_the_card(dev, tmp_path):
     z = torch.randn((8, cfg.z_dim), device=dev)
     torch.testing.assert_close(auto.apply(g, z), heuristic.apply(g, z),
                                **TOL)
+
+
+def test_cout_sharded_forward_on_two_gloo_ranks_sharing_the_card(dev,
+                                                                 tmp_path):
+    """The full-width DCGAN generator at mesh (1, 2) on two gloo ranks
+    that share the card: each rank's output equals the one-device
+    program's at 1e-4, and each launched g1 (Cout 512, ``"cout"`` under
+    the default threshold) on its 256-channel slice only."""
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.program import Program
+    from repro_torch.sharding import parity
+    from repro_torch.kernels import build
+    build.build(("ganax_conv",))     # the ranks load it, never compile
+    cfg = GanConfig("dcgan")
+    g, _ = init_gan(cfg, torch.Generator().manual_seed(0), "cpu")
+    z = torch.randn((16, cfg.z_dim), generator=torch.Generator()
+                    .manual_seed(1))
+    cases = [dict(name="fwd", kind="forward", model="dcgan", mesh=(1, 2),
+                  batch=16, params=g, x=z)]
+    torch.save(cases, tmp_path / "cases.pt")
+    spawn(parity.run, 2, str(tmp_path / "cases.pt"), str(tmp_path), "cuda",
+          backend="gloo", device="cuda")
+    ref = Program.build(cfg, 16, device=dev, differentiable=False,
+                        mesh=None).apply({k: v.to(dev) for k, v in g.items()},
+                                         z.to(dev))
+    for r in range(2):
+        res = torch.load(tmp_path / f"rank{r}.pt", weights_only=True)["fwd"]
+        assert res["shardings"][0] == "cout" and res["mesh"] == "1x2"
+        torch.testing.assert_close(res["out"].to(dev), ref, **TOL)
+        couts = res["launches"]["ganax_conv"]["cout"]
+        assert 512 not in couts and couts[256] == 2, couts   # g1 and g2
