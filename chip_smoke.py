@@ -58,7 +58,14 @@ f16.  The tune phase holds every kernel route the autotuning planner
 enumerates for the generators' layers against the plain version,
 measures them into a plan file (no candidate may fail), rebuilds
 ``backend="auto"`` programs from it with zero measurements and serves a
-batch through ``GanServer`` on them.  The LLM phases hold the two
+batch through ``GanServer`` on them.  The paper phase checks the
+paper's own models: the figure rows of ``repro_torch.paper_figs`` (the
+analytical cycle/energy model's outputs, computed on the host) in the
+reference test's bands, the μop ISA machine's float64 output against
+the ``ganax_conv`` kernel on the card for tests/test_uop.py's geometries
+and each 2-D Table-I generator geometry (with a planted dropped ``mac``
+μop that must fail that gate), and the kernel's products against the
+consequential MACs of every Table-I tconv layer.  The LLM phases hold the two
 flash-attention kernels (the wgmma/TMA one for bf16 at hd 128 and 256,
 the FFMA one for f32 and the small head dims) against their plain
 version on Gemma-7B's and Qwen's geometries, serve full-width Gemma-7B
@@ -99,6 +106,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -3207,6 +3215,251 @@ def mesh_phase(card: str, dev, batch: int = BATCH, scale: float = 1.0,
     return out
 
 
+# The paper phase (ROADMAP item 24): the paper's own models.  The μop
+# ISA machine (repro_torch.core.uop) runs each of these single-channel
+# tconvs through strided index generators and address-free mac μops in
+# float64; the ganax_conv kernel computes the same function at f32 on the
+# card (Cin = Cout = 1: the narrow route).  (label, H, W, k, s, p, PVs,
+# PEs a PV): tests/test_uop.py's five geometries on their small arrays,
+# then each distinct 2-D Table-I generator tconv geometry on the paper's
+# 16x16 array.
+UOP_CASES = (("uop 4x4 k5 s2 p2", 4, 4, 5, 2, 2, 4, 4),
+             ("uop 4x4 k4 s2 p1", 4, 4, 4, 2, 1, 2, 3),
+             ("uop 5x3 k3 s3 p1", 5, 3, 3, 3, 1, 4, 2),
+             ("uop 6x6 k3 s1 p1", 6, 6, 3, 1, 1, 4, 4),
+             ("uop 8x8 k2 s2 p0", 8, 8, 2, 2, 0, 4, 4))
+PAPER_ARRAY = (16, 16)
+# the reference test's bands of the Fig. 8 means
+# (tests/test_analytical.py::test_fig8_speedups) and the rows of run_all
+FIG8_BANDS = {"speedup": (2.5, 4.5), "energy": (2.2, 4.0)}
+PAPER_ROWS = 88
+
+
+def machine_cases() -> list[tuple]:
+    """UOP_CASES, then the Table-I geometries (k4 s2 p1 at 2-32, k5 s1
+    p2 at 8, 16 and 64) on PAPER_ARRAY."""
+    from repro_torch.configs.gans import GAN_MODELS
+    geos = sorted({(l.in_spatial[0], l.kernel[0], l.strides[0],
+                    l.paddings[0])
+                   for g, _ in GAN_MODELS.values() for l in g
+                   if l.transposed and len(l.in_spatial) == 2},
+                  key=lambda t: (t[1], t[0]))
+    return list(UOP_CASES) + [(f"Table-I {n}x{n} k{k} s{st} p{p}", n, n, k,
+                               st, p, *PAPER_ARRAY)
+                              for n, k, st, p in geos]
+
+
+@contextlib.contextmanager
+def dropped_mac(pv: int = 0):
+    """The paper phase's planted fault: every program compiled inside
+    loses PV ``pv``'s last ``mac`` μop (one sweep of that PV's PEs)."""
+    from repro_torch.core import uop
+    compile_program = uop.compile_tconv_program
+
+    def faulty(*args, **kwargs):
+        programs, rows = compile_program(*args, **kwargs)
+        uops = programs[pv].uops
+        last = max(i for i, u in enumerate(uops) if u.kind == uop.UopKind.MAC)
+        programs[pv] = uop.PEProgram(uops[:last] + uops[last + 1:])
+        return programs, rows
+    uop.compile_tconv_program = faulty
+    try:
+        yield
+    finally:
+        uop.compile_tconv_program = compile_program
+
+
+@contextlib.contextmanager
+def counting_plain(calls: list):
+    """Append one entry to ``calls`` for each call of a GANAX kernel's
+    plain version made through ``kernels.ops`` inside."""
+    from repro_torch.kernels import ops
+    saved = dict(ops._KERNELS)
+
+    def counted(plain):
+        def fn(**kwargs):
+            calls.append(plain.__name__)
+            return plain(**kwargs)
+        return fn
+    for nd, (cuda, plain) in saved.items():
+        ops._KERNELS[nd] = (cuda, counted(plain))
+    try:
+        yield
+    finally:
+        ops._KERNELS.update(saved)
+
+
+def machine_vs_kernel(case: tuple, dev, plain: bool = False) -> dict:
+    """One case: x (H, W) and w (k, k) from a numpy generator seeded by
+    the geometry; the μop machine's float64 output against one call of
+    ``ganax_conv_transpose`` on ``dev`` (its plain version where
+    ``plain``) at f32, by ATOL/RTOL in float64 (``err``, ``ok``), and the
+    same for the machine with the planted fault (``fault_err``,
+    ``fault_ok``); the machine's statistics; its mac count against the
+    schedule's consequential MACs."""
+    from repro_torch.core.scheduler import make_schedule
+    from repro_torch.core.uop import run_tconv_on_machine
+    from repro_torch.kernels import ops
+    _, h, w_, k, s, p, n_pvs, n_pes = case
+    rng = np.random.default_rng(h * 100 + k * 10 + s)
+    x = rng.normal(size=(h, w_))
+    w = rng.normal(size=(k, k))
+    sched = make_schedule((h, w_), (k, k), (s, s), (p, p))
+    out, stats = run_tconv_on_machine(x, w, sched, n_pvs=n_pvs,
+                                      pes_per_pv=n_pes)
+    with dropped_mac():
+        faulty, _ = run_tconv_on_machine(x, w, sched, n_pvs=n_pvs,
+                                         pes_per_pv=n_pes)
+    with torch.inference_mode():
+        got = ops.ganax_conv_transpose(
+            torch.tensor(x[None, :, :, None], dtype=torch.float32,
+                         device=dev),
+            torch.tensor(w[:, :, None, None], dtype=torch.float32,
+                         device=dev), (s, s), (p, p), plain=plain)
+    got = got[0, :, :, 0].double().cpu()
+
+    def gate(machine):
+        ref = torch.from_numpy(machine)
+        return ((got - ref).abs().max().item(),
+                bool(torch.allclose(got, ref, atol=ATOL, rtol=RTOL)))
+    (err, ok), (fault_err, fault_ok) = gate(out), gate(faulty)
+    return dict(err=err, ok=ok, fault_err=fault_err, fault_ok=fault_ok,
+                macs=stats["macs"],
+                consequential=sched.consequential_macs(1, 1),
+                utilization=stats["utilization"], cycles=stats["cycles"],
+                finite=bool(np.isfinite(out).all()))
+
+
+def kernel_products(layer, dev) -> tuple[int, int]:
+    """(the products the kernel's launch of this tconv layer makes at
+    batch 1, the layer's consequential MACs): from the kernel's own
+    operands (``kernels.ops.kernel_operands``' tap tables and phase
+    grid), each phase's taps times the grid's positions times Cin·Cout,
+    as the kernel loops over them."""
+    from repro_torch.kernels import ops
+    x = torch.zeros((1, *layer.in_spatial, 1), device=dev)
+    w = torch.zeros((*layer.kernel, 1, 1), device=dev)
+    with torch.inference_mode():
+        operands = ops.kernel_operands(x, w, layer.strides, layer.paddings,
+                                       transposed=True)
+    taps = sum(len(ph) for ph in operands["tables"].taps)
+    products = taps * math.prod(q_sizes(operands)) * layer.cin * layer.cout
+    return products, layer.schedule().consequential_macs(layer.cin,
+                                                         layer.cout)
+
+
+def paper_phase(card: str, dev) -> dict:
+    """The paper's own models against the card: (a) every figure row of
+    ``repro_torch.paper_figs.run_all`` (the analytical cycle/energy model
+    and the μop machine; outputs of the paper's 45 nm model, computed on
+    the host, not measured) finite, the Fig. 8 means in the reference
+    test's bands, 3D-GAN the largest speed-up and MAGAN the smallest;
+    (b) the μop machine's float64 output of each ``machine_cases`` case
+    against the ``ganax_conv`` CUDA kernel within ATOL/RTOL, its macs
+    equal to the consequential MACs, every call launched on the card and
+    none through the plain version; (c) the planted fault
+    (``dropped_mac``) fails that gate on every case; (d) the kernel's
+    products equal the consequential MACs on every Table-I tconv layer,
+    2-D and 3-D; (e) the machine's PE utilization per geometry."""
+    from repro_torch import paper_figs
+    from repro_torch.configs.gans import GAN_MODELS
+    from repro_torch.kernels.ganax_conv import ganax_conv_cuda
+    t0 = time.perf_counter()
+    # (a) the figure rows
+    rows = paper_figs.run_all()
+    values = {name: float(v) for name, v, _ in rows}
+    check(len(rows) == PAPER_ROWS and all(map(math.isfinite,
+                                              values.values())),
+          f"paper_figs.run_all gave {len(rows)} rows (want {PAPER_ROWS}, "
+          f"all finite)")
+    means = {k: values[f"fig8/{k}/mean"] for k in FIG8_BANDS}
+    for k, (lo, hi) in FIG8_BANDS.items():
+        check(lo < means[k] < hi, f"Fig. 8 mean {k} {means[k]:.4f} outside "
+                                  f"({lo}, {hi})")
+    speedup = {n: values[f"fig8/speedup/{n}"] for n in GAN_MODELS}
+    check(max(speedup, key=speedup.get) == "3dgan"
+          and min(speedup, key=speedup.get) == "magan",
+          f"Fig. 8 speed-up order: {speedup}")
+    print(f"paper: {len(rows)} figure rows of the analytical model (45 nm, "
+          f"500 MHz, 16x16 PEs; computed on the host, not measured): "
+          f"Fig. 8 mean speed-up {means['speedup']:.4f}x, mean energy "
+          f"reduction {means['energy']:.4f}x over EYERISS; 3D-GAN "
+          f"{speedup['3dgan']:.4f}x, MAGAN {speedup['magan']:.4f}x")
+    # (b) the machine against the kernel; (c) the planted fault
+    ganax_conv_cuda.launches = 0
+    ganax_conv_cuda.launches_by_route.clear()
+    plain_calls: list = []
+    results = {}
+    with counting_plain(plain_calls):
+        for case in machine_cases():
+            label = case[0]
+            r = results[label] = machine_vs_kernel(case, dev)
+            print(f"paper machine vs ganax_conv  {label:26s} on "
+                  f"{case[6]}x{case[7]} PEs: max_abs_err {r['err']:.3e} "
+                  f"(atol=rtol={ATOL:g}) {'ok' if r['ok'] else 'FAIL'}; "
+                  f"macs {r['macs']} = consequential {r['consequential']} "
+                  f"{'ok' if r['macs'] == r['consequential'] else 'FAIL'}; "
+                  f"dropped mac: {r['fault_err']:.3e} "
+                  f"{'PASSES (FAIL)' if r['fault_ok'] else 'fails the gate'}")
+            check(r["ok"] and r["finite"],
+                  f"{label}: the μop machine and the ganax_conv kernel "
+                  f"disagree ({r['err']:.3e})")
+            check(r["macs"] == r["consequential"],
+                  f"{label}: the machine ran {r['macs']} macs, the "
+                  f"schedule has {r['consequential']} consequential")
+            check(not r["fault_ok"], f"{label}: the planted dropped mac "
+                                     f"passes the gate "
+                                     f"({r['fault_err']:.3e})")
+    torch.cuda.synchronize()
+    launches = ganax_conv_cuda.launches
+    routes = dict(ganax_conv_cuda.launches_by_route)
+    n_runs = len(results)
+    check(launches == n_runs and routes == {"narrow": n_runs}
+          and not plain_calls,
+          f"paper: {launches} ganax_conv launches by route {routes} and "
+          f"{len(plain_calls)} plain calls for {n_runs} runs (want every "
+          f"run on the card's narrow route)")
+    print(f"paper: {launches} ganax_conv launches ({routes}), "
+          f"{len(plain_calls)} through the plain version; worst "
+          f"machine-kernel error "
+          f"{max(r['err'] for r in results.values()):.3e}, smallest "
+          f"planted-fault error "
+          f"{min(r['fault_err'] for r in results.values()):.3e} [{card}]")
+    # (d) the kernel's products against the consequential MACs
+    ratios = {}
+    for model, (g, _) in GAN_MODELS.items():
+        for layer in g:
+            if not layer.transposed:
+                continue
+            products, conseq = kernel_products(layer, dev)
+            ratios[f"{model} {layer.name}"] = products / conseq
+            sched_total = layer.schedule().zero_inserted_macs(layer.cin,
+                                                              layer.cout)
+            print(f"paper products {model} {layer.name} "
+                  f"{len(layer.in_spatial)}-D: kernel {products} / "
+                  f"consequential {conseq} = {products / conseq:.6f}; "
+                  f"inconsequential share of the zero-inserted dataflow "
+                  f"{1 - conseq / sched_total:.4f}")
+            check(products == conseq,
+                  f"{model} {layer.name}: the kernel makes {products} "
+                  f"products for {conseq} consequential MACs")
+    # (e) the machine's utilization
+    for case in machine_cases()[len(UOP_CASES):]:
+        r = results[case[0]]
+        print(f"paper machine utilization {case[0]:26s} "
+              f"{r['utilization']:.4f} over {r['cycles']} cycles (one "
+              f"channel on {case[6]}x{case[7]} PEs; not the analytical "
+              f"model's Fig. 11 column, which counts Cin*Cout)")
+    seconds = time.perf_counter() - t0
+    print(f"paper: {len(results)} machine runs, {len(ratios)} Table-I "
+          f"tconv layers at products/consequential 1; phase "
+          f"{seconds:.1f} s")
+    return dict(rows=len(rows), fig8=means, launches=launches,
+                errs=[r["err"] for r in results.values()],
+                fault_errs=[r["fault_err"] for r in results.values()],
+                ratios=ratios, seconds=seconds)
+
+
 def _widen(tree: dict) -> None:
     """Every leaf to f32, in place, one leaf at a time."""
     for k, v in tree.items():
@@ -3524,6 +3777,9 @@ def main(argv=None) -> int:
     phase_done("mixed_train")
     tune = record["tune"] = tune_phase(card, dev, wrappers)
     phase_done("tune")
+    # -- 7d. the paper's models: the μop machine against the kernel ---------
+    paper = record["paper"] = paper_phase(card, dev)
+    phase_done("paper")
     # -- 8. the flash-attention kernel against its plain version -----------
     for variant, errs in flash_geometries(dev).items():
         kernel_errs[FLASH_VARIANTS[variant]] = errs
@@ -3551,11 +3807,13 @@ def main(argv=None) -> int:
             "source": source,
             "replaces": replaces,
             # the serving path's launches, the training path's, the
-            # tuner's (the auto programs' served batch) and the mesh's
-            # (both ranks and the world of one) at f32
+            # tuner's (the auto programs' served batch), the mesh's
+            # (both ranks and the world of one) at f32 and the paper
+            # phase's (the μop machine's geometries)
             "launches": launches[name] + train_launches[name]
             + tune["launches"][name].get("float32", 0)
-            + mesh["launches"][name].get("float32", 0),
+            + mesh["launches"][name].get("float32", 0)
+            + (paper["launches"] if name == "ganax_conv" else 0),
             "max_abs_err": max(kernel_errs[name]),
             # per batch of the path: the sum over its four launches
             "ms": sum(row["ms"] for row in r),

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 from repro_torch.core.analytical import ConvLayer
 
-__all__ = ["GAN_MODELS"]
+__all__ = ["GAN_MODELS", "gan_layers"]
 
 
 def _t(name, hw, k, s, p, cin, cout, dims=2):
@@ -161,3 +161,6 @@ GAN_MODELS: dict[str, tuple[list[ConvLayer], list[ConvLayer]]] = {
     "magan": (MAGAN_G, MAGAN_D),
 }
 
+
+def gan_layers(name: str) -> tuple[list[ConvLayer], list[ConvLayer]]:
+    return GAN_MODELS[name]

@@ -95,7 +95,11 @@ __all__ = [
     "compile_conv_uops",
     "KERNEL_RANKS",
     "require_kernel_rank",
+    "pallas_kernel_supported",
+    "Backend",
     "BACKENDS",
+    "register_backend",
+    "backend_supports",
     "SecondOrderNotImplemented",
     "tconv",
     "conv",
@@ -382,17 +386,31 @@ def require_kernel_rank(nd: int, what: str) -> None:
             f"oracle for other ranks")
 
 
+def pallas_kernel_supported(nd: int) -> bool:
+    """Spatial ranks the GANAX kernel implements (:data:`KERNEL_RANKS`):
+    planar (2-D) and volumetric (3-D) layers.  The reference's name,
+    kept for parity; the port's kernel is CUDA C++
+    (``kernels/csrc/ganax_conv{,3d}.cu``), not Pallas."""
+    return nd in KERNEL_RANKS
+
+
+def _any_rank(nd: int) -> bool:
+    return True
+
+
 @dataclasses.dataclass(frozen=True)
 class Backend:
     """One executable dataflow: a tconv and a conv implementation, each
     ``fn(x, w, strides, paddings, epilogue, bias, route=None)``.
-    ``kernel`` marks the GANAX kernel's dataflow, which runs the kernel's
-    ranks only and takes a kernel ``route``; the oracles run any rank
-    and take none."""
+    ``supports`` gates dispatch on the spatial rank, as in the
+    reference.  ``kernel`` marks the GANAX kernel's dataflow, which runs
+    the kernel's ranks only and takes a kernel ``route``; the oracles
+    run any rank and take none."""
 
     name: str
     tconv: Callable[..., torch.Tensor]
     conv: Callable[..., torch.Tensor]
+    supports: Callable[[int], bool] = _any_rank
     kernel: bool = False
 
 
@@ -424,17 +442,39 @@ def _conv_dense(x, w, strides, paddings):
     return conv_ref(x, w, strides, paddings)
 
 
-BACKENDS: dict[str, Backend] = {b.name: b for b in (
-    Backend("ganax", _kernel(True, False), _kernel(False, False), True),
-    Backend("ganax-plain", _kernel(True, True), _kernel(False, True), True),
-    Backend("polyphase", _oracle(_tconv_polyphase), _oracle(_conv_dense)),
-    Backend("zero-insert", _oracle(tconv_zero_insert),
-            _oracle(_conv_dense)),
-)}
+# the registry: name -> Backend, filled by register_backend
+BACKENDS: dict[str, Backend] = {}
+
+
+def register_backend(backend: Backend) -> None:
+    """Add (or replace) a dataflow under ``backend.name``: dispatch,
+    ``DataflowPolicy`` validation, :func:`available_backends` and the
+    tuner's candidate enumerator see it from then on."""
+    BACKENDS[backend.name] = backend
 
 
 def available_backends() -> tuple[str, ...]:
     return tuple(sorted(BACKENDS))
+
+
+def backend_supports(name: str, nd: int) -> bool:
+    """True when registered backend ``name`` executes ``nd``-spatial ops
+    (read by the tuner's candidate enumerator and plan validation)."""
+    b = BACKENDS.get(name)
+    return b is not None and b.supports(nd)
+
+
+for _b in (
+        Backend("ganax", _kernel(True, False), _kernel(False, False),
+                pallas_kernel_supported, kernel=True),
+        Backend("ganax-plain", _kernel(True, True), _kernel(False, True),
+                pallas_kernel_supported, kernel=True),
+        Backend("polyphase", _oracle(_tconv_polyphase),
+                _oracle(_conv_dense)),
+        Backend("zero-insert", _oracle(tconv_zero_insert),
+                _oracle(_conv_dense))):
+    register_backend(_b)
+del _b
 
 
 # ---------------------------------------------------------------------------
@@ -511,6 +551,9 @@ class DataflowPolicy:
                                      f"contradicts backend={self.backend!r}")
         if BACKENDS[name].kernel:
             require_kernel_rank(nd, f"a layer pinned to {name!r}")
+        elif not backend_supports(name, nd):
+            raise ValueError(f"backend {name!r} does not support "
+                             f"{nd}-D spatial inputs")
         return name
 
 
@@ -753,8 +796,7 @@ def _resolve_execution(policy, kind, in_spatial, kernel, strides,
     else:
         plan = planner.lookup(key)
         reasons = ["plan_hit" if plan is not None else "plan_miss"]
-    if plan is not None and plan.backend in BACKENDS and (
-            not BACKENDS[plan.backend].kernel or nd in KERNEL_RANKS):
+    if plan is not None and backend_supports(plan.backend, nd):
         kernel_backend = BACKENDS[plan.backend].kernel
         blocks = plan.blocks if kernel_backend else None
         if blocks is not None and not blocks_valid(
@@ -993,6 +1035,9 @@ def _dispatch(transposed: bool, x, w, strides, paddings, backend, bias,
     b = BACKENDS[name]
     if b.kernel:
         require_kernel_rank(x.ndim - 2, "the input")
+    elif not b.supports(x.ndim - 2):
+        raise ValueError(f"backend {name!r} does not support "
+                         f"{x.ndim - 2}-D spatial inputs")
     elif route is not None:
         raise ValueError(f"route= names a GANAX kernel route; backend "
                          f"{name!r} has none")

@@ -31,6 +31,7 @@ __all__ = [
     "tconv_zero_insert",
     "tconv_ganax",
     "interleave_phases",
+    "tconv_output_shape",
 ]
 
 _CONVS = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
@@ -86,6 +87,15 @@ def tconv_zero_insert(x: torch.Tensor, w: torch.Tensor,
     w_flipped = torch.flip(w, dims=tuple(range(nd)))
     pads = tuple((k - 1 - p, k - 1 - p) for k, p in zip(kernel, paddings))
     return correlate(expanded, w_flipped, (1,) * nd, pads)
+
+
+def tconv_output_shape(x_shape: Sequence[int], w_shape: Sequence[int],
+                       strides: Sequence[int], paddings: Sequence[int]
+                       ) -> tuple[int, ...]:
+    """(N, *spatial_out, C_out) for channels-last x and (K..., C_in, C_out) w."""
+    nd = len(x_shape) - 2
+    sched = make_schedule(x_shape[1:1 + nd], w_shape[:nd], strides, paddings)
+    return (x_shape[0], *sched.out_sizes, w_shape[-1])
 
 
 def _phase_conv(x: torch.Tensor, w: torch.Tensor, sched: PhaseSchedule,

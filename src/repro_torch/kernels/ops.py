@@ -18,6 +18,11 @@ the weight gather depends on the values.  These ops record no
 gradient and raise when one is asked for: the gradient comes from
 ``core.dataflow.tconv`` / ``conv``, whose ``torch.autograd.Function``
 calls them with grad mode off, forward and backward.
+
+``kernel_supported(nd)`` keeps the reference's name for the ranks the
+kernels take.  The reference's ``default_blocks`` / ``resolve_blocks``
+choose Pallas tile shapes and have no counterpart here: the CUDA
+kernels' tiles are a route's (``kernels.ganax_conv.kernel_route``).
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ from repro_torch.core.dataflow import (Epilogue, _f_pad,
                                        canonical_epilogue,
                                        compile_conv_uops, compile_uops,
                                        require_kernel_rank)
+from repro_torch.core.dataflow import \
+    pallas_kernel_supported as kernel_supported
 from repro_torch.core.tconv import interleave_phases
 from repro_torch.kernels.ganax_conv import (STORAGE_SUFFIX, KernelRoute,
                                             TapTables, check_route,
@@ -40,7 +47,8 @@ from repro_torch.kernels.ganax_conv import (STORAGE_SUFFIX, KernelRoute,
                                             ganax_conv3d_plain,
                                             ganax_conv_cuda, ganax_conv_plain)
 
-__all__ = ["ganax_conv_transpose", "ganax_conv", "kernel_operands"]
+__all__ = ["ganax_conv_transpose", "ganax_conv", "kernel_operands",
+           "kernel_supported"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

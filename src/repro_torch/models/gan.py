@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 from typing import Sequence
 
@@ -62,8 +63,9 @@ from repro_torch.sharding.collectives import (gather_batch, gather_channels,
 
 __all__ = ["GanConfig", "generator_specs", "discriminator_specs",
            "generator_epilogues", "discriminator_epilogues", "init_gan",
-           "check_params", "Generator", "Discriminator", "bce_with_logits",
-           "gan_losses", "LEAKY_SLOPE"]
+           "check_params", "Generator", "Discriminator", "generator_apply",
+           "discriminator_apply", "bce_with_logits", "gan_losses",
+           "LEAKY_SLOPE"]
 
 # The discriminator's LeakyReLU slope (DCGAN convention, used by every
 # Table-I discriminator).
@@ -350,6 +352,50 @@ class Discriminator(_Network):
         # the mean on the rank's rows, then the batch gathered
         return self._gather(
             x.reshape(x.shape[0], -1).mean(dim=-1, dtype=torch.float32))
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_program(cfg: GanConfig, policy: DataflowPolicy, role: str,
+                    batch: int, device: torch.device):
+    from repro_torch.program import Program
+    return Program.build(cfg, batch, role, policy=policy, device=device)
+
+
+def _program_for(cfg: GanConfig, policy: DataflowPolicy | None, role: str,
+                 x: torch.Tensor):
+    """The differentiable :class:`~repro_torch.program.Program` of
+    ``(cfg, policy, role)`` at ``x``'s batch, on ``x``'s device: built
+    once and cached, except under ``backend="auto"``, whose resolution
+    is a snapshot of the planner's plans and is rebuilt per call
+    (lookups only, never measured), as the reference does."""
+    policy = policy or cfg.policy
+    batch = int(x.shape[0])
+    if policy.backend == "auto":
+        from repro_torch.program import Program
+        return Program.build(cfg, batch, role, policy=policy,
+                             device=x.device)
+    return _cached_program(cfg, policy, role, batch, x.device)
+
+
+def generator_apply(params, z: torch.Tensor, cfg: GanConfig,
+                    policy: DataflowPolicy | None = None) -> torch.Tensor:
+    """z (B, z_dim) → image (B, *spatial, C) on z's device, through a
+    cached ahead-of-time differentiable program (the reference's
+    functional form of :class:`Generator`): the config → policy walk
+    runs once, not per call, and every conv layer's bias and activation
+    run fused.  Autograd records the call against the program's network
+    for ``params`` (``Program.network(params).params``, which share the
+    storage of float32 tensors already on the device)."""
+    return _program_for(cfg, policy, "generator", z).forward(params, z)
+
+
+def discriminator_apply(params, img: torch.Tensor, cfg: GanConfig,
+                        policy: DataflowPolicy | None = None
+                        ) -> torch.Tensor:
+    """img (B, *spatial, C) → logits (B,), the same program-backed form
+    as :func:`generator_apply`."""
+    return _program_for(cfg, policy, "discriminator", img).forward(params,
+                                                                   img)
 
 
 def bce_with_logits(logits: torch.Tensor, target: float) -> torch.Tensor:

@@ -38,7 +38,8 @@ import os
 
 from repro_torch import obs as _obs
 from repro_torch.core.dataflow import (BACKENDS, SHARDINGS, DataflowPolicy,
-                                       Epilogue, KERNEL_RANKS, blocks_valid,
+                                       Epilogue, backend_supports,
+                                       blocks_valid,
                                        port_backend, resolve_execution,
                                        valid_layer_route)
 from repro_torch.device import default_platform
@@ -205,7 +206,7 @@ class LayerExec:
         # executable part: the backend must run this rank and (for the
         # kernel backends) the recorded tile shapes must fit
         kernel = BACKENDS[le.backend].kernel
-        if kernel and le.nd not in KERNEL_RANKS:
+        if not backend_supports(le.backend, le.nd):
             raise ValueError(f"backend {le.backend!r} does not support "
                              f"{le.nd}-D layer {le.name!r}")
         if le.blocks is not None:

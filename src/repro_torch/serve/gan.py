@@ -42,10 +42,17 @@ with the same arguments and calls ``generate`` in the same order: each
 rank draws the same global latents from its own generator, seeded
 alike (the server checks that once, by gathering a checksum of the
 first batch's latents from every rank), and every rank returns the
-same images.  ``batch_size`` must divide over the ``data`` axis.  The
-asynchronous façade is one rank's: serve a mesh asynchronously through
-:class:`~repro_torch.serve.gan_engine.GanEngine`, whose rank 0 takes the
-requests and leads the others.
+same images.  ``batch_size`` must divide over the ``data`` axis.
+``submit`` is collective there too: every rank calls it with the same
+``n``, in the same order, and the first call builds the internal engine
+on the mesh on every rank (rank 0 leads, the other ranks follow its
+broadcasts, :class:`~repro_torch.serve.gan_engine.GanEngine`).  Rank 0's
+futures carry the images, the stream the unsharded server gives; a
+follower rank's future is finished at once and carries none (its
+``result()`` is ``None``), and after the handoff a follower's
+``generate`` returns ``None`` too, while its engine runs the batches rank
+0 announces.  Every rank calls ``close``; a follower's returns once rank
+0's engine has stopped.
 """
 
 from __future__ import annotations
@@ -62,6 +69,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.gan import GanConfig
 from repro_torch.program import Program, ProgramSpec
 from repro_torch.program.spec import _UNSET as _MESH_UNSET
+from repro_torch.serve.gan_engine import GanEngine, GanFuture
 from repro_torch.sharding import collectives
 
 __all__ = ["GanServer"]
@@ -234,22 +242,25 @@ class GanServer:
         The first call hands the server's program, latent generator and
         remainder buffer to an internal single-bucket
         :class:`~repro_torch.serve.gan_engine.GanEngine`; the stream
-        picks up exactly where the synchronous calls left off.  Not on
-        a sharded program (``ValueError``): there the ranks serve
-        asynchronously through a ``GanEngine`` of their own."""
-        if self.program.mesh is not None:
-            raise ValueError(
-                "a sharded GanServer serves generate() on every rank; "
-                "serve a mesh asynchronously through GanEngine (rank 0 "
-                "submits, the other ranks follow)")
-        return self._ensure_engine().submit(n)
+        picks up exactly where the synchronous calls left off, so mixing
+        ``generate`` and ``submit`` never forks or reorders it.  On a
+        sharded program every rank calls it with the same ``n`` in the
+        same order: the engine is built on the server's mesh, rank 0's
+        future carries the images, and a follower rank's is finished
+        with none (module docstring)."""
+        if int(n) <= 0:
+            raise ValueError(f"n must be positive, got {n}")
+        engine = self._ensure_engine()
+        return engine.submit(n) if engine.leader else GanFuture.settled(n)
 
     def close(self, drain: bool = True,
               timeout: float | None = None) -> None:
         """Shut the async engine down (no-op if :meth:`submit` was
         never called).  ``drain=True`` answers queued requests first;
         ``drain=False`` fails unscheduled ones with ``ServerClosed``;
-        ``timeout`` bounds the wait for the scheduler thread."""
+        ``timeout`` bounds the wait for the scheduler thread.  On a mesh
+        every rank calls it; a follower's returns once rank 0's engine
+        has stopped."""
         if self._engine is not None:
             self._engine.close(drain=drain, timeout=timeout)
 
@@ -261,7 +272,8 @@ class GanServer:
 
     def _ensure_engine(self):
         if self._engine is None:
-            from repro_torch.serve.gan_engine import GanEngine
+            # on a mesh the engine's program is the server's sharded one:
+            # rank 0's engine leads, every other rank's follows it
             self._engine = GanEngine(
                 self.cfg, self.params, buckets=(self.batch_size,),
                 policy=self.policy, program=self.program, key=self._rng,
@@ -274,10 +286,13 @@ class GanServer:
         (3D-GAN: volumes ``(n, 64, 64, 64, 1)``).  Remainder samples of
         the last batch are buffered for the next call, never discarded.
         After the first :meth:`submit`, delegates to the async engine
-        (same stream, same accounting)."""
+        (same stream, same accounting); on a mesh a follower rank then
+        returns ``None`` (rank 0 answers)."""
         if int(n) <= 0:
             raise ValueError(f"n must be positive, got {n}")
         if self._engine is not None:
+            if not self._engine.leader:
+                return None
             return self._engine.generate(n).to(self.device)
         t0 = time.perf_counter()
         with _obs.trace("serve.generate", server=self.server_id,

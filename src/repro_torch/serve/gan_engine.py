@@ -141,6 +141,15 @@ class GanFuture:
         self._t0_us = _obs.now_us()
         self._t1: float | None = None
 
+    @classmethod
+    def settled(cls, n: int) -> "GanFuture":
+        """A future already finished with no samples (``result()`` is
+        ``None``): a follower rank's share of a sharded ``GanServer``
+        request, which rank 0 answers."""
+        fut = cls(n)
+        fut._finish()
+        return fut
+
     # -- engine side (scheduler thread, engine lock held) -------------------
     def _deliver(self, chunk: torch.Tensor) -> None:
         self._chunks.append(chunk)
@@ -171,8 +180,9 @@ class GanFuture:
                                f"answered within {timeout}s")
         return self._error
 
-    def result(self, timeout: float | None = None) -> torch.Tensor:
-        """The ``(n, *spatial, C)`` samples as a CPU tensor."""
+    def result(self, timeout: float | None = None) -> torch.Tensor | None:
+        """The ``(n, *spatial, C)`` samples as a CPU tensor (``None``
+        for a :meth:`settled` future)."""
         err = self.exception(timeout)
         if err is not None:
             raise err

@@ -18,6 +18,8 @@ the card).  Each case is a dict with a ``name`` and a ``kind``:
   restore and replay);
 * ``server``: a sharded ``GanServer``'s ``generate`` stream, and the
   error of a ``batch_size`` that does not divide over ``data``;
+  ``server_submit``: its ``generate`` and ``submit`` calls mixed, on
+  every rank in the same order, then ``close`` on every rank;
 * ``engine``: a sharded ``GanEngine``'s answers on rank 0, and the
   error of buckets that do not divide; ``engine_fault``: a fault
   planted in rank 0's scheduler, after which every rank's engine
@@ -193,6 +195,26 @@ def _server(case, dev):
                 device=dev, mesh=case["mesh"]))}
 
 
+def _server_submit(case, dev):
+    """``case["calls"]``, ``("generate", n)`` or ``("submit", n)``, on a
+    sharded ``GanServer``: a submit's future is read only after the
+    later calls are made (requests queue behind each other).  The answers
+    in call order (a follower's are ``None`` once the engine took over),
+    then every rank closes its server."""
+    from repro_torch.serve.gan import GanServer
+    srv = GanServer(_cfg(case), _on(case["params"], dev),
+                    batch_size=case["batch_size"], seed=case["seed"],
+                    device=dev, mesh=case["mesh"])
+    answers = [srv.generate(n) if how == "generate" else srv.submit(n)
+               for how, n in case["calls"]]
+    images = [a if a is None or isinstance(a, torch.Tensor)
+              else a.result(120) for a in answers]
+    srv.close(timeout=120)
+    return {"images": images, "mesh": srv.program.mesh_str,
+            "leader": srv._engine.leader,
+            "stopped": not srv._engine._thread.is_alive()}
+
+
 def _engine(case, dev):
     from repro_torch.serve.gan_engine import GanEngine
     cfg = _cfg(case)
@@ -274,7 +296,7 @@ def _cli(case, dev):
 
 
 _KINDS = {"forward": _forward, "grad": _grad, "server": _server,
-          "engine": _engine, "engine_fault": _engine_fault, "ring": _ring,
+          "server_submit": _server_submit, "engine": _engine, "engine_fault": _engine_fault, "ring": _ring,
           "forms": _forms, "cli": _cli}
 
 

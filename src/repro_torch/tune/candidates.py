@@ -37,8 +37,7 @@ import dataclasses
 import math
 from typing import Sequence
 
-from repro_torch.core.dataflow import (BACKENDS, KERNEL_RANKS,
-                                       kernel_call_geometry)
+from repro_torch.core.dataflow import backend_supports, kernel_call_geometry
 from repro_torch.kernels.ganax_conv import (KernelRoute, kernel_route,
                                             route_options)
 from repro_torch.quant.precision import storage_itemsize
@@ -104,7 +103,7 @@ def enumerate_candidates(key: PlanKey,
         default_backend_pool(key.platform)
     out: list[Candidate] = []
     for backend in pool:
-        if BACKENDS[backend].kernel and key.nd not in KERNEL_RANKS:
+        if not backend_supports(backend, key.nd):
             continue
         if backend == "ganax":
             out.extend(Candidate(backend, r) for r in kernel_candidates(key))

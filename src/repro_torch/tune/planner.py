@@ -45,8 +45,8 @@ import os
 import threading
 from typing import Iterable, Sequence
 
-from repro_torch.core.dataflow import (BACKENDS, KERNEL_RANKS,
-                                       DataflowPolicy, Epilogue,
+from repro_torch.core.dataflow import (DataflowPolicy, Epilogue,
+                                       backend_supports,
                                        port_backend, valid_layer_route)
 from repro_torch.device import platform_of
 from repro_torch.kernels.ganax_conv import KernelRoute
@@ -207,7 +207,7 @@ def _check_plan(key: PlanKey, plan: Plan) -> None:
     if key.platform != "cpu" and not (key.platform.startswith("sm_")
                                       and key.platform[3:].isdigit()):
         raise ValueError(f"a plan of platform {key.platform!r}")
-    if BACKENDS[plan.backend].kernel and key.nd not in KERNEL_RANKS:
+    if not backend_supports(plan.backend, key.nd):
         raise ValueError(f"backend {plan.backend!r} does not support "
                          f"{key.nd}-D")
     if plan.route is not None and (

@@ -16,8 +16,10 @@ cases, world 4 the ``(2, 2)`` ones.  The cases mirror
   four forms at 1, 2, 4, 6, 7 and 8 devices through
   ``run_forced_devices``, the odd-count fallback among them);
 * sharded forwards of DCGAN's and 3D-GAN's generator and discriminator,
-  with ``cout_shard_min_bytes=0``, against the reference's unsharded
-  ``Program.apply`` at 1e-5;
+  and (at world 2) of the other four Table-I generators (artgan,
+  discogan, gpgan, magan), with ``cout_shard_min_bytes=0``, against the
+  reference's unsharded ``Program.apply`` at 1e-5, each model with a
+  Cout-sharded layer at ``(1, 2)``;
 * gradients of ``sum(forward(params, x)**2)`` through a Cout-sharded
   program against the reference's unsharded ones (a missing or doubled
   gradient sum shows), at ``rtol=1e-4, atol=1e-5``;
@@ -27,9 +29,11 @@ cases, world 4 the ``(2, 2)`` ones.  The cases mirror
   unsharded) against the reference's step, at its tolerances; the
   sharded checkpoint restored unsharded;
 * ``GanServer`` and ``GanEngine`` streams against the port's unsharded
-  ones at equal seeds (RNG streams differ between the packages), the
-  bucket "divide" error, and a fault in rank 0's scheduler that must
-  leave no rank waiting;
+  ones at equal seeds (RNG streams differ between the packages),
+  ``GanServer.submit`` mixed with ``generate`` on every rank (rank 0's
+  stream, the followers' empty answers, every rank closed), the bucket
+  "divide" error, and a fault in rank 0's scheduler that must leave no
+  rank waiting;
 * both ring matmuls against the dense product at world 2 and 4;
 * stale tuned routes and blocks dropped on a ``"cout"`` layer's local
   Cout shard (``dataflow.resolve.shard_blocks``), in this process.
@@ -62,7 +66,14 @@ from repro_torch.sharding import parity
 from repro_torch.train import checkpoint as tckpt
 
 SCALE = 0.0625
-BATCH = {"dcgan": 4, "3dgan": 2}
+BATCH = {"dcgan": 4, "3dgan": 2, "artgan": 4, "discogan": 4, "gpgan": 4,
+         "magan": 4}
+# the Table-I generators held sharded at world 2 beside DCGAN and 3D-GAN
+# (the reference holds all six: tests/test_sharded_gan.py)
+MORE_GENERATORS = ("artgan", "discogan", "gpgan", "magan")
+# GanServer calls on a mesh, in order (submits read after later calls)
+SUBMIT_CALLS = (("generate", 6), ("submit", 4), ("submit", 5),
+                ("generate", 3), ("submit", 2))
 FWD_TOL = dict(atol=1e-5, rtol=1e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 LR = 0.05
@@ -105,6 +116,12 @@ def _inputs():
             g=g, d=d, z=rng.normal(size=(b, jcfg.z_dim)).astype(np.float32),
             img=rng.uniform(-1, 1, size=(b, *first.in_spatial, first.cin))
             .astype(np.float32))
+    for i, name in enumerate(MORE_GENERATORS):
+        jcfg = jgan.GanConfig(name, channel_scale=SCALE)
+        rng = np.random.default_rng(20 + i)
+        out[name] = dict(
+            g=_np_params(jgan.generator_specs(jcfg), rng),
+            z=rng.normal(size=(BATCH[name], jcfg.z_dim)).astype(np.float32))
     return out
 
 
@@ -121,6 +138,12 @@ def _cases(world: int, inp: dict, tmp) -> list[dict]:
                     min_bytes=0, batch=BATCH[name],
                     params=_t(inp[name][p]),
                     x=torch.tensor(inp[name][x])))
+        for name in MORE_GENERATORS if world == 2 else ():
+            cases.append(dict(
+                name=f"fwd {name} generator {tag}", kind="forward",
+                model=name, scale=SCALE, role="generator", mesh=mesh,
+                min_bytes=0, batch=BATCH[name], params=_t(inp[name]["g"]),
+                x=torch.tensor(inp[name]["z"])))
     d = inp["dcgan"]
     ring = np.random.default_rng(world)
     m, k, n = 8 * world, 32, 16 * world
@@ -148,6 +171,10 @@ def _cases(world: int, inp: dict, tmp) -> list[dict]:
                 name=f"server {mesh[0]}x{mesh[1]}", kind="server",
                 model="dcgan", scale=SCALE, mesh=mesh, params=_t(d["g"]),
                 batch_size=4, seed=7, requests=[6, 4, 1]))
+            cases.append(dict(
+                name=f"submit {mesh[0]}x{mesh[1]}", kind="server_submit",
+                model="dcgan", scale=SCALE, mesh=mesh, params=_t(d["g"]),
+                batch_size=4, seed=7, calls=list(SUBMIT_CALLS)))
         cases.append(dict(
             name="engine 2x1", kind="engine", model="dcgan", scale=SCALE,
             mesh=(2, 1), params=_t(d["g"]), buckets=[2, 4], seed=3,
@@ -213,10 +240,12 @@ def _each(ranks, prefix):
 def references(inputs):
     """The reference's unsharded outputs per (model, role)."""
     refs = {}
-    for name in ("dcgan", "3dgan"):
+    for name in ("dcgan", "3dgan") + MORE_GENERATORS:
         jcfg = jgan.GanConfig(name, channel_scale=SCALE)
         for role, p, x in (("generator", "g", "z"),
                            ("discriminator", "d", "img")):
+            if p not in inputs[name]:
+                continue
             prog = JProgram.build(jcfg, BATCH[name], role, mesh=None)
             refs[name, role] = np.asarray(prog.apply(
                 _jnp(inputs[name][p]), jnp.asarray(inputs[name][x])))
@@ -309,6 +338,17 @@ def test_sharded_forwards_match_the_reference(world, spawned, references):
                     res["batch_error"]
         n_cout += per_rank[0]["shardings"].count("cout")
     assert n_cout > 0, "no layer was Cout-sharded"
+
+
+def test_every_table1_generator_runs_cout_sharded(spawned):
+    """At mesh (1, 2) each of the four further Table-I generators runs at
+    least one layer Cout-sharded (as the reference counts ``n_cout``),
+    on both ranks."""
+    world, results = spawned(2)
+    for name in MORE_GENERATORS:
+        for r, res in enumerate(results):
+            got = res[f"fwd {name} generator 1x2"]
+            assert got["shardings"].count("cout") >= 1, (name, r)
 
 
 @pytest.mark.parametrize("world", sorted(MESHES))
@@ -409,6 +449,28 @@ def test_sharded_server_stream_matches_unsharded(spawned, inputs):
         if name.endswith("2x1"):
             assert "does not divide over the program's data axis" in \
                 per_rank[0]["batch_error"]
+
+
+def test_sharded_server_submit_stream_matches_unsharded(spawned, inputs):
+    """``submit`` on a sharded server: rank 0's answers, ``generate``
+    and ``submit`` mixed, are the unsharded server's stream; a
+    follower's are ``None`` once the engine took over (the ``generate``
+    before it answered on every rank), and every rank's engine stopped
+    at ``close`` (the spawn returned: no rank waited)."""
+    cfg, g = _port_gen(inputs)
+    for name, per_rank in _each(spawned(2), "submit "):
+        ref = GanServer(cfg, g, batch_size=4, seed=7, device="cpu")
+        want = [ref.generate(n) for _, n in SUBMIT_CALLS]
+        assert [res["leader"] for res in per_rank] == [True, False]
+        for got, exp in zip(per_rank[0]["images"], want):
+            np.testing.assert_allclose(got.numpy(), exp.numpy(),
+                                       err_msg=name, **FWD_TOL)
+        first, *rest = per_rank[1]["images"]
+        np.testing.assert_allclose(first.numpy(), want[0].numpy(),
+                                   err_msg=name, **FWD_TOL)
+        assert rest == [None] * len(rest)
+        for res in per_rank:
+            assert res["mesh"] == name.split()[1] and res["stopped"]
 
 
 def test_sharded_engine_stream_matches_unsharded(spawned, inputs):
