@@ -75,9 +75,19 @@ launches a prefill), hold the kernel path's prefill and first decode
 logits against the plain and naive attention paths (in f32 through the
 FFMA kernel), and time and profile the prefill, the decode steps and
 the kernels beside their bound, their plain version and one
-``F.scaled_dot_product_attention`` call.  The mesh phase runs programs
-sharded over two ``gloo`` ranks that share the card (started by the
-port's launcher once the kernels are built): the full-width DCGAN and
+``F.scaled_dot_product_attention`` call.  The llm_train phase trains
+full-width Gemma-7B with 4 of its 28 layers (f32 masters, AdamW,
+2x2048-token SyntheticLM batches, remat, the forward attention and its
+recompute through the wgmma kernel, the backward a plain recompute):
+step time, tokens/s, model-FLOP share, peak memory, the optimizer's
+share, a loss that falls on one repeated batch; it holds the gradients
+wrt the masters through the kernel against the naive path in bf16 (with
+a planted backward fault that must fail that gate) and in f32 through
+the FFMA kernel, remat, "dots" and grad_accum=2 against their controls,
+and runs the train CLI at the tiny preset and the restart demo.  The
+mesh phase runs programs sharded over two ``gloo`` ranks that share the
+card (started by the port's launcher once the kernels are built): the
+full-width DCGAN and
 3D-GAN generators at meshes (2, 1) and (1, 2), f32 and bf16, with each
 Cout-sharded layer's kernel on the rank's slice, a DCGAN train step at
 (2, 1) and (1, 2), ``GanEngine`` at (2, 1) and both ring matmuls, each
@@ -99,6 +109,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1375,6 +1386,431 @@ def llm_serving(card, dev, wrappers) -> dict:
           f"{f32['bound_ms']:.4f} ms ({f32['bound_by']}), SDPA in f32 "
           f"{f32['library_ms']:.4f} ms, plain {f32['plain_ms']:.4f} ms "
           f"[{card}]")
+    return out
+
+
+# -- LLM training: full-width Gemma-7B, depth cut ---------------------------
+
+# The llm_train phase (ROADMAP item 16): Gemma-7B at full width with
+# LLM_TRAIN_LAYERS of its 28 layers (f32 masters, two f32 AdamW moments
+# and f32 gradients are 16 B a parameter: 136.6 GB for 28 layers, which
+# no one card holds), LLM_TRAIN_BATCH tokens a step from SyntheticLM,
+# AdamW at LLM_TRAIN_LR, RunFlags(attn_impl="flash", remat=True): one
+# warm-up step, then LLM_TRAIN_TIMED timed steps.
+LLM_TRAIN_LAYERS = 4
+LLM_TRAIN_BATCH = (2, 2048)
+LLM_TRAIN_TIMED = 5
+LLM_TRAIN_LR = dict(peak_lr=3e-4, warmup_steps=2)
+# the loss must fall over LLM_FIT_STEPS steps on one repeated batch (a
+# separate run from the timed steps' state, at this learning rate)
+LLM_FIT_STEPS = 5
+LLM_FIT_LR = dict(peak_lr=1e-3, warmup_steps=1)
+# Gradients wrt the f32 masters through the kernel path against the
+# naive path (the whole autograd in plain PyTorch), per leaf
+# ||a - b|| / ||b||.  At the reference's init (stacked weights scaled by
+# fan-in = the layer count) the bf16 model is chaotic: one-ulp
+# differences in an attention output move every leaf's gradient by tens
+# of percent (0.38-0.59 on a 768-wide, 4-layer rehearsal on the CPU), so
+# that gap is printed, not gated.  The gates run on the same parameters
+# conditioned (each matrix scaled to fan-in = its input width, the
+# embedding to d_model^-1/2): there the CPU rehearsal read 5.6e-3 to
+# 9.7e-3 in bf16 (the kernel's p stays f32, the naive path's is rounded
+# to bf16 for p.v) and 7.5e-7 in f32.
+GRAD_TOL_BF16 = 3e-2
+GRAD_TOL_F32 = 1e-4
+# f32 through the FFMA kernel (hd 256 in f32): layers, batch, tokens
+LLM_TRAIN_F32 = (2, 1, 1024)
+# remat=False against remat=True and remat_policy "dots" against
+# "nothing": the same forward values, so the gradients agree but for
+# the order of the backward's sums
+REMAT_TOL = 1e-6
+# the planted fault of the bf16 gate: the backward's recompute scales
+# dv by 1 + 2^-4; it must fail the gate on at least one leaf
+GRAD_FAULT = 2 ** -4
+
+
+@contextlib.contextmanager
+def counting_plain_attention(calls: list):
+    """Inside: every call of the flash kernel's plain version through the
+    model appends to ``calls`` (the train path must make none on the
+    card)."""
+    from repro_torch.models import attention
+    saved = attention.flash_attention_plain
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return saved(*args, **kwargs)
+    attention.flash_attention_plain = counted
+    try:
+        yield
+    finally:
+        attention.flash_attention_plain = saved
+
+
+@contextlib.contextmanager
+def dv_scaled_backward(extra: float):
+    """Inside: the flash attention's backward recompute scales dv by
+    ``1 + extra`` (the forward values unchanged)."""
+    from repro_torch.kernels import flash_attention as fa
+    saved = fa.recompute_attention
+
+    def faulty(q, k, v, causal=True):
+        more = v * extra
+        return saved(q, k, v + (more - more.detach()), causal=causal)
+    fa.recompute_attention = faulty
+    try:
+        yield
+    finally:
+        fa.recompute_attention = saved
+
+
+def named_leaves(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in sorted(tree.items()):
+        path = f"{prefix}/{k}" if prefix else k
+        out.update(named_leaves(v, path) if isinstance(v, dict)
+                   else {path: v})
+    return out
+
+
+def leaf_rel(got: dict, ref: dict) -> dict[str, float]:
+    """||a - b|| / ||b|| of each leaf of two gradient trees."""
+    a, b = named_leaves(got), named_leaves(ref)
+    return {k: rel_norm(a[k], b[k]) for k in b}
+
+
+def condition(params: dict, d_model: int) -> None:
+    """In place: each stacked matrix scaled from the reference's fan-in
+    (the layer count) to its input width, the embedding from 1 to
+    ``d_model**-0.5``."""
+    with torch.no_grad():
+        for path, t in named_leaves(params).items():
+            if t.ndim == 3:
+                t.mul_(math.sqrt(t.shape[0] / t.shape[1]))
+            elif path == "embed":
+                t.mul_(d_model ** -0.5)
+
+
+def llm_train_phase(card, dev, wrappers, layers: int = LLM_TRAIN_LAYERS,
+                    batch: tuple[int, int] = LLM_TRAIN_BATCH,
+                    f32: tuple[int, int, int] = LLM_TRAIN_F32) -> dict:
+    """Full-width Gemma-7B training with its depth cut to ``layers``
+    (every counter at 0 just before the main path's steps, read just
+    after): state, step time, tokens/s, model-FLOP share, peak memory,
+    the optimizer's share; the loss falling on one batch; the gradient
+    gates (kernel path against naive in bf16 and, at ``f32`` = (layers,
+    B, S), in f32 through the FFMA kernel; a planted backward fault;
+    remat, "dots" and grad_accum=2 against their controls); the kernel
+    at the step's geometry beside its bound, its plain version, SDPA and
+    its recompute backward; the train CLI at the tiny preset in a
+    subprocess and the restart demo.  ``layers``, ``batch`` and ``f32``
+    shrink it for a rehearsal on the CPU."""
+    from repro_torch import elastic_restart
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM, make_batch_fn
+    from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                     flash_attention_cuda,
+                                                     flash_attention_plain)
+    from repro_torch.models import transformer as tr
+    from repro_torch.train.checkpoint import all_steps, tree_leaves
+    from repro_torch.train.optimizer import AdamWConfig, adamw_update
+    from repro_torch.train.train_state import (init_train_state,
+                                               make_train_step)
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    full = get_config(LLM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    n_full, n = tr.count_params(full), tr.count_params(cfg)
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, torch.Generator(dev).manual_seed(0))
+    sync()
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      tree_leaves(state["params"]) + tree_leaves(state["opt"]))
+    print(f"{LLM_ARCH} training at full width (d_model {cfg.d_model}, "
+          f"{cfg.n_heads}x{cfg.resolved_head_dim} heads, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}) with {layers} of its {full.n_layers} layers: "
+          f"{n:,} parameters ({n_full:,} at 28 layers); f32 masters and "
+          f"moments {state_bytes / 1e9:.1f} GB, with f32 gradients "
+          f"{(state_bytes + 4 * n) / 1e9:.1f} GB (28 layers: "
+          f"{16 * n_full / 1e9:.1f} GB, which no one card holds: the depth "
+          f"is the cut); drawn on the card in {time.perf_counter() - t0:.2f} "
+          f"s")
+    b, s = batch
+    tokens = b * s
+    batch_fn = make_batch_fn(SyntheticLM(cfg, b, s, seed=0), device=dev)
+    flags = tr.RunFlags(attn_impl="flash", remat=True)
+    opt_cfg = AdamWConfig(total_steps=1 + LLM_TRAIN_TIMED, **LLM_TRAIN_LR)
+    step = make_train_step(cfg, opt_cfg, flags)
+
+    # -- the main path: a warm-up step and the timed steps ---------------
+    plain_calls: list = []
+    for kernel, _ in wrappers.values():
+        kernel.launches = 0
+    times, metrics = [], []
+    with counting_plain_attention(plain_calls):
+        for i in range(1 + LLM_TRAIN_TIMED):
+            data = batch_fn(i)
+            sync()
+            if on_card:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            t0 = time.perf_counter()
+            state, m = step(state, data)
+            if on_card:
+                end.record()
+            sync()
+            ms = start.elapsed_time(end) if on_card else \
+                (time.perf_counter() - t0) * 1e3
+            if i:
+                times.append(ms)
+            metrics.append({k: float(v) for k, v in m.items()})
+    counts = {k: wrappers[k][0].launches for k in wrappers}
+    steps = 1 + LLM_TRAIN_TIMED
+    want = steps * layers * 2
+    if on_card:
+        check(counts["flash_attention"] == want
+              and counts["flash_attention_wgmma"] == want,
+              f"{counts} flash launches for {steps} steps of {layers} "
+              f"layers (forward and remat recompute): {want} expected, all "
+              f"through the wgmma kernel")
+        check(all(c == 0 for k, c in counts.items()
+                  if k not in ("flash_attention", "flash_attention_wgmma")),
+              f"the train path launched another kernel: {counts}")
+    check(not on_card or not plain_calls,
+          f"the train path called the plain version {len(plain_calls)} "
+          f"times on the card")
+    for i, m in enumerate(metrics):
+        check(all(math.isfinite(m[k]) for k in ("loss", "total_loss",
+                                               "grad_norm")),
+              f"step {i}: not finite: {m}")
+    step_ms = statistics.median(times)
+    flops = tr.model_flops_per_token(cfg) * tokens
+    peak_mb = None
+    if on_card:
+        peak_mb = torch.cuda.max_memory_allocated(dev) / 1e6
+    out.update(arch=LLM_ARCH, layers=layers, params=n, params_28=n_full,
+               state_gb=state_bytes / 1e9, batch=list(batch),
+               launches=counts["flash_attention"],
+               launches_wgmma=counts["flash_attention_wgmma"],
+               plain_calls=len(plain_calls), step_ms=times,
+               step_ms_median=step_ms, tokens_per_s=tokens / step_ms * 1e3,
+               model_flops=flops,
+               mfu=flops / (step_ms / 1e3) / PEAK_BF16_TC_FLOPS,
+               peak_memory_gb=None if peak_mb is None else peak_mb / 1e3,
+               losses=[m["loss"] for m in metrics],
+               grad_norms=[m["grad_norm"] for m in metrics])
+    print(f"{LLM_ARCH} ({layers} layers) train steps of {b}x{s} tokens: "
+          f"{steps} steps ({LLM_TRAIN_TIMED} timed), median "
+          f"{step_ms:.3f} ms a step ({', '.join(f'{t:.3f}' for t in times)}),"
+          f" {out['tokens_per_s']:.1f} tokens/s; model FLOPs 6N x tokens = "
+          f"{flops / 1e12:.2f} TFLOP a step, {100 * out['mfu']:.2f}% of the "
+          f"bf16 dense peak ({PEAK_BF16_TC_FLOPS / 1e12:.0f} TFLOP/s); peak "
+          f"device memory {out['peak_memory_gb'] or 0:.2f} GB; flash launches "
+          f"{counts['flash_attention']} = {steps} steps x {layers} layers x 2 "
+          f"(forward and remat recompute), {counts['flash_attention_wgmma']} "
+          f"through the wgmma kernel, {len(plain_calls)} plain-version calls "
+          f"[{card}]")
+    print(f"  losses {', '.join(f'{x:.4f}' for x in out['losses'])}; grad "
+          f"norms {', '.join(f'{x:.4f}' for x in out['grad_norms'])}")
+    if on_card:
+        out["step_profile"] = profile(lambda: step(state, batch_fn(0)), 1,
+                                      f"{LLM_ARCH} train steps")
+
+    # -- the loss falls on one repeated batch --------------------------------
+    fit = make_train_step(cfg, AdamWConfig(total_steps=LLM_FIT_STEPS,
+                                           **LLM_FIT_LR), flags)
+    one = batch_fn(10_000)
+    losses = []
+    for _ in range(LLM_FIT_STEPS):
+        state, m = fit(state, one)
+        losses.append(float(m["loss"]))
+    out["fit_losses"] = losses
+    print(f"one repeated batch, {LLM_FIT_STEPS} steps at peak_lr "
+          f"{LLM_FIT_LR['peak_lr']:g}: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"the loss does not fall on one repeated batch: {losses}")
+
+    # -- the optimizer timed apart, on one step's gradients --------------
+    _, _, grads = step.value_and_grad(state["params"], one)
+    opt_ms = []
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        if on_card:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        adamw_update(state["params"], grads, state["opt"], opt_cfg)
+        if on_card:
+            end.record()
+        sync()
+        opt_ms.append(start.elapsed_time(end) if on_card else
+                      (time.perf_counter() - t0) * 1e3)
+    del grads
+    out["optimizer_ms"] = statistics.median(opt_ms)
+    out["optimizer_share"] = out["optimizer_ms"] / step_ms
+    print(f"adamw_update alone (per leaf, in place; {n:,} f32 parameters): "
+          f"{out['optimizer_ms']:.3f} ms, {100 * out['optimizer_share']:.1f}% "
+          f"of the step [{card}]")
+    del state["opt"]
+    params = state["params"]
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # -- gradients through the kernel against the naive path -------------
+    def grads_of(p, data, **over):
+        fn = make_train_step(cfg, opt_cfg, dataclasses.replace(flags, **over))
+        return fn.value_and_grad(p, data)[2]
+
+    def accum_grads(p, data):
+        fn = make_train_step(cfg, opt_cfg, flags, grad_accum=2)
+        return fn.value_and_grad(p, {k: v.reshape(2, v.shape[0] // 2,
+                                                  *v.shape[1:])
+                                     for k, v in data.items()})[2]
+
+    g_flash = grads_of(params, one)
+    g_naive = grads_of(params, one, attn_impl="naive")
+    chaotic = leaf_rel(g_flash, g_naive)
+    del g_flash, g_naive
+    out["grad_rel_reference_init"] = chaotic
+    print(f"bf16 gradients, kernel path vs naive path at the reference's "
+          f"init (chaotic, not gated): worst leaf "
+          f"{max(chaotic.values()):.3e} ({max(chaotic, key=chaotic.get)}), "
+          f"best {min(chaotic.values()):.3e}")
+    condition(params, cfg.d_model)
+    g_flash = grads_of(params, one)
+    g_naive = grads_of(params, one, attn_impl="naive")
+    gates = {"flash vs naive, bf16": leaf_rel(g_flash, g_naive)}
+    with dv_scaled_backward(GRAD_FAULT):
+        g = grads_of(params, one)
+    gates["planted fault vs naive, bf16"] = leaf_rel(g, g_naive)
+    del g, g_naive
+    for label, over in (("remat=False vs remat=True", dict(remat=False)),
+                        ('"dots" vs "nothing"', dict(remat_policy="dots"))):
+        g = grads_of(params, one, **over)
+        gates[label] = leaf_rel(g, g_flash)
+        del g
+    g = accum_grads(params, one)
+    gates["grad_accum=2 vs 1"] = leaf_rel(g, g_flash)
+    del g, g_flash, state, params
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # f32 through the FFMA kernel, at f32 = (layers, B, S)
+    l32, b32, s32 = f32
+    cfg32 = dataclasses.replace(full, n_layers=l32, dtype="float32")
+    p32 = tr.init(cfg32, torch.Generator(dev).manual_seed(1))
+    condition(p32, cfg32.d_model)
+    data32 = make_batch_fn(SyntheticLM(cfg32, b32, s32, seed=1),
+                           device=dev)(0)
+    step32 = make_train_step(cfg32, opt_cfg, flags)
+    for kernel, _ in wrappers.values():
+        kernel.launches = 0
+    g32 = step32.value_and_grad(p32, data32)[2]
+    sync()
+    counts32 = {k: wrappers[k][0].launches for k in wrappers}
+    if on_card:
+        check(counts32["flash_attention_ffma"] == 2 * l32
+              and counts32["flash_attention"] == 2 * l32,
+              f"the f32 gradients of {l32} layers launched {counts32}")
+    naive32 = make_train_step(cfg32, opt_cfg, dataclasses.replace(
+        flags, attn_impl="naive")).value_and_grad(p32, data32)[2]
+    gates["flash vs naive, f32"] = leaf_rel(g32, naive32)
+    del g32, naive32, p32
+    if on_card:
+        torch.cuda.empty_cache()
+    out["grad_gates"] = gates
+    out["launches_ffma_f32"] = counts32["flash_attention_ffma"]
+
+    tols = {"flash vs naive, bf16": GRAD_TOL_BF16,
+            "planted fault vs naive, bf16": GRAD_TOL_BF16,
+            "remat=False vs remat=True": REMAT_TOL,
+            '"dots" vs "nothing"': REMAT_TOL,
+            "grad_accum=2 vs 1": GRAD_TOL_BF16,
+            "flash vs naive, f32": GRAD_TOL_F32}
+    for label, rel in gates.items():
+        worst = max(rel, key=rel.get)
+        tol = tols[label]
+        fault = label.startswith("planted")
+        print(f"gradients per leaf, {label}: worst {rel[worst]:.3e} "
+              f"({worst}), {rel[worst] / tol:.3f} of "
+              f"{'the gate (must exceed it)' if fault else 'its tolerance'} "
+              f"{tol:g}; median {statistics.median(rel.values()):.3e}")
+        if fault:
+            check(rel[worst] > tol, f"the bf16 gradient gate of {tol:g} "
+                  f"cannot tell dv scaled by 1 + {GRAD_FAULT:g}")
+        else:
+            check(rel[worst] <= tol, f"{label}: {worst} off by "
+                  f"{rel[worst]:.3e}")
+    out["grad_tol_used"] = {k: max(v.values()) / tols[k]
+                            for k, v in gates.items()}
+
+    # -- the kernel at the step's geometry -------------------------------
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    if on_card:
+        q, k, v = flash_operands(b, s, s, h, hd, cfg.activation_dtype, dev,
+                                 seed=7)
+        bnd = flash_bound(b, s, s, h, hd, q.dtype, True)
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        qg, kg, vg = (a.detach().requires_grad_() for a in (q, k, v))
+        o = FlashAttentionFn.apply(qg, kg, vg, True, flash_attention_cuda)
+        do = torch.randn_like(o)
+        row = dict(
+            b=b, s=s, h=h, hd=hd,
+            ms=device_ms(lambda: flash_attention_cuda(q, k, v)),
+            plain_ms=time_ms(lambda: flash_attention_plain(q, k, v),
+                             warmup=1, runs=1),
+            library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True)),
+            backward_ms=time_ms(lambda: torch.autograd.grad(
+                o, (qg, kg, vg), do, retain_graph=True), warmup=1, runs=3),
+            bound_ms=max(bnd["ops_ms"], bnd["hbm_ms"]),
+            bound_by="operations" if bnd["ops_ms"] >= bnd["hbm_ms"]
+            else "bytes", launches_per_step=2 * layers)
+        del q, k, v, qt, kt, vt, qg, kg, vg, o, do
+        torch.cuda.empty_cache()
+        out["flash_row"] = row
+        print(f"flash_attention (wgmma) at the step's geometry (B={b} S={s} "
+              f"H={h} hd={hd} causal bf16): {row['ms']:.4f} ms a launch "
+              f"(device), {2 * layers} launches a step; bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}); SDPA forward "
+              f"{row['library_ms']:.4f} ms; plain {row['plain_ms']:.3f} ms; "
+              f"the recompute backward (plain PyTorch) {row['backward_ms']:.3f}"
+              f" ms a layer [{card}]")
+
+    # -- the train CLI at the tiny preset, the restart demo --------------
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = Path(tmp) / "ckpt"
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               LLM_ARCH, "--preset", "tiny", "--steps", "8", "--ckpt-every",
+               "4", "--ckpt-dir", str(ck), "--device", dev.type]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True,
+                             text=True, timeout=300)
+        cli_s = time.perf_counter() - t0
+        print(f"python -m repro_torch.launch.train --preset tiny --steps 8 "
+              f"--ckpt-every 4 (in {tmp}): exit {run.returncode} in "
+              f"{cli_s:.1f} s, checkpoints {all_steps(str(ck))}; last lines: "
+              + " | ".join(run.stdout.strip().splitlines()[-2:]))
+        check(run.returncode == 0 and "[train] done" in run.stdout
+              and all_steps(str(ck)) == [4, 8],
+              f"the train CLI failed: {run.stderr[-2000:]}")
+    out["cli_s"] = cli_s
+    out["elastic_divergence"] = elastic_restart.main(["--device", dev.type])
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"llm_train phase: {out['seconds']:.1f} s")
     return out
 
 
@@ -3787,12 +4223,16 @@ def main(argv=None) -> int:
     # -- 9. the LLM serving path: full-width Gemma-7B ----------------------
     llm = record["llm"] = llm_serving(card, dev, wrappers)
     phase_done("Gemma-7B serving")
+    # -- 9b. LLM training: full-width Gemma-7B with its depth cut -----------
+    llm_train = record["llm_train"] = llm_train_phase(card, dev, wrappers)
+    phase_done("llm_train")
     # -- 10. programs sharded over two gloo ranks sharing the card ---------
     mesh = record["mesh"] = mesh_phase(card, dev)
     phase_done("mesh")
     record.update(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                   launches={"serve": launches, "train": train_launches,
-                            "llm": llm["launches"]},
+                            "llm": llm["launches"],
+                            "llm_train": llm_train["launches"]},
                   launches_by_route={"serve": serve_routes,
                                      "train": train_routes})
 
@@ -3825,8 +4265,9 @@ def main(argv=None) -> int:
                 else "bytes"),
             "library_ms": sum(row["library_ms"] for row in r),
         })
-    # over the LLM path's launches: each prompt length timed once, times
-    # its requests, times the layers; the wgmma kernel runs them all
+    # over the LLM serving path's launches: each prompt length timed once,
+    # times its requests, times the layers; the wgmma kernel runs them
+    # all, and the training path's (counted with them)
     flash = llm["flash_per_path"]
     fa_ops = sum(r["ops_ms"] * r["requests"] for r in llm["flash_rows"])
     fa_hbm = sum(r["hbm_ms"] * r["requests"] for r in llm["flash_rows"])
@@ -3835,7 +4276,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": KERNELS["flash_attention_wgmma"][0],
         "replaces": KERNELS["flash_attention_wgmma"][1],
-        "launches": llm["launches"],
+        "launches": llm["launches"] + llm_train["launches"],
         "max_abs_err": max(kernel_errs["flash_attention_wgmma"]),
         "ms": flash["ms"],
         "plain_ms": flash["plain_ms"],

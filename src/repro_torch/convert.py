@@ -4,7 +4,9 @@
 arrays (``{name: np.asarray(leaf)}`` of what ``repro.models.gan.init_gan``
 returns) and :func:`lm_params_from_jax` the LLM stack's nested
 parameters; each hands back the port's tensors, so both packages
-compute the same function from the same weights.  The layouts are the
+compute the same function from the same weights.
+:func:`train_state_from_jax` carries a reference LLM train state
+(parameters, AdamW moments, counters) into the port's.  The layouts are the
 same (channels-last GAN weights ``(K..., Cin, Cout)``; the LLM's stacked
 ``segments/seg<i>/pos<j>/...`` tree): the conversion checks names and
 shapes and copies.
@@ -21,7 +23,7 @@ from repro_torch.models.gan import (GanConfig, check_params,
                                     discriminator_specs, generator_specs)
 from repro_torch.models.transformer import model_specs
 
-__all__ = ["params_from_jax", "lm_params_from_jax"]
+__all__ = ["params_from_jax", "lm_params_from_jax", "train_state_from_jax"]
 
 
 def params_from_jax(np_params: dict[str, np.ndarray], cfg: GanConfig,
@@ -78,3 +80,33 @@ def lm_params_from_jax(np_params: dict, cfg: ArchConfig,
     dev = resolve_device(device)
     _check_tree(np_params, model_specs(cfg))
     return _to_tensors(np_params, dev, dtype or cfg.activation_dtype)
+
+
+def train_state_from_jax(np_state: dict, cfg: ArchConfig,
+                         device: str | torch.device = "cuda") -> dict:
+    """A reference train state (``repro.train.train_state.
+    init_train_state``'s tree, or a step's, leaves as numpy arrays:
+    ``{"params", "opt": {"mu", "nu", "count"}, "step"}``) as the port's
+    on ``device``: the masters and both moments f32, each tree checked
+    against ``model_specs(cfg)`` (every path, every shape), ``count``
+    and ``step`` int32 scalars."""
+    dev = resolve_device(device)
+    if set(np_state) != {"params", "opt", "step"} or \
+            set(np_state["opt"]) != {"mu", "nu", "count"}:
+        raise ValueError("a train state is {'params', 'opt': {'mu', 'nu', "
+                         "'count'}, 'step'}")
+    specs = model_specs(cfg)
+    trees = {}
+    for name, tree in (("params", np_state["params"]),
+                       ("mu", np_state["opt"]["mu"]),
+                       ("nu", np_state["opt"]["nu"])):
+        _check_tree(tree, specs, name)
+        trees[name] = _to_tensors(tree, dev, torch.float32)
+
+    def counter(v):
+        return torch.tensor(int(np.asarray(v)), dtype=torch.int32,
+                            device=dev)
+    return {"params": trees["params"],
+            "opt": {"mu": trees["mu"], "nu": trees["nu"],
+                    "count": counter(np_state["opt"]["count"])},
+            "step": counter(np_state["step"])}

@@ -24,6 +24,13 @@ same up to f32 rounding); masked scores are ``-1e30`` and the output is
 ``acc / max(l, 1e-30)``.  The causal mask is ``i >= j`` on indices,
 aligned top-left.  Unlike the Pallas kernel, S and T need not be
 multiples of the tiles: the tails are masked.
+
+:class:`FlashAttentionFn` makes either forward differentiable.  The
+Pallas kernel has no backward (the reference differentiates its jnp
+attention), so neither has the port's kernels: the backward recomputes
+attention from the saved q, k, v in plain PyTorch
+(:func:`recompute_attention`, the function of the reference's
+``naive_attention``) and differentiates that.
 """
 
 from __future__ import annotations
@@ -36,7 +43,8 @@ import torch
 __all__ = ["HEAD_DIMS", "BLOCK_Q", "kernel_variant",
            "kernel_tiles", "kernel_block_k", "check_tma_operand",
            "flash_attention_plain", "flash_attention_cuda",
-           "flash_attention_ffma", "flash_attention_wgmma"]
+           "flash_attention_ffma", "flash_attention_wgmma",
+           "recompute_attention", "FlashAttentionFn"]
 
 NEG_INF = -1e30
 # the head dims flash_attention_cuda takes: the FFMA kernel
@@ -315,3 +323,48 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_cuda.launches = 0
 flash_attention_ffma.launches = 0
 flash_attention_wgmma.launches = 0
+
+
+def recompute_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True) -> torch.Tensor:
+    """Attention as the reference differentiates it (its
+    ``naive_attention``, which its ``flash_attention`` calls for T up to
+    ``block_k``, and the same function blocked above): f32 scores and
+    softmax, ``p`` cast to v's dtype before ``p·v``.  q (B, S, H, hd),
+    k and v (B, T, H, hd); the causal mask is ``i >= j``, top-left.
+    Holds the (B, H, S, T) f32 scores whole: 537 MB at B 2, H 16, S = T
+    = 2048."""
+    s, t, hd = q.shape[1], k.shape[1], q.shape[3]
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hd ** -0.5
+    if causal:
+        keep = torch.ones((s, t), dtype=torch.bool, device=q.device).tril()
+        sc = torch.where(keep, sc, NEG_INF)
+    p = torch.softmax(sc, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v).to(q.dtype)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``FlashAttentionFn.apply(q, k, v, causal, attend)``: the forward is
+    ``attend(q, k, v, causal=causal)`` (the kernel's wrapper on the card,
+    its plain version on the CPU), and q, k, v are saved; the backward
+    recomputes :func:`recompute_attention` from them under
+    ``torch.enable_grad()`` and differentiates it (looked up in this
+    module at call time).  Under ``torch.no_grad()`` it is the forward
+    alone."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, attend):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return attend(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        needs = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n)
+                      for t, n in zip(ctx.saved_tensors, needs)]
+            out = recompute_attention(*inputs, causal=ctx.causal)
+            grads = iter(torch.autograd.grad(
+                out, [t for t in inputs if t.requires_grad], d_out))
+        return (*(next(grads) if n else None for n in needs), None, None)

@@ -13,56 +13,16 @@ through the flash-attention kernel.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import time
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, get_config
 from repro_torch.device import resolve_device
+from repro_torch.launch.train import reduced_config
 from repro_torch.models import transformer as tr
 from repro_torch.serve.engine import DecodeEngine, EngineConfig, Request
 
 __all__ = ["reduced_config", "main"]
-
-
-def reduced_config(arch: str, preset: str) -> ArchConfig:
-    """``arch`` at the ``tiny`` or ``100m`` preset, or ``full`` as
-    registered (a copy of ``repro.launch.train.reduced_config``)."""
-    cfg = get_config(arch)
-    if preset == "full":
-        return cfg
-    if preset == "tiny":
-        over = dict(n_layers=2, d_model=128, d_ff=256, vocab=512)
-        heads = dict(n_heads=4, n_kv_heads=min(cfg.n_kv_heads, 2) or 2,
-                     head_dim=32)
-    elif preset == "100m":
-        over = dict(n_layers=12, d_model=768, d_ff=2048, vocab=32000)
-        heads = dict(n_heads=12, n_kv_heads=min(cfg.n_kv_heads, 4) or 4,
-                     head_dim=64)
-    else:
-        raise ValueError(preset)
-    if cfg.n_heads:
-        over.update(heads)
-    if cfg.mla:
-        over.update(q_lora_rank=over["d_model"] // 2,
-                    kv_lora_rank=over["d_model"] // 4,
-                    qk_nope_head_dim=32, qk_rope_head_dim=16,
-                    v_head_dim=32)
-    if cfg.moe:
-        over.update(n_experts=8, top_k=min(cfg.top_k, 2),
-                    expert_d_ff=over["d_ff"] // 4)
-    if cfg.ssm:
-        over.update(ssm_state=16, ssm_head_dim=32)
-    if cfg.local_window:
-        over.update(local_window=128)
-    if cfg.global_layers:
-        over.update(global_layers=(0, over["n_layers"] - 1))
-    if cfg.img_tokens:
-        over.update(img_tokens=16, frontend_dim=128)
-    if cfg.frontend_dim and not cfg.img_tokens:
-        over.update(frontend_dim=128)
-    return dataclasses.replace(cfg, **over)
 
 
 def main(argv=None):

@@ -5,7 +5,9 @@ configs).
 * :func:`flash_attention` — train and prefill attention.  On the card it
   launches the hand-written kernel (``kernels/csrc/flash_attention.cu``,
   the port of the Pallas ``_fa_kernel``); on the CPU its plain version.
-  Positions are the indices ``0..S-1`` (the only ones this slice takes).
+  Either is differentiable (``FlashAttentionFn``: the backward
+  recomputes attention in plain PyTorch).  Positions are the indices
+  ``0..S-1`` (the only ones this slice takes).
 * :func:`naive_attention` — the full-matrix reference, selected by
   ``attn_impl="naive"``.
 * :func:`decode_attention` — one-token attention over the static-size
@@ -23,7 +25,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig, BlockDesc
-from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                 flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.models.common import PSpec, apply_rope, rope_angles
 
@@ -70,16 +73,16 @@ def naive_attention(q, k, v, q_pos, k_pos, *,
 def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     """Blocked online-softmax attention at positions ``0..S-1`` /
     ``0..T-1``.  q (B,S,Hq,hd), k/v (B,T,Hk,hd): GQA is expanded to MHA
-    (``repeat_interleave`` over heads, the reference's head order), then
-    the kernel runs on a CUDA tensor and its plain version on a CPU
-    one."""
+    (``repeat_interleave`` over heads, the reference's head order; its
+    backward sums dk and dv over the repeats), then the kernel runs on a
+    CUDA tensor and its plain version on a CPU one, each looked up here
+    at call time, through :class:`FlashAttentionFn`."""
     rep = q.shape[2] // k.shape[2]
     if rep > 1:
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
-    if q.is_cuda:
-        return flash_attention_cuda(q, k, v, causal=causal)
-    return flash_attention_plain(q, k, v, causal=causal)
+    attend = flash_attention_cuda if q.is_cuda else flash_attention_plain
+    return FlashAttentionFn.apply(q, k, v, causal, attend)
 
 
 def decode_attention(q, k_cache, v_cache, lengths) -> torch.Tensor:

@@ -13,7 +13,9 @@ Entry points:
   * ``init(cfg, gen)``    → params on ``gen``'s device, in the activation
     dtype
   * ``forward(params, batch, cfg, mode=...)`` → logits (+ cache)
-  * ``decode_step`` / ``init_cache`` / ``count_params``
+  * ``loss_fn`` → (total loss, metrics): next-token cross-entropy
+  * ``decode_step`` / ``init_cache`` / ``count_params`` /
+    ``model_flops_per_token``
 
 A config outside this slice raises ``NotImplementedError`` naming the
 ROADMAP item that brings it, when its model is built.
@@ -22,9 +24,14 @@ ROADMAP item that brings it, when its model is built.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.configs.base import ArchConfig, BlockDesc
 from repro_torch.device import require_f32_accumulation, resolve_device
@@ -35,10 +42,10 @@ from repro_torch.models.mlp import mlp_apply, mlp_specs
 from repro_torch.train.checkpoint import tree_leaves
 
 __all__ = ["RunFlags", "check_supported", "model_specs", "init", "forward",
-           "decode_step", "init_cache", "count_params"]
+           "loss_fn", "decode_step", "init_cache", "count_params",
+           "model_flops_per_token"]
 
 # ROADMAP queue 1 items that bring what this slice leaves out
-_ITEM_TRAIN = "ROADMAP queue 1 item 16 (LLM training)"
 _ITEM_SWA = ("ROADMAP queue 1 item 17 (sliding-window attention, logit "
              "soft-capping and positions given in the batch)")
 _ITEM_MLA = "ROADMAP queue 1 item 18 (MLA)"
@@ -51,13 +58,25 @@ _ITEM_MESH = "ROADMAP queue 1 item 23 (flash_decode and the mesh)"
 
 @dataclasses.dataclass(frozen=True)
 class RunFlags:
-    """Runtime knobs threaded through the forward pass.  ``attn_impl``
-    selects the train/prefill attention (``"flash"``: the kernel;
-    ``"naive"``: the full-matrix reference); the other fields exist for
-    the reference's signature and must keep their defaults."""
+    """Runtime knobs threaded through the forward pass.
+
+    * ``attn_impl``: the train/prefill attention (``"flash"``: the
+      kernel; ``"naive"``: the full-matrix reference).
+    * ``remat`` (``mode="train"``): each layer's body, every position of
+      its segment's pattern, runs under
+      ``torch.utils.checkpoint.checkpoint`` and is recomputed in the
+      backward.  ``remat_policy="dots"`` saves the outputs of the 2-D
+      products (``aten.mm``, ``aten.addmm``) and recomputes the rest, as
+      the reference's ``dots_with_no_batch_dims_saveable``;
+      ``"nothing"`` saves only the layer's inputs.
+    * ``scan_layers``: accepted at both values, with the same result;
+      the reference scans over the stacked layers or unrolls them, and
+      the port loops over them in Python either way.
+    * ``seq_shard_decode`` and ``mesh`` must keep their defaults (the
+      mesh is not ported)."""
     attn_impl: str = "flash"          # "flash" | "naive"
     remat: bool = True
-    remat_policy: str = "nothing"
+    remat_policy: str = "nothing"     # "nothing" | "dots"
     seq_shard_decode: bool = False
     mesh: Any = None
     scan_layers: bool = True
@@ -67,9 +86,9 @@ class RunFlags:
             raise NotImplementedError(
                 f"attn_impl {self.attn_impl!r}: the port has 'flash' and "
                 f"'naive'")
-        if (self.remat, self.remat_policy, self.scan_layers) != (
-                True, "nothing", True):
-            raise NotImplementedError(f"remat and scan flags: {_ITEM_TRAIN}")
+        if self.remat_policy not in ("nothing", "dots"):
+            raise ValueError(f"remat_policy {self.remat_policy!r}: "
+                             f"'nothing' or 'dots'")
         if self.seq_shard_decode or self.mesh is not None:
             raise NotImplementedError(f"a mesh: {_ITEM_MESH}")
 
@@ -149,6 +168,13 @@ def count_params(cfg: ArchConfig) -> int:
     return total
 
 
+def model_flops_per_token(cfg: ArchConfig) -> float:
+    """MODEL_FLOPS a token = 6·N.  Every config of this slice is dense,
+    so N is every parameter (the reference counts only the active
+    experts of a MoE config, which ``model_specs`` refuses here)."""
+    return 6.0 * count_params(cfg)
+
+
 # ---------------------------------------------------------------------------
 # Forward.
 # ---------------------------------------------------------------------------
@@ -169,7 +195,9 @@ def _block_apply(params, x, cfg, desc, *, positions, mode, cache, lengths,
 
 def _embed_in(params, batch, cfg: ArchConfig) -> torch.Tensor:
     dt = cfg.activation_dtype
-    x = params["embed"][batch["tokens"]].to(dt)
+    # F.embedding: on the card its backward sums the rows in a fixed
+    # order, so a replayed step is the same step bit for bit
+    x = F.embedding(batch["tokens"].long(), params["embed"]).to(dt)
     return x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
 
 
@@ -198,12 +226,37 @@ def _layer(tree, li: int):
             for k, v in tree.items()}
 
 
+def _unstack(tree, n: int) -> list[dict]:
+    """The ``n`` layer slices of a stacked tree, by one ``unbind`` a
+    leaf: its backward stacks the layers' gradients once, where
+    indexing would add a whole-leaf gradient for each layer."""
+    flat = {k: (_unstack(v, n) if isinstance(v, dict) else v.unbind(0))
+            for k, v in tree.items()}
+    return [{k: v[li] for k, v in flat.items()} for li in range(n)]
+
+
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_REMAT_CONTEXTS = {
+    "nothing": noop_context_fn,
+    "dots": functools.partial(create_selective_checkpoint_contexts,
+                              _save_products)}
+
+
 def forward(params, batch, cfg: ArchConfig, *, mode: str = "train",
             cache=None, lengths=None, flags: RunFlags = RunFlags(),
             last_logit_only: bool = False):
     """Returns (logits, new_cache); new_cache is None in train mode.
 
-    ``train`` is the forward pass only.  ``prefill`` returns the cache of
+    ``train`` is the pass that ``loss_fn`` differentiates: with
+    ``flags.remat`` each layer runs under activation checkpointing
+    (:class:`RunFlags`).  ``prefill`` returns the cache of
     the prompt, stacked over each segment's layers: ``{seg: {pos:
     {"attn": {"k", "v"}}}}`` of ``(layers, B, S, Hk, hd)``.  ``decode``
     writes into ``cache`` in place at ``lengths`` and returns it.
@@ -223,20 +276,30 @@ def forward(params, batch, cfg: ArchConfig, *, mode: str = "train",
     else:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
 
+    def body(x, lp, lc, descs):
+        outs = {}
+        for di, desc in enumerate(descs):
+            x, outs[f"pos{di}"] = _block_apply(
+                lp[f"pos{di}"], x, cfg, desc, positions=positions,
+                mode=mode, cache=None if lc is None else lc[f"pos{di}"],
+                lengths=lengths, flags=flags)
+        return x, outs
+
+    remat = flags.remat and mode == "train"
+    context_fn = _REMAT_CONTEXTS[flags.remat_policy]
     new_cache = {}
     for si, (descs, rep) in enumerate(cfg.layer_segments()):
-        seg_params = params["segments"][f"seg{si}"]
         seg_cache = None if cache is None else cache[f"seg{si}"]
         layer_caches = []
-        for li in range(rep):
-            lp = _layer(seg_params, li)
+        for li, lp in enumerate(_unstack(params["segments"][f"seg{si}"],
+                                         rep)):
             lc = None if seg_cache is None else _layer(seg_cache, li)
-            outs = {}
-            for di, desc in enumerate(descs):
-                x, outs[f"pos{di}"] = _block_apply(
-                    lp[f"pos{di}"], x, cfg, desc, positions=positions,
-                    mode=mode, cache=None if lc is None else lc[f"pos{di}"],
-                    lengths=lengths, flags=flags)
+            if remat:
+                x, outs = checkpoint(body, x, lp, lc, descs,
+                                     use_reentrant=False,
+                                     context_fn=context_fn)
+            else:
+                x, outs = body(x, lp, lc, descs)
             layer_caches.append(outs)
         if mode == "prefill":
             new_cache[f"seg{si}"] = _stack(layer_caches)
@@ -246,6 +309,37 @@ def forward(params, batch, cfg: ArchConfig, *, mode: str = "train",
         x = x[:, -1:]
     logits = _logits(params, x, cfg)
     return logits, (new_cache if mode in ("prefill", "decode") else None)
+
+
+def loss_fn(params, batch, cfg: ArchConfig, flags: RunFlags = RunFlags(),
+            aux_weight: float = 0.01, z_weight: float = 1e-3):
+    """Next-token cross-entropy on f32 logits: the labels are the tokens
+    shifted left and padded, and the last position weighs 0.  Returns
+    ``(total, metrics)`` with ``total = loss + aux_weight·aux_lb +
+    z_weight·aux_z`` (both aux terms 0: no config of this slice routes
+    experts) and ``metrics`` ``{"loss", "aux_lb", "aux_z", "tokens"}``."""
+    if cfg.family == "encoder":
+        raise NotImplementedError(f"{cfg.name}: the masked-frame loss: "
+                                  f"{_ITEM_ENC}")
+    logits, _ = forward(params, batch, cfg, mode="train", flags=flags)
+    logits = logits.float()
+    labels = F.pad(batch["tokens"][:, 1:].long(), (0, 1))
+    weights = F.pad(torch.ones(labels[:, :-1].shape, device=logits.device),
+                    (0, 1))
+    lse = torch.logsumexp(logits, dim=-1)
+    # the label's logit by a gather: the reference contracts with a
+    # one-hot over the vocab, whose only nonzero term is the same value,
+    # and a one-hot would be a second f32 tensor of the logits' size
+    # (4.19 GB at 2 x 2048 tokens of Gemma's 256,000)
+    lab = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = (lse - lab) * weights
+    loss = nll.sum() / torch.clamp(weights.sum(), min=1.0)
+    aux_lb = torch.zeros((), device=logits.device)
+    aux_z = torch.zeros((), device=logits.device)
+    total = loss + aux_weight * aux_lb + z_weight * aux_z
+    metrics = {"loss": loss, "aux_lb": aux_lb, "aux_z": aux_z,
+               "tokens": weights.sum()}
+    return total, metrics
 
 
 def _stack(trees: list[dict]) -> dict:

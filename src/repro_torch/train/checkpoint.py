@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 __all__ = ["save", "save_async", "wait_pending", "restore", "latest_step",
-           "all_steps", "tree_leaves", "tree_map"]
+           "all_steps", "tree_leaves", "tree_map", "tree_unflatten"]
 
 _SEP = "::"
 
@@ -70,6 +70,12 @@ def tree_leaves(tree) -> list:
 def tree_map(fn: Callable, tree):
     """``tree`` with ``fn`` applied to each leaf."""
     return _rebuild(tree, {k: fn(v) for k, v in _flatten(tree).items()})
+
+
+def tree_unflatten(template, leaves: list):
+    """``template``'s structure with ``leaves`` in key order (the order
+    of :func:`tree_leaves`)."""
+    return _rebuild(template, dict(zip(_flatten(template), leaves)))
 
 
 def _to_host(leaf) -> np.ndarray:

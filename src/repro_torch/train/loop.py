@@ -31,9 +31,11 @@ The port of ``repro.train.loop``:
     ``train.step`` span per step, and the end-of-run μop-cache and
     tune-planner lines.
 
-The state is a ``(g_params, d_params)`` pair of dicts of tensors, which
-the step updates in place (no second copy of the parameters per step);
-the loop restores a checkpoint by copying into it.
+The state is a tree of tensors, a ``(g_params, d_params)`` pair of
+dicts for the GANs (the LLM's is ``train.train_state``'s), which the
+step updates in place (no second copy of the parameters per step); the
+loop restores a checkpoint, or its host copy of the step-0 state, by
+copying into it.
 """
 
 from __future__ import annotations
@@ -194,6 +196,14 @@ class InjectedFailure(RuntimeError):
     pass
 
 
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` in host memory, pinned if ``t`` is on the card."""
+    host = torch.empty(t.shape, dtype=t.dtype, device="cpu",
+                       pin_memory=t.is_cuda)
+    host.copy_(t.detach())
+    return host
+
+
 def _default_ckpt_dir() -> str:
     return os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
 
@@ -248,7 +258,8 @@ class TrainLoop:
 
     # -- state ---------------------------------------------------------------
     def _assign(self, values) -> None:
-        """Copy the tree ``values`` into the state's tensors."""
+        """Copy the tree ``values`` (on any device) into the state's
+        tensors."""
         with torch.no_grad():
             for dst, src in zip(ckpt.tree_leaves(self.state),
                                 ckpt.tree_leaves(values)):
@@ -317,9 +328,10 @@ class TrainLoop:
     def run(self, start_step: int = 0) -> Any:
         self._install_sigterm()
         self._stats0 = _obs.collect()
-        # the step updates the state in place: keep a copy to replay from
-        self._initial_state = ckpt.tree_map(
-            lambda t: t.detach().clone(), self.state)
+        # the step updates the state in place: keep a copy to replay
+        # from, on the host (pinned where the state is on the card), so
+        # the device holds no second copy of the state
+        self._initial_state = ckpt.tree_map(_host_copy, self.state)
         step_us = _obs.histogram("train.step_us")
         step = start_step
         while step < self.cfg.total_steps:

@@ -737,6 +737,105 @@ def test_engine_on_the_card_launches_the_flash_kernel(dev):
     assert tokens["flash"] == tokens["naive"]
 
 
+# In f32 both sides sit at f32's rounding floor (a few ulps of 2^-24),
+# where their ratio is noise: on an H100 the FFMA case's dv read 5.4e-7
+# against the plain version's 2.6e-7.  1e-6 is about eight f32 ulps.
+F32_FLOOR = 1e-6
+
+
+def _attention_grads(fn, q, k, v, do, dtype=None):
+    ins = [t.detach().to(dtype or t.dtype).requires_grad_() for t in (q, k, v)]
+    out = fn(*ins)
+    return torch.autograd.grad(out, ins, do.to(out.dtype))
+
+
+@pytest.mark.parametrize("dtype,hd,s", [(torch.bfloat16, 256, 2048),
+                                        (torch.float32, 64, 512)],
+                         ids=["wgmma", "ffma"])
+def test_flash_function_gradients_on_the_card(dev, dtype, hd, s):
+    """The differentiable flash attention on the card (the forward through
+    the kernel, the backward a plain recompute) against float64
+    attention's gradients: dq, dk, dv each at most twice the gap of
+    autograd through the kernel's plain version (the yardstick; the
+    recompute rounds p to v's dtype for p·v as the reference does, the
+    plain version keeps it f32: 1.43x its gap in bf16 on the CPU), plus
+    ``F32_FLOOR``."""
+    from repro_torch.kernels.flash_attention import FlashAttentionFn
+    gen = torch.Generator().manual_seed(3)
+    q, k, v, do = (torch.randn((1, s, 2, hd), generator=gen).to(dev, dtype)
+                   for _ in range(4))
+    exact = _attention_grads(lambda a, b, c: _attention_f64(a, b, c), q, k, v,
+                             do, torch.float64)
+    before = (flash_attention_cuda.launches,
+              _VARIANT_WRAPPERS[kernel_variant(dtype, hd)].launches)
+    got = _attention_grads(lambda a, b, c: FlashAttentionFn.apply(
+        a, b, c, True, flash_attention_cuda), q, k, v, do)
+    assert (flash_attention_cuda.launches,
+            _VARIANT_WRAPPERS[kernel_variant(dtype, hd)].launches) == \
+        (before[0] + 1, before[1] + 1)
+    plain = _attention_grads(flash_attention_plain, q, k, v, do)
+    for name, g, p, e in zip("qkv", got, plain, exact):
+        assert g.dtype == dtype and bool(torch.isfinite(g).all())
+        gap = float((g.double() - e).norm() / e.norm())
+        yardstick = float((p.double() - e).norm() / e.norm())
+        assert gap <= 2 * yardstick + F32_FLOOR, (name, gap, yardstick)
+
+
+def test_gemma_train_step_on_the_card_launches_only_flash(dev):
+    """Two full-width Gemma-7B layers (f32 masters, bf16 compute, remat):
+    one step of 1x512 tokens launches the wgmma kernel twice a layer
+    (the forward and its recompute) and nothing else, with a finite
+    loss, and updates the state in place."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM, make_batch_fn
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_state import (init_train_state,
+                                               make_train_step)
+    cfg = dataclasses.replace(get_config("gemma-7b"), n_layers=2)
+    state = init_train_state(cfg, torch.Generator(dev).manual_seed(0))
+    step = make_train_step(cfg, AdamWConfig(warmup_steps=1),
+                           tr.RunFlags(attn_impl="flash", remat=True))
+    batch = make_batch_fn(SyntheticLM(cfg, 1, 512), device=dev)(0)
+    wrappers = (flash_attention_cuda, flash_attention_wgmma,
+                flash_attention_ffma, ganax_conv_cuda, ganax_conv3d_cuda)
+    before = [w.launches for w in wrappers]
+    embed = state["params"]["embed"]
+    out, m = step(state, batch)
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(wrappers, before)] == \
+        [4, 4, 0, 0, 0]
+    assert out is state and out["params"]["embed"] is embed
+    assert int(state["step"]) == 1 and bool(torch.isfinite(m["loss"]))
+    del state, out
+    torch.cuda.empty_cache()
+
+
+def test_train_loop_keeps_its_replay_copy_in_pinned_host_memory(dev,
+                                                                  tmp_path):
+    """A loop over a state on the card holds its step-0 copy in pinned
+    host memory: no second copy of the state on the device."""
+    from repro_torch.train.loop import LoopConfig, TrainLoop
+    state = {"w": torch.ones((1024, 1024), device=dev)}
+
+    def step(st, batch):
+        st["w"].add_(1.0)
+        return st, {"loss": st["w"].sum()}
+    loop = TrainLoop(LoopConfig(total_steps=2, ckpt_dir=str(tmp_path),
+                                ckpt_every=100, log_every=100),
+                     step, lambda i: {}, state, log_fn=lambda s: None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    loop.run()
+    added = torch.cuda.max_memory_allocated(dev) - base
+    copy = loop._initial_state["w"]
+    assert copy.device.type == "cpu" and copy.is_pinned()
+    assert bool((copy == 1).all()) and bool((state["w"] == 3).all())
+    # the step's scalar sums are all the run adds on the card (a device
+    # copy of the state would be 4 MiB)
+    assert added < 1 << 20, added
+
+
 # The tuner's candidate routes (repro_torch.tune.candidates) on the card:
 # (x shape, w shape, strides, paddings, transposed) with several tc tile
 # widths and splits, a flattened K, narrow splits, 2-D and 3-D

@@ -28,6 +28,8 @@ from repro_torch.serve.engine import DecodeEngine, EngineConfig
 from repro_torch.serve.gan import GanServer
 from repro_torch.serve.gan_engine import GanEngine
 from repro_torch.train.loop import make_gan_train_step
+from repro_torch.train.optimizer import AdamWConfig
+from repro_torch.train.train_state import make_train_step
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -183,8 +185,12 @@ def test_llm_options_outside_the_slice_raise():
         tr.RunFlags(mesh=object())
     with pytest.raises(NotImplementedError, match="item 23"):
         tr.RunFlags(seq_shard_decode=True)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tr.RunFlags(remat=False)
+    # the train options of the reference's RunFlags are the port's too
+    for flags in (tr.RunFlags(remat=False), tr.RunFlags(remat_policy="dots"),
+                  tr.RunFlags(scan_layers=False)):
+        assert not flags.mesh
+    with pytest.raises(NotImplementedError, match="item 23"):
+        make_train_step(cfg, AdamWConfig(), compute_shardings=object())
     with pytest.raises(NotImplementedError, match="'flash' and 'naive'"):
         tr.RunFlags(attn_impl="chunked_q")
     for name in ("gemma-7b", "qwen1.5-32b"):
