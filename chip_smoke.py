@@ -208,6 +208,10 @@ LLM_SLOTS, LLM_MAX_LEN, LLM_MAX_NEW = 8, 2112, 32
 # most one bf16 ulp apart (an ulp is <= 2^-7 |b|; rtol 2^-6 is two), and
 # atol covers outputs within f32 noise of 0
 FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-3, 2 ** -6)}
+# the scale of q and k in the flash case of large scores: q.k hd^-1/2 of
+# standard deviation FLASH_BIG_SCORES^2 = 100, a saturated softmax, as
+# the reference's init gives in the llm_train phase's layers
+FLASH_BIG_SCORES = 10.0
 # prefill and first-decode logits of the kernel path against the naive
 # path: ||a - b|| <= LLM_TOL * ||b||, in f32 (the same weights widened).
 LLM_TOL = 1e-2
@@ -858,12 +862,14 @@ def train_parity_and_profiles(card, dev, times: dict) -> dict:
 
 def flash_cases() -> list[tuple]:
     """The kernels' geometries held against their plain version: (label,
-    B, S, T, H, hd, causal, dtype).  Gemma-7B's heads at three prompt
-    lengths, causal, bf16 (the wgmma kernel) and f32 (the FFMA kernel);
-    one full (non-causal) case; a ragged B = 2 case (S and T not
-    multiples of the tiles, a kv tail shorter than one TMA box); Qwen's
-    40 heads of 128 at a small S, causal and full; and the five
-    geometries of tests/test_kernels_flash.py."""
+    B, S, T, H, hd, causal, dtype, scale), q and k drawn N(0, scale^2).
+    Gemma-7B's heads at three prompt lengths, causal, bf16 (the wgmma
+    kernel) and f32 (the FFMA kernel); one full (non-causal) case; a
+    ragged B = 2 case (S and T not multiples of the tiles, a kv tail
+    shorter than one TMA box); Qwen's 40 heads of 128 at a small S,
+    causal and full; the five geometries of tests/test_kernels_flash.py;
+    the llm_train phase's two (its steps' B = 2 x 2048 in bf16, its f32
+    gate's 1 x 1024); and the first again at FLASH_BIG_SCORES."""
     cases = []
     for s in (17, 1000, 2048):
         for dtype in (torch.bfloat16, torch.float32):
@@ -880,13 +886,23 @@ def flash_cases() -> list[tuple]:
                                 (2, 96, 1, 8, True)):
         cases.append((f"pallas case {b}x{s}x{h}x{hd}", b, s, s, h, hd, causal,
                       torch.float32))
+    cases.append(("gemma train B=2", 2, 2048, 2048, 16, 256, True,
+                  torch.bfloat16))
+    cases.append(("gemma train f32", 1, 1024, 1024, 16, 256, True,
+                  torch.float32))
+    cases = [c + (1.0,) for c in cases]
+    cases.append(("gemma train big", 2, 2048, 2048, 16, 256, True,
+                  torch.bfloat16, FLASH_BIG_SCORES))
     return cases
 
 
-def flash_operands(b, s, t, h, hd, dtype, dev, seed):
+def flash_operands(b, s, t, h, hd, dtype, dev, seed, scale=1.0):
+    """q, k, v (B, S|T, H, hd) of ``dtype`` on ``dev``, drawn from
+    ``seed``: q and k N(0, scale^2), v N(0, 1)."""
     gen = torch.Generator().manual_seed(seed)
-    return [torch.randn(shape, generator=gen).to(dev, dtype)
-            for shape in ((b, s, h, hd), (b, t, h, hd), (b, t, h, hd))]
+    return [(torch.randn(shape, generator=gen) * c).to(dev, dtype)
+            for shape, c in (((b, s, h, hd), scale), ((b, t, h, hd), scale),
+                             ((b, t, h, hd), 1.0))]
 
 
 def flash_geometries(dev) -> dict[str, list[float]]:
@@ -897,8 +913,10 @@ def flash_geometries(dev) -> dict[str, list[float]]:
                                                      flash_attention_plain,
                                                      kernel_variant)
     errs = {variant: [] for variant in FLASH_VARIANTS}
-    for i, (label, b, s, t, h, hd, causal, dtype) in enumerate(flash_cases()):
-        q, k, v = flash_operands(b, s, t, h, hd, dtype, dev, seed=100 + i)
+    for i, (label, b, s, t, h, hd, causal, dtype, scale) in enumerate(
+            flash_cases()):
+        q, k, v = flash_operands(b, s, t, h, hd, dtype, dev, seed=100 + i,
+                                 scale=scale)
         variant = kernel_variant(dtype, hd)
         got = flash_attention_cuda(q, k, v, causal=causal)
         ref = flash_attention_plain(q, k, v, causal=causal)
@@ -911,8 +929,10 @@ def flash_geometries(dev) -> dict[str, list[float]]:
         errs[variant].append(err)
         print(f"flash_attention ({variant}) vs plain  {label:18s} B={b} S={s} "
               f"T={t} H={h} hd={hd} {'causal' if causal else 'full'} "
-              f"{str(dtype).removeprefix('torch.')} max_abs_err {err:.3e} "
-              f"(atol {atol:g}, rtol {rtol:g}) {'ok' if ok else 'FAIL'}")
+              f"{str(dtype).removeprefix('torch.')}"
+              f"{f' q,k x{scale:g}' if scale != 1 else ''} max_abs_err "
+              f"{err:.3e} (atol {atol:g}, rtol {rtol:g}) "
+              f"{'ok' if ok else 'FAIL'}")
         check(ok, f"{label}: flash_attention disagrees with its plain version")
     return errs
 
@@ -994,16 +1014,30 @@ def planted_fault(fault: str):
 
 
 @contextlib.contextmanager
+def swapped(module, name: str, fn):
+    """Inside: ``module.name`` is ``fn``."""
+    saved = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
 def flash_attention_as(fn):
     """Inside: the model's flash attention calls ``fn(q, k, v, causal=)``
     in place of the kernel's wrapper on the card."""
     from repro_torch.models import attention
-    saved = attention.flash_attention_cuda
-    attention.flash_attention_cuda = fn
-    try:
-        yield
-    finally:
-        attention.flash_attention_cuda = saved
+    return swapped(attention, "flash_attention_cuda", fn)
+
+
+def recording(attend, calls: list):
+    """``attend`` that appends (q, k, v, causal, out) to ``calls``."""
+    def recorded(q, k, v, causal=True):
+        o = attend(q, k, v, causal=causal)
+        calls.append((q, k, v, causal, o))
+        return o
+    return recorded
 
 
 def rel_norm(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1160,13 +1194,7 @@ def llm_serving(card, dev, wrappers) -> dict:
 
     nxt = [None]
     calls = []
-
-    def recorded(q, k, v, causal=True):
-        o = flash_attention_cuda(q, k, v, causal=causal)
-        calls.append((q, k, v, causal, o))
-        return o
-
-    with flash_attention_as(recorded):
+    with flash_attention_as(recording(flash_attention_cuda, calls)):
         runs = {"flash": prefill_and_decode(cfg, params, "flash")}
     # every launch of that prefill against the plain version, on the
     # model's own q, k, v
@@ -1408,14 +1436,19 @@ LLM_FIT_LR = dict(peak_lr=1e-3, warmup_steps=1)
 # Gradients wrt the f32 masters through the kernel path against the
 # naive path (the whole autograd in plain PyTorch), per leaf
 # ||a - b|| / ||b||.  At the reference's init (stacked weights scaled by
-# fan-in = the layer count) the bf16 model is chaotic: one-ulp
-# differences in an attention output move every leaf's gradient by tens
-# of percent (0.38-0.59 on a 768-wide, 4-layer rehearsal on the CPU), so
-# that gap is printed, not gated.  The gates run on the same parameters
-# conditioned (each matrix scaled to fan-in = its input width, the
-# embedding to d_model^-1/2): there the CPU rehearsal read 5.6e-3 to
-# 9.7e-3 in bf16 (the kernel's p stays f32, the naive path's is rounded
-# to bf16 for p.v) and 7.5e-7 in f32.
+# fan-in = the layer count) the scores reach thousands (a 3072-wide
+# rehearsal on the CPU: |max| ~3.4e3 at 4 layers, ~6.5e3 at 2) and the
+# gradient is ill-conditioned at either dtype: one rounding of an
+# attention output moves the leaves by tens of percent in bf16, and in
+# f32 the forward replaced by float64 attention rounded once read 7.1e-2
+# against the naive path (3072-wide, 2 layers, 1 x 1024).  There no
+# model-level gate can hold a correct kernel, so the whole-model gap is
+# printed beside that exact forward's, and the gates are local, on every
+# launch's own q, k, v (see REGIME_F64_RATIO).  The model-level gates run
+# on the same parameters conditioned (each matrix scaled to fan-in = its
+# input width, the embedding to d_model^-1/2): there the CPU rehearsal
+# read 5.6e-3 to 9.7e-3 in bf16 (the kernel's p stays f32, the naive
+# path's is rounded to bf16 for p.v) and 7.5e-7 in f32.
 GRAD_TOL_BF16 = 3e-2
 GRAD_TOL_F32 = 1e-4
 # f32 through the FFMA kernel (hd 256 in f32): layers, batch, tokens
@@ -1427,55 +1460,49 @@ REMAT_TOL = 1e-6
 # the planted fault of the bf16 gate: the backward's recompute scales
 # dv by 1 + 2^-4; it must fail the gate on at least one leaf
 GRAD_FAULT = 2 ** -4
+# At the reference's init, launch by launch on the model's own q, k, v:
+# the kernel's mean |error| against float64 attention at most
+# REGIME_F64_RATIO times its plain version's.  Both round the same exact
+# value of an ill-conditioned function (an elementwise gate cannot hold
+# there: the plain version itself reads 5-9x FLASH_TOL against float64
+# in bf16 and ~600x in f32); two f32 summation orders read 1.000 there
+# and 1.41-1.50 on conditioned weights, and a dropped diagonal tile
+# 2.0e3-8.5e4 (CPU rehearsal, 3072 wide).  The Function's backward on
+# the first LLM_TRAIN_LAYERS of those launches (bf16) against float64
+# attention's, per input, within GRAD_TOL_BF16 (2.4e-3 on the CPU), with
+# dv scaled by 1 + GRAD_FAULT failing it.
+REGIME_F64_RATIO = 2.0
 
 
-@contextlib.contextmanager
 def counting_plain_attention(calls: list):
     """Inside: every call of the flash kernel's plain version through the
     model appends to ``calls`` (the train path must make none on the
     card)."""
     from repro_torch.models import attention
-    saved = attention.flash_attention_plain
+    plain = attention.flash_attention_plain
 
     def counted(*args, **kwargs):
         calls.append(1)
-        return saved(*args, **kwargs)
-    attention.flash_attention_plain = counted
-    try:
-        yield
-    finally:
-        attention.flash_attention_plain = saved
+        return plain(*args, **kwargs)
+    return swapped(attention, "flash_attention_plain", counted)
 
 
-@contextlib.contextmanager
 def dv_scaled_backward(extra: float):
     """Inside: the flash attention's backward recompute scales dv by
     ``1 + extra`` (the forward values unchanged)."""
     from repro_torch.kernels import flash_attention as fa
-    saved = fa.recompute_attention
+    recompute = fa.recompute_attention
 
     def faulty(q, k, v, causal=True):
         more = v * extra
-        return saved(q, k, v + (more - more.detach()), causal=causal)
-    fa.recompute_attention = faulty
-    try:
-        yield
-    finally:
-        fa.recompute_attention = saved
-
-
-def named_leaves(tree: dict, prefix: str = "") -> dict:
-    out = {}
-    for k, v in sorted(tree.items()):
-        path = f"{prefix}/{k}" if prefix else k
-        out.update(named_leaves(v, path) if isinstance(v, dict)
-                   else {path: v})
-    return out
+        return recompute(q, k, v + (more - more.detach()), causal=causal)
+    return swapped(fa, "recompute_attention", faulty)
 
 
 def leaf_rel(got: dict, ref: dict) -> dict[str, float]:
     """||a - b|| / ||b|| of each leaf of two gradient trees."""
-    a, b = named_leaves(got), named_leaves(ref)
+    from repro_torch.train.checkpoint import tree_items
+    a, b = tree_items(got), tree_items(ref)
     return {k: rel_norm(a[k], b[k]) for k in b}
 
 
@@ -1483,28 +1510,119 @@ def condition(params: dict, d_model: int) -> None:
     """In place: each stacked matrix scaled from the reference's fan-in
     (the layer count) to its input width, the embedding from 1 to
     ``d_model**-0.5``."""
+    from repro_torch.train.checkpoint import tree_items
     with torch.no_grad():
-        for path, t in named_leaves(params).items():
+        for path, t in tree_items(params).items():
             if t.ndim == 3:
                 t.mul_(math.sqrt(t.shape[0] / t.shape[1]))
             elif path == "embed":
                 t.mul_(d_model ** -0.5)
 
 
-def llm_train_phase(card, dev, wrappers, layers: int = LLM_TRAIN_LAYERS,
+def attend_as(dev, fn):
+    """Inside: the model's flash attention on ``dev`` calls ``fn`` (the
+    kernel's wrapper swapped on the card, its plain version on the
+    CPU)."""
+    from repro_torch.models import attention
+    return swapped(attention, "flash_attention_cuda" if dev.type == "cuda"
+                   else "flash_attention_plain", fn)
+
+
+def exact_attention(q, k, v, causal=True):
+    """float64 attention of q, k, v rounded once to q's dtype."""
+    return attention_f64(q, k, v, causal).to(q.dtype)
+
+
+def regime_forward(calls: list, label: str) -> dict:
+    """Each recorded launch (see REGIME_F64_RATIO): the kernel's and the
+    plain version's mean |error| against float64 attention, gated; the
+    scores' largest magnitude, and the elementwise FLASH_TOL's use,
+    read; a dropped diagonal tile on the first launch must fail."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    ratios, used, score_max, fault = [], 0.0, 0.0, None
+    for i, (q, k, v, causal, o) in enumerate(calls):
+        exact = attention_f64(q, k, v, causal)
+        ref = flash_attention_plain(q, k, v, causal=causal)
+        e_plain = (ref.double() - exact).abs().mean().item()
+        ratios.append((o.double() - exact).abs().mean().item() / e_plain)
+        atol, rtol = FLASH_TOL[o.dtype]
+        used = max(used, ((o.float() - ref.float()).abs()
+                          / (atol + rtol * ref.float().abs())).max().item())
+        sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+        score_max = max(score_max, (sc.tril() if causal else sc).abs()
+                        .max().item() * q.shape[3] ** -0.5)
+        del sc
+        if i == 0:
+            bad = planted_fault("diagonal tile dropped")(q, k, v, causal)
+            fault = (bad.double() - exact).abs().mean().item() / e_plain
+            del bad
+        del exact, ref
+    print(f"{label}: {len(calls)} launches on the model's own q, k, v, "
+          f"scores up to {score_max:.1f}; kernel's mean |error| against "
+          f"float64 over the plain version's: worst {max(ratios):.4f} (gate "
+          f"{REGIME_F64_RATIO:g}), a dropped diagonal tile {fault:.1f}; "
+          f"kernel vs plain elementwise at {used:.2f} of FLASH_TOL (read, "
+          f"not gated)")
+    check(max(ratios) <= REGIME_F64_RATIO, f"{label}: the kernel is less "
+          f"accurate than its plain version: {ratios}")
+    check(fault > REGIME_F64_RATIO, f"{label}: the gate cannot tell a "
+          f"dropped diagonal tile ({fault:.3f})")
+    return dict(launches=len(calls), score_max=score_max, f64_ratio=ratios,
+                fault_ratio=fault, flash_tol_used=used)
+
+
+def regime_backward(calls: list, attend, label: str) -> dict:
+    """The Function's dq, dk, dv on each recorded launch's q, k, v
+    against float64 attention's, per input ||a - b|| / ||b|| within
+    GRAD_TOL_BF16; the planted dv fault must fail on the first."""
+    from repro_torch.kernels.flash_attention import FlashAttentionFn
+    worst, fault = 0.0, None
+    for i, (q, k, v, causal, _) in enumerate(calls):
+        do = torch.randn(q.shape, generator=torch.Generator().manual_seed(i)
+                         ).to(q.device, q.dtype)
+        wide = [t.detach().double().requires_grad_() for t in (q, k, v)]
+        g64 = torch.autograd.grad(attention_f64(*wide, causal), wide,
+                                  do.double())
+
+        def grads():
+            ins = [t.detach().requires_grad_() for t in (q, k, v)]
+            return torch.autograd.grad(FlashAttentionFn.apply(
+                *ins, causal, attend), ins, do)
+        worst = max(worst, *(rel_norm(a, b) for a, b in zip(grads(), g64)))
+        if i == 0:
+            with dv_scaled_backward(GRAD_FAULT):
+                fault = rel_norm(grads()[2], g64[2])
+        del wide, g64
+    print(f"{label}: the Function's backward on {len(calls)} launches' own "
+          f"q, k, v against float64 attention's: worst input "
+          f"{worst:.3e} (gate {GRAD_TOL_BF16:g}), dv scaled by 1 + "
+          f"{GRAD_FAULT:g} {fault:.3e}")
+    check(worst <= GRAD_TOL_BF16, f"{label}: the backward is off by {worst}")
+    check(fault > GRAD_TOL_BF16, f"{label}: the backward gate cannot tell "
+          f"dv scaled by 1 + {GRAD_FAULT:g}")
+    return dict(worst=worst, fault=fault)
+
+
+def llm_train_phase(card, dev, wrappers, kernel_errs: dict,
+                    layers: int = LLM_TRAIN_LAYERS,
                     batch: tuple[int, int] = LLM_TRAIN_BATCH,
                     f32: tuple[int, int, int] = LLM_TRAIN_F32) -> dict:
     """Full-width Gemma-7B training with its depth cut to ``layers``
     (every counter at 0 just before the main path's steps, read just
     after): state, step time, tokens/s, model-FLOP share, peak memory,
-    the optimizer's share; the loss falling on one batch; the gradient
-    gates (kernel path against naive in bf16 and, at ``f32`` = (layers,
-    B, S), in f32 through the FFMA kernel; a planted backward fault;
-    remat, "dots" and grad_accum=2 against their controls); the kernel
-    at the step's geometry beside its bound, its plain version, SDPA and
-    its recompute backward; the train CLI at the tiny preset in a
-    subprocess and the restart demo.  ``layers``, ``batch`` and ``f32``
-    shrink it for a rehearsal on the CPU."""
+    the optimizer's share; the loss falling on one batch; at the
+    reference's init, the kernel on its launches' own q, k, v and the
+    Function's backward against float64 attention (gated), the
+    whole-model gradient gaps beside an exact forward's (read), in bf16
+    and, at ``f32`` = (layers, B, S), through the FFMA kernel; the
+    gradient gates on conditioned weights (kernel path against naive in
+    bf16 and f32; a planted backward fault; remat, "dots" and
+    grad_accum=2 against their controls); the kernel at the step's
+    geometry against its plain version, beside its bound, SDPA and its
+    recompute backward; the train CLI at the tiny preset in a subprocess
+    and the restart demo.  Appends the step geometry's kernel error to
+    ``kernel_errs``.  ``layers``, ``batch`` and ``f32`` shrink it for a
+    rehearsal on the CPU."""
     from repro_torch import elastic_restart
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import SyntheticLM, make_batch_fn
@@ -1679,15 +1797,43 @@ def llm_train_phase(card, dev, wrappers, layers: int = LLM_TRAIN_LAYERS,
                                                   *v.shape[1:])
                                      for k, v in data.items()})[2]
 
-    g_flash = grads_of(params, one)
-    g_naive = grads_of(params, one, attn_impl="naive")
-    chaotic = leaf_rel(g_flash, g_naive)
-    del g_flash, g_naive
-    out["grad_rel_reference_init"] = chaotic
-    print(f"bf16 gradients, kernel path vs naive path at the reference's "
-          f"init (chaotic, not gated): worst leaf "
-          f"{max(chaotic.values()):.3e} ({max(chaotic, key=chaotic.get)}), "
-          f"best {min(chaotic.values()):.3e}")
+    def init_gaps(label, grads, data, n_layers):
+        """At the reference's init: the gradients of the kernel path (its
+        launches recorded) and of the exact forward against the naive
+        path's, per leaf, read; the recorded launches gated locally."""
+        calls: list = []
+        with attend_as(dev, recording(kernel, calls)):
+            g_kernel = grads(data)
+        g_naive = grads(data, attn_impl="naive")
+        with attend_as(dev, exact_attention):
+            g_exact = grads(data)
+        gaps = {"kernel": leaf_rel(g_kernel, g_naive),
+                "exact forward": leaf_rel(g_exact, g_naive)}
+        del g_kernel, g_naive, g_exact
+        print(f"{label} gradients at the reference's init against the naive "
+              f"path, per leaf (ill-conditioned: read, not gated): "
+              + "; ".join(f"{k} worst {max(r.values()):.3e} "
+                          f"({max(r, key=r.get)}), median "
+                          f"{statistics.median(r.values()):.3e}"
+                          for k, r in (("the kernel path", gaps["kernel"]),
+                                       ("the forward as float64 attention "
+                                        "rounded once",
+                                        gaps["exact forward"]))))
+        check(len(calls) == 2 * n_layers, f"{len(calls)} flash calls in the "
+              f"gradients of {n_layers} layers")
+        # the forward's launches (the remat recompute repeats their inputs)
+        regime = regime_forward(calls[:n_layers], f"{LLM_ARCH} {label} at "
+                                f"the reference's init")
+        return gaps, regime, calls[:n_layers]
+
+    kernel = flash_attention_cuda if on_card else flash_attention_plain
+    gaps, regime, calls = init_gaps(
+        "bf16", lambda data, **over: grads_of(params, data, **over), one,
+        layers)
+    regime["backward"] = regime_backward(calls, kernel, f"{LLM_ARCH} bf16 "
+                                         f"at the reference's init")
+    del calls
+    out["reference_init"] = {"bf16": dict(grad_rel=gaps, **regime)}
     condition(params, cfg.d_model)
     g_flash = grads_of(params, one)
     g_naive = grads_of(params, one, attn_impl="naive")
@@ -1711,23 +1857,28 @@ def llm_train_phase(card, dev, wrappers, layers: int = LLM_TRAIN_LAYERS,
     l32, b32, s32 = f32
     cfg32 = dataclasses.replace(full, n_layers=l32, dtype="float32")
     p32 = tr.init(cfg32, torch.Generator(dev).manual_seed(1))
-    condition(p32, cfg32.d_model)
     data32 = make_batch_fn(SyntheticLM(cfg32, b32, s32, seed=1),
                            device=dev)(0)
-    step32 = make_train_step(cfg32, opt_cfg, flags)
-    for kernel, _ in wrappers.values():
-        kernel.launches = 0
-    g32 = step32.value_and_grad(p32, data32)[2]
+
+    def grads32(data, **over):
+        return make_train_step(cfg32, opt_cfg, dataclasses.replace(
+            flags, **over)).value_and_grad(p32, data)[2]
+    for wrapper, _ in wrappers.values():
+        wrapper.launches = 0
+    gaps, regime, calls = init_gaps("f32", grads32, data32, l32)
+    del calls
     sync()
     counts32 = {k: wrappers[k][0].launches for k in wrappers}
     if on_card:
         check(counts32["flash_attention_ffma"] == 2 * l32
               and counts32["flash_attention"] == 2 * l32,
               f"the f32 gradients of {l32} layers launched {counts32}")
-    naive32 = make_train_step(cfg32, opt_cfg, dataclasses.replace(
-        flags, attn_impl="naive")).value_and_grad(p32, data32)[2]
-    gates["flash vs naive, f32"] = leaf_rel(g32, naive32)
-    del g32, naive32, p32
+    out["reference_init"]["f32"] = dict(grad_rel=gaps, **regime)
+    condition(p32, cfg32.d_model)
+    gates["flash vs naive, f32"] = leaf_rel(grads32(data32),
+                                            grads32(data32,
+                                                    attn_impl="naive"))
+    del p32
     if on_card:
         torch.cuda.empty_cache()
     out["grad_gates"] = gates
@@ -1766,8 +1917,17 @@ def llm_train_phase(card, dev, wrappers, layers: int = LLM_TRAIN_LAYERS,
         qg, kg, vg = (a.detach().requires_grad_() for a in (q, k, v))
         o = FlashAttentionFn.apply(qg, kg, vg, True, flash_attention_cuda)
         do = torch.randn_like(o)
+        ref = flash_attention_plain(q, k, v)
+        atol, rtol = FLASH_TOL[o.dtype]
+        err = (o.float() - ref.float()).abs().max().item()
+        check(bool(torch.allclose(o.float(), ref.float(), atol=atol,
+                                  rtol=rtol)) and bool(torch.isfinite(o).all()),
+              f"the kernel at the step's geometry disagrees with its plain "
+              f"version: max_abs_err {err:.3e}")
+        kernel_errs["flash_attention_wgmma"].append(err)
+        del ref
         row = dict(
-            b=b, s=s, h=h, hd=hd,
+            b=b, s=s, h=h, hd=hd, max_abs_err=err,
             ms=device_ms(lambda: flash_attention_cuda(q, k, v)),
             plain_ms=time_ms(lambda: flash_attention_plain(q, k, v),
                              warmup=1, runs=1),
@@ -1782,7 +1942,8 @@ def llm_train_phase(card, dev, wrappers, layers: int = LLM_TRAIN_LAYERS,
         torch.cuda.empty_cache()
         out["flash_row"] = row
         print(f"flash_attention (wgmma) at the step's geometry (B={b} S={s} "
-              f"H={h} hd={hd} causal bf16): {row['ms']:.4f} ms a launch "
+              f"H={h} hd={hd} causal bf16): vs plain max_abs_err {err:.3e} "
+              f"(atol {atol:g}, rtol {rtol:g}) ok; {row['ms']:.4f} ms a launch "
               f"(device), {2 * layers} launches a step; bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}); SDPA forward "
               f"{row['library_ms']:.4f} ms; plain {row['plain_ms']:.3f} ms; "
@@ -1809,6 +1970,8 @@ def llm_train_phase(card, dev, wrappers, layers: int = LLM_TRAIN_LAYERS,
               f"the train CLI failed: {run.stderr[-2000:]}")
     out["cli_s"] = cli_s
     out["elastic_divergence"] = elastic_restart.main(["--device", dev.type])
+    check(out["elastic_divergence"] < 1e-5, f"the restart demo diverged by "
+          f"{out['elastic_divergence']:.2e}")
     out["seconds"] = time.perf_counter() - t_phase
     print(f"llm_train phase: {out['seconds']:.1f} s")
     return out
@@ -4224,7 +4387,8 @@ def main(argv=None) -> int:
     llm = record["llm"] = llm_serving(card, dev, wrappers)
     phase_done("Gemma-7B serving")
     # -- 9b. LLM training: full-width Gemma-7B with its depth cut -----------
-    llm_train = record["llm_train"] = llm_train_phase(card, dev, wrappers)
+    llm_train = record["llm_train"] = llm_train_phase(card, dev, wrappers,
+                                                      kernel_errs)
     phase_done("llm_train")
     # -- 10. programs sharded over two gloo ranks sharing the card ---------
     mesh = record["mesh"] = mesh_phase(card, dev)

@@ -221,15 +221,11 @@ def _cast_params(params, dt: torch.dtype):
             for k, v in params.items()}
 
 
-def _layer(tree, li: int):
-    return {k: (_layer(v, li) if isinstance(v, dict) else v[li])
-            for k, v in tree.items()}
-
-
 def _unstack(tree, n: int) -> list[dict]:
     """The ``n`` layer slices of a stacked tree, by one ``unbind`` a
     leaf: its backward stacks the layers' gradients once, where
-    indexing would add a whole-leaf gradient for each layer."""
+    indexing would add a whole-leaf gradient for each layer.  The slices
+    are views, so decode's in-place cache writes reach the stack."""
     flat = {k: (_unstack(v, n) if isinstance(v, dict) else v.unbind(0))
             for k, v in tree.items()}
     return [{k: v[li] for k, v in flat.items()} for li in range(n)]
@@ -291,9 +287,9 @@ def forward(params, batch, cfg: ArchConfig, *, mode: str = "train",
     for si, (descs, rep) in enumerate(cfg.layer_segments()):
         seg_cache = None if cache is None else cache[f"seg{si}"]
         layer_caches = []
-        for li, lp in enumerate(_unstack(params["segments"][f"seg{si}"],
-                                         rep)):
-            lc = None if seg_cache is None else _layer(seg_cache, li)
+        lcs = [None] * rep if seg_cache is None else _unstack(seg_cache, rep)
+        for lp, lc in zip(_unstack(params["segments"][f"seg{si}"], rep),
+                          lcs):
             if remat:
                 x, outs = checkpoint(body, x, lp, lc, descs,
                                      use_reentrant=False,

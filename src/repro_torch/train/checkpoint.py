@@ -32,7 +32,8 @@ import numpy as np
 import torch
 
 __all__ = ["save", "save_async", "wait_pending", "restore", "latest_step",
-           "all_steps", "tree_leaves", "tree_map", "tree_unflatten"]
+           "all_steps", "tree_items", "tree_leaves", "tree_map",
+           "tree_unflatten"]
 
 _SEP = "::"
 
@@ -60,6 +61,12 @@ def _rebuild(template, leaves: dict[str, Any], path: tuple[str, ...] = ()):
         return type(template)(_rebuild(v, leaves, path + (str(i),))
                               for i, v in enumerate(template))
     return leaves[_SEP.join(path)]
+
+
+def tree_items(tree) -> dict[str, Any]:
+    """The leaves of ``tree`` in key order, each by its path (the keys
+    joined by ``"::"``, as the checkpoint files name them)."""
+    return _flatten(tree)
 
 
 def tree_leaves(tree) -> list:

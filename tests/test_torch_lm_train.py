@@ -50,6 +50,7 @@ from repro.models import transformer as jtr
 from repro.train import compress as jcompress
 from repro.train import optimizer as jopt
 from repro.train import train_state as jts
+from repro_torch import obs as tobs
 from repro_torch.configs import base as tbase
 from repro_torch.convert import lm_params_from_jax, train_state_from_jax
 from repro_torch.data import pipeline as tpipe
@@ -72,6 +73,16 @@ CPU = torch.device("cpu")
 BF16_NORM = 6e-2
 BF16_LOSS = 1e-3
 STEPS = 3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_metrics_dropped_after():
+    """The port's ``TrainLoop`` here records the LLM step's ``train.*``
+    gauges in the process-wide registry; they are dropped after this
+    file, so that a later file in the same process that compares gauge
+    names with the reference's starts from none."""
+    yield
+    tobs.registry.reset()
 
 
 def _port_cfg(jcfg, **over):
