@@ -212,6 +212,13 @@ FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-3, 2 ** -6)}
 # standard deviation FLASH_BIG_SCORES^2 = 100, a saturated softmax, as
 # the reference's init gives in the llm_train phase's layers
 FLASH_BIG_SCORES = 10.0
+# the soft-cap instances of both kernels, held to their plain version at
+# FLASH_TOL: (label, B, S, H, hd, dtype) at each (q/k scale, cap) of
+# SOFTCAP_BITES, a cap that bites: scores of std 1 at cap 1, of std
+# FLASH_BIG_SCORES^2 at cap 5
+SOFTCAP_GEOMETRIES = (("gemma3 global S=4000", 1, 4000, 8, 256, torch.bfloat16),
+                      ("f32 S=1024", 1, 1024, 8, 256, torch.float32))
+SOFTCAP_BITES = ((1.0, 1.0), (FLASH_BIG_SCORES, 5.0))
 # prefill and first-decode logits of the kernel path against the naive
 # path: ||a - b|| <= LLM_TOL * ||b||, in f32 (the same weights widened).
 LLM_TOL = 1e-2
@@ -401,13 +408,13 @@ def tf32_control(operands: dict, bias, ep, ref) -> tuple[float, float, bool]:
     return err, tol_share(got, ref), ok
 
 
-def profile(fn, runs: int, what: str) -> dict:
+def profile(fn, runs: int, what: str, ranges_of=RANGES) -> dict:
     """Device time by kernel over ``runs`` calls of ``fn`` (torch.profiler),
-    the span on the device's timeline of each training range of
-    ``RANGES`` (the kernel backends' autograd Function labels its
-    forward, ``dx`` and ``dw``; a span includes the device's idle gaps
-    inside it), and the share of the wall time the device was busy.
-    Prints the breakdown; returns it."""
+    the span on the device's timeline of each range of ``ranges_of``
+    (by default the training ranges of ``RANGES``: the kernel backends'
+    autograd Function labels its forward, ``dx`` and ``dw``; a span
+    includes the device's idle gaps inside it), and the share of the
+    wall time the device was busy.  Prints the breakdown; returns it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -426,7 +433,7 @@ def profile(fn, runs: int, what: str) -> dict:
         # a range's device-side row spans the kernels inside it
         if evt.device_type != DeviceType.CUDA:
             continue
-        if evt.key in RANGES:
+        if evt.key in ranges_of:
             ranges[evt.key] = evt.self_device_time_total / 1e3 / runs
         else:
             by_name[evt.key] = (by_name.get(evt.key, 0.0)
@@ -862,14 +869,17 @@ def train_parity_and_profiles(card, dev, times: dict) -> dict:
 
 def flash_cases() -> list[tuple]:
     """The kernels' geometries held against their plain version: (label,
-    B, S, T, H, hd, causal, dtype, scale), q and k drawn N(0, scale^2).
+    B, S, T, H, hd, causal, dtype, scale, softcap), q and k drawn N(0,
+    scale^2), the scores soft-capped at ``softcap`` when it is > 0.
     Gemma-7B's heads at three prompt lengths, causal, bf16 (the wgmma
     kernel) and f32 (the FFMA kernel); one full (non-causal) case; a
     ragged B = 2 case (S and T not multiples of the tiles, a kv tail
     shorter than one TMA box); Qwen's 40 heads of 128 at a small S,
     causal and full; the five geometries of tests/test_kernels_flash.py;
     the llm_train phase's two (its steps' B = 2 x 2048 in bf16, its f32
-    gate's 1 x 1024); and the first again at FLASH_BIG_SCORES."""
+    gate's 1 x 1024); the first again at FLASH_BIG_SCORES; and the
+    soft-cap instances of both kernels (SOFTCAP_CASES: Gemma3's global
+    geometry in bf16, the f32 gate's), each at a cap that bites."""
     cases = []
     for s in (17, 1000, 2048):
         for dtype in (torch.bfloat16, torch.float32):
@@ -893,6 +903,11 @@ def flash_cases() -> list[tuple]:
     cases = [c + (1.0,) for c in cases]
     cases.append(("gemma train big", 2, 2048, 2048, 16, 256, True,
                   torch.bfloat16, FLASH_BIG_SCORES))
+    cases = [c + (0.0,) for c in cases]
+    for label, b, s, h, hd, dtype in SOFTCAP_GEOMETRIES:
+        for scale, cap in SOFTCAP_BITES:
+            cases.append((f"{label} cap {cap:g}", b, s, s, h, hd, True,
+                          dtype, scale, cap))
     return cases
 
 
@@ -913,13 +928,13 @@ def flash_geometries(dev) -> dict[str, list[float]]:
                                                      flash_attention_plain,
                                                      kernel_variant)
     errs = {variant: [] for variant in FLASH_VARIANTS}
-    for i, (label, b, s, t, h, hd, causal, dtype, scale) in enumerate(
+    for i, (label, b, s, t, h, hd, causal, dtype, scale, cap) in enumerate(
             flash_cases()):
         q, k, v = flash_operands(b, s, t, h, hd, dtype, dev, seed=100 + i,
                                  scale=scale)
         variant = kernel_variant(dtype, hd)
-        got = flash_attention_cuda(q, k, v, causal=causal)
-        ref = flash_attention_plain(q, k, v, causal=causal)
+        got = flash_attention_cuda(q, k, v, causal=causal, softcap=cap)
+        ref = flash_attention_plain(q, k, v, causal=causal, softcap=cap)
         torch.cuda.synchronize()
         atol, rtol = FLASH_TOL[dtype]
         err = (got.float() - ref.float()).abs().max().item()
@@ -930,10 +945,23 @@ def flash_geometries(dev) -> dict[str, list[float]]:
         print(f"flash_attention ({variant}) vs plain  {label:18s} B={b} S={s} "
               f"T={t} H={h} hd={hd} {'causal' if causal else 'full'} "
               f"{str(dtype).removeprefix('torch.')}"
-              f"{f' q,k x{scale:g}' if scale != 1 else ''} max_abs_err "
+              f"{f' q,k x{scale:g}' if scale != 1 else ''}"
+              f"{f' softcap {cap:g}' if cap else ''} max_abs_err "
               f"{err:.3e} (atol {atol:g}, rtol {rtol:g}) "
               f"{'ok' if ok else 'FAIL'}")
         check(ok, f"{label}: flash_attention disagrees with its plain version")
+        if cap:
+            # the planted fault: the kernel without its cap must fail
+            bad = flash_attention_cuda(q, k, v, causal=causal)
+            fault = (bad.float() - ref.float()).abs().max().item()
+            caught = not torch.allclose(bad.float(), ref.float(), atol=atol,
+                                        rtol=rtol)
+            print(f"  planted fault, the kernel at softcap 0 vs plain at "
+                  f"{cap:g}: max_abs_err {fault:.3e} "
+                  f"{'fails the gate, as it must' if caught else 'PASSES'}")
+            check(caught, f"{label}: the gate cannot tell a kernel that "
+                  f"ignores the soft-cap")
+            del bad
     return errs
 
 
@@ -975,14 +1003,17 @@ def sm_fill(b, s, h, sms) -> tuple[int, int, float]:
     return blocks, waves, blocks / (waves * sms)
 
 
-def attention_f64(q, k, v, causal: bool) -> torch.Tensor:
+def attention_f64(q, k, v, causal: bool, window: int = 0) -> torch.Tensor:
     """Attention of the same q, k, v (B, S, H, hd) in float64, not
-    rounded: the exact value the kernels and their plain version round."""
+    rounded: the exact value the kernels and their plain version round.
+    ``window`` > 0 keeps only keys less than ``window`` before the
+    query."""
     sc = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double())
     sc = sc * q.shape[3] ** -0.5
     if causal:
-        keep = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool,
-                          device=q.device).tril()
+        d = (torch.arange(q.shape[1], device=q.device)[:, None]
+             - torch.arange(k.shape[1], device=q.device)[None])
+        keep = (d >= 0) & (d < window) if window > 0 else d >= 0
         sc = sc.masked_fill(~keep, float("-inf"))
     return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, dim=-1),
                         v.double())
@@ -1033,8 +1064,8 @@ def flash_attention_as(fn):
 
 def recording(attend, calls: list):
     """``attend`` that appends (q, k, v, causal, out) to ``calls``."""
-    def recorded(q, k, v, causal=True):
-        o = attend(q, k, v, causal=causal)
+    def recorded(q, k, v, causal=True, **cap):
+        o = attend(q, k, v, causal=causal, **cap)
         calls.append((q, k, v, causal, o))
         return o
     return recorded
@@ -1044,6 +1075,46 @@ def rel_norm(a: torch.Tensor, b: torch.Tensor) -> float:
     """||a - b|| / ||b||, in f32."""
     a, b = a.float(), b.float()
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def serve_requests(cfg, params, ecfg, prompts, impl, wrappers, dev):
+    """``prompts`` served through ``DecodeEngine.run`` at
+    ``attn_impl=impl``, every kernel's count at 0 just before and read
+    just after: the requests, each one's (queued, prefill) seconds, each
+    decode step's (seconds, active slots), the wall seconds, the
+    counts."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.serve.engine import DecodeEngine, Request
+    engine = DecodeEngine(cfg, params, ecfg, tr.RunFlags(attn_impl=impl),
+                          seed=0, device=dev)
+    reqs = [Request(rid=i, prompt=p) for i, p in enumerate(prompts)]
+    admits, steps, start = {}, [], [0.0]
+    admit, step = engine.try_admit, engine.step
+
+    def timed_admit(req):
+        # try_admit reads the first token back: it ends synchronised
+        t = time.perf_counter()
+        ok = admit(req)
+        if ok:
+            admits[req.rid] = (t - start[0], time.perf_counter() - t)
+        return ok
+
+    def timed_step():
+        n = int(engine.active.sum())
+        t = time.perf_counter()
+        step()                      # reads the tokens back
+        steps.append((time.perf_counter() - t, n))
+
+    engine.try_admit, engine.step = timed_admit, timed_step
+    for kernel, _ in wrappers.values():
+        kernel.launches = 0
+    start[0] = time.perf_counter()
+    engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start[0]
+    counts = {k: wrappers[k][0].launches for k in wrappers}
+    del engine
+    return reqs, admits, steps, wall, counts
 
 
 def llm_serving(card, dev, wrappers) -> dict:
@@ -1089,36 +1160,8 @@ def llm_serving(card, dev, wrappers) -> dict:
                         max_new=LLM_MAX_NEW, temperature=0.0)
 
     def serve(impl):
-        engine = DecodeEngine(cfg, params, ecfg, tr.RunFlags(attn_impl=impl),
-                              seed=0, device=dev)
-        reqs = [Request(rid=i, prompt=p) for i, p in enumerate(prompts)]
-        admits, steps, start = {}, [], [0.0]
-        admit, step = engine.try_admit, engine.step
-
-        def timed_admit(req):
-            # try_admit reads the first token back: it ends synchronised
-            t = time.perf_counter()
-            ok = admit(req)
-            if ok:
-                admits[req.rid] = (t - start[0], time.perf_counter() - t)
-            return ok
-
-        def timed_step():
-            n = int(engine.active.sum())
-            t = time.perf_counter()
-            step()                      # reads the tokens back
-            steps.append((time.perf_counter() - t, n))
-
-        engine.try_admit, engine.step = timed_admit, timed_step
-        for kernel, _ in wrappers.values():
-            kernel.launches = 0
-        start[0] = time.perf_counter()
-        engine.run(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - start[0]
-        counts = {k: wrappers[k][0].launches for k in wrappers}
-        del engine
-        return reqs, admits, steps, wall, counts
+        return serve_requests(cfg, params, ecfg, prompts, impl, wrappers,
+                              dev)
 
     # warm up (cuBLAS handles and workspaces, the kernel's library): one
     # short prefill and one decode step, before the counted run
@@ -1974,6 +2017,548 @@ def llm_train_phase(card, dev, wrappers, kernel_errs: dict,
           f"{out['elastic_divergence']:.2e}")
     out["seconds"] = time.perf_counter() - t_phase
     print(f"llm_train phase: {out['seconds']:.1f} s")
+    return out
+
+
+# -- Gemma3-4B: sliding-window and global layers, served and trained ---------
+
+# The gemma3 phase: full-width Gemma3-4B (34 layers, 29 windowed at 1024
+# and 5 global at rope_theta 1e6, bf16, random weights from seed 0)
+# serving GEMMA3_REQUESTS prompts of lengths drawn from seed 0 in
+# GEMMA3_PROMPT_LENS (the local layers take swa's blocked branch, with a
+# padded tail, above 2048 tokens and its naive one below), greedy,
+# through GEMMA3_SLOTS slots; then training at full width with
+# GEMMA3_TRAIN_LAYERS of its 34 layers (one group of 5 local and 1
+# global, and a remainder segment of 2 local: the f32 state of 34
+# layers, 62 GB with the gradients, leaves no room on one card for the
+# activations of 4096 tokens and the 262,144-wide logits), a step of
+# GEMMA3_TRAIN_BATCH SyntheticLM tokens (swa blocked, nb 4).
+GEMMA3_ARCH = "gemma3-4b"
+GEMMA3_PARAMS = 3_879_907_840
+GEMMA3_REQUESTS = 16
+GEMMA3_PROMPT_LENS = (128, 4000)
+GEMMA3_SLOTS, GEMMA3_MAX_LEN, GEMMA3_MAX_NEW = 8, 4040, 32
+GEMMA3_TRAIN_LAYERS = 8
+GEMMA3_TRAIN_PARAMS = 1_426_106_880
+GEMMA3_TRAIN_BATCH = (1, 4096)
+GEMMA3_TRAIN_TIMED = 3
+# the f32 check: full width with these layers, one prompt of these tokens
+GEMMA3_F32 = (8, 3000)
+# swa_attention on the card at (1, S, 8 q heads over 4 kv heads, 256):
+# f32 against float64 windowed attention, per element (f32 sums in
+# another order); bf16 against the naive windowed attention on the card
+# in norm, ||a - b|| <= SWA_TOL_BF16 ||b|| (both round p to bf16 after a
+# softmax summed in another order, so single outputs may differ by more
+# than an ulp).  A window of w + 1 must fail both.
+SWA_TOL_F32 = 2e-5
+SWA_TOL_BF16 = 2 ** -8
+# the logits of the kernel path against the naive path's (and the plain
+# version's) on a 4000-token prompt, ||a - b|| <= tol ||b||, by the
+# weights' regime.  At the reference's init (the served weights, stacked
+# fan-in = the layer count) the global layers' softmax is saturated
+# (scores to ~2.4e3), so the planted faults move the logits no more than
+# the two paths' roundings do (3.2e-2 and 2.7e-2 against flash vs naive's
+# 2.7e-2 on an H100): the paths are held to LLM_TOL_BF16 there, as
+# Gemma-7B's, and the faults read.  On the same weights conditioned to
+# fan-in = width (``condition``) the faults are gated: flash vs naive
+# and vs plain read 1.8e-2 / 1.9e-2 (prefill / decode), the dropped
+# diagonal tile 2.3e-1 and the strict causal mask 4.3e-2, so
+# LLM_TOL_BF16 cannot tell the strict mask (one key of ~2000 in 5 of 34
+# layers) and the gate is 3e-2, between them.
+GEMMA3_LOGITS_TOL = {"reference init": LLM_TOL_BF16, "conditioned": 3e-2}
+# profiler ranges of the prefill's profile (obs.annotate)
+GEMMA3_RANGES = ("gemma3.swa_attention", "gemma3.logits")
+
+
+def annotated(module, name: str, label: str):
+    """Inside: ``module.name`` runs in the profiler range ``label``."""
+    from repro_torch import obs
+    fn = getattr(module, name)
+
+    def ranged(*args, **kwargs):
+        with obs.annotate(label):
+            return fn(*args, **kwargs)
+    return swapped(module, name, ranged)
+
+
+def swa_gate(card, dev) -> dict:
+    """swa_attention on the card at Gemma3's local geometry (S 4000, w
+    1024): f32 against float64, bf16 against the naive windowed path,
+    each with the planted window w + 1 that must fail."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.attention import naive_attention, swa_attention
+    cfg = get_config(GEMMA3_ARCH)
+    s, w = GEMMA3_PROMPT_LENS[1], cfg.local_window
+    hq, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator().manual_seed(3)
+    q = torch.randn((1, s, hq, hd), generator=gen).to(dev)
+    k, v = (torch.randn((1, s, hk, hd), generator=gen).to(dev)
+            for _ in range(2))
+    pos = torch.arange(s, device=dev)[None]
+    out = {}
+    exact = attention_f64(q, *(a.repeat_interleave(hq // hk, dim=2)
+                               for a in (k, v)), True, window=w)
+    for name, win in (("f32", w), ("f32, window w + 1", w + 1)):
+        got = swa_attention(q, k, v, pos, pos, window=win)
+        err = (got.double() - exact).abs().max().item()
+        ok = bool(torch.allclose(got.double(), exact, atol=SWA_TOL_F32,
+                                 rtol=SWA_TOL_F32))
+        out[name] = err
+        print(f"swa_attention on the card, {name}: S={s} H={hq}/{hk} "
+              f"hd={hd} w={w} vs float64 windowed attention max_abs_err "
+              f"{err:.3e} (atol = rtol = {SWA_TOL_F32:g}) "
+              f"{'ok' if ok else 'fails'}")
+        check(ok == (win == w), f"swa_attention {name}: the gate "
+              f"{'fails' if win == w else 'cannot tell a wrong window'}")
+    del exact
+    qb, kb, vb = (a.to(torch.bfloat16) for a in (q, k, v))
+    ref = naive_attention(qb, kb, vb, pos, pos, window=w)
+    for name, win in (("bf16", w), ("bf16, window w + 1", w + 1)):
+        rel = rel_norm(swa_attention(qb, kb, vb, pos, pos, window=win), ref)
+        out[name] = rel
+        print(f"swa_attention on the card, {name} vs the naive windowed "
+              f"attention: ||a-b||/||b|| {rel:.3e} (tolerance "
+              f"{SWA_TOL_BF16:g}) {'ok' if rel <= SWA_TOL_BF16 else 'fails'}")
+        check((rel <= SWA_TOL_BF16) == (win == w), f"swa_attention {name}: "
+              f"the gate {'fails' if win == w else 'cannot tell it'}")
+    # the local layer's attention timed against the global layer's kernel
+    # at the same S (no window in the kernel: ROADMAP's follow-up)
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    kx, vx = (a.repeat_interleave(hq // hk, dim=2) for a in (kb, vb))
+    out["swa_ms"] = device_ms(lambda: swa_attention(qb, kb, vb, pos, pos,
+                                                    window=w), runs=5)
+    out["flash_ms"] = device_ms(lambda: flash_attention_cuda(qb, kx, vx))
+    out["gqa_copy_ms"] = device_ms(lambda: (kb.repeat_interleave(
+        hq // hk, dim=2), vb.repeat_interleave(hq // hk, dim=2)))
+    print(f"a local layer's attention at S={s} (bf16): swa_attention "
+          f"(plain PyTorch) {out['swa_ms']:.4f} ms; the wgmma kernel over "
+          f"the whole causal prefix {out['flash_ms']:.4f} ms; the GQA "
+          f"repeat_interleave of k and v before a launch "
+          f"{out['gqa_copy_ms']:.4f} ms [{card}]")
+    return out
+
+
+def gemma3_phase(card, dev, wrappers) -> dict:
+    """Full-width Gemma3-4B: serving through ``DecodeEngine.run`` (every
+    counter at 0 just before, read just after: the global layers'
+    launches, all on the wgmma kernel, and no plain call), TTFT,
+    prefill and decode rates; the kernel path's logits against the
+    naive path's and the plain version's on a 4000-token prompt, with
+    the planted faults; every launch of that prefill against float64
+    attention (``regime_forward``); swa_attention on the card; the f32 check through the FFMA
+    kernel; a profile of the prefill by layer kind; the kernel at each
+    served length beside its bound and SDPA, and its soft-cap instances
+    timed; then training with the depth cut: step time, tokens/s,
+    model-FLOP share, peak memory, 2 launches a step, the loss falling
+    on one batch and the bf16 gradient gate with its planted fault."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM, make_batch_fn
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as tr
+    from repro_torch.serve.engine import (DecodeEngine, EngineConfig,
+                                          Request, _merge_slot_cache)
+    from repro_torch.train.checkpoint import tree_leaves
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_state import (init_train_state,
+                                               make_train_step)
+    t_phase = time.perf_counter()
+    cfg = get_config(GEMMA3_ARCH)
+    out: dict = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def n_global(c):
+        return sum(rep * sum(1 for d in descs if not d.window)
+                   for descs, rep in c.layer_segments())
+    t0 = time.perf_counter()
+    params = tr.init(cfg, torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    check(n_params == tr.count_params(cfg) == GEMMA3_PARAMS,
+          f"{n_params} parameters, not {GEMMA3_PARAMS}")
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params))
+    globals_ = n_global(cfg)
+    print(f"{GEMMA3_ARCH}: {cfg.n_layers} layers ({cfg.n_layers - globals_} "
+          f"windowed at {cfg.local_window}, {globals_} global at rope_theta "
+          f"1e6), d_model {cfg.d_model}, {cfg.n_heads} q heads over "
+          f"{cfg.n_kv_heads} kv heads of {cfg.resolved_head_dim}, vocab "
+          f"{cfg.vocab}: {n_params:,} parameters, {weight_bytes / 1e9:.2f} GB "
+          f"in {cfg.dtype}, drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # -- serving: the main path ------------------------------------------
+    gen = torch.Generator().manual_seed(0)
+    lens = torch.randint(GEMMA3_PROMPT_LENS[0], GEMMA3_PROMPT_LENS[1] + 1,
+                         (GEMMA3_REQUESTS,), generator=gen).tolist()
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen).tolist()
+               for n in lens]
+    ecfg = EngineConfig(n_slots=GEMMA3_SLOTS, max_len=GEMMA3_MAX_LEN,
+                        max_new=GEMMA3_MAX_NEW, temperature=0.0)
+    warm = DecodeEngine(cfg, params, dataclasses.replace(ecfg, n_slots=1),
+                        seed=0, device=dev)
+    warm.try_admit(Request(rid=-1, prompt=prompts[0][:GEMMA3_PROMPT_LENS[0]]))
+    warm.step()
+    del warm
+    plain_calls: list = []
+    with counting_plain_attention(plain_calls):
+        reqs, admits, steps, wall, counts = serve_requests(
+            cfg, params, ecfg, prompts, "flash", wrappers, dev)
+    want = globals_ * GEMMA3_REQUESTS
+    check(counts["flash_attention"] == want
+          and counts["flash_attention_wgmma"] == want,
+          f"{counts} flash launches for {GEMMA3_REQUESTS} prefills of "
+          f"{globals_} global layers, all through the wgmma kernel")
+    check(all(c == 0 for k, c in counts.items()
+              if k not in ("flash_attention", "flash_attention_wgmma")),
+          f"the Gemma3 path launched another kernel: {counts}")
+    check(not plain_calls, f"the Gemma3 path called the plain version "
+          f"{len(plain_calls)} times on the card")
+    for r in reqs:
+        check(r.done and len(r.generated) == GEMMA3_MAX_NEW
+              and all(0 <= t < cfg.vocab for t in r.generated),
+              f"request {r.rid}: done {r.done}, {len(r.generated)} tokens")
+    prefill_s = sum(d for _, d in admits.values())
+    decode_s = sum(d for d, _ in steps)
+    decode_tokens = sum(n for _, n in steps)
+    step_ms = statistics.median(d * 1e3 for d, _ in steps)
+    ttft = sorted((len(r.prompt), sum(admits[r.rid]) * 1e3,
+                   admits[r.rid][1] * 1e3) for r in reqs)
+    print(f"{GEMMA3_ARCH} served {GEMMA3_REQUESTS} requests ({sum(lens)} "
+          f"prompt tokens, {GEMMA3_MAX_NEW} new each) in {wall:.3f} s through "
+          f"{GEMMA3_SLOTS} slots: {counts['flash_attention']} flash launches "
+          f"= {globals_} global layers x {GEMMA3_REQUESTS} prefills, all "
+          f"through the wgmma kernel, 0 plain calls; the {cfg.n_layers - globals_}"
+          f" local layers through swa_attention [{card}]")
+    for n, t, pre in ttft:
+        print(f"  prompt {n:4d} tokens ({'blocked' if n > 2 * cfg.local_window else 'naive'}"
+              f" swa): prefill {pre:9.3f} ms, time to first token {t:9.3f} ms")
+    print(f"prefill: {sum(lens)} tokens in {prefill_s:.3f} s = "
+          f"{sum(lens) / prefill_s:.1f} tokens/s; decode: {len(steps)} engine "
+          f"steps, median {step_ms:.3f} ms a step, {decode_tokens} tokens in "
+          f"{decode_s:.3f} s = {decode_tokens / decode_s:.1f} tokens/s (HBM "
+          f"bound of a step's weights "
+          f"{weight_bytes / PEAK_HBM_BYTES * 1e3:.3f} ms) [{card}]")
+    out.update(
+        arch=GEMMA3_ARCH, params=n_params, weight_gb=weight_bytes / 1e9,
+        prompt_lens=lens, wall_s=wall, launches=counts["flash_attention"],
+        requests=[dict(prompt=n, ttft_ms=t, prefill_ms=pre)
+                  for n, t, pre in ttft],
+        prefill_tokens_per_s=sum(lens) / prefill_s, decode_steps=len(steps),
+        decode_step_ms_median=step_ms,
+        decode_tokens_per_s=decode_tokens / decode_s)
+
+    # -- the kernel path against the naive path on a 4000-token prompt ---
+    s_max = GEMMA3_PROMPT_LENS[1]
+    tokens = torch.randint(0, cfg.vocab, (1, s_max), generator=gen).to(dev)
+    nxt = [None]
+
+    def prefill_and_decode(c, p, impl):
+        flags = tr.RunFlags(attn_impl=impl)
+        lg, pcache = tr.forward(p, {"tokens": tokens}, c, mode="prefill",
+                                flags=flags)
+        cache = tr.init_cache(c, 1, GEMMA3_MAX_LEN, device=dev)
+        _merge_slot_cache(cache, pcache, 0, s_max)
+        del pcache
+        nxt[0] = torch.argmax(lg[:, -1].float(), dim=-1)[:, None] \
+            if nxt[0] is None else nxt[0]
+        first, _ = tr.decode_step(p, cache, nxt[0], torch.tensor(
+            [s_max], device=dev), c, flags)
+        return lg, first
+
+    calls: list = []
+    with flash_attention_as(recording(flash_attention_cuda, calls)):
+        runs = {"flash": prefill_and_decode(cfg, params, "flash")}
+    check(len(calls) == globals_, f"{len(calls)} flash calls in a prefill "
+          f"of {globals_} global layers")
+    # the random weights are the reference's init (fan-in = the stacked
+    # layer count, 5 for the group segment): scores in the thousands,
+    # where the kernel and its plain version round an ill-conditioned
+    # function, so each launch is held to float64 as llm_train holds its
+    # own (REGIME_F64_RATIO), with a dropped diagonal tile above the gate
+    out["flash_on_model_inputs"] = regime_forward(
+        calls, f"{GEMMA3_ARCH} {s_max}-token prefill, the global layers "
+        f"(B=1 S={s_max} H={cfg.n_heads} hd={cfg.resolved_head_dim})")
+    del calls
+    # the logits, at the reference's init and on conditioned weights
+    out["logits_rel_err"] = {}
+    for regime in ("reference init", "conditioned"):
+        if regime == "conditioned":
+            condition(params, cfg.d_model)
+        runs = {"flash": prefill_and_decode(cfg, params, "flash"),
+                "naive": prefill_and_decode(cfg, params, "naive")}
+        with flash_attention_as(flash_attention_plain):
+            runs["plain"] = prefill_and_decode(cfg, params, "flash")
+        errs = {f"flash vs {b}": [rel_norm(x, y) for x, y in
+                                  zip(runs["flash"], runs[b])]
+                for b in ("naive", "plain")}
+        del runs["plain"], runs["flash"]
+        for fault in PLANTED_FAULTS:
+            with flash_attention_as(planted_fault(fault)):
+                lg = prefill_and_decode(cfg, params, "flash")
+            errs[f"{fault} vs naive"] = [rel_norm(x, y) for x, y in
+                                         zip(lg, runs["naive"])]
+            del lg
+        del runs
+        torch.cuda.empty_cache()
+        tol = GEMMA3_LOGITS_TOL[regime]
+        for what, pair in errs.items():
+            fault = not what.startswith("flash")
+            gated = not fault or regime == "conditioned"
+            print(f"{GEMMA3_ARCH} {s_max}-token prompt, {regime}, {what}: "
+                  f"prefill logits ||a-b||/||b|| {pair[0]:.3e}, first decode "
+                  f"logits {pair[1]:.3e} ("
+                  + ((f"must exceed {tol:g}" if fault else f"tolerance {tol:g}")
+                     if gated else "read, not gated: see GEMMA3_LOGITS_TOL")
+                  + ")")
+            if gated:
+                check(max(pair) > tol if fault else max(pair) <= tol,
+                      f"{regime}, {what}: the logits gate of {tol:g} "
+                      f"{'cannot tell the planted fault' if fault else 'fails'}")
+        out["logits_rel_err"][regime] = errs
+
+    # -- profile of one prefill, by layer kind ---------------------------
+    with annotated(attention, "swa_attention", GEMMA3_RANGES[0]), \
+            annotated(tr, "_logits", GEMMA3_RANGES[1]):
+        prof = profile(lambda: tr.forward(params, {"tokens": tokens}, cfg,
+                                          mode="prefill"), 2,
+                       f"{GEMMA3_ARCH} prefills of {s_max} tokens",
+                       ranges_of=GEMMA3_RANGES)
+    if "device_ms_per_run" in prof:
+        kms = prof["kernels_ms_per_run"]
+        flash_ms = sum(ms for n, ms in kms.items() if "fa_sm90_kernel" in n)
+        gemm_ms = sum(ms for n, ms in kms.items()
+                      if any(t in n.lower() for t in ("gemm", "xmma",
+                                                      "cutlass", "nvjet")))
+        spans = prof["range_spans_ms_per_run"]
+        prof["by_kind_ms"] = dict(
+            global_flash=flash_ms, gemm_kernels=gemm_ms,
+            swa_span=spans.get(GEMMA3_RANGES[0]),
+            logits_span=spans.get(GEMMA3_RANGES[1]))
+        print(f"  a {s_max}-token prefill by kind: the {globals_} global "
+              f"layers' flash launches {flash_ms:.3f} ms; the "
+              f"{cfg.n_layers - globals_} local layers' swa_attention "
+              f"(device span of its ranges, its own GEMMs in) "
+              f"{spans.get(GEMMA3_RANGES[0], float('nan')):.3f} ms; every "
+              f"GEMM kernel (the projections, MLPs, logits and swa's "
+              f"einsums) {gemm_ms:.3f} ms; the logits (device span) "
+              f"{spans.get(GEMMA3_RANGES[1], float('nan')):.3f} ms; device "
+              f"busy {prof['device_ms_per_run']:.3f} ms [{card}]")
+    out["prefill_profile"] = prof
+
+    # -- the kernel at each served length, the soft-cap instances --------
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    rows = []
+    for s in sorted(set(lens)):
+        q, k, v = flash_operands(1, s, s, h, hd, cfg.activation_dtype, dev,
+                                 seed=s)
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        bnd = flash_bound(1, s, s, h, hd, q.dtype, True)
+        rows.append(dict(
+            s=s, requests=lens.count(s),
+            ms=device_ms(lambda: flash_attention_cuda(q, k, v)),
+            library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True)),
+            bound_ms=max(bnd["ops_ms"], bnd["hbm_ms"]),
+            bound_by="operations" if bnd["ops_ms"] >= bnd["hbm_ms"]
+            else "bytes"))
+        if s == max(lens):
+            rows[-1]["plain_ms"] = time_ms(
+                lambda: flash_attention_plain(q, k, v), warmup=1, runs=1)
+        del q, k, v, qt, kt, vt
+    per_path = {key: globals_ * sum(r[key] * r["requests"] for r in rows)
+                for key in ("ms", "library_ms", "bound_ms")}
+    top = rows[-1]
+    print(f"flash_attention (wgmma) at Gemma3's global geometry (B=1 H={h} "
+          f"hd={hd} causal bf16), over the path's {want} launches: "
+          f"{per_path['ms']:.3f} ms, SDPA {per_path['library_ms']:.3f} ms, "
+          f"bound {per_path['bound_ms']:.3f} ms; at S={top['s']}: "
+          f"{top['ms']:.4f} ms a launch, SDPA {top['library_ms']:.4f} ms, "
+          f"bound {top['bound_ms']:.4f} ms ({top['bound_by']}), plain "
+          f"{top['plain_ms']:.3f} ms [{card}]")
+    out.update(flash_rows=rows, flash_per_path=per_path)
+    cap_rows = []
+    for label, b, s, hh, dd, dtype in SOFTCAP_GEOMETRIES:
+        q, k, v = flash_operands(b, s, s, hh, dd, dtype, dev, seed=5)
+        bnd = flash_bound(b, s, s, hh, dd, dtype, True)
+        cap_rows.append(dict(
+            label=label, dtype=str(dtype).removeprefix("torch."),
+            ms=device_ms(lambda: flash_attention_cuda(q, k, v, softcap=1.0)),
+            ms_no_cap=device_ms(lambda: flash_attention_cuda(q, k, v)),
+            plain_ms=time_ms(lambda: flash_attention_plain(
+                q, k, v, softcap=1.0), warmup=1, runs=1),
+            bound_ms=max(bnd["ops_ms"], bnd["hbm_ms"]),
+            bound_by="operations" if bnd["ops_ms"] >= bnd["hbm_ms"]
+            else "bytes"))
+        r = cap_rows[-1]
+        print(f"flash_attention soft-cap instance, {label} "
+              f"{r['dtype']} causal: {r['ms']:.4f} ms a launch (the same "
+              f"kernel without the cap {r['ms_no_cap']:.4f} ms), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}; the tanh not "
+              f"counted), plain {r['plain_ms']:.3f} ms, library: none (no "
+              f"single PyTorch call soft-caps) [{card}]")
+        del q, k, v
+    out["softcap_rows"] = cap_rows
+    out["swa"] = swa_gate(card, dev)
+    out["serve_peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"{GEMMA3_ARCH} serving in bf16: peak device memory "
+          f"{out['serve_peak_memory_gb']:.2f} GB [{card}]")
+    del params
+    torch.cuda.empty_cache()
+
+    # -- the f32 check through the FFMA kernel ---------------------------
+    l32, s32 = GEMMA3_F32
+    cfg32 = dataclasses.replace(cfg, n_layers=l32, dtype="float32")
+    p32 = tr.init(cfg32, torch.Generator(dev).manual_seed(1))
+    tokens = tokens[:, :s32]
+    s_max = s32
+    nxt[0] = None
+    for kernel, _ in wrappers.values():
+        kernel.launches = 0
+    runs = {"flash": prefill_and_decode(cfg32, p32, "flash")}
+    torch.cuda.synchronize()
+    counts32 = {k: wrappers[k][0].launches for k in wrappers}
+    g32 = n_global(cfg32)
+    check(counts32["flash_attention_ffma"] == g32 == counts32[
+        "flash_attention"] and all(c == 0 for k, c in counts32.items()
+                                   if k not in ("flash_attention",
+                                                "flash_attention_ffma")),
+          f"the f32 prefill of {l32} layers ({g32} global) launched "
+          f"{counts32}")
+    runs["naive"] = prefill_and_decode(cfg32, p32, "naive")
+    pair = [rel_norm(x, y) for x, y in zip(runs["flash"], runs["naive"])]
+    del runs, p32
+    torch.cuda.empty_cache()
+    print(f"{GEMMA3_ARCH} f32, {l32} layers ({g32} global, through the FFMA "
+          f"kernel: {counts32['flash_attention_ffma']} launch), one {s32}-token"
+          f" prompt, flash vs naive: prefill logits ||a-b||/||b|| "
+          f"{pair[0]:.3e}, first decode logits {pair[1]:.3e} (tolerance "
+          f"{LLM_TOL:g})")
+    check(max(pair) <= LLM_TOL, "f32 flash vs naive: the logits disagree")
+    out.update(f32_logits_rel_err=pair,
+               launches_ffma=counts32["flash_attention_ffma"])
+
+    # -- training at full width, the depth cut ----------------------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    tcfg = dataclasses.replace(cfg, n_layers=GEMMA3_TRAIN_LAYERS)
+    n = tr.count_params(tcfg)
+    check(n == GEMMA3_TRAIN_PARAMS, f"{n} parameters at "
+          f"{GEMMA3_TRAIN_LAYERS} layers")
+    state = init_train_state(tcfg, torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    b, s = GEMMA3_TRAIN_BATCH
+    batch_fn = make_batch_fn(SyntheticLM(tcfg, b, s, seed=0), device=dev)
+    flags = tr.RunFlags(attn_impl="flash", remat=True)
+    opt_cfg = AdamWConfig(total_steps=1 + GEMMA3_TRAIN_TIMED, **LLM_TRAIN_LR)
+    step = make_train_step(tcfg, opt_cfg, flags)
+    tg = n_global(tcfg)
+    print(f"{GEMMA3_ARCH} training at full width with {GEMMA3_TRAIN_LAYERS} "
+          f"of its {cfg.n_layers} layers (segments "
+          f"{[(len(d), r) for d, r in tcfg.layer_segments()]}: {tg} global): "
+          f"{n:,} parameters, f32 masters, moments and gradients "
+          f"{16 * n / 1e9:.1f} GB (34 layers: {16 * GEMMA3_PARAMS / 1e9:.1f} "
+          f"GB)")
+    plain_calls = []
+    for kernel, _ in wrappers.values():
+        kernel.launches = 0
+    times, metrics = [], []
+    with counting_plain_attention(plain_calls):
+        for i in range(1 + GEMMA3_TRAIN_TIMED):
+            data = batch_fn(i)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = step(state, data)
+            end.record()
+            torch.cuda.synchronize()
+            if i:
+                times.append(start.elapsed_time(end))
+            metrics.append({k: float(x) for k, x in m.items()})
+    counts = {k: wrappers[k][0].launches for k in wrappers}
+    steps_run = 1 + GEMMA3_TRAIN_TIMED
+    want_train = 2 * tg * steps_run
+    check(counts["flash_attention"] == want_train
+          and counts["flash_attention_wgmma"] == want_train
+          and all(c == 0 for k, c in counts.items()
+                  if k not in ("flash_attention", "flash_attention_wgmma")),
+          f"{counts} flash launches for {steps_run} steps of {tg} global "
+          f"layer(s), forward and remat recompute: {want_train} expected")
+    check(not plain_calls, f"the train path called the plain version "
+          f"{len(plain_calls)} times on the card")
+    for i, m in enumerate(metrics):
+        check(all(math.isfinite(m[k]) for k in ("loss", "total_loss",
+                                               "grad_norm")),
+              f"step {i}: not finite: {m}")
+    step_ms = statistics.median(times)
+    flops = tr.model_flops_per_token(tcfg) * b * s
+    out["train"] = dict(
+        layers=GEMMA3_TRAIN_LAYERS, params=n, launches=counts[
+            "flash_attention"], step_ms=times, step_ms_median=step_ms,
+        tokens_per_s=b * s / step_ms * 1e3, model_flops=flops,
+        mfu=flops / (step_ms / 1e3) / PEAK_BF16_TC_FLOPS,
+        peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+        losses=[m["loss"] for m in metrics])
+    t = out["train"]
+    print(f"{GEMMA3_ARCH} ({GEMMA3_TRAIN_LAYERS} layers) train steps of "
+          f"{b}x{s} tokens: median {step_ms:.3f} ms a step "
+          f"({', '.join(f'{x:.3f}' for x in times)}), "
+          f"{t['tokens_per_s']:.1f} tokens/s; model FLOPs 6N x tokens = "
+          f"{flops / 1e12:.2f} TFLOP a step, {100 * t['mfu']:.2f}% of the "
+          f"bf16 dense peak; peak device memory {t['peak_memory_gb']:.2f} GB; "
+          f"flash launches {counts['flash_attention']} = {steps_run} steps x "
+          f"{tg} global layer x 2 (forward and remat recompute), all wgmma, "
+          f"0 plain calls [{card}]")
+    t["step_profile"] = profile(lambda: step(state, batch_fn(0)), 1,
+                                f"{GEMMA3_ARCH} train steps")
+    fit = make_train_step(tcfg, AdamWConfig(total_steps=LLM_FIT_STEPS,
+                                            **LLM_FIT_LR), flags)
+    one = batch_fn(10_000)
+    losses = []
+    for _ in range(LLM_FIT_STEPS):
+        state, m = fit(state, one)
+        losses.append(float(m["loss"]))
+    t["fit_losses"] = losses
+    print(f"one repeated batch, {LLM_FIT_STEPS} steps: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"the loss does not fall on one repeated batch: {losses}")
+    del state["opt"]
+    params = state["params"]
+    torch.cuda.empty_cache()
+    condition(params, tcfg.d_model)
+
+    def grads_of(**over):
+        fn = make_train_step(tcfg, opt_cfg, dataclasses.replace(flags,
+                                                                **over))
+        return fn.value_and_grad(params, one)[2]
+    g_flash = grads_of()
+    g_naive = grads_of(attn_impl="naive")
+    gates = {"flash vs naive, bf16": leaf_rel(g_flash, g_naive)}
+    del g_flash
+    with dv_scaled_backward(GRAD_FAULT):
+        g = grads_of()
+    gates["planted fault vs naive, bf16"] = leaf_rel(g, g_naive)
+    del g, g_naive, state, params
+    torch.cuda.empty_cache()
+    for label, rel in gates.items():
+        worst = max(rel, key=rel.get)
+        fault = label.startswith("planted")
+        print(f"{GEMMA3_ARCH} gradients per leaf on conditioned weights, "
+              f"{label}: worst {rel[worst]:.3e} ({worst}), "
+              f"{rel[worst] / GRAD_TOL_BF16:.3f} of "
+              f"{'the gate (must exceed it)' if fault else 'its tolerance'} "
+              f"{GRAD_TOL_BF16:g}")
+        check(rel[worst] > GRAD_TOL_BF16 if fault
+              else rel[worst] <= GRAD_TOL_BF16,
+              f"{label}: {worst} at {rel[worst]:.3e} against "
+              f"{GRAD_TOL_BF16:g}")
+    t["grad_gates"] = {k: max(v.values()) for k, v in gates.items()}
+    out["launches_wgmma"] = out["launches"] + t["launches"]
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"gemma3 phase: {out['seconds']:.1f} s")
     return out
 
 
@@ -4390,13 +4975,18 @@ def main(argv=None) -> int:
     llm_train = record["llm_train"] = llm_train_phase(card, dev, wrappers,
                                                       kernel_errs)
     phase_done("llm_train")
+    # -- 9c. Gemma3-4B: sliding-window and global layers --------------------
+    gemma3 = record["gemma3"] = gemma3_phase(card, dev, wrappers)
+    phase_done("gemma3")
     # -- 10. programs sharded over two gloo ranks sharing the card ---------
     mesh = record["mesh"] = mesh_phase(card, dev)
     phase_done("mesh")
     record.update(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                   launches={"serve": launches, "train": train_launches,
                             "llm": llm["launches"],
-                            "llm_train": llm_train["launches"]},
+                            "llm_train": llm_train["launches"],
+                            "gemma3": gemma3["launches_wgmma"],
+                            "gemma3_ffma": gemma3["launches_ffma"]},
                   launches_by_route={"serve": serve_routes,
                                      "train": train_routes})
 
@@ -4440,7 +5030,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": KERNELS["flash_attention_wgmma"][0],
         "replaces": KERNELS["flash_attention_wgmma"][1],
-        "launches": llm["launches"] + llm_train["launches"],
+        "launches": llm["launches"] + llm_train["launches"]
+        + gemma3["launches_wgmma"],
         "max_abs_err": max(kernel_errs["flash_attention_wgmma"]),
         "ms": flash["ms"],
         "plain_ms": flash["plain_ms"],
@@ -4455,7 +5046,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": KERNELS["flash_attention_ffma"][0],
         "replaces": KERNELS["flash_attention_ffma"][1],
-        "launches": f32["launches"],
+        "launches": f32["launches"] + gemma3["launches_ffma"],
         "max_abs_err": max(kernel_errs["flash_attention_ffma"]),
         "ms": f32["ms"] * f32["launches"],
         "plain_ms": f32["plain_ms"] * f32["launches"],

@@ -7,14 +7,17 @@
 // computes the same function:
 //
 //   out[b, i, h, :] = sum_j p[i, j] v[b, j, h, :] / max(sum_j p[i, j], 1e-30)
-//   s[i, j] = (q[b, i, h, :] * hd^-0.5) . k[b, j, h, :], or -1e30 where the
+//   s[i, j] = (q[b, i, h, :] * hd^-0.5) . k[b, j, h, :], soft-capped to
+//             c tanh(s / c) when the cap c is > 0, then -1e30 where the
 //             causal mask (i >= j, indices aligned top-left) hides j
 //   p[i, j] = exp(s[i, j] - max_j s[i, j]), kept by an online softmax
 //
 // q is scaled in f32 before the product; the scores, the running max and
 // denominator, p and the accumulator are all f32 (p is not rounded to the
 // storage type before p.v); the output is cast to the storage type once.
-// Heads are MHA: the caller expands GQA first.
+// Heads are MHA: the caller expands GQA first.  The soft-cap (Gemma's
+// logit soft-capping, the reference's `softcap`) is a template flag: the
+// instances without it are the same code as before it existed.
 //
 // What bounds it on the card: a causal prefill of S tokens does about
 // 2 S^2 hd FLOPs per head against 4 S hd elements of q, k, v and out,
@@ -85,13 +88,13 @@ struct Tiles {
 
 // All offsets are 32-bit: the wrapper refuses operands whose largest
 // element offset reaches 2^31.
-template <typename T, int D>
+template <typename T, int D, bool kSoftcap>
 __global__ void __launch_bounds__(kThreads)
 fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ out, int H, int S,
           int Tk, int qsb, int qss, int qsh, int ksb, int kss, int ksh,
           int vsb, int vss, int vsh, int osb, int oss, int osh, int causal,
-          float sm_scale) {
+          float sm_scale, float softcap) {
   using Tl = Tiles<D>;
   constexpr int BK = Tl::BK;
   extern __shared__ __align__(16) float smem[];
@@ -152,7 +155,7 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    // s = (q * scale) . k, masked
+    // s = (q * scale) . k, soft-capped, masked
     {
       float s[4][Tl::TN_S];
 #pragma unroll
@@ -181,7 +184,9 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const int c = sx + 16 * j;
           const int kpos = k0 + c;
           const bool ok = kpos < Tk && (!causal || q0 + r >= kpos);
-          Ps[r * (BK + 1) + c] = ok ? s[i][j] : kNegInf;
+          float sc = s[i][j];
+          if constexpr (kSoftcap) sc = softcap * tanhf(sc / softcap);
+          Ps[r * (BK + 1) + c] = ok ? sc : kNegInf;
         }
       }
     }
@@ -248,39 +253,50 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SC>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int H, int S, int Tk, const int* st, int causal, float sm_scale,
-           cudaStream_t stream) {
+           float softcap, cudaStream_t stream) {
   constexpr int smem = Tiles<D>::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      fa_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fa_kernel<T, D, SC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
-  fa_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  fa_kernel<T, D, SC><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), H, S, Tk, st[0], st[1],
       st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
-      causal, sm_scale);
+      causal, sm_scale, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool SC>
 int dispatch(int D, const void* q, const void* k, const void* v, void* out,
              int B, int H, int S, int Tk, const int* st, int causal,
-             float sm_scale, cudaStream_t s) {
+             float sm_scale, float cap, cudaStream_t s) {
   switch (D) {
-    case 8: return launch<T, 8>(q, k, v, out, B, H, S, Tk, st, causal, sm_scale, s);
-    case 16: return launch<T, 16>(q, k, v, out, B, H, S, Tk, st, causal, sm_scale, s);
-    case 32: return launch<T, 32>(q, k, v, out, B, H, S, Tk, st, causal, sm_scale, s);
-    case 64: return launch<T, 64>(q, k, v, out, B, H, S, Tk, st, causal, sm_scale, s);
+    case 8: return launch<T, 8, SC>(q, k, v, out, B, H, S, Tk, st, causal, sm_scale, cap, s);
+    case 16: return launch<T, 16, SC>(q, k, v, out, B, H, S, Tk, st, causal, sm_scale, cap, s);
+    case 32: return launch<T, 32, SC>(q, k, v, out, B, H, S, Tk, st, causal, sm_scale, cap, s);
+    case 64: return launch<T, 64, SC>(q, k, v, out, B, H, S, Tk, st, causal, sm_scale, cap, s);
     default: break;
   }
   if constexpr (std::is_same_v<T, float>) {
-    if (D == 128) return launch<T, 128>(q, k, v, out, B, H, S, Tk, st, causal, sm_scale, s);
-    if (D == 256) return launch<T, 256>(q, k, v, out, B, H, S, Tk, st, causal, sm_scale, s);
+    if (D == 128) return launch<T, 128, SC>(q, k, v, out, B, H, S, Tk, st, causal, sm_scale, cap, s);
+    if (D == 256) return launch<T, 256, SC>(q, k, v, out, B, H, S, Tk, st, causal, sm_scale, cap, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int dispatch_cap(int D, const void* q, const void* k, const void* v,
+                 void* out, int B, int H, int S, int Tk, const int* st,
+                 int causal, float sm_scale, float softcap, cudaStream_t s) {
+  if (softcap > 0.f)
+    return dispatch<T, true>(D, q, k, v, out, B, H, S, Tk, st, causal,
+                             sm_scale, softcap, s);
+  return dispatch<T, false>(D, q, k, v, out, B, H, S, Tk, st, causal,
+                            sm_scale, 0.f, s);
 }
 
 }  // namespace
@@ -288,18 +304,20 @@ int dispatch(int D, const void* q, const void* k, const void* v, void* out,
 // Launches on `stream` without synchronising and returns the CUDA error
 // (0 when the launch was accepted).  dtype: 0 float32, 1 bfloat16.
 // strides: 12 element strides, (batch, position, head) of q, k, v and
-// out in that order; the head dim is contiguous.
+// out in that order; the head dim is contiguous.  softcap: 0 for none,
+// else the cap c of s -> c tanh(s / c).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, int dtype,
                                    int B, int H, int S, int Tk, int D,
                                    const int* strides, int causal,
-                                   float sm_scale, void* stream) {
+                                   float sm_scale, float softcap,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(D, q, k, v, out, B, H, S, Tk, strides, causal,
-                           sm_scale, s);
+    return dispatch_cap<float>(D, q, k, v, out, B, H, S, Tk, strides, causal,
+                               sm_scale, softcap, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(D, q, k, v, out, B, H, S, Tk, strides,
-                                   causal, sm_scale, s);
+    return dispatch_cap<__nv_bfloat16>(D, q, k, v, out, B, H, S, Tk, strides,
+                                       causal, sm_scale, softcap, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -8,9 +8,14 @@
 // the FFMA kernel of flash_attention.cu.  It computes the same function:
 //
 //   out[b, i, h, :] = sum_j p[i, j] v[b, j, h, :] / max(sum_j p[i, j], 1e-30)
-//   s[i, j] = hd^-0.5 (q[b, i, h, :] . k[b, j, h, :]), or -1e30 where the
+//   s[i, j] = hd^-0.5 (q[b, i, h, :] . k[b, j, h, :]), soft-capped to
+//             c tanh(s / c) when the cap c is > 0, then -1e30 where the
 //             causal mask (i >= j, indices aligned top-left) hides j
 //   p[i, j] = exp(s[i, j] - max_j s[i, j]), kept by an online softmax
+//
+// The soft-cap (Gemma's logit soft-capping, the reference's `softcap`) is
+// a template flag: the instances without it are the same code as before
+// it existed.
 //
 // What bounds it on the card: a causal prefill of S tokens does about
 // 2 S^2 hd FLOPs of q.k^T per head against 4 S hd elements of q, k, v
@@ -297,6 +302,17 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
          | (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
 }
 
+// c tanh(s / c), the soft-cap, as c sign(x) (1 - e) / (1 + e) with
+// e = exp(-2 |x|), x = s / c: branch-free, a handful of instructions
+// (tanhf's range reduction cost the consumer 2.8x at hd 256 and spilled).
+// e is within a few f32 ulps, so the result is within ~1e-7 c of tanh,
+// below the rounding of an f32 score.
+__device__ __forceinline__ float softcap_score(float s, float cap) {
+  const float x = __fdividef(s, cap);
+  const float e = exp2f(-2.f * kLog2e * fabsf(x));
+  return copysignf(cap * __fdividef(1.f - e, 1.f + e), x);
+}
+
 // Two f32 values of p as bf16 pairs: hi = bf16_rn(x), lo = bf16_rn(x - hi).
 __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
                                            uint32_t& lo) {
@@ -313,13 +329,13 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
 // 2 (lane % 4) + (e & 1).  For a 16-wide slice kk of the scores, the A
 // fragment of the p.v wgmma is exactly the pairs (d[8kk + 2i],
 // d[8kk + 2i + 1]), i = 0..3, packed as bf16: no data leaves the thread.
-template <int D>
+template <int D, bool kSoftcap>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
                const __grid_constant__ CUtensorMap to, int H, int S, int T,
-               int causal, float sm_scale) {
+               int causal, float sm_scale, float softcap) {
   using Tl = Sm90Tiles<D>;
   constexpr int BK = Tl::BK;
   constexpr int kStages = Tl::kStages;
@@ -436,11 +452,15 @@ fa_sm90_kernel(const __grid_constant__ CUtensorMap tq,
           }
         }
 
-        // scale, mask, online softmax on the accumulator layout
+        // scale, soft-cap, mask, online softmax on the accumulator layout
         const int k0 = it * BK;
         const bool edge = k0 + BK > T || (causal && k0 + BK - 1 > row_base);
 #pragma unroll
         for (int i = 0; i < BK / 2; ++i) s[i] *= sm_scale;
+        if constexpr (kSoftcap) {
+#pragma unroll
+          for (int i = 0; i < BK / 2; ++i) s[i] = softcap_score(s[i], softcap);
+        }
         if (edge) {
           const int r0 = row_base + rl0;
           const int r1 = row_base + rl1;
@@ -617,10 +637,10 @@ CUresult make_map(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, int B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int D>
+template <int D, bool SC>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int H, int S, int Tk, const long long* st, int causal,
-           float sm_scale, cudaStream_t stream) {
+           float sm_scale, float softcap, cudaStream_t stream) {
   using Tl = Sm90Tiles<D>;
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return -1;
@@ -635,11 +655,13 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   }
   constexpr int smem = Tl::kSmemBytes;
   const cudaError_t err = cudaFuncSetAttribute(
-      fa_sm90_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fa_sm90_kernel<D, SC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
-  fa_sm90_kernel<D><<<grid, kThreads, smem, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], H, S, Tk, causal, sm_scale);
+  fa_sm90_kernel<D, SC><<<grid, kThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], H, S, Tk, causal, sm_scale,
+      softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -651,17 +673,24 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 // tensor map of operand i (q, k, v, out) failed with CUresult r.
 // q, k, v, out are bf16; strides: 12 element strides, (batch, position,
 // head) of q, k, v and out in that order; the head dim is contiguous.
+// softcap: 0 for none, else the cap c of s -> c tanh(s / c).
 extern "C" int flash_attention_sm90_fwd(const void* q, const void* k,
                                         const void* v, void* out, int B,
                                         int H, int S, int Tk, int D,
                                         const long long* strides, int causal,
-                                        float sm_scale, void* stream) {
+                                        float sm_scale, float softcap,
+                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool cap = softcap > 0.f;
   if (D == 128)
-    return launch<128>(q, k, v, out, B, H, S, Tk, strides, causal, sm_scale,
-                       s);
+    return cap ? launch<128, true>(q, k, v, out, B, H, S, Tk, strides, causal,
+                                   sm_scale, softcap, s)
+               : launch<128, false>(q, k, v, out, B, H, S, Tk, strides,
+                                    causal, sm_scale, 0.f, s);
   if (D == 256)
-    return launch<256>(q, k, v, out, B, H, S, Tk, strides, causal, sm_scale,
-                       s);
+    return cap ? launch<256, true>(q, k, v, out, B, H, S, Tk, strides, causal,
+                                   sm_scale, softcap, s)
+               : launch<256, false>(q, k, v, out, B, H, S, Tk, strides,
+                                    causal, sm_scale, 0.f, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -25,6 +25,13 @@ same up to f32 rounding); masked scores are ``-1e30`` and the output is
 aligned top-left.  Unlike the Pallas kernel, S and T need not be
 multiples of the tiles: the tails are masked.
 
+``softcap`` > 0 soft-caps the scaled scores to ``softcap·tanh(s /
+softcap)`` before the mask (Gemma's logit soft-capping: the reference's
+``flash_attention(..., softcap=)``, which the Pallas kernel does not
+take).  Each kernel has it as a template flag, so the instances at
+``softcap=0`` are the code they were without it; a call at 0 passes no
+``softcap`` on to the function it calls.
+
 :class:`FlashAttentionFn` makes either forward differentiable.  The
 Pallas kernel has no backward (the reference differentiates its jnp
 attention), so neither has the port's kernels: the backward recomputes
@@ -111,8 +118,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                         f"{v.dtype}")
 
 
+def _check_softcap(softcap: float) -> None:
+    if not softcap >= 0:
+        raise ValueError(f"softcap is 0 (none) or the cap, got {softcap}")
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, causal: bool = True,
+                          softcap: float = 0.0,
                           block_q: int | None = None,
                           block_k: int | None = None) -> torch.Tensor:
     """The kernels' function in plain PyTorch, tile by tile: per q tile
@@ -121,6 +134,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     at its head dim) up to the causal live-block bound.  ``p`` stays
     f32.  Runs on any device."""
     _check(q, k, v)
+    _check_softcap(softcap)
     b, s, h, d = q.shape
     t = k.shape[1]
     tile_q, tile_k = kernel_tiles(q.dtype, d)
@@ -141,6 +155,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
         for k0 in range(0, n_live * block_k, block_k):
             kt, vt = kf[:, k0:k0 + block_k], vf[:, k0:k0 + block_k]
             sc = torch.einsum("bqhd,bkhd->bhqk", qt, kt)
+            if softcap:
+                sc = softcap * torch.tanh(sc / softcap)
             if causal:
                 kpos = torch.arange(k0, k0 + kt.shape[1], device=q.device)
                 sc = torch.where(qpos[:, None] >= kpos[None], sc, NEG_INF)
@@ -189,22 +205,24 @@ def _library(variant: str):
     if variant == "ffma":
         fn = load("flash_attention").flash_attention_fwd
         # q, k, v, out, dtype, B, H, S, T, hd, strides, causal, scale,
-        # stream
+        # softcap, stream
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
             ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_float,
-            ctypes.c_void_p]
+            ctypes.c_float, ctypes.c_void_p]
     else:
         fn = load("flash_attention_sm90").flash_attention_sm90_fwd
-        # q, k, v, out, B, H, S, T, hd, strides, causal, scale, stream
+        # q, k, v, out, B, H, S, T, hd, strides, causal, scale, softcap,
+        # stream
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_float,
-            ctypes.c_void_p]
+            ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check_cuda(q, k, v) -> None:
+def _check_cuda(q, k, v, softcap: float) -> None:
     _check(q, k, v)
+    _check_softcap(softcap)
     dev = q.device
     for a in (q, k, v):
         if a.device != dev or not a.is_cuda:
@@ -229,7 +247,8 @@ def _launch_error(err: int, variant: str) -> RuntimeError:
 
 
 def flash_attention_ffma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True) -> torch.Tensor:
+                         *, causal: bool = True,
+                         softcap: float = 0.0) -> torch.Tensor:
     """Launch the FFMA kernel (``csrc/flash_attention.cu``) on the current
     stream, without synchronising: float32 at every head dim of
     :data:`HEAD_DIMS`, bfloat16 at those up to 64 (the wgmma kernel takes
@@ -238,7 +257,7 @@ def flash_attention_ffma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kernel_variant(q.dtype, q.shape[-1]) != "ffma":
         raise ValueError(f"the FFMA kernel is not built for {q.dtype} at "
                          f"head dim {q.shape[-1]}: the wgmma kernel takes it")
-    _check_cuda(q, k, v)
+    _check_cuda(q, k, v, softcap)
     b, s, h, d = q.shape
     t = k.shape[1]
     if -(-s // BLOCK_Q) > 65535:
@@ -257,7 +276,7 @@ def flash_attention_ffma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  _DTYPE_CODES[q.dtype], b, h, s, t, d, strides, int(causal),
-                 float(d ** -0.5), stream)
+                 float(d ** -0.5), float(softcap), stream)
     if err != 0:
         raise _launch_error(err, "ffma")
     flash_attention_ffma.launches += 1
@@ -265,8 +284,8 @@ def flash_attention_ffma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_wgmma(q: torch.Tensor, k: torch.Tensor,
-                          v: torch.Tensor, *,
-                          causal: bool = True) -> torch.Tensor:
+                          v: torch.Tensor, *, causal: bool = True,
+                          softcap: float = 0.0) -> torch.Tensor:
     """Launch the wgmma/TMA kernel (``csrc/flash_attention_sm90.cu``) on
     the current stream, without synchronising: bfloat16 at head dims 128
     and 256, operands whose strides and addresses TMA takes
@@ -275,7 +294,7 @@ def flash_attention_wgmma(q: torch.Tensor, k: torch.Tensor,
     if (q.dtype, q.shape[-1]) not in WGMMA_GEOMETRIES:
         raise ValueError(f"the wgmma kernel takes bfloat16 at head dims "
                          f"128 and 256, got {q.dtype} at {q.shape[-1]}")
-    _check_cuda(q, k, v)
+    _check_cuda(q, k, v, softcap)
     b, s, h, d = q.shape
     t = k.shape[1]
     if -(-s // WGMMA_BLOCK_Q) > 65535 or b * h > _INT32_MAX:
@@ -292,7 +311,7 @@ def flash_attention_wgmma(q: torch.Tensor, k: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  b, h, s, t, d, c_strides, int(causal), float(d ** -0.5),
-                 stream)
+                 float(softcap), stream)
     if err != 0:
         raise _launch_error(err, "wgmma")
     flash_attention_wgmma.launches += 1
@@ -303,7 +322,8 @@ _LAUNCHERS = {"ffma": flash_attention_ffma, "wgmma": flash_attention_wgmma}
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True) -> torch.Tensor:
+                         *, causal: bool = True,
+                         softcap: float = 0.0) -> torch.Tensor:
     """Launch the kernel that :func:`kernel_variant` picks for q's dtype
     and head dim, on the current stream (no synchronise).
 
@@ -314,8 +334,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     allocated here, contiguous.  Each launch adds one to
     ``flash_attention_cuda.launches`` and to the variant's own count;
     the variant's launcher checks the operands."""
-    out = _LAUNCHERS[kernel_variant(q.dtype, q.shape[-1])](q, k, v,
-                                                           causal=causal)
+    out = _LAUNCHERS[kernel_variant(q.dtype, q.shape[-1])](
+        q, k, v, causal=causal, softcap=softcap)
     flash_attention_cuda.launches += 1
     return out
 
@@ -326,16 +346,19 @@ flash_attention_wgmma.launches = 0
 
 
 def recompute_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True) -> torch.Tensor:
+                        *, causal: bool = True,
+                        softcap: float = 0.0) -> torch.Tensor:
     """Attention as the reference differentiates it (its
     ``naive_attention``, which its ``flash_attention`` calls for T up to
     ``block_k``, and the same function blocked above): f32 scores and
     softmax, ``p`` cast to v's dtype before ``p·v``.  q (B, S, H, hd),
-    k and v (B, T, H, hd); the causal mask is ``i >= j``, top-left.
-    Holds the (B, H, S, T) f32 scores whole: 537 MB at B 2, H 16, S = T
-    = 2048."""
+    k and v (B, T, H, hd); the scores soft-capped when ``softcap`` > 0;
+    the causal mask is ``i >= j``, top-left.  Holds the (B, H, S, T) f32
+    scores whole: 537 MB at B 2, H 16, S = T = 2048."""
     s, t, hd = q.shape[1], k.shape[1], q.shape[3]
     sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hd ** -0.5
+    if softcap:
+        sc = softcap * torch.tanh(sc / softcap)
     if causal:
         keep = torch.ones((s, t), dtype=torch.bool, device=q.device).tril()
         sc = torch.where(keep, sc, NEG_INF)
@@ -343,20 +366,27 @@ def recompute_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", p, v).to(q.dtype)
 
 
+def _cap(softcap: float) -> dict:
+    """The ``softcap`` keyword of a call: none at 0, so that a function
+    written for the un-capped contract is called as before."""
+    return {"softcap": softcap} if softcap else {}
+
+
 class FlashAttentionFn(torch.autograd.Function):
-    """``FlashAttentionFn.apply(q, k, v, causal, attend)``: the forward is
-    ``attend(q, k, v, causal=causal)`` (the kernel's wrapper on the card,
-    its plain version on the CPU), and q, k, v are saved; the backward
-    recomputes :func:`recompute_attention` from them under
-    ``torch.enable_grad()`` and differentiates it (looked up in this
-    module at call time).  Under ``torch.no_grad()`` it is the forward
-    alone."""
+    """``FlashAttentionFn.apply(q, k, v, causal, attend[, softcap])``:
+    the forward is ``attend(q, k, v, causal=causal, softcap=softcap)``
+    (the kernel's wrapper on the card, its plain version on the CPU;
+    ``softcap`` passed only when > 0), and q, k, v are saved; the
+    backward recomputes :func:`recompute_attention` from them, the
+    soft-cap's ``tanh`` included, under ``torch.enable_grad()`` and
+    differentiates it (looked up in this module at call time).  Under
+    ``torch.no_grad()`` it is the forward alone."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, attend):
-        ctx.causal = causal
+    def forward(ctx, q, k, v, causal, attend, softcap=0.0):
+        ctx.causal, ctx.softcap = causal, softcap
         ctx.save_for_backward(q, k, v)
-        return attend(q, k, v, causal=causal)
+        return attend(q, k, v, causal=causal, **_cap(softcap))
 
     @staticmethod
     def backward(ctx, d_out):
@@ -364,7 +394,11 @@ class FlashAttentionFn(torch.autograd.Function):
         with torch.enable_grad():
             inputs = [t.detach().requires_grad_(n)
                       for t, n in zip(ctx.saved_tensors, needs)]
-            out = recompute_attention(*inputs, causal=ctx.causal)
+            out = recompute_attention(*inputs, causal=ctx.causal,
+                                      **_cap(ctx.softcap))
             grads = iter(torch.autograd.grad(
                 out, [t for t in inputs if t.requires_grad], d_out))
-        return (*(next(grads) if n else None for n in needs), None, None)
+        # no gradient for causal, attend and softcap (autograd drops the
+        # trailing None of a call that left softcap at its default)
+        return (*(next(grads) if n else None for n in needs), None, None,
+                None)

@@ -1,28 +1,40 @@
-"""Attention of the LLM stack: GQA/MQA/MHA with RoPE and a KV cache (the
-port of ``repro.models.attention`` for dense, causal, un-windowed
-configs).
+"""Attention of the LLM stack: GQA/MQA/MHA with RoPE and a KV cache,
+global or sliding-window, with optional logit soft-capping (the port of
+``repro.models.attention`` for the dense, causal configs).
 
-* :func:`flash_attention` — train and prefill attention.  On the card it
-  launches the hand-written kernel (``kernels/csrc/flash_attention.cu``,
-  the port of the Pallas ``_fa_kernel``); on the CPU its plain version.
+* :func:`flash_attention` — train and prefill attention of a global
+  layer.  On the card it launches the hand-written kernel
+  (``kernels/csrc/flash_attention*.cu``, the port of the Pallas
+  ``_fa_kernel``, soft-cap included); on the CPU its plain version.
   Either is differentiable (``FlashAttentionFn``: the backward
-  recomputes attention in plain PyTorch).  Positions are the indices
-  ``0..S-1`` (the only ones this slice takes).
-* :func:`naive_attention` — the full-matrix reference, selected by
-  ``attn_impl="naive"``.
+  recomputes attention in plain PyTorch).  The kernel masks by index,
+  which is the reference's position mask when each row's positions are
+  ``p0 + 0..S-1`` (``models/transformer.py`` refuses others at
+  ``attn_impl="flash"``).
+* :func:`swa_attention` — exact causal sliding-window attention of a
+  local layer by the reference's block-local form (each query block of
+  ``window`` rows attends to itself and the block before), at every
+  ``attn_impl``.
+* :func:`naive_attention` and :func:`chunked_q_attention` — the
+  full-matrix reference, whole or one q block at a time, selected by
+  ``attn_impl="naive"`` / ``"chunked_q"``; both mask by positions.
 * :func:`decode_attention` — one-token attention over the static-size
-  cache with a length mask, plain PyTorch (the reference computes it
-  outside any Pallas kernel).
+  cache with a length (and window) mask.
+
+``swa_attention``, ``chunked_q_attention`` and ``decode_attention`` are
+plain PyTorch on the card too: the reference computes them in jnp
+einsums outside any Pallas kernel.  Scores and softmax run in f32, and
+``p`` is cast to v's dtype before ``p·v``, as the reference.
 
 Not ported (``models/transformer.py`` refuses the configs that need
-them): sliding-window and chunked attention, logit soft-capping, MLA,
-``flash_decode`` over a sharded cache, the int8 cache and the mesh
-constraints.
+them): MLA, ``flash_decode`` over a sharded cache, the int8 cache and
+the mesh constraints.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, BlockDesc
 from repro_torch.kernels.flash_attention import (FlashAttentionFn,
@@ -31,72 +43,167 @@ from repro_torch.kernels.flash_attention import (FlashAttentionFn,
 from repro_torch.models.common import PSpec, apply_rope, rope_angles
 
 __all__ = ["attention_specs", "attention_apply", "flash_attention",
-           "naive_attention", "decode_attention"]
+           "naive_attention", "chunked_q_attention", "swa_attention",
+           "decode_attention"]
 
 NEG_INF = -1e30
 
 
-def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *,
-          causal: bool) -> torch.Tensor:
+def _softcap(scores: torch.Tensor, softcap: float) -> torch.Tensor:
+    return softcap * torch.tanh(scores / softcap) if softcap > 0 else scores
+
+
+def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
+          window: int = 0) -> torch.Tensor:
     """(B,S,T) validity mask from absolute positions.
 
-    q_pos: (B,S) int; k_pos: (B,T) or (T,).  A negative k_pos marks
-    padding."""
+    q_pos: (B,S) int; k_pos: (B,T) or (T,).  A key is kept when it is
+    not after the query (``causal``), less than ``window`` before it
+    (``window`` > 0), and not padding (a negative k_pos)."""
     if k_pos.ndim == 1:
         k_pos = k_pos[None]
     d = q_pos[:, :, None] - k_pos[:, None, :]
     m = torch.ones(d.shape, dtype=torch.bool, device=d.device)
     if causal:
         m &= d >= 0
+    if window > 0:
+        m &= d < window
     m &= k_pos[:, None, :] >= 0
     return m
 
 
-def naive_attention(q, k, v, q_pos, k_pos, *,
-                    causal: bool = True) -> torch.Tensor:
+def naive_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
+                    window: int = 0, softcap: float = 0.0) -> torch.Tensor:
     """Reference full-matrix attention.  q (B,S,Hq,hd), k/v (B,T,Hk,hd).
-    Scores and softmax in f32; the probabilities are cast to v's dtype
-    before ``p·v``, as the reference."""
+    Scores and softmax in f32, soft-capped after the ``hd**-0.5`` scale
+    and before the mask; the probabilities are cast to v's dtype before
+    ``p·v``, as the reference."""
     b, s, hq, hd = q.shape
     hk = k.shape[2]
     hv = v.shape[-1]
     qg = q.reshape(b, s, hk, hq // hk, hd)
     scores = torch.einsum("bsgrh,btgh->bgrst", qg.float(), k.float())
-    scores = scores * hd ** -0.5
-    mask = _mask(q_pos, k_pos, causal=causal)
+    scores = _softcap(scores * hd ** -0.5, softcap)
+    mask = _mask(q_pos, k_pos, causal=causal, window=window)
     scores = torch.where(mask[:, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bgrst,btgh->bsgrh", probs, v)
     return out.reshape(b, s, hq, hv)
 
 
-def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
-    """Blocked online-softmax attention at positions ``0..S-1`` /
-    ``0..T-1``.  q (B,S,Hq,hd), k/v (B,T,Hk,hd): GQA is expanded to MHA
-    (``repeat_interleave`` over heads, the reference's head order; its
-    backward sums dk and dv over the repeats), then the kernel runs on a
-    CUDA tensor and its plain version on a CPU one, each looked up here
-    at call time, through :class:`FlashAttentionFn`."""
+def chunked_q_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
+                        window: int = 0, softcap: float = 0.0,
+                        block_q: int = 1024) -> torch.Tensor:
+    """:func:`naive_attention` one q block of ``block_q`` rows at a time
+    (the reference scans over the blocks): live scores O(block_q·T)
+    instead of O(S·T).  The tail block is padded with queries at
+    position 0, whose rows are dropped."""
+    b, s, hq, hd = q.shape
+    if s <= block_q:
+        return naive_attention(q, k, v, q_pos, k_pos, causal=causal,
+                               window=window, softcap=softcap)
+    nb = -(-s // block_q)
+    pad = nb * block_q - s
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+        q_pos = F.pad(q_pos, (0, pad), value=0)
+    out = torch.cat([naive_attention(
+        q[:, i:i + block_q], k, v, q_pos[:, i:i + block_q], k_pos,
+        causal=causal, window=window, softcap=softcap)
+        for i in range(0, nb * block_q, block_q)], dim=1)
+    return out[:, :s]
+
+
+def swa_attention(q, k, v, q_pos, k_pos, *, window: int,
+                  softcap: float = 0.0) -> torch.Tensor:
+    """Exact causal sliding-window attention, block-local formulation
+    (the reference's): FLOPs O(S·2w).  q/k/v of one length S (train and
+    prefill).
+
+    For S <= 2w the naive attention with a window, masked by positions.
+    Above, the sequence is cut into ``nb = ceil(S/w)`` blocks of ``w``
+    (zero-padded at the tail); each query block attends to its own keys
+    and the previous block's (none for the first), masked by index:
+    ``0 <= i + w - j < w`` within the block pair, and queries and keys
+    past S or before 0 dropped (the reference's behaviour: its blocked
+    branch takes no positions)."""
+    b, s, hq, hd = q.shape
+    hk = k.shape[2]
+    rep = hq // hk
+    w = window
+    if s <= 2 * w:  # not worth blocking
+        return naive_attention(q, k, v, q_pos, k_pos, causal=True,
+                               window=window, softcap=softcap)
+    nb = -(-s // w)
+    pad = nb * w - s
+    if pad:
+        q, k, v = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (q, k, v))
+    qb = q.reshape(b, nb, w, hk, rep, hd)
+    kb = k.reshape(b, nb, w, hk, hd)
+    vb = v.reshape(b, nb, w, hk, hd)
+    k_prev = F.pad(kb, (0, 0, 0, 0, 0, 0, 1, 0))[:, :-1]
+    v_prev = F.pad(vb, (0, 0, 0, 0, 0, 0, 1, 0))[:, :-1]
+    kc = torch.cat([k_prev, kb], dim=2)          # (b, nb, 2w, hk, hd)
+    vc = torch.cat([v_prev, vb], dim=2)
+    sc = torch.einsum("bnigrh,bnjgh->bngrij", qb.float(), kc.float())
+    sc = _softcap(sc * hd ** -0.5, softcap)
+    dev = q.device
+    i = torch.arange(w, device=dev)[:, None]
+    j = torch.arange(2 * w, device=dev)[None, :]
+    delta = i + w - j            # q_abs - k_abs
+    rel_ok = (delta >= 0) & (delta < w)
+    first_blk = (torch.arange(nb, device=dev) == 0)[:, None, None]
+    from_prev = (j < w)[None, :, :].expand(nb, w, 2 * w)
+    valid = rel_ok[None] & ~(first_blk & from_prev)
+    # mask padded queries/keys at the tail
+    blk = torch.arange(nb, device=dev)[:, None]
+    qi_abs = blk * w + torch.arange(w, device=dev)[None, :]
+    kj_abs = (blk - 1) * w + torch.arange(2 * w, device=dev)[None, :]
+    valid = (valid & (qi_abs[:, :, None] < s) & (kj_abs[:, None, :] < s)
+             & (kj_abs[:, None, :] >= 0))
+    sc = torch.where(valid[None, :, None, None], sc, NEG_INF)
+    pr = torch.softmax(sc, dim=-1).to(vc.dtype)
+    out = torch.einsum("bngrij,bnjgh->bnigrh", pr, vc)
+    out = out.reshape(b, nb * w, hq, hd)[:, :s]
+    return out.to(q.dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """Blocked online-softmax attention, masked by index (positions
+    ``p0 + 0..S-1`` against ``p0 + 0..T-1``).  q (B,S,Hq,hd), k/v
+    (B,T,Hk,hd): GQA is expanded to MHA (``repeat_interleave`` over
+    heads, the reference's head order; its backward sums dk and dv over
+    the repeats), then the kernel runs on a CUDA tensor and its plain
+    version on a CPU one, each looked up here at call time, through
+    :class:`FlashAttentionFn`; ``softcap`` > 0 soft-caps the scores in
+    the kernel."""
     rep = q.shape[2] // k.shape[2]
     if rep > 1:
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
     attend = flash_attention_cuda if q.is_cuda else flash_attention_plain
-    return FlashAttentionFn.apply(q, k, v, causal, attend)
+    return FlashAttentionFn.apply(q, k, v, causal, attend, softcap)
 
 
-def decode_attention(q, k_cache, v_cache, lengths) -> torch.Tensor:
+def decode_attention(q, k_cache, v_cache, lengths, *, window: int = 0,
+                     softcap: float = 0.0) -> torch.Tensor:
     """One-token attention over a static-size cache.
 
     q: (B,1,Hq,hd); caches (B,T,Hk,hd); lengths (B,) = index of the
-    current token (the cache already holds it at ``lengths``).  Scores
-    and softmax in f32, ``p`` cast to the cache's dtype."""
+    current token (the cache already holds it at ``lengths``).  A key
+    counts when its index is at most ``lengths`` and, with a window,
+    greater than ``lengths - window``.  Scores and softmax in f32,
+    soft-capped before the mask, ``p`` cast to the cache's dtype."""
     b, _, hq, hd = q.shape
     t, hk = k_cache.shape[1], k_cache.shape[2]
     qg = q.reshape(b, 1, hk, hq // hk, hd)
     sc = torch.einsum("bsgrh,btgh->bgrst", qg.float(), k_cache.float())
-    sc = sc * hd ** -0.5
-    ok = torch.arange(t, device=q.device)[None] <= lengths[:, None]
+    sc = _softcap(sc * hd ** -0.5, softcap)
+    kpos = torch.arange(t, device=q.device)[None]
+    ok = kpos <= lengths[:, None]
+    if window > 0:
+        ok &= kpos > lengths[:, None] - window
     sc = torch.where(ok[:, None, None, None], sc, NEG_INF)
     pr = torch.softmax(sc, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bgrst,btgh->bsgrh", pr, v_cache)
@@ -124,8 +231,13 @@ def attention_apply(params, x, cfg: ArchConfig, desc: BlockDesc, *,
                     lengths=None, attn_impl: str = "flash"):
     """Returns (out, new_cache).
 
-    ``train``: attention over the sequence, no cache.  ``prefill``: the
-    same, and the cache ``{"k", "v"}`` of the un-expanded heads.
+    ``train``: attention over the sequence, no cache: a windowed
+    causal layer (``desc.window`` > 0) through :func:`swa_attention` at
+    any ``attn_impl``, else ``"flash"``, ``"chunked_q"`` or ``"naive"``.
+    ``prefill``: the same, and the cache ``{"k", "v"}`` of the
+    un-expanded heads (full length for a windowed layer too, as the
+    reference's: no ring buffer).  ``positions`` (B, S) drive RoPE at
+    ``desc.rope_theta`` and the position masks.
     ``decode``: writes this token's k/v into ``cache`` *in place* at row
     ``lengths`` of each sequence (the reference returns an updated
     copy), then attends over the cache; returns the same cache."""
@@ -148,11 +260,18 @@ def attention_apply(params, x, cfg: ArchConfig, desc: BlockDesc, *,
 
     new_cache = None
     if mode in ("train", "prefill"):
-        if attn_impl == "flash":
-            out = flash_attention(q, k, v, causal=cfg.causal)
+        cap = cfg.logit_softcap
+        if desc.window and cfg.causal:
+            out = swa_attention(q, k, v, positions, positions,
+                                window=desc.window, softcap=cap)
+        elif attn_impl == "flash":
+            out = flash_attention(q, k, v, causal=cfg.causal, softcap=cap)
+        elif attn_impl == "chunked_q":
+            out = chunked_q_attention(q, k, v, positions, positions,
+                                      causal=cfg.causal, softcap=cap)
         elif attn_impl == "naive":
             out = naive_attention(q, k, v, positions, positions,
-                                  causal=cfg.causal)
+                                  causal=cfg.causal, softcap=cap)
         else:
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
         if mode == "prefill":
@@ -162,7 +281,9 @@ def attention_apply(params, x, cfg: ArchConfig, desc: BlockDesc, *,
         cache["k"][rows, lengths] = k[:, 0].to(cache["k"].dtype)
         cache["v"][rows, lengths] = v[:, 0].to(cache["v"].dtype)
         new_cache = cache
-        out = decode_attention(q, cache["k"], cache["v"], lengths)
+        out = decode_attention(q, cache["k"], cache["v"], lengths,
+                               window=desc.window,
+                               softcap=cfg.logit_softcap)
     else:
         raise ValueError(mode)
     out = out.reshape(b, s, hq * hd) @ params["wo"]

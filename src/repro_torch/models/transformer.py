@@ -1,5 +1,8 @@
 """Decoder LM assembly (the port of ``repro.models.transformer`` for the
-dense, causal, un-windowed configs: ``gemma-7b``, ``qwen1.5-32b``).
+dense, causal configs: ``gemma-7b``, ``qwen1.5-32b`` and ``gemma3-4b``,
+whose 5:1 local:global pattern runs sliding-window layers beside global
+ones at their own ``rope_theta``; logit soft-capping and positions given
+in the batch are ported too).
 
 Parameters keep the reference's stacked layout — ``segments/seg<i>/
 pos<j>/{ln_mix, attn/{wq,wk,wv,wo[,bq,bk,bv]}, ln_mlp, mlp/{...}}`` with
@@ -18,7 +21,8 @@ Entry points:
     ``model_flops_per_token``
 
 A config outside this slice raises ``NotImplementedError`` naming the
-ROADMAP item that brings it, when its model is built.
+ROADMAP item that brings it, when its model is built; a config with a
+segment of zero layers raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -46,8 +50,6 @@ __all__ = ["RunFlags", "check_supported", "model_specs", "init", "forward",
            "model_flops_per_token"]
 
 # ROADMAP queue 1 items that bring what this slice leaves out
-_ITEM_SWA = ("ROADMAP queue 1 item 17 (sliding-window attention, logit "
-             "soft-capping and positions given in the batch)")
 _ITEM_MLA = "ROADMAP queue 1 item 18 (MLA)"
 _ITEM_MOE = "ROADMAP queue 1 item 19 (MoE)"
 _ITEM_SSM = "ROADMAP queue 1 item 20 (SSM and hybrid blocks)"
@@ -56,12 +58,18 @@ _ITEM_INT8 = "ROADMAP queue 1 item 22 (the int8 KV cache)"
 _ITEM_MESH = "ROADMAP queue 1 item 23 (flash_decode and the mesh)"
 
 
+ATTN_IMPLS = ("flash", "naive", "chunked_q")
+
+
 @dataclasses.dataclass(frozen=True)
 class RunFlags:
     """Runtime knobs threaded through the forward pass.
 
-    * ``attn_impl``: the train/prefill attention (``"flash"``: the
-      kernel; ``"naive"``: the full-matrix reference).
+    * ``attn_impl``: the train/prefill attention of the global layers
+      (``"flash"``: the kernel, masked by index; ``"naive"``: the
+      full-matrix reference; ``"chunked_q"``: the same one q block at a
+      time; both mask by positions).  Windowed layers run
+      ``swa_attention`` at every value, as the reference's.
     * ``remat`` (``mode="train"``): each layer's body, every position of
       its segment's pattern, runs under
       ``torch.utils.checkpoint.checkpoint`` and is recomputed in the
@@ -74,7 +82,7 @@ class RunFlags:
       the port loops over them in Python either way.
     * ``seq_shard_decode`` and ``mesh`` must keep their defaults (the
       mesh is not ported)."""
-    attn_impl: str = "flash"          # "flash" | "naive"
+    attn_impl: str = "flash"          # "flash" | "naive" | "chunked_q"
     remat: bool = True
     remat_policy: str = "nothing"     # "nothing" | "dots"
     seq_shard_decode: bool = False
@@ -82,10 +90,9 @@ class RunFlags:
     scan_layers: bool = True
 
     def __post_init__(self):
-        if self.attn_impl not in ("flash", "naive"):
-            raise NotImplementedError(
-                f"attn_impl {self.attn_impl!r}: the port has 'flash' and "
-                f"'naive'")
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl {self.attn_impl!r}: one of "
+                             f"{ATTN_IMPLS}")
         if self.remat_policy not in ("nothing", "dots"):
             raise ValueError(f"remat_policy {self.remat_policy!r}: "
                              f"'nothing' or 'dots'")
@@ -94,12 +101,11 @@ class RunFlags:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a config outside this slice."""
+    """Raise ``NotImplementedError`` for a config outside this slice, and
+    ``ValueError`` for one with a segment of zero layers."""
     if cfg.family in ("encoder", "vlm"):
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r}: "
                                   f"{_ITEM_ENC}")
-    if cfg.logit_softcap > 0:
-        raise NotImplementedError(f"{cfg.name}: logit_softcap: {_ITEM_SWA}")
     if not cfg.causal:
         raise NotImplementedError(f"{cfg.name}: non-causal attention: "
                                   f"{_ITEM_ENC}")
@@ -112,9 +118,15 @@ def check_supported(cfg: ArchConfig) -> None:
                                           f"{desc.mixer!r}: {_ITEM_SSM}")
             if desc.mlp == "moe":
                 raise NotImplementedError(f"{cfg.name}: MoE: {_ITEM_MOE}")
-            if desc.window > 0:
-                raise NotImplementedError(f"{cfg.name}: window "
-                                          f"{desc.window}: {_ITEM_SWA}")
+    for si, (descs, rep) in enumerate(cfg.layer_segments()):
+        if rep < 1:
+            raise ValueError(
+                f"{cfg.name}: segment seg{si} (a pattern of {len(descs)} "
+                f"blocks) has {rep} layers: {cfg.n_layers} layers do not "
+                f"fill one group of its local_global_pattern "
+                f"{cfg.local_global_pattern}; the reference cannot "
+                f"initialise such a segment either (its stacked fan-in "
+                f"is 0)")
 
 
 # ---------------------------------------------------------------------------
@@ -205,6 +217,8 @@ def _logits(params, x, cfg: ArchConfig) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
     logits = x @ head.to(x.dtype)
+    if cfg.logit_softcap > 0:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     if cfg.padded_vocab != cfg.vocab:  # mask padding columns
         valid = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab
         logits = torch.where(valid, logits,
@@ -256,11 +270,14 @@ def forward(params, batch, cfg: ArchConfig, *, mode: str = "train",
     the prompt, stacked over each segment's layers: ``{seg: {pos:
     {"attn": {"k", "v"}}}}`` of ``(layers, B, S, Hk, hd)``.  ``decode``
     writes into ``cache`` in place at ``lengths`` and returns it.
-    ``last_logit_only``: the logits of the last position only."""
+    ``last_logit_only``: the logits of the last position only.
+
+    ``batch["positions"]`` (B, S), optional outside decode (default:
+    ``0..S-1`` on every row), drive RoPE on every path and the masks of
+    ``naive``, ``chunked_q`` and the short ``swa`` branch.  The flash
+    kernel masks by index, which is their mask only when each row is
+    ``p0 + 0..S-1``: other positions at ``attn_impl="flash"`` raise."""
     check_supported(cfg)
-    if "positions" in batch:
-        raise NotImplementedError(f"positions given in the batch: "
-                                  f"{_ITEM_SWA}")
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
     params = _cast_params(params, cfg.activation_dtype)
@@ -269,6 +286,9 @@ def forward(params, batch, cfg: ArchConfig, *, mode: str = "train",
     b, s, _ = x.shape
     if mode == "decode":
         positions = lengths[:, None]
+    elif "positions" in batch:
+        positions = _batch_positions(batch["positions"], (b, s), cfg,
+                                     flags, x.device)
     else:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
 
@@ -305,6 +325,28 @@ def forward(params, batch, cfg: ArchConfig, *, mode: str = "train",
         x = x[:, -1:]
     logits = _logits(params, x, cfg)
     return logits, (new_cache if mode in ("prefill", "decode") else None)
+
+
+def _batch_positions(positions, shape, cfg: ArchConfig, flags: RunFlags,
+                     device) -> torch.Tensor:
+    """``batch["positions"]`` as a (B, S) int64 tensor on ``device``;
+    raises where ``flags.attn_impl="flash"`` runs a global layer on
+    positions the kernel's index mask does not equal."""
+    positions = torch.as_tensor(positions, device=device).long()
+    if tuple(positions.shape) != shape:
+        raise ValueError(f"batch positions of shape "
+                         f"{tuple(positions.shape)}, tokens {shape}")
+    runs_flash = any(not (d.window and cfg.causal)
+                     for descs, _ in cfg.layer_segments() for d in descs)
+    if flags.attn_impl == "flash" and runs_flash:
+        offset = positions - torch.arange(shape[1], device=device)
+        if not bool((offset == offset[:, :1]).all()):
+            raise ValueError(
+                "attn_impl='flash' masks by index, which equals the "
+                "position mask only for positions p0 + 0..S-1 on each row; "
+                "these are not: use attn_impl='naive' or 'chunked_q', "
+                "which mask by positions")
+    return positions
 
 
 def loss_fn(params, batch, cfg: ArchConfig, flags: RunFlags = RunFlags(),

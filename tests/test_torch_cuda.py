@@ -976,3 +976,160 @@ def test_cout_sharded_forward_on_two_gloo_ranks_sharing_the_card(dev,
         torch.testing.assert_close(res["out"].to(dev), ref, **TOL)
         couts = res["launches"]["ganax_conv"]["cout"]
         assert 512 not in couts and couts[256] == 2, couts   # g1 and g2
+
+
+# -- the soft-cap, sliding-window attention and Gemma3 on the card ---------
+
+# (dtype, B, S, T, H, hd, causal, q/k scale, soft-cap): both kernels,
+# each at a cap that bites (scale 1 at cap 1; scores of std 100 at 5)
+SOFTCAP_CASES = [
+    (torch.bfloat16, 1, 1000, 1000, 8, 256, True, 1.0, 1.0),
+    (torch.bfloat16, 1, 1000, 1000, 8, 256, True, 10.0, 5.0),
+    (torch.bfloat16, 2, 150, 133, 2, 128, False, 1.0, 1.0),
+    (torch.float32, 1, 300, 300, 4, 256, True, 1.0, 1.0),
+    (torch.float32, 1, 300, 300, 4, 256, True, 10.0, 5.0),
+    (torch.bfloat16, 2, 150, 97, 3, 64, True, 1.0, 1.0),
+]
+
+
+@pytest.mark.parametrize("dtype,b,s,t,h,hd,causal,scale,cap",
+                         SOFTCAP_CASES)
+def test_flash_soft_cap_kernels_match_plain(dev, dtype, b, s, t, h, hd,
+                                            causal, scale, cap):
+    """The soft-cap instance of the kernel the wrapper picks against its
+    plain version at the same cap, within FLASH_TOL; the kernel without
+    the cap fails that gate (the cap bites)."""
+    q, k, v = _flash_inputs(b, s, t, h, hd, dtype, dev, seed=s + hd)
+    q, k = q * scale, k * scale
+    variant = kernel_variant(dtype, hd)
+    before = _VARIANT_WRAPPERS[variant].launches
+    got = flash_attention_cuda(q, k, v, causal=causal, softcap=cap)
+    assert _VARIANT_WRAPPERS[variant].launches == before + 1
+    ref = flash_attention_plain(q, k, v, causal=causal, softcap=cap)
+    torch.testing.assert_close(got.float(), ref.float(), **FLASH_TOL[dtype])
+    uncapped = flash_attention_cuda(q, k, v, causal=causal)
+    assert not torch.allclose(uncapped.float(), ref.float(),
+                              **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 256),
+                                      (torch.float32, 64)],
+                         ids=["wgmma", "ffma"])
+def test_flash_function_soft_cap_gradients_on_the_card(dev, dtype, hd):
+    """``FlashAttentionFn`` at a soft-cap of 1 on the card (the forward
+    through the kernel's soft-cap instance, the backward a recompute
+    through the ``tanh``) against float64 autograd of soft-capped
+    attention: dq, dk, dv each at most twice the gap of autograd through
+    the plain version, plus ``F32_FLOOR``."""
+    from repro_torch.kernels.flash_attention import FlashAttentionFn
+
+    def capped_f64(a, b, c):
+        sc = torch.einsum("bqhd,bkhd->bhqk", a, b) * a.shape[3] ** -0.5
+        sc = torch.tanh(sc)
+        keep = torch.ones(a.shape[1], b.shape[1], dtype=torch.bool,
+                          device=a.device).tril()
+        sc = sc.masked_fill(~keep, float("-inf"))
+        return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, -1), c)
+    gen = torch.Generator().manual_seed(4)
+    q, k, v, do = (torch.randn((1, 512, 2, hd), generator=gen).to(dev, dtype)
+                   for _ in range(4))
+    exact = _attention_grads(capped_f64, q, k, v, do, torch.float64)
+    before = _VARIANT_WRAPPERS[kernel_variant(dtype, hd)].launches
+    got = _attention_grads(lambda a, b, c: FlashAttentionFn.apply(
+        a, b, c, True, flash_attention_cuda, 1.0), q, k, v, do)
+    assert _VARIANT_WRAPPERS[kernel_variant(dtype, hd)].launches == \
+        before + 1
+    plain = _attention_grads(lambda a, b, c: flash_attention_plain(
+        a, b, c, softcap=1.0), q, k, v, do)
+    for name, g, p, e in zip("qkv", got, plain, exact):
+        assert g.dtype == dtype and bool(torch.isfinite(g).all())
+        gap = float((g.double() - e).norm() / e.norm())
+        yardstick = float((p.double() - e).norm() / e.norm())
+        assert gap <= 2 * yardstick + F32_FLOOR, (name, gap, yardstick)
+
+
+def _flash_bits_tool():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "tools" / "flash_bits.py"
+    spec = importlib.util.spec_from_file_location("flash_bits", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# SHA-256 of each output of tools/flash_bits.py's CASES through the
+# kernels as they were before the soft-cap existed: the commit before
+# it, run by that script on an NVIDIA H100 80GB HBM3 (700 W; torch
+# 2.11.0, CUDA 12.8), beside this tree, which printed the same six
+PRE_SOFTCAP_DIGESTS = {
+    "wgmma hd256 causal":
+        "187c618c2f7517f50ccc00a28a47dc6a542f3d07c1947ff0d1951f7626dec736",
+    "wgmma hd128 full ragged":
+        "6c79fc54971ea22774ec04f013e00047970b80cbb895dc604b8409892aec1d05",
+    "wgmma hd256 big scores":
+        "023fc03f5fa9a95096fed9b147d172c6119856373df5eef32f8bbda09246eb66",
+    "ffma f32 hd256 causal":
+        "06a38274b14a4f48a58902c0607245bf969ae01500da22e8c212295b29f01dcc",
+    "ffma bf16 hd64 full ragged":
+        "c21f3c61fd9c84cab0ecec5b95848896a2573a023e1fa7f7210eb71fe796bdf1",
+    "ffma f32 hd32 causal":
+        "4a8939ed1e97a84c24644f391f62145f365ac58803125a2df7fde4b85328491b",
+}
+
+
+def test_flash_kernels_at_soft_cap_0_keep_their_bits(dev):
+    """With the soft-cap a template flag, the instances at 0 are the
+    code that was there before: their outputs equal, bit for bit, the
+    ones the kernels gave before the change (tools/flash_bits.py)."""
+    got = _flash_bits_tool().digests(dev)
+    assert got == PRE_SOFTCAP_DIGESTS
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_swa_attention_on_the_card_matches_the_cpu(dev, dtype):
+    """The plain sliding-window attention (block-local, w 128, 4 q heads
+    over 2 kv heads of 256, 1000 tokens: a padded tail) on the card
+    against the same function on the CPU: f32 within 2e-5, bf16 within
+    2^-8 of the output's norm (p is rounded to bf16 on each side after
+    a softmax summed in another order)."""
+    from repro_torch.models.attention import swa_attention
+    gen = torch.Generator().manual_seed(6)
+    q = torch.randn((1, 1000, 4, 256), generator=gen).to(dtype)
+    k, v = (torch.randn((1, 1000, 2, 256), generator=gen).to(dtype)
+            for _ in range(2))
+    pos = torch.arange(1000)[None]
+    ref = swa_attention(q, k, v, pos, pos, window=128)
+    got = swa_attention(q.to(dev), k.to(dev), v.to(dev), pos.to(dev),
+                        pos.to(dev), window=128).cpu()
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, atol=2e-5, rtol=2e-5)
+    else:
+        rel = float((got.float() - ref.float()).norm() / ref.float().norm())
+        assert rel <= 2 ** -8, rel
+
+
+def test_gemma3_engine_on_the_card_launches_flash_on_global_layers(dev):
+    """Tiny Gemma3 in f32 (6 layers under its (5, 1) pattern: one
+    global): one kernel launch per global layer per prefill, none for
+    the local ones, and the same greedy tokens as the naive engine."""
+    cfg = dataclasses.replace(reduced_config("gemma3-4b", "tiny"),
+                              n_layers=6, dtype="float32")
+    params = tr.init(cfg, torch.Generator(dev).manual_seed(0))
+    prompts = [[int(t) for t in torch.randint(0, cfg.vocab, (n,),
+                generator=torch.Generator().manual_seed(n))]
+               for n in (70, 300, 131)]
+    tokens = {}
+    for impl in ("flash", "naive"):
+        engine = DecodeEngine(cfg, params, EngineConfig(
+            n_slots=2, max_len=320, max_new=5), tr.RunFlags(attn_impl=impl),
+            device=dev)
+        reqs = [Request(rid=i, prompt=p) for i, p in enumerate(prompts)]
+        before = flash_attention_cuda.launches
+        engine.run(reqs)
+        launched = flash_attention_cuda.launches - before
+        assert launched == (len(prompts) if impl == "flash" else 0)
+        tokens[impl] = [r.generated for r in reqs]
+    assert tokens["flash"] == tokens["naive"]

@@ -153,7 +153,7 @@ def test_llm_entry_points_default_to_the_card(monkeypatch):
 
 
 OUTSIDE_THE_SLICE = {
-    "gemma3-4b": "item 17", "hubert-xlarge": "item 21",
+    "hubert-xlarge": "item 21",
     "hymba-1.5b": "item 20", "internvl2-26b": "item 21",
     "llama4-scout-17b-a16e": "item 19", "mamba2-2.7b": "item 20",
     "minicpm3-4b": "item 18", "olmoe-1b-7b": "item 19"}
@@ -172,13 +172,6 @@ def test_llm_configs_outside_the_slice_raise_at_build(name):
 
 def test_llm_options_outside_the_slice_raise():
     cfg, params = _tiny_lm()
-    soft = dataclasses.replace(cfg, logit_softcap=30.0)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tr.model_specs(soft)
-    tokens = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tr.forward(params, {"tokens": tokens,
-                            "positions": torch.zeros_like(tokens)}, cfg)
     with pytest.raises(NotImplementedError, match="item 22"):
         tr.init_cache(cfg, 1, 8, kv_dtype="int8", device="cpu")
     with pytest.raises(NotImplementedError, match="item 23"):
@@ -187,14 +180,39 @@ def test_llm_options_outside_the_slice_raise():
         tr.RunFlags(seq_shard_decode=True)
     # the train options of the reference's RunFlags are the port's too
     for flags in (tr.RunFlags(remat=False), tr.RunFlags(remat_policy="dots"),
-                  tr.RunFlags(scan_layers=False)):
+                  tr.RunFlags(scan_layers=False),
+                  tr.RunFlags(attn_impl="chunked_q")):
         assert not flags.mesh
     with pytest.raises(NotImplementedError, match="item 23"):
         make_train_step(cfg, AdamWConfig(), compute_shardings=object())
-    with pytest.raises(NotImplementedError, match="'flash' and 'naive'"):
-        tr.RunFlags(attn_impl="chunked_q")
-    for name in ("gemma-7b", "qwen1.5-32b"):
+    with pytest.raises(ValueError, match="'chunked_q'"):
+        tr.RunFlags(attn_impl="blocked")
+    # soft-capping and positions given in the batch are the slice's
+    soft = dataclasses.replace(cfg, logit_softcap=30.0)
+    tr.model_specs(soft)
+    tokens = torch.zeros((1, 4), dtype=torch.int64)
+    logits, _ = tr.forward(params, {"tokens": tokens,
+                                    "positions": torch.arange(4)[None] + 2},
+                           cfg)
+    assert logits.shape == (1, 4, cfg.padded_vocab)
+    for name in ("gemma-7b", "qwen1.5-32b", "gemma3-4b"):
         tr.model_specs(get_config(name))       # the slice's full configs
+
+
+def test_a_segment_of_zero_layers_raises_at_build():
+    """Gemma3's tiny preset: 2 layers under a (5, 1) pattern leave its
+    group segment with 0 layers, which the reference cannot initialise
+    either (its stacked fan-in is 0)."""
+    cfg = llm_serve.reduced_config("gemma3-4b", "tiny")
+    assert [rep for _, rep in cfg.layer_segments()] == [0, 2]
+    for build in (lambda: tr.model_specs(cfg),
+                  lambda: tr.init(cfg, torch.Generator()),
+                  lambda: tr.count_params(cfg),
+                  lambda: tr.init_cache(cfg, 1, 8, device="cpu")):
+        with pytest.raises(ValueError, match="seg0 .* 0 layers.*reference"):
+            build()
+    six = dataclasses.replace(cfg, n_layers=6)
+    assert tr.count_params(six) > 0
 
 
 def test_lm_params_from_jax_validates_paths_and_shapes():
