@@ -85,6 +85,18 @@ wrt the masters through the kernel against the naive path in bf16 (with
 a planted backward fault that must fail that gate) and in f32 through
 the FFMA kernel, remat, "dots" and grad_accum=2 against their controls,
 and runs the train CLI at the tiny preset and the restart demo.  The
+gemma3 phase serves and trains full-width Gemma3-4B (sliding-window and
+global layers).  The minicpm3 phase serves full-width MiniCPM3-4B (62
+layers of multi-head latent attention, random bf16 weights from seed 0)
+through ``DecodeEngine.run``, every prefill's attention through the
+FFMA kernel's split instance (q·k 96 against v 64; 62 launches a
+prefill), holds each launch of a 4000-token prefill to float64, the
+kernel path's logits to the naive path's (with a dropped kv tile and
+the dv^-0.5 scale planted above the gate), the absorbed decode to the
+expanded form (with W_uk and W_uv swapped above the gate), checks an f32
+model through the f32 instance and the tiny preset through the (48,
+32) instances, and trains 16 of the 62 layers (the loss falling, the
+bf16 gradient gate with a planted backward fault on ``wkv_b``).  The
 mesh phase runs programs sharded over two ``gloo`` ranks that share the
 card (started by the port's launcher once the kernels are built): the
 full-width DCGAN and
@@ -219,6 +231,16 @@ FLASH_BIG_SCORES = 10.0
 SOFTCAP_GEOMETRIES = (("gemma3 global S=4000", 1, 4000, 8, 256, torch.bfloat16),
                       ("f32 S=1024", 1, 1024, 8, 256, torch.float32))
 SOFTCAP_BITES = ((1.0, 1.0), (FLASH_BIG_SCORES, 5.0))
+# the FFMA kernel's split instances (q·k head dim, v head dim) -> heads:
+# MiniCPM3-4B's 40 heads of 64 + 32 against 64, its tiny preset's 4 of
+# 32 + 16 against 32; each at both dtypes on SPLIT_CASES (label, B, S,
+# T, causal, soft-cap): causal and full, ragged S and T against the
+# 64-row q tile and both kv tiles (32 rows at (96, 64), 64 at (48, 32)),
+# one soft-capped case (a cap of 1, which bites on scores of std 1)
+SPLIT_HEADS = {(96, 64): 40, (48, 32): 4}
+SPLIT_CASES = (("causal ragged", 1, 1000, 1000, True, 0.0),
+               ("full ragged B=2", 2, 333, 197, False, 0.0),
+               ("causal cap 1", 1, 300, 300, True, 1.0))
 # prefill and first-decode logits of the kernel path against the naive
 # path: ||a - b|| <= LLM_TOL * ||b||, in f32 (the same weights widened).
 LLM_TOL = 1e-2
@@ -877,9 +899,12 @@ def flash_cases() -> list[tuple]:
     shorter than one TMA box); Qwen's 40 heads of 128 at a small S,
     causal and full; the five geometries of tests/test_kernels_flash.py;
     the llm_train phase's two (its steps' B = 2 x 2048 in bf16, its f32
-    gate's 1 x 1024); the first again at FLASH_BIG_SCORES; and the
+    gate's 1 x 1024); the first again at FLASH_BIG_SCORES; the
     soft-cap instances of both kernels (SOFTCAP_CASES: Gemma3's global
-    geometry in bf16, the f32 gate's), each at a cap that bites."""
+    geometry in bf16, the f32 gate's), each at a cap that bites; and the
+    FFMA kernel's split instances (SPLIT_CASES: MiniCPM3-4B's q·k 96
+    against v 64 and its tiny preset's 48 against 32).  Each case ends
+    with v's head dim ``dv`` (``hd`` but for the split instances)."""
     cases = []
     for s in (17, 1000, 2048):
         for dtype in (torch.bfloat16, torch.float32):
@@ -908,31 +933,55 @@ def flash_cases() -> list[tuple]:
         for scale, cap in SOFTCAP_BITES:
             cases.append((f"{label} cap {cap:g}", b, s, s, h, hd, True,
                           dtype, scale, cap))
+    cases = [c + (c[5],) for c in cases]
+    for (dk, dv), h in SPLIT_HEADS.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            for label, b, s, t, causal, cap in SPLIT_CASES:
+                cases.append((f"{dk}/{dv} {label}", b, s, t, h, dk, causal,
+                              dtype, 1.0, cap, dv))
     return cases
 
 
-def flash_operands(b, s, t, h, hd, dtype, dev, seed, scale=1.0):
-    """q, k, v (B, S|T, H, hd) of ``dtype`` on ``dev``, drawn from
-    ``seed``: q and k N(0, scale^2), v N(0, 1)."""
+def split_instance(dtype, dk: int, dv: int) -> str:
+    """The kernels line's name of the FFMA kernel's instance at the split
+    head dims (dk, dv)."""
+    return (f"flash_attention_ffma_{dk}x{dv}_"
+            f"{'bf16' if dtype == torch.bfloat16 else 'f32'}")
+
+
+def scaled_by_dv(attend):
+    """``attend`` scoring by ``dv**-0.5`` in place of ``dk**-0.5`` (q
+    scaled by ``(dk / dv)**0.5``): the planted fault of the split head
+    dims, the one an MLA port is likeliest to make."""
+    def faulty(q, k, v, causal=True, **cap):
+        return attend(q * (q.shape[3] / v.shape[3]) ** 0.5, k, v,
+                      causal=causal, **cap)
+    return faulty
+
+
+def flash_operands(b, s, t, h, hd, dtype, dev, seed, scale=1.0, dv=None):
+    """q, k (B, S|T, H, hd) and v (B, T, H, dv, default hd) of ``dtype``
+    on ``dev``, drawn from ``seed``: q and k N(0, scale^2), v N(0, 1)."""
     gen = torch.Generator().manual_seed(seed)
     return [(torch.randn(shape, generator=gen) * c).to(dev, dtype)
             for shape, c in (((b, s, h, hd), scale), ((b, t, h, hd), scale),
-                             ((b, t, h, hd), 1.0))]
+                             ((b, t, h, dv or hd), 1.0))]
 
 
 def flash_geometries(dev) -> dict[str, list[float]]:
     """Each geometry of ``flash_cases``: the kernel that the wrapper picks
     against its plain version on the card.  Returns the max abs errors
-    by variant."""
+    by variant, and by instance (``split_instance``) for the split head
+    dims, each of which must fail the gate scaled by ``dv**-0.5``."""
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain,
                                                      kernel_variant)
     errs = {variant: [] for variant in FLASH_VARIANTS}
-    for i, (label, b, s, t, h, hd, causal, dtype, scale, cap) in enumerate(
-            flash_cases()):
+    for i, (label, b, s, t, h, hd, causal, dtype, scale, cap, dv) in \
+            enumerate(flash_cases()):
         q, k, v = flash_operands(b, s, t, h, hd, dtype, dev, seed=100 + i,
-                                 scale=scale)
-        variant = kernel_variant(dtype, hd)
+                                 scale=scale, dv=dv)
+        variant = kernel_variant(dtype, hd, dv)
         got = flash_attention_cuda(q, k, v, causal=causal, softcap=cap)
         ref = flash_attention_plain(q, k, v, causal=causal, softcap=cap)
         torch.cuda.synchronize()
@@ -940,10 +989,13 @@ def flash_geometries(dev) -> dict[str, list[float]]:
         err = (got.float() - ref.float()).abs().max().item()
         ok = bool(torch.allclose(got.float(), ref.float(), atol=atol,
                                  rtol=rtol)) \
-            and bool(torch.isfinite(got).all())
-        errs[variant].append(err)
+            and bool(torch.isfinite(got).all()) \
+            and got.shape == (b, s, h, dv)
+        key = split_instance(dtype, hd, dv) if dv != hd else variant
+        errs.setdefault(key, []).append(err)
         print(f"flash_attention ({variant}) vs plain  {label:18s} B={b} S={s} "
-              f"T={t} H={h} hd={hd} {'causal' if causal else 'full'} "
+              f"T={t} H={h} hd={hd}{f'/{dv}' if dv != hd else ''} "
+              f"{'causal' if causal else 'full'} "
               f"{str(dtype).removeprefix('torch.')}"
               f"{f' q,k x{scale:g}' if scale != 1 else ''}"
               f"{f' softcap {cap:g}' if cap else ''} max_abs_err "
@@ -961,6 +1013,18 @@ def flash_geometries(dev) -> dict[str, list[float]]:
                   f"{'fails the gate, as it must' if caught else 'PASSES'}")
             check(caught, f"{label}: the gate cannot tell a kernel that "
                   f"ignores the soft-cap")
+            del bad
+        if dv != hd:
+            bad = scaled_by_dv(flash_attention_cuda)(q, k, v, causal=causal,
+                                                     softcap=cap)
+            fault = (bad.float() - ref.float()).abs().max().item()
+            caught = not torch.allclose(bad.float(), ref.float(), atol=atol,
+                                        rtol=rtol)
+            print(f"  planted fault, the kernel scaled by dv^-0.5 in place "
+                  f"of dk^-0.5: max_abs_err {fault:.3e} "
+                  f"{'fails the gate, as it must' if caught else 'PASSES'}")
+            check(caught, f"{label}: the gate cannot tell a kernel scaled "
+                  f"by dv^-0.5")
             del bad
     return errs
 
@@ -1022,7 +1086,7 @@ def attention_f64(q, k, v, causal: bool, window: int = 0) -> torch.Tensor:
 def planted_fault(fault: str):
     """The kernel's function in plain PyTorch with one fault planted (see
     PLANTED_FAULTS): each query row drops the kv tile that holds its
-    diagonal, a tile of the kernel that runs q's dtype at its head dim,
+    diagonal, a tile of the kernel that runs q's dtype at its head dims,
     or the causal mask keeps q > k in place of q >= k."""
     from repro_torch.kernels.flash_attention import (NEG_INF,
                                                      kernel_block_k)
@@ -1034,7 +1098,7 @@ def planted_fault(fault: str):
         if fault == "strict causal mask":
             keep = qpos > kpos
         else:
-            bk = kernel_block_k(hd, q.dtype)
+            bk = kernel_block_k(hd, q.dtype, v.shape[3])
             keep = (qpos >= kpos) & (kpos // bk != qpos // bk)
         sc = torch.einsum("bqhd,bkhd->bhqk", q.float() * hd ** -0.5,
                           k.float())
@@ -1110,7 +1174,8 @@ def serve_requests(cfg, params, ecfg, prompts, impl, wrappers, dev):
         kernel.launches = 0
     start[0] = time.perf_counter()
     engine.run(reqs)
-    torch.cuda.synchronize()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
     wall = time.perf_counter() - start[0]
     counts = {k: wrappers[k][0].launches for k in wrappers}
     del engine
@@ -1576,16 +1641,19 @@ def exact_attention(q, k, v, causal=True):
     return attention_f64(q, k, v, causal).to(q.dtype)
 
 
-def regime_forward(calls: list, label: str) -> dict:
+def regime_forward(calls: list, label: str, plain_tiles: dict = {}) -> dict:
     """Each recorded launch (see REGIME_F64_RATIO): the kernel's and the
     plain version's mean |error| against float64 attention, gated; the
     scores' largest magnitude, and the elementwise FLASH_TOL's use,
-    read; a dropped diagonal tile on the first launch must fail."""
+    read; a dropped diagonal tile on the first launch must fail.
+    ``plain_tiles`` (``block_q``, ``block_k``) walks the plain version
+    over larger tiles than the kernel's (fewer Python steps; the same
+    function summed in another f32 order)."""
     from repro_torch.kernels.flash_attention import flash_attention_plain
     ratios, used, score_max, fault = [], 0.0, 0.0, None
     for i, (q, k, v, causal, o) in enumerate(calls):
         exact = attention_f64(q, k, v, causal)
-        ref = flash_attention_plain(q, k, v, causal=causal)
+        ref = flash_attention_plain(q, k, v, causal=causal, **plain_tiles)
         e_plain = (ref.double() - exact).abs().mean().item()
         ratios.append((o.double() - exact).abs().mean().item() / e_plain)
         atol, rtol = FLASH_TOL[o.dtype]
@@ -2559,6 +2627,709 @@ def gemma3_phase(card, dev, wrappers) -> dict:
     out["launches_wgmma"] = out["launches"] + t["launches"]
     out["seconds"] = time.perf_counter() - t_phase
     print(f"gemma3 phase: {out['seconds']:.1f} s")
+    return out
+
+
+# -- MiniCPM3-4B: multi-head latent attention, served and trained ------------
+
+# The minicpm3 phase: full-width MiniCPM3-4B (62 MLA layers, d_model 2560,
+# 40 heads of q·k 64 + 32 against v 64, q_lora 768, kv_lora 256, vocab
+# 73,448 padded to 73,472; bf16, random weights from seed 0) serving
+# MINICPM3_REQUESTS prompts of lengths drawn from seed 0 in
+# MINICPM3_PROMPT_LENS, greedy, through MINICPM3_SLOTS slots: every
+# prefill's attention through the FFMA kernel's (96, 64) instance, one
+# launch a layer, and every decode step through the absorbed form
+# (plain PyTorch over the latent cache of 288 values a token); then
+# training at full width with MINICPM3_TRAIN_LAYERS of its 62 layers (16
+# B a parameter of f32 masters, moments and gradients: 68.2 GB at 62
+# layers, before the activations and the 73,472-wide logits; 22.1 GB at
+# 16), steps of MINICPM3_TRAIN_BATCH SyntheticLM tokens.
+MINICPM3_ARCH = "minicpm3-4b"
+MINICPM3_PARAMS = 4_262_025_728
+MINICPM3_REQUESTS = 16
+MINICPM3_PROMPT_LENS = (128, 4000)
+MINICPM3_SLOTS, MINICPM3_MAX_LEN, MINICPM3_MAX_NEW = 8, 4040, 32
+MINICPM3_TRAIN_LAYERS = 16
+MINICPM3_TRAIN_PARAMS = 1_378_978_304
+MINICPM3_TRAIN_BATCH = (2, 2048)
+MINICPM3_TRAIN_TIMED = 5
+# the f32 check: full width with these layers, one prompt of these tokens
+MINICPM3_F32 = (8, 3000)
+# the absorbed decode against the expanded form: one slot, a prompt of
+# this many tokens, then this many greedy decode steps
+MINICPM3_DECODE = (1000, 4)
+# the logits of the kernel path against the naive path's on a 4000-token
+# prompt, ||a - b|| <= tol ||b||, by the weights' regime: at the
+# reference's init as Gemma-7B's and Gemma3's (LLM_TOL_BF16, the faults
+# read), on the same weights conditioned to fan-in = width (``condition``)
+# at Gemma3's conditioned gate, with both planted faults of
+# MINICPM3_FAULTS above it
+MINICPM3_LOGITS_TOL = {"reference init": LLM_TOL_BF16, "conditioned": 3e-2}
+MINICPM3_FAULTS = ("diagonal tile dropped", "dv scale")
+# the f32 check's logits against the naive path's
+MINICPM3_F32_TOL = 1e-4
+# each decode step's logits against the last row of the expanded form's
+# prefill of the prompt plus the tokens so far, ||a - b|| <= tol ||b||:
+# in bf16 (62 layers, conditioned weights) at the logits' gate; in f32
+# (MINICPM3_F32's layers, the reference's init) at the f32 logits'.
+# W_uk and W_uv swapped in the decode (each head's halves of wkv_b;
+# qk_nope = v_head_dim) must exceed both.
+MINICPM3_DECODE_TOL = {torch.bfloat16: MINICPM3_LOGITS_TOL["conditioned"],
+                       torch.float32: MINICPM3_F32_TOL}
+# the plain version's tiles in the per-launch float64 gate (regime_forward):
+# 256 x 256 in place of the kernel's 64 x 32, so that 62 launches at S =
+# 4000 walk 128 tile pairs each, not ~4000
+MINICPM3_PLAIN_TILES = dict(block_q=256, block_k=256)
+# the tiny preset's runs on the card, through the (48, 32) instance: the
+# train CLI's arguments, and the f32 engine's prompts (flash vs naive)
+MINICPM3_TINY_TRAIN = ["--preset", "tiny", "--steps", "3", "--batch", "2",
+                       "--seq", "256"]
+MINICPM3_TINY_PROMPTS = (70, 300, 131)
+
+
+def swapped_absorption():
+    """Inside: MLA's absorbed decode applies W_uv where W_uk goes and W_uk
+    where W_uv goes (each head's two halves of ``wkv_b`` swapped, which
+    needs qk_nope = v_head_dim); train and prefill untouched."""
+    from repro_torch.models import attention
+    mla = attention.mla_apply
+
+    def faulty(params, x, cfg, desc, *, mode="train", **kw):
+        if mode == "decode":
+            kl, h = cfg.kv_lora_rank, cfg.n_heads
+            w = params["wkv_b"].reshape(kl, h, 2, -1).flip(2)
+            params = dict(params, wkv_b=w.reshape(kl, -1))
+        return mla(params, x, cfg, desc, mode=mode, **kw)
+    return swapped(attention, "mla_apply", faulty)
+
+
+def split_bound(b, s, t, h, dk, dv, dtype, causal) -> dict:
+    """The least time the card could take for one attention call at the
+    split head dims: the larger of its operations' time (2 dk FLOPs of
+    q·k and 2 dv of p·v for each (query, key) pair the mask lets
+    through, at the bf16 tensor-core rate for bf16 operands and the FP32
+    rate for f32) and its bytes' time (q, k, v read once, the output
+    written once)."""
+    pairs = sum(min(i + 1, t) for i in range(s)) if causal else s * t
+    flops = 2.0 * b * h * (dk + dv) * pairs
+    nbytes = torch.finfo(dtype).bits // 8 * b * h * (s * dk + t * dk
+                                                     + t * dv + s * dv)
+    peak = PEAK_BF16_TC_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    ops_ms, hbm_ms = flops / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return dict(flops=flops, bytes=nbytes, ops_ms=ops_ms, hbm_ms=hbm_ms,
+                bound_ms=max(ops_ms, hbm_ms),
+                bound_by="operations" if ops_ms >= hbm_ms else "bytes")
+
+
+def sdpa_backend(q, k, v) -> str:
+    """The backend ``F.scaled_dot_product_attention`` picks for (B, H, S,
+    hd) q, k, v, causal (read from PyTorch's own chooser)."""
+    from torch.nn.attention import SDPBackend
+    try:
+        return SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=True)
+                          ).name
+    except (AttributeError, RuntimeError, TypeError, ValueError) as e:
+        return f"unknown ({type(e).__name__})"
+
+
+def split_launch_row(label, b, s, h, dk, dv, dtype, dev, on_card) -> dict:
+    """One causal launch of the split instance at (B, S, H, dk/dv): the
+    kernel's device ms, its plain version's ms, one SDPA call's on the
+    same q, k, v (which takes Ev != E) and the backend it picked, the
+    bound; and the kernel against its plain version (max abs error)."""
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    q, k, v = flash_operands(b, s, s, h, dk, dtype, dev, seed=s + dk, dv=dv)
+    row = dict(label=label, b=b, s=s, h=h, dk=dk, dv=dv,
+               dtype=str(dtype).removeprefix("torch."),
+               **split_bound(b, s, s, h, dk, dv, dtype, True))
+    if not on_card:
+        return row
+    got = flash_attention_cuda(q, k, v)
+    ref = flash_attention_plain(q, k, v)
+    row["max_abs_err"] = (got.float() - ref.float()).abs().max().item()
+    atol, rtol = FLASH_TOL[dtype]
+    check(torch.allclose(got.float(), ref.float(), atol=atol, rtol=rtol),
+          f"{label}: the kernel disagrees with its plain version")
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    row.update(
+        ms=device_ms(lambda: flash_attention_cuda(q, k, v)),
+        plain_ms=time_ms(lambda: flash_attention_plain(q, k, v), warmup=1,
+                         runs=1),
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)),
+        library_backend=sdpa_backend(qt, kt, vt))
+    row["tflops"] = row["flops"] / (row["ms"] / 1e3) / 1e12
+    return row
+
+
+def minicpm3_phase(card, dev, wrappers, *, cfg=None,
+                   requests: int = MINICPM3_REQUESTS,
+                   prompt_lens: tuple[int, int] = MINICPM3_PROMPT_LENS,
+                   decode: tuple[int, int] = MINICPM3_DECODE,
+                   f32: tuple[int, int] = MINICPM3_F32,
+                   train_layers: int = MINICPM3_TRAIN_LAYERS,
+                   train_batch: tuple[int, int] = MINICPM3_TRAIN_BATCH
+                   ) -> dict:
+    """Full-width MiniCPM3-4B (``cfg``, default the registered config):
+    serving through ``DecodeEngine.run`` (every counter at 0 just before,
+    read just after: one launch of the (96, 64) FFMA instance a layer a
+    prefill, no wgmma launch, no plain call), TTFT, prefill and decode
+    rates; every launch of a 4000-token prefill against float64
+    (``regime_forward``); the kernel path's logits against the naive
+    path's at the reference's init and on conditioned weights, with the
+    planted faults; the absorbed decode against the expanded form, with
+    W_uk and W_uv swapped as its fault; a profile of the prefill by kind
+    and one launch at (1, 4000, 40, 96/64) beside its plain version,
+    SDPA and the bound; the serve CLI at full width; the f32 check
+    through the (96, 64) f32 instance; the tiny preset through the (48,
+    32) instances (the train CLI in bf16, an f32 engine against the naive
+    one); then training with the depth cut: step time, tokens/s,
+    model-FLOP share, peak memory, the optimizer's time, the loss falling
+    on one batch and the bf16 gradient gate with its planted fault on
+    ``wkv_b``.  The keywords shrink it for a rehearsal on the CPU (the
+    kernels' plain versions, no counts, no times)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM, make_batch_fn
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_ffma,
+                                                     flash_attention_plain)
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer as tr
+    from repro_torch.serve.engine import EngineConfig, _merge_slot_cache
+    from repro_torch.train.checkpoint import tree_leaves
+    from repro_torch.train.optimizer import AdamWConfig, adamw_update
+    from repro_torch.train.train_state import (init_train_state,
+                                               make_train_step)
+    on_card = dev.type == "cuda"
+    full_width = cfg is None
+    cfg = cfg or get_config(MINICPM3_ARCH)
+    kernel = flash_attention_cuda if on_card else flash_attention_plain
+    by_geometry = flash_attention_ffma.launches_by_geometry
+    bf16_key = (torch.bfloat16, cfg.qk_nope_head_dim + cfg.qk_rope_head_dim,
+                cfg.v_head_dim)
+    f32_key = (torch.float32,) + bf16_key[1:]
+    check(cfg.qk_nope_head_dim == cfg.v_head_dim, "the swapped-absorption "
+          "fault needs qk_nope_head_dim = v_head_dim")
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def live_rel(a, b):
+        """rel_norm over the live vocab: the padding columns (73,448 of
+        73,472 are live) hold -1e30 on both sides and would swamp it."""
+        return rel_norm(a[..., :cfg.vocab], b[..., :cfg.vocab])
+
+    def reset_counts():
+        for kern, _ in wrappers.values():
+            kern.launches = 0
+        by_geometry.clear()
+
+    def read_counts():
+        return ({k: wrappers[k][0].launches for k in wrappers},
+                dict(by_geometry))
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = tr.init(cfg, torch.Generator(dev).manual_seed(0))
+    sync()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    check(n_params == tr.count_params(cfg)
+          and (n_params == MINICPM3_PARAMS or not full_width),
+          f"{n_params} parameters, not {MINICPM3_PARAMS}")
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params))
+    L = cfg.n_layers
+    dk, dv = bf16_key[1:]
+    print(f"{MINICPM3_ARCH}: {L} MLA layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of q·k {cfg.qk_nope_head_dim} + "
+          f"{cfg.qk_rope_head_dim} against v {dv}, q_lora {cfg.q_lora_rank},"
+          f" kv_lora {cfg.kv_lora_rank}, vocab {cfg.vocab} (padded "
+          f"{cfg.padded_vocab}): {n_params:,} parameters, "
+          f"{weight_bytes / 1e9:.2f} GB in {cfg.dtype}, drawn in "
+          f"{time.perf_counter() - t0:.1f} s; the latent cache "
+          f"{L * (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * 2} B a token")
+
+    # -- serving: the main path ------------------------------------------
+    gen = torch.Generator().manual_seed(0)
+    lens = torch.randint(prompt_lens[0], prompt_lens[1] + 1, (requests,),
+                         generator=gen).tolist()
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen).tolist()
+               for n in lens]
+    max_len = prompt_lens[1] + MINICPM3_MAX_NEW + 8
+    ecfg = EngineConfig(n_slots=MINICPM3_SLOTS, max_len=max_len,
+                        max_new=MINICPM3_MAX_NEW, temperature=0.0)
+    # a warm-up request through the same code
+    serve_requests(cfg, params, dataclasses.replace(ecfg, n_slots=1),
+                   [prompts[0][:prompt_lens[0]]], "flash", wrappers, dev)
+    plain_calls: list = []
+    by_geometry.clear()
+    with counting_plain_attention(plain_calls):
+        reqs, admits, steps, wall, counts = serve_requests(
+            cfg, params, ecfg, prompts, "flash", wrappers, dev)
+    geo = dict(by_geometry)
+    want = L * requests
+    if on_card:
+        check(counts["flash_attention"] == counts["flash_attention_ffma"]
+              == geo.get(bf16_key) == want and sum(geo.values()) == want,
+              f"{counts}, {geo}: {want} launches of the {dk}/{dv} bf16 "
+              f"instance expected ({requests} prefills of {L} layers)")
+        check(all(c == 0 for k, c in counts.items()
+                  if k not in ("flash_attention", "flash_attention_ffma")),
+              f"the MiniCPM3 path launched another kernel: {counts}")
+        check(not plain_calls, f"the MiniCPM3 path called the plain version "
+              f"{len(plain_calls)} times on the card")
+    for r in reqs:
+        check(r.done and len(r.generated) == MINICPM3_MAX_NEW
+              and all(0 <= t < cfg.vocab for t in r.generated),
+              f"request {r.rid}: done {r.done}, {len(r.generated)} tokens")
+    prefill_s = sum(d for _, d in admits.values())
+    decode_s = sum(d for d, _ in steps)
+    decode_tokens = sum(n for _, n in steps)
+    full_steps = [d * 1e3 for d, n in steps if n == MINICPM3_SLOTS]
+    step_ms = statistics.median(full_steps or [d * 1e3 for d, _ in steps])
+    ttft = sorted((len(r.prompt), sum(admits[r.rid]) * 1e3,
+                   admits[r.rid][1] * 1e3) for r in reqs)
+    top = ttft[-1]
+    print(f"{MINICPM3_ARCH} served {requests} requests ({sum(lens)} prompt "
+          f"tokens, {MINICPM3_MAX_NEW} new each) in {wall:.3f} s through "
+          f"{MINICPM3_SLOTS} slots: {counts['flash_attention']} flash "
+          f"launches = {L} layers x {requests} prefills, all through the "
+          f"FFMA kernel's {dk}/{dv} instance ({geo}), "
+          f"{counts['flash_attention_wgmma']} wgmma, {len(plain_calls)} "
+          f"plain calls [{card}]")
+    for n, t, pre in ttft:
+        print(f"  prompt {n:4d} tokens: prefill {pre:9.3f} ms, time to "
+              f"first token {t:9.3f} ms")
+    print(f"prefill: {sum(lens)} tokens in {prefill_s:.3f} s = "
+          f"{sum(lens) / prefill_s:.1f} tokens/s; at the longest prompt "
+          f"({top[0]} tokens) TTFT {top[1]:.3f} ms, "
+          f"{top[0] / top[2] * 1e3:.1f} tokens/s; decode: {len(steps)} "
+          f"engine steps, median {step_ms:.3f} ms a step at "
+          f"{MINICPM3_SLOTS} slots ({len(full_steps)} such steps), "
+          f"{decode_tokens} tokens in {decode_s:.3f} s = "
+          f"{decode_tokens / decode_s:.1f} tokens/s (HBM bound of a step's "
+          f"weights {weight_bytes / PEAK_HBM_BYTES * 1e3:.3f} ms) [{card}]")
+    out.update(
+        arch=MINICPM3_ARCH, params=n_params, weight_gb=weight_bytes / 1e9,
+        prompt_lens=lens, wall_s=wall, launches=counts["flash_attention"],
+        launches_by_geometry={str(k): v for k, v in geo.items()},
+        requests=[dict(prompt=n, ttft_ms=t, prefill_ms=pre)
+                  for n, t, pre in ttft],
+        ttft_ms_longest=top[1], prefill_tokens_per_s_longest=top[0] / top[2]
+        * 1e3, prefill_tokens_per_s=sum(lens) / prefill_s,
+        decode_steps=len(steps), decode_step_ms_median=step_ms,
+        decode_tokens_per_s=decode_tokens / decode_s)
+    del reqs
+
+    # -- every launch of the longest prefill against float64 -------------
+    s_max = prompt_lens[1]
+    tokens = torch.randint(0, cfg.vocab, (1, s_max), generator=gen).to(dev)
+    nxt = [None]
+
+    def prefill_and_decode(c, p, impl):
+        flags = tr.RunFlags(attn_impl=impl)
+        lg, pcache = tr.forward(p, {"tokens": tokens}, c, mode="prefill",
+                                flags=flags)
+        cache = tr.init_cache(c, 1, max_len, device=dev)
+        _merge_slot_cache(cache, pcache, 0, tokens.shape[1])
+        del pcache
+        nxt[0] = torch.argmax(lg[:, -1].float(), dim=-1)[:, None] \
+            if nxt[0] is None else nxt[0]
+        first, _ = tr.decode_step(p, cache, nxt[0], torch.tensor(
+            [tokens.shape[1]], device=dev), c, flags)
+        return lg, first
+
+    calls: list = []
+    with attend_as(dev, recording(kernel, calls)):
+        prefill_and_decode(cfg, params, "flash")
+    check(len(calls) == L, f"{len(calls)} flash calls in a prefill of {L} "
+          f"layers")
+    out["flash_on_model_inputs"] = regime_forward(
+        calls, f"{MINICPM3_ARCH} {s_max}-token prefill (B=1 S={s_max} "
+        f"H={cfg.n_heads} dk={dk} dv={dv})", MINICPM3_PLAIN_TILES)
+    del calls
+
+    # -- the kernel path's logits against the naive path's ---------------
+    faults = {"diagonal tile dropped": planted_fault("diagonal tile dropped"),
+              "dv scale": scaled_by_dv(kernel)}
+    out["logits_rel_err"] = {}
+    for regime in ("reference init", "conditioned"):
+        if regime == "conditioned":
+            condition(params, cfg.d_model)
+        runs = {impl: prefill_and_decode(cfg, params, impl)
+                for impl in ("flash", "naive")}
+        errs = {"flash vs naive": [live_rel(x, y) for x, y in
+                                   zip(runs["flash"], runs["naive"])]}
+        del runs["flash"]
+        for fault in MINICPM3_FAULTS:
+            with attend_as(dev, faults[fault]):
+                lg = prefill_and_decode(cfg, params, "flash")
+            errs[f"{fault} vs naive"] = [live_rel(x, y) for x, y in
+                                         zip(lg, runs["naive"])]
+            del lg
+        del runs
+        if on_card:
+            torch.cuda.empty_cache()
+        tol = MINICPM3_LOGITS_TOL[regime]
+        for what, pair in errs.items():
+            fault = not what.startswith("flash")
+            gated = not fault or regime == "conditioned"
+            print(f"{MINICPM3_ARCH} {s_max}-token prompt, {regime}, {what}: "
+                  f"prefill logits ||a-b||/||b|| {pair[0]:.3e}, first decode "
+                  f"logits {pair[1]:.3e} ("
+                  + ((f"must exceed {tol:g}" if fault else f"tolerance {tol:g}")
+                     if gated else "read, not gated: see MINICPM3_LOGITS_TOL")
+                  + ")")
+            if gated:
+                check(max(pair) > tol if fault else max(pair) <= tol,
+                      f"{regime}, {what}: the logits gate of {tol:g} "
+                      f"{'cannot tell the planted fault' if fault else 'fails'}")
+        out["logits_rel_err"][regime] = errs
+
+    # -- the absorbed decode against the expanded form -------------------
+    def absorbed_vs_expanded(c, p, n_prompt, n_steps):
+        """One slot: the prefill of ``n_prompt`` tokens, then ``n_steps``
+        greedy decode steps; each step's logits against the last row of
+        the expanded form's prefill of the prompt and the tokens so far,
+        ||a - b|| / ||b||."""
+        flags = tr.RunFlags(attn_impl="flash")
+        seq = tokens[:, :n_prompt]
+        lg, pcache = tr.forward(p, {"tokens": seq}, c, mode="prefill",
+                                flags=flags, last_logit_only=True)
+        cache = tr.init_cache(c, 1, n_prompt + n_steps + 1, device=dev)
+        _merge_slot_cache(cache, pcache, 0, n_prompt)
+        del pcache
+        nxt_tok = torch.argmax(lg[:, -1].float(), dim=-1)[:, None]
+        errs = []
+        for i in range(n_steps):
+            step_lg, cache = tr.decode_step(p, cache, nxt_tok, torch.tensor(
+                [n_prompt + i], device=dev), c, flags)
+            seq = torch.cat([seq, nxt_tok], dim=1)
+            ref, _ = tr.forward(p, {"tokens": seq}, c, mode="prefill",
+                                flags=flags, last_logit_only=True)
+            errs.append(live_rel(step_lg, ref[:, -1]))
+            nxt_tok = torch.argmax(step_lg.float(), dim=-1)[:, None]
+        return errs
+
+    def decode_gate(c, p, what):
+        tol = MINICPM3_DECODE_TOL[c.activation_dtype]
+        got = absorbed_vs_expanded(c, p, *decode)
+        with swapped_absorption():
+            bad = absorbed_vs_expanded(c, p, *decode)
+        print(f"{MINICPM3_ARCH} {what}: the absorbed decode against the "
+              f"expanded form, {decode[1]} steps after a {decode[0]}-token "
+              f"prompt: ||a-b||/||b|| {', '.join(f'{x:.3e}' for x in got)} "
+              f"(tolerance {tol:g}); W_uk and W_uv swapped "
+              f"{', '.join(f'{x:.3e}' for x in bad)} (must exceed it)")
+        check(max(got) <= tol, f"{what}: the absorbed decode disagrees "
+              f"with the expanded form: {got}")
+        check(min(bad) > tol, f"{what}: the decode gate cannot tell W_uk "
+              f"and W_uv swapped: {bad}")
+        return dict(rel_err=got, swapped=bad, tol=tol)
+    out["decode_vs_expanded"] = decode_gate(
+        cfg, params, f"{cfg.dtype}, {L} layers, conditioned weights")
+
+    # -- profile of one prefill by kind, one launch timed ------------------
+    if on_card:
+        prof = profile(lambda: tr.forward(params, {"tokens": tokens}, cfg,
+                                          mode="prefill"), 2,
+                       f"{MINICPM3_ARCH} prefills of {s_max} tokens")
+        if "device_ms_per_run" in prof:
+            kms = prof["kernels_ms_per_run"]
+            flash_ms = sum(ms for n, ms in kms.items() if "fa_kernel" in n)
+            gemm_ms = sum(ms for n, ms in kms.items()
+                          if any(t in n.lower() for t in
+                                 ("gemm", "xmma", "cutlass", "nvjet")))
+            busy = prof["device_ms_per_run"]
+            prof["by_kind_ms"] = dict(flash=flash_ms, gemm_kernels=gemm_ms,
+                                      other=busy - flash_ms - gemm_ms)
+            print(f"  a {s_max}-token prefill by kind: the {L} flash "
+                  f"launches {flash_ms:.3f} ms, every GEMM kernel (the "
+                  f"projections, MLPs and logits) {gemm_ms:.3f} ms, the rest "
+                  f"(norms, RoPE, concatenations, elementwise) "
+                  f"{busy - flash_ms - gemm_ms:.3f} ms; device busy "
+                  f"{busy:.3f} ms of a {prof['wall_ms_per_run']:.3f} ms "
+                  f"wall [{card}]")
+        out["prefill_profile"] = prof
+    row = split_launch_row(f"{MINICPM3_ARCH} serving", 1, s_max,
+                           cfg.n_heads, dk, dv, cfg.activation_dtype, dev,
+                           on_card)
+    out["launch"] = row
+    if on_card:
+        print(f"flash_attention (ffma {dk}/{dv}) at B=1 S={s_max} "
+              f"H={cfg.n_heads} causal {row['dtype']}: {row['ms']:.4f} ms a "
+              f"launch ({row['tflops']:.2f} TFLOP/s), plain "
+              f"{row['plain_ms']:.3f} ms, SDPA {row['library_ms']:.4f} ms "
+              f"(backend {row['library_backend']}), bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
+              f"{row['flops'] / 1e9:.1f} GFLOP, {row['bytes'] / 1e6:.1f} "
+              f"MB); over the {L} launches of the prefill "
+              f"{L * row['ms']:.3f} ms [{card}]")
+        out["serve_peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        print(f"{MINICPM3_ARCH} serving in bf16: peak device memory "
+              f"{out['serve_peak_memory_gb']:.2f} GB [{card}]")
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+    # the serve CLI at full width (random weights from seed 0)
+    if full_width:
+        _, cli_reqs = serve_cli.main(["--arch", MINICPM3_ARCH, "--preset",
+                                      "full", "--requests", "2",
+                                      "--max-new", "4", "--device",
+                                      dev.type])
+        check(all(r.done and len(r.generated) == 4 for r in cli_reqs),
+              "the serve CLI at full width did not finish its requests")
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # -- the f32 check through the (96, 64) f32 instance -----------------
+    l32, s32 = f32
+    cfg32 = dataclasses.replace(cfg, n_layers=l32, dtype="float32")
+    p32 = tr.init(cfg32, torch.Generator(dev).manual_seed(1))
+    tokens = tokens[:, :s32]
+    nxt[0] = None
+    reset_counts()
+    runs = {"flash": prefill_and_decode(cfg32, p32, "flash")}
+    sync()
+    counts32, geo32 = read_counts()
+    if on_card:
+        check(counts32["flash_attention_ffma"] == l32
+              == counts32["flash_attention"] == geo32.get(f32_key)
+              and sum(geo32.values()) == l32,
+              f"the f32 prefill of {l32} layers launched {counts32}, {geo32}")
+    runs["naive"] = prefill_and_decode(cfg32, p32, "naive")
+    pair = [live_rel(x, y) for x, y in zip(runs["flash"], runs["naive"])]
+    del runs
+    print(f"{MINICPM3_ARCH} f32, {l32} layers (through the FFMA kernel's "
+          f"{dk}/{dv} f32 instance: {geo32.get(f32_key, 0)} launches), one "
+          f"{s32}-token prompt, flash vs naive: prefill logits ||a-b||/||b|| "
+          f"{pair[0]:.3e}, first decode logits {pair[1]:.3e} (tolerance "
+          f"{MINICPM3_F32_TOL:g})")
+    check(max(pair) <= MINICPM3_F32_TOL, "f32 flash vs naive: the logits "
+          "disagree")
+    out.update(f32_logits_rel_err=pair,
+               launches_f32=geo32.get(f32_key, 0),
+               f32_decode_vs_expanded=decode_gate(
+                   cfg32, p32, f"float32, {l32} layers, the reference's "
+                   f"init"))
+    out["launch_f32"] = split_launch_row(
+        f"{MINICPM3_ARCH} f32 check", 1, s32, cfg.n_heads, dk, dv,
+        torch.float32, dev, on_card)
+    del p32
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # -- the tiny preset through the (48, 32) instances ------------------
+    tiny = train_cli.reduced_config(MINICPM3_ARCH, "tiny")
+    tk = (tiny.qk_nope_head_dim + tiny.qk_rope_head_dim, tiny.v_head_dim)
+    with tempfile.TemporaryDirectory() as ckpt:
+        reset_counts()
+        loop, _ = train_cli.main(["--arch", MINICPM3_ARCH]
+                                 + MINICPM3_TINY_TRAIN
+                                 + ["--ckpt-dir", ckpt, "--device", dev.type])
+        sync()
+        _, geo_cli = read_counts()
+    cli_steps = int(MINICPM3_TINY_TRAIN[MINICPM3_TINY_TRAIN.index("--steps")
+                                        + 1])
+    want_cli = cli_steps * tiny.n_layers * 2
+    tiny_bf16 = (torch.bfloat16,) + tk
+    if on_card:
+        check(geo_cli == {tiny_bf16: want_cli}, f"the tiny train CLI "
+              f"launched {geo_cli}: {want_cli} launches of the {tk} bf16 "
+              f"instance expected (forward and remat recompute)")
+    tiny32 = dataclasses.replace(tiny, dtype="float32")
+    tp = tr.init(tiny32, torch.Generator(dev).manual_seed(0))
+    tprompts = [torch.randint(0, tiny.vocab, (n,), generator=torch.Generator(
+        ).manual_seed(n)).tolist() for n in MINICPM3_TINY_PROMPTS]
+    tiny_tokens, tiny_geo = {}, {}
+    for impl in ("flash", "naive"):
+        by_geometry.clear()
+        treqs, *_ = serve_requests(
+            tiny32, tp, EngineConfig(n_slots=2, max_len=320, max_new=5),
+            tprompts, impl, wrappers, dev)
+        tiny_geo[impl] = dict(by_geometry)
+        tiny_tokens[impl] = [r.generated for r in treqs]
+    tiny_f32 = (torch.float32,) + tk
+    want_tiny = tiny.n_layers * len(tprompts)
+    if on_card:
+        check(tiny_geo == {"flash": {tiny_f32: want_tiny}, "naive": {}},
+              f"the tiny f32 engine launched {tiny_geo}: {want_tiny} "
+              f"launches of the {tk} f32 instance expected on flash")
+    check(tiny_tokens["flash"] == tiny_tokens["naive"], "the tiny f32 "
+          "engine's greedy tokens differ between flash and naive")
+    check(loop.steps == cli_steps, f"the tiny train CLI ran {loop.steps} "
+          f"steps of {cli_steps}")
+    print(f"{MINICPM3_ARCH} tiny preset ({tiny.n_layers} layers, q·k {tk[0]}"
+          f" against v {tk[1]}): the train CLI's {cli_steps} steps launched "
+          f"the bf16 {tk[0]}/{tk[1]} instance {geo_cli.get(tiny_bf16, 0)} "
+          f"times; an f32 "
+          f"engine's {len(tprompts)} prompts launched the f32 instance "
+          f"{tiny_geo['flash'].get(tiny_f32, 0)} times, greedy tokens "
+          f"equal to the naive engine's")
+    out.update(tiny_launches_bf16=geo_cli.get(tiny_bf16, 0),
+               tiny_launches_f32=tiny_geo["flash"].get(tiny_f32, 0),
+               tiny_launch_bf16=split_launch_row(
+                   "tiny train CLI", 2, 256, tiny.n_heads, *tk,
+                   torch.bfloat16, dev, on_card),
+               tiny_launch_f32=split_launch_row(
+                   "tiny f32 engine", 1, max(MINICPM3_TINY_PROMPTS),
+                   tiny.n_heads, *tk, torch.float32, dev, on_card))
+    del tp
+
+    # -- training at full width, the depth cut ----------------------------
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    tcfg = dataclasses.replace(cfg, n_layers=train_layers)
+    n = tr.count_params(tcfg)
+    check(n == MINICPM3_TRAIN_PARAMS or not full_width,
+          f"{n} parameters at {train_layers} layers")
+    state = init_train_state(tcfg, torch.Generator(dev).manual_seed(0))
+    sync()
+    b, s = train_batch
+    batch_fn = make_batch_fn(SyntheticLM(tcfg, b, s, seed=0), device=dev)
+    flags = tr.RunFlags(attn_impl="flash", remat=True)
+    opt_cfg = AdamWConfig(total_steps=1 + MINICPM3_TRAIN_TIMED,
+                          **LLM_TRAIN_LR)
+    step = make_train_step(tcfg, opt_cfg, flags)
+    print(f"{MINICPM3_ARCH} training at full width with {train_layers} of "
+          f"its {L} layers: {n:,} parameters, f32 masters, moments and "
+          f"gradients {16 * n / 1e9:.1f} GB ({L} layers: "
+          f"{16 * n_params / 1e9:.1f} GB)")
+    plain_calls = []
+    reset_counts()
+    times, metrics = [], []
+    with counting_plain_attention(plain_calls):
+        for i in range(1 + MINICPM3_TRAIN_TIMED):
+            data = batch_fn(i)
+            sync()
+            t0 = time.perf_counter()
+            state, m = step(state, data)
+            sync()
+            if i:
+                times.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: float(x) for k, x in m.items()})
+    counts, geo = read_counts()
+    steps_run = 1 + MINICPM3_TRAIN_TIMED
+    want_train = 2 * train_layers * steps_run
+    if on_card:
+        check(counts["flash_attention"] == counts["flash_attention_ffma"]
+              == geo.get(bf16_key) == want_train
+              and all(c == 0 for k, c in counts.items()
+                      if k not in ("flash_attention", "flash_attention_ffma")),
+              f"{counts}, {geo}: {want_train} launches of the {dk}/{dv} "
+              f"bf16 instance expected ({steps_run} steps of {train_layers} "
+              f"layers, forward and remat recompute)")
+        check(not plain_calls, f"the train path called the plain version "
+              f"{len(plain_calls)} times on the card")
+    for i, m in enumerate(metrics):
+        check(all(math.isfinite(m[k]) for k in ("loss", "total_loss",
+                                               "grad_norm")),
+              f"step {i}: not finite: {m}")
+    step_ms = statistics.median(times)
+    flops = tr.model_flops_per_token(tcfg) * b * s
+    out["train"] = dict(
+        layers=train_layers, params=n, launches=counts["flash_attention"],
+        launches_by_geometry={str(k): v for k, v in geo.items()},
+        step_ms=times, step_ms_median=step_ms,
+        tokens_per_s=b * s / step_ms * 1e3, model_flops=flops,
+        mfu=flops / (step_ms / 1e3) / PEAK_BF16_TC_FLOPS,
+        peak_memory_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
+                        if on_card else None),
+        losses=[m["loss"] for m in metrics])
+    t = out["train"]
+    print(f"{MINICPM3_ARCH} ({train_layers} layers) train steps of {b}x{s} "
+          f"tokens: median {step_ms:.3f} ms a step "
+          f"({', '.join(f'{x:.3f}' for x in times)}; host clock after a "
+          f"synchronise), {t['tokens_per_s']:.1f} tokens/s; model FLOPs 6N x "
+          f"tokens = {flops / 1e12:.2f} TFLOP a step, {100 * t['mfu']:.2f}% "
+          f"of the bf16 dense peak; peak device memory "
+          f"{t['peak_memory_gb'] or 0:.2f} GB; flash launches "
+          f"{counts['flash_attention']} = {steps_run} steps x {train_layers}"
+          f" layers x 2 (forward and remat recompute), all through the "
+          f"{dk}/{dv} instance, {len(plain_calls)} plain calls [{card}]")
+    print(f"  losses {', '.join(f'{x:.4f}' for x in t['losses'])}")
+    if on_card:
+        t["step_profile"] = profile(lambda: step(state, batch_fn(0)), 1,
+                                    f"{MINICPM3_ARCH} train steps")
+    t["launch"] = row = split_launch_row(
+        f"{MINICPM3_ARCH} training", b, s, cfg.n_heads, dk, dv,
+        torch.bfloat16, dev, on_card)
+    if on_card:
+        print(f"flash_attention (ffma {dk}/{dv}) at the step's geometry "
+              f"(B={b} S={s} H={cfg.n_heads} causal bf16): {row['ms']:.4f} "
+              f"ms a launch ({row['tflops']:.2f} TFLOP/s), plain "
+              f"{row['plain_ms']:.3f} ms, SDPA forward {row['library_ms']:.4f}"
+              f" ms (backend {row['library_backend']}), bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}) [{card}]")
+    fit = make_train_step(tcfg, AdamWConfig(total_steps=LLM_FIT_STEPS,
+                                            **LLM_FIT_LR), flags)
+    one = batch_fn(10_000)
+    losses = []
+    for _ in range(LLM_FIT_STEPS):
+        state, m = fit(state, one)
+        losses.append(float(m["loss"]))
+    t["fit_losses"] = losses
+    print(f"one repeated batch, {LLM_FIT_STEPS} steps: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"the loss does not fall on one repeated batch: {losses}")
+    _, _, grads = step.value_and_grad(state["params"], one)
+    opt_ms = []
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        adamw_update(state["params"], grads, state["opt"], opt_cfg)
+        sync()
+        opt_ms.append((time.perf_counter() - t0) * 1e3)
+    del grads
+    t["optimizer_ms"] = statistics.median(opt_ms)
+    print(f"adamw_update alone ({n:,} f32 parameters): "
+          f"{t['optimizer_ms']:.3f} ms, "
+          f"{100 * t['optimizer_ms'] / step_ms:.1f}% of the step [{card}]")
+    del state["opt"]
+    params = state["params"]
+    if on_card:
+        torch.cuda.empty_cache()
+    condition(params, tcfg.d_model)
+
+    def grads_of(**over):
+        fn = make_train_step(tcfg, opt_cfg, dataclasses.replace(flags,
+                                                                **over))
+        return fn.value_and_grad(params, one)[2]
+    g_flash = grads_of()
+    g_naive = grads_of(attn_impl="naive")
+    gates = {"flash vs naive, bf16": leaf_rel(g_flash, g_naive)}
+    del g_flash
+    with dv_scaled_backward(GRAD_FAULT):
+        g = grads_of()
+    gates["planted fault vs naive, bf16"] = leaf_rel(g, g_naive)
+    del g, g_naive, state, params
+    if on_card:
+        torch.cuda.empty_cache()
+    mla_leaf = "segments::seg0::pos0::attn::wkv_b"
+    for label, rel in gates.items():
+        worst = max(rel, key=rel.get)
+        fault = label.startswith("planted")
+        print(f"{MINICPM3_ARCH} gradients per leaf on conditioned weights, "
+              f"{label}: worst {rel[worst]:.3e} ({worst}), "
+              f"{rel[worst] / GRAD_TOL_BF16:.3f} of "
+              f"{'the gate (must exceed it)' if fault else 'its tolerance'} "
+              f"{GRAD_TOL_BF16:g}; {mla_leaf} {rel[mla_leaf]:.3e}")
+        check(rel[mla_leaf] > GRAD_TOL_BF16 if fault
+              else rel[worst] <= GRAD_TOL_BF16,
+              f"{label}: {worst} at {rel[worst]:.3e}, {mla_leaf} at "
+              f"{rel[mla_leaf]:.3e}, against {GRAD_TOL_BF16:g}")
+    t["grad_gates"] = {k: max(v.values()) for k, v in gates.items()}
+    t["grad_fault_wkv_b"] = gates["planted fault vs naive, bf16"][mla_leaf]
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"minicpm3 phase: {out['seconds']:.1f} s")
     return out
 
 
@@ -4965,8 +5736,8 @@ def main(argv=None) -> int:
     paper = record["paper"] = paper_phase(card, dev)
     phase_done("paper")
     # -- 8. the flash-attention kernel against its plain version -----------
-    for variant, errs in flash_geometries(dev).items():
-        kernel_errs[FLASH_VARIANTS[variant]] = errs
+    for key, errs in flash_geometries(dev).items():
+        kernel_errs[FLASH_VARIANTS.get(key, key)] = errs
     phase_done("flash_attention vs plain")
     # -- 9. the LLM serving path: full-width Gemma-7B ----------------------
     llm = record["llm"] = llm_serving(card, dev, wrappers)
@@ -4978,6 +5749,9 @@ def main(argv=None) -> int:
     # -- 9c. Gemma3-4B: sliding-window and global layers --------------------
     gemma3 = record["gemma3"] = gemma3_phase(card, dev, wrappers)
     phase_done("gemma3")
+    # -- 9d. MiniCPM3-4B: multi-head latent attention, split head dims -----
+    minicpm3 = record["minicpm3"] = minicpm3_phase(card, dev, wrappers)
+    phase_done("minicpm3")
     # -- 10. programs sharded over two gloo ranks sharing the card ---------
     mesh = record["mesh"] = mesh_phase(card, dev)
     phase_done("mesh")
@@ -4986,7 +5760,14 @@ def main(argv=None) -> int:
                             "llm": llm["launches"],
                             "llm_train": llm_train["launches"],
                             "gemma3": gemma3["launches_wgmma"],
-                            "gemma3_ffma": gemma3["launches_ffma"]},
+                            "gemma3_ffma": gemma3["launches_ffma"],
+                            "minicpm3": minicpm3["launches"],
+                            "minicpm3_train": minicpm3["train"]["launches"],
+                            "minicpm3_f32": minicpm3["launches_f32"],
+                            "minicpm3_tiny_bf16":
+                                minicpm3["tiny_launches_bf16"],
+                            "minicpm3_tiny_f32":
+                                minicpm3["tiny_launches_f32"]},
                   launches_by_route={"serve": serve_routes,
                                      "train": train_routes})
 
@@ -5039,7 +5820,8 @@ def main(argv=None) -> int:
         "bound_by": "operations" if fa_ops >= fa_hbm else "bytes",
         "library_ms": flash["library_ms"],
     })
-    # the FFMA kernel over the f32 check's prefill (one launch a layer)
+    # the FFMA kernel over the f32 check's prefill (one launch a layer);
+    # its instances at dk == dv (the split ones are listed below)
     f32 = llm["f32_flash"]
     kernels.append({
         "name": "flash_attention_ffma",
@@ -5054,6 +5836,34 @@ def main(argv=None) -> int:
         "bound_by": f32["bound_by"],
         "library_ms": f32["library_ms"] * f32["launches"],
     })
+    # the FFMA kernel's split instances (MLA): launches on MiniCPM3's
+    # paths (serving and training at full width, the f32 check, the tiny
+    # preset's train CLI and f32 engine); times of one launch at the
+    # path's geometry (the longest served prompt, the f32 check's, the
+    # tiny CLI's step and the tiny engine's longest prompt)
+    for (dtype, dk, dv), n, row in (
+            ((torch.bfloat16, 96, 64), minicpm3["launches"]
+             + minicpm3["train"]["launches"], minicpm3["launch"]),
+            ((torch.float32, 96, 64), minicpm3["launches_f32"],
+             minicpm3["launch_f32"]),
+            ((torch.bfloat16, 48, 32), minicpm3["tiny_launches_bf16"],
+             minicpm3["tiny_launch_bf16"]),
+            ((torch.float32, 48, 32), minicpm3["tiny_launches_f32"],
+             minicpm3["tiny_launch_f32"])):
+        name = split_instance(dtype, dk, dv)
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": KERNELS["flash_attention_ffma"][0],
+            "replaces": KERNELS["flash_attention_ffma"][1],
+            "launches": n,
+            "max_abs_err": max(kernel_errs[name] + [row["max_abs_err"]]),
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+        })
     # the storage-dtype instances of both GANAX kernels, on the quant
     # phase's main path, the mixed-precision training path and the
     # tuner's; times per 64-batch of the generator's 4 launches

@@ -2,25 +2,28 @@
 
 :func:`flash_attention_cuda` launches one of two hand-written CUDA C++
 kernels, both ports of ``_fa_kernel`` / ``flash_attention_pallas``,
-chosen by :func:`kernel_variant` from the dtype and the head dim alone:
+chosen by :func:`kernel_variant` from the dtype and the head dims alone
+(``dk`` of q and k, ``dv`` of v):
 
 * ``"wgmma"`` (``csrc/flash_attention_sm90.cu``): bf16 at hd 128 and
   256, both products on the tensor cores (``p`` split into two bf16
   terms for ``p·v``), k/v fed by TMA;
-* ``"ffma"`` (``csrc/flash_attention.cu``): f32 storage, and bf16 at
-  the small head dims, on the FP32 units.
+* ``"ffma"`` (``csrc/flash_attention.cu``): f32 storage, bf16 at the
+  small head dims, and both at the split pairs of :data:`SPLIT_HEAD_DIMS`
+  (MLA's), on the FP32 units.
 
 :func:`flash_attention_plain` computes the same function in plain
 PyTorch on any device, over the same q and kv tiles, with the same
 causal live-block bound and the same tail masks, so the CPU tests
 exercise the kernels' indexing.
 
-Layout contract: ``q (B, S, H, hd)``, ``k`` and ``v`` ``(B, T, H, hd)``
-(MHA: expand GQA first), float32 or bfloat16, the head dim contiguous;
-the output ``(B, S, H, hd)`` is of q's dtype.  Scores, the online
-softmax, ``p`` and the accumulator are f32; q is scaled by ``hd**-0.5``
-in f32 before ``q·kᵀ`` (the wgmma kernel scales the f32 scores, the
-same up to f32 rounding); masked scores are ``-1e30`` and the output is
+Layout contract: ``q (B, S, H, dk)``, ``k (B, T, H, dk)`` and ``v (B,
+T, H, dv)`` (MHA: expand GQA first), float32 or bfloat16, the head dim
+contiguous; the output ``(B, S, H, dv)`` is of q's dtype (the Pallas
+kernel reads ``dv`` from v too).  Scores, the online softmax, ``p`` and
+the accumulator are f32; q is scaled by ``dk**-0.5`` in f32 before
+``q·kᵀ`` (the wgmma kernel scales the f32 scores, the same up to f32
+rounding); masked scores are ``-1e30`` and the output is
 ``acc / max(l, 1e-30)``.  The causal mask is ``i >= j`` on indices,
 aligned top-left.  Unlike the Pallas kernel, S and T need not be
 multiples of the tiles: the tails are masked.
@@ -47,20 +50,25 @@ import functools
 
 import torch
 
-__all__ = ["HEAD_DIMS", "BLOCK_Q", "kernel_variant",
-           "kernel_tiles", "kernel_block_k", "check_tma_operand",
+__all__ = ["HEAD_DIMS", "SPLIT_HEAD_DIMS", "VARIANTS", "BLOCK_Q",
+           "kernel_variant", "kernel_tiles", "kernel_block_k",
+           "check_tma_operand",
            "flash_attention_plain", "flash_attention_cuda",
            "flash_attention_ffma", "flash_attention_wgmma",
            "recompute_attention", "FlashAttentionFn"]
 
 NEG_INF = -1e30
-# the head dims flash_attention_cuda takes: the FFMA kernel
+# the head dims flash_attention_cuda takes with dk == dv: the FFMA kernel
 # (csrc/flash_attention.cu) is built for all of them in f32 and for those
 # up to 64 in bf16, the wgmma kernel for bf16 at 128 and 256
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+# the (dk, dv) pairs with dk != dv that the FFMA kernel is built for, in
+# f32 and bf16: MiniCPM3-4B's MLA (qk_nope 64 + qk_rope 32 against
+# v_head_dim 64) and its tiny preset's (32 + 16 against 32)
+SPLIT_HEAD_DIMS = ((96, 64), (48, 32))
 BLOCK_Q = 64
-# (dtype, hd) -> variant: the wgmma kernel takes these, the FFMA kernel
-# every other (dtype, hd in HEAD_DIMS)
+# (dtype, hd) -> variant: the wgmma kernel takes these at dk == dv, the
+# FFMA kernel every other geometry of VARIANTS
 WGMMA_GEOMETRIES = {(torch.bfloat16, 128), (torch.bfloat16, 256)}
 # the wgmma kernel's tiles (csrc/flash_attention_sm90.cu: kBQ, BK) and
 # the bytes its TMA boxes need strides and addresses to be multiples of
@@ -68,48 +76,64 @@ WGMMA_BLOCK_Q, WGMMA_BLOCK_K = 128, 64
 _TMA_ALIGN = 16
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT32_MAX = 2 ** 31 - 1
+# (dtype, dk, dv) -> the kernel that takes it: the variant table
+VARIANTS = {
+    **{(dt, d, d): "wgmma" if (dt, d) in WGMMA_GEOMETRIES else "ffma"
+       for dt in _DTYPE_CODES for d in HEAD_DIMS},
+    **{(dt, dk, dv): "ffma" for dt in _DTYPE_CODES
+       for dk, dv in SPLIT_HEAD_DIMS}}
 
 
-def kernel_variant(dtype: torch.dtype, hd: int) -> str:
+def kernel_variant(dtype: torch.dtype, dk: int, dv: int | None = None
+                   ) -> str:
     """The kernel that :func:`flash_attention_cuda` launches for ``dtype``
-    and head dim ``hd``: ``"wgmma"`` or ``"ffma"``.  Raises on what
-    neither kernel takes."""
+    at q·k head dim ``dk`` and value head dim ``dv`` (default ``dk``):
+    ``"wgmma"`` or ``"ffma"``.  Raises on what neither kernel takes."""
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"flash attention takes float32 or bfloat16, got "
                         f"{dtype}")
-    if hd not in HEAD_DIMS:
+    dv = dk if dv is None else dv
+    variant = VARIANTS.get((dtype, dk, dv))
+    if variant is None:
         raise ValueError(f"flash_attention_cuda is built for head dims "
-                         f"{HEAD_DIMS}, got {hd}")
-    return "wgmma" if (dtype, hd) in WGMMA_GEOMETRIES else "ffma"
+                         f"{HEAD_DIMS} (dk == dv) and the (dk, dv) pairs "
+                         f"{SPLIT_HEAD_DIMS}, got dk {dk}, dv {dv}")
+    return variant
 
 
-def kernel_tiles(dtype: torch.dtype, hd: int) -> tuple[int, int]:
+def kernel_tiles(dtype: torch.dtype, dk: int, dv: int | None = None
+                 ) -> tuple[int, int]:
     """(q rows, kv rows) of the tiles of the kernel that runs ``dtype``
-    at head dim ``hd`` (the FFMA kernel's ``kBQ``, ``Tiles<D>::BK`` for
-    any geometry the wgmma kernel does not take)."""
-    if (dtype, hd) in WGMMA_GEOMETRIES:
+    at head dims ``dk`` and ``dv`` (default ``dk``): the FFMA kernel's
+    ``kBQ``, ``Tiles<DK, DV>::BK`` for any geometry the wgmma kernel does
+    not take."""
+    dv = dk if dv is None else dv
+    if dk == dv and (dtype, dk) in WGMMA_GEOMETRIES:
         return WGMMA_BLOCK_Q, WGMMA_BLOCK_K
-    return BLOCK_Q, 64 if hd <= 64 else 32
+    return BLOCK_Q, 64 if max(dk, dv) <= 64 else 32
 
 
-def kernel_block_k(hd: int, dtype: torch.dtype) -> int:
-    """The kv tile of the kernel that runs ``dtype`` at head dim ``hd``."""
-    return kernel_tiles(dtype, hd)[1]
+def kernel_block_k(hd: int, dtype: torch.dtype, dv: int | None = None
+                   ) -> int:
+    """The kv tile of the kernel that runs ``dtype`` at head dims ``hd``
+    (q·k) and ``dv`` (default ``hd``)."""
+    return kernel_tiles(dtype, hd, dv)[1]
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
-        raise ValueError(f"flash attention takes q (B,S,H,hd) and k/v "
-                         f"(B,T,H,hd), got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+        raise ValueError(f"flash attention takes q (B,S,H,dk), k "
+                         f"(B,T,H,dk) and v (B,T,H,dv), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     b, s, h, d = q.shape
     if k.shape[2] != h:
         raise ValueError(f"k has {k.shape[2]} heads and q {h}: expand GQA "
                          f"to MHA before the kernel")
-    if (k.shape[0], k.shape[3]) != (b, d) or v.shape != k.shape:
+    if (k.shape[0], k.shape[3]) != (b, d) or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} disagree")
-    if min(b, s, h, d, k.shape[1]) <= 0:
+    if min(b, s, h, d, k.shape[1], v.shape[3]) <= 0:
         raise ValueError("flash attention needs non-empty operands")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
@@ -131,25 +155,26 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     """The kernels' function in plain PyTorch, tile by tile: per q tile
     of ``block_q`` rows, an online softmax over the kv tiles of
     ``block_k`` rows (default: those of the kernel that runs q's dtype
-    at its head dim) up to the causal live-block bound.  ``p`` stays
-    f32.  Runs on any device."""
+    at its head dims) up to the causal live-block bound.  q is scaled by
+    ``dk**-0.5``, the accumulator is ``dv`` wide; ``p`` stays f32.  Runs
+    on any device."""
     _check(q, k, v)
     _check_softcap(softcap)
     b, s, h, d = q.shape
-    t = k.shape[1]
-    tile_q, tile_k = kernel_tiles(q.dtype, d)
+    t, dv = k.shape[1], v.shape[3]
+    tile_q, tile_k = kernel_tiles(q.dtype, d, dv)
     block_q = block_q or tile_q
     block_k = block_k or tile_k
     qf = q.float() * d ** -0.5
     kf, vf = k.float(), v.float()
-    out = torch.empty_like(q)
+    out = q.new_empty((b, s, h, dv))
     n_kv = -(-t // block_k)
     for q0 in range(0, s, block_q):
         qt = qf[:, q0:q0 + block_q]
         qpos = torch.arange(q0, q0 + qt.shape[1], device=q.device)
         m = torch.full((b, h, qt.shape[1]), NEG_INF, device=q.device)
         l = torch.zeros_like(m)
-        acc = torch.zeros((b, h, qt.shape[1], d), device=q.device)
+        acc = torch.zeros((b, h, qt.shape[1], dv), device=q.device)
         n_live = (min((q0 + block_q + block_k - 1) // block_k, n_kv)
                   if causal else n_kv)
         for k0 in range(0, n_live * block_k, block_k):
@@ -204,9 +229,9 @@ def _library(variant: str):
     from repro_torch.kernels.build import load
     if variant == "ffma":
         fn = load("flash_attention").flash_attention_fwd
-        # q, k, v, out, dtype, B, H, S, T, hd, strides, causal, scale,
-        # softcap, stream
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        # q, k, v, out, dtype, B, H, S, T, dk, dv, strides, causal,
+        # scale, softcap, stream
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
             ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_float,
             ctypes.c_float, ctypes.c_void_p]
     else:
@@ -252,18 +277,20 @@ def flash_attention_ffma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the FFMA kernel (``csrc/flash_attention.cu``) on the current
     stream, without synchronising: float32 at every head dim of
     :data:`HEAD_DIMS`, bfloat16 at those up to 64 (the wgmma kernel takes
-    bfloat16 at 128 and 256).  Each launch adds one to
-    ``flash_attention_ffma.launches``."""
-    if kernel_variant(q.dtype, q.shape[-1]) != "ffma":
+    bfloat16 at 128 and 256), and both at the (dk, dv) pairs of
+    :data:`SPLIT_HEAD_DIMS`.  Each launch adds one to
+    ``flash_attention_ffma.launches`` and to
+    ``flash_attention_ffma.launches_by_geometry[(dtype, dk, dv)]``."""
+    if kernel_variant(q.dtype, q.shape[-1], v.shape[-1]) != "ffma":
         raise ValueError(f"the FFMA kernel is not built for {q.dtype} at "
                          f"head dim {q.shape[-1]}: the wgmma kernel takes it")
     _check_cuda(q, k, v, softcap)
     b, s, h, d = q.shape
-    t = k.shape[1]
+    t, dv = k.shape[1], v.shape[3]
     if -(-s // BLOCK_Q) > 65535:
         raise ValueError(f"S = {s} needs more than 65535 q tiles")
     dev = q.device
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=dev)
+    out = torch.empty((b, s, h, dv), dtype=q.dtype, device=dev)
     for a in (q, k, v, out):
         last = sum((n - 1) * st for n, st in zip(a.shape, a.stride()))
         if last > _INT32_MAX:
@@ -275,11 +302,14 @@ def flash_attention_ffma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 _DTYPE_CODES[q.dtype], b, h, s, t, d, strides, int(causal),
-                 float(d ** -0.5), float(softcap), stream)
+                 _DTYPE_CODES[q.dtype], b, h, s, t, d, dv, strides,
+                 int(causal), float(d ** -0.5), float(softcap), stream)
     if err != 0:
         raise _launch_error(err, "ffma")
     flash_attention_ffma.launches += 1
+    geometry = (q.dtype, d, dv)
+    by_geometry = flash_attention_ffma.launches_by_geometry
+    by_geometry[geometry] = by_geometry.get(geometry, 0) + 1
     return out
 
 
@@ -289,11 +319,16 @@ def flash_attention_wgmma(q: torch.Tensor, k: torch.Tensor,
     """Launch the wgmma/TMA kernel (``csrc/flash_attention_sm90.cu``) on
     the current stream, without synchronising: bfloat16 at head dims 128
     and 256, operands whose strides and addresses TMA takes
-    (:func:`check_tma_operand`).  Each launch adds one to
-    ``flash_attention_wgmma.launches``."""
+    (:func:`check_tma_operand`), v's head dim q's and k's.  Each launch
+    adds one to ``flash_attention_wgmma.launches``."""
     if (q.dtype, q.shape[-1]) not in WGMMA_GEOMETRIES:
         raise ValueError(f"the wgmma kernel takes bfloat16 at head dims "
                          f"128 and 256, got {q.dtype} at {q.shape[-1]}")
+    if v.shape[-1] != q.shape[-1]:
+        raise ValueError(f"the wgmma kernel takes one head dim for q, k and "
+                         f"v, got dk {q.shape[-1]}, dv {v.shape[-1]}: a "
+                         f"split pair of SPLIT_HEAD_DIMS runs on the FFMA "
+                         f"kernel (flash_attention_ffma)")
     _check_cuda(q, k, v, softcap)
     b, s, h, d = q.shape
     t = k.shape[1]
@@ -329,12 +364,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Takes q, k, v on one CUDA device, float32 or bfloat16, any strides
     with a contiguous head dim (the wgmma kernel: multiples of 16 bytes),
-    ``hd`` in :data:`HEAD_DIMS`, and raises on anything else, and on a
+    head dims in :data:`VARIANTS`, and raises on anything else, and on a
     failed build or launch: there is no fallback.  The output is
     allocated here, contiguous.  Each launch adds one to
     ``flash_attention_cuda.launches`` and to the variant's own count;
     the variant's launcher checks the operands."""
-    out = _LAUNCHERS[kernel_variant(q.dtype, q.shape[-1])](
+    out = _LAUNCHERS[kernel_variant(q.dtype, q.shape[-1], v.shape[-1])](
         q, k, v, causal=causal, softcap=softcap)
     flash_attention_cuda.launches += 1
     return out
@@ -342,6 +377,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention_cuda.launches = 0
 flash_attention_ffma.launches = 0
+flash_attention_ffma.launches_by_geometry = {}
 flash_attention_wgmma.launches = 0
 
 
@@ -350,11 +386,12 @@ def recompute_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         softcap: float = 0.0) -> torch.Tensor:
     """Attention as the reference differentiates it (its
     ``naive_attention``, which its ``flash_attention`` calls for T up to
-    ``block_k``, and the same function blocked above): f32 scores and
-    softmax, ``p`` cast to v's dtype before ``p·v``.  q (B, S, H, hd),
-    k and v (B, T, H, hd); the scores soft-capped when ``softcap`` > 0;
-    the causal mask is ``i >= j``, top-left.  Holds the (B, H, S, T) f32
-    scores whole: 537 MB at B 2, H 16, S = T = 2048."""
+    ``block_k``, and the same function blocked above): f32 scores scaled
+    by ``dk**-0.5`` and softmax, ``p`` cast to v's dtype before ``p·v``.
+    q (B, S, H, dk), k (B, T, H, dk), v (B, T, H, dv) → (B, S, H, dv);
+    the scores soft-capped when ``softcap`` > 0; the causal mask is
+    ``i >= j``, top-left.  Holds the (B, H, S, T) f32 scores whole: 537
+    MB at B 2, H 16, S = T = 2048."""
     s, t, hd = q.shape[1], k.shape[1], q.shape[3]
     sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hd ** -0.5
     if softcap:

@@ -1,6 +1,6 @@
 """Attention of the LLM stack: GQA/MQA/MHA with RoPE and a KV cache,
-global or sliding-window, with optional logit soft-capping (the port of
-``repro.models.attention`` for the dense, causal configs).
+global or sliding-window, with optional logit soft-capping, and MLA
+(the port of ``repro.models.attention`` for the dense, causal configs).
 
 * :func:`flash_attention` — train and prefill attention of a global
   layer.  On the card it launches the hand-written kernel
@@ -20,15 +20,24 @@ global or sliding-window, with optional logit soft-capping (the port of
   ``attn_impl="naive"`` / ``"chunked_q"``; both mask by positions.
 * :func:`decode_attention` — one-token attention over the static-size
   cache with a length (and window) mask.
+* :func:`mla_specs` / :func:`mla_apply` — multi-head latent attention
+  (MiniCPM3): low-rank q and kv projections with a decoupled RoPE part
+  shared by the heads.  Train and prefill expand the latent to per-head
+  k and v and run :func:`flash_attention` on q·k head dim ``qk_nope +
+  qk_rope`` and value head dim ``v_head_dim`` (the kernel's split
+  instances) or :func:`naive_attention`; decode attends in the latent
+  space (the absorbed projections), over a cache of ``kv_lora +
+  qk_rope`` values a token.
 
-``swa_attention``, ``chunked_q_attention`` and ``decode_attention`` are
-plain PyTorch on the card too: the reference computes them in jnp
-einsums outside any Pallas kernel.  Scores and softmax run in f32, and
-``p`` is cast to v's dtype before ``p·v``, as the reference.
+``swa_attention``, ``chunked_q_attention``, ``decode_attention`` and
+MLA's absorbed decode are plain PyTorch on the card too: the reference
+computes them in jnp einsums outside any Pallas kernel.  Scores and
+softmax run in f32, and ``p`` is cast to v's dtype before ``p·v``, as
+the reference.
 
 Not ported (``models/transformer.py`` refuses the configs that need
-them): MLA, ``flash_decode`` over a sharded cache, the int8 cache and
-the mesh constraints.
+them): ``flash_decode`` over a sharded cache, the int8 cache and the
+mesh constraints.
 """
 
 from __future__ import annotations
@@ -40,11 +49,12 @@ from repro_torch.configs.base import ArchConfig, BlockDesc
 from repro_torch.kernels.flash_attention import (FlashAttentionFn,
                                                  flash_attention_cuda,
                                                  flash_attention_plain)
-from repro_torch.models.common import PSpec, apply_rope, rope_angles
+from repro_torch.models.common import (PSpec, apply_rope, rms_norm,
+                                       rope_angles)
 
-__all__ = ["attention_specs", "attention_apply", "flash_attention",
-           "naive_attention", "chunked_q_attention", "swa_attention",
-           "decode_attention"]
+__all__ = ["attention_specs", "attention_apply", "mla_specs", "mla_apply",
+           "flash_attention", "naive_attention", "chunked_q_attention",
+           "swa_attention", "decode_attention"]
 
 NEG_INF = -1e30
 
@@ -287,4 +297,98 @@ def attention_apply(params, x, cfg: ArchConfig, desc: BlockDesc, *,
     else:
         raise ValueError(mode)
     out = out.reshape(b, s, hq * hd) @ params["wo"]
+    return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (MiniCPM3 / DeepSeek-style multi-head latent attention).
+# ---------------------------------------------------------------------------
+
+def mla_specs(cfg: ArchConfig) -> dict[str, PSpec]:
+    d, h = cfg.d_model, cfg.n_heads
+    ql, kl = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "wq_a": PSpec((d, ql), ("embed", "q_lora")),
+        "q_norm": PSpec((ql,), (None,), init="zeros"),
+        "wq_b": PSpec((ql, h * (dn + dr)), ("q_lora", "heads")),
+        "wkv_a": PSpec((d, kl + dr), ("embed", None)),
+        "kv_norm": PSpec((kl,), (None,), init="zeros"),
+        "wkv_b": PSpec((kl, h * (dn + dv)), ("kv_lora", "heads")),
+        "wo": PSpec((h * dv, d), ("heads", "embed")),
+    }
+
+
+def mla_apply(params, x, cfg: ArchConfig, desc: BlockDesc, *, positions,
+              mode: str = "train", cache=None, lengths=None,
+              attn_impl: str = "flash"):
+    """Returns (out, new_cache).
+
+    q: ``wq_a`` → ``rms_norm(q_norm)`` → ``wq_b``, split per head into
+    ``qk_nope`` and ``qk_rope`` dims; ``wkv_a`` gives the latent ``c_kv``
+    (normed by ``kv_norm``) and one ``k_rope`` shared by the heads; RoPE
+    over ``qk_rope`` at ``desc.rope_theta``.
+
+    ``train`` / ``prefill``: ``c_kv @ wkv_b`` expanded to per-head
+    ``k_nope`` and ``v``, the broadcast ``k_rope`` concatenated onto
+    ``k_nope``, then causal attention of q·k head dim ``qk_nope +
+    qk_rope`` and value head dim ``v_head_dim``: ``attn_impl="flash"``
+    through :func:`flash_attention` (masked by index), any other through
+    :func:`naive_attention` (masked by positions), as the reference's two
+    branches.  ``prefill`` also returns the cache ``{"ckv", "krope"}``.
+    ``decode``: the absorbed form.  This token's ``c_kv`` and ``k_rope``
+    are written into ``cache`` *in place* at row ``lengths``; the scores
+    are ``(q_nope·W_uk)·ckv + q_rope·krope`` in f32 times ``(qk_nope +
+    qk_rope)**-0.5`` over the keys at indices up to ``lengths``; ``p`` is
+    cast to the cache's dtype and the output is ``(p·ckv)·W_uv``."""
+    b, s, _ = x.shape
+    h, kl = cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+
+    q = rms_norm(x @ params["wq_a"], params["q_norm"], cfg.norm_eps)
+    q = (q @ params["wq_b"]).reshape(b, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    kv_a = x @ params["wkv_a"]
+    c_kv = rms_norm(kv_a[..., :kl], params["kv_norm"], cfg.norm_eps)
+    k_rope = kv_a[..., kl:]                      # (b, s, dr), shared heads
+    cos, sin = rope_angles(positions, dr, desc.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0]
+
+    new_cache = None
+    if mode in ("train", "prefill"):
+        kv = (c_kv @ params["wkv_b"]).reshape(b, s, h, dn + dv)
+        k_nope, v = kv[..., :dn], kv[..., dn:]
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)],
+                      dim=-1)
+        qf = torch.cat([q_nope, q_rope], dim=-1)
+        if attn_impl == "flash":
+            out = flash_attention(qf, k, v, causal=True)
+        else:
+            out = naive_attention(qf, k, v, positions, positions,
+                                  causal=True)
+        if mode == "prefill":
+            new_cache = {"ckv": c_kv, "krope": k_rope}
+    elif mode == "decode":
+        w_b = params["wkv_b"].reshape(kl, h, dn + dv)
+        w_uk, w_uv = w_b[..., :dn], w_b[..., dn:]
+        q_lat = torch.einsum("bshn,khn->bshk", q_nope, w_uk)  # (b,1,h,kl)
+        rows = torch.arange(b, device=x.device)
+        ckv, krope = cache["ckv"], cache["krope"]
+        ckv[rows, lengths] = c_kv[:, 0].to(ckv.dtype)
+        krope[rows, lengths] = k_rope[:, 0].to(krope.dtype)
+        new_cache = cache
+        sc = (torch.einsum("bshk,btk->bhst", q_lat.float(), ckv.float())
+              + torch.einsum("bshr,btr->bhst", q_rope.float(),
+                             krope.float()))
+        sc = sc * (dn + dr) ** -0.5
+        ok = torch.arange(ckv.shape[1], device=x.device)[None] \
+            <= lengths[:, None]
+        sc = torch.where(ok[:, None, None], sc, NEG_INF)
+        pr = torch.softmax(sc, dim=-1).to(ckv.dtype)
+        o_lat = torch.einsum("bhst,btk->bshk", pr, ckv)      # (b,1,h,kl)
+        out = torch.einsum("bshk,khv->bshv", o_lat, w_uv)
+    else:
+        raise ValueError(mode)
+    out = out.reshape(b, s, h * dv) @ params["wo"]
     return out, new_cache

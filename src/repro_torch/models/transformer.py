@@ -1,12 +1,15 @@
 """Decoder LM assembly (the port of ``repro.models.transformer`` for the
-dense, causal configs: ``gemma-7b``, ``qwen1.5-32b`` and ``gemma3-4b``,
+dense, causal configs: ``gemma-7b``, ``qwen1.5-32b``, ``gemma3-4b``,
 whose 5:1 local:global pattern runs sliding-window layers beside global
-ones at their own ``rope_theta``; logit soft-capping and positions given
-in the batch are ported too).
+ones at their own ``rope_theta``, and ``minicpm3-4b``, whose blocks mix
+by multi-head latent attention (MLA); logit soft-capping and positions
+given in the batch are ported too).
 
 Parameters keep the reference's stacked layout — ``segments/seg<i>/
 pos<j>/{ln_mix, attn/{wq,wk,wv,wo[,bq,bk,bv]}, ln_mlp, mlp/{...}}`` with
-a leading layers axis, ``embed`` and ``final_norm`` — as nested dicts of
+a leading layers axis (an MLA block's ``attn`` holds ``{wq_a, q_norm,
+wq_b, wkv_a, kv_norm, wkv_b, wo}``), ``embed`` and ``final_norm`` — as
+nested dicts of
 tensors, so converting the JAX package's parameters is a check and a
 copy.  Where the reference scans over the layers, :func:`forward` loops
 over the layer slices in Python.
@@ -50,7 +53,6 @@ __all__ = ["RunFlags", "check_supported", "model_specs", "init", "forward",
            "model_flops_per_token"]
 
 # ROADMAP queue 1 items that bring what this slice leaves out
-_ITEM_MLA = "ROADMAP queue 1 item 18 (MLA)"
 _ITEM_MOE = "ROADMAP queue 1 item 19 (MoE)"
 _ITEM_SSM = "ROADMAP queue 1 item 20 (SSM and hybrid blocks)"
 _ITEM_ENC = "ROADMAP queue 1 item 21 (the encoder and the VLM)"
@@ -111,8 +113,6 @@ def check_supported(cfg: ArchConfig) -> None:
                                   f"{_ITEM_ENC}")
     for descs, _ in cfg.layer_segments():
         for desc in descs:
-            if desc.mixer == "mla":
-                raise NotImplementedError(f"{cfg.name}: MLA: {_ITEM_MLA}")
             if desc.mixer in ("ssm", "hybrid"):
                 raise NotImplementedError(f"{cfg.name}: mixer "
                                           f"{desc.mixer!r}: {_ITEM_SSM}")
@@ -137,7 +137,8 @@ def _block_specs(cfg: ArchConfig, desc: BlockDesc) -> dict[str, Any]:
     d = cfg.d_model
     specs: dict[str, Any] = {
         "ln_mix": PSpec((d,), (None,), init="zeros"),
-        "attn": attn_mod.attention_specs(cfg, desc),
+        "attn": (attn_mod.mla_specs(cfg) if desc.mixer == "mla"
+                 else attn_mod.attention_specs(cfg, desc)),
     }
     if desc.mlp != "none":
         specs["ln_mlp"] = PSpec((d,), (None,), init="zeros")
@@ -181,8 +182,8 @@ def count_params(cfg: ArchConfig) -> int:
 
 
 def model_flops_per_token(cfg: ArchConfig) -> float:
-    """MODEL_FLOPS a token = 6·N.  Every config of this slice is dense,
-    so N is every parameter (the reference counts only the active
+    """MODEL_FLOPS a token = 6·N.  Every config of this slice is dense
+    (MLA included), so N is every parameter (the reference counts only the active
     experts of a MoE config, which ``model_specs`` refuses here)."""
     return 6.0 * count_params(cfg)
 
@@ -194,10 +195,11 @@ def model_flops_per_token(cfg: ArchConfig) -> float:
 def _block_apply(params, x, cfg, desc, *, positions, mode, cache, lengths,
                  flags: RunFlags):
     h = rms_norm(x, params["ln_mix"], cfg.norm_eps)
-    out, c = attn_mod.attention_apply(
-        params["attn"], h, cfg, desc, positions=positions, mode=mode,
-        cache=None if cache is None else cache.get("attn"), lengths=lengths,
-        attn_impl=flags.attn_impl)
+    fn = attn_mod.mla_apply if desc.mixer == "mla" else \
+        attn_mod.attention_apply
+    out, c = fn(params["attn"], h, cfg, desc, positions=positions, mode=mode,
+                cache=None if cache is None else cache.get("attn"),
+                lengths=lengths, attn_impl=flags.attn_impl)
     x = x + out
     if desc.mlp != "none":
         h = rms_norm(x, params["ln_mlp"], cfg.norm_eps)
@@ -268,7 +270,9 @@ def forward(params, batch, cfg: ArchConfig, *, mode: str = "train",
     ``flags.remat`` each layer runs under activation checkpointing
     (:class:`RunFlags`).  ``prefill`` returns the cache of
     the prompt, stacked over each segment's layers: ``{seg: {pos:
-    {"attn": {"k", "v"}}}}`` of ``(layers, B, S, Hk, hd)``.  ``decode``
+    {"attn": {"k", "v"}}}}`` of ``(layers, B, S, Hk, hd)`` (an MLA
+    block's ``{"ckv", "krope"}`` of ``(layers, B, S, kv_lora)`` and
+    ``(layers, B, S, qk_rope)``).  ``decode``
     writes into ``cache`` in place at ``lengths`` and returns it.
     ``last_logit_only``: the logits of the last position only.
 
@@ -330,8 +334,9 @@ def forward(params, batch, cfg: ArchConfig, *, mode: str = "train",
 def _batch_positions(positions, shape, cfg: ArchConfig, flags: RunFlags,
                      device) -> torch.Tensor:
     """``batch["positions"]`` as a (B, S) int64 tensor on ``device``;
-    raises where ``flags.attn_impl="flash"`` runs a global layer on
-    positions the kernel's index mask does not equal."""
+    raises where ``flags.attn_impl="flash"`` runs a global layer (an MLA
+    layer among them) on positions the kernel's index mask does not
+    equal."""
     positions = torch.as_tensor(positions, device=device).long()
     if tuple(positions.shape) != shape:
         raise ValueError(f"batch positions of shape "
@@ -400,9 +405,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype: torch.dtype | None = None, kv_dtype: str = "bf16",
                device: str | torch.device = "cuda") -> dict:
     """Zero cache matching the segment structure: per attention block
-    ``{"k", "v"}`` of ``(layers, batch, max_len, Hk, hd)`` in ``dtype``
-    (default: the activation dtype), on ``device`` (default: the
-    card)."""
+    ``{"k", "v"}`` of ``(layers, batch, max_len, Hk, hd)``, per MLA block
+    the latent ``{"ckv": (layers, batch, max_len, kv_lora), "krope":
+    (layers, batch, max_len, qk_rope)}``, in ``dtype`` (default: the
+    activation dtype), on ``device`` (default: the card)."""
     check_supported(cfg)
     device = resolve_device(device)
     if kv_dtype == "int8":
@@ -413,10 +419,16 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     hd = cfg.resolved_head_dim
     cache: dict[str, Any] = {}
     for si, (descs, rep) in enumerate(cfg.layer_segments()):
-        shape = (rep, batch, max_len, cfg.n_kv_heads, hd)
-        cache[f"seg{si}"] = {
-            f"pos{di}": {"attn": {
-                "k": torch.zeros(shape, dtype=dt, device=device),
-                "v": torch.zeros(shape, dtype=dt, device=device)}}
-            for di in range(len(descs))}
+        lead = (rep, batch, max_len)
+        seg = cache[f"seg{si}"] = {}
+        for di, desc in enumerate(descs):
+            if desc.mixer == "mla":
+                shapes = {"ckv": lead + (cfg.kv_lora_rank,),
+                          "krope": lead + (cfg.qk_rope_head_dim,)}
+            else:
+                shapes = dict.fromkeys(("k", "v"),
+                                       lead + (cfg.n_kv_heads, hd))
+            seg[f"pos{di}"] = {"attn": {
+                name: torch.zeros(shape, dtype=dt, device=device)
+                for name, shape in shapes.items()}}
     return cache

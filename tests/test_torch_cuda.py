@@ -1133,3 +1133,110 @@ def test_gemma3_engine_on_the_card_launches_flash_on_global_layers(dev):
         assert launched == (len(prompts) if impl == "flash" else 0)
         tokens[impl] = [r.generated for r in reqs]
     assert tokens["flash"] == tokens["naive"]
+
+
+# -- the split head dims of MLA, and MiniCPM3 on the card -------------------
+
+# (B, S, T, H, causal, soft-cap): ragged S and T against both kv tiles
+# (64 rows at (48, 32), 32 at (96, 64)) and the 64-row q tile, causal and
+# full, with the soft-cap off and at a cap that bites
+SPLIT_CASES = [
+    (1, 77, 77, 3, True, 0.0),
+    (2, 45, 130, 2, False, 0.0),
+    (1, 200, 150, 2, True, 0.0),
+    (2, 133, 97, 2, False, 1.0),
+    (1, 300, 300, 4, True, 1.0),
+]
+
+
+def _split_inputs(b, s, t, h, dk, dv, dtype, dev, seed=11):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=gen).to(dev, dtype)
+            for shape in ((b, s, h, dk), (b, t, h, dk), (b, t, h, dv))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dk,dv", [(96, 64), (48, 32)])
+@pytest.mark.parametrize("b,s,t,h,causal,cap", SPLIT_CASES)
+def test_flash_split_head_dims_match_plain(dev, b, s, t, h, causal, cap, dk,
+                                           dv, dtype):
+    """The FFMA kernel's split instances (q, k of ``dk``, v of ``dv``)
+    against their plain version within FLASH_TOL, output ``(B, S, H,
+    dv)``, one launch counted on the FFMA kernel and on its geometry;
+    the kernel scaled by ``dv**-0.5`` in place of ``dk**-0.5`` (q
+    scaled by ``(dk / dv)**0.5``) fails that gate."""
+    q, k, v = _split_inputs(b, s, t, h, dk, dv, dtype, dev, seed=s + dk)
+    by_geometry = flash_attention_ffma.launches_by_geometry
+    before = (flash_attention_ffma.launches, flash_attention_wgmma.launches,
+              by_geometry.get((dtype, dk, dv), 0))
+    got = flash_attention_cuda(q, k, v, causal=causal, softcap=cap)
+    assert (flash_attention_ffma.launches, flash_attention_wgmma.launches,
+            by_geometry[(dtype, dk, dv)]) == (before[0] + 1, before[1],
+                                              before[2] + 1)
+    ref = flash_attention_plain(q, k, v, causal=causal, softcap=cap)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, s, h, dv)
+    torch.testing.assert_close(got.float(), ref.float(), **FLASH_TOL[dtype])
+    wrong = flash_attention_cuda(q * (dk / dv) ** 0.5, k, v, causal=causal,
+                                 softcap=cap)
+    assert not torch.allclose(wrong.float(), ref.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_function_gradients_at_split_head_dims(dev, dtype):
+    """``FlashAttentionFn`` at (96, 64) on the card (the forward through
+    the split instance, the backward a recompute) against float64
+    attention's gradients: dq, dk, dv each at most twice the gap of
+    autograd through the plain version, plus ``F32_FLOOR``."""
+    from repro_torch.kernels.flash_attention import FlashAttentionFn
+
+    def f64(a, b, c):
+        sc = torch.einsum("bqhd,bkhd->bhqk", a, b) * a.shape[3] ** -0.5
+        keep = torch.ones(a.shape[1], b.shape[1], dtype=torch.bool,
+                          device=a.device).tril()
+        sc = sc.masked_fill(~keep, float("-inf"))
+        return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, -1), c)
+    q, k, v = _split_inputs(1, 512, 512, 4, 96, 64, dtype, dev)
+    do = torch.randn((1, 512, 4, 64), generator=torch.Generator()
+                     .manual_seed(3)).to(dev, dtype)
+    exact = _attention_grads(f64, q, k, v, do, torch.float64)
+    before = flash_attention_ffma.launches
+    got = _attention_grads(lambda a, b, c: FlashAttentionFn.apply(
+        a, b, c, True, flash_attention_cuda), q, k, v, do)
+    assert flash_attention_ffma.launches == before + 1
+    plain = _attention_grads(lambda a, b, c: flash_attention_plain(a, b, c),
+                             q, k, v, do)
+    for name, g, p, e in zip("qkv", got, plain, exact):
+        assert g.shape == e.shape and bool(torch.isfinite(g).all())
+        gap = float((g.double() - e).norm() / e.norm())
+        yardstick = float((p.double() - e).norm() / e.norm())
+        assert gap <= 2 * yardstick + F32_FLOOR, (name, gap, yardstick)
+
+
+def test_minicpm3_engine_on_the_card_launches_the_split_instance(dev):
+    """Tiny MiniCPM3 in f32 (2 MLA layers, q·k 48 against v 32): one
+    launch of the (48, 32) instance per layer per prefill, and the same
+    greedy tokens as the naive engine (the absorbed decode on both)."""
+    cfg = dataclasses.replace(reduced_config("minicpm3-4b", "tiny"),
+                              dtype="float32")
+    params = tr.init(cfg, torch.Generator(dev).manual_seed(0))
+    prompts = [[int(t) for t in torch.randint(0, cfg.vocab, (n,),
+                generator=torch.Generator().manual_seed(n))]
+               for n in (70, 300, 131)]
+    geometry = (torch.float32, 48, 32)
+    tokens = {}
+    for impl in ("flash", "naive"):
+        engine = DecodeEngine(cfg, params, EngineConfig(
+            n_slots=2, max_len=320, max_new=5), tr.RunFlags(attn_impl=impl),
+            device=dev)
+        reqs = [Request(rid=i, prompt=p) for i, p in enumerate(prompts)]
+        before = flash_attention_ffma.launches_by_geometry.get(geometry, 0)
+        engine.run(reqs)
+        launched = flash_attention_ffma.launches_by_geometry.get(
+            geometry, 0) - before
+        assert launched == (cfg.n_layers * len(prompts) if impl == "flash"
+                            else 0)
+        tokens[impl] = [r.generated for r in reqs]
+    assert tokens["flash"] == tokens["naive"]

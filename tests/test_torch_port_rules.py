@@ -156,7 +156,7 @@ OUTSIDE_THE_SLICE = {
     "hubert-xlarge": "item 21",
     "hymba-1.5b": "item 20", "internvl2-26b": "item 21",
     "llama4-scout-17b-a16e": "item 19", "mamba2-2.7b": "item 20",
-    "minicpm3-4b": "item 18", "olmoe-1b-7b": "item 19"}
+    "olmoe-1b-7b": "item 19"}
 
 
 @pytest.mark.parametrize("name", sorted(OUTSIDE_THE_SLICE))
