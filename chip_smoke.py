@@ -89,8 +89,9 @@ gemma3 phase serves and trains full-width Gemma3-4B (sliding-window and
 global layers).  The minicpm3 phase serves full-width MiniCPM3-4B (62
 layers of multi-head latent attention, random bf16 weights from seed 0)
 through ``DecodeEngine.run``, every prefill's attention through the
-FFMA kernel's split instance (q·k 96 against v 64; 62 launches a
-prefill), holds each launch of a 4000-token prefill to float64, the
+wgmma kernel's split instance (q·k 96 against v 64; 62 launches a
+prefill), times it beside the FFMA kernel's instance at the same head
+dims, holds each launch of a 4000-token prefill to float64, the
 kernel path's logits to the naive path's (with a dropped kv tile and
 the dv^-0.5 scale planted above the gate), the absorbed decode to the
 expanded form (with W_uk and W_uv swapped above the gate), checks an f32
@@ -162,8 +163,9 @@ TF32_CONTROL = {"ganax_conv": ("dcgan g1", "dcgan d4"),
                 "ganax_conv3d": ("3dgan g1", "3dgan d4")}
 
 # name -> (source, the TPU kernel it replaces).  flash_attention has two
-# kernels, picked by dtype and head dim: the wgmma/TMA one (bf16 at hd
-# 128 and 256, the served model) and the FFMA one (f32, small head dims).
+# kernels, picked by dtype and head dims: the wgmma/TMA one (bf16 at hd
+# 128 and 256 and at (96, 64), the served models) and the FFMA one (f32,
+# small head dims, the tiny split pair (48, 32)).
 KERNELS = {
     "ganax_conv": ("src/repro_torch/kernels/csrc/ganax_conv.cu",
                    "src/repro/kernels/ganax_conv.py:99"),
@@ -231,12 +233,17 @@ FLASH_BIG_SCORES = 10.0
 SOFTCAP_GEOMETRIES = (("gemma3 global S=4000", 1, 4000, 8, 256, torch.bfloat16),
                       ("f32 S=1024", 1, 1024, 8, 256, torch.float32))
 SOFTCAP_BITES = ((1.0, 1.0), (FLASH_BIG_SCORES, 5.0))
-# the FFMA kernel's split instances (q·k head dim, v head dim) -> heads:
-# MiniCPM3-4B's 40 heads of 64 + 32 against 64, its tiny preset's 4 of
-# 32 + 16 against 32; each at both dtypes on SPLIT_CASES (label, B, S,
-# T, causal, soft-cap): causal and full, ragged S and T against the
-# 64-row q tile and both kv tiles (32 rows at (96, 64), 64 at (48, 32)),
-# one soft-capped case (a cap of 1, which bites on scores of std 1)
+# the split instances (q·k head dim, v head dim) -> heads: MiniCPM3-4B's
+# 40 heads of 64 + 32 against 64, its tiny preset's 4 of 32 + 16 against
+# 32; each at both dtypes on SPLIT_CASES (label, B, S, T, causal,
+# soft-cap): causal and full, ragged S and T against the q tiles (128
+# rows for the wgmma kernel's bf16 (96, 64), 64 for the FFMA kernel's)
+# and the kv tiles (128 rows at the wgmma kernel's (96, 64), 32 at the
+# FFMA kernel's, 64 at (48, 32)), one soft-capped case (a cap of 1,
+# which bites on scores of std 1).  The FFMA kernel's bf16 (96, 64)
+# instance, off the main path since the wgmma kernel takes that
+# geometry, is held on the same cases, called through
+# flash_attention_ffma: it is the wgmma instance's yardstick
 SPLIT_HEADS = {(96, 64): 40, (48, 32): 4}
 SPLIT_CASES = (("causal ragged", 1, 1000, 1000, True, 0.0),
                ("full ragged B=2", 2, 333, 197, False, 0.0),
@@ -902,9 +909,10 @@ def flash_cases() -> list[tuple]:
     gate's 1 x 1024); the first again at FLASH_BIG_SCORES; the
     soft-cap instances of both kernels (SOFTCAP_CASES: Gemma3's global
     geometry in bf16, the f32 gate's), each at a cap that bites; and the
-    FFMA kernel's split instances (SPLIT_CASES: MiniCPM3-4B's q·k 96
-    against v 64 and its tiny preset's 48 against 32).  Each case ends
-    with v's head dim ``dv`` (``hd`` but for the split instances)."""
+    split instances (SPLIT_CASES: MiniCPM3-4B's q·k 96 against v 64, on
+    the wgmma kernel in bf16 and the FFMA kernel in f32, and its tiny
+    preset's 48 against 32 on the FFMA kernel).  Each case ends with v's
+    head dim ``dv`` (``hd`` but for the split instances)."""
     cases = []
     for s in (17, 1000, 2048):
         for dtype in (torch.bfloat16, torch.float32):
@@ -942,10 +950,14 @@ def flash_cases() -> list[tuple]:
     return cases
 
 
-def split_instance(dtype, dk: int, dv: int) -> str:
-    """The kernels line's name of the FFMA kernel's instance at the split
-    head dims (dk, dv)."""
-    return (f"flash_attention_ffma_{dk}x{dv}_"
+def split_instance(dtype, dk: int, dv: int, variant: str | None = None
+                   ) -> str:
+    """The kernels line's name of the instance at the split head dims
+    (dk, dv) of ``variant``'s kernel (default: the one the variant table
+    names)."""
+    from repro_torch.kernels.flash_attention import kernel_variant
+    variant = variant or kernel_variant(dtype, dk, dv)
+    return (f"flash_attention_{variant}_{dk}x{dv}_"
             f"{'bf16' if dtype == torch.bfloat16 else 'f32'}")
 
 
@@ -970,10 +982,14 @@ def flash_operands(b, s, t, h, hd, dtype, dev, seed, scale=1.0, dv=None):
 
 def flash_geometries(dev) -> dict[str, list[float]]:
     """Each geometry of ``flash_cases``: the kernel that the wrapper picks
-    against its plain version on the card.  Returns the max abs errors
-    by variant, and by instance (``split_instance``) for the split head
+    against its plain version on the card, and at a split geometry that
+    the wgmma kernel takes, the FFMA kernel's instance too (called
+    through ``flash_attention_ffma``).  Returns the max abs errors by
+    variant, and by instance (``split_instance``) for the split head
     dims, each of which must fail the gate scaled by ``dv**-0.5``."""
-    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+    from repro_torch.kernels.flash_attention import (FFMA_GEOMETRIES,
+                                                     flash_attention_cuda,
+                                                     flash_attention_ffma,
                                                      flash_attention_plain,
                                                      kernel_variant)
     errs = {variant: [] for variant in FLASH_VARIANTS}
@@ -1014,17 +1030,36 @@ def flash_geometries(dev) -> dict[str, list[float]]:
             check(caught, f"{label}: the gate cannot tell a kernel that "
                   f"ignores the soft-cap")
             del bad
-        if dv != hd:
-            bad = scaled_by_dv(flash_attention_cuda)(q, k, v, causal=causal,
-                                                     softcap=cap)
+        if dv == hd:
+            continue
+        # the split instances: the one the wrapper picked, and the FFMA
+        # kernel's where the wgmma kernel took the geometry
+        attends = {variant: flash_attention_cuda}
+        if variant == "wgmma" and (dtype, hd, dv) in FFMA_GEOMETRIES:
+            attends["ffma"] = flash_attention_ffma
+        for name, attend in attends.items():
+            if name != variant:
+                got = attend(q, k, v, causal=causal, softcap=cap)
+                torch.cuda.synchronize()
+                err = (got.float() - ref.float()).abs().max().item()
+                ok = bool(torch.allclose(got.float(), ref.float(),
+                                         atol=atol, rtol=rtol)) \
+                    and got.shape == (b, s, h, dv)
+                errs.setdefault(split_instance(dtype, hd, dv, name),
+                                []).append(err)
+                print(f"  the {name} instance, called directly: max_abs_err "
+                      f"{err:.3e} {'ok' if ok else 'FAIL'}")
+                check(ok, f"{label}: the {name} instance disagrees with "
+                      f"its plain version")
+            bad = scaled_by_dv(attend)(q, k, v, causal=causal, softcap=cap)
             fault = (bad.float() - ref.float()).abs().max().item()
             caught = not torch.allclose(bad.float(), ref.float(), atol=atol,
                                         rtol=rtol)
-            print(f"  planted fault, the kernel scaled by dv^-0.5 in place "
-                  f"of dk^-0.5: max_abs_err {fault:.3e} "
+            print(f"  planted fault, the {name} kernel scaled by dv^-0.5 in "
+                  f"place of dk^-0.5: max_abs_err {fault:.3e} "
                   f"{'fails the gate, as it must' if caught else 'PASSES'}")
-            check(caught, f"{label}: the gate cannot tell a kernel scaled "
-                  f"by dv^-0.5")
+            check(caught, f"{label}: the gate cannot tell a {name} kernel "
+                  f"scaled by dv^-0.5")
             del bad
     return errs
 
@@ -2637,8 +2672,8 @@ def gemma3_phase(card, dev, wrappers) -> dict:
 # 73,448 padded to 73,472; bf16, random weights from seed 0) serving
 # MINICPM3_REQUESTS prompts of lengths drawn from seed 0 in
 # MINICPM3_PROMPT_LENS, greedy, through MINICPM3_SLOTS slots: every
-# prefill's attention through the FFMA kernel's (96, 64) instance, one
-# launch a layer, and every decode step through the absorbed form
+# prefill's attention through the wgmma kernel's bf16 (96, 64) instance,
+# one launch a layer, and every decode step through the absorbed form
 # (plain PyTorch over the latent cache of 288 values a token); then
 # training at full width with MINICPM3_TRAIN_LAYERS of its 62 layers (16
 # B a parameter of f32 masters, moments and gradients: 68.2 GB at 62
@@ -2677,8 +2712,8 @@ MINICPM3_F32_TOL = 1e-4
 MINICPM3_DECODE_TOL = {torch.bfloat16: MINICPM3_LOGITS_TOL["conditioned"],
                        torch.float32: MINICPM3_F32_TOL}
 # the plain version's tiles in the per-launch float64 gate (regime_forward):
-# 256 x 256 in place of the kernel's 64 x 32, so that 62 launches at S =
-# 4000 walk 128 tile pairs each, not ~4000
+# 256 x 256 in place of the kernel's 128 x 64, so that 62 launches at S =
+# 4000 walk 128 tile pairs each, not ~1000
 MINICPM3_PLAIN_TILES = dict(block_q=256, block_k=256)
 # the tiny preset's runs on the card, through the (48, 32) instance: the
 # train CLI's arguments, and the f32 engine's prompts (flash vs naive)
@@ -2733,27 +2768,46 @@ def sdpa_backend(q, k, v) -> str:
 
 
 def split_launch_row(label, b, s, h, dk, dv, dtype, dev, on_card) -> dict:
-    """One causal launch of the split instance at (B, S, H, dk/dv): the
-    kernel's device ms, its plain version's ms, one SDPA call's on the
-    same q, k, v (which takes Ev != E) and the backend it picked, the
-    bound; and the kernel against its plain version (max abs error)."""
-    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                     flash_attention_plain)
+    """One causal launch of the split instance at (B, S, H, dk/dv) that
+    the variant table names (``variant``): the kernel's device ms, its
+    plain version's ms, one SDPA call's on the same q, k, v (which takes
+    Ev != E) and the backend it picked, the bound; and the kernel against
+    its plain version (max abs error).  Where that is the wgmma kernel
+    and the FFMA kernel is built for the geometry too, ``ffma`` holds the
+    FFMA instance's ms and error on the same q, k, v, the yardstick."""
+    from repro_torch.kernels.flash_attention import (FFMA_GEOMETRIES,
+                                                     flash_attention_cuda,
+                                                     flash_attention_ffma,
+                                                     flash_attention_plain,
+                                                     kernel_variant)
     q, k, v = flash_operands(b, s, s, h, dk, dtype, dev, seed=s + dk, dv=dv)
-    row = dict(label=label, b=b, s=s, h=h, dk=dk, dv=dv,
+    variant = kernel_variant(dtype, dk, dv)
+    row = dict(label=label, b=b, s=s, h=h, dk=dk, dv=dv, variant=variant,
                dtype=str(dtype).removeprefix("torch."),
                **split_bound(b, s, s, h, dk, dv, dtype, True))
     if not on_card:
         return row
-    got = flash_attention_cuda(q, k, v)
-    ref = flash_attention_plain(q, k, v)
-    row["max_abs_err"] = (got.float() - ref.float()).abs().max().item()
     atol, rtol = FLASH_TOL[dtype]
-    check(torch.allclose(got.float(), ref.float(), atol=atol, rtol=rtol),
-          f"{label}: the kernel disagrees with its plain version")
+    ref = flash_attention_plain(q, k, v)
+    attends = {variant: flash_attention_cuda}
+    if variant == "wgmma" and (dtype, dk, dv) in FFMA_GEOMETRIES:
+        attends["ffma"] = flash_attention_ffma
+    for name, attend in attends.items():
+        got = attend(q, k, v)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        check(torch.allclose(got.float(), ref.float(), atol=atol, rtol=rtol),
+              f"{label}: the {name} kernel disagrees with its plain version")
+        ms = device_ms(lambda: attend(q, k, v), **(
+            dict(warmup=1, runs=5) if name != variant else {}))
+        if name == variant:
+            row.update(max_abs_err=err, ms=ms)
+        else:
+            row[name] = dict(max_abs_err=err, ms=ms,
+                             tflops=row["flops"] / (ms / 1e3) / 1e12)
+        del got
     qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
     row.update(
-        ms=device_ms(lambda: flash_attention_cuda(q, k, v)),
         plain_ms=time_ms(lambda: flash_attention_plain(q, k, v), warmup=1,
                          runs=1),
         library_ms=device_ms(lambda: F.scaled_dot_product_attention(
@@ -2761,6 +2815,13 @@ def split_launch_row(label, b, s, h, dk, dv, dtype, dev, on_card) -> dict:
         library_backend=sdpa_backend(qt, kt, vt))
     row["tflops"] = row["flops"] / (row["ms"] / 1e3) / 1e12
     return row
+
+
+def ffma_ms(row: dict) -> str:
+    """The FFMA yardstick of a ``split_launch_row`` row, as printed."""
+    f = row.get("ffma")
+    return (f"{f['ms']:.4f} ms ({f['tflops']:.2f} TFLOP/s, max_abs_err "
+            f"{f['max_abs_err']:.3e})" if f else "not run")
 
 
 def minicpm3_phase(card, dev, wrappers, *, cfg=None,
@@ -2773,15 +2834,17 @@ def minicpm3_phase(card, dev, wrappers, *, cfg=None,
                    ) -> dict:
     """Full-width MiniCPM3-4B (``cfg``, default the registered config):
     serving through ``DecodeEngine.run`` (every counter at 0 just before,
-    read just after: one launch of the (96, 64) FFMA instance a layer a
-    prefill, no wgmma launch, no plain call), TTFT, prefill and decode
+    read just after: one launch of the bf16 (96, 64) instance of the
+    kernel the variant table names, the wgmma one, a layer a prefill,
+    none of the FFMA kernel, no plain call), TTFT, prefill and decode
     rates; every launch of a 4000-token prefill against float64
     (``regime_forward``); the kernel path's logits against the naive
     path's at the reference's init and on conditioned weights, with the
     planted faults; the absorbed decode against the expanded form, with
     W_uk and W_uv swapped as its fault; a profile of the prefill by kind
-    and one launch at (1, 4000, 40, 96/64) beside its plain version,
-    SDPA and the bound; the serve CLI at full width; the f32 check
+    and one launch at (1, 4000, 40, 96/64) beside the FFMA instance, its
+    plain version, SDPA and the bound; the serve CLI at full width; the
+    f32 check
     through the (96, 64) f32 instance; the tiny preset through the (48,
     32) instances (the train CLI in bf16, an f32 engine against the naive
     one); then training with the depth cut: step time, tokens/s,
@@ -2793,7 +2856,9 @@ def minicpm3_phase(card, dev, wrappers, *, cfg=None,
     from repro_torch.data.pipeline import SyntheticLM, make_batch_fn
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_ffma,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     flash_attention_wgmma,
+                                                     kernel_variant)
     from repro_torch.launch import serve as serve_cli
     from repro_torch.launch import train as train_cli
     from repro_torch.models import transformer as tr
@@ -2806,10 +2871,14 @@ def minicpm3_phase(card, dev, wrappers, *, cfg=None,
     full_width = cfg is None
     cfg = cfg or get_config(MINICPM3_ARCH)
     kernel = flash_attention_cuda if on_card else flash_attention_plain
-    by_geometry = flash_attention_ffma.launches_by_geometry
+    ffma_geo = flash_attention_ffma.launches_by_geometry
+    wgmma_geo = flash_attention_wgmma.launches_by_geometry
     bf16_key = (torch.bfloat16, cfg.qk_nope_head_dim + cfg.qk_rope_head_dim,
                 cfg.v_head_dim)
     f32_key = (torch.float32,) + bf16_key[1:]
+    # the kernel of the served and trained geometry, and its count's name
+    variant = kernel_variant(*bf16_key)
+    main_kernel = FLASH_VARIANTS[variant]
     check(cfg.qk_nope_head_dim == cfg.v_head_dim, "the swapped-absorption "
           "fault needs qk_nope_head_dim = v_head_dim")
 
@@ -2822,14 +2891,26 @@ def minicpm3_phase(card, dev, wrappers, *, cfg=None,
         73,472 are live) hold -1e30 on both sides and would swamp it."""
         return rel_norm(a[..., :cfg.vocab], b[..., :cfg.vocab])
 
+    def clear_geometries():
+        ffma_geo.clear()
+        wgmma_geo.clear()
+
     def reset_counts():
         for kern, _ in wrappers.values():
             kern.launches = 0
-        by_geometry.clear()
+        clear_geometries()
+
+    def geometries():
+        """Launches by (dtype, dk, dv), both kernels' summed (each
+        kernel's own count tells them apart)."""
+        geo = dict(ffma_geo)
+        for key, n in wgmma_geo.items():
+            geo[key] = geo.get(key, 0) + n
+        return geo
 
     def read_counts():
         return ({k: wrappers[k][0].launches for k in wrappers},
-                dict(by_geometry))
+                geometries())
 
     t_phase = time.perf_counter()
     out: dict = {}
@@ -2869,19 +2950,20 @@ def minicpm3_phase(card, dev, wrappers, *, cfg=None,
     serve_requests(cfg, params, dataclasses.replace(ecfg, n_slots=1),
                    [prompts[0][:prompt_lens[0]]], "flash", wrappers, dev)
     plain_calls: list = []
-    by_geometry.clear()
+    clear_geometries()
     with counting_plain_attention(plain_calls):
         reqs, admits, steps, wall, counts = serve_requests(
             cfg, params, ecfg, prompts, "flash", wrappers, dev)
-    geo = dict(by_geometry)
+    geo = geometries()
     want = L * requests
     if on_card:
-        check(counts["flash_attention"] == counts["flash_attention_ffma"]
+        check(counts["flash_attention"] == counts[main_kernel]
               == geo.get(bf16_key) == want and sum(geo.values()) == want,
               f"{counts}, {geo}: {want} launches of the {dk}/{dv} bf16 "
-              f"instance expected ({requests} prefills of {L} layers)")
+              f"{variant} instance expected ({requests} prefills of {L} "
+              f"layers)")
         check(all(c == 0 for k, c in counts.items()
-                  if k not in ("flash_attention", "flash_attention_ffma")),
+                  if k not in ("flash_attention", main_kernel)),
               f"the MiniCPM3 path launched another kernel: {counts}")
         check(not plain_calls, f"the MiniCPM3 path called the plain version "
               f"{len(plain_calls)} times on the card")
@@ -2901,9 +2983,10 @@ def minicpm3_phase(card, dev, wrappers, *, cfg=None,
           f"tokens, {MINICPM3_MAX_NEW} new each) in {wall:.3f} s through "
           f"{MINICPM3_SLOTS} slots: {counts['flash_attention']} flash "
           f"launches = {L} layers x {requests} prefills, all through the "
-          f"FFMA kernel's {dk}/{dv} instance ({geo}), "
-          f"{counts['flash_attention_wgmma']} wgmma, {len(plain_calls)} "
-          f"plain calls [{card}]")
+          f"{variant} kernel's {dk}/{dv} instance ({geo}), "
+          f"{counts['flash_attention_ffma']} FFMA "
+          f"({ffma_geo.get(bf16_key, 0)} at {dk}/{dv} bf16), "
+          f"{len(plain_calls)} plain calls [{card}]")
     for n, t, pre in ttft:
         print(f"  prompt {n:4d} tokens: prefill {pre:9.3f} ms, time to "
               f"first token {t:9.3f} ms")
@@ -2918,7 +3001,8 @@ def minicpm3_phase(card, dev, wrappers, *, cfg=None,
           f"weights {weight_bytes / PEAK_HBM_BYTES * 1e3:.3f} ms) [{card}]")
     out.update(
         arch=MINICPM3_ARCH, params=n_params, weight_gb=weight_bytes / 1e9,
-        prompt_lens=lens, wall_s=wall, launches=counts["flash_attention"],
+        prompt_lens=lens, wall_s=wall, variant=variant,
+        launches=counts["flash_attention"],
         launches_by_geometry={str(k): v for k, v in geo.items()},
         requests=[dict(prompt=n, ttft_ms=t, prefill_ms=pre)
                   for n, t, pre in ttft],
@@ -3043,7 +3127,8 @@ def minicpm3_phase(card, dev, wrappers, *, cfg=None,
                        f"{MINICPM3_ARCH} prefills of {s_max} tokens")
         if "device_ms_per_run" in prof:
             kms = prof["kernels_ms_per_run"]
-            flash_ms = sum(ms for n, ms in kms.items() if "fa_kernel" in n)
+            flash_ms = sum(ms for n, ms in kms.items()
+                           if "fa_kernel" in n or "fa_sm90_kernel" in n)
             gemm_ms = sum(ms for n, ms in kms.items()
                           if any(t in n.lower() for t in
                                  ("gemm", "xmma", "cutlass", "nvjet")))
@@ -3063,7 +3148,7 @@ def minicpm3_phase(card, dev, wrappers, *, cfg=None,
                            on_card)
     out["launch"] = row
     if on_card:
-        print(f"flash_attention (ffma {dk}/{dv}) at B=1 S={s_max} "
+        print(f"flash_attention ({variant} {dk}/{dv}) at B=1 S={s_max} "
               f"H={cfg.n_heads} causal {row['dtype']}: {row['ms']:.4f} ms a "
               f"launch ({row['tflops']:.2f} TFLOP/s), plain "
               f"{row['plain_ms']:.3f} ms, SDPA {row['library_ms']:.4f} ms "
@@ -3071,7 +3156,8 @@ def minicpm3_phase(card, dev, wrappers, *, cfg=None,
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
               f"{row['flops'] / 1e9:.1f} GFLOP, {row['bytes'] / 1e6:.1f} "
               f"MB); over the {L} launches of the prefill "
-              f"{L * row['ms']:.3f} ms [{card}]")
+              f"{L * row['ms']:.3f} ms; the FFMA instance on the same "
+              f"q, k, v {ffma_ms(row)} [{card}]")
         out["serve_peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         print(f"{MINICPM3_ARCH} serving in bf16: peak device memory "
               f"{out['serve_peak_memory_gb']:.2f} GB [{card}]")
@@ -3150,11 +3236,11 @@ def minicpm3_phase(card, dev, wrappers, *, cfg=None,
         ).manual_seed(n)).tolist() for n in MINICPM3_TINY_PROMPTS]
     tiny_tokens, tiny_geo = {}, {}
     for impl in ("flash", "naive"):
-        by_geometry.clear()
+        clear_geometries()
         treqs, *_ = serve_requests(
             tiny32, tp, EngineConfig(n_slots=2, max_len=320, max_new=5),
             tprompts, impl, wrappers, dev)
-        tiny_geo[impl] = dict(by_geometry)
+        tiny_geo[impl] = geometries()
         tiny_tokens[impl] = [r.generated for r in treqs]
     tiny_f32 = (torch.float32,) + tk
     want_tiny = tiny.n_layers * len(tprompts)
@@ -3219,13 +3305,13 @@ def minicpm3_phase(card, dev, wrappers, *, cfg=None,
     steps_run = 1 + MINICPM3_TRAIN_TIMED
     want_train = 2 * train_layers * steps_run
     if on_card:
-        check(counts["flash_attention"] == counts["flash_attention_ffma"]
+        check(counts["flash_attention"] == counts[main_kernel]
               == geo.get(bf16_key) == want_train
               and all(c == 0 for k, c in counts.items()
-                      if k not in ("flash_attention", "flash_attention_ffma")),
+                      if k not in ("flash_attention", main_kernel)),
               f"{counts}, {geo}: {want_train} launches of the {dk}/{dv} "
-              f"bf16 instance expected ({steps_run} steps of {train_layers} "
-              f"layers, forward and remat recompute)")
+              f"bf16 {variant} instance expected ({steps_run} steps of "
+              f"{train_layers} layers, forward and remat recompute)")
         check(not plain_calls, f"the train path called the plain version "
               f"{len(plain_calls)} times on the card")
     for i, m in enumerate(metrics):
@@ -3253,7 +3339,8 @@ def minicpm3_phase(card, dev, wrappers, *, cfg=None,
           f"{t['peak_memory_gb'] or 0:.2f} GB; flash launches "
           f"{counts['flash_attention']} = {steps_run} steps x {train_layers}"
           f" layers x 2 (forward and remat recompute), all through the "
-          f"{dk}/{dv} instance, {len(plain_calls)} plain calls [{card}]")
+          f"{variant} kernel's {dk}/{dv} instance, {len(plain_calls)} plain "
+          f"calls [{card}]")
     print(f"  losses {', '.join(f'{x:.4f}' for x in t['losses'])}")
     if on_card:
         t["step_profile"] = profile(lambda: step(state, batch_fn(0)), 1,
@@ -3262,12 +3349,13 @@ def minicpm3_phase(card, dev, wrappers, *, cfg=None,
         f"{MINICPM3_ARCH} training", b, s, cfg.n_heads, dk, dv,
         torch.bfloat16, dev, on_card)
     if on_card:
-        print(f"flash_attention (ffma {dk}/{dv}) at the step's geometry "
-              f"(B={b} S={s} H={cfg.n_heads} causal bf16): {row['ms']:.4f} "
+        print(f"flash_attention ({variant} {dk}/{dv}) at the step's geometry"
+              f" (B={b} S={s} H={cfg.n_heads} causal bf16): {row['ms']:.4f} "
               f"ms a launch ({row['tflops']:.2f} TFLOP/s), plain "
               f"{row['plain_ms']:.3f} ms, SDPA forward {row['library_ms']:.4f}"
               f" ms (backend {row['library_backend']}), bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']}) [{card}]")
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}); the FFMA "
+              f"instance on the same q, k, v {ffma_ms(row)} [{card}]")
     fit = make_train_step(tcfg, AdamWConfig(total_steps=LLM_FIT_STEPS,
                                             **LLM_FIT_LR), flags)
     one = batch_fn(10_000)
@@ -5836,26 +5924,33 @@ def main(argv=None) -> int:
         "bound_by": f32["bound_by"],
         "library_ms": f32["library_ms"] * f32["launches"],
     })
-    # the FFMA kernel's split instances (MLA): launches on MiniCPM3's
-    # paths (serving and training at full width, the f32 check, the tiny
-    # preset's train CLI and f32 engine); times of one launch at the
-    # path's geometry (the longest served prompt, the f32 check's, the
-    # tiny CLI's step and the tiny engine's longest prompt)
-    for (dtype, dk, dv), n, row in (
-            ((torch.bfloat16, 96, 64), minicpm3["launches"]
-             + minicpm3["train"]["launches"], minicpm3["launch"]),
-            ((torch.float32, 96, 64), minicpm3["launches_f32"],
+    # the split instances (MLA): launches on MiniCPM3's paths (serving
+    # and training at full width through the wgmma kernel's bf16 (96,
+    # 64); the f32 check, the tiny preset's train CLI and f32 engine
+    # through the FFMA kernel's); times of one launch at the path's
+    # geometry (the longest served prompt, the f32 check's, the tiny
+    # CLI's step and the tiny engine's longest prompt).  The FFMA
+    # kernel's bf16 (96, 64), the wgmma instance's yardstick, launches 0
+    # times on a path; its time is on the served prompt's q, k, v.
+    serve96 = minicpm3["launch"]
+    for (variant, dtype, dk, dv), n, row in (
+            ((serve96["variant"], torch.bfloat16, 96, 64),
+             minicpm3["launches"] + minicpm3["train"]["launches"], serve96),
+            (("ffma", torch.float32, 96, 64), minicpm3["launches_f32"],
              minicpm3["launch_f32"]),
-            ((torch.bfloat16, 48, 32), minicpm3["tiny_launches_bf16"],
-             minicpm3["tiny_launch_bf16"]),
-            ((torch.float32, 48, 32), minicpm3["tiny_launches_f32"],
-             minicpm3["tiny_launch_f32"])):
-        name = split_instance(dtype, dk, dv)
+            (("ffma", torch.bfloat16, 48, 32),
+             minicpm3["tiny_launches_bf16"], minicpm3["tiny_launch_bf16"]),
+            (("ffma", torch.float32, 48, 32), minicpm3["tiny_launches_f32"],
+             minicpm3["tiny_launch_f32"]),
+            (("ffma", torch.bfloat16, 96, 64), 0,
+             dict(serve96, **serve96["ffma"]))):
+        name = split_instance(dtype, dk, dv, variant)
+        source, replaces = KERNELS[FLASH_VARIANTS[variant]]
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": KERNELS["flash_attention_ffma"][0],
-            "replaces": KERNELS["flash_attention_ffma"][1],
+            "source": source,
+            "replaces": replaces,
             "launches": n,
             "max_abs_err": max(kernel_errs[name] + [row["max_abs_err"]]),
             "ms": row["ms"],

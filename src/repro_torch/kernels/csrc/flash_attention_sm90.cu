@@ -1,28 +1,37 @@
 // Forward flash attention for Hopper (sm_90a) on the tensor cores: bf16
-// storage at head dims 128 and 256, f32 scores, softmax and sums.
+// storage at head dims 128 and 256, and at q.k head dim 96 against value
+// head dim 64; f32 scores, softmax and sums.
 //
 // Replaces: _fa_kernel / flash_attention_pallas in
 // src/repro/kernels/flash_attention.py, the Pallas TPU kernel, for the
 // bf16 geometries of the LLM configs the port serves (Gemma-7B, hd 256;
-// Qwen1.5-32B, hd 128).  f32 storage and the small head dims stay on
-// the FFMA kernel of flash_attention.cu.  It computes the same function:
+// Qwen1.5-32B, hd 128; MiniCPM3-4B's multi-head latent attention, q and
+// k of 64 + 32 against v of 64).  f32 storage, the small head dims and
+// the tiny split pair (48, 32) stay on the FFMA kernel of
+// flash_attention.cu.  It computes the same function (dk the head dim of
+// q and k, dv that of v and out; hd = dk = dv but at (96, 64)):
 //
 //   out[b, i, h, :] = sum_j p[i, j] v[b, j, h, :] / max(sum_j p[i, j], 1e-30)
-//   s[i, j] = hd^-0.5 (q[b, i, h, :] . k[b, j, h, :]), soft-capped to
+//   s[i, j] = dk^-0.5 (q[b, i, h, :] . k[b, j, h, :]), soft-capped to
 //             c tanh(s / c) when the cap c is > 0, then -1e30 where the
 //             causal mask (i >= j, indices aligned top-left) hides j
 //   p[i, j] = exp(s[i, j] - max_j s[i, j]), kept by an online softmax
 //
 // The soft-cap (Gemma's logit soft-capping, the reference's `softcap`) is
 // a template flag: the instances without it are the same code as before
-// it existed.
+// it existed.  The kernel is a template on (dk, dv): the instances at
+// dk = dv are the code they were before the split one existed.
 //
 // What bounds it on the card: a causal prefill of S tokens does about
-// 2 S^2 hd FLOPs of q.k^T per head against 4 S hd elements of q, k, v
-// and out, so at hd 128-256 and S in the hundreds and more it is bound
-// by arithmetic.  Here q.k^T and p.v both run as bf16 wgmma with f32
-// sums (989 TFLOP/s dense on an H100 SXM), p.v twice (below), so the
-// tensor-core work is three times that of q.k^T.
+// S^2 (dk + dv) FLOPs of q.k^T and p.v per head against 2 S (dk + dv)
+// elements of q, k, v and out, so at hd 128-256, and at (96, 64), with
+// S from the low hundreds it is bound by arithmetic.  Here q.k^T and p.v
+// both run as bf16 wgmma with f32 sums (989 TFLOP/s dense on an H100
+// SXM), p.v twice (below), so the tensor-core work is dk + 2 dv a score
+// (three times q.k^T's at dk = dv; 224 against the bound's 160 at (96,
+// 64)).  At dv 64 the softmax, whose work a score does not shrink with
+// the head dims, takes a larger share of the consumers' issue slots than
+// at hd 256.
 //
 // Numerics, and why this is the TPU kernel's function:
 // * The tensor cores multiply bf16 exactly, but they do not add in IEEE
@@ -39,9 +48,9 @@
 //   A wgmma then only adds one 16-product slice to a sum of its own
 //   tile; every longer sum is IEEE f32, in another order than the
 //   reference's.
-// * q.k^T: the scale hd^-0.5 goes on the f32 scores after the product
-//   (exact at hd 256, where it is 2^-4; at hd 128 it differs from the
-//   reference's pre-scaled q by f32 rounding).  p = exp(s - m) with s - m
+// * q.k^T: the scale dk^-0.5 goes on the f32 scores after the product
+//   (exact at hd 256, where it is 2^-4; at hd 128 and dk 96 it differs
+//   from the reference's pre-scaled q by f32 rounding).  p = exp(s - m) with s - m
 //   taken first, as the reference does.
 // * p stays f32 through the softmax (m, l, alpha in f32, l summed from
 //   the f32 p).  For p.v it is split into two bf16 values,
@@ -60,28 +69,46 @@
 //   three warpgroups: warpgroup 0 is the producer (one thread issues TMA;
 //   setmaxnreg gives the group 24 registers a thread), warpgroups 1 and 2
 //   are consumers of 64 rows each (the wgmma M), at 240 registers a
-//   thread.  Each consumer keeps its 64 x hd f32 output in registers
-//   (hd/2 a thread: 128 at hd 256).
-// * The kv tile is BK = 64 rows.  At hd 256 a consumer thread holds the
-//   output (128 registers), the 64 x 64 f32 scores (32), one fresh
-//   wgmma accumulator (32) and the bf16 p_hi and p_lo fragments (32,
-//   live with the scores' last use and the accumulator of p.v, not with
-//   the one of q.k^T): about 200 with addresses and the softmax state,
-//   of the 240.  Every wgmma is m64n64k16.
+//   thread.  Each consumer keeps its 64 x dv f32 output in registers
+//   (dv/2 a thread: 128 at hd 256, 32 at dv 64).
+// * The kv tile is BK = 64 rows at dk = dv.  At hd 256 a consumer thread
+//   holds the output (128 registers), the 64 x 64 f32 scores (32), one
+//   fresh wgmma accumulator (32) and the bf16 p_hi and p_lo fragments
+//   (32, live with the scores' last use and the accumulator of p.v, not
+//   with the one of q.k^T): about 200 with addresses and the softmax
+//   state, of the 240.  Every wgmma is m64n64k16.  At (96, 64) the
+//   output is 32 registers, so the kv tile is 128 keys: q.k^T is
+//   m64n128k16, the scores and their fresh
+//   accumulator 64 registers each, and a tile's 6 waits on q.k^T slices
+//   cover twice the keys; p.v stays m64n64k16, 2 BK/16 of them a tile.
+//   Both consumers then walk the same tiles (BK = BQ).
+// * At (96, 64) a score costs the tensor cores 224 products but still
+//   one exp2f and the rounding of p to p_hi and p_lo, which share the
+//   SM's narrow conversion pipe: there p is split by packed conversions
+//   (split_bf16x2: the same bits as split_bf16, half the conversions).
 // * Shared memory: the q tile (128 x hd bf16, 64 KB at hd 256), loaded
 //   once, and a ring of two stages of k and v (BK x hd bf16 each, 32 KB
 //   at hd 256): 192 KB at hd 256, 96 KB at hd 128, one block an SM.
-//   Every tile is stored as hd/64 panels of rows of 128 bytes with the
-//   128-byte swizzle, as TMA writes it and as wgmma reads it.
-// * TMA: one tensor map per operand over (hd, S or T, H, B), built on
-//   the host from the strides the wrapper is given, so the (B, S, H, hd)
-//   views need no copy.  The box is 64 x rows (the 128-byte swizzle
-//   allows 64 bf16 across), so a row of hd loads as hd/64 boxes.  Rows
-//   past S or T arrive as zeros: keys past T are masked like the causal
-//   mask, query rows past S are computed and never stored.
+//   Every tile is stored as panels of 64 columns, rows of 128 bytes with
+//   the 128-byte swizzle, as TMA writes it and as wgmma reads it.  At dk
+//   96, q and k take two panels, the second half empty (columns 96-127,
+//   see TMA): 32 KB of q and 32 KB of k a stage at BK 128 in place of 24
+//   and 24, for one descriptor layout and one box shape for every
+//   operand, and each 16-wide slice of dk inside one panel; v and the
+//   output are one panel; 128 KB in all at BK 128.
+// * TMA: one tensor map per operand over (its head dim, S or T, H, B),
+//   built on the host from the strides the wrapper is given, so the (B,
+//   S, H, hd) views need no copy (MLA's v, every other 64 columns of the
+//   expanded kv, included).  The box is 64 x rows (the 128-byte swizzle
+//   allows 64 bf16 across), so a row of hd loads as ceil(hd/64) boxes.
+//   What lies past the tensor arrives as zeros and reads no memory: rows
+//   past S or T (keys past T are masked like the causal mask, query rows
+//   past S are computed and never stored) and q's and k's columns 96-127
+//   at dk 96 (no wgmma reads them).  The expected bytes of a barrier
+//   count the whole boxes, as TMA does.
 // * Pipeline: the producer loads q, then for each live kv tile waits for
 //   its stage to be empty, and loads k and v onto their own full
-//   barriers.  A consumer waits for k, runs q.k^T (hd/16 wgmmas), scales
+//   barriers.  A consumer waits for k, runs q.k^T (dk/16 wgmmas), scales
 //   and masks the scores (only tiles that cross the diagonal or the end
 //   of T are masked), runs the online softmax on the accumulator layout
 //   (each row over a quad of threads: shuffles for the max; the sums are
@@ -98,9 +125,10 @@
 // * Grid (B*H, ceil(S/128)), with the q tiles in reverse order: the
 //   heaviest causal tiles start first.
 // * Epilogue: each consumer normalises, casts to bf16, writes its rows
-//   into its own (now free) part of the q tile in the same swizzled
-//   layout, and one thread stores them with TMA by the output's tensor
-//   map, which clips the rows past S.
+//   into its own (now free) part of the q tile's first dv/64 panels in
+//   the same swizzled layout (the output's panels are q's, dv <= dk), and
+//   one thread stores them with TMA by the output's tensor map, which
+//   clips the rows past S.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -117,18 +145,28 @@ constexpr int kPanel = 64;            // bf16 columns of a 128-byte row
 constexpr float kNegInf = -1e30f;     // the Pallas kernel's NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
+template <int DK, int DV>
 struct Sm90Tiles {
-  static_assert(D == 128 || D == 256, "the wgmma kernel takes hd 128, 256");
-  static constexpr int BK = 64;
+  static_assert((DK == DV && (DK == 128 || DK == 256)) ||
+                    (DK == 96 && DV == 64),
+                "the wgmma kernel takes hd 128, 256 and (dk, dv) (96, 64)");
+  static constexpr int BK = DK == DV ? 64 : 128;  // keys a kv tile
   static constexpr int kStages = 2;
-  static constexpr int kPanels = D / kPanel;
-  static constexpr int kQBytes = kBQ * D * 2;
-  static constexpr int kKVBytes = BK * D * 2;   // one of k or v, one stage
-  static constexpr int kTileBytes = kQBytes + 2 * kStages * kKVBytes;
+  // q and k in ceil(DK/64) panels (at DK 96 the second panel's last 32
+  // columns lie past the tensor's edge: TMA fills them with zeros and
+  // no wgmma reads them), v and the output in DV/64
+  static constexpr int kPanelsQK = (DK + kPanel - 1) / kPanel;
+  static constexpr int kPanelsV = DV / kPanel;
+  static_assert(kPanelsV <= kPanelsQK, "the output's panels are q's");
+  static constexpr int kQBytes = kBQ * kPanelsQK * kPanel * 2;
+  static constexpr int kKBytes = BK * kPanelsQK * kPanel * 2;  // a stage
+  static constexpr int kVBytes = BK * kPanelsV * kPanel * 2;   // a stage
+  static constexpr int kTileBytes = kQBytes + kStages * (kKBytes + kVBytes);
   // 1024 bytes of slack to align the tiles to the swizzle atom, then the
   // barriers: q_full, k_full[kStages], v_full[kStages], empty[kStages]
   static constexpr int kSmemBytes = 1024 + kTileBytes + 8 * (1 + 3 * kStages);
+  // p split by packed conversions (split_bf16x2) at (96, 64)
+  static constexpr bool kPackedSplit = DK != DV;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -217,6 +255,7 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+
 // Pins a register-held accumulator around the asynchronous wgmmas, so
 // the compiler neither reads nor moves it while they run.
 template <int N>
@@ -246,6 +285,40 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
         "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
         "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
         "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
+}
+// The same at N = 128: d (64 x 128, f32), b 128 x 16.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]),
+        "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]),
+        "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]),
+        "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
+        "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
       : "l"(da), "l"(db), "r"(0));
 }
 
@@ -322,6 +395,17 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
   lo = pack_bf16(__float2bfloat16_rn(x0 - __bfloat162float(h0)),
                  __float2bfloat16_rn(x1 - __bfloat162float(h1)));
 }
+// The same bits by two packed conversions (cvt.rn.bf16x2.f32), each
+// rounding both values: half split_bf16's conversions, which share the
+// SM's narrow conversion and exp2 pipe.
+__device__ __forceinline__ void split_bf16x2(float x0, float x1,
+                                             uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
 
 // The accumulator layout of a 64 x N wgmma (f32): thread `lane` of warp w
 // of the warpgroup holds, for each 8-column chunk j, d[4j + e] at row
@@ -329,14 +413,14 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
 // 2 (lane % 4) + (e & 1).  For a 16-wide slice kk of the scores, the A
 // fragment of the p.v wgmma is exactly the pairs (d[8kk + 2i],
 // d[8kk + 2i + 1]), i = 0..3, packed as bf16: no data leaves the thread.
-template <int D, bool kSoftcap>
+template <int DK, int DV, bool kSoftcap>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
                const __grid_constant__ CUtensorMap to, int H, int S, int T,
                int causal, float sm_scale, float softcap) {
-  using Tl = Sm90Tiles<D>;
+  using Tl = Sm90Tiles<DK, DV>;
   constexpr int BK = Tl::BK;
   constexpr int kStages = Tl::kStages;
   constexpr int kRowBytes = kPanel * 2;  // 128
@@ -344,8 +428,8 @@ fa_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   uint8_t* qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   // q: [panel][kBQ rows][128 B]; k and v: [stage][panel][BK rows][128 B]
   uint8_t* ks = qs + Tl::kQBytes;
-  uint8_t* vs = ks + kStages * Tl::kKVBytes;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + kStages * Tl::kKVBytes);
+  uint8_t* vs = ks + kStages * Tl::kKBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + kStages * Tl::kVBytes);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + kStages;
   uint64_t* empty = v_full + kStages;
@@ -373,20 +457,20 @@ fa_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, Tl::kQBytes);
-      for (int p = 0; p < Tl::kPanels; ++p)
+      for (int p = 0; p < Tl::kPanelsQK; ++p)
         tma_load(qs + p * kBQ * kRowBytes, &tq, q_full, p * kPanel, q0, h,
                  b);
       for (int it = 0; it < n_live; ++it) {
         const int st = it % kStages;
         mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
-        uint8_t* kd = ks + st * Tl::kKVBytes;
-        uint8_t* vd = vs + st * Tl::kKVBytes;
-        mbar_expect_tx(&k_full[st], Tl::kKVBytes);
-        for (int p = 0; p < Tl::kPanels; ++p)
+        uint8_t* kd = ks + st * Tl::kKBytes;
+        uint8_t* vd = vs + st * Tl::kVBytes;
+        mbar_expect_tx(&k_full[st], Tl::kKBytes);
+        for (int p = 0; p < Tl::kPanelsQK; ++p)
           tma_load(kd + p * BK * kRowBytes, &tk, &k_full[st], p * kPanel,
                    it * BK, h, b);
-        mbar_expect_tx(&v_full[st], Tl::kKVBytes);
-        for (int p = 0; p < Tl::kPanels; ++p)
+        mbar_expect_tx(&v_full[st], Tl::kVBytes);
+        for (int p = 0; p < Tl::kPanelsV; ++p)
           tma_load(vd + p * BK * kRowBytes, &tv, &v_full[st], p * kPanel,
                    it * BK, h, b);
       }
@@ -407,9 +491,9 @@ fa_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     uint8_t* q_wg = qs + cw * 64 * kRowBytes;  // in each q panel
     const uint64_t desc_q = smem_desc(q_wg);
 
-    float o[D / 2];
+    float o[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
     mbar_wait(q_full, 0);
@@ -418,16 +502,16 @@ fa_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       const int ph = (it / kStages) & 1;
       mbar_wait(&k_full[st], ph);
       if (it < my_live) {
-        const uint8_t* kt = ks + st * Tl::kKVBytes;
-        const uint8_t* vt = vs + st * Tl::kKVBytes;
-        // s = q . k^T over hd, f32: each 16-wide slice of hd on the
+        const uint8_t* kt = ks + st * Tl::kKBytes;
+        const uint8_t* vt = vs + st * Tl::kVBytes;
+        // s = q . k^T over dk, f32: each 16-wide slice of dk on the
         // tensor cores into a fresh accumulator, the slices summed here
         // in f32 (see the note on numerics)
         const uint64_t dq = opaque(desc_q);
         const uint64_t dk = smem_desc(kt);
         float s[BK / 2];
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
+        for (int kk = 0; kk < DK / 16; ++kk) {
           const int p = kk / 4;
           const int sub = (kk % 4) * 32;  // 16 bf16 into the 128-byte row
           const uint64_t da = dq + ((p * kBQ * kRowBytes + sub) >> 4);
@@ -505,14 +589,17 @@ fa_sm90_kernel(const __grid_constant__ CUtensorMap tq,
               sum1 += x0 + x1;
             else
               sum0 += x0 + x1;
-            split_bf16(x0, x1, p_hi[kk][i], p_lo[kk][i]);
+            if constexpr (Tl::kPackedSplit)
+              split_bf16x2(x0, x1, p_hi[kk][i], p_lo[kk][i]);
+            else
+              split_bf16(x0, x1, p_hi[kk][i], p_lo[kk][i]);
           }
         }
         // per-thread partial sums; the quad's are added at the end
         l0 = l0 * alpha0 + sum0;
         l1 = l1 * alpha1 + sum1;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
+        for (int j = 0; j < DV / 8; ++j) {
           o[4 * j] *= alpha0;
           o[4 * j + 1] *= alpha0;
           o[4 * j + 2] *= alpha1;
@@ -525,7 +612,7 @@ fa_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_wait(&v_full[st], ph);
         const uint64_t dv = smem_desc(vt);
 #pragma unroll
-        for (int pn = 0; pn < Tl::kPanels; ++pn) {
+        for (int pn = 0; pn < Tl::kPanelsV; ++pn) {
           float t[32];
           wgmma_fence();
 #pragma unroll
@@ -561,7 +648,7 @@ fa_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     // every wgmma of this warpgroup has retired: its 64 rows of the q
     // tile are free, and take the output in the same swizzled layout
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       uint8_t* panel = q_wg + (j / 8) * kBQ * kRowBytes;
       const int c = j % 8;
       *reinterpret_cast<uint32_t*>(
@@ -576,7 +663,7 @@ fa_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("bar.sync %0, 128;\n" :: "r"(1 + cw) : "memory");
     if (lt == 0 && row_base < S) {
-      for (int p = 0; p < Tl::kPanels; ++p)
+      for (int p = 0; p < Tl::kPanelsV; ++p)
         tma_store(&to, q_wg + p * kBQ * kRowBytes, p * kPanel, row_base, h,
                   b);
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
@@ -614,9 +701,10 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The map of one (B, rows, H, hd) operand, viewed as (hd, rows, H, B) by
+// The map of one (B, rows, H, D) operand, viewed as (D, rows, H, B) by
 // its element strides, in boxes of 64 x box_rows with the 128-byte
-// swizzle; out-of-bounds rows read as zeros and are not written.
+// swizzle; out-of-bounds rows, and columns past D, read as zeros and are
+// not written.
 CUresult make_map(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, int B,
                   int rows, int H, int D, const long long* st,
                   int box_rows) {
@@ -637,32 +725,46 @@ CUresult make_map(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, int B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int D, bool SC>
+template <int DK, int DV, bool SC>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int H, int S, int Tk, const long long* st, int causal,
            float sm_scale, float softcap, cudaStream_t stream) {
-  using Tl = Sm90Tiles<D>;
+  using Tl = Sm90Tiles<DK, DV>;
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return -1;
   CUtensorMap maps[4];
   const void* ptrs[4] = {q, k, v, out};
   const int rows[4] = {S, Tk, Tk, S};
+  const int widths[4] = {DK, DK, DV, DV};
   const int boxes[4] = {kBQ, Tl::BK, Tl::BK, 64};
   for (int i = 0; i < 4; ++i) {
-    const CUresult r = make_map(fn, &maps[i], ptrs[i], B, rows[i], H, D,
-                                st + 3 * i, boxes[i]);
+    const CUresult r = make_map(fn, &maps[i], ptrs[i], B, rows[i], H,
+                                widths[i], st + 3 * i, boxes[i]);
     if (r != CUDA_SUCCESS) return -(1000 * (i + 1) + static_cast<int>(r));
   }
   constexpr int smem = Tl::kSmemBytes;
   const cudaError_t err = cudaFuncSetAttribute(
-      fa_sm90_kernel<D, SC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_sm90_kernel<DK, DV, SC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
-  fa_sm90_kernel<D, SC><<<grid, kThreads, smem, stream>>>(
+  fa_sm90_kernel<DK, DV, SC><<<grid, kThreads, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], H, S, Tk, causal, sm_scale,
       softcap);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instance at (DK, DV) with the soft-cap flag that `softcap` asks for.
+template <int DK, int DV>
+int launch_capped(const void* q, const void* k, const void* v, void* out,
+                  int B, int H, int S, int Tk, const long long* st,
+                  int causal, float sm_scale, float softcap,
+                  cudaStream_t stream) {
+  return softcap > 0.f
+             ? launch<DK, DV, true>(q, k, v, out, B, H, S, Tk, st, causal,
+                                    sm_scale, softcap, stream)
+             : launch<DK, DV, false>(q, k, v, out, B, H, S, Tk, st, causal,
+                                     sm_scale, 0.f, stream);
 }
 
 }  // namespace
@@ -671,26 +773,25 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 // was accepted, a CUDA runtime error (> 0), -1 when the driver has no
 // cuTensorMapEncodeTiled, or -(1000 (i + 1) + r) when encoding the
 // tensor map of operand i (q, k, v, out) failed with CUresult r.
-// q, k, v, out are bf16; strides: 12 element strides, (batch, position,
-// head) of q, k, v and out in that order; the head dim is contiguous.
-// softcap: 0 for none, else the cap c of s -> c tanh(s / c).
+// q, k, v, out are bf16; D is the head dim of q and k, Dv that of v and
+// out: (128, 128), (256, 256) or (96, 64); strides: 12 element strides,
+// (batch, position, head) of q, k, v and out in that order; the head dim
+// is contiguous.  softcap: 0 for none, else the cap c of s -> c tanh(s / c).
 extern "C" int flash_attention_sm90_fwd(const void* q, const void* k,
                                         const void* v, void* out, int B,
-                                        int H, int S, int Tk, int D,
+                                        int H, int S, int Tk, int D, int Dv,
                                         const long long* strides, int causal,
                                         float sm_scale, float softcap,
                                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool cap = softcap > 0.f;
-  if (D == 128)
-    return cap ? launch<128, true>(q, k, v, out, B, H, S, Tk, strides, causal,
-                                   sm_scale, softcap, s)
-               : launch<128, false>(q, k, v, out, B, H, S, Tk, strides,
-                                    causal, sm_scale, 0.f, s);
-  if (D == 256)
-    return cap ? launch<256, true>(q, k, v, out, B, H, S, Tk, strides, causal,
-                                   sm_scale, softcap, s)
-               : launch<256, false>(q, k, v, out, B, H, S, Tk, strides,
-                                    causal, sm_scale, 0.f, s);
+  if (D == 128 && Dv == 128)
+    return launch_capped<128, 128>(q, k, v, out, B, H, S, Tk, strides,
+                                   causal, sm_scale, softcap, s);
+  if (D == 256 && Dv == 256)
+    return launch_capped<256, 256>(q, k, v, out, B, H, S, Tk, strides,
+                                   causal, sm_scale, softcap, s);
+  if (D == 96 && Dv == 64)
+    return launch_capped<96, 64>(q, k, v, out, B, H, S, Tk, strides, causal,
+                                 sm_scale, softcap, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

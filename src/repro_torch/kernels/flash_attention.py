@@ -6,11 +6,14 @@ chosen by :func:`kernel_variant` from the dtype and the head dims alone
 (``dk`` of q and k, ``dv`` of v):
 
 * ``"wgmma"`` (``csrc/flash_attention_sm90.cu``): bf16 at hd 128 and
-  256, both products on the tensor cores (``p`` split into two bf16
-  terms for ``p·v``), k/v fed by TMA;
+  256 and at MLA's split pair (dk, dv) = (96, 64), both products on the
+  tensor cores (``p`` split into two bf16 terms for ``p·v``), q, k and
+  v fed by TMA;
 * ``"ffma"`` (``csrc/flash_attention.cu``): f32 storage, bf16 at the
-  small head dims, and both at the split pairs of :data:`SPLIT_HEAD_DIMS`
-  (MLA's), on the FP32 units.
+  small head dims, and f32 at the split pairs of :data:`SPLIT_HEAD_DIMS`
+  and bf16 at (48, 32), on the FP32 units.  It is built for bf16 (96,
+  64) too, which :func:`flash_attention_ffma` launches when called
+  directly (the yardstick of the wgmma instance).
 
 :func:`flash_attention_plain` computes the same function in plain
 PyTorch on any device, over the same q and kv tiles, with the same
@@ -62,26 +65,32 @@ NEG_INF = -1e30
 # (csrc/flash_attention.cu) is built for all of them in f32 and for those
 # up to 64 in bf16, the wgmma kernel for bf16 at 128 and 256
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
-# the (dk, dv) pairs with dk != dv that the FFMA kernel is built for, in
-# f32 and bf16: MiniCPM3-4B's MLA (qk_nope 64 + qk_rope 32 against
-# v_head_dim 64) and its tiny preset's (32 + 16 against 32)
+# the (dk, dv) pairs with dk != dv: MiniCPM3-4B's MLA (qk_nope 64 +
+# qk_rope 32 against v_head_dim 64) and its tiny preset's (32 + 16
+# against 32)
 SPLIT_HEAD_DIMS = ((96, 64), (48, 32))
 BLOCK_Q = 64
-# (dtype, hd) -> variant: the wgmma kernel takes these at dk == dv, the
-# FFMA kernel every other geometry of VARIANTS
-WGMMA_GEOMETRIES = {(torch.bfloat16, 128), (torch.bfloat16, 256)}
-# the wgmma kernel's tiles (csrc/flash_attention_sm90.cu: kBQ, BK) and
-# the bytes its TMA boxes need strides and addresses to be multiples of
-WGMMA_BLOCK_Q, WGMMA_BLOCK_K = 128, 64
-_TMA_ALIGN = 16
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# (dtype, dk, dv) the wgmma kernel is built for, and its tiles
+# (csrc/flash_attention_sm90.cu: kBQ, Sm90Tiles<DK, DV>::BK)
+WGMMA_TILES = {(torch.bfloat16, 128, 128): (128, 64),
+               (torch.bfloat16, 256, 256): (128, 64),
+               (torch.bfloat16, 96, 64): (128, 128)}
+WGMMA_GEOMETRIES = frozenset(WGMMA_TILES)
+WGMMA_BLOCK_Q = 128
+# (dtype, dk, dv) the FFMA kernel is built for: f32 at every head dim,
+# bf16 up to 64, both dtypes at the split pairs
+FFMA_GEOMETRIES = frozenset(
+    [(torch.float32, d, d) for d in HEAD_DIMS]
+    + [(torch.bfloat16, d, d) for d in HEAD_DIMS if d <= 64]
+    + [(dt, dk, dv) for dt in _DTYPE_CODES for dk, dv in SPLIT_HEAD_DIMS])
+# the bytes TMA needs strides and addresses to be multiples of
+_TMA_ALIGN = 16
 _INT32_MAX = 2 ** 31 - 1
-# (dtype, dk, dv) -> the kernel that takes it: the variant table
-VARIANTS = {
-    **{(dt, d, d): "wgmma" if (dt, d) in WGMMA_GEOMETRIES else "ffma"
-       for dt in _DTYPE_CODES for d in HEAD_DIMS},
-    **{(dt, dk, dv): "ffma" for dt in _DTYPE_CODES
-       for dk, dv in SPLIT_HEAD_DIMS}}
+# (dtype, dk, dv) -> the kernel that takes it: the variant table, the
+# wgmma kernel wherever it is built
+VARIANTS = {g: "wgmma" if g in WGMMA_GEOMETRIES else "ffma"
+            for g in sorted(FFMA_GEOMETRIES | WGMMA_GEOMETRIES, key=str)}
 
 
 def kernel_variant(dtype: torch.dtype, dk: int, dv: int | None = None
@@ -104,13 +113,12 @@ def kernel_variant(dtype: torch.dtype, dk: int, dv: int | None = None
 def kernel_tiles(dtype: torch.dtype, dk: int, dv: int | None = None
                  ) -> tuple[int, int]:
     """(q rows, kv rows) of the tiles of the kernel that runs ``dtype``
-    at head dims ``dk`` and ``dv`` (default ``dk``): the FFMA kernel's
-    ``kBQ``, ``Tiles<DK, DV>::BK`` for any geometry the wgmma kernel does
-    not take."""
+    at head dims ``dk`` and ``dv`` (default ``dk``): :data:`WGMMA_TILES`
+    where the wgmma kernel runs it, else the FFMA kernel's ``kBQ`` and
+    ``Tiles<DK, DV>::BK``."""
     dv = dk if dv is None else dv
-    if dk == dv and (dtype, dk) in WGMMA_GEOMETRIES:
-        return WGMMA_BLOCK_Q, WGMMA_BLOCK_K
-    return BLOCK_Q, 64 if max(dk, dv) <= 64 else 32
+    return WGMMA_TILES.get((dtype, dk, dv),
+                           (BLOCK_Q, 64 if max(dk, dv) <= 64 else 32))
 
 
 def kernel_block_k(hd: int, dtype: torch.dtype, dv: int | None = None
@@ -236,9 +244,9 @@ def _library(variant: str):
             ctypes.c_float, ctypes.c_void_p]
     else:
         fn = load("flash_attention_sm90").flash_attention_sm90_fwd
-        # q, k, v, out, B, H, S, T, hd, strides, causal, scale, softcap,
-        # stream
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        # q, k, v, out, B, H, S, T, dk, dv, strides, causal, scale,
+        # softcap, stream
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_float,
             ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -278,10 +286,13 @@ def flash_attention_ffma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream, without synchronising: float32 at every head dim of
     :data:`HEAD_DIMS`, bfloat16 at those up to 64 (the wgmma kernel takes
     bfloat16 at 128 and 256), and both at the (dk, dv) pairs of
-    :data:`SPLIT_HEAD_DIMS`.  Each launch adds one to
+    :data:`SPLIT_HEAD_DIMS` (:data:`FFMA_GEOMETRIES`; bfloat16 (96, 64)
+    runs here only when called directly: :func:`flash_attention_cuda`
+    takes it to the wgmma kernel).  Each launch adds one to
     ``flash_attention_ffma.launches`` and to
     ``flash_attention_ffma.launches_by_geometry[(dtype, dk, dv)]``."""
-    if kernel_variant(q.dtype, q.shape[-1], v.shape[-1]) != "ffma":
+    kernel_variant(q.dtype, q.shape[-1], v.shape[-1])  # raises off the table
+    if (q.dtype, q.shape[-1], v.shape[-1]) not in FFMA_GEOMETRIES:
         raise ValueError(f"the FFMA kernel is not built for {q.dtype} at "
                          f"head dim {q.shape[-1]}: the wgmma kernel takes it")
     _check_cuda(q, k, v, softcap)
@@ -318,26 +329,28 @@ def flash_attention_wgmma(q: torch.Tensor, k: torch.Tensor,
                           softcap: float = 0.0) -> torch.Tensor:
     """Launch the wgmma/TMA kernel (``csrc/flash_attention_sm90.cu``) on
     the current stream, without synchronising: bfloat16 at head dims 128
-    and 256, operands whose strides and addresses TMA takes
-    (:func:`check_tma_operand`), v's head dim q's and k's.  Each launch
-    adds one to ``flash_attention_wgmma.launches``."""
-    if (q.dtype, q.shape[-1]) not in WGMMA_GEOMETRIES:
+    and 256 (q, k and v) and at (dk, dv) = (96, 64) (q and k of 96, v of
+    64; :data:`WGMMA_GEOMETRIES`), operands whose strides and addresses
+    TMA takes (:func:`check_tma_operand`).  Each launch adds one to
+    ``flash_attention_wgmma.launches`` and to
+    ``flash_attention_wgmma.launches_by_geometry[(dtype, dk, dv)]``."""
+    geometry = (q.dtype, q.shape[-1], v.shape[-1])
+    if geometry not in WGMMA_GEOMETRIES:
+        elsewhere = (": it runs on the FFMA kernel (flash_attention_ffma)"
+                     if geometry in FFMA_GEOMETRIES else "")
         raise ValueError(f"the wgmma kernel takes bfloat16 at head dims "
-                         f"128 and 256, got {q.dtype} at {q.shape[-1]}")
-    if v.shape[-1] != q.shape[-1]:
-        raise ValueError(f"the wgmma kernel takes one head dim for q, k and "
-                         f"v, got dk {q.shape[-1]}, dv {v.shape[-1]}: a "
-                         f"split pair of SPLIT_HEAD_DIMS runs on the FFMA "
-                         f"kernel (flash_attention_ffma)")
+                         f"128 and 256 (dk == dv) and at (dk, dv) (96, 64), "
+                         f"got {q.dtype} at dk {q.shape[-1]}, dv "
+                         f"{v.shape[-1]}{elsewhere}")
     _check_cuda(q, k, v, softcap)
     b, s, h, d = q.shape
-    t = k.shape[1]
+    t, dv = k.shape[1], v.shape[3]
     if -(-s // WGMMA_BLOCK_Q) > 65535 or b * h > _INT32_MAX:
         raise ValueError(f"B*H = {b * h}, S = {s}: too large a grid")
     strides = [check_tma_operand(n, a) for n, a in (("q", q), ("k", k),
                                                     ("v", v))]
     dev = q.device
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=dev)
+    out = torch.empty((b, s, h, dv), dtype=q.dtype, device=dev)
     strides.append(check_tma_operand("out", out))
     c_strides = (ctypes.c_longlong * 12)(*(st for sts in strides
                                            for st in sts))
@@ -345,11 +358,13 @@ def flash_attention_wgmma(q: torch.Tensor, k: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, h, s, t, d, c_strides, int(causal), float(d ** -0.5),
+                 b, h, s, t, d, dv, c_strides, int(causal), float(d ** -0.5),
                  float(softcap), stream)
     if err != 0:
         raise _launch_error(err, "wgmma")
     flash_attention_wgmma.launches += 1
+    by_geometry = flash_attention_wgmma.launches_by_geometry
+    by_geometry[geometry] = by_geometry.get(geometry, 0) + 1
     return out
 
 
@@ -379,6 +394,7 @@ flash_attention_cuda.launches = 0
 flash_attention_ffma.launches = 0
 flash_attention_ffma.launches_by_geometry = {}
 flash_attention_wgmma.launches = 0
+flash_attention_wgmma.launches_by_geometry = {}
 
 
 def recompute_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

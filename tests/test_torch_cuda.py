@@ -1137,9 +1137,11 @@ def test_gemma3_engine_on_the_card_launches_flash_on_global_layers(dev):
 
 # -- the split head dims of MLA, and MiniCPM3 on the card -------------------
 
-# (B, S, T, H, causal, soft-cap): ragged S and T against both kv tiles
-# (64 rows at (48, 32), 32 at (96, 64)) and the 64-row q tile, causal and
-# full, with the soft-cap off and at a cap that bites
+# (B, S, T, H, causal, soft-cap): ragged S and T against the kv tiles
+# (64 rows at (48, 32), 128 for the wgmma instance at bf16 (96, 64), 32
+# for the FFMA kernel's (96, 64)) and the q tiles (64 rows, 128 for the
+# wgmma instance), causal and full, with the soft-cap off and at a cap
+# that bites
 SPLIT_CASES = [
     (1, 77, 77, 3, True, 0.0),
     (2, 45, 130, 2, False, 0.0),
@@ -1161,19 +1163,25 @@ def _split_inputs(b, s, t, h, dk, dv, dtype, dev, seed=11):
 @pytest.mark.parametrize("b,s,t,h,causal,cap", SPLIT_CASES)
 def test_flash_split_head_dims_match_plain(dev, b, s, t, h, causal, cap, dk,
                                            dv, dtype):
-    """The FFMA kernel's split instances (q, k of ``dk``, v of ``dv``)
-    against their plain version within FLASH_TOL, output ``(B, S, H,
-    dv)``, one launch counted on the FFMA kernel and on its geometry;
-    the kernel scaled by ``dv**-0.5`` in place of ``dk**-0.5`` (q
-    scaled by ``(dk / dv)**0.5``) fails that gate."""
+    """The split instances (q, k of ``dk``, v of ``dv``: the wgmma
+    kernel's at bf16 (96, 64), the FFMA kernel's elsewhere) against their
+    plain version within FLASH_TOL, output ``(B, S, H, dv)``, one launch
+    counted on the kernel that ``kernel_variant`` names and on its
+    geometry, none on the other; the kernel scaled by ``dv**-0.5`` in
+    place of ``dk**-0.5`` (q scaled by ``(dk / dv)**0.5``) fails that
+    gate."""
     q, k, v = _split_inputs(b, s, t, h, dk, dv, dtype, dev, seed=s + dk)
-    by_geometry = flash_attention_ffma.launches_by_geometry
-    before = (flash_attention_ffma.launches, flash_attention_wgmma.launches,
-              by_geometry.get((dtype, dk, dv), 0))
+    variant = kernel_variant(dtype, dk, dv)
+    by_geometry = (flash_attention_wgmma if variant == "wgmma"
+                   else flash_attention_ffma).launches_by_geometry
+
+    def counts():
+        return (flash_attention_ffma.launches, flash_attention_wgmma.launches,
+                by_geometry.get((dtype, dk, dv), 0))
+    before = counts()
     got = flash_attention_cuda(q, k, v, causal=causal, softcap=cap)
-    assert (flash_attention_ffma.launches, flash_attention_wgmma.launches,
-            by_geometry[(dtype, dk, dv)]) == (before[0] + 1, before[1],
-                                              before[2] + 1)
+    assert counts() == (before[0] + (variant == "ffma"),
+                        before[1] + (variant == "wgmma"), before[2] + 1)
     ref = flash_attention_plain(q, k, v, causal=causal, softcap=cap)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (b, s, h, dv)
@@ -1187,9 +1195,10 @@ def test_flash_split_head_dims_match_plain(dev, b, s, t, h, causal, cap, dk,
                          ids=["f32", "bf16"])
 def test_flash_function_gradients_at_split_head_dims(dev, dtype):
     """``FlashAttentionFn`` at (96, 64) on the card (the forward through
-    the split instance, the backward a recompute) against float64
-    attention's gradients: dq, dk, dv each at most twice the gap of
-    autograd through the plain version, plus ``F32_FLOOR``."""
+    the split instance: the wgmma kernel's in bf16, the FFMA kernel's in
+    f32; the backward a recompute) against float64 attention's
+    gradients: dq, dk, dv each at most twice the gap of autograd through
+    the plain version, plus ``F32_FLOOR``."""
     from repro_torch.kernels.flash_attention import FlashAttentionFn
 
     def f64(a, b, c):
@@ -1202,10 +1211,12 @@ def test_flash_function_gradients_at_split_head_dims(dev, dtype):
     do = torch.randn((1, 512, 4, 64), generator=torch.Generator()
                      .manual_seed(3)).to(dev, dtype)
     exact = _attention_grads(f64, q, k, v, do, torch.float64)
-    before = flash_attention_ffma.launches
+    launcher = (flash_attention_wgmma if kernel_variant(dtype, 96, 64)
+                == "wgmma" else flash_attention_ffma)
+    before = launcher.launches_by_geometry.get((dtype, 96, 64), 0)
     got = _attention_grads(lambda a, b, c: FlashAttentionFn.apply(
         a, b, c, True, flash_attention_cuda), q, k, v, do)
-    assert flash_attention_ffma.launches == before + 1
+    assert launcher.launches_by_geometry[(dtype, 96, 64)] == before + 1
     plain = _attention_grads(lambda a, b, c: flash_attention_plain(a, b, c),
                              q, k, v, do)
     for name, g, p, e in zip("qkv", got, plain, exact):
@@ -1213,6 +1224,68 @@ def test_flash_function_gradients_at_split_head_dims(dev, dtype):
         gap = float((g.double() - e).norm() / e.norm())
         yardstick = float((p.double() - e).norm() / e.norm())
         assert gap <= 2 * yardstick + F32_FLOOR, (name, gap, yardstick)
+
+
+@pytest.mark.parametrize("b,s,h", [(1, 1000, 40), (2, 333, 3)])
+def test_flash_wgmma_split_instance_reads_mla_views(dev, b, s, h):
+    """The wgmma (96, 64) instance on q and k from ``torch.cat`` and v =
+    ``kv[..., 64:]`` of an expanded (B, S, H, 128) kv, as ``mla_apply``
+    makes them: v is a view into kv's storage, read without a copy (the
+    call allocates its output and nothing more) and one launch counted
+    at (bf16, 96, 64); the output matches the plain version within
+    FLASH_TOL."""
+    gen = torch.Generator().manual_seed(s)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+    kv = rand(b, s, h, 128)
+    q = torch.cat([rand(b, s, h, 64), rand(b, s, h, 32)], dim=-1)
+    k = torch.cat([kv[..., :64], rand(b, s, 1, 32).expand(b, s, h, 32)],
+                  dim=-1)
+    v = kv[..., 64:]
+    assert not v.is_contiguous() and v.stride(2) == 128
+    assert v.untyped_storage().data_ptr() == kv.untyped_storage().data_ptr()
+    geometry = (torch.bfloat16, 96, 64)
+    before = flash_attention_wgmma.launches_by_geometry.get(geometry, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    got = flash_attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated(dev) - base
+    out_bytes = got.numel() * got.element_size()
+    assert flash_attention_wgmma.launches_by_geometry[geometry] == before + 1
+    assert grew < out_bytes + v.numel() * v.element_size(), (grew, out_bytes)
+    ref = flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert got.shape == (b, s, h, 64)
+    torch.testing.assert_close(got.float(), ref.float(),
+                               **FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("b,s,t,h,causal,cap", SPLIT_CASES)
+def test_flash_ffma_bf16_split_instance_called_directly_matches_plain(
+        dev, b, s, t, h, causal, cap):
+    """The FFMA kernel's bf16 (96, 64) instance, which the variant table
+    no longer routes to but ``flash_attention_ffma`` launches when called
+    directly (the yardstick of the wgmma instance): within FLASH_TOL of
+    the plain version, one launch counted on its geometry, none on the
+    wgmma kernel."""
+    q, k, v = _split_inputs(b, s, t, h, 96, 64, torch.bfloat16, dev,
+                            seed=s + 7)
+    geometry = (torch.bfloat16, 96, 64)
+    by_geometry = flash_attention_ffma.launches_by_geometry
+
+    def counts():
+        return flash_attention_wgmma.launches, by_geometry.get(geometry, 0)
+    before = counts()
+    got = flash_attention_ffma(q, k, v, causal=causal, softcap=cap)
+    assert counts() == (before[0], before[1] + 1)
+    ref = flash_attention_plain(q, k, v, causal=causal, softcap=cap)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (b, s, h, 64)
+    torch.testing.assert_close(got.float(), ref.float(),
+                               **FLASH_TOL[torch.bfloat16])
 
 
 def test_minicpm3_engine_on_the_card_launches_the_split_instance(dev):

@@ -110,6 +110,27 @@ def test_flash_plain_split_head_dims_match_pallas(dk, dv, causal):
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_plain_at_wgmma_split_tiles_match_pallas(causal):
+    """The plain version at the tiles of the wgmma kernel's bf16 (96, 64)
+    instance (128 q rows, ``kernel_tiles``' kv rows) against the Pallas
+    kernel in interpret mode at 256 rows in the same tiles, in f32 at
+    ``ATTN_TOL``: the blocking the card's main path walks, output
+    ``(B, S, H, 64)``."""
+    bq, bk = kernel_tiles(torch.bfloat16, 96, 64)
+    assert bq == 128 and kernel_variant(torch.bfloat16, 96, 64) == "wgmma"
+    rng = np.random.default_rng(7)
+    q, k, v = _split_qkv(rng, 1, 256, 256, 2, 96, 64, scale=1.5)
+    ref = flash_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), causal=causal, block_q=bq,
+                                 block_k=bk, interpret=True)
+    got = flash_attention_plain(torch.tensor(q), torch.tensor(k),
+                                torch.tensor(v), causal=causal, block_q=bq,
+                                block_k=bk)
+    assert tuple(got.shape) == (1, 256, 2, 64) == ref.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **ATTN_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("dk,dv", SPLIT_HEAD_DIMS)
 def test_flash_plain_split_head_dims_ragged_match_naive(dk, dv, causal):
     """Ragged S = 70 and T = 101 (a partial q tile and a partial kv tile
@@ -169,18 +190,24 @@ def test_flash_function_backward_at_split_head_dims(dk, dv):
                          ids=["f32", "bf16"])
 def test_variant_table_reads_dtype_dk_dv(dtype):
     """Every equal pair of ``HEAD_DIMS`` keeps its variant (the wgmma
-    kernel at bf16 128 and 256, the FFMA kernel elsewhere); the split
-    pairs run on the FFMA kernel at both dtypes, with the kv tile that
-    the larger of dk and dv sets; ``kernel_variant(dtype, hd)`` is
-    ``kernel_variant(dtype, hd, hd)``."""
+    kernel at bf16 128 and 256, the FFMA kernel elsewhere); bf16 (96, 64)
+    runs on the wgmma kernel at its 128-row q tile, f32 (96, 64) and both
+    (48, 32) on the FFMA kernel with the kv tile that the larger of dk and
+    dv sets; ``kernel_variant(dtype, hd)`` is ``kernel_variant(dtype, hd,
+    hd)``."""
     for hd in HEAD_DIMS:
         want = "wgmma" if dtype == torch.bfloat16 and hd in (128, 256) \
             else "ffma"
         assert kernel_variant(dtype, hd) == kernel_variant(dtype, hd, hd) \
             == VARIANTS[(dtype, hd, hd)] == want
     for dk, dv in SPLIT_HEAD_DIMS:
-        assert kernel_variant(dtype, dk, dv) == "ffma"
-        assert kernel_tiles(dtype, dk, dv) == (64, 64 if dk <= 64 else 32)
+        if dtype == torch.bfloat16 and (dk, dv) == (96, 64):
+            assert kernel_variant(dtype, dk, dv) == "wgmma"
+            assert kernel_tiles(dtype, dk, dv) == (128, 128)
+        else:
+            assert kernel_variant(dtype, dk, dv) == "ffma"
+            assert kernel_tiles(dtype, dk, dv) == (64, 64 if dk <= 64
+                                                   else 32)
     assert len(VARIANTS) == 2 * (len(HEAD_DIMS) + len(SPLIT_HEAD_DIMS))
 
 
@@ -192,12 +219,21 @@ def test_variant_table_refuses_pairs_no_kernel_takes(dk, dv):
 
 
 def test_wgmma_refuses_split_head_dims_and_names_the_ffma_kernel():
-    """Before it looks at the device, without counting a launch; the
-    FFMA launcher refuses a pair outside the table the same way."""
+    """The split geometries the wgmma kernel is not built for, (48, 32)
+    at both dtypes and f32 (96, 64), refused before it looks at the
+    device, without counting a launch, naming the FFMA kernel; a pair
+    neither kernel takes is refused too; the FFMA launcher refuses a
+    pair outside the table the same way."""
+    before = flash_attention_wgmma.launches
+    for dtype, dk, dv in ((torch.bfloat16, 48, 32), (torch.float32, 48, 32),
+                          (torch.float32, 96, 64)):
+        qk = torch.zeros((1, 8, 2, dk), dtype=dtype)
+        with pytest.raises(ValueError, match="flash_attention_ffma"):
+            flash_attention_wgmma(qk, qk, torch.zeros((1, 8, 2, dv),
+                                                      dtype=dtype))
     q = torch.zeros((1, 8, 2, 128), dtype=torch.bfloat16)
     v = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
-    before = flash_attention_wgmma.launches
-    with pytest.raises(ValueError, match="flash_attention_ffma"):
+    with pytest.raises(ValueError, match="wgmma kernel takes"):
         flash_attention_wgmma(q, q, v)
     assert flash_attention_wgmma.launches == before
     before = flash_attention_ffma.launches
