@@ -98,6 +98,18 @@ expanded form (with W_uk and W_uv swapped above the gate), checks an f32
 model through the f32 instance and the tiny preset through the (48,
 32) instances, and trains 16 of the 62 layers (the loss falling, the
 bf16 gradient gate with a planted backward fault on ``wkv_b``).  The
+moe phase serves full-width OLMoE-1B-7B (16 layers, 64 experts at top-8,
+random bf16 weights from seed 0; the mixture-of-experts layer in plain
+PyTorch, as the reference's has no Pallas kernel) through
+``DecodeEngine.run``, every prefill's attention through the wgmma
+kernel's (128, 128) instance (16 launches a prefill), holds one layer's
+routing to the reference's one-hot form bit for bit and its output to
+float64 (a reversed tie order, an ignored capacity and unnormalised
+gates planted above that gate), the logits to the naive path's, an f32
+model through the FFMA kernel, trains 4 of the 16 layers (the aux
+losses finite and nonzero, the bf16 gradient gate), and serves
+Llama-4-Scout's first 8 of 48 layers at full width (GQA, top-1 of 16
+experts and a shared expert).  The
 mesh phase runs programs sharded over two ``gloo`` ranks that share the
 card (started by the port's launcher once the kernels are built): the
 full-width DCGAN and
@@ -1651,13 +1663,16 @@ def leaf_rel(got: dict, ref: dict) -> dict[str, float]:
 
 def condition(params: dict, d_model: int) -> None:
     """In place: each stacked matrix scaled from the reference's fan-in
-    (the layer count) to its input width, the embedding from 1 to
-    ``d_model**-0.5``."""
+    (the layer count) to its input width (a MoE block's stacked experts,
+    ``(L, E, in, out)``, too; its router keeps its own scale, 0.02, not a
+    fan-in), the embedding from 1 to ``d_model**-0.5``."""
     from repro_torch.train.checkpoint import tree_items
     with torch.no_grad():
         for path, t in tree_items(params).items():
-            if t.ndim == 3:
-                t.mul_(math.sqrt(t.shape[0] / t.shape[1]))
+            if path.endswith("router"):
+                continue
+            if t.ndim in (3, 4):
+                t.mul_(math.sqrt(t.shape[0] / t.shape[-2]))
             elif path == "embed":
                 t.mul_(d_model ** -0.5)
 
@@ -3418,6 +3433,758 @@ def minicpm3_phase(card, dev, wrappers, *, cfg=None,
     t["grad_fault_wkv_b"] = gates["planted fault vs naive, bf16"][mla_leaf]
     out["seconds"] = time.perf_counter() - t_phase
     print(f"minicpm3 phase: {out['seconds']:.1f} s")
+    return out
+
+
+# -- mixture of experts: OLMoE-1B-7B and Llama-4-Scout ------------------------
+
+# The moe phase: full-width OLMoE-1B-7B (16 layers, d_model 2048, 16 heads
+# of 128, 64 experts of d_ff 1024 at top-8, vocab 50,304 padded to 50,432;
+# bf16, random weights from seed 0) serving MOE_LONG[0] prompts of
+# multiples of 256 tokens drawn from seed 0 in MOE_LONG[1:] and
+# MOE_SHORT[0] prompts of MOE_SHORT[1:] tokens (the reference's routing
+# groups of 256 tokens must divide a prompt's tokens), greedy, through
+# MOE_SLOTS slots: every prefill's attention through the wgmma kernel's
+# bf16 (128, 128) instance, one launch a layer, and every layer's MoE in
+# plain PyTorch (``models/moe.py``: the reference has no Pallas kernel for
+# it).  A decode step's MOE_SLOTS rows are one routing group, idle slots
+# included, so an expert takes max(1, int(8·8·1.25/64)) = 1 token a step,
+# as in the reference.  Then training at full width with MOE_TRAIN_LAYERS
+# of its 16 layers (16 B a parameter of f32 masters, moments and
+# gradients: 110.7 GB at 16 layers; 30.2 GB at 4), steps of
+# MOE_TRAIN_BATCH SyntheticLM tokens; then Llama-4-Scout-17B-16E at full
+# width with SCOUT_LAYERS of its 48 layers (its 215.5 GB of bf16 weights
+# need four cards; 39.4 GB at 8): 40 query heads over 8 kv heads of 128
+# (GQA expanded for the kernel), 16 experts at top-1 and a shared expert,
+# a 202,240-wide vocab.
+MOE_ARCH = "olmoe-1b-7b"
+MOE_PARAMS = 6_919_620_608
+# (prompts, least, most tokens): the long prompts are drawn as multiples
+# of 256
+MOE_LONG = (12, 256, 3840)
+MOE_SHORT = (4, 16, 255)
+MOE_SLOTS, MOE_MAX_LEN, MOE_MAX_NEW = 8, 4096, 32
+# the prefill that is profiled and whose MoE input feeds the routing gate
+# (16 groups of 256 tokens, capacity int(256·8·1.25/64) = 40), and the
+# layer whose input it is
+MOE_PREFILL_S = 4096
+MOE_GATE_LAYER = 8
+# The routing gate on the card: the routing of ``moe_apply``
+# (``moe.route``: stable sort, flat cumsum) against ``moe_apply_plain``'s
+# (``moe.route_plain``: argmax rounds, the reference's one-hot
+# arithmetic) from the same bf16 router logits, experts, places and keep
+# masks equal bit for bit, and ``y`` against ``moe_apply_plain`` in
+# float64 on the same routing, ||a - b|| <= MOE_Y_TOL ||b||: bf16
+# products summed in f32 and rounded, as the GEMMs of the other gates.
+# Each fault of MOE_ROUTING_FAULTS must fail it: the reversed tie order on
+# a router with columns MOE_TIED equal (ties certain), the capacity
+# ignored, the gates not renormalised.
+MOE_Y_TOL = 1e-2
+MOE_ROUTING_FAULTS = ("tie order reversed", "capacity ignored",
+                      "gates not renormalised")
+MOE_TIED = (0, 1, 2)
+# The logits of the kernel path against the naive path's on a
+# MOE_GATE_S-token prompt, ||a - b|| <= tol ||b||, as the minicpm3
+# phase's, with every token routed on both paths as on the naive one
+# (``pinned_routing``).  Routing is a step function: where one rounding
+# moves a token past the top-k boundary it takes other experts, and the
+# change carries through the later layers.  Unpinned, the CPU rehearsal
+# (4 layers, 256 wide, 64 experts, S = 768; the kernel's plain version in
+# its place) read 0.50 between the plain and naive paths at the
+# reference's init (29.9% of the pairs moved) and 2.4e-2 on conditioned
+# weights (3.6%); the H100 at full width 1.20 (82.8%) and 4.8e-2
+# (13.8%).  So the unpinned gaps and the share of pairs moved are
+# printed and read, and the gate holds the paths on one routing (9.4e-3
+# on the H100).  At the reference's init even one routing leaves the
+# logits chaotic (the experts' fan-in is the layer count, so each layer
+# adds outputs in the hundreds to the residual; 0.94 on one routing on
+# the H100, 0.20 in the rehearsal): no
+# model-level gate can hold a correct kernel there, so that regime is
+# read and gated per launch against float64 instead (``regime_forward``),
+# as the llm_train phase's gradients are.  The planted flash faults must
+# exceed the conditioned gate.
+MOE_GATE_S = 3840
+MOE_LOGITS_TOL = {"conditioned": 3e-2}
+# the f32 check: full width with these layers, one prompt of these tokens,
+# through the FFMA kernel's f32 hd-128 instance, flash vs naive on one
+# routing, on conditioned weights: at the reference's init the f32 logits
+# are chaotic too (4.9e-3 on one routing on the H100, the attention
+# scores up to 673 and each MoE layer adding outputs in the hundreds)
+MOE_F32 = (4, 2048)
+MOE_F32_TOL = 1e-4
+MOE_TRAIN_LAYERS, MOE_TRAIN_PARAMS = 4, 1_884_833_792
+MOE_TRAIN_BATCH = (2, 2048)
+MOE_TRAIN_TIMED = 5
+SCOUT_ARCH = "llama4-scout-17b-a16e"
+SCOUT_LAYERS, SCOUT_PARAMS = 8, 19_687_756_800
+# (requests, least, most prompt tokens, drawn as multiples of 256), slots
+SCOUT_REQUESTS = (4, 256, 2048)
+SCOUT_SLOTS = 4
+# the profile's ranges: the MoE layer, and its routing inside it
+MOE_RANGES = ("moe.moe_apply", "moe.route")
+
+
+def faulty_route(fault: str):
+    """Inside: ``moe.route`` with one fault of MOE_ROUTING_FAULTS planted:
+    ties broken toward the higher expert index (the route of the experts
+    in reverse order, mapped back), every pair kept, or the gates left
+    as the top-k probabilities."""
+    from repro_torch.models import moe
+    route = moe.route
+
+    def faulty(logits, k, capacity):
+        if fault == "tie order reversed":
+            r = route(logits.flip(-1), k, capacity)
+            return r._replace(probs=r.probs.flip(-1),
+                              idx=logits.shape[-1] - 1 - r.idx)
+        if fault == "capacity ignored":
+            return route(logits, k, logits.shape[1] * k)
+        r = route(logits, k, capacity)
+        return r._replace(gates=r.probs.gather(-1, r.idx))
+    check(fault in MOE_ROUTING_FAULTS, f"no routing fault '{fault}'")
+    return swapped(moe, "route", faulty)
+
+
+@contextlib.contextmanager
+def pinned_routing(routings: list, replay: bool = False):
+    """Inside: ``moe.route`` appends each call's experts, places and keep
+    masks to ``routings`` or, with ``replay``, takes them from the entry
+    of ``routings`` at the call's index, the probabilities and the
+    (renormalised) gates from the call's own logits.  Two paths that
+    differ in their last bits then send every token to the same experts:
+    routing is a step function of the hidden states, so without this one
+    rounding may move a token to another expert (MOE_LOGITS_TOL)."""
+    from repro_torch.models import moe
+    route = moe.route
+    at = [0]
+
+    def pinned(logits, k, capacity):
+        r = route(logits, k, capacity)
+        if not replay:
+            routings.append((r.idx, r.pos, r.keep))
+            return r
+        idx, pos, keep = routings[at[0]]
+        at[0] += 1
+        gates = r.probs.gather(-1, idx)
+        gates = gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+        return r._replace(idx=idx, gates=gates, pos=pos, keep=keep)
+    with swapped(moe, "route", pinned):
+        yield
+    check(not replay or at[0] == len(routings), f"{at[0]} routings "
+          f"replayed of {len(routings)} recorded")
+
+
+def moved_share(a: list, b: list) -> float:
+    """The share of (token, slot) pairs whose expert differs between two
+    recorded runs of ``pinned_routing``, over every call."""
+    moved = sum(int((x[0] != y[0]).sum()) for x, y in zip(a, b))
+    return moved / sum(x[0].numel() for x in a)
+
+
+def routing_gate(params, x, cfg, label: str) -> dict:
+    """One MoE layer's ``params`` on ``x`` (B, S, D): ``moe_apply``'s
+    routing (through ``moe.route``, as the main path calls it) against
+    ``moe.route_plain``'s from the same router logits, and ``y`` against
+    ``moe_apply_plain`` in float64 on those logits; the share of tokens
+    tied at the top-k boundary and the share of pairs dropped."""
+    from repro_torch.models import moe
+    b, s, d = x.shape
+    k = cfg.top_k
+    sg = min(moe.DEFAULT_GROUP, b * s)
+    cap = moe.expert_capacity(sg, k, cfg.capacity_factor, cfg.n_experts)
+    with torch.no_grad():
+        logits = moe.router_logits(params, x.reshape(-1, sg, d))
+        got = moe.route(logits, k, cap)
+        want = moe.route_plain(logits, k, cap)
+        same = {name: bool(torch.equal(getattr(got, name),
+                                       getattr(want, name)))
+                for name in ("idx", "pos", "keep")}
+        y, _ = moe.moe_apply(params, x, cfg)
+        wide = {n: v.double() for n, v in params.items()}
+        y64, _ = moe.moe_apply_plain(wide, x.double(), cfg, logits=logits)
+        rel = rel_norm(y.double(), y64)
+        top = want.probs.sort(dim=-1, descending=True).values
+        ties = (top[..., k - 1] == top[..., k]).double().mean().item()
+        dropped = 1 - want.keep.double().mean().item()
+    ok = all(same.values()) and rel <= MOE_Y_TOL
+    print(f"{label}: routing of moe_apply vs moe_apply_plain's (experts, "
+          f"places, keep) {'equal' if all(same.values()) else same}; y vs "
+          f"the plain form in float64 ||a-b||/||b|| {rel:.3e} (tolerance "
+          f"{MOE_Y_TOL:g}); {100 * ties:.3f}% of tokens tied at the top-{k} "
+          f"boundary, {100 * dropped:.3f}% of pairs dropped at capacity "
+          f"{cap}: {'met' if ok else 'FAILED'}")
+    return dict(same=same, y_rel=rel, tie_share=ties, drop_share=dropped,
+                capacity=cap, ok=ok)
+
+
+def moe_phase(card, dev, wrappers, *, cfg=None, scout_cfg=None,
+              long: tuple[int, int, int] = MOE_LONG,
+              short: tuple[int, int, int] = MOE_SHORT,
+              prefill_s: int = MOE_PREFILL_S, gate_s: int = MOE_GATE_S,
+              gate_layer: int = MOE_GATE_LAYER,
+              f32: tuple[int, int] = MOE_F32,
+              train_layers: int = MOE_TRAIN_LAYERS,
+              train_batch: tuple[int, int] = MOE_TRAIN_BATCH,
+              scout_layers: int = SCOUT_LAYERS,
+              scout_requests: tuple[int, int, int] = SCOUT_REQUESTS) -> dict:
+    """Full-width OLMoE-1B-7B (``cfg``, default the registered config):
+    serving through ``DecodeEngine.run`` (every counter at 0 just before,
+    read just after: one launch of the wgmma kernel's bf16 (128, 128)
+    instance a layer a prefill, none of the FFMA kernel, no plain call),
+    TTFT, prefill and decode rates; the routing gate on one layer's input
+    in a ``prefill_s``-token prefill, with its three planted faults; the
+    kernel path's logits against the naive path's at the reference's
+    init and on conditioned weights, with the planted flash faults; a
+    profile of the prefill by kind with the MoE layer apart and one
+    launch at the longest served prompt beside its plain version, SDPA
+    and the bound; the f32 check through the FFMA kernel; training with
+    the depth cut: step time, tokens/s, model-FLOP share (6·N_active),
+    peak memory, the aux terms, the bf16 gradient gate with its planted
+    fault; then Llama-4-Scout (``scout_cfg``, default the registered
+    config) with its depth cut, served and gated the same way.  The
+    keywords shrink it for a rehearsal on the CPU (the kernels' plain
+    versions, no counts, no times)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM, make_batch_fn
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_ffma,
+                                                     flash_attention_plain,
+                                                     flash_attention_wgmma,
+                                                     kernel_variant)
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tr
+    from repro_torch.serve.engine import EngineConfig, _merge_slot_cache
+    from repro_torch.train.checkpoint import tree_leaves
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_state import (init_train_state,
+                                               make_train_step)
+    on_card = dev.type == "cuda"
+    full_width = cfg is None
+    cfg = cfg or get_config(MOE_ARCH)
+    scout_cfg = dataclasses.replace(scout_cfg or get_config(SCOUT_ARCH),
+                                    n_layers=scout_layers)
+    kernel = flash_attention_cuda if on_card else flash_attention_plain
+    ffma_geo = flash_attention_ffma.launches_by_geometry
+    wgmma_geo = flash_attention_wgmma.launches_by_geometry
+    hd = cfg.resolved_head_dim
+    bf16_key = (torch.bfloat16, hd, hd)
+    f32_key = (torch.float32, hd, hd)
+    variant = kernel_variant(*bf16_key)
+    main_kernel = FLASH_VARIANTS[variant]
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def free():
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def reset_counts():
+        for kern, _ in wrappers.values():
+            kern.launches = 0
+        ffma_geo.clear()
+        wgmma_geo.clear()
+
+    def read_counts():
+        """Launches by wrapper, and by (dtype, dk, dv) both kernels'
+        summed."""
+        geo = dict(ffma_geo)
+        for key, n in wgmma_geo.items():
+            geo[key] = geo.get(key, 0) + n
+        return {k: wrappers[k][0].launches for k in wrappers}, geo
+
+    def check_path(counts, geo, plain_calls, want, key, what):
+        """``want`` launches of the ``key`` instance through its kernel,
+        no other launch, no plain call (on the card)."""
+        name = FLASH_VARIANTS[kernel_variant(*key)]
+        if on_card:
+            check(counts["flash_attention"] == counts[name] == geo.get(key)
+                  == want and sum(geo.values()) == want
+                  and all(c == 0 for k, c in counts.items()
+                          if k not in ("flash_attention", name)),
+                  f"{what}: {counts}, {geo}: {want} launches of the {key} "
+                  f"instance through {name} expected")
+            check(not plain_calls, f"{what} called the plain version "
+                  f"{len(plain_calls)} times on the card")
+
+    def live_rel(a, b, c):
+        return rel_norm(a[..., :c.vocab], b[..., :c.vocab])
+
+    def serve(c, params, prompts, slots, max_len, label):
+        """The main path: ``prompts`` through ``DecodeEngine.run``; prints
+        and returns its rates and counts."""
+        ecfg = EngineConfig(n_slots=slots, max_len=max_len,
+                            max_new=MOE_MAX_NEW, temperature=0.0)
+        serve_requests(c, params, dataclasses.replace(ecfg, n_slots=1),
+                       [prompts[-1][:16]], "flash", wrappers, dev)
+        plain_calls: list = []
+        reset_counts()
+        with counting_plain_attention(plain_calls):
+            reqs, admits, steps, wall, counts = serve_requests(
+                c, params, ecfg, prompts, "flash", wrappers, dev)
+        _, geo = read_counts()
+        want = c.n_layers * len(prompts)
+        check_path(counts, geo, plain_calls, want, bf16_key,
+                   f"{label} serving")
+        for r in reqs:
+            check(r.done and len(r.generated) == MOE_MAX_NEW
+                  and all(0 <= t < c.vocab for t in r.generated),
+                  f"{label} request {r.rid}: done {r.done}, "
+                  f"{len(r.generated)} tokens")
+        lens = [len(p) for p in prompts]
+        prefill_s_ = sum(d for _, d in admits.values())
+        decode_s = sum(d for d, _ in steps)
+        decode_tokens = sum(n for _, n in steps)
+        full = [d * 1e3 for d, n in steps if n == slots]
+        step_ms = statistics.median(full or [d * 1e3 for d, _ in steps])
+        ttft = sorted((len(r.prompt), sum(admits[r.rid]) * 1e3,
+                       admits[r.rid][1] * 1e3) for r in reqs)
+        top = ttft[-1]
+        weight_bytes = sum(t.numel() * t.element_size()
+                           for t in tree_leaves(params))
+        print(f"{label} served {len(prompts)} requests ({sum(lens)} prompt "
+              f"tokens, {MOE_MAX_NEW} new each) in {wall:.3f} s through "
+              f"{slots} slots: {counts['flash_attention']} flash launches = "
+              f"{c.n_layers} layers x {len(prompts)} prefills, through the "
+              f"{variant} kernel's {hd}/{hd} bf16 instance ({geo}), "
+              f"{counts['flash_attention_ffma']} FFMA, {len(plain_calls)} "
+              f"plain calls [{card}]")
+        for n, t, pre in ttft:
+            print(f"  prompt {n:4d} tokens: prefill {pre:9.3f} ms, time to "
+                  f"first token {t:9.3f} ms")
+        print(f"prefill: {sum(lens)} tokens in {prefill_s_:.3f} s = "
+              f"{sum(lens) / prefill_s_:.1f} tokens/s; at the longest prompt "
+              f"({top[0]} tokens) TTFT {top[1]:.3f} ms, "
+              f"{top[0] / top[2] * 1e3:.1f} tokens/s; decode: {len(steps)} "
+              f"engine steps, median {step_ms:.3f} ms a step at {slots} "
+              f"slots ({len(full)} such steps), {decode_tokens} tokens in "
+              f"{decode_s:.3f} s = {decode_tokens / decode_s:.1f} tokens/s; "
+              f"HBM bound of a step (every weight read once: the dispatch "
+              f"runs every expert's buffer) "
+              f"{weight_bytes / PEAK_HBM_BYTES * 1e3:.3f} ms [{card}]")
+        return dict(prompt_lens=lens, wall_s=wall,
+                    launches=counts["flash_attention"],
+                    launches_by_geometry={str(k): v for k, v in geo.items()},
+                    requests=[dict(prompt=n, ttft_ms=t, prefill_ms=pre)
+                              for n, t, pre in ttft],
+                    ttft_ms_longest=top[1],
+                    prefill_tokens_per_s=sum(lens) / prefill_s_,
+                    decode_steps=len(steps), decode_step_ms_median=step_ms,
+                    decode_tokens_per_s=decode_tokens / decode_s,
+                    weight_gb=weight_bytes / 1e9,
+                    decode_bound_ms=weight_bytes / PEAK_HBM_BYTES * 1e3)
+
+    def prefill_and_decode(c, p, tokens, impl):
+        flags = tr.RunFlags(attn_impl=impl)
+        lg, pcache = tr.forward(p, {"tokens": tokens}, c, mode="prefill",
+                                flags=flags)
+        cache = tr.init_cache(c, 1, tokens.shape[1] + 8, device=dev)
+        _merge_slot_cache(cache, pcache, 0, tokens.shape[1])
+        del pcache
+        nxt = torch.argmax(lg[:, -1].float(), dim=-1)[:, None]
+        first, _ = tr.decode_step(p, cache, nxt, torch.tensor(
+            [tokens.shape[1]], device=dev), c, flags)
+        return lg, first
+
+    def logits_gate(c, params, tokens, label) -> dict:
+        """Every flash launch of a prefill of ``tokens`` against float64
+        (``regime_forward``, at the reference's init); then the kernel
+        path's prefill and first decode logits against the naive path's,
+        at the reference's init (read) and conditioned (gated, the
+        planted flash faults above the gate), each on its own routing
+        (read) and on the naive path's."""
+        calls: list = []
+        with attend_as(dev, recording(kernel, calls)), torch.no_grad():
+            prefill_and_decode(c, params, tokens, "flash")
+        check(len(calls) == c.n_layers, f"{len(calls)} flash calls in a "
+              f"prefill of {c.n_layers} layers")
+        s, h = tokens.shape[1], c.n_heads
+        out = {"flash_on_model_inputs": regime_forward(
+            calls, f"{label} {s}-token prefill (B=1 S={s} H={h} hd={hd})",
+            MINICPM3_PLAIN_TILES)}
+        del calls
+        faults = {f: planted_fault(f) for f in PLANTED_FAULTS}
+        out = {}
+        for regime in ("reference init", "conditioned"):
+            if regime == "conditioned":
+                condition(params, c.d_model)
+            runs, routed = {}, {}
+            for impl in ("flash", "naive"):
+                routed[impl] = []
+                with pinned_routing(routed[impl]):
+                    runs[impl] = prefill_and_decode(c, params, tokens, impl)
+            free_pair = [live_rel(x, y, c) for x, y in
+                         zip(runs["flash"], runs["naive"])]
+            moved = moved_share(routed["flash"], routed["naive"])
+            print(f"{label} {tokens.shape[1]}-token prompt, {regime}, flash "
+                  f"vs naive, each on its own routing: prefill logits "
+                  f"||a-b||/||b|| {free_pair[0]:.3e}, first decode logits "
+                  f"{free_pair[1]:.3e}; {100 * moved:.3f}% of the (token, "
+                  f"slot) pairs routed to another expert (read, not gated)")
+            with pinned_routing(routed["naive"], replay=True):
+                lg = prefill_and_decode(c, params, tokens, "flash")
+            errs = {"flash vs naive": [live_rel(x, y, c) for x, y in
+                                       zip(lg, runs["naive"])]}
+            del runs["flash"], lg
+            for fault in PLANTED_FAULTS:
+                with attend_as(dev, faults[fault]), \
+                        pinned_routing(routed["naive"], replay=True):
+                    lg = prefill_and_decode(c, params, tokens, "flash")
+                errs[f"{fault} vs naive"] = [live_rel(x, y, c) for x, y in
+                                             zip(lg, runs["naive"])]
+                del lg
+            del runs, routed
+            free()
+            tol = MOE_LOGITS_TOL.get(regime)
+            for what, pair in errs.items():
+                fault = not what.startswith("flash")
+                gated = tol is not None
+                print(f"{label} {tokens.shape[1]}-token prompt, {regime}, "
+                      f"{what}, on the naive path's routing: prefill logits "
+                      f"||a-b||/||b|| {pair[0]:.3e}, "
+                      f"first decode logits {pair[1]:.3e} ("
+                      + ((f"must exceed {tol:g}" if fault
+                          else f"tolerance {tol:g}")
+                         if gated else "read, not gated: see MOE_LOGITS_TOL")
+                      + ")")
+                if gated:
+                    check(max(pair) > tol if fault else max(pair) <= tol,
+                          f"{label} {regime}, {what}: the logits gate of "
+                          f"{tol:g} "
+                          f"{'cannot tell the planted fault' if fault else 'fails'}")
+            out[regime] = dict(errs, unpinned=free_pair,
+                               moved_share=moved)
+        return out
+
+    def launch_row(label, b, s, h):
+        row = split_launch_row(label, b, s, h, hd, hd, torch.bfloat16, dev,
+                               on_card)
+        if on_card:
+            print(f"flash_attention ({row['variant']} {hd}/{hd}) {label} at "
+                  f"B={b} S={s} H={h} causal bf16: {row['ms']:.4f} ms a "
+                  f"launch ({row['tflops']:.2f} TFLOP/s), max_abs_err "
+                  f"{row['max_abs_err']:.3e} vs plain, plain "
+                  f"{row['plain_ms']:.3f} ms, SDPA {row['library_ms']:.4f} "
+                  f"ms (backend {row['library_backend']}), bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}) [{card}]")
+        return row
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    free()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = tr.init(cfg, torch.Generator(dev).manual_seed(0))
+    sync()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    check(n_params == tr.count_params(cfg)
+          and (n_params == MOE_PARAMS or not full_width),
+          f"{n_params} parameters, not {MOE_PARAMS}")
+    L = cfg.n_layers
+    print(f"{MOE_ARCH}: {L} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads of {hd}, {cfg.n_experts} experts of d_ff "
+          f"{cfg.expert_d_ff} at top-{cfg.top_k}, vocab {cfg.vocab} (padded "
+          f"{cfg.padded_vocab}): {n_params:,} parameters "
+          f"({tr.model_flops_per_token(cfg) / 6:,.0f} active a token), "
+          f"drawn in {time.perf_counter() - t0:.1f} s")
+
+    # -- serving: the main path ------------------------------------------
+    gen = torch.Generator().manual_seed(0)
+    n_long, lo, hi = long
+    lens = (torch.randint(lo // 256, hi // 256 + 1, (n_long,),
+                          generator=gen) * 256).tolist()
+    lens += torch.randint(short[1], short[2] + 1, (short[0],),
+                          generator=gen).tolist()
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen).tolist()
+               for n in lens]
+    out["serve"] = serve(cfg, params, prompts, MOE_SLOTS,
+                         max(MOE_MAX_LEN, max(lens) + MOE_MAX_NEW + 8),
+                         MOE_ARCH)
+    out["launches"] = out["serve"]["launches"]
+    cap = moe.expert_capacity(MOE_SLOTS, cfg.top_k, cfg.capacity_factor,
+                              cfg.n_experts)
+    print(f"  a decode step's {MOE_SLOTS} slots are one routing group, idle "
+          f"slots included: capacity {cap} token(s) an expert a step (the "
+          f"reference's rule)")
+
+    # -- the routing gate on one layer's input ------------------------------
+    tokens = torch.randint(0, cfg.vocab, (1, prefill_s), generator=gen
+                           ).to(dev)
+    seen: list = []
+    apply = moe.moe_apply
+
+    def recorded(p, x, c, **kw):
+        if len(seen) == gate_layer:
+            seen.append((p, x.detach().clone()))
+        elif len(seen) < gate_layer:
+            seen.append(None)
+        return apply(p, x, c, **kw)
+    with swapped(moe, "moe_apply", recorded), torch.no_grad():
+        tr.forward(params, {"tokens": tokens}, cfg, mode="prefill",
+                   last_logit_only=True)
+    lp, x = seen[gate_layer]
+    del seen
+    label = f"{MOE_ARCH} layer {gate_layer}, {prefill_s}-token prefill"
+    gates = {"main path": routing_gate(lp, x, cfg, label)}
+    check(gates["main path"]["ok"], f"{label}: the routing gate fails")
+    tied_router = lp["router"].clone()
+    tied_router[:, list(MOE_TIED)] = tied_router[:, [MOE_TIED[0]]]
+    tied = dict(lp, router=tied_router)
+    gates["tied router"] = routing_gate(
+        tied, x, cfg, f"{label}, router columns {MOE_TIED} equal")
+    check(gates["tied router"]["ok"], f"{label}: the routing gate fails on "
+          f"the tied router")
+    for fault in MOE_ROUTING_FAULTS:
+        on = tied if fault == "tie order reversed" else lp
+        with faulty_route(fault):
+            gates[fault] = routing_gate(
+                on, x, cfg, f"{label}, planted: {fault}"
+                + (" (tied router)" if on is tied else ""))
+        check(not gates[fault]["ok"], f"{label}: the routing gate cannot "
+              f"tell '{fault}'")
+    out["routing_gate"] = gates
+    del lp, x, tied, tied_router
+
+    # -- profile of one prefill by kind, the MoE layer apart ---------------
+    if on_card:
+        with annotated(moe, "moe_apply", MOE_RANGES[0]), \
+                annotated(moe, "route", MOE_RANGES[1]):
+            prof = profile(lambda: tr.forward(params, {"tokens": tokens}, cfg,
+                                              mode="prefill"), 2,
+                           f"{MOE_ARCH} prefills of {prefill_s} tokens",
+                           ranges_of=MOE_RANGES)
+        if "device_ms_per_run" in prof:
+            kms = prof["kernels_ms_per_run"]
+            spans = prof["range_spans_ms_per_run"]
+            flash_ms = sum(ms for n, ms in kms.items() if "fa_sm90_kernel" in n)
+            gemm_ms = sum(ms for n, ms in kms.items()
+                          if any(t in n.lower() for t in
+                                 ("gemm", "xmma", "cutlass", "nvjet")))
+            busy = prof["device_ms_per_run"]
+            moe_ms = spans.get(MOE_RANGES[0], float("nan"))
+            prof["by_kind_ms"] = dict(flash=flash_ms, gemm_kernels=gemm_ms,
+                                      moe_span=moe_ms,
+                                      moe_span_per_layer=moe_ms / L,
+                                      route_span=spans.get(MOE_RANGES[1]),
+                                      other=busy - flash_ms - gemm_ms)
+            print(f"  a {prefill_s}-token prefill by kind: the {L} flash "
+                  f"launches {flash_ms:.3f} ms; every GEMM kernel (the "
+                  f"projections, the router, the experts' batched products, "
+                  f"the logits) {gemm_ms:.3f} ms; the MoE layers (device span "
+                  f"of their ranges) {moe_ms:.3f} ms = {moe_ms / L:.3f} ms a "
+                  f"layer, their routing "
+                  f"{spans.get(MOE_RANGES[1], float('nan')):.3f} ms; device "
+                  f"busy {busy:.3f} ms of a {prof['wall_ms_per_run']:.3f} ms "
+                  f"wall [{card}]")
+        out["prefill_profile"] = prof
+    out["launch"] = launch_row(f"{MOE_ARCH} serving", 1, max(lens),
+                               cfg.n_heads)
+    if on_card:
+        out["serve_peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        print(f"{MOE_ARCH} serving in bf16: peak device memory "
+              f"{out['serve_peak_memory_gb']:.2f} GB [{card}]")
+    # last: it conditions the weights in place
+    out["logits_rel_err"] = logits_gate(cfg, params, tokens[:, :gate_s],
+                                        MOE_ARCH)
+    del params
+    free()
+
+    # -- the f32 check through the FFMA kernel's f32 instance ---------------
+    l32, s32 = f32
+    cfg32 = dataclasses.replace(cfg, n_layers=l32, dtype="float32")
+    p32 = tr.init(cfg32, torch.Generator(dev).manual_seed(1))
+    condition(p32, cfg.d_model)
+    routed: list = []
+    with torch.no_grad(), pinned_routing(routed):
+        runs = {"naive": prefill_and_decode(cfg32, p32, tokens[:, :s32],
+                                            "naive")}
+    reset_counts()
+    with torch.no_grad(), pinned_routing(routed, replay=True):
+        runs["flash"] = prefill_and_decode(cfg32, p32, tokens[:, :s32],
+                                           "flash")
+    sync()
+    counts32, geo32 = read_counts()
+    check_path(counts32, geo32, [], l32, f32_key, "the f32 prefill")
+    pair = [live_rel(x, y, cfg32) for x, y in zip(runs["flash"],
+                                                   runs["naive"])]
+    del runs, p32, routed
+    free()
+    print(f"{MOE_ARCH} f32, {l32} layers (through the FFMA kernel's {hd}/{hd}"
+          f" f32 instance: {geo32.get(f32_key, 0)} launches), one "
+          f"{s32}-token prompt, conditioned weights, flash vs naive on the "
+          f"naive path's routing: "
+          f"prefill logits ||a-b||/||b|| {pair[0]:.3e}, first decode logits "
+          f"{pair[1]:.3e} (tolerance {MOE_F32_TOL:g})")
+    check(max(pair) <= MOE_F32_TOL, "f32 flash vs naive: the logits disagree")
+    out.update(f32_logits_rel_err=pair, launches_f32=geo32.get(f32_key, 0))
+    f32_row = split_launch_row(f"{MOE_ARCH} f32 check", 1, s32, cfg.n_heads,
+                               hd, hd, torch.float32, dev, on_card)
+    out["launch_f32"] = f32_row
+
+    # -- training at full width, the depth cut ----------------------------
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    tcfg = dataclasses.replace(cfg, n_layers=train_layers)
+    n = tr.count_params(tcfg)
+    check(n == MOE_TRAIN_PARAMS or not full_width,
+          f"{n} parameters at {train_layers} layers")
+    state = init_train_state(tcfg, torch.Generator(dev).manual_seed(0))
+    sync()
+    b, s = train_batch
+    batch_fn = make_batch_fn(SyntheticLM(tcfg, b, s, seed=0), device=dev)
+    flags = tr.RunFlags(attn_impl="flash", remat=True)
+    opt_cfg = AdamWConfig(total_steps=1 + MOE_TRAIN_TIMED, **LLM_TRAIN_LR)
+    step = make_train_step(tcfg, opt_cfg, flags)
+    print(f"{MOE_ARCH} training at full width with {train_layers} of its {L} "
+          f"layers: {n:,} parameters, f32 masters, moments and gradients "
+          f"{16 * n / 1e9:.1f} GB ({L} layers: {16 * n_params / 1e9:.1f} GB)")
+    plain_calls: list = []
+    reset_counts()
+    times, metrics = [], []
+    with counting_plain_attention(plain_calls):
+        for i in range(1 + MOE_TRAIN_TIMED):
+            data = batch_fn(i)
+            sync()
+            t0 = time.perf_counter()
+            state, m = step(state, data)
+            sync()
+            if i:
+                times.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: float(x) for k, x in m.items()})
+    counts, geo = read_counts()
+    steps_run = 1 + MOE_TRAIN_TIMED
+    check_path(counts, geo, plain_calls, 2 * train_layers * steps_run,
+               bf16_key, f"{MOE_ARCH} training ({steps_run} steps of "
+               f"{train_layers} layers, forward and remat recompute)")
+    for i, m in enumerate(metrics):
+        check(all(math.isfinite(m[k]) for k in ("loss", "total_loss",
+                                               "grad_norm", "aux_lb",
+                                               "aux_z"))
+              and m["aux_lb"] > 0 and m["aux_z"] > 0,
+              f"step {i}: not finite, or an aux term 0: {m}")
+    step_ms = statistics.median(times)
+    flops = tr.model_flops_per_token(tcfg) * b * s
+    out["train"] = t = dict(
+        layers=train_layers, params=n, launches=counts["flash_attention"],
+        step_ms=times, step_ms_median=step_ms,
+        tokens_per_s=b * s / step_ms * 1e3, model_flops=flops,
+        mfu=flops / (step_ms / 1e3) / PEAK_BF16_TC_FLOPS,
+        peak_memory_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
+                        if on_card else None),
+        losses=[m["loss"] for m in metrics],
+        aux_lb=[m["aux_lb"] for m in metrics],
+        aux_z=[m["aux_z"] for m in metrics])
+    print(f"{MOE_ARCH} ({train_layers} layers) train steps of {b}x{s} tokens: "
+          f"median {step_ms:.3f} ms a step "
+          f"({', '.join(f'{x:.3f}' for x in times)}; host clock after a "
+          f"synchronise), {t['tokens_per_s']:.1f} tokens/s; model FLOPs "
+          f"6N_active x tokens = {flops / 1e12:.2f} TFLOP a step, "
+          f"{100 * t['mfu']:.2f}% of the bf16 dense peak; peak device memory "
+          f"{t['peak_memory_gb'] or 0:.2f} GB; flash launches "
+          f"{counts['flash_attention']} = {steps_run} steps x {train_layers} "
+          f"layers x 2, all through the {variant} kernel, {len(plain_calls)} "
+          f"plain calls [{card}]")
+    print(f"  losses {', '.join(f'{x:.4f}' for x in t['losses'])}; aux_lb "
+          f"{', '.join(f'{x:.4f}' for x in t['aux_lb'])}; aux_z "
+          f"{', '.join(f'{x:.4f}' for x in t['aux_z'])}")
+    if on_card:
+        t["step_profile"] = profile(lambda: step(state, batch_fn(0)), 1,
+                                    f"{MOE_ARCH} train steps")
+    t["launch"] = launch_row(f"{MOE_ARCH} training", b, s, cfg.n_heads)
+    one = batch_fn(10_000)
+    del state["opt"]
+    params = state["params"]
+    free()
+    condition(params, tcfg.d_model)
+
+    def grads_of(routings, replay=False, **over):
+        """The gradients wrt the masters, without remat (its recompute
+        would route each layer a second time, in reverse order)."""
+        fn = make_train_step(tcfg, opt_cfg, dataclasses.replace(
+            flags, remat=False, **over))
+        with pinned_routing(routings, replay):
+            return fn.value_and_grad(params, one)[2]
+    routed: list = []
+    g_naive = grads_of(routed, attn_impl="naive")
+    own: list = []
+    rels = {"flash vs naive, each on its own routing":
+            leaf_rel(grads_of(own), g_naive)}
+    moved = moved_share(own, routed)
+    del own
+    rels["flash vs naive, bf16"] = leaf_rel(grads_of(routed, True), g_naive)
+    with dv_scaled_backward(GRAD_FAULT):
+        g = grads_of(routed, True)
+    rels["planted fault vs naive, bf16"] = leaf_rel(g, g_naive)
+    del g, g_naive, state, params, routed
+    free()
+    for what, rel in rels.items():
+        worst = max(rel, key=rel.get)
+        fault = what.startswith("planted")
+        gated = "own routing" not in what
+        router = max(v for k, v in rel.items() if k.endswith("router"))
+        print(f"{MOE_ARCH} gradients per leaf on conditioned weights, {what}"
+              + ("" if gated else f" ({100 * moved:.3f}% of the pairs "
+                 f"routed to another expert)")
+              + f": worst {rel[worst]:.3e} ({worst}), "
+              f"{rel[worst] / GRAD_TOL_BF16:.3f} of "
+              + ("the gate (must exceed it)" if fault else "its tolerance"
+                 if gated else "the gate (read, not gated)")
+              + f" {GRAD_TOL_BF16:g}; the routers' worst {router:.3e}")
+        if gated:
+            check(rel[worst] > GRAD_TOL_BF16 if fault
+                  else rel[worst] <= GRAD_TOL_BF16,
+                  f"{what}: {worst} at {rel[worst]:.3e} against "
+                  f"{GRAD_TOL_BF16:g}")
+    t["grad_gates"] = {k: max(v.values()) for k, v in rels.items()}
+    t["grad_moved_share"] = moved
+
+    # -- Llama-4-Scout: GQA, top-1 of 16 experts and a shared expert ---------
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    sp = tr.init(scout_cfg, torch.Generator(dev).manual_seed(0))
+    sync()
+    n_scout = sum(t.numel() for t in tree_leaves(sp))
+    check(n_scout == tr.count_params(scout_cfg)
+          and (n_scout == SCOUT_PARAMS or not full_width),
+          f"{n_scout} parameters at {scout_layers} layers, not "
+          f"{SCOUT_PARAMS}")
+    print(f"{SCOUT_ARCH}: {scout_layers} of its 48 layers at full width "
+          f"(d_model {scout_cfg.d_model}, {scout_cfg.n_heads} heads over "
+          f"{scout_cfg.n_kv_heads} kv heads of {hd}, {scout_cfg.n_experts} "
+          f"experts of d_ff {scout_cfg.expert_d_ff} at top-{scout_cfg.top_k} "
+          f"and {scout_cfg.n_shared_experts} shared, vocab {scout_cfg.vocab} "
+          f"padded {scout_cfg.padded_vocab}): {n_scout:,} parameters, drawn "
+          f"in {time.perf_counter() - t0:.1f} s")
+    n_req, lo, hi = scout_requests
+    slens = (torch.randint(lo // 256, hi // 256 + 1, (n_req,), generator=gen)
+             * 256).tolist()
+    sprompts = [torch.randint(0, scout_cfg.vocab, (n,), generator=gen
+                              ).tolist() for n in slens]
+    sc = out["scout"] = serve(scout_cfg, sp, sprompts, SCOUT_SLOTS,
+                              max(slens) + MOE_MAX_NEW + 8, SCOUT_ARCH)
+    sc["launch"] = launch_row(f"{SCOUT_ARCH} serving", 1, max(slens),
+                              scout_cfg.n_heads)
+    if on_card:
+        sc["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        print(f"{SCOUT_ARCH} serving in bf16: peak device memory "
+              f"{sc['peak_memory_gb']:.2f} GB [{card}]")
+    stokens = torch.randint(0, scout_cfg.vocab, (1, max(slens)),
+                            generator=gen).to(dev)
+    sc["logits_rel_err"] = logits_gate(scout_cfg, sp, stokens, SCOUT_ARCH)
+    del sp
+    free()
+    out["launches_wgmma"] = out["launches"] + t["launches"] + sc["launches"]
+    # each timed launch against its plain version, for the kernels line
+    out["errs_wgmma"] = [r["max_abs_err"] for r in
+                         (out["launch"], t["launch"], sc["launch"])
+                         if "max_abs_err" in r]
+    out["errs_ffma"] = [f32_row["max_abs_err"]] \
+        if "max_abs_err" in f32_row else []
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"moe phase: {out['seconds']:.1f} s")
     return out
 
 
@@ -5840,6 +6607,9 @@ def main(argv=None) -> int:
     # -- 9d. MiniCPM3-4B: multi-head latent attention, split head dims -----
     minicpm3 = record["minicpm3"] = minicpm3_phase(card, dev, wrappers)
     phase_done("minicpm3")
+    # -- 9e. mixture of experts: OLMoE-1B-7B, Llama-4-Scout ----------------
+    moe = record["moe"] = moe_phase(card, dev, wrappers)
+    phase_done("moe")
     # -- 10. programs sharded over two gloo ranks sharing the card ---------
     mesh = record["mesh"] = mesh_phase(card, dev)
     phase_done("mesh")
@@ -5855,7 +6625,11 @@ def main(argv=None) -> int:
                             "minicpm3_tiny_bf16":
                                 minicpm3["tiny_launches_bf16"],
                             "minicpm3_tiny_f32":
-                                minicpm3["tiny_launches_f32"]},
+                                minicpm3["tiny_launches_f32"],
+                            "moe": moe["launches"],
+                            "moe_train": moe["train"]["launches"],
+                            "moe_f32": moe["launches_f32"],
+                            "scout": moe["scout"]["launches"]},
                   launches_by_route={"serve": serve_routes,
                                      "train": train_routes})
 
@@ -5900,8 +6674,9 @@ def main(argv=None) -> int:
         "source": KERNELS["flash_attention_wgmma"][0],
         "replaces": KERNELS["flash_attention_wgmma"][1],
         "launches": llm["launches"] + llm_train["launches"]
-        + gemma3["launches_wgmma"],
-        "max_abs_err": max(kernel_errs["flash_attention_wgmma"]),
+        + gemma3["launches_wgmma"] + moe["launches_wgmma"],
+        "max_abs_err": max(kernel_errs["flash_attention_wgmma"]
+                           + moe["errs_wgmma"]),
         "ms": flash["ms"],
         "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"],
@@ -5916,8 +6691,10 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": KERNELS["flash_attention_ffma"][0],
         "replaces": KERNELS["flash_attention_ffma"][1],
-        "launches": f32["launches"] + gemma3["launches_ffma"],
-        "max_abs_err": max(kernel_errs["flash_attention_ffma"]),
+        "launches": f32["launches"] + gemma3["launches_ffma"]
+        + moe["launches_f32"],
+        "max_abs_err": max(kernel_errs["flash_attention_ffma"]
+                           + moe["errs_ffma"]),
         "ms": f32["ms"] * f32["launches"],
         "plain_ms": f32["plain_ms"] * f32["launches"],
         "bound_ms": f32["bound_ms"] * f32["launches"],

@@ -2,8 +2,9 @@
 
 A copy of the data of the ten ``repro.configs.<arch>`` modules, one
 ``register`` call each, with each module's source note.  The port serves
-the dense, causal ones (``gemma-7b``, ``qwen1.5-32b``, ``gemma3-4b``);
-the others build only as far as ``models/transformer.py`` lets them.
+the causal ones (``gemma-7b``, ``qwen1.5-32b``, ``gemma3-4b``,
+``minicpm3-4b``, ``olmoe-1b-7b``, ``llama4-scout-17b-a16e``); the others
+build only as far as ``models/transformer.py`` lets them.
 """
 
 from repro_torch.configs.base import ArchConfig, register

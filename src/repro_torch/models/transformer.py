@@ -1,25 +1,30 @@
 """Decoder LM assembly (the port of ``repro.models.transformer`` for the
-dense, causal configs: ``gemma-7b``, ``qwen1.5-32b``, ``gemma3-4b``,
-whose 5:1 local:global pattern runs sliding-window layers beside global
-ones at their own ``rope_theta``, and ``minicpm3-4b``, whose blocks mix
-by multi-head latent attention (MLA); logit soft-capping and positions
-given in the batch are ported too).
+causal configs of attention blocks: ``gemma-7b``, ``qwen1.5-32b``,
+``gemma3-4b``, whose 5:1 local:global pattern runs sliding-window layers
+beside global ones at their own ``rope_theta``, ``minicpm3-4b``, whose
+blocks mix by multi-head latent attention (MLA), and the mixture-of-
+experts configs ``olmoe-1b-7b`` and ``llama4-scout-17b-a16e``, whose
+blocks' MLP is ``models/moe.py``'s routed experts; logit soft-capping
+and positions given in the batch are ported too).
 
 Parameters keep the reference's stacked layout — ``segments/seg<i>/
 pos<j>/{ln_mix, attn/{wq,wk,wv,wo[,bq,bk,bv]}, ln_mlp, mlp/{...}}`` with
 a leading layers axis (an MLA block's ``attn`` holds ``{wq_a, q_norm,
-wq_b, wkv_a, kv_norm, wkv_b, wo}``), ``embed`` and ``final_norm`` — as
-nested dicts of
-tensors, so converting the JAX package's parameters is a check and a
-copy.  Where the reference scans over the layers, :func:`forward` loops
-over the layer slices in Python.
+wq_b, wkv_a, kv_norm, wkv_b, wo}``; a MoE block's ``mlp`` holds
+``{router, wi, wg, wo[, shared_wi, shared_wg, shared_wo]}``), ``embed``
+and ``final_norm`` — as nested dicts of tensors, so converting the JAX
+package's parameters is a check and a copy.  Where the reference scans
+over the layers, :func:`forward` loops over the layer slices in Python.
+The MoE layers' load-balance and router z-losses are summed over the
+layers and reach ``loss_fn`` (``forward(..., return_aux=True)``).
 
 Entry points:
   * ``model_specs(cfg)``  → nested dict of PSpecs
   * ``init(cfg, gen)``    → params on ``gen``'s device, in the activation
     dtype
   * ``forward(params, batch, cfg, mode=...)`` → logits (+ cache)
-  * ``loss_fn`` → (total loss, metrics): next-token cross-entropy
+  * ``loss_fn`` → (total loss, metrics): next-token cross-entropy plus
+    the MoE aux losses
   * ``decode_step`` / ``init_cache`` / ``count_params`` /
     ``model_flops_per_token``
 
@@ -43,6 +48,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ArchConfig, BlockDesc
 from repro_torch.device import require_f32_accumulation, resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (PSpec, init_tree, rms_norm,
                                        stack_specs)
 from repro_torch.models.mlp import mlp_apply, mlp_specs
@@ -53,7 +59,6 @@ __all__ = ["RunFlags", "check_supported", "model_specs", "init", "forward",
            "model_flops_per_token"]
 
 # ROADMAP queue 1 items that bring what this slice leaves out
-_ITEM_MOE = "ROADMAP queue 1 item 19 (MoE)"
 _ITEM_SSM = "ROADMAP queue 1 item 20 (SSM and hybrid blocks)"
 _ITEM_ENC = "ROADMAP queue 1 item 21 (the encoder and the VLM)"
 _ITEM_INT8 = "ROADMAP queue 1 item 22 (the int8 KV cache)"
@@ -116,8 +121,6 @@ def check_supported(cfg: ArchConfig) -> None:
             if desc.mixer in ("ssm", "hybrid"):
                 raise NotImplementedError(f"{cfg.name}: mixer "
                                           f"{desc.mixer!r}: {_ITEM_SSM}")
-            if desc.mlp == "moe":
-                raise NotImplementedError(f"{cfg.name}: MoE: {_ITEM_MOE}")
     for si, (descs, rep) in enumerate(cfg.layer_segments()):
         if rep < 1:
             raise ValueError(
@@ -142,7 +145,8 @@ def _block_specs(cfg: ArchConfig, desc: BlockDesc) -> dict[str, Any]:
     }
     if desc.mlp != "none":
         specs["ln_mlp"] = PSpec((d,), (None,), init="zeros")
-        specs["mlp"] = mlp_specs(cfg, desc.mlp)
+        specs["mlp"] = (moe_mod.moe_specs(cfg) if desc.mlp == "moe"
+                        else mlp_specs(cfg, desc.mlp))
     return specs
 
 
@@ -181,11 +185,29 @@ def count_params(cfg: ArchConfig) -> int:
     return total
 
 
+def _routed(tree: dict, routed: bool = False):
+    """(spec, is a routed expert's weight) for every leaf: the
+    ``wi``/``wg``/``wo`` of a MoE block's ``mlp`` (not its shared
+    expert's)."""
+    for key, v in tree.items():
+        if isinstance(v, dict):
+            yield from _routed(v, key == "mlp")
+        else:
+            yield v, routed and key in ("wi", "wg", "wo")
+
+
 def model_flops_per_token(cfg: ArchConfig) -> float:
-    """MODEL_FLOPS a token = 6·N.  Every config of this slice is dense
-    (MLA included), so N is every parameter (the reference counts only the active
-    experts of a MoE config, which ``model_specs`` refuses here)."""
-    return 6.0 * count_params(cfg)
+    """MODEL_FLOPS a token = 6·N (dense, MLA included) or 6·N_active
+    (MoE): each routed expert leaf counts ``n·top_k // n_experts`` of its
+    ``n`` parameters, as the reference's."""
+    total = 0
+    for s, routed in _routed(model_specs(cfg)):
+        n = 1
+        for d in s.shape:
+            n *= int(d)
+        total += n * cfg.top_k // cfg.n_experts if cfg.moe and routed \
+            else n
+    return 6.0 * total
 
 
 # ---------------------------------------------------------------------------
@@ -194,6 +216,8 @@ def model_flops_per_token(cfg: ArchConfig) -> float:
 
 def _block_apply(params, x, cfg, desc, *, positions, mode, cache, lengths,
                  flags: RunFlags):
+    """One block: (x, its cache, its MoE aux ``[load_balance_loss,
+    router_z_loss]`` f32, or None for a dense MLP)."""
     h = rms_norm(x, params["ln_mix"], cfg.norm_eps)
     fn = attn_mod.mla_apply if desc.mixer == "mla" else \
         attn_mod.attention_apply
@@ -201,10 +225,17 @@ def _block_apply(params, x, cfg, desc, *, positions, mode, cache, lengths,
                 cache=None if cache is None else cache.get("attn"),
                 lengths=lengths, attn_impl=flags.attn_impl)
     x = x + out
-    if desc.mlp != "none":
+    aux = None
+    if desc.mlp == "moe":
+        h = rms_norm(x, params["ln_mlp"], cfg.norm_eps)
+        y, moe_aux = moe_mod.moe_apply(params["mlp"], h, cfg)
+        aux = torch.stack([moe_aux["load_balance_loss"],
+                           moe_aux["router_z_loss"]])
+        x = x + y
+    elif desc.mlp != "none":
         h = rms_norm(x, params["ln_mlp"], cfg.norm_eps)
         x = x + mlp_apply(params["mlp"], h, desc.mlp)
-    return x, ({} if c is None else {"attn": c})
+    return x, ({} if c is None else {"attn": c}), aux
 
 
 def _embed_in(params, batch, cfg: ArchConfig) -> torch.Tensor:
@@ -263,8 +294,11 @@ _REMAT_CONTEXTS = {
 
 def forward(params, batch, cfg: ArchConfig, *, mode: str = "train",
             cache=None, lengths=None, flags: RunFlags = RunFlags(),
-            last_logit_only: bool = False):
+            last_logit_only: bool = False, return_aux: bool = False):
     """Returns (logits, new_cache); new_cache is None in train mode.
+    ``return_aux``: (logits, new_cache, aux), aux ``{"load_balance_loss",
+    "router_z_loss"}`` f32 scalars summed over the MoE layers (0 for a
+    dense config), as the reference's third value.
 
     ``train`` is the pass that ``loss_fn`` differentiates: with
     ``flags.remat`` each layer runs under activation checkpointing
@@ -297,17 +331,23 @@ def forward(params, batch, cfg: ArchConfig, *, mode: str = "train",
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
 
     def body(x, lp, lc, descs):
-        outs = {}
+        """One layer: (x, its caches, its MoE aux summed over the
+        pattern's blocks, or None), the aux a tensor output so that its
+        gradient passes through the checkpoint."""
+        outs, aux = {}, None
         for di, desc in enumerate(descs):
-            x, outs[f"pos{di}"] = _block_apply(
+            x, outs[f"pos{di}"], a = _block_apply(
                 lp[f"pos{di}"], x, cfg, desc, positions=positions,
                 mode=mode, cache=None if lc is None else lc[f"pos{di}"],
                 lengths=lengths, flags=flags)
-        return x, outs
+            if a is not None:
+                aux = a if aux is None else aux + a
+        return x, outs, aux
 
     remat = flags.remat and mode == "train"
     context_fn = _REMAT_CONTEXTS[flags.remat_policy]
     new_cache = {}
+    aux_sum = torch.zeros(2, device=x.device)
     for si, (descs, rep) in enumerate(cfg.layer_segments()):
         seg_cache = None if cache is None else cache[f"seg{si}"]
         layer_caches = []
@@ -315,11 +355,13 @@ def forward(params, batch, cfg: ArchConfig, *, mode: str = "train",
         for lp, lc in zip(_unstack(params["segments"][f"seg{si}"], rep),
                           lcs):
             if remat:
-                x, outs = checkpoint(body, x, lp, lc, descs,
-                                     use_reentrant=False,
-                                     context_fn=context_fn)
+                x, outs, aux = checkpoint(body, x, lp, lc, descs,
+                                          use_reentrant=False,
+                                          context_fn=context_fn)
             else:
-                x, outs = body(x, lp, lc, descs)
+                x, outs, aux = body(x, lp, lc, descs)
+            if aux is not None:
+                aux_sum = aux_sum + aux
             layer_caches.append(outs)
         if mode == "prefill":
             new_cache[f"seg{si}"] = _stack(layer_caches)
@@ -328,7 +370,11 @@ def forward(params, batch, cfg: ArchConfig, *, mode: str = "train",
     if last_logit_only:
         x = x[:, -1:]
     logits = _logits(params, x, cfg)
-    return logits, (new_cache if mode in ("prefill", "decode") else None)
+    new_cache = new_cache if mode in ("prefill", "decode") else None
+    if return_aux:
+        return logits, new_cache, {"load_balance_loss": aux_sum[0],
+                                   "router_z_loss": aux_sum[1]}
+    return logits, new_cache
 
 
 def _batch_positions(positions, shape, cfg: ArchConfig, flags: RunFlags,
@@ -359,12 +405,14 @@ def loss_fn(params, batch, cfg: ArchConfig, flags: RunFlags = RunFlags(),
     """Next-token cross-entropy on f32 logits: the labels are the tokens
     shifted left and padded, and the last position weighs 0.  Returns
     ``(total, metrics)`` with ``total = loss + aux_weight·aux_lb +
-    z_weight·aux_z`` (both aux terms 0: no config of this slice routes
-    experts) and ``metrics`` ``{"loss", "aux_lb", "aux_z", "tokens"}``."""
+    z_weight·aux_z``, the MoE layers' load-balance and router z-losses
+    summed over the layers (both 0 for a dense config), and ``metrics``
+    ``{"loss", "aux_lb", "aux_z", "tokens"}``."""
     if cfg.family == "encoder":
         raise NotImplementedError(f"{cfg.name}: the masked-frame loss: "
                                   f"{_ITEM_ENC}")
-    logits, _ = forward(params, batch, cfg, mode="train", flags=flags)
+    logits, _, aux = forward(params, batch, cfg, mode="train", flags=flags,
+                             return_aux=True)
     logits = logits.float()
     labels = F.pad(batch["tokens"][:, 1:].long(), (0, 1))
     weights = F.pad(torch.ones(labels[:, :-1].shape, device=logits.device),
@@ -377,8 +425,7 @@ def loss_fn(params, batch, cfg: ArchConfig, flags: RunFlags = RunFlags(),
     lab = torch.gather(logits, -1, labels[..., None])[..., 0]
     nll = (lse - lab) * weights
     loss = nll.sum() / torch.clamp(weights.sum(), min=1.0)
-    aux_lb = torch.zeros((), device=logits.device)
-    aux_z = torch.zeros((), device=logits.device)
+    aux_lb, aux_z = aux["load_balance_loss"], aux["router_z_loss"]
     total = loss + aux_weight * aux_lb + z_weight * aux_z
     metrics = {"loss": loss, "aux_lb": aux_lb, "aux_z": aux_z,
                "tokens": weights.sum()}

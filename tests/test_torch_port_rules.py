@@ -155,8 +155,7 @@ def test_llm_entry_points_default_to_the_card(monkeypatch):
 OUTSIDE_THE_SLICE = {
     "hubert-xlarge": "item 21",
     "hymba-1.5b": "item 20", "internvl2-26b": "item 21",
-    "llama4-scout-17b-a16e": "item 19", "mamba2-2.7b": "item 20",
-    "olmoe-1b-7b": "item 19"}
+    "mamba2-2.7b": "item 20"}
 
 
 @pytest.mark.parametrize("name", sorted(OUTSIDE_THE_SLICE))
@@ -195,7 +194,8 @@ def test_llm_options_outside_the_slice_raise():
                                     "positions": torch.arange(4)[None] + 2},
                            cfg)
     assert logits.shape == (1, 4, cfg.padded_vocab)
-    for name in ("gemma-7b", "qwen1.5-32b", "gemma3-4b"):
+    for name in ("gemma-7b", "qwen1.5-32b", "gemma3-4b", "minicpm3-4b",
+                 "olmoe-1b-7b", "llama4-scout-17b-a16e"):
         tr.model_specs(get_config(name))       # the slice's full configs
 
 
