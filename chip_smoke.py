@@ -109,7 +109,19 @@ gates planted above that gate), the logits to the naive path's, an f32
 model through the FFMA kernel, trains 4 of the 16 layers (the aux
 losses finite and nonzero, the bf16 gradient gate), and serves
 Llama-4-Scout's first 8 of 48 layers at full width (GQA, top-1 of 16
-experts and a shared expert).  The
+experts and a shared expert).  The ssm phase serves full-width
+Mamba2-2.7B (64 attention-free layers of the Mamba2 mixer, plain PyTorch
+as the reference's has no Pallas kernel; no flash launch) and
+Hymba-1.5B (32 hybrid layers, attention beside the mixer; its 3 global
+layers through the FFMA kernel's bf16 hd-64 instance, 48 launches)
+through ``DecodeEngine.run``, holds one Mamba2 layer's chunked SSD to
+its float64 token-by-token recurrence (a state not carried across
+chunks, an undecayed inbound state and the mask after the ``exp``
+planted above that gate), the prefill/decode handoff of both models,
+Hymba's logits to the naive path's and an f32 Hymba through the f32
+hd-64 instance, and trains 32 of Mamba2's 64 layers and all of
+Hymba's (the gradient gates; Hymba's with teeth in f32, 4 layers,
+through the f32 hd-64 instance).  The
 mesh phase runs programs sharded over two ``gloo`` ranks that share the
 card (started by the port's launcher once the kernels are built): the
 full-width DCGAN and
@@ -4188,6 +4200,946 @@ def moe_phase(card, dev, wrappers, *, cfg=None, scout_cfg=None,
     return out
 
 
+# -- SSM and hybrid blocks: Mamba2-2.7B and Hymba-1.5B --------------------------
+
+# The ssm phase: full-width Mamba2-2.7B (64 attention-free layers of the
+# Mamba2 mixer, d_model 2560, 80 SSM heads of 64, state 128, conv 4; vocab
+# 50,280 padded to 50,432; bf16, random weights from seed 0) and
+# Hymba-1.5B (32 hybrid layers: attention, windowed at 1024 but on layers
+# 0, 15 and 31, beside the mixer with 50 heads of 64 and state 16; 25 q
+# heads over 5 kv heads of 64; vocab 32,001 padded to 32,256), each
+# serving SSM_REQUESTS prompts of lengths drawn from seed 0 in
+# SSM_PROMPT_LENS, SSM_MAX_NEW new tokens each, greedy, through SSM_SLOTS
+# slots.  The mixer is plain PyTorch (the reference has no Pallas kernel
+# for it); Hymba's global layers run the FFMA flash kernel's bf16 hd-64
+# instance (the wgmma kernel has no (64, 64) tiles), one launch a global
+# layer a prefill.
+MAMBA2_ARCH, MAMBA2_PARAMS = "mamba2-2.7b", 2_832_074_240
+HYMBA_ARCH, HYMBA_PARAMS = "hymba-1.5b", 1_641_688_320
+SSM_REQUESTS = 16
+SSM_PROMPT_LENS = (16, 4000)
+SSM_SLOTS, SSM_MAX_LEN, SSM_MAX_NEW = 8, 4096, 32
+# the Mamba2 prefill that is profiled and whose layer SSM_GATE_LAYER's
+# mixer input feeds the SSD gate
+SSM_PREFILL_S = 4096
+SSM_GATE_LAYER = 32
+# The SSD gate: ``ssm_apply``'s output, final state h and conv cache on
+# one layer's input against ``ssm_recurrence_plain`` (the token-by-token
+# recurrence of the decode step) in float64 on the same input (bf16
+# values, exact in float64): y by its worst token, max_t ||a_t - b_t|| /
+# ||b_t|| over the 2560 outputs of token t, h and conv by ||a - b|| /
+# ||b||, each within SSD_TOL; ``ssm_apply`` with ``ssd_chunked_plain`` in
+# place of the chunked form held to the same gate and compared with the
+# main path's.  A fault in the handoff between chunks moves the first
+# tokens of each chunk by O(1) of their own norm and hardly the norm of
+# the whole y (the decays of the reference's init, dt up to ~26 at A =
+# -e, forget a chunk's state within a few tokens), hence the worst
+# token.  f32 at 1e-3: the chunked form takes exp(cum_i - cum_j) of f32
+# cumulative sums of dt·A that reach thousands within a chunk, an ulp of
+# which is ~2.4e-4, so the worst token reads ~1e-4 and the whole y ~2e-5
+# (CPU rehearsal, 4 layers of d 256, at the reference's init; 2.6e-5 and
+# 3.5e-6 on conditioned weights); the float64 chunked form equals the
+# recurrence to rounding.  bf16 at 0.1: the bf16 path rounds the in_proj
+# output, the conv, y and the gate to bf16 (the rehearsal read 8.9e-3 at
+# the reference's init, 5.3e-2 conditioned).  Each fault of SSD_FAULTS,
+# planted in the chunked SSD, must fail it at either dtype (0.86-1.5 in
+# the rehearsal), but the mask moved after the ``exp``, whose forward
+# values are the same: it must make the gradients of a one-layer loss
+# non-finite (an upper-triangle entry overflows to inf, and the gradient
+# through the mask is inf·0), where the unfaulted gradients are finite.
+SSD_TOL = {torch.float32: 1e-3, torch.bfloat16: 0.1}
+# the chunked form in float64 against the float64 recurrence, on the
+# same gate: 2.9e-16 on the CPU (6.6e-12 at full width on a random
+# input), 2.3e-7 measured on one H100 at layer 32 of the reference's
+# init, four orders below the f32 gate
+SSD_F64_TOL = 1e-6
+SSD_FAULTS = ("state not carried", "inbound decay dropped",
+              "mask after exp")
+# Prefill/decode handoff: a SSM_HANDOFF_S-token prompt (four chunks of
+# 256, the last padded) prefilled, then one decode step of the next
+# token, against the prefill of all SSM_HANDOFF_S + 1 tokens' last
+# logits, ||a - b|| <= tol ||b|| over the live vocab.  Gated on
+# conditioned weights (at the reference's init in_proj's fan-in is the
+# layer count, dt reaches ~26 and the logits are chaotic at either
+# dtype: read there, not gated): f32 at 1e-4; bf16 at LLM_TOL_BF16, as
+# the other bf16 logits gates through a whole model (the decode step's
+# recurrence rounds y to bf16 token by token where the chunked form sums
+# a chunk in f32 first, as the reference's two paths do: Mamba2's 64
+# layers read 3.1e-2 conditioned, 2.4e-2 at the reference's init,
+# measured on one H100).  A handoff that drops the SSM state (the decode
+# step from zeroed h and conv caches) must exceed the gate at either
+# dtype.
+SSM_HANDOFF_S = 1000
+SSM_HANDOFF_TOL = {torch.float32: 1e-4, torch.bfloat16: LLM_TOL_BF16}
+# Hymba's logits gate on a HYMBA_GATE_S-token prompt: the flash path
+# against the naive path and against the path of the kernel's plain
+# version (the same numerics, p kept in f32) at the reference's init and
+# on conditioned weights, each within HYMBA_LOGITS_TOL; each planted
+# flash fault against the plain path above it in at least one regime.
+# Conditioning does not tame Hymba in bf16: on conditioned weights the
+# flash and plain paths, which differ in the last bits of 3 global
+# layers' outputs, read 3.8e-2 / 4.2e-2 (prefill / first decode) and
+# flash vs naive 4.2e-2 / 4.9e-2; at the reference's init 3.1e-3 /
+# 4.1e-3 and 9.9e-3 / 7.6e-3 (measured on one H100).  So the 3e-2
+# of the attention-only models' conditioned gate cannot hold a right
+# kernel here, and the gate is LLM_TOL_BF16 in both regimes, as the
+# other bf16 logits gates through a whole model at the reference's
+# init; each launch is held to float64 (``regime_forward``) and the f32
+# check holds flash against naive at 1e-4.
+HYMBA_GATE_S = 3840
+HYMBA_LOGITS_TOL = LLM_TOL_BF16
+# Hymba's f32 check: full width, HYMBA_F32 = (layers, tokens) with
+# global layers HYMBA_F32_GLOBAL, so two windowed layers sit between two
+# global ones and the window bites; the FFMA kernel's f32 hd-64
+# instance, flash vs naive at HYMBA_F32_TOL
+HYMBA_F32 = (4, 2048)
+HYMBA_F32_GLOBAL = (0, 3)
+HYMBA_F32_TOL = 1e-4
+# training: SSM_TRAIN_BATCH SyntheticLM tokens a step, AdamW, remat,
+# SSM_TRAIN_TIMED timed steps after one warm step; Mamba2 at full width
+# with MAMBA2_TRAIN_LAYERS of its 64 layers (16 B a parameter of f32
+# masters, moments and gradients: 24.7 GB; 45.3 GB at 64 layers, its
+# largest leaf 6.9 GB in f32, before AdamW's temporaries), Hymba whole
+# (26.3 GB).  The gradients on conditioned weights: Hymba's flash path
+# against the naive path (GRAD_TOL_BF16, the dv fault above it), Mamba2's
+# through ``ssm_apply`` against those through ``ssd_chunked_plain``
+# (SSD_GRAD_TOL: the same arithmetic a chunk, summed in another order;
+# a state not carried must fail it).
+SSM_TRAIN_BATCH = (2, 2048)
+SSM_TRAIN_TIMED = 5
+MAMBA2_TRAIN_LAYERS, MAMBA2_TRAIN_PARAMS = 32, 1_545_144_320
+SSD_GRAD_TOL = 1e-2
+# the mixer's A_log and dt_bias: their gradients sum (B, L, H, P, N)
+# terms of both signs through every decay of the state, which cancel
+# (tests/test_torch_ssm.py's DECAY_LEAVES: 16x the f32 error of the other
+# leaves against float64), so one bf16 rounding elsewhere moves them
+# more: Hymba's flash path against the naive path read 4.0e-2 on one
+# dt_bias in the CPU rehearsal (4 layers of d 256, 2 x 512 tokens), the
+# other leaves within GRAD_TOL_BF16.  They are held within
+# SSM_DECAY_GRAD_TOL, and the planted faults are read on the other
+# leaves.
+SSM_DECAY_LEAVES = ("A_log", "dt_bias")
+SSM_DECAY_GRAD_TOL = 0.3
+# Hymba's gradients on conditioned weights.  In bf16 at full depth they
+# are as chaotic as its logits (HYMBA_LOGITS_TOL): the flash path and
+# the path of the kernel's plain version, which differ in the last bits
+# of the 3 global layers' outputs, read 7.1e-2 on an in_proj leaf (1.0e-1
+# on a dt_bias), and the dv fault of GRAD_TOL_BF16's gate 8.2e-2, no
+# farther (measured on one H100).  So the bf16 gradients of the flash
+# path are held within HYMBA_BF16_GRAD_TOL of the plain path's and the
+# naive path's (7.8e-2 there), a bound on gross faults only, and the
+# gate with teeth runs in f32 (HYMBA_GRAD_F32: full width, the layers
+# and global layers of HYMBA_F32, this batch of SyntheticLM tokens)
+# through the FFMA kernel's f32 hd-64 instance: flash against naive
+# within GRAD_TOL_F32 on every leaf but the decay leaves (within
+# SSM_DECAY_GRAD_TOL), the dv fault above it.
+HYMBA_BF16_GRAD_TOL = 0.2
+HYMBA_GRAD_F32 = (1, 2048)
+# the profile's ranges: the whole mixer, and the SSD core inside it
+SSM_RANGES = ("ssm.ssm_apply", "ssm.ssd")
+
+
+def faulty_ssd(fault: str):
+    """The SSD core with one fault of SSD_FAULTS planted: each chunk run
+    from a zero state (the chunked plain form one chunk at a time), or
+    the reference's chunk loop transcribed with the inbound state's
+    contribution not decayed by exp(cum), or with the upper triangle
+    masked after the ``exp``."""
+    from repro_torch.models import ssm
+    check(fault in SSD_FAULTS, f"no SSD fault '{fault}'")
+
+    def not_carried(x, dt, A, B, C, D, h0=None, chunk=ssm.CHUNK):
+        q = min(chunk, x.shape[1])
+        parts = [ssm.ssd_chunked_plain(*(t[:, i:i + q] for t in (x, dt)), A,
+                                       *(t[:, i:i + q] for t in (B, C)), D)
+                 for i in range(0, x.shape[1], q)]
+        return torch.cat([y for y, _ in parts], dim=1), parts[-1][1]
+
+    def loop(x, dt, A, B, C, D, h0=None, chunk=ssm.CHUNK):
+        b, l, h, p = x.shape
+        g, n = B.shape[2], B.shape[3]
+        r = h // g
+        (xdt, dtc, Bc, Cc), q, nc = ssm._pad_and_chunk(x, dt, B, C, chunk)
+        hprev = torch.zeros((b, h, p, n), device=x.device)
+        tri = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+        ys = []
+        for c in range(nc):
+            xd, bk, ck = xdt[:, c].float(), Bc[:, c].float(), Cc[:, c].float()
+            cum = torch.cumsum(dtc[:, c].float() * A, dim=1)
+            seg = cum[:, :, None, :] - cum[:, None, :, :]
+            if fault == "mask after exp":
+                lm = torch.where(tri[None, :, :, None], torch.exp(seg), 0.0)
+            else:
+                lm = torch.exp(torch.where(tri[None, :, :, None], seg,
+                                           float("-inf")))
+            scores = torch.einsum("bign,bjgn->bgij", ck, bk)
+            y_in = torch.einsum("bgij,bijgr,bjgrp->bigrp", scores,
+                                lm.reshape(b, q, q, g, r),
+                                xd.reshape(b, q, g, r, p))
+            y_st = torch.einsum("bign,bgrpn->bigrp", ck,
+                                hprev.reshape(b, g, r, p, n))
+            if fault != "inbound decay dropped":
+                y_st = y_st * torch.exp(cum).reshape(b, q, g, r)[..., None]
+            ys.append((y_in + y_st).reshape(b, q, h, p))
+            decay_end = torch.exp(cum[:, -1:, :] - cum)
+            h_add = torch.einsum("bjgrp,bjgn->bgrpn", (
+                xd * decay_end[..., None]).reshape(b, q, g, r, p), bk)
+            hprev = hprev * torch.exp(cum[:, -1, :])[:, :, None, None] + \
+                h_add.reshape(b, h, p, n)
+        y = torch.cat(ys, dim=1)[:, :l] + x * D[:, None]
+        return y.to(x.dtype), hprev
+    return swapped(ssm, "_ssd_chunked",
+                   not_carried if fault == "state not carried" else loop)
+
+
+def ssd_gate(params, x, cfg, label: str, dev) -> dict:
+    """One mixer's ``params`` on ``x`` (1, S, D) in bf16: ``ssm_apply``
+    (its y, h and conv cache) in bf16 and at f32 against
+    ``ssm_recurrence_plain`` in float64, the plain chunked form against
+    the main path's, the planted SSD faults, and the gradients of a
+    one-layer loss with and without the mask after the ``exp``."""
+    from repro_torch.models import ssm
+    with torch.no_grad():
+        wide = {k: v.double() for k, v in params.items()}
+        t0 = time.perf_counter()
+        y64, c64 = ssm.ssm_recurrence_plain(wide, x.double(), cfg)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        ref_s = time.perf_counter() - t0
+        del wide
+    ref = (y64, c64["h"], c64["conv"])
+
+    def gaps(got, want):
+        """(y's worst token, h, conv), and y's whole ||a - b|| / ||b||,
+        in float64."""
+        d = got[0].double() - want[0].double()
+        tok = (d.norm(dim=-1) / want[0].double().norm(dim=-1)
+               .clamp_min(1e-300)).max().item()
+        rest = [((a.double() - b.double()).norm()
+                 / b.double().norm().clamp_min(1e-300)).item()
+                for a, b in zip(got[1:], want[1:])]
+        whole = (d.norm() / want[0].double().norm()).item()
+        return [tok] + rest, whole
+
+    def run(dtype, fault=None):
+        p = {k: v.to(dtype) for k, v in params.items()}
+        with torch.no_grad(), (faulty_ssd(fault) if fault
+                               else contextlib.nullcontext()):
+            y, c = ssm.ssm_apply(p, x.to(dtype), cfg, mode="prefill")
+        return y, c["h"], c["conv"]
+    out = {"reference_s": ref_s}
+    with torch.no_grad():
+        wide = {k: v.double() for k, v in params.items()}
+        y_c, c_c = ssm.ssm_apply(wide, x.double(), cfg, mode="prefill")
+        del wide
+    exact, _ = gaps((y_c, c_c["h"], c_c["conv"]), ref)
+    del y_c, c_c
+    print(f"{label}: ssm_recurrence_plain in float64 over {x.shape[1]} "
+          f"tokens in {ref_s:.1f} s; the chunked form in float64 against it: "
+          f"y's worst token {exact[0]:.3e}, h {exact[1]:.3e}, conv "
+          f"{exact[2]:.3e}")
+    check(max(exact) <= SSD_F64_TOL, f"{label}: the chunked SSD in float64 "
+          f"is not the recurrence: {exact}")
+    out["float64_chunked_vs_recurrence"] = exact
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        tol = SSD_TOL[dtype]
+        got = run(dtype)
+        e, whole = gaps(got, ref)
+        with swapped(ssm, "_ssd_chunked", ssm.ssd_chunked_plain):
+            plain = run(dtype)
+        e_plain, _ = gaps(plain, ref)
+        vs_plain, _ = gaps(got, plain)
+        del got, plain
+        ok = max(e) <= tol and max(e_plain) <= tol
+        print(f"{label}, {name}: ssm_apply vs the float64 recurrence: y's "
+              f"worst token {e[0]:.3e} (the whole y {whole:.3e}), h "
+              f"{e[1]:.3e}, conv {e[2]:.3e}; with ssd_chunked_plain "
+              f"{e_plain[0]:.3e}, {e_plain[1]:.3e}, {e_plain[2]:.3e}; "
+              f"ssm_apply vs the plain chunked form {vs_plain[0]:.3e}, "
+              f"{vs_plain[1]:.3e}, {vs_plain[2]:.3e} (tolerance {tol:g}): "
+              f"{'met' if ok else 'FAILED'}")
+        check(ok, f"{label} {name}: the SSD gate fails")
+        out[name] = dict(vs_f64=e, whole_y=whole, plain_vs_f64=e_plain,
+                         vs_plain=vs_plain)
+        for fault in SSD_FAULTS[:2]:
+            ef, wf = gaps(run(dtype, fault), ref)
+            print(f"{label}, {name}, planted: {fault}: y's worst token "
+                  f"{ef[0]:.3e} (the whole y {wf:.3e}), h {ef[1]:.3e}, conv "
+                  f"{ef[2]:.3e} (must exceed {tol:g})")
+            check(max(ef) > tol, f"{label} {name}: the SSD gate cannot tell "
+                  f"'{fault}'")
+            out[name][fault] = ef
+    # the mask after the exp: the forward the same, the gradients not
+    w = torch.randn(x.shape, generator=torch.Generator().manual_seed(2)
+                    ).to(x.device, x.dtype)
+
+    def grads(fault=None):
+        p = {k: v.detach().clone().requires_grad_() for k, v in
+             params.items()}
+        xi = x.detach().clone().requires_grad_()
+        with (faulty_ssd(fault) if fault else contextlib.nullcontext()):
+            y, _ = ssm.ssm_apply(p, xi, cfg)
+            names = sorted(p)
+            g = torch.autograd.grad((y.float() * w.float()).sum(),
+                                    [p[n] for n in names] + [xi])
+        return y.detach(), dict(zip(names + ["x"], g))
+    y_ok, g_ok = grads()
+    y_bad, g_bad = grads("mask after exp")
+    finite_ok = {k: bool(torch.isfinite(v).all()) for k, v in g_ok.items()}
+    finite_bad = {k: bool(torch.isfinite(v).all()) for k, v in g_bad.items()}
+    same_fwd = rel_norm(y_bad, y_ok)
+    print(f"{label}, bf16, planted: mask after exp: the forward "
+          f"||a-b||/||b|| {same_fwd:.3e} against the unfaulted; gradients of "
+          f"sum(y·w) finite: unfaulted {all(finite_ok.values())}, faulted "
+          f"{ {k: v for k, v in finite_bad.items() if not v} or 'all'}")
+    check(all(finite_ok.values()), f"{label}: non-finite gradients "
+          f"{finite_ok}")
+    check(not all(finite_bad.values()), f"{label}: the gradients cannot "
+          f"tell the mask after the exp")
+    out["mask_after_exp"] = dict(forward_rel=same_fwd, finite=finite_bad)
+    return out
+
+
+def ssm_phase(card, dev, wrappers, *, mamba_cfg=None, hymba_cfg=None,
+              requests: int = SSM_REQUESTS,
+              prompt_lens: tuple[int, int] = SSM_PROMPT_LENS,
+              prefill_s: int = SSM_PREFILL_S,
+              gate_layer: int = SSM_GATE_LAYER,
+              handoff_s: int = SSM_HANDOFF_S, gate_s: int = HYMBA_GATE_S,
+              f32: tuple[int, int] = HYMBA_F32,
+              train_layers: int = MAMBA2_TRAIN_LAYERS,
+              train_batch: tuple[int, int] = SSM_TRAIN_BATCH) -> dict:
+    """Full-width Mamba2-2.7B (``mamba_cfg``, default the registered
+    config): serving through ``DecodeEngine.run`` (every counter at 0
+    just before, read just after: no flash launch, no plain call), TTFT,
+    prefill and decode rates and the decode step's HBM bound; a profile
+    of a ``prefill_s``-token prefill with the SSD apart; the SSD gate on
+    layer ``gate_layer``'s mixer input with its planted faults; the
+    prefill/decode handoff.  Then full-width Hymba-1.5B (``hymba_cfg``):
+    serving (one FFMA bf16 hd-64 launch a global layer a prefill, no
+    wgmma launch, no plain call), one launch timed beside SDPA and its
+    bound, the logits gate against the naive path with the planted
+    flash faults, the handoff, the f32 check.  Then training both:
+    step time, tokens/s, model-FLOP share (6·N, which leaves out the
+    SSD's own quadratic term), peak memory, finite losses and
+    gradients, the gradient gates.  The keywords shrink it for a
+    rehearsal on the CPU (the kernels' plain versions, no counts, no
+    times)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM, make_batch_fn
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_ffma,
+                                                     flash_attention_plain,
+                                                     flash_attention_wgmma,
+                                                     kernel_variant)
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as tr
+    from repro_torch.serve.engine import EngineConfig, _merge_slot_cache
+    from repro_torch.train.checkpoint import tree_items, tree_leaves
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_state import (init_train_state,
+                                               make_train_step)
+    on_card = dev.type == "cuda"
+    full_width = mamba_cfg is None
+    mcfg = mamba_cfg or get_config(MAMBA2_ARCH)
+    hcfg = hymba_cfg or get_config(HYMBA_ARCH)
+    kernel = flash_attention_cuda if on_card else flash_attention_plain
+    ffma_geo = flash_attention_ffma.launches_by_geometry
+    wgmma_geo = flash_attention_wgmma.launches_by_geometry
+    hd = hcfg.resolved_head_dim
+    bf16_key, f32_key = (torch.bfloat16, hd, hd), (torch.float32, hd, hd)
+    variant = kernel_variant(*bf16_key)
+    t_phase = time.perf_counter()
+    out: dict = {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def free():
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def reset_counts():
+        for kern, _ in wrappers.values():
+            kern.launches = 0
+        ffma_geo.clear()
+        wgmma_geo.clear()
+
+    def read_counts():
+        geo = dict(ffma_geo)
+        for key, n in wgmma_geo.items():
+            geo[key] = geo.get(key, 0) + n
+        return {k: wrappers[k][0].launches for k in wrappers}, geo
+
+    def check_path(counts, geo, plain_calls, want, key, what):
+        """``want`` launches of the ``key`` instance (none at all for
+        ``key`` None) through its kernel, no other launch, no plain call
+        (on the card)."""
+        if not on_card:
+            return
+        if key is None:
+            check(all(c == 0 for c in counts.values()) and not geo,
+                  f"{what}: {counts}, {geo}: no flash launch expected")
+        else:
+            name = FLASH_VARIANTS[kernel_variant(*key)]
+            check(counts["flash_attention"] == counts[name] == geo.get(key)
+                  == want and sum(geo.values()) == want
+                  and all(c == 0 for k, c in counts.items()
+                          if k not in ("flash_attention", name)),
+                  f"{what}: {counts}, {geo}: {want} launches of the {key} "
+                  f"instance through {name} expected")
+        check(not plain_calls, f"{what} called the plain version "
+              f"{len(plain_calls)} times on the card")
+
+    def n_global(c):
+        return sum(rep * sum(1 for d in descs
+                             if d.mixer != "ssm" and not d.window)
+                   for descs, rep in c.layer_segments())
+
+    def live_rel(a, b, c):
+        return rel_norm(a[..., :c.vocab], b[..., :c.vocab])
+
+    def draw(c, label, seed=0):
+        t0 = time.perf_counter()
+        params = tr.init(c, torch.Generator(dev).manual_seed(seed))
+        sync()
+        n = sum(t.numel() for t in tree_leaves(params))
+        check(n == tr.count_params(c), f"{label}: {n} parameters drawn, "
+              f"{tr.count_params(c)} counted")
+        return params, n, time.perf_counter() - t0
+
+    def serve(c, params, prompts, label, key, want):
+        """The main path: ``prompts`` through ``DecodeEngine.run``;
+        prints and returns its rates, counts and the decode step's HBM
+        bound (every weight but the gathered embedding read once, and
+        the SSM state of every slot read and written once)."""
+        ecfg = EngineConfig(n_slots=SSM_SLOTS,
+                            max_len=max(SSM_MAX_LEN, max(map(len, prompts))
+                                        + SSM_MAX_NEW + 8),
+                            max_new=SSM_MAX_NEW, temperature=0.0)
+        serve_requests(c, params, dataclasses.replace(ecfg, n_slots=1),
+                       [prompts[-1][:16]], "flash", wrappers, dev)
+        plain_calls: list = []
+        reset_counts()
+        with counting_plain_attention(plain_calls):
+            reqs, admits, steps, wall, counts = serve_requests(
+                c, params, ecfg, prompts, "flash", wrappers, dev)
+        _, geo = read_counts()
+        check_path(counts, geo, plain_calls, want, key, f"{label} serving")
+        for r in reqs:
+            check(r.done and len(r.generated) == SSM_MAX_NEW
+                  and all(0 <= t < c.vocab for t in r.generated),
+                  f"{label} request {r.rid}: done {r.done}, "
+                  f"{len(r.generated)} tokens")
+        lens = [len(p) for p in prompts]
+        prefill_s_ = sum(d for _, d in admits.values())
+        decode_s = sum(d for d, _ in steps)
+        decode_tokens = sum(n for _, n in steps)
+        full = [d * 1e3 for d, n in steps if n == SSM_SLOTS]
+        step_ms = statistics.median(full or [d * 1e3 for d, _ in steps])
+        ttft = sorted((len(r.prompt), sum(admits[r.rid]) * 1e3,
+                       admits[r.rid][1] * 1e3) for r in reqs)
+        top = ttft[-1]
+        weight_bytes = sum(t.numel() * t.element_size()
+                           for t in tree_leaves(params))
+        read_bytes = weight_bytes - params["embed"].numel() * \
+            params["embed"].element_size()
+        _, sh_, sp_, _, sn_, cd_ = ssm._dims(c)
+        n_ssm = sum(rep * sum(1 for d in descs if d.mixer != "attn")
+                    for descs, rep in c.layer_segments())
+        state_bytes = n_ssm * SSM_SLOTS * (
+            4 * sh_ * sp_ * sn_ + (c.ssm_conv - 1) * cd_
+            * params["embed"].element_size())
+        bound_ms = (read_bytes + 2 * state_bytes) / PEAK_HBM_BYTES * 1e3
+        print(f"{label} served {len(prompts)} requests ({sum(lens)} prompt "
+              f"tokens, {SSM_MAX_NEW} new each) in {wall:.3f} s through "
+              f"{SSM_SLOTS} slots: {counts['flash_attention']} flash "
+              f"launches ({geo}), {counts['flash_attention_wgmma']} wgmma, "
+              f"{len(plain_calls)} plain calls [{card}]")
+        for n, t, pre in ttft:
+            print(f"  prompt {n:4d} tokens: prefill {pre:9.3f} ms, time to "
+                  f"first token {t:9.3f} ms")
+        print(f"prefill: {sum(lens)} tokens in {prefill_s_:.3f} s = "
+              f"{sum(lens) / prefill_s_:.1f} tokens/s; at the longest prompt "
+              f"({top[0]} tokens) TTFT {top[1]:.3f} ms, "
+              f"{top[0] / top[2] * 1e3:.1f} tokens/s; decode: {len(steps)} "
+              f"engine steps, median {step_ms:.3f} ms a step at "
+              f"{SSM_SLOTS} slots ({len(full)} such steps), {decode_tokens} "
+              f"tokens in {decode_s:.3f} s = "
+              f"{decode_tokens / decode_s:.1f} tokens/s; HBM bound of a step "
+              f"{bound_ms:.3f} ms ({read_bytes / 1e9:.2f} GB of weights read, "
+              f"the gathered embedding left out, and "
+              f"{state_bytes / 1e9:.2f} GB of SSM state read and written) "
+              f"[{card}]")
+        return dict(prompt_lens=lens, wall_s=wall,
+                    launches=counts["flash_attention"],
+                    launches_by_geometry={str(k): v for k, v in geo.items()},
+                    requests=[dict(prompt=n, ttft_ms=t, prefill_ms=pre)
+                              for n, t, pre in ttft],
+                    ttft_ms_longest=top[1],
+                    prefill_tokens_per_s=sum(lens) / prefill_s_,
+                    decode_steps=len(steps), decode_step_ms_median=step_ms,
+                    decode_tokens_per_s=decode_tokens / decode_s,
+                    weight_gb=weight_bytes / 1e9,
+                    decode_read_gb=read_bytes / 1e9,
+                    state_gb=state_bytes / 1e9, decode_bound_ms=bound_ms)
+
+    def handoff(c, params, tokens, drop_state=False) -> float:
+        """The last logits of a prefill of ``tokens`` (1, S + 1) against a
+        prefill of the first S and one decode step of the last (with
+        ``drop_state``, from zeroed SSM caches: the planted fault)."""
+        s = tokens.shape[1] - 1
+        with torch.no_grad():
+            _, pcache = tr.forward(params, {"tokens": tokens[:, :s]}, c,
+                                   mode="prefill", last_logit_only=True)
+            cache = tr.init_cache(c, 1, s + 8, device=dev)
+            _merge_slot_cache(cache, pcache, 0, s)
+            del pcache
+            if drop_state:
+                for path, t in tree_items(cache).items():
+                    if "::ssm::" in path:
+                        t.zero_()
+            step, _ = tr.decode_step(params, cache, tokens[:, s:],
+                                     torch.tensor([s], device=dev), c)
+            del cache
+            whole, _ = tr.forward(params, {"tokens": tokens}, c,
+                                  mode="prefill", last_logit_only=True)
+        return live_rel(step, whole[:, -1], c)
+
+    def handoffs(c, params, tokens, label) -> dict:
+        """``handoff`` at the reference's init (read) and conditioned
+        (gated at the dtype's SSM_HANDOFF_TOL, the dropped state above
+        it); ``params`` conditioned in place."""
+        tol = SSM_HANDOFF_TOL[c.activation_dtype]
+        rels = {"reference init": handoff(c, params, tokens)}
+        condition(params, c.d_model)
+        rels["conditioned"] = handoff(c, params, tokens)
+        rels["state dropped"] = handoff(c, params, tokens, drop_state=True)
+        print(f"{label}, {c.dtype}: prefill of {tokens.shape[1] - 1} tokens "
+              f"+ one decode step vs the prefill of {tokens.shape[1]}, last "
+              f"logits ||a-b||/||b||: reference init "
+              f"{rels['reference init']:.3e} (read, not gated), conditioned "
+              f"{rels['conditioned']:.3e} (tolerance {tol:g}); planted, the "
+              f"SSM state dropped at the handoff: {rels['state dropped']:.3e}"
+              f" (must exceed {tol:g})")
+        check(rels["conditioned"] <= tol, f"{label} {c.dtype}: the "
+              f"prefill/decode handoff disagrees")
+        check(rels["state dropped"] > tol, f"{label} {c.dtype}: the handoff "
+              f"gate cannot tell a dropped state")
+        return rels
+
+    def prefill_and_decode(c, p, tokens, impl):
+        flags = tr.RunFlags(attn_impl=impl)
+        lg, pcache = tr.forward(p, {"tokens": tokens}, c, mode="prefill",
+                                flags=flags)
+        cache = tr.init_cache(c, 1, tokens.shape[1] + 8, device=dev)
+        _merge_slot_cache(cache, pcache, 0, tokens.shape[1])
+        del pcache
+        nxt = torch.argmax(lg[:, -1].float(), dim=-1)[:, None]
+        first, _ = tr.decode_step(p, cache, nxt, torch.tensor(
+            [tokens.shape[1]], device=dev), c, flags)
+        return lg, first
+
+    def train(c, layers_note, key, want_per_step):
+        """Training ``c`` at SSM_TRAIN_BATCH: the timed steps (counts at
+        0 just before, read just after), finite losses and gradient norms;
+        returns the record and the state."""
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        n = tr.count_params(c)
+        state = init_train_state(c, torch.Generator(dev).manual_seed(0))
+        sync()
+        b, s = train_batch
+        batch_fn = make_batch_fn(SyntheticLM(c, b, s, seed=0), device=dev)
+        flags = tr.RunFlags(attn_impl="flash", remat=True)
+        opt_cfg = AdamWConfig(total_steps=1 + SSM_TRAIN_TIMED, **LLM_TRAIN_LR)
+        step = make_train_step(c, opt_cfg, flags)
+        print(f"{c.name} training at full width {layers_note}: {n:,} "
+              f"parameters, f32 masters, moments and gradients "
+              f"{16 * n / 1e9:.1f} GB")
+        plain_calls: list = []
+        reset_counts()
+        times, metrics = [], []
+        with counting_plain_attention(plain_calls):
+            for i in range(1 + SSM_TRAIN_TIMED):
+                data = batch_fn(i)
+                sync()
+                t0 = time.perf_counter()
+                state, m = step(state, data)
+                sync()
+                if i:
+                    times.append((time.perf_counter() - t0) * 1e3)
+                metrics.append({k: float(x) for k, x in m.items()})
+        counts, geo = read_counts()
+        steps_run = 1 + SSM_TRAIN_TIMED
+        check_path(counts, geo, plain_calls, want_per_step * steps_run, key,
+                   f"{c.name} training ({steps_run} steps)")
+        for i, m in enumerate(metrics):
+            check(all(math.isfinite(m[k]) for k in ("loss", "total_loss",
+                                                   "grad_norm")),
+                  f"{c.name} step {i}: not finite: {m}")
+        step_ms = statistics.median(times)
+        flops = tr.model_flops_per_token(c) * b * s
+        t = dict(params=n, launches=counts["flash_attention"],
+                 step_ms=times, step_ms_median=step_ms,
+                 tokens_per_s=b * s / step_ms * 1e3, model_flops=flops,
+                 mfu=flops / (step_ms / 1e3) / PEAK_BF16_TC_FLOPS,
+                 peak_memory_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
+                                 if on_card else None),
+                 losses=[m["loss"] for m in metrics],
+                 grad_norms=[m["grad_norm"] for m in metrics])
+        print(f"{c.name} train steps of {b}x{s} tokens: median "
+              f"{step_ms:.3f} ms a step "
+              f"({', '.join(f'{x:.3f}' for x in times)}; host clock after a "
+              f"synchronise), {t['tokens_per_s']:.1f} tokens/s; model FLOPs "
+              f"6N x tokens = {flops / 1e12:.2f} TFLOP a step (the SSD's "
+              f"quadratic term not counted), {100 * t['mfu']:.2f}% of the "
+              f"bf16 dense peak; peak device memory "
+              f"{t['peak_memory_gb'] or 0:.2f} GB; flash launches "
+              f"{counts['flash_attention']} ({geo}), {len(plain_calls)} plain "
+              f"calls [{card}]")
+        print(f"  losses {', '.join(f'{x:.4f}' for x in t['losses'])}; "
+              f"grad norms {', '.join(f'{x:.3e}' for x in t['grad_norms'])}")
+        if on_card:
+            t["step_profile"] = profile(lambda: step(state, batch_fn(0)), 1,
+                                        f"{c.name} train steps")
+        one = batch_fn(10_000)
+        del state["opt"]
+        params = state["params"]
+        free()
+        condition(params, c.d_model)
+
+        def grads_of(**over):
+            fn = make_train_step(c, opt_cfg, dataclasses.replace(flags,
+                                                                 **over))
+            return fn.value_and_grad(params, one)[2]
+        return t, grads_of
+
+    def leaf_gate(t, label, rels, tol):
+        """Per leaf ||a - b|| / ||b|| within ``tol`` (a planted fault
+        must exceed it or leave a leaf non-finite), the decay leaves
+        within SSM_DECAY_GRAD_TOL; prints each and returns the
+        failures."""
+        failed = []
+        for what, rel in rels.items():
+            fault = what.startswith("planted")
+            nonfinite = [k for k, v in rel.items() if not math.isfinite(v)]
+            decay = {k: v for k, v in rel.items()
+                     if k.endswith(SSM_DECAY_LEAVES)}
+            rest = {k: v for k, v in rel.items() if k not in decay}
+            worst = max(rest, key=lambda k: (not math.isfinite(rest[k]),
+                                              rest[k]))
+            top = sorted(decay.items(), key=lambda kv: -kv[1])[:1]
+            print(f"{label} gradients per leaf on conditioned weights, "
+                  f"{what}: worst {rest[worst]:.3e} ({worst}), "
+                  f"{rest[worst] / tol:.3f} of "
+                  f"{'the gate (must exceed it)' if fault else 'its tolerance'}"
+                  f" {tol:g}"
+                  + (f"; the decay leaves' worst {top[0][1]:.3e} ({top[0][0]}"
+                     f", tolerance {SSM_DECAY_GRAD_TOL:g})" if top else "")
+                  + (f"; non-finite: {nonfinite}" if nonfinite else ""))
+            if fault and not (rest[worst] > tol or nonfinite):
+                failed.append(f"{label} {what}: the gate cannot tell it")
+            if not fault and (nonfinite or rest[worst] > tol or any(
+                    v > SSM_DECAY_GRAD_TOL for v in decay.values())):
+                failed.append(f"{label} {what}: {worst} at "
+                              f"{rest[worst]:.3e} against {tol:g}, decay "
+                              f"leaves {top}")
+        t.setdefault("grad_gates", {}).update(
+            {k: max(v.values()) for k, v in rels.items()})
+        return failed
+
+    # == Mamba2-2.7B ==========================================================
+    free()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    params, n_params, draw_s = draw(mcfg, MAMBA2_ARCH)
+    check(n_params == MAMBA2_PARAMS or not full_width,
+          f"{n_params} parameters, not {MAMBA2_PARAMS}")
+    di, sh, sp, sg, sn, conv_dim = ssm._dims(mcfg)
+    print(f"{MAMBA2_ARCH}: {mcfg.n_layers} layers, d_model {mcfg.d_model}, "
+          f"{sh} SSM heads of {sp}, state {sn}, {sg} B/C group, conv "
+          f"{mcfg.ssm_conv} over {conv_dim} channels, vocab {mcfg.vocab} "
+          f"(padded {mcfg.padded_vocab}): {n_params:,} parameters, drawn in "
+          f"{draw_s:.1f} s")
+    gen = torch.Generator().manual_seed(0)
+    lens = torch.randint(prompt_lens[0], prompt_lens[1] + 1, (requests,),
+                         generator=gen).tolist()
+    prompts = [torch.randint(0, mcfg.vocab, (n,), generator=gen).tolist()
+               for n in lens]
+    m = out["mamba2"] = serve(mcfg, params, prompts, MAMBA2_ARCH, None, 0)
+
+    # -- the profile of one prefill, the SSD apart -------------------------
+    tokens = torch.randint(0, mcfg.vocab, (1, prefill_s), generator=gen
+                           ).to(dev)
+    if on_card:
+        with annotated(ssm, "ssm_apply", SSM_RANGES[0]), \
+                annotated(ssm, "_ssd_chunked", SSM_RANGES[1]):
+            prof = profile(lambda: tr.forward(params, {"tokens": tokens},
+                                              mcfg, mode="prefill"), 2,
+                           f"{MAMBA2_ARCH} prefills of {prefill_s} tokens",
+                           ranges_of=SSM_RANGES)
+        if "device_ms_per_run" in prof:
+            kms = prof["kernels_ms_per_run"]
+            spans = prof["range_spans_ms_per_run"]
+            gemm_ms = sum(ms for nm, ms in kms.items()
+                          if any(t in nm.lower() for t in
+                                 ("gemm", "xmma", "cutlass", "nvjet")))
+            busy = prof["device_ms_per_run"]
+            mixer = spans.get(SSM_RANGES[0], float("nan"))
+            ssd = spans.get(SSM_RANGES[1], float("nan"))
+            L = mcfg.n_layers
+            prof["by_kind_ms"] = dict(gemm_kernels=gemm_ms, mixer_span=mixer,
+                                      ssd_span=ssd, ssd_span_per_layer=ssd / L,
+                                      other=busy - gemm_ms)
+            print(f"  a {prefill_s}-token prefill by kind: every GEMM kernel "
+                  f"(in_proj, out_proj, the logits; the SSD's einsums among "
+                  f"them) {gemm_ms:.3f} ms; the mixers (device span of their "
+                  f"ranges) {mixer:.3f} ms; the SSD core {ssd:.3f} ms = "
+                  f"{ssd / L:.3f} ms a layer; device busy {busy:.3f} ms of a "
+                  f"{prof['wall_ms_per_run']:.3f} ms wall "
+                  f"({100 * prof['device_busy_share']:.1f}%) [{card}]")
+        m["prefill_profile"] = prof
+        m["serve_peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        print(f"{MAMBA2_ARCH} serving in bf16: peak device memory "
+              f"{m['serve_peak_memory_gb']:.2f} GB [{card}]")
+
+    # -- the SSD gate on one layer's mixer input ----------------------------
+    seen: list = []
+    apply = ssm.ssm_apply
+
+    def recorded(p, x, c, **kw):
+        if len(seen) == gate_layer:
+            seen.append((p, x.detach().clone()))
+        elif len(seen) < gate_layer:
+            seen.append(None)
+        return apply(p, x, c, **kw)
+    with swapped(ssm, "ssm_apply", recorded), torch.no_grad():
+        tr.forward(params, {"tokens": tokens}, mcfg, mode="prefill",
+                   last_logit_only=True)
+    lp, x = seen[gate_layer]
+    del seen
+    m["ssd_gate"] = ssd_gate(lp, x, mcfg, f"{MAMBA2_ARCH} layer {gate_layer}"
+                             f", {prefill_s}-token prefill", dev)
+    del lp, x
+    free()
+
+    # -- the prefill/decode handoff ----------------------------------------
+    htok = torch.randint(0, mcfg.vocab, (1, handoff_s + 1), generator=gen
+                         ).to(dev)
+    m["handoff"] = {"bf16": handoffs(mcfg, params, htok, MAMBA2_ARCH)}
+    del params
+    free()
+    c32 = dataclasses.replace(mcfg, dtype="float32")
+    p32, _, _ = draw(c32, MAMBA2_ARCH, seed=1)
+    m["handoff"]["f32"] = handoffs(c32, p32, htok, MAMBA2_ARCH)
+    del p32
+    free()
+
+    # == Hymba-1.5B ===========================================================
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    params, n_params, draw_s = draw(hcfg, HYMBA_ARCH)
+    check(n_params == HYMBA_PARAMS or not full_width,
+          f"{n_params} parameters, not {HYMBA_PARAMS}")
+    globals_ = n_global(hcfg)
+    print(f"{HYMBA_ARCH}: {hcfg.n_layers} hybrid layers ({globals_} global "
+          f"at {hcfg.global_layers}, the others windowed at "
+          f"{hcfg.local_window}), d_model {hcfg.d_model}, {hcfg.n_heads} q "
+          f"heads over {hcfg.n_kv_heads} kv heads of {hd} (the {variant} "
+          f"kernel's bf16 {hd}/{hd} instance), {hcfg.ssm_heads} SSM heads of "
+          f"{hcfg.ssm_head_dim}, state {hcfg.ssm_state}, vocab {hcfg.vocab} "
+          f"(padded {hcfg.padded_vocab}): {n_params:,} parameters, drawn in "
+          f"{draw_s:.1f} s")
+    hprompts = [torch.randint(0, hcfg.vocab, (n,), generator=gen).tolist()
+                for n in lens]
+    h = out["hymba"] = serve(hcfg, params, hprompts, HYMBA_ARCH, bf16_key,
+                             globals_ * len(lens))
+    row = split_launch_row(f"{HYMBA_ARCH} serving", 1, max(lens),
+                           hcfg.n_heads, hd, hd, torch.bfloat16, dev, on_card)
+    if on_card:
+        print(f"flash_attention ({row['variant']} {hd}/{hd}) at B=1 "
+              f"S={max(lens)} H={hcfg.n_heads} causal bf16: {row['ms']:.4f} "
+              f"ms a launch ({row['tflops']:.2f} TFLOP/s), max_abs_err "
+              f"{row['max_abs_err']:.3e} vs plain, plain "
+              f"{row['plain_ms']:.3f} ms, SDPA {row['library_ms']:.4f} ms "
+              f"(backend {row['library_backend']}; kernel/SDPA "
+              f"{row['ms'] / row['library_ms']:.2f}), bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}) [{card}]")
+        h["serve_peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    h["launch"] = row
+
+    # -- the logits gate: flash against naive on a long prompt --------------
+    gtok = torch.randint(0, hcfg.vocab, (1, gate_s), generator=gen).to(dev)
+    calls: list = []
+    with attend_as(dev, recording(kernel, calls)), torch.no_grad():
+        prefill_and_decode(hcfg, params, gtok, "flash")
+    check(len(calls) == globals_, f"{len(calls)} flash calls in a prefill "
+          f"of {globals_} global layers")
+    h["flash_on_model_inputs"] = regime_forward(
+        calls, f"{HYMBA_ARCH} {gate_s}-token prefill, the global layers "
+        f"(B=1 S={gate_s} H={hcfg.n_heads} hd={hd})")
+    del calls
+    h["logits_rel_err"] = {}
+    for regime in ("reference init", "conditioned"):
+        if regime == "conditioned":
+            condition(params, hcfg.d_model)
+        with torch.no_grad():
+            runs = {impl: prefill_and_decode(hcfg, params, gtok, impl)
+                    for impl in ("flash", "naive")}
+            with attend_as(dev, flash_attention_plain):
+                runs["plain"] = prefill_and_decode(hcfg, params, gtok,
+                                                   "flash")
+            errs = {f"flash vs {b}": [live_rel(x, y, hcfg) for x, y in
+                                      zip(runs["flash"], runs[b])]
+                    for b in ("plain", "naive")}
+            del runs["flash"]
+            for fault in PLANTED_FAULTS:
+                with attend_as(dev, planted_fault(fault)):
+                    lg = prefill_and_decode(hcfg, params, gtok, "flash")
+                for b in ("plain", "naive"):
+                    errs[f"{fault} vs {b}"] = [live_rel(x, y, hcfg) for x, y
+                                               in zip(lg, runs[b])]
+                del lg
+        del runs
+        free()
+        for what, pair in errs.items():
+            fault = not what.startswith("flash")
+            print(f"{HYMBA_ARCH} {gate_s}-token prompt, {regime}, {what}: "
+                  f"prefill logits ||a-b||/||b|| {pair[0]:.3e}, first decode "
+                  f"logits {pair[1]:.3e} ("
+                  + ("read" if fault and what.endswith("naive") else
+                     f"must exceed {HYMBA_LOGITS_TOL:g} in one regime"
+                     if fault else f"tolerance {HYMBA_LOGITS_TOL:g}") + ")")
+        h["logits_rel_err"][regime] = errs
+    for regime, errs in h["logits_rel_err"].items():
+        for what, pair in errs.items():
+            if what.startswith("flash"):
+                check(max(pair) <= HYMBA_LOGITS_TOL, f"{HYMBA_ARCH} {regime}, "
+                      f"{what}: the logits gate of {HYMBA_LOGITS_TOL:g} fails")
+    for fault in PLANTED_FAULTS:
+        seen = [max(e[f"{fault} vs plain"])
+                for e in h["logits_rel_err"].values()]
+        check(max(seen) > HYMBA_LOGITS_TOL, f"{HYMBA_ARCH}: the logits gate "
+              f"cannot tell '{fault}' in either regime ({seen})")
+    del params
+    free()
+    # the handoff: fresh weights (the gate above conditioned its own)
+    htok = torch.randint(0, hcfg.vocab, (1, handoff_s + 1), generator=gen
+                         ).to(dev)
+    params, _, _ = draw(hcfg, HYMBA_ARCH)
+    h["handoff"] = {"bf16": handoffs(hcfg, params, htok, HYMBA_ARCH)}
+    del params
+    free()
+    c32 = dataclasses.replace(hcfg, dtype="float32")
+    p32, _, _ = draw(c32, HYMBA_ARCH, seed=1)
+    h["handoff"]["f32"] = handoffs(c32, p32, htok, HYMBA_ARCH)
+    del p32
+    free()
+
+    # -- the f32 check through the FFMA kernel's f32 hd-64 instance ----------
+    l32, s32 = f32
+    cfg32 = dataclasses.replace(hcfg, n_layers=l32, dtype="float32",
+                                global_layers=HYMBA_F32_GLOBAL)
+    p32, _, _ = draw(cfg32, HYMBA_ARCH, seed=1)
+    g32 = n_global(cfg32)
+    reset_counts()
+    with torch.no_grad():
+        runs = {"flash": prefill_and_decode(cfg32, p32, gtok[:, :s32],
+                                            "flash")}
+        sync()
+        counts32, geo32 = read_counts()
+        check_path(counts32, geo32, [], g32, f32_key, "the f32 prefill")
+        runs["naive"] = prefill_and_decode(cfg32, p32, gtok[:, :s32],
+                                           "naive")
+    pair = [live_rel(a, b, cfg32) for a, b in zip(runs["flash"],
+                                                   runs["naive"])]
+    del runs, p32
+    free()
+    print(f"{HYMBA_ARCH} f32, {l32} layers (global {HYMBA_F32_GLOBAL}, "
+          f"through the FFMA kernel's {hd}/{hd} f32 instance: "
+          f"{geo32.get(f32_key, 0)} launches), one {s32}-token prompt (window "
+          f"{hcfg.local_window}), flash vs naive at the reference's init: "
+          f"prefill logits ||a-b||/||b|| {pair[0]:.3e}, first decode logits "
+          f"{pair[1]:.3e} (tolerance {HYMBA_F32_TOL:g})")
+    check(max(pair) <= HYMBA_F32_TOL, f"{HYMBA_ARCH} f32 flash vs naive: "
+          f"the logits disagree")
+    h.update(f32_logits_rel_err=pair, launches_f32=geo32.get(f32_key, 0))
+    h["launch_f32"] = split_launch_row(f"{HYMBA_ARCH} f32 check", 1, s32,
+                                       hcfg.n_heads, hd, hd, torch.float32,
+                                       dev, on_card)
+
+    # == training =========================================================
+    mt = dataclasses.replace(mcfg, n_layers=train_layers)
+    check(tr.count_params(mt) == MAMBA2_TRAIN_PARAMS or not full_width,
+          f"{tr.count_params(mt)} parameters at {train_layers} layers")
+    t, grads_of = train(mt, f"with {train_layers} of its {mcfg.n_layers} "
+                        f"layers ({mcfg.n_layers} layers: "
+                        f"{16 * MAMBA2_PARAMS / 1e9:.1f} GB)", None, 0)
+    g_main = grads_of()
+    with swapped(ssm, "_ssd_chunked", ssm.ssd_chunked_plain):
+        g_plain = grads_of()
+    rels = {"ssm_apply vs ssd_chunked_plain, bf16": leaf_rel(g_main,
+                                                             g_plain)}
+    del g_main
+    with faulty_ssd("state not carried"):
+        rels["planted: state not carried vs ssd_chunked_plain"] = leaf_rel(
+            grads_of(), g_plain)
+    del g_plain, grads_of
+    free()
+    failed = leaf_gate(t, MAMBA2_ARCH, rels, SSD_GRAD_TOL)
+    check(not failed, "; ".join(failed))
+    m["train"] = t
+
+    t, grads_of = train(hcfg, "and depth", bf16_key, 2 * globals_)
+    g_flash = grads_of()
+    with attend_as(dev, flash_attention_plain):
+        rels = {"flash vs plain, bf16": leaf_rel(g_flash, grads_of())}
+    free()
+    rels["flash vs naive, bf16"] = leaf_rel(g_flash, grads_of(
+        attn_impl="naive"))
+    del g_flash, grads_of
+    free()
+    failed = leaf_gate(t, HYMBA_ARCH, rels, HYMBA_BF16_GRAD_TOL)
+    # the f32 gradient gate through the FFMA kernel's f32 hd-64 instance
+    p32, _, _ = draw(cfg32, HYMBA_ARCH, seed=2)
+    condition(p32, hcfg.d_model)
+    b32, s32_ = HYMBA_GRAD_F32
+    one32 = make_batch_fn(SyntheticLM(cfg32, b32, s32_, seed=1),
+                          device=dev)(0)
+
+    def grads32(**over):
+        fn = make_train_step(cfg32, AdamWConfig(), tr.RunFlags(
+            **dict(dict(attn_impl="flash", remat=True), **over)))
+        return fn.value_and_grad(p32, one32)[2]
+    g_naive = grads32(attn_impl="naive")
+    reset_counts()
+    rels32 = {"flash vs naive, f32": leaf_rel(grads32(), g_naive)}
+    sync()
+    counts_g, geo_g = read_counts()
+    check_path(counts_g, geo_g, [], 2 * g32, f32_key, "the f32 gradients "
+               "(forward and remat recompute)")
+    with dv_scaled_backward(GRAD_FAULT):
+        rels32["planted fault vs naive, f32"] = leaf_rel(grads32(), g_naive)
+    del g_naive, p32
+    free()
+    failed += leaf_gate(t, f"{HYMBA_ARCH} f32 ({cfg32.n_layers} layers, "
+                        f"{b32}x{s32_} tokens)", rels32, GRAD_TOL_F32)
+    check(not failed, "; ".join(failed))
+    t["launches_f32"] = geo_g.get(f32_key, 0)
+    t["launch"] = split_launch_row(f"{HYMBA_ARCH} training", train_batch[0],
+                                   train_batch[1], hcfg.n_heads, hd, hd,
+                                   torch.bfloat16, dev, on_card)
+    h["train"] = t
+    out["launches_bf16"] = h["launches"] + t["launches"]
+    out["launches_f32"] = h["launches_f32"] + t["launches_f32"]
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"ssm phase: {out['seconds']:.1f} s")
+    return out
+
+
 # -- the serving stack: GanEngine, programs, obs -----------------------------
 
 # the engine phase: DCGAN at full width behind buckets ENGINE_BUCKETS, fed by
@@ -6610,6 +7562,9 @@ def main(argv=None) -> int:
     # -- 9e. mixture of experts: OLMoE-1B-7B, Llama-4-Scout ----------------
     moe = record["moe"] = moe_phase(card, dev, wrappers)
     phase_done("moe")
+    # -- 9f. SSM and hybrid blocks: Mamba2-2.7B, Hymba-1.5B -----------------
+    ssm = record["ssm"] = ssm_phase(card, dev, wrappers)
+    phase_done("ssm")
     # -- 10. programs sharded over two gloo ranks sharing the card ---------
     mesh = record["mesh"] = mesh_phase(card, dev)
     phase_done("mesh")
@@ -6629,7 +7584,11 @@ def main(argv=None) -> int:
                             "moe": moe["launches"],
                             "moe_train": moe["train"]["launches"],
                             "moe_f32": moe["launches_f32"],
-                            "scout": moe["scout"]["launches"]},
+                            "scout": moe["scout"]["launches"],
+                            "hymba": ssm["hymba"]["launches"],
+                            "hymba_train": ssm["hymba"]["train"]["launches"],
+                            "hymba_f32": ssm["launches_f32"],
+                            "mamba2": ssm["mamba2"]["launches"]},
                   launches_by_route={"serve": serve_routes,
                                      "train": train_routes})
 
@@ -6730,6 +7689,32 @@ def main(argv=None) -> int:
             "replaces": replaces,
             "launches": n,
             "max_abs_err": max(kernel_errs[name] + [row["max_abs_err"]]),
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+        })
+    # the FFMA kernel's hd-64 instances on Hymba's global layers: bf16 on
+    # its serving and training paths (one launch at the longest served
+    # prompt timed), f32 on its f32 check and f32 gradient gate (one
+    # launch at the check's prompt timed)
+    hymba = ssm["hymba"]
+    for dtype, n, row in ((torch.bfloat16, ssm["launches_bf16"],
+                           hymba["launch"]),
+                          (torch.float32, ssm["launches_f32"],
+                           hymba["launch_f32"])):
+        name = split_instance(dtype, 64, 64, "ffma")
+        source, replaces = KERNELS["flash_attention_ffma"]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": n,
+            "max_abs_err": max([row["max_abs_err"]]
+                               + ([hymba["train"]["launch"]["max_abs_err"]]
+                                  if dtype == torch.bfloat16 else [])),
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],

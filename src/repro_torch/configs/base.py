@@ -96,6 +96,14 @@ class ArchConfig:
         return self.d_model // self.n_heads if self.n_heads else 0
 
     @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim
+
+    @property
     def activation_dtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
 

@@ -25,7 +25,8 @@ __all__ = ["PSpec", "init_params", "init_tree", "stack_specs", "rms_norm",
 class PSpec:
     """Declarative parameter spec: shape + logical axes + initializer
     (``"normal"``: truncated normal in [-2, 2] times ``scale``, default
-    1/sqrt(fan_in); ``"zeros"``; ``"embed"``: standard normal)."""
+    1/sqrt(fan_in); ``"zeros"``; ``"ones"``; ``"embed"``: standard
+    normal)."""
     shape: tuple[int, ...]
     axes: tuple[str | None, ...]
     init: str = "normal"
@@ -35,7 +36,7 @@ class PSpec:
         if len(self.shape) != len(self.axes):
             raise ValueError(f"shape {self.shape} and axes {self.axes} "
                              f"differ in rank")
-        if self.init not in ("normal", "zeros", "embed"):
+        if self.init not in ("normal", "zeros", "ones", "embed"):
             raise ValueError(f"unknown initializer {self.init!r}")
 
 
@@ -45,6 +46,8 @@ def _draw(gen: torch.Generator, spec: PSpec,
     or one layer of it), on ``gen``'s device."""
     if spec.init == "zeros":
         return torch.zeros(shape, device=gen.device)
+    if spec.init == "ones":
+        return torch.ones(shape, device=gen.device)
     t = torch.empty(shape, device=gen.device)
     if spec.init == "embed":
         return t.normal_(generator=gen)

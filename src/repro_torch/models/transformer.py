@@ -1,18 +1,25 @@
 """Decoder LM assembly (the port of ``repro.models.transformer`` for the
-causal configs of attention blocks: ``gemma-7b``, ``qwen1.5-32b``,
-``gemma3-4b``, whose 5:1 local:global pattern runs sliding-window layers
-beside global ones at their own ``rope_theta``, ``minicpm3-4b``, whose
-blocks mix by multi-head latent attention (MLA), and the mixture-of-
-experts configs ``olmoe-1b-7b`` and ``llama4-scout-17b-a16e``, whose
-blocks' MLP is ``models/moe.py``'s routed experts; logit soft-capping
-and positions given in the batch are ported too).
+causal configs: ``gemma-7b``, ``qwen1.5-32b``, ``gemma3-4b``, whose 5:1
+local:global pattern runs sliding-window layers beside global ones at
+their own ``rope_theta``, ``minicpm3-4b``, whose blocks mix by
+multi-head latent attention (MLA), the mixture-of-experts configs
+``olmoe-1b-7b`` and ``llama4-scout-17b-a16e``, whose blocks' MLP is
+``models/moe.py``'s routed experts, the attention-free ``mamba2-2.7b``,
+whose blocks mix by ``models/ssm.py``'s Mamba2 mixer alone, and the
+hybrid ``hymba-1.5b``, whose blocks run attention (windowed, or global
+at ``global_layers``) and the Mamba2 mixer side by side on the same
+normed input and add ``0.5·(attention + SSM)``; logit soft-capping and
+positions given in the batch are ported too).
 
 Parameters keep the reference's stacked layout — ``segments/seg<i>/
 pos<j>/{ln_mix, attn/{wq,wk,wv,wo[,bq,bk,bv]}, ln_mlp, mlp/{...}}`` with
 a leading layers axis (an MLA block's ``attn`` holds ``{wq_a, q_norm,
 wq_b, wkv_a, kv_norm, wkv_b, wo}``; a MoE block's ``mlp`` holds
-``{router, wi, wg, wo[, shared_wi, shared_wg, shared_wo]}``), ``embed``
-and ``final_norm`` — as nested dicts of tensors, so converting the JAX
+``{router, wi, wg, wo[, shared_wi, shared_wg, shared_wo]}``; an SSM
+block holds ``ssm/{in_proj, conv_w, conv_b, A_log, D, dt_bias, norm,
+out_proj}`` and no ``attn``, a hybrid block both, and a block of
+``mlp_kind="none"`` no ``ln_mlp`` or ``mlp``), ``embed`` and
+``final_norm`` — as nested dicts of tensors, so converting the JAX
 package's parameters is a check and a copy.  Where the reference scans
 over the layers, :func:`forward` loops over the layer slices in Python.
 The MoE layers' load-balance and router z-losses are summed over the
@@ -28,9 +35,10 @@ Entry points:
   * ``decode_step`` / ``init_cache`` / ``count_params`` /
     ``model_flops_per_token``
 
-A config outside this slice raises ``NotImplementedError`` naming the
-ROADMAP item that brings it, when its model is built; a config with a
-segment of zero layers raises ``ValueError``.
+A config outside this slice (the encoder, the VLM) raises
+``NotImplementedError`` naming the ROADMAP item that brings it, when
+its model is built; a config with a segment of zero layers raises
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from repro_torch.configs.base import ArchConfig, BlockDesc
 from repro_torch.device import require_f32_accumulation, resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (PSpec, init_tree, rms_norm,
                                        stack_specs)
 from repro_torch.models.mlp import mlp_apply, mlp_specs
@@ -59,7 +68,6 @@ __all__ = ["RunFlags", "check_supported", "model_specs", "init", "forward",
            "model_flops_per_token"]
 
 # ROADMAP queue 1 items that bring what this slice leaves out
-_ITEM_SSM = "ROADMAP queue 1 item 20 (SSM and hybrid blocks)"
 _ITEM_ENC = "ROADMAP queue 1 item 21 (the encoder and the VLM)"
 _ITEM_INT8 = "ROADMAP queue 1 item 22 (the int8 KV cache)"
 _ITEM_MESH = "ROADMAP queue 1 item 23 (flash_decode and the mesh)"
@@ -116,11 +124,6 @@ def check_supported(cfg: ArchConfig) -> None:
     if not cfg.causal:
         raise NotImplementedError(f"{cfg.name}: non-causal attention: "
                                   f"{_ITEM_ENC}")
-    for descs, _ in cfg.layer_segments():
-        for desc in descs:
-            if desc.mixer in ("ssm", "hybrid"):
-                raise NotImplementedError(f"{cfg.name}: mixer "
-                                          f"{desc.mixer!r}: {_ITEM_SSM}")
     for si, (descs, rep) in enumerate(cfg.layer_segments()):
         if rep < 1:
             raise ValueError(
@@ -140,9 +143,15 @@ def _block_specs(cfg: ArchConfig, desc: BlockDesc) -> dict[str, Any]:
     d = cfg.d_model
     specs: dict[str, Any] = {
         "ln_mix": PSpec((d,), (None,), init="zeros"),
-        "attn": (attn_mod.mla_specs(cfg) if desc.mixer == "mla"
-                 else attn_mod.attention_specs(cfg, desc)),
     }
+    if desc.mixer == "mla":
+        specs["attn"] = attn_mod.mla_specs(cfg)
+    elif desc.mixer in ("attn", "hybrid"):
+        specs["attn"] = attn_mod.attention_specs(cfg, desc)
+    elif desc.mixer != "ssm":
+        raise ValueError(desc.mixer)
+    if desc.mixer in ("ssm", "hybrid"):
+        specs["ssm"] = ssm_mod.ssm_specs(cfg)
     if desc.mlp != "none":
         specs["ln_mlp"] = PSpec((d,), (None,), init="zeros")
         specs["mlp"] = (moe_mod.moe_specs(cfg) if desc.mlp == "moe"
@@ -216,15 +225,33 @@ def model_flops_per_token(cfg: ArchConfig) -> float:
 
 def _block_apply(params, x, cfg, desc, *, positions, mode, cache, lengths,
                  flags: RunFlags):
-    """One block: (x, its cache, its MoE aux ``[load_balance_loss,
-    router_z_loss]`` f32, or None for a dense MLP)."""
+    """One block: (x, its cache ``{"attn": ..., "ssm": ...}`` as the
+    block has them (empty in train mode), its MoE aux
+    ``[load_balance_loss, router_z_loss]`` f32, or None for a dense
+    MLP).  A hybrid block's mixer output is ``0.5·(attention + SSM)`` in
+    the activation dtype, as the reference's."""
     h = rms_norm(x, params["ln_mix"], cfg.norm_eps)
-    fn = attn_mod.mla_apply if desc.mixer == "mla" else \
-        attn_mod.attention_apply
-    out, c = fn(params["attn"], h, cfg, desc, positions=positions, mode=mode,
-                cache=None if cache is None else cache.get("attn"),
-                lengths=lengths, attn_impl=flags.attn_impl)
-    x = x + out
+    new_cache, outs = {}, []
+    if desc.mixer != "ssm":
+        fn = attn_mod.mla_apply if desc.mixer == "mla" else \
+            attn_mod.attention_apply
+        out, c = fn(params["attn"], h, cfg, desc, positions=positions,
+                    mode=mode,
+                    cache=None if cache is None else cache.get("attn"),
+                    lengths=lengths, attn_impl=flags.attn_impl)
+        outs.append(out)
+        if c is not None:
+            new_cache["attn"] = c
+    if desc.mixer in ("ssm", "hybrid"):
+        if mode == "decode":
+            out, c = ssm_mod.ssm_decode_step(params["ssm"], h, cfg,
+                                             cache["ssm"])
+        else:
+            out, c = ssm_mod.ssm_apply(params["ssm"], h, cfg, mode=mode)
+        outs.append(out)
+        if c is not None:
+            new_cache["ssm"] = c
+    x = x + (0.5 * (outs[0] + outs[1]) if len(outs) == 2 else outs[0])
     aux = None
     if desc.mlp == "moe":
         h = rms_norm(x, params["ln_mlp"], cfg.norm_eps)
@@ -235,7 +262,7 @@ def _block_apply(params, x, cfg, desc, *, positions, mode, cache, lengths,
     elif desc.mlp != "none":
         h = rms_norm(x, params["ln_mlp"], cfg.norm_eps)
         x = x + mlp_apply(params["mlp"], h, desc.mlp)
-    return x, ({} if c is None else {"attn": c}), aux
+    return x, new_cache, aux
 
 
 def _embed_in(params, batch, cfg: ArchConfig) -> torch.Tensor:
@@ -306,8 +333,13 @@ def forward(params, batch, cfg: ArchConfig, *, mode: str = "train",
     the prompt, stacked over each segment's layers: ``{seg: {pos:
     {"attn": {"k", "v"}}}}`` of ``(layers, B, S, Hk, hd)`` (an MLA
     block's ``{"ckv", "krope"}`` of ``(layers, B, S, kv_lora)`` and
-    ``(layers, B, S, qk_rope)``).  ``decode``
-    writes into ``cache`` in place at ``lengths`` and returns it.
+    ``(layers, B, S, qk_rope)``); an SSM block's ``{"ssm": {"h",
+    "conv"}}`` holds the state after the prompt, ``h`` f32 ``(layers, B,
+    H, P, N)`` and ``conv`` the last ``W-1`` conv inputs ``(layers, B,
+    W-1, conv_dim)``, and a hybrid block has both entries.  ``decode``
+    writes into ``cache`` in place (k/v at ``lengths``; the SSM state
+    of every row, idle slots' too, as the reference's) and returns
+    it.
     ``last_logit_only``: the logits of the last position only.
 
     ``batch["positions"]`` (B, S), optional outside decode (default:
@@ -380,14 +412,14 @@ def forward(params, batch, cfg: ArchConfig, *, mode: str = "train",
 def _batch_positions(positions, shape, cfg: ArchConfig, flags: RunFlags,
                      device) -> torch.Tensor:
     """``batch["positions"]`` as a (B, S) int64 tensor on ``device``;
-    raises where ``flags.attn_impl="flash"`` runs a global layer (an MLA
-    layer among them) on positions the kernel's index mask does not
-    equal."""
+    raises where ``flags.attn_impl="flash"`` runs a global attention
+    layer (an MLA or a hybrid layer among them; an SSM block runs no
+    attention) on positions the kernel's index mask does not equal."""
     positions = torch.as_tensor(positions, device=device).long()
     if tuple(positions.shape) != shape:
         raise ValueError(f"batch positions of shape "
                          f"{tuple(positions.shape)}, tokens {shape}")
-    runs_flash = any(not (d.window and cfg.causal)
+    runs_flash = any(d.mixer != "ssm" and not (d.window and cfg.causal)
                      for descs, _ in cfg.layer_segments() for d in descs)
     if flags.attn_impl == "flash" and runs_flash:
         offset = positions - torch.arange(shape[1], device=device)
@@ -452,10 +484,14 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype: torch.dtype | None = None, kv_dtype: str = "bf16",
                device: str | torch.device = "cuda") -> dict:
     """Zero cache matching the segment structure: per attention block
-    ``{"k", "v"}`` of ``(layers, batch, max_len, Hk, hd)``, per MLA block
-    the latent ``{"ckv": (layers, batch, max_len, kv_lora), "krope":
-    (layers, batch, max_len, qk_rope)}``, in ``dtype`` (default: the
-    activation dtype), on ``device`` (default: the card)."""
+    (a hybrid block's attention half too) ``{"attn": {"k", "v"}}`` of
+    ``(layers, batch, max_len, Hk, hd)``, per MLA block the latent
+    ``{"attn": {"ckv": (layers, batch, max_len, kv_lora), "krope":
+    (layers, batch, max_len, qk_rope)}}``, per SSM or hybrid block the
+    state ``{"ssm": {"h": f32 (layers, batch, H, P, N), "conv": (layers,
+    batch, W-1, conv_dim)}}``, in ``dtype`` (default: the activation
+    dtype; ``h`` f32, float64 in a float64 cache), on ``device``
+    (default: the card)."""
     check_supported(cfg)
     device = resolve_device(device)
     if kv_dtype == "int8":
@@ -469,13 +505,20 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
         lead = (rep, batch, max_len)
         seg = cache[f"seg{si}"] = {}
         for di, desc in enumerate(descs):
+            blk = seg[f"pos{di}"] = {}
             if desc.mixer == "mla":
                 shapes = {"ckv": lead + (cfg.kv_lora_rank,),
                           "krope": lead + (cfg.qk_rope_head_dim,)}
-            else:
+            elif desc.mixer in ("attn", "hybrid"):
                 shapes = dict.fromkeys(("k", "v"),
                                        lead + (cfg.n_kv_heads, hd))
-            seg[f"pos{di}"] = {"attn": {
-                name: torch.zeros(shape, dtype=dt, device=device)
-                for name, shape in shapes.items()}}
+            else:
+                shapes = None
+            if shapes is not None:
+                blk["attn"] = {name: torch.zeros(shape, dtype=dt,
+                                                 device=device)
+                               for name, shape in shapes.items()}
+            if desc.mixer in ("ssm", "hybrid"):
+                blk["ssm"] = ssm_mod.init_state(cfg, batch, dt, device,
+                                                (rep,))
     return cache

@@ -11,7 +11,10 @@ any two steps.
 
 Where the reference donates the cache to a jitted step and updates it
 with ``dynamic_update_slice``, the port writes each step's k/v into the
-cache in place, at the per-slot ``lengths``, by indexed writes.  The
+cache in place, at the per-slot ``lengths``, by indexed writes, and an
+SSM block's state (``h`` and the conv window) of every slot in place.
+As in the reference, a decode step advances the state of idle slots
+too; a request's prefill then overwrites its slot's row whole.  The
 prefill runs through the flash-attention kernel on the card.
 """
 
@@ -142,14 +145,21 @@ class DecodeEngine:
         return requests
 
 
-def _merge_slot_cache(cache: dict, pcache: dict, slot: int, s: int) -> dict:
-    """Write a (layers, 1, S, ...) prefill cache into row ``slot`` of the
-    engine cache, in place (the prefill cache covers the prompt only)."""
+def _merge_slot_cache(cache: dict, pcache: dict, slot: int, s: int,
+                      state: bool = False) -> dict:
+    """Write a prefill cache into row ``slot`` of the engine cache, in
+    place.  A sequence cache, ``(layers, 1, S, ...)``, covers the prompt
+    only and fills the row's first ``S`` positions; a state cache (an
+    SSM block's ``{"ssm": {"h", "conv"}}``: the state after the prompt,
+    ``(layers, 1, ...)`` at the engine's own shape) replaces the whole
+    row, as the reference's."""
     for key, c in cache.items():
         p = pcache[key]
         if isinstance(c, dict):
-            _merge_slot_cache(c, p, slot, s)
-        elif p.shape[1] == 1 and p.shape[2] == s <= c.shape[2]:
+            _merge_slot_cache(c, p, slot, s, state or key == "ssm")
+        elif state and p.shape[1] == 1 and p.shape[2:] == c.shape[2:]:
+            c[:, slot:slot + 1] = p
+        elif not state and p.shape[1] == 1 and p.shape[2] == s <= c.shape[2]:
             c[:, slot:slot + 1, :s] = p
         else:
             raise ValueError((tuple(c.shape), tuple(p.shape)))

@@ -152,10 +152,7 @@ def test_llm_entry_points_default_to_the_card(monkeypatch):
         DecodeEngine(cfg, params, EngineConfig(), device="meta")
 
 
-OUTSIDE_THE_SLICE = {
-    "hubert-xlarge": "item 21",
-    "hymba-1.5b": "item 20", "internvl2-26b": "item 21",
-    "mamba2-2.7b": "item 20"}
+OUTSIDE_THE_SLICE = {"hubert-xlarge": "item 21", "internvl2-26b": "item 21"}
 
 
 @pytest.mark.parametrize("name", sorted(OUTSIDE_THE_SLICE))
@@ -195,8 +192,27 @@ def test_llm_options_outside_the_slice_raise():
                            cfg)
     assert logits.shape == (1, 4, cfg.padded_vocab)
     for name in ("gemma-7b", "qwen1.5-32b", "gemma3-4b", "minicpm3-4b",
-                 "olmoe-1b-7b", "llama4-scout-17b-a16e"):
+                 "olmoe-1b-7b", "llama4-scout-17b-a16e", "mamba2-2.7b",
+                 "hymba-1.5b"):
         tr.model_specs(get_config(name))       # the slice's full configs
+
+
+def test_attention_free_mamba2_takes_any_positions_at_flash():
+    """An SSM block runs no attention, so ``attn_impl="flash"`` takes
+    arbitrary ``batch["positions"]`` for Mamba2, as the reference does,
+    and they change nothing; Hymba's global layers still refuse them
+    there."""
+    cfg = llm_serve.reduced_config("mamba2-2.7b", "tiny")
+    params = tr.init(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.arange(16).reshape(2, 8)
+    positions = torch.tensor(np.random.default_rng(4).integers(0, 99, (2, 8)))
+    logits, _ = tr.forward(params, {"tokens": tokens,
+                                    "positions": positions}, cfg)
+    assert torch.equal(logits, tr.forward(params, {"tokens": tokens}, cfg)[0])
+    hymba = llm_serve.reduced_config("hymba-1.5b", "tiny")
+    hp = tr.init(hymba, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="masks by index"):
+        tr.forward(hp, {"tokens": tokens, "positions": positions}, hymba)
 
 
 def test_a_segment_of_zero_layers_raises_at_build():
