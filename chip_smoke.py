@@ -66,8 +66,9 @@ the ``ganax_conv`` kernel on the card for tests/test_uop.py's geometries
 and each 2-D Table-I generator geometry (with a planted dropped ``mac``
 μop that must fail that gate), and the kernel's products against the
 consequential MACs of every Table-I tconv layer.  The LLM phases hold the two
-flash-attention kernels (the wgmma/TMA one for bf16 at hd 128 and 256,
-the FFMA one for f32 and the small head dims) against their plain
+flash-attention kernels (the wgmma/TMA one for bf16 at hd 64, 128 and
+256 and at (96, 64), the FFMA one for f32 and the smaller head dims)
+against their plain
 version on Gemma-7B's and Qwen's geometries, serve full-width Gemma-7B
 (random bf16 weights from a seed) through ``DecodeEngine.run`` with
 every prefill's attention launched through the wgmma kernel (28
@@ -113,7 +114,8 @@ experts and a shared expert).  The ssm phase serves full-width
 Mamba2-2.7B (64 attention-free layers of the Mamba2 mixer, plain PyTorch
 as the reference's has no Pallas kernel; no flash launch) and
 Hymba-1.5B (32 hybrid layers, attention beside the mixer; its 3 global
-layers through the FFMA kernel's bf16 hd-64 instance, 48 launches)
+layers through the wgmma kernel's bf16 hd-64 instance, 48 launches,
+timed beside the FFMA kernel's on the same q, k, v)
 through ``DecodeEngine.run``, holds one Mamba2 layer's chunked SSD to
 its float64 token-by-token recurrence (a state not carried across
 chunks, an undecayed inbound state and the mask after the ``exp``
@@ -188,8 +190,8 @@ TF32_CONTROL = {"ganax_conv": ("dcgan g1", "dcgan d4"),
 
 # name -> (source, the TPU kernel it replaces).  flash_attention has two
 # kernels, picked by dtype and head dims: the wgmma/TMA one (bf16 at hd
-# 128 and 256 and at (96, 64), the served models) and the FFMA one (f32,
-# small head dims, the tiny split pair (48, 32)).
+# 64, 128 and 256 and at (96, 64), the served models) and the FFMA one
+# (f32, bf16 at hd 8-32, the tiny split pair (48, 32)).
 KERNELS = {
     "ganax_conv": ("src/repro_torch/kernels/csrc/ganax_conv.cu",
                    "src/repro/kernels/ganax_conv.py:99"),
@@ -255,7 +257,8 @@ FLASH_BIG_SCORES = 10.0
 # SOFTCAP_BITES, a cap that bites: scores of std 1 at cap 1, of std
 # FLASH_BIG_SCORES^2 at cap 5
 SOFTCAP_GEOMETRIES = (("gemma3 global S=4000", 1, 4000, 8, 256, torch.bfloat16),
-                      ("f32 S=1024", 1, 1024, 8, 256, torch.float32))
+                      ("f32 S=1024", 1, 1024, 8, 256, torch.float32),
+                      ("hd64 S=1000", 1, 1000, 25, 64, torch.bfloat16))
 SOFTCAP_BITES = ((1.0, 1.0), (FLASH_BIG_SCORES, 5.0))
 # the split instances (q·k head dim, v head dim) -> heads: MiniCPM3-4B's
 # 40 heads of 64 + 32 against 64, its tiny preset's 4 of 32 + 16 against
@@ -930,9 +933,12 @@ def flash_cases() -> list[tuple]:
     shorter than one TMA box); Qwen's 40 heads of 128 at a small S,
     causal and full; the five geometries of tests/test_kernels_flash.py;
     the llm_train phase's two (its steps' B = 2 x 2048 in bf16, its f32
-    gate's 1 x 1024); the first again at FLASH_BIG_SCORES; the
-    soft-cap instances of both kernels (SOFTCAP_CASES: Gemma3's global
-    geometry in bf16, the f32 gate's), each at a cap that bites; and the
+    gate's 1 x 1024); Hymba-1.5B's 25 heads of 64 in bf16 (the wgmma
+    kernel's hd-64 instance) at its longest served prompt and its train
+    steps' geometry, and a ragged B = 2 full case; the first again at
+    FLASH_BIG_SCORES; the soft-cap instances of both kernels
+    (SOFTCAP_GEOMETRIES: Gemma3's global geometry in bf16, the f32
+    gate's, hd 64 in bf16), each at a cap that bites; and the
     split instances (SPLIT_CASES: MiniCPM3-4B's q·k 96 against v 64, on
     the wgmma kernel in bf16 and the FFMA kernel in f32, and its tiny
     preset's 48 against 32 on the FFMA kernel).  Each case ends with v's
@@ -957,6 +963,15 @@ def flash_cases() -> list[tuple]:
                   torch.bfloat16))
     cases.append(("gemma train f32", 1, 1024, 1024, 16, 256, True,
                   torch.float32))
+    # Hymba-1.5B's global layers (25 heads of 64, GQA expanded): the
+    # longest prompt the ssm phase serves (seed 0 draws 3814 in
+    # SSM_PROMPT_LENS) and its train steps' (SSM_TRAIN_BATCH)
+    cases.append(("hymba S=3814", 1, 3814, 3814, 25, 64, True,
+                  torch.bfloat16))
+    cases.append(("hymba train B=2", 2, 2048, 2048, 25, 64, True,
+                  torch.bfloat16))
+    cases.append(("hd64 ragged B=2 full", 2, 333, 197, 25, 64, False,
+                  torch.bfloat16))
     cases = [c + (1.0,) for c in cases]
     cases.append(("gemma train big", 2, 2048, 2048, 16, 256, True,
                   torch.bfloat16, FLASH_BIG_SCORES))
@@ -976,9 +991,9 @@ def flash_cases() -> list[tuple]:
 
 def split_instance(dtype, dk: int, dv: int, variant: str | None = None
                    ) -> str:
-    """The kernels line's name of the instance at the split head dims
-    (dk, dv) of ``variant``'s kernel (default: the one the variant table
-    names)."""
+    """The kernels line's name of the instance at the head dims (dk, dv)
+    of ``variant``'s kernel (default: the one the variant table names):
+    the line lists the split head dims and hd 64 by instance."""
     from repro_torch.kernels.flash_attention import kernel_variant
     variant = variant or kernel_variant(dtype, dk, dv)
     return (f"flash_attention_{variant}_{dk}x{dv}_"
@@ -1006,11 +1021,13 @@ def flash_operands(b, s, t, h, hd, dtype, dev, seed, scale=1.0, dv=None):
 
 def flash_geometries(dev) -> dict[str, list[float]]:
     """Each geometry of ``flash_cases``: the kernel that the wrapper picks
-    against its plain version on the card, and at a split geometry that
-    the wgmma kernel takes, the FFMA kernel's instance too (called
-    through ``flash_attention_ffma``).  Returns the max abs errors by
-    variant, and by instance (``split_instance``) for the split head
-    dims, each of which must fail the gate scaled by ``dv**-0.5``."""
+    against its plain version on the card, and at a geometry that the
+    wgmma kernel takes and the FFMA kernel is built for too (bf16 hd 64
+    and (96, 64)), the FFMA kernel's instance (called through
+    ``flash_attention_ffma``), the yardstick.  Returns the max abs errors
+    by variant, and by instance (``split_instance``) for the split head
+    dims, each of which must fail the gate scaled by ``dv**-0.5``, and
+    for bf16 hd 64."""
     from repro_torch.kernels.flash_attention import (FFMA_GEOMETRIES,
                                                      flash_attention_cuda,
                                                      flash_attention_ffma,
@@ -1031,7 +1048,8 @@ def flash_geometries(dev) -> dict[str, list[float]]:
                                  rtol=rtol)) \
             and bool(torch.isfinite(got).all()) \
             and got.shape == (b, s, h, dv)
-        key = split_instance(dtype, hd, dv) if dv != hd else variant
+        by_instance = dv != hd or (dtype, hd) == (torch.bfloat16, 64)
+        key = split_instance(dtype, hd, dv) if by_instance else variant
         errs.setdefault(key, []).append(err)
         print(f"flash_attention ({variant}) vs plain  {label:18s} B={b} S={s} "
               f"T={t} H={h} hd={hd}{f'/{dv}' if dv != hd else ''} "
@@ -1054,10 +1072,9 @@ def flash_geometries(dev) -> dict[str, list[float]]:
             check(caught, f"{label}: the gate cannot tell a kernel that "
                   f"ignores the soft-cap")
             del bad
-        if dv == hd:
-            continue
-        # the split instances: the one the wrapper picked, and the FFMA
-        # kernel's where the wgmma kernel took the geometry
+        # the instance the wrapper picked, and the FFMA kernel's where the
+        # wgmma kernel took the geometry; at the split head dims, each
+        # scaled by dv**-0.5 must fail the gate
         attends = {variant: flash_attention_cuda}
         if variant == "wgmma" and (dtype, hd, dv) in FFMA_GEOMETRIES:
             attends["ffma"] = flash_attention_ffma
@@ -1075,6 +1092,8 @@ def flash_geometries(dev) -> dict[str, list[float]]:
                       f"{err:.3e} {'ok' if ok else 'FAIL'}")
                 check(ok, f"{label}: the {name} instance disagrees with "
                       f"its plain version")
+            if dv == hd:
+                continue
             bad = scaled_by_dv(attend)(q, k, v, causal=causal, softcap=cap)
             fault = (bad.float() - ref.float()).abs().max().item()
             caught = not torch.allclose(bad.float(), ref.float(), atol=atol,
@@ -4211,9 +4230,10 @@ def moe_phase(card, dev, wrappers, *, cfg=None, scout_cfg=None,
 # serving SSM_REQUESTS prompts of lengths drawn from seed 0 in
 # SSM_PROMPT_LENS, SSM_MAX_NEW new tokens each, greedy, through SSM_SLOTS
 # slots.  The mixer is plain PyTorch (the reference has no Pallas kernel
-# for it); Hymba's global layers run the FFMA flash kernel's bf16 hd-64
-# instance (the wgmma kernel has no (64, 64) tiles), one launch a global
-# layer a prefill.
+# for it); Hymba's global layers run the wgmma flash kernel's bf16
+# hd-64 instance, one launch a global layer a prefill (the FFMA kernel's
+# bf16 hd-64 instance is timed beside it on the same q, k, v: the
+# yardstick).
 MAMBA2_ARCH, MAMBA2_PARAMS = "mamba2-2.7b", 2_832_074_240
 HYMBA_ARCH, HYMBA_PARAMS = "hymba-1.5b", 1_641_688_320
 SSM_REQUESTS = 16
@@ -4517,15 +4537,17 @@ def ssm_phase(card, dev, wrappers, *, mamba_cfg=None, hymba_cfg=None,
     of a ``prefill_s``-token prefill with the SSD apart; the SSD gate on
     layer ``gate_layer``'s mixer input with its planted faults; the
     prefill/decode handoff.  Then full-width Hymba-1.5B (``hymba_cfg``):
-    serving (one FFMA bf16 hd-64 launch a global layer a prefill, no
-    wgmma launch, no plain call), one launch timed beside SDPA and its
-    bound, the logits gate against the naive path with the planted
-    flash faults, the handoff, the f32 check.  Then training both:
-    step time, tokens/s, model-FLOP share (6·N, which leaves out the
-    SSD's own quadratic term), peak memory, finite losses and
-    gradients, the gradient gates.  The keywords shrink it for a
-    rehearsal on the CPU (the kernels' plain versions, no counts, no
-    times)."""
+    serving (one launch of the wgmma kernel's bf16 hd-64 instance a
+    global layer a prefill, no FFMA launch, no plain call), one launch
+    timed beside the FFMA kernel's bf16 hd-64 instance on the same q, k,
+    v, SDPA and its bound, the logits gate against the naive path with
+    the planted flash faults, the handoff, the f32 check (the FFMA
+    kernel's f32 hd-64 instance).  Then training both: step time,
+    tokens/s, model-FLOP share (6·N, which leaves out the SSD's own
+    quadratic term), peak memory, finite losses and gradients, the
+    gradient gates.  Prints the seconds of each sub-phase.  The keywords
+    shrink it for a rehearsal on the CPU (the kernels' plain versions,
+    no counts, no times)."""
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import SyntheticLM, make_batch_fn
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
@@ -4552,6 +4574,14 @@ def ssm_phase(card, dev, wrappers, *, mamba_cfg=None, hymba_cfg=None,
     variant = kernel_variant(*bf16_key)
     t_phase = time.perf_counter()
     out: dict = {}
+    laps: dict = {}
+    t_lap = [t_phase]
+
+    def lap(name: str) -> None:
+        """The seconds since the last lap, as sub-phase ``name``."""
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
 
     def sync():
         if on_card:
@@ -4870,6 +4900,7 @@ def ssm_phase(card, dev, wrappers, *, mamba_cfg=None, hymba_cfg=None,
     prompts = [torch.randint(0, mcfg.vocab, (n,), generator=gen).tolist()
                for n in lens]
     m = out["mamba2"] = serve(mcfg, params, prompts, MAMBA2_ARCH, None, 0)
+    lap("mamba2 serving")
 
     # -- the profile of one prefill, the SSD apart -------------------------
     tokens = torch.randint(0, mcfg.vocab, (1, prefill_s), generator=gen
@@ -4905,6 +4936,7 @@ def ssm_phase(card, dev, wrappers, *, mamba_cfg=None, hymba_cfg=None,
         m["serve_peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         print(f"{MAMBA2_ARCH} serving in bf16: peak device memory "
               f"{m['serve_peak_memory_gb']:.2f} GB [{card}]")
+    lap("mamba2 profile")
 
     # -- the SSD gate on one layer's mixer input ----------------------------
     seen: list = []
@@ -4925,6 +4957,7 @@ def ssm_phase(card, dev, wrappers, *, mamba_cfg=None, hymba_cfg=None,
                              f", {prefill_s}-token prefill", dev)
     del lp, x
     free()
+    lap("mamba2 SSD gate")
 
     # -- the prefill/decode handoff ----------------------------------------
     htok = torch.randint(0, mcfg.vocab, (1, handoff_s + 1), generator=gen
@@ -4937,6 +4970,7 @@ def ssm_phase(card, dev, wrappers, *, mamba_cfg=None, hymba_cfg=None,
     m["handoff"]["f32"] = handoffs(c32, p32, htok, MAMBA2_ARCH)
     del p32
     free()
+    lap("mamba2 handoffs")
 
     # == Hymba-1.5B ===========================================================
     if on_card:
@@ -4963,13 +4997,15 @@ def ssm_phase(card, dev, wrappers, *, mamba_cfg=None, hymba_cfg=None,
         print(f"flash_attention ({row['variant']} {hd}/{hd}) at B=1 "
               f"S={max(lens)} H={hcfg.n_heads} causal bf16: {row['ms']:.4f} "
               f"ms a launch ({row['tflops']:.2f} TFLOP/s), max_abs_err "
-              f"{row['max_abs_err']:.3e} vs plain, plain "
+              f"{row['max_abs_err']:.3e} vs plain; the FFMA instance on the "
+              f"same q, k, v {ffma_ms(row)}; plain "
               f"{row['plain_ms']:.3f} ms, SDPA {row['library_ms']:.4f} ms "
               f"(backend {row['library_backend']}; kernel/SDPA "
               f"{row['ms'] / row['library_ms']:.2f}), bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}) [{card}]")
         h["serve_peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     h["launch"] = row
+    lap("hymba serving")
 
     # -- the logits gate: flash against naive on a long prompt --------------
     gtok = torch.randint(0, hcfg.vocab, (1, gate_s), generator=gen).to(dev)
@@ -5026,6 +5062,7 @@ def ssm_phase(card, dev, wrappers, *, mamba_cfg=None, hymba_cfg=None,
               f"cannot tell '{fault}' in either regime ({seen})")
     del params
     free()
+    lap("hymba logits gate")
     # the handoff: fresh weights (the gate above conditioned its own)
     htok = torch.randint(0, hcfg.vocab, (1, handoff_s + 1), generator=gen
                          ).to(dev)
@@ -5038,6 +5075,7 @@ def ssm_phase(card, dev, wrappers, *, mamba_cfg=None, hymba_cfg=None,
     h["handoff"]["f32"] = handoffs(c32, p32, htok, HYMBA_ARCH)
     del p32
     free()
+    lap("hymba handoffs")
 
     # -- the f32 check through the FFMA kernel's f32 hd-64 instance ----------
     l32, s32 = f32
@@ -5070,6 +5108,7 @@ def ssm_phase(card, dev, wrappers, *, mamba_cfg=None, hymba_cfg=None,
     h["launch_f32"] = split_launch_row(f"{HYMBA_ARCH} f32 check", 1, s32,
                                        hcfg.n_heads, hd, hd, torch.float32,
                                        dev, on_card)
+    lap("hymba f32 check")
 
     # == training =========================================================
     mt = dataclasses.replace(mcfg, n_layers=train_layers)
@@ -5092,6 +5131,7 @@ def ssm_phase(card, dev, wrappers, *, mamba_cfg=None, hymba_cfg=None,
     failed = leaf_gate(t, MAMBA2_ARCH, rels, SSD_GRAD_TOL)
     check(not failed, "; ".join(failed))
     m["train"] = t
+    lap("mamba2 training")
 
     t, grads_of = train(hcfg, "and depth", bf16_key, 2 * globals_)
     g_flash = grads_of()
@@ -5133,10 +5173,21 @@ def ssm_phase(card, dev, wrappers, *, mamba_cfg=None, hymba_cfg=None,
                                    train_batch[1], hcfg.n_heads, hd, hd,
                                    torch.bfloat16, dev, on_card)
     h["train"] = t
+    if on_card:
+        print(f"{HYMBA_ARCH} training, a launch at B={train_batch[0]} "
+              f"S={train_batch[1]} H={hcfg.n_heads} causal bf16 "
+              f"({t['launch']['variant']} {hd}/{hd}): "
+              f"{t['launch']['ms']:.4f} ms ({t['launch']['tflops']:.2f} "
+              f"TFLOP/s); the FFMA instance {ffma_ms(t['launch'])}; SDPA "
+              f"{t['launch']['library_ms']:.4f} ms; bound "
+              f"{t['launch']['bound_ms']:.4f} ms [{card}]")
+    lap("hymba training")
     out["launches_bf16"] = h["launches"] + t["launches"]
     out["launches_f32"] = h["launches_f32"] + t["launches_f32"]
     out["seconds"] = time.perf_counter() - t_phase
-    print(f"ssm phase: {out['seconds']:.1f} s")
+    out["sub_phase_s"] = laps
+    print(f"ssm phase: {out['seconds']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in laps.items()) + ")")
     return out
 
 
@@ -7695,26 +7746,31 @@ def main(argv=None) -> int:
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
-    # the FFMA kernel's hd-64 instances on Hymba's global layers: bf16 on
-    # its serving and training paths (one launch at the longest served
-    # prompt timed), f32 on its f32 check and f32 gradient gate (one
-    # launch at the check's prompt timed)
+    # the hd-64 instances on Hymba's global layers: the wgmma kernel's
+    # bf16 one on its serving and training paths (one launch at the
+    # longest served prompt timed), the FFMA kernel's f32 one on its f32
+    # check and f32 gradient gate (one launch at the check's prompt
+    # timed); the FFMA kernel's bf16 one, the wgmma instance's yardstick,
+    # launches 0 times on a path, timed on the served prompt's q, k, v
     hymba = ssm["hymba"]
-    for dtype, n, row in ((torch.bfloat16, ssm["launches_bf16"],
-                           hymba["launch"]),
-                          (torch.float32, ssm["launches_f32"],
-                           hymba["launch_f32"])):
-        name = split_instance(dtype, 64, 64, "ffma")
-        source, replaces = KERNELS["flash_attention_ffma"]
+    serve64, train64 = hymba["launch"], hymba["train"]["launch"]
+    for (variant, dtype), n, row, errs in (
+            ((serve64["variant"], torch.bfloat16), ssm["launches_bf16"],
+             serve64, [serve64["max_abs_err"], train64["max_abs_err"]]),
+            (("ffma", torch.float32), ssm["launches_f32"],
+             hymba["launch_f32"], [hymba["launch_f32"]["max_abs_err"]]),
+            (("ffma", torch.bfloat16), 0, dict(serve64, **serve64["ffma"]),
+             [serve64["ffma"]["max_abs_err"],
+              train64["ffma"]["max_abs_err"]])):
+        name = split_instance(dtype, 64, 64, variant)
+        source, replaces = KERNELS[FLASH_VARIANTS[variant]]
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
             "launches": n,
-            "max_abs_err": max([row["max_abs_err"]]
-                               + ([hymba["train"]["launch"]["max_abs_err"]]
-                                  if dtype == torch.bfloat16 else [])),
+            "max_abs_err": max(kernel_errs.get(name, []) + errs),
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],

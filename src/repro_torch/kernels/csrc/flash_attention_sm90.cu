@@ -1,15 +1,16 @@
 // Forward flash attention for Hopper (sm_90a) on the tensor cores: bf16
-// storage at head dims 128 and 256, and at q.k head dim 96 against value
-// head dim 64; f32 scores, softmax and sums.
+// storage at head dims 64, 128 and 256, and at q.k head dim 96 against
+// value head dim 64; f32 scores, softmax and sums.
 //
 // Replaces: _fa_kernel / flash_attention_pallas in
 // src/repro/kernels/flash_attention.py, the Pallas TPU kernel, for the
 // bf16 geometries of the LLM configs the port serves (Gemma-7B, hd 256;
-// Qwen1.5-32B, hd 128; MiniCPM3-4B's multi-head latent attention, q and
-// k of 64 + 32 against v of 64).  f32 storage, the small head dims and
-// the tiny split pair (48, 32) stay on the FFMA kernel of
-// flash_attention.cu.  It computes the same function (dk the head dim of
-// q and k, dv that of v and out; hd = dk = dv but at (96, 64)):
+// Qwen1.5-32B, hd 128; Hymba-1.5B's global layers, hd 64; MiniCPM3-4B's
+// multi-head latent attention, q and k of 64 + 32 against v of 64).  f32
+// storage, bf16 at hd 8-32 and the tiny split pair (48, 32) stay on the
+// FFMA kernel of flash_attention.cu.  It computes the same function (dk
+// the head dim of q and k, dv that of v and out; hd = dk = dv but at
+// (96, 64)):
 //
 //   out[b, i, h, :] = sum_j p[i, j] v[b, j, h, :] / max(sum_j p[i, j], 1e-30)
 //   s[i, j] = dk^-0.5 (q[b, i, h, :] . k[b, j, h, :]), soft-capped to
@@ -24,14 +25,14 @@
 //
 // What bounds it on the card: a causal prefill of S tokens does about
 // S^2 (dk + dv) FLOPs of q.k^T and p.v per head against 2 S (dk + dv)
-// elements of q, k, v and out, so at hd 128-256, and at (96, 64), with
-// S from the low hundreds it is bound by arithmetic.  Here q.k^T and p.v
+// elements of q, k, v and out, so at every instance here, with S from
+// the low hundreds, it is bound by arithmetic.  Here q.k^T and p.v
 // both run as bf16 wgmma with f32 sums (989 TFLOP/s dense on an H100
 // SXM), p.v twice (below), so the tensor-core work is dk + 2 dv a score
 // (three times q.k^T's at dk = dv; 224 against the bound's 160 at (96,
-// 64)).  At dv 64 the softmax, whose work a score does not shrink with
-// the head dims, takes a larger share of the consumers' issue slots than
-// at hd 256.
+// 64), 192 against 128 at hd 64).  At dv 64 the softmax, whose work a
+// score does not shrink with the head dims, takes a larger share of the
+// consumers' issue slots than at hd 256, and the largest at hd 64.
 //
 // Numerics, and why this is the TPU kernel's function:
 // * The tensor cores multiply bf16 exactly, but they do not add in IEEE
@@ -49,9 +50,10 @@
 //   tile; every longer sum is IEEE f32, in another order than the
 //   reference's.
 // * q.k^T: the scale dk^-0.5 goes on the f32 scores after the product
-//   (exact at hd 256, where it is 2^-4; at hd 128 and dk 96 it differs
-//   from the reference's pre-scaled q by f32 rounding).  p = exp(s - m) with s - m
-//   taken first, as the reference does.
+//   (exact at hd 256 and 64, where it is 2^-4 and 2^-3; at hd 128 and
+//   dk 96 it differs from the reference's pre-scaled q by f32
+//   rounding).  p = exp(s - m) with s - m taken first, as the reference
+//   does.
 // * p stays f32 through the softmax (m, l, alpha in f32, l summed from
 //   the f32 p).  For p.v it is split into two bf16 values,
 //   p_hi = bf16_rn(p) and p_lo = bf16_rn(p - p_hi), and the tile's p.v
@@ -71,31 +73,34 @@
 //   are consumers of 64 rows each (the wgmma M), at 240 registers a
 //   thread.  Each consumer keeps its 64 x dv f32 output in registers
 //   (dv/2 a thread: 128 at hd 256, 32 at dv 64).
-// * The kv tile is BK = 64 rows at dk = dv.  At hd 256 a consumer thread
-//   holds the output (128 registers), the 64 x 64 f32 scores (32), one
-//   fresh wgmma accumulator (32) and the bf16 p_hi and p_lo fragments
+// * The kv tile is BK = 64 rows at hd 128 and 256.  At hd 256 a consumer
+//   thread holds the output (128 registers), the 64 x 64 f32 scores (32),
+//   one fresh wgmma accumulator (32) and the bf16 p_hi and p_lo fragments
 //   (32, live with the scores' last use and the accumulator of p.v, not
 //   with the one of q.k^T): about 200 with addresses and the softmax
-//   state, of the 240.  Every wgmma is m64n64k16.  At (96, 64) the
-//   output is 32 registers, so the kv tile is 128 keys: q.k^T is
-//   m64n128k16, the scores and their fresh
-//   accumulator 64 registers each, and a tile's 6 waits on q.k^T slices
-//   cover twice the keys; p.v stays m64n64k16, 2 BK/16 of them a tile.
-//   Both consumers then walk the same tiles (BK = BQ).
-// * At (96, 64) a score costs the tensor cores 224 products but still
-//   one exp2f and the rounding of p to p_hi and p_lo, which share the
-//   SM's narrow conversion pipe: there p is split by packed conversions
-//   (split_bf16x2: the same bits as split_bf16, half the conversions).
+//   state, of the 240.  Every wgmma is m64n64k16.  At dv 64 ((96, 64)
+//   and (64, 64)) the output is 32 registers, so the kv tile is 128
+//   keys: q.k^T is m64n128k16, the scores and their fresh accumulator 64
+//   registers each, and a tile's dk/16 waits on q.k^T slices (6 at dk
+//   96, 4 at 64) cover twice the keys; p.v stays m64n64k16, 2 BK/16 of
+//   them a tile.  Both consumers then walk the same tiles (BK = BQ).
+// * At dv 64 a score costs the tensor cores 224 products at (96, 64) and
+//   192 at (64, 64) but still one exp2f and the rounding of p to p_hi
+//   and p_lo, which share the SM's narrow conversion pipe: there p is
+//   split by packed conversions (split_bf16x2: the same bits as
+//   split_bf16, half the conversions).
 // * Shared memory: the q tile (128 x hd bf16, 64 KB at hd 256), loaded
 //   once, and a ring of two stages of k and v (BK x hd bf16 each, 32 KB
-//   at hd 256): 192 KB at hd 256, 96 KB at hd 128, one block an SM.
+//   at hd 256): 192 KB at hd 256, 96 KB at hd 128, 80 KB at hd 64 (BK
+//   128), one block an SM (the consumers' registers).
 //   Every tile is stored as panels of 64 columns, rows of 128 bytes with
 //   the 128-byte swizzle, as TMA writes it and as wgmma reads it.  At dk
 //   96, q and k take two panels, the second half empty (columns 96-127,
 //   see TMA): 32 KB of q and 32 KB of k a stage at BK 128 in place of 24
 //   and 24, for one descriptor layout and one box shape for every
 //   operand, and each 16-wide slice of dk inside one panel; v and the
-//   output are one panel; 128 KB in all at BK 128.
+//   output are one panel; 128 KB in all at BK 128.  At hd 64 every
+//   operand is one panel, a row exactly 128 bytes, with nothing to fill.
 // * TMA: one tensor map per operand over (its head dim, S or T, H, B),
 //   built on the host from the strides the wrapper is given, so the (B,
 //   S, H, hd) views need no copy (MLA's v, every other 64 columns of the
@@ -147,10 +152,14 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int DK, int DV>
 struct Sm90Tiles {
-  static_assert((DK == DV && (DK == 128 || DK == 256)) ||
+  static_assert((DK == DV && (DK == 64 || DK == 128 || DK == 256)) ||
                     (DK == 96 && DV == 64),
-                "the wgmma kernel takes hd 128, 256 and (dk, dv) (96, 64)");
-  static constexpr int BK = DK == DV ? 64 : 128;  // keys a kv tile
+                "the wgmma kernel takes hd 64, 128, 256 and (dk, dv) (96, "
+                "64)");
+  // a 64-wide output (dv 64: (64, 64) and (96, 64)) leaves the consumers
+  // the registers for a kv tile of 128 keys; hd 128 and 256 keep 64
+  static constexpr bool kNarrowV = DV == kPanel;
+  static constexpr int BK = kNarrowV ? 128 : 64;  // keys a kv tile
   static constexpr int kStages = 2;
   // q and k in ceil(DK/64) panels (at DK 96 the second panel's last 32
   // columns lie past the tensor's edge: TMA fills them with zeros and
@@ -165,8 +174,8 @@ struct Sm90Tiles {
   // 1024 bytes of slack to align the tiles to the swizzle atom, then the
   // barriers: q_full, k_full[kStages], v_full[kStages], empty[kStages]
   static constexpr int kSmemBytes = 1024 + kTileBytes + 8 * (1 + 3 * kStages);
-  // p split by packed conversions (split_bf16x2) at (96, 64)
-  static constexpr bool kPackedSplit = DK != DV;
+  // p split by packed conversions (split_bf16x2) at dv 64
+  static constexpr bool kPackedSplit = kNarrowV;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -774,9 +783,10 @@ int launch_capped(const void* q, const void* k, const void* v, void* out,
 // cuTensorMapEncodeTiled, or -(1000 (i + 1) + r) when encoding the
 // tensor map of operand i (q, k, v, out) failed with CUresult r.
 // q, k, v, out are bf16; D is the head dim of q and k, Dv that of v and
-// out: (128, 128), (256, 256) or (96, 64); strides: 12 element strides,
-// (batch, position, head) of q, k, v and out in that order; the head dim
-// is contiguous.  softcap: 0 for none, else the cap c of s -> c tanh(s / c).
+// out: (64, 64), (128, 128), (256, 256) or (96, 64); strides: 12 element
+// strides, (batch, position, head) of q, k, v and out in that order; the
+// head dim is contiguous.  softcap: 0 for none, else the cap c of s -> c
+// tanh(s / c).
 extern "C" int flash_attention_sm90_fwd(const void* q, const void* k,
                                         const void* v, void* out, int B,
                                         int H, int S, int Tk, int D, int Dv,
@@ -792,6 +802,9 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k,
                                    causal, sm_scale, softcap, s);
   if (D == 96 && Dv == 64)
     return launch_capped<96, 64>(q, k, v, out, B, H, S, Tk, strides, causal,
+                                 sm_scale, softcap, s);
+  if (D == 64 && Dv == 64)
+    return launch_capped<64, 64>(q, k, v, out, B, H, S, Tk, strides, causal,
                                  sm_scale, softcap, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

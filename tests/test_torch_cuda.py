@@ -568,7 +568,10 @@ def _flash_inputs(b, s, t, h, hd, dtype, dev, seed=9):
 # for the wgmma kernel in bf16, Qwen's hd 128 and more of hd 256 with S
 # and T not multiples of its 128-row q tile or its 64-row kv tile, kv
 # tails shorter than one TMA box (T = 133, 197, 69), a kv length shorter
-# than one box (T = 5), and S > T
+# than one box (T = 5), and S > T; then the same for its hd-64 instance
+# (128-row kv tiles): S not a multiple of 128 with a kv tail of 44 rows,
+# B = 2 full with a tail of 5, S > T with T shorter than one box, a kv
+# length of 5, and Hymba-1.5B's longest served prompt (25 heads of 64)
 FLASH_CASES = [
     (1, 77, 77, 3, 64, True),
     (2, 45, 130, 2, 64, False),
@@ -583,6 +586,11 @@ FLASH_CASES = [
     (2, 70, 197, 2, 256, False),
     (1, 300, 69, 2, 256, True),
     (2, 5, 5, 3, 256, True),
+    (1, 300, 300, 3, 64, True),
+    (2, 150, 133, 2, 64, False),
+    (1, 200, 70, 2, 64, True),
+    (2, 5, 5, 3, 64, True),
+    (1, 3814, 3814, 25, 64, True),
 ]
 
 _VARIANT_WRAPPERS = {"wgmma": flash_attention_wgmma,
@@ -599,7 +607,7 @@ def test_flash_kernel_matches_plain(dev, b, s, t, h, hd, causal, dtype):
     got = flash_attention_cuda(q, k, v, causal=causal)
     assert flash_attention_cuda.launches == before + 1
     variant = kernel_variant(dtype, hd)
-    assert variant == ("wgmma" if dtype == torch.bfloat16 and hd >= 128
+    assert variant == ("wgmma" if dtype == torch.bfloat16 and hd >= 64
                        else "ffma")
     for n, w in _VARIANT_WRAPPERS.items():
         assert w.launches == by_variant[n] + (n == variant)
@@ -1081,9 +1089,13 @@ PRE_SOFTCAP_DIGESTS = {
 def test_flash_kernels_at_soft_cap_0_keep_their_bits(dev):
     """With the soft-cap a template flag, the instances at 0 are the
     code that was there before: their outputs equal, bit for bit, the
-    ones the kernels gave before the change (tools/flash_bits.py)."""
+    ones the kernels gave before the change (tools/flash_bits.py), on
+    the cases the script had then (the FFMA bf16 hd-64 one through
+    ``flash_attention_ffma``, as the variant table then sent it there;
+    the wgmma hd-64 case, added with that instance, is not pinned)."""
     got = _flash_bits_tool().digests(dev)
-    assert got == PRE_SOFTCAP_DIGESTS
+    assert {k: got[k] for k in PRE_SOFTCAP_DIGESTS} == PRE_SOFTCAP_DIGESTS
+    assert not got["wgmma hd64"].startswith("refused")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -1274,6 +1286,35 @@ def test_flash_ffma_bf16_split_instance_called_directly_matches_plain(
     q, k, v = _split_inputs(b, s, t, h, 96, 64, torch.bfloat16, dev,
                             seed=s + 7)
     geometry = (torch.bfloat16, 96, 64)
+    by_geometry = flash_attention_ffma.launches_by_geometry
+
+    def counts():
+        return flash_attention_wgmma.launches, by_geometry.get(geometry, 0)
+    before = counts()
+    got = flash_attention_ffma(q, k, v, causal=causal, softcap=cap)
+    assert counts() == (before[0], before[1] + 1)
+    ref = flash_attention_plain(q, k, v, causal=causal, softcap=cap)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (b, s, h, 64)
+    torch.testing.assert_close(got.float(), ref.float(),
+                               **FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("b,s,t,h,causal,cap", [
+    (1, 77, 77, 3, True, 0.0),
+    (2, 150, 133, 2, False, 0.0),
+    (1, 200, 70, 2, True, 1.0),
+    (1, 3814, 3814, 25, True, 0.0),
+])
+def test_flash_ffma_bf16_hd64_instance_called_directly_matches_plain(
+        dev, b, s, t, h, causal, cap):
+    """The FFMA kernel's bf16 hd-64 instance, which the variant table no
+    longer routes to but ``flash_attention_ffma`` launches when called
+    directly (the yardstick of the wgmma hd-64 instance): within
+    FLASH_TOL of the plain version, one launch counted on its geometry,
+    none on the wgmma kernel."""
+    q, k, v = _flash_inputs(b, s, t, h, 64, torch.bfloat16, dev, seed=s + 5)
+    geometry = (torch.bfloat16, 64, 64)
     by_geometry = flash_attention_ffma.launches_by_geometry
 
     def counts():

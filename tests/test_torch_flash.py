@@ -19,7 +19,8 @@ import torch
 
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro.models.attention import naive_attention
-from repro_torch.kernels.flash_attention import (HEAD_DIMS,
+from repro_torch.kernels.flash_attention import (FFMA_GEOMETRIES,
+                                                 HEAD_DIMS,
                                                  check_tma_operand,
                                                  flash_attention_cuda,
                                                  flash_attention_ffma,
@@ -134,15 +135,32 @@ def test_plain_at_the_wgmma_tiles_matches_naive(hd):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("hd", HEAD_DIMS)
 def test_variant_table(dtype, hd):
-    """The wgmma kernel takes bf16 at hd 128 and 256 (Gemma-7B's and
-    Qwen1.5-32B's heads), the FFMA kernel every other geometry; the
-    choice reads the dtype and the head dim alone."""
-    want = "wgmma" if dtype == torch.bfloat16 and hd in (128, 256) \
+    """The wgmma kernel takes bf16 at hd 64, 128 and 256 (Hymba-1.5B's,
+    Qwen1.5-32B's and Gemma-7B's heads), at 128 q rows against 128 kv
+    rows at hd 64 (a 64-wide output, as at (96, 64)) and 64 at 128 and
+    256; the FFMA kernel every other geometry (bf16 at hd 8-32 and f32
+    everywhere); the choice reads the dtype and the head dim alone."""
+    want = "wgmma" if dtype == torch.bfloat16 and hd in (64, 128, 256) \
         else "ffma"
     assert kernel_variant(dtype, hd) == want
     bq, bk = kernel_tiles(dtype, hd)
     assert bq == (128 if want == "wgmma" else 64)
     assert bk == kernel_block_k(hd, dtype)
+    if want == "wgmma":
+        assert bk == (128 if hd == 64 else 64)
+
+
+def test_ffma_keeps_bf16_hd64_as_the_yardstick():
+    """bf16 hd 64 runs on the wgmma kernel through the variant table, but
+    the FFMA kernel stays built for it: ``flash_attention_ffma`` takes
+    it when called directly (the wgmma instance's yardstick), getting as
+    far as the device check with no launch counted."""
+    assert (torch.bfloat16, 64, 64) in FFMA_GEOMETRIES
+    q = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
+    before = flash_attention_ffma.launches
+    with pytest.raises(ValueError, match="CUDA device"):
+        flash_attention_ffma(q, q, q)
+    assert flash_attention_ffma.launches == before
 
 
 def test_variant_table_refuses_other_geometries():
@@ -162,12 +180,20 @@ def test_each_kernel_refuses_the_other_kernels_geometries(launcher, dtype,
                                                           hd):
     """Each variant's launcher takes only its own rows of the table, and
     refuses the others before it looks at the operands' device (so with
-    no card too) and without counting a launch."""
+    no card too) and without counting a launch.  bf16 hd 64 is the wgmma
+    kernel's own row (and the FFMA kernel's too, its yardstick): the
+    wgmma launcher takes it, and stops at the device check; bf16 hd 32
+    is the FFMA kernel's alone, and the wgmma launcher refuses it."""
     q = torch.zeros((1, 8, 2, hd), dtype=dtype)
     before = launcher.launches
     match = ("FFMA kernel is not built for" if launcher is
              flash_attention_ffma else "wgmma kernel takes bfloat16 at head "
-             "dims 128 and 256")
+             "dims 64, 128 and 256")
+    if launcher is flash_attention_wgmma and \
+            kernel_variant(dtype, hd) == "wgmma":
+        with pytest.raises(ValueError, match="CUDA device"):
+            launcher(q, q, q)
+        q = torch.zeros((1, 8, 2, 32), dtype=dtype)
     with pytest.raises(ValueError, match=match):
         launcher(q, q, q)
     assert launcher.launches == before
