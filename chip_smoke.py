@@ -87,12 +87,12 @@ a planted backward fault that must fail that gate) and in f32 through
 the FFMA kernel, remat, "dots" and grad_accum=2 against their controls,
 and runs the train CLI at the tiny preset and the restart demo.  The
 gemma3 phase serves and trains full-width Gemma3-4B (sliding-window and
-global layers).  The minicpm3 phase serves full-width MiniCPM3-4B (62
-layers of multi-head latent attention, random bf16 weights from seed 0)
-through ``DecodeEngine.run``, every prefill's attention through the
-wgmma kernel's split instance (q·k 96 against v 64; 62 launches a
-prefill), times it beside the FFMA kernel's instance at the same head
-dims, holds each launch of a 4000-token prefill to float64, the
+global layers).  The minicpm3 phase serves full-width MiniCPM3-4B (16
+of its 62 layers of multi-head latent attention, random bf16 weights
+from seed 0) through ``DecodeEngine.run``, every prefill's attention
+through the wgmma kernel's split instance (q·k 96 against v 64; 16
+launches a prefill), times it beside the FFMA kernel's instance at the
+same head dims, holds each launch of a 4000-token prefill to float64, the
 kernel path's logits to the naive path's (with a dropped kv tile and
 the dv^-0.5 scale planted above the gate), the absorbed decode to the
 expanded form (with W_uk and W_uv swapped above the gate), checks an f32
@@ -121,10 +121,26 @@ its float64 token-by-token recurrence (a state not carried across
 chunks, an undecayed inbound state and the mask after the ``exp``
 planted above that gate), the prefill/decode handoff of both models,
 Hymba's logits to the naive path's and an f32 Hymba through the f32
-hd-64 instance, and trains 32 of Mamba2's 64 layers and all of
-Hymba's (the gradient gates; Hymba's with teeth in f32, 4 layers,
-through the f32 hd-64 instance).  The
-mesh phase runs programs sharded over two ``gloo`` ranks that share the
+hd-64 instance, and trains 8 of Mamba2's 64 layers and 4 of Hymba's
+32, two of them global (the gradient gates; Hymba's with teeth in f32,
+4 layers, through the f32 hd-64 instance).  The encoder_vlm phase
+encodes with full-width HuBERT-XLarge (48 non-causal layers of 16 heads
+of 80, random bf16 weights from seed 0) 16 utterances of 100-1500
+frames and one of 32,768, every attention through the wgmma kernel's
+bf16 (80, 80) instance (48 launches an encode), holds each launch of
+the longest utterance to its plain version and float64 (a dropped
+second v panel planted above both gates), the logits to the naive and
+plain paths (the long encode's to ``chunked_q``), times the instance
+beside the FFMA kernel's, its plain version and SDPA, trains the whole
+depth with the masked-frame loss (the bf16 gradient gate), and checks
+an f32 model through the FFMA kernel's f32 (80, 80) instance; then
+serves full-width InternVL2-26B (48 layers, 19.9 B parameters) through
+``DecodeEngine.run`` on text (the (128, 128) instance, 48 launches a
+prefill) and through image-prefixed prefills and greedy decode steps,
+holds its launches to float64 and its logits, with and without the
+image, to the naive and plain paths (the image dropped above the gate),
+checks it in f32 and trains 4 of its 48 layers with the image prefix.
+The mesh phase runs programs sharded over two ``gloo`` ranks that share the
 card (started by the port's launcher once the kernels are built): the
 full-width DCGAN and
 3D-GAN generators at meshes (2, 1) and (1, 2), f32 and bf16, with each
@@ -935,7 +951,10 @@ def flash_cases() -> list[tuple]:
     the llm_train phase's two (its steps' B = 2 x 2048 in bf16, its f32
     gate's 1 x 1024); Hymba-1.5B's 25 heads of 64 in bf16 (the wgmma
     kernel's hd-64 instance) at its longest served prompt and its train
-    steps' geometry, and a ragged B = 2 full case; the first again at
+    steps' geometry, and a ragged B = 2 full case; HuBERT-XLarge's 16
+    heads of 80, full, in bf16 (the wgmma kernel's hd-80 instance) and
+    f32 at its longest utterance, its train steps' geometry, and a
+    ragged B = 2 causal case; the first again at
     FLASH_BIG_SCORES; the soft-cap instances of both kernels
     (SOFTCAP_GEOMETRIES: Gemma3's global geometry in bf16, the f32
     gate's, hd 64 in bf16), each at a cap that bites; and the
@@ -971,6 +990,16 @@ def flash_cases() -> list[tuple]:
     cases.append(("hymba train B=2", 2, 2048, 2048, 25, 64, True,
                   torch.bfloat16))
     cases.append(("hd64 ragged B=2 full", 2, 333, 197, 25, 64, False,
+                  torch.bfloat16))
+    # HuBERT-XLarge's 16 heads of 80, full: a 1500-frame utterance (the
+    # top of HUBERT_FRAMES) on both kernels' hd-80 instances, its train
+    # steps' B = 2 x 2048, and a ragged causal B = 2 case
+    for dtype in (torch.bfloat16, torch.float32):
+        cases.append(("hubert S=1500 full", 1, 1500, 1500, 16, 80, False,
+                      dtype))
+    cases.append(("hubert train B=2 full", 2, 2048, 2048, 16, 80, False,
+                  torch.bfloat16))
+    cases.append(("hd80 ragged B=2 causal", 2, 333, 197, 16, 80, True,
                   torch.bfloat16))
     cases = [c + (1.0,) for c in cases]
     cases.append(("gemma train big", 2, 2048, 2048, 16, 256, True,
@@ -1026,8 +1055,8 @@ def flash_geometries(dev) -> dict[str, list[float]]:
     and (96, 64)), the FFMA kernel's instance (called through
     ``flash_attention_ffma``), the yardstick.  Returns the max abs errors
     by variant, and by instance (``split_instance``) for the split head
-    dims, each of which must fail the gate scaled by ``dv**-0.5``, and
-    for bf16 hd 64."""
+    dims, each of which must fail the gate scaled by ``dv**-0.5``, for
+    bf16 hd 64 and for hd 80."""
     from repro_torch.kernels.flash_attention import (FFMA_GEOMETRIES,
                                                      flash_attention_cuda,
                                                      flash_attention_ffma,
@@ -1048,7 +1077,8 @@ def flash_geometries(dev) -> dict[str, list[float]]:
                                  rtol=rtol)) \
             and bool(torch.isfinite(got).all()) \
             and got.shape == (b, s, h, dv)
-        by_instance = dv != hd or (dtype, hd) == (torch.bfloat16, 64)
+        by_instance = dv != hd or hd == 80 or \
+            (dtype, hd) == (torch.bfloat16, 64)
         key = split_instance(dtype, hd, dv) if by_instance else variant
         errs.setdefault(key, []).append(err)
         print(f"flash_attention ({variant}) vs plain  {label:18s} B={b} S={s} "
@@ -1256,7 +1286,9 @@ def serve_requests(cfg, params, ecfg, prompts, impl, wrappers, dev):
         torch.cuda.synchronize()
     wall = time.perf_counter() - start[0]
     counts = {k: wrappers[k][0].launches for k in wrappers}
-    del engine
+    # the timed wrappers hold the engine's own methods: drop them, or the
+    # cycle keeps the engine, its cache and the parameters alive
+    del engine.try_admit, engine.step, engine
     return reqs, admits, steps, wall, counts
 
 
@@ -2715,7 +2747,9 @@ def gemma3_phase(card, dev, wrappers) -> dict:
 
 # The minicpm3 phase: full-width MiniCPM3-4B (62 MLA layers, d_model 2560,
 # 40 heads of q·k 64 + 32 against v 64, q_lora 768, kv_lora 256, vocab
-# 73,448 padded to 73,472; bf16, random weights from seed 0) serving
+# 73,448 padded to 73,472; bf16, random weights from seed 0), its depth
+# cut to MINICPM3_SERVE_LAYERS of the 62 (the script's time: every layer
+# runs the same code; the serve CLI still draws all 62), serving
 # MINICPM3_REQUESTS prompts of lengths drawn from seed 0 in
 # MINICPM3_PROMPT_LENS, greedy, through MINICPM3_SLOTS slots: every
 # prefill's attention through the wgmma kernel's bf16 (96, 64) instance,
@@ -2730,8 +2764,8 @@ MINICPM3_PARAMS = 4_262_025_728
 MINICPM3_REQUESTS = 16
 MINICPM3_PROMPT_LENS = (128, 4000)
 MINICPM3_SLOTS, MINICPM3_MAX_LEN, MINICPM3_MAX_NEW = 8, 4040, 32
-MINICPM3_TRAIN_LAYERS = 16
-MINICPM3_TRAIN_PARAMS = 1_378_978_304
+MINICPM3_TRAIN_LAYERS = MINICPM3_SERVE_LAYERS = 16
+MINICPM3_TRAIN_PARAMS = MINICPM3_SERVE_PARAMS = 1_378_978_304
 MINICPM3_TRAIN_BATCH = (2, 2048)
 MINICPM3_TRAIN_TIMED = 5
 # the f32 check: full width with these layers, one prompt of these tokens
@@ -2751,15 +2785,15 @@ MINICPM3_FAULTS = ("diagonal tile dropped", "dv scale")
 MINICPM3_F32_TOL = 1e-4
 # each decode step's logits against the last row of the expanded form's
 # prefill of the prompt plus the tokens so far, ||a - b|| <= tol ||b||:
-# in bf16 (62 layers, conditioned weights) at the logits' gate; in f32
+# in bf16 (the served layers, conditioned weights) at the logits' gate; in f32
 # (MINICPM3_F32's layers, the reference's init) at the f32 logits'.
 # W_uk and W_uv swapped in the decode (each head's halves of wkv_b;
 # qk_nope = v_head_dim) must exceed both.
 MINICPM3_DECODE_TOL = {torch.bfloat16: MINICPM3_LOGITS_TOL["conditioned"],
                        torch.float32: MINICPM3_F32_TOL}
 # the plain version's tiles in the per-launch float64 gate (regime_forward):
-# 256 x 256 in place of the kernel's 128 x 64, so that 62 launches at S =
-# 4000 walk 128 tile pairs each, not ~1000
+# 256 x 256 in place of the kernel's 128 x 64, so that a launch at S =
+# 4000 walks 128 tile pairs, not ~1000
 MINICPM3_PLAIN_TILES = dict(block_q=256, block_k=256)
 # the tiny preset's runs on the card, through the (48, 32) instance: the
 # train CLI's arguments, and the f32 engine's prompts (flash vs naive)
@@ -2802,25 +2836,29 @@ def split_bound(b, s, t, h, dk, dv, dtype, causal) -> dict:
                 bound_by="operations" if ops_ms >= hbm_ms else "bytes")
 
 
-def sdpa_backend(q, k, v) -> str:
+def sdpa_backend(q, k, v, causal: bool = True) -> str:
     """The backend ``F.scaled_dot_product_attention`` picks for (B, H, S,
-    hd) q, k, v, causal (read from PyTorch's own chooser)."""
+    hd) q, k, v, causal or not (read from PyTorch's own chooser)."""
     from torch.nn.attention import SDPBackend
     try:
-        return SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=True)
-                          ).name
+        return SDPBackend(torch._fused_sdp_choice(q, k, v,
+                                                  is_causal=causal)).name
     except (AttributeError, RuntimeError, TypeError, ValueError) as e:
         return f"unknown ({type(e).__name__})"
 
 
-def split_launch_row(label, b, s, h, dk, dv, dtype, dev, on_card) -> dict:
-    """One causal launch of the split instance at (B, S, H, dk/dv) that
-    the variant table names (``variant``): the kernel's device ms, its
-    plain version's ms, one SDPA call's on the same q, k, v (which takes
-    Ev != E) and the backend it picked, the bound; and the kernel against
-    its plain version (max abs error).  Where that is the wgmma kernel
-    and the FFMA kernel is built for the geometry too, ``ffma`` holds the
-    FFMA instance's ms and error on the same q, k, v, the yardstick."""
+def split_launch_row(label, b, s, h, dk, dv, dtype, dev, on_card,
+                     causal: bool = True, plain_tiles: dict | None = None
+                     ) -> dict:
+    """One launch (causal, or full at ``causal=False``) of the instance at
+    (B, S, H, dk/dv) that the variant table names (``variant``): the
+    kernel's device ms, its plain version's ms (over ``plain_tiles``,
+    default the kernel's), one SDPA call's on the same q, k, v (which
+    takes Ev != E) and the backend it picked, the bound; and the kernel
+    against its plain version (max abs error).  Where that is the wgmma
+    kernel and the FFMA kernel is built for the geometry too, ``ffma``
+    holds the FFMA instance's ms and error on the same q, k, v, the
+    yardstick."""
     from repro_torch.kernels.flash_attention import (FFMA_GEOMETRIES,
                                                      flash_attention_cuda,
                                                      flash_attention_ffma,
@@ -2828,23 +2866,25 @@ def split_launch_row(label, b, s, h, dk, dv, dtype, dev, on_card) -> dict:
                                                      kernel_variant)
     q, k, v = flash_operands(b, s, s, h, dk, dtype, dev, seed=s + dk, dv=dv)
     variant = kernel_variant(dtype, dk, dv)
+    tiles = plain_tiles or {}
     row = dict(label=label, b=b, s=s, h=h, dk=dk, dv=dv, variant=variant,
-               dtype=str(dtype).removeprefix("torch."),
-               **split_bound(b, s, s, h, dk, dv, dtype, True))
+               dtype=str(dtype).removeprefix("torch."), causal=causal,
+               plain_tiles=tiles or None,
+               **split_bound(b, s, s, h, dk, dv, dtype, causal))
     if not on_card:
         return row
     atol, rtol = FLASH_TOL[dtype]
-    ref = flash_attention_plain(q, k, v)
+    ref = flash_attention_plain(q, k, v, causal=causal, **tiles)
     attends = {variant: flash_attention_cuda}
     if variant == "wgmma" and (dtype, dk, dv) in FFMA_GEOMETRIES:
         attends["ffma"] = flash_attention_ffma
     for name, attend in attends.items():
-        got = attend(q, k, v)
+        got = attend(q, k, v, causal=causal)
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
         check(torch.allclose(got.float(), ref.float(), atol=atol, rtol=rtol),
               f"{label}: the {name} kernel disagrees with its plain version")
-        ms = device_ms(lambda: attend(q, k, v), **(
+        ms = device_ms(lambda: attend(q, k, v, causal=causal), **(
             dict(warmup=1, runs=5) if name != variant else {}))
         if name == variant:
             row.update(max_abs_err=err, ms=ms)
@@ -2854,11 +2894,11 @@ def split_launch_row(label, b, s, h, dk, dv, dtype, dev, on_card) -> dict:
         del got
     qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
     row.update(
-        plain_ms=time_ms(lambda: flash_attention_plain(q, k, v), warmup=1,
-                         runs=1),
+        plain_ms=time_ms(lambda: flash_attention_plain(
+            q, k, v, causal=causal, **tiles), warmup=1, runs=1),
         library_ms=device_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True)),
-        library_backend=sdpa_backend(qt, kt, vt))
+            qt, kt, vt, is_causal=causal)),
+        library_backend=sdpa_backend(qt, kt, vt, causal))
     row["tflops"] = row["flops"] / (row["ms"] / 1e3) / 1e12
     return row
 
@@ -2878,7 +2918,8 @@ def minicpm3_phase(card, dev, wrappers, *, cfg=None,
                    train_layers: int = MINICPM3_TRAIN_LAYERS,
                    train_batch: tuple[int, int] = MINICPM3_TRAIN_BATCH
                    ) -> dict:
-    """Full-width MiniCPM3-4B (``cfg``, default the registered config):
+    """Full-width MiniCPM3-4B (``cfg``, default the registered config at
+    MINICPM3_SERVE_LAYERS layers):
     serving through ``DecodeEngine.run`` (every counter at 0 just before,
     read just after: one launch of the bf16 (96, 64) instance of the
     kernel the variant table names, the wgmma one, a layer a prefill,
@@ -2915,7 +2956,8 @@ def minicpm3_phase(card, dev, wrappers, *, cfg=None,
                                                make_train_step)
     on_card = dev.type == "cuda"
     full_width = cfg is None
-    cfg = cfg or get_config(MINICPM3_ARCH)
+    cfg = cfg or dataclasses.replace(get_config(MINICPM3_ARCH),
+                                     n_layers=MINICPM3_SERVE_LAYERS)
     kernel = flash_attention_cuda if on_card else flash_attention_plain
     ffma_geo = flash_attention_ffma.launches_by_geometry
     wgmma_geo = flash_attention_wgmma.launches_by_geometry
@@ -2968,13 +3010,13 @@ def minicpm3_phase(card, dev, wrappers, *, cfg=None,
     sync()
     n_params = sum(t.numel() for t in tree_leaves(params))
     check(n_params == tr.count_params(cfg)
-          and (n_params == MINICPM3_PARAMS or not full_width),
-          f"{n_params} parameters, not {MINICPM3_PARAMS}")
+          and (n_params == MINICPM3_SERVE_PARAMS or not full_width),
+          f"{n_params} parameters, not {MINICPM3_SERVE_PARAMS}")
     weight_bytes = sum(t.numel() * t.element_size()
                        for t in tree_leaves(params))
     L = cfg.n_layers
     dk, dv = bf16_key[1:]
-    print(f"{MINICPM3_ARCH}: {L} MLA layers, d_model {cfg.d_model}, "
+    print(f"{MINICPM3_ARCH}: {L} MLA layers (of 62), d_model {cfg.d_model}, "
           f"{cfg.n_heads} heads of q·k {cfg.qk_nope_head_dim} + "
           f"{cfg.qk_rope_head_dim} against v {dv}, q_lora {cfg.q_lora_rank},"
           f" kv_lora {cfg.kv_lora_rank}, vocab {cfg.vocab} (padded "
@@ -3331,9 +3373,9 @@ def minicpm3_phase(card, dev, wrappers, *, cfg=None,
                           **LLM_TRAIN_LR)
     step = make_train_step(tcfg, opt_cfg, flags)
     print(f"{MINICPM3_ARCH} training at full width with {train_layers} of "
-          f"its {L} layers: {n:,} parameters, f32 masters, moments and "
-          f"gradients {16 * n / 1e9:.1f} GB ({L} layers: "
-          f"{16 * n_params / 1e9:.1f} GB)")
+          f"its 62 layers: {n:,} parameters, f32 masters, moments and "
+          f"gradients {16 * n / 1e9:.1f} GB (62 layers: "
+          f"{16 * MINICPM3_PARAMS / 1e9:.1f} GB)")
     plain_calls = []
     reset_counts()
     times, metrics = [], []
@@ -4318,16 +4360,20 @@ HYMBA_F32_TOL = 1e-4
 # training: SSM_TRAIN_BATCH SyntheticLM tokens a step, AdamW, remat,
 # SSM_TRAIN_TIMED timed steps after one warm step; Mamba2 at full width
 # with MAMBA2_TRAIN_LAYERS of its 64 layers (16 B a parameter of f32
-# masters, moments and gradients: 24.7 GB; 45.3 GB at 64 layers, its
-# largest leaf 6.9 GB in f32, before AdamW's temporaries), Hymba whole
-# (26.3 GB).  The gradients on conditioned weights: Hymba's flash path
-# against the naive path (GRAD_TOL_BF16, the dv fault above it), Mamba2's
-# through ``ssm_apply`` against those through ``ssd_chunked_plain``
-# (SSD_GRAD_TOL: the same arithmetic a chunk, summed in another order;
-# a state not carried must fail it).
+# masters, moments and gradients: 9.3 GB; 45.3 GB at 64 layers, its
+# largest leaf 6.9 GB in f32, before AdamW's temporaries), Hymba at full
+# width with HYMBA_TRAIN_LAYERS of its 32, global at HYMBA_F32_GLOBAL as
+# the f32 check's (4.7 GB; 26.3 GB whole).  Both depths are cut for the
+# script's time: every layer runs the same code.  The gradients on
+# conditioned weights: Hymba's flash path against the naive path
+# (GRAD_TOL_BF16, the dv fault above it), Mamba2's through ``ssm_apply``
+# against those through ``ssd_chunked_plain`` (SSD_GRAD_TOL: the same
+# arithmetic a chunk, summed in another order; a state not carried must
+# fail it).
 SSM_TRAIN_BATCH = (2, 2048)
 SSM_TRAIN_TIMED = 5
-MAMBA2_TRAIN_LAYERS, MAMBA2_TRAIN_PARAMS = 32, 1_545_144_320
+MAMBA2_TRAIN_LAYERS, MAMBA2_TRAIN_PARAMS = 8, 579_946_880
+HYMBA_TRAIN_LAYERS, HYMBA_TRAIN_PARAMS = 4, 295_529_240
 SSD_GRAD_TOL = 1e-2
 # the mixer's A_log and dt_bias: their gradients sum (B, L, H, P, N)
 # terms of both signs through every decay of the state, which cancel
@@ -5133,7 +5179,13 @@ def ssm_phase(card, dev, wrappers, *, mamba_cfg=None, hymba_cfg=None,
     m["train"] = t
     lap("mamba2 training")
 
-    t, grads_of = train(hcfg, "and depth", bf16_key, 2 * globals_)
+    ht = dataclasses.replace(hcfg, n_layers=HYMBA_TRAIN_LAYERS,
+                             global_layers=HYMBA_F32_GLOBAL)
+    check(tr.count_params(ht) == HYMBA_TRAIN_PARAMS or not full_width,
+          f"{tr.count_params(ht)} parameters at {HYMBA_TRAIN_LAYERS} layers")
+    t, grads_of = train(ht, f"with {HYMBA_TRAIN_LAYERS} of its "
+                        f"{hcfg.n_layers} layers (global "
+                        f"{HYMBA_F32_GLOBAL})", bf16_key, 2 * n_global(ht))
     g_flash = grads_of()
     with attend_as(dev, flash_attention_plain):
         rels = {"flash vs plain, bf16": leaf_rel(g_flash, grads_of())}
@@ -5188,6 +5240,830 @@ def ssm_phase(card, dev, wrappers, *, mamba_cfg=None, hymba_cfg=None,
     out["sub_phase_s"] = laps
     print(f"ssm phase: {out['seconds']:.1f} s (" + ", ".join(
         f"{k} {v:.1f}" for k, v in laps.items()) + ")")
+    return out
+
+
+# -- the encoder and the VLM: HuBERT-XLarge, InternVL2-26B -------------------
+
+# HuBERT-XLarge (src/repro/configs/hubert_xlarge.py), not reduced: 48
+# non-causal layers of 16 heads of 80 (the wgmma kernel's bf16 (80, 80)
+# instance), a 504-target head.  Its traffic: HUBERT_UTTERANCES
+# utterances of lengths drawn from seed 0 in HUBERT_FRAMES (2-30 s of
+# audio at 20 ms a frame), each encoded alone at batch 1, then one of
+# HUBERT_LONG frames (the reference's prefill_32k length, its pos_embed's
+# rows).  Training: the whole depth, HUBERT_TRAIN_BATCH frames a step of
+# SyntheticLM's {features, labels, label_mask} (an 8% mask), one warm
+# step and HUBERT_TRAIN_TIMED timed.  The f32 check: HUBERT_F32 (layers,
+# frames) through the FFMA kernel's f32 (80, 80) instance.
+HUBERT_ARCH, HUBERT_PARAMS = "hubert-xlarge", 988_058_880
+HUBERT_UTTERANCES = 16
+HUBERT_FRAMES = (100, 1500)
+HUBERT_LONG = 32768
+HUBERT_TRAIN_BATCH = (2, 2048)
+HUBERT_TRAIN_TIMED = 3
+HUBERT_F32 = (4, 2048)
+# InternVL2-26B (src/repro/configs/internvl2_26b.py), not reduced: 48
+# layers of 48 q heads over 8 kv heads of 128 (the wgmma kernel's bf16
+# (128, 128) instance), 256 image embeddings 3200 wide ahead of the text.
+# Text serving through DecodeEngine.run (the reference's engine passes
+# no image): VLM_REQUESTS prompts of lengths drawn from seed 0 in
+# VLM_PROMPT_LENS, VLM_MAX_NEW new tokens each, VLM_SLOTS slots of
+# VLM_MAX_LEN.  Image-prefixed serving: VLM_IMAGE_REQUESTS prompts of
+# lengths drawn in (256, VLM_IMAGE_MAX], each a prefill through
+# ``forward(mode="prefill")`` with its image then VLM_IMAGE_DECODE greedy
+# ``decode_step``s.  The gates on a VLM_GATE_S-token prompt with the
+# image.  Training: VLM_TRAIN_LAYERS of the 48 layers with the image
+# prefix, VLM_TRAIN_BATCH tokens a step.  The f32 check: VLM_F32.
+VLM_ARCH, VLM_PARAMS = "internvl2-26b", 19_882_383_360
+VLM_REQUESTS = 16
+VLM_PROMPT_LENS = (128, 4000)
+VLM_SLOTS, VLM_MAX_LEN, VLM_MAX_NEW = 8, 4096, 32
+VLM_IMAGE_REQUESTS, VLM_IMAGE_MAX, VLM_IMAGE_DECODE = 4, 2048, 16
+VLM_GATE_S = 2048
+VLM_TRAIN_LAYERS, VLM_TRAIN_BATCH, VLM_TRAIN_TIMED = 4, (2, 2048), 3
+VLM_F32 = (4, 2048)
+# The logits gates of both models: the flash path against the naive path
+# and against the path of the kernel's plain version, ||a - b|| <= tol
+# ||b|| over the live vocab, on conditioned weights (``condition``) at
+# ENC_VLM_LOGITS_TOL, the other bf16 models' conditioned gate (PERF.md
+# §2).  At the reference's init (fan-in = the layer count, 48) the 48
+# layers amplify one-ulp differences past any gate: measured on one H100,
+# HuBERT's flash vs plain paths read 0.52 and InternVL2's 0.12-0.14 while
+# every launch's mean error against float64 equalled its plain
+# version's; so there the logits are read beside the gap of two paths
+# with no kernel at all (plain vs naive), and the launches are gated
+# (``launch_gate``, ``regime_forward``).  At HUBERT_LONG frames the
+# naive path would hold the (16, 32768, 32768) f32 scores, 68.7 GB:
+# there the flash path is held against ``chunked_q`` (the same function
+# a q block of 1024 at a time).  The f32 checks: flash against naive at
+# ENC_VLM_F32_TOL, as the other configs' f32 checks; HuBERT's on
+# conditioned weights (at the reference's init its 4 layers of fan-in 4
+# give scores of std ~320 over 2048 keys, near-ties that two f32 orders
+# break apart: 3.9e-3, measured on one H100), with the dropped v panel
+# above the gate.
+ENC_VLM_LOGITS_TOL = 3e-2
+ENC_VLM_F32_TOL = 1e-4
+# the plain version's tiles on the plain path and in the per-launch gates:
+# 512 x 512 in place of the kernels' (the same function summed in another
+# f32 order), so that a plain forward of 48 layers at 1400-2000 tokens
+# walks tens of tile pairs a launch, not hundreds
+ENC_VLM_PLAIN_TILES = dict(block_q=512, block_k=512)
+
+
+def plain_over(tiles: dict):
+    """The flash kernels' plain version over ``tiles``, called as the
+    kernel's wrapper is."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    def attend(q, k, v, causal=True, **cap):
+        return flash_attention_plain(q, k, v, causal=causal, **tiles, **cap)
+    return attend
+
+
+def panel_dropped(attend):
+    """``attend`` with v's columns 64 and up zeroed: the output's last
+    16 columns at hd 80 lost, what a kernel that dropped its second v
+    panel would give (the planted fault of the (80, 80) gates)."""
+    def faulty(q, k, v, causal=True, **cap):
+        keep = torch.ones(v.shape[3], dtype=v.dtype, device=v.device)
+        keep[64:] = 0
+        return attend(q, k, v * keep, causal=causal, **cap)
+    return faulty
+
+
+def launch_gate(calls: list, label: str, plain_tiles: dict) -> dict:
+    """Each recorded (80, 80) launch (q, k, v, causal, out) against its
+    plain version, elementwise at FLASH_TOL, and against float64
+    attention: the kernel's mean |error| at most REGIME_F64_RATIO times
+    the plain version's.  The second v panel dropped must fail both on
+    the first launch.  Returns the failures with the readings."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    worst_used, ratios, failed = 0.0, [], []
+    fault_used = fault_ratio = None
+    for i, (q, k, v, causal, o) in enumerate(calls):
+        exact = attention_f64(q, k, v, causal)
+        ref = flash_attention_plain(q, k, v, causal=causal, **plain_tiles)
+        atol, rtol = FLASH_TOL[o.dtype]
+        e_plain = (ref.double() - exact).abs().mean().item()
+
+        def used(x):
+            return ((x.float() - ref.float()).abs()
+                    / (atol + rtol * ref.float().abs())).max().item()
+        worst_used = max(worst_used, used(o))
+        ratios.append((o.double() - exact).abs().mean().item() / e_plain)
+        if i == 0:
+            bad = panel_dropped(flash_attention_plain)(q, k, v, causal,
+                                                       **plain_tiles)
+            fault_used = used(bad)
+            fault_ratio = (bad.double() - exact).abs().mean().item() \
+                / e_plain
+            del bad
+        del exact, ref
+    print(f"{label}: {len(calls)} launches on the model's own q, k, v; "
+          f"kernel vs plain elementwise at {worst_used:.3f} of FLASH_TOL "
+          f"(gate 1), mean |error| against float64 over the plain "
+          f"version's worst {max(ratios):.4f} (gate {REGIME_F64_RATIO:g}); "
+          f"the second v panel dropped: {fault_used:.1f} of FLASH_TOL, "
+          f"{fault_ratio:.1f} against float64 (both must exceed)")
+    if worst_used > 1 or max(ratios) > REGIME_F64_RATIO:
+        failed.append(f"{label}: the kernel disagrees ({worst_used}, "
+                      f"{max(ratios)})")
+    if not (fault_used > 1 and fault_ratio > REGIME_F64_RATIO):
+        failed.append(f"{label}: the gates cannot tell a dropped v panel")
+    return dict(launches=len(calls), flash_tol_used=worst_used,
+                f64_ratio=ratios, fault_flash_tol_used=fault_used,
+                fault_f64_ratio=fault_ratio, failed=failed)
+
+
+def encoder_vlm_phase(card, dev, wrappers, *, hubert_cfg=None,
+                      vlm_cfg=None, utterances: int = HUBERT_UTTERANCES,
+                      frames: tuple[int, int] = HUBERT_FRAMES,
+                      long_frames: int = HUBERT_LONG,
+                      hubert_train: tuple[int, int] = HUBERT_TRAIN_BATCH,
+                      hubert_f32: tuple[int, int] = HUBERT_F32,
+                      requests: int = VLM_REQUESTS,
+                      prompt_lens: tuple[int, int] = VLM_PROMPT_LENS,
+                      image: tuple[int, int, int] = (VLM_IMAGE_REQUESTS,
+                                                     VLM_IMAGE_MAX,
+                                                     VLM_IMAGE_DECODE),
+                      gate_s: int = VLM_GATE_S,
+                      vlm_train: tuple[int, int, int] = (
+                          VLM_TRAIN_LAYERS, *VLM_TRAIN_BATCH),
+                      vlm_f32: tuple[int, int] = VLM_F32) -> dict:
+    """Full-width HuBERT-XLarge (``hubert_cfg``, default the registered
+    config): the utterances and the long encode through ``forward``
+    (``mode="train"``, no remat, under ``torch.inference_mode``; every
+    counter at 0 just before, read just after: one launch of the wgmma
+    kernel's bf16 (80, 80) instance a layer an encode, none of the FFMA
+    kernel, no plain call), frames/s and ms an utterance, the long
+    encode's device time by kind; each (80, 80) launch of the longest
+    utterance against its plain version and float64 (``launch_gate``,
+    the dropped v panel above it); the logits against the naive and
+    plain paths, read at the reference's init and gated on conditioned
+    weights (the dropped panel through the model above the gate), the
+    long encode's against ``chunked_q``; one launch
+    timed at the longest utterance, the training batch and the long
+    encode beside the FFMA instance, the plain version, SDPA and the
+    bound; training the whole depth with the masked-frame loss (step
+    time, frames/s, model-FLOP share, peak memory; the bf16 gradient
+    gate against the naive path, the dv fault above it); the f32 check
+    through the FFMA kernel's f32 (80, 80) instance, gated on
+    conditioned weights.  Then full-width
+    InternVL2-26B (``vlm_cfg``): text serving through
+    ``DecodeEngine.run`` (one launch of the bf16 (128, 128) instance a
+    layer a prefill), TTFT, prefill and decode rates, the decode step's
+    HBM bound; image-prefixed prefills and greedy decode steps; the
+    launches of an image-prefixed prefill against float64; the logits
+    of the image-prefixed and the text prefill against the naive and
+    plain paths (read at the reference's init, gated on conditioned
+    weights), the image dropped above the gate; the f32 check;
+    training with the depth cut and the image prefix, its gradient
+    gate.  Prints the seconds of each sub-phase.  The keywords shrink it
+    for a rehearsal on the CPU (the kernels' plain versions, no counts,
+    no times)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM, make_batch_fn
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_ffma,
+                                                     flash_attention_plain,
+                                                     flash_attention_wgmma,
+                                                     kernel_variant)
+    from repro_torch.models import transformer as tr
+    from repro_torch.serve.engine import EngineConfig, _merge_slot_cache
+    from repro_torch.train.checkpoint import tree_leaves
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_state import (init_train_state,
+                                               make_train_step)
+    on_card = dev.type == "cuda"
+    full_width = hubert_cfg is None
+    hcfg = hubert_cfg or get_config(HUBERT_ARCH)
+    vcfg = vlm_cfg or get_config(VLM_ARCH)
+    kernel = flash_attention_cuda if on_card else flash_attention_plain
+    ffma_geo = flash_attention_ffma.launches_by_geometry
+    wgmma_geo = flash_attention_wgmma.launches_by_geometry
+    hd_h, hd_v = hcfg.resolved_head_dim, vcfg.resolved_head_dim
+    enc_key, enc_f32 = (torch.bfloat16, hd_h, hd_h), (torch.float32, hd_h,
+                                                      hd_h)
+    vlm_key, vlm_f32_key = (torch.bfloat16, hd_v, hd_v), (torch.float32,
+                                                          hd_v, hd_v)
+    t_phase = time.perf_counter()
+    out: dict = {"hubert": {}, "internvl2": {}}
+    laps: dict = {}
+    t_lap = [t_phase]
+    failed: list = []
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+        print(f"  [{name}: {laps[name]:.1f} s]")
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def free():
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def reset_counts():
+        for kern, _ in wrappers.values():
+            kern.launches = 0
+        ffma_geo.clear()
+        wgmma_geo.clear()
+
+    def read_counts():
+        geo = dict(ffma_geo)
+        for key, n in wgmma_geo.items():
+            geo[key] = geo.get(key, 0) + n
+        return {k: wrappers[k][0].launches for k in wrappers}, geo
+
+    def check_path(counts, geo, plain_calls, want, key, what):
+        """``want`` launches of the ``key`` instance through its kernel,
+        no other launch, no plain call (on the card)."""
+        if not on_card:
+            return
+        name = FLASH_VARIANTS[kernel_variant(*key)]
+        check(counts["flash_attention"] == counts[name] == geo.get(key)
+              == want and sum(geo.values()) == want
+              and all(c == 0 for k, c in counts.items()
+                      if k not in ("flash_attention", name)),
+              f"{what}: {counts}, {geo}: {want} launches of the {key} "
+              f"instance through {name} expected")
+        check(not plain_calls, f"{what} called the plain version "
+              f"{len(plain_calls)} times on the card")
+
+    def live_rel(a, b, c):
+        return rel_norm(a[..., :c.vocab], b[..., :c.vocab])
+
+    def draw(c, label, seed=0, want=None):
+        t0 = time.perf_counter()
+        params = tr.init(c, torch.Generator(dev).manual_seed(seed))
+        sync()
+        n = sum(t.numel() for t in tree_leaves(params))
+        check(n == tr.count_params(c) and (want is None or n == want),
+              f"{label}: {n} parameters drawn, {tr.count_params(c)} "
+              f"counted, {want} expected")
+        return params, n, time.perf_counter() - t0
+
+    def gate(label, runs, tol, fault_keys, read_keys=()):
+        """Print each pair's ||a-b||/||b|| (prefill[, first decode]);
+        the faults and controls of ``fault_keys`` must exceed ``tol``, the
+        rest stay within it (``read_keys`` are printed only)."""
+        for what, rels in runs.items():
+            kind = ("read" if what in read_keys else
+                    f"must exceed {tol:g}" if what in fault_keys
+                    else f"tolerance {tol:g}")
+            print(f"{label}, {what}: logits ||a-b||/||b|| "
+                  + " / ".join(f"{x:.3e}" for x in rels) + f" ({kind})")
+            if what in read_keys:
+                continue
+            if what in fault_keys and not max(rels) > tol:
+                failed.append(f"{label}: the gate cannot tell {what}")
+            if what not in fault_keys and max(rels) > tol:
+                failed.append(f"{label}: {what} at {max(rels):.3e} "
+                              f"against {tol:g}")
+
+    def train(c, note, key, want_per_step, batch_shape, timed):
+        """Training ``c``: one warm and ``timed`` timed steps (counts at 0
+        just before, read just after), finite losses; returns the
+        record and a function of the gradients on conditioned weights
+        at other flags."""
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        n = tr.count_params(c)
+        state = init_train_state(c, torch.Generator(dev).manual_seed(0))
+        sync()
+        b, s = batch_shape
+        batch_fn = make_batch_fn(SyntheticLM(c, b, s, seed=0), device=dev)
+        flags = tr.RunFlags(attn_impl="flash", remat=True)
+        opt_cfg = AdamWConfig(total_steps=1 + timed, **LLM_TRAIN_LR)
+        step = make_train_step(c, opt_cfg, flags)
+        print(f"{c.name} training {note}: {n:,} parameters, f32 masters, "
+              f"moments and gradients {16 * n / 1e9:.1f} GB")
+        plain_calls: list = []
+        reset_counts()
+        times, metrics = [], []
+        with counting_plain_attention(plain_calls):
+            for i in range(1 + timed):
+                data = batch_fn(i)
+                sync()
+                t0 = time.perf_counter()
+                state, m = step(state, data)
+                sync()
+                if i:
+                    times.append((time.perf_counter() - t0) * 1e3)
+                metrics.append({k: float(x) for k, x in m.items()})
+        counts, geo = read_counts()
+        check_path(counts, geo, plain_calls, want_per_step * (1 + timed),
+                   key, f"{c.name} training ({1 + timed} steps)")
+        for i, m in enumerate(metrics):
+            check(all(math.isfinite(m[k]) for k in ("loss", "total_loss",
+                                                   "grad_norm")),
+                  f"{c.name} step {i}: not finite: {m}")
+        step_ms = statistics.median(times)
+        flops = tr.model_flops_per_token(c) * b * s
+        t = dict(params=n, launches=counts["flash_attention"],
+                 step_ms=times, step_ms_median=step_ms,
+                 tokens_per_s=b * s / step_ms * 1e3, model_flops=flops,
+                 mfu=flops / (step_ms / 1e3) / PEAK_BF16_TC_FLOPS,
+                 peak_memory_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
+                                 if on_card else None),
+                 losses=[m["loss"] for m in metrics],
+                 tokens=[m["tokens"] for m in metrics])
+        unit = "frames" if c.family == "encoder" else "tokens"
+        print(f"{c.name} train steps of {b}x{s} {unit}: median "
+              f"{step_ms:.3f} ms a step ("
+              f"{', '.join(f'{x:.3f}' for x in times)}"
+              f"; host clock after a synchronise), "
+              f"{t['tokens_per_s']:.1f} {unit}/s; model FLOPs 6N x {unit} = "
+              f"{flops / 1e12:.2f} TFLOP a step, {100 * t['mfu']:.2f}% of the "
+              f"bf16 dense peak; peak device memory "
+              f"{t['peak_memory_gb'] or 0:.2f} GB; flash launches "
+              f"{counts['flash_attention']} ({geo}), {len(plain_calls)} plain "
+              f"calls; losses {', '.join(f'{x:.4f}' for x in t['losses'])} "
+              f"over {t['tokens'][0]:g} weighted {unit} [{card}]")
+        one = batch_fn(10_000)
+        del state["opt"]
+        params = state["params"]
+        free()
+        condition(params, c.d_model)
+
+        def grads_of(**over):
+            fn = make_train_step(c, opt_cfg, dataclasses.replace(flags,
+                                                                 **over))
+            return fn.value_and_grad(params, one)[2]
+        return t, grads_of
+
+    def grad_gate(t, label, grads_of):
+        """bf16 gradients on conditioned weights: the flash path against
+        the naive path per leaf within GRAD_TOL_BF16, the backward's dv
+        scaled by 1 + GRAD_FAULT above it."""
+        g_naive = grads_of(attn_impl="naive")
+        rels = {"flash vs naive": leaf_rel(grads_of(), g_naive)}
+        with dv_scaled_backward(GRAD_FAULT):
+            rels["planted dv fault vs naive"] = leaf_rel(grads_of(), g_naive)
+        del g_naive
+        free()
+        for what, rel in rels.items():
+            worst = max(rel, key=lambda k: (not math.isfinite(rel[k]),
+                                            rel[k]))
+            fault = what.startswith("planted")
+            print(f"{label} gradients per leaf on conditioned weights, "
+                  f"{what}: worst {rel[worst]:.3e} ({worst}; "
+                  + ("must exceed" if fault else "tolerance")
+                  + f" {GRAD_TOL_BF16:g})")
+            if fault != (rel[worst] > GRAD_TOL_BF16):
+                failed.append(f"{label} gradients, {what}: {worst} at "
+                              f"{rel[worst]:.3e}")
+        t["grad_gates"] = {k: max(v.values()) for k, v in rels.items()}
+
+    def launch_row(label, b, s, h, hd, dtype, causal, plain_tiles=None):
+        row = split_launch_row(label, b, s, h, hd, hd, dtype, dev, on_card,
+                               causal=causal, plain_tiles=plain_tiles)
+        if on_card:
+            print(f"flash_attention ({row['variant']} {hd}/{hd}) {label} at "
+                  f"B={b} S={s} H={h} {'causal' if causal else 'full'} "
+                  f"{row['dtype']}: {row['ms']:.4f} ms a launch "
+                  f"({row['tflops']:.2f} TFLOP/s), max_abs_err "
+                  f"{row['max_abs_err']:.3e} vs plain; the FFMA instance on "
+                  f"the same q, k, v {ffma_ms(row)}; plain "
+                  f"{row['plain_ms']:.3f} ms, SDPA {row['library_ms']:.4f} ms "
+                  f"(backend {row['library_backend']}; kernel/SDPA "
+                  f"{row['ms'] / row['library_ms']:.2f}), bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}) [{card}]")
+        return row
+
+    # == HuBERT-XLarge ========================================================
+    free()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    h = out["hubert"]
+    params, n_params, draw_s = draw(hcfg, HUBERT_ARCH,
+                                    want=HUBERT_PARAMS if full_width
+                                    else None)
+    L = hcfg.n_layers
+    print(f"{HUBERT_ARCH}: {L} non-causal layers, d_model {hcfg.d_model}, "
+          f"{hcfg.n_heads} heads of {hd_h} (the "
+          f"{kernel_variant(*enc_key)} kernel's bf16 {hd_h}/{hd_h} "
+          f"instance), features {hcfg.frontend_dim} wide, {hcfg.vocab} "
+          f"targets (padded {hcfg.padded_vocab}): {n_params:,} parameters, "
+          f"drawn in {draw_s:.1f} s")
+    gen = torch.Generator().manual_seed(0)
+    lens = torch.randint(frames[0], frames[1] + 1, (utterances,),
+                         generator=gen).tolist()
+    feats = [torch.randn((1, n, hcfg.frontend_dim), generator=gen)
+             for n in lens]
+    no_remat = tr.RunFlags(attn_impl="flash", remat=False)
+
+    def encode(p, f, c=hcfg, flags=no_remat):
+        with torch.inference_mode():
+            return tr.forward(p, {"features": f}, c, flags=flags)[0]
+    encode(params, feats[0][:, :64].to(dev))    # warm
+    sync()
+    plain_calls: list = []
+    reset_counts()
+    ms = []
+    with counting_plain_attention(plain_calls):
+        for f in feats:
+            f = f.to(dev)
+            sync()
+            t0 = time.perf_counter()
+            logits = encode(params, f)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            check(tuple(logits.shape) == (1, f.shape[1], hcfg.padded_vocab)
+                  and bool(torch.isfinite(logits[..., :hcfg.vocab]).all()),
+                  f"{HUBERT_ARCH}: logits {tuple(logits.shape)} not finite "
+                  f"or misshapen")
+    counts, geo = read_counts()
+    check_path(counts, geo, plain_calls, L * len(lens), enc_key,
+               f"{HUBERT_ARCH} encoding {len(lens)} utterances")
+    total_frames = sum(lens)
+    h.update(utterance_frames=lens, utterance_ms=ms,
+             frames_per_s=total_frames / sum(ms) * 1e3,
+             launches=counts["flash_attention"],
+             launches_by_geometry={str(k): v for k, v in geo.items()})
+    top = lens.index(max(lens))
+    f_top = feats[top].to(dev)
+    if on_card:
+        h["utterance_profile"] = profile(
+            lambda: encode(params, f_top), 2,
+            f"{HUBERT_ARCH} encodes of {max(lens)} frames")
+    print(f"{HUBERT_ARCH} encoded {len(lens)} utterances of "
+          f"{min(lens)}-{max(lens)} frames ({total_frames} frames, "
+          f"{total_frames / 50:.1f} s of audio at 20 ms a frame) one at a "
+          f"time: {h['frames_per_s']:.1f} frames/s, median "
+          f"{statistics.median(ms):.3f} ms an utterance (the "
+          f"{max(lens)}-frame one {ms[top]:.3f} ms); "
+          f"flash launches {counts['flash_attention']} ({geo}), "
+          f"{counts['flash_attention_ffma']} FFMA, {len(plain_calls)} plain "
+          f"calls [{card}]")
+    lap("hubert utterances")
+
+    # -- the long encode ------------------------------------------------------
+    long_f = torch.randn((1, long_frames, hcfg.frontend_dim),
+                         generator=gen).to(dev)
+    reset_counts()
+    with counting_plain_attention(plain_calls):
+        sync()
+        t0 = time.perf_counter()
+        long_logits = encode(params, long_f)
+        sync()
+        long_ms = (time.perf_counter() - t0) * 1e3
+    counts, geo = read_counts()
+    check_path(counts, geo, plain_calls, L, enc_key,
+               f"{HUBERT_ARCH} encoding {long_frames} frames")
+    h.update(long_frames=long_frames, long_ms=long_ms,
+             long_frames_per_s=long_frames / long_ms * 1e3,
+             long_launches=counts["flash_attention"])
+    print(f"{HUBERT_ARCH} encoded one utterance of {long_frames} frames "
+          f"({long_frames / 50 / 60:.1f} min of audio) in {long_ms:.3f} ms, "
+          f"{h['long_frames_per_s']:.1f} frames/s; {L} launches [{card}]")
+    if on_card:
+        prof = profile(lambda: encode(params, long_f), 1,
+                       f"{HUBERT_ARCH} encodes of {long_frames} frames")
+        if "device_ms_per_run" in prof:
+            kms = prof["kernels_ms_per_run"]
+            flash = sum(v for k, v in kms.items() if "fa_sm90" in k)
+            gemm = sum(v for k, v in kms.items()
+                       if any(t in k.lower() for t in
+                              ("gemm", "xmma", "cutlass", "nvjet")))
+            busy = prof["device_ms_per_run"]
+            prof["by_kind_ms"] = dict(flash=flash, gemm=gemm,
+                                      other=busy - flash - gemm)
+            print(f"  the {long_frames}-frame encode by kind: the {L} flash "
+                  f"launches {flash:.3f} ms ({100 * flash / busy:.1f}%), "
+                  f"GEMMs {gemm:.3f} ms, the rest {busy - flash - gemm:.3f} "
+                  f"ms; device busy {busy:.3f} of "
+                  f"{prof['wall_ms_per_run']:.3f} ms of wall [{card}]")
+        h["long_profile"] = prof
+        h["serve_peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    lap("hubert long encode")
+
+    # -- the gates: each launch, the logits ---------------------------------
+    calls: list = []
+    with attend_as(dev, recording(kernel, calls)), torch.no_grad():
+        encode(params, f_top)
+    h["launch_gate"] = launch_gate(
+        calls, f"{HUBERT_ARCH} {max(lens)}-frame encode (B=1 S={max(lens)} "
+        f"H={hcfg.n_heads} hd={hd_h}, full)", ENC_VLM_PLAIN_TILES)
+    failed += h["launch_gate"].pop("failed")
+    del calls
+
+    def enc_rels(f, c=hcfg, p=None):
+        """The flash path's logits on features ``f`` against the plain
+        and naive paths', the plain against the naive (no kernel), and
+        the dropped v panel's against the plain path's."""
+        p = params if p is None else p
+        runs = {"flash": encode(p, f, c)}
+        with attend_as(dev, plain_over(ENC_VLM_PLAIN_TILES)):
+            runs["plain"] = encode(p, f, c)
+        runs["naive"] = encode(p, f, c, flags=dataclasses.replace(
+            no_remat, attn_impl="naive"))
+        with attend_as(dev, panel_dropped(kernel)):
+            runs["fault"] = encode(p, f, c)
+        return {"flash vs plain": [live_rel(runs["flash"], runs["plain"], c)],
+                "flash vs naive": [live_rel(runs["flash"], runs["naive"], c)],
+                "plain vs naive": [live_rel(runs["plain"], runs["naive"], c)],
+                "v panel dropped vs plain": [live_rel(runs["fault"],
+                                                      runs["plain"], c)]}
+    faults = ("v panel dropped vs plain",)
+    h["logits_rel_err"] = {"reference init": enc_rels(f_top)}
+    gate(f"{HUBERT_ARCH} {max(lens)} frames, reference init",
+         h["logits_rel_err"]["reference init"], ENC_VLM_LOGITS_TOL, (),
+         read_keys=tuple(h["logits_rel_err"]["reference init"]))
+    del long_logits
+    condition(params, hcfg.d_model)
+    h["logits_rel_err"]["conditioned"] = enc_rels(f_top)
+    gate(f"{HUBERT_ARCH} {max(lens)} frames, conditioned",
+         h["logits_rel_err"]["conditioned"], ENC_VLM_LOGITS_TOL, faults,
+         read_keys=("plain vs naive",))
+    # the long encode's logits against chunked_q, q blocks of 1024
+    rels = {"flash vs chunked_q": [live_rel(encode(params, long_f), encode(
+        params, long_f, flags=dataclasses.replace(
+            no_remat, attn_impl="chunked_q")), hcfg)]}
+    gate(f"{HUBERT_ARCH} {long_frames} frames, conditioned", rels,
+         ENC_VLM_LOGITS_TOL, ())
+    h["long_logits_rel_err"] = rels
+    del params, long_f
+    free()
+    lap("hubert gates")
+
+    # -- one launch timed at each geometry ----------------------------------
+    h["launch"] = launch_row(f"{HUBERT_ARCH} longest utterance", 1,
+                             max(lens), hcfg.n_heads, hd_h, torch.bfloat16,
+                             False)
+    h["launch_train"] = launch_row(f"{HUBERT_ARCH} training",
+                                   *hubert_train, hcfg.n_heads, hd_h,
+                                   torch.bfloat16, False)
+    h["launch_long"] = launch_row(f"{HUBERT_ARCH} long encode", 1,
+                                  long_frames, hcfg.n_heads, hd_h,
+                                  torch.bfloat16, False,
+                                  plain_tiles=dict(block_q=1024,
+                                                   block_k=1024))
+    lap("hubert launches")
+
+    # -- training, the whole depth -----------------------------------------
+    t, grads_of = train(hcfg, f"at full width and depth ({L} layers)",
+                        enc_key, 2 * L, hubert_train, HUBERT_TRAIN_TIMED)
+    grad_gate(t, HUBERT_ARCH, grads_of)
+    del grads_of
+    free()
+    h["train"] = t
+    lap("hubert training")
+
+    # -- the f32 check through the FFMA kernel's f32 (80, 80) instance -----
+    l32, s32 = hubert_f32
+    c32 = dataclasses.replace(hcfg, n_layers=l32, dtype="float32")
+    p32, _, _ = draw(c32, HUBERT_ARCH, seed=1)
+    f32_feats = torch.randn((1, s32, hcfg.frontend_dim), generator=gen
+                            ).to(dev)
+    reset_counts()
+    encode(p32, f32_feats, c32)
+    sync()
+    counts32, geo32 = read_counts()
+    check_path(counts32, geo32, [], l32, enc_f32, f"{HUBERT_ARCH} f32")
+    label = (f"{HUBERT_ARCH} f32, {l32} layers, {s32} frames (the FFMA "
+             f"kernel's f32 {hd_h}/{hd_h} instance: "
+             f"{geo32.get(enc_f32, 0)} launches a forward)")
+    rels32 = {"reference init": enc_rels(f32_feats, c32, p32)}
+    gate(f"{label}, reference init", rels32["reference init"],
+         ENC_VLM_F32_TOL, (), read_keys=tuple(rels32["reference init"]))
+    condition(p32, c32.d_model)
+    rels32["conditioned"] = enc_rels(f32_feats, c32, p32)
+    gate(f"{label}, conditioned", rels32["conditioned"], ENC_VLM_F32_TOL,
+         faults, read_keys=("plain vs naive",))
+    del p32
+    free()
+    h.update(f32_logits_rel_err=rels32, launches_f32=geo32.get(enc_f32, 0))
+    h["launch_f32"] = launch_row(f"{HUBERT_ARCH} f32 check", 1, s32,
+                                 hcfg.n_heads, hd_h, torch.float32, False)
+    lap("hubert f32 check")
+
+    # == InternVL2-26B ========================================================
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    v = out["internvl2"]
+    params, n_params, draw_s = draw(vcfg, VLM_ARCH,
+                                    want=VLM_PARAMS if full_width else None)
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params))
+    unread = sum(params[k].numel() * params[k].element_size()
+                 for k in ("embed", "img_proj"))
+    print(f"{VLM_ARCH}: {vcfg.n_layers} layers, d_model {vcfg.d_model}, "
+          f"{vcfg.n_heads} q heads over {vcfg.n_kv_heads} kv heads of "
+          f"{hd_v} (the {kernel_variant(*vlm_key)} kernel's bf16 "
+          f"{hd_v}/{hd_v} instance), {vcfg.img_tokens} image embeddings "
+          f"{vcfg.frontend_dim} wide, vocab {vcfg.vocab} (padded "
+          f"{vcfg.padded_vocab}): {n_params:,} parameters, "
+          f"{weight_bytes / 1e9:.2f} GB in {vcfg.dtype}, drawn in "
+          f"{draw_s:.1f} s")
+    vgen = torch.Generator().manual_seed(0)
+    vlens = torch.randint(prompt_lens[0], prompt_lens[1] + 1, (requests,),
+                          generator=vgen).tolist()
+    prompts = [torch.randint(0, vcfg.vocab, (n,), generator=vgen).tolist()
+               for n in vlens]
+    ecfg = EngineConfig(n_slots=VLM_SLOTS, max_len=max(
+        VLM_MAX_LEN, max(vlens) + VLM_MAX_NEW + 8), max_new=VLM_MAX_NEW,
+        temperature=0.0)
+    serve_requests(vcfg, params, dataclasses.replace(ecfg, n_slots=1),
+                   [prompts[-1][:16]], "flash", wrappers, dev)
+    plain_calls = []
+    reset_counts()
+    with counting_plain_attention(plain_calls):
+        reqs, admits, steps, wall, counts = serve_requests(
+            vcfg, params, ecfg, prompts, "flash", wrappers, dev)
+    _, geo = read_counts()
+    check_path(counts, geo, plain_calls, vcfg.n_layers * len(vlens),
+               vlm_key, f"{VLM_ARCH} text serving")
+    for r in reqs:
+        check(r.done and len(r.generated) == VLM_MAX_NEW
+              and all(0 <= x < vcfg.vocab for x in r.generated),
+              f"{VLM_ARCH} request {r.rid}: done {r.done}, "
+              f"{len(r.generated)} tokens")
+    prefill_s = sum(d for _, d in admits.values())
+    decode_s = sum(d for d, _ in steps)
+    decode_tokens = sum(n for _, n in steps)
+    full = [d * 1e3 for d, n in steps if n == VLM_SLOTS]
+    step_ms = statistics.median(full or [d * 1e3 for d, _ in steps])
+    ttft = sorted((len(r.prompt), sum(admits[r.rid]) * 1e3,
+                   admits[r.rid][1] * 1e3) for r in reqs)
+    longest = ttft[-1]
+    bound_ms = (weight_bytes - unread) / PEAK_HBM_BYTES * 1e3
+    v.update(prompt_lens=vlens, wall_s=wall,
+             launches=counts["flash_attention"],
+             launches_by_geometry={str(k): n for k, n in geo.items()},
+             requests=[dict(prompt=n, ttft_ms=t_, prefill_ms=pre)
+                       for n, t_, pre in ttft],
+             ttft_ms_longest=longest[1],
+             prefill_tokens_per_s=sum(vlens) / prefill_s,
+             decode_steps=len(steps), decode_step_ms_median=step_ms,
+             decode_tokens_per_s=decode_tokens / decode_s,
+             weight_gb=weight_bytes / 1e9, decode_bound_ms=bound_ms)
+    print(f"{VLM_ARCH} served {len(vlens)} text requests ({sum(vlens)} prompt "
+          f"tokens, {VLM_MAX_NEW} new each) in {wall:.3f} s through "
+          f"{VLM_SLOTS} slots: {counts['flash_attention']} flash launches "
+          f"({geo}), {counts['flash_attention_ffma']} FFMA, "
+          f"{len(plain_calls)} plain calls [{card}]")
+    print(f"prefill: {sum(vlens)} tokens in {prefill_s:.3f} s = "
+          f"{v['prefill_tokens_per_s']:.1f} tokens/s; at the longest prompt "
+          f"({longest[0]} tokens) TTFT {longest[1]:.3f} ms; decode: "
+          f"{len(steps)} engine steps, median {step_ms:.3f} ms a step at "
+          f"{VLM_SLOTS} slots ({len(full)} such steps), "
+          f"{v['decode_tokens_per_s']:.1f} tokens/s; HBM bound of a step "
+          f"{bound_ms:.3f} ms ({(weight_bytes - unread) / 1e9:.2f} GB of "
+          f"weights read, the gathered embedding and img_proj left out; "
+          f"{weight_bytes / 1e9:.2f} GB in all: "
+          f"{weight_bytes / PEAK_HBM_BYTES * 1e3:.3f} ms) [{card}]")
+    if on_card:
+        v["serve_peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    lap("internvl2 text serving")
+
+    # -- image-prefixed prefills and greedy decode steps -------------------
+    n_img, img_max, n_dec = image
+    ilens = torch.randint(vcfg.img_tokens + 1, img_max + 1, (n_img,),
+                          generator=vgen).tolist()
+    images = [torch.randn((1, vcfg.img_tokens, vcfg.frontend_dim),
+                          generator=vgen) for _ in ilens]
+    itoks = [torch.randint(0, vcfg.vocab, (1, n), generator=vgen)
+             for n in ilens]
+
+    def image_prefill(p, toks, img, c=vcfg, flags=tr.RunFlags()):
+        batch = {"tokens": toks}
+        if img is not None:
+            batch["img_embeds"] = img
+        return tr.forward(p, batch, c, mode="prefill", flags=flags,
+                          last_logit_only=True)
+    irows = []
+    reset_counts()
+    with counting_plain_attention(plain_calls), torch.no_grad():
+        for toks, img in zip(itoks, images):
+            toks, img = toks.to(dev), img.to(dev)
+            s = toks.shape[1]
+            sync()
+            t0 = time.perf_counter()
+            lg, pcache = image_prefill(params, toks, img)
+            nxt = torch.argmax(lg[:, -1].float(), dim=-1)[:, None]
+            first = int(nxt[0, 0])
+            ttft_ms = (time.perf_counter() - t0) * 1e3
+            cache = tr.init_cache(vcfg, 1, s + n_dec + 8, device=dev)
+            _merge_slot_cache(cache, pcache, 0, s)
+            del pcache
+            gen_toks, t1 = [first], time.perf_counter()
+            for i in range(n_dec):
+                lg, cache = tr.decode_step(params, cache, nxt, torch.tensor(
+                    [s + i], device=dev), vcfg)
+                nxt = torch.argmax(lg.float(), dim=-1)[:, None]
+                gen_toks.append(int(nxt[0, 0]))
+            dec_ms = (time.perf_counter() - t1) * 1e3 / n_dec
+            del cache
+            check(all(0 <= x < vcfg.vocab for x in gen_toks),
+                  f"{VLM_ARCH} image-prefixed request: tokens {gen_toks}")
+            irows.append(dict(prompt=s, ttft_ms=ttft_ms,
+                              decode_step_ms=dec_ms))
+    counts, geo = read_counts()
+    check_path(counts, geo, plain_calls, vcfg.n_layers * n_img, vlm_key,
+               f"{VLM_ARCH} image-prefixed prefills")
+    v.update(image_requests=irows, image_launches=counts["flash_attention"])
+    for r in irows:
+        print(f"  image-prefixed prompt of {r['prompt']} tokens "
+              f"({vcfg.img_tokens} of them the image): TTFT "
+              f"{r['ttft_ms']:.3f} ms, then {n_dec} greedy decode steps at "
+              f"{r['decode_step_ms']:.3f} ms a step (batch 1) [{card}]")
+    lap("internvl2 image serving")
+
+    # -- the gates: each launch of an image-prefixed prefill, the logits -----
+    gtoks = torch.randint(0, vcfg.vocab, (1, gate_s), generator=vgen).to(dev)
+    gimg = torch.randn((1, vcfg.img_tokens, vcfg.frontend_dim),
+                       generator=vgen).to(dev)
+    calls = []
+    with attend_as(dev, recording(kernel, calls)), torch.no_grad():
+        image_prefill(params, gtoks, gimg)
+    v["flash_on_model_inputs"] = regime_forward(
+        calls, f"{VLM_ARCH} {gate_s}-token prefill with its image (B=1 "
+        f"S={gate_s} H={vcfg.n_heads} hd={hd_v})",
+        plain_tiles=ENC_VLM_PLAIN_TILES)
+    del calls
+
+    def vlm_runs(img):
+        runs = {}
+        with torch.no_grad():
+            for impl in ("flash", "naive"):
+                runs[impl] = image_prefill(params, gtoks, img,
+                                           flags=tr.RunFlags(
+                                               attn_impl=impl))[0]
+            with attend_as(dev, plain_over(ENC_VLM_PLAIN_TILES)):
+                runs["plain"] = image_prefill(params, gtoks, img)[0]
+        return runs
+    v["logits_rel_err"] = {}
+    for regime in ("reference init", "conditioned"):
+        if regime == "conditioned":
+            condition(params, vcfg.d_model)
+        with_img, text = vlm_runs(gimg), vlm_runs(None)
+        rels = {}
+        for what, runs in (("image", with_img), ("text", text)):
+            for a, b in (("flash", "plain"), ("flash", "naive"),
+                         ("plain", "naive")):
+                rels[f"{what}, {a} vs {b}"] = [live_rel(runs[a], runs[b],
+                                                        vcfg)]
+        rels["image dropped vs image, plain"] = [live_rel(
+            text["plain"], with_img["plain"], vcfg)]
+        del with_img, text
+        gate(f"{VLM_ARCH} {gate_s}-token prefill, {regime}", rels,
+             ENC_VLM_LOGITS_TOL, ("image dropped vs image, plain",),
+             read_keys=tuple(k for k in rels if regime == "reference init"
+                             or "plain vs naive" in k))
+        v["logits_rel_err"][regime] = rels
+        free()
+    del params
+    free()
+    lap("internvl2 gates")
+    v["launch"] = launch_row(f"{VLM_ARCH} longest prompt", 1, max(vlens),
+                             vcfg.n_heads, hd_v, torch.bfloat16, True)
+
+    # -- the f32 check, then training with the depth cut ------------------
+    l32, s32 = vlm_f32
+    c32 = dataclasses.replace(vcfg, n_layers=l32, dtype="float32")
+    p32, _, _ = draw(c32, VLM_ARCH, seed=1)
+    reset_counts()
+    with torch.no_grad():
+        flash32 = image_prefill(p32, gtoks[:, :s32], gimg, c32)[0]
+        sync()
+        counts32, geo32 = read_counts()
+        check_path(counts32, geo32, [], l32, vlm_f32_key, f"{VLM_ARCH} f32")
+        naive32 = image_prefill(p32, gtoks[:, :s32], gimg, c32,
+                                tr.RunFlags(attn_impl="naive"))[0]
+    rel = live_rel(flash32, naive32, c32)
+    del p32, flash32, naive32
+    free()
+    gate(f"{VLM_ARCH} f32, {l32} layers, a {s32}-token prompt with its "
+         f"image (the FFMA kernel's f32 {hd_v}/{hd_v} instance: "
+         f"{geo32.get(vlm_f32_key, 0)} launches), flash vs naive",
+         {"reference init": [rel]}, ENC_VLM_F32_TOL, ())
+    v.update(f32_logits_rel_err=rel, launches_f32=geo32.get(vlm_f32_key, 0))
+    lap("internvl2 f32 check")
+    layers, b_, s_ = vlm_train
+    ct = dataclasses.replace(vcfg, n_layers=layers)
+    t, grads_of = train(ct, f"at full width with {layers} of its "
+                        f"{vcfg.n_layers} layers and the image prefix",
+                        vlm_key, 2 * layers, (b_, s_), VLM_TRAIN_TIMED)
+    grad_gate(t, f"{VLM_ARCH} ({layers} layers)", grads_of)
+    del grads_of
+    free()
+    v["train"] = t
+    lap("internvl2 training")
+
+    out["launches_80"] = h["launches"] + h["long_launches"] \
+        + h["train"]["launches"]
+    out["launches_80_f32"] = h["launches_f32"]
+    out["launches_128"] = v["launches"] + v["image_launches"] \
+        + v["train"]["launches"]
+    out["seconds"] = time.perf_counter() - t_phase
+    out["sub_phase_s"] = laps
+    print(f"encoder_vlm phase: {out['seconds']:.1f} s (" + ", ".join(
+        f"{k} {x:.1f}" for k, x in laps.items()) + ")")
+    check(not failed, "; ".join(failed))
     return out
 
 
@@ -7616,6 +8492,9 @@ def main(argv=None) -> int:
     # -- 9f. SSM and hybrid blocks: Mamba2-2.7B, Hymba-1.5B -----------------
     ssm = record["ssm"] = ssm_phase(card, dev, wrappers)
     phase_done("ssm")
+    # -- 9g. the encoder and the VLM: HuBERT-XLarge, InternVL2-26B ---------
+    enc = record["encoder_vlm"] = encoder_vlm_phase(card, dev, wrappers)
+    phase_done("encoder_vlm")
     # -- 10. programs sharded over two gloo ranks sharing the card ---------
     mesh = record["mesh"] = mesh_phase(card, dev)
     phase_done("mesh")
@@ -7639,7 +8518,12 @@ def main(argv=None) -> int:
                             "hymba": ssm["hymba"]["launches"],
                             "hymba_train": ssm["hymba"]["train"]["launches"],
                             "hymba_f32": ssm["launches_f32"],
-                            "mamba2": ssm["mamba2"]["launches"]},
+                            "mamba2": ssm["mamba2"]["launches"],
+                            "hubert": enc["launches_80"],
+                            "hubert_f32": enc["launches_80_f32"],
+                            "internvl2": enc["launches_128"],
+                            "internvl2_f32":
+                                enc["internvl2"]["launches_f32"]},
                   launches_by_route={"serve": serve_routes,
                                      "train": train_routes})
 
@@ -7684,7 +8568,8 @@ def main(argv=None) -> int:
         "source": KERNELS["flash_attention_wgmma"][0],
         "replaces": KERNELS["flash_attention_wgmma"][1],
         "launches": llm["launches"] + llm_train["launches"]
-        + gemma3["launches_wgmma"] + moe["launches_wgmma"],
+        + gemma3["launches_wgmma"] + moe["launches_wgmma"]
+        + enc["launches_128"],
         "max_abs_err": max(kernel_errs["flash_attention_wgmma"]
                            + moe["errs_wgmma"]),
         "ms": flash["ms"],
@@ -7702,7 +8587,7 @@ def main(argv=None) -> int:
         "source": KERNELS["flash_attention_ffma"][0],
         "replaces": KERNELS["flash_attention_ffma"][1],
         "launches": f32["launches"] + gemma3["launches_ffma"]
-        + moe["launches_f32"],
+        + moe["launches_f32"] + enc["internvl2"]["launches_f32"],
         "max_abs_err": max(kernel_errs["flash_attention_ffma"]
                            + moe["errs_ffma"]),
         "ms": f32["ms"] * f32["launches"],
@@ -7746,37 +8631,44 @@ def main(argv=None) -> int:
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
-    # the hd-64 instances on Hymba's global layers: the wgmma kernel's
-    # bf16 one on its serving and training paths (one launch at the
-    # longest served prompt timed), the FFMA kernel's f32 one on its f32
-    # check and f32 gradient gate (one launch at the check's prompt
-    # timed); the FFMA kernel's bf16 one, the wgmma instance's yardstick,
-    # launches 0 times on a path, timed on the served prompt's q, k, v
-    hymba = ssm["hymba"]
-    serve64, train64 = hymba["launch"], hymba["train"]["launch"]
-    for (variant, dtype), n, row, errs in (
-            ((serve64["variant"], torch.bfloat16), ssm["launches_bf16"],
-             serve64, [serve64["max_abs_err"], train64["max_abs_err"]]),
-            (("ffma", torch.float32), ssm["launches_f32"],
-             hymba["launch_f32"], [hymba["launch_f32"]["max_abs_err"]]),
-            (("ffma", torch.bfloat16), 0, dict(serve64, **serve64["ffma"]),
-             [serve64["ffma"]["max_abs_err"],
-              train64["ffma"]["max_abs_err"]])):
-        name = split_instance(dtype, 64, 64, variant)
-        source, replaces = KERNELS[FLASH_VARIANTS[variant]]
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": source,
-            "replaces": replaces,
-            "launches": n,
-            "max_abs_err": max(kernel_errs.get(name, []) + errs),
-            "ms": row["ms"],
-            "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"],
-        })
+    # the hd-64 instances on Hymba's global layers and the hd-80 ones on
+    # HuBERT-XLarge's: the wgmma kernel's bf16 one on the serving (or
+    # encoding) and training paths (one launch at the longest served
+    # prompt or utterance timed), the FFMA kernel's f32 one on the f32
+    # checks (Hymba's f32 gradient gate too; one launch at the check's
+    # prompt timed); the FFMA kernel's bf16 one, the wgmma instance's
+    # yardstick, launches 0 times on a path, timed on the served q, k, v
+    hymba, hub = ssm["hymba"], enc["hubert"]
+    for hd, serve_row, others, f32_row, n_bf16, n_f32 in (
+            (64, hymba["launch"], [hymba["train"]["launch"]],
+             hymba["launch_f32"], ssm["launches_bf16"],
+             ssm["launches_f32"]),
+            (80, hub["launch"], [hub["launch_train"], hub["launch_long"]],
+             hub["launch_f32"], enc["launches_80"],
+             enc["launches_80_f32"])):
+        for (variant, dtype), n, row, errs in (
+                ((serve_row["variant"], torch.bfloat16), n_bf16, serve_row,
+                 [r["max_abs_err"] for r in [serve_row] + others]),
+                (("ffma", torch.float32), n_f32, f32_row,
+                 [f32_row["max_abs_err"]]),
+                (("ffma", torch.bfloat16), 0, dict(serve_row,
+                                                   **serve_row["ffma"]),
+                 [r["ffma"]["max_abs_err"] for r in [serve_row] + others])):
+            name = split_instance(dtype, hd, hd, variant)
+            source, replaces = KERNELS[FLASH_VARIANTS[variant]]
+            kernels.append({
+                "name": name,
+                "route": "cuda",
+                "source": source,
+                "replaces": replaces,
+                "launches": n,
+                "max_abs_err": max(kernel_errs.get(name, []) + errs),
+                "ms": row["ms"],
+                "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"],
+            })
     # the storage-dtype instances of both GANAX kernels, on the quant
     # phase's main path, the mixed-precision training path and the
     # tuner's; times per 64-batch of the generator's 4 launches

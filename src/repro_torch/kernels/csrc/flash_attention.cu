@@ -1,5 +1,5 @@
 // Forward flash attention for Hopper (sm_90a): f32 storage at every head
-// dim, bf16 at hd <= 64 (bf16 at hd 128 and 256 runs on the wgmma kernel,
+// dim, bf16 at hd <= 80 (bf16 at hd 128 and 256 runs on the wgmma kernel,
 // flash_attention_sm90.cu, and is not built here), and both at the split
 // head dims of MLA, a q.k dim DK apart from the value dim DV: (96, 64)
 // (MiniCPM3-4B: 64 + 32 rope dims against 64) and (48, 32) (its tiny
@@ -47,7 +47,9 @@
 // on zeros and never written.  BK is 64 for DK, DV <= 64 and 32 above, to
 // keep the staged tiles of hd = 256 within 140 KB of shared memory.  The
 // output micro-tile splits DV over the threads: at (96, 64) it is DV's 64
-// columns (256 threads do not split over 96 / 8 = 12 columns).  No
+// columns (256 threads do not split over 96 / 8 = 12 columns); at hd 80
+// a thread holds 5 columns of 16 thread columns (80 / 8 = 10 thread
+// columns do not divide 256 threads either).  No
 // wgmma, no TMA, no double buffering: those are for a later change.
 
 #include <cuda_bf16.h>
@@ -78,7 +80,8 @@ struct Tiles {
   static constexpr int TN_S = BK / 16;
   // output: TM_O x TN_O per thread over BQ x DV; columns are interleaved
   // over RD thread columns, rows over RQ thread rows
-  static constexpr int TN_O = DV >= 64 ? 8 : (DV >= 16 ? 4 : 2);
+  static constexpr int TN_O =
+      DV == 80 ? 5 : (DV >= 64 ? 8 : (DV >= 16 ? 4 : 2));
   static constexpr int RD = DV / TN_O;
   static constexpr int RQ = kThreads / RD;
   static constexpr int TM_O = kBQ / RQ;
@@ -301,6 +304,7 @@ int dispatch(int D, int DVal, const void* q, const void* k, const void* v,
     case 16: return launch<T, 16, 16, SC>(q, k, v, out, B, H, S, Tk, st, causal, sm_scale, cap, s);
     case 32: return launch<T, 32, 32, SC>(q, k, v, out, B, H, S, Tk, st, causal, sm_scale, cap, s);
     case 64: return launch<T, 64, 64, SC>(q, k, v, out, B, H, S, Tk, st, causal, sm_scale, cap, s);
+    case 80: return launch<T, 80, 80, SC>(q, k, v, out, B, H, S, Tk, st, causal, sm_scale, cap, s);
     default: break;
   }
   if constexpr (std::is_same_v<T, float>) {

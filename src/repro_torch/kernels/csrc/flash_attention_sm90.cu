@@ -1,12 +1,13 @@
 // Forward flash attention for Hopper (sm_90a) on the tensor cores: bf16
-// storage at head dims 64, 128 and 256, and at q.k head dim 96 against
-// value head dim 64; f32 scores, softmax and sums.
+// storage at head dims 64, 80, 128 and 256, and at q.k head dim 96
+// against value head dim 64; f32 scores, softmax and sums.
 //
 // Replaces: _fa_kernel / flash_attention_pallas in
 // src/repro/kernels/flash_attention.py, the Pallas TPU kernel, for the
 // bf16 geometries of the LLM configs the port serves (Gemma-7B, hd 256;
-// Qwen1.5-32B, hd 128; Hymba-1.5B's global layers, hd 64; MiniCPM3-4B's
-// multi-head latent attention, q and k of 64 + 32 against v of 64).  f32
+// Qwen1.5-32B and InternVL2-26B, hd 128; Hymba-1.5B's global layers, hd
+// 64; HuBERT-XLarge's non-causal layers, hd 80; MiniCPM3-4B's multi-head
+// latent attention, q and k of 64 + 32 against v of 64).  f32
 // storage, bf16 at hd 8-32 and the tiny split pair (48, 32) stay on the
 // FFMA kernel of flash_attention.cu.  It computes the same function (dk
 // the head dim of q and k, dv that of v and out; hd = dk = dv but at
@@ -30,7 +31,8 @@
 // both run as bf16 wgmma with f32 sums (989 TFLOP/s dense on an H100
 // SXM), p.v twice (below), so the tensor-core work is dk + 2 dv a score
 // (three times q.k^T's at dk = dv; 224 against the bound's 160 at (96,
-// 64), 192 against 128 at hd 64).  At dv 64 the softmax, whose work a
+// 64), 192 against 128 at hd 64, 336 against 160 at hd 80, whose second
+// v panel is 64 wide for 16 real columns).  At dv 64 the softmax, whose work a
 // score does not shrink with the head dims, takes a larger share of the
 // consumers' issue slots than at hd 256, and the largest at hd 64.
 //
@@ -72,7 +74,7 @@
 //   setmaxnreg gives the group 24 registers a thread), warpgroups 1 and 2
 //   are consumers of 64 rows each (the wgmma M), at 240 registers a
 //   thread.  Each consumer keeps its 64 x dv f32 output in registers
-//   (dv/2 a thread: 128 at hd 256, 32 at dv 64).
+//   (dv/2 a thread: 128 at hd 256, 40 at hd 80, 32 at dv 64).
 // * The kv tile is BK = 64 rows at hd 128 and 256.  At hd 256 a consumer
 //   thread holds the output (128 registers), the 64 x 64 f32 scores (32),
 //   one fresh wgmma accumulator (32) and the bf16 p_hi and p_lo fragments
@@ -88,7 +90,12 @@
 //   192 at (64, 64) but still one exp2f and the rounding of p to p_hi
 //   and p_lo, which share the SM's narrow conversion pipe: there p is
 //   split by packed conversions (split_bf16x2: the same bits as
-//   split_bf16, half the conversions).
+//   split_bf16, half the conversions).  So is it at hd 80, whose kv tile
+//   of 64 keys a score costs 336 products: measured on one H100 against
+//   split_bf16 (tools/flash_variants.py --hd 80), 0.0849 against 0.0931
+//   ms at (1, 1500, 16) and 0.2190 against 0.2372 at (2, 2048, 16), 27.87
+//   against 27.04 at (1, 32768, 16); a kv tile of 128 keys was slower at
+//   all three.
 // * Shared memory: the q tile (128 x hd bf16, 64 KB at hd 256), loaded
 //   once, and a ring of two stages of k and v (BK x hd bf16 each, 32 KB
 //   at hd 256): 192 KB at hd 256, 96 KB at hd 128, 80 KB at hd 64 (BK
@@ -101,6 +108,14 @@
 //   operand, and each 16-wide slice of dk inside one panel; v and the
 //   output are one panel; 128 KB in all at BK 128.  At hd 64 every
 //   operand is one panel, a row exactly 128 bytes, with nothing to fill.
+//   At hd 80 every operand takes two panels, columns 80-127 of the second
+//   filled with zeros: q and k as at dk 96 (5 slices of 16, the fifth in
+//   the second panel), v and the output as at hd 128 (two panels, BK 64:
+//   q 32 KB, k and v 16 KB each a stage, 96 KB in all).  p.v runs over
+//   the second panel's full 64 columns (a 64-wide MN-major operand is
+//   what the 128-byte swizzle takes) and keeps the accumulator's first
+//   8 registers a thread, columns 64-79; the rest multiply TMA's zeros
+//   and are dropped.
 // * TMA: one tensor map per operand over (its head dim, S or T, H, B),
 //   built on the host from the strides the wrapper is given, so the (B,
 //   S, H, hd) views need no copy (MLA's v, every other 64 columns of the
@@ -108,8 +123,10 @@
 //   allows 64 bf16 across), so a row of hd loads as ceil(hd/64) boxes.
 //   What lies past the tensor arrives as zeros and reads no memory: rows
 //   past S or T (keys past T are masked like the causal mask, query rows
-//   past S are computed and never stored) and q's and k's columns 96-127
-//   at dk 96 (no wgmma reads them).  The expected bytes of a barrier
+//   past S are computed and never stored), q's and k's columns 96-127
+//   at dk 96 (no wgmma reads them) and every operand's columns 80-127 at
+//   hd 80 (read by the second panel's p.v and dropped with its
+//   products).  The expected bytes of a barrier
 //   count the whole boxes, as TMA does.
 // * Pipeline: the producer loads q, then for each live kv tile waits for
 //   its stage to be empty, and loads k and v onto their own full
@@ -133,7 +150,8 @@
 //   into its own (now free) part of the q tile's first dv/64 panels in
 //   the same swizzled layout (the output's panels are q's, dv <= dk), and
 //   one thread stores them with TMA by the output's tensor map, which
-//   clips the rows past S.
+//   clips the rows past S and the columns past dv (at hd 80, the second
+//   panel's columns 80-127, which would be the next head's).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -152,20 +170,22 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int DK, int DV>
 struct Sm90Tiles {
-  static_assert((DK == DV && (DK == 64 || DK == 128 || DK == 256)) ||
+  static_assert((DK == DV && (DK == 64 || DK == 80 || DK == 128 ||
+                              DK == 256)) ||
                     (DK == 96 && DV == 64),
-                "the wgmma kernel takes hd 64, 128, 256 and (dk, dv) (96, "
-                "64)");
+                "the wgmma kernel takes hd 64, 80, 128, 256 and (dk, dv) "
+                "(96, 64)");
   // a 64-wide output (dv 64: (64, 64) and (96, 64)) leaves the consumers
-  // the registers for a kv tile of 128 keys; hd 128 and 256 keep 64
+  // the registers for a kv tile of 128 keys; hd 80, 128 and 256 keep 64
   static constexpr bool kNarrowV = DV == kPanel;
   static constexpr int BK = kNarrowV ? 128 : 64;  // keys a kv tile
   static constexpr int kStages = 2;
-  // q and k in ceil(DK/64) panels (at DK 96 the second panel's last 32
-  // columns lie past the tensor's edge: TMA fills them with zeros and
-  // no wgmma reads them), v and the output in DV/64
+  // q and k in ceil(DK/64) panels, v and the output in ceil(DV/64) (at
+  // DK 96 the second panel's last 32 columns lie past the tensor's edge,
+  // at hd 80 its last 48: TMA fills them with zeros)
   static constexpr int kPanelsQK = (DK + kPanel - 1) / kPanel;
-  static constexpr int kPanelsV = DV / kPanel;
+  static constexpr int kPanelsV = (DV + kPanel - 1) / kPanel;
+  static_assert(kPanelsV * kPanel >= DV, "v's panels cover dv");
   static_assert(kPanelsV <= kPanelsQK, "the output's panels are q's");
   static constexpr int kQBytes = kBQ * kPanelsQK * kPanel * 2;
   static constexpr int kKBytes = BK * kPanelsQK * kPanel * 2;  // a stage
@@ -174,8 +194,8 @@ struct Sm90Tiles {
   // 1024 bytes of slack to align the tiles to the swizzle atom, then the
   // barriers: q_full, k_full[kStages], v_full[kStages], empty[kStages]
   static constexpr int kSmemBytes = 1024 + kTileBytes + 8 * (1 + 3 * kStages);
-  // p split by packed conversions (split_bf16x2) at dv 64
-  static constexpr bool kPackedSplit = kNarrowV;
+  // p split by packed conversions (split_bf16x2) at dv 64 and hd 80
+  static constexpr bool kPackedSplit = kNarrowV || DV == 80;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -638,8 +658,11 @@ fa_sm90_kernel(const __grid_constant__ CUtensorMap tq,
           fence_regs(t);
           wgmma_wait_all();
           fence_regs(t);
+          // a panel past dv's last (hd 80's second) keeps its real
+          // columns, the accumulator's first (DV - 64 pn) / 2 registers
 #pragma unroll
-          for (int i = 0; i < 32; ++i) o[32 * pn + i] += t[i];
+          for (int i = 0; i < 32; ++i)
+            if (32 * pn + i < DV / 2) o[32 * pn + i] += t[i];
         }
       }
       // this warp no longer reads the stage
@@ -783,7 +806,8 @@ int launch_capped(const void* q, const void* k, const void* v, void* out,
 // cuTensorMapEncodeTiled, or -(1000 (i + 1) + r) when encoding the
 // tensor map of operand i (q, k, v, out) failed with CUresult r.
 // q, k, v, out are bf16; D is the head dim of q and k, Dv that of v and
-// out: (64, 64), (128, 128), (256, 256) or (96, 64); strides: 12 element
+// out: (64, 64), (80, 80), (128, 128), (256, 256) or (96, 64); strides:
+// 12 element
 // strides, (batch, position, head) of q, k, v and out in that order; the
 // head dim is contiguous.  softcap: 0 for none, else the cap c of s -> c
 // tanh(s / c).
@@ -805,6 +829,9 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k,
                                  sm_scale, softcap, s);
   if (D == 64 && Dv == 64)
     return launch_capped<64, 64>(q, k, v, out, B, H, S, Tk, strides, causal,
+                                 sm_scale, softcap, s);
+  if (D == 80 && Dv == 80)
+    return launch_capped<80, 80>(q, k, v, out, B, H, S, Tk, strides, causal,
                                  sm_scale, softcap, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,15 +5,15 @@ kernels, both ports of ``_fa_kernel`` / ``flash_attention_pallas``,
 chosen by :func:`kernel_variant` from the dtype and the head dims alone
 (``dk`` of q and k, ``dv`` of v):
 
-* ``"wgmma"`` (``csrc/flash_attention_sm90.cu``): bf16 at hd 64, 128
-  and 256 and at MLA's split pair (dk, dv) = (96, 64), both products on
-  the tensor cores (``p`` split into two bf16 terms for ``p·v``), q, k
-  and v fed by TMA;
+* ``"wgmma"`` (``csrc/flash_attention_sm90.cu``): bf16 at hd 64, 80,
+  128 and 256 and at MLA's split pair (dk, dv) = (96, 64), both products
+  on the tensor cores (``p`` split into two bf16 terms for ``p·v``), q,
+  k and v fed by TMA;
 * ``"ffma"`` (``csrc/flash_attention.cu``): f32 storage, bf16 at hd 8-32,
   and f32 at the split pairs of :data:`SPLIT_HEAD_DIMS` and bf16 at (48,
-  32), on the FP32 units.  It is built for bf16 hd 64 and (96, 64) too,
-  which :func:`flash_attention_ffma` launches when called directly (the
-  yardsticks of the wgmma instances).
+  32), on the FP32 units.  It is built for bf16 hd 64, 80 and (96, 64)
+  too, which :func:`flash_attention_ffma` launches when called directly
+  (the yardsticks of the wgmma instances).
 
 :func:`flash_attention_plain` computes the same function in plain
 PyTorch on any device, over the same q and kv tiles, with the same
@@ -63,8 +63,9 @@ __all__ = ["HEAD_DIMS", "SPLIT_HEAD_DIMS", "VARIANTS", "BLOCK_Q",
 NEG_INF = -1e30
 # the head dims flash_attention_cuda takes with dk == dv: the FFMA kernel
 # (csrc/flash_attention.cu) is built for all of them in f32 and for those
-# up to 64 in bf16, the wgmma kernel for bf16 at 64, 128 and 256
-HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+# up to 80 in bf16, the wgmma kernel for bf16 at 64, 80, 128 and 256
+# (80: HuBERT-XLarge's 16 heads over d_model 1280)
+HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
 # the (dk, dv) pairs with dk != dv: MiniCPM3-4B's MLA (qk_nope 64 +
 # qk_rope 32 against v_head_dim 64) and its tiny preset's (32 + 16
 # against 32)
@@ -74,16 +75,17 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # (dtype, dk, dv) the wgmma kernel is built for, and its tiles
 # (csrc/flash_attention_sm90.cu: kBQ, Sm90Tiles<DK, DV>::BK)
 WGMMA_TILES = {(torch.bfloat16, 64, 64): (128, 128),
+               (torch.bfloat16, 80, 80): (128, 64),
                (torch.bfloat16, 128, 128): (128, 64),
                (torch.bfloat16, 256, 256): (128, 64),
                (torch.bfloat16, 96, 64): (128, 128)}
 WGMMA_GEOMETRIES = frozenset(WGMMA_TILES)
 WGMMA_BLOCK_Q = 128
 # (dtype, dk, dv) the FFMA kernel is built for: f32 at every head dim,
-# bf16 up to 64, both dtypes at the split pairs
+# bf16 up to 80, both dtypes at the split pairs
 FFMA_GEOMETRIES = frozenset(
     [(torch.float32, d, d) for d in HEAD_DIMS]
-    + [(torch.bfloat16, d, d) for d in HEAD_DIMS if d <= 64]
+    + [(torch.bfloat16, d, d) for d in HEAD_DIMS if d <= 80]
     + [(dt, dk, dv) for dt in _DTYPE_CODES for dk, dv in SPLIT_HEAD_DIMS])
 # the bytes TMA needs strides and addresses to be multiples of
 _TMA_ALIGN = 16
@@ -285,10 +287,10 @@ def flash_attention_ffma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          softcap: float = 0.0) -> torch.Tensor:
     """Launch the FFMA kernel (``csrc/flash_attention.cu``) on the current
     stream, without synchronising: float32 at every head dim of
-    :data:`HEAD_DIMS`, bfloat16 at those up to 64 (the wgmma kernel takes
+    :data:`HEAD_DIMS`, bfloat16 at those up to 80 (the wgmma kernel takes
     bfloat16 at 128 and 256), and both at the (dk, dv) pairs of
-    :data:`SPLIT_HEAD_DIMS` (:data:`FFMA_GEOMETRIES`; bfloat16 hd 64 and
-    (96, 64) run here only when called directly:
+    :data:`SPLIT_HEAD_DIMS` (:data:`FFMA_GEOMETRIES`; bfloat16 hd 64, 80
+    and (96, 64) run here only when called directly:
     :func:`flash_attention_cuda` takes them to the wgmma kernel).  Each
     launch adds one to ``flash_attention_ffma.launches`` and to
     ``flash_attention_ffma.launches_by_geometry[(dtype, dk, dv)]``."""
@@ -330,8 +332,8 @@ def flash_attention_wgmma(q: torch.Tensor, k: torch.Tensor,
                           softcap: float = 0.0) -> torch.Tensor:
     """Launch the wgmma/TMA kernel (``csrc/flash_attention_sm90.cu``) on
     the current stream, without synchronising: bfloat16 at head dims 64,
-    128 and 256 (q, k and v) and at (dk, dv) = (96, 64) (q and k of 96, v
-    of 64; :data:`WGMMA_GEOMETRIES`), operands whose strides and
+    80, 128 and 256 (q, k and v) and at (dk, dv) = (96, 64) (q and k of
+    96, v of 64; :data:`WGMMA_GEOMETRIES`), operands whose strides and
     addresses TMA takes (:func:`check_tma_operand`).  Each launch adds
     one to ``flash_attention_wgmma.launches`` and to
     ``flash_attention_wgmma.launches_by_geometry[(dtype, dk, dv)]``."""
@@ -340,8 +342,8 @@ def flash_attention_wgmma(q: torch.Tensor, k: torch.Tensor,
         elsewhere = (": it runs on the FFMA kernel (flash_attention_ffma)"
                      if geometry in FFMA_GEOMETRIES else "")
         raise ValueError(f"the wgmma kernel takes bfloat16 at head dims "
-                         f"64, 128 and 256 (dk == dv) and at (dk, dv) (96, "
-                         f"64), got {q.dtype} at dk {q.shape[-1]}, dv "
+                         f"64, 80, 128 and 256 (dk == dv) and at (dk, dv) "
+                         f"(96, 64), got {q.dtype} at dk {q.shape[-1]}, dv "
                          f"{v.shape[-1]}{elsewhere}")
     _check_cuda(q, k, v, softcap)
     b, s, h, d = q.shape

@@ -1,6 +1,6 @@
 """Attention of the LLM stack: GQA/MQA/MHA with RoPE and a KV cache,
-global or sliding-window, with optional logit soft-capping, and MLA
-(the port of ``repro.models.attention`` for the dense, causal configs).
+global or sliding-window, causal or (the encoder's) full, with optional
+logit soft-capping, and MLA (the port of ``repro.models.attention``).
 
 * :func:`flash_attention` — train and prefill attention of a global
   layer.  On the card it launches the hand-written kernel

@@ -18,7 +18,7 @@ import math
 import torch
 
 __all__ = ["PSpec", "init_params", "init_tree", "stack_specs", "rms_norm",
-           "rope_angles", "apply_rope"]
+           "layer_norm", "rope_angles", "apply_rope"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,6 +110,18 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     var = x.square().mean(dim=-1, keepdim=True)
     y = x * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.float())).to(dt)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """Layer norm over the last dim (mean and biased variance) with gain
+    ``scale`` and ``bias``, in f32."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Decoder LM assembly (the port of ``repro.models.transformer`` for the
-causal configs: ``gemma-7b``, ``qwen1.5-32b``, ``gemma3-4b``, whose 5:1
+"""Model assembly for every family of the LLM stack (the port of
+``repro.models.transformer``): the causal configs ``gemma-7b``,
+``qwen1.5-32b``, ``gemma3-4b``, whose 5:1
 local:global pattern runs sliding-window layers beside global ones at
 their own ``rope_theta``, ``minicpm3-4b``, whose blocks mix by
 multi-head latent attention (MLA), the mixture-of-experts configs
@@ -8,8 +9,13 @@ multi-head latent attention (MLA), the mixture-of-experts configs
 whose blocks mix by ``models/ssm.py``'s Mamba2 mixer alone, and the
 hybrid ``hymba-1.5b``, whose blocks run attention (windowed, or global
 at ``global_layers``) and the Mamba2 mixer side by side on the same
-normed input and add ``0.5·(attention + SSM)``; logit soft-capping and
-positions given in the batch are ported too).
+normed input and add ``0.5·(attention + SSM)``; the encoder
+``hubert-xlarge``, whose frames (``batch["features"]``) enter through
+``frontend_proj`` plus a learned ``pos_embed`` and attend non-causally,
+trained by the masked-frame loss; and the VLM ``internvl2-26b``, whose
+``batch["img_embeds"]`` enter through ``img_proj`` in place of the first
+``img_tokens`` token embeddings when the sequence holds them; logit
+soft-capping and positions given in the batch are ported too).
 
 Parameters keep the reference's stacked layout — ``segments/seg<i>/
 pos<j>/{ln_mix, attn/{wq,wk,wv,wo[,bq,bk,bv]}, ln_mlp, mlp/{...}}`` with
@@ -19,7 +25,8 @@ wq_b, wkv_a, kv_norm, wkv_b, wo}``; a MoE block's ``mlp`` holds
 block holds ``ssm/{in_proj, conv_w, conv_b, A_log, D, dt_bias, norm,
 out_proj}`` and no ``attn``, a hybrid block both, and a block of
 ``mlp_kind="none"`` no ``ln_mlp`` or ``mlp``), ``embed`` and
-``final_norm`` — as nested dicts of tensors, so converting the JAX
+``final_norm`` (and the encoder's ``frontend_proj`` and ``pos_embed``,
+the VLM's ``img_proj``) — as nested dicts of tensors, so converting the JAX
 package's parameters is a check and a copy.  Where the reference scans
 over the layers, :func:`forward` loops over the layer slices in Python.
 The MoE layers' load-balance and router z-losses are summed over the
@@ -30,15 +37,13 @@ Entry points:
   * ``init(cfg, gen)``    → params on ``gen``'s device, in the activation
     dtype
   * ``forward(params, batch, cfg, mode=...)`` → logits (+ cache)
-  * ``loss_fn`` → (total loss, metrics): next-token cross-entropy plus
-    the MoE aux losses
+  * ``loss_fn`` → (total loss, metrics): next-token (or, for the
+    encoder, masked-frame) cross-entropy plus the MoE aux losses
   * ``decode_step`` / ``init_cache`` / ``count_params`` /
     ``model_flops_per_token``
 
-A config outside this slice (the encoder, the VLM) raises
-``NotImplementedError`` naming the ROADMAP item that brings it, when
-its model is built; a config with a segment of zero layers raises
-``ValueError``.
+A config with a segment of zero layers raises ``ValueError`` when its
+model is built; the encoder has no decode, as the reference's.
 """
 
 from __future__ import annotations
@@ -68,12 +73,14 @@ __all__ = ["RunFlags", "check_supported", "model_specs", "init", "forward",
            "model_flops_per_token"]
 
 # ROADMAP queue 1 items that bring what this slice leaves out
-_ITEM_ENC = "ROADMAP queue 1 item 21 (the encoder and the VLM)"
 _ITEM_INT8 = "ROADMAP queue 1 item 22 (the int8 KV cache)"
 _ITEM_MESH = "ROADMAP queue 1 item 23 (flash_decode and the mesh)"
 
 
 ATTN_IMPLS = ("flash", "naive", "chunked_q")
+# the encoder's learned positions: the reference sizes them for its
+# largest encode shape (prefill_32k)
+POS_EMBED_ROWS = 32768
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,14 +123,8 @@ class RunFlags:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a config outside this slice, and
-    ``ValueError`` for one with a segment of zero layers."""
-    if cfg.family in ("encoder", "vlm"):
-        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r}: "
-                                  f"{_ITEM_ENC}")
-    if not cfg.causal:
-        raise NotImplementedError(f"{cfg.name}: non-causal attention: "
-                                  f"{_ITEM_ENC}")
+    """Raise ``ValueError`` for a config with a segment of zero
+    layers."""
     for si, (descs, rep) in enumerate(cfg.layer_segments()):
         if rep < 1:
             raise ValueError(
@@ -169,6 +170,13 @@ def model_specs(cfg: ArchConfig) -> dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         specs["head"] = PSpec((d, cfg.padded_vocab), ("embed", "vocab"))
+    if cfg.family == "vlm":
+        specs["img_proj"] = PSpec((cfg.frontend_dim, d), (None, "embed"))
+    if cfg.family == "encoder":
+        specs["frontend_proj"] = PSpec((cfg.frontend_dim, d),
+                                       (None, "embed"))
+        specs["pos_embed"] = PSpec((POS_EMBED_ROWS, d), (None, "embed"),
+                                   scale=0.02)
     specs["segments"] = {
         f"seg{si}": stack_specs({f"pos{di}": _block_specs(cfg, desc)
                                  for di, desc in enumerate(descs)}, rep)
@@ -266,11 +274,30 @@ def _block_apply(params, x, cfg, desc, *, positions, mode, cache, lengths,
 
 
 def _embed_in(params, batch, cfg: ArchConfig) -> torch.Tensor:
+    """The first layer's input, as the reference's: the encoder's
+    ``features`` (B, S, frontend_dim) through ``frontend_proj`` plus
+    ``pos_embed[:S]``; else the token embeddings scaled by
+    ``d_model**0.5``, and for the VLM the ``img_embeds`` (B, img_tokens,
+    frontend_dim) through ``img_proj`` in place of the first
+    ``img_tokens`` positions when S reaches ``img_tokens`` (the sequence
+    as it is below that)."""
     dt = cfg.activation_dtype
+    if cfg.family == "encoder":
+        feats = batch["features"].to(dt)
+        s = feats.shape[1]
+        if s > POS_EMBED_ROWS:
+            raise ValueError(f"{cfg.name} encodes at most {POS_EMBED_ROWS} "
+                             f"frames (its pos_embed rows), got {s}")
+        return feats @ params["frontend_proj"] + params["pos_embed"][:s]
     # F.embedding: on the card its backward sums the rows in a fixed
     # order, so a replayed step is the same step bit for bit
     x = F.embedding(batch["tokens"].long(), params["embed"]).to(dt)
-    return x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
+    x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
+    if cfg.family == "vlm" and "img_embeds" in batch \
+            and x.shape[1] >= cfg.img_tokens:
+        img = batch["img_embeds"].to(dt) @ params["img_proj"]
+        x = torch.cat([img, x[:, cfg.img_tokens:]], dim=1)
+    return x
 
 
 def _logits(params, x, cfg: ArchConfig) -> torch.Tensor:
@@ -342,6 +369,9 @@ def forward(params, batch, cfg: ArchConfig, *, mode: str = "train",
     it.
     ``last_logit_only``: the logits of the last position only.
 
+    ``batch`` holds ``tokens`` (B, S), with the VLM's optional
+    ``img_embeds`` (B, img_tokens, frontend_dim), or the encoder's
+    ``features`` (B, S, frontend_dim); the encoder has no ``decode``.
     ``batch["positions"]`` (B, S), optional outside decode (default:
     ``0..S-1`` on every row), drive RoPE on every path and the masks of
     ``naive``, ``chunked_q`` and the short ``swa`` branch.  The flash
@@ -350,6 +380,8 @@ def forward(params, batch, cfg: ArchConfig, *, mode: str = "train",
     check_supported(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
+    if mode == "decode" and not cfg.supports_decode:
+        raise ValueError(f"{cfg.name} is encoder-only: no decode")
     params = _cast_params(params, cfg.activation_dtype)
     x = _embed_in(params, batch, cfg)
     require_f32_accumulation(x)
@@ -435,20 +467,26 @@ def _batch_positions(positions, shape, cfg: ArchConfig, flags: RunFlags,
 def loss_fn(params, batch, cfg: ArchConfig, flags: RunFlags = RunFlags(),
             aux_weight: float = 0.01, z_weight: float = 1e-3):
     """Next-token cross-entropy on f32 logits: the labels are the tokens
-    shifted left and padded, and the last position weighs 0.  Returns
+    shifted left and padded, and the last position weighs 0.  The
+    encoder's is the masked-frame cross-entropy: ``batch["labels"]`` (B,
+    S) weighted by ``batch["label_mask"]`` (ones where it is absent).
+    Either is the weighted sum over the weights' sum (at least 1).  Returns
     ``(total, metrics)`` with ``total = loss + aux_weight·aux_lb +
     z_weight·aux_z``, the MoE layers' load-balance and router z-losses
     summed over the layers (both 0 for a dense config), and ``metrics``
     ``{"loss", "aux_lb", "aux_z", "tokens"}``."""
-    if cfg.family == "encoder":
-        raise NotImplementedError(f"{cfg.name}: the masked-frame loss: "
-                                  f"{_ITEM_ENC}")
     logits, _, aux = forward(params, batch, cfg, mode="train", flags=flags,
                              return_aux=True)
     logits = logits.float()
-    labels = F.pad(batch["tokens"][:, 1:].long(), (0, 1))
-    weights = F.pad(torch.ones(labels[:, :-1].shape, device=logits.device),
-                    (0, 1))
+    if cfg.family == "encoder":
+        labels = batch["labels"].long()
+        weights = batch.get("label_mask")
+        weights = (torch.ones(labels.shape, device=logits.device)
+                   if weights is None else weights.float())
+    else:
+        labels = F.pad(batch["tokens"][:, 1:].long(), (0, 1))
+        weights = F.pad(torch.ones(labels[:, :-1].shape,
+                                   device=logits.device), (0, 1))
     lse = torch.logsumexp(logits, dim=-1)
     # the label's logit by a gather: the reference contracts with a
     # one-hot over the vocab, whose only nonzero term is the same value,

@@ -571,7 +571,13 @@ def _flash_inputs(b, s, t, h, hd, dtype, dev, seed=9):
 # than one box (T = 5), and S > T; then the same for its hd-64 instance
 # (128-row kv tiles): S not a multiple of 128 with a kv tail of 44 rows,
 # B = 2 full with a tail of 5, S > T with T shorter than one box, a kv
-# length of 5, and Hymba-1.5B's longest served prompt (25 heads of 64)
+# length of 5, and Hymba-1.5B's longest served prompt (25 heads of 64);
+# then its hd-80 instance (64-row kv tiles, two v panels the second of
+# which holds 16 real columns), each with 4 or more heads so that a store
+# past column 79 lands in the next head's columns: S not a multiple of 128
+# full, a kv tail of 6 rows (T = 70) with S > T, T shorter than one box
+# (T = 40), B = 2 causal and full with a tail of 5, and HuBERT-XLarge's
+# longest utterance (16 heads of 80, full)
 FLASH_CASES = [
     (1, 77, 77, 3, 64, True),
     (2, 45, 130, 2, 64, False),
@@ -591,6 +597,12 @@ FLASH_CASES = [
     (1, 200, 70, 2, 64, True),
     (2, 5, 5, 3, 64, True),
     (1, 3814, 3814, 25, 64, True),
+    (1, 300, 300, 4, 80, False),
+    (1, 130, 70, 5, 80, True),
+    (1, 200, 40, 4, 80, False),
+    (2, 150, 133, 4, 80, True),
+    (2, 150, 133, 4, 80, False),
+    (1, 1500, 1500, 16, 80, False),
 ]
 
 _VARIANT_WRAPPERS = {"wgmma": flash_attention_wgmma,
@@ -614,7 +626,11 @@ def test_flash_kernel_matches_plain(dev, b, s, t, h, hd, causal, dtype):
     ref = flash_attention_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
-    torch.testing.assert_close(got.float(), ref.float(), **FLASH_TOL[dtype])
+    for head in range(h):
+        torch.testing.assert_close(got[:, :, head].float(),
+                                   ref[:, :, head].float(),
+                                   **FLASH_TOL[dtype],
+                                   msg=lambda m: f"head {head}: {m}")
 
 
 def test_flash_kernel_on_a_side_stream_reads_strided_views(dev):
@@ -1096,6 +1112,7 @@ def test_flash_kernels_at_soft_cap_0_keep_their_bits(dev):
     got = _flash_bits_tool().digests(dev)
     assert {k: got[k] for k in PRE_SOFTCAP_DIGESTS} == PRE_SOFTCAP_DIGESTS
     assert not got["wgmma hd64"].startswith("refused")
+    assert not got["wgmma hd80"].startswith("refused")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -1327,6 +1344,40 @@ def test_flash_ffma_bf16_hd64_instance_called_directly_matches_plain(
     assert got.dtype == torch.bfloat16 and got.shape == (b, s, h, 64)
     torch.testing.assert_close(got.float(), ref.float(),
                                **FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,t,h,causal", [
+    (1, 300, 300, 4, False),
+    (2, 150, 133, 4, True),
+    (1, 2048, 2048, 16, False),
+])
+def test_flash_ffma_hd80_instances_called_directly_match_plain(
+        dev, b, s, t, h, causal, dtype):
+    """The FFMA kernel's hd-80 instances called through
+    ``flash_attention_ffma``: f32, the kernel of the f32 checks (which
+    the variant table sends there too), and bf16, the yardstick of the
+    wgmma hd-80 instance (the table sends bf16 hd 80 to the wgmma
+    kernel): within FLASH_TOL of the plain version on every head, one
+    launch counted on the geometry, none on the wgmma kernel."""
+    q, k, v = _flash_inputs(b, s, t, h, 80, dtype, dev, seed=s + 80)
+    geometry = (dtype, 80, 80)
+    by_geometry = flash_attention_ffma.launches_by_geometry
+
+    def counts():
+        return flash_attention_wgmma.launches, by_geometry.get(geometry, 0)
+    before = counts()
+    got = flash_attention_ffma(q, k, v, causal=causal)
+    assert counts() == (before[0], before[1] + 1)
+    ref = flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, s, h, 80)
+    for head in range(h):
+        torch.testing.assert_close(got[:, :, head].float(),
+                                   ref[:, :, head].float(),
+                                   **FLASH_TOL[dtype],
+                                   msg=lambda m: f"head {head}: {m}")
 
 
 def test_minicpm3_engine_on_the_card_launches_the_split_instance(dev):

@@ -135,13 +135,14 @@ def test_plain_at_the_wgmma_tiles_matches_naive(hd):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("hd", HEAD_DIMS)
 def test_variant_table(dtype, hd):
-    """The wgmma kernel takes bf16 at hd 64, 128 and 256 (Hymba-1.5B's,
-    Qwen1.5-32B's and Gemma-7B's heads), at 128 q rows against 128 kv
-    rows at hd 64 (a 64-wide output, as at (96, 64)) and 64 at 128 and
-    256; the FFMA kernel every other geometry (bf16 at hd 8-32 and f32
-    everywhere); the choice reads the dtype and the head dim alone."""
-    want = "wgmma" if dtype == torch.bfloat16 and hd in (64, 128, 256) \
-        else "ffma"
+    """The wgmma kernel takes bf16 at hd 64, 80, 128 and 256 (Hymba-1.5B's,
+    HuBERT-XLarge's, Qwen1.5-32B's and Gemma-7B's heads), at 128 q rows
+    against 128 kv rows at hd 64 (a 64-wide output, as at (96, 64)) and
+    64 at 80, 128 and 256; the FFMA kernel every other geometry (bf16 at
+    hd 8-32 and f32 everywhere); the choice reads the dtype and the head
+    dim alone."""
+    wgmma = dtype == torch.bfloat16 and hd in (64, 80, 128, 256)
+    want = "wgmma" if wgmma else "ffma"
     assert kernel_variant(dtype, hd) == want
     bq, bk = kernel_tiles(dtype, hd)
     assert bq == (128 if want == "wgmma" else 64)
@@ -188,7 +189,7 @@ def test_each_kernel_refuses_the_other_kernels_geometries(launcher, dtype,
     before = launcher.launches
     match = ("FFMA kernel is not built for" if launcher is
              flash_attention_ffma else "wgmma kernel takes bfloat16 at head "
-             "dims 64, 128 and 256")
+             "dims 64, 80, 128 and 256")
     if launcher is flash_attention_wgmma and \
             kernel_variant(dtype, hd) == "wgmma":
         with pytest.raises(ValueError, match="CUDA device"):

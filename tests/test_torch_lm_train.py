@@ -351,10 +351,24 @@ def test_loss_and_gradients_match_reference(dtype):
             assert rel <= BF16_NORM, (path, rel)
 
 
-def test_loss_refuses_the_encoder():
-    cfg = tlaunch.reduced_config("hubert-xlarge", "tiny")
-    with pytest.raises(NotImplementedError, match="item 21"):
-        ttr.loss_fn({}, {}, cfg)
+def test_encoder_loss_on_the_pipeline_batch_matches_reference():
+    """The tiny encoder's masked-frame loss on SyntheticLM's ``{features,
+    labels, label_mask}`` (the same batch in both packages, bit for bit)
+    against the reference's ``loss_fn``, f32, within 1e-5; its
+    ``tokens`` metric is the mask's sum."""
+    jcfg = dataclasses.replace(j_reduced_config("hubert-xlarge", "tiny"),
+                               dtype="float32")
+    tcfg = _port_cfg(jcfg)
+    batch = jpipe.SyntheticLM(jcfg, 2, 40, seed=3)(0)
+    np_params = _np_params(jcfg)
+    jtotal, jm = jtr.loss_fn(jax.tree.map(jnp.asarray, np_params),
+                             jax.tree.map(jnp.asarray, batch), jcfg)
+    ttotal, tm = ttr.loss_fn(lm_params_from_jax(np_params, tcfg, CPU),
+                             {k: torch.tensor(v) for k, v in batch.items()},
+                             tcfg)
+    assert float(tm["tokens"]) == float(jm["tokens"]) \
+        == batch["label_mask"].sum()
+    np.testing.assert_allclose(float(ttotal), float(jtotal), rtol=1e-5)
 
 
 def test_model_flops_per_token_matches_reference():

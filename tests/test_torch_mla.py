@@ -190,14 +190,14 @@ def test_flash_function_backward_at_split_head_dims(dk, dv):
                          ids=["f32", "bf16"])
 def test_variant_table_reads_dtype_dk_dv(dtype):
     """Every equal pair of ``HEAD_DIMS`` keeps its variant (the wgmma
-    kernel at bf16 64, 128 and 256, bf16 64 at its 128-row kv tile as
+    kernel at bf16 64, 80, 128 and 256, bf16 64 at its 128-row kv tile as
     (96, 64); the FFMA kernel elsewhere); bf16 (96, 64) runs on the
     wgmma kernel at its 128-row q tile, f32 (96, 64) and both (48, 32) on
     the FFMA kernel with the kv tile that the larger of dk and dv sets;
     ``kernel_variant(dtype, hd)`` is ``kernel_variant(dtype, hd, hd)``."""
     for hd in HEAD_DIMS:
-        want = "wgmma" if dtype == torch.bfloat16 and hd in (64, 128, 256) \
-            else "ffma"
+        wgmma = dtype == torch.bfloat16 and hd in (64, 80, 128, 256)
+        want = "wgmma" if wgmma else "ffma"
         assert kernel_variant(dtype, hd) == kernel_variant(dtype, hd, hd) \
             == VARIANTS[(dtype, hd, hd)] == want
         if want == "wgmma" and hd == 64:

@@ -1,7 +1,8 @@
 """The PyTorch port's rules: it imports nothing of JAX and nothing of the
 JAX package, its entry points run on the card unless asked for the CPU,
-it validates the parameters it takes from the JAX package, and it
-refuses the LLM configs outside its slice when their model is built."""
+it validates the parameters it takes from the JAX package, and it builds
+every LLM config of the JAX package (the encoder and the VLM among
+them)."""
 
 import ast
 import dataclasses
@@ -152,18 +153,33 @@ def test_llm_entry_points_default_to_the_card(monkeypatch):
         DecodeEngine(cfg, params, EngineConfig(), device="meta")
 
 
-OUTSIDE_THE_SLICE = {"hubert-xlarge": "item 21", "internvl2-26b": "item 21"}
+# the encoder's and the VLM's leaves beside the decoder's, and their
+# full-width parameter counts (the reference's count_params)
+FRONTEND_LEAVES = {"hubert-xlarge": ("frontend_proj", "pos_embed"),
+                   "internvl2-26b": ("img_proj",)}
+FULL_PARAMS = {"hubert-xlarge": 988_058_880, "internvl2-26b": 19_882_383_360}
 
 
-@pytest.mark.parametrize("name", sorted(OUTSIDE_THE_SLICE))
-def test_llm_configs_outside_the_slice_raise_at_build(name):
+@pytest.mark.parametrize("name", sorted(FRONTEND_LEAVES))
+def test_llm_configs_of_the_encoder_and_the_vlm_build(name):
+    """The tiny preset builds (specs, parameters on the CPU, cache) with
+    its frontend's leaves, and runs one forward on the CPU; the
+    full-width config counts the reference's parameters."""
     cfg = llm_serve.reduced_config(name, "tiny")
-    item = OUTSIDE_THE_SLICE[name]
-    for build in (lambda: tr.model_specs(cfg),
-                  lambda: tr.init(cfg, torch.Generator()),
-                  lambda: tr.init_cache(cfg, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError, match=item):
-            build()
+    params = tr.init(cfg, torch.Generator().manual_seed(0))
+    for key in FRONTEND_LEAVES[name]:
+        assert tuple(params[key].shape) == tr.model_specs(cfg)[key].shape
+    assert tr.init_cache(cfg, 1, 8, device="cpu")["seg0"]["pos0"]["attn"]
+    if cfg.family == "encoder":
+        batch = {"features": torch.randn((1, 9, cfg.frontend_dim))}
+    else:
+        batch = {"tokens": torch.zeros((1, 20), dtype=torch.long),
+                 "img_embeds": torch.randn((1, cfg.img_tokens,
+                                            cfg.frontend_dim))}
+    logits, _ = tr.forward(params, batch, cfg)
+    assert logits.shape[:2] == (1, batch[next(iter(batch))].shape[1])
+    assert bool(torch.isfinite(logits).all())
+    assert tr.count_params(get_config(name)) == FULL_PARAMS[name]
 
 
 def test_llm_options_outside_the_slice_raise():

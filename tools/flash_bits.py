@@ -47,7 +47,9 @@ CASES = (("wgmma hd256 causal", 1, 300, 300, 4, 256, True, "bfloat16", 1.0,
          ("ffma f32 hd32 causal", 2, 128, 128, 3, 32, True, "float32", 1.0,
           "flash_attention_cuda"),
          ("wgmma hd64", 2, 150, 97, 3, 64, True, "bfloat16", 1.0,
-          "flash_attention_wgmma"))
+          "flash_attention_wgmma"),
+         ("wgmma hd80", 2, 150, 97, 4, 80, False, "bfloat16", 1.0,
+          "flash_attention_cuda"))
 
 
 def digests(dev) -> dict[str, str]:
