@@ -140,6 +140,15 @@ prefill) and through image-prefixed prefills and greedy decode steps,
 holds its launches to float64 and its logits, with and without the
 image, to the naive and plain paths (the image dropped above the gate),
 checks it in f32 and trains 4 of its 48 layers with the image prefix.
+The qwen phase, on an empty card, serves full-width Qwen1.5-32B (64
+layers, 35.2 B parameters, 70.39 GB of bf16 weights, the QKV biases
+drawn) through ``DecodeEngine.run`` on as many slots as keep the peak
+under 95% of the card (the (128, 128) instance, 64 launches a prefill),
+holds each launch of a prefill to its plain version and float64, decodes
+16 steps from a 4 x 2048 int8 cache through ``decode_step`` (every
+dequantized entry within its bound), and on conditioned weights holds
+the logits to the plain path (a dropped QKV bias above the gate) and
+the int8 cache's to a bf16 cache's (ignored scales above the gate).
 The mesh phase runs programs sharded over two ``gloo`` ranks that share the
 card (started by the port's launcher once the kernels are built): the
 full-width DCGAN and
@@ -147,7 +156,11 @@ full-width DCGAN and
 Cout-sharded layer's kernel on the rank's slice, a DCGAN train step at
 (2, 1) and (1, 2), ``GanEngine`` at (2, 1) and both ring matmuls, each
 against the one-device path, then a (1, 1) program over NCCL in a world
-of one, bit for bit.  It imports nothing of JAX and nothing of the JAX
+of one, bit for bit; then, on the same two ranks, the sequence-sharded
+decode of full-width Qwen1.5-32B at 4 of its 64 layers (a cache of 2 x
+4096 rows, 2048 a rank; bf16 and f32, int8 and bf16 caches) against the
+one-device ``decode_step``, with a combine that drops the rescaling
+planted above the gates.  It imports nothing of JAX and nothing of the JAX
 package; it prints the seconds of each phase.
 
 The line before the last is a JSON object listing every kernel; the
@@ -162,6 +175,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -1296,8 +1310,7 @@ def llm_serving(card, dev, wrappers) -> dict:
     """Full-width Gemma-7B through ``DecodeEngine.run`` (every counter at 0
     just before, read just after): TTFT, prefill and decode rates, the
     flash launches; then the kernel path against the naive path on a
-    2048-token prompt, the tokens of a naive-attention engine, profiles
-    of a prefill and of decode steps, and the kernel timed at each
+    2048-token prompt, profiles of a prefill and of decode steps, and the kernel timed at each
     prompt length beside its bound, its plain version and SDPA; last,
     the f32 check through the FFMA kernel (its counters at 0 just
     before, read just after)."""
@@ -1389,7 +1402,6 @@ def llm_serving(card, dev, wrappers) -> dict:
         prefill_tokens_per_s=sum(lens) / prefill_s, decode_steps=len(steps),
         decode_step_ms_median=step_ms,
         decode_tokens_per_s=decode_tokens / decode_s)
-    flash_tokens = [r.generated for r in reqs]
 
     # the kernel path against the naive path and against the kernel's
     # plain version, on one 2048-token prompt: prefill and first decode
@@ -1488,18 +1500,14 @@ def llm_serving(card, dev, wrappers) -> dict:
         report(f"{fault} vs plain", LLM_TOL_BF16, fault=True)
     report("flash vs naive")
 
-    naive_reqs, _, _, naive_wall, _ = serve("naive")
-    agree = sum(a == b for r, n in zip(flash_tokens, naive_reqs)
-                for a, b in zip(r, n.generated))
-    print(f"tokens on which the flash and naive engines agree: {agree} of "
-          f"{LLM_REQUESTS * LLM_MAX_NEW} (not gated: bf16 argmax ties may "
-          f"flip); naive engine {naive_wall:.3f} s")
-    out.update(tokens_agree=agree, naive_wall_s=naive_wall)
+    # a second engine run on the naive path, whose tokens were only read
+    # against these (bf16 argmax ties flip), was cut for the script's time
+    # in PR 30
     torch.cuda.empty_cache()
 
     # profiles: one 2048-token prefill, then decode steps of a full pool
     prof = profile(lambda: tr.forward(params, {"tokens": tokens}, cfg,
-                                      mode="prefill"), 2,
+                                      mode="prefill"), 1,
                    f"{LLM_ARCH} prefills of {tokens.shape[1]} tokens")
     if "device_ms_per_run" in prof:
         attn_ms = sum(ms for name, ms in prof["kernels_ms_per_run"].items()
@@ -1513,7 +1521,7 @@ def llm_serving(card, dev, wrappers) -> dict:
     for i in sorted(range(LLM_REQUESTS), key=lambda i: lens[i])[:LLM_SLOTS]:
         check(engine.try_admit(Request(rid=i, prompt=prompts[i])),
               "the pool refused a request")
-    out["decode_profile"] = profile(engine.step, 3,
+    out["decode_profile"] = profile(engine.step, 1,
                                     f"{LLM_ARCH} decode steps of "
                                     f"{LLM_SLOTS} slots")
     del engine
@@ -1530,8 +1538,9 @@ def llm_serving(card, dev, wrappers) -> dict:
         q, k, v = flash_operands(1, s, s, h, hd, cfg.activation_dtype, dev,
                                  seed=s)
         ms = device_ms(lambda: flash_attention_cuda(q, k, v))
-        plain_ms = time_ms(lambda: flash_attention_plain(q, k, v), warmup=1,
-                           runs=3)
+        # one call (PR 30 cut 4 to 1 for the script's time)
+        plain_ms = time_ms(lambda: flash_attention_plain(q, k, v), warmup=0,
+                           runs=1)
         qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
         sdpa_ms = device_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True))
@@ -1726,18 +1735,10 @@ def leaf_rel(got: dict, ref: dict) -> dict[str, float]:
 
 def condition(params: dict, d_model: int) -> None:
     """In place: each stacked matrix scaled from the reference's fan-in
-    (the layer count) to its input width (a MoE block's stacked experts,
-    ``(L, E, in, out)``, too; its router keeps its own scale, 0.02, not a
-    fan-in), the embedding from 1 to ``d_model**-0.5``."""
-    from repro_torch.train.checkpoint import tree_items
-    with torch.no_grad():
-        for path, t in tree_items(params).items():
-            if path.endswith("router"):
-                continue
-            if t.ndim in (3, 4):
-                t.mul_(math.sqrt(t.shape[0] / t.shape[-2]))
-            elif path == "embed":
-                t.mul_(d_model ** -0.5)
+    (the layer count) to its input width (``repro_torch.sharding.parity.
+    condition``, which the mesh phase's ranks run too)."""
+    from repro_torch.sharding.parity import condition as conditioned
+    conditioned(params, d_model)
 
 
 def attend_as(dev, fn):
@@ -5331,13 +5332,20 @@ def panel_dropped(attend):
     return faulty
 
 
-def launch_gate(calls: list, label: str, plain_tiles: dict) -> dict:
-    """Each recorded (80, 80) launch (q, k, v, causal, out) against its
-    plain version, elementwise at FLASH_TOL, and against float64
-    attention: the kernel's mean |error| at most REGIME_F64_RATIO times
-    the plain version's.  The second v panel dropped must fail both on
-    the first launch.  Returns the failures with the readings."""
+def launch_gate(calls: list, label: str, plain_tiles: dict,
+                fault: str = "the second v panel dropped") -> dict:
+    """Each recorded launch (q, k, v, causal, out) against its plain
+    version, elementwise at FLASH_TOL, and against float64 attention:
+    the kernel's mean |error| at most REGIME_F64_RATIO times the plain
+    version's.  The planted ``fault`` must fail both on the first
+    launch: the second v panel dropped (the (80, 80) instance's), or a
+    fault of PLANTED_FAULTS.  Returns the failures with the readings."""
     from repro_torch.kernels.flash_attention import flash_attention_plain
+    if fault == "the second v panel dropped":
+        planted = panel_dropped(flash_attention_plain)
+    else:
+        def planted(q, k, v, causal, **tiles):
+            return planted_fault(fault)(q, k, v, causal)
     worst_used, ratios, failed = 0.0, [], []
     fault_used = fault_ratio = None
     for i, (q, k, v, causal, o) in enumerate(calls):
@@ -5352,8 +5360,7 @@ def launch_gate(calls: list, label: str, plain_tiles: dict) -> dict:
         worst_used = max(worst_used, used(o))
         ratios.append((o.double() - exact).abs().mean().item() / e_plain)
         if i == 0:
-            bad = panel_dropped(flash_attention_plain)(q, k, v, causal,
-                                                       **plain_tiles)
+            bad = planted(q, k, v, causal, **plain_tiles)
             fault_used = used(bad)
             fault_ratio = (bad.double() - exact).abs().mean().item() \
                 / e_plain
@@ -5363,13 +5370,13 @@ def launch_gate(calls: list, label: str, plain_tiles: dict) -> dict:
           f"kernel vs plain elementwise at {worst_used:.3f} of FLASH_TOL "
           f"(gate 1), mean |error| against float64 over the plain "
           f"version's worst {max(ratios):.4f} (gate {REGIME_F64_RATIO:g}); "
-          f"the second v panel dropped: {fault_used:.1f} of FLASH_TOL, "
-          f"{fault_ratio:.1f} against float64 (both must exceed)")
+          f"{fault}: {fault_used:.1f} of FLASH_TOL, {fault_ratio:.1f} "
+          f"against float64 (both must exceed)")
     if worst_used > 1 or max(ratios) > REGIME_F64_RATIO:
         failed.append(f"{label}: the kernel disagrees ({worst_used}, "
                       f"{max(ratios)})")
     if not (fault_used > 1 and fault_ratio > REGIME_F64_RATIO):
-        failed.append(f"{label}: the gates cannot tell a dropped v panel")
+        failed.append(f"{label}: the gates cannot tell {fault}")
     return dict(launches=len(calls), flash_tol_used=worst_used,
                 f64_ratio=ratios, fault_flash_tol_used=fault_used,
                 fault_f64_ratio=fault_ratio, failed=failed)
@@ -5769,13 +5776,11 @@ def encoder_vlm_phase(card, dev, wrappers, *, hubert_cfg=None,
                 "v panel dropped vs plain": [live_rel(runs["fault"],
                                                       runs["plain"], c)]}
     faults = ("v panel dropped vs plain",)
-    h["logits_rel_err"] = {"reference init": enc_rels(f_top)}
-    gate(f"{HUBERT_ARCH} {max(lens)} frames, reference init",
-         h["logits_rel_err"]["reference init"], ENC_VLM_LOGITS_TOL, (),
-         read_keys=tuple(h["logits_rel_err"]["reference init"]))
+    # the readings at the reference's init (0.52-0.56 in PR 29, chaotic,
+    # not gated) were cut for the script's time in PR 30
     del long_logits
     condition(params, hcfg.d_model)
-    h["logits_rel_err"]["conditioned"] = enc_rels(f_top)
+    h["logits_rel_err"] = {"conditioned": enc_rels(f_top)}
     gate(f"{HUBERT_ARCH} {max(lens)} frames, conditioned",
          h["logits_rel_err"]["conditioned"], ENC_VLM_LOGITS_TOL, faults,
          read_keys=("plain vs naive",))
@@ -5997,9 +6002,10 @@ def encoder_vlm_phase(card, dev, wrappers, *, hubert_cfg=None,
                 runs["plain"] = image_prefill(params, gtoks, img)[0]
         return runs
     v["logits_rel_err"] = {}
-    for regime in ("reference init", "conditioned"):
-        if regime == "conditioned":
-            condition(params, vcfg.d_model)
+    # conditioned only: the readings at the reference's init (0.12-0.16
+    # in PR 29, not gated) were cut for the script's time in PR 30
+    for regime in ("conditioned",):
+        condition(params, vcfg.d_model)
         with_img, text = vlm_runs(gimg), vlm_runs(None)
         rels = {}
         for what, runs in (("image", with_img), ("text", text)):
@@ -6012,8 +6018,7 @@ def encoder_vlm_phase(card, dev, wrappers, *, hubert_cfg=None,
         del with_img, text
         gate(f"{VLM_ARCH} {gate_s}-token prefill, {regime}", rels,
              ENC_VLM_LOGITS_TOL, ("image dropped vs image, plain",),
-             read_keys=tuple(k for k in rels if regime == "reference init"
-                             or "plain vs naive" in k))
+             read_keys=tuple(k for k in rels if "plain vs naive" in k))
         v["logits_rel_err"][regime] = rels
         free()
     del params
@@ -6062,6 +6067,545 @@ def encoder_vlm_phase(card, dev, wrappers, *, hubert_cfg=None,
     out["seconds"] = time.perf_counter() - t_phase
     out["sub_phase_s"] = laps
     print(f"encoder_vlm phase: {out['seconds']:.1f} s (" + ", ".join(
+        f"{k} {x:.1f}" for k, x in laps.items()) + ")")
+    check(not failed, "; ".join(failed))
+    return out
+
+
+# -- Qwen1.5-32B: served at full width, decoded from an int8 cache ------------
+
+# Qwen1.5-32B (src/repro/configs/qwen15_32b.py), not reduced: 64 layers of
+# 40 heads of 128 (MHA, QKV bias; the wgmma kernel's bf16 (128, 128)
+# instance), d_ff 27,392, vocab 152,064: 70.39 GB of bf16 weights of the
+# card's 80.  Served through DecodeEngine.run (the reference's engine,
+# bf16 cache): QWEN_REQUESTS prompts of lengths drawn from seed 0 in
+# QWEN_PROMPT_LENS, QWEN_MAX_NEW new tokens each, on as many slots of
+# max(QWEN_MIN_LEN, longest + new) rows as keep the peak under
+# QWEN_MEMORY_SHARE of the card (at least 2): reckoned from the peak of
+# one prefill of the longest prompt, measured first.  The QKV biases,
+# zeros at the reference's init, get a seeded draw of std QWEN_BIAS_STD
+# first, so that their path runs on values a trained model has.
+QWEN_ARCH, QWEN_PARAMS = "qwen1.5-32b", 35_197_096_960
+QWEN_REQUESTS = 8
+QWEN_PROMPT_LENS = (128, 2048)
+QWEN_MAX_NEW = 32
+QWEN_MIN_SLOTS, QWEN_MIN_LEN = 2, 2080
+QWEN_MEMORY_SHARE = 0.95
+QWEN_BIAS_STD = 0.5
+# the card must hold less than this when the phase starts
+QWEN_EMPTY_BYTES = 1e9
+# the gates' prompt: every launch of its prefill against the plain version
+# (elementwise at FLASH_TOL) and float64 (REGIME_F64_RATIO), a dropped
+# diagonal tile above both; its logits on conditioned weights, flash
+# against the plain version's path, at QWEN_LOGITS_TOL (the conditioned
+# gate of the other bf16 models), the QKV bias dropped above it
+QWEN_GATE_S = 1024
+QWEN_LOGITS_TOL = 3e-2
+# Decode from an int8 cache through decode_step: QWEN_INT8 (slots, rows),
+# each slot filled by a bf16 prefill of a prompt drawn in (rows / 2, rows
+# - steps], its k/v quantized by quantize_kv and its bf16 cache freed
+# before the next; QWEN_INT8_STEPS greedy steps timed.  The gates:
+#  (a) every dequantized entry p of a prefill against the bf16 value x it
+#      came from: |p - x| <= s (1/2 + 2^-17) + |c| s (2^-7 + 2^-16), c
+#      the code and s the token's f32 scale.  The first term is the
+#      rounding to the nearest code (half a step, and the f32 division
+#      x / s off by at most 127 2^-24 < 2^-17 of a step); the second the
+#      dequantization in bf16 (8 significant bits, a relative rounding of
+#      at most 2^-8): the scale rounded to bf16, the product rounded to
+#      bf16, and their product term (2^-16).
+#  (b) on conditioned weights, the logits of QWEN_INT8_STEPS steps with a
+#      fixed token stream of the first QWEN_INT8_BF16_SLOTS slots of the
+#      int8 cache against the same steps from a bf16 cache of those slots
+#      (filled by the same prefills; the two caches never resident
+#      together; both runs at the same batch, so that they differ in the
+#      cache alone), per step ||a - b|| / ||b|| over the live vocab at
+#      QWEN_INT8_TOL, the conditioned gate of the bf16 models;
+#  (c) the planted faults of INT8_FAULTS, each above gate (a); the scales
+#      ignored above gate (b) too.  The scale of the token before is read
+#      at (b), not gated: at full width a token's scale is the max over
+#      its 5120 values beside a fixed QKV bias, so it moves by a few
+#      percent from one token to the next, and that fault moved the 64
+#      layers' logits 1.18 times as far as the int8 rounding itself
+#      (1.893e-2 against 1.600e-2; on an H100, the CPU rehearsals at 4-32
+#      layers 1024-5120 wide read 2.3-6.5 times).  The decode path's use
+#      of the scales is held to the reference's, codes and scales,
+#      in tests/test_torch_kv_decode.py.
+QWEN_INT8 = (4, 2048)
+QWEN_INT8_STEPS = 16
+QWEN_INT8_BF16_SLOTS = 2
+QWEN_INT8_TOL = 3e-2
+INT8_FAULTS = ("scales ignored", "scale of the token before")
+# the faults gated at (b): above QWEN_INT8_TOL
+INT8_LOGITS_FAULTS = ("scales ignored",)
+# the ranges of a decode step's profile
+QWEN_RANGES = ("qwen.decode_attention", "qwen.dequantize_kv")
+
+
+def int8_fault(fault: str):
+    """``dequantize_kv`` with a fault planted: the codes taken as values
+    (the scales ignored), or each token's codes times the scale of the
+    token before it (the first token keeps its own)."""
+    from repro_torch.models.attention import dequantize_kv
+
+    def faulty(codes, scales, dtype):
+        if fault == "scales ignored":
+            return codes.to(dtype)
+        before = torch.cat([scales[:, :1], scales[:, :-1]], dim=1)
+        return dequantize_kv(codes, before, dtype)
+    check(fault in INT8_FAULTS, f"no planted int8 fault '{fault}'")
+    return faulty
+
+
+def int8_bound(codes, scales) -> torch.Tensor:
+    """The element gate's bound on |dequantized - bf16| (QWEN_INT8 (a))."""
+    s = scales.float()
+    return s * (0.5 + 2 ** -17) + codes.float().abs() * s * (2 ** -7
+                                                             + 2 ** -16)
+
+
+def held_on_card(dev) -> int:
+    """The bytes of live tensors on the card, after a garbage collection
+    (reference cycles of earlier phases) and with cuBLAS's workspaces
+    released (it keeps one, through the caching allocator, for every
+    handle and stream it has run on: the engines' threads' among them)."""
+    gc.collect()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated(dev)
+
+
+def largest_tensors(n: int = 8) -> list:
+    """(bytes, shape, dtype) of the ``n`` largest live CUDA tensors."""
+    found = []
+    for o in gc.get_objects():
+        if isinstance(o, torch.Tensor) and o.is_cuda:
+            found.append((o.numel() * o.element_size(), tuple(o.shape),
+                          str(o.dtype)))
+    return sorted(found, reverse=True)[:n]
+
+
+def qwen_phase(card, dev, wrappers, *, cfg=None,
+               requests: int = QWEN_REQUESTS,
+               prompt_lens: tuple[int, int] = QWEN_PROMPT_LENS,
+               min_len: int = QWEN_MIN_LEN, gate_s: int = QWEN_GATE_S,
+               int8: tuple[int, int] = QWEN_INT8,
+               steps: int = QWEN_INT8_STEPS) -> dict:
+    """Full-width Qwen1.5-32B (``cfg``, default the registered config),
+    random bf16 weights from seed 0 with the QKV biases drawn: served
+    through ``DecodeEngine.run`` on a bf16 cache sized to the card (every
+    counter at 0 just before, read just after: one launch of the wgmma
+    kernel's bf16 (128, 128) instance a layer a prefill, none of the FFMA
+    kernel, no plain call), TTFT, prefill and decode rates beside the
+    decode step's HBM bound, peak memory; each launch of a prefill
+    against its plain version and float64 (``launch_gate``, a dropped
+    diagonal tile above it); then decode from an int8 cache of
+    ``int8`` (slots, rows) through ``decode_step``: the element gate on
+    every entry of every prefill, ``steps`` greedy steps timed beside
+    the HBM bound of the weights and the int8 cache, peak memory in int8
+    and in bf16; then on conditioned weights the logits gates: the served
+    path against its plain version's (the QKV bias dropped above it), the
+    int8 cache's steps against a bf16 cache's (the scales ignored above
+    it); profiles of a decode step from each cache; one launch timed at the longest prompt beside its plain
+    version, SDPA and the bound.  The keywords shrink it for a rehearsal
+    on the CPU (the kernel's plain version, no counts, no times)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_ffma,
+                                                     flash_attention_plain,
+                                                     flash_attention_wgmma)
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as tr
+    from repro_torch.serve.engine import EngineConfig, _merge_slot_cache
+    from repro_torch.train.checkpoint import (tree_items, tree_leaves,
+                                              tree_map)
+    on_card = dev.type == "cuda"
+    full_width = cfg is None
+    cfg = cfg or get_config(QWEN_ARCH)
+    hd = cfg.resolved_head_dim
+    key = (torch.bfloat16, hd, hd)
+    kernel = flash_attention_cuda if on_card else flash_attention_plain
+    t_phase = time.perf_counter()
+    out: dict = {}
+    laps: dict = {}
+    t_lap = [t_phase]
+    failed: list = []
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+        print(f"  [{name}: {laps[name]:.1f} s]")
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated(dev) / 1e9 if on_card \
+            else None
+
+    def reset_peak():
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def live(x):
+        return x[..., :cfg.vocab]
+
+    # -- the weights, on an empty card --------------------------------------
+    if on_card:
+        held = held_on_card(dev)
+        print(f"{QWEN_ARCH}: the card holds {held / 1e9:.3f} GB when the "
+              f"phase starts (must be under {QWEN_EMPTY_BYTES / 1e9:g} GB)")
+        check(held < QWEN_EMPTY_BYTES, f"{QWEN_ARCH}: {held} bytes already "
+              f"allocated on the card; the largest live tensors (bytes, "
+              f"shape, dtype): {largest_tensors()}")
+        reset_peak()
+    t0 = time.perf_counter()
+    params = tr.init(cfg, torch.Generator(dev).manual_seed(0))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    check(n_params == tr.count_params(cfg)
+          and (not full_width or n_params == QWEN_PARAMS),
+          f"{QWEN_ARCH}: {n_params} parameters drawn, "
+          f"{tr.count_params(cfg)} counted, {QWEN_PARAMS} expected")
+    bias_gen = torch.Generator(dev).manual_seed(1)
+    with torch.no_grad():
+        for path, t in tree_items(params).items():
+            if path.rsplit("::", 1)[-1] in ("bq", "bk", "bv"):
+                t.normal_(0.0, QWEN_BIAS_STD, generator=bias_gen)
+    sync()
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params))
+    embed_bytes = params["embed"].numel() * params["embed"].element_size()
+    per_token = 2 * cfg.n_layers * cfg.n_kv_heads * hd * 2
+    print(f"{QWEN_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} kv heads of {hd} "
+          f"(QKV bias, drawn at std {QWEN_BIAS_STD:g}), d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}: {n_params:,} parameters, "
+          f"{weight_bytes / 1e9:.2f} GB in {cfg.dtype}, drawn in "
+          f"{time.perf_counter() - t0:.1f} s; a token's bf16 cache "
+          f"{per_token:,} bytes")
+    out.update(params=n_params, weight_gb=weight_bytes / 1e9)
+    lap("qwen weights")
+
+    # -- serving through DecodeEngine.run, the cache sized to the card ------
+    gen = torch.Generator().manual_seed(0)
+    lens = torch.randint(prompt_lens[0], prompt_lens[1] + 1, (requests,),
+                         generator=gen).tolist()
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen).tolist()
+               for n in lens]
+    max_len = max(min_len, max(lens) + QWEN_MAX_NEW)
+    longest = torch.tensor([prompts[lens.index(max(lens))]], device=dev)
+    reset_peak()
+    with torch.no_grad():
+        tr.forward(params, {"tokens": longest}, cfg, mode="prefill")
+    sync()
+    if on_card:
+        total = torch.cuda.get_device_properties(dev).total_memory
+        prefill_peak = torch.cuda.max_memory_allocated(dev)
+        slots = min(requests, int((QWEN_MEMORY_SHARE * total - prefill_peak)
+                                  // (max_len * per_token)))
+        print(f"{QWEN_ARCH}: a prefill of the longest prompt ({max(lens)} "
+              f"tokens) peaks at {prefill_peak / 1e9:.2f} GB of the card's "
+              f"{total / 1e9:.2f}; {QWEN_MEMORY_SHARE:.0%} leaves room for "
+              f"{slots} slots of {max_len} rows "
+              f"({max_len * per_token / 1e9:.2f} GB a slot in bf16)")
+        check(slots >= QWEN_MIN_SLOTS, f"{QWEN_ARCH}: room for {slots} "
+              f"slots, {QWEN_MIN_SLOTS} needed")
+    else:
+        slots = QWEN_MIN_SLOTS
+    ecfg = EngineConfig(n_slots=slots, max_len=max_len,
+                        max_new=QWEN_MAX_NEW, temperature=0.0)
+    plain_calls: list = []
+    geo = flash_attention_wgmma.launches_by_geometry
+    geo.clear()
+    flash_attention_ffma.launches_by_geometry.clear()
+    reset_peak()
+    with counting_plain_attention(plain_calls):
+        reqs, admits, dsteps, wall, counts = serve_requests(
+            cfg, params, ecfg, prompts, "flash", wrappers, dev)
+    want = cfg.n_layers * requests
+    if on_card:
+        check(counts["flash_attention"] == counts["flash_attention_wgmma"]
+              == geo.get(key) == want and sum(geo.values()) == want
+              and counts["flash_attention_ffma"] == 0
+              and not flash_attention_ffma.launches_by_geometry
+              and all(c == 0 for k, c in counts.items()
+                      if k not in ("flash_attention",
+                                   "flash_attention_wgmma")),
+              f"{QWEN_ARCH} serving: {counts}, {dict(geo)}: {want} launches "
+              f"of the {key} instance through the wgmma kernel expected")
+        check(not plain_calls, f"{QWEN_ARCH} serving called the plain "
+              f"version {len(plain_calls)} times on the card")
+    for r in reqs:
+        check(r.done and len(r.generated) == QWEN_MAX_NEW
+              and all(0 <= x < cfg.vocab for x in r.generated),
+              f"{QWEN_ARCH} request {r.rid}: done {r.done}, "
+              f"{len(r.generated)} tokens")
+    serve_peak = peak_gb()
+    prefill_s = sum(d for _, d in admits.values())
+    decode_s = sum(d for d, _ in dsteps)
+    decode_tokens = sum(n for _, n in dsteps)
+    step_ms = statistics.median(d * 1e3 for d, _ in dsteps)
+    ttft = sorted((len(r.prompt), sum(admits[r.rid]) * 1e3,
+                   admits[r.rid][1] * 1e3) for r in reqs)
+    bound_ms = (weight_bytes - embed_bytes) / PEAK_HBM_BYTES * 1e3
+    out.update(prompt_lens=lens, slots=slots, max_len=max_len, wall_s=wall,
+               launches=counts["flash_attention"],
+               launches_by_geometry={str(k): n for k, n in geo.items()},
+               requests=[dict(prompt=n, ttft_ms=t_, prefill_ms=pre)
+                         for n, t_, pre in ttft],
+               ttft_ms_longest=ttft[-1][1],
+               prefill_tokens_per_s=sum(lens) / prefill_s,
+               decode_steps=len(dsteps), decode_step_ms_median=step_ms,
+               decode_tokens_per_s=decode_tokens / decode_s,
+               decode_bound_ms=bound_ms, serve_peak_memory_gb=serve_peak)
+    print(f"{QWEN_ARCH} served {requests} requests ({sum(lens)} prompt "
+          f"tokens, {QWEN_MAX_NEW} new each) in {wall:.3f} s through "
+          f"{slots} slots of {max_len} rows: {counts['flash_attention']} "
+          f"flash launches ({dict(geo)}), {counts['flash_attention_ffma']} "
+          f"FFMA, {len(plain_calls)} plain calls [{card}]")
+    for n, t_, pre in ttft:
+        print(f"  prompt {n:4d} tokens: prefill {pre:9.3f} ms, TTFT "
+              f"{t_:9.3f} ms")
+    print(f"prefill: {sum(lens)} tokens in {prefill_s:.3f} s = "
+          f"{out['prefill_tokens_per_s']:.1f} tokens/s; decode: "
+          f"{len(dsteps)} engine steps, median {step_ms:.3f} ms a step, "
+          f"{out['decode_tokens_per_s']:.1f} tokens/s; HBM bound of a step "
+          f"{bound_ms:.3f} ms (the weights less the gathered embedding); "
+          f"peak device memory {serve_peak or 0:.2f} GB [{card}]")
+    if on_card:
+        check(serve_peak * 1e9 < QWEN_MEMORY_SHARE * total,
+              f"{QWEN_ARCH} serving peaked at {serve_peak:.2f} GB")
+    lap("qwen serving")
+
+    # -- every launch of a prefill against its plain version and float64 -----
+    gtoks = torch.randint(0, cfg.vocab, (1, gate_s), generator=gen).to(dev)
+    calls: list = []
+    with attend_as(dev, recording(kernel, calls)), torch.no_grad():
+        tr.forward(params, {"tokens": gtoks}, cfg, mode="prefill",
+                   last_logit_only=True)
+    gate = launch_gate(calls, f"{QWEN_ARCH} {gate_s}-token prefill (B=1 "
+                       f"S={gate_s} H={cfg.n_heads} hd={hd})",
+                       ENC_VLM_PLAIN_TILES, fault="diagonal tile dropped")
+    failed += gate.pop("failed")
+    out["flash_on_model_inputs"] = gate
+    del calls
+    lap("qwen launch gate")
+
+    # -- decode from an int8 cache -------------------------------------------
+    n_slots, rows = int8
+    ilens = torch.randint(rows // 2 + 1, rows - steps + 1, (n_slots,),
+                          generator=gen).tolist()
+    iprompts = [torch.randint(0, cfg.vocab, (1, n), generator=gen)
+                for n in ilens]
+    dtoks = torch.randint(0, cfg.vocab, (steps, n_slots, 1),
+                          generator=gen).to(dev)
+
+    def fill(cache, slots_, gated=False):
+        """Prefill ``slots_`` of ``cache`` one at a time (an int8 cache
+        gets the k/v quantized layer by layer); with ``gated``, the
+        element gate and its faults on every entry.  Returns the worst
+        use of the bound, and the faults' on the first prefill."""
+        used, faults = 0.0, {f: 0.0 for f in INT8_FAULTS}
+        for slot in range(slots_):
+            toks = iprompts[slot].to(dev)
+            s = toks.shape[1]
+            with torch.no_grad():
+                _, pcache = tr.forward(params, {"tokens": toks}, cfg,
+                                       mode="prefill", last_logit_only=True)
+            for si, seg in pcache.items():
+                for pos, blk in seg.items():
+                    c, p = cache[si][pos]["attn"], blk["attn"]
+                    if "k_s" not in c:
+                        _merge_slot_cache(c, p, slot, s)
+                        continue
+                    for name in ("k", "v"):
+                        for li in range(p[name].shape[0]):
+                            x = p[name][li, 0]
+                            codes, scales = attention.quantize_kv(x)
+                            c[name][li, slot, :s] = codes
+                            c[f"{name}_s"][li, slot, :s] = scales
+                            if not gated:
+                                continue
+                            bound = int8_bound(codes, scales)
+                            deq = attention.dequantize_kv(codes, scales,
+                                                          x.dtype)
+                            used = max(used, ((deq.float() - x.float()).abs()
+                                              / bound).max().item())
+                            for f in INT8_FAULTS if slot == 0 else ():
+                                bad = int8_fault(f)(codes[None],
+                                                    scales[None], x.dtype)
+                                faults[f] = max(faults[f], (
+                                    (bad[0].float() - x.float()).abs()
+                                    / bound).max().item())
+            del pcache
+        return used, faults
+
+    def decode(cache, slots_, greedy=False):
+        """``steps`` steps of ``slots_`` slots from their prompts' ends:
+        the fixed token stream, or greedy from the prefills' tokens.
+        Returns each step's live logits (host) and ms."""
+        lengths = torch.tensor(ilens[:slots_], device=dev)
+        tok = dtoks[0, :slots_]
+        logits, ms = [], []
+        with torch.no_grad():
+            for i in range(steps):
+                sync()
+                t0 = time.perf_counter()
+                lg, cache = tr.decode_step(params, cache, tok, lengths + i,
+                                           cfg)
+                nxt = torch.argmax(lg.float(), dim=-1)[:, None]
+                sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                logits.append(live(lg).float().cpu())
+                tok = nxt if greedy else dtoks[(i + 1) % steps, :slots_]
+        return torch.stack(logits), ms
+
+    reset_peak()
+    cache8 = tr.init_cache(cfg, n_slots, rows, kv_dtype="int8", device=dev)
+    int8_bytes = sum(t.numel() * t.element_size()
+                     for t in tree_leaves(cache8))
+    used, faults = fill(cache8, n_slots, gated=True)
+    print(f"{QWEN_ARCH} int8 cache of {n_slots} slots x {rows} rows "
+          f"({int8_bytes / 1e9:.2f} GB; in bf16 {n_slots * rows * per_token / 1e9:.2f} GB), "
+          f"filled by bf16 prefills of {ilens} tokens: every dequantized "
+          f"entry within {used:.4f} of its bound |p - x| <= s (1/2 + "
+          f"2^-17) + |c| s (2^-7 + 2^-16) (gate 1); on the first prefill "
+          + ", ".join(f"{f}: {v:.1f}" for f, v in faults.items())
+          + " of it (each must exceed 1)")
+    if used > 1:
+        failed.append(f"{QWEN_ARCH} int8 element gate at {used}")
+    for f, v in faults.items():
+        if not v > 1:
+            failed.append(f"{QWEN_ARCH} int8 element gate cannot tell {f}")
+    _, ms8 = decode(cache8, n_slots, greedy=True)
+    int8_peak = peak_gb()
+    lengths8 = torch.tensor(ilens, device=dev) + steps
+
+    def one_step(cache, n):
+        with torch.no_grad():
+            tr.decode_step(params, cache, dtoks[0, :n], lengths8[:n], cfg)
+    if on_card:
+        with annotated(attention, "decode_attention", QWEN_RANGES[0]), \
+                annotated(attention, "dequantize_kv", QWEN_RANGES[1]):
+            out["int8_profile"] = profile(
+                lambda: one_step(cache8, n_slots), 1,
+                f"{QWEN_ARCH} decode steps of {n_slots} slots from the "
+                f"int8 cache", QWEN_RANGES)
+    step8 = statistics.median(ms8)
+    bound8 = (weight_bytes - embed_bytes + int8_bytes) / PEAK_HBM_BYTES * 1e3
+    print(f"{QWEN_ARCH} decode from the int8 cache: {steps} greedy steps "
+          f"of {n_slots} slots, median {step8:.3f} ms a step "
+          f"({', '.join(f'{x:.1f}' for x in ms8)}); HBM bound {bound8:.3f} "
+          f"ms (the weights less the embedding, and the int8 cache read "
+          f"once); peak device memory {int8_peak or 0:.2f} GB; a bf16 "
+          f"cache of the same rows would need "
+          f"{n_slots * rows * per_token / 1e9:.2f} GB beside the weights "
+          f"[{card}]")
+    out["int8"] = dict(slots=n_slots, rows=rows, prompt_lens=ilens,
+                       cache_gb=int8_bytes / 1e9,
+                       bf16_cache_gb=n_slots * rows * per_token / 1e9,
+                       element_gate_used=used, element_faults=faults,
+                       step_ms=ms8, step_ms_median=step8, bound_ms=bound8,
+                       peak_memory_gb=int8_peak)
+    lap("qwen int8 decode")
+
+    # -- on conditioned weights: the logits gates ------------------------------
+    condition(params, cfg.d_model)
+    rels: dict = {}
+    with torch.no_grad():
+        def prefill_logits(c=cfg):
+            return live(tr.forward(params, {"tokens": gtoks[:, :gate_s]}, c,
+                                   mode="prefill")[0])
+        flash_lg = prefill_logits()
+        with attend_as(dev, plain_over(ENC_VLM_PLAIN_TILES)):
+            plain_lg = prefill_logits()
+            rels["flash vs plain"] = rel_norm(flash_lg, plain_lg)
+            del flash_lg
+            rels["QKV bias dropped vs plain"] = rel_norm(
+                prefill_logits(dataclasses.replace(cfg, qkv_bias=False)),
+                plain_lg)
+    del plain_lg
+    for what, rel in rels.items():
+        fault = what.startswith("QKV")
+        print(f"{QWEN_ARCH} {gate_s}-token prefill on conditioned weights, "
+              f"{what}: logits ||a-b||/||b|| {rel:.3e} ("
+              + (f"must exceed {QWEN_LOGITS_TOL:g})" if fault
+                 else f"tolerance {QWEN_LOGITS_TOL:g})"))
+        if fault != (rel > QWEN_LOGITS_TOL):
+            failed.append(f"{QWEN_ARCH} logits gate, {what}: {rel:.3e}")
+    out["logits_rel_err"] = rels
+    fill(cache8, n_slots)
+    # the int8 steps at the bf16 run's batch (its first slots, views into
+    # the cache), so that the two runs differ in the cache alone
+    first = tree_map(lambda t: t[:, :QWEN_INT8_BF16_SLOTS], cache8)
+    runs = {"int8": decode(first, QWEN_INT8_BF16_SLOTS)[0]}
+    for f in INT8_FAULTS:
+        with swapped(attention, "dequantize_kv", int8_fault(f)):
+            runs[f] = decode(first, QWEN_INT8_BF16_SLOTS)[0]
+    del cache8, first
+    reset_peak()
+    cache16 = tr.init_cache(cfg, QWEN_INT8_BF16_SLOTS, rows, device=dev)
+    fill(cache16, QWEN_INT8_BF16_SLOTS)
+    ref16, _ = decode(cache16, QWEN_INT8_BF16_SLOTS)
+    bf16_peak = peak_gb()
+    if on_card:
+        with annotated(attention, "decode_attention", QWEN_RANGES[0]):
+            out["bf16_profile"] = profile(
+                lambda: one_step(cache16, QWEN_INT8_BF16_SLOTS), 1,
+                f"{QWEN_ARCH} decode steps of {QWEN_INT8_BF16_SLOTS} "
+                f"slots from a bf16 cache", QWEN_RANGES)
+    del cache16
+    int8_rels = {what: [rel_norm(a[i], ref16[i]) for i in range(steps)]
+                 for what, a in runs.items()}
+    worst8 = max(int8_rels["int8"])
+    for what, r in int8_rels.items():
+        fault = what in INT8_LOGITS_FAULTS
+        kind = (f"must exceed {QWEN_INT8_TOL:g}" if fault else
+                "read, not gated" if what in INT8_FAULTS else
+                f"tolerance {QWEN_INT8_TOL:g}")
+        print(f"{QWEN_ARCH} {steps} decode steps on conditioned weights, "
+              f"the int8 cache{'' if what == 'int8' else f' with {what}'} "
+              f"vs a bf16 cache of {QWEN_INT8_BF16_SLOTS} of its slots: "
+              f"logits ||a-b||/||b|| worst {max(r):.3e} (step 0 "
+              f"{r[0]:.3e}; {max(r) / worst8:.2f} times the int8 path's; "
+              f"{kind})")
+        if what in INT8_FAULTS and not fault:
+            continue
+        if fault != (max(r) > QWEN_INT8_TOL):
+            failed.append(f"{QWEN_ARCH} int8 logits gate, {what}: "
+                          f"{max(r):.3e}")
+    print(f"{QWEN_ARCH} peak device memory: int8 cache of {n_slots} x "
+          f"{rows} {int8_peak or 0:.2f} GB; bf16 cache of "
+          f"{QWEN_INT8_BF16_SLOTS} x {rows} {bf16_peak or 0:.2f} GB; a bf16 "
+          f"cache of {n_slots} x {rows} would add "
+          f"{n_slots * rows * per_token / 1e9:.2f} GB to "
+          f"{weight_bytes / 1e9:.2f} GB of weights [{card}]")
+    out["int8"].update(logits_rel_err=int8_rels, bf16_peak_memory_gb=bf16_peak)
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+    lap("qwen gates")
+    out["launch"] = split_launch_row(
+        f"{QWEN_ARCH} longest prompt", 1, max(lens), cfg.n_heads, hd, hd,
+        torch.bfloat16, dev, on_card)
+    if on_card:
+        row = out["launch"]
+        print(f"flash_attention ({row['variant']} {hd}/{hd}) {QWEN_ARCH} "
+              f"longest prompt at B=1 S={max(lens)} H={cfg.n_heads} causal "
+              f"bf16: {row['ms']:.4f} ms a launch ({row['tflops']:.2f} "
+              f"TFLOP/s), max_abs_err {row['max_abs_err']:.3e} vs plain; "
+              f"plain {row['plain_ms']:.3f} ms, SDPA {row['library_ms']:.4f} "
+              f"ms (backend {row['library_backend']}; kernel/SDPA "
+              f"{row['ms'] / row['library_ms']:.2f}), bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}) [{card}]")
+    lap("qwen launch row")
+    out["seconds"] = time.perf_counter() - t_phase
+    out["sub_phase_s"] = laps
+    print(f"qwen phase: {out['seconds']:.1f} s (" + ", ".join(
         f"{k} {x:.1f}" for k, x in laps.items()) + ")")
     check(not failed, "; ".join(failed))
     return out
@@ -7151,8 +7695,9 @@ def mixed_train_phase(card, dev, wrappers) -> dict:
     # -- 1. every launch geometry of the step, kernel vs plain, timed ----
     for name, model in models:
         kernel, plain = gan[name]
-        timing = dict(warmup=2, runs=10) if name == "ganax_conv" \
-            else dict(warmup=1, runs=3)
+        # (PR 30 cut the runs from 10 and 3 for the script's time)
+        timing = dict(warmup=1, runs=5) if name == "ganax_conv" \
+            else dict(warmup=1, runs=2)
         for dt in dtypes:
             dname = STORAGE_NAMES[dt]
             tot = {part: dict(launches=0, ms=0.0, device_ms=0.0,
@@ -7200,9 +7745,11 @@ def mixed_train_phase(card, dev, wrappers) -> dict:
                     t["device_ms"] += launches * device_ms(
                         lambda: kernel(**o, bias=b, activation=act),
                         runs=timing["runs"])
+                    # one call: the plain version of a 3-D step takes
+                    # most of a second (PR 30 cut 4 calls to 1)
                     t["plain_ms"] += launches * time_ms(
                         lambda: plain(**o, bias=b, activation=act),
-                        warmup=1, runs=3)
+                        warmup=0, runs=1)
                     t["library_ms"] += launches * time_ms(lib, **timing)
                     t["library_device_ms"] += launches * device_ms(
                         lib, runs=timing["runs"])
@@ -7642,10 +8189,41 @@ MESH_ENGINE_REQUESTS = (20, 64, 40, 100, 9)
 # the ring matmuls: (m, k, n) a rank
 MESH_RING = (256, 256, 256)
 KERNEL_OF = {"dcgan": "ganax_conv", "3dgan": "ganax_conv3d"}
+# The sequence-sharded decode (RunFlags(mesh=(2, 1), seq_shard_decode=True))
+# of full-width Qwen1.5-32B cut to MESH_DECODE_LAYERS of its 64 layers,
+# random weights from seed 0 conditioned (``condition``; at the
+# reference's init the scores reach hundreds, where the two GEMM shapes'
+# last-bit differences move p by 1e-5: on one H100 the f32 flash-decode
+# outputs read 3.6e-5 in norm, 368 times the elementwise 2e-5): a cache of
+# MESH_DECODE_ROWS rows a slot, its rows split evenly over the data ranks,
+# filled by one-device prefills of prompts of MESH_DECODE_LENS tokens
+# (straddling the split, so the owner's write and the combine run on
+# both ranks), then MESH_DECODE_STEPS steps of a fixed token stream; at
+# bf16 and at f32, with an int8 and a bf16 (f32 at f32) cache, against
+# the one-device decode_step of the same model.  Gates:
+# * in f32, each global layer's flash_decode output against the
+#   one-device decode_attention on the rank's own layer inputs
+#   (parity.attention_oracle) at the reference's flash-decode tolerance,
+#   atol = rtol = 2e-5 (tests/test_distributed.py); in bf16 the same
+#   read;
+# * the logits of every step, ||a - b|| / ||b|| against the one-device
+#   steps: MESH_DECODE_TOL (f32: the f32 checks' 1e-4; bf16: the bf16
+#   gate on conditioned weights, 3e-2);
+# * a planted fault, the partials summed without their rescaling to the
+#   global max (``no corr``), above both at each dtype;
+# * 3 all_reduce calls a global layer a step on every rank.
+MESH_DECODE_LAYERS = 4
+MESH_DECODE_ROWS = 4096
+MESH_DECODE_LENS = (1000, 3000)
+MESH_DECODE_STEPS = 4
+MESH_ATTN_TOL = dict(atol=2e-5, rtol=2e-5)
+MESH_DECODE_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
 
 def mesh_phase(card: str, dev, batch: int = BATCH, scale: float = 1.0,
-               min_bytes: int | None = None) -> dict:
+               min_bytes: int | None = None, qwen_cfg=None,
+               decode_rows: int = MESH_DECODE_ROWS,
+               decode_lens: tuple[int, int] = MESH_DECODE_LENS) -> dict:
     """Sharded GAN programs on ``MESH_WORLD`` gloo ranks sharing the card
     (ROADMAP item 12).  The kernels are built before the ranks start, so
     each rank only loads the built libraries.
@@ -7665,14 +8243,21 @@ def mesh_phase(card: str, dev, batch: int = BATCH, scale: float = 1.0,
     4. Both ring matmuls on two ranks against the dense product.
     5. NCCL in a world of one: a (1, 1) mesh's ``GanServer`` equal to the
        unsharded one bit for bit.
+    6. The sequence-sharded LLM decode (MESH_DECODE_*): full-width
+       Qwen1.5-32B at MESH_DECODE_LAYERS layers, bf16 and f32, int8 and
+       bf16 caches, against the one-device ``decode_step``, the planted
+       combine without ``corr`` above the gates, the collectives
+       counted.
     Every count is set to 0 on each rank just before each case and read
     just after.  A rank that fails fails the phase.  ``batch``,
-    ``scale`` and ``min_bytes`` (the sharding threshold) cut it down to
-    rehearse on the CPU, where the ranks run the kernels' plain versions
-    (no launches to count) and the world of one is gloo's."""
+    ``scale`` and ``min_bytes`` (the sharding threshold), ``qwen_cfg``,
+    ``decode_rows`` and ``decode_lens`` cut it down to rehearse on the
+    CPU, where the ranks run the kernels' plain versions (no launches to
+    count) and the world of one is gloo's."""
     import torch.distributed as dist
 
     from repro_torch import obs
+    from repro_torch.configs.base import get_config
     from repro_torch.kernels.ganax_conv import (ganax_conv3d_cuda,
                                                 ganax_conv_cuda)
     from repro_torch.launch.mesh import spawn
@@ -7712,6 +8297,22 @@ def mesh_phase(card: str, dev, batch: int = BATCH, scale: float = 1.0,
                       requests=list(MESH_ENGINE_REQUESTS), **shared))
     cases.append(dict(name="ring", kind="ring", mesh=(1, MESH_WORLD),
                       **ring))
+    qcfg = qwen_cfg or dataclasses.replace(get_config(QWEN_ARCH),
+                                           n_layers=MESH_DECODE_LAYERS)
+    prompts = [torch.randint(0, qcfg.vocab, (n,), generator=gen).tolist()
+               for n in decode_lens]
+    dtoks = torch.randint(0, qcfg.vocab, (MESH_DECODE_STEPS, 2, 1),
+                          generator=gen)
+    decode_cases = [dict(
+        name=f"decode {dt} {kvd}{' no corr' if fault else ''}",
+        kind="decode", mesh=(MESH_WORLD, 1),
+        cfg=dataclasses.asdict(dataclasses.replace(qcfg, dtype=dt)), seed=0,
+        prompts=prompts, max_len=decode_rows, kv_dtype=kvd, tokens=dtoks,
+        lengths=torch.tensor(decode_lens), condition=True,
+        **({"fault": "no corr"} if fault else {}))
+        for dt in ("bfloat16", "float32")
+        for kvd, fault in (("bf16", False), ("int8", False), ("bf16", True))]
+    cases += decode_cases
     if on_card:
         torch.cuda.empty_cache()
     out = {"forwards": {}, "train": {}, "launches": {}}
@@ -7897,10 +8498,93 @@ def mesh_phase(card: str, dev, batch: int = BATCH, scale: float = 1.0,
           f"unsharded one")
     launched["ganax_conv"]["float32"] = \
         launched["ganax_conv"].get("float32", 0) + nccl_launches
+    out["decode"] = mesh_decode(card, dev, decode_cases, ranks)
     seconds = time.perf_counter() - t0
     out.update(launches=launched, seconds=seconds, spawn_s=spawn_s)
     print(f"mesh main path: launches by kernel and dtype over both ranks "
           f"and the world of one {launched}; phase {seconds:.1f} s")
+    return out
+
+
+def mesh_decode(card: str, dev, cases: list, ranks: list) -> dict:
+    """The ranks' sequence-sharded decode cases against the one-device
+    path on ``dev`` (see MESH_DECODE_*): the logits of every step, each
+    attention layer's output against ``parity.attention_oracle`` on rank
+    0's layer inputs (every rank's inputs equal rank 0's, the combine's
+    results being the same on every rank), the collectives a step; the
+    planted fault above the gates."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.sharding import parity
+    memo: dict = {}
+    out = {}
+    for case in cases:
+        name = case["name"]
+        dt, fault = case["cfg"]["dtype"], case.get("fault")
+        cfg, params, cache, tokens, lengths = parity.decode_inputs(case, dev,
+                                                                   memo)
+        with torch.no_grad():
+            ref = torch.stack([tr.decode_step(params, cache, tokens[i],
+                                              lengths + i, cfg)[0].cpu()
+                               for i in range(tokens.shape[0])])
+        del cache
+        inputs = ranks[0][name]["inputs"]
+        oracle = parity.attention_oracle(case, dev, inputs, memo)
+        n_global = cfg.n_layers * tokens.shape[0]
+        row = {"ranks": []}
+        for r, res in enumerate(ranks):
+            got = res[name]
+            logits = max(rel_norm(got["logits"][i][..., :cfg.vocab],
+                                  ref[i][..., :cfg.vocab])
+                         for i in range(tokens.shape[0]))
+            same = all(torch.equal(h, h0) for h, h0 in
+                       zip(got["inputs"], inputs))
+            attn_rel = max(rel_norm(o, w) for o, w in
+                           zip(got["attn"], oracle))
+            used = max(((o.float() - w.float()).abs()
+                        / (MESH_ATTN_TOL["atol"] + MESH_ATTN_TOL["rtol"]
+                           * w.float().abs())).max().item()
+                       for o, w in zip(got["attn"], oracle))
+            tol = MESH_DECODE_TOL[dt]
+            print(f"mesh {name} rank {r} (data {got['coords']['data']}): "
+                  f"logits of {tokens.shape[0]} steps vs one device "
+                  f"||a-b||/||b|| worst {logits:.3e} ("
+                  + (f"must exceed {tol:g}" if fault else f"tolerance {tol:g}")
+                  + f"); attention outputs vs one device on the same "
+                  f"inputs: ||a-b||/||b|| worst {attn_rel:.3e}, "
+                  f"elementwise at {used:.3f} of atol=rtol=2e-5 ("
+                  + ("must exceed 1" if fault else "gated"
+                     if dt == "float32" else "read")
+                  + f"); {got['collectives']} collectives, "
+                  f"{got['staged']} staged through host memory [{card}]")
+            check(same, f"mesh {name} rank {r}: its layer inputs differ "
+                        f"from rank 0's")
+            check(fault or got["collectives"] == 3 * n_global,
+                  f"mesh {name} rank {r}: {got['collectives']} collectives "
+                  f"for {n_global} global layer-steps")
+            if fault:
+                check(logits > tol and used > 1,
+                      f"mesh {name} rank {r}: the gates cannot tell the "
+                      f"combine without corr")
+            else:
+                check(logits <= tol and (dt != "float32" or used <= 1),
+                      f"mesh {name} rank {r} disagrees with the one-device "
+                      f"decode")
+            row["ranks"].append(dict(logits_rel=logits, attn_rel=attn_rel,
+                                     attn_tol_used=used,
+                                     collectives=got["collectives"],
+                                     staged=got["staged"],
+                                     wall_s=got["wall_s"]))
+        out[name] = row
+        del params, oracle, ref
+    memo.clear()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    steps = MESH_DECODE_STEPS
+    some = next(iter(out.values()))["ranks"][0]
+    print(f"mesh decode: {len(cases)} cases of {steps} steps on "
+          f"{MESH_WORLD} ranks, {some['collectives'] // steps} collectives "
+          f"a step a rank (3 x {cfg.n_layers} layers), "
+          f"{some['staged']} of them staged through host memory")
     return out
 
 
@@ -8214,7 +8898,8 @@ def main(argv=None) -> int:
     def phase_done(name: str) -> None:
         now = time.perf_counter()
         record["phase_s"][name] = now - phase_t0[0]
-        print(f"phase {name}: {now - phase_t0[0]:.1f} s")
+        print(f"phase {name}: {now - phase_t0[0]:.1f} s (the card holds "
+              f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB)")
         phase_t0[0] = now
 
     # -- 1. environment and build -----------------------------------------
@@ -8430,7 +9115,12 @@ def main(argv=None) -> int:
             record[model] = dict(layers=rows[name], generator_ms=gen_ms,
                                  per_s=per_s, unit=unit, profile=prof,
                                  routes=serve_routes[name])
+    # the timed layers' operands, the last server and the loops' last
+    # tensors go before the phases that need the card whole (3D-GAN's
+    # batch-64 tensors: 1.28 GB of them were still held at the qwen phase)
     servers.clear()
+    layer_rows.clear()
+    del server, z, x, w, b, operands, img, g_params
     torch.cuda.empty_cache()
     phase_done("GAN times")
     # -- 4b. the serving stack: GanEngine, programs, obs --------------------
@@ -8495,6 +9185,9 @@ def main(argv=None) -> int:
     # -- 9g. the encoder and the VLM: HuBERT-XLarge, InternVL2-26B ---------
     enc = record["encoder_vlm"] = encoder_vlm_phase(card, dev, wrappers)
     phase_done("encoder_vlm")
+    # -- 9h. Qwen1.5-32B at full width: served, decoded from an int8 cache --
+    qwen = record["qwen"] = qwen_phase(card, dev, wrappers)
+    phase_done("qwen")
     # -- 10. programs sharded over two gloo ranks sharing the card ---------
     mesh = record["mesh"] = mesh_phase(card, dev)
     phase_done("mesh")
@@ -8523,7 +9216,8 @@ def main(argv=None) -> int:
                             "hubert_f32": enc["launches_80_f32"],
                             "internvl2": enc["launches_128"],
                             "internvl2_f32":
-                                enc["internvl2"]["launches_f32"]},
+                                enc["internvl2"]["launches_f32"],
+                            "qwen": qwen["launches"]},
                   launches_by_route={"serve": serve_routes,
                                      "train": train_routes})
 
@@ -8569,9 +9263,10 @@ def main(argv=None) -> int:
         "replaces": KERNELS["flash_attention_wgmma"][1],
         "launches": llm["launches"] + llm_train["launches"]
         + gemma3["launches_wgmma"] + moe["launches_wgmma"]
-        + enc["launches_128"],
+        + enc["launches_128"] + qwen["launches"],
         "max_abs_err": max(kernel_errs["flash_attention_wgmma"]
-                           + moe["errs_wgmma"]),
+                           + moe["errs_wgmma"]
+                           + [qwen["launch"]["max_abs_err"]]),
         "ms": flash["ms"],
         "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"],

@@ -7,9 +7,10 @@ uninterrupted run.
     PYTHONPATH=src python -m repro_torch.elastic_restart [--device cpu]
 
 The reference then restores the same checkpoint onto another mesh shape
-(a subprocess with eight fake devices); the port has no mesh for LLM
-training yet (ROADMAP queue 1 item 23), so that part is not ported and
-the demo says so.
+(a subprocess with eight fake devices); the port's LLM mesh runs only
+the sequence-sharded decode so far, and LLM training on a mesh with its
+reshard is ROADMAP queue 1 item 23's remainder, so that part is not
+ported and the demo says so.
 """
 
 from __future__ import annotations
@@ -88,8 +89,8 @@ def main(argv=None) -> float:
         raise RuntimeError(f"restart must replay deterministically: "
                            f"{loop_a.restarts} restarts, divergence "
                            f"{diff:.2e}")
-    print("[elastic] elastic reshard onto another mesh: not ported (the "
-          "LLM mesh is ROADMAP queue 1 item 23)")
+    print("[elastic] elastic reshard onto another mesh: not ported (LLM "
+          "training on a mesh is ROADMAP queue 1 item 23's remainder)")
     print("[elastic] done")
     return diff
 

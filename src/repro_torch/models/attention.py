@@ -29,15 +29,25 @@ logit soft-capping, and MLA (the port of ``repro.models.attention``).
   space (the absorbed projections), over a cache of ``kv_lora +
   qk_rope`` values a token.
 
-``swa_attention``, ``chunked_q_attention``, ``decode_attention`` and
-MLA's absorbed decode are plain PyTorch on the card too: the reference
-computes them in jnp einsums outside any Pallas kernel.  Scores and
-softmax run in f32, and ``p`` is cast to v's dtype before ``p·v``, as
-the reference.
+* :func:`quantize_kv` / :func:`dequantize_kv` — the int8 KV cache: one
+  f32 scale a token (over all its heads and the head dim), codes rounded
+  half to even and clipped to ±127; decode writes the codes and scales
+  of its token and attends over the cache dequantized in the activation
+  dtype (a per-layer transient).
+* :func:`flash_decode` — decode attention over a cache whose sequence is
+  split over the mesh's ``data`` ranks: each rank's partial (max,
+  denominator, numerator) over its rows (:func:`flash_decode_partials`),
+  combined by a max and two sums over the ranks
+  (:func:`flash_decode_combine`: three ``all_reduce`` calls a layer).
+
+``swa_attention``, ``chunked_q_attention``, ``decode_attention``,
+``flash_decode``, the int8 quantization and MLA's absorbed decode are
+plain PyTorch on the card too: the reference computes them in jnp
+outside any Pallas kernel.  Scores and softmax run in f32, and ``p`` is
+cast to v's dtype before ``p·v``, as the reference.
 
 Not ported (``models/transformer.py`` refuses the configs that need
-them): ``flash_decode`` over a sharded cache, the int8 cache and the
-mesh constraints.
+them): the mesh constraints of tensor parallelism.
 """
 
 from __future__ import annotations
@@ -51,10 +61,13 @@ from repro_torch.kernels.flash_attention import (FlashAttentionFn,
                                                  flash_attention_plain)
 from repro_torch.models.common import (PSpec, apply_rope, rms_norm,
                                        rope_angles)
+from repro_torch.sharding import collectives
 
 __all__ = ["attention_specs", "attention_apply", "mla_specs", "mla_apply",
            "flash_attention", "naive_attention", "chunked_q_attention",
-           "swa_attention", "decode_attention"]
+           "swa_attention", "decode_attention", "quantize_kv",
+           "dequantize_kv", "flash_decode_partials", "flash_decode_combine",
+           "flash_decode"]
 
 NEG_INF = -1e30
 
@@ -220,6 +233,106 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window: int = 0,
     return out.reshape(b, 1, hq, hd).to(q.dtype)
 
 
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (..., Hk, hd) → (int8 codes of x's shape, f32 scales (..., 1,
+    1)): one scale a token, ``max(max|x| / 127, 1e-8)`` over all its
+    heads and the head dim, and codes ``clip(round(x / s), -127, 127)``,
+    rounded half to even, all in f32 (the reference's, whose docstring
+    says per-(token, head) but whose code reduces over both axes)."""
+    xf = x.float()
+    s = (xf.abs().amax(dim=(-2, -1), keepdim=True) / 127.0).clamp_min(1e-8)
+    return torch.round(xf / s).clamp(-127, 127).to(torch.int8), s
+
+
+def dequantize_kv(codes: torch.Tensor, scales: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """``codes · scales``, each cast to ``dtype`` and multiplied there
+    (rounded once in ``dtype``, as the reference, not in f32)."""
+    return codes.to(dtype) * scales.to(dtype)
+
+
+def flash_decode_partials(q, k_local, v_local, lengths, offset: int = 0,
+                          window: int = 0):
+    """One shard's partial decode attention.  q (B,1,Hq,hd); k_local,
+    v_local (B,T_loc,Hk,hd) hold the cache rows at indices ``offset +
+    0..T_loc-1``; a key counts as in :func:`decode_attention`.  Returns
+    f32 ``(m, den, num)``: the row max of the masked scores and the
+    denominator, (B,Hk,rep,1), and the numerator (B,Hk,rep,1,hd) of the
+    softmax relative to that max.  A shard with no live key for a row
+    gives ``m = NEG_INF`` (its terms then weigh 0 in the combine)."""
+    b, _, hq, hd = q.shape
+    t, hk = k_local.shape[1], k_local.shape[2]
+    qg = q.reshape(b, 1, hk, hq // hk, hd)
+    sc = torch.einsum("bsgrh,btgh->bgrst", qg.float(),
+                      k_local.float()) * hd ** -0.5
+    kpos = offset + torch.arange(t, device=q.device)[None]
+    ok = kpos <= lengths[:, None]
+    if window > 0:
+        ok &= kpos > lengths[:, None] - window
+    sc = torch.where(ok[:, None, None, None], sc, NEG_INF)
+    m = sc.amax(dim=-1)
+    p = torch.exp(sc - m[..., None])
+    # p cast to v's dtype, the products summed in f32
+    num = torch.einsum("bgrst,btgh->bgrsh", p.to(v_local.dtype).float(),
+                       v_local.float())
+    return m, p.sum(dim=-1), num
+
+
+def _shard_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
+    if group is None:
+        return t.amax(0, keepdim=True) if op == "max" \
+            else t.sum(0, keepdim=True)
+    return collectives.all_reduce(t, group, "data", op=op)
+
+
+def flash_decode_combine(m, den, num, group=None) -> torch.Tensor:
+    """The shards' partials (:func:`flash_decode_partials`, each with a
+    leading shard axis) combined: ``m_g = max m``, ``corr = exp(m -
+    m_g)``, the sums of ``den·corr`` and ``num·corr``, and ``num_g /
+    max(den_g, 1e-30)``, (B,Hk,rep,1,hd) f32.  Over ``group`` (a rank's
+    partials, a shard axis of 1) each reduction is one ``all_reduce``
+    over the group's ranks; with no group they run over the leading axis,
+    so one process can combine any number of shards by the same
+    reductions."""
+    m_g = _shard_reduce(m, "max", group)
+    corr = torch.exp(m - m_g)
+    den_g = _shard_reduce(den * corr, "sum", group)
+    num_g = _shard_reduce(num * corr[..., None], "sum", group)
+    return (num_g / den_g.clamp_min(1e-30)[..., None])[0]
+
+
+def flash_decode(q, k_local, v_local, lengths, *, offset: int = 0,
+                 group=None, window: int = 0) -> torch.Tensor:
+    """Decode attention with the cache's sequence split over ``group``'s
+    ranks (the reference's ``flash_decode`` over the mesh's ``data``
+    axis): this rank's partials over its rows ``offset + 0..T_loc-1``,
+    combined over the group (3 ``all_reduce`` calls).  With no group the
+    cache is whole.  q (B,1,Hq,hd) → (B,1,Hq,hd) in q's dtype; no
+    soft-cap, as the reference's."""
+    b, _, hq, hd = q.shape
+    m, den, num = flash_decode_partials(q, k_local, v_local, lengths,
+                                        offset, window)
+    out = flash_decode_combine(m[None], den[None], num[None], group)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, 1, hq, hd).to(q.dtype)
+
+
+def _write_rows(c: torch.Tensor, new: torch.Tensor, lengths,
+                offset: int | None):
+    """``new`` (B, ...) into row ``lengths[b]`` of each sequence of ``c``
+    (B, T, ...), in place.  With an ``offset``, ``c`` holds the rows
+    ``offset + 0..T-1`` of a longer cache: a sequence whose row lies
+    outside them is left as it is (no host sync)."""
+    rows = torch.arange(c.shape[0], device=c.device)
+    if offset is None:
+        c[rows, lengths] = new.to(c.dtype)
+        return
+    t = c.shape[1]
+    local = lengths - offset
+    mine = ((local >= 0) & (local < t)).view(-1, *([1] * (new.ndim - 1)))
+    at = local.clamp(0, t - 1)
+    c[rows, at] = torch.where(mine, new.to(c.dtype), c[rows, at])
+
+
 def attention_specs(cfg: ArchConfig, desc: BlockDesc) -> dict[str, PSpec]:
     d, hq, hk = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
@@ -238,7 +351,8 @@ def attention_specs(cfg: ArchConfig, desc: BlockDesc) -> dict[str, PSpec]:
 
 def attention_apply(params, x, cfg: ArchConfig, desc: BlockDesc, *,
                     positions, mode: str = "train", cache=None,
-                    lengths=None, attn_impl: str = "flash"):
+                    lengths=None, attn_impl: str = "flash",
+                    seq_shard: tuple | None = None):
     """Returns (out, new_cache).
 
     ``train``: attention over the sequence, no cache: a windowed
@@ -250,7 +364,14 @@ def attention_apply(params, x, cfg: ArchConfig, desc: BlockDesc, *,
     ``desc.rope_theta`` and the position masks.
     ``decode``: writes this token's k/v into ``cache`` *in place* at row
     ``lengths`` of each sequence (the reference returns an updated
-    copy), then attends over the cache; returns the same cache."""
+    copy), then attends over the cache; returns the same cache.  An int8
+    cache (``{"k", "v", "k_s", "v_s"}``) gets the token's codes and
+    scales (:func:`quantize_kv`) and is attended dequantized in the
+    activation dtype.  ``seq_shard`` (``(group, index)``: the mesh's
+    ``data`` group and this rank's place on it) holds this rank's block
+    of the cache's rows, ``index·T_loc + 0..T_loc-1``: only the rank
+    that owns row ``lengths`` writes it, and attention is
+    :func:`flash_decode` over the group."""
     b, s, _ = x.shape
     hq, hk = cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
@@ -287,13 +408,28 @@ def attention_apply(params, x, cfg: ArchConfig, desc: BlockDesc, *,
         if mode == "prefill":
             new_cache = {"k": k, "v": v}
     elif mode == "decode":
-        rows = torch.arange(b, device=x.device)
-        cache["k"][rows, lengths] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, lengths] = v[:, 0].to(cache["v"].dtype)
+        offset = None if seq_shard is None \
+            else seq_shard[1] * cache["k"].shape[1]
+        if "k_s" in cache:
+            (kq, ks), (vq, vs) = quantize_kv(k[:, 0]), quantize_kv(v[:, 0])
+            for name, new in (("k", kq), ("v", vq), ("k_s", ks),
+                              ("v_s", vs)):
+                _write_rows(cache[name], new, lengths, offset)
+            dt = cfg.activation_dtype
+            k_cache = dequantize_kv(cache["k"], cache["k_s"], dt)
+            v_cache = dequantize_kv(cache["v"], cache["v_s"], dt)
+        else:
+            _write_rows(cache["k"], k[:, 0], lengths, offset)
+            _write_rows(cache["v"], v[:, 0], lengths, offset)
+            k_cache, v_cache = cache["k"], cache["v"]
         new_cache = cache
-        out = decode_attention(q, cache["k"], cache["v"], lengths,
-                               window=desc.window,
-                               softcap=cfg.logit_softcap)
+        if seq_shard is None:
+            out = decode_attention(q, k_cache, v_cache, lengths,
+                                   window=desc.window,
+                                   softcap=cfg.logit_softcap)
+        else:
+            out = flash_decode(q, k_cache, v_cache, lengths, offset=offset,
+                               group=seq_shard[0], window=desc.window)
     else:
         raise ValueError(mode)
     out = out.reshape(b, s, hq * hd) @ params["wo"]

@@ -14,11 +14,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 
-__all__ = ["PSpec", "init_params", "init_tree", "stack_specs", "rms_norm",
-           "layer_norm", "rope_angles", "apply_rope"]
+__all__ = ["PSpec", "ShapeDtype", "init_params", "init_tree", "spec_axes",
+           "spec_shapes", "stack_specs", "rms_norm", "layer_norm",
+           "rope_angles", "apply_rope"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +90,27 @@ def init_tree(gen: torch.Generator, specs: dict, dtype: torch.dtype
             leaf.copy_(_draw(gen, spec, spec.shape))
         out[key] = leaf
     return out
+
+
+class ShapeDtype(NamedTuple):
+    """A leaf's shape and dtype, as the reference's
+    ``jax.ShapeDtypeStruct``: what the sharding rules read of it."""
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+
+def spec_axes(specs: dict) -> dict:
+    """The parallel nested dict of each spec's logical-axis tuple."""
+    return {k: (s.axes if isinstance(s, PSpec) else spec_axes(s))
+            for k, s in specs.items()}
+
+
+def spec_shapes(specs: dict) -> dict:
+    """The parallel nested dict of each spec's :class:`ShapeDtype`
+    (float32, the reference's spec dtype)."""
+    return {k: (ShapeDtype(s.shape, torch.float32) if isinstance(s, PSpec)
+                else spec_shapes(s))
+            for k, s in specs.items()}
 
 
 def stack_specs(specs: dict, n: int) -> dict:

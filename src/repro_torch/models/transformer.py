@@ -64,17 +64,18 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (PSpec, init_tree, rms_norm,
-                                       stack_specs)
+                                       spec_axes, stack_specs)
 from repro_torch.models.mlp import mlp_apply, mlp_specs
+from repro_torch.sharding.rules import axis_sizes
 from repro_torch.train.checkpoint import tree_leaves
 
-__all__ = ["RunFlags", "check_supported", "model_specs", "init", "forward",
-           "loss_fn", "decode_step", "init_cache", "count_params",
-           "model_flops_per_token"]
+__all__ = ["RunFlags", "check_supported", "model_specs", "model_axes",
+           "init", "forward", "loss_fn", "decode_step", "init_cache",
+           "count_params", "model_flops_per_token"]
 
-# ROADMAP queue 1 items that bring what this slice leaves out
-_ITEM_INT8 = "ROADMAP queue 1 item 22 (the int8 KV cache)"
-_ITEM_MESH = "ROADMAP queue 1 item 23 (flash_decode and the mesh)"
+# the ROADMAP queue 1 item that brings what this slice leaves out
+_ITEM_MESH = ("ROADMAP queue 1 item 23's remainder (tensor parallelism, "
+              "LLM training on a mesh)")
 
 
 ATTN_IMPLS = ("flash", "naive", "chunked_q")
@@ -102,8 +103,18 @@ class RunFlags:
     * ``scan_layers``: accepted at both values, with the same result;
       the reference scans over the stacked layers or unrolls them, and
       the port loops over them in Python either way.
-    * ``seq_shard_decode`` and ``mesh`` must keep their defaults (the
-      mesh is not ported)."""
+    * ``mesh`` (a ``DeviceMesh`` of axes ``("data", "model")``, or
+      anything :func:`~repro_torch.sharding.rules.axis_sizes` reads)
+      with ``seq_shard_decode``: the sequence-sharded decode.  Each of
+      the mesh's ``data`` ranks holds its ``T / data`` rows of the cache
+      (``cache_shardings(seq_shard=True)``), tokens and lengths
+      replicated; the global attention layers run ``flash_decode`` over
+      the ``data`` group.  Only ``mode="decode"`` runs on a mesh, with a
+      model axis of 1 (the weights whole on every rank); a model axis
+      above 1, a mesh without ``seq_shard_decode`` and the modes that
+      train or prefill raise ``NotImplementedError``.
+      ``seq_shard_decode`` without a mesh is the one-device decode, as
+      the reference's."""
     attn_impl: str = "flash"          # "flash" | "naive" | "chunked_q"
     remat: bool = True
     remat_policy: str = "nothing"     # "nothing" | "dots"
@@ -118,8 +129,17 @@ class RunFlags:
         if self.remat_policy not in ("nothing", "dots"):
             raise ValueError(f"remat_policy {self.remat_policy!r}: "
                              f"'nothing' or 'dots'")
-        if self.seq_shard_decode or self.mesh is not None:
-            raise NotImplementedError(f"a mesh: {_ITEM_MESH}")
+        if self.mesh is None:
+            return
+        model = axis_sizes(self.mesh).get("model", 1)
+        if model > 1:
+            raise NotImplementedError(
+                f"a model axis of {model} (tensor parallelism of the LLM "
+                f"forward): {_ITEM_MESH}")
+        if not self.seq_shard_decode:
+            raise NotImplementedError(
+                f"a mesh without seq_shard_decode (the batch-sharded "
+                f"decode): {_ITEM_MESH}")
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -184,6 +204,12 @@ def model_specs(cfg: ArchConfig) -> dict[str, Any]:
     return specs
 
 
+def model_axes(cfg: ArchConfig) -> dict:
+    """The logical axes of every parameter (``sharding/rules.py`` maps
+    them onto a mesh)."""
+    return spec_axes(model_specs(cfg))
+
+
 def init(cfg: ArchConfig, gen: torch.Generator) -> dict[str, Any]:
     """Random parameters drawn on ``gen``'s device and stored in
     ``cfg.activation_dtype`` (the reference casts every leaf to it on
@@ -232,7 +258,7 @@ def model_flops_per_token(cfg: ArchConfig) -> float:
 # ---------------------------------------------------------------------------
 
 def _block_apply(params, x, cfg, desc, *, positions, mode, cache, lengths,
-                 flags: RunFlags):
+                 flags: RunFlags, seq_shard=None):
     """One block: (x, its cache ``{"attn": ..., "ssm": ...}`` as the
     block has them (empty in train mode), its MoE aux
     ``[load_balance_loss, router_z_loss]`` f32, or None for a dense
@@ -243,10 +269,11 @@ def _block_apply(params, x, cfg, desc, *, positions, mode, cache, lengths,
     if desc.mixer != "ssm":
         fn = attn_mod.mla_apply if desc.mixer == "mla" else \
             attn_mod.attention_apply
+        shard = {} if seq_shard is None else {"seq_shard": seq_shard}
         out, c = fn(params["attn"], h, cfg, desc, positions=positions,
                     mode=mode,
                     cache=None if cache is None else cache.get("attn"),
-                    lengths=lengths, attn_impl=flags.attn_impl)
+                    lengths=lengths, attn_impl=flags.attn_impl, **shard)
         outs.append(out)
         if c is not None:
             new_cache["attn"] = c
@@ -382,6 +409,7 @@ def forward(params, batch, cfg: ArchConfig, *, mode: str = "train",
         raise ValueError(mode)
     if mode == "decode" and not cfg.supports_decode:
         raise ValueError(f"{cfg.name} is encoder-only: no decode")
+    seq_shard = _seq_shard(cfg, mode, flags)
     params = _cast_params(params, cfg.activation_dtype)
     x = _embed_in(params, batch, cfg)
     require_f32_accumulation(x)
@@ -403,7 +431,7 @@ def forward(params, batch, cfg: ArchConfig, *, mode: str = "train",
             x, outs[f"pos{di}"], a = _block_apply(
                 lp[f"pos{di}"], x, cfg, desc, positions=positions,
                 mode=mode, cache=None if lc is None else lc[f"pos{di}"],
-                lengths=lengths, flags=flags)
+                lengths=lengths, flags=flags, seq_shard=seq_shard)
             if a is not None:
                 aux = a if aux is None else aux + a
         return x, outs, aux
@@ -414,10 +442,10 @@ def forward(params, batch, cfg: ArchConfig, *, mode: str = "train",
     aux_sum = torch.zeros(2, device=x.device)
     for si, (descs, rep) in enumerate(cfg.layer_segments()):
         seg_cache = None if cache is None else cache[f"seg{si}"]
-        layer_caches = []
+        stacked = None
         lcs = [None] * rep if seg_cache is None else _unstack(seg_cache, rep)
-        for lp, lc in zip(_unstack(params["segments"][f"seg{si}"], rep),
-                          lcs):
+        for li, (lp, lc) in enumerate(zip(
+                _unstack(params["segments"][f"seg{si}"], rep), lcs)):
             if remat:
                 x, outs, aux = checkpoint(body, x, lp, lc, descs,
                                           use_reentrant=False,
@@ -426,9 +454,12 @@ def forward(params, batch, cfg: ArchConfig, *, mode: str = "train",
                 x, outs, aux = body(x, lp, lc, descs)
             if aux is not None:
                 aux_sum = aux_sum + aux
-            layer_caches.append(outs)
+            if mode == "prefill":
+                if stacked is None:
+                    stacked = _empty_stack(outs, rep)
+                _set_layer(stacked, outs, li)
         if mode == "prefill":
-            new_cache[f"seg{si}"] = _stack(layer_caches)
+            new_cache[f"seg{si}"] = stacked
         elif mode == "decode":
             new_cache[f"seg{si}"] = seg_cache
     if last_logit_only:
@@ -439,6 +470,26 @@ def forward(params, batch, cfg: ArchConfig, *, mode: str = "train",
         return logits, new_cache, {"load_balance_loss": aux_sum[0],
                                    "router_z_loss": aux_sum[1]}
     return logits, new_cache
+
+
+def _seq_shard(cfg: ArchConfig, mode: str, flags: RunFlags):
+    """``(data group, this rank's data index)`` of ``flags.mesh`` for the
+    sequence-sharded decode, None without a mesh; raises
+    ``NotImplementedError`` for a mode or a layer it does not run."""
+    if flags.mesh is None:
+        return None
+    if mode != "decode":
+        raise NotImplementedError(f"mode={mode!r} on a mesh: {_ITEM_MESH}")
+    for descs, _ in cfg.layer_segments():
+        for d in descs:
+            if d.mixer != "attn" or d.window:
+                kind = "windowed" if d.mixer == "attn" else d.mixer
+                raise NotImplementedError(
+                    f"{cfg.name}: a {kind} layer under seq_shard_decode "
+                    f"(the sequence-sharded decode runs global attention "
+                    f"layers only): {_ITEM_MESH}")
+    mesh = flags.mesh
+    return mesh.get_group("data"), mesh.get_local_rank("data")
 
 
 def _batch_positions(positions, shape, cfg: ArchConfig, flags: RunFlags,
@@ -502,17 +553,31 @@ def loss_fn(params, batch, cfg: ArchConfig, flags: RunFlags = RunFlags(),
     return total, metrics
 
 
-def _stack(trees: list[dict]) -> dict:
-    first = trees[0]
-    return {k: (_stack([t[k] for t in trees]) if isinstance(first[k], dict)
-                else torch.stack([t[k] for t in trees]))
-            for k in first}
+def _empty_stack(tree: dict, n: int) -> dict:
+    """A stack of ``n`` layers shaped like ``tree`` (one layer's cache),
+    uninitialised."""
+    return {k: (_empty_stack(v, n) if isinstance(v, dict)
+                else v.new_empty((n, *v.shape))) for k, v in tree.items()}
+
+
+def _set_layer(stack: dict, tree: dict, i: int) -> None:
+    """Layer ``i`` of ``stack`` set to ``tree``: each layer's prefill
+    cache goes to its place as the layer ends, so a prefill never holds
+    its cache twice (a 2000-token Qwen1.5-32B prefill's is 2.6 GB)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _set_layer(stack[k], v, i)
+        else:
+            stack[k][i] = v
 
 
 def decode_step(params, cache, tokens, lengths, cfg: ArchConfig,
                 flags: RunFlags = RunFlags()):
-    """One decoding step, the cache updated in place.  tokens (B,1) →
-    (logits (B, vocab), cache)."""
+    """One decoding step, the cache (bf16 or int8, :func:`init_cache`)
+    updated in place.  tokens (B,1) → (logits (B, vocab), cache).  With
+    ``flags.mesh`` and ``seq_shard_decode`` the cache is this rank's
+    block of rows and tokens and lengths are the same on every rank
+    (:class:`RunFlags`)."""
     logits, cache = forward(params, {"tokens": tokens}, cfg, mode="decode",
                             cache=cache, lengths=lengths, flags=flags)
     return logits[:, -1], cache
@@ -529,12 +594,14 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     state ``{"ssm": {"h": f32 (layers, batch, H, P, N), "conv": (layers,
     batch, W-1, conv_dim)}}``, in ``dtype`` (default: the activation
     dtype; ``h`` f32, float64 in a float64 cache), on ``device``
-    (default: the card)."""
+    (default: the card).  ``kv_dtype="int8"``: each attention block's
+    ``k`` and ``v`` in int8 beside their f32 scales ``k_s``, ``v_s`` of
+    ``(layers, batch, max_len, 1, 1)``, one a token (about half the
+    bf16 cache's bytes); MLA latents and SSM states keep ``dtype``, as
+    the reference's."""
     check_supported(cfg)
     device = resolve_device(device)
-    if kv_dtype == "int8":
-        raise NotImplementedError(f"kv_dtype='int8': {_ITEM_INT8}")
-    if kv_dtype != "bf16":
+    if kv_dtype not in ("bf16", "int8"):
         raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
     dt = dtype or cfg.activation_dtype
     hd = cfg.resolved_head_dim
@@ -553,9 +620,15 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
             else:
                 shapes = None
             if shapes is not None:
-                blk["attn"] = {name: torch.zeros(shape, dtype=dt,
+                kv_dt = torch.int8 if kv_dtype == "int8" and \
+                    desc.mixer != "mla" else dt
+                blk["attn"] = {name: torch.zeros(shape, dtype=kv_dt,
                                                  device=device)
                                for name, shape in shapes.items()}
+                if kv_dt == torch.int8:
+                    blk["attn"].update(
+                        {name: torch.zeros(lead + (1, 1), device=device)
+                         for name in ("k_s", "v_s")})
             if desc.mixer in ("ssm", "hybrid"):
                 blk["ssm"] = ssm_mod.init_state(cfg, batch, dt, device,
                                                 (rep,))

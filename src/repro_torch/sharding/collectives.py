@@ -122,14 +122,15 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return out.copy_(t)
 
 
-def _span(op: str, t: torch.Tensor, group, axis: str | None, host: bool):
+def _span(op: str, t: torch.Tensor, group, axis: str | None, host: bool,
+          **extra):
     _obs.counter("mesh.collectives", op=op).inc()
     if host:
         _obs.counter("mesh.staged", op=op).inc()
     if not _obs.is_enabled():
         return _NO_SPAN
     attrs = dict(op=op, axis=axis, bytes=t.numel() * t.element_size(),
-                 ranks=dist.get_world_size(group))
+                 ranks=dist.get_world_size(group), **extra)
     if host:
         attrs["staged"] = "host"
     return _obs.trace("mesh.collective", **attrs)
@@ -148,13 +149,21 @@ def all_gather(t: torch.Tensor, dim: int, group, axis: str | None = None
         return out.to(t.device, non_blocking=True) if host else out
 
 
-def all_reduce(t: torch.Tensor, group, axis: str | None = None
-               ) -> torch.Tensor:
-    """The sum over the group's ranks of ``t`` (a new tensor)."""
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce(t: torch.Tensor, group, axis: str | None = None,
+               op: str = "sum") -> torch.Tensor:
+    """The sum (``op="sum"``) or the elementwise max (``op="max"``) over
+    the group's ranks of ``t`` (a new tensor).  Either counts as an
+    ``all_reduce`` (its span records ``reduce=op``) and is staged as
+    :data:`GLOO_CUDA` says."""
+    if op not in _REDUCE_OPS:
+        raise ValueError(f"all_reduce op {op!r}: one of {tuple(_REDUCE_OPS)}")
     host = staged("all_reduce", t, group)
-    with _span("all_reduce", t, group, axis, host):
+    with _span("all_reduce", t, group, axis, host, reduce=op):
         buf = _host(t) if host else t.contiguous().clone()
-        dist.all_reduce(buf, group=group)
+        dist.all_reduce(buf, op=_REDUCE_OPS[op], group=group)
         return buf.to(t.device, non_blocking=True) if host else buf
 
 

@@ -1,4 +1,5 @@
-"""Rank-side runners of sharded GAN programs, for parity checks.
+"""Rank-side runners of sharded GAN programs and of the LLM's
+sequence-sharded decode, for parity checks.
 
 A parent process writes a list of cases with ``torch.save`` (parameters
 and inputs included), starts the ranks with
@@ -27,7 +28,16 @@ the card).  Each case is a dict with a ``name`` and a ``kind``:
 * ``ring``: both ring matmuls on the rank's shards;
 * ``forms``: :func:`~repro_torch.launch.mesh.make_local_mesh`'s forms
   and errors at this world size;
-* ``cli``: ``python -m repro_torch.program --mesh``'s output.
+* ``cli``: ``python -m repro_torch.program --mesh``'s output;
+* ``decode``: an LLM's ``decode_step`` with the cache's sequence split
+  over the mesh's ``data`` ranks (``RunFlags(mesh=...,
+  seq_shard_decode=True)``): the rank's block of a global cache (given,
+  or filled by one-device prefills of ``prompts``, :func:`decode_inputs`)
+  decoded ``steps`` times, each step's logits and each attention layer's
+  input and ``flash_decode`` output recorded (:func:`attention_oracle`
+  runs the same inputs through the one-device attention), and the
+  collectives counted; ``fault="no corr"`` plants a combine that sums the partials
+  without rescaling them to the global max.
 
 Every case records the GANAX kernels' launches (on the card) by route,
 dtype and Cout during the case, and how many collectives it staged
@@ -46,7 +56,8 @@ import time
 import torch
 import torch.distributed as dist
 
-__all__ = ["run"]
+__all__ = ["run", "condition", "decode_inputs", "fill_cache", "recording",
+           "attention_oracle"]
 
 
 def _cfg(case: dict):
@@ -295,9 +306,204 @@ def _cli(case, dev):
     return {"stdout": buf.getvalue()}
 
 
+def fill_cache(cfg, params, prompts, max_len: int, kv_dtype: str, dev
+               ) -> dict:
+    """A ``len(prompts)``-slot cache of ``max_len`` rows, each slot filled
+    by a one-device prefill of its prompt (attention layers only); an
+    int8 cache gets each prefill's k/v rows quantized by ``quantize_kv``,
+    a layer at a time.  Each prefill's cache is freed before the
+    next."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.attention import quantize_kv
+    from repro_torch.serve.engine import _merge_slot_cache
+    cache = tr.init_cache(cfg, len(prompts), max_len, kv_dtype=kv_dtype,
+                          device=dev)
+    with torch.no_grad():
+        for slot, prompt in enumerate(prompts):
+            toks = torch.as_tensor(prompt, device=dev).long()[None]
+            _, pcache = tr.forward(params, {"tokens": toks}, cfg,
+                                   mode="prefill", last_logit_only=True)
+            s = toks.shape[1]
+            for si, seg in pcache.items():
+                for pos, blk in seg.items():
+                    c, p = cache[si][pos]["attn"], blk["attn"]
+                    if kv_dtype != "int8":
+                        _merge_slot_cache(c, p, slot, s)
+                        continue
+                    for name in ("k", "v"):
+                        for li in range(p[name].shape[0]):
+                            codes, scales = quantize_kv(p[name][li, 0])
+                            c[name][li, slot, :s] = codes
+                            c[f"{name}_s"][li, slot, :s] = scales
+            del pcache
+    return cache
+
+
+def condition(params: dict, d_model: int) -> None:
+    """In place: each stacked matrix scaled from the reference's fan-in
+    (the layer count) to its input width (a MoE block's stacked experts,
+    ``(L, E, in, out)``, too; its router keeps its own scale, 0.02, not a
+    fan-in), the embedding from 1 to ``d_model**-0.5``: weights whose
+    activations and attention scores stay of order 1 through the depth,
+    where the reference's init saturates the softmax."""
+    import math
+
+    from repro_torch.train.checkpoint import tree_items
+    with torch.no_grad():
+        for path, t in tree_items(params).items():
+            if path.endswith("router"):
+                continue
+            if t.ndim in (3, 4):
+                t.mul_(math.sqrt(t.shape[0] / t.shape[-2]))
+            elif path == "embed":
+                t.mul_(d_model ** -0.5)
+
+
+# a rank's drawn model, kept from one decode case to the next
+_MODEL: dict = {}
+
+
+def decode_inputs(case: dict, dev, memo: dict | None = None):
+    """``(cfg, params, global cache, tokens (steps, B, 1), lengths (B,))``
+    of a ``decode`` case on ``dev``: the config from ``case["cfg"]`` (an
+    ``ArchConfig``'s fields); the parameters given (``params``) or drawn
+    on ``dev`` from ``seed``, with ``condition`` set then conditioned
+    (:func:`condition`; kept in ``memo`` for the next case of the same
+    config, seed and conditioning); the cache given (``cache``) or filled
+    from ``prompts`` (:func:`fill_cache`, ``max_len`` rows,
+    ``kv_dtype``)."""
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.models import transformer as tr
+    cfg = ArchConfig(**case["cfg"])
+    memo = {} if memo is None else memo
+    if "params" in case:
+        params = _on(case["params"], dev)
+    else:
+        key = (repr(cfg), case["seed"], case.get("condition", False))
+        if key not in memo:
+            memo.clear()
+            memo[key] = tr.init(cfg, torch.Generator(dev).manual_seed(
+                case["seed"]))
+            if key[2]:
+                condition(memo[key], cfg.d_model)
+        params = memo[key]
+    cache = _on(case["cache"], dev) if "cache" in case else fill_cache(
+        cfg, params, case["prompts"], case["max_len"], case["kv_dtype"], dev)
+    return (cfg, params, cache, case["tokens"].to(dev),
+            case["lengths"].to(dev))
+
+
+def _combine_without_corr(m, den, num, group=None):
+    """The planted fault of ``decode`` cases: the partials summed as
+    they are, each still relative to its own shard's max."""
+    from repro_torch.models.attention import _shard_reduce
+    den_g = _shard_reduce(den, "sum", group)
+    num_g = _shard_reduce(num, "sum", group)
+    return (num_g / den_g.clamp_min(1e-30)[..., None])[0]
+
+
+def recording(module, name: str, calls: list, arg: int | None = None):
+    """Inside: ``module.name`` appends a host copy of each call's first
+    output to ``calls``, or with ``arg`` of its positional argument
+    ``arg`` (an attention block's input: ``attention_apply``'s ``x`` is
+    argument 1)."""
+    fn = getattr(module, name)
+
+    def recorded(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        t = args[arg] if arg is not None else \
+            out[0] if isinstance(out, tuple) else out
+        calls.append(t.detach().to("cpu", copy=True))
+        return out
+    return _swapped(module, name, recorded)
+
+
+def attention_oracle(case: dict, dev, layer_inputs: list,
+                     memo: dict | None = None) -> list:
+    """The one-device attention of a ``decode`` case, layer by layer on
+    the inputs a rank recorded (``layer_inputs``: each attention layer's
+    normed input, step by step in the forward's order): each layer's
+    ``attention_apply`` over the case's global cache, which the calls
+    write as the rank's did, so every call sees the rank's call's
+    inputs.  Returns each call's ``decode_attention`` output (host
+    copies, before ``wo``), the counterpart of the rank's
+    ``flash_decode`` outputs, in the same order.  ``memo`` as
+    :func:`decode_inputs`'s."""
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as tr
+    cfg, params, cache, _, lengths = decode_inputs(case, dev, memo)
+    params = tr._cast_params(params, cfg.activation_dtype)
+    layers = []
+    for si, (descs, rep) in enumerate(cfg.layer_segments()):
+        seg = zip(tr._unstack(params["segments"][f"seg{si}"], rep),
+                  tr._unstack(cache[f"seg{si}"], rep))
+        layers += [(lp[f"pos{di}"]["attn"], lc[f"pos{di}"]["attn"], desc)
+                   for lp, lc in seg for di, desc in enumerate(descs)]
+    outs: list = []
+    with recording(attention, "decode_attention", outs), torch.no_grad():
+        for i, h in enumerate(layer_inputs):
+            lp, lc, desc = layers[i % len(layers)]
+            ln = lengths + i // len(layers)
+            attention.attention_apply(lp, h.to(dev), cfg, desc,
+                                      positions=ln[:, None], mode="decode",
+                                      cache=lc, lengths=ln)
+    return outs
+
+
+@contextlib.contextmanager
+def _swapped(module, name: str, fn):
+    saved = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def _collectives() -> int:
+    from repro_torch import obs
+    return sum(v for k, v in obs.snapshot()["counters"].items()
+               if k.startswith("mesh.collectives"))
+
+
+def _decode(case, dev):
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as tr
+    from repro_torch.sharding import rules
+    cfg, params, cache, tokens, lengths = decode_inputs(case, dev, _MODEL)
+    mesh = make_local_mesh(*case["mesh"], device_type=dev.type)
+    coords = {a: mesh.get_local_rank(a) for a in ("data", "model")}
+    specs = rules.cache_shardings(mesh, cache, seq_shard=True)
+
+    def block(tree, spec):
+        return {k: (block(v, spec[k]) if isinstance(v, dict) else
+                    rules.local_block(v, spec[k], mesh, coords).clone())
+                for k, v in tree.items()}
+    local = block(cache, specs)
+    del cache
+    flags = tr.RunFlags(mesh=mesh, seq_shard_decode=True)
+    inputs, attn, logits = [], [], []
+    fault = _swapped(attention, "flash_decode_combine",
+                     _combine_without_corr) \
+        if case.get("fault") == "no corr" else contextlib.nullcontext()
+    before = _collectives()
+    with recording(attention, "attention_apply", inputs, arg=1), \
+            recording(attention, "flash_decode", attn), fault, \
+            torch.no_grad():
+        for i in range(tokens.shape[0]):
+            lg, local = tr.decode_step(params, local, tokens[i],
+                                       lengths + i, cfg, flags)
+            logits.append(lg)
+    return {"logits": torch.stack(logits), "inputs": inputs, "attn": attn,
+            "cache": local, "coords": coords,
+            "collectives": _collectives() - before}
+
+
 _KINDS = {"forward": _forward, "grad": _grad, "server": _server,
-          "server_submit": _server_submit, "engine": _engine, "engine_fault": _engine_fault, "ring": _ring,
-          "forms": _forms, "cli": _cli}
+          "server_submit": _server_submit, "engine": _engine,
+          "engine_fault": _engine_fault, "ring": _ring, "forms": _forms,
+          "cli": _cli, "decode": _decode}
 
 
 def run(case_file: str, out_dir: str, device: str = "cuda",

@@ -35,12 +35,26 @@ cases, world 4 the ``(2, 2)`` ones.  The cases mirror
   "divide" error, and a fault in rank 0's scheduler that must leave no
   rank waiting;
 * both ring matmuls against the dense product at world 2 and 4;
+* the sequence-sharded decode (``RunFlags(mesh=(2, 1) mesh,
+  seq_shard_decode=True)``) at world 2: the tiny int8-decode model of
+  tests/test_models.py (``tiny(qwen1.5-32b, float32, n_kv_heads=4)``),
+  a 64-row cache the reference filled (40 steps from empty, carried
+  across by ``cache_from_jax``, each rank cutting its 32 rows), 3 steps
+  from lengths 13 and 40 (each on another rank), int8 and bf16, against
+  the reference's unsharded ``decode_step`` (logits at 1e-4, the caches
+  the ranks hold against the reference's), each attention layer's output
+  against the port's one-device attention on the rank's own layer inputs
+  (``parity.attention_oracle``) at 2e-5, 3 collectives a layer a step;
+  the partials summed without their rescaling (a planted fault) far
+  off;
 * stale tuned routes and blocks dropped on a ``"cout"`` layer's local
   Cout shard (``dataflow.resolve.shard_blocks``), in this process.
 
 Sizes: ``channel_scale = 0.0625``, batch 4 (2 for 3D-GAN).
 """
 
+import dataclasses
+import functools
 import json
 import os
 
@@ -50,11 +64,16 @@ import numpy as np
 import pytest
 import torch
 from conftest import run_forced_devices
+from test_models import tiny
 
+from repro.configs import base as jbase
 from repro.models import gan as jgan
+from repro.models import transformer as jtr
 from repro.program import Program as JProgram
 from repro.train.loop import make_gan_train_step as jax_train_step
 from repro_torch import obs
+from repro_torch.configs import base as tbase
+from repro_torch.convert import cache_from_jax, lm_params_from_jax
 from repro_torch.core import dataflow as tdf
 from repro_torch.kernels.ganax_conv import KernelRoute
 from repro_torch.launch.mesh import mesh_shape, production_mesh_shape, spawn
@@ -84,6 +103,13 @@ FORMS = {"()": {}, "data=1": {"data": 1}, "data=2": {"data": 2},
          "data=2,model=2": {"data": 2, "model": 2},
          "data=3,model=1": {"data": 3, "model": 1}}
 FORM_NS = (1, 2, 4, 6, 7, 8)
+# the sequence-sharded decode: a cache of DECODE_T rows filled by
+# DECODE_FILL reference steps from empty, then DECODE_STEPS steps from
+# lengths DECODE_LENS (one on each rank's half)
+DECODE_T, DECODE_FILL, DECODE_STEPS = 64, 40, 3
+DECODE_LENS = (13, 40)
+DECODE_LOGITS_TOL = 1e-4
+DECODE_ATTN_TOL = dict(atol=2e-5, rtol=2e-5)
 
 
 def _np_params(specs, rng):
@@ -123,6 +149,49 @@ def _inputs():
             g=_np_params(jgan.generator_specs(jcfg), rng),
             z=rng.normal(size=(BATCH[name], jcfg.z_dim)).astype(np.float32))
     return out
+
+
+def _decode_inputs():
+    """The reference's tiny int8-decode model: its parameters, a cache of
+    DECODE_T rows filled by DECODE_FILL teacher-forced steps from empty
+    (both kv dtypes), then DECODE_STEPS steps from DECODE_LENS: their
+    logits and the final caches (one jitted step)."""
+    jcfg = tiny(jbase.get_config("qwen1.5-32b"), dtype="float32",
+                n_kv_heads=4)
+    params = jtr.init(jcfg, jax.random.PRNGKey(0))
+    rng = np.random.default_rng(5)
+    fill = rng.integers(0, jcfg.vocab, (2, DECODE_FILL))
+    toks = rng.integers(0, jcfg.vocab, (DECODE_STEPS, 2, 1))
+    step = jax.jit(functools.partial(jtr.decode_step, cfg=jcfg))
+    out = dict(cfg=dataclasses.asdict(jcfg),
+               params=jax.tree.map(np.asarray, params), tokens=toks)
+    for kvd in ("bf16", "int8"):
+        cache = jtr.init_cache(jcfg, 2, DECODE_T, kv_dtype=kvd)
+        for t in range(DECODE_FILL):
+            _, cache = step(params, cache, jnp.asarray(fill[:, t:t + 1]),
+                            jnp.full((2,), t, jnp.int32))
+        filled = jax.tree.map(np.asarray, cache)
+        logits = []
+        for i in range(DECODE_STEPS):
+            lg, cache = step(params, cache, jnp.asarray(toks[i]),
+                             jnp.asarray(DECODE_LENS) + i)
+            logits.append(np.asarray(lg))
+        out[kvd] = dict(cache=filled, logits=np.stack(logits),
+                        final=jax.tree.map(np.asarray, cache))
+    return out
+
+
+def _decode_case(dec: dict, kvd: str, fault: str | None = None) -> dict:
+    tcfg = tbase.ArchConfig(**dec["cfg"])
+    case = dict(
+        name=f"decode {kvd} 2x1" + (f" {fault}" if fault else ""),
+        kind="decode", mesh=(2, 1), cfg=dec["cfg"],
+        params=lm_params_from_jax(dec["params"], tcfg, "cpu", torch.float32),
+        cache=cache_from_jax(dec[kvd]["cache"], tcfg, "cpu"),
+        tokens=torch.tensor(dec["tokens"]), lengths=torch.tensor(DECODE_LENS))
+    if fault:
+        case["fault"] = fault
+    return case
 
 
 def _cases(world: int, inp: dict, tmp) -> list[dict]:
@@ -187,6 +256,8 @@ def _cases(world: int, inp: dict, tmp) -> list[dict]:
             name="cli", kind="cli",
             argv=["dcgan", "--role", "generator", "--mesh", "1x2",
                   "--channel-scale", str(SCALE)]))
+        cases += [_decode_case(inp["decode"], kvd) for kvd in ("bf16", "int8")]
+        cases.append(_decode_case(inp["decode"], "bf16", "no corr"))
     else:
         cases.append(dict(
             name="grad dcgan generator 2x2", kind="grad", model="dcgan",
@@ -205,7 +276,7 @@ def _cases(world: int, inp: dict, tmp) -> list[dict]:
 
 @pytest.fixture(scope="module")
 def inputs():
-    return _inputs()
+    return dict(_inputs(), decode=_decode_inputs())
 
 
 @pytest.fixture(scope="module")
@@ -523,6 +594,71 @@ def test_ring_matmuls_match_dense(world, spawned):
         lo, hi = got["y2_rows"]
         np.testing.assert_allclose(got["y2"].numpy(), (x2 @ w2)[lo:hi],
                                    atol=1e-4, rtol=1e-4, err_msg=f"rank {r}")
+
+
+# -- the sequence-sharded decode -------------------------------------------
+
+def _gathered(per_rank: list) -> dict:
+    """The ranks' cache blocks, concatenated on the sequence axis in
+    data-rank order."""
+    return {k: (_gathered([r[k] for r in per_rank]) if isinstance(v, dict)
+                else torch.cat([r[k] for r in per_rank], dim=2))
+            for k, v in per_rank[0].items()}
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        out.update(_flat(v, path) if isinstance(v, dict) else {path: v})
+    return out
+
+
+@pytest.mark.parametrize("kvd", ["bf16", "int8"])
+def test_seq_sharded_decode_matches_the_reference(kvd, spawned, inputs):
+    """Each rank's logits against the reference's unsharded steps; the
+    ranks' blocks, put back together, against the reference's final
+    cache (int8 codes equal but for at most 0.1% off by one); each
+    attention layer's output against the port's one-device attention on
+    the same layer inputs; 3 collectives a layer a step, none staged on
+    the CPU."""
+    dec = inputs["decode"]
+    ref = dec[kvd]
+    per_rank = [res[f"decode {kvd} 2x1"] for res in spawned(2)[1]]
+    case = _decode_case(dec, kvd)
+    n_layers = dec["cfg"]["n_layers"]
+    for r, res in enumerate(per_rank):
+        assert res["coords"] == {"data": r, "model": 0}
+        err = np.abs(res["logits"].numpy() - ref["logits"]).max()
+        assert err <= DECODE_LOGITS_TOL, (r, err)
+        assert len(res["attn"]) == len(res["inputs"]) \
+            == n_layers * DECODE_STEPS
+        want = parity.attention_oracle(case, torch.device("cpu"),
+                                       res["inputs"])
+        for got, w in zip(res["attn"], want):
+            np.testing.assert_allclose(got.numpy(), w.numpy(),
+                                       **DECODE_ATTN_TOL)
+        assert res["collectives"] == 3 * n_layers * DECODE_STEPS
+        assert res["staged"] == 0
+    got = _flat(_gathered([res["cache"] for res in per_rank]))
+    for path, want in _flat(ref["final"]).items():
+        g = got[path].numpy()
+        if g.dtype == np.int8:
+            d = np.abs(g.astype(np.int32) - want.astype(np.int32))
+            assert d.max() <= 1 and (d > 0).mean() <= 1e-3, path
+        else:
+            np.testing.assert_allclose(g, want, rtol=1e-5,
+                                       atol=1e-5 * np.abs(want).max(),
+                                       err_msg=path)
+
+
+def test_seq_sharded_decode_fault_fails_the_gate(spawned, inputs):
+    """The partials summed without ``corr`` (each relative to its own
+    shard's max) put the logits far outside the gate on every rank."""
+    ref = inputs["decode"]["bf16"]["logits"]
+    for res in spawned(2)[1]:
+        got = res["decode bf16 2x1 no corr"]["logits"].numpy()
+        assert np.abs(got - ref).max() > 100 * DECODE_LOGITS_TOL
 
 
 # -- stale tuned routes on the local Cout shard ------------------------------

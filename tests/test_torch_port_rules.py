@@ -184,12 +184,32 @@ def test_llm_configs_of_the_encoder_and_the_vlm_build(name):
 
 def test_llm_options_outside_the_slice_raise():
     cfg, params = _tiny_lm()
-    with pytest.raises(NotImplementedError, match="item 22"):
-        tr.init_cache(cfg, 1, 8, kv_dtype="int8", device="cpu")
+    # the int8 cache and the sequence-sharded decode are the slice's
+    assert tr.init_cache(cfg, 1, 8, kv_dtype="int8", device="cpu")[
+        "seg0"]["pos0"]["attn"]["k"].dtype == torch.int8
+    seq = tr.RunFlags(mesh=(2, 1), seq_shard_decode=True)
+    assert tr.RunFlags(seq_shard_decode=True).mesh is None
+    # what item 23's remainder brings still raises: a model axis above 1
+    # (tensor parallelism), a mesh without seq_shard_decode, training or
+    # prefill on a mesh, the shardings of make_train_step, and a layer
+    # other than a global attention one under seq_shard_decode
     with pytest.raises(NotImplementedError, match="item 23"):
-        tr.RunFlags(mesh=object())
+        tr.RunFlags(mesh=(1, 2), seq_shard_decode=True)
     with pytest.raises(NotImplementedError, match="item 23"):
-        tr.RunFlags(seq_shard_decode=True)
+        tr.RunFlags(mesh=(2, 1))
+    tokens = torch.zeros((1, 4), dtype=torch.int64)
+    for mode in ("train", "prefill"):
+        with pytest.raises(NotImplementedError, match="item 23"):
+            tr.forward(params, {"tokens": tokens}, cfg, mode=mode,
+                       flags=seq)
+    for name in ("gemma3-4b", "minicpm3-4b", "hymba-1.5b", "mamba2-2.7b"):
+        other = llm_serve.reduced_config(name, "tiny")
+        if name == "gemma3-4b":
+            other = dataclasses.replace(other, n_layers=6)
+        with pytest.raises(NotImplementedError, match="item 23"):
+            tr.forward({}, {"tokens": tokens[:, :1]}, other, mode="decode",
+                       cache={}, lengths=torch.zeros(1, dtype=torch.long),
+                       flags=seq)
     # the train options of the reference's RunFlags are the port's too
     for flags in (tr.RunFlags(remat=False), tr.RunFlags(remat_policy="dots"),
                   tr.RunFlags(scan_layers=False),
