@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import _ITEM_MESH
+from repro_torch.sharding.rules import local_block, mesh_coords
 
 __all__ = ["SyntheticLM", "MemmapTokens", "Prefetcher", "make_batch_fn"]
 
@@ -93,18 +93,32 @@ class MemmapTokens:
 
 
 def make_batch_fn(source: Callable[[int], dict], shardings=None,
-                  device: str | torch.device = "cuda"
+                  device: str | torch.device = "cuda", mesh=None
                   ) -> Callable[[int], dict]:
     """Wrap a host batch source: ``fn(step)`` returns its arrays as
     tensors on ``device`` (default: the card), of the arrays' dtypes.
-    ``shardings`` (the reference places the batch on a mesh) raises."""
-    if shardings is not None:
-        raise NotImplementedError(f"batch shardings: {_ITEM_MESH}")
+
+    ``shardings`` (a spec for every array, or a dict of them by key, as
+    ``sharding.rules.batch_sharding`` gives them) on the ``DeviceMesh``
+    ``mesh``: each array is cut to this rank's block
+    (``local_block``) on the host, before it moves, where the
+    reference places the global batch on the mesh."""
     dev = resolve_device(device)
+    if shardings is not None:
+        if mesh is None:
+            raise ValueError("batch shardings need the mesh they cut over")
+        coords = mesh_coords(mesh)
+
+    def place(key, v):
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if shardings is not None:
+            spec = shardings[key] if isinstance(shardings, dict) \
+                else shardings
+            t = local_block(t, tuple(spec), mesh, coords)
+        return t.to(dev, copy=True) if shardings is not None else t.to(dev)
 
     def fn(step: int) -> dict:
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-                for k, v in source(step).items()}
+        return {k: place(k, v) for k, v in source(step).items()}
     return fn
 
 

@@ -26,6 +26,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.device import resolve_device
+from repro_torch.sharding.collectives import release_staging
 
 __all__ = ["make_production_mesh", "make_local_mesh", "mesh_shape",
            "production_mesh_shape", "POD_STRIDE", "spawn", "world_size",
@@ -131,6 +132,7 @@ def _rank_main(rank: int, fn, world: int, init: str, backend: str,
         timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
     try:
         fn(*args)
+        release_staging()
     finally:
         dist.destroy_process_group()
 

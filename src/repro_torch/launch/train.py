@@ -13,10 +13,20 @@ On the CPU (the kernels' plain versions; keep it tiny)::
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-7b \
         --preset tiny --steps 3 --batch 2 --seq 32 --device cpu
 
+On a mesh (``--mesh DATA,MODEL``: that many ranks, spawned through
+``launch.mesh.spawn`` and sharing the card, or on the CPU with
+``--device cpu``)::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-7b \
+        --preset tiny --mesh 1,2
+
 It composes ``init_train_state``, ``make_train_step`` (AdamW, the cosine
 schedule, ``RunFlags(attn_impl="flash", remat=True)``), ``SyntheticLM``
 batches through ``make_batch_fn`` and the fault-tolerant ``TrainLoop``
-with checkpoints.  One device: the reference's mesh is not ported.
+with checkpoints.  On a mesh the step takes the reference's
+``build_cell`` shardings (:func:`train_shardings`: ``Rules(fsdp=True)``
+masters, a tensor-parallel compute copy), the batch its rows
+(``batch_sharding``), and rank 0 prints and writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -24,19 +34,24 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import sys
 import tempfile
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig, get_config
 from repro_torch.data.pipeline import SyntheticLM, make_batch_fn
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_local_mesh, spawn
 from repro_torch.models import transformer as tr
+from repro_torch.models.common import spec_shapes
+from repro_torch.sharding import rules as R
 from repro_torch.train.loop import LoopConfig, TrainLoop
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.train_state import init_train_state, make_train_step
 
-__all__ = ["reduced_config", "main"]
+__all__ = ["reduced_config", "train_shardings", "main"]
 
 
 def reduced_config(arch: str, preset: str) -> ArchConfig:
@@ -78,7 +93,28 @@ def reduced_config(arch: str, preset: str) -> ArchConfig:
     return dataclasses.replace(cfg, **over)
 
 
-def main(argv=None) -> tuple[TrainLoop, dict]:
+def train_shardings(cfg: ArchConfig, mesh, rules: R.Rules | None = None
+                    ) -> tuple[dict, dict]:
+    """``(compute, master)`` specs of ``cfg``'s parameters on ``mesh``, as
+    the reference's ``build_cell`` builds a train cell's: the masters by
+    ``rules`` (default ``Rules(fsdp=True)``), the compute copy by the
+    same rules without FSDP (tensor-parallel only)."""
+    rules = rules or R.Rules(fsdp=True)
+    axes = tr.model_axes(cfg)
+    shapes = spec_shapes(tr.model_specs(cfg))
+    master = R.param_shardings(mesh, axes, shapes, rules)
+    compute = R.param_shardings(mesh, axes, shapes,
+                                dataclasses.replace(rules, fsdp=False))
+    return compute, master
+
+
+def _mesh_rank(argv, device: str) -> None:
+    """One rank of ``--mesh``: :func:`main` with the process group up."""
+    main(argv, _rank_device=device)
+
+
+def main(argv=None, _rank_device: str | None = None
+         ) -> tuple[TrainLoop, dict]:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--preset", default="tiny",
@@ -95,31 +131,62 @@ def main(argv=None) -> tuple[TrainLoop, dict]:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default: the kernels) or cpu (their plain "
                          "versions)")
+    ap.add_argument("--mesh", default=None,
+                    help="DATA,MODEL: train on a mesh of that many ranks "
+                         "(gloo; on the card all ranks share it)")
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = ap.parse_args(argv)
 
+    if args.mesh and _rank_device is None:
+        data, model = (int(v) for v in args.mesh.split(","))
+        resolve_device(args.device)
+        spawn(_mesh_rank, data * model, argv, args.device,
+              device=args.device)
+        return None, None
     dev = resolve_device(args.device)
+    if _rank_device == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
     if dev.type == "cuda":
         # the reference sums bf16 products in f32 (forward refuses less)
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             False
     cfg = reduced_config(args.arch, args.preset)
-    print(f"[train] arch={args.arch} preset={args.preset} "
-          f"params={tr.count_params(cfg):,} device={dev}")
+    lead = _rank_device is None or dist.get_rank() == 0
+    log = print if lead else (lambda s: None)
+    log(f"[train] arch={args.arch} preset={args.preset} "
+        f"params={tr.count_params(cfg):,} device={dev}"
+        + (f" mesh={args.mesh}" if args.mesh else ""))
 
     opt_cfg = AdamWConfig(peak_lr=args.lr, warmup_steps=20,
                           total_steps=args.steps)
-    flags = tr.RunFlags(attn_impl="flash", remat=True)
+    mesh = None
+    shardings = {}
+    if _rank_device is not None:
+        data, model = (int(v) for v in args.mesh.split(","))
+        mesh = make_local_mesh(data, model, device_type=dev.type)
+        compute, master = train_shardings(cfg, mesh)
+        shardings = dict(compute_shardings=compute, master_shardings=master)
+    flags = tr.RunFlags(attn_impl="flash", remat=True, mesh=mesh)
     step_fn = make_train_step(cfg, opt_cfg, flags,
-                              grad_accum=args.grad_accum)
+                              grad_accum=args.grad_accum, **shardings)
     state = init_train_state(cfg, torch.Generator(dev).manual_seed(args.seed))
     src = SyntheticLM(cfg, args.batch, args.seq, seed=args.seed,
                       microbatches=args.grad_accum)
+    batch_kw = {"device": dev}
+    if mesh is not None:
+        state = R.shard_tree(state, step_fn.state_specs, mesh)
+        lead_shape = (args.grad_accum, args.batch // args.grad_accum) \
+            if args.grad_accum > 1 else (args.batch,)
+        bdim = len(lead_shape) - 1
+        batch_kw.update(mesh=mesh, shardings=R.batch_sharding(
+            mesh, len(lead_shape) + 1, batch_dim=bdim,
+            batch_size=lead_shape[bdim]))
     loop = TrainLoop(
         LoopConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
                    ckpt_every=args.ckpt_every, log_every=1),
-        step_fn, make_batch_fn(src, device=dev), state)
+        step_fn, make_batch_fn(src, **batch_kw), state, log_fn=log)
     state = loop.run()
-    print("[train] done")
+    log("[train] done")
     return loop, state
 
 

@@ -46,8 +46,13 @@ plain PyTorch on the card too: the reference computes them in jnp
 outside any Pallas kernel.  Scores and softmax run in f32, and ``p`` is
 cast to v's dtype before ``p·v``, as the reference.
 
-Not ported (``models/transformer.py`` refuses the configs that need
-them): the mesh constraints of tensor parallelism.
+On a ``model`` axis above 1 (:class:`~repro_torch.sharding.
+collectives.TensorGroup`) :func:`attention_apply` runs the rank's whole
+heads: q, k and v projected by its column blocks, the kernel (or the
+plain attention) over them, ``wo`` row-parallel and summed over the
+group.  The reference zero-pads heads that do not divide the axis
+(``_pad_heads_even``); the port splits whole heads only
+(``sharding.rules.check_whole_heads``).  MLA on a mesh is not ported.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ from repro_torch.kernels.flash_attention import (FlashAttentionFn,
 from repro_torch.models.common import (PSpec, apply_rope, rms_norm,
                                        rope_angles)
 from repro_torch.sharding import collectives
+from repro_torch.sharding.collectives import reduce_from_model
 
 __all__ = ["attention_specs", "attention_apply", "mla_specs", "mla_apply",
            "flash_attention", "naive_attention", "chunked_q_attention",
@@ -233,14 +239,20 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window: int = 0,
     return out.reshape(b, 1, hq, hd).to(q.dtype)
 
 
-def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_kv(x: torch.Tensor, group=None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """x (..., Hk, hd) → (int8 codes of x's shape, f32 scales (..., 1,
     1)): one scale a token, ``max(max|x| / 127, 1e-8)`` over all its
     heads and the head dim, and codes ``clip(round(x / s), -127, 127)``,
     rounded half to even, all in f32 (the reference's, whose docstring
-    says per-(token, head) but whose code reduces over both axes)."""
+    says per-(token, head) but whose code reduces over both axes).  With
+    the heads split over ``group`` (a ``model`` group) the max is taken
+    over every rank's heads (one ``all_reduce``)."""
     xf = x.float()
-    s = (xf.abs().amax(dim=(-2, -1), keepdim=True) / 127.0).clamp_min(1e-8)
+    amax = xf.abs().amax(dim=(-2, -1), keepdim=True)
+    if group is not None:
+        amax = collectives.all_reduce(amax, group, "model", op="max")
+    s = (amax / 127.0).clamp_min(1e-8)
     return torch.round(xf / s).clamp(-127, 127).to(torch.int8), s
 
 
@@ -252,19 +264,21 @@ def dequantize_kv(codes: torch.Tensor, scales: torch.Tensor,
 
 
 def flash_decode_partials(q, k_local, v_local, lengths, offset: int = 0,
-                          window: int = 0):
+                          window: int = 0, softcap: float = 0.0):
     """One shard's partial decode attention.  q (B,1,Hq,hd); k_local,
     v_local (B,T_loc,Hk,hd) hold the cache rows at indices ``offset +
-    0..T_loc-1``; a key counts as in :func:`decode_attention`.  Returns
+    0..T_loc-1``; a key counts as in :func:`decode_attention` (scores
+    soft-capped as there, before the mask, where ``softcap`` > 0).  Returns
     f32 ``(m, den, num)``: the row max of the masked scores and the
     denominator, (B,Hk,rep,1), and the numerator (B,Hk,rep,1,hd) of the
     softmax relative to that max.  A shard with no live key for a row
-    gives ``m = NEG_INF`` (its terms then weigh 0 in the combine)."""
+    gives ``m = NEG_INF``, a finite -1e30, so ``exp(m - m_g)`` is 0 in the
+    combine and its terms weigh nothing (no ``inf - inf``)."""
     b, _, hq, hd = q.shape
     t, hk = k_local.shape[1], k_local.shape[2]
     qg = q.reshape(b, 1, hk, hq // hk, hd)
-    sc = torch.einsum("bsgrh,btgh->bgrst", qg.float(),
-                      k_local.float()) * hd ** -0.5
+    sc = torch.einsum("bsgrh,btgh->bgrst", qg.float(), k_local.float())
+    sc = _softcap(sc * hd ** -0.5, softcap)
     kpos = offset + torch.arange(t, device=q.device)[None]
     ok = kpos <= lengths[:, None]
     if window > 0:
@@ -302,16 +316,19 @@ def flash_decode_combine(m, den, num, group=None) -> torch.Tensor:
 
 
 def flash_decode(q, k_local, v_local, lengths, *, offset: int = 0,
-                 group=None, window: int = 0) -> torch.Tensor:
+                 group=None, window: int = 0,
+                 softcap: float = 0.0) -> torch.Tensor:
     """Decode attention with the cache's sequence split over ``group``'s
     ranks (the reference's ``flash_decode`` over the mesh's ``data``
     axis): this rank's partials over its rows ``offset + 0..T_loc-1``,
     combined over the group (3 ``all_reduce`` calls).  With no group the
-    cache is whole.  q (B,1,Hq,hd) → (B,1,Hq,hd) in q's dtype; no
-    soft-cap, as the reference's."""
+    cache is whole.  q (B,1,Hq,hd) → (B,1,Hq,hd) in q's dtype.  The
+    reference's ``flash_decode`` has no soft-cap; ``softcap`` serves the
+    windowed layers, which the reference decodes by ``decode_attention``
+    over the gathered cache, soft-cap included."""
     b, _, hq, hd = q.shape
     m, den, num = flash_decode_partials(q, k_local, v_local, lengths,
-                                        offset, window)
+                                        offset, window, softcap)
     out = flash_decode_combine(m[None], den[None], num[None], group)
     return out.permute(0, 3, 1, 2, 4).reshape(b, 1, hq, hd).to(q.dtype)
 
@@ -349,10 +366,23 @@ def attention_specs(cfg: ArchConfig, desc: BlockDesc) -> dict[str, PSpec]:
     return specs
 
 
+def _rank_heads(t: torch.Tensor, hq: int, hq_loc: int, index: int
+                ) -> torch.Tensor:
+    """The kv heads that q heads ``index·hq_loc + 0..hq_loc-1`` read, of a
+    replicated ``t`` (B, T, Hk, hd) (``kv_heads`` fell back to
+    replication): a block of the kv heads where whole groups of
+    ``hq / Hk`` q heads fall on the rank, else each of its q heads' own
+    kv head (the reference's ``repeat_interleave`` order)."""
+    rep = hq // t.shape[2]
+    if hq_loc % rep == 0:
+        return t.narrow(2, index * hq_loc // rep, hq_loc // rep)
+    return t.repeat_interleave(rep, dim=2).narrow(2, index * hq_loc, hq_loc)
+
+
 def attention_apply(params, x, cfg: ArchConfig, desc: BlockDesc, *,
                     positions, mode: str = "train", cache=None,
                     lengths=None, attn_impl: str = "flash",
-                    seq_shard: tuple | None = None):
+                    seq_shard: tuple | None = None, tp=None):
     """Returns (out, new_cache).
 
     ``train``: attention over the sequence, no cache: a windowed
@@ -371,37 +401,63 @@ def attention_apply(params, x, cfg: ArchConfig, desc: BlockDesc, *,
     ``data`` group and this rank's place on it) holds this rank's block
     of the cache's rows, ``index·T_loc + 0..T_loc-1``: only the rank
     that owns row ``lengths`` writes it, and attention is
-    :func:`flash_decode` over the group."""
+    :func:`flash_decode` over the group (a windowed layer's too, with
+    its window and soft-cap).
+
+    ``tp`` (a ``TensorGroup``: the ``model`` group, its size and this
+    rank's index) with ``params`` the rank's blocks: where ``wq``'s
+    columns are split (fewer than ``n_heads·head_dim``), the rank runs
+    its whole heads, ``wo``'s partials summed over the group
+    (``reduce_from_model``); k and v are the rank's kv heads, or, where
+    ``kv_heads`` fell back to replication, the kv heads its q heads read
+    (the cache then holds every kv head).  Without a split the layer
+    runs whole on every rank."""
     b, s, _ = x.shape
-    hq, hk = cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
+    hq, hk = cfg.n_heads, cfg.n_kv_heads
+    hq_loc = params["wq"].shape[-1] // hd
+    tp = tp if hq_loc < hq else None
+    wk, wv = params["wk"], params["wv"]
+    bk, bv = params.get("bk"), params.get("bv")
+    kv_whole = params["wk"].shape[-1] // hd == hk
+    if tp is not None:
+        x = collectives.sum_grad(x, tp.group, "model", f32=True)
+        if kv_whole:    # a replicated leaf read by part of the heads
+            wk, wv, bk, bv = (None if w is None else collectives.sum_grad(
+                w, tp.group, "model", f32=True) for w in (wk, wv, bk, bv))
+    hk_loc = wk.shape[-1] // hd
     q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    k = x @ wk
+    v = x @ wv
     if cfg.qkv_bias:
         q = q + params["bq"].to(q.dtype)
-        k = k + params["bk"].to(k.dtype)
-        v = v + params["bv"].to(v.dtype)
-    q = q.reshape(b, s, hq, hd)
-    k = k.reshape(b, s, hk, hd)
-    v = v.reshape(b, s, hk, hd)
+        k = k + bk.to(k.dtype)
+        v = v + bv.to(v.dtype)
+    q = q.reshape(b, s, hq_loc, hd)
+    k = k.reshape(b, s, hk_loc, hd)
+    v = v.reshape(b, s, hk_loc, hd)
     cos, sin = rope_angles(positions, hd, desc.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
+    def heads(t):
+        return t if tp is None or not kv_whole \
+            else _rank_heads(t, hq, hq_loc, tp.index)
+
     new_cache = None
     if mode in ("train", "prefill"):
         cap = cfg.logit_softcap
+        kr, vr = heads(k), heads(v)
         if desc.window and cfg.causal:
-            out = swa_attention(q, k, v, positions, positions,
+            out = swa_attention(q, kr, vr, positions, positions,
                                 window=desc.window, softcap=cap)
         elif attn_impl == "flash":
-            out = flash_attention(q, k, v, causal=cfg.causal, softcap=cap)
+            out = flash_attention(q, kr, vr, causal=cfg.causal, softcap=cap)
         elif attn_impl == "chunked_q":
-            out = chunked_q_attention(q, k, v, positions, positions,
+            out = chunked_q_attention(q, kr, vr, positions, positions,
                                       causal=cfg.causal, softcap=cap)
         elif attn_impl == "naive":
-            out = naive_attention(q, k, v, positions, positions,
+            out = naive_attention(q, kr, vr, positions, positions,
                                   causal=cfg.causal, softcap=cap)
         else:
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
@@ -411,7 +467,8 @@ def attention_apply(params, x, cfg: ArchConfig, desc: BlockDesc, *,
         offset = None if seq_shard is None \
             else seq_shard[1] * cache["k"].shape[1]
         if "k_s" in cache:
-            (kq, ks), (vq, vs) = quantize_kv(k[:, 0]), quantize_kv(v[:, 0])
+            group = None if tp is None or kv_whole else tp.group
+            (kq, ks), (vq, vs) = (quantize_kv(t[:, 0], group) for t in (k, v))
             for name, new in (("k", kq), ("v", vq), ("k_s", ks),
                               ("v_s", vs)):
                 _write_rows(cache[name], new, lengths, offset)
@@ -422,17 +479,24 @@ def attention_apply(params, x, cfg: ArchConfig, desc: BlockDesc, *,
             _write_rows(cache["k"], k[:, 0], lengths, offset)
             _write_rows(cache["v"], v[:, 0], lengths, offset)
             k_cache, v_cache = cache["k"], cache["v"]
+        k_cache, v_cache = heads(k_cache), heads(v_cache)
         new_cache = cache
         if seq_shard is None:
             out = decode_attention(q, k_cache, v_cache, lengths,
                                    window=desc.window,
                                    softcap=cfg.logit_softcap)
         else:
+            # a windowed layer: the reference's decode_attention over the
+            # whole cache, here the same keys' partials over the ranks
+            cap = cfg.logit_softcap if desc.window else 0.0
             out = flash_decode(q, k_cache, v_cache, lengths, offset=offset,
-                               group=seq_shard[0], window=desc.window)
+                               group=seq_shard[0], window=desc.window,
+                               softcap=cap)
     else:
         raise ValueError(mode)
-    out = out.reshape(b, s, hq * hd) @ params["wo"]
+    out = out.reshape(b, s, hq_loc * hd) @ params["wo"]
+    if tp is not None:
+        out = reduce_from_model(out, tp.group)
     return out, new_cache
 
 

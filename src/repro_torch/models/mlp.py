@@ -9,6 +9,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import PSpec
+from repro_torch.sharding import collectives
 
 __all__ = ["mlp_specs", "mlp_apply"]
 
@@ -34,15 +35,24 @@ def mlp_specs(cfg: ArchConfig, kind: str, d_ff: int | None = None
 
 
 def mlp_apply(params: dict[str, torch.Tensor], x: torch.Tensor,
-              kind: str) -> torch.Tensor:
+              kind: str, tp=None) -> torch.Tensor:
+    """The MLP of ``kind`` on ``x``.  ``tp`` (a ``TensorGroup``) with
+    ``params`` the rank's blocks of a ``d_ff`` split over the group:
+    ``wi``/``wg`` (and ``bi``) column-parallel, ``wo`` row-parallel,
+    its partials summed over the group; the replicated ``bo`` is added
+    once, after the sum."""
+    if kind not in ("swiglu", "geglu", "gelu"):
+        raise ValueError(kind)
+    if tp is not None:
+        x = collectives.sum_grad(x, tp.group, "model", f32=True)
     if kind == "swiglu":
         h = F.silu(x @ params["wg"]) * (x @ params["wi"])
-        return h @ params["wo"]
-    if kind == "geglu":
+    elif kind == "geglu":
         h = F.gelu(x @ params["wg"], approximate="tanh") * (x @ params["wi"])
-        return h @ params["wo"]
-    if kind == "gelu":
+    else:
         h = F.gelu(x @ params["wi"] + params["bi"].to(x.dtype),
                    approximate="tanh")
-        return h @ params["wo"] + params["bo"].to(x.dtype)
-    raise ValueError(kind)
+    out = h @ params["wo"]
+    if tp is not None:
+        out = collectives.reduce_from_model(out, tp.group)
+    return out + params["bo"].to(x.dtype) if kind == "gelu" else out

@@ -66,16 +66,23 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (PSpec, init_tree, rms_norm,
                                        spec_axes, stack_specs)
 from repro_torch.models.mlp import mlp_apply, mlp_specs
-from repro_torch.sharding.rules import axis_sizes
+from repro_torch.sharding.collectives import (TensorGroup, all_reduce,
+                                              sum_grad,
+                                              vocab_embed, vocab_logsumexp,
+                                              vocab_pick)
+from repro_torch.sharding.rules import (axis_sizes, cache_shardings,
+                                        check_whole_heads, local_block,
+                                        mesh_coords)
 from repro_torch.train.checkpoint import tree_leaves
 
-__all__ = ["RunFlags", "check_supported", "model_specs", "model_axes",
+__all__ = ["RunFlags", "check_supported", "check_mesh", "model_specs",
+           "model_axes",
            "init", "forward", "loss_fn", "decode_step", "init_cache",
            "count_params", "model_flops_per_token"]
 
-# the ROADMAP queue 1 item that brings what this slice leaves out
-_ITEM_MESH = ("ROADMAP queue 1 item 23's remainder (tensor parallelism, "
-              "LLM training on a mesh)")
+# the ROADMAP queue 1 item that brings the layers a mesh does not run yet
+_ITEM_MESH = ("ROADMAP queue 1 item 25 (MLA, MoE, SSM and hybrid layers "
+              "on a mesh)")
 
 
 ATTN_IMPLS = ("flash", "naive", "chunked_q")
@@ -103,18 +110,21 @@ class RunFlags:
     * ``scan_layers``: accepted at both values, with the same result;
       the reference scans over the stacked layers or unrolls them, and
       the port loops over them in Python either way.
-    * ``mesh`` (a ``DeviceMesh`` of axes ``("data", "model")``, or
-      anything :func:`~repro_torch.sharding.rules.axis_sizes` reads)
-      with ``seq_shard_decode``: the sequence-sharded decode.  Each of
-      the mesh's ``data`` ranks holds its ``T / data`` rows of the cache
+    * ``mesh`` (a ``DeviceMesh`` of axes ``("data", "model")`` over the
+      process group's ranks): every rank runs the forward on its blocks,
+      as ``sharding/rules.py`` cuts them (:func:`check_mesh` first).
+      The ``model`` axis splits the heads (whole heads only), the MLP's
+      ``d_ff`` and the vocab where the rules' specs split them, with
+      the sums of ``sharding/collectives.py``; the ``data`` axis splits
+      the batch (``loss_fn`` normalizes by the global weight sum) and
+      the decode's slots.  With ``seq_shard_decode`` the decode instead
+      holds the cache's rows split over ``data``
       (``cache_shardings(seq_shard=True)``), tokens and lengths
-      replicated; the global attention layers run ``flash_decode`` over
-      the ``data`` group.  Only ``mode="decode"`` runs on a mesh, with a
-      model axis of 1 (the weights whole on every rank); a model axis
-      above 1, a mesh without ``seq_shard_decode`` and the modes that
-      train or prefill raise ``NotImplementedError``.
+      replicated, and every attention layer (a windowed one with its
+      window) runs ``flash_decode`` over the ``data`` group.
       ``seq_shard_decode`` without a mesh is the one-device decode, as
-      the reference's."""
+      the reference's.  MLA, MoE, SSM and hybrid layers on a mesh raise
+      ``NotImplementedError``."""
     attn_impl: str = "flash"          # "flash" | "naive" | "chunked_q"
     remat: bool = True
     remat_policy: str = "nothing"     # "nothing" | "dots"
@@ -129,17 +139,23 @@ class RunFlags:
         if self.remat_policy not in ("nothing", "dots"):
             raise ValueError(f"remat_policy {self.remat_policy!r}: "
                              f"'nothing' or 'dots'")
-        if self.mesh is None:
-            return
-        model = axis_sizes(self.mesh).get("model", 1)
-        if model > 1:
-            raise NotImplementedError(
-                f"a model axis of {model} (tensor parallelism of the LLM "
-                f"forward): {_ITEM_MESH}")
-        if not self.seq_shard_decode:
-            raise NotImplementedError(
-                f"a mesh without seq_shard_decode (the batch-sharded "
-                f"decode): {_ITEM_MESH}")
+
+
+def check_mesh(cfg: ArchConfig, mesh) -> None:
+    """Raise ``NotImplementedError`` for a config with a layer the port
+    does not run on a mesh (MLA, MoE, SSM, hybrid), ``ValueError`` where
+    the default rules would split a head (``mesh``: a ``DeviceMesh`` or
+    anything ``axis_sizes`` reads)."""
+    for descs, _ in cfg.layer_segments():
+        for d in descs:
+            kind = "MoE" if d.mlp == "moe" else None if d.mixer == "attn" \
+                else {"mla": "MLA", "ssm": "SSM"}.get(d.mixer, d.mixer)
+            if kind:
+                raise NotImplementedError(
+                    f"{cfg.name}: {kind} layers on a mesh: {_ITEM_MESH}")
+    check_whole_heads(cfg.name, {"heads": cfg.n_heads,
+                                 "kv_heads": cfg.n_kv_heads},
+                      cfg.resolved_head_dim, mesh)
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -258,7 +274,7 @@ def model_flops_per_token(cfg: ArchConfig) -> float:
 # ---------------------------------------------------------------------------
 
 def _block_apply(params, x, cfg, desc, *, positions, mode, cache, lengths,
-                 flags: RunFlags, seq_shard=None):
+                 flags: RunFlags, on_mesh=None):
     """One block: (x, its cache ``{"attn": ..., "ssm": ...}`` as the
     block has them (empty in train mode), its MoE aux
     ``[load_balance_loss, router_z_loss]`` f32, or None for a dense
@@ -269,7 +285,8 @@ def _block_apply(params, x, cfg, desc, *, positions, mode, cache, lengths,
     if desc.mixer != "ssm":
         fn = attn_mod.mla_apply if desc.mixer == "mla" else \
             attn_mod.attention_apply
-        shard = {} if seq_shard is None else {"seq_shard": seq_shard}
+        shard = {} if on_mesh is None else {"seq_shard": on_mesh.seq_shard,
+                                            "tp": on_mesh.tp}
         out, c = fn(params["attn"], h, cfg, desc, positions=positions,
                     mode=mode,
                     cache=None if cache is None else cache.get("attn"),
@@ -296,18 +313,30 @@ def _block_apply(params, x, cfg, desc, *, positions, mode, cache, lengths,
         x = x + y
     elif desc.mlp != "none":
         h = rms_norm(x, params["ln_mlp"], cfg.norm_eps)
-        x = x + mlp_apply(params["mlp"], h, desc.mlp)
+        tp = None if on_mesh is None or \
+            params["mlp"]["wo"].shape[0] == cfg.d_ff else on_mesh.tp
+        x = x + mlp_apply(params["mlp"], h, desc.mlp, tp)
     return x, new_cache, aux
 
 
-def _embed_in(params, batch, cfg: ArchConfig) -> torch.Tensor:
+def _vocab_split(table_rows: int, cfg: ArchConfig, tp):
+    """``(the model group, this rank's first vocab row)`` where the
+    vocab is split over it (the rank's ``table_rows`` fewer than
+    ``padded_vocab``), else ``(None, 0)``."""
+    if tp is None or table_rows == cfg.padded_vocab:
+        return None, 0
+    return tp.group, tp.index * table_rows
+
+
+def _embed_in(params, batch, cfg: ArchConfig, tp=None) -> torch.Tensor:
     """The first layer's input, as the reference's: the encoder's
     ``features`` (B, S, frontend_dim) through ``frontend_proj`` plus
     ``pos_embed[:S]``; else the token embeddings scaled by
     ``d_model**0.5``, and for the VLM the ``img_embeds`` (B, img_tokens,
     frontend_dim) through ``img_proj`` in place of the first
     ``img_tokens`` positions when S reaches ``img_tokens`` (the sequence
-    as it is below that)."""
+    as it is below that).  With the vocab split over ``tp``'s group the
+    lookup is vocab-parallel (``collectives.vocab_embed``)."""
     dt = cfg.activation_dtype
     if cfg.family == "encoder":
         feats = batch["features"].to(dt)
@@ -318,7 +347,11 @@ def _embed_in(params, batch, cfg: ArchConfig) -> torch.Tensor:
         return feats @ params["frontend_proj"] + params["pos_embed"][:s]
     # F.embedding: on the card its backward sums the rows in a fixed
     # order, so a replayed step is the same step bit for bit
-    x = F.embedding(batch["tokens"].long(), params["embed"]).to(dt)
+    group, offset = _vocab_split(params["embed"].shape[0], cfg, tp)
+    tokens = batch["tokens"].long()
+    x = F.embedding(tokens, params["embed"]) if group is None \
+        else vocab_embed(tokens, params["embed"], offset, group)
+    x = x.to(dt)
     x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
     if cfg.family == "vlm" and "img_embeds" in batch \
             and x.shape[1] >= cfg.img_tokens:
@@ -327,14 +360,21 @@ def _embed_in(params, batch, cfg: ArchConfig) -> torch.Tensor:
     return x
 
 
-def _logits(params, x, cfg: ArchConfig) -> torch.Tensor:
+def _logits(params, x, cfg: ArchConfig, tp=None) -> torch.Tensor:
+    """The (soft-capped, padding-masked) logits; with the vocab split
+    over ``tp``'s group, this rank's columns of them, masked by their
+    global column indices."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    group, offset = _vocab_split(head.shape[1], cfg, tp)
+    if group is not None:
+        x = sum_grad(x, group, "model", f32=True)
     logits = x @ head.to(x.dtype)
     if cfg.logit_softcap > 0:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     if cfg.padded_vocab != cfg.vocab:  # mask padding columns
-        valid = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab
+        valid = offset + torch.arange(head.shape[1], device=x.device) \
+            < cfg.vocab
         logits = torch.where(valid, logits,
                              torch.tensor(-1e30, dtype=logits.dtype,
                                           device=x.device))
@@ -409,9 +449,10 @@ def forward(params, batch, cfg: ArchConfig, *, mode: str = "train",
         raise ValueError(mode)
     if mode == "decode" and not cfg.supports_decode:
         raise ValueError(f"{cfg.name} is encoder-only: no decode")
-    seq_shard = _seq_shard(cfg, mode, flags)
+    on_mesh = _on_mesh(cfg, mode, flags)
+    tp = None if on_mesh is None else on_mesh.tp
     params = _cast_params(params, cfg.activation_dtype)
-    x = _embed_in(params, batch, cfg)
+    x = _embed_in(params, batch, cfg, tp)
     require_f32_accumulation(x)
     b, s, _ = x.shape
     if mode == "decode":
@@ -431,7 +472,7 @@ def forward(params, batch, cfg: ArchConfig, *, mode: str = "train",
             x, outs[f"pos{di}"], a = _block_apply(
                 lp[f"pos{di}"], x, cfg, desc, positions=positions,
                 mode=mode, cache=None if lc is None else lc[f"pos{di}"],
-                lengths=lengths, flags=flags, seq_shard=seq_shard)
+                lengths=lengths, flags=flags, on_mesh=on_mesh)
             if a is not None:
                 aux = a if aux is None else aux + a
         return x, outs, aux
@@ -464,7 +505,7 @@ def forward(params, batch, cfg: ArchConfig, *, mode: str = "train",
             new_cache[f"seg{si}"] = seg_cache
     if last_logit_only:
         x = x[:, -1:]
-    logits = _logits(params, x, cfg)
+    logits = _logits(params, x, cfg, tp)
     new_cache = new_cache if mode in ("prefill", "decode") else None
     if return_aux:
         return logits, new_cache, {"load_balance_loss": aux_sum[0],
@@ -472,24 +513,30 @@ def forward(params, batch, cfg: ArchConfig, *, mode: str = "train",
     return logits, new_cache
 
 
-def _seq_shard(cfg: ArchConfig, mode: str, flags: RunFlags):
-    """``(data group, this rank's data index)`` of ``flags.mesh`` for the
-    sequence-sharded decode, None without a mesh; raises
-    ``NotImplementedError`` for a mode or a layer it does not run."""
+@dataclasses.dataclass(frozen=True, eq=False)
+class _OnMesh:
+    """A forward's place on ``RunFlags.mesh``: the ``model`` and ``data``
+    groups where they span more than one rank, and ``(data group, this
+    rank's data index)`` for the sequence-sharded decode."""
+    tp: TensorGroup | None
+    data: TensorGroup | None
+    seq_shard: tuple | None
+
+
+def _on_mesh(cfg: ArchConfig, mode: str, flags: RunFlags):
+    """The forward's :class:`_OnMesh` (None without a mesh), after
+    :func:`check_mesh`."""
     if flags.mesh is None:
         return None
-    if mode != "decode":
-        raise NotImplementedError(f"mode={mode!r} on a mesh: {_ITEM_MESH}")
-    for descs, _ in cfg.layer_segments():
-        for d in descs:
-            if d.mixer != "attn" or d.window:
-                kind = "windowed" if d.mixer == "attn" else d.mixer
-                raise NotImplementedError(
-                    f"{cfg.name}: a {kind} layer under seq_shard_decode "
-                    f"(the sequence-sharded decode runs global attention "
-                    f"layers only): {_ITEM_MESH}")
+    check_mesh(cfg, flags.mesh)
     mesh = flags.mesh
-    return mesh.get_group("data"), mesh.get_local_rank("data")
+    sizes = axis_sizes(mesh)
+    seq = (mesh.get_group("data"), mesh.get_local_rank("data")) \
+        if flags.seq_shard_decode and mode == "decode" else None
+    return _OnMesh(
+        tp=TensorGroup.of(mesh, "model") if sizes["model"] > 1 else None,
+        data=TensorGroup.of(mesh, "data") if sizes["data"] > 1 else None,
+        seq_shard=seq)
 
 
 def _batch_positions(positions, shape, cfg: ArchConfig, flags: RunFlags,
@@ -525,9 +572,21 @@ def loss_fn(params, batch, cfg: ArchConfig, flags: RunFlags = RunFlags(),
     ``(total, metrics)`` with ``total = loss + aux_weight·aux_lb +
     z_weight·aux_z``, the MoE layers' load-balance and router z-losses
     summed over the layers (both 0 for a dense config), and ``metrics``
-    ``{"loss", "aux_lb", "aux_z", "tokens"}``."""
+    ``{"loss", "aux_lb", "aux_z", "tokens"}``.
+
+    On ``flags.mesh`` ``batch`` is this rank's rows and ``params`` its
+    blocks: the logits may be the rank's vocab columns
+    (``collectives.vocab_logsumexp`` / ``vocab_pick``), and both sums,
+    the weighted ``nll`` and the weights, are sums over the ``data``
+    ranks, the reference's loss over the global batch (a mean of the
+    ranks' means would be wrong wherever their weights differ).  Each
+    rank returns that global loss, whose gradient on the rank is ``D``
+    (the data ranks) times its rows' share: the ranks' gradients
+    averaged over ``data`` are the global batch's."""
     logits, _, aux = forward(params, batch, cfg, mode="train", flags=flags,
                              return_aux=True)
+    on_mesh = _on_mesh(cfg, "train", flags)
+    tp = None if on_mesh is None else on_mesh.tp
     logits = logits.float()
     if cfg.family == "encoder":
         labels = batch["labels"].long()
@@ -538,14 +597,30 @@ def loss_fn(params, batch, cfg: ArchConfig, flags: RunFlags = RunFlags(),
         labels = F.pad(batch["tokens"][:, 1:].long(), (0, 1))
         weights = F.pad(torch.ones(labels[:, :-1].shape,
                                    device=logits.device), (0, 1))
-    lse = torch.logsumexp(logits, dim=-1)
+    group, offset = _vocab_split(logits.shape[-1], cfg, tp)
     # the label's logit by a gather: the reference contracts with a
     # one-hot over the vocab, whose only nonzero term is the same value,
     # and a one-hot would be a second f32 tensor of the logits' size
     # (4.19 GB at 2 x 2048 tokens of Gemma's 256,000)
-    lab = torch.gather(logits, -1, labels[..., None])[..., 0]
+    if group is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        lab = torch.gather(logits, -1, labels[..., None])[..., 0]
+    else:
+        lse = vocab_logsumexp(logits, group)
+        lab = vocab_pick(logits, labels, offset, group)
     nll = (lse - lab) * weights
-    loss = nll.sum() / torch.clamp(weights.sum(), min=1.0)
+    data = None if on_mesh is None else on_mesh.data
+    if data is None:
+        loss = nll.sum() / torch.clamp(weights.sum(), min=1.0)
+    else:
+        with torch.no_grad():
+            w_all = all_reduce(weights.sum(), data.group, "data")
+            nll_all = all_reduce(nll.sum().detach(), data.group, "data")
+        local = nll.sum() * (data.size / torch.clamp(w_all, min=1.0))
+        # the global loss's value, the rank's rows' gradient (times D)
+        loss = nll_all / torch.clamp(w_all, min=1.0) + (local
+                                                        - local.detach())
+        weights = w_all
     aux_lb, aux_z = aux["load_balance_loss"], aux["router_z_loss"]
     total = loss + aux_weight * aux_lb + z_weight * aux_z
     metrics = {"loss": loss, "aux_lb": aux_lb, "aux_z": aux_z,
@@ -574,9 +649,12 @@ def _set_layer(stack: dict, tree: dict, i: int) -> None:
 def decode_step(params, cache, tokens, lengths, cfg: ArchConfig,
                 flags: RunFlags = RunFlags()):
     """One decoding step, the cache (bf16 or int8, :func:`init_cache`)
-    updated in place.  tokens (B,1) → (logits (B, vocab), cache).  With
-    ``flags.mesh`` and ``seq_shard_decode`` the cache is this rank's
-    block of rows and tokens and lengths are the same on every rank
+    updated in place.  tokens (B,1) → (logits (B, vocab), cache).  On
+    ``flags.mesh`` the cache is this rank's block (:func:`init_cache`
+    with the same flags): with ``seq_shard_decode`` its block of rows,
+    tokens and lengths the same on every rank; without it its slots
+    (tokens and lengths its rows of them).  The logits are the rank's
+    vocab columns where the vocab is split over ``model``
     (:class:`RunFlags`)."""
     logits, cache = forward(params, {"tokens": tokens}, cfg, mode="decode",
                             cache=cache, lengths=lengths, flags=flags)
@@ -585,7 +663,8 @@ def decode_step(params, cache, tokens, lengths, cfg: ArchConfig,
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype: torch.dtype | None = None, kv_dtype: str = "bf16",
-               device: str | torch.device = "cuda") -> dict:
+               device: str | torch.device = "cuda",
+               flags: RunFlags | None = None) -> dict:
     """Zero cache matching the segment structure: per attention block
     (a hybrid block's attention half too) ``{"attn": {"k", "v"}}`` of
     ``(layers, batch, max_len, Hk, hd)``, per MLA block the latent
@@ -598,9 +677,27 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     ``k`` and ``v`` in int8 beside their f32 scales ``k_s``, ``v_s`` of
     ``(layers, batch, max_len, 1, 1)``, one a token (about half the
     bf16 cache's bytes); MLA latents and SSM states keep ``dtype``, as
-    the reference's."""
+    the reference's.  On ``flags.mesh``: this rank's block of the cache
+    of ``batch`` slots, as ``sharding.rules.cache_shardings`` cuts it
+    (``seq_shard=flags.seq_shard_decode``).  ``device="meta"``: shapes
+    only."""
     check_supported(cfg)
-    device = resolve_device(device)
+    device = torch.device("meta") if str(device) == "meta" \
+        else resolve_device(device)
+    if flags is not None and flags.mesh is not None:
+        check_mesh(cfg, flags.mesh)
+        whole = init_cache(cfg, batch, max_len, dtype, kv_dtype, "meta")
+        specs = cache_shardings(flags.mesh, whole,
+                                seq_shard=flags.seq_shard_decode)
+        coords = mesh_coords(flags.mesh)
+
+        def block(tree, spec):
+            return {k: (block(v, spec[k]) if isinstance(v, dict) else
+                        torch.zeros(local_block(v, spec[k], flags.mesh,
+                                                coords).shape,
+                                    dtype=v.dtype, device=device))
+                    for k, v in tree.items()}
+        return block(whole, specs)
     if kv_dtype not in ("bf16", "int8"):
         raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
     dt = dtype or cfg.activation_dtype

@@ -29,6 +29,8 @@ the card).  Each case is a dict with a ``name`` and a ``kind``:
 * ``forms``: :func:`~repro_torch.launch.mesh.make_local_mesh`'s forms
   and errors at this world size;
 * ``cli``: ``python -m repro_torch.program --mesh``'s output;
+* ``lm_cli``: ``python -m repro_torch.launch.train --mesh``'s, run by
+  these ranks;
 * ``decode``: an LLM's ``decode_step`` with the cache's sequence split
   over the mesh's ``data`` ranks (``RunFlags(mesh=...,
   seq_shard_decode=True)``): the rank's block of a global cache (given,
@@ -37,11 +39,32 @@ the card).  Each case is a dict with a ``name`` and a ``kind``:
   input and ``flash_decode`` output recorded (:func:`attention_oracle`
   runs the same inputs through the one-device attention), and the
   collectives counted; ``fault="no corr"`` plants a combine that sums the partials
-  without rescaling them to the global max.
+  without rescaling them to the global max.  ``lm_decode`` is the same
+  runner on any mesh: the parameters cut by the serving rules (the
+  ``model`` axis splits heads, ``d_ff`` and vocab), and without
+  ``seq_shard`` the batch-sharded decode (each ``data`` rank its slots);
+* ``lm_prefill``: an LLM's prefill on the rank's blocks of the
+  parameters and rows of the batch: its logits (the rank's vocab
+  columns) and cache (its slots and heads);
+* ``lm_train``: the LLM's ``make_train_step`` with the reference's
+  ``build_cell`` shardings (:func:`~repro_torch.launch.train.
+  train_shardings`) through ``TrainLoop`` (``ckpt_every`` and
+  ``fail_at`` as ``train``'s) or step by step: each step's metrics,
+  and the state gathered whole (``return_state``) or held against a
+  checkpoint of the one-device state (``ref_dir``) by each updated
+  leaf's update; ``fault`` plants ``wo``'s partials not summed over
+  ``model`` (``"wo not summed"``), the gradient norm of the rank's
+  blocks only (``"local norm"``) or the gradients summed, not averaged,
+  over ``data`` (``"grads summed"``);
+* ``reshard``: a checkpoint restored onto this mesh through
+  ``train_step.state_specs`` (the elastic reshard), gathered and held
+  bit for bit against the saved arrays, then ``lm_train``'s steps from
+  it.
 
 Every case records the GANAX kernels' launches (on the card) by route,
-dtype and Cout during the case, and how many collectives it staged
-through host memory.  Rank ``r`` writes ``rank<r>.pt`` in the output
+dtype and Cout during the case, the flash kernels' by ``(dtype, dk,
+dv)`` and the heads of each call of the model's ``flash_attention``,
+and how many collectives it staged through host memory.  Rank ``r`` writes ``rank<r>.pt`` in the output
 directory: ``{name: result}``.  Importing this module touches no process
 group; everything runs inside :func:`run`.
 """
@@ -49,15 +72,17 @@ group; everything runs inside :func:`run`.
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import os
 import time
+import warnings
 
 import torch
 import torch.distributed as dist
 
 __all__ = ["run", "condition", "decode_inputs", "fill_cache", "recording",
-           "attention_oracle"]
+           "attention_oracle", "update_stats", "FAULTS"]
 
 
 def _cfg(case: dict):
@@ -92,6 +117,13 @@ def _kernels():
     from repro_torch.kernels.ganax_conv import (ganax_conv3d_cuda,
                                                 ganax_conv_cuda)
     return {"ganax_conv": ganax_conv_cuda, "ganax_conv3d": ganax_conv3d_cuda}
+
+
+def _flash_kernels():
+    from repro_torch.kernels.flash_attention import (flash_attention_ffma,
+                                                     flash_attention_wgmma)
+    return {"flash_attention_wgmma": flash_attention_wgmma,
+            "flash_attention_ffma": flash_attention_ffma}
 
 
 def _staged() -> int:
@@ -151,6 +183,19 @@ def _grad(case, dev):
             "dx": grads[-1]}
 
 
+def _fail_once(case):
+    """The failure injector of a train case: step ``fail_at`` fails
+    once."""
+    failed = []
+
+    def inject(i: int) -> bool:
+        if case.get("fail_at") == i and not failed:
+            failed.append(i)
+            return True
+        return False
+    return inject
+
+
 def _train(case, dev, out_dir):
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train.loop import (LoopConfig, TrainLoop,
@@ -167,19 +212,11 @@ def _train(case, dev, out_dir):
     data = {"z": case["z"].to(dev), "real": case["real"].to(dev)}
     steps = case.get("steps", 1)
     ckpt_dir = os.path.join(out_dir, case["name"] + "_ckpt")
-    failed = []
-
-    def fail_once(i: int) -> bool:
-        if case.get("fail_at") == i and not failed:
-            failed.append(i)
-            return True
-        return False
-
     loop = TrainLoop(
         LoopConfig(total_steps=steps, ckpt_dir=ckpt_dir, ckpt_every=1,
                    log_every=1),
         step, lambda i: data, (gen.params, disc.params),
-        failure_injector=fail_once, log_fn=lambda s: None)
+        failure_injector=_fail_once(case), log_fn=lambda s: None)
     t0 = time.perf_counter()
     loop.run()
     if dev.type == "cuda":
@@ -304,6 +341,18 @@ def _cli(case, dev):
     with contextlib.redirect_stdout(buf):
         main(case["argv"])
     return {"stdout": buf.getvalue()}
+
+
+def _lm_cli(case, dev):
+    """``repro_torch.launch.train``'s main on ``case["argv"]`` as one of
+    the ``--mesh`` ranks it spawns (this process group's), each call of
+    the model's ``flash_attention`` recorded as ``lm_train``'s are."""
+    from repro_torch.launch.train import main
+    buf = io.StringIO()
+    calls: list = []
+    with contextlib.redirect_stdout(buf), _flash_heads(calls):
+        main(case["argv"], _rank_device=dev.type)
+    return {"stdout": buf.getvalue(), "flash": calls}
 
 
 def fill_cache(cfg, params, prompts, max_len: int, kv_dtype: str, dev
@@ -466,6 +515,25 @@ def _collectives() -> int:
                if k.startswith("mesh.collectives"))
 
 
+def _serving(cfg, params, mesh):
+    """The rank's blocks of serving weights (the reference's serving
+    rules: tensor-parallel over ``model``, replicated over ``data``)."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.common import spec_shapes
+    from repro_torch.sharding import rules
+    specs = rules.param_shardings(mesh, tr.model_axes(cfg),
+                                  spec_shapes(tr.model_specs(cfg)))
+    return rules.shard_tree(params, specs, mesh)
+
+
+def _rows(t, mesh, dim: int):
+    """The rank's rows of a batch tensor on ``dim`` (``batch_sharding``)."""
+    from repro_torch.sharding import rules
+    spec = rules.batch_sharding(mesh, t.ndim, batch_dim=dim,
+                                batch_size=t.shape[dim])
+    return rules.local_block(t, spec, mesh, rules.mesh_coords(mesh))
+
+
 def _decode(case, dev):
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import attention
@@ -473,20 +541,25 @@ def _decode(case, dev):
     from repro_torch.sharding import rules
     cfg, params, cache, tokens, lengths = decode_inputs(case, dev, _MODEL)
     mesh = make_local_mesh(*case["mesh"], device_type=dev.type)
-    coords = {a: mesh.get_local_rank(a) for a in ("data", "model")}
-    specs = rules.cache_shardings(mesh, cache, seq_shard=True)
-
-    def block(tree, spec):
-        return {k: (block(v, spec[k]) if isinstance(v, dict) else
-                    rules.local_block(v, spec[k], mesh, coords).clone())
-                for k, v in tree.items()}
-    local = block(cache, specs)
+    coords = rules.mesh_coords(mesh)
+    seq = case.get("seq_shard", True)
+    local = rules.shard_tree(cache, rules.cache_shardings(
+        mesh, cache, seq_shard=seq), mesh)
     del cache
-    flags = tr.RunFlags(mesh=mesh, seq_shard_decode=True)
+    if case["mesh"][1] > 1:
+        params = _serving(cfg, params, mesh)
+    if not seq:
+        tokens = _rows(tokens, mesh, 1)
+        # the planted fault: every rank takes the first slots' lengths
+        lengths = lengths[:tokens.shape[1]] \
+            if case.get("fault") == "lengths not cut" \
+            else _rows(lengths, mesh, 0)
+    flags = tr.RunFlags(mesh=mesh, seq_shard_decode=seq)
     inputs, attn, logits = [], [], []
     fault = _swapped(attention, "flash_decode_combine",
                      _combine_without_corr) \
-        if case.get("fault") == "no corr" else contextlib.nullcontext()
+        if case.get("fault") == "no corr" else _fault(case) \
+        if case.get("fault") in FAULTS else contextlib.nullcontext()
     before = _collectives()
     with recording(attention, "attention_apply", inputs, arg=1), \
             recording(attention, "flash_decode", attn), fault, \
@@ -496,14 +569,310 @@ def _decode(case, dev):
                                        lengths + i, cfg, flags)
             logits.append(lg)
     return {"logits": torch.stack(logits), "inputs": inputs, "attn": attn,
-            "cache": local, "coords": coords,
+            "cache": None if case.get("drop_cache") else local,
+            "coords": coords,
             "collectives": _collectives() - before}
+
+
+def _lm_params(case: dict, cfg, dev, dtype: torch.dtype | None = None
+              ) -> dict:
+    """A case's whole parameters on ``dev``: given (``params``), or drawn
+    from ``seed`` as ``init_train_state`` draws them (f32 masters; in
+    ``dtype`` when given), conditioned where ``condition`` is set."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.common import init_tree
+    if "params" in case:
+        return _on(case["params"], dev)
+    params = init_tree(torch.Generator(dev).manual_seed(case["seed"]),
+                       tr.model_specs(cfg), dtype or torch.float32)
+    if case.get("condition"):
+        condition(params, cfg.d_model)
+    return params
+
+
+def _lm_batch(batch: dict, mesh, dev, accum: int) -> dict:
+    return {k: _rows(v, mesh, 1 if accum > 1 else 0).to(dev, copy=True)
+            for k, v in batch.items()}
+
+
+def _flash_heads(calls: list):
+    """Inside: ``models.attention.flash_attention`` records each call's
+    ``(dtype, dk, dv, heads)``."""
+    from repro_torch.models import attention
+    fn = attention.flash_attention
+
+    def recorded(q, k, v, **kw):
+        calls.append((str(q.dtype).removeprefix("torch."), q.shape[-1],
+                      v.shape[-1], q.shape[2]))
+        return fn(q, k, v, **kw)
+    return _swapped(attention, "flash_attention", recorded)
+
+
+def _lm_prefill(case, dev):
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import transformer as tr
+    from repro_torch.configs.base import ArchConfig
+    cfg = ArchConfig(**case["cfg"])
+    mesh = make_local_mesh(*case["mesh"], device_type=dev.type)
+    params = _serving(cfg, _lm_params(case, cfg, dev, cfg.activation_dtype),
+                      mesh)
+    calls: list = []
+    flags = tr.RunFlags(mesh=mesh)
+    with _flash_heads(calls), _fault(case), torch.no_grad():
+        if "prompts" in case:
+            # one prefill a prompt: each prompt's last logits (the rank's
+            # vocab columns), no cache kept
+            logits = [tr.forward(params, {"tokens": torch.as_tensor(
+                p, device=dev).long()[None]}, cfg, mode="prefill",
+                flags=flags, last_logit_only=True)[0][0, -1]
+                for p in case["prompts"]]
+            cache = None
+        else:
+            # the batch's other arrays (a VLM's img_embeds) cut as tokens
+            batch = {k: _rows(v, mesh, 0).to(dev) for k, v in
+                     dict(case.get("extra", {}), tokens=case["tokens"])
+                     .items()}
+            logits, cache = tr.forward(params, batch, cfg, mode="prefill",
+                                       flags=flags)
+    return {"logits": logits, "cache": cache, "flash": calls,
+            "coords": {a: mesh.get_local_rank(a) for a in ("data", "model")}}
+
+
+# the planted faults of lm_train cases: fault -> (module, name, a
+# function of the original giving its replacement)
+FAULTS = {
+    # wo's partials left on each rank, never summed over model
+    "wo not summed": ("repro_torch.models.attention", "reduce_from_model",
+                      lambda orig: lambda x, group, axis="model": x),
+    # the clip's norm of the rank's own blocks only
+    "local norm": ("repro_torch.train.optimizer", "global_norm",
+                   lambda orig: lambda tree, specs=None, mesh=None:
+                   orig(tree)),
+    # the data ranks' gradients summed, not averaged
+    "grads summed": ("repro_torch.train.train_state", "average_over_data",
+                     lambda orig: lambda g, c, m, group, n:
+                     orig(g, c, m, group, 1))}
+
+
+def _fault(case):
+    import importlib
+    if not case.get("fault"):
+        return contextlib.nullcontext()
+    module, name, make = FAULTS[case["fault"]]
+    module = importlib.import_module(module)
+    return _swapped(module, name, make(getattr(module, name)))
+
+
+def update_stats(state: dict, init: dict, ref: dict) -> dict:
+    """Per leaf of ``params``, ``(Σ (Δ - Δ_ref)², Σ Δ_ref²)`` over this
+    rank's blocks, ``Δ`` the update ``state - init`` and ``Δ_ref`` the
+    reference's ``ref - init`` (all blocks of one layout): summed over
+    the ranks they give each leaf's ``||Δ - Δ_ref|| / ||Δ_ref||`` (every
+    distinct block is held by equally many ranks)."""
+    from repro_torch.train.checkpoint import tree_items
+    refs, inits = tree_items(ref), tree_items(init)
+    out = {}
+    for path, p in tree_items(state).items():
+        sums = torch.zeros(2, dtype=torch.float64, device=p.device)
+        # in pieces of 2^24 elements, on the rank's device, f32 (the
+        # differences of near values are exact), summed in float64
+        for a, i, w in zip(*(t.reshape(-1).split(1 << 24) for t in (
+                p, inits[path], refs[path]))):
+            i = i.to(p.device)
+            d, r = a.float() - i.float(), w.to(p.device).float() - i.float()
+            sums += torch.stack([((d - r) ** 2).sum(dtype=torch.float64),
+                                 (r ** 2).sum(dtype=torch.float64)])
+        out[path] = tuple(float(v) for v in sums)
+    return out
+
+
+def _lm_step(case, cfg, mesh):
+    from repro_torch.launch.train import train_shardings
+    from repro_torch.models import transformer as tr
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_state import make_train_step
+    compute, master = train_shardings(cfg, mesh)
+    return make_train_step(
+        cfg, AdamWConfig(**case["opt"]),
+        tr.RunFlags(mesh=mesh, **case.get("flags", {})),
+        grad_accum=case.get("grad_accum", 1), compute_shardings=compute,
+        master_shardings=master)
+
+
+def _lm_run(case, mesh, step, state, dev, first: int = 0,
+            init: dict | None = None):
+    """``case["batches"][first:]`` through ``TrainLoop`` (``ckpt_every``
+    set) or step by step; then the results: metrics, the state whole or
+    its updates against ``ref_dir``, flash calls.  The updates are from
+    ``init`` (the rank's blocks of the parameters; default: the state's
+    as the run starts)."""
+    from repro_torch.sharding import rules
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.loop import LoopConfig, TrainLoop
+    accum = case.get("grad_accum", 1)
+    batches = [_lm_batch(b, mesh, dev, accum) for b in case["batches"]]
+    if case.get("ref_dir"):     # on the host: the rank's device is shared
+        init = {k: v.to("cpu", copy=True) for k, v in
+                ckpt.tree_items(init or state["params"]).items()}
+    calls: list = []
+    metrics = []
+    laps = _laps(dev)
+    with _flash_heads(calls), _fault(case):
+        if case.get("ckpt_every"):
+            loop = TrainLoop(
+                LoopConfig(total_steps=len(batches),
+                           ckpt_dir=case["ckpt_dir"],
+                           ckpt_every=case["ckpt_every"], async_ckpt=False,
+                           log_every=1),
+                step, lambda i: batches[i], state,
+                failure_injector=_fail_once(case), log_fn=lambda s: None)
+            loop.run(first)
+            metrics = [{k: v for k, v in m.items() if k != "step"}
+                       for m in loop.metrics_history]
+            restarts = loop.restarts
+        else:
+            restarts = 0
+            for i, b in enumerate(batches[first:], first):
+                _, m = step(state, b)
+                metrics.append({k: float(v) for k, v in m.items()})
+                laps(f"step {i}")
+                if case.get("save_at") == i:
+                    ckpt.save(state, case["save_dir"], i + 1, mesh=mesh,
+                              shardings=step.state_specs)
+                    laps("save")
+    res = {"metrics": metrics, "flash": calls, "restarts": restarts,
+           "coords": rules.mesh_coords(mesh), "laps": laps.seconds}
+    if case.get("return_state"):
+        res["state"] = rules.gather_tree(state, step.state_specs, mesh)
+    if case.get("ref_dir"):
+        ref = ckpt.restore(state["params"], case["ref_dir"],
+                           shardings=step.state_specs["params"], mesh=mesh)
+        flat = ckpt.tree_unflatten(state["params"], list(init.values()))
+        res["updates"] = update_stats(state["params"], flat, ref)
+        del ref, flat, init
+        laps("against the reference")
+    if case.get("save_dir") and case.get("save_at") is None:
+        # the whole state, or (``save_params``) the parameters alone
+        part = case.get("save_params", False)
+        ckpt.save(state["params"] if part else state, case["save_dir"],
+                  len(case["batches"]), mesh=mesh,
+                  shardings=step.state_specs["params"] if part
+                  else step.state_specs)
+        laps("save")
+    return res
+
+
+def _laps(dev):
+    """``laps(name)`` records the seconds since the last call (the device
+    synchronised) in ``laps.seconds``."""
+    last = [time.perf_counter()]
+    seconds: dict = {}
+
+    def laps(name: str) -> None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        seconds[name] = seconds.get(name, 0.0) + now - last[0]
+        last[0] = now
+    laps.seconds = seconds
+    return laps
+
+
+def _zero_blocks(tree: dict, specs: dict, mesh, device) -> dict:
+    """Zero blocks on ``device`` of ``tree``'s whole leaves (tensors of
+    any device, ``meta`` included) as ``specs`` cut them on ``mesh``."""
+    from repro_torch.sharding import rules
+    coords = rules.mesh_coords(mesh)
+    return {k: (_zero_blocks(v, specs[k], mesh, device)
+                if isinstance(v, dict) else torch.zeros(
+                    rules.local_block(v, specs[k], mesh, coords).shape,
+                    dtype=v.dtype, device=device))
+            for k, v in tree.items()}
+
+
+def _state_blocks(params: dict, step, mesh, device) -> dict:
+    """A train state of ``step``'s layout: the rank's blocks of the whole
+    ``params`` (on ``meta``: zeros of their shapes), zero moments, step
+    0."""
+    from repro_torch.sharding import rules
+    specs = step.state_specs
+    blocks = _zero_blocks(params, specs["params"], mesh, device) \
+        if next(iter(_leaves(params))).is_meta \
+        else rules.shard_tree(params, specs["params"], mesh)
+
+    def zero():
+        return torch.zeros((), dtype=torch.int32, device=device)
+    return {"params": blocks,
+            "opt": {name: _zero_blocks(params, specs["opt"][name], mesh,
+                                       device) for name in ("mu", "nu")}
+            | {"count": zero()}, "step": zero()}
+
+
+def _leaves(tree: dict):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def _lm_train(case, dev):
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.launch.mesh import make_local_mesh
+    cfg = ArchConfig(**case["cfg"])
+    mesh = make_local_mesh(*case["mesh"], device_type=dev.type)
+    step = _lm_step(case, cfg, mesh)
+    state = _state_blocks(_lm_params(case, cfg, dev), step, mesh, dev)
+    return _lm_run(case, mesh, step, state, dev)
+
+
+def _reshard(case, dev):
+    """``case["from_dir"]`` (a checkpoint of the whole state, the latest
+    step) restored onto this mesh (the elastic reshard), each block held
+    bit for bit against its part of the saved arrays; then
+    ``lm_train``'s steps from it."""
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import transformer as tr
+    from repro_torch.sharding import rules
+    from repro_torch.train import checkpoint as ckpt
+    cfg = ArchConfig(**case["cfg"])
+    mesh = make_local_mesh(*case["mesh"], device_type=dev.type)
+    step = _lm_step(case, cfg, mesh)
+    meta = ckpt.tree_map(lambda s_: torch.empty(s_.shape, device="meta"),
+                         tr.model_specs(cfg))
+    laps = _laps(dev)
+    state = ckpt.restore(_state_blocks(meta, step, mesh, dev),
+                         case["from_dir"], shardings=step.state_specs,
+                         mesh=mesh)
+    laps("restore")
+    saved = ckpt.arrays(case["from_dir"])
+    coords = rules.mesh_coords(mesh)
+    specs = dict(zip(ckpt.tree_items(state),
+                     rules.spec_leaves(step.state_specs)))
+    with warnings.catch_warnings():         # read-only memory maps
+        warnings.simplefilter("ignore", UserWarning)
+        equal = [torch.equal(t.cpu(), rules.local_block(
+            torch.from_numpy(saved[key]), specs[key], mesh, coords))
+            for key, t in ckpt.tree_items(state).items()]
+    laps("bits")
+    init = rules.shard_tree(_lm_params(case, cfg, dev),
+                            step.state_specs["params"], mesh) \
+        if case.get("ref_dir") else None
+    res = _lm_run(case, mesh, step, state, dev, first=int(state["step"]),
+                  init=init)
+    res["laps"] = dict(laps.seconds, **res["laps"])
+    res.update(bits_equal=all(equal), leaves=len(equal),
+               restored_step=ckpt.latest_step(case["from_dir"]))
+    return res
 
 
 _KINDS = {"forward": _forward, "grad": _grad, "server": _server,
           "server_submit": _server_submit, "engine": _engine,
           "engine_fault": _engine_fault, "ring": _ring, "forms": _forms,
-          "cli": _cli, "decode": _decode}
+          "cli": _cli, "decode": _decode, "lm_decode": _decode,
+          "lm_prefill": _lm_prefill, "lm_train": _lm_train,
+          "lm_cli": _lm_cli, "reshard": _reshard}
 
 
 def run(case_file: str, out_dir: str, device: str = "cuda",
@@ -524,6 +893,7 @@ def run(case_file: str, out_dir: str, device: str = "cuda",
         torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction \
             = False
     kernels = _kernels()
+    flash = _flash_kernels()
     results = {}
     for case in torch.load(case_file, weights_only=True):
         # every count at 0 just before the case, read just after it
@@ -532,9 +902,19 @@ def run(case_file: str, out_dir: str, device: str = "cuda",
             for counts in (k.launches_by_route, k.launches_by_dtype,
                            k.launches_by_cout):
                 counts.clear()
+        for k in flash.values():
+            k.launches = 0
+            k.launches_by_geometry.clear()
         staged = _staged()
-        t0 = time.perf_counter()
         kind = case["kind"]
+        if kind not in ("decode", "lm_decode"):
+            _MODEL.clear()      # the decode cases' model leaves the card
+        if dev.type == "cuda":
+            gc.collect()        # a cycle holding tensors must not stay
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev) / 1e9
+        t0 = time.perf_counter()
         res = _train(case, dev, out_dir) if kind == "train" \
             else _KINDS[kind](case, dev)
         res["wall_s"] = time.perf_counter() - t0
@@ -542,6 +922,17 @@ def run(case_file: str, out_dir: str, device: str = "cuda",
                                   "dtype": dict(k.launches_by_dtype),
                                   "cout": dict(k.launches_by_cout)}
                            for name, k in kernels.items()}
+        res["flash_launches"] = {
+            name: {"/".join(str(v).removeprefix("torch.") for v in geo): n
+                   for geo, n in k.launches_by_geometry.items()}
+            for name, k in flash.items()}
         res["staged"] = _staged() - staged
+        if dev.type == "cuda":
+            res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+            res["held_gb"] = held
+            print(f"[parity rank {dist.get_rank()}] {case['name']}: {held:.2f} "
+                  f"GB held at the start, peak {res['peak_gb']:.2f} GB, "
+                  f"{res['wall_s']:.1f} s", flush=True)
         results[case["name"]] = _cpu(res)
     torch.save(results, os.path.join(out_dir, f"rank{dist.get_rank()}.pt"))
+

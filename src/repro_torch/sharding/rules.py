@@ -25,7 +25,11 @@ functions read only the mesh's axis sizes (:func:`axis_sizes`): a
 a ``shape`` mapping of axis name to size (the reference tests'
 ``FakeMesh``).  :func:`local_block` cuts one rank's block out of a
 global tensor by such a spec: the port's stand-in for placing an array
-by a ``NamedSharding``.
+by a ``NamedSharding``; :func:`shard_tree` cuts a whole tree and
+:func:`gather_tree`, its inverse, gathers a rank's blocks back over the
+process group.  :func:`check_whole_heads` refuses a ``model`` split
+that cuts an attention head, where the reference pads the heads
+(``_pad_heads_even``).
 """
 
 from __future__ import annotations
@@ -36,12 +40,13 @@ from typing import Mapping
 
 import torch
 
-from repro_torch.sharding.collectives import rows
+from repro_torch.sharding.collectives import all_gather, rows
 
 __all__ = ["Rules", "DEFAULT_TABLE", "FSDP_TABLE", "DEFAULT_RULES",
            "axis_sizes", "spec_for_axes", "param_shardings",
-           "opt_state_shardings", "batch_sharding", "cache_shardings",
-           "local_block"]
+           "opt_state_shardings", "zero1_spec", "batch_sharding", "cache_shardings",
+           "local_block", "mesh_coords", "shard_tree", "gather_tree",
+           "spec_axes_used", "spec_leaves", "check_whole_heads"]
 
 Spec = tuple
 
@@ -148,22 +153,28 @@ def param_shardings(mesh, axes_tree: dict, shapes_tree: dict,
                 axes_tree, shapes_tree)
 
 
+def zero1_spec(spec: Spec, shape: tuple[int, ...], mesh) -> Spec:
+    """A moment's spec under ZeRO-1: its parameter's ``spec`` plus
+    ``data`` on the first unsharded dim that ``data`` divides (where the
+    spec has no ``data`` yet)."""
+    sizes = axis_sizes(mesh)
+    spec = list(spec) + [None] * (len(shape) - len(spec))
+    if "data" in sizes and "data" not in spec:
+        dp = sizes["data"]
+        for i, (dim, cur) in enumerate(zip(shape, spec)):
+            if cur is None and dim % dp == 0 and dim >= dp:
+                spec[i] = "data"
+                break
+    return _trim(spec)
+
+
 def opt_state_shardings(mesh, axes_tree: dict, shapes_tree: dict,
                         rules: Rules = DEFAULT_RULES) -> dict:
     """ZeRO-1: a moment's spec is its parameter's plus ``data`` on the
-    first unsharded dim that ``data`` divides."""
-    sizes = axis_sizes(mesh)
-
+    first unsharded dim that ``data`` divides (:func:`zero1_spec`)."""
     def one(axes, shape):
-        spec = list(spec_for_axes(axes, shape, mesh, rules))
-        spec += [None] * (len(shape) - len(spec))
-        if rules.zero1 and "data" in sizes and "data" not in spec:
-            dp = sizes["data"]
-            for i, (dim, cur) in enumerate(zip(shape, spec)):
-                if cur is None and dim % dp == 0 and dim >= dp:
-                    spec[i] = "data"
-                    break
-        return _trim(spec)
+        spec = spec_for_axes(axes, shape, mesh, rules)
+        return zero1_spec(spec, shape, mesh) if rules.zero1 else spec
     return _map(one, axes_tree, shapes_tree)
 
 
@@ -269,3 +280,79 @@ def local_block(t: torch.Tensor, spec: Spec, mesh,
         lo, hi = rows(t.shape[dim], parts, index)
         t = t.narrow(dim, lo, hi - lo)
     return t
+
+
+def mesh_coords(mesh) -> dict[str, int]:
+    """``{axis name: this rank's index}`` on a ``DeviceMesh``."""
+    return {n: int(mesh.get_local_rank(n)) for n in mesh.mesh_dim_names}
+
+
+def _entry_axes(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def spec_axes_used(spec: Spec) -> frozenset:
+    """The mesh axes a spec splits over."""
+    return frozenset(a for e in spec for a in _entry_axes(e))
+
+
+def spec_leaves(spec_tree: dict) -> list:
+    """The specs of a tree of specs in the order of
+    ``train.checkpoint.tree_leaves`` (sorted keys): a spec is a tuple,
+    a leaf here."""
+    out = []
+    for _, v in sorted(spec_tree.items()):
+        out += spec_leaves(v) if isinstance(v, dict) else [tuple(v)]
+    return out
+
+
+def _walk(fn, tree: dict, specs: dict) -> dict:
+    return {k: (_walk(fn, v, specs[k]) if isinstance(v, dict)
+                else fn(v, tuple(specs[k])))
+            for k, v in tree.items()}
+
+
+def shard_tree(tree: dict, spec_tree: dict, mesh) -> dict:
+    """Every leaf of ``tree`` (whole tensors) cut to the block this rank
+    of the ``DeviceMesh`` ``mesh`` holds under the matching spec of
+    ``spec_tree`` (:func:`local_block`); each block a copy of its
+    own."""
+    coords = mesh_coords(mesh)
+    return _walk(lambda t, spec: local_block(t, spec, mesh, coords).clone(),
+                 tree, spec_tree)
+
+
+def gather_tree(tree: dict, spec_tree: dict, mesh) -> dict:
+    """The inverse of :func:`shard_tree` on the ``DeviceMesh`` ``mesh``:
+    each leaf, this rank's block, gathered over the axes of its spec to
+    the whole tensor (every rank of the group calls it and gets the
+    whole tree)."""
+    def whole(t, spec):
+        for dim, entry in enumerate(spec):
+            for name in reversed(_entry_axes(entry)):   # minor axis first
+                t = all_gather(t, dim, mesh.get_group(name), name)
+        return t
+    return _walk(whole, tree, spec_tree)
+
+
+def check_whole_heads(name: str, heads: Mapping[str, int], head_dim: int,
+                      mesh, rules: Rules = DEFAULT_RULES) -> None:
+    """Raise ``ValueError`` where ``rules`` would split the flattened
+    ``heads·head_dim`` dim of a logical axis (``heads``: ``{"heads":
+    n_heads, "kv_heads": n_kv_heads}``) over a mesh axis that does not
+    divide the head count, cutting a head: the reference zero-pads the
+    heads to a multiple of the axis (``_pad_heads_even``); the port
+    declines to split a head."""
+    sizes = axis_sizes(mesh)
+    for logical, n in heads.items():
+        axis = rules.mesh_axis(logical)
+        m = sizes.get(axis, 1) if axis else 1
+        split = m > 1 and ((n * head_dim) % m == 0 or rules.allow_uneven)
+        if split and n % m:
+            raise ValueError(
+                f"{name}: a {axis} axis of {m} splits the {n} {logical} "
+                f"of {head_dim} ({n * head_dim} columns) inside a head; "
+                f"the port splits whole heads only (the reference pads "
+                f"them to a multiple of the axis)")

@@ -22,7 +22,10 @@ The port of ``repro.train.loop``:
   - **Ranks**: under a process group of more than one rank, rank 0
     writes every checkpoint (synchronously) and a barrier follows;
     every rank restores, in the reference's layout, so a checkpoint
-    saved sharded restores unsharded and the other way round.
+    saved sharded restores unsharded and the other way round.  A state
+    held as blocks (the LLM's mesh step, whose ``state_specs`` give
+    their layout) is gathered before rank 0 writes it, and each rank
+    restores its blocks.
   - **Observability**, under the reference's names: the
     ``train.steps`` / ``.checkpoints`` / ``.stragglers`` / ``.failures``
     counters, the ``train.step_us`` histogram, a ``train.<metric>``
@@ -276,13 +279,20 @@ class TrainLoop:
         mesh = getattr(getattr(self.train_step, "mesh", None), "shape",
                        None)
         mesh = None if mesh is None else tuple(int(v) for v in mesh)
+        specs = getattr(self.train_step, "state_specs", None)
         if world_size() > 1:
-            # the state is replicated: rank 0 writes it, synchronously,
-            # and the others wait until the files are whole
+            # rank 0 writes the whole state, synchronously, and the others
+            # wait until the files are whole; a state of blocks is
+            # gathered first
             sync = True
-            if dist.get_rank() == 0:
-                ckpt.save(self.state, self.cfg.ckpt_dir, step, mesh=mesh)
-            dist.barrier()
+            if specs is not None:
+                ckpt.save(self.state, self.cfg.ckpt_dir, step,
+                          mesh=self.train_step.mesh, shardings=specs)
+            else:
+                if dist.get_rank() == 0:
+                    ckpt.save(self.state, self.cfg.ckpt_dir, step,
+                              mesh=mesh)
+                dist.barrier()
         elif sync or not self.cfg.async_ckpt:
             # an async save of the same step may still be writing
             ckpt.wait_pending()
@@ -304,7 +314,10 @@ class TrainLoop:
             self._assign(self._initial_state)
             self.log("[loop] no checkpoint found; restarting from step 0")
             return 0
-        self._assign(ckpt.restore(self.state, self.cfg.ckpt_dir, step))
+        specs = getattr(self.train_step, "state_specs", None)
+        self._assign(ckpt.restore(
+            self.state, self.cfg.ckpt_dir, step, shardings=specs,
+            mesh=None if specs is None else self.train_step.mesh))
         self.log(f"[loop] restored checkpoint at step {step}")
         _obs.event("train.restore", step=step)
         return step

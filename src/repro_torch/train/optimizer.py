@@ -12,6 +12,13 @@ place**, leaf by leaf, and returns the same tensors: the reference's
 jitted step donates its state, so XLA updates it in place too, and a
 functional update would hold a second copy of the parameters and both
 moments (22.7 GB at Gemma-7B's full width with 4 of its 28 layers).
+
+On a mesh (``specs`` and ``mesh`` given) each rank holds blocks:
+:func:`global_norm` sums each leaf's squares over the ranks that hold
+its distinct blocks, once, and :func:`adamw_update` updates the rank's
+blocks, a ZeRO-1 moment's slice of its parameter block and the step
+gathered back over ``data``, so the clip and the update are the
+unsharded ones.
 """
 
 from __future__ import annotations
@@ -21,7 +28,10 @@ import math
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.sharding.collectives import all_gather, all_reduce
+from repro_torch.sharding.rules import spec_axes_used, spec_leaves
 from repro_torch.train.checkpoint import tree_leaves
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_schedule",
@@ -83,22 +93,67 @@ def adamw_init(params) -> dict:
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over the leaves of their f32 sums of squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+def _group(mesh, axes: frozenset):
+    """The process group of the ranks whose blocks of a leaf split over
+    ``axes`` differ: one axis's group, or the whole world for both."""
+    if len(axes) == 1:
+        return mesh.get_group(next(iter(axes)))
+    return dist.group.WORLD
+
+
+def global_norm(tree, specs: dict | None = None, mesh=None
+                ) -> torch.Tensor:
+    """sqrt of the sum over the leaves of their f32 sums of squares.
+    With ``specs`` (a tree of specs shaped as ``tree``) on the
+    ``DeviceMesh`` ``mesh``, ``tree`` holds this rank's blocks: the
+    leaves' sums are summed over the group of the axes each leaf splits
+    over (one ``all_reduce`` an axis set), so a split leaf counts all
+    its blocks and a replicated one counts once."""
+    leaves = tree_leaves(tree)
+    if specs is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in leaves))
+    parts: dict = {}
+    for x, spec in zip(leaves, spec_leaves(specs)):
+        axes = spec_axes_used(spec)
+        sq = torch.sum(torch.square(x.float()))
+        parts[axes] = sq if axes not in parts else parts[axes] + sq
+    total = 0.0
+    for axes, sq in sorted(parts.items(), key=lambda kv: sorted(kv[0])):
+        total = total + (sq if not axes else
+                         all_reduce(sq, _group(mesh, axes), "+".join(
+                             sorted(axes))))
+    return torch.sqrt(total)
+
+
+def _zero1_dim(p: torch.Tensor, mu: torch.Tensor) -> int | None:
+    """The dim on which a moment block is a ``data`` slice of its
+    parameter block (ZeRO-1, ``opt_state_shardings``), None where they
+    are the same block."""
+    diff = [i for i, (a, b) in enumerate(zip(p.shape, mu.shape)) if a != b]
+    if len(diff) > 1 or (diff and p.shape[diff[0]] % mu.shape[diff[0]]):
+        raise ValueError(f"a moment block {tuple(mu.shape)} is no data "
+                         f"slice of its parameter block {tuple(p.shape)}")
+    return diff[0] if diff else None
 
 
 def adamw_update(params, grads, state: dict, cfg: AdamWConfig,
-                 lr_fn: Callable | None = None):
+                 lr_fn: Callable | None = None, specs: dict | None = None,
+                 mesh=None):
     """One AdamW step, in place.  Returns ``(params, state, stats)``:
     the same parameter tree and state dict, updated, and ``{"grad_norm",
-    "lr"}`` as device scalars (no synchronisation)."""
+    "lr"}`` as device scalars (no synchronisation).  With ``specs`` (the
+    parameters' layout) on the ``DeviceMesh`` ``mesh``: ``params`` and
+    ``grads`` are this rank's blocks, each moment the block
+    ``opt_state_shardings`` gives it; the norm is the global one
+    (:func:`global_norm`), and where a moment is a ``data`` slice of its
+    parameter block the rank updates that slice and the step is
+    gathered over ``data`` onto the whole block."""
     lr_fn = lr_fn or cosine_schedule(cfg)
     with torch.no_grad():
         count = state["count"]
         count.add_(1)
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, specs, mesh)
         scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                             max=1.0) if cfg.grad_clip > 0 else 1.0
         lr = lr_fn(count)
@@ -108,6 +163,11 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig,
         for p, g, mu, nu in zip(tree_leaves(params), tree_leaves(grads),
                                 tree_leaves(state["mu"]),
                                 tree_leaves(state["nu"])):
+            dim = None if specs is None else _zero1_dim(p, mu)
+            whole = p
+            if dim is not None:
+                lo = mesh.get_local_rank("data") * mu.shape[dim]
+                p, g = (t.narrow(dim, lo, mu.shape[dim]) for t in (p, g))
             g = g.float() * scale
             mu.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
             nu.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
@@ -118,6 +178,9 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig,
             if p.ndim >= 2:   # decoupled weight decay on matrices only
                 step.add_(p.float(), alpha=cfg.weight_decay)
             step.mul_(lr)
+            if dim is not None:
+                p = whole
+                step = all_gather(step, dim, mesh.get_group("data"), "data")
             if p.dtype == torch.float32:
                 p.sub_(step)
             else:

@@ -6,6 +6,16 @@ The state is ``{"params": f32 masters, "opt": {"mu", "nu", "count"},
 step differentiates the loss with respect to the f32 masters through
 the activation-dtype cast of ``forward`` and updates the whole state in
 place (``adamw_update``): the reference's jitted step donates its state.
+
+On a mesh (``compute_shardings`` / ``master_shardings``, with
+``flags.mesh``) every rank holds its blocks of the state and its rows of
+the batch, and the step does what the reference's GSPMD step does with
+its sharding constraints: the f32 masters (FSDP-sharded over ``data``)
+are gathered over ``data`` to the compute layout (tensor-parallel only)
+and cast to the activation dtype; the loss is differentiated with
+respect to that compute copy; the gradients, carried in f32, are
+averaged over ``data`` and cut back to the masters' blocks (a
+reduce-scatter); AdamW updates the rank's blocks.
 """
 
 from __future__ import annotations
@@ -17,12 +27,16 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tr
-from repro_torch.models.common import init_tree
+from repro_torch.models.common import init_tree, spec_shapes
+from repro_torch.sharding.collectives import (all_gather, all_reduce,
+                                              reduce_scatter)
+from repro_torch.sharding.rules import axis_sizes, spec_leaves, zero1_spec
 from repro_torch.train.checkpoint import tree_leaves, tree_unflatten
 from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
                                          adamw_update, cosine_schedule)
 
-__all__ = ["init_train_state", "make_train_step"]
+__all__ = ["init_train_state", "make_train_step", "moment_specs",
+           "state_specs", "average_over_data"]
 
 
 def init_train_state(cfg: ArchConfig, gen: torch.Generator,
@@ -58,19 +72,58 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
     grads)`` is the step's differentiation alone (before the hook and
     the update): ``grads`` is an f32 tree shaped as ``params``.
 
-    ``compute_shardings`` and ``master_shardings`` place the compute
-    copy and the gradients on a mesh in the reference; the mesh is not
-    ported, so either raises."""
-    if compute_shardings is not None or master_shardings is not None:
-        raise NotImplementedError(f"compute_shardings and master_shardings: "
-                                  f"{tr._ITEM_MESH}")
+    ``compute_shardings`` and ``master_shardings`` (trees of specs, as
+    ``sharding.rules.param_shardings`` gives them: the reference's
+    ``build_cell`` builds the first without and the second with
+    ``Rules(fsdp=True)``) run the step on ``flags.mesh``, a
+    ``DeviceMesh`` over the process group (module docstring): ``state``
+    holds the rank's blocks (``params`` by ``master_shardings``, the
+    moments by :func:`moment_specs`; ``sharding.rules.shard_tree`` of
+    the whole state by ``train_step.state_specs``) and
+    ``batch`` the rank's rows (``make_batch_fn(shardings=...)``; with
+    ``grad_accum > 1`` the batch is split on dim 1).  Either alone takes
+    the other's layout.  ``train_step.mesh`` is the mesh and
+    ``train_step.state_specs`` the state's layout (None unsharded),
+    which ``TrainLoop`` reads to save and restore the state whole."""
     lr_fn = cosine_schedule(opt_cfg)
+    mesh = None
+    if compute_shardings is not None or master_shardings is not None:
+        if flags.mesh is None:
+            raise ValueError("compute_shardings / master_shardings place "
+                             "the step on a mesh: give RunFlags(mesh=...)")
+        mesh = flags.mesh
+        tr.check_mesh(cfg, mesh)
+        compute_shardings = compute_shardings or master_shardings
+        master_shardings = master_shardings or compute_shardings
+        c_specs = spec_leaves(compute_shardings)
+        m_specs = spec_leaves(master_shardings)
+        data = mesh.get_group("data")
+        n_data = axis_sizes(mesh)["data"]
+
+    def gathered(t, c_spec, m_spec):
+        """A master block gathered over ``data`` to the compute layout."""
+        for dim, (c, m) in enumerate(zip(c_spec + (None,) * t.ndim,
+                                         m_spec)):
+            if m == "data" and c != "data":
+                t = all_gather(t, dim, data, "data")
+        return t
 
     def grads_of(master, mb):
-        leaves = [t.detach().requires_grad_() for t in tree_leaves(master)]
+        if mesh is None:
+            leaves = [t.detach().requires_grad_()
+                      for t in tree_leaves(master)]
+        else:
+            dt = cfg.activation_dtype
+            with torch.no_grad():
+                leaves = [gathered(t, c, m).to(dt).detach()
+                          for t, c, m in zip(tree_leaves(master), c_specs,
+                                             m_specs)]
+            leaves = [t.requires_grad_() for t in leaves]
         params = tree_unflatten(master, leaves)
         total, metrics = tr.loss_fn(params, mb, cfg, flags)
         grads = torch.autograd.grad(total, leaves, materialize_grads=True)
+        if mesh is not None:
+            grads = [g.float() for g in grads]
         return total.detach(), {k: v.detach() for k, v in metrics.items()}, \
             list(grads)
 
@@ -94,6 +147,10 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
             total = total / grad_accum
             metrics = {k: torch.stack([m[k] for m in per_mb]).mean()
                        for k in per_mb[0]}
+        if mesh is not None and n_data > 1:
+            # leaf by leaf, each whole gradient freed as its block lands
+            for i, (c, m) in enumerate(zip(c_specs, m_specs)):
+                grads[i] = average_over_data(grads[i], c, m, data, n_data)
         return total, metrics, tree_unflatten(master, grads)
 
     def train_step(state, batch):
@@ -101,8 +158,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
         total, metrics, grads = value_and_grad(master, batch)
         if grad_transform is not None:
             grads = grad_transform(grads)
-        _, _, stats = adamw_update(master, grads, state["opt"], opt_cfg,
-                                   lr_fn)
+        _, _, stats = adamw_update(
+            master, grads, state["opt"], opt_cfg, lr_fn,
+            specs=None if mesh is None else master_shardings, mesh=mesh)
         del grads
         state["step"].add_(1)
         metrics = dict(metrics)
@@ -111,4 +169,43 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
         return state, metrics
 
     train_step.value_and_grad = value_and_grad
+    train_step.mesh = mesh
+    train_step.state_specs = None if mesh is None \
+        else state_specs(cfg, master_shardings, mesh)
     return train_step
+
+
+def average_over_data(g: torch.Tensor, c_spec: tuple, m_spec: tuple,
+                      group, n: int) -> torch.Tensor:
+    """The ``n`` data ranks' f32 gradients ``g`` of a compute block
+    averaged, cut to the master block (``m_spec`` adds ``data`` to
+    ``c_spec`` on the FSDP dim: a reduce-scatter), else whole (an
+    ``all_reduce``)."""
+    dims = [d for d, (c, m) in enumerate(zip(c_spec + (None,) * g.ndim,
+                                             m_spec))
+            if m == "data" and c != "data"]
+    g = reduce_scatter(g, group, dims[0]) if dims \
+        else all_reduce(g, group, "data")
+    return g.div_(n)
+
+
+def state_specs(cfg: ArchConfig, master_shardings: dict, mesh) -> dict:
+    """The layout of a mesh step's state: the masters by
+    ``master_shardings``, the moments by :func:`moment_specs`, the
+    counters replicated."""
+    moments = moment_specs(cfg, master_shardings, mesh)
+    return {"params": master_shardings,
+            "opt": {"mu": moments, "nu": moments, "count": ()}, "step": ()}
+
+
+def moment_specs(cfg: ArchConfig, master_shardings: dict, mesh) -> dict:
+    """The moments' layout: ZeRO-1 on top of each master spec
+    (``sharding.rules.zero1_spec``, the reference's default ``zero1``)."""
+    shapes = spec_shapes(tr.model_specs(cfg))
+
+    def walk(specs, shapes_):
+        return {k: (walk(v, shapes_[k]) if isinstance(v, dict)
+                    else zero1_spec(tuple(v), tuple(shapes_[k].shape),
+                                    mesh))
+                for k, v in specs.items()}
+    return walk(master_shardings, shapes)

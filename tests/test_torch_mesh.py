@@ -48,7 +48,38 @@ cases, world 4 the ``(2, 2)`` ones.  The cases mirror
   the partials summed without their rescaling (a planted fault) far
   off;
 * stale tuned routes and blocks dropped on a ``"cout"`` layer's local
-  Cout shard (``dataflow.resolve.shard_blocks``), in this process.
+  Cout shard (``dataflow.resolve.shard_blocks``), in this process;
+* the dense transformer on a mesh, each case against the reference's
+  unsharded results on the same numpy parameters and batches:
+  - the reference's own mesh config (``tests/test_distributed.py``'s
+    Gemma3: 3 layers, d 64, 4 q over 2 kv heads of 16, window 8,
+    pattern (2, 1), vocab 512) in f32, batch 8 x 32: two train steps
+    with the ``build_cell`` shardings (``Rules(fsdp=True)`` masters, a
+    tensor-parallel compute copy) at (2, 1) (through ``TrainLoop``,
+    with a failure that makes every rank restore the checkpoint rank 0
+    wrote), (1, 2) and (2, 2), and ``grad_accum=2`` at (2, 1): loss,
+    ``grad_norm`` and each leaf's update at ``LM_TRAIN_TOL``, against
+    one jitted reference step a ``grad_accum``;
+  - a tiny HuBERT, one step at (2, 1), the ranks' label masks holding
+    different counts (the loss over the global count);
+  - ``tiny(qwen1.5-32b, float32, n_kv_heads=4)`` (vocab 97, padded to
+    256: the padding on the last model rank only): the TP prefill's
+    logits and cache at (1, 2); the batch-sharded decode at (2, 1) and
+    the TP decode at (1, 2) and (2, 2), bf16 and int8 caches, against
+    the decode reference above;
+  - the Gemma3 under ``seq_shard_decode`` at (2, 1), one slot's window
+    on each rank only (lengths 13 and 50 of 64 rows);
+  - the reshard: the (2, 2) state saved after its step, restored at
+    (1, 2) and (2, 1) by the world-2 ranks and on one device here, equal
+    bit for bit, and the next step against the reference's from the
+    restored state;
+  - the planted faults (``parity.FAULTS``): ``wo``'s partials not summed
+    over ``model``, the norm of the rank's blocks only, the gradients
+    summed over ``data``, each far above the gate;
+  - in this process: MLA, MoE, SSM and hybrid configs on a mesh raise
+    ``NotImplementedError`` naming ROADMAP item 25, a head split off
+    whole heads raises ``ValueError``, ``make_batch_fn(shardings=...)``
+    cuts each rank's rows.
 
 Sizes: ``channel_scale = 0.0625``, batch 4 (2 for 3D-GAN).
 """
@@ -70,6 +101,8 @@ from repro.configs import base as jbase
 from repro.models import gan as jgan
 from repro.models import transformer as jtr
 from repro.program import Program as JProgram
+from repro.train import optimizer as jopt
+from repro.train import train_state as jts
 from repro.train.loop import make_gan_train_step as jax_train_step
 from repro_torch import obs
 from repro_torch.configs import base as tbase
@@ -83,6 +116,10 @@ from repro_torch.serve.gan import GanServer
 from repro_torch.serve.gan_engine import GanEngine
 from repro_torch.sharding import parity
 from repro_torch.train import checkpoint as tckpt
+from repro_torch.data import pipeline as tpipe
+from repro_torch.launch import train as tlaunch
+from repro_torch.models import transformer as ttr
+from repro_torch.sharding import rules as trules
 
 SCALE = 0.0625
 BATCH = {"dcgan": 4, "3dgan": 2, "artgan": 4, "discogan": 4, "gpgan": 4,
@@ -110,6 +147,23 @@ DECODE_T, DECODE_FILL, DECODE_STEPS = 64, 40, 3
 DECODE_LENS = (13, 40)
 DECODE_LOGITS_TOL = 1e-4
 DECODE_ATTN_TOL = dict(atol=2e-5, rtol=2e-5)
+# The dense transformer on a mesh.  The reference's mesh config
+# (tests/test_distributed.py:79-82), f32; batch LM_BATCH; AdamW with a
+# clip that binds (the first step's gradient norm is ~17) and an eps of
+# 1e-3, above the clipped gradients' rounding: at 1e-8 Adam's first
+# steps turn a gradient element at rounding level into a +-lr step,
+# which no tolerance on the parameters holds.  Each leaf's update (state
+# after the steps minus before) against the reference's, ||a - b|| /
+# ||b|| <= LM_TRAIN_TOL, and loss and grad_norm at rtol LM_TRAIN_TOL:
+# the f32 checks' 1e-4.
+LM_BATCH = (8, 32)
+LM_OPT = dict(peak_lr=1e-2, warmup_steps=2, total_steps=10, grad_clip=0.5,
+              eps=1e-3)
+LM_TRAIN_TOL = 1e-4
+LM_TRAIN_MESHES = {2: ((2, 1), (1, 2)), 4: ((2, 2),)}
+# the seq-sharded decode of the windowed Gemma3: rows a slot, filled
+# steps, the slots' lengths (window 8: 6..13 on rank 0, 43..50 on rank 1)
+SWA_T, SWA_FILL, SWA_LENS = 64, 50, (13, 50)
 
 
 def _np_params(specs, rng):
@@ -194,8 +248,241 @@ def _decode_case(dec: dict, kvd: str, fault: str | None = None) -> dict:
     return case
 
 
-def _cases(world: int, inp: dict, tmp) -> list[dict]:
+def _g3_cfg():
+    """The reference's own mesh config (tests/test_distributed.py), f32."""
+    return dataclasses.replace(
+        jbase.get_config("gemma3-4b"), n_layers=3, d_model=64, d_ff=128,
+        vocab=512, n_heads=4, n_kv_heads=2, head_dim=16, local_window=8,
+        local_global_pattern=(2, 1), dtype="float32")
+
+
+def _np_lm_params(jcfg, seed=0) -> dict:
+    """Numpy parameters of the reference's spec tree, drawn as
+    ``parity.condition`` leaves the reference's init (at that init the
+    logits saturate the softmax and a last-bit change of the forward, as
+    a row-parallel sum makes, moves the gradients by 1e-4 of their
+    norm): a stacked matrix at its input width's ``**-0.5``, the
+    embedding at ``d_model**-0.5``, the other matrices at the
+    reference's fan-in scale; norm scales off their zero init, biases
+    zero."""
+    from repro.models.common import PSpec
+    rng = np.random.default_rng(seed + 100)
+
+    def leaf(path, spec):
+        shape, name = spec.shape, getattr(path[-1], "key", "")
+        if spec.init == "zeros":
+            scale = 0.1 if name in ("ln_mix", "ln_mlp", "final_norm") \
+                else 0.0
+        elif spec.init == "embed":
+            scale = jcfg.d_model ** -0.5
+        elif len(shape) >= 3:
+            scale = shape[-2] ** -0.5
+        else:
+            scale = spec.scale or shape[0] ** -0.5
+        return (scale * rng.normal(size=shape)).astype(np.float32)
+    return jax.tree_util.tree_map_with_path(
+        leaf, jtr.model_specs(jcfg), is_leaf=lambda x: isinstance(x, PSpec))
+
+
+@functools.lru_cache(maxsize=None)
+def _jit_train_step(jcfg, accum: int):
+    return jax.jit(jts.make_train_step(jcfg, jopt.AdamWConfig(**LM_OPT),
+                                       jtr.RunFlags(remat=False),
+                                       grad_accum=accum))
+
+
+def _ref_steps(jcfg, np_state: dict, batches: list, accum: int = 1):
+    """The reference's unsharded steps from ``np_state``: the final state
+    (numpy) and each step's metrics."""
+    step = _jit_train_step(jcfg, accum)
+    state = jax.tree.map(jnp.asarray, np_state)
+    metrics = []
+    for b in batches:
+        state, m = step(state, {k: jnp.asarray(v) for k, v in b.items()})
+        metrics.append({k: float(v) for k, v in m.items()})
+    return jax.tree.map(np.asarray, state), metrics
+
+
+def _np_state(params: dict) -> dict:
+    zeros = jax.tree.map(np.zeros_like, params)
+    return {"params": params, "opt": {"mu": zeros, "nu": zeros,
+                                      "count": np.zeros((), np.int32)},
+            "step": np.zeros((), np.int32)}
+
+
+def _accum(batch: dict, accum: int) -> dict:
+    return {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
+            for k, v in batch.items()} if accum > 1 else batch
+
+
+def _lm_inputs():
+    """The dense-mesh cases' configs, numpy parameters and batches, and
+    the reference's unsharded results: the Gemma3 train steps (one jit a
+    grad_accum), a HuBERT step, the Qwen prefill and the Gemma3's
+    windowed decode."""
+    g3 = _g3_cfg()
+    rng = np.random.default_rng(31)
+    g3_params = _np_lm_params(g3)
+    batches = [{"tokens": rng.integers(0, g3.vocab, LM_BATCH)
+                .astype(np.int32)} for _ in range(3)]
+    train = {accum: _ref_steps(g3, _np_state(g3_params),
+                               [_accum(b, accum) for b in batches[:2]],
+                               accum) for accum in (1, 2)}
+    hub = tiny(jbase.get_config("hubert-xlarge"), dtype="float32",
+               frontend_dim=32)
+    hub_params = _np_lm_params(hub, seed=1)
+    mask = np.zeros((4, 16), np.float32)
+    mask[:2] = rng.uniform(size=(2, 16)) < 0.9     # rank 0's rows: many
+    mask[2:, :3] = 1.0                              # rank 1's rows: few
+    hub_batch = {"features": rng.normal(size=(4, 16, 32)).astype(np.float32),
+                 "labels": rng.integers(0, hub.vocab, (4, 16))
+                 .astype(np.int32), "label_mask": mask}
+    hub_ref = _ref_steps(hub, _np_state(hub_params), [hub_batch])
+    qwen = tiny(jbase.get_config("qwen1.5-32b"), dtype="float32",
+                n_kv_heads=4)
+    q_params = jax.tree.map(np.asarray, jtr.init(qwen,
+                                                 jax.random.PRNGKey(0)))
+    q_tokens = rng.integers(0, qwen.vocab, (2, 24)).astype(np.int32)
+    logits, cache, _ = jtr.forward(jax.tree.map(jnp.asarray, q_params),
+                                   {"tokens": jnp.asarray(q_tokens)}, qwen,
+                                   mode="prefill")
+    # kv heads that do not divide the model axis: 4 q heads of 10 over 1
+    # kv head, at (1, 4) the kv projections fall back to replication (10
+    # columns over 4 ranks) while the q heads split
+    kvrep = tiny(jbase.get_config("gemma-7b"), dtype="float32", n_heads=4,
+                 n_kv_heads=1, head_dim=10)
+    kvrep_params = _np_lm_params(kvrep, seed=3)
+    kvrep_batch = {"tokens": rng.integers(0, kvrep.vocab, (4, 16))
+                   .astype(np.int32)}
+    kvrep_ref = _ref_steps(kvrep, _np_state(kvrep_params), [kvrep_batch])
+    # the VLM's image prefix through replicated img_proj, then the TP
+    # layers and the vocab split
+    vlm = tiny(jbase.get_config("internvl2-26b"), dtype="float32",
+               frontend_dim=32)
+    vlm_params = _np_lm_params(vlm, seed=2)
+    vlm_batch = {"tokens": rng.integers(0, vlm.vocab, (2, 24))
+                 .astype(np.int32),
+                 "img_embeds": rng.normal(size=(2, vlm.img_tokens, 32))
+                 .astype(np.float32)}
+    vlm_logits = np.asarray(jtr.forward(
+        jax.tree.map(jnp.asarray, vlm_params),
+        {k: jnp.asarray(v) for k, v in vlm_batch.items()}, vlm,
+        mode="prefill")[0])
+    # the windowed Gemma3's decode: a cache of SWA_T rows holding the
+    # prefill of SWA_FILL tokens, then DECODE_STEPS from SWA_LENS
+    dstep = jax.jit(functools.partial(jtr.decode_step, cfg=g3))
+    jparams = jax.tree.map(jnp.asarray, g3_params)
+    fill = rng.integers(0, g3.vocab, (2, SWA_FILL))
+    _, pcache, _ = jtr.forward(jparams, {"tokens": jnp.asarray(fill)}, g3,
+                               mode="prefill")
+    filled = jax.tree.map(lambda a: np.pad(np.asarray(a), [(0, 0)] * 2 + [
+        (0, SWA_T - SWA_FILL)] + [(0, 0)] * (a.ndim - 3)), pcache)
+    dcache = jax.tree.map(jnp.asarray, filled)
+    swa_toks = rng.integers(0, g3.vocab, (DECODE_STEPS, 2, 1))
+    swa_logits = []
+    for i in range(DECODE_STEPS):
+        lg, dcache = dstep(jparams, dcache, jnp.asarray(swa_toks[i]),
+                           jnp.asarray(SWA_LENS) + i)
+        swa_logits.append(np.asarray(lg))
+    return dict(
+        g3=g3, g3_params=g3_params, batches=batches, train=train, hub=hub,
+        hub_params=hub_params, hub_batch=hub_batch, hub_ref=hub_ref,
+        qwen=qwen, q_params=q_params, q_tokens=q_tokens,
+        q_logits=np.asarray(logits), q_cache=jax.tree.map(np.asarray, cache),
+        vlm=vlm, vlm_params=vlm_params, vlm_batch=vlm_batch,
+        kvrep=kvrep, kvrep_params=kvrep_params, kvrep_batch=kvrep_batch,
+        kvrep_ref=kvrep_ref,
+        vlm_logits=vlm_logits,
+        swa_cache=filled, swa_tokens=swa_toks,
+        swa_logits=np.stack(swa_logits))
+
+
+def _tparams(np_params, jcfg):
+    return lm_params_from_jax(np_params, tbase.ArchConfig(
+        **dataclasses.asdict(jcfg)), "cpu", torch.float32)
+
+
+def _lm_train_case(lm, name, mesh, tmp, **over):
+    accum = over.get("grad_accum", 1)
+    jcfg = over.pop("jcfg", lm["g3"])
+    params = over.pop("params", lm["g3_params"])
+    batches = over.pop("batches", lm["batches"][:2])
+    return dict(dict(
+        name=name, kind="lm_train", mesh=mesh,
+        cfg=dataclasses.asdict(jcfg), params=_tparams(params, jcfg),
+        batches=[{k: torch.tensor(v) for k, v in _accum(b, accum).items()}
+                 for b in batches], opt=dict(LM_OPT), return_state=True,
+        ckpt_dir=os.path.join(tmp, name.replace(" ", "_"))), **over)
+
+
+def _lm_cases(world: int, inp: dict, tmp, saved: str | None) -> list:
+    lm = inp["lm"]
     cases = []
+    for mesh in LM_TRAIN_MESHES[world]:
+        tag = f"{mesh[0]}x{mesh[1]}"
+        over = dict(ckpt_every=1, fail_at=1) if mesh == (2, 1) else {}
+        if world == 4:
+            over["save_dir"] = os.path.join(tmp, "lm_saved")
+        cases.append(_lm_train_case(lm, f"lm train {tag}", mesh, tmp,
+                                    **over))
+    dec = inp["decode"]
+    qcfg = tbase.ArchConfig(**dec["cfg"])
+    for mesh in ((2, 1), (1, 2)) if world == 2 else ((2, 2),):
+        for kvd in ("bf16", "int8"):
+            cases.append(dict(
+                name=f"lm decode {kvd} {mesh[0]}x{mesh[1]}",
+                kind="lm_decode", mesh=mesh, seq_shard=False,
+                cfg=dec["cfg"], params=lm_params_from_jax(
+                    dec["params"], qcfg, "cpu", torch.float32),
+                cache=cache_from_jax(dec[kvd]["cache"], qcfg, "cpu"),
+                tokens=torch.tensor(dec["tokens"]),
+                lengths=torch.tensor(DECODE_LENS)))
+    if world == 4:
+        cases.append(_lm_train_case(
+            lm, "lm train kv replicated 1x4", (1, 4), tmp, jcfg=lm["kvrep"],
+            params=lm["kvrep_params"], batches=[lm["kvrep_batch"]]))
+        return cases
+    cases.append(_lm_train_case(lm, "lm train accum2 2x1", (2, 1), tmp,
+                                grad_accum=2))
+    cases.append(_lm_train_case(
+        lm, "lm train hubert 2x1", (2, 1), tmp, jcfg=lm["hub"],
+        params=lm["hub_params"], batches=[lm["hub_batch"]]))
+    for fault, mesh in (("wo not summed", (1, 2)), ("local norm", (1, 2)),
+                        ("grads summed", (2, 1))):
+        cases.append(_lm_train_case(
+            lm, f"lm fault {fault}", mesh, tmp, fault=fault,
+            batches=lm["batches"][:1], return_state=False))
+    qwen = lm["qwen"]
+    cases.append(dict(
+        name="lm prefill 1x2", kind="lm_prefill", mesh=(1, 2),
+        cfg=dataclasses.asdict(qwen),
+        params=_tparams(lm["q_params"], qwen),
+        tokens=torch.tensor(lm["q_tokens"])))
+    cases.append(dict(
+        name="lm prefill vlm 1x2", kind="lm_prefill", mesh=(1, 2),
+        cfg=dataclasses.asdict(lm["vlm"]),
+        params=_tparams(lm["vlm_params"], lm["vlm"]),
+        tokens=torch.tensor(lm["vlm_batch"]["tokens"]),
+        extra={"img_embeds": torch.tensor(lm["vlm_batch"]["img_embeds"])}))
+    g3 = tbase.ArchConfig(**dataclasses.asdict(lm["g3"]))
+    cases.append(dict(
+        name="lm swa decode 2x1", kind="decode", mesh=(2, 1),
+        cfg=dataclasses.asdict(lm["g3"]),
+        params=_tparams(lm["g3_params"], lm["g3"]),
+        cache=cache_from_jax(lm["swa_cache"], g3, "cpu"),
+        tokens=torch.tensor(lm["swa_tokens"]),
+        lengths=torch.tensor(SWA_LENS)))
+    for mesh in ((1, 2), (2, 1)):
+        case = _lm_train_case(lm, f"lm reshard {mesh[0]}x{mesh[1]}", mesh,
+                              tmp, batches=lm["batches"])
+        case.update(kind="reshard", from_dir=saved)
+        cases.append(case)
+    return cases
+
+
+def _cases(world: int, inp: dict, tmp, saved: str | None = None
+           ) -> list[dict]:
+    cases = _lm_cases(world, inp, tmp, saved)
     for mesh in MESHES[world]:
         tag = f"{mesh[0]}x{mesh[1]}"
         for name in ("dcgan", "3dgan"):
@@ -276,26 +563,30 @@ def _cases(world: int, inp: dict, tmp) -> list[dict]:
 
 @pytest.fixture(scope="module")
 def inputs():
-    return dict(_inputs(), decode=_decode_inputs())
+    return dict(_inputs(), decode=_decode_inputs(), lm=_lm_inputs())
 
 
 @pytest.fixture(scope="module")
 def spawned(inputs, tmp_path_factory):
     """``spawned(world)``: every rank's results of that world size's
     cases, from one spawn a world size."""
-    runs = {}
+    runs, dirs = {}, {}
 
     def get(world):
         if world not in runs:
-            tmp = str(tmp_path_factory.mktemp(f"world{world}"))
+            # world 2 restores the state world 4 saved (the reshard)
+            saved = os.path.join(get(4) and dirs[4], "lm_saved") \
+                if world == 2 else None
+            tmp = dirs[world] = str(tmp_path_factory.mktemp(f"world{world}"))
             case_file = os.path.join(tmp, "cases.pt")
-            torch.save(_cases(world, inputs, tmp), case_file)
+            torch.save(_cases(world, inputs, tmp, saved), case_file)
             spawn(parity.run, world, case_file, tmp, "cpu", 2,
                   device="cpu")
             runs[world] = (world, [
                 torch.load(os.path.join(tmp, f"rank{r}.pt"),
                            weights_only=True) for r in range(world)])
         return runs[world]
+    get.dirs = dirs
     return get
 
 
@@ -697,3 +988,334 @@ def test_stale_tuned_route_dropped_on_the_local_cout_shard():
     doc["layers"][i]["route"] = route.to_json()
     with pytest.raises(ValueError, match="on Cout 8"):
         ProgramSpec.from_json(doc)
+
+
+# -- the dense transformer on a mesh ---------------------------------------
+
+class _Place:
+    """One rank's place on a ``(data, model)`` mesh, as the port reads a
+    ``DeviceMesh`` (axis names, sizes, this rank's index): the ranks of a
+    mesh emulated in this process."""
+
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, shape, data, model):
+        self.shape, self._at = tuple(shape), {"data": data, "model": model}
+
+    def get_local_rank(self, axis):
+        return self._at[axis]
+
+
+def _rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want),
+                                                  1e-30))
+
+
+def _check_lm_state(got: dict, before: dict, want: dict, what: str) -> None:
+    """Each leaf's update ``got - before`` against ``want - before`` (the
+    reference's) at LM_TRAIN_TOL of its norm, params and both moments;
+    the counters equal."""
+    for part in ("params", "mu", "nu"):
+        g = got["params"] if part == "params" else got["opt"][part]
+        w = want["params"] if part == "params" else want["opt"][part]
+        b = before["params"] if part == "params" else before["opt"][part]
+        for (path, t), wl, bl in zip(tckpt.tree_items(g).items(),
+                                     jax.tree.leaves(w), jax.tree.leaves(b)):
+            rel = _rel(t.numpy() - bl, np.asarray(wl) - bl)
+            assert rel <= LM_TRAIN_TOL, (what, part, path, rel)
+    assert int(got["step"]) == int(want["step"])
+    assert int(got["opt"]["count"]) == int(want["opt"]["count"])
+
+
+def _check_metrics(got: list, want: list, what: str) -> float:
+    rel = {(i, k): abs(g[k] - w[k]) / abs(w[k])
+           for i, (g, w) in enumerate(zip(got, want, strict=True))
+           for k in ("loss", "grad_norm", "total_loss", "lr", "tokens")}
+    assert max(rel.values()) <= LM_TRAIN_TOL, (what, rel)
+    return max(rel.values())
+
+
+@pytest.mark.parametrize("world,name", [
+    (2, "lm train 2x1"), (2, "lm train 1x2"), (4, "lm train 2x2"),
+    (2, "lm train accum2 2x1")])
+def test_lm_train_steps_match_the_reference(world, name, spawned, inputs):
+    """Two steps with the build_cell shardings, every rank's gathered
+    state and metrics against the reference's unsharded steps from the
+    same state; at (2, 1) through TrainLoop with one injected failure,
+    every rank restoring the checkpoint rank 0 wrote."""
+    lm = inputs["lm"]
+    accum = 2 if "accum2" in name else 1
+    want_state, want_metrics = lm["train"][accum]
+    before = _np_state(lm["g3_params"])
+    for res in spawned(world)[1]:
+        got = res[name]
+        _check_metrics(got["metrics"], want_metrics, name)
+        _check_lm_state(got["state"], before, want_state, name)
+        assert got["restarts"] == (1 if name == "lm train 2x1" else 0)
+        # each call runs the global layer's flash over the rank's heads
+        model = int(name.split()[-1].split("x")[1])
+        heads = {c[3] for c in got["flash"]}
+        assert heads == {lm["g3"].n_heads // model}, (name, heads)
+
+
+def test_lm_train_with_replicated_kv_heads(spawned, inputs):
+    """At (1, 4) the one kv head (10 columns) falls back to replication
+    while the 4 q heads split: each rank reads the kv head its q head
+    maps to, the replicated kv weights' gradients are summed over
+    ``model``, and the vocab's 256 padded columns leave ranks 2 and 3 all
+    padding; one step against the reference's."""
+    lm = inputs["lm"]
+    tcfg = tbase.ArchConfig(**dataclasses.asdict(lm["kvrep"]))
+    specs = tlaunch.train_shardings(tcfg, (1, 4))[0]
+    assert specs["segments"]["seg0"]["pos0"]["attn"]["wk"] == ()
+    assert specs["segments"]["seg0"]["pos0"]["attn"]["wq"] == \
+        (None, None, "model")
+    want_state, want_metrics = lm["kvrep_ref"]
+    for res in spawned(4)[1]:
+        got = res["lm train kv replicated 1x4"]
+        _check_metrics(got["metrics"], want_metrics, "kv replicated")
+        _check_lm_state(got["state"], _np_state(lm["kvrep_params"]),
+                        want_state, "kv replicated")
+        assert {c[3] for c in got["flash"]} == {1}
+
+
+def test_lm_train_clip_binds(inputs):
+    """The gate is read where the clip acts: the reference's first
+    gradient norm is above ``grad_clip``."""
+    assert inputs["lm"]["train"][1][1][0]["grad_norm"] > LM_OPT["grad_clip"]
+
+
+def test_lm_train_hubert_normalizes_by_the_global_count(spawned, inputs):
+    """The ranks' label masks hold different counts: the loss is the
+    global nll sum over the global count, as the reference's."""
+    lm = inputs["lm"]
+    want_state, want_metrics = lm["hub_ref"]
+    mask = lm["hub_batch"]["label_mask"]
+    assert mask[:2].sum() != mask[2:].sum()
+    for res in spawned(2)[1]:
+        got = res["lm train hubert 2x1"]
+        _check_metrics(got["metrics"], want_metrics, "hubert")
+        assert got["metrics"][0]["tokens"] == float(mask.sum())
+        _check_lm_state(got["state"], _np_state(lm["hub_params"]),
+                        want_state, "hubert")
+
+
+@pytest.mark.parametrize("fault", sorted(parity.FAULTS))
+def test_lm_train_faults_fail_the_gate(fault, spawned, inputs):
+    """Each planted fault reads far above the gate on every rank."""
+    want = inputs["lm"]["train"][1][1]
+    for res in spawned(2)[1]:
+        got = res[f"lm fault {fault}"]["metrics"]
+        worst = max(abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(got, want)
+                    for k in ("loss", "grad_norm"))
+        assert worst > 100 * LM_TRAIN_TOL, (fault, worst)
+
+
+def _by_coords(per_rank: list, name: str) -> dict:
+    return {(r[name]["coords"]["data"], r[name]["coords"]["model"]): r[name]
+            for r in per_rank}
+
+
+def _tp_cache(blocks: list) -> dict:
+    """Cache blocks of the model ranks, concatenated on the heads."""
+    return {k: (_tp_cache([b[k] for b in blocks]) if isinstance(v, dict)
+                else torch.cat([b[k] for b in blocks], dim=3))
+            for k, v in blocks[0].items()}
+
+
+def test_tp_prefill_matches_the_reference(spawned, inputs):
+    """Qwen's TP prefill at (1, 2): each rank's vocab columns of the
+    logits (vocab 97 padded to 256: rank 0's columns 97-127 and all of
+    rank 1's are padding) and its kv heads of the cache against the
+    reference's, flash over 2 of the 4 heads."""
+    lm = inputs["lm"]
+    ranks = _by_coords(spawned(2)[1], "lm prefill 1x2")
+    want = lm["q_logits"]
+    cols = want.shape[-1] // 2
+    for (_, m), res in ranks.items():
+        got = res["logits"].numpy()
+        w = want[..., m * cols:(m + 1) * cols]
+        live = np.arange(m * cols, (m + 1) * cols) < lm["qwen"].vocab
+        np.testing.assert_allclose(got[..., live], w[..., live], atol=1e-4,
+                                   rtol=1e-4, err_msg=f"model rank {m}")
+        assert (got[..., ~live] <= -1e29).all()
+        assert live.any() == (m == 0)
+        assert {c[3] for c in res["flash"]} == {lm["qwen"].n_heads // 2}
+    got = _flat(_tp_cache([ranks[0, m]["cache"] for m in (0, 1)]))
+    for path, w in _flat(lm["q_cache"]).items():
+        np.testing.assert_allclose(got[path].numpy(), w, rtol=1e-5,
+                                   atol=1e-5 * np.abs(w).max(),
+                                   err_msg=path)
+
+
+def test_tp_prefill_of_the_vlm_matches_the_reference(spawned, inputs):
+    """InternVL2's tiny preset at (1, 2): the image prefix through the
+    replicated img_proj, the layers over 2 of the 4 heads, each rank's
+    vocab columns against the reference's logits."""
+    lm = inputs["lm"]
+    ranks = _by_coords(spawned(2)[1], "lm prefill vlm 1x2")
+    want = lm["vlm_logits"]
+    cols = want.shape[-1] // 2
+    for (_, m), res in ranks.items():
+        w = want[..., m * cols:(m + 1) * cols]
+        live = w > -1e29
+        np.testing.assert_allclose(res["logits"].numpy()[live], w[live],
+                                   atol=1e-4, rtol=1e-4)
+        assert {c[3] for c in res["flash"]} == {lm["vlm"].n_heads // 2}
+
+
+@pytest.mark.parametrize("world,mesh", [(2, (2, 1)), (2, (1, 2)),
+                                        (4, (2, 2))])
+@pytest.mark.parametrize("kvd", ["bf16", "int8"])
+def test_lm_decode_on_a_mesh_matches_the_reference(world, mesh, kvd, spawned,
+                                                   inputs):
+    """The batch-sharded decode (each data rank its slot) and the TP
+    decode (each model rank its heads and vocab columns): the logits put
+    back together against the reference's unsharded decode_step, the
+    caches' blocks against its final cache."""
+    ref = inputs["decode"][kvd]
+    ranks = _by_coords(spawned(world)[1],
+                       f"lm decode {kvd} {mesh[0]}x{mesh[1]}")
+    rows = 2 // mesh[0]
+    logits = np.concatenate([np.concatenate(
+        [ranks[d, m]["logits"].numpy() for m in range(mesh[1])], axis=-1)
+        for d in range(mesh[0])], axis=1)
+    assert np.abs(logits - ref["logits"]).max() <= DECODE_LOGITS_TOL
+    for (d, m), res in ranks.items():
+        got = _flat(res["cache"])
+        for path, want in _flat(ref["final"]).items():
+            heads = want.shape[3] // mesh[1] if want.shape[3] > 1 else 1
+            w = want[:, d * rows:(d + 1) * rows, :,
+                     (m * heads if want.shape[3] > 1 else 0):][..., :heads, :]
+            g = got[path].numpy()
+            if g.dtype == np.int8:
+                diff = np.abs(g.astype(np.int32) - w.astype(np.int32))
+                assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3, path
+            else:
+                np.testing.assert_allclose(g, w, rtol=1e-5,
+                                           atol=1e-5 * np.abs(w).max(),
+                                           err_msg=path)
+
+
+def test_windowed_layers_under_seq_shard_decode(spawned, inputs):
+    """The Gemma3's windowed layers under seq_shard_decode at (2, 1): slot
+    0's window (rows 6..15) lies on rank 0 only and slot 1's (43..52) on
+    rank 1 only, so a rank holds no live row of a slot; the logits
+    against the reference's decode_step (whose windowed layers attend
+    over the whole cache) and every layer's attention against the
+    one-device attention on the rank's own inputs."""
+    lm = inputs["lm"]
+    per_rank = [res["lm swa decode 2x1"] for res in spawned(2)[1]]
+    g3 = tbase.ArchConfig(**dataclasses.asdict(lm["g3"]))
+    case = dict(cfg=dataclasses.asdict(lm["g3"]),
+                params=_tparams(lm["g3_params"], lm["g3"]),
+                cache=cache_from_jax(lm["swa_cache"], g3, "cpu"),
+                tokens=torch.tensor(lm["swa_tokens"]),
+                lengths=torch.tensor(SWA_LENS))
+    assert SWA_LENS[0] + DECODE_STEPS <= SWA_T // 2 \
+        and SWA_LENS[1] - g3.local_window >= SWA_T // 2
+    for res in per_rank:
+        got = res["logits"].numpy()
+        assert np.isfinite(got).all()
+        assert np.abs(got - lm["swa_logits"]).max() <= DECODE_LOGITS_TOL
+        want = parity.attention_oracle(case, torch.device("cpu"),
+                                       res["inputs"])
+        assert len(want) == len(res["attn"]) == g3.n_layers * DECODE_STEPS
+        for a, w in zip(res["attn"], want):
+            np.testing.assert_allclose(a.numpy(), w.numpy(),
+                                       **DECODE_ATTN_TOL)
+
+
+def test_reshard_is_bit_for_bit(spawned, inputs):
+    """The (2, 2) state saved after its two steps: restored on one device
+    here and cut here at every coordinate of (1, 2) and (2, 1), and
+    restored at (1, 2) and (2, 1) by the world-2 ranks, equal bit for bit
+    to what the (2, 2) ranks held; the next step from it against the
+    reference's from the same arrays."""
+    from repro_torch.train.train_state import state_specs
+    lm = inputs["lm"]
+    whole = spawned(4)[1][0]["lm train 2x2"]["state"]
+    saved = os.path.join(spawned.dirs[4], "lm_saved")
+    one = tckpt.restore(whole, saved)
+    assert all(torch.equal(a, b) for a, b in zip(tckpt.tree_leaves(one),
+                                                 tckpt.tree_leaves(whole)))
+    tcfg = tbase.ArchConfig(**dataclasses.asdict(lm["g3"]))
+    for mesh in ((1, 2), (2, 1)):
+        specs = state_specs(tcfg, tlaunch.train_shardings(tcfg, mesh)[1],
+                            mesh)
+        for d in range(mesh[0]):
+            for m in range(mesh[1]):
+                place = _Place(mesh, d, m)
+                want = trules.shard_tree(whole, specs, place)
+                got = tckpt.restore(want, saved, shardings=specs,
+                                    mesh=place)
+                assert all(torch.equal(a, b) for a, b in zip(
+                    tckpt.tree_leaves(got), tckpt.tree_leaves(want)))
+    np_whole = tckpt.tree_map(lambda t: t.numpy(), whole)
+    state, metrics = _ref_steps(lm["g3"], np_whole, lm["batches"][2:])
+    for res in spawned(2)[1]:
+        for mesh in ("1x2", "2x1"):
+            got = res[f"lm reshard {mesh}"]
+            assert got["bits_equal"] and got["restored_step"] == 2
+            _check_metrics(got["metrics"], metrics, f"reshard {mesh}")
+            _check_lm_state(got["state"], np_whole, state, f"reshard {mesh}")
+
+
+def test_dense_mesh_refusals_batch_rows_and_cache_blocks():
+    """In this process: MLA, MoE, SSM and hybrid configs on a mesh raise
+    NotImplementedError naming ROADMAP item 25 (forward, init_cache and
+    make_train_step); a model split that cuts a head raises ValueError
+    naming the config and the axis; make_batch_fn(shardings=...) gives
+    each rank its rows; init_cache on a mesh gives each rank its block of
+    slots and heads (of rows with seq_shard_decode)."""
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_state import make_train_step
+    flags = ttr.RunFlags(mesh=(1, 2))
+    tokens = torch.zeros((1, 4), dtype=torch.int64)
+    for name, what in (("minicpm3-4b", "MLA"), ("olmoe-1b-7b", "MoE"),
+                       ("mamba2-2.7b", "SSM"), ("hymba-1.5b", "hybrid")):
+        cfg = tlaunch.reduced_config(name, "tiny")
+        for call in (
+                lambda: ttr.forward({}, {"tokens": tokens}, cfg,
+                                    flags=flags),
+                lambda: ttr.init_cache(cfg, 2, 8, device="cpu",
+                                       flags=flags),
+                lambda: make_train_step(cfg, AdamWConfig(), flags,
+                                        master_shardings={})):
+            with pytest.raises(NotImplementedError,
+                               match=f"{what} layers on a mesh.*item 25"):
+                call()
+    odd = dataclasses.replace(tlaunch.reduced_config("gemma-7b", "tiny"),
+                              n_heads=3, n_kv_heads=3)
+    with pytest.raises(ValueError, match="gemma-7b: a model axis of 2 "
+                                         "splits the 3 heads"):
+        ttr.forward({}, {"tokens": tokens}, odd, flags=flags)
+    ttr.check_mesh(odd, (3, 1))        # a data axis splits no head
+    src = lambda step: {"tokens": np.arange(8 * 5).reshape(8, 5) + step}
+    for data in range(2):
+        for model in range(2):
+            fn = tpipe.make_batch_fn(
+                src, shardings={"tokens": trules.batch_sharding(
+                    (2, 2), 2, batch_size=8)}, device="cpu",
+                mesh=_Place((2, 2), data, model))
+            np.testing.assert_array_equal(
+                fn(1)["tokens"].numpy(), src(1)["tokens"][4 * data:
+                                                          4 * data + 4])
+    with pytest.raises(ValueError, match="need the mesh"):
+        tpipe.make_batch_fn(src, shardings=(("data",),), device="cpu")
+    qwen = tiny(jbase.get_config("qwen1.5-32b"), dtype="float32",
+                n_kv_heads=4)
+    qcfg = tbase.ArchConfig(**dataclasses.asdict(qwen))
+    whole = ttr.init_cache(qcfg, 4, 16, kv_dtype="int8", device="cpu")
+    for seq, want in ((False, (4, 2, 16, 2, 16)), (True, (4, 4, 8, 2, 16))):
+        block = ttr.init_cache(qcfg, 4, 16, kv_dtype="int8", device="cpu",
+                               flags=ttr.RunFlags(
+                                   mesh=_Place((2, 2), 1, 1),
+                                   seq_shard_decode=seq))
+        attn = block["seg0"]["pos0"]["attn"]
+        assert tuple(attn["k"].shape) == want and attn["k"].dtype == \
+            torch.int8
+        # one scale a token over every head: the scales are not split
+        assert attn["k_s"].shape[3] == whole["seg0"]["pos0"]["attn"][
+            "k_s"].shape[3] == 1

@@ -189,33 +189,26 @@ def test_llm_options_outside_the_slice_raise():
         "seg0"]["pos0"]["attn"]["k"].dtype == torch.int8
     seq = tr.RunFlags(mesh=(2, 1), seq_shard_decode=True)
     assert tr.RunFlags(seq_shard_decode=True).mesh is None
-    # what item 23's remainder brings still raises: a model axis above 1
-    # (tensor parallelism), a mesh without seq_shard_decode, training or
-    # prefill on a mesh, the shardings of make_train_step, and a layer
-    # other than a global attention one under seq_shard_decode
-    with pytest.raises(NotImplementedError, match="item 23"):
-        tr.RunFlags(mesh=(1, 2), seq_shard_decode=True)
-    with pytest.raises(NotImplementedError, match="item 23"):
-        tr.RunFlags(mesh=(2, 1))
+    # a model axis above 1 and a mesh without seq_shard_decode are the
+    # dense families' (item 23); what item 25 brings still raises: MLA,
+    # MoE, SSM and hybrid layers on any mesh
+    tr.RunFlags(mesh=(1, 2), seq_shard_decode=True)
+    tr.RunFlags(mesh=(2, 1))
     tokens = torch.zeros((1, 4), dtype=torch.int64)
-    for mode in ("train", "prefill"):
-        with pytest.raises(NotImplementedError, match="item 23"):
-            tr.forward(params, {"tokens": tokens}, cfg, mode=mode,
-                       flags=seq)
-    for name in ("gemma3-4b", "minicpm3-4b", "hymba-1.5b", "mamba2-2.7b"):
+    for name in ("minicpm3-4b", "olmoe-1b-7b", "hymba-1.5b", "mamba2-2.7b"):
         other = llm_serve.reduced_config(name, "tiny")
-        if name == "gemma3-4b":
-            other = dataclasses.replace(other, n_layers=6)
-        with pytest.raises(NotImplementedError, match="item 23"):
-            tr.forward({}, {"tokens": tokens[:, :1]}, other, mode="decode",
-                       cache={}, lengths=torch.zeros(1, dtype=torch.long),
-                       flags=seq)
+        for flags in (seq, tr.RunFlags(mesh=(1, 2))):
+            with pytest.raises(NotImplementedError, match="item 25"):
+                tr.forward({}, {"tokens": tokens[:, :1]}, other,
+                           mode="decode", cache={},
+                           lengths=torch.zeros(1, dtype=torch.long),
+                           flags=flags)
     # the train options of the reference's RunFlags are the port's too
     for flags in (tr.RunFlags(remat=False), tr.RunFlags(remat_policy="dots"),
                   tr.RunFlags(scan_layers=False),
                   tr.RunFlags(attn_impl="chunked_q")):
         assert not flags.mesh
-    with pytest.raises(NotImplementedError, match="item 23"):
+    with pytest.raises(ValueError, match=r"RunFlags\(mesh"):
         make_train_step(cfg, AdamWConfig(), compute_shardings=object())
     with pytest.raises(ValueError, match="'chunked_q'"):
         tr.RunFlags(attn_impl="blocked")

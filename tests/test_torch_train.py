@@ -308,6 +308,12 @@ def test_loop_records_the_reference_train_metrics(tmp_path):
         loss = jnp.sum(state["w"])
         return state, {"g_loss": loss, "d_loss": loss, "loss": 2 * loss}
 
+    # the gauge names are read off the process-wide registries: an LLM
+    # TrainLoop of another file in this worker (the CLIs' tests) leaves
+    # its own train.* gauges there, so both registries start empty here
+    jobs.registry.reset()
+    tobs.registry.reset()
+
     ref_loop = JTrainLoop(
         JLoopConfig(total_steps=6, ckpt_dir=str(tmp_path / "ref"),
                     ckpt_every=2, log_every=1, straggler_factor=1e9),
