@@ -166,9 +166,14 @@ Gemma3-4B's first 6 layers (FSDP masters, ZeRO-1 moments), Qwen1.5-32B's
 TP prefill and decode and the batch-sharded decode, Gemma3's windowed
 layers under the sequence-sharded decode, and the reshard of a (2, 1)
 state onto (1, 2) and one device, each against the one-device path with
-a planted fault above its gate; every rank's flash launches counted by
-geometry and heads.  It imports nothing of JAX and nothing of the JAX
-package; it prints the seconds of each phase.
+a planted fault above its gate; and the other families on the same
+ranks (``mesh_family_cases``): MiniCPM3-4B's MLA, OLMoE-1B-7B's and
+Llama-4-Scout's MoE, Mamba2-2.7B's SSM and Hymba-1.5B's hybrid blocks
+(heads padded) at full width with their layers cut, trained, prefilled
+and decoded against the one-device path (MoE routing bit for bit), each
+family with a planted fault above its gate; every rank's flash launches
+counted by geometry and heads.  It imports nothing of JAX and nothing
+of the JAX package; it prints the seconds of each phase.
 
 The line before the last is a JSON object listing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failed phase exits
@@ -8122,15 +8127,38 @@ MESH_LOOP_BATCH = (4, 32)
 MESH_CLI_STEPS = 4
 
 
+def mesh_clip_opt(dev, cfg, batch: dict) -> tuple[dict, float]:
+    """``(MESH_LM_OPT with grad_clip and eps, the first gradient norm)``:
+    the clip half the first one-device gradient norm (it binds), eps the
+    RMS of the clipped gradient (at 1e-8 a gradient element at rounding
+    level turns into a +-lr step), from the conditioned seed-0 masters
+    on ``batch``."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.train.optimizer import AdamWConfig, global_norm
+    from repro_torch.train.train_state import (init_train_state,
+                                               make_train_step)
+    state = init_train_state(cfg, torch.Generator(dev).manual_seed(0))
+    condition(state["params"], cfg.d_model)
+    _, _, grads = make_train_step(cfg, AdamWConfig(), tr.RunFlags()) \
+        .value_and_grad(state["params"],
+                        {k: v.to(dev) for k, v in batch.items()})
+    norm = float(global_norm(grads))
+    del grads, state
+    clip = norm / 2
+    return dict(MESH_LM_OPT, grad_clip=clip,
+                eps=clip / math.sqrt(tr.count_params(cfg))), norm
+
+
 def mesh_lm_references(dev, tmp: str, cfg, batches: list) -> dict:
     """(a)'s one-device runs before the ranks start: the optimizer's clip
-    and eps from the first gradient norm (MESH_LM_OPT), the f32 steps and
-    the bf16 step from the conditioned seed-0 masters, their metrics, and
-    the parameters after them saved in ``tmp`` (``ref_f32``,
-    ``ref_bf16``) for the ranks to read their blocks of."""
+    and eps from the first gradient norm (:func:`mesh_clip_opt`), the
+    f32 steps and the bf16 step from the conditioned seed-0 masters,
+    their metrics, and the parameters after them saved in ``tmp``
+    (``ref_float32``, ``ref_bfloat16``) for the ranks to read their
+    blocks of."""
     from repro_torch.models import transformer as tr
     from repro_torch.train import checkpoint as ckpt
-    from repro_torch.train.optimizer import AdamWConfig, global_norm
+    from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.train_state import (init_train_state,
                                                make_train_step)
 
@@ -8138,20 +8166,11 @@ def mesh_lm_references(dev, tmp: str, cfg, batches: list) -> dict:
         state = init_train_state(c, torch.Generator(dev).manual_seed(0))
         condition(state["params"], c.d_model)
         return state
-    n = tr.count_params(cfg)
-    state = state_of(cfg)
-    one = {k: v.to(dev) for k, v in batches[0].items()}
-    _, _, grads = make_train_step(cfg, AdamWConfig(), tr.RunFlags()) \
-        .value_and_grad(state["params"], one)
-    norm = float(global_norm(grads))
-    del grads
-    clip = norm / 2
-    opt = dict(MESH_LM_OPT, grad_clip=clip, eps=clip / math.sqrt(n))
+    opt, norm = mesh_clip_opt(dev, cfg, batches[0])
     out = {"opt": opt, "norm0": norm, "metrics": {}}
     for dt, steps in (("float32", MESH_LM_STEPS), ("bfloat16", 1)):
         c = dataclasses.replace(cfg, dtype=dt)
-        if dt != "float32":
-            state = state_of(c)
+        state = state_of(c)
         step = make_train_step(c, AdamWConfig(**opt), tr.RunFlags())
         metrics = []
         for b in batches[:steps]:
@@ -8261,6 +8280,525 @@ def mesh_lm_cases(dev, tmp: str, gen, train_cfg, qcfg, decode_rows: int,
     refs.update(batches=batches, q_heads=qcfg.n_heads,
                 q_hd=qcfg.resolved_head_dim, prompt_lens=tuple(decode_lens))
     return cases, refs
+
+
+# MLA, MoE, SSM and hybrid layers on the mesh, on the
+# same two gloo ranks, each case against the one-device path on the same
+# seed-0 weights (parity.condition) and inputs, the one-device runs
+# before the ranks start; each config at full width, its layers cut to
+# MESH_FAMILIES' "layers" (the f32 training state reckoned from the
+# config: MiniCPM3's 4 layers 0.63 B parameters, OLMoE's 2 layers 1.05 B
+# (4 would be 1.9 B, ~36 GB a rank at (2, 1), too much for two ranks on
+# one card), Scout's 2 layers 6.5 B (bf16 serving only, 12.9 GB),
+# Mamba2's 4 layers 0.42 B, Hymba's 4 layers 0.30 B: global layer 0,
+# three windowed):
+# * f32 training (MESH_LM_STEPS steps of MESH_FAM_BATCH tokens, or one
+#   for a planted fault) at each of "train", bf16 (one step at (1, 2))
+#   where "bf16", held as (a)'s Gemma3 (loss and grad_norm, each leaf's
+#   update: MESH_LM_TOL; the SSM's A_log, D and dt_bias:
+#   MESH_ILL_FACTOR times it), the
+#   MoE aux losses at MESH_AUX_TOL, OLMoE's
+#   routing of every layer in the first forward bit for bit the
+#   one-device routing (expert ids, places, kept pairs);
+# * the TP prefill at (1, 2) in bf16: each rank's vocab columns of the
+#   last logits of the MESH_FAM_LENS prompts (Hymba: MESH_SWA_LENS; the
+#   MoE configs': cut to multiples of 256, 768 and 2816) at
+#   MESH_TP_TOL; every rank's flash calls over its own heads (MiniCPM3
+#   20 at (96, 64), OLMoE 8 and Scout 20 at (128, 128), Hymba 13 padded
+#   at (64, 64)) on the wgmma instance;
+# * MESH_DECODE_STEPS bf16 decode steps from a cache of MESH_FAM_ROWS
+#   rows a slot filled by one-device prefills of the prompts: the TP
+#   decode at (1, 2) and the batch-sharded one at (2, 1) (OLMoE's and
+#   Scout's one routing group across the data ranks) at MESH_TP_TOL;
+#   seq_shard_decode at (2, 1) at MESH_DECODE_TOL (Hymba's windowed
+#   layers with one rank holding no live row of a slot; Mamba2's state
+#   replicated);
+# * Mamba2's reshard: its f32 (2, 1) state saved after step 1, restored
+#   at (1, 2) and on one device bit for bit, step 2 from it as (a)'s;
+# * the planted faults, one step each, each at least MESH_FAM_FAULT_RATIO
+#   times its gate (loss and grad_norm against the one-device step;
+#   MiniCPM3's and Hymba's, whose loss moves least, each leaf's update
+#   too): the MoE combine not summed over model, q_norm's
+#   RMS over half
+#   of q_lora, the SSM gated norm over half of d_inner, aux_lb as the
+#   mean of the data ranks' products (read on aux_lb against
+#   MESH_AUX_TOL), the pad head kept (a rank's last n padded heads taken
+#   for its n real ones), and on Scout's TP prefill the combine not
+#   summed.
+MESH_FAMILIES = {
+    "minicpm3-4b": dict(layers=4, train=((2, 1), (1, 2)), bf16=True,
+                        fault_updates=True, decode=((1, 2), (2, 1)),
+                        seq=("bfloat16", "float32"),
+                        faults=(("q_norm over a half", (1, 2)),)),
+    "olmoe-1b-7b": dict(layers=2, train=((2, 1), (1, 2)), routing=True,
+                        decode=((1, 2), (2, 1)), seq=("bfloat16",),
+                        faults=(("moe combine not summed", (1, 2)),
+                                ("aux_lb mean of products", (2, 1)))),
+    "llama4-scout-17b-a16e": dict(layers=2, decode=((1, 2), (2, 1)),
+                                  prefill_faults=("moe combine not summed",
+                                                  )),
+    "mamba2-2.7b": dict(layers=4, train=((2, 1), (1, 2)), bf16=True,
+                        reshard=True, decode=((1, 2),), seq=("bfloat16",),
+                        faults=(("ssm norm over a half", (1, 2)),)),
+    "hymba-1.5b": dict(layers=4, global_layers=(0,), train=((1, 2),),
+                       fault_updates=True, decode=((1, 2),),
+                       seq=("bfloat16",), lens="swa",
+                       faults=(("pad head kept", (1, 2)),))}
+MESH_FAM_BATCH = (2, 2048)
+MESH_FAM_ROWS = 4096
+MESH_FAM_LENS = (1000, 3000)
+MESH_AUX_TOL = 1e-6
+MESH_FAM_FAULT_RATIO = 4.0
+# The SSM's per-head scalars A_log, D and dt_bias: each one's gradient
+# is a sum over every token of the batch whose terms cancel
+# (tests/test_torch_ssm.py holds A_log and dt_bias to float64 only), so
+# a TP rank's last-bit changes of the forward move their updates by far
+# more than a matrix's (rehearsed on the CPU at a shrunken width:
+# Hymba's A_log 4.9e-5 at (2, 1) and 1.3e-4 at (1, 2) in f32; on the
+# H100, Mamba2's D 5.5e-2 in bf16 at (1, 2), PERF.md); their updates
+# are gated at MESH_ILL_FACTOR times the dtype's MESH_LM_TOL and
+# printed apart, every other leaf at MESH_LM_TOL
+MESH_ILL_LEAVES = ("A_log", "D", "dt_bias")
+MESH_ILL_FACTOR = 10.0
+# A bf16 leaf whose update differs from one device's bf16 update by more
+# than its gate passes if the mesh's lands no farther from the
+# one-device f32 step than MESH_BF16_EXACT times one device's bf16 step
+# does (as exact as one device; on the H100 Mamba2's ln_mix at bf16
+# moved 4.2e-2 from one device's, PERF.md)
+MESH_BF16_EXACT = 2.0
+
+
+def mesh_family_cfg(name: str, plan: dict):
+    """The family's config at full width, its layers cut as ``plan``
+    says."""
+    from repro_torch.configs.base import get_config
+    over = {"n_layers": plan["layers"]}
+    if "global_layers" in plan:
+        over["global_layers"] = plan["global_layers"]
+    return dataclasses.replace(get_config(name), **over)
+
+
+def mesh_family_cases(dev, tmp: str, gen, cfgs: dict | None = None,
+                      batch=MESH_FAM_BATCH, rows: int = MESH_FAM_ROWS,
+                      lens=MESH_FAM_LENS, swa_lens=MESH_SWA_LENS
+                      ) -> tuple[list, dict]:
+    """The MESH_FAMILIES cases for the ranks and the one-device runs of
+    the prefill and decode cases, run here before the ranks start (the
+    training cases' run on the ranks: ``parity``'s ``one_device``);
+    ``cfgs`` (name -> config), ``batch``, ``rows`` and the prompt lengths
+    cut them down on the CPU."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.sharding import parity
+    cases, refs = [], {}
+    for name, plan in MESH_FAMILIES.items():
+        cfg = (cfgs or {}).get(name) or mesh_family_cfg(name, plan)
+        sub = os.path.join(tmp, name)
+        os.makedirs(sub, exist_ok=True)
+        ref = refs[name] = {"cfg": cfg, "plan": plan}
+        flens = swa_lens if plan.get("lens") == "swa" else lens
+        if cfg.moe:
+            # MoE routing groups of 256 tokens must divide a prompt (the
+            # reference asserts): each length cut to a multiple of 256
+            flens = [n if n <= 256 else n - n % 256 for n in flens]
+        ref["lens"] = tuple(flens)
+        t0 = time.perf_counter()
+        if plan.get("train"):
+            batches = [{"tokens": torch.randint(0, cfg.vocab, batch,
+                                                generator=gen).int()}
+                       for _ in range(MESH_LM_STEPS)]
+            opt, norm = mesh_clip_opt(dev, cfg, batches[0])
+            ref["train"] = {"opt": opt, "norm0": norm}
+            cfg32 = dataclasses.asdict(dataclasses.replace(
+                cfg, dtype="float32"))
+            # each rank runs the one-device steps it is held against
+            # itself, once a config (parity's one_device, kept on its
+            # host): the references as checkpoints would write 23 GB to a
+            # disk the card's machine meters at 45 GiB a call, and kept
+            # on the card here they crowd the card the ranks use
+            train = dict(kind="lm_train", seed=0, condition=True, opt=opt,
+                         batches=batches,
+                         one_device={"steps": MESH_LM_STEPS, "key": name})
+            for mesh in plan["train"]:
+                case = dict(train, name=f"fam {name} f32 {mesh[0]}x{mesh[1]}",
+                            mesh=mesh, cfg=cfg32)
+                if plan.get("reshard") and mesh == (2, 1):
+                    case.update(save_dir=f"{sub}/saved", save_at=0)
+                cases.append(case)
+            if plan.get("bf16"):
+                cases.append(dict(
+                    train, name=f"fam {name} bf16 1x2", mesh=(1, 2),
+                    batches=batches[:1],
+                    one_device={"steps": 1, "f32_steps": 1, "key": name},
+                    cfg=dataclasses.asdict(dataclasses.replace(
+                        cfg, dtype="bfloat16"))))
+            cases += [dict(train, name=f"fam {name} fault {fault}",
+                           mesh=mesh, cfg=cfg32, batches=batches[:1],
+                           fault=fault, one_device={"steps": 1, "key": name}
+                           if plan.get("fault_updates") else None)
+                      for fault, mesh in plan.get("faults", ())]
+            if plan.get("reshard"):
+                cases.append(dict(
+                    train, kind="reshard", name=f"fam {name} reshard 1x2",
+                    mesh=(1, 2), cfg=cfg32, from_dir=f"{sub}/saved"))
+        # the TP prefill and the decodes, in bf16
+        c16 = dataclasses.replace(cfg, dtype="bfloat16")
+        prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen).tolist()
+                   for n in flens]
+        params = tr.init(c16, torch.Generator(dev).manual_seed(0))
+        parity.condition(params, c16.d_model)
+        with torch.no_grad():
+            ref["prefill"] = [tr.forward(params, {"tokens": torch.tensor(
+                p, device=dev)[None]}, c16, mode="prefill",
+                last_logit_only=True)[0][0, -1].float().cpu()
+                for p in prompts]
+        del params
+        prefill = dict(kind="lm_prefill", mesh=(1, 2), seed=0,
+                       condition=True, cfg=dataclasses.asdict(c16),
+                       prompts=prompts)
+        cases.append(dict(prefill, name=f"fam {name} prefill 1x2"))
+        cases += [dict(prefill, name=f"fam {name} prefill 1x2 {fault}",
+                       fault=fault)
+                  for fault in plan.get("prefill_faults", ())]
+        dtoks = torch.randint(0, cfg.vocab, (MESH_DECODE_STEPS, 2, 1),
+                              generator=gen)
+        decode = dict(seed=0, condition=True, prompts=prompts, max_len=rows,
+                      kv_dtype="bf16", tokens=dtoks,
+                      lengths=torch.tensor(flens), drop_cache=True)
+        dcases = [dict(decode, kind="lm_decode", seq_shard=False,
+                       name=f"fam {name} decode {m[0]}x{m[1]}", mesh=m,
+                       cfg=dataclasses.asdict(c16))
+                  for m in plan["decode"]]
+        dcases += [dict(decode, kind="decode", mesh=(2, 1),
+                        name=f"fam {name} seq decode {dt}",
+                        cfg=dataclasses.asdict(dataclasses.replace(
+                            cfg, dtype=dt)))
+                   for dt in plan.get("seq", ())]
+        ref["decode"] = {}
+        memo: dict = {}
+        for case in dcases:
+            dt = case["cfg"]["dtype"]
+            if dt in ref["decode"]:
+                continue
+            c, p_, cache, tokens, lengths = parity.decode_inputs(case, dev,
+                                                                 memo)
+            with torch.no_grad():
+                ref["decode"][dt] = torch.stack([
+                    tr.decode_step(p_, cache, tokens[i], lengths + i, c)[0]
+                    .float().cpu() for i in range(tokens.shape[0])])
+            del cache, p_
+        memo.clear()
+        cases += dcases
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        print(f"mesh {name}: the one-device references in "
+              f"{time.perf_counter() - t0:.1f} s")
+    return cases, refs
+
+
+def mesh_family_check(card: str, dev, refs: dict, ranks: list,
+                      tmp: str) -> dict:
+    """The ranks' MESH_FAMILIES cases against the one-device runs (see
+    MESH_FAMILIES): every gate, every planted fault's factor over its
+    gate, each rank's flash launches by (dtype, dk, dv) and heads a call,
+    its collectives and peak memory beside the reckoned state; one
+    launch at each new rank geometry timed alone beside SDPA."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.train_state import init_train_state
+    on_card = dev.type == "cuda"
+    out = {}
+
+    def launches(res):
+        return {f"{k.removeprefix('flash_attention_')} {g}": v
+                for k, geo in res["flash_launches"].items()
+                for g, v in geo.items()}
+
+    def flash_layers(cfg):
+        return sum(rep for descs, rep in cfg.layer_segments()
+                   for d in descs if d.mixer != "ssm"
+                   and not (d.window and cfg.causal))
+
+    for name, ref in refs.items():
+        cfg, plan = ref["cfg"], ref["plan"]
+        row = out[name] = {}
+        n = tr.count_params(cfg)
+        hq = cfg.n_heads
+        heads = -(-hq // 2) if hq else 0
+        dk = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) if cfg.mla \
+            else cfg.resolved_head_dim
+        dv = cfg.v_head_dim if cfg.mla else dk
+        n_flash = flash_layers(cfg)
+
+        def read(case, mesh, dt, steps, first=0, want_from=None,
+                 rank_check=True):
+            """Each rank's case against the one-device steps
+            ``first + 0..steps-1`` the rank ran itself (``one_device``:
+            the case's, or ``want_from``'s)."""
+            tol = MESH_LM_TOL[dt]
+            worst = {}
+
+            def gate(path):
+                """A leaf's gate: the tolerance, MESH_ILL_FACTOR times it
+                for the SSM's per-head scalars."""
+                return MESH_ILL_FACTOR * tol \
+                    if path.rsplit("::", 1)[-1] in MESH_ILL_LEAVES else tol
+
+            def shares(res):
+                """Each leaf's reading over its gate; at bf16 the smaller
+                of that and its distance from the f32 step over
+                MESH_BF16_EXACT times one device's bf16 step's."""
+                two = res.get("updates2", {})
+                exact = res.get("one_device", {}).get("exact", {})
+                out_ = {}
+                for path, (a, b) in res.get("updates", {}).items():
+                    if b <= 0:
+                        continue
+                    share = math.sqrt(a / b) / gate(path)
+                    if dt == "bfloat16" and path in two and exact.get(path):
+                        a2, b2 = two[path]
+                        share = min(share, math.sqrt(a2 / b2)
+                                    / (MESH_BF16_EXACT * exact[path]))
+                    out_[path] = share
+                return out_
+            for r, rank in enumerate(ranks):
+                res = rank[case]
+                want = rank[want_from or case]["one_device"]["metrics"][
+                    first:first + steps]
+                rel = max(abs(g[k] - w[k]) / abs(w[k])
+                          for g, w in zip(res["metrics"], want, strict=True)
+                          for k in ("loss", "grad_norm"))
+                aux = max([abs(g[k] - w[k]) / abs(w[k])
+                           for g, w in zip(res["metrics"], want)
+                           for k in ("aux_lb", "aux_z") if w[k]] or [0.0])
+                upd, leaf = max([(math.sqrt(a / b), path) for path, (a, b)
+                                 in res.get("updates", {}).items() if b > 0]
+                                or [(0.0, None)])
+                share, at = max([(v, p) for p, v in shares(res).items()]
+                                or [(0.0, None)])
+                wide = {p.split("::", 1)[-1]: f"{math.sqrt(a / b):.3e}"
+                        for p, (a, b) in res.get("updates", {}).items()
+                        if b > 0 and gate(p) > tol}
+                calls = sorted({c[3] for c in res["flash"]})
+                geo = launches(res)
+                d_, m_ = mesh
+                reckoned = (12 * n / (d_ * m_) + (4 if dt == "float32"
+                                                  else 2) * n / m_
+                            + 4 * n / m_) / 1e9
+                print(f"mesh {case} rank {r} (data "
+                      f"{res['coords']['data']}, model "
+                      f"{res['coords']['model']}): {steps} steps, loss and "
+                      f"grad_norm vs one device worst rel {rel:.3e}, worst "
+                      f"leaf update {upd:.3e} ({leaf}; tolerance {tol:g}), "
+                      f"at {share:.3f} of its leaf's gate ({at}; "
+                      f"{MESH_ILL_FACTOR * tol:g} for {wide}), aux "
+                      f"{aux:.3e} (tolerance {MESH_AUX_TOL:g}); losses "
+                      f"{[round(m['loss'], 6) for m in res['metrics']]}; "
+                      f"flash {geo} over {calls} heads a call; "
+                      f"{res['collectives']} collectives ({res['ipc']} "
+                      f"through IPC); {res['wall_s']:.1f} s; peak "
+                      f"{res.get('peak_gb', 0):.2f} GB (state, compute "
+                      f"copy and gradients reckoned {reckoned:.2f} GB) "
+                      f"[{card}]")
+                worst[r] = dict(rel=rel, aux=aux, update_rel=upd,
+                                gate_share=share, widened=wide, flash=geo,
+                                collectives=res["collectives"],
+                                ipc=res["ipc"],
+                                heads=calls, peak_gb=res.get("peak_gb"),
+                                wall_s=res["wall_s"])
+                if rank_check:
+                    check(rel <= tol and share <= 1 and aux <= MESH_AUX_TOL,
+                          f"mesh {case} rank {r} disagrees with the "
+                          f"one-device step")
+                    want_heads = [-(-hq // m_)] if n_flash else []
+                    check(calls == want_heads,
+                          f"mesh {case} rank {r}: flash over {calls} heads,"
+                          f" {want_heads} expected")
+                    key = f"{dt}/{dk}/{dv}"
+                    check(not on_card or sum(geo.values()) == sum(
+                        v for k, v in geo.items() if k.endswith(key))
+                        == 2 * steps * n_flash,
+                          f"mesh {case} rank {r}: {geo} launches, "
+                          f"{2 * steps * n_flash} of {key} expected")
+            return worst
+
+        tr_ref = ref.get("train")
+        if tr_ref:
+            print(f"mesh {name} at full width, {cfg.n_layers} layers "
+                  f"({n:,} parameters): the first one-device gradient "
+                  f"norm {tr_ref['norm0']:.4e}, grad_clip "
+                  f"{tr_ref['opt']['grad_clip']:.4e}, eps "
+                  f"{tr_ref['opt']['eps']:.3e}")
+            for mesh in plan["train"]:
+                case = f"fam {name} f32 {mesh[0]}x{mesh[1]}"
+                row[case] = read(case, mesh, "float32", MESH_LM_STEPS)
+                if plan.get("routing"):
+                    # the one-device forward's (remat: then its recompute)
+                    want = ranks[0][case]["one_device"]["routing"]
+                    layers = len(want) // 2
+                    same = all(
+                        torch.equal(a, b) for rank in ranks
+                        for ra, rb in zip(rank[case]["one_device"]["routing"],
+                                          want) for a, b in zip(ra, rb))
+                    for li in range(layers):
+                        for m_ in range(mesh[1]):
+                            got = [torch.cat([
+                                rank[case]["routing"][li][i]
+                                for rank in ranks
+                                if rank[case]["coords"]["model"] == m_])
+                                for i in range(3)]
+                            same &= all(torch.equal(g, w) for g, w in zip(
+                                got, want[li]))
+                    kept = sum(int(w[2].sum()) for w in want[:layers])
+                    print(f"mesh {case}: the routing of {layers} MoE layers "
+                          f"in the first forward (expert ids, places, "
+                          f"{kept} kept pairs) equal to one device's bit for "
+                          f"bit on every rank: {same}")
+                    check(same, f"mesh {case}: the routing differs from "
+                                f"one device's")
+                    row[case + " routing"] = same
+            if plan.get("bf16"):
+                case = f"fam {name} bf16 1x2"
+                row[case] = read(case, (1, 2), "bfloat16", 1)
+            sound = f"fam {name} f32 {plan['train'][0][0]}x" \
+                f"{plan['train'][0][1]}"
+            for fault, mesh in plan.get("faults", ()):
+                case = f"fam {name} fault {fault}"
+                worst = read(case, mesh, "float32", 1, want_from=None
+                             if plan.get("fault_updates") else sound,
+                             rank_check=False)
+                keys, tol = (("aux",), MESH_AUX_TOL) if "aux" in fault \
+                    else (("rel", "update_rel"), MESH_LM_TOL["float32"])
+                factor = min(max(w[k] for k in keys)
+                             for w in worst.values()) / tol
+                print(f"mesh {case} at {mesh}: {' / '.join(keys)} read "
+                      f"{factor:.1f} x its gate {tol:g} on the rank that "
+                      f"reads least (planted: must reach "
+                      f"{MESH_FAM_FAULT_RATIO:g} x)")
+                check(factor >= MESH_FAM_FAULT_RATIO,
+                      f"mesh {name}: the gate cannot tell {fault}")
+                row[case] = factor
+            if plan.get("reshard"):
+                saved = f"{tmp}/{name}/saved"
+                cfg32 = dataclasses.replace(cfg, dtype="float32")
+                state = init_train_state(cfg32,
+                                         torch.Generator(dev).manual_seed(0))
+                state = ckpt.restore(state, saved)
+                files = ckpt.arrays(saved)
+                same_one = all(np.array_equal(t.cpu().numpy(), files[k])
+                               for k, t in ckpt.tree_items(state).items())
+                del files, state
+                case = f"fam {name} reshard 1x2"
+                worst = read(case, (1, 2), "float32", 1, first=1,
+                             rank_check=False)
+                tol = MESH_LM_TOL["float32"]
+                for r, rank in enumerate(ranks):
+                    res = rank[case]
+                    print(f"mesh reshard of {name}: (2, 1)'s state after "
+                          f"step 1 restored at (1, 2) rank {r}: bits equal "
+                          f"{res['bits_equal']} over {res['leaves']} leaves "
+                          f"(on one device: {same_one}); step 2 rel "
+                          f"{worst[r]['rel']:.3e}, update "
+                          f"{worst[r]['update_rel']:.3e} (tolerance {tol:g})")
+                    check(res["bits_equal"] and same_one
+                          and worst[r]["rel"] <= tol
+                          and worst[r]["gate_share"] <= 1,
+                          f"mesh {name}: the reshard differs")
+                row[case] = dict(same_one=same_one, **worst[0])
+        # the TP prefill
+        for case in [k for k in ranks[0] if k.startswith(
+                f"fam {name} prefill 1x2")]:
+            fault = case != f"fam {name} prefill 1x2"
+            worst = 0.0
+            for r, rank in enumerate(ranks):
+                res = rank[case]
+                m_ = res["coords"]["model"]
+                for got, want in zip(res["logits"], ref["prefill"]):
+                    cols = got.shape[-1]
+                    worst = max(worst, rel_norm(
+                        got.float(), want[m_ * cols:(m_ + 1) * cols]))
+                calls = sorted({c[3] for c in res["flash"]})
+                geo = launches(res)
+                print(f"mesh {case} rank {r}: last logits of prompts "
+                      f"{ref['lens']} vs one device ||a-b||/||b|| "
+                      f"{worst:.3e} (" + (f"must exceed "
+                                          f"{MESH_FAM_FAULT_RATIO:g} x "
+                                          f"{MESH_TP_TOL:g}" if fault else
+                                          f"tolerance {MESH_TP_TOL:g}")
+                      + f"); flash {geo} over {calls} heads a call; "
+                      f"{res['collectives']} collectives ({res['ipc']} "
+                      f"through IPC); peak {res.get('peak_gb', 0):.2f} GB "
+                      f"[{card}]")
+                if not fault:
+                    want_heads = [heads] if n_flash else []
+                    check(calls == want_heads,
+                          f"mesh {case} rank {r}: flash over {calls} heads")
+                    key = f"wgmma bfloat16/{dk}/{dv}"
+                    check(not on_card or geo.get(key, 0) == sum(
+                        geo.values()) == n_flash * len(ref["lens"]),
+                          f"mesh {case} rank {r}: {geo}, "
+                          f"{n_flash * len(ref['lens'])} of {key} expected")
+            check(worst >= MESH_FAM_FAULT_RATIO * MESH_TP_TOL if fault
+                  else worst <= MESH_TP_TOL,
+                  f"mesh {case}: {worst:.3e} against {MESH_TP_TOL:g}")
+            row[case] = worst
+        # the decodes
+        for case in [k for k in ranks[0] if k.startswith(
+                f"fam {name} decode ") or k.startswith(
+                f"fam {name} seq decode ")]:
+            seq = " seq decode " in case
+            dt = case.split()[-1] if seq else "bfloat16"
+            want = ref["decode"][dt]
+            tol = MESH_DECODE_TOL[dt] if seq else MESH_TP_TOL
+            worst, coll = 0.0, []
+            for r, rank in enumerate(ranks):
+                res = rank[case]
+                d_, m_ = res["coords"]["data"], res["coords"]["model"]
+                got = res["logits"].float()
+                rows_, cols = got.shape[1], got.shape[2]
+                d_ = 0 if seq else d_
+                w = want[:, d_ * rows_:(d_ + 1) * rows_,
+                         m_ * cols:(m_ + 1) * cols]
+                live = w > -1e29
+                worst = max(worst, rel_norm(got[live], w[live]))
+                coll.append((res["collectives"], res["ipc"],
+                             round(res.get("peak_gb", 0), 2)))
+            print(f"mesh {case}: {MESH_DECODE_STEPS} steps' logits on both "
+                  f"ranks vs one device ||a-b||/||b|| {worst:.3e} (tolerance "
+                  f"{tol:g}); collectives (through IPC) and peak GB a rank "
+                  f"{coll} [{card}]")
+            check(worst <= tol, f"mesh {case}: {worst:.3e} against {tol:g}")
+            row[case] = worst
+    # one launch at each new rank geometry, timed in this process alone
+    if on_card:
+        b_, s_ = MESH_FAM_BATCH
+        geos = []
+        for name, ref in refs.items():
+            cfg = ref["cfg"]
+            if not cfg.n_heads:
+                continue
+            dk = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) if cfg.mla \
+                else cfg.resolved_head_dim
+            dv = cfg.v_head_dim if cfg.mla else dk
+            h = -(-cfg.n_heads // 2)
+            geos.append((f"{name} prefill at (1, 2)", 1, max(ref["lens"]),
+                         h, dk, dv))
+            if name == "minicpm3-4b":
+                geos.append((f"{name} training at (1, 2)", b_, s_, h, dk,
+                             dv))
+        out["launch_rows"] = [split_launch_row(
+            f"{label} a rank", b, s, h, dk, dv, torch.bfloat16, dev, on_card)
+            for label, b, s, h, dk, dv in geos]
+        for row in out["launch_rows"]:
+            print(f"flash_attention ({row['variant']}) at {row['label']} "
+                  f"(B={row['b']} S={row['s']} H={row['h']} "
+                  f"dk={row['dk']} dv={row['dv']} causal bf16): "
+                  f"{row['ms']:.4f} ms (device; {row['tflops']:.2f} "
+                  f"TFLOP/s), vs plain max_abs_err {row['max_abs_err']:.3e};"
+                  f" bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+                  f"plain {row['plain_ms']:.3f} ms; SDPA "
+                  f"{row['library_ms']:.4f} ms ({row['library_backend']}) "
+                  f"[{card}]")
+    return out
 
 
 def mesh_loop_cases(dev, tmp: str) -> list:
@@ -8528,7 +9066,7 @@ def mesh_lm_check(card: str, dev, refs: dict, ranks: list, tmp: str,
     # every rank's flash launches over the LLM cases, by kernel and dtype
     for rank in ranks:
         for name, res in rank.items():
-            if name.startswith("lm "):
+            if name.startswith(("lm ", "fam ")):
                 for kname, geo in res["flash_launches"].items():
                     for key, k in geo.items():
                         dt = key.split("/")[0]
@@ -8542,7 +9080,11 @@ def mesh_phase(card: str, dev, batch: int = BATCH, scale: float = 1.0,
                decode_rows: int = MESH_DECODE_ROWS,
                decode_lens: tuple[int, int] = MESH_DECODE_LENS,
                train_cfg=None, swa_rows: int = MESH_SWA_ROWS,
-               swa_lens: tuple[int, int] = MESH_SWA_LENS) -> dict:
+               swa_lens: tuple[int, int] = MESH_SWA_LENS,
+               family_cfgs: dict | None = None,
+               family_batch=MESH_FAM_BATCH,
+               family_rows: int = MESH_FAM_ROWS,
+               family_lens=MESH_FAM_LENS) -> dict:
     """Sharded GAN programs on ``MESH_WORLD`` gloo ranks sharing the card
     (ROADMAP item 12).  The kernels are built before the ranks start, so
     each rank only loads the built libraries.
@@ -8572,6 +9114,12 @@ def mesh_phase(card: str, dev, batch: int = BATCH, scale: float = 1.0,
        TP decode and batch-sharded decode, (c) Gemma3-4B's windowed layers
        under seq_shard_decode, (d) the reshard; ``train_cfg``,
        ``swa_rows`` and ``swa_lens`` cut it down on the CPU.
+    8. MLA, MoE, SSM and hybrid layers on the mesh (MESH_FAMILIES):
+       MiniCPM3-4B, OLMoE-1B-7B, Llama-4-Scout, Mamba2-2.7B and
+       Hymba-1.5B at full width, their layers cut, trained, prefilled and
+       decoded against one device, with their planted faults;
+       ``family_cfgs`` (name -> config), ``family_batch``,
+       ``family_rows`` and ``family_lens`` cut it down on the CPU.
     Every count is set to 0 on each rank just before each case and read
     just after.  A rank that fails fails the phase.  ``batch``,
     ``scale`` and ``min_bytes`` (the sharding threshold), ``qwen_cfg``,
@@ -8645,8 +9193,11 @@ def mesh_phase(card: str, dev, batch: int = BATCH, scale: float = 1.0,
     lm_cases, lm_refs = mesh_lm_cases(dev, tmp, gen, tcfg, qcfg,
                                       decode_rows, decode_lens, swa_rows,
                                       swa_lens)
+    fam_cases, fam_refs = mesh_family_cases(
+        dev, tmp, gen, family_cfgs, family_batch, family_rows, family_lens,
+        swa_lens)
     # the training cases first, on a card the other cases have not held
-    cases = lm_cases + cases
+    cases = lm_cases + fam_cases + cases
     decode_cases += lm_refs["swa"]
     print(f"mesh: the LLM cases' one-device references in "
           f"{time.perf_counter() - t_ref:.1f} s")
@@ -8841,6 +9392,7 @@ def mesh_phase(card: str, dev, batch: int = BATCH, scale: float = 1.0,
     out["decode"] = mesh_decode(card, dev, decode_cases, ranks)
     out["lm"] = mesh_lm_check(card, dev, lm_refs, ranks, lm_tmp, tcfg)
     out["loop"] = mesh_loop_check(card, ranks, lm_tmp)
+    out["families"] = mesh_family_check(card, dev, fam_refs, ranks, lm_tmp)
     tmp_dir.cleanup()
     seconds = time.perf_counter() - t0
     out.update(launches=launched, seconds=seconds, spawn_s=spawn_s)

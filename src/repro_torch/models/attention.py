@@ -50,9 +50,22 @@ On a ``model`` axis above 1 (:class:`~repro_torch.sharding.
 collectives.TensorGroup`) :func:`attention_apply` runs the rank's whole
 heads: q, k and v projected by its column blocks, the kernel (or the
 plain attention) over them, ``wo`` row-parallel and summed over the
-group.  The reference zero-pads heads that do not divide the axis
-(``_pad_heads_even``); the port splits whole heads only
-(``sharding.rules.check_whole_heads``).  MLA on a mesh is not ported.
+group.  Where the rules' blocks cut a head (Hymba's 25 heads over 2
+ranks: ``wq``'s columns split at 12.5 heads), the heads are the
+reference's ``_pad_heads_even``: GQA expanded to MHA, the heads
+zero-padded to a multiple of the axis, ``ceil(H/m)`` a rank, the pads
+the last; each rank reads the columns of its padded heads from the
+leaves gathered over ``model`` (``collectives.leaf_part``: the backward
+sums the ranks' cotangents into the owning block), drops its pads after
+the attention and multiplies its real heads' rows of ``wo``.  Its
+decode holds the cache as the rules cut it (the head dim split where
+the kv heads do not divide the axis): the scores' partial sums over the
+rank's slice of the head dim are summed over ``model``, and the
+outputs' slices gathered.  :func:`mla_apply` runs the rank's (padded)
+heads the same way, ``q_norm``'s RMS over the whole ``q_lora`` (the
+q-down projection gathered), the latent whole on every rank; under
+``seq_shard`` its absorbed decode combines the ranks' partial softmax
+over their cache rows (:func:`flash_decode_combine`).
 """
 
 from __future__ import annotations
@@ -67,7 +80,7 @@ from repro_torch.kernels.flash_attention import (FlashAttentionFn,
 from repro_torch.models.common import (PSpec, apply_rope, rms_norm,
                                        rope_angles)
 from repro_torch.sharding import collectives
-from repro_torch.sharding.collectives import reduce_from_model
+from repro_torch.sharding.collectives import leaf_part, reduce_from_model
 
 __all__ = ["attention_specs", "attention_apply", "mla_specs", "mla_apply",
            "flash_attention", "naive_attention", "chunked_q_attention",
@@ -379,6 +392,190 @@ def _rank_heads(t: torch.Tensor, hq: int, hq_loc: int, index: int
     return t.repeat_interleave(rep, dim=2).narrow(2, index * hq_loc, hq_loc)
 
 
+def _attend(q, k, v, positions, cfg: ArchConfig, desc: BlockDesc,
+            attn_impl: str) -> torch.Tensor:
+    """Train and prefill attention of q, k, v (B, S, H, hd): a windowed
+    causal layer through :func:`swa_attention` at any ``attn_impl``, else
+    ``"flash"``, ``"chunked_q"`` or ``"naive"``; soft-capped by the
+    config."""
+    cap = cfg.logit_softcap
+    if desc.window and cfg.causal:
+        return swa_attention(q, k, v, positions, positions,
+                             window=desc.window, softcap=cap)
+    if attn_impl == "flash":
+        return flash_attention(q, k, v, causal=cfg.causal, softcap=cap)
+    if attn_impl == "chunked_q":
+        return chunked_q_attention(q, k, v, positions, positions,
+                                   causal=cfg.causal, softcap=cap)
+    if attn_impl == "naive":
+        return naive_attention(q, k, v, positions, positions,
+                               causal=cfg.causal, softcap=cap)
+    raise ValueError(f"unknown attn_impl {attn_impl!r}")
+
+
+def _cuts_a_head(params, cfg: ArchConfig, m: int) -> bool:
+    """Whether the rules' blocks of ``wq`` or ``wk`` end inside a head on
+    a model axis of ``m``."""
+    hd = cfg.resolved_head_dim
+    return any(params[name].shape[-1] < n * hd and n % m
+               for name, n in (("wq", cfg.n_heads),
+                               ("wk", cfg.n_kv_heads)))
+
+
+def _padded_heads(h: int, tp) -> tuple[int, int, int]:
+    """``(first head, real heads, heads a rank)`` of this rank's block of
+    the reference's padded heads (``_pad_heads_even``): ``h`` zero-padded
+    to a multiple of the model axis, ``ceil(h/m)`` a rank in order, the
+    pads the last rank's last."""
+    per = -(-h // tp.size)
+    lo = tp.index * per
+    return lo, max(0, min(per, h - lo)), per
+
+
+def _real_heads(out: torch.Tensor, n: int) -> torch.Tensor:
+    """The rank's ``n`` real heads of its padded block's output (B, S,
+    heads, hd): the first ``n``, the pads dropped."""
+    return out[:, :, :n]
+
+
+def _pad_to(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """``t`` (B, S, H, d) zero-padded on the heads to ``heads``."""
+    return F.pad(t, (0, 0, 0, heads - t.shape[2])) if heads > t.shape[2] \
+        else t
+
+
+def _kv_block(t: torch.Tensor, tp) -> torch.Tensor:
+    """This rank's block of a whole k or v (..., Hk, hd) as the cache
+    holds it where the model axis does not divide the kv heads (as on
+    every path through :func:`_attention_padded`;
+    ``sharding.rules.cache_shardings``): its slice of the head dim where
+    the axis divides that, else whole."""
+    hd, m = t.shape[-1], tp.size
+    if hd % m == 0:
+        return t.narrow(-1, tp.index * hd // m, hd // m)
+    return t
+
+
+def _split_hd_attention(q, k_cache, v_cache, lengths, hd: int, tp, *,
+                        offset: int | None, seq_group, window: int,
+                        softcap: float) -> torch.Tensor:
+    """Decode attention over a cache whose head dim is split over the
+    model group: q (B,1,Hq,hd_loc) the rank's slice of every head,
+    caches (B,T,Hk,hd_loc).  The f32 scores' partial sums over the slices
+    are summed over the group (one ``all_reduce``), then masked and
+    soft-capped as :func:`decode_attention`'s; ``p`` (cast to the cache's
+    dtype) times the rank's slice of v, each rank's slice of the output
+    gathered: (B,1,Hq,hd) in q's dtype.  With ``seq_group`` the cache
+    holds the rows ``offset + 0..T-1`` and the softmax is combined over
+    the group's ranks (:func:`flash_decode_combine`)."""
+    b, _, hq, hd_loc = q.shape
+    t, hk = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(b, 1, hk, hq // hk, hd_loc)
+    sc = torch.einsum("bsgrh,btgh->bgrst", qg.float(), k_cache.float())
+    sc = collectives.all_reduce(sc, tp.group, "model")
+    sc = _softcap(sc * hd ** -0.5, softcap)
+    kpos = (offset or 0) + torch.arange(t, device=q.device)[None]
+    ok = kpos <= lengths[:, None]
+    if window > 0:
+        ok &= kpos > lengths[:, None] - window
+    sc = torch.where(ok[:, None, None, None], sc, NEG_INF)
+    if seq_group is None:
+        pr = torch.softmax(sc, dim=-1).to(v_cache.dtype)
+        out = torch.einsum("bgrst,btgh->bgrsh", pr, v_cache)
+    else:
+        m = sc.amax(dim=-1)
+        p = torch.exp(sc - m[..., None])
+        num = torch.einsum("bgrst,btgh->bgrsh", p.to(v_cache.dtype).float(),
+                           v_cache.float())
+        out = flash_decode_combine(m[None], p.sum(dim=-1)[None], num[None],
+                                   seq_group)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, hq, hd_loc).to(q.dtype)
+    return collectives.all_gather(out, 3, tp.group, "model")
+
+
+def _attention_padded(params, x, cfg: ArchConfig, desc: BlockDesc, *,
+                      positions, mode: str, cache, lengths, attn_impl: str,
+                      seq_shard, tp):
+    """:func:`attention_apply` where the rules' blocks cut a head (see the
+    module docstring): train and prefill over the rank's padded heads
+    (:func:`_padded_heads`; k and v of every kv head, then each of its q
+    heads' own, the reference's GQA expansion), the prefill's cache the
+    rank's block of k and v (:func:`_kv_block`); decode over the cache's
+    blocks (:func:`_split_hd_attention`, or, whole, the one-device
+    attention on every rank) from the projections of every head."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    hq, hk = cfg.n_heads, cfg.n_kv_heads
+    d = cfg.d_model
+    lo, n, per = _padded_heads(hq, tp) if mode != "decode" else (0, hq, hq)
+    x = collectives.sum_grad(x, tp.group, "model", f32=True)
+
+    def proj(name, heads, first, count):
+        w = leaf_part(params[name], (d, heads * hd), tp, 1, first * hd,
+                      (first + count) * hd)
+        out = x @ w
+        bias = params.get("b" + name[1:])
+        if bias is not None:
+            out = out + leaf_part(bias, (heads * hd,), tp, 0, first * hd,
+                                  (first + count) * hd).to(out.dtype)
+        return out.reshape(b, s, count, hd)
+    cos, sin = rope_angles(positions, hd, desc.rope_theta)
+    q = apply_rope(proj("wq", hq, lo, n), cos, sin)
+    k = apply_rope(proj("wk", hk, 0, hk), cos, sin)
+    v = proj("wv", hk, 0, hk)
+    new_cache = None
+    if mode in ("train", "prefill"):
+        kv = torch.arange(lo, lo + n, device=x.device) // (hq // hk)
+        out = _attend(*(_pad_to(t, per) for t in (q, k[:, :, kv],
+                                                  v[:, :, kv])),
+                      positions, cfg, desc, attn_impl)
+        out = _real_heads(out, n).reshape(b, s, n * hd)
+        out = out @ leaf_part(params["wo"], (hq * hd, d), tp, 0, lo * hd,
+                              (lo + n) * hd)
+        if mode == "prefill":
+            new_cache = {"k": _kv_block(k, tp), "v": _kv_block(v, tp)}
+        return reduce_from_model(out, tp.group), new_cache
+    if mode != "decode":
+        raise ValueError(mode)
+    offset = None if seq_shard is None \
+        else seq_shard[1] * cache["k"].shape[1]
+    if "k_s" in cache:
+        # one scale a token over every head, as on one device
+        (kq, ks), (vq, vs) = (quantize_kv(t[:, 0]) for t in (k, v))
+        for name, new in (("k", _kv_block(kq, tp)), ("v", _kv_block(vq, tp)),
+                          ("k_s", ks), ("v_s", vs)):
+            _write_rows(cache[name], new, lengths, offset)
+        dt = cfg.activation_dtype
+        k_cache = dequantize_kv(cache["k"], cache["k_s"], dt)
+        v_cache = dequantize_kv(cache["v"], cache["v_s"], dt)
+    else:
+        _write_rows(cache["k"], _kv_block(k[:, 0], tp), lengths, offset)
+        _write_rows(cache["v"], _kv_block(v[:, 0], tp), lengths, offset)
+        k_cache, v_cache = cache["k"], cache["v"]
+    # the reference's flash_decode has no soft-cap (see attention_apply)
+    cap = cfg.logit_softcap if seq_shard is None or desc.window else 0.0
+    group = None if seq_shard is None else seq_shard[0]
+    if k_cache.shape[-1] < hd:
+        hd_loc = k_cache.shape[-1]
+        out = _split_hd_attention(
+            q.narrow(-1, tp.index * hd_loc, hd_loc), k_cache, v_cache,
+            lengths, hd, tp, offset=offset, seq_group=group,
+            window=desc.window, softcap=cap)
+    elif group is None:
+        out = decode_attention(q, k_cache, v_cache, lengths,
+                               window=desc.window, softcap=cap)
+    else:
+        out = flash_decode(q, k_cache, v_cache, lengths, offset=offset,
+                           group=group, window=desc.window, softcap=cap)
+    out = out.reshape(b, s, hq * hd)
+    wo = params["wo"]
+    if wo.shape[0] == hq * hd:
+        return out @ wo, cache
+    rows = wo.shape[0]
+    out = out.narrow(-1, tp.index * rows, rows) @ wo
+    return reduce_from_model(out, tp.group), cache
+
+
 def attention_apply(params, x, cfg: ArchConfig, desc: BlockDesc, *,
                     positions, mode: str = "train", cache=None,
                     lengths=None, attn_impl: str = "flash",
@@ -410,11 +607,17 @@ def attention_apply(params, x, cfg: ArchConfig, desc: BlockDesc, *,
     its whole heads, ``wo``'s partials summed over the group
     (``reduce_from_model``); k and v are the rank's kv heads, or, where
     ``kv_heads`` fell back to replication, the kv heads its q heads read
-    (the cache then holds every kv head).  Without a split the layer
-    runs whole on every rank."""
+    (the cache then holds every kv head).  Where a block cuts a head the
+    rank runs its padded heads (:func:`_attention_padded`).  Without a
+    split the layer runs whole on every rank."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     hq, hk = cfg.n_heads, cfg.n_kv_heads
+    if tp is not None and _cuts_a_head(params, cfg, tp.size):
+        return _attention_padded(params, x, cfg, desc, positions=positions,
+                                 mode=mode, cache=cache, lengths=lengths,
+                                 attn_impl=attn_impl, seq_shard=seq_shard,
+                                 tp=tp)
     hq_loc = params["wq"].shape[-1] // hd
     tp = tp if hq_loc < hq else None
     wk, wv = params["wk"], params["wv"]
@@ -446,21 +649,7 @@ def attention_apply(params, x, cfg: ArchConfig, desc: BlockDesc, *,
 
     new_cache = None
     if mode in ("train", "prefill"):
-        cap = cfg.logit_softcap
-        kr, vr = heads(k), heads(v)
-        if desc.window and cfg.causal:
-            out = swa_attention(q, kr, vr, positions, positions,
-                                window=desc.window, softcap=cap)
-        elif attn_impl == "flash":
-            out = flash_attention(q, kr, vr, causal=cfg.causal, softcap=cap)
-        elif attn_impl == "chunked_q":
-            out = chunked_q_attention(q, kr, vr, positions, positions,
-                                      causal=cfg.causal, softcap=cap)
-        elif attn_impl == "naive":
-            out = naive_attention(q, kr, vr, positions, positions,
-                                  causal=cfg.causal, softcap=cap)
-        else:
-            raise ValueError(f"unknown attn_impl {attn_impl!r}")
+        out = _attend(q, heads(k), heads(v), positions, cfg, desc, attn_impl)
         if mode == "prefill":
             new_cache = {"k": k, "v": v}
     elif mode == "decode":
@@ -519,9 +708,18 @@ def mla_specs(cfg: ArchConfig) -> dict[str, PSpec]:
     }
 
 
+def _lora_norm(q: torch.Tensor, scale: torch.Tensor, eps: float,
+               parts: int) -> torch.Tensor:
+    """``q_norm``'s RMS norm of the q latent, over the whole ``q_lora``
+    (``parts``: the model ranks its columns are split over, which the
+    norm's statistics do not follow)."""
+    return rms_norm(q, scale, eps)
+
+
 def mla_apply(params, x, cfg: ArchConfig, desc: BlockDesc, *, positions,
               mode: str = "train", cache=None, lengths=None,
-              attn_impl: str = "flash"):
+              attn_impl: str = "flash", seq_shard: tuple | None = None,
+              tp=None):
     """Returns (out, new_cache).
 
     q: ``wq_a`` → ``rms_norm(q_norm)`` → ``wq_b``, split per head into
@@ -540,55 +738,100 @@ def mla_apply(params, x, cfg: ArchConfig, desc: BlockDesc, *, positions,
     are written into ``cache`` *in place* at row ``lengths``; the scores
     are ``(q_nope·W_uk)·ckv + q_rope·krope`` in f32 times ``(qk_nope +
     qk_rope)**-0.5`` over the keys at indices up to ``lengths``; ``p`` is
-    cast to the cache's dtype and the output is ``(p·ckv)·W_uv``."""
-    b, s, _ = x.shape
-    h, kl = cfg.n_heads, cfg.kv_lora_rank
-    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    cast to the cache's dtype and the output is ``(p·ckv)·W_uv``.
 
-    q = rms_norm(x @ params["wq_a"], params["q_norm"], cfg.norm_eps)
-    q = (q @ params["wq_b"]).reshape(b, s, h, dn + dr)
+    ``tp`` with ``params`` the rank's blocks (``wq_a``'s columns and
+    ``wq_b``'s rows split on ``q_lora``, ``wkv_b``'s columns and ``wo``'s
+    rows on the heads): the rank runs its padded heads
+    (:func:`_padded_heads`, every head where none is split), the q latent
+    from the gathered ``wq_a`` and ``wq_b`` (``q_norm``'s RMS over the
+    whole ``q_lora``), the kv latent whole, ``wo``'s partials summed over
+    the group.  ``seq_shard`` (``(data group, index)``): the cache holds
+    the rows ``index·T_loc + 0..T_loc-1``, written by their owner, and
+    the decode's softmax is each rank's partial max, denominator and
+    latent numerator ``p·ckv`` combined over the group, then ``W_uv``."""
+    b, s, _ = x.shape
+    d, h = cfg.d_model, cfg.n_heads
+    ql, kl = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    dq = dn + dr
+    whole = {"wq_a": (d, ql), "wq_b": (ql, h * dq),
+             "wkv_b": (kl, h * (dn + dv)), "wo": (h * dv, d)}
+    if tp is not None and all(tuple(params[k].shape) == v
+                              for k, v in whole.items()):
+        tp = None           # no leaf split: the layer runs whole
+    if tp is None:
+        lo, n, per = 0, h, h
+    else:
+        lo, n, per = _padded_heads(h, tp)
+        x = collectives.sum_grad(x, tp.group, "model", f32=True)
+
+    def part(name, shape, dim=0, first=0, stop=None):
+        return leaf_part(params[name], shape, tp, dim, first,
+                         shape[dim] if stop is None else stop)
+
+    q = _lora_norm(x @ part("wq_a", (d, ql), 1), part("q_norm", (ql,)),
+                   cfg.norm_eps, 1 if tp is None else tp.size)
+    q = q @ part("wq_b", (ql, h * dq), 1, lo * dq, (lo + n) * dq)
+    q = q.reshape(b, s, n, dq)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
-    kv_a = x @ params["wkv_a"]
-    c_kv = rms_norm(kv_a[..., :kl], params["kv_norm"], cfg.norm_eps)
+    kv_a = x @ part("wkv_a", (d, kl + dr), 1)
+    c_kv = rms_norm(kv_a[..., :kl], part("kv_norm", (kl,)), cfg.norm_eps)
     k_rope = kv_a[..., kl:]                      # (b, s, dr), shared heads
     cos, sin = rope_angles(positions, dr, desc.rope_theta)
     q_rope = apply_rope(q_rope, cos, sin)
     k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0]
+    wkv_b = part("wkv_b", (kl, h * (dn + dv)), 1, lo * (dn + dv),
+                 (lo + n) * (dn + dv))
 
     new_cache = None
     if mode in ("train", "prefill"):
-        kv = (c_kv @ params["wkv_b"]).reshape(b, s, h, dn + dv)
+        kv = (c_kv @ wkv_b).reshape(b, s, n, dn + dv)
         k_nope, v = kv[..., :dn], kv[..., dn:]
-        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)],
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, n, dr)],
                       dim=-1)
         qf = torch.cat([q_nope, q_rope], dim=-1)
+        qf, k, v = (_pad_to(t, per) for t in (qf, k, v))
         if attn_impl == "flash":
             out = flash_attention(qf, k, v, causal=True)
         else:
             out = naive_attention(qf, k, v, positions, positions,
                                   causal=True)
+        out = _real_heads(out, n)
         if mode == "prefill":
             new_cache = {"ckv": c_kv, "krope": k_rope}
     elif mode == "decode":
-        w_b = params["wkv_b"].reshape(kl, h, dn + dv)
+        w_b = wkv_b.reshape(kl, n, dn + dv)
         w_uk, w_uv = w_b[..., :dn], w_b[..., dn:]
-        q_lat = torch.einsum("bshn,khn->bshk", q_nope, w_uk)  # (b,1,h,kl)
-        rows = torch.arange(b, device=x.device)
+        q_lat = torch.einsum("bshn,khn->bshk", q_nope, w_uk)  # (b,1,n,kl)
         ckv, krope = cache["ckv"], cache["krope"]
-        ckv[rows, lengths] = c_kv[:, 0].to(ckv.dtype)
-        krope[rows, lengths] = k_rope[:, 0].to(krope.dtype)
+        offset = None if seq_shard is None else seq_shard[1] * ckv.shape[1]
+        _write_rows(ckv, c_kv[:, 0], lengths, offset)
+        _write_rows(krope, k_rope[:, 0], lengths, offset)
         new_cache = cache
         sc = (torch.einsum("bshk,btk->bhst", q_lat.float(), ckv.float())
               + torch.einsum("bshr,btr->bhst", q_rope.float(),
                              krope.float()))
         sc = sc * (dn + dr) ** -0.5
-        ok = torch.arange(ckv.shape[1], device=x.device)[None] \
-            <= lengths[:, None]
+        ok = (offset or 0) + torch.arange(ckv.shape[1], device=x.device)[
+            None] <= lengths[:, None]
         sc = torch.where(ok[:, None, None], sc, NEG_INF)
-        pr = torch.softmax(sc, dim=-1).to(ckv.dtype)
-        o_lat = torch.einsum("bhst,btk->bshk", pr, ckv)      # (b,1,h,kl)
+        if seq_shard is None:
+            pr = torch.softmax(sc, dim=-1).to(ckv.dtype)
+            o_lat = torch.einsum("bhst,btk->bshk", pr, ckv)  # (b,1,n,kl)
+        else:
+            m = sc.amax(dim=-1)
+            p = torch.exp(sc - m[..., None])
+            num = torch.einsum("bhst,btk->bhsk", p.to(ckv.dtype).float(),
+                               ckv.float())
+            o_lat = flash_decode_combine(m[None], p.sum(dim=-1)[None],
+                                         num[None], seq_shard[0])
+            o_lat = o_lat.permute(0, 2, 1, 3).to(ckv.dtype)
         out = torch.einsum("bshk,khv->bshv", o_lat, w_uv)
     else:
         raise ValueError(mode)
-    out = out.reshape(b, s, h * dv) @ params["wo"]
+    out = out.reshape(b, s, n * dv) @ part("wo", (h * dv, d), 0, lo * dv,
+                                           (lo + n) * dv)
+    if tp is not None:
+        out = reduce_from_model(out, tp.group)
     return out, new_cache

@@ -28,6 +28,22 @@ its expert's buffer is its rank among the group's pairs in flat
 (token, slot) order, and a pair at or past the capacity is dropped; the
 outputs are weighted by the gates rounded to the activation dtype.  A
 decode step's slots, idle ones included, form one group.
+
+On a mesh (``tp``: the ``model`` group, ``data``: the ``data`` group
+over which the batch's rows are split) the experts are split over
+``model`` (a rank holds ``E/m`` of them, ``wi``/``wg``/``wo`` on dim 0)
+and the activations are whole on every model rank: every rank routes the
+same tokens to the same bits, fills and runs only its own experts'
+buffers, combines its own pairs' outputs (the others' are zero), and the
+combine is summed over ``model`` in f32.  The routing groups are the
+reference's, a reshape of the global batch's tokens: where a data rank's
+rows make whole groups it routes them alone; else (a decode step's
+slots, one group across the ranks) the router's logits are gathered over
+``data``, every rank routes the whole group, and each dispatches its own
+rows' pairs.  The load-balance loss is ``E·Σ me·ce`` of the global
+batch, ``me`` and ``ce`` summed over ``data`` before the product; the
+z-loss is averaged over ``data``.  Each data rank's aux gradient is
+``D`` times its rows' share, as ``loss_fn``'s.
 """
 
 from __future__ import annotations
@@ -40,10 +56,12 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import PSpec
 from repro_torch.models.mlp import mlp_apply, mlp_specs
+from repro_torch.sharding import collectives
+from repro_torch.sharding.collectives import reduce_from_model
 
 __all__ = ["DEFAULT_GROUP", "Routing", "moe_specs", "moe_apply",
            "moe_apply_plain", "router_logits", "expert_capacity", "top_k",
-           "route", "route_plain"]
+           "route", "route_rows", "route_plain"]
 
 DEFAULT_GROUP = 256
 
@@ -75,17 +93,19 @@ class Routing(NamedTuple):
     keep: torch.Tensor
 
 
-def _groups(x: torch.Tensor, group_size: int) -> tuple[int, int]:
-    """(G, Sg) of ``x`` (B, S, D): groups of ``min(group_size, B·S)``
-    tokens, which must divide the tokens."""
-    t = x.shape[0] * x.shape[1]
+def _groups(x: torch.Tensor, group_size: int, ranks: int = 1
+            ) -> tuple[int, int]:
+    """(G, Sg) of ``x`` (B, S, D), or of ``ranks`` such row blocks one
+    after another (the data ranks' rows): groups of ``min(group_size,
+    B·S)`` tokens, which must divide the tokens."""
+    t = x.shape[0] * x.shape[1] * ranks
     sg = min(group_size, t)
     if t % sg:
         raise ValueError(
             f"MoE routing groups of {sg} tokens do not divide the "
-            f"{t} tokens of a ({x.shape[0]}, {x.shape[1]}) batch: B·S must "
-            f"be at most {group_size} or a multiple of it (the reference "
-            f"asserts t % group_size == 0)")
+            f"{t} tokens of a ({x.shape[0] * ranks}, {x.shape[1]}) batch: "
+            f"B·S must be at most {group_size} or a multiple of it (the "
+            f"reference asserts t % group_size == 0)")
     return t // sg, sg
 
 
@@ -148,22 +168,26 @@ class _TakeRows(torch.autograd.Function):
         return rows.sum(dim=1), None, None
 
 
-def _dispatch_indices(r: Routing, e: int, capacity: int):
-    """The buffers' rows, ``(E, G, C)`` flat: ``slot_of_pair`` (T·k,)
-    each pair's row (-1 dropped) and ``pair_of_slot`` (E·G·C,) each
-    row's pair (-1 empty)."""
-    g, sg, k = r.idx.shape
-    group = torch.arange(g, device=r.idx.device)[:, None, None]
-    slot = (r.idx * g + group) * capacity + r.pos
-    slot_of_pair = torch.where(r.keep, slot, -1).reshape(-1)
-    n = e * g * capacity
+def _dispatch_indices(r, groups: int, capacity: int,
+                      experts: tuple[int, int]):
+    """The buffers' rows, ``(E_loc, groups, C)`` flat, of the experts
+    ``experts = (first, count)``: ``r`` the :class:`_Rows` of T tokens.
+    Returns ``slot_of_pair`` (T·k,) each pair's row (-1: dropped, or
+    another rank's expert), ``pair_of_slot`` (E_loc·groups·C,) each row's
+    pair (-1 empty) and ``mine`` (T, k) the pairs kept in these
+    experts' buffers."""
+    e0, e_loc = experts
+    mine = r.keep & (r.idx >= e0) & (r.idx < e0 + e_loc)
+    slot = ((r.idx - e0) * groups + r.group[:, None]) * capacity + r.pos
+    slot_of_pair = torch.where(mine, slot, -1).reshape(-1)
+    n = e_loc * groups * capacity
     # a dropped pair writes the extra last row, which is cut off
     pair_of_slot = torch.full((n + 1,), -1, dtype=torch.long,
                               device=slot.device)
     pair_of_slot.scatter_(0, torch.where(slot_of_pair < 0, n, slot_of_pair),
                           torch.arange(slot_of_pair.numel(),
                                        device=slot.device))
-    return slot_of_pair, pair_of_slot[:n]
+    return slot_of_pair, pair_of_slot[:n], mine
 
 
 def _shared(params, dtype: torch.dtype) -> dict:
@@ -172,50 +196,129 @@ def _shared(params, dtype: torch.dtype) -> dict:
             if k.startswith("shared_")}
 
 
-def _aux(r: Routing, logits: torch.Tensor, e: int, k: int) -> dict:
+def _load_balance(me: torch.Tensor, ce: torch.Tensor, e: int, data
+                  ) -> torch.Tensor:
+    """``E·Σ me·ce`` (f32) of the global batch from this rank's ``me`` (the
+    mean router probability of each expert) and ``ce`` (its share of the
+    top-k choices) over its rows: on ``data`` both are averaged over the
+    ranks before the product; the gradient is the rank's rows' times
+    ``D``."""
+    if data is None:
+        return e * (me * ce).sum()
+    n = data.size
+    me_g = collectives.all_reduce(me.detach(), data.group, "data") / n
+    ce_g = collectives.all_reduce(ce, data.group, "data") / n
+    return e * ((me_g + (me - me.detach())) * ce_g).sum()
+
+
+def _aux(r, logits: torch.Tensor, e: int, k: int, data=None) -> dict:
     """The load-balance loss (over the top-k choices before the
     capacity), the router z-loss and each expert's share of the choices,
-    in f32."""
-    t = logits.shape[0] * logits.shape[1]
-    me = r.probs.mean(dim=(0, 1))
+    in f32, over ``r``'s and ``logits``' tokens (any leading shape); on
+    ``data`` (the rows split over its ranks) those of the global batch
+    (:func:`_load_balance`; the z-loss averaged over the ranks)."""
+    probs = r.probs.reshape(-1, e)
+    t = probs.shape[0]
+    me = probs.mean(dim=0)
     ce = torch.bincount(r.idx.reshape(-1), minlength=e).float() / (t * k)
-    return {"load_balance_loss": e * (me * ce).sum(),
-            "router_z_loss": torch.logsumexp(logits, dim=-1).square().mean(),
-            "expert_load": ce}
+    z = torch.logsumexp(logits.reshape(-1, e), dim=-1).square().mean()
+    lb = _load_balance(me, ce, e, data)
+    if data is not None:
+        n = data.size
+        ce = collectives.all_reduce(ce, data.group, "data") / n
+        z = collectives.all_reduce(z.detach(), data.group, "data") / n \
+            + (z - z.detach())
+    return {"load_balance_loss": lb, "router_z_loss": z, "expert_load": ce}
+
+
+class _Rows(NamedTuple):
+    """A routing of T tokens flat: ``probs`` (T, E), ``idx``/``gates``/
+    ``pos``/``keep`` (T, k) as :class:`Routing`'s, ``group`` (T,) each
+    token's group among the buffers'."""
+    probs: torch.Tensor
+    idx: torch.Tensor
+    gates: torch.Tensor
+    pos: torch.Tensor
+    keep: torch.Tensor
+    group: torch.Tensor
+
+
+def route_rows(logits: torch.Tensor, k: int, capacity: int, sg: int,
+               data=None) -> tuple[_Rows, int]:
+    """The routing of this rank's tokens (``logits`` (T, E) f32, T = its
+    B·S) in groups of ``sg`` of the global batch's tokens, and the count
+    of groups its buffers hold.  Where ``sg`` divides T the rank's groups
+    are its own; else (``data``: the group spans ranks) the logits are
+    gathered over ``data`` and every group routed, the rank taking its
+    own tokens' rows of the routing (their places counted among the
+    whole group's pairs) and the gates computed from its own logits."""
+    t, e = logits.shape
+    if t % sg == 0:
+        r = route(logits.reshape(t // sg, sg, e), k, capacity)
+        group = torch.arange(t, device=logits.device) // sg
+        return _Rows(r.probs.reshape(t, e), *(
+            v.reshape(t, k) for v in (r.idx, r.gates, r.pos, r.keep)),
+            group), t // sg
+    with torch.no_grad():
+        every = collectives.all_gather(logits, 0, data.group, "data")
+        r = route(every.reshape(-1, sg, e), k, capacity)
+    own = slice(data.index * t, (data.index + 1) * t)
+    idx, pos, keep = (v.reshape(-1, k)[own] for v in (r.idx, r.pos, r.keep))
+    probs = torch.softmax(logits, dim=-1)
+    gates = probs.gather(-1, idx)
+    gates = gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    group = (data.index * t + torch.arange(t, device=logits.device)) // sg
+    return _Rows(probs, idx, gates, pos, keep, group), every.shape[0] // sg
 
 
 def moe_apply(params, x: torch.Tensor, cfg: ArchConfig, *,
               capacity_factor: float | None = None,
-              group_size: int = DEFAULT_GROUP):
+              group_size: int = DEFAULT_GROUP, tp=None, data=None):
     """x (B, S, D) → (y (B, S, D), aux): aux ``{"load_balance_loss",
     "router_z_loss", "expert_load"}``, f32.  The weights compute in
-    ``x``'s dtype (``forward`` hands them over cast to it)."""
+    ``x``'s dtype (``forward`` hands them over cast to it).  ``tp`` and
+    ``data`` (``TensorGroup``s) run it on a mesh (module docstring):
+    ``params`` the rank's blocks, ``x`` its rows."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cf = capacity_factor or cfg.capacity_factor
-    g, sg = _groups(x, group_size)
-    xt = x.reshape(g, sg, d)
-    logits = router_logits(params, xt)
+    _, sg = _groups(x, group_size, 1 if data is None else data.size)
+    flat = x.reshape(b * s, d)
+    logits = router_logits(params, flat)
     capacity = expert_capacity(sg, k, cf, e)
-    r = route(logits, k, capacity)
-    slot_of_pair, pair_of_slot = _dispatch_indices(r, e, capacity)
+    r, groups = route_rows(logits, k, capacity, sg, data)
+    e_loc = params["wi"].shape[0]
+    tp_e = tp if e_loc < e else None
+    first = 0 if tp_e is None else tp_e.index * e_loc
+    slot_of_pair, pair_of_slot, mine = _dispatch_indices(
+        r, groups, capacity, (first, e_loc))
+    src, gates = flat, r.gates
+    if tp_e is not None:
+        # each rank's use of the tokens and of the gates is its experts'
+        src = collectives.sum_grad(flat, tp_e.group, "model", f32=True)
+        gates = collectives.sum_grad(gates, tp_e.group, "model", f32=True)
 
-    flat = x.reshape(g * sg, d)
     # each buffer row reads its pair's token; a token's k pairs read it
     # (an empty row's -1 floors to -1)
     buf = _TakeRows.apply(
-        flat, pair_of_slot.div(k, rounding_mode="floor"),
-        slot_of_pair.reshape(g * sg, k)).reshape(e, g * capacity, d)
+        src, pair_of_slot.div(k, rounding_mode="floor"),
+        slot_of_pair.reshape(b * s, k)).reshape(e_loc, groups * capacity, d)
     w = {n: params[n].to(x.dtype) for n in ("wi", "wg", "wo")}
     h = F.silu(torch.bmm(buf, w["wg"])) * torch.bmm(buf, w["wi"])
-    ye = torch.bmm(h, w["wo"]).reshape(e * g * capacity, d)
+    ye = torch.bmm(h, w["wo"]).reshape(e_loc * groups * capacity, d)
     out = _TakeRows.apply(ye, slot_of_pair, pair_of_slot[:, None])
-    weights = (r.gates.to(x.dtype) * r.keep).float().reshape(g * sg, k, 1)
-    y = (out.reshape(g * sg, k, d).float() * weights).sum(dim=1).to(x.dtype)
+    weights = (gates.to(x.dtype) * mine).float().reshape(b * s, k, 1)
+    y = (out.reshape(b * s, k, d).float() * weights).sum(dim=1)
+    if tp_e is not None:
+        y = reduce_from_model(y, tp_e.group)
+    y = y.to(x.dtype)
 
     if cfg.n_shared_experts:
-        y = y + mlp_apply(_shared(params, x.dtype), flat, "swiglu")
-    return y.reshape(b, s, d), _aux(r, logits, e, k)
+        shared = _shared(params, x.dtype)
+        whole = cfg.expert_d_ff * cfg.n_shared_experts
+        y = y + mlp_apply(shared, flat, "swiglu",
+                          tp if shared["wo"].shape[0] < whole else None)
+    return y.reshape(b, s, d), _aux(r, logits, e, k, data)
 
 
 # ---------------------------------------------------------------------------

@@ -37,6 +37,24 @@ Reference rules kept as they are:
 
 At float64 inputs (the plain yardsticks on the card) every f32 of the
 above is float64.
+
+On a ``model`` axis (``tp``, a ``TensorGroup``) a rank runs its block of
+the SSM heads, ``A_log``'s: heads ``r·H/m + 0..H/m-1`` of model rank
+``r``, with their ``x``, ``z`` and ``dt`` columns, ``D``, ``dt_bias``,
+their part of the SSD and of the state, and ``norm``'s and
+``out_proj``'s rows of them (their blocks in the rules' layout);
+``B`` and ``C`` (``ssm_groups`` 1) are whole on every rank.  The rules
+cut ``in_proj``'s packed ``z | x | B | C | dt`` columns and ``conv_w``,
+``conv_b`` and the ``conv`` cache's ``x | B | C`` channels into
+contiguous blocks that do not follow the heads: the masters, the
+checkpoints and the cache keep that layout, and the rank's compute copy
+is cut from the leaves gathered over ``model``
+(``collectives.leaf_part``: the backward sums the ranks' cotangents into
+each block).  The gated RMSNorm's mean of squares is over the whole
+``d_inner``, its partial sums added over ``model`` in f32; ``out_proj``
+is row-parallel, summed by ``reduce_from_model``.  The decode step
+gathers the ``conv`` cache's blocks, runs the conv over every channel
+and writes back the rank's block.
 """
 
 from __future__ import annotations
@@ -46,6 +64,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import PSpec, rms_norm
+from repro_torch.sharding import collectives
+from repro_torch.sharding.collectives import leaf_part, reduce_from_model
 
 __all__ = ["CHUNK", "ssm_specs", "ssm_apply", "ssm_decode_step",
            "ssd_chunked_plain", "ssm_recurrence_plain", "init_state"]
@@ -93,11 +113,6 @@ def init_state(cfg: ArchConfig, batch: int, dtype: torch.dtype,
                              device=device),
             "conv": torch.zeros(lead + (batch, cfg.ssm_conv - 1, conv_dim),
                                 dtype=dtype, device=device)}
-
-
-def _split_proj(zxbcdt: torch.Tensor, cfg: ArchConfig):
-    di, h, _, g, n, _ = _dims(cfg)
-    return torch.split(zxbcdt, [di, di + 2 * g * n, h], dim=-1)
 
 
 def _causal_conv(xbc, conv_w, conv_b, cache=None):
@@ -214,60 +229,171 @@ def ssd_chunked_plain(x, dt, A, B, C, D, h0=None, chunk=CHUNK):
     return y.to(x.dtype), hprev
 
 
-def _gate_out(params, y, z, cfg: ArchConfig):
-    """``rms_norm(y · silu(z in f32) rounded to y's dtype) @ out_proj``."""
+def _norm_over_model(y: torch.Tensor, scale: torch.Tensor, eps: float,
+                     width: int, tp) -> torch.Tensor:
+    """:func:`rms_norm` of the rank's channels ``y`` of a ``width``-wide
+    vector split over ``tp``'s group: the mean of squares over all of
+    them (the partial sums added over the group in f32)."""
+    if tp is None:
+        return rms_norm(y, scale, eps)
+    dt = y.dtype
+    yf = y.float()
+    ss = collectives.model_sum(yf.square().sum(dim=-1, keepdim=True),
+                               tp.group)
+    return (yf * torch.rsqrt(ss / width + eps)
+            * (1.0 + scale.float())).to(dt)
+
+
+def _gate_out(params, y, z, cfg: ArchConfig, tp=None, heads=None):
+    """``rms_norm(y · silu(z in f32) rounded to y's dtype) @ out_proj``;
+    with ``tp`` over the rank's ``heads`` (first, count) of ``d_inner``,
+    summed over the group."""
+    di, _, p, *_ = _dims(cfg)
     gate = F.silu(z.to(_acc(z.dtype))).to(y.dtype)
-    return rms_norm(y * gate, params["norm"], cfg.norm_eps) @ \
-        params["out_proj"]
+    lo, hi = (0, di) if heads is None else (heads[0] * p,
+                                            (heads[0] + heads[1]) * p)
+    norm = leaf_part(params["norm"], (di,), tp, 0, lo, hi)
+    out = _norm_over_model(y * gate, norm, cfg.norm_eps, di, tp) @ \
+        leaf_part(params["out_proj"], (di, cfg.d_model), tp, 0, lo, hi)
+    return out if tp is None else reduce_from_model(out, tp.group)
 
 
-def ssm_apply(params, x, cfg: ArchConfig, *, mode: str = "train"):
+def _heads(params, cfg: ArchConfig, tp):
+    """``(tp, (first head, heads))`` of this rank's SSM heads: its block
+    of ``A_log``'s, or every head (and no group) where they are whole."""
+    h_loc = params["A_log"].shape[0]
+    if tp is None or h_loc == cfg.ssm_heads:
+        return None, (0, cfg.ssm_heads)
+    return tp, (tp.index * h_loc, h_loc)
+
+
+def _local(params, cfg: ArchConfig, tp, heads):
+    """The rank's compute copy: ``(in_proj``'s columns ``z | x | B | C |
+    dt`` of its heads, ``conv_w``/``conv_b``'s channels ``x | B | C`` of
+    them, ``A_log``, ``D``, ``dt_bias``)."""
+    di, h, p, g, n, conv_dim = _dims(cfg)
+    d = cfg.d_model
+    if tp is None:
+        return (params["in_proj"], params["conv_w"], params["conv_b"],
+                params["A_log"], params["D"], params["dt_bias"])
+    h0, hl = heads
+    width = 2 * di + 2 * g * n + h
+    w = collectives.leaf_whole(params["in_proj"], (d, width), tp)
+    cw = collectives.leaf_whole(params["conv_w"], (cfg.ssm_conv, conv_dim),
+                                tp)
+    cb = collectives.leaf_whole(params["conv_b"], (conv_dim,), tp)
+    x0, x1 = h0 * p, (h0 + hl) * p
+    proj = torch.cat([w[:, x0:x1], w[:, di + x0:di + x1],
+                      w[:, 2 * di:2 * di + 2 * g * n],
+                      w[:, 2 * di + 2 * g * n + h0:
+                        2 * di + 2 * g * n + h0 + hl]], dim=1)
+    conv_w = torch.cat([cw[:, x0:x1], cw[:, di:]], dim=1)
+    conv_b = torch.cat([cb[x0:x1], cb[di:]])
+    small = tuple(leaf_part(params[k], (h,), tp, 0, h0, h0 + hl)
+                  for k in ("A_log", "D", "dt_bias"))
+    return (proj, conv_w, conv_b) + small
+
+
+def _split_local(zxbcdt, cfg: ArchConfig, hl: int):
+    """``(z, xBC, dt_raw)`` of the rank's projection over ``hl`` heads."""
+    _, _, p, g, n, _ = _dims(cfg)
+    return torch.split(zxbcdt, [hl * p, hl * p + 2 * g * n, hl], dim=-1)
+
+
+def _conv_block(t: torch.Tensor, conv_dim: int, tp) -> torch.Tensor:
+    """This rank's block of the ``conv`` cache's channels (the rules'
+    layout: ``conv_dim`` split evenly where the axis divides it)."""
+    if tp is None or conv_dim % tp.size:
+        return t
+    c = conv_dim // tp.size
+    return t.narrow(-1, tp.index * c, c)
+
+
+def ssm_apply(params, x, cfg: ArchConfig, *, mode: str = "train", tp=None):
     """Full-sequence Mamba2 mixer of x (B, L, D).  Returns (out,
     new_cache): at ``mode="prefill"`` the cache ``{"h": (B, H, P, N) f32,
-    "conv": (B, W-1, conv_dim)}``, else None."""
+    "conv": (B, W-1, conv_dim)}``, else None.  ``tp``: over the rank's
+    heads (module docstring), the cache its block of ``h`` and of the
+    ``conv`` channels."""
     b, l, _ = x.shape
-    di, h, p, g, n, _ = _dims(cfg)
+    di, h, p, g, n, conv_dim = _dims(cfg)
     acc = _acc(x.dtype)
-    z, xbc, dt_raw = _split_proj(x @ params["in_proj"], cfg)
-    xbc, conv_cache = _causal_conv(xbc, params["conv_w"], params["conv_b"])
-    xi, B, C = torch.split(xbc, [di, g * n, g * n], dim=-1)
-    dt = F.softplus(dt_raw.to(acc) + params["dt_bias"].to(acc))
-    A = -torch.exp(params["A_log"].to(acc))
-    y, h_final = _ssd_chunked(xi.reshape(b, l, h, p), dt, A,
+    tp, heads = _heads(params, cfg, tp)
+    hl = heads[1]
+    if tp is not None:
+        x = collectives.sum_grad(x, tp.group, "model", f32=True)
+    proj, conv_w, conv_b, a_log, d_, dt_bias = _local(params, cfg, tp, heads)
+    z, xbc, dt_raw = _split_local(x @ proj, cfg, hl)
+    xbc, conv_cache = _causal_conv(xbc, conv_w, conv_b)
+    xi, B, C = torch.split(xbc, [hl * p, g * n, g * n], dim=-1)
+    dt = F.softplus(dt_raw.to(acc) + dt_bias.to(acc))
+    A = -torch.exp(a_log.to(acc))
+    y, h_final = _ssd_chunked(xi.reshape(b, l, hl, p), dt, A,
                               B.reshape(b, l, g, n), C.reshape(b, l, g, n),
-                              params["D"].to(acc))
-    out = _gate_out(params, y.reshape(b, l, di), z, cfg)
-    if mode == "prefill":
-        return out, {"h": h_final, "conv": conv_cache}
-    return out, None
+                              d_.to(acc))
+    out = _gate_out(params, y.reshape(b, l, hl * p), z, cfg, tp, heads)
+    if mode != "prefill":
+        return out, None
+    if tp is not None:
+        # the conv cache in the rules' layout: the last W-1 raw inputs of
+        # every channel, the rank's block of them
+        w = collectives.leaf_whole(params["in_proj"],
+                                   (cfg.d_model, 2 * di + 2 * g * n + h), tp)
+        tail = x[:, max(0, l - cfg.ssm_conv + 1):] @ w[:, di:2 * di
+                                                       + 2 * g * n]
+        tail = F.pad(tail, (0, 0, cfg.ssm_conv - 1 - tail.shape[1], 0))
+        conv_cache = _conv_block(tail, conv_dim, tp)
+    return out, {"h": h_final, "conv": conv_cache}
 
 
-def ssm_decode_step(params, x, cfg: ArchConfig, cache: dict):
+def ssm_decode_step(params, x, cfg: ArchConfig, cache: dict, tp=None):
     """The one-token recurrent update of x (B, 1, D): ``h ← h·exp(dt·A)
     + dt·x⊗B``, ``y = C·h + D·x``.  Writes the new ``h`` and ``conv``
-    into ``cache`` in place and returns (out, cache)."""
+    into ``cache`` in place and returns (out, cache).  ``tp``: the rank's
+    heads and its blocks of the cache (module docstring)."""
     b = x.shape[0]
-    di, h, p, g, n, _ = _dims(cfg)
-    r = h // g
+    di, h, p, g, n, conv_dim = _dims(cfg)
+    tp, heads = _heads(params, cfg, tp)
+    hl = heads[1]
+    r = hl // g
     acc = _acc(x.dtype)
-    z, xbc, dt_raw = _split_proj(x @ params["in_proj"], cfg)
-    xbc, conv_cache = _causal_conv(xbc, params["conv_w"], params["conv_b"],
-                                   cache=cache["conv"])
-    xi, B, C = torch.split(xbc, [di, g * n, g * n], dim=-1)
-    xi = xi.reshape(b, h, p)
+    proj, conv_w, conv_b, a_log, d_, dt_bias = _local(params, cfg, tp, heads)
+    z, xbc, dt_raw = _split_local(x @ proj, cfg, hl)
+    if tp is None:
+        xbc, conv_cache = _causal_conv(xbc, conv_w, conv_b,
+                                       cache=cache["conv"])
+    else:
+        # every channel's conv from the gathered cache blocks, the rank's
+        # heads' channels kept and its block of the new cache written
+        width = 2 * di + 2 * g * n + h
+        w = collectives.leaf_whole(params["in_proj"], (cfg.d_model, width),
+                                   tp)
+        whole = cache["conv"] if cache["conv"].shape[-1] == conv_dim else \
+            collectives.all_gather(cache["conv"], 2, tp.group, "model")
+        full, conv_cache = _causal_conv(
+            x @ w[:, di:2 * di + 2 * g * n],
+            collectives.leaf_whole(params["conv_w"],
+                                   (cfg.ssm_conv, conv_dim), tp),
+            collectives.leaf_whole(params["conv_b"], (conv_dim,), tp),
+            cache=whole)
+        x0, x1 = heads[0] * p, (heads[0] + hl) * p
+        xbc = torch.cat([full[..., x0:x1], full[..., di:]], dim=-1)
+        conv_cache = _conv_block(conv_cache, conv_dim, tp)
+    xi, B, C = torch.split(xbc, [hl * p, g * n, g * n], dim=-1)
+    xi = xi.reshape(b, hl, p)
     B = B.reshape(b, g, n).to(acc)
     C = C.reshape(b, g, n).to(acc)
-    dt = F.softplus(dt_raw.to(acc) + params["dt_bias"].to(acc))[:, 0]
-    A = -torch.exp(params["A_log"].to(acc))
+    dt = F.softplus(dt_raw.to(acc) + dt_bias.to(acc))[:, 0]
+    A = -torch.exp(a_log.to(acc))
     xdt = (xi * dt[..., None]).to(acc).reshape(b, g, r, p)
-    h_add = (xdt[..., None] * B[:, :, None, None, :]).reshape(b, h, p, n)
+    h_add = (xdt[..., None] * B[:, :, None, None, :]).reshape(b, hl, p, n)
     h_new = cache["h"] * torch.exp(dt * A)[:, :, None, None] + h_add
     y = torch.einsum("bgn,bgrpn->bgrp", C, h_new.reshape(b, g, r, p, n))
-    y = y.reshape(b, h, p) + xi.to(acc) * params["D"][:, None].to(acc)
-    y = y.reshape(b, 1, di).to(x.dtype)
+    y = y.reshape(b, hl, p) + xi.to(acc) * d_[:, None].to(acc)
+    y = y.reshape(b, 1, hl * p).to(x.dtype)
     cache["h"].copy_(h_new)
     cache["conv"].copy_(conv_cache)
-    return _gate_out(params, y, z, cfg), cache
+    return _gate_out(params, y, z, cfg, tp, heads), cache
 
 
 def ssm_recurrence_plain(params, x, cfg: ArchConfig):

@@ -80,11 +80,6 @@ __all__ = ["RunFlags", "check_supported", "check_mesh", "model_specs",
            "init", "forward", "loss_fn", "decode_step", "init_cache",
            "count_params", "model_flops_per_token"]
 
-# the ROADMAP queue 1 item that brings the layers a mesh does not run yet
-_ITEM_MESH = ("ROADMAP queue 1 item 25 (MLA, MoE, SSM and hybrid layers "
-              "on a mesh)")
-
-
 ATTN_IMPLS = ("flash", "naive", "chunked_q")
 # the encoder's learned positions: the reference sizes them for its
 # largest encode shape (prefill_32k)
@@ -113,18 +108,22 @@ class RunFlags:
     * ``mesh`` (a ``DeviceMesh`` of axes ``("data", "model")`` over the
       process group's ranks): every rank runs the forward on its blocks,
       as ``sharding/rules.py`` cuts them (:func:`check_mesh` first).
-      The ``model`` axis splits the heads (whole heads only), the MLP's
-      ``d_ff`` and the vocab where the rules' specs split them, with
-      the sums of ``sharding/collectives.py``; the ``data`` axis splits
-      the batch (``loss_fn`` normalizes by the global weight sum) and
-      the decode's slots.  With ``seq_shard_decode`` the decode instead
-      holds the cache's rows split over ``data``
-      (``cache_shardings(seq_shard=True)``), tokens and lengths
-      replicated, and every attention layer (a windowed one with its
-      window) runs ``flash_decode`` over the ``data`` group.
+      The ``model`` axis splits the heads (heads that do not divide it
+      zero-padded, as the reference's ``_pad_heads_even``), MLA's heads
+      and ``q_lora``, the experts, the SSM heads, the MLP's ``d_ff`` and
+      the vocab where the rules' specs split them, with the sums of
+      ``sharding/collectives.py``; the ``data`` axis splits the batch
+      (``loss_fn`` normalizes by the global weight sum; the MoE routing
+      groups and aux losses are the global batch's) and the decode's
+      slots.  With ``seq_shard_decode`` the decode instead holds the
+      cache's rows split over ``data`` (``cache_shardings(
+      seq_shard=True)``), tokens and lengths replicated, and every
+      attention layer (a windowed one with its window) runs
+      ``flash_decode`` over the ``data`` group, an MLA layer its absorbed
+      softmax's partials combined the same way; the SSM state is
+      replicated over ``data``, every rank advancing the same state.
       ``seq_shard_decode`` without a mesh is the one-device decode, as
-      the reference's.  MLA, MoE, SSM and hybrid layers on a mesh raise
-      ``NotImplementedError``."""
+      the reference's."""
     attn_impl: str = "flash"          # "flash" | "naive" | "chunked_q"
     remat: bool = True
     remat_policy: str = "nothing"     # "nothing" | "dots"
@@ -142,20 +141,14 @@ class RunFlags:
 
 
 def check_mesh(cfg: ArchConfig, mesh) -> None:
-    """Raise ``NotImplementedError`` for a config with a layer the port
-    does not run on a mesh (MLA, MoE, SSM, hybrid), ``ValueError`` where
-    the default rules would split a head (``mesh``: a ``DeviceMesh`` or
-    anything ``axis_sizes`` reads)."""
-    for descs, _ in cfg.layer_segments():
-        for d in descs:
-            kind = "MoE" if d.mlp == "moe" else None if d.mixer == "attn" \
-                else {"mla": "MLA", "ssm": "SSM"}.get(d.mixer, d.mixer)
-            if kind:
-                raise NotImplementedError(
-                    f"{cfg.name}: {kind} layers on a mesh: {_ITEM_MESH}")
-    check_whole_heads(cfg.name, {"heads": cfg.n_heads,
-                                 "kv_heads": cfg.n_kv_heads},
-                      cfg.resolved_head_dim, mesh)
+    """Raise ``ValueError`` where the default rules would split the SSM
+    heads' flattened ``d_inner`` over a model axis that does not divide
+    the heads (the port splits whole SSM heads only; attention and MLA
+    heads are padded): ``mesh`` a ``DeviceMesh`` or anything
+    ``axis_sizes`` reads."""
+    if cfg.ssm:
+        check_whole_heads(cfg.name, {"ssm_heads": cfg.ssm_heads},
+                          cfg.ssm_head_dim, mesh)
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -282,11 +275,12 @@ def _block_apply(params, x, cfg, desc, *, positions, mode, cache, lengths,
     the activation dtype, as the reference's."""
     h = rms_norm(x, params["ln_mix"], cfg.norm_eps)
     new_cache, outs = {}, []
+    tp = None if on_mesh is None else on_mesh.tp
     if desc.mixer != "ssm":
         fn = attn_mod.mla_apply if desc.mixer == "mla" else \
             attn_mod.attention_apply
         shard = {} if on_mesh is None else {"seq_shard": on_mesh.seq_shard,
-                                            "tp": on_mesh.tp}
+                                            "tp": tp}
         out, c = fn(params["attn"], h, cfg, desc, positions=positions,
                     mode=mode,
                     cache=None if cache is None else cache.get("attn"),
@@ -297,9 +291,10 @@ def _block_apply(params, x, cfg, desc, *, positions, mode, cache, lengths,
     if desc.mixer in ("ssm", "hybrid"):
         if mode == "decode":
             out, c = ssm_mod.ssm_decode_step(params["ssm"], h, cfg,
-                                             cache["ssm"])
+                                             cache["ssm"], tp=tp)
         else:
-            out, c = ssm_mod.ssm_apply(params["ssm"], h, cfg, mode=mode)
+            out, c = ssm_mod.ssm_apply(params["ssm"], h, cfg, mode=mode,
+                                       tp=tp)
         outs.append(out)
         if c is not None:
             new_cache["ssm"] = c
@@ -307,15 +302,20 @@ def _block_apply(params, x, cfg, desc, *, positions, mode, cache, lengths,
     aux = None
     if desc.mlp == "moe":
         h = rms_norm(x, params["ln_mlp"], cfg.norm_eps)
-        y, moe_aux = moe_mod.moe_apply(params["mlp"], h, cfg)
+        # the batch's rows are split over data, but for the
+        # sequence-sharded decode's, which every data rank holds
+        rows = None if on_mesh is None or on_mesh.seq_shard else \
+            on_mesh.data
+        y, moe_aux = moe_mod.moe_apply(params["mlp"], h, cfg, tp=tp,
+                                       data=rows)
         aux = torch.stack([moe_aux["load_balance_loss"],
                            moe_aux["router_z_loss"]])
         x = x + y
     elif desc.mlp != "none":
         h = rms_norm(x, params["ln_mlp"], cfg.norm_eps)
-        tp = None if on_mesh is None or \
-            params["mlp"]["wo"].shape[0] == cfg.d_ff else on_mesh.tp
-        x = x + mlp_apply(params["mlp"], h, desc.mlp, tp)
+        x = x + mlp_apply(params["mlp"], h, desc.mlp,
+                          None if params["mlp"]["wo"].shape[0] == cfg.d_ff
+                          else tp)
     return x, new_cache, aux
 
 

@@ -80,8 +80,9 @@ from repro_torch import obs as _obs
 __all__ = ["MeshAxes", "TensorGroup", "GLOO_CUDA", "staged", "all_gather", "all_reduce",
            "broadcast", "p2p_start", "gather_channels", "gather_batch",
            "shard_batch", "sum_grad", "rows", "reduce_from_model",
-           "reduce_scatter", "vocab_embed", "vocab_logsumexp",
-           "vocab_pick", "release_staging", "shares_card"]
+           "reduce_scatter", "model_sum", "leaf_whole", "leaf_part",
+           "vocab_embed", "vocab_logsumexp", "vocab_pick",
+           "release_staging", "shares_card"]
 
 # The collectives gloo runs on CUDA tensors, as tools/gloo_cuda_probe.py
 # read them on the H100 under torch 2.11: all_gather (list and tensor
@@ -469,6 +470,22 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None, None
 
 
+class _GatherLeaf(torch.autograd.Function):
+    """Tiled all-gather on ``dim``; backward: the cotangents summed over
+    the group (in f32, rounded once), this rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, axis):
+        ctx.group, ctx.dim, ctx.axis, ctx.n = group, dim, axis, x.shape[dim]
+        return all_gather(x, dim, group, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        i = dist.get_rank(ctx.group)
+        return _sum_f32(g, ctx.group, ctx.axis).narrow(
+            ctx.dim, i * ctx.n, ctx.n).contiguous(), None, None, None
+
+
 def _trivial(group) -> bool:
     return dist.get_world_size(group) == 1
 
@@ -516,6 +533,47 @@ def reduce_from_model(x: torch.Tensor, group, axis: str = "model"
     """The sum over the group's ranks of their partial ``x`` (carried in
     f32, rounded once to ``x``'s dtype); its backward is the identity."""
     return x if _trivial(group) else _ReduceFrom.apply(x, group, axis)
+
+
+def model_sum(x: torch.Tensor, group, axis: str = "model") -> torch.Tensor:
+    """The group's sum of the ranks' partial ``x`` (in f32, rounded once)
+    where each rank's use of the sum differs (a norm's sum of squares
+    over channels split over the group): the backward sums the ranks'
+    cotangents too."""
+    if _trivial(group):
+        return x
+    return reduce_from_model(sum_grad(x, group, axis, f32=True), group, axis)
+
+
+def leaf_whole(w: torch.Tensor, shape: tuple, tp) -> torch.Tensor:
+    """The whole of a parameter of ``shape`` held as this rank's block
+    (``tp``: the model's ``TensorGroup``) for compute that each rank runs
+    on a part of its own (its padded heads, its SSM heads' columns of a
+    packed projection): gathered on the dim the rules split, the
+    backward summing the ranks' cotangents and keeping this rank's block
+    (a reduce-scatter); or, replicated, with its cotangent summed over
+    the group (:func:`sum_grad`)."""
+    split = [d for d in range(w.ndim) if w.shape[d] < shape[d]]
+    if not split:
+        return sum_grad(w, tp.group, "model", f32=True)
+    if _trivial(tp.group):
+        return w
+    return _GatherLeaf.apply(w, tp.group, split[0], "model")
+
+
+def leaf_part(w: torch.Tensor, shape: tuple, tp, dim: int, lo: int,
+              hi: int) -> torch.Tensor:
+    """``[lo, hi)`` on ``dim`` of a parameter of ``shape`` as this rank's
+    compute reads it: its own block where the rules cut exactly that
+    part, else the part of :func:`leaf_whole`.  Without ``tp`` ``w`` is
+    whole and cut."""
+    dim %= w.ndim
+    if tp is not None:
+        n = w.shape[dim]
+        if n < shape[dim] and tp.index * n == lo and hi - lo == n:
+            return w
+        w = leaf_whole(w, shape, tp)
+    return w.narrow(dim, lo, hi - lo)
 
 
 def reduce_scatter(t: torch.Tensor, group, dim: int, axis: str = "data"

@@ -52,10 +52,19 @@ the card).  Each case is a dict with a ``name`` and a ``kind``:
   ``fail_at`` as ``train``'s) or step by step: each step's metrics,
   and the state gathered whole (``return_state``) or held against a
   checkpoint of the one-device state (``ref_dir``) by each updated
-  leaf's update; ``fault`` plants ``wo``'s partials not summed over
-  ``model`` (``"wo not summed"``), the gradient norm of the rank's
-  blocks only (``"local norm"``) or the gradients summed, not averaged,
-  over ``data`` (``"grads summed"``);
+  leaf's update; ``fault`` plants one of :data:`FAULTS`: ``wo``'s
+  partials not summed over ``model`` (``"wo not summed"``), the
+  gradient norm of the rank's blocks only (``"local norm"``), the
+  gradients summed, not averaged, over ``data`` (``"grads summed"``),
+  the MoE combine not summed over ``model``, MLA's ``q_norm`` RMS over
+  each rank's half of ``q_lora``, the SSM gated norm over each rank's
+  half of ``d_inner``, ``aux_lb`` as the mean of the data ranks'
+  products, or a rank's last padded heads taken for its real ones ("pad
+  head kept"); ``one_device`` in place of ``ref_dir`` (``{"steps": n,
+  "key": k}`` and, for a bf16 case, ``"f32_steps": 1``) has the rank run
+  the one-device steps itself first, once for the cases of one ``key``
+  (:func:`_one_device`: no checkpoint written), and hold its updates
+  against them;
 * ``reshard``: a checkpoint restored onto this mesh through
   ``train_step.state_specs`` (the elastic reshard), gathered and held
   bit for bit against the saved arrays, then ``lm_train``'s steps from
@@ -64,9 +73,12 @@ the card).  Each case is a dict with a ``name`` and a ``kind``:
 Every case records the GANAX kernels' launches (on the card) by route,
 dtype and Cout during the case, the flash kernels' by ``(dtype, dk,
 dv)`` and the heads of each call of the model's ``flash_attention``,
-and how many collectives it staged through host memory.  Rank ``r`` writes ``rank<r>.pt`` in the output
-directory: ``{name: result}``.  Importing this module touches no process
-group; everything runs inside :func:`run`.
+its collectives, how many it staged through host memory and how many
+went through the shared-card IPC buffers; the LLM cases each MoE
+layer's routing of the rank's rows (:func:`routings`).  Rank ``r``
+writes ``rank<r>.pt`` in the output directory: ``{name: result}``.
+Importing this module touches no process group; everything runs inside
+:func:`run`.
 """
 
 from __future__ import annotations
@@ -82,7 +94,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["run", "condition", "decode_inputs", "fill_cache", "recording",
-           "attention_oracle", "update_stats", "FAULTS"]
+           "routings", "attention_oracle", "update_stats", "FAULTS"]
 
 
 def _cfg(case: dict):
@@ -358,10 +370,10 @@ def _lm_cli(case, dev):
 def fill_cache(cfg, params, prompts, max_len: int, kv_dtype: str, dev
                ) -> dict:
     """A ``len(prompts)``-slot cache of ``max_len`` rows, each slot filled
-    by a one-device prefill of its prompt (attention layers only); an
-    int8 cache gets each prefill's k/v rows quantized by ``quantize_kv``,
-    a layer at a time.  Each prefill's cache is freed before the
-    next."""
+    by a one-device prefill of its prompt (the attention and MLA rows,
+    the SSM state after the prompt); an int8 cache gets each prefill's
+    k/v rows quantized by ``quantize_kv``, a layer at a time.  Each
+    prefill's cache is freed before the next."""
     from repro_torch.models import transformer as tr
     from repro_torch.models.attention import quantize_kv
     from repro_torch.serve.engine import _merge_slot_cache
@@ -375,10 +387,13 @@ def fill_cache(cfg, params, prompts, max_len: int, kv_dtype: str, dev
             s = toks.shape[1]
             for si, seg in pcache.items():
                 for pos, blk in seg.items():
-                    c, p = cache[si][pos]["attn"], blk["attn"]
-                    if kv_dtype != "int8":
-                        _merge_slot_cache(c, p, slot, s)
+                    if kv_dtype != "int8" or "k" not in blk.get("attn", {}):
+                        _merge_slot_cache(cache[si][pos], blk, slot, s)
                         continue
+                    if "ssm" in blk:
+                        _merge_slot_cache(cache[si][pos]["ssm"], blk["ssm"],
+                                          slot, s, state=True)
+                    c, p = cache[si][pos]["attn"], blk["attn"]
                     for name in ("k", "v"):
                         for li in range(p[name].shape[0]):
                             codes, scales = quantize_kv(p[name][li, 0])
@@ -509,10 +524,11 @@ def _swapped(module, name: str, fn):
         setattr(module, name, saved)
 
 
-def _collectives() -> int:
+def _collectives(name: str = "mesh.collectives") -> int:
+    """The process's count of ``name`` (every ``op`` label) so far."""
     from repro_torch import obs
     return sum(v for k, v in obs.snapshot()["counters"].items()
-               if k.startswith("mesh.collectives"))
+               if k.startswith(name))
 
 
 def _serving(cfg, params, mesh):
@@ -555,7 +571,7 @@ def _decode(case, dev):
             if case.get("fault") == "lengths not cut" \
             else _rows(lengths, mesh, 0)
     flags = tr.RunFlags(mesh=mesh, seq_shard_decode=seq)
-    inputs, attn, logits = [], [], []
+    inputs, attn, logits, routes = [], [], [], []
     fault = _swapped(attention, "flash_decode_combine",
                      _combine_without_corr) \
         if case.get("fault") == "no corr" else _fault(case) \
@@ -563,12 +579,13 @@ def _decode(case, dev):
     before = _collectives()
     with recording(attention, "attention_apply", inputs, arg=1), \
             recording(attention, "flash_decode", attn), fault, \
-            torch.no_grad():
+            routings(routes), torch.no_grad():
         for i in range(tokens.shape[0]):
             lg, local = tr.decode_step(params, local, tokens[i],
                                        lengths + i, cfg, flags)
             logits.append(lg)
     return {"logits": torch.stack(logits), "inputs": inputs, "attn": attn,
+            "routing": routes,
             "cache": None if case.get("drop_cache") else local,
             "coords": coords,
             "collectives": _collectives() - before}
@@ -608,6 +625,21 @@ def _flash_heads(calls: list):
     return _swapped(attention, "flash_attention", recorded)
 
 
+def routings(calls: list):
+    """Inside: each call of ``models.moe.route_rows`` appends host copies
+    of its tokens' ``(idx, pos, keep)`` (T, k) to ``calls``: a rank's
+    rows' routing, layer by layer in the forward's order."""
+    from repro_torch.models import moe
+    fn = moe.route_rows
+
+    def recorded(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append(tuple(t.detach().to("cpu", copy=True)
+                           for t in (out[0].idx, out[0].pos, out[0].keep)))
+        return out
+    return _swapped(moe, "route_rows", recorded)
+
+
 def _lm_prefill(case, dev):
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import transformer as tr
@@ -618,7 +650,9 @@ def _lm_prefill(case, dev):
                       mesh)
     calls: list = []
     flags = tr.RunFlags(mesh=mesh)
-    with _flash_heads(calls), _fault(case), torch.no_grad():
+    routes: list = []
+    with _flash_heads(calls), _fault(case), routings(routes), \
+            torch.no_grad():
         if "prompts" in case:
             # one prefill a prompt: each prompt's last logits (the rank's
             # vocab columns), no cache kept
@@ -635,7 +669,25 @@ def _lm_prefill(case, dev):
             logits, cache = tr.forward(params, batch, cfg, mode="prefill",
                                        flags=flags)
     return {"logits": logits, "cache": cache, "flash": calls,
+            "routing": routes,
             "coords": {a: mesh.get_local_rank(a) for a in ("data", "model")}}
+
+
+def _halves_norm(q, scale, eps, parts):
+    """``q_norm``'s RMS of each rank's block of ``q_lora`` alone."""
+    from repro_torch.models.common import rms_norm
+    return torch.cat([rms_norm(a, b, eps) for a, b in zip(
+        q.chunk(parts, dim=-1), scale.chunk(parts))], dim=-1)
+
+
+def _mean_of_products(me, ce, e, data):
+    """``aux_lb`` as the data ranks' mean of their own ``E·Σ me·ce``."""
+    from repro_torch.sharding.collectives import all_reduce
+    own = e * (me * ce).sum()
+    if data is None:
+        return own
+    return all_reduce(own.detach(), data.group, "data") / data.size \
+        + (own - own.detach())
 
 
 # the planted faults of lm_train cases: fault -> (module, name, a
@@ -651,7 +703,27 @@ FAULTS = {
     # the data ranks' gradients summed, not averaged
     "grads summed": ("repro_torch.train.train_state", "average_over_data",
                      lambda orig: lambda g, c, m, group, n:
-                     orig(g, c, m, group, 1))}
+                     orig(g, c, m, group, 1)),
+    # the MoE combine left on each rank: only its own experts' outputs
+    "moe combine not summed": (
+        "repro_torch.models.moe", "reduce_from_model",
+        lambda orig: lambda x, group, axis="model": x),
+    # MLA's q_norm RMS over each rank's half of q_lora
+    "q_norm over a half": ("repro_torch.models.attention", "_lora_norm",
+                           lambda orig: _halves_norm),
+    # the SSM gated norm's mean of squares over the rank's d_inner only
+    "ssm norm over a half": (
+        "repro_torch.models.ssm", "_norm_over_model",
+        lambda orig: lambda y, scale, eps, width, tp: orig(
+            y, scale, eps, y.shape[-1], None)),
+    # aux_lb as the mean of the data ranks' products
+    "aux_lb mean of products": ("repro_torch.models.moe", "_load_balance",
+                                lambda orig: _mean_of_products),
+    # the pad head kept: a rank's last n heads of its padded block taken
+    # for its n real ones (the pad among them, a real head dropped)
+    "pad head kept": ("repro_torch.models.attention", "_real_heads",
+                      lambda orig: lambda out, n: out[:, :,
+                                                      out.shape[2] - n:])}
 
 
 def _fault(case):
@@ -700,24 +772,28 @@ def _lm_step(case, cfg, mesh):
 
 
 def _lm_run(case, mesh, step, state, dev, first: int = 0,
-            init: dict | None = None):
+            init: dict | None = None, one: dict | None = None):
     """``case["batches"][first:]`` through ``TrainLoop`` (``ckpt_every``
     set) or step by step; then the results: metrics, the state whole or
-    its updates against ``ref_dir``, flash calls.  The updates are from
-    ``init`` (the rank's blocks of the parameters; default: the state's
-    as the run starts)."""
+    its updates against ``ref_dir`` or ``one`` (:func:`_one_device`'s:
+    ``ref`` and ``ref2``, the rank's blocks of the one-device
+    parameters), flash calls.  The updates are from ``init`` (the rank's
+    blocks of the parameters; default: the state's as the run
+    starts)."""
     from repro_torch.sharding import rules
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train.loop import LoopConfig, TrainLoop
     accum = case.get("grad_accum", 1)
     batches = [_lm_batch(b, mesh, dev, accum) for b in case["batches"]]
-    if case.get("ref_dir"):     # on the host: the rank's device is shared
+    against = case.get("ref_dir") or one
+    if against:                 # on the host: the rank's device is shared
         init = {k: v.to("cpu", copy=True) for k, v in
                 ckpt.tree_items(init or state["params"]).items()}
     calls: list = []
+    routes: list = []
     metrics = []
     laps = _laps(dev)
-    with _flash_heads(calls), _fault(case):
+    with _flash_heads(calls), _fault(case), routings(routes):
         if case.get("ckpt_every"):
             loop = TrainLoop(
                 LoopConfig(total_steps=len(batches),
@@ -741,14 +817,22 @@ def _lm_run(case, mesh, step, state, dev, first: int = 0,
                               shardings=step.state_specs)
                     laps("save")
     res = {"metrics": metrics, "flash": calls, "restarts": restarts,
+           "routing": routes,
            "coords": rules.mesh_coords(mesh), "laps": laps.seconds}
     if case.get("return_state"):
         res["state"] = rules.gather_tree(state, step.state_specs, mesh)
-    if case.get("ref_dir"):
-        ref = ckpt.restore(state["params"], case["ref_dir"],
-                           shardings=step.state_specs["params"], mesh=mesh)
+    if against:
+        ref = one.pop("ref") if one else ckpt.restore(
+            state["params"], case["ref_dir"],
+            shardings=step.state_specs["params"], mesh=mesh)
         flat = ckpt.tree_unflatten(state["params"], list(init.values()))
         res["updates"] = update_stats(state["params"], flat, ref)
+        if one and "ref2" in one:
+            # the bf16 step's f32 counterpart
+            res["updates2"] = update_stats(state["params"], flat,
+                                           one.pop("ref2"))
+        if one:
+            res["one_device"] = one
         del ref, flat, init
         laps("against the reference")
     if case.get("save_dir") and case.get("save_at") is None:
@@ -816,14 +900,104 @@ def _leaves(tree: dict):
             yield v
 
 
+# a rank's one-device runs, kept on the host from one ``one_device``
+# case to the next of the same ``key``
+_ONE_DEVICE: dict = {}
+
+
+def _one_device_run(case, cfg, dev, steps: int) -> dict:
+    """``steps`` one-device steps of ``cfg`` from the case's drawn
+    parameters on its batches, without a mesh, or the longest such run
+    of the case's ``one_device["key"]`` kept from an earlier case (the
+    cases of one config share their weights, batches and optimizer):
+    host copies of the parameters after each step (``params``), each
+    step's metrics, each MoE layer's routing (:func:`routings`) in the
+    first step."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.train_state import make_train_step
+    key = (case["one_device"].get("key"), str(cfg.dtype))
+    if key not in _ONE_DEVICE or len(_ONE_DEVICE[key]["params"]) < steps:
+        if key[0] not in {k[0] for k in _ONE_DEVICE}:
+            _ONE_DEVICE.clear()
+        params = _lm_params(case, cfg, dev)
+        state = {"params": params, "opt": adamw_init(params),
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        step = make_train_step(cfg, AdamWConfig(**case["opt"]),
+                               tr.RunFlags(**case.get("flags", {})))
+        run = {"params": [], "metrics": [], "routing": []}
+        for i, b in enumerate(case["batches"][:steps]):
+            with routings(run["routing"] if i == 0 else []):
+                _, m = step(state, {k: v.to(dev) for k, v in b.items()})
+            run["metrics"].append({k: float(v) for k, v in m.items()})
+            run["params"].append(ckpt.tree_map(
+                lambda t: t.to("cpu", copy=True), state["params"]))
+        del state, step, params
+        _ONE_DEVICE[key] = run
+    return _ONE_DEVICE[key]
+
+
+def _one_device(case, cfg, dev, specs: dict, mesh) -> dict | None:
+    """The one-device steps a ``one_device`` case is held against, run on
+    this rank before its mesh steps (:func:`_one_device_run`: the card's
+    machine meters the checkpoints a parent would write for the ranks):
+    the rank's blocks of the parameters after ``steps`` steps (``ref``),
+    the steps' metrics, the routing; with ``f32_steps`` (a bf16 case)
+    also the f32 steps' blocks (``ref2``) and, a leaf, ``||Δ - Δ_f32|| /
+    ||Δ_f32||`` of the one-device update (``exact``).  None without
+    ``one_device``."""
+    import dataclasses
+
+    from repro_torch.sharding import rules
+    from repro_torch.train import checkpoint as ckpt
+    plan = case.get("one_device")
+    if not plan:
+        return None
+    n = plan["steps"]
+    run = _one_device_run(case, cfg, dev, n)
+
+    def blocks(tree):
+        return rules.shard_tree(ckpt.tree_map(lambda t: t.to(dev), tree),
+                                specs, mesh)
+    params = run["params"][n - 1]
+    out = {"ref": blocks(params), "metrics": run["metrics"][:n],
+           "routing": run["routing"]}
+    if plan.get("f32_steps"):
+        f32 = _one_device_run(case, dataclasses.replace(cfg, dtype="float32"),
+                              dev, plan["f32_steps"])["params"][
+            plan["f32_steps"] - 1]
+        init = ckpt.tree_items(_lm_params(case, cfg, dev))
+        wide = ckpt.tree_items(f32)
+
+        def norm(t):
+            return torch.linalg.vector_norm(t.float(), dtype=torch.float64)
+        out["exact"] = {
+            path: float(norm(a.to(dev) - wide[path].to(dev))
+                        / norm(wide[path].to(dev) - init[path])
+                        .clamp_min(1e-300))
+            for path, a in ckpt.tree_items(params).items()}
+        out["ref2"] = blocks(f32)
+        del init, wide
+    # the case's counts and peak are its mesh steps'
+    for k in _flash_kernels().values():
+        k.launches = 0
+        k.launches_by_geometry.clear()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    return out
+
+
 def _lm_train(case, dev):
     from repro_torch.configs.base import ArchConfig
     from repro_torch.launch.mesh import make_local_mesh
     cfg = ArchConfig(**case["cfg"])
     mesh = make_local_mesh(*case["mesh"], device_type=dev.type)
     step = _lm_step(case, cfg, mesh)
+    one = _one_device(case, cfg, dev, step.state_specs["params"], mesh)
     state = _state_blocks(_lm_params(case, cfg, dev), step, mesh, dev)
-    return _lm_run(case, mesh, step, state, dev)
+    return _lm_run(case, mesh, step, state, dev, one=one)
 
 
 def _reshard(case, dev):
@@ -856,11 +1030,12 @@ def _reshard(case, dev):
             torch.from_numpy(saved[key]), specs[key], mesh, coords))
             for key, t in ckpt.tree_items(state).items()]
     laps("bits")
+    one = _one_device(case, cfg, dev, step.state_specs["params"], mesh)
     init = rules.shard_tree(_lm_params(case, cfg, dev),
                             step.state_specs["params"], mesh) \
-        if case.get("ref_dir") else None
+        if case.get("ref_dir") or one else None
     res = _lm_run(case, mesh, step, state, dev, first=int(state["step"]),
-                  init=init)
+                  init=init, one=one)
     res["laps"] = dict(laps.seconds, **res["laps"])
     res.update(bits_equal=all(equal), leaves=len(equal),
                restored_step=ckpt.latest_step(case["from_dir"]))
@@ -906,9 +1081,12 @@ def run(case_file: str, out_dir: str, device: str = "cuda",
             k.launches = 0
             k.launches_by_geometry.clear()
         staged = _staged()
+        counted = _collectives(), _collectives("mesh.ipc")
         kind = case["kind"]
         if kind not in ("decode", "lm_decode"):
             _MODEL.clear()      # the decode cases' model leaves the card
+        if kind not in ("lm_train", "reshard"):
+            _ONE_DEVICE.clear()     # as _MODEL: the train cases' runs
         if dev.type == "cuda":
             gc.collect()        # a cycle holding tensors must not stay
             torch.cuda.empty_cache()
@@ -927,6 +1105,8 @@ def run(case_file: str, out_dir: str, device: str = "cuda",
                    for geo, n in k.launches_by_geometry.items()}
             for name, k in flash.items()}
         res["staged"] = _staged() - staged
+        res.setdefault("collectives", _collectives() - counted[0])
+        res["ipc"] = _collectives("mesh.ipc") - counted[1]
         if dev.type == "cuda":
             res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
             res["held_gb"] = held

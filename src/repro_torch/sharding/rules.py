@@ -28,8 +28,8 @@ global tensor by such a spec: the port's stand-in for placing an array
 by a ``NamedSharding``; :func:`shard_tree` cuts a whole tree and
 :func:`gather_tree`, its inverse, gathers a rank's blocks back over the
 process group.  :func:`check_whole_heads` refuses a ``model`` split
-that cuts an attention head, where the reference pads the heads
-(``_pad_heads_even``).
+that cuts an SSM head (attention and MLA heads are padded, as the
+reference's ``_pad_heads_even``).
 """
 
 from __future__ import annotations
@@ -340,11 +340,10 @@ def gather_tree(tree: dict, spec_tree: dict, mesh) -> dict:
 def check_whole_heads(name: str, heads: Mapping[str, int], head_dim: int,
                       mesh, rules: Rules = DEFAULT_RULES) -> None:
     """Raise ``ValueError`` where ``rules`` would split the flattened
-    ``heads·head_dim`` dim of a logical axis (``heads``: ``{"heads":
-    n_heads, "kv_heads": n_kv_heads}``) over a mesh axis that does not
-    divide the head count, cutting a head: the reference zero-pads the
-    heads to a multiple of the axis (``_pad_heads_even``); the port
-    declines to split a head."""
+    ``heads·head_dim`` dim of a logical axis (``heads``: ``{logical axis:
+    head count}``, e.g. ``{"ssm_heads": H}``) over a mesh axis that does
+    not divide the head count, cutting a head the port cannot pad (an
+    SSM head: its state and its norm's channels are the head's)."""
     sizes = axis_sizes(mesh)
     for logical, n in heads.items():
         axis = rules.mesh_axis(logical)
@@ -354,5 +353,4 @@ def check_whole_heads(name: str, heads: Mapping[str, int], head_dim: int,
             raise ValueError(
                 f"{name}: a {axis} axis of {m} splits the {n} {logical} "
                 f"of {head_dim} ({n * head_dim} columns) inside a head; "
-                f"the port splits whole heads only (the reference pads "
-                f"them to a multiple of the axis)")
+                f"the port splits whole SSM heads only")

@@ -76,10 +76,27 @@ cases, world 4 the ``(2, 2)`` ones.  The cases mirror
   - the planted faults (``parity.FAULTS``): ``wo``'s partials not summed
     over ``model``, the norm of the rank's blocks only, the gradients
     summed over ``data``, each far above the gate;
-  - in this process: MLA, MoE, SSM and hybrid configs on a mesh raise
-    ``NotImplementedError`` naming ROADMAP item 25, a head split off
-    whole heads raises ``ValueError``, ``make_batch_fn(shardings=...)``
-    cuts each rank's rows.
+  - in this process: an SSM head split over ``model`` raises
+    ``ValueError``, ``make_batch_fn(shardings=...)`` cuts each rank's
+    rows, ``init_cache`` on a mesh gives each rank its blocks;
+* MLA, MoE, SSM and hybrid layers on a mesh, at world 2: the tiny
+  presets (``reduced_config(..., "tiny")``, f32) of MiniCPM3-4B,
+  OLMoE-1B-7B, Llama-4-Scout, Mamba2-2.7B and Hymba-1.5B (its attention
+  at 5 q heads over 1 kv head, so that 2 ranks pad them as the
+  reference's ``_pad_heads_even``, and one windowed layer), each against
+  the reference's unsharded results on the same numpy parameters (one
+  jitted reference step a config, run in a thread beside the spawns):
+  two train steps at (2, 1) and (1, 2) (loss, ``grad_norm`` and each
+  leaf's update at ``LM_TRAIN_TOL``, ``aux_lb``/``aux_z`` at
+  ``AUX_TOL``; OLMoE's routing groups span the data ranks, Scout's do
+  not), each MoE layer's routing bit for bit the port's one-device
+  routing, the TP prefill's logits and cache blocks at (1, 2), the
+  batch-sharded and TP decode's logits and caches, MLA's and Hymba's
+  ``seq_shard_decode`` at 2e-5; the padded heads' layout against the
+  reference's ``_pad_heads_even``; the item's planted faults (the MoE
+  combine not summed, ``q_norm``'s RMS over half of ``q_lora``, the SSM
+  norm over half of ``d_inner``, ``aux_lb`` as the mean of the ranks'
+  products, the pad head kept) far above their gates.
 
 Sizes: ``channel_scale = 0.0625``, batch 4 (2 for 3D-GAN).
 """
@@ -164,6 +181,28 @@ LM_TRAIN_MESHES = {2: ((2, 1), (1, 2)), 4: ((2, 2),)}
 # the seq-sharded decode of the windowed Gemma3: rows a slot, filled
 # steps, the slots' lengths (window 8: 6..13 on rank 0, 43..50 on rank 1)
 SWA_T, SWA_FILL, SWA_LENS = 64, 50, (13, 50)
+# MLA, MoE, SSM and hybrid layers on a mesh: the configs, their train
+# batches (OLMoE's 128 tokens are one routing group across the data
+# ranks; Scout's 512 two groups, one a rank), the prompts prefilled into
+# FAM_T rows a slot and decoded DECODE_STEPS steps, the aux losses'
+# relative tolerance, and each planted fault's config, mesh and the
+# factor over its gate it must reach (the dense transformer's three:
+# 100; the other layers' faults on the tiny presets: 4, the chip phase's
+# ratio: q_norm's halves have nearly the whole's RMS at this width)
+FAMILIES = ("minicpm3-4b", "olmoe-1b-7b", "llama4-scout-17b-a16e",
+            "mamba2-2.7b", "hymba-1.5b")
+FAM_BATCH = {"olmoe-1b-7b": (4, 32), "llama4-scout-17b-a16e": (8, 64)}
+FAM_PROMPT, FAM_T = (2, 24), 32
+AUX_TOL = 1e-6
+FAM_SEQ = ("minicpm3-4b", "hymba-1.5b")
+FAULT_CASES = {"wo not summed": ("g3", (1, 2), 100),
+               "local norm": ("g3", (1, 2), 100),
+               "grads summed": ("g3", (2, 1), 100),
+               "moe combine not summed": ("olmoe-1b-7b", (1, 2), 4),
+               "aux_lb mean of products": ("olmoe-1b-7b", (2, 1), 4),
+               "q_norm over a half": ("minicpm3-4b", (1, 2), 4),
+               "ssm norm over a half": ("mamba2-2.7b", (1, 2), 4),
+               "pad head kept": ("hymba-1.5b", (1, 2), 4)}
 
 
 def _np_params(specs, rng):
@@ -397,6 +436,132 @@ def _lm_inputs():
         swa_logits=np.stack(swa_logits))
 
 
+def _fam_cfg(name: str):
+    """The family's tiny preset in f32 (Hymba's attention at 5 q heads
+    over 1 kv head, its second layer windowed)."""
+    from repro.launch.train import reduced_config
+    jcfg = dataclasses.replace(reduced_config(name, "tiny"), dtype="float32")
+    if name == "hymba-1.5b":
+        jcfg = dataclasses.replace(jcfg, n_heads=5, n_kv_heads=1,
+                                   global_layers=(0,), local_window=8)
+    return jcfg
+
+
+def _padded_cache(cache: dict, rows: int) -> dict:
+    """A prefill's cache with its sequence leaves (k, v, their scales,
+    ckv, krope) zero-padded to ``rows``; the SSM state as it is."""
+    return {k: (_padded_cache(v, rows) if isinstance(v, dict) else
+                np.asarray(v) if k in ("h", "conv") else np.pad(
+                    np.asarray(v), [(0, 0), (0, 0),
+                                    (0, rows - v.shape[2])]
+                    + [(0, 0)] * (v.ndim - 3)))
+            for k, v in cache.items()}
+
+
+def _fam_refs(fam: dict) -> dict:
+    """The reference's unsharded results of the families' cases: two
+    train steps, the prefill's logits and cache, and DECODE_STEPS decode
+    steps from the prefill's cache (their logits and final cache)."""
+    out = {}
+    for name, f in fam.items():
+        jcfg = f["jcfg"]
+        state, metrics = _ref_steps(jcfg, _np_state(f["params"]),
+                                    f["batches"])
+        jparams = jax.tree.map(jnp.asarray, f["params"])
+        logits, cache, _ = jtr.forward(jparams, {"tokens": jnp.asarray(
+            f["prompt"])}, jcfg, mode="prefill")
+        filled = _padded_cache(jax.tree.map(np.asarray, cache), FAM_T)
+        step = jax.jit(functools.partial(jtr.decode_step, cfg=jcfg))
+        dcache = jax.tree.map(jnp.asarray, filled)
+        dlogits = []
+        for i in range(DECODE_STEPS):
+            lg, dcache = step(jparams, dcache, jnp.asarray(f["dtokens"][i]),
+                              jnp.full((FAM_PROMPT[0],), FAM_PROMPT[1] + i,
+                                       jnp.int32))
+            dlogits.append(np.asarray(lg))
+        out[name] = dict(state=state, metrics=metrics,
+                         logits=np.asarray(logits),
+                         cache=jax.tree.map(np.asarray, cache), filled=filled,
+                         dlogits=np.stack(dlogits),
+                         final=jax.tree.map(np.asarray, dcache))
+    return out
+
+
+def _fam_inputs() -> dict:
+    """Per family: its config, numpy parameters (``_np_lm_params``),
+    train batches, prompt and decode tokens; ``"refs"`` joins the thread
+    that computes the reference's results (:func:`_fam_refs`) beside the
+    spawns."""
+    import threading
+    rng = np.random.default_rng(32)
+    fam = {}
+    for i, name in enumerate(FAMILIES):
+        jcfg = _fam_cfg(name)
+        fam[name] = dict(
+            jcfg=jcfg, params=_np_lm_params(jcfg, seed=10 + i),
+            batches=[{"tokens": rng.integers(0, jcfg.vocab, FAM_BATCH.get(
+                name, LM_BATCH)).astype(np.int32)} for _ in range(2)],
+            prompt=rng.integers(0, jcfg.vocab, FAM_PROMPT).astype(np.int32),
+            dtokens=rng.integers(0, jcfg.vocab,
+                                 (DECODE_STEPS, FAM_PROMPT[0], 1)))
+    got: dict = {}
+
+    def work():
+        try:
+            got["refs"] = _fam_refs(fam)
+        except BaseException as e:      # raised again by refs()
+            got["error"] = e
+    thread = threading.Thread(target=work, daemon=True)
+    thread.start()
+
+    def refs() -> dict:
+        thread.join()
+        if "error" in got:
+            raise got["error"]
+        return got["refs"]
+    return {"fam": fam, "refs": refs}
+
+
+def _fam_cases(inp: dict, tmp) -> list:
+    """The families' world-2 cases (module docstring)."""
+    fam = inp["fam"]["fam"]
+    refs = None
+    cases = []
+    for name, f in fam.items():
+        jcfg = f["jcfg"]
+        for mesh in ((2, 1), (1, 2)):
+            cases.append(_lm_train_case(
+                inp["lm"], f"fam train {name} {mesh[0]}x{mesh[1]}", mesh,
+                tmp, jcfg=jcfg, params=f["params"], batches=f["batches"]))
+        tcfg = tbase.ArchConfig(**dataclasses.asdict(jcfg))
+        cases.append(dict(name=f"fam prefill {name} 1x2", kind="lm_prefill",
+                          mesh=(1, 2), cfg=dataclasses.asdict(jcfg),
+                          params=_tparams(f["params"], jcfg),
+                          tokens=torch.tensor(f["prompt"])))
+        if refs is None:
+            refs = inp["fam"]["refs"]()      # the caches to decode from
+        cache = cache_from_jax(refs[name]["filled"], tcfg, "cpu")
+        for mesh, seq in (((2, 1), False), ((1, 2), False), ((2, 1), True)):
+            if seq and name not in FAM_SEQ:
+                continue
+            cases.append(dict(
+                name=f"fam decode {name} {mesh[0]}x{mesh[1]}"
+                     + (" seq" if seq else ""),
+                kind="lm_decode", mesh=mesh, seq_shard=seq,
+                cfg=dataclasses.asdict(jcfg),
+                params=_tparams(f["params"], jcfg), cache=cache,
+                tokens=torch.tensor(f["dtokens"]),
+                lengths=torch.full((FAM_PROMPT[0],), FAM_PROMPT[1])))
+    for fault, (name, mesh, _) in FAULT_CASES.items():
+        if name in fam:
+            f = fam[name]
+            cases.append(_lm_train_case(
+                inp["lm"], f"lm fault {fault}", mesh, tmp, jcfg=f["jcfg"],
+                params=f["params"], batches=f["batches"][:1], fault=fault,
+                return_state=False))
+    return cases
+
+
 def _tparams(np_params, jcfg):
     return lm_params_from_jax(np_params, tbase.ArchConfig(
         **dataclasses.asdict(jcfg)), "cpu", torch.float32)
@@ -447,11 +612,12 @@ def _lm_cases(world: int, inp: dict, tmp, saved: str | None) -> list:
     cases.append(_lm_train_case(
         lm, "lm train hubert 2x1", (2, 1), tmp, jcfg=lm["hub"],
         params=lm["hub_params"], batches=[lm["hub_batch"]]))
-    for fault, mesh in (("wo not summed", (1, 2)), ("local norm", (1, 2)),
-                        ("grads summed", (2, 1))):
-        cases.append(_lm_train_case(
-            lm, f"lm fault {fault}", mesh, tmp, fault=fault,
-            batches=lm["batches"][:1], return_state=False))
+    for fault, (name, mesh, _) in FAULT_CASES.items():
+        if name == "g3":
+            cases.append(_lm_train_case(
+                lm, f"lm fault {fault}", mesh, tmp, fault=fault,
+                batches=lm["batches"][:1], return_state=False))
+    cases += _fam_cases(inp, tmp)
     qwen = lm["qwen"]
     cases.append(dict(
         name="lm prefill 1x2", kind="lm_prefill", mesh=(1, 2),
@@ -563,7 +729,9 @@ def _cases(world: int, inp: dict, tmp, saved: str | None = None
 
 @pytest.fixture(scope="module")
 def inputs():
-    return dict(_inputs(), decode=_decode_inputs(), lm=_lm_inputs())
+    fam = _fam_inputs()        # its references in a thread from here on
+    return dict(_inputs(), decode=_decode_inputs(), lm=_lm_inputs(),
+                fam=fam)
 
 
 @pytest.fixture(scope="module")
@@ -1103,13 +1271,20 @@ def test_lm_train_hubert_normalizes_by_the_global_count(spawned, inputs):
 
 @pytest.mark.parametrize("fault", sorted(parity.FAULTS))
 def test_lm_train_faults_fail_the_gate(fault, spawned, inputs):
-    """Each planted fault reads far above the gate on every rank."""
-    want = inputs["lm"]["train"][1][1]
+    """Each planted fault reads far above the gate on every rank (its
+    factor of FAULT_CASES): loss, ``grad_norm`` against LM_TRAIN_TOL,
+    ``aux_lb`` against AUX_TOL."""
+    name, _, factor = FAULT_CASES[fault]
+    want = inputs["lm"]["train"][1][1] if name == "g3" \
+        else inputs["fam"]["refs"]()[name]["metrics"]
     for res in spawned(2)[1]:
         got = res[f"lm fault {fault}"]["metrics"]
-        worst = max(abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(got, want)
-                    for k in ("loss", "grad_norm"))
-        assert worst > 100 * LM_TRAIN_TOL, (fault, worst)
+        worst = max(max(abs(g[k] - w[k]) / abs(w[k]) / tol
+                        for k, tol in (("loss", LM_TRAIN_TOL),
+                                       ("grad_norm", LM_TRAIN_TOL),
+                                       ("aux_lb", AUX_TOL)) if w[k])
+                    for g, w in zip(got, want))
+        assert worst > factor, (fault, worst)
 
 
 def _by_coords(per_rank: list, name: str) -> dict:
@@ -1263,35 +1438,32 @@ def test_reshard_is_bit_for_bit(spawned, inputs):
 
 
 def test_dense_mesh_refusals_batch_rows_and_cache_blocks():
-    """In this process: MLA, MoE, SSM and hybrid configs on a mesh raise
-    NotImplementedError naming ROADMAP item 25 (forward, init_cache and
-    make_train_step); a model split that cuts a head raises ValueError
-    naming the config and the axis; make_batch_fn(shardings=...) gives
-    each rank its rows; init_cache on a mesh gives each rank its block of
-    slots and heads (of rows with seq_shard_decode)."""
-    from repro_torch.train.optimizer import AdamWConfig
-    from repro_torch.train.train_state import make_train_step
-    flags = ttr.RunFlags(mesh=(1, 2))
-    tokens = torch.zeros((1, 4), dtype=torch.int64)
-    for name, what in (("minicpm3-4b", "MLA"), ("olmoe-1b-7b", "MoE"),
-                       ("mamba2-2.7b", "SSM"), ("hymba-1.5b", "hybrid")):
-        cfg = tlaunch.reduced_config(name, "tiny")
-        for call in (
-                lambda: ttr.forward({}, {"tokens": tokens}, cfg,
-                                    flags=flags),
-                lambda: ttr.init_cache(cfg, 2, 8, device="cpu",
-                                       flags=flags),
-                lambda: make_train_step(cfg, AdamWConfig(), flags,
-                                        master_shardings={})):
-            with pytest.raises(NotImplementedError,
-                               match=f"{what} layers on a mesh.*item 25"):
-                call()
+    """In this process: MLA, MoE, SSM and hybrid configs pass the mesh
+    check, and heads that do not divide the model axis are padded, not
+    refused; an SSM head split over it raises ValueError naming the
+    config and the axis; make_batch_fn(shardings=...) gives each rank its
+    rows; init_cache on a mesh gives each rank its block of slots and
+    heads (of rows with seq_shard_decode), the MLA latent whole over
+    model, the SSM state by heads and the conv cache by channels."""
+    for name in FAMILIES:
+        ttr.check_mesh(tlaunch.reduced_config(name, "tiny"), (1, 2))
     odd = dataclasses.replace(tlaunch.reduced_config("gemma-7b", "tiny"),
                               n_heads=3, n_kv_heads=3)
-    with pytest.raises(ValueError, match="gemma-7b: a model axis of 2 "
-                                         "splits the 3 heads"):
-        ttr.forward({}, {"tokens": tokens}, odd, flags=flags)
-    ttr.check_mesh(odd, (3, 1))        # a data axis splits no head
+    ttr.check_mesh(odd, (1, 2))        # padded, as the reference's
+    ssm = dataclasses.replace(tlaunch.reduced_config("mamba2-2.7b", "tiny"),
+                              ssm_head_dim=256)
+    with pytest.raises(ValueError, match="mamba2-2.7b: a model axis of 2 "
+                                         "splits the 1 ssm_heads"):
+        ttr.check_mesh(ssm, (1, 2))
+    ttr.check_mesh(ssm, (3, 1))        # a data axis splits no head
+    for name, path, want in (
+            ("minicpm3-4b", ("attn", "ckv"), (2, 2, 16, 32)),
+            ("mamba2-2.7b", ("ssm", "h"), (2, 2, 4, 32, 16)),
+            ("mamba2-2.7b", ("ssm", "conv"), (2, 2, 3, 144))):
+        cfg = tlaunch.reduced_config(name, "tiny")
+        block = ttr.init_cache(cfg, 4, 16, device="cpu", flags=ttr.RunFlags(
+            mesh=_Place((2, 2), 1, 1)))["seg0"]["pos0"]
+        assert tuple(block[path[0]][path[1]].shape) == want, (name, path)
     src = lambda step: {"tokens": np.arange(8 * 5).reshape(8, 5) + step}
     for data in range(2):
         for model in range(2):
@@ -1319,3 +1491,173 @@ def test_dense_mesh_refusals_batch_rows_and_cache_blocks():
         # one scale a token over every head: the scales are not split
         assert attn["k_s"].shape[3] == whole["seg0"]["pos0"]["attn"][
             "k_s"].shape[3] == 1
+
+
+# -- MLA, MoE, SSM and hybrid layers on a mesh ------------------------------
+
+def _fam_heads(name: str, model: int) -> set:
+    """The heads of each flash call of the family's train and prefill on
+    a model axis: its heads split, or padded (Hymba's 5 over 2: 3 a
+    rank); none for Mamba2."""
+    jcfg = _fam_cfg(name)
+    return set() if name == "mamba2-2.7b" else {-(-jcfg.n_heads // model)}
+
+
+def _check_aux(got: list, want: list, what: str) -> None:
+    for g, w in zip(got, want, strict=True):
+        for k in ("aux_lb", "aux_z"):
+            assert (g[k] == w[k] == 0) or \
+                abs(g[k] - w[k]) <= AUX_TOL * abs(w[k]), (what, k, g[k], w[k])
+
+
+@pytest.mark.parametrize("mesh", ["2x1", "1x2"])
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_train_steps_match_the_reference(name, mesh, spawned, inputs):
+    """Two train steps with the build_cell shardings against the
+    reference's unsharded steps: loss, grad_norm and each leaf's update
+    (masters and both moments) at LM_TRAIN_TOL, the MoE aux losses at
+    AUX_TOL; the flash calls over the rank's (padded) heads."""
+    f = inputs["fam"]["fam"][name]
+    ref = inputs["fam"]["refs"]()[name]
+    model = int(mesh[-1])
+    for res in spawned(2)[1]:
+        got = res[f"fam train {name} {mesh}"]
+        _check_metrics(got["metrics"], ref["metrics"], name)
+        _check_aux(got["metrics"], ref["metrics"], name)
+        _check_lm_state(got["state"], _np_state(f["params"]), ref["state"],
+                        name)
+        assert {c[3] for c in got["flash"]} == _fam_heads(name, model)
+    if f["jcfg"].moe:
+        assert ref["metrics"][0]["aux_lb"] > 0 and \
+            ref["metrics"][0]["aux_z"] > 0
+
+
+@pytest.mark.parametrize("name", ["olmoe-1b-7b", "llama4-scout-17b-a16e"])
+def test_family_routing_is_the_one_device_routing(name, spawned, inputs):
+    """Each MoE layer's routing in the first step's forward (expert ids,
+    places in the buffers, kept pairs), every rank's rows put together in
+    data order, equal bit for bit to the port's one-device forward on the
+    same parameters and batch (its routing held to the reference's in
+    tests/test_torch_moe.py); the model ranks' routings equal.  OLMoE's
+    group of 128 tokens spans both data ranks (the logits gathered);
+    Scout's 512 tokens make one whole group a rank."""
+    f = inputs["fam"]["fam"][name]
+    tcfg = tbase.ArchConfig(**dataclasses.asdict(f["jcfg"]))
+    params = _tparams(f["params"], f["jcfg"])
+    batch = {"tokens": torch.tensor(f["batches"][0]["tokens"])}
+    want: list = []
+    with parity.routings(want), torch.no_grad():
+        ttr.loss_fn(params, batch, tcfg, ttr.RunFlags(remat=False))
+    layers = len(want)
+    assert layers == tcfg.n_layers
+    for mesh in ("2x1", "1x2"):
+        ranks = _by_coords(spawned(2)[1], f"fam train {name} {mesh}")
+        data = int(mesh[0])
+        for layer in range(layers):
+            # the remat's forward: the first `layers` calls of step 1
+            for m in range(3 - data):
+                got = [torch.cat([ranks[d, m]["routing"][layer][i]
+                                  for d in range(data)])
+                       for i in range(3)]
+                for g, w in zip(got, want[layer]):
+                    assert torch.equal(g, w), (name, mesh, layer)
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_tp_prefill_matches_the_reference(name, spawned, inputs):
+    """The TP prefill at (1, 2): each rank's vocab columns of the logits
+    against the reference's, and its blocks of the cache (the latent
+    whole, the SSM state by heads, the conv cache by the rules' channel
+    blocks, Hymba's k and v by the head dim) against the reference's cut
+    by ``cache_shardings``."""
+    f = inputs["fam"]["fam"][name]
+    ref = inputs["fam"]["refs"]()[name]
+    ranks = _by_coords(spawned(2)[1], f"fam prefill {name} 1x2")
+    want = ref["logits"]
+    cols = want.shape[-1] // 2
+    whole = tckpt.tree_map(torch.tensor, ref["cache"])
+    specs = trules.cache_shardings((1, 2), whole)
+    for (_, m), res in ranks.items():
+        w = want[..., m * cols:(m + 1) * cols]
+        live = w > -1e29
+        np.testing.assert_allclose(res["logits"].numpy()[live], w[live],
+                                   atol=1e-4, rtol=1e-4)
+        assert {c[3] for c in res["flash"]} == _fam_heads(name, 2)
+        block = trules.shard_tree(whole, specs, _Place((1, 2), 0, m))
+        got = _flat(res["cache"])
+        for path, wb in _flat(block).items():
+            np.testing.assert_allclose(got[path].numpy(), wb.numpy(),
+                                       rtol=1e-5,
+                                       atol=1e-5 * float(wb.abs().max()),
+                                       err_msg=f"{name} {path}")
+
+
+@pytest.mark.parametrize("name,mesh", [
+    (name, mesh) for name in FAMILIES for mesh in ("2x1", "1x2")]
+    + [(name, "2x1 seq") for name in FAM_SEQ])
+def test_family_decode_on_a_mesh_matches_the_reference(name, mesh, spawned,
+                                                       inputs):
+    """DECODE_STEPS steps from the reference's prefilled cache: the
+    batch-sharded decode (a slot a data rank; OLMoE's and Scout's one
+    routing group across them) and the TP decode (the rank's heads,
+    experts, SSM heads and vocab columns) at DECODE_LOGITS_TOL, the
+    caches' blocks against the reference's final cache; MLA's and
+    Hymba's seq_shard_decode (every rank all slots, its rows of the
+    cache; Hymba's windowed layer's live rows all on rank 1) at the
+    attention outputs' 2e-5."""
+    ref = inputs["fam"]["refs"]()[name]
+    seq = mesh.endswith("seq")
+    shape = tuple(int(v) for v in mesh.split()[0].split("x"))
+    ranks = _by_coords(spawned(2)[1], f"fam decode {name} {mesh}")
+    want = ref["dlogits"]
+    whole = tckpt.tree_map(torch.tensor, ref["final"])
+    specs = trules.cache_shardings(shape, whole, seq_shard=seq)
+    for (d, m), res in ranks.items():
+        got = res["logits"].numpy()
+        rows, cols = got.shape[1], got.shape[2]
+        w = want[:, 0 if seq else d * rows:][:, :rows,
+                                             m * cols:(m + 1) * cols]
+        live = w > -1e29
+        tol = DECODE_ATTN_TOL if seq else dict(atol=DECODE_LOGITS_TOL,
+                                                rtol=0)
+        np.testing.assert_allclose(got[live], w[live], **tol,
+                                   err_msg=f"{name} {mesh} rank {d, m}")
+        block = trules.shard_tree(whole, specs, _Place(shape, d, m))
+        got_c = _flat(res["cache"])
+        for path, wb in _flat(block).items():
+            np.testing.assert_allclose(got_c[path].numpy(), wb.numpy(),
+                                       rtol=1e-5,
+                                       atol=1e-5 * float(wb.abs().max()),
+                                       err_msg=f"{name} {mesh} {path}")
+
+
+def test_padded_heads_are_the_references():
+    """The padded heads' layout against the reference's
+    ``_pad_heads_even`` on a model axis of 2 (Hymba's tiny heads: 5 q
+    over 1 kv): rank r's block of the reference's padded q, k and v
+    (GQA expanded, 6 heads, 3 a rank) equals the rank's real heads and
+    their kv heads zero-padded as the port builds them; 25 of Hymba's
+    full-width heads pad to 26, 13 a rank, the pad the last."""
+    from repro.models.attention import _pad_heads_even
+    from repro_torch.models import attention as tattn
+    from repro_torch.sharding.collectives import TensorGroup
+
+    class _Fake:
+        shape = {"data": 1, "model": 2}
+    rng = np.random.default_rng(7)
+    q, k, v = (rng.normal(size=(2, 3, h, 4)).astype(np.float32)
+               for h in (5, 1, 1))
+    qp, kp, vp, hq, hk = _pad_heads_even(jnp.asarray(q), jnp.asarray(k),
+                                         jnp.asarray(v), 5, 1, _Fake())
+    assert (hq, hk) == (6, 6)
+    for r in range(2):
+        lo, n, per = tattn._padded_heads(5, TensorGroup(None, 2, r))
+        kv = torch.arange(lo, lo + n) // 5
+        for ref, ours in ((qp, torch.tensor(q)[:, :, lo:lo + n]),
+                          (kp, torch.tensor(k)[:, :, kv]),
+                          (vp, torch.tensor(v)[:, :, kv])):
+            np.testing.assert_array_equal(
+                np.asarray(ref)[:, :, r * per:(r + 1) * per],
+                tattn._pad_to(ours, per).numpy())
+    assert [tattn._padded_heads(25, TensorGroup(None, 2, r))
+            for r in range(2)] == [(0, 13, 13), (13, 12, 13)]

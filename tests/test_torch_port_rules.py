@@ -189,20 +189,21 @@ def test_llm_options_outside_the_slice_raise():
         "seg0"]["pos0"]["attn"]["k"].dtype == torch.int8
     seq = tr.RunFlags(mesh=(2, 1), seq_shard_decode=True)
     assert tr.RunFlags(seq_shard_decode=True).mesh is None
-    # a model axis above 1 and a mesh without seq_shard_decode are the
-    # dense families' (item 23); what item 25 brings still raises: MLA,
-    # MoE, SSM and hybrid layers on any mesh
+    # a model axis above 1 and a mesh without seq_shard_decode run every
+    # family: MLA, MoE, SSM and hybrid layers pass the mesh check at both
+    # meshes, and only an SSM head split over the model axis is refused
     tr.RunFlags(mesh=(1, 2), seq_shard_decode=True)
     tr.RunFlags(mesh=(2, 1))
-    tokens = torch.zeros((1, 4), dtype=torch.int64)
     for name in ("minicpm3-4b", "olmoe-1b-7b", "hymba-1.5b", "mamba2-2.7b"):
         other = llm_serve.reduced_config(name, "tiny")
-        for flags in (seq, tr.RunFlags(mesh=(1, 2))):
-            with pytest.raises(NotImplementedError, match="item 25"):
-                tr.forward({}, {"tokens": tokens[:, :1]}, other,
-                           mode="decode", cache={},
-                           lengths=torch.zeros(1, dtype=torch.long),
-                           flags=flags)
+        for mesh in (seq.mesh, (1, 2)):
+            tr.check_mesh(other, mesh)
+    odd = dataclasses.replace(llm_serve.reduced_config("mamba2-2.7b",
+                                                       "tiny"),
+                              ssm_head_dim=256)
+    assert odd.ssm_heads % 2
+    with pytest.raises(ValueError, match="splits whole SSM heads only"):
+        tr.check_mesh(odd, (1, 2))
     # the train options of the reference's RunFlags are the port's too
     for flags in (tr.RunFlags(remat=False), tr.RunFlags(remat_policy="dots"),
                   tr.RunFlags(scan_layers=False),
