@@ -149,6 +149,13 @@ holds each launch of a prefill to its plain version and float64, decodes
 dequantized entry within its bound), and on conditioned weights holds
 the logits to the plain path (a dropped QKV bias above the gate) and
 the int8 cache's to a bf16 cache's (ignored scales above the gate).
+The roofline phase counts, on ``meta`` tensors with the dry-run's
+counter (``repro_torch/utils/opcount.py``), three steps those phases
+ran on the card (Gemma-7B's train step, Qwen1.5-32B's prefill of its
+longest prompt and its int8 decode step) and holds each count to the
+card: the products' FLOPs to the profiler's, the flash launches by
+geometry, the temp bytes and the peak memory, and the roofline bound of
+the counts to the measured device time.
 The mesh phase runs programs sharded over two ``gloo`` ranks that share the
 card (started by the port's launcher once the kernels are built): the
 full-width DCGAN and
@@ -506,25 +513,53 @@ def tf32_control(operands: dict, bias, ep, ref) -> tuple[float, float, bool]:
     return err, tol_share(got, ref), ok
 
 
-def profile(fn, runs: int, what: str, ranges_of=RANGES) -> dict:
+def profile(fn, runs: int, what: str, ranges_of=RANGES, *,
+            flops: bool = False, warmup: bool = True, before=None) -> dict:
     """Device time by kernel over ``runs`` calls of ``fn`` (torch.profiler),
     the span on the device's timeline of each range of ``ranges_of``
     (by default the training ranges of ``RANGES``: the kernel backends'
     autograd Function labels its forward, ``dx`` and ``dw``; a span
     includes the device's idle gaps inside it), and the share of the
-    wall time the device was busy.  Prints the breakdown; returns it."""
+    wall time the device was busy.  ``fn`` runs once unprofiled first
+    (``warmup``), then ``before()`` if given; with ``flops`` the
+    profiler's FLOPs (``with_flops``) of the product ops (``mm``,
+    ``addmm``, ``bmm``, ``baddbmm``) that ran are ``dot_flops_per_run``
+    (those of the backward that launched no kernel left out: a
+    recompute's early-stopped op), ``dot_flops_recorded_per_run`` every
+    such op the profiler recorded.
+    Prints the breakdown; returns it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
-    fn()
+    from repro_torch.utils.opcount import DOT_OPS
+    if warmup:
+        fn()
     torch.cuda.synchronize()
+    if before is not None:
+        before()
     with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
+                                   ProfilerActivity.CUDA],
+                       with_flops=flops) as prof:
         t0 = time.perf_counter()
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    dot_flops = dot_flops_all = 0.0
+    if flops:
+        # each product op's FLOPs, but for the ops in a backward that
+        # launched no kernel: the profiler records an op at its entry, so
+        # it also records the op at which the non-reentrant checkpoint's
+        # early stop ends a recompute (in the backward, in the op's
+        # autograd kernel, before any launch), whose FLOPs never ran.  A
+        # forward op always counts (the profiler can miss the kernels of
+        # its window's first ops)
+        for evt in prof.events():
+            if evt.device_type == DeviceType.CPU and evt.name in {
+                    f"aten::{op}" for op in DOT_OPS}:
+                dot_flops_all += evt.flops or 0
+                if evt.kernels or not in_backward(evt):
+                    dot_flops += evt.flops or 0
     by_name, ranges = {}, {}
     for evt in prof.key_averages():
         # kernels only: an operator's row repeats its kernels' time, and
@@ -537,10 +572,13 @@ def profile(fn, runs: int, what: str, ranges_of=RANGES) -> dict:
             by_name[evt.key] = (by_name.get(evt.key, 0.0)
                                 + evt.self_device_time_total / 1e3)
     device_ms = sum(by_name.values())
+    extra = {"dot_flops_per_run": dot_flops / runs,
+             "dot_flops_recorded_per_run": dot_flops_all / runs} \
+        if flops else {}
     if device_ms == 0:
         print(f"profile of {what}: the profiler saw no device time "
               f"(not measured)")
-        return {"wall_ms_per_run": wall_ms / runs, "device": None}
+        return {"wall_ms_per_run": wall_ms / runs, "device": None, **extra}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     short = {}      # kernels whose names share 80 characters add up
     for k, v in top:
@@ -549,7 +587,7 @@ def profile(fn, runs: int, what: str, ranges_of=RANGES) -> dict:
            "device_ms_per_run": device_ms / runs,
            "device_busy_share": device_ms / wall_ms,
            "kernels_ms_per_run": short,
-           "range_spans_ms_per_run": ranges}
+           "range_spans_ms_per_run": ranges, **extra}
     print(f"profile over {runs} {what}: wall {wall_ms / runs:.4f} ms/run, "
           f"device busy {device_ms / runs:.4f} ms/run "
           f"({100 * device_ms / wall_ms:.1f}% of the wall time)")
@@ -558,6 +596,17 @@ def profile(fn, runs: int, what: str, ranges_of=RANGES) -> dict:
     for name, ms in ranges.items():
         print(f"  {ms:9.4f} ms/run  device-timeline span of {name}")
     return out
+
+
+def in_backward(evt) -> bool:
+    """Whether a profiler event ran inside the autograd engine's
+    backward (an ancestor is one of its ``evaluate_function`` ranges)."""
+    parent = evt.cpu_parent
+    while parent is not None:
+        if parent.name.startswith("autograd::engine::evaluate_function"):
+            return True
+        parent = parent.cpu_parent
+    return False
 
 
 def max_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, bool]:
@@ -1816,7 +1865,8 @@ def regime_backward(calls: list, attend, label: str) -> dict:
 def llm_train_phase(card, dev, wrappers, kernel_errs: dict,
                     layers: int = LLM_TRAIN_LAYERS,
                     batch: tuple[int, int] = LLM_TRAIN_BATCH,
-                    f32: tuple[int, int, int] = LLM_TRAIN_F32) -> dict:
+                    f32: tuple[int, int, int] = LLM_TRAIN_F32,
+                    roofline: dict | None = None) -> dict:
     """Full-width Gemma-7B training with its depth cut to ``layers``
     (every counter at 0 just before the main path's steps, read just
     after): state, step time, tokens/s, model-FLOP share, peak memory,
@@ -1830,8 +1880,10 @@ def llm_train_phase(card, dev, wrappers, kernel_errs: dict,
     grad_accum=2 against their controls); the kernel at the step's
     geometry against its plain version, beside its bound, SDPA and its
     recompute backward.  Appends the step geometry's kernel error to
-    ``kernel_errs``.  ``layers``, ``batch`` and ``f32`` shrink it for a
-    rehearsal on the CPU."""
+    ``kernel_errs``; on the card, adds the profiled step (its meta
+    arguments and the card's reading) to ``roofline`` for the roofline
+    phase.  ``layers``, ``batch`` and ``f32`` shrink it for a rehearsal
+    on the CPU."""
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import SyntheticLM, make_batch_fn
     from repro_torch.kernels.flash_attention import (FlashAttentionFn,
@@ -1951,8 +2003,15 @@ def llm_train_phase(card, dev, wrappers, kernel_errs: dict,
     print(f"  losses {', '.join(f'{x:.4f}' for x in out['losses'])}; grad "
           f"norms {', '.join(f'{x:.4f}' for x in out['grad_norms'])}")
     if on_card:
+        reading = StepReading(dev, state)
         out["step_profile"] = profile(lambda: step(state, batch_fn(0)), 1,
-                                      f"{LLM_ARCH} train steps")
+                                      f"{LLM_ARCH} train steps", flops=True,
+                                      before=reading.start)
+        if roofline is not None:
+            roofline[f"{LLM_ARCH} train step ({layers} layers, {b}x{s} "
+                     f"tokens)"] = dict(
+                fn=step, args=(to_meta(state), to_meta(batch_fn(0))),
+                measured=reading.stop(out["step_profile"]))
 
     # -- the loss falls on one repeated batch --------------------------------
     fit = make_train_step(cfg, AdamWConfig(total_steps=LLM_FIT_STEPS,
@@ -4469,8 +4528,6 @@ SSM_DECAY_GRAD_TOL = 0.3
 # SSM_DECAY_GRAD_TOL), the dv fault above it.
 HYMBA_BF16_GRAD_TOL = 0.2
 HYMBA_GRAD_F32 = (1, 2048)
-# the profile's ranges: the whole mixer, and the SSD core inside it
-SSM_RANGES = ("ssm.ssm_apply", "ssm.ssd")
 
 
 def faulty_ssd(fault: str):
@@ -4647,9 +4704,9 @@ def ssm_phase(card, dev, wrappers, *, mamba_cfg=None, hymba_cfg=None,
     """Full-width Mamba2-2.7B (``mamba_cfg``, default the registered
     config): serving through ``DecodeEngine.run`` (every counter at 0
     just before, read just after: no flash launch, no plain call), TTFT,
-    prefill and decode rates and the decode step's HBM bound; a profile
-    of a ``prefill_s``-token prefill with the SSD apart; the SSD gate on
-    layer ``gate_layer``'s mixer input with its planted faults; the
+    prefill and decode rates and the decode step's HBM bound; the SSD
+    gate on layer ``gate_layer``'s mixer input of a ``prefill_s``-token
+    prefill with its planted faults; the
     prefill/decode handoff.  Then full-width Hymba-1.5B (``hymba_cfg``):
     serving (one launch of the wgmma kernel's bf16 hd-64 instance a
     global layer a prefill, no FFMA launch, no plain call), one launch
@@ -4904,42 +4961,14 @@ def ssm_phase(card, dev, wrappers, *, mamba_cfg=None, hymba_cfg=None,
     m = out["mamba2"] = serve(mcfg, params, prompts, MAMBA2_ARCH, None, 0)
     lap("mamba2 serving")
 
-    # -- the profile of one prefill, the SSD apart -------------------------
+    # the prefill's profile by kind (the SSD apart) was cut for the
+    # script's time; PERF.md keeps its last reading
     tokens = torch.randint(0, mcfg.vocab, (1, prefill_s), generator=gen
                            ).to(dev)
     if on_card:
-        with annotated(ssm, "ssm_apply", SSM_RANGES[0]), \
-                annotated(ssm, "_ssd_chunked", SSM_RANGES[1]):
-            # one profiled prefill (two before a cut for the script's time)
-            prof = profile(lambda: tr.forward(params, {"tokens": tokens},
-                                              mcfg, mode="prefill"), 1,
-                           f"{MAMBA2_ARCH} prefills of {prefill_s} tokens",
-                           ranges_of=SSM_RANGES)
-        if "device_ms_per_run" in prof:
-            kms = prof["kernels_ms_per_run"]
-            spans = prof["range_spans_ms_per_run"]
-            gemm_ms = sum(ms for nm, ms in kms.items()
-                          if any(t in nm.lower() for t in
-                                 ("gemm", "xmma", "cutlass", "nvjet")))
-            busy = prof["device_ms_per_run"]
-            mixer = spans.get(SSM_RANGES[0], float("nan"))
-            ssd = spans.get(SSM_RANGES[1], float("nan"))
-            L = mcfg.n_layers
-            prof["by_kind_ms"] = dict(gemm_kernels=gemm_ms, mixer_span=mixer,
-                                      ssd_span=ssd, ssd_span_per_layer=ssd / L,
-                                      other=busy - gemm_ms)
-            print(f"  a {prefill_s}-token prefill by kind: every GEMM kernel "
-                  f"(in_proj, out_proj, the logits; the SSD's einsums among "
-                  f"them) {gemm_ms:.3f} ms; the mixers (device span of their "
-                  f"ranges) {mixer:.3f} ms; the SSD core {ssd:.3f} ms = "
-                  f"{ssd / L:.3f} ms a layer; device busy {busy:.3f} ms of a "
-                  f"{prof['wall_ms_per_run']:.3f} ms wall "
-                  f"({100 * prof['device_busy_share']:.1f}%) [{card}]")
-        m["prefill_profile"] = prof
         m["serve_peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         print(f"{MAMBA2_ARCH} serving in bf16: peak device memory "
               f"{m['serve_peak_memory_gb']:.2f} GB [{card}]")
-    lap("mamba2 profile")
 
     # -- the SSD gate on one layer's mixer input ----------------------------
     seen: list = []
@@ -6043,7 +6072,8 @@ def qwen_phase(card, dev, wrappers, *, cfg=None,
                prompt_lens: tuple[int, int] = QWEN_PROMPT_LENS,
                min_len: int = QWEN_MIN_LEN, gate_s: int = QWEN_GATE_S,
                int8: tuple[int, int] = QWEN_INT8,
-               steps: int = QWEN_INT8_STEPS) -> dict:
+               steps: int = QWEN_INT8_STEPS,
+               roofline: dict | None = None) -> dict:
     """Full-width Qwen1.5-32B (``cfg``, default the registered config),
     random bf16 weights from seed 0 with the QKV biases drawn: served
     through ``DecodeEngine.run`` on a bf16 cache sized to the card (every
@@ -6060,8 +6090,11 @@ def qwen_phase(card, dev, wrappers, *, cfg=None,
     path against its plain version's (the QKV bias dropped above it), the
     int8 cache's steps against a bf16 cache's (the scales ignored above
     it); profiles of a decode step from each cache; one launch timed at the longest prompt beside its plain
-    version, SDPA and the bound.  The keywords shrink it for a rehearsal
-    on the CPU (the kernel's plain version, no counts, no times)."""
+    version, SDPA and the bound.  On the card the longest prompt's
+    prefill and the int8 decode step are profiled and added to
+    ``roofline`` for the roofline phase.  The keywords shrink it for a
+    rehearsal on the CPU (the kernel's plain version, no counts, no
+    times)."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_ffma,
@@ -6151,8 +6184,24 @@ def qwen_phase(card, dev, wrappers, *, cfg=None,
     max_len = max(min_len, max(lens) + QWEN_MAX_NEW)
     longest = torch.tensor([prompts[lens.index(max(lens))]], device=dev)
     reset_peak()
-    with torch.no_grad():
-        tr.forward(params, {"tokens": longest}, cfg, mode="prefill")
+
+    def prefill_longest(p, batch):
+        with torch.no_grad():
+            return tr.forward(p, batch, cfg, mode="prefill")
+    if on_card:
+        # profiled: the roofline phase reads this prefill
+        reading = StepReading(dev, (params, longest))
+        prof = profile(lambda: prefill_longest(params, {"tokens": longest}),
+                       1, f"{QWEN_ARCH} prefills of {longest.shape[1]} "
+                       f"tokens", (), flops=True, warmup=False,
+                       before=reading.start)
+        if roofline is not None:
+            roofline[f"{QWEN_ARCH} prefill ({longest.shape[1]} tokens)"] = \
+                dict(fn=prefill_longest,
+                     args=(to_meta(params), to_meta({"tokens": longest})),
+                     measured=reading.stop(prof))
+    else:
+        prefill_longest(params, {"tokens": longest})
     sync()
     if on_card:
         total = torch.cuda.get_device_properties(dev).total_memory
@@ -6341,12 +6390,24 @@ def qwen_phase(card, dev, wrappers, *, cfg=None,
         with torch.no_grad():
             tr.decode_step(params, cache, dtoks[0, :n], lengths8[:n], cfg)
     if on_card:
+        reading = StepReading(dev, (params, cache8))
         with annotated(attention, "decode_attention", QWEN_RANGES[0]), \
                 annotated(attention, "dequantize_kv", QWEN_RANGES[1]):
             out["int8_profile"] = profile(
                 lambda: one_step(cache8, n_slots), 1,
                 f"{QWEN_ARCH} decode steps of {n_slots} slots from the "
-                f"int8 cache", QWEN_RANGES)
+                f"int8 cache", QWEN_RANGES, flops=True,
+                before=reading.start)
+        if roofline is not None:
+            def decode_step(p, cache, tokens, lengths):
+                with torch.no_grad():
+                    return tr.decode_step(p, cache, tokens, lengths, cfg)
+            roofline[f"{QWEN_ARCH} decode step ({n_slots} slots of the "
+                     f"int8 cache of {rows} rows)"] = dict(
+                fn=decode_step, args=(to_meta(params), to_meta(cache8),
+                                      to_meta(dtoks[0, :n_slots]),
+                                      to_meta(lengths8[:n_slots])),
+                measured=reading.stop(out["int8_profile"]))
     step8 = statistics.median(ms8)
     bound8 = (weight_bytes - embed_bytes + int8_bytes) / PEAK_HBM_BYTES * 1e3
     print(f"{QWEN_ARCH} decode from the int8 cache: {steps} greedy steps "
@@ -6459,6 +6520,201 @@ def qwen_phase(card, dev, wrappers, *, cfg=None,
     out["sub_phase_s"] = laps
     print(f"qwen phase: {out['seconds']:.1f} s (" + ", ".join(
         f"{k} {x:.1f}" for k, x in laps.items()) + ")")
+    check(not failed, "; ".join(failed))
+    return out
+
+
+# -- the roofline: the dry-run's counts held against the card ---------------
+
+# The roofline phase counts, on meta tensors (repro_torch/utils/opcount.py,
+# the dry-run's counter), the steps that the llm_train and qwen phases ran
+# at full width on the card (Gemma-7B's train step, Qwen1.5-32B's prefill
+# of the longest prompt and its decode step from the int8 cache), and holds
+# each count against the card's reading of the same step, taken around a
+# profile those phases make anyway: the product ops' FLOPs (mm, addmm, bmm,
+# baddbmm) against torch.profiler's with_flops FLOPs of the same ops, those
+# that ran (``profile``), at ROOFLINE_FLOPS_TOL relative; the
+# flash launches by kernel and (dtype, dk, dv) equal; the counted temp
+# bytes (the peak of live storages less the arguments) over what the step
+# allocated beyond what the card held as it began (max_memory_allocated
+# less memory_allocated before the step) inside ROOFLINE_TEMP, and the
+# counted peak (arguments + temp) over the step's peak less what the card
+# held besides its arguments inside ROOFLINE_PEAK (on a serving step the
+# arguments are nearly all of the peak: the temp gate is the one that reads
+# the temp count); and the roofline bound of the counts at the H100's
+# data-sheet rates (utils/roofline.py H100: no collectives on one card) at
+# most ROOFLINE_SHARE of the device time the profiler measured for the step
+# (a higher share means the counts exceed what the card did; a step the
+# profiler saw no device time for fails).
+ROOFLINE_FLOPS_TOL = 1e-6
+ROOFLINE_TEMP = (0.9, 1.1)
+ROOFLINE_PEAK = (0.8, 1.25)
+ROOFLINE_SHARE = 1.05
+
+
+def to_meta(tree):
+    """A nested dict or tuple of tensors as ``meta`` tensors of the same
+    shapes and dtypes (no data, nothing allocated)."""
+    if isinstance(tree, dict):
+        return {k: to_meta(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_meta(v) for v in tree)
+    return tree.to("meta")
+
+
+def storage_bytes(tree) -> int:
+    """The bytes of the distinct storages of a nested dict or tuple of
+    tensors."""
+    seen: dict = {}
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, (tuple, list)):
+            for v in t:
+                walk(v)
+        else:
+            st = t.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+    walk(tree)
+    return sum(seen.values())
+
+
+def flash_snapshot() -> dict:
+    """``{"<kernel> <dtype>/<dk>/<dv>": launches}`` of both flash
+    launchers' counts by geometry, as the dry-run's counts name them."""
+    from repro_torch.kernels.flash_attention import (flash_attention_ffma,
+                                                     flash_attention_wgmma)
+    snap = {}
+    for fn in (flash_attention_wgmma, flash_attention_ffma):
+        for (dt, dk, dv), n in fn.launches_by_geometry.items():
+            dtype = str(dt).removeprefix("torch.")
+            snap[f"{fn.__name__} {dtype}/{dk}/{dv}"] = n
+    return snap
+
+
+class StepReading:
+    """The card's reading of one profiled step for the roofline phase:
+    ``start`` (a ``profile(..., before=)`` hook, after the warm-up) resets
+    the peak and snapshots the flash counts; ``stop(prof)`` gives the
+    step's temp bytes (``max_memory_allocated`` less what the card held
+    as the step began) and peak (the same less what the card held beside
+    the step's arguments ``args``), its flash launches by geometry, and
+    the profile's product FLOPs and device ms a run."""
+
+    def __init__(self, dev, args):
+        self.dev = dev
+        self.arg_bytes = storage_bytes(args)
+
+    def start(self) -> None:
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        self.held = torch.cuda.memory_allocated(self.dev)
+        self.snap = flash_snapshot()
+
+    def stop(self, prof: dict) -> dict:
+        raw = torch.cuda.max_memory_allocated(self.dev)
+        now = flash_snapshot()
+        launches = {k: n - self.snap.get(k, 0) for k, n in now.items()
+                    if n != self.snap.get(k, 0)}
+        return dict(peak_bytes=raw - (self.held - self.arg_bytes),
+                    temp_bytes=raw - self.held,
+                    raw_peak_bytes=raw, held_bytes=self.held,
+                    arg_bytes=self.arg_bytes, launches=launches,
+                    dot_flops=prof.get("dot_flops_per_run"),
+                    dot_flops_recorded=prof.get("dot_flops_recorded_per_run"),
+                    device_ms=prof.get("device_ms_per_run"))
+
+
+def roofline_phase(card: str, steps: dict) -> dict:
+    """Count each step of ``steps`` (``{label: {"fn", "args" (meta
+    tensors), "measured" (StepReading.stop)}}``) on meta and gate it
+    against the card's reading (see ROOFLINE_*).  Prints a line a step
+    and returns the counts and the readings."""
+    from repro_torch.utils.opcount import count
+    from repro_torch.utils.roofline import H100
+    t_phase = time.perf_counter()
+    out: dict = {"steps": {}}
+    failed: list = []
+    check(bool(steps), "the roofline phase has no step to count")
+    for label, st in steps.items():
+        m = st["measured"]
+        check(bool(m["device_ms"]), f"the roofline phase, {label}: the "
+              f"profiler saw no device time")
+        rec = count(st["fn"], *st["args"])
+        counted = {f"{k} {g}": n for k, r in rec.kernels.items()
+                   for g, n in r["launches"].items()}
+        dot = rec.op_flops()
+        prof_flops = m["dot_flops"]
+        flops_rel = abs(dot - prof_flops) / max(prof_flops, 1.0) \
+            if prof_flops is not None else float("inf")
+        temp_ratio = rec.memory["temp_bytes"] / m["temp_bytes"]
+        peak_ratio = rec.memory["peak_bytes"] / m["peak_bytes"]
+        compute_ms = rec.flops / H100.peak_flops * 1e3
+        memory_ms = rec.bytes / H100.hbm_bw * 1e3
+        bound_ms = max(compute_ms, memory_ms)
+        measured_ms = m["device_ms"]
+        share = bound_ms / measured_ms
+        useful = sum(r["useful_flops"] for r in rec.kernels.values())
+        row = dict(counted_dot_flops=dot, profiler_dot_flops=prof_flops,
+                   flops_rel=flops_rel, flops=rec.flops, bytes=rec.bytes,
+                   flash_flops=sum(r["flops"] for r in rec.kernels.values()),
+                   flash_useful_flops=useful, launches_counted=counted,
+                   launches_card=m["launches"], memory=rec.memory,
+                   temp_ratio=temp_ratio, peak_ratio=peak_ratio,
+                   compute_ms=compute_ms,
+                   memory_ms=memory_ms, bound_ms=bound_ms,
+                   bound_by="operations" if compute_ms >= memory_ms
+                   else "bytes", measured_ms=measured_ms, share=share, count_s=rec.seconds, card=m)
+        out["steps"][label] = row
+        print(f"roofline, {label}: counted on meta in {rec.seconds:.1f} s "
+              f"({len(rec.ops)} aten ops)")
+        recorded = m["dot_flops_recorded"]
+        print(f"  products' FLOPs: counted {dot:.6e}, torch.profiler "
+              f"(with_flops, the ops that ran) "
+              f"{prof_flops if prof_flops is None else f'{prof_flops:.6e}'}"
+              f": relative gap {flops_rel:.3e} (gate {ROOFLINE_FLOPS_TOL:g}); "
+              f"every recorded product op "
+              f"{recorded if recorded is None else f'{recorded:.6e}'} (the "
+              f"recomputes' early-stopped ops among them)")
+        print(f"  flash launches: counted {counted or 'none'}, on the card "
+              f"{m['launches'] or 'none'}; the kernel's counted work "
+              f"{row['flash_flops']:.4e} FLOP (the mask's useful "
+              f"{useful:.4e})")
+        print(f"  temp: counted {rec.memory['temp_bytes'] / 1e9:.3f} GB, "
+              f"the card {m['temp_bytes'] / 1e9:.3f} GB (max_memory_"
+              f"allocated {m['raw_peak_bytes'] / 1e9:.3f} less "
+              f"{m['held_bytes'] / 1e9:.3f} held as the step began): "
+              f"ratio {temp_ratio:.4f} (gate {ROOFLINE_TEMP[0]:g}-"
+              f"{ROOFLINE_TEMP[1]:g})")
+        print(f"  peak: counted {rec.memory['peak_bytes'] / 1e9:.3f} GB "
+              f"(arguments {rec.memory['argument_bytes'] / 1e9:.3f} + temp "
+              f"{rec.memory['temp_bytes'] / 1e9:.3f}), the card "
+              f"{m['peak_bytes'] / 1e9:.3f} GB (max_memory_allocated "
+              f"{m['raw_peak_bytes'] / 1e9:.3f} less "
+              f"{(m['held_bytes'] - m['arg_bytes']) / 1e9:.3f} held "
+              f"beside the arguments): ratio {peak_ratio:.4f} (gate "
+              f"{ROOFLINE_PEAK[0]:g}-{ROOFLINE_PEAK[1]:g})")
+        print(f"  roofline of the counts at {H100.name} rates: compute "
+              f"{compute_ms:.4f} ms ({rec.flops:.4e} FLOP), memory "
+              f"{memory_ms:.4f} ms ({rec.bytes:.4e} B): bound "
+              f"{bound_ms:.4f} ms ({row['bound_by']}); measured "
+              f"{measured_ms:.4f} ms (device): share "
+              f"{share:.4f} (at most {ROOFLINE_SHARE:g}) [{card}]")
+        if not flops_rel <= ROOFLINE_FLOPS_TOL:
+            failed.append(f"{label}: FLOPs {dot} counted, {prof_flops} "
+                          f"profiled")
+        if counted != m["launches"]:
+            failed.append(f"{label}: flash launches {counted} counted, "
+                          f"{m['launches']} on the card")
+        if not ROOFLINE_TEMP[0] <= temp_ratio <= ROOFLINE_TEMP[1]:
+            failed.append(f"{label}: temp ratio {temp_ratio:.4f}")
+        if not ROOFLINE_PEAK[0] <= peak_ratio <= ROOFLINE_PEAK[1]:
+            failed.append(f"{label}: peak ratio {peak_ratio:.4f}")
+        if not share <= ROOFLINE_SHARE:
+            failed.append(f"{label}: share of the bound {share:.4f}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"roofline phase: {out['seconds']:.1f} s")
     check(not failed, "; ".join(failed))
     return out
 
@@ -10063,8 +10319,9 @@ def main(argv=None) -> int:
     llm = record["llm"] = llm_serving(card, dev, wrappers)
     phase_done("Gemma-7B serving")
     # -- 9b. LLM training: full-width Gemma-7B with its depth cut -----------
-    llm_train = record["llm_train"] = llm_train_phase(card, dev, wrappers,
-                                                      kernel_errs)
+    roofline_steps: dict = {}
+    llm_train = record["llm_train"] = llm_train_phase(
+        card, dev, wrappers, kernel_errs, roofline=roofline_steps)
     phase_done("llm_train")
     # -- 9c. Gemma3-4B: sliding-window and global layers --------------------
     gemma3 = record["gemma3"] = gemma3_phase(card, dev, wrappers)
@@ -10082,8 +10339,13 @@ def main(argv=None) -> int:
     enc = record["encoder_vlm"] = encoder_vlm_phase(card, dev, wrappers)
     phase_done("encoder_vlm")
     # -- 9h. Qwen1.5-32B at full width: served, decoded from an int8 cache --
-    qwen = record["qwen"] = qwen_phase(card, dev, wrappers)
+    qwen = record["qwen"] = qwen_phase(card, dev, wrappers,
+                                       roofline=roofline_steps)
     phase_done("qwen")
+    # -- 9i. the dry-run's counts of those steps against the card ----------
+    record["roofline"] = roofline_phase(card, roofline_steps)
+    roofline_steps.clear()
+    phase_done("roofline")
     # -- 10. programs sharded over two gloo ranks sharing the card ---------
     mesh = record["mesh"] = mesh_phase(card, dev)
     phase_done("mesh")

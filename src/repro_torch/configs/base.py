@@ -19,8 +19,9 @@ from typing import Literal
 
 import torch
 
-__all__ = ["ArchConfig", "BlockDesc", "ShapeSpec", "SHAPES", "register",
-           "get_config", "list_configs", "REGISTRY"]
+__all__ = ["ArchConfig", "BlockDesc", "ShapeSpec", "SHAPES",
+           "cell_supported", "register", "get_config", "list_configs",
+           "REGISTRY"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -111,6 +112,12 @@ class ArchConfig:
     def supports_decode(self) -> bool:
         return self.causal
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if the arch can run 500k-token decode (SSM/hybrid/local)."""
+        return (self.family in ("ssm", "hybrid")
+                or self.local_global_pattern[0] > 0)
+
     def block(self, **over) -> BlockDesc:
         base = dict(
             mixer="mla" if self.mla else ("ssm" if self.ssm and not over.get(
@@ -168,6 +175,16 @@ SHAPES: dict[str, ShapeSpec] = {
     "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
 }
+
+
+def cell_supported(cfg: ArchConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    """Whether (arch × shape) is a runnable dry-run cell, with reason."""
+    if shape.kind == "decode" and not cfg.supports_decode:
+        return False, "encoder-only arch has no decode step"
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "needs sub-quadratic attention (full-attention arch)"
+    return True, ""
+
 
 REGISTRY: dict[str, ArchConfig] = {}
 

@@ -18,7 +18,11 @@ chosen by :func:`kernel_variant` from the dtype and the head dims alone
 :func:`flash_attention_plain` computes the same function in plain
 PyTorch on any device, over the same q and kv tiles, with the same
 causal live-block bound and the same tail masks, so the CPU tests
-exercise the kernels' indexing.
+exercise the kernels' indexing.  :func:`flash_attention_meta` is the
+card's launch as the dry-run sees it on ``meta`` tensors: the same
+launcher's checks and an output of the kernel's shape, with no data,
+reported with the kernel's cost rule (:func:`flash_cost`: the FLOPs of
+the tiles it computes, those the mask keeps, and its bytes).
 
 Layout contract: ``q (B, S, H, dk)``, ``k (B, T, H, dk)`` and ``v (B,
 T, H, dv)`` (MHA: expand GQA first), float32 or bfloat16, the head dim
@@ -58,7 +62,8 @@ __all__ = ["HEAD_DIMS", "SPLIT_HEAD_DIMS", "VARIANTS", "BLOCK_Q",
            "check_tma_operand",
            "flash_attention_plain", "flash_attention_cuda",
            "flash_attention_ffma", "flash_attention_wgmma",
-           "recompute_attention", "FlashAttentionFn"]
+           "flash_attention_meta", "flash_cost", "recompute_attention",
+           "FlashAttentionFn"]
 
 NEG_INF = -1e30
 # the head dims flash_attention_cuda takes with dk == dv: the FFMA kernel
@@ -256,14 +261,17 @@ def _library(variant: str):
     return fn
 
 
-def _check_cuda(q, k, v, softcap: float) -> None:
+def _check_device(q, k, v, softcap: float, device_type: str) -> None:
+    """The operands' checks of a launch on a ``device_type`` device
+    (``"cuda"``; ``"meta"`` for :func:`flash_attention_meta`)."""
     _check(q, k, v)
     _check_softcap(softcap)
     dev = q.device
     for a in (q, k, v):
-        if a.device != dev or not a.is_cuda:
+        if a.device != dev or a.device.type != device_type:
+            where = "CUDA" if device_type == "cuda" else device_type
             raise ValueError(f"flash_attention_cuda takes tensors on one "
-                             f"CUDA device, got {a.device} beside {dev}")
+                             f"{where} device, got {a.device} beside {dev}")
         if a.stride(-1) != 1:
             raise ValueError("flash_attention_cuda takes a contiguous "
                              "head dim")
@@ -282,6 +290,28 @@ def _launch_error(err: int, variant: str) -> RuntimeError:
                         f"failed: {why}")
 
 
+def _ffma_prepare(q, k, v, softcap: float, device_type: str
+                  ) -> torch.Tensor:
+    """The FFMA launch's checks, raising where the kernel cannot run the
+    call, and its output (allocated on q's device)."""
+    kernel_variant(q.dtype, q.shape[-1], v.shape[-1])  # raises off the table
+    if (q.dtype, q.shape[-1], v.shape[-1]) not in FFMA_GEOMETRIES:
+        raise ValueError(f"the FFMA kernel is not built for {q.dtype} at "
+                         f"head dim {q.shape[-1]}: the wgmma kernel takes it")
+    _check_device(q, k, v, softcap, device_type)
+    b, s, h, d = q.shape
+    dv = v.shape[3]
+    if -(-s // BLOCK_Q) > 65535:
+        raise ValueError(f"S = {s} needs more than 65535 q tiles")
+    out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
+    for a in (q, k, v, out):
+        last = sum((n - 1) * st for n, st in zip(a.shape, a.stride()))
+        if last > _INT32_MAX:
+            raise ValueError("flash_attention_cuda indexes with 32-bit "
+                             "offsets; split the batch")
+    return out
+
+
 def flash_attention_ffma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          softcap: float = 0.0) -> torch.Tensor:
@@ -294,22 +324,10 @@ def flash_attention_ffma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`flash_attention_cuda` takes them to the wgmma kernel).  Each
     launch adds one to ``flash_attention_ffma.launches`` and to
     ``flash_attention_ffma.launches_by_geometry[(dtype, dk, dv)]``."""
-    kernel_variant(q.dtype, q.shape[-1], v.shape[-1])  # raises off the table
-    if (q.dtype, q.shape[-1], v.shape[-1]) not in FFMA_GEOMETRIES:
-        raise ValueError(f"the FFMA kernel is not built for {q.dtype} at "
-                         f"head dim {q.shape[-1]}: the wgmma kernel takes it")
-    _check_cuda(q, k, v, softcap)
+    out = _ffma_prepare(q, k, v, softcap, "cuda")
     b, s, h, d = q.shape
     t, dv = k.shape[1], v.shape[3]
-    if -(-s // BLOCK_Q) > 65535:
-        raise ValueError(f"S = {s} needs more than 65535 q tiles")
     dev = q.device
-    out = torch.empty((b, s, h, dv), dtype=q.dtype, device=dev)
-    for a in (q, k, v, out):
-        last = sum((n - 1) * st for n, st in zip(a.shape, a.stride()))
-        if last > _INT32_MAX:
-            raise ValueError("flash_attention_cuda indexes with 32-bit "
-                             "offsets; split the batch")
     strides = (ctypes.c_int * 12)(*(st for a in (q, k, v, out)
                                     for st in a.stride()[:3]))
     fn = _library("ffma")
@@ -327,6 +345,31 @@ def flash_attention_ffma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _wgmma_prepare(q, k, v, softcap: float, device_type: str
+                   ) -> tuple[torch.Tensor, list]:
+    """The wgmma launch's checks, raising where the kernel cannot run
+    the call, its output (allocated on q's device) and the TMA strides
+    of q, k, v and the output."""
+    geometry = (q.dtype, q.shape[-1], v.shape[-1])
+    if geometry not in WGMMA_GEOMETRIES:
+        elsewhere = (": it runs on the FFMA kernel (flash_attention_ffma)"
+                     if geometry in FFMA_GEOMETRIES else "")
+        raise ValueError(f"the wgmma kernel takes bfloat16 at head dims "
+                         f"64, 80, 128 and 256 (dk == dv) and at (dk, dv) "
+                         f"(96, 64), got {q.dtype} at dk {q.shape[-1]}, dv "
+                         f"{v.shape[-1]}{elsewhere}")
+    _check_device(q, k, v, softcap, device_type)
+    b, s, h, d = q.shape
+    dv = v.shape[3]
+    if -(-s // WGMMA_BLOCK_Q) > 65535 or b * h > _INT32_MAX:
+        raise ValueError(f"B*H = {b * h}, S = {s}: too large a grid")
+    strides = [check_tma_operand(n, a) for n, a in (("q", q), ("k", k),
+                                                    ("v", v))]
+    out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
+    strides.append(check_tma_operand("out", out))
+    return out, strides
+
+
 def flash_attention_wgmma(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, causal: bool = True,
                           softcap: float = 0.0) -> torch.Tensor:
@@ -337,24 +380,11 @@ def flash_attention_wgmma(q: torch.Tensor, k: torch.Tensor,
     addresses TMA takes (:func:`check_tma_operand`).  Each launch adds
     one to ``flash_attention_wgmma.launches`` and to
     ``flash_attention_wgmma.launches_by_geometry[(dtype, dk, dv)]``."""
-    geometry = (q.dtype, q.shape[-1], v.shape[-1])
-    if geometry not in WGMMA_GEOMETRIES:
-        elsewhere = (": it runs on the FFMA kernel (flash_attention_ffma)"
-                     if geometry in FFMA_GEOMETRIES else "")
-        raise ValueError(f"the wgmma kernel takes bfloat16 at head dims "
-                         f"64, 80, 128 and 256 (dk == dv) and at (dk, dv) "
-                         f"(96, 64), got {q.dtype} at dk {q.shape[-1]}, dv "
-                         f"{v.shape[-1]}{elsewhere}")
-    _check_cuda(q, k, v, softcap)
+    out, strides = _wgmma_prepare(q, k, v, softcap, "cuda")
     b, s, h, d = q.shape
     t, dv = k.shape[1], v.shape[3]
-    if -(-s // WGMMA_BLOCK_Q) > 65535 or b * h > _INT32_MAX:
-        raise ValueError(f"B*H = {b * h}, S = {s}: too large a grid")
-    strides = [check_tma_operand(n, a) for n, a in (("q", q), ("k", k),
-                                                    ("v", v))]
+    geometry = (q.dtype, d, dv)
     dev = q.device
-    out = torch.empty((b, s, h, dv), dtype=q.dtype, device=dev)
-    strides.append(check_tma_operand("out", out))
     c_strides = (ctypes.c_longlong * 12)(*(st for sts in strides
                                            for st in sts))
     fn = _library("wgmma")
@@ -398,6 +428,76 @@ flash_attention_ffma.launches = 0
 flash_attention_ffma.launches_by_geometry = {}
 flash_attention_wgmma.launches = 0
 flash_attention_wgmma.launches_by_geometry = {}
+
+
+def _live_pairs(s: int, t: int, block_q: int, block_k: int,
+               causal: bool) -> int:
+    """The (query, key) pairs of the tiles a launch computes: each q
+    tile of ``block_q`` rows against the kv tiles up to its causal
+    live-block bound (every kv tile when not ``causal``), masked entries
+    of a diagonal tile included, as :func:`flash_attention_plain`
+    bounds them."""
+    if not causal:
+        return s * t
+    n_kv = -(-t // block_k)
+    pairs = 0
+    for q0 in range(0, s, block_q):
+        n_live = min((q0 + block_q + block_k - 1) // block_k, n_kv)
+        pairs += min(block_q, s - q0) * min(n_live * block_k, t)
+    return pairs
+
+
+def _useful_pairs(s: int, t: int, causal: bool) -> int:
+    """The (query, key) pairs the mask lets through: ``min(i + 1, T)``
+    keys for query ``i`` when ``causal``, else all ``S·T``."""
+    if not causal:
+        return s * t
+    m = min(s, t)
+    return m * (m + 1) // 2 + (s - m) * t
+
+
+def flash_cost(b: int, s: int, t: int, h: int, dk: int, dv: int,
+               dtype: torch.dtype, causal: bool) -> dict:
+    """The cost rule of one launch of the kernel that
+    :func:`kernel_variant` picks for ``dtype`` at (``dk``, ``dv``), on
+    q (B, S, H, dk), k (B, T, H, dk), v (B, T, H, dv): ``flops``
+    2·(dk + dv)·B·H·:func:`_live_pairs` at its :func:`kernel_tiles`
+    (what it computes), ``useful_flops`` the same over
+    :func:`_useful_pairs` (what the mask keeps), and ``bytes`` q, k and v
+    read once and the output written once."""
+    bq, bk = kernel_tiles(dtype, dk, dv)
+    per_pair = 2.0 * (dk + dv) * b * h
+    size = torch.empty((), dtype=dtype).element_size()
+    return {"flops": per_pair * _live_pairs(s, t, bq, bk, causal),
+            "useful_flops": per_pair * _useful_pairs(s, t, causal),
+            "bytes": float(size * b * h * (s * dk + t * dk + t * dv
+                                           + s * dv))}
+
+
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         softcap: float = 0.0) -> torch.Tensor:
+    """What :func:`flash_attention_cuda` does with ``meta`` tensors, for
+    the dry-run: the same launcher's checks, so a call the card's kernel
+    refuses raises here too (the variant table, the grid, TMA's strides
+    for the wgmma kernel, 32-bit offsets for the FFMA one), and an
+    output of the kernel's shape and dtype, with no data.  The launch is
+    reported to the counts in progress (``utils.opcount.record_kernel``)
+    with the kernel's cost rule (:func:`flash_cost`)."""
+    from repro_torch.utils.opcount import record_kernel
+    variant = kernel_variant(q.dtype, q.shape[-1], v.shape[-1])
+    if variant == "wgmma":
+        out, _ = _wgmma_prepare(q, k, v, softcap, "meta")
+    else:
+        out = _ffma_prepare(q, k, v, softcap, "meta")
+    b, s, h, dk = q.shape
+    t, dv = k.shape[1], v.shape[3]
+    cost = flash_cost(b, s, t, h, dk, dv, q.dtype, causal)
+    record_kernel(f"flash_attention_{variant}",
+                  f"{str(q.dtype).removeprefix('torch.')}/{dk}/{dv}",
+                  flops=cost["flops"], useful_flops=cost["useful_flops"],
+                  nbytes=cost["bytes"])
+    return out
 
 
 def recompute_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

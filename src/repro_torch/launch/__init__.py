@@ -1,2 +1,3 @@
-"""Launchers: the LLM stack's command line (:mod:`.serve`) and the
-device mesh with its launcher of ranks (:mod:`.mesh`)."""
+"""Launchers: the LLM stack's command line (:mod:`.serve`), the device
+mesh with its launcher of ranks (:mod:`.mesh`), and the production
+cells' plans (:mod:`.specs`) and dry-run (:mod:`.dryrun`)."""

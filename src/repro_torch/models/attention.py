@@ -76,6 +76,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig, BlockDesc
 from repro_torch.kernels.flash_attention import (FlashAttentionFn,
                                                  flash_attention_cuda,
+                                                 flash_attention_meta,
                                                  flash_attention_plain)
 from repro_torch.models.common import (PSpec, apply_rope, rms_norm,
                                        rope_angles)
@@ -219,12 +220,15 @@ def flash_attention(q, k, v, *, causal: bool = True,
     the repeats), then the kernel runs on a CUDA tensor and its plain
     version on a CPU one, each looked up here at call time, through
     :class:`FlashAttentionFn`; ``softcap`` > 0 soft-caps the scores in
-    the kernel."""
+    the kernel.  On ``meta`` tensors (the dry-run) it is the kernel's
+    launch as ``flash_attention_meta`` checks and counts it, never the
+    plain version."""
     rep = q.shape[2] // k.shape[2]
     if rep > 1:
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
-    attend = flash_attention_cuda if q.is_cuda else flash_attention_plain
+    attend = flash_attention_cuda if q.is_cuda else \
+        flash_attention_meta if q.is_meta else flash_attention_plain
     return FlashAttentionFn.apply(q, k, v, causal, attend, softcap)
 
 

@@ -220,7 +220,12 @@ def _aux(r, logits: torch.Tensor, e: int, k: int, data=None) -> dict:
     probs = r.probs.reshape(-1, e)
     t = probs.shape[0]
     me = probs.mean(dim=0)
-    ce = torch.bincount(r.idx.reshape(-1), minlength=e).float() / (t * k)
+    # each expert's count of choices: a bincount of e bins (a sum of
+    # integers, exact in any order), shaped without reading the indices
+    idx = r.idx.reshape(-1)
+    ce = torch.zeros(e, dtype=torch.int64, device=idx.device).scatter_add_(
+        0, idx.long(), torch.ones_like(idx, dtype=torch.int64)).float() \
+        / (t * k)
     z = torch.logsumexp(logits.reshape(-1, e), dim=-1).square().mean()
     lb = _load_balance(me, ce, e, data)
     if data is not None:

@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any
 
 import torch
@@ -515,9 +516,10 @@ def forward(params, batch, cfg: ArchConfig, *, mode: str = "train",
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class _OnMesh:
-    """A forward's place on ``RunFlags.mesh``: the ``model`` and ``data``
-    groups where they span more than one rank, and ``(data group, this
-    rank's data index)`` for the sequence-sharded decode."""
+    """A forward's place on ``RunFlags.mesh``: the ``model`` group and
+    the batch's (``data``, with ``pod`` on a mesh that has it) where
+    they span more than one rank, and ``(data group, this rank's data
+    index)`` for the sequence-sharded decode."""
     tp: TensorGroup | None
     data: TensorGroup | None
     seq_shard: tuple | None
@@ -533,9 +535,13 @@ def _on_mesh(cfg: ArchConfig, mode: str, flags: RunFlags):
     sizes = axis_sizes(mesh)
     seq = (mesh.get_group("data"), mesh.get_local_rank("data")) \
         if flags.seq_shard_decode and mode == "decode" else None
+    # the batch is split over data, and over the pods of a mesh with a
+    # pod axis (the reference's batch axes)
+    batch = [a for a in ("pod", "data") if a in sizes]
     return _OnMesh(
         tp=TensorGroup.of(mesh, "model") if sizes["model"] > 1 else None,
-        data=TensorGroup.of(mesh, "data") if sizes["data"] > 1 else None,
+        data=TensorGroup.over(mesh, batch)
+        if math.prod(sizes[a] for a in batch) > 1 else None,
         seq_shard=seq)
 
 

@@ -59,7 +59,8 @@ pinned host memory (:func:`staged`).  A staged call records
 ``mesh.staged``.  ``tools/gloo_cuda_probe.py`` reads the table off the
 card.  Every call counts ``mesh.collectives`` (label ``op``) and, with
 tracing on, records a ``mesh.collective`` span (``op``, ``axis``,
-``bytes``, the rank count ``ranks``).
+``bytes``, the rank count ``ranks``); a count of a step in progress
+(``utils/opcount.py``) gets its kind, bytes and group.
 
 Only APIs of both torch 2.11 and 2.13: the list form of ``all_gather``
 (``all_gather_into_tensor`` warns of deprecation on 2.13), ``all_reduce``,
@@ -76,10 +77,11 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import obs as _obs
+from repro_torch.utils.opcount import record_collective
 
-__all__ = ["MeshAxes", "TensorGroup", "GLOO_CUDA", "staged", "all_gather", "all_reduce",
-           "broadcast", "p2p_start", "gather_channels", "gather_batch",
-           "shard_batch", "sum_grad", "rows", "reduce_from_model",
+__all__ = ["MeshAxes", "TensorGroup", "axes_group", "GLOO_CUDA", "staged",
+           "all_gather", "all_reduce", "broadcast", "p2p_start",
+           "gather_channels", "gather_batch", "shard_batch", "sum_grad", "rows", "reduce_from_model",
            "reduce_scatter", "model_sum", "leaf_whole", "leaf_part",
            "vocab_embed", "vocab_logsumexp", "vocab_pick",
            "release_staging", "shares_card"]
@@ -140,6 +142,35 @@ class TensorGroup:
                    size=int(mesh.size(mesh.mesh_dim_names.index(axis))),
                    index=int(mesh.get_local_rank(axis)))
 
+    @classmethod
+    def over(cls, mesh, axes) -> "TensorGroup":
+        """The group of the ranks that differ from this one only on
+        ``axes`` (:func:`axes_group`), its size and this rank's index on
+        it (the axes in the mesh's order, the first the major)."""
+        names = [a for a in mesh.mesh_dim_names if a in axes]
+        if len(names) == 1:
+            return cls.of(mesh, names[0])
+        size, index = 1, 0
+        for a in names:
+            n = int(mesh.size(mesh.mesh_dim_names.index(a)))
+            size, index = size * n, index * n + int(mesh.get_local_rank(a))
+        return cls(group=axes_group(mesh, names), size=size, index=index)
+
+
+def axes_group(mesh, axes):
+    """The process group of this rank and the ranks that differ from it
+    only on the ``DeviceMesh`` ``mesh``'s ``axes``: one axis's group,
+    the whole world where ``axes`` are all of the mesh's, else the
+    group of the sub-mesh over ``axes`` flattened (on a mesh with a
+    ``pod`` axis: its ``("pod", "data")`` or ``("data", "model")``
+    ranks)."""
+    names = tuple(a for a in mesh.mesh_dim_names if a in axes)
+    if len(names) == 1:
+        return mesh.get_group(names[0])
+    if len(names) == len(mesh.mesh_dim_names):
+        return dist.group.WORLD
+    return mesh[names]._flatten().get_group()
+
 
 def rows(n: int, parts: int, index: int) -> tuple[int, int]:
     """``[lo, hi)`` of part ``index`` of ``n`` rows split evenly in
@@ -166,6 +197,7 @@ def _host(t: torch.Tensor) -> torch.Tensor:
 
 def _span(op: str, t: torch.Tensor, group, axis: str | None, how: str,
           **extra):
+    record_collective(op, t, group)
     _obs.counter("mesh.collectives", op=op).inc()
     if how == "host":
         _obs.counter("mesh.staged", op=op).inc()

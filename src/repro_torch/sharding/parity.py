@@ -48,7 +48,8 @@ the card).  Each case is a dict with a ``name`` and a ``kind``:
   columns) and cache (its slots and heads);
 * ``lm_train``: the LLM's ``make_train_step`` with the reference's
   ``build_cell`` shardings (:func:`~repro_torch.launch.train.
-  train_shardings`) through ``TrainLoop`` (``ckpt_every`` and
+  train_shardings`) on a ``(data, model)`` mesh, or a ``(pod, data,
+  model)`` one where ``mesh`` has three sizes, through ``TrainLoop`` (``ckpt_every`` and
   ``fail_at`` as ``train``'s) or step by step: each step's metrics,
   and the state gathered whole (``return_state``) or held against a
   checkpoint of the one-device state (``ref_dir``) by each updated
@@ -56,7 +57,8 @@ the card).  Each case is a dict with a ``name`` and a ``kind``:
   partials not summed over ``model`` (``"wo not summed"``), the
   gradient norm of the rank's blocks only (``"local norm"``), the
   gradients summed, not averaged, over ``data`` (``"grads summed"``),
-  the MoE combine not summed over ``model``, MLA's ``q_norm`` RMS over
+  each pod's gradients never averaged over the pods (``"pods not
+  averaged"``), the MoE combine not summed over ``model``, MLA's ``q_norm`` RMS over
   each rank's half of ``q_lora``, the SSM gated norm over each rank's
   half of ``d_inner``, ``aux_lb`` as the mean of the data ranks'
   products, or a rank's last padded heads taken for its real ones ("pad
@@ -86,6 +88,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import io
+import math
 import os
 import time
 import warnings
@@ -704,6 +707,10 @@ FAULTS = {
     "grads summed": ("repro_torch.train.train_state", "average_over_data",
                      lambda orig: lambda g, c, m, group, n:
                      orig(g, c, m, group, 1)),
+    # each pod's gradients kept, never averaged over the pods
+    "pods not averaged": ("repro_torch.train.train_state",
+                          "average_over_pods",
+                          lambda orig: lambda g, group, n: g),
     # the MoE combine left on each rank: only its own experts' outputs
     "moe combine not summed": (
         "repro_torch.models.moe", "reduce_from_model",
@@ -989,11 +996,24 @@ def _one_device(case, cfg, dev, specs: dict, mesh) -> dict | None:
     return out
 
 
+def _lm_mesh(case, dev):
+    """The case's mesh: ``(data, model)`` (:func:`~repro_torch.launch.
+    mesh.make_local_mesh`), or ``(pod, data, model)``, the multi-pod
+    production mesh's axes, over the first ranks."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.launch.mesh import make_local_mesh
+    shape = tuple(case["mesh"])
+    if len(shape) == 2:
+        return make_local_mesh(*shape, device_type=dev.type)
+    return DeviceMesh(dev.type, torch.arange(math.prod(shape)).reshape(
+        shape), mesh_dim_names=("pod", "data", "model"))
+
+
 def _lm_train(case, dev):
     from repro_torch.configs.base import ArchConfig
-    from repro_torch.launch.mesh import make_local_mesh
     cfg = ArchConfig(**case["cfg"])
-    mesh = make_local_mesh(*case["mesh"], device_type=dev.type)
+    mesh = _lm_mesh(case, dev)
     step = _lm_step(case, cfg, mesh)
     one = _one_device(case, cfg, dev, step.state_specs["params"], mesh)
     state = _state_blocks(_lm_params(case, cfg, dev), step, mesh, dev)

@@ -28,9 +28,9 @@ import math
 from typing import Callable
 
 import torch
-import torch.distributed as dist
 
-from repro_torch.sharding.collectives import all_gather, all_reduce
+from repro_torch.sharding.collectives import (all_gather, all_reduce,
+                                              axes_group)
 from repro_torch.sharding.rules import spec_axes_used, spec_leaves
 from repro_torch.train.checkpoint import tree_leaves
 
@@ -93,14 +93,6 @@ def adamw_init(params) -> dict:
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def _group(mesh, axes: frozenset):
-    """The process group of the ranks whose blocks of a leaf split over
-    ``axes`` differ: one axis's group, or the whole world for both."""
-    if len(axes) == 1:
-        return mesh.get_group(next(iter(axes)))
-    return dist.group.WORLD
-
-
 def global_norm(tree, specs: dict | None = None, mesh=None
                 ) -> torch.Tensor:
     """sqrt of the sum over the leaves of their f32 sums of squares.
@@ -121,7 +113,7 @@ def global_norm(tree, specs: dict | None = None, mesh=None
     total = 0.0
     for axes, sq in sorted(parts.items(), key=lambda kv: sorted(kv[0])):
         total = total + (sq if not axes else
-                         all_reduce(sq, _group(mesh, axes), "+".join(
+                         all_reduce(sq, axes_group(mesh, axes), "+".join(
                              sorted(axes))))
     return torch.sqrt(total)
 

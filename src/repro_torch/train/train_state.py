@@ -15,7 +15,9 @@ are gathered over ``data`` to the compute layout (tensor-parallel only)
 and cast to the activation dtype; the loss is differentiated with
 respect to that compute copy; the gradients, carried in f32, are
 averaged over ``data`` and cut back to the masters' blocks (a
-reduce-scatter); AdamW updates the rank's blocks.
+reduce-scatter), and on a mesh with a ``pod`` axis (the reference's
+multi-pod mesh, whose pods hold replicas of the state) also averaged
+over the pods; AdamW updates the rank's blocks.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
                                          adamw_update, cosine_schedule)
 
 __all__ = ["init_train_state", "make_train_step", "moment_specs",
-           "state_specs", "average_over_data"]
+           "state_specs", "average_over_data", "average_over_pods"]
 
 
 def init_train_state(cfg: ArchConfig, gen: torch.Generator,
@@ -99,6 +101,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
         m_specs = spec_leaves(master_shardings)
         data = mesh.get_group("data")
         n_data = axis_sizes(mesh)["data"]
+        # a mesh with a pod axis: the pods hold replicas of the state
+        n_pod = axis_sizes(mesh).get("pod", 1)
+        pod = mesh.get_group("pod") if n_pod > 1 else None
 
     def gathered(t, c_spec, m_spec):
         """A master block gathered over ``data`` to the compute layout."""
@@ -147,10 +152,14 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
             total = total / grad_accum
             metrics = {k: torch.stack([m[k] for m in per_mb]).mean()
                        for k in per_mb[0]}
-        if mesh is not None and n_data > 1:
+        if mesh is not None and (n_data > 1 or pod is not None):
             # leaf by leaf, each whole gradient freed as its block lands
             for i, (c, m) in enumerate(zip(c_specs, m_specs)):
-                grads[i] = average_over_data(grads[i], c, m, data, n_data)
+                if n_data > 1:
+                    grads[i] = average_over_data(grads[i], c, m, data,
+                                                 n_data)
+                if pod is not None:
+                    grads[i] = average_over_pods(grads[i], pod, n_pod)
         return total, metrics, tree_unflatten(master, grads)
 
     def train_step(state, batch):
@@ -187,6 +196,12 @@ def average_over_data(g: torch.Tensor, c_spec: tuple, m_spec: tuple,
     g = reduce_scatter(g, group, dims[0]) if dims \
         else all_reduce(g, group, "data")
     return g.div_(n)
+
+
+def average_over_pods(g: torch.Tensor, group, n: int) -> torch.Tensor:
+    """The ``n`` pods' f32 gradients ``g`` of one block averaged (the
+    pods hold replicas of the state): an ``all_reduce``."""
+    return all_reduce(g, group, "pod").div_(n)
 
 
 def state_specs(cfg: ArchConfig, master_shardings: dict, mesh) -> dict:

@@ -59,7 +59,10 @@ cases, world 4 the ``(2, 2)`` ones.  The cases mirror
     with a failure that makes every rank restore the checkpoint rank 0
     wrote), (1, 2) and (2, 2), and ``grad_accum=2`` at (2, 1): loss,
     ``grad_norm`` and each leaf's update at ``LM_TRAIN_TOL``, against
-    one jitted reference step a ``grad_accum``;
+    one jitted reference step a ``grad_accum``; the same two steps at
+    world 4 on the ``(pod, data, model)`` meshes (2, 1, 2) and (2, 2, 1)
+    (the batch over pod and data, the gradients averaged over the pods),
+    and OLMoE's at (2, 2, 1), its routing groups spanning the pods;
   - a tiny HuBERT, one step at (2, 1), the ranks' label masks holding
     different counts (the loss over the global count);
   - ``tiny(qwen1.5-32b, float32, n_kv_heads=4)`` (vocab 97, padded to
@@ -75,7 +78,8 @@ cases, world 4 the ``(2, 2)`` ones.  The cases mirror
     restored state;
   - the planted faults (``parity.FAULTS``): ``wo``'s partials not summed
     over ``model``, the norm of the rank's blocks only, the gradients
-    summed over ``data``, each far above the gate;
+    summed over ``data``, each pod's gradients not averaged over the
+    pods (at (2, 1, 2)), each far above the gate;
   - in this process: an SSM head split over ``model`` raises
     ``ValueError``, ``make_batch_fn(shardings=...)`` cuts each rank's
     rows, ``init_cache`` on a mesh gives each rank its blocks;
@@ -178,6 +182,8 @@ LM_OPT = dict(peak_lr=1e-2, warmup_steps=2, total_steps=10, grad_clip=0.5,
               eps=1e-3)
 LM_TRAIN_TOL = 1e-4
 LM_TRAIN_MESHES = {2: ((2, 1), (1, 2)), 4: ((2, 2),)}
+# the (pod, data, model) meshes of world 4: the multi-pod mesh's axes
+LM_POD_MESHES = ((2, 1, 2), (2, 2, 1))
 # the seq-sharded decode of the windowed Gemma3: rows a slot, filled
 # steps, the slots' lengths (window 8: 6..13 on rank 0, 43..50 on rank 1)
 SWA_T, SWA_FILL, SWA_LENS = 64, 50, (13, 50)
@@ -198,6 +204,7 @@ FAM_SEQ = ("minicpm3-4b", "hymba-1.5b")
 FAULT_CASES = {"wo not summed": ("g3", (1, 2), 100),
                "local norm": ("g3", (1, 2), 100),
                "grads summed": ("g3", (2, 1), 100),
+               "pods not averaged": ("g3", (2, 1, 2), 100),
                "moe combine not summed": ("olmoe-1b-7b", (1, 2), 4),
                "aux_lb mean of products": ("olmoe-1b-7b", (2, 1), 4),
                "q_norm over a half": ("minicpm3-4b", (1, 2), 4),
@@ -606,17 +613,25 @@ def _lm_cases(world: int, inp: dict, tmp, saved: str | None) -> list:
         cases.append(_lm_train_case(
             lm, "lm train kv replicated 1x4", (1, 4), tmp, jcfg=lm["kvrep"],
             params=lm["kvrep_params"], batches=[lm["kvrep_batch"]]))
+        for mesh in LM_POD_MESHES:
+            cases.append(_lm_train_case(
+                lm, "lm train pod " + "x".join(map(str, mesh)), mesh, tmp))
+        f = inp["fam"]["fam"]["olmoe-1b-7b"]
+        cases.append(_lm_train_case(
+            lm, "fam train olmoe-1b-7b pod 2x2x1", (2, 2, 1), tmp,
+            jcfg=f["jcfg"], params=f["params"], batches=f["batches"]))
+    for fault, (name, mesh, _) in FAULT_CASES.items():
+        if name == "g3" and (len(mesh) == 3) == (world == 4):
+            cases.append(_lm_train_case(
+                lm, f"lm fault {fault}", mesh, tmp, fault=fault,
+                batches=lm["batches"][:1], return_state=False))
+    if world == 4:
         return cases
     cases.append(_lm_train_case(lm, "lm train accum2 2x1", (2, 1), tmp,
                                 grad_accum=2))
     cases.append(_lm_train_case(
         lm, "lm train hubert 2x1", (2, 1), tmp, jcfg=lm["hub"],
         params=lm["hub_params"], batches=[lm["hub_batch"]]))
-    for fault, (name, mesh, _) in FAULT_CASES.items():
-        if name == "g3":
-            cases.append(_lm_train_case(
-                lm, f"lm fault {fault}", mesh, tmp, fault=fault,
-                batches=lm["batches"][:1], return_state=False))
     cases += _fam_cases(inp, tmp)
     qwen = lm["qwen"]
     cases.append(dict(
@@ -1206,12 +1221,16 @@ def _check_metrics(got: list, want: list, what: str) -> float:
 
 @pytest.mark.parametrize("world,name", [
     (2, "lm train 2x1"), (2, "lm train 1x2"), (4, "lm train 2x2"),
-    (2, "lm train accum2 2x1")])
+    (2, "lm train accum2 2x1"), (4, "lm train pod 2x1x2"),
+    (4, "lm train pod 2x2x1")])
 def test_lm_train_steps_match_the_reference(world, name, spawned, inputs):
     """Two steps with the build_cell shardings, every rank's gathered
     state and metrics against the reference's unsharded steps from the
     same state; at (2, 1) through TrainLoop with one injected failure,
-    every rank restoring the checkpoint rank 0 wrote."""
+    every rank restoring the checkpoint rank 0 wrote.  On the (pod,
+    data, model) meshes the batch splits over (pod, data), pod-major as
+    ``batch_sharding`` cuts it, the gradients are averaged over the pods
+    and the clip's norm is summed over each leaf's split axes only."""
     lm = inputs["lm"]
     accum = 2 if "accum2" in name else 1
     want_state, want_metrics = lm["train"][accum]
@@ -1222,7 +1241,7 @@ def test_lm_train_steps_match_the_reference(world, name, spawned, inputs):
         _check_lm_state(got["state"], before, want_state, name)
         assert got["restarts"] == (1 if name == "lm train 2x1" else 0)
         # each call runs the global layer's flash over the rank's heads
-        model = int(name.split()[-1].split("x")[1])
+        model = int(name.split()[-1].split("x")[-1])
         heads = {c[3] for c in got["flash"]}
         assert heads == {lm["g3"].n_heads // model}, (name, heads)
 
@@ -1274,10 +1293,10 @@ def test_lm_train_faults_fail_the_gate(fault, spawned, inputs):
     """Each planted fault reads far above the gate on every rank (its
     factor of FAULT_CASES): loss, ``grad_norm`` against LM_TRAIN_TOL,
     ``aux_lb`` against AUX_TOL."""
-    name, _, factor = FAULT_CASES[fault]
+    name, mesh, factor = FAULT_CASES[fault]
     want = inputs["lm"]["train"][1][1] if name == "g3" \
         else inputs["fam"]["refs"]()[name]["metrics"]
-    for res in spawned(2)[1]:
+    for res in spawned(2 if len(mesh) == 2 else 4)[1]:
         got = res[f"lm fault {fault}"]["metrics"]
         worst = max(max(abs(g[k] - w[k]) / abs(w[k]) / tol
                         for k, tol in (("loss", LM_TRAIN_TOL),
@@ -1561,6 +1580,38 @@ def test_family_routing_is_the_one_device_routing(name, spawned, inputs):
                        for i in range(3)]
                 for g, w in zip(got, want[layer]):
                     assert torch.equal(g, w), (name, mesh, layer)
+
+
+def test_moe_train_on_a_pod_mesh_matches_the_reference(spawned, inputs):
+    """OLMoE's two train steps at (pod, data, model) = (2, 2, 1): its
+    routing group of 128 tokens spans the four batch ranks, so the
+    logits are gathered over (pod, data) and each rank takes the rows
+    at its index there, pod-major as ``batch_sharding`` cuts the batch.
+    Loss, grad_norm, the aux losses and each leaf's update against the
+    reference's; each MoE layer's routing, the ranks' rows put together
+    in (pod, data) order, bit for bit the port's one-device routing."""
+    name = "olmoe-1b-7b"
+    f = inputs["fam"]["fam"][name]
+    ref = inputs["fam"]["refs"]()[name]
+    results = [r[f"fam train {name} pod 2x2x1"] for r in spawned(4)[1]]
+    for got in results:
+        _check_metrics(got["metrics"], ref["metrics"], name)
+        _check_aux(got["metrics"], ref["metrics"], name)
+        _check_lm_state(got["state"], _np_state(f["params"]), ref["state"],
+                        name)
+    tcfg = tbase.ArchConfig(**dataclasses.asdict(f["jcfg"]))
+    want: list = []
+    with parity.routings(want), torch.no_grad():
+        ttr.loss_fn(_tparams(f["params"], f["jcfg"]),
+                    {"tokens": torch.tensor(f["batches"][0]["tokens"])},
+                    tcfg, ttr.RunFlags(remat=False))
+    order = sorted(results, key=lambda r: (r["coords"]["pod"],
+                                           r["coords"]["data"]))
+    for layer in range(len(want)):
+        got = [torch.cat([r["routing"][layer][i] for r in order])
+               for i in range(3)]
+        for g, w in zip(got, want[layer]):
+            assert torch.equal(g, w), (name, layer)
 
 
 @pytest.mark.parametrize("name", FAMILIES)
